@@ -1,0 +1,108 @@
+"""The StemGNN model, dense eval path, in PyTorch.
+
+Architecture (reference base_model.py; stemgnn_tpu/models/stemgnn.py):
+
+  x [B, W, N]
+    └─ latent correlation layer (base_model.py:136-149)
+         GRU over the NODE axis -> rank-1 additive attention [B,N,N] ->
+         batch mean -> degree (pre-symmetrization) -> symmetrize ->
+         normalized Laplacian -> Chebyshev basis with T0=0 -> mul_L [4,N,N]
+    └─ 2 residual stacks (base_model.py:171-173)
+         block: cheb graph conv -> FFT/GLU/iFFT spe-seq cell -> per-order
+         contraction -> forecast head; stack 0 also emits
+         sigmoid(backcast(igfted) - shortcut(x)) as stack 1's input
+    └─ head: Linear(W,W) -> LeakyReLU(0.01) -> Linear(W,horizon)
+  returns (forecast [B, horizon, N], attention [N, N] symmetrized)
+
+The four hot ops go through `stemgnn_tpu_torch.ops`, whose wrappers launch
+the CUDA kernels on CUDA tensors and run the plain twins on CPU tensors.
+Parameters are a nested dict of tensors in the JAX package's layout.
+Only the dense single-device eval path is here: training (dropout, the
+backward kernels) and the sparse, segmented and ring branches are not.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from stemgnn_tpu_torch import ops
+from stemgnn_tpu_torch.config import StemGNNConfig
+from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
+from stemgnn_tpu_torch.models.initializers import init_params
+from stemgnn_tpu_torch.ops.torch_impl import gru_over_nodes  # noqa: F401 (plain GRU)
+
+
+def latent_correlation_layer(params, cfg: StemGNNConfig, x):
+    """base_model.py:136-149. Returns (mul_L [4,N,N], attention [N,N])."""
+    enc = ops.gru_over_nodes(params["gru"], x)  # [B, N_seq, N_hid]
+    # the reference's input.permute(0,2,1), legal only because hidden == N
+    enc = enc.transpose(1, 2)  # [B, N_hid, N_seq]
+    key = (enc @ params["weight_key"])[..., 0].contiguous()  # [B, N]
+    query = (enc @ params["weight_query"])[..., 0].contiguous()
+    att = ops.attention_kq(key, query, cfg.leaky_rate)  # [B, N, N]
+    return ops.laplacian_from_attention(att)
+
+
+def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int):
+    """One StockBlockLayer (base_model.py:61-75).
+
+    x: [B, N, W]. Returns (forecast [B,N,W], backcast [B,N,W] or None).
+    """
+    gfted = ops.cheb_graph_conv(mul_L.contiguous(), x.contiguous())  # [B,4,N,W]
+    gconv = ops.spe_seq_cell(gfted, block["glu"], cfg.multi_layer)  # [B,4,N,Wm]
+    igfted = ops.order_contract(gconv, block["weight"])  # [B, N, Wm]
+    forecast_source = torch.sigmoid(ops.dense(igfted, block["forecast"]))
+    forecast = ops.dense(forecast_source, block["forecast_result"])  # [B, N, W]
+    if stack_i == 0:
+        backcast_short = ops.dense(x, block["backcast_short_cut"])
+        backcast = torch.sigmoid(ops.dense(igfted, block["backcast"]) - backcast_short)
+        return forecast, backcast
+    return forecast, None
+
+
+def forward(params, cfg: StemGNNConfig, x, *, training: bool = False):
+    """Model.forward (base_model.py:167-179), eval only.
+
+    x: [B, W, N] on the device of the params. Returns
+    (forecast [B, horizon, N], attention [N, N]).
+    """
+    if training:
+        raise NotImplementedError(
+            "training (dropout and the backward kernels) is not ported yet")
+    mul_L, attention = latent_correlation_layer(params, cfg, x)
+    feat = x.permute(0, 2, 1)  # [B, N, W]
+    forecasts = []
+    for i in range(cfg.stack_cnt):
+        f, feat_next = block_forward(params["blocks"][i], cfg, feat, mul_L, i)
+        forecasts.append(f)
+        if feat_next is not None:
+            feat = feat_next
+    out = forecasts[0] + forecasts[1]  # [B, N, W] (base_model.py:174)
+    h = F.leaky_relu(ops.dense(out, params["fc1"]), negative_slope=0.01)
+    out = ops.dense(h, params["fc2"])  # [B, N, horizon]
+    return out.permute(0, 2, 1), attention
+
+
+class StemGNN(nn.Module):
+    """nn.Module holding the parameter tree; `forward` is the eval path.
+
+    Parameters are registered under their "/"-joined tree names, so the
+    state dict carries the JAX layout unchanged.
+    """
+
+    def __init__(self, cfg: StemGNNConfig, params=None, *, seed: int = 0,
+                 device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        if params is None:
+            params = init_params(seed, cfg, device)
+        self.flat = nn.ParameterDict(
+            {k: nn.Parameter(v) for k, v in flatten_params(params).items()})
+
+    def params(self):
+        return unflatten_params(dict(self.flat.items()))
+
+    def forward(self, x, training: bool = False):
+        return forward(self.params(), self.cfg, x, training=training)

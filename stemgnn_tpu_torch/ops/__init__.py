@@ -1,0 +1,38 @@
+"""Hot-path ops: plain PyTorch twins + hand-written CUDA kernels.
+
+Dispatch follows the tensor's device: each kernel wrapper runs its plain
+version (the `torch_impl` twin) on a CPU tensor and launches its CUDA
+kernel on a CUDA tensor, or raises. There is no size threshold and no
+fallback from a kernel to its plain version.
+
+Each wrapper counts its launches in `<wrapper>.launches`; `KERNELS` maps a
+kernel's name to its wrapper so a run can reset and read the counts.
+"""
+
+from __future__ import annotations
+
+from stemgnn_tpu_torch.ops.cuda_attention import attention_kq
+from stemgnn_tpu_torch.ops.cuda_graph import cheb_graph_conv
+from stemgnn_tpu_torch.ops.cuda_gru import gru_over_nodes
+from stemgnn_tpu_torch.ops.cuda_spectral import spe_seq_cell
+from stemgnn_tpu_torch.ops.torch_impl import (  # noqa: F401
+    dense,
+    laplacian_from_attention,
+    order_contract,
+)
+
+KERNELS = {
+    "gru_fwd": gru_over_nodes,
+    "attention_kq_fwd": attention_kq,
+    "cheb_graph_conv_fwd": cheb_graph_conv,
+    "spectral_fwd": spe_seq_cell,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
