@@ -12,9 +12,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
   3. kernels: each kernel at the ECG flagship shapes (N=140, W=12,
      multi_layer=5, batch 32), on inputs that the model's own plain path
      computes from the first test batch, held against its plain PyTorch
-     version on the card; median times from CUDA events, the least time
-     the card could take (bytes or f32 operations at published H100 SXM
-     peaks), and a one-call PyTorch yardstick where one exists.
+     version on the card; device times from CUDA events around replays of
+     a captured CUDA graph of many calls, the least time the card could
+     take (bytes or f32 operations at published H100 SXM peaks), and a
+     one-call PyTorch yardstick where one exists.
   4. main path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -50,12 +51,39 @@ def _fail(msg: str) -> int:
     return 1
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of one call of fn, from CUDA events."""
+def cuda_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device milliseconds of one call of fn: `calls` calls captured in one
+    CUDA graph, the graph replayed `replays` times between two CUDA events,
+    the interval over calls * replays. The replay leaves out each call's
+    host work (Python checks, ctypes, allocation)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # caches, library plans and workspaces
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def call_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds from before one eager call of fn to the end of
+    its work on the card: host work, launch and device time together."""
+    import torch
+
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -101,7 +129,7 @@ def kernel_cases(params, mcfg, x):
         gfted = torch_impl.cheb_graph_conv(mul_L, feat).contiguous()
         glu = params["blocks"][0]["glu"]
 
-    cudnn_gru = torch.nn.GRU(w, h).to(x.device)
+    cudnn_gru = torch.nn.GRU(w, h).to(x.device).eval()
     with torch.no_grad():
         cudnn_gru.weight_ih_l0.copy_(gru["w_ih"])
         cudnn_gru.weight_hh_l0.copy_(gru["w_hh"])
@@ -148,7 +176,10 @@ def kernel_cases(params, mcfg, x):
          # of the Pallas kernel holds them (tests/test_pallas_kernels.py:47)
          5e-4, 1e-4,
          4 * (rows * d0 + glu_w + rows * d1),
-         2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * d1 * d1) + 8 * d0 * d0 * d1),
+         # six GLUs, the inverse DFT and the fold, the two DFTs counted per
+         # order block: their off-diagonal blocks are zeros
+         2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm)
+         + 8 * k * w * w * d1),
     ]
 
 
@@ -215,12 +246,15 @@ def run() -> int:
             ms = cuda_ms(kern)
             plain_ms = cuda_ms(plain)
             lib_ms = cuda_ms(lib) if lib is not None else None
+            one_call_ms = call_ms(kern)
         bound_ms, bound_by = bound(nbytes, flops)
         print(f"[3 kernel] {name}: max_abs_err {err:.3e} (atol {atol:g}, "
-              f"rtol {rtol:g}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"rtol {rtol:g}) {'ok' if ok else 'FAIL'}; kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.5f} ms'}, "
+              f"bound {bound_ms:.5f} ms ({bound_by}, {flops:.4e} op, "
+              f"{nbytes:.4e} B); one eager call with its host work "
+              f"{one_call_ms:.5f} ms")
         if not ok or not math.isfinite(err):
             return _fail(f"{name} disagrees with its plain version: {err}")
         results[name] = dict(

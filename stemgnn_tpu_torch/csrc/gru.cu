@@ -89,20 +89,15 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
 
 }  // namespace
 
-// Shared memory the kernel needs at (B, H); the wrapper refuses shapes
-// above the card's per-block limit before calling gru_fwd.
-extern "C" long gru_fwd_smem_bytes(int B, int H) {
-  const long Bp = (B + kBSub - 1) / kBSub * kBSub;
-  return 2L * H * Bp * (long)sizeof(float);
-}
-
+// A (B, H) whose double-buffered h exceeds the shared memory of a block
+// fails at cudaFuncSetAttribute.
 extern "C" int gru_fwd(const float* xp, const float* A, const float* bh, float* out,
                        int N, int B, int H, void* stream) {
-  const long smem = gru_fwd_smem_bytes(B, H);
+  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
+  const long smem = 2L * H * Bp * (long)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       gru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
   const int items = H * (Bp / kBSub);
   int threads = (items + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;

@@ -8,11 +8,13 @@
 //   2x: R = GLU_even(R); I = GLU_odd(I)
 //   out = R @ Ci + I @ Si      (inverse DFT, real part), [rows, K*Wm]
 // written straight into the [B,K,N,Wm] layout; GLU(u) = (u@Wl + bl) *
-// sigmoid(u@Wr + br), all f32.
+// sigmoid(u@Wr + br), all f32. The inverse DFT is block-diagonal over the
+// K orders, so the kernel takes one [Wm, Wm] block of Ci and of Si and an
+// output column of order kk sums only over that order's Wm inputs.
 //
-// Bound on the H100: f32 operations (about 2*rows*(4*D0*D1 + 10*D1*D1),
-// D0 = K*W, D1 = K*Wm: 5.6 GFLOP at the flagship shapes, against a few MB
-// of traffic). The design keeps every intermediate out of device memory, as
+// Bound on the H100: f32 operations (about 2*rows*(4*D0*D1 + 8*D1*D1 +
+// 2*K*Wm*Wm), D0 = K*W, D1 = K*Wm: 4.8 GFLOP at the flagship shapes,
+// against a few MB of traffic). The design keeps every intermediate out of device memory, as
 // the TPU kernel kept it out of HBM: one block per tile of 32 rows holds
 // the input tile and both chains' [32, D1] activations in shared memory
 // (stored column-major, [k][row], so a thread reads 4 rows per 16-byte
@@ -110,10 +112,12 @@ spectral_fwd_kernel(const float* __restrict__ x, GluWeights g,
   }
 
   for (int c = threadIdx.x; c < d1; c += blockDim.x) {
+    const int kk = c / WM, m = c % WM;
     float acc[kTR] = {};
-    for (int k = 0; k < d1; ++k) {
-      const float wc = ci[(long)k * d1 + c];
-      const float ws = si[(long)k * d1 + c];
+    for (int j = 0; j < WM; ++j) {
+      const float wc = ci[j * WM + m];
+      const float ws = si[j * WM + m];
+      const int k = kk * WM + j;
       const float4* r4 = reinterpret_cast<const float4*>(real + k * kTRS);
       const float4* i4 = reinterpret_cast<const float4*>(imag + k * kTRS);
 #pragma unroll
@@ -125,7 +129,6 @@ spectral_fwd_kernel(const float* __restrict__ x, GluWeights g,
         acc[4 * q + 3] = fmaf(v.w, ws, fmaf(u.w, wc, acc[4 * q + 3]));
       }
     }
-    const int kk = c / WM, m = c % WM;
 #pragma unroll
     for (int i = 0; i < kTR; ++i) {
       const long row = row0 + i;
@@ -138,12 +141,10 @@ spectral_fwd_kernel(const float* __restrict__ x, GluWeights g,
 
 }  // namespace
 
-extern "C" long spectral_fwd_smem_bytes(int K, int W, int WM) {
-  return (long)(K * W + 3 * K * WM) * kTRS * (long)sizeof(float);
-}
-
 // w: 24 device pointers, per GLU i = 0..5: wl[i], bl[i], wr[i], br[i]
-// (wl/wr [Din, D1] row-major, layer-0 weights already DFT-folded).
+// (wl/wr [Din, D1] row-major, layer-0 weights already DFT-folded); ci, si:
+// one [WM, WM] block of the inverse DFT. A shape whose buffers exceed the
+// shared memory of a block fails at cudaFuncSetAttribute.
 extern "C" int spectral_fwd(const float* x, const void* const* w, const float* ci,
                             const float* si, float* out, int B, int K, int N, int W,
                             int WM, void* stream) {
@@ -154,7 +155,7 @@ extern "C" int spectral_fwd(const float* x, const void* const* w, const float* c
     g.wr[i] = static_cast<const float*>(w[4 * i + 2]);
     g.br[i] = static_cast<const float*>(w[4 * i + 3]);
   }
-  const long smem = spectral_fwd_smem_bytes(K, W, WM);
+  const long smem = (long)(K * W + 3 * K * WM) * kTRS * (long)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       spectral_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -13,8 +13,9 @@ torch's stream (base_model.py:79-104):
 
 With seed 0 this is the draw of the reference's `torch.manual_seed(0)`
 (main.py:52), and it equals stemgnn_tpu's numpy replication
-(`torch_stream_init`): bitwise for the uniform draws, within 2 ulp for the
-one xavier_normal tensor. Linear weights are stored transposed, [in, out];
+(`torch_stream_init`): bitwise for the uniform draws, within 4 ulp for the
+one xavier_normal tensor (torch's vectorised Box-Muller against numpy's
+libm; measured at seeds 0 and 3, N = 20 and 140). Linear weights are stored transposed, [in, out];
 the block weight as [4, Wm, Wm].
 """
 

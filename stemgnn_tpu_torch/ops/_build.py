@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `build/stemgnn_tpu_torch/<hash>/lib<name>.so`, the nvcc of every source
 started together at first use. The directory is keyed on a hash of all the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
-libraries. Libraries are loaded with ctypes; every C entry returns
+libraries. Libraries are loaded with ctypes (each wrapper caches its own);
+every C entry returns the error of its shared-memory opt-in or
 `cudaGetLastError()` after its launch, and `check` raises on a nonzero code.
 """
 
@@ -28,11 +29,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-# shared memory one H100 block can have (opt-in dynamic shared memory)
-MAX_SMEM_BYTES = 232_448
-
 _lock = threading.Lock()
-_libs: dict = {}
 
 
 def _sources():
@@ -84,19 +81,17 @@ def build_all() -> tuple[Path, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded `lib<name>.so`, built on first use."""
+    """Load `lib<name>.so`, building every source first if need be."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            out_dir, _ = build_all()
-            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-            _libs[name] = lib
-        return lib
+        out_dir, _ = build_all()
+    return ctypes.CDLL(str(out_dir / f"lib{name}.so"))
 
 
 def check(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise RuntimeError(
+            f"{what}: CUDA error {rc} at launch (1, cudaErrorInvalidValue, is also "
+            "the error of shapes that need more shared memory than a block has)")
 
 
 def stream_ptr(tensor) -> ctypes.c_void_p:

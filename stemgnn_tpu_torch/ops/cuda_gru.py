@@ -21,14 +21,11 @@ gru_over_nodes_plain = torch_impl.gru_over_nodes
 
 
 @functools.cache
-def _lib():
-    lib = _build.library("gru")
-    lib.gru_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    lib.gru_fwd.restype = ctypes.c_int
-    lib.gru_fwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.gru_fwd_smem_bytes.restype = ctypes.c_long
-    return lib
+def _fn():
+    fn = _build.library("gru").gru_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def gru_over_nodes(gru, x):
@@ -41,15 +38,9 @@ def gru_over_nodes(gru, x):
     b_hh = gru["b_hh"].contiguous()
     _build.require_cuda("gru_over_nodes", x_proj, w_hh_t, b_hh)
     h = w_hh_t.shape[0]
-    lib = _lib()
-    smem = lib.gru_fwd_smem_bytes(b, h)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"gru_over_nodes: h for B={b}, H={h} needs {smem} bytes of shared "
-            f"memory, above the {_build.MAX_SMEM_BYTES} a block can have")
     out = torch.empty((b, n, h), dtype=torch.float32, device=x.device)
-    rc = lib.gru_fwd(x_proj.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
-                     out.data_ptr(), n, b, h, _build.stream_ptr(x))
+    rc = _fn()(x_proj.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
+               out.data_ptr(), n, b, h, _build.stream_ptr(x))
     _build.check(rc, "gru_over_nodes")
     gru_over_nodes.launches += 1
     return out

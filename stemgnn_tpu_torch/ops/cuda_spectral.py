@@ -5,9 +5,10 @@ Kernel: csrc/spectral.cu, the port of stemgnn_tpu/ops/pallas_spectral.py
 (W = 12) that the FFT is a product with a DFT matrix. The forward DFT is
 folded into the layer-0 GLU weights here, outside the kernel, in f32
 torch.matmul (four [K*W, K*W] x [K*W, K*Wm] products, as the JAX package's
-`_forward` does); the kernel runs the six GLUs and the inverse DFT. On a
-CPU tensor the wrapper runs the plain version, `spe_seq_cell_plain` (a
-full FFT); on a CUDA tensor it launches the kernel or raises.
+`_forward` does); the kernel runs the six GLUs and the inverse DFT, one
+[Wm, Wm] block of it per order. On a CPU tensor the wrapper runs the plain
+version, `spe_seq_cell_plain` (a full FFT); on a CUDA tensor it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -54,7 +55,11 @@ def dft_matrices(w: int, k: int, wm: int):
 
 @functools.lru_cache(maxsize=16)
 def _dft_on(w: int, k: int, wm: int, device: torch.device):
-    return tuple(torch.from_numpy(m).to(device) for m in dft_matrices(w, k, wm))
+    """Block-diagonal Cf, Sf for the fold, and one [wm, wm] block of Ci, Si
+    for the kernel (every order's block is the same)."""
+    cf, sf, ci, si = dft_matrices(w, k, wm)
+    return tuple(torch.from_numpy(np.ascontiguousarray(m)).to(device)
+                 for m in (cf, sf, ci[:wm, :wm], si[:wm, :wm]))
 
 
 def folded_weights(glu_params, cf, sf):
@@ -73,15 +78,13 @@ def folded_weights(glu_params, cf, sf):
 
 
 @functools.cache
-def _lib():
-    lib = _build.library("spectral")
-    lib.spectral_fwd.argtypes = [
+def _fn():
+    fn = _build.library("spectral").spectral_fwd
+    fn.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.spectral_fwd.restype = ctypes.c_int
-    lib.spectral_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.spectral_fwd_smem_bytes.restype = ctypes.c_long
-    return lib
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def spe_seq_cell(x, glu_params, multi: int):
@@ -99,15 +102,10 @@ def spe_seq_cell(x, glu_params, multi: int):
         if tuple(t.shape) != want:
             raise ValueError(f"spe_seq_cell: GLU tensor {i} is {tuple(t.shape)}, "
                              f"expected {want}")
-    lib = _lib()
-    smem = lib.spectral_fwd_smem_bytes(k, w, wm)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"spe_seq_cell: K*W={k * w}, K*Wm={k * wm} need {smem} "
-                         f"bytes of shared memory, above {_build.MAX_SMEM_BYTES}")
     out = torch.empty((b, k, n, wm), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
-    rc = lib.spectral_fwd(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
-                          out.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
+    rc = _fn()(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
+               b, k, n, w, wm, _build.stream_ptr(x))
     _build.check(rc, "spe_seq_cell")
     spe_seq_cell.launches += 1
     return out

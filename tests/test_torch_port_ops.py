@@ -201,7 +201,7 @@ def test_graph_plain_matches_pallas(interpret):
 
 def test_cpu_tensors_take_the_plain_path_without_launching(np_params):
     """On CPU tensors no wrapper builds or launches its kernel."""
-    from stemgnn_tpu_torch.ops import _build
+    from stemgnn_tpu_torch.ops import cuda_attention, cuda_graph, cuda_gru, cuda_spectral
 
     ops.reset_launches()
     rng = np.random.default_rng(15)
@@ -210,4 +210,5 @@ def test_cpu_tensors_take_the_plain_path_without_launching(np_params):
     enc = ops.gru_over_nodes(gru, x)
     ops.attention_kq(enc[:, 0].contiguous(), enc[:, 1].contiguous(), 0.2)
     assert ops.launches() == dict.fromkeys(ops.KERNELS, 0)
-    assert _build._libs == {}
+    for m in (cuda_gru, cuda_attention, cuda_graph, cuda_spectral):
+        assert m._fn.cache_info().currsize == 0, m.__name__
