@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive stemgnn_tpu_torch's serving path on one NVIDIA GPU and check its kernels.
+"""Drive stemgnn_tpu_torch's serving and training paths on one NVIDIA GPU and
+check its kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,19 +10,30 @@ Phases, each fatal on failure (nonzero exit, no result line):
   1. device: CUDA present; the card's name and power limit from nvidia-smi;
      TF32 off for every f32 comparison.
   2. build: nvcc of every kernel source in stemgnn_tpu_torch/csrc.
-  3. kernels: each kernel at the ECG flagship shapes (N=140, W=12,
-     multi_layer=5, batch 32), on inputs that the model's own plain path
-     computes from the first test batch, held against its plain PyTorch
-     version on the card; device times from CUDA events around replays of
-     a captured CUDA graph of many calls, the least time the card could
-     take (bytes or f32 operations at published H100 SXM peaks), and a
-     one-call PyTorch yardstick where one exists.
-  4. main path: ECG_data through the port's entry points on the card
+  3. kernels: each of the seven kernels at the ECG flagship shapes (N=140,
+     W=12, multi_layer=5, batch 32), held against its plain PyTorch version
+     on the card. The forward kernels run on inputs that the model's own
+     plain path computes from the first test batch; the backward kernels on
+     the activations and cotangents of one train step of the port's CPU
+     plain path on the first training batch. Device times come from CUDA
+     events around replays of a captured CUDA graph of many calls; beside
+     them the least time the card could take (bytes or f32 operations at
+     published H100 SXM peaks) and a one-call PyTorch yardstick where one
+     exists.
+  4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
      just after; then the test-split forecasts against the port's CPU plain
      path, and eval windows/s.
-  5. a `kernels` JSON line, then the result line.
+  5. train path: engine.train on the card, one epoch of ECG_data with its
+     validate pass (batch 32, RMSProp, dropout 0.5), counters set to 0 just
+     before and read just after and held against the expected launches per
+     step; the epoch's loss, checkpoints and metrics.jsonl; one step's loss
+     and gradients against the CPU plain path with the same dropout mask;
+     the same step twice, bitwise; three RMSProp steps against the CPU; and
+     train windows/s.
+  6. a `kernels` JSON line (launches summed over both paths), then the
+     result line.
 
 It imports nothing of JAX or of stemgnn_tpu.
 """
@@ -31,6 +43,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -79,6 +92,24 @@ def cuda_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+def stream_ms(fn, calls: int = 30) -> float:
+    """Milliseconds per call of `calls` eager calls in a row between two CUDA
+    events, after three warm calls: for work that is not captured in a graph
+    (an autograd backward). Host work shows where it outlasts the device's."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def call_ms(fn, reps: int = 20) -> float:
     """Median milliseconds from before one eager call of fn to the end of
     its work on the card: host work, launch and device time together."""
@@ -102,7 +133,164 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_cases(params, mcfg, x):
+class OpRecorder:
+    """For one forward and backward of the model: keeps, for each call of the
+    four op wrappers of `stemgnn_tpu_torch.ops`, its arguments, its output and
+    the cotangent that reaches the output."""
+
+    NAMES = ("gru_over_nodes", "attention_kq", "cheb_graph_conv", "spe_seq_cell")
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.calls = {name: [] for name in self.NAMES}
+
+    def __enter__(self):
+        self._orig = {name: getattr(self.ops, name) for name in self.NAMES}
+        for name, fn in self._orig.items():
+            setattr(self.ops, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.ops, name, fn)
+        return False
+
+    def _wrap(self, name, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            call = {"args": args, "out": out.detach(), "g": None}
+            out.register_hook(lambda g: call.__setitem__("g", g.detach()))
+            self.calls[name].append(call)
+            return out
+
+        return wrapped
+
+
+def step_grads(params, mcfg, x, y, mask):
+    """Loss and the gradient of every parameter for one batch with the given
+    dropout mask, through the port's own forward; a parameter the loss does
+    not reach gets zeros, as in the engine's train step."""
+    import torch
+
+    from stemgnn_tpu_torch.models import stemgnn
+    from stemgnn_tpu_torch.models.convert import flatten_params
+
+    flat = flatten_params(params)
+    for p in flat.values():
+        p.grad = None
+    forecast, _ = stemgnn.forward(params, mcfg, x, training=True, dropout_mask=mask)
+    loss = torch.mean((forecast - y) ** 2)
+    loss.backward()
+    return loss.detach(), {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                           for k, p in flat.items()}
+
+
+def leaf_params(params, device):
+    """A copy of the tree on `device` whose leaves require a gradient."""
+    from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
+
+    return unflatten_params({
+        k: v.detach().to(device).clone().requires_grad_(True)
+        for k, v in flatten_params(params).items()})
+
+
+def backward_cases(rec, params, mcfg, dev):
+    """The three backward kernels, as `forward_cases`, on what one train step
+    of the CPU plain path saved and sent back (`rec`, an OpRecorder)."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_attention, cuda_gru, cuda_spectral
+    from stemgnn_tpu_torch.ops import torch_impl
+
+    def on_card(t):
+        return t.detach().to(dev).contiguous()
+
+    gru = {k: v.detach() for k, v in params["gru"].items()}
+    call = rec.calls["gru_over_nodes"][0]
+    x = on_card(call["args"][1])
+    g_gru = on_card(call["g"])  # [B, N, H]
+    b, w, n = x.shape
+    h = n
+    with torch.no_grad():
+        x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
+        a_all = gru["w_hh"].T.contiguous()
+        _, saved = torch_impl.gru_scan(x_proj, a_all, gru["b_hh"], save=True)
+
+    cudnn_gru = torch.nn.GRU(w, h).to(dev).train()
+    with torch.no_grad():
+        cudnn_gru.weight_ih_l0.copy_(gru["w_ih"])
+        cudnn_gru.weight_hh_l0.copy_(gru["w_hh"])
+        cudnn_gru.bias_ih_l0.copy_(gru["b_ih"])
+        cudnn_gru.bias_hh_l0.copy_(gru["b_hh"])
+    xs = x.permute(2, 0, 1).contiguous().requires_grad_(True)  # [N, B, W]
+    g_seq = g_gru.transpose(0, 1).contiguous()  # [N, B, H]
+
+    def cudnn_fwd_bwd():
+        with torch.enable_grad():
+            out = cudnn_gru(xs)[0]
+            return torch.autograd.grad(out, [xs, *cudnn_gru.parameters()], g_seq)
+
+    call = rec.calls["attention_kq"][0]
+    key, query = on_card(call["args"][0]), on_card(call["args"][1])
+    alpha = call["args"][2]
+    p_att, g_att = on_card(call["out"]), on_card(call["g"])
+
+    call = rec.calls["spe_seq_cell"][0]
+    gfted, g_spe = on_card(call["args"][0]), on_card(call["g"])
+    multi = call["args"][2]
+    glu = [{s: {leaf: t.detach() for leaf, t in p[s].items()} for s in p}
+           for p in params["blocks"][0]["glu"]]
+    k = gfted.shape[1]
+    wm = w * multi
+    d0, d1 = k * w, k * wm
+    rows = b * n
+    glu_w = sum(t.numel() for t in cuda_spectral._flat(glu))
+    glu_flops = 2 * rows * (4 * d0 * d1 + 8 * d1 * d1)
+
+    def flat_spe(res):
+        dx, dglu = res
+        return torch.cat([dx.reshape(-1)] + [t.reshape(-1) for t in
+                                             cuda_spectral._flat(dglu)])
+
+    return [
+        ("gru_bwd", "stemgnn_tpu_torch/csrc/gru.cu",
+         "stemgnn_tpu/ops/pallas_gru.py:132",
+         lambda: cuda_gru.gru_scan_bwd(saved, g_gru, a_all),
+         lambda: cuda_gru.gru_scan_bwd_plain(saved, g_gru, a_all),
+         ("stream", cudnn_fwd_bwd),  # cuDNN forward plus backward
+         # 140 dependent steps of 420-term sums in another order than cuBLAS
+         1e-5, 1e-4,
+         4 * (saved.numel() + g_gru.numel() + a_all.numel() + 3 * n * b * h),
+         2 * n * b * 3 * h * h + 14 * n * b * h),
+        ("attention_kq_bwd", "stemgnn_tpu_torch/csrc/attention.cu",
+         "stemgnn_tpu/ops/pallas_attention.py:65",
+         lambda: torch.cat(cuda_attention.attention_kq_bwd(
+             key, query, p_att, g_att, alpha)),
+         lambda: torch.cat(cuda_attention.attention_kq_bwd_plain(
+             key, query, p_att, g_att, alpha)),
+         None,
+         # 140-term sums of products of softmax outputs in another order
+         1e-5, 1e-4,
+         4 * (4 * b * n + 2 * b * n * n),
+         8 * b * n * n),
+        ("spectral_bwd", "stemgnn_tpu_torch/csrc/spectral.cu",
+         "stemgnn_tpu/ops/pallas_spectral.py:250",
+         lambda: flat_spe(cuda_spectral.spe_seq_cell_bwd(gfted, glu, g_spe, multi)),
+         lambda: flat_spe(cuda_spectral.spe_seq_cell_bwd_plain(gfted, glu, g_spe,
+                                                               multi)),
+         None,
+         # 4480-term f32 sums (weight gradients) in another order than cuBLAS,
+         # dx and all 24 gradients held as one vector
+         1e-5, 1e-3,
+         4 * (2 * rows * d0 + rows * d1 + 2 * glu_w),
+         # recompute, the products back to the inputs and the weight-gradient
+         # products (each the six GLUs' size), the inverse DFT backwards per
+         # order block, the fold and the unfold
+         3 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1),
+    ]
+
+
+def forward_cases(params, mcfg, x):
     """(name, source, replaces, kernel call, plain call, library call or None,
     atol, rtol, bytes, flops) at the main path's shapes. The inputs are what
     the plain path computes from the batch x [B, W, N]."""
@@ -183,6 +371,50 @@ def kernel_cases(params, mcfg, x):
     ]
 
 
+def check_cases(cases, results, phase: str, scaled: bool = False):
+    """Hold each case's kernel against its plain version and time both; fills
+    `results`. Returns an error message, or None. With `scaled` a case's atol
+    is a fraction of the plain result's largest entry: the cotangents of a
+    real train step, and so the backward kernels' outputs, are far below 1."""
+    import torch
+
+    for (name, source, replaces, kern, plain, lib, atol, rtol, nbytes,
+         flops) in cases:
+        with torch.no_grad():
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item() if scaled else 1.0
+            ok = bool(torch.allclose(got, want, atol=atol * scale, rtol=rtol))
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain)
+            if lib is None:
+                lib_ms = None
+            elif isinstance(lib, tuple):  # ("stream", fn): not capturable
+                lib_ms = stream_ms(lib[1])
+            else:
+                lib_ms = cuda_ms(lib)
+            one_call_ms = call_ms(kern)
+        bound_ms, bound_by = bound(nbytes, flops)
+        tol = (f"atol {atol:g} of the largest entry {scale:.3e}" if scaled
+               else f"atol {atol:g}")
+        print(f"[{phase}] {name}: max_abs_err {err:.3e} ({tol}, "
+              f"rtol {rtol:g}) {'ok' if ok else 'FAIL'}; kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.5f} ms'}, "
+              f"bound {bound_ms:.5f} ms ({bound_by}, {flops:.4e} op, "
+              f"{nbytes:.4e} B); one eager call with its host work "
+              f"{one_call_ms:.5f} ms")
+        if not ok or not math.isfinite(err):
+            return f"{name} disagrees with its plain version: {err}"
+        results[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms, launches=0)
+    return None
+
+
 def run() -> int:
     import numpy as np
     import torch
@@ -207,62 +439,72 @@ def run() -> int:
     from stemgnn_tpu_torch.data import (
         WindowDataset, compute_norm_stats, ensure_dataset, load_csv, split_by_ratio)
     from stemgnn_tpu_torch.models import init_params
-    from stemgnn_tpu_torch.ops import _build
+    from stemgnn_tpu_torch.models.convert import flatten_params
+    from stemgnn_tpu_torch.ops import _build, cuda_gru, torch_impl
     from stemgnn_tpu_torch.train import checkpoint as ckpt
     from stemgnn_tpu_torch.train import engine
+    from stemgnn_tpu_torch.train.optim import make_optimizer
 
     # --- 2. build ---
     out_dir, secs = _build.build_all()
     print(f"[2 build] {len(list(_build.CSRC.glob('*.cu')))} sources -> {out_dir} "
           f"in {secs:.1f} s")
 
-    # --- data and params of the main path ---
+    # --- data and params of both paths ---
+    out_root = os.path.join(HERE, "output", "chip_smoke")
+    shutil.rmtree(out_root, ignore_errors=True)
     cfg = TrainConfig(dataset="ECG_data", train=False, batch_size=BATCH,
                       window_size=WINDOW, horizon=HORIZON, multi_layer=MULTI,
                       device="cuda", data_dir=os.path.join(HERE, "dataset"),
-                      output_dir=os.path.join(HERE, "output", "chip_smoke"))
+                      output_dir=out_root)
     data = load_csv(ensure_dataset(cfg.dataset, cfg.data_dir))
-    train_data, _, test_data = split_by_ratio(
+    train_data, valid_data, test_data = split_by_ratio(
         data, cfg.train_length, cfg.valid_length, cfg.test_length)
     mcfg = cfg.model_config(data.shape[1])
     stats = compute_norm_stats(train_data, cfg.norm_method)
-    test_set = WindowDataset(test_data, cfg.window_size, cfg.horizon,
-                             cfg.norm_method, stats)
+    sets = {name: WindowDataset(split, cfg.window_size, cfg.horizon,
+                                cfg.norm_method, stats)
+            for name, split in (("train", train_data), ("valid", valid_data),
+                                ("test", test_data))}
+    test_set = sets["test"]
     params = init_params(cfg.seed, mcfg, device=dev)
+
+    # one train step of the CPU plain path on the first training batches: the
+    # reference of phase 5 and the inputs of the backward kernels in phase 3
+    train_batches = sets["train"].epoch_batches(
+        BATCH, shuffle=True, rng=np.random.default_rng([cfg.seed, 0]))
+    n_nodes = mcfg.units
+    masks = torch.from_numpy(
+        np.random.default_rng(7).random((3, BATCH, n_nodes, n_nodes))
+        < 1.0 - mcfg.dropout_rate)
+    train_cpu = torch.from_numpy(sets["train"].data)
+    his = [torch.from_numpy(b.astype(np.int64)) for b in train_batches[:3]]
+    params_cpu = leaf_params(params, "cpu")
+    x_cpu, y_cpu = engine.gather_windows(train_cpu, his[0], WINDOW, HORIZON)
+    with OpRecorder(ops) as rec:
+        loss_cpu, grads_cpu = step_grads(params_cpu, mcfg, x_cpu, y_cpu, masks[0])
 
     # --- 3. kernels against their plain versions ---
     hi = torch.from_numpy(test_set.epoch_batches(BATCH, shuffle=False)[0]).long()
     x, _ = engine.gather_windows(torch.from_numpy(test_set.data).to(dev),
                                  hi.to(dev), cfg.window_size, cfg.horizon)
     results = {}
-    for (name, source, replaces, kern, plain, lib, atol, rtol, nbytes,
-         flops) in kernel_cases(params, mcfg, x):
-        with torch.inference_mode():
-            got = kern()
-            torch.cuda.synchronize()
-            want = plain()
-            err = (got - want).abs().max().item()
-            ok = bool(torch.allclose(got, want, atol=atol, rtol=rtol))
-            ms = cuda_ms(kern)
-            plain_ms = cuda_ms(plain)
-            lib_ms = cuda_ms(lib) if lib is not None else None
-            one_call_ms = call_ms(kern)
-        bound_ms, bound_by = bound(nbytes, flops)
-        print(f"[3 kernel] {name}: max_abs_err {err:.3e} (atol {atol:g}, "
-              f"rtol {rtol:g}) {'ok' if ok else 'FAIL'}; kernel {ms:.5f} ms, "
-              f"plain {plain_ms:.5f} ms, library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.5f} ms'}, "
-              f"bound {bound_ms:.5f} ms ({bound_by}, {flops:.4e} op, "
-              f"{nbytes:.4e} B); one eager call with its host work "
-              f"{one_call_ms:.5f} ms")
-        if not ok or not math.isfinite(err):
-            return _fail(f"{name} disagrees with its plain version: {err}")
-        results[name] = dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms)
+    fail = check_cases(forward_cases(params, mcfg, x), results, "3 kernel")
+    if fail is None:
+        fail = check_cases(backward_cases(rec, params, mcfg, dev), results,
+                           "3 kernel", scaled=True)
+    if fail is not None:
+        return _fail(fail)
+    with torch.no_grad():
+        gru = params["gru"]
+        x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
+        a_all, b_hh = gru["w_hh"].T.contiguous(), gru["b_hh"]
+        serve_ms = cuda_ms(lambda: cuda_gru._launch_fwd(x_proj, a_all, b_hh, False))
+        save_ms = cuda_ms(lambda: cuda_gru._launch_fwd(x_proj, a_all, b_hh, True))
+    print(f"[3 kernel] gru_fwd recurrence alone (without the input projection): "
+          f"serving variant {serve_ms:.5f} ms, saving variant {save_ms:.5f} ms")
 
-    # --- 4. main path ---
+    # --- 4. serving path ---
     train_dir = os.path.join(cfg.output_dir, cfg.dataset, "train")
     test_dir = os.path.join(cfg.output_dir, cfg.dataset, "test")
     ckpt.save_norm_stat(train_dir, stats)
@@ -275,12 +517,15 @@ def run() -> int:
     torch.cuda.synchronize()
     test_s = time.perf_counter() - t0
     launches = ops.launches()
-    print(f"[4 main path] engine.test: {len(test_set)} windows in {n_batches} "
+    print(f"[4 serving path] engine.test: {len(test_set)} windows in {n_batches} "
           f"batches, {test_s:.3f} s; launches {launches}")
-    want = {"gru_fwd": n_batches, "attention_kq_fwd": n_batches,
-            "cheb_graph_conv_fwd": 2 * n_batches, "spectral_fwd": 2 * n_batches}
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"gru_fwd": n_batches, "attention_kq_fwd": n_batches,
+                 "cheb_graph_conv_fwd": 2 * n_batches, "spectral_fwd": 2 * n_batches})
     if launches != want:
         return _fail(f"launch counts {launches}, expected {want}")
+    for name, n in launches.items():
+        results[name]["launches"] += n
     for k in ("mae", "mape", "rmse"):
         if not math.isfinite(float(metrics[k])):
             return _fail(f"test {k} is {metrics[k]}")
@@ -290,14 +535,14 @@ def run() -> int:
 
     step = engine.make_eval_step(mcfg, dev)
     fc_gpu, tg_gpu = engine.inference_batched(step, params, test_set, BATCH, dev)
-    params_cpu = ckpt.load(train_dir, device="cpu")[0]
     fc_cpu, tg_cpu = engine.inference_batched(
-        engine.make_eval_step(mcfg, "cpu"), params_cpu, test_set, BATCH, "cpu")
+        engine.make_eval_step(mcfg, "cpu"), ckpt.load(train_dir, device="cpu")[0],
+        test_set, BATCH, "cpu")
     shape = (len(test_set), cfg.horizon, mcfg.units)
     if fc_gpu.shape != shape or not np.isfinite(fc_gpu).all():
         return _fail(f"forecasts {fc_gpu.shape}, expected {shape} and finite")
     fc_err = float(abs(fc_gpu - fc_cpu).max())
-    print(f"[4 main path] test forecasts, card vs CPU plain path: max_abs_err "
+    print(f"[4 serving path] test forecasts, card vs CPU plain path: max_abs_err "
           f"{fc_err:.3e} (atol 1e-3, normalized values)")
     if fc_err > 1e-3 or (tg_gpu != tg_cpu).any():
         return _fail(f"card forecasts differ from the CPU plain path by {fc_err}")
@@ -310,14 +555,151 @@ def run() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wps = len(test_set) / statistics.median(walls[1:])
-    print(f"[4 main path] eval {wps:.1f} windows/s (median of 3 passes over the "
+    print(f"[4 serving path] eval {wps:.1f} windows/s (median of 3 passes over the "
           f"test split, batch {BATCH}, after one warm pass)")
 
-    # --- 5. summary ---
+    # --- 5. train path ---
+    cfg_t = TrainConfig(dataset="ECG_data", train=True, epoch=1, batch_size=BATCH,
+                        window_size=WINDOW, horizon=HORIZON, multi_layer=MULTI,
+                        optimizer="RMSProp", dropout_rate=0.5, device="cuda",
+                        data_dir=cfg.data_dir, output_dir=out_root)
+    run_dir = os.path.join(out_root, cfg.dataset, "train_run")
+    steps = len(train_batches)
+    valid_batches = len(sets["valid"].epoch_batches(BATCH, shuffle=False))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    valid_metrics, _ = engine.train(train_data, valid_data, cfg_t, run_dir)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = ops.launches()
+    print(f"[5 train path] engine.train: 1 epoch of {steps} steps ({len(sets['train'])} "
+          f"windows) and a validate pass of {valid_batches} batches, {train_s:.3f} s "
+          f"with first-call set-up; launches {launches}")
+    fwd = steps + valid_batches
+    want = {"gru_fwd": fwd, "attention_kq_fwd": fwd, "cheb_graph_conv_fwd": 2 * fwd,
+            "spectral_fwd": 2 * fwd, "gru_bwd": steps, "attention_kq_bwd": steps,
+            "spectral_bwd": 2 * steps}
+    if launches != want:
+        return _fail(f"train path launch counts {launches}, expected {want}")
     for name, n in launches.items():
-        results[name]["launches"] = n
+        results[name]["launches"] += n
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    epochs = [e for e in events if e["event"] == "epoch"]
+    if len(epochs) != 1 or not all(math.isfinite(e["loss"]) for e in epochs):
+        return _fail(f"epoch events {epochs}")
+    if not any(e["event"] == "validate" for e in events):
+        return _fail("no validate event in metrics.jsonl")
+    if not math.isfinite(float(valid_metrics["mae"])):
+        return _fail(f"validate MAE is {valid_metrics['mae']}")
+    for f in ("norm_stat.json", "0_stemgnn.ckpt", "_stemgnn.ckpt"):
+        if not os.path.exists(os.path.join(run_dir, f)):
+            return _fail(f"{f} not written by engine.train")
+    print(f"[5 train path] epoch loss {epochs[0]['loss']:.6f}, validate MAE "
+          f"{float(valid_metrics['mae']):.6f}; checkpoints and metrics.jsonl written")
+
+    # (a) one step on the card against the CPU plain path, same dropout mask.
+    # Tolerance: f32 sums in another order through 140 GRU steps and 4480-row
+    # weight gradients, so each gradient is held to 1e-4 of its own largest
+    # entry (atol) plus rtol 1e-3.
+    GRAD_ATOL_REL, GRAD_RTOL = 1e-4, 1e-3
+    train_dev = train_cpu.to(dev)
+    params_gpu = leaf_params(params, dev)
+    x_gpu, y_gpu = engine.gather_windows(train_dev, his[0].to(dev), WINDOW, HORIZON)
+    mask0 = masks[0].to(dev)
+    loss_gpu, grads_gpu = step_grads(params_gpu, mcfg, x_gpu, y_gpu, mask0)
+    grads_gpu = {k: g.clone() for k, g in grads_gpu.items()}
+    worst, worst_name, bad = 0.0, "", []
+    for k, g_cpu in grads_cpu.items():
+        g = grads_gpu[k].cpu()
+        err = (g - g_cpu).abs().max().item()
+        if err > worst:
+            worst, worst_name = err, k
+        atol = GRAD_ATOL_REL * g_cpu.abs().max().item() + 1e-12
+        if not torch.allclose(g, g_cpu, atol=atol, rtol=GRAD_RTOL):
+            bad.append((k, err, g_cpu.abs().max().item()))
+    loss_err = abs(loss_gpu.item() - loss_cpu.item())
+    gmax = max(g.abs().max().item() for g in grads_cpu.values())
+    print(f"[5 train path] one step, card vs CPU plain path: loss {loss_gpu.item():.6f} "
+          f"(abs err {loss_err:.3e}, atol 1e-5); {len(grads_cpu)} gradients, worst "
+          f"max_abs_err {worst:.3e} at {worst_name} (atol {GRAD_ATOL_REL:g} of each "
+          f"gradient's largest entry, rtol {GRAD_RTOL:g}; largest entry of all "
+          f"{gmax:.3e})")
+    if loss_err > 1e-5 or bad:
+        return _fail(f"step gradients differ from the CPU plain path: loss err "
+                     f"{loss_err}, leaves (name, err, max) {bad[:5]}")
+
+    # (b) the same step again: bitwise the same gradients (no atomics)
+    loss_again, grads_again = step_grads(params_gpu, mcfg, x_gpu, y_gpu, mask0)
+    differ = [k for k, g in grads_again.items() if not torch.equal(g, grads_gpu[k])]
+    if differ or not torch.equal(loss_again, loss_gpu):
+        return _fail(f"two runs of one step differ in {differ[:5]}")
+    print(f"[5 train path] the same step twice: loss and all {len(grads_gpu)} "
+          "gradients bitwise equal")
+
+    # (c) three RMSProp steps, card against CPU, masks from one numpy seed. An
+    # RMSProp step moves an entry by up to lr / sqrt(1 - alpha) = 1e-3 whatever
+    # the gradient's size, so entries whose gradient is rounding noise may differ
+    # by a fraction of that.
+    PARAM_ATOL = 1e-4
+    finals = {}
+    for where, tree, src in (("cpu", leaf_params(params, "cpu"), train_cpu),
+                             (dev, leaf_params(params, dev), train_dev)):
+        flat = flatten_params(tree)
+        opt = make_optimizer("RMSProp", flat.values(), cfg_t.lr)
+        for i in range(3):
+            xb, yb = engine.gather_windows(src, his[i].to(where), WINDOW, HORIZON)
+            _, grads = step_grads(tree, mcfg, xb, yb, masks[i].to(where))
+            for k, p in flat.items():
+                p.grad = grads[k]
+            opt.step()
+        finals[str(where)] = {k: p.detach().cpu() for k, p in flat.items()}
+    init_flat = flatten_params(params)
+    perr = max((finals["cuda"][k] - finals["cpu"][k]).abs().max().item()
+               for k in finals["cpu"])
+    moved = max((finals["cpu"][k] - init_flat[k].cpu()).abs().max().item()
+                for k in finals["cpu"])
+    print(f"[5 train path] parameters after three RMSProp steps, card vs CPU: "
+          f"max_abs_err {perr:.3e} (atol {PARAM_ATOL:g}; the steps moved an entry by "
+          f"up to {moved:.3e})")
+    if not perr <= PARAM_ATOL:
+        return _fail(f"three-step trajectory differs from the CPU's by {perr}")
+
+    # (e) train windows/s: one more epoch of steps through the engine's train
+    # step, host clock from before the first step to after the last has
+    # finished on the card
+    tree = leaf_params(params, dev)
+    flat = flatten_params(tree)
+    opt = make_optimizer("RMSProp", flat.values(), cfg_t.lr)
+    train_step = engine.make_train_step(mcfg, opt, flat.values())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(engine.epoch_generator_seed(cfg_t.seed, 1))
+    his_dev = [torch.from_numpy(b.astype(np.int64)).to(dev) for b in train_batches]
+    for hi_b in his_dev[:3]:
+        train_step(tree, train_dev, hi_b, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for hi_b in his_dev:
+        train_step(tree, train_dev, hi_b, gen)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    n_win = sum(len(b) for b in train_batches)
+    per_step = {"gru_fwd": 1, "gru_bwd": 1, "attention_kq_fwd": 1,
+                "attention_kq_bwd": 1, "cheb_graph_conv_fwd": 2, "spectral_fwd": 2,
+                "spectral_bwd": 2}
+    kernel_ms = sum(results[k]["ms"] * n for k, n in per_step.items())
+    print(f"[5 train path] train step {epoch_s / steps * 1e3:.3f} ms of host clock "
+          f"({steps} steps, batch {BATCH}, after 3 warm steps); the seven kernels' "
+          f"device time per step from phase 3: {kernel_ms:.3f} ms")
+    print(f"[5 train path] train {n_win / epoch_s:.1f} windows/s")
+
+    # --- 6. summary ---
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in results.values():
+        if r["launches"] <= 0:
+            return _fail(f"{r['name']} was launched no time on the main paths")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
 The flag surface mirrors the reference CLI (main.py:9-30): the 21 reference
 flags keep their names and defaults, and booleans parse properly (the
 reference's `type=bool` flags treat the string "False" as truthy). The
-port adds `seed`, `data_dir` and `output_dir`; `device` defaults to "cuda".
+port adds `seed`, `dropout_seed`, `shuffle_seed`, `resume`, `ckpt_every`,
+`log_jsonl`, `data_dir` and `output_dir`, with the JAX package's names and
+defaults; `device` defaults to "cuda".
 """
 
 from __future__ import annotations
@@ -68,6 +70,14 @@ class TrainConfig:
     leakyrelu_rate: float = 0.2
     # --- port additions (no reference counterpart) ---
     seed: int = 0  # torch.manual_seed(0) at main.py:52
+    # -1 = the dropout stream derives from `seed`; >= 0 decouples the
+    # per-epoch dropout root from init and shuffle
+    dropout_seed: int = -1
+    # -1 = the per-epoch batch shuffle derives from `seed`; >= 0 decouples it
+    shuffle_seed: int = -1
+    resume: bool = False  # restore params + optimizer state + epoch from the last checkpoint
+    ckpt_every: int = 1  # per-epoch checkpoint cadence (reference: every epoch)
+    log_jsonl: bool = True  # structured per-epoch metrics JSONL
     data_dir: str = "dataset"
     output_dir: str = "output"
 

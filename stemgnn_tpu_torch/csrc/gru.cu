@@ -1,13 +1,24 @@
-// GRU recurrence over the node axis, forward.
+// GRU recurrence over the node axis, forward and backward.
 //
-// Replaces stemgnn_tpu/ops/pallas_gru.py `_fwd_kernel` (reached from
+// Forward: replaces stemgnn_tpu/ops/pallas_gru.py `_fwd_kernel` (reached from
 // `_run_forward` / `gru_over_nodes_pallas`): N dependent steps of
 //   hp = h @ A + bh            (A = W_hh^T, [H, 3H], gate-major r, z, n)
 //   r = sigmoid(x_r + hp_r); z = sigmoid(x_z + hp_z)
 //   c = tanh(x_n + r * hp_n);  h' = (1 - z) * c + z * h
 // with xp = x @ W_ih^T + b_ih computed outside (one matmul, as the JAX
-// package leaves it to XLA). Serving needs only the outputs, so the saved
-// gate activations of the TPU kernel are not written.
+// package leaves it to XLA). Serving needs only the outputs (`gru_fwd`);
+// training also needs the TPU kernel's saved gate activations
+// sv[t] = (r, z, hpn, c, h - c), hpn = hp_n, which `gru_fwd_save` writes as
+// [N, 5, B, H].
+//
+// Backward (`gru_bwd`): replaces `_bwd_kernel` (reached from `_vjp_bwd`): the
+// reverse recurrence over sv with the cotangent g [B, N, H] of the outputs,
+//   dh_total = g[t] + dh
+//   dz = dh_total * (h - c) * z * (1 - z); dn = dh_total * (1 - z) * (1 - c^2)
+//   dr = dn * hpn * r * (1 - r);           dxp[t] = (dr, dz, dn)
+//   dh = dh_total * z + (dr, dz, dn * r) @ A^T
+// writing dxp [N, B, 3H]. The weight and bias gradients are products over
+// all steps at once, outside the kernel, as the JAX package leaves them.
 //
 // Bound on the H100: f32 operations on the serial chain. Each step is a
 // [B,H] x [H,3H] product (2*B*H*3H operations) that depends on the step
@@ -22,6 +33,15 @@
 // owns one hidden unit j (all three of its gate columns) for 8 batch rows,
 // so the gate math needs no exchange between threads. Works at any H whose
 // double-buffered h fits in shared memory.
+//
+// The backward has the same bound and the same shape: one persistent block,
+// dh [H][B] and the step's (dr, dz, dn * r) [3H][B] in shared memory, the
+// same thread owning hidden unit j for 8 batch rows in the elementwise half
+// and in the product, so dh needs no exchange and a step takes two
+// barriers (after the gate gradients are written, after the product has
+// read them). A^T is W_hh itself ([3H, H] row-major), read from L2 with
+// neighbouring threads on neighbouring addresses; sv is laid out [N, 5, B, H]
+// so both kernels touch it with the threads running along H.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,10 +53,11 @@ constexpr int kMaxThreads = 1024;
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
+template <bool kSave>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
-               const float* __restrict__ bh, float* __restrict__ out, int N,
-               int B, int H) {
+               const float* __restrict__ bh, float* __restrict__ out,
+               float* __restrict__ sv, int N, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   const int Bp = (B + kBSub - 1) / kBSub * kBSub;
   float* h_cur = smem;
@@ -74,8 +95,19 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
         const float* x = xp + ((long)t * B + b) * H3;
         const float r = sigmoidf(x[j] + (ar[i] + br));
         const float z = sigmoidf(x[H + j] + (az[i] + bz));
-        const float c = tanhf(x[2 * H + j] + r * (an[i] + bn));
-        const float h = (1.f - z) * c + z * h_cur[j * Bp + b];
+        const float hpn = an[i] + bn;
+        const float c = tanhf(x[2 * H + j] + r * hpn);
+        const float h_prev = h_cur[j * Bp + b];
+        const float h = (1.f - z) * c + z * h_prev;
+        if (kSave) {
+          const long plane = (long)B * H;
+          float* s = sv + (long)t * 5 * plane + (long)b * H + j;
+          s[0] = r;
+          s[plane] = z;
+          s[2 * plane] = hpn;
+          s[3 * plane] = c;
+          s[4 * plane] = h_prev - c;
+        }
         h_next[j * Bp + b] = h;
         out[((long)b * N + t) * H + j] = h;
       }
@@ -87,20 +119,118 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
   }
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kMaxThreads)
+gru_bwd_kernel(const float* __restrict__ sv, const float* __restrict__ g,
+               const float* __restrict__ At, float* __restrict__ dxp, int N,
+               int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
+  const int H3 = 3 * H;
+  float* dh = smem;                   // [H][Bp]
+  float* dcat = smem + (long)H * Bp;  // [3H][Bp]: dr, dz, dn * r
+  for (int e = threadIdx.x; e < 4 * H * Bp; e += blockDim.x) smem[e] = 0.f;
+  __syncthreads();
 
-// A (B, H) whose double-buffered h exceeds the shared memory of a block
-// fails at cudaFuncSetAttribute.
-extern "C" int gru_fwd(const float* xp, const float* A, const float* bh, float* out,
-                       int N, int B, int H, void* stream) {
+  const long plane = (long)B * H;
+  const int items = H * (Bp / kBSub);
+  for (int t = N - 1; t >= 0; --t) {
+    // gate gradients of this thread's (j, 8 batch rows); dh keeps dh_total * z
+    for (int item = threadIdx.x; item < items; item += blockDim.x) {
+      const int j = item % H;
+      const int b0 = (item / H) * kBSub;
+#pragma unroll
+      for (int i = 0; i < kBSub; ++i) {
+        const int b = b0 + i;
+        if (b >= B) break;
+        const float* s = sv + (long)t * 5 * plane + (long)b * H + j;
+        const float r = s[0], z = s[plane], hpn = s[2 * plane];
+        const float c = s[3 * plane], hmc = s[4 * plane];
+        const float dh_total = g[((long)b * N + t) * H + j] + dh[j * Bp + b];
+        const float dz = dh_total * hmc * z * (1.f - z);
+        const float dn = dh_total * (1.f - z) * (1.f - c * c);
+        const float dr = dn * hpn * r * (1.f - r);
+        float* d = dxp + ((long)t * B + b) * H3 + j;
+        d[0] = dr;
+        d[H] = dz;
+        d[2 * H] = dn;
+        dcat[j * Bp + b] = dr;
+        dcat[(H + j) * Bp + b] = dz;
+        dcat[(2 * H + j) * Bp + b] = dn * r;
+        dh[j * Bp + b] = dh_total * z;
+      }
+    }
+    __syncthreads();
+    // dh[b][j] += sum_c dcat[b][c] * At[c][j]
+    for (int item = threadIdx.x; item < items; item += blockDim.x) {
+      const int j = item % H;
+      const int b0 = (item / H) * kBSub;
+      float acc[kBSub] = {};
+      const float* a = At + j;
+      for (int c = 0; c < H3; ++c) {
+        const float w = a[(long)c * H];
+        const float4 lo = *reinterpret_cast<const float4*>(dcat + c * Bp + b0);
+        const float4 hi = *reinterpret_cast<const float4*>(dcat + c * Bp + b0 + 4);
+        acc[0] = fmaf(lo.x, w, acc[0]);
+        acc[1] = fmaf(lo.y, w, acc[1]);
+        acc[2] = fmaf(lo.z, w, acc[2]);
+        acc[3] = fmaf(lo.w, w, acc[3]);
+        acc[4] = fmaf(hi.x, w, acc[4]);
+        acc[5] = fmaf(hi.y, w, acc[5]);
+        acc[6] = fmaf(hi.z, w, acc[6]);
+        acc[7] = fmaf(hi.w, w, acc[7]);
+      }
+#pragma unroll
+      for (int i = 0; i < kBSub; ++i) dh[j * Bp + b0 + i] += acc[i];
+    }
+    __syncthreads();
+  }
+}
+
+int gru_threads(int B, int H) {
+  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
+  const int items = H * (Bp / kBSub);
+  const int threads = (items + 31) / 32 * 32;
+  return threads > kMaxThreads ? kMaxThreads : threads;
+}
+
+template <bool kSave>
+int launch_fwd(const float* xp, const float* A, const float* bh, float* out,
+               float* sv, int N, int B, int H, void* stream) {
   const int Bp = (B + kBSub - 1) / kBSub * kBSub;
   const long smem = 2L * H * Bp * (long)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gru_fwd_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int items = H * (Bp / kBSub);
-  int threads = (items + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  gru_fwd_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(xp, A, bh, out, N, B, H);
+  gru_fwd_kernel<kSave><<<1, gru_threads(B, H), smem, (cudaStream_t)stream>>>(
+      xp, A, bh, out, sv, N, B, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// A (B, H) whose buffers exceed the shared memory of a block fails at
+// cudaFuncSetAttribute.
+extern "C" int gru_fwd(const float* xp, const float* A, const float* bh, float* out,
+                       int N, int B, int H, void* stream) {
+  return launch_fwd<false>(xp, A, bh, out, nullptr, N, B, H, stream);
+}
+
+// The training forward: also writes sv [N, 5, B, H].
+extern "C" int gru_fwd_save(const float* xp, const float* A, const float* bh,
+                            float* out, float* sv, int N, int B, int H,
+                            void* stream) {
+  return launch_fwd<true>(xp, A, bh, out, sv, N, B, H, stream);
+}
+
+// At = A^T = W_hh, [3H, H] row-major; g [B, N, H]; dxp [N, B, 3H].
+extern "C" int gru_bwd(const float* sv, const float* g, const float* At, float* dxp,
+                       int N, int B, int H, void* stream) {
+  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
+  const long smem = 4L * H * Bp * (long)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gru_bwd_kernel<<<1, gru_threads(B, H), smem, (cudaStream_t)stream>>>(
+      sv, g, At, dxp, N, B, H);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// Spectral-sequential cell, forward.
+// Spectral-sequential cell, forward and backward.
 //
-// Replaces stemgnn_tpu/ops/pallas_spectral.py `_kernel` (reached from
+// Forward (`spectral_fwd`): replaces stemgnn_tpu/ops/pallas_spectral.py `_kernel` (reached from
 // `_forward` / `spe_seq_cell_pallas`). A row map over the B*N rows of
 // x [B,K,N,W] viewed as [rows, K*W]:
 //   R = GLU0(x), I = GLU1(x)   (forward DFT folded into the layer-0
@@ -24,6 +24,40 @@
 // element is read once per block from global memory (L2-resident, 2.5 MB)
 // and reused 32 times from a register. Only the [rows, D1] result is
 // written to device memory.
+//
+// Backward (`spectral_bwd`): replaces `_bwd_kernel` (reached from
+// `_backward`): recompute (a, s) of the six GLUs from x, backpropagate the
+// inverse DFT and the GLUs,
+//   d = (g @ Ci^T, g @ Si^T);  per GLU, last to first, on its chain:
+//   da = d * s;  ds = d * a * s * (1 - s)
+//   dWl += u^T da;  dbl += colsum(da);  dWr += u^T ds;  dbr += colsum(ds)
+//   d = da @ Wl^T + ds @ Wr^T;          dx = d_real + d_imag after layer 0
+// with the layer-0 weight gradients in folded space (the caller unfolds
+// them). Bound: f32 operations, about three times the forward's.
+// Two TPU properties do not carry over. (1) The TPU kernel keeps (u, a, s) of
+// all six GLUs for a row tile in VMEM: 18 [32, 240] f32 arrays are 552,960
+// bytes, more than twice what a block here can have. (2) It adds the 24
+// weight and bias gradients up across row tiles in one output block, which
+// only a sequential grid allows. So the backward is five kernels behind one
+// C entry, with (a, s) and (da, ds) staged through a workspace in device
+// memory (103 MB at the flagship shapes, mostly L2 traffic next to 13 GFLOP):
+//   1. transpose the 12 weight matrices, so that step 3 reads them with
+//      neighbouring threads on neighbouring addresses;
+//   2. the forward chain again, without the inverse DFT, writing a and s of
+//      every GLU ([rows, D1] row-major each): the forward kernel itself,
+//      compiled with kSave; a forward that must save is the same kernel with
+//      kOut as well;
+//   3. per 32-row tile, the chain backwards in shared memory (both chains' d,
+//      da, ds: 145 KB), writing da and ds of every GLU and dx;
+//   4. the weight gradients as products over the rows: a block owns a
+//      [48, 48] tile of dWl and dWr of one GLU (u = x or a * s of the GLU
+//      before, rebuilt on load) for one of `nsplit` row segments and writes
+//      its partial sums, bias sums included;
+//   5. the segments' partials summed in order.
+// Every sum has one fixed order, so two runs give the same bits; no atomics.
+// Rows past the end of a tile's data carry g = 0, hence da = ds = 0, and add
+// nothing to any gradient. Ci and Si are symmetric, which step 3 uses to
+// read them along rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,10 +77,12 @@ struct GluWeights {
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
-// out[c][r] = (in[:, r] . Wl[:, c] + bl[c]) * sigmoid(in[:, r] . Wr[:, c] + br[c])
+// out[c][r] = a * s, a = in[:, r] . Wl[:, c] + bl[c], s = sigmoid(in[:, r] .
+// Wr[:, c] + br[c]); with ga, also a and s to ga, gs [r][dout] row-major.
 __device__ void glu_tile(const float* in, int din, const float* __restrict__ wl,
                          const float* __restrict__ bl, const float* __restrict__ wr,
-                         const float* __restrict__ br, float* out, int dout) {
+                         const float* __restrict__ br, float* out, int dout,
+                         float* __restrict__ ga, float* __restrict__ gs) {
   for (int c = threadIdx.x; c < dout; c += blockDim.x) {
     float al[kTR] = {}, ar[kTR] = {};
     for (int k = 0; k < din; ++k) {
@@ -68,14 +104,25 @@ __device__ void glu_tile(const float* in, int din, const float* __restrict__ wl,
     }
     const float bL = bl[c], bR = br[c];
 #pragma unroll
-    for (int i = 0; i < kTR; ++i) out[c * kTRS + i] = (al[i] + bL) * sigmoidf(ar[i] + bR);
+    for (int i = 0; i < kTR; ++i) {
+      const float a = al[i] + bL, sg = sigmoidf(ar[i] + bR);
+      out[c * kTRS + i] = a * sg;
+      if (ga != nullptr) {
+        ga[(long)i * dout + c] = a;
+        gs[(long)i * dout + c] = sg;
+      }
+    }
   }
 }
 
+// acts: with kSave, 12 arrays [gridDim.x * kTR, D1] (a0, s0, ..., a5, s5; GLU
+// 2 * layer + chain), `plane` floats apart. out: with kOut.
+template <bool kSave, bool kOut>
 __global__ void __launch_bounds__(kThreads)
-spectral_fwd_kernel(const float* __restrict__ x, GluWeights g,
-                    const float* __restrict__ ci, const float* __restrict__ si,
-                    float* __restrict__ out, int B, int K, int N, int W, int WM) {
+spectral_chain_kernel(const float* __restrict__ x, GluWeights g,
+                      const float* __restrict__ ci, const float* __restrict__ si,
+                      float* __restrict__ out, float* __restrict__ acts, long plane,
+                      int B, int K, int N, int W, int WM) {
   extern __shared__ __align__(16) float smem[];
   const int d0 = K * W, d1 = K * WM;
   const long rows = (long)B * N;
@@ -97,47 +144,341 @@ spectral_fwd_kernel(const float* __restrict__ x, GluWeights g,
   }
   __syncthreads();
 
-  glu_tile(xs, d0, g.wl[0], g.bl[0], g.wr[0], g.br[0], real, d1);
-  glu_tile(xs, d0, g.wl[1], g.bl[1], g.wr[1], g.br[1], imag, d1);
+  // the tile's rows of saved array `idx` (a of GLU i: 2 * i, s: 2 * i + 1)
+  float* tile_acts = kSave ? acts + row0 * d1 : nullptr;
+#define ACT(idx) (kSave ? tile_acts + (idx) * plane : nullptr)
+  glu_tile(xs, d0, g.wl[0], g.bl[0], g.wr[0], g.br[0], real, d1, ACT(0), ACT(1));
+  glu_tile(xs, d0, g.wl[1], g.bl[1], g.wr[1], g.br[1], imag, d1, ACT(2), ACT(3));
   __syncthreads();
   for (int layer = 1; layer < 3; ++layer) {
-    glu_tile(real, d1, g.wl[2 * layer], g.bl[2 * layer], g.wr[2 * layer],
-             g.br[2 * layer], spare, d1);
+    const int e = 2 * layer, o = 2 * layer + 1;
+    glu_tile(real, d1, g.wl[e], g.bl[e], g.wr[e], g.br[e], spare, d1, ACT(2 * e),
+             ACT(2 * e + 1));
     __syncthreads();
     float* t = real; real = spare; spare = t;
-    glu_tile(imag, d1, g.wl[2 * layer + 1], g.bl[2 * layer + 1],
-             g.wr[2 * layer + 1], g.br[2 * layer + 1], spare, d1);
+    glu_tile(imag, d1, g.wl[o], g.bl[o], g.wr[o], g.br[o], spare, d1, ACT(2 * o),
+             ACT(2 * o + 1));
     __syncthreads();
     t = imag; imag = spare; spare = t;
   }
+#undef ACT
 
-  for (int c = threadIdx.x; c < d1; c += blockDim.x) {
-    const int kk = c / WM, m = c % WM;
+  if constexpr (kOut) {
+    for (int c = threadIdx.x; c < d1; c += blockDim.x) {
+      const int kk = c / WM, m = c % WM;
+      float acc[kTR] = {};
+      for (int j = 0; j < WM; ++j) {
+        const float wc = ci[j * WM + m];
+        const float ws = si[j * WM + m];
+        const int k = kk * WM + j;
+        const float4* r4 = reinterpret_cast<const float4*>(real + k * kTRS);
+        const float4* i4 = reinterpret_cast<const float4*>(imag + k * kTRS);
+#pragma unroll
+        for (int q = 0; q < kTR / 4; ++q) {
+          const float4 u = r4[q], v = i4[q];
+          acc[4 * q + 0] = fmaf(v.x, ws, fmaf(u.x, wc, acc[4 * q + 0]));
+          acc[4 * q + 1] = fmaf(v.y, ws, fmaf(u.y, wc, acc[4 * q + 1]));
+          acc[4 * q + 2] = fmaf(v.z, ws, fmaf(u.z, wc, acc[4 * q + 2]));
+          acc[4 * q + 3] = fmaf(v.w, ws, fmaf(u.w, wc, acc[4 * q + 3]));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) {
+        const long row = row0 + i;
+        if (row >= rows) break;
+        const long b = row / N, n = row % N;
+        out[((b * K + kk) * N + n) * WM + m] = acc[i];
+      }
+    }
+  }
+}
+
+// ---- backward ----
+
+struct TransposedWeights {
+  const float* l[6];  // Wl^T of GLU i, [D1, Din] row-major
+  const float* r[6];
+};
+
+// wT[c][k] = w[k][c] for the 12 weight matrices; blockIdx.y = 2 * GLU + side
+__global__ void spectral_transpose_kernel(GluWeights g, float* __restrict__ wT, int d0,
+                                          int d1) {
+  const int m = blockIdx.y, gi = m / 2;
+  const int din = gi < 2 ? d0 : d1;
+  const float* w = (m % 2 == 0) ? g.wl[gi] : g.wr[gi];
+  float* o = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= din * d1) return;
+  const int k = e / d1, c = e % d1;
+  o[(long)c * din + k] = w[e];
+}
+
+// out[k][r] (+)= sum_c da[c][r] * wlT[c][k] + ds[c][r] * wrT[c][k], k < din
+__device__ void bwd_tile(const float* da, const float* ds, int dmid,
+                         const float* __restrict__ wlT, const float* __restrict__ wrT,
+                         float* out, int din, bool accumulate) {
+  for (int k = threadIdx.x; k < din; k += blockDim.x) {
     float acc[kTR] = {};
-    for (int j = 0; j < WM; ++j) {
-      const float wc = ci[j * WM + m];
-      const float ws = si[j * WM + m];
-      const int k = kk * WM + j;
-      const float4* r4 = reinterpret_cast<const float4*>(real + k * kTRS);
-      const float4* i4 = reinterpret_cast<const float4*>(imag + k * kTRS);
+    for (int c = 0; c < dmid; ++c) {
+      const float l = wlT[(long)c * din + k];
+      const float r = wrT[(long)c * din + k];
+      const float4* a4 = reinterpret_cast<const float4*>(da + c * kTRS);
+      const float4* s4 = reinterpret_cast<const float4*>(ds + c * kTRS);
 #pragma unroll
       for (int q = 0; q < kTR / 4; ++q) {
-        const float4 u = r4[q], v = i4[q];
-        acc[4 * q + 0] = fmaf(v.x, ws, fmaf(u.x, wc, acc[4 * q + 0]));
-        acc[4 * q + 1] = fmaf(v.y, ws, fmaf(u.y, wc, acc[4 * q + 1]));
-        acc[4 * q + 2] = fmaf(v.z, ws, fmaf(u.z, wc, acc[4 * q + 2]));
-        acc[4 * q + 3] = fmaf(v.w, ws, fmaf(u.w, wc, acc[4 * q + 3]));
+        const float4 u = a4[q], v = s4[q];
+        acc[4 * q + 0] = fmaf(v.x, r, fmaf(u.x, l, acc[4 * q + 0]));
+        acc[4 * q + 1] = fmaf(v.y, r, fmaf(u.y, l, acc[4 * q + 1]));
+        acc[4 * q + 2] = fmaf(v.z, r, fmaf(u.z, l, acc[4 * q + 2]));
+        acc[4 * q + 3] = fmaf(v.w, r, fmaf(u.w, l, acc[4 * q + 3]));
       }
     }
 #pragma unroll
     for (int i = 0; i < kTR; ++i) {
-      const long row = row0 + i;
-      if (row >= rows) break;
-      const long b = row / N, n = row % N;
-      out[((b * K + kk) * N + n) * WM + m] = acc[i];
+      if (accumulate) acc[i] += out[k * kTRS + i];
+      out[k * kTRS + i] = acc[i];
     }
   }
 }
+
+// One 32-row tile: g -> (dR, dI) -> six GLUs backwards -> dx; da, ds of every
+// GLU to dacts (laid out like acts).
+__global__ void __launch_bounds__(kThreads)
+spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ acts,
+                         float* __restrict__ dacts, long plane, TransposedWeights wt,
+                         const float* __restrict__ ci, const float* __restrict__ si,
+                         float* __restrict__ dx, int B, int K, int N, int W, int WM) {
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = K * W, d1 = K * WM;
+  const long rows = (long)B * N;
+  const long row0 = (long)blockIdx.x * kTR;
+  float* dyr = smem;
+  float* dyi = dyr + d1 * kTRS;
+  float* da = dyi + d1 * kTRS;
+  float* ds = da + d1 * kTRS;
+  float* dxs = ds + d1 * kTRS;  // [d0][kTRS]
+
+  for (int e = threadIdx.x; e < kTR * d1; e += blockDim.x) {
+    const int r = e / d1, col = e % d1;
+    const long row = row0 + r;
+    float v = 0.f;
+    if (row < rows) {
+      const long b = row / N, n = row % N;
+      v = g[((b * K + col / WM) * N + n) * WM + col % WM];
+    }
+    da[col * kTRS + r] = v;  // the cotangent tile, until da is first written
+  }
+  __syncthreads();
+
+  // dR[j] = sum_m g[m] * Ci[j][m] = sum_m g[m] * Ci[m][j] (symmetric), per order
+  for (int c = threadIdx.x; c < d1; c += blockDim.x) {
+    const int kk = c / WM, j = c % WM;
+    float ar[kTR] = {}, ai[kTR] = {};
+    for (int m = 0; m < WM; ++m) {
+      const float wc = ci[m * WM + j];
+      const float ws = si[m * WM + j];
+      const float4* g4 = reinterpret_cast<const float4*>(da + (kk * WM + m) * kTRS);
+#pragma unroll
+      for (int q = 0; q < kTR / 4; ++q) {
+        const float4 u = g4[q];
+        ar[4 * q + 0] = fmaf(u.x, wc, ar[4 * q + 0]);
+        ar[4 * q + 1] = fmaf(u.y, wc, ar[4 * q + 1]);
+        ar[4 * q + 2] = fmaf(u.z, wc, ar[4 * q + 2]);
+        ar[4 * q + 3] = fmaf(u.w, wc, ar[4 * q + 3]);
+        ai[4 * q + 0] = fmaf(u.x, ws, ai[4 * q + 0]);
+        ai[4 * q + 1] = fmaf(u.y, ws, ai[4 * q + 1]);
+        ai[4 * q + 2] = fmaf(u.z, ws, ai[4 * q + 2]);
+        ai[4 * q + 3] = fmaf(u.w, ws, ai[4 * q + 3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      dyr[c * kTRS + i] = ar[i];
+      dyi[c * kTRS + i] = ai[i];
+    }
+  }
+  __syncthreads();
+
+  for (int layer = 2; layer >= 0; --layer) {
+    for (int chain = 0; chain < 2; ++chain) {
+      const int gi = 2 * layer + chain;
+      float* dy = chain == 0 ? dyr : dyi;
+      const float* a_g = acts + (2 * gi) * plane + row0 * d1;
+      const float* s_g = acts + (2 * gi + 1) * plane + row0 * d1;
+      float* da_g = dacts + (2 * gi) * plane + row0 * d1;
+      float* ds_g = dacts + (2 * gi + 1) * plane + row0 * d1;
+      for (int e = threadIdx.x; e < kTR * d1; e += blockDim.x) {
+        const int r = e / d1, c = e % d1;
+        const float a = a_g[e], s = s_g[e], v = dy[c * kTRS + r];
+        const float va = v * s;
+        const float vs = v * a * (s * (1.f - s));
+        da[c * kTRS + r] = va;
+        ds[c * kTRS + r] = vs;
+        da_g[e] = va;
+        ds_g[e] = vs;
+      }
+      __syncthreads();
+      if (layer > 0) {
+        bwd_tile(da, ds, d1, wt.l[gi], wt.r[gi], dy, d1, false);
+      } else {
+        bwd_tile(da, ds, d1, wt.l[gi], wt.r[gi], dxs, d0, chain == 1);
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int e = threadIdx.x; e < kTR * d0; e += blockDim.x) {
+    const int r = e / d0, col = e % d0;
+    const long row = row0 + r;
+    if (row < rows) {
+      const long b = row / N, n = row % N;
+      dx[((b * K + col / W) * N + n) * W + col % W] = dxs[col * kTRS + r];
+    }
+  }
+}
+
+constexpr int kWT = 48;        // edge of a weight-gradient tile
+constexpr int kWEdge = kWT / 4;  // threads along an edge, 4 outputs each
+constexpr int kWThreads = kWEdge * kWEdge;
+constexpr int kWRows = kTR;    // rows staged per step
+
+// floats of GLU gi's block in the flat gradient buffer: wl, bl, wr, br
+__host__ __device__ inline long glu_grad_offset(int gi, int d0, int d1) {
+  const long s0 = 2L * ((long)d0 * d1 + d1), s1 = 2L * ((long)d1 * d1 + d1);
+  return gi < 2 ? gi * s0 : 2 * s0 + (gi - 2) * s1;
+}
+
+// blockIdx: x = tile (k tile * tiles + c tile), y = GLU, z = row segment.
+// part: [gridDim.z][total] partial gradients in the flat layout.
+__global__ void __launch_bounds__(kWThreads)
+spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ acts,
+                      const float* __restrict__ dacts, long plane,
+                      float* __restrict__ part, long total, int chunks, int chunks_per_seg,
+                      int B, int K, int N, int W, int WM) {
+  __shared__ __align__(16) float us[kWRows][kWT];
+  __shared__ __align__(16) float das[kWRows][kWT];
+  __shared__ __align__(16) float dss[kWRows][kWT];
+  const int d0 = K * W, d1 = K * WM;
+  const int tiles = (d1 + kWT - 1) / kWT;
+  const int gi = blockIdx.y;
+  const int din = gi < 2 ? d0 : d1;
+  const int k0 = (blockIdx.x / tiles) * kWT, c0 = (blockIdx.x % tiles) * kWT;
+  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles
+  const long rows = (long)B * N;
+  const int tx = threadIdx.x % kWEdge, ty = threadIdx.x / kWEdge;
+  const bool bias = (k0 == 0 && ty == 0);
+  const float* a_src = gi < 2 ? nullptr : acts + (2 * (gi - 2)) * plane;
+  const float* s_src = gi < 2 ? nullptr : acts + (2 * (gi - 2) + 1) * plane;
+  const float* da_src = dacts + (2 * gi) * plane;
+  const float* ds_src = dacts + (2 * gi + 1) * plane;
+
+  float accl[4][4] = {}, accr[4][4] = {}, bl[4] = {}, br[4] = {};
+  const int ch0 = blockIdx.z * chunks_per_seg;
+  const int ch1 = min(chunks, ch0 + chunks_per_seg);
+  for (int ch = ch0; ch < ch1; ++ch) {
+    for (int e = threadIdx.x; e < kWRows * kWT; e += blockDim.x) {
+      const int r = e / kWT, col = e % kWT;
+      const long row = (long)ch * kWRows + r;
+      const int kc = k0 + col, cc = c0 + col;
+      float u = 0.f, va = 0.f, vs = 0.f;
+      if (kc < din) {
+        if (gi < 2) {
+          if (row < rows) {
+            const long b = row / N, n = row % N;
+            u = x[((b * K + kc / W) * N + n) * W + kc % W];
+          }
+        } else {
+          u = a_src[row * d1 + kc] * s_src[row * d1 + kc];
+        }
+      }
+      if (cc < d1) {
+        va = da_src[row * d1 + cc];
+        vs = ds_src[row * d1 + cc];
+      }
+      us[r][col] = u;
+      das[r][col] = va;
+      dss[r][col] = vs;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kWRows; ++r) {
+      const float4 u4 = *reinterpret_cast<const float4*>(&us[r][4 * ty]);
+      const float4 a4 = *reinterpret_cast<const float4*>(&das[r][4 * tx]);
+      const float4 s4 = *reinterpret_cast<const float4*>(&dss[r][4 * tx]);
+      const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          accl[i][j] = fmaf(u[i], a[j], accl[i][j]);
+          accr[i][j] = fmaf(u[i], s[j], accr[i][j]);
+        }
+      }
+      if (bias) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bl[j] += a[j];
+          br[j] += s[j];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  float* base = part + (long)blockIdx.z * total + glu_grad_offset(gi, d0, d1);
+  float* pwl = base;
+  float* pbl = pwl + (long)din * d1;
+  float* pwr = pbl + d1;
+  float* pbr = pwr + (long)din * d1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c0 + 4 * tx + j;
+    if (c >= d1) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + 4 * ty + i;
+      if (k >= din) continue;
+      pwl[(long)k * d1 + c] = accl[i][j];
+      pwr[(long)k * d1 + c] = accr[i][j];
+    }
+    if (bias) {
+      pbl[c] = bl[j];
+      pbr[c] = br[j];
+    }
+  }
+}
+
+// grads[i] = part[0][i] + part[1][i] + ... in that order
+__global__ void spectral_reduce_kernel(const float* __restrict__ part,
+                                       float* __restrict__ grads, long total,
+                                       int nsplit) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float acc = part[i];
+  for (int s = 1; s < nsplit; ++s) acc += part[(long)s * total + i];
+  grads[i] = acc;
+}
+
+GluWeights glu_weights(const void* const* w) {
+  GluWeights g;
+  for (int i = 0; i < 6; ++i) {
+    g.wl[i] = static_cast<const float*>(w[4 * i + 0]);
+    g.bl[i] = static_cast<const float*>(w[4 * i + 1]);
+    g.wr[i] = static_cast<const float*>(w[4 * i + 2]);
+    g.br[i] = static_cast<const float*>(w[4 * i + 3]);
+  }
+  return g;
+}
+
+long chain_smem(int K, int W, int WM) {
+  return (long)(K * W + 3 * K * WM) * kTRS * (long)sizeof(float);
+}
+
+long rows_padded(int B, int N) { return ((long)B * N + kTR - 1) / kTR * kTR; }
+
+long grads_total(int d0, int d1) { return glu_grad_offset(6, d0, d1); }
 
 }  // namespace
 
@@ -148,20 +489,83 @@ spectral_fwd_kernel(const float* __restrict__ x, GluWeights g,
 extern "C" int spectral_fwd(const float* x, const void* const* w, const float* ci,
                             const float* si, float* out, int B, int K, int N, int W,
                             int WM, void* stream) {
-  GluWeights g;
-  for (int i = 0; i < 6; ++i) {
-    g.wl[i] = static_cast<const float*>(w[4 * i + 0]);
-    g.bl[i] = static_cast<const float*>(w[4 * i + 1]);
-    g.wr[i] = static_cast<const float*>(w[4 * i + 2]);
-    g.br[i] = static_cast<const float*>(w[4 * i + 3]);
-  }
-  const long smem = (long)(K * W + 3 * K * WM) * kTRS * (long)sizeof(float);
+  const long smem = chain_smem(K, W, WM);
   cudaError_t err = cudaFuncSetAttribute(
-      spectral_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      spectral_chain_kernel<false, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long rows = (long)B * N;
-  const int blocks = (int)((rows + kTR - 1) / kTR);
-  spectral_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, g, ci, si, out, B, K, N, W, WM);
+  const int blocks = (int)(rows_padded(B, N) / kTR);
+  spectral_chain_kernel<false, true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      x, glu_weights(w), ci, si, out, nullptr, 0, B, K, N, W, WM);
+  return (int)cudaGetLastError();
+}
+
+// Floats of the flat gradient buffer: per GLU wl [Din, D1], bl [D1], wr, br.
+extern "C" long long spectral_bwd_grad_floats(int K, int W, int WM) {
+  return grads_total(K * W, K * WM);
+}
+
+// Floats of the scratch `spectral_bwd` needs: a, s and da, ds of six GLUs for
+// the padded rows, the transposed weights, and nsplit partial gradients.
+extern "C" long long spectral_bwd_workspace_floats(int B, int K, int N, int W, int WM,
+                                                   int nsplit) {
+  const long d0 = K * W, d1 = K * WM;
+  return 24 * rows_padded(B, N) * d1 + 4 * d0 * d1 + 8 * d1 * d1 +
+         (long)nsplit * grads_total(d0, d1);
+}
+
+// x [B,K,N,W], g [B,K,N,WM], w as for spectral_fwd -> dx like x and grads
+// (flat, layer 0 in folded space). ws: spectral_bwd_workspace_floats floats.
+extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w,
+                            const float* ci, const float* si, float* dx, float* grads,
+                            float* ws, int B, int K, int N, int W, int WM, int nsplit,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int d0 = K * W, d1 = K * WM;
+  const long rows_pad = rows_padded(B, N);
+  const long plane = rows_pad * d1;
+  const long total = grads_total(d0, d1);
+  float* acts = ws;
+  float* dacts = acts + 12 * plane;
+  float* wT = dacts + 12 * plane;
+  float* part = wT + 4L * d0 * d1 + 8L * d1 * d1;
+  const GluWeights gw = glu_weights(w);
+  const int blocks = (int)(rows_pad / kTR);
+  cudaError_t err;
+
+  spectral_transpose_kernel<<<dim3((d1 * d1 + 255) / 256, 12), 256, 0, st>>>(gw, wT, d0,
+                                                                            d1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const long smem_f = chain_smem(K, W, WM);
+  err = cudaFuncSetAttribute(spectral_chain_kernel<true, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_f);
+  if (err != cudaSuccess) return (int)err;
+  spectral_chain_kernel<true, false><<<blocks, kThreads, smem_f, st>>>(
+      x, gw, ci, si, nullptr, acts, plane, B, K, N, W, WM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  TransposedWeights wt;
+  for (int m = 0; m < 12; ++m) {
+    const float* p = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
+    if (m % 2 == 0) wt.l[m / 2] = p; else wt.r[m / 2] = p;
+  }
+  const long smem_b = (long)(4 * d1 + d0) * kTRS * (long)sizeof(float);
+  err = cudaFuncSetAttribute(spectral_bwd_rows_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  if (err != cudaSuccess) return (int)err;
+  spectral_bwd_rows_kernel<<<blocks, kThreads, smem_b, st>>>(
+      g, acts, dacts, plane, wt, ci, si, dx, B, K, N, W, WM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int tiles = (d1 + kWT - 1) / kWT;
+  const int chunks = (int)(rows_pad / kWRows);
+  const int chunks_per_seg = (chunks + nsplit - 1) / nsplit;
+  spectral_wgrad_kernel<<<dim3(tiles * tiles, 6, nsplit), kWThreads, 0, st>>>(
+      x, acts, dacts, plane, part, total, chunks, chunks_per_seg, B, K, N, W, WM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  spectral_reduce_kernel<<<(int)((total + 255) / 256), 256, 0, st>>>(part, grads, total,
+                                                                     nsplit);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,11 @@ tree, with each array's dtype kept.
 
 `flatten_params` / `unflatten_params` give the "/"-joined names the
 module and the checkpoint store the tree under.
+
+Optimizer state crosses the same way (`opt_state_from_jax` /
+`opt_state_to_jax`): the JAX package's RMSProp state is {"nu": tree}, optax
+Adam's is mu / nu / count; torch.optim keeps `square_avg`, or `exp_avg` /
+`exp_avg_sq`, and `step` per parameter, numbered in the flattened order.
 """
 
 from __future__ import annotations
@@ -77,3 +82,43 @@ def unflatten_params(flat: dict):
 
 def param_count(params) -> int:
     return sum(t.numel() for t in flatten_params(params).values())
+
+
+_RMSPROP_KEYS = {"nu": "square_avg"}
+_ADAM_KEYS = {"mu": "exp_avg", "nu": "exp_avg_sq"}
+
+
+def opt_state_from_jax(state: dict, opt) -> None:
+    """Load JAX optimizer moments into `opt` (RMSprop or Adam over the
+    flattened parameters). state: {"nu": tree} for RMSProp, {"mu": tree,
+    "nu": tree, "count": int} for Adam, numpy leaves; "count" (steps taken)
+    is optional and 0 if absent."""
+    keys = _ADAM_KEYS if isinstance(opt, torch.optim.Adam) else _RMSPROP_KEYS
+    leaves = [p for group in opt.param_groups for p in group["params"]]
+    flat = {k: list(flatten_params(state[k]).values()) for k in keys}
+    count = float(state.get("count", 0))
+    per_param = {}
+    for i, p in enumerate(leaves):
+        entry = {"step": torch.tensor(count, dtype=torch.float32)}
+        for jax_key, torch_key in keys.items():
+            entry[torch_key] = torch.from_numpy(
+                np.array(flat[jax_key][i], copy=True)).to(device=p.device, dtype=p.dtype)
+        per_param[i] = entry
+    opt.load_state_dict({"state": per_param,
+                         "param_groups": opt.state_dict()["param_groups"]})
+
+
+def opt_state_to_jax(opt, params) -> dict:
+    """The moments of `opt` as trees shaped like `params` (numpy leaves),
+    with "count": {"nu", "count"} for RMSprop, {"mu", "nu", "count"} for
+    Adam. `params` is the tree whose flattened leaves `opt` updates."""
+    keys = _ADAM_KEYS if isinstance(opt, torch.optim.Adam) else _RMSPROP_KEYS
+    leaves = [p for group in opt.param_groups for p in group["params"]]
+    names = list(flatten_params(params))
+    out = {}
+    for jax_key, torch_key in keys.items():
+        out[jax_key] = unflatten_params({
+            name: opt.state[p][torch_key].detach().cpu().numpy().copy()
+            for name, p in zip(names, leaves)})
+    out["count"] = int(opt.state[leaves[0]]["step"]) if opt.state else 0
+    return out

@@ -1,4 +1,4 @@
-"""The StemGNN model, dense eval path, in PyTorch.
+"""The StemGNN model, dense path, in PyTorch.
 
 Architecture (reference base_model.py; stemgnn_tpu/models/stemgnn.py):
 
@@ -15,10 +15,11 @@ Architecture (reference base_model.py; stemgnn_tpu/models/stemgnn.py):
   returns (forecast [B, horizon, N], attention [N, N] symmetrized)
 
 The four hot ops go through `stemgnn_tpu_torch.ops`, whose wrappers launch
-the CUDA kernels on CUDA tensors and run the plain twins on CPU tensors.
+the CUDA kernels on CUDA tensors and run the plain twins on CPU tensors;
+under autograd their backward kernels run the same way.
 Parameters are a nested dict of tensors in the JAX package's layout.
-Only the dense single-device eval path is here: training (dropout, the
-backward kernels) and the sparse, segmented and ring branches are not.
+Only the dense single-device path is here, eval and training: the sparse,
+segmented and ring branches are not.
 """
 
 from __future__ import annotations
@@ -34,14 +35,33 @@ from stemgnn_tpu_torch.models.initializers import init_params
 from stemgnn_tpu_torch.ops.torch_impl import gru_over_nodes  # noqa: F401 (plain GRU)
 
 
-def latent_correlation_layer(params, cfg: StemGNNConfig, x):
-    """base_model.py:136-149. Returns (mul_L [4,N,N], attention [N,N])."""
+def draw_dropout_mask(shape, keep: float, generator: torch.Generator):
+    """Bernoulli(keep) mask drawn from `generator` on the generator's device."""
+    return torch.rand(shape, generator=generator, device=generator.device) < keep
+
+
+def latent_correlation_layer(params, cfg: StemGNNConfig, x, *, training: bool = False,
+                             dropout_generator=None, dropout_mask=None):
+    """base_model.py:136-149. Returns (mul_L [4,N,N], attention [N,N]).
+
+    In training the attention [B,N,N] is dropped out before the Laplacian
+    (base_model.py:161): `dropout_mask` [B,N,N] bool if given, else a
+    mask drawn from `dropout_generator`."""
     enc = ops.gru_over_nodes(params["gru"], x)  # [B, N_seq, N_hid]
     # the reference's input.permute(0,2,1), legal only because hidden == N
     enc = enc.transpose(1, 2)  # [B, N_hid, N_seq]
     key = (enc @ params["weight_key"])[..., 0].contiguous()  # [B, N]
     query = (enc @ params["weight_query"])[..., 0].contiguous()
     att = ops.attention_kq(key, query, cfg.leaky_rate)  # [B, N, N]
+    if training and cfg.dropout_rate > 0.0:
+        keep = 1.0 - cfg.dropout_rate
+        mask = dropout_mask
+        if mask is None:
+            if dropout_generator is None:
+                raise ValueError("training with dropout needs dropout_generator "
+                                 "or dropout_mask")
+            mask = draw_dropout_mask(att.shape, keep, dropout_generator)
+        att = torch.where(mask, att / keep, torch.zeros_like(att))
     return ops.laplacian_from_attention(att)
 
 
@@ -62,16 +82,18 @@ def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int):
     return forecast, None
 
 
-def forward(params, cfg: StemGNNConfig, x, *, training: bool = False):
-    """Model.forward (base_model.py:167-179), eval only.
+def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
+            dropout_generator=None, dropout_mask=None):
+    """Model.forward (base_model.py:167-179).
 
     x: [B, W, N] on the device of the params. Returns
-    (forecast [B, horizon, N], attention [N, N]).
+    (forecast [B, horizon, N], attention [N, N]). With `training`, dropout on
+    the attention: `dropout_mask` ([B,N,N] bool, True keeps) or a mask drawn
+    from `dropout_generator`, a torch.Generator on x's device.
     """
-    if training:
-        raise NotImplementedError(
-            "training (dropout and the backward kernels) is not ported yet")
-    mul_L, attention = latent_correlation_layer(params, cfg, x)
+    mul_L, attention = latent_correlation_layer(
+        params, cfg, x, training=training, dropout_generator=dropout_generator,
+        dropout_mask=dropout_mask)
     feat = x.permute(0, 2, 1)  # [B, N, W]
     forecasts = []
     for i in range(cfg.stack_cnt):
@@ -86,7 +108,7 @@ def forward(params, cfg: StemGNNConfig, x, *, training: bool = False):
 
 
 class StemGNN(nn.Module):
-    """nn.Module holding the parameter tree; `forward` is the eval path.
+    """nn.Module holding the parameter tree.
 
     Parameters are registered under their "/"-joined tree names, so the
     state dict carries the JAX layout unchanged.
@@ -104,5 +126,7 @@ class StemGNN(nn.Module):
     def params(self):
         return unflatten_params(dict(self.flat.items()))
 
-    def forward(self, x, training: bool = False):
-        return forward(self.params(), self.cfg, x, training=training)
+    def forward(self, x, training: bool = False, dropout_generator=None,
+                dropout_mask=None):
+        return forward(self.params(), self.cfg, x, training=training,
+                       dropout_generator=dropout_generator, dropout_mask=dropout_mask)

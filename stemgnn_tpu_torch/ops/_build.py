@@ -98,14 +98,16 @@ def stream_ptr(tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
 
 
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record an op on these tensors: the wrappers
+    then go through their autograd.Function, which saves what the backward
+    kernel reads; otherwise they launch the forward kernel alone."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def require_cuda(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor on one card,
-    and none needs a gradient (the backward kernels are not ported)."""
+    """Raise unless every tensor is a contiguous float32 tensor on one card."""
     for t in tensors:
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{name}: the kernel has no backward yet; call it under "
-                "torch.no_grad() or torch.inference_mode()")
         if t.device != tensors[0].device:
             raise ValueError(f"{name}: tensors on {t.device} and {tensors[0].device}")
         if t.device.type != "cuda":

@@ -2,9 +2,10 @@
 
 Kernel: csrc/graph.cu, the port of stemgnn_tpu/ops/pallas_graph.py
 `_kernel` (orders k >= 1 as tiled f32 products, the all-zero k = 0 order
-skipped and its slab written as zeros). On a CPU tensor the wrapper runs
-the plain version, `cheb_graph_conv_plain`; on a CUDA tensor it launches
-the kernel or raises.
+skipped and its slab written as zeros). Its backward is plain PyTorch (two
+einsums), because the JAX package's is the VJP of the jnp twin and not a
+kernel either. On a CPU tensor the wrapper runs the plain version,
+`cheb_graph_conv_plain`; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from stemgnn_tpu_torch.ops import _build, torch_impl
 
@@ -27,10 +29,7 @@ def _fn():
     return fn
 
 
-def cheb_graph_conv(mul_L, x):
-    """mul_L [K,N,N] (mul_L[0] == 0, the reference's T0), x [B,N,W]."""
-    if x.device.type == "cpu":
-        return cheb_graph_conv_plain(mul_L, x)
+def _launch_fwd(mul_L, x):
     _build.require_cuda("cheb_graph_conv", mul_L, x)
     k, n, _ = mul_L.shape
     b, nx, w = x.shape
@@ -43,6 +42,30 @@ def cheb_graph_conv(mul_L, x):
     _build.check(rc, "cheb_graph_conv")
     cheb_graph_conv.launches += 1
     return out
+
+
+class _ChebGraphConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mul_L, x):
+        ctx.save_for_backward(mul_L, x)
+        if x.device.type == "cpu":
+            return cheb_graph_conv_plain(mul_L, x)
+        return _launch_fwd(mul_L, x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        mul_L, x = ctx.saved_tensors
+        return torch_impl.cheb_graph_conv_bwd(mul_L, x, g)
+
+
+def cheb_graph_conv(mul_L, x):
+    """mul_L [K,N,N] (mul_L[0] == 0, the reference's T0), x [B,N,W]."""
+    if _build.needs_grad(mul_L, x):
+        return _ChebGraphConv.apply(mul_L, x)
+    if x.device.type == "cpu":
+        return cheb_graph_conv_plain(mul_L, x)
+    return _launch_fwd(mul_L, x)
 
 
 cheb_graph_conv.launches = 0

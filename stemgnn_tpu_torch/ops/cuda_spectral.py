@@ -1,14 +1,19 @@
 """Spectral-sequential cell, [B,K,N,W] -> [B,K,N,W*multi].
 
-Kernel: csrc/spectral.cu, the port of stemgnn_tpu/ops/pallas_spectral.py
-`_kernel`: a row map over the B*N rows in which the window is so short
-(W = 12) that the FFT is a product with a DFT matrix. The forward DFT is
+Kernels: csrc/spectral.cu, the port of stemgnn_tpu/ops/pallas_spectral.py
+`_kernel` and `_bwd_kernel`. The forward is a row map over the B*N rows in
+which the window is so short (W = 12) that the FFT is a product with a DFT
+matrix. The forward DFT is
 folded into the layer-0 GLU weights here, outside the kernel, in f32
 torch.matmul (four [K*W, K*W] x [K*W, K*Wm] products, as the JAX package's
 `_forward` does); the kernel runs the six GLUs and the inverse DFT, one
-[Wm, Wm] block of it per order. On a CPU tensor the wrapper runs the plain
-version, `spe_seq_cell_plain` (a full FFT); on a CUDA tensor it launches
-the kernel or raises.
+[Wm, Wm] block of it per order. The backward recomputes the activations
+from x and the folded weights and returns dx and the 24 weight and bias
+gradients, those of layer 0 in folded space; the unfold dW = Cf^T @ dAW is
+again torch.matmul out here, as the JAX package's `_backward` has it. On
+CPU tensors the wrappers run the plain versions, `spe_seq_cell_plain` (a
+full FFT) and `spe_seq_cell_bwd_plain`; on CUDA tensors they launch the
+kernels or raise.
 """
 
 from __future__ import annotations
@@ -18,39 +23,19 @@ import functools
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from stemgnn_tpu_torch.ops import _build, torch_impl
 
 spe_seq_cell_plain = torch_impl.spe_seq_cell
+spe_seq_cell_bwd_plain = torch_impl.spe_seq_cell_bwd
 
 
 @functools.lru_cache(maxsize=16)
 def dft_matrices(w: int, k: int, wm: int):
-    """Block-diagonal forward/inverse DFT matrices (numpy float32, cached).
-
-    Forward (length w, k blocks):  R = x @ Cf,  I = x @ Sf
-        Cf[n, j] = cos(2 pi n j / w),  Sf[n, j] = -sin(2 pi n j / w)
-    Inverse (length wm, real part): y = R @ Ci + I @ Si
-        Ci[j, n] = cos(2 pi j n / wm) / wm,  Si[j, n] = -sin(...) / wm
-    (a copy of stemgnn_tpu/ops/pallas_spectral.py `_dft_matrices`)
-    """
-    n_idx = np.arange(w)
-    ang_f = 2.0 * np.pi * np.outer(n_idx, n_idx) / w
-    cf = np.cos(ang_f)
-    sf = -np.sin(ang_f)
-    m_idx = np.arange(wm)
-    ang_i = 2.0 * np.pi * np.outer(m_idx, m_idx) / wm
-    ci = np.cos(ang_i) / wm
-    si = -np.sin(ang_i) / wm
-
-    def blockdiag(m, reps):
-        d = m.shape[0]
-        out = np.zeros((d * reps, d * reps), dtype=np.float32)
-        for r in range(reps):
-            out[r * d : (r + 1) * d, r * d : (r + 1) * d] = m
-        return out
-
-    return blockdiag(cf, k), blockdiag(sf, k), blockdiag(ci, k), blockdiag(si, k)
+    """Block-diagonal Cf, Sf, Ci, Si of `torch_impl.dft_matrices` as numpy
+    float32 (cached)."""
+    return tuple(m.astype(np.float32) for m in torch_impl.dft_matrices(w, k, wm))
 
 
 @functools.lru_cache(maxsize=16)
@@ -77,38 +62,151 @@ def folded_weights(glu_params, cf, sf):
     return out
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_SIGNATURES = {
+    "spectral_fwd": ([_P, _PP, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_bwd": ([_P, _P, _PP] + [_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
+    "spectral_bwd_grad_floats": ([_I] * 3, ctypes.c_longlong),
+    "spectral_bwd_workspace_floats": ([_I] * 6, ctypes.c_longlong),
+}
+# row segments whose partial weight gradients are summed in order
+N_SPLIT = 4
+
+
 @functools.cache
-def _fn():
-    fn = _build.library("spectral").spectral_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _fn(name: str):
+    fn = getattr(_build.library("spectral"), name)
+    fn.argtypes, fn.restype = _SIGNATURES[name]
     return fn
 
 
-def spe_seq_cell(x, glu_params, multi: int):
-    """x [B,K,N,W]; glu_params: 6 GLU dicts (even: real chain, odd: imag)."""
-    if x.device.type == "cpu":
-        return spe_seq_cell_plain(x, glu_params, multi)
-    b, k, n, w = x.shape
-    wm = w * multi
-    cf, sf, ci, si = _dft_on(w, k, wm, x.device)
-    weights = folded_weights(glu_params, cf, sf)
-    _build.require_cuda("spe_seq_cell", x, ci, si, *weights)
+def _check_weights(name, weights, k, w, wm):
     for i, t in enumerate(weights):
         d_in = k * w if i < 8 else k * wm
         want = (d_in, k * wm) if i % 2 == 0 else (k * wm,)
         if tuple(t.shape) != want:
-            raise ValueError(f"spe_seq_cell: GLU tensor {i} is {tuple(t.shape)}, "
+            raise ValueError(f"{name}: GLU tensor {i} is {tuple(t.shape)}, "
                              f"expected {want}")
+
+
+def _launch_fwd(x, weights, ci, si, multi: int):
+    """x [B,K,N,W] and the 24 folded GLU tensors -> [B,K,N,W*multi]."""
+    b, k, n, w = x.shape
+    wm = w * multi
+    _build.require_cuda("spe_seq_cell", x, ci, si, *weights)
+    _check_weights("spe_seq_cell", weights, k, w, wm)
     out = torch.empty((b, k, n, wm), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
-    rc = _fn()(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
-               b, k, n, w, wm, _build.stream_ptr(x))
+    rc = _fn("spectral_fwd")(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+                             out.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
     _build.check(rc, "spe_seq_cell")
     spe_seq_cell.launches += 1
     return out
+
+
+def _launch_bwd(x, g, weights, ci, si, multi: int):
+    """-> (dx like x, the 24 gradients in kernel order as views of one flat
+    buffer, those of GLU 0 and 1 in folded space)."""
+    b, k, n, w = x.shape
+    wm = w * multi
+    _build.require_cuda("spe_seq_cell_bwd", x, g, ci, si, *weights)
+    _check_weights("spe_seq_cell_bwd", weights, k, w, wm)
+    if g.shape != (b, k, n, wm):
+        raise ValueError(f"spe_seq_cell_bwd: g {tuple(g.shape)}, x {tuple(x.shape)}")
+    dx = torch.empty_like(x)
+    grads = torch.empty(_fn("spectral_bwd_grad_floats")(k, w, wm),
+                        dtype=torch.float32, device=x.device)
+    ws = torch.empty(_fn("spectral_bwd_workspace_floats")(b, k, n, w, wm, N_SPLIT),
+                     dtype=torch.float32, device=x.device)
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    rc = _fn("spectral_bwd")(
+        x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+        dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, N_SPLIT,
+        _build.stream_ptr(x))
+    _build.check(rc, "spe_seq_cell_bwd")
+    spe_seq_cell_bwd.launches += 1
+    out, off = [], 0
+    for t in weights:
+        out.append(grads[off : off + t.numel()].view(t.shape))
+        off += t.numel()
+    return dx, out
+
+
+def _flat(glu_params):
+    """Six GLU dicts -> 24 tensors in kernel order (wl, bl, wr, br per GLU)."""
+    return [p[side][leaf] for p in glu_params for side in ("left", "right")
+            for leaf in ("w", "b")]
+
+
+def _unflat(tensors):
+    return [{"left": {"w": wl, "b": bl}, "right": {"w": wr, "b": br}}
+            for wl, bl, wr, br in zip(*[iter(tensors)] * 4)]
+
+
+def _bwd_cuda(x, g, weights, multi: int):
+    """The backward on the card from the folded weights: kernel, then the
+    layer-0 unfold dW = Cf^T @ dAW (Sf for the imaginary chain)."""
+    b, k, n, w = x.shape
+    cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
+    dx, grads = _launch_bwd(x, g, weights, ci, si, multi)
+    for i, dft in ((0, cf), (2, cf), (4, sf), (6, sf)):
+        grads[i] = torch.matmul(dft.T, grads[i])
+    return dx, grads
+
+
+def spe_seq_cell_bwd(x, glu_params, g, multi: int):
+    """x [B,K,N,W], g [B,K,N,W*multi] -> (dx, six dicts like glu_params)."""
+    if x.device.type == "cpu":
+        return spe_seq_cell_bwd_plain(x, glu_params, g, multi)
+    b, k, n, w = x.shape
+    cf, sf, _, _ = _dft_on(w, k, w * multi, x.device)
+    dx, grads = _bwd_cuda(x, g, folded_weights(glu_params, cf, sf), multi)
+    return dx, _unflat(grads)
+
+
+spe_seq_cell_bwd.launches = 0
+
+
+class _SpeSeqCell(torch.autograd.Function):
+    """(x, multi, 24 GLU tensors in kernel order) -> out. Saves x and the GLU
+    tensors (on the card: folded, as the kernels read them); the backward
+    recomputes the activations."""
+
+    @staticmethod
+    def forward(ctx, x, multi, *tensors):
+        ctx.multi = multi
+        if x.device.type == "cpu":
+            ctx.save_for_backward(x, *tensors)
+            return spe_seq_cell_plain(x, _unflat(tensors), multi)
+        b, k, n, w = x.shape
+        cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
+        weights = folded_weights(_unflat(tensors), cf, sf)
+        ctx.save_for_backward(x, *weights)
+        return _launch_fwd(x, weights, ci, si, multi)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            dx, dglu = spe_seq_cell_bwd_plain(x, _unflat(tensors), g, ctx.multi)
+            return (dx, None, *_flat(dglu))
+        dx, grads = _bwd_cuda(x, g, tensors, ctx.multi)
+        return (dx, None, *grads)
+
+
+def spe_seq_cell(x, glu_params, multi: int):
+    """x [B,K,N,W]; glu_params: 6 GLU dicts (even: real chain, odd: imag)."""
+    tensors = _flat(glu_params)
+    if _build.needs_grad(x, *tensors):
+        return _SpeSeqCell.apply(x, multi, *tensors)
+    if x.device.type == "cpu":
+        return spe_seq_cell_plain(x, glu_params, multi)
+    b, k, n, w = x.shape
+    cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
+    return _launch_fwd(x, folded_weights(glu_params, cf, sf), ci, si, multi)
 
 
 spe_seq_cell.launches = 0

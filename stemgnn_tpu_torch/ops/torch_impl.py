@@ -12,10 +12,19 @@ its jnp counterpart at float64. Reference semantics:
   the widened spectrum, keep the real part)
 - GRU over the node axis: base_model.py:137 (torch nn.GRU gate order
   r, z, n with the sequence running over nodes)
+
+The three backward functions (`gru_scan_bwd`, `attention_kq_bwd`,
+`spe_seq_cell_bwd`) are the plain versions of the CUDA backward kernels.
+They are written as explicit formulas over the tensors the forward saves,
+not as autograd of the forward, so they pin the saved-tensor contract that
+the kernels follow.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -117,18 +126,156 @@ def gru_over_nodes(gru, x):
     as [B, N_seq, H]. The input projection for all steps is one matmul;
     the recurrence is a loop of [B, H] @ [H, 3H] products.
     """
-    b = x.shape[0]
     x_proj = gru_input_projection(gru, x)  # [N, B, 3H]
-    h_dim = gru["w_hh"].shape[1]
-    w_hh_t = gru["w_hh"].T  # [H, 3H]
-    b_hh = gru["b_hh"]
-    h = x.new_zeros((b, h_dim))
-    outs = []
+    return gru_scan(x_proj, gru["w_hh"].T, gru["b_hh"])
+
+
+def gru_scan(x_proj, w_hh_t, b_hh, save: bool = False):
+    """The recurrence core of `gru_over_nodes`.
+
+    x_proj [N, B, 3H] (gates r, z, n along the last axis), w_hh_t [H, 3H],
+    b_hh [3H] -> out [B, N, H]. With `save`, also the activations the
+    backward needs, saved [N, 5, B, H] = (r, z, hpn, c, h_prev - c) per step
+    (stemgnn_tpu/ops/pallas_gru.py `_fwd_kernel`), as (out, saved).
+    """
+    n, b, _ = x_proj.shape
+    h_dim = w_hh_t.shape[0]
+    h = x_proj.new_zeros((b, h_dim))
+    outs, saved = [], []
     for xp in x_proj:
         hp = h @ w_hh_t + b_hh
         r = torch.sigmoid(xp[:, :h_dim] + hp[:, :h_dim])
         z = torch.sigmoid(xp[:, h_dim : 2 * h_dim] + hp[:, h_dim : 2 * h_dim])
-        c = torch.tanh(xp[:, 2 * h_dim :] + r * hp[:, 2 * h_dim :])
+        hpn = hp[:, 2 * h_dim :]
+        c = torch.tanh(xp[:, 2 * h_dim :] + r * hpn)
+        if save:
+            saved.append(torch.stack([r, z, hpn, c, h - c]))
         h = (1.0 - z) * c + z * h
         outs.append(h)
-    return torch.stack(outs, dim=1)  # [B, N_seq, H]
+    out = torch.stack(outs, dim=1)  # [B, N, H]
+    return (out, torch.stack(saved)) if save else out
+
+
+def gru_scan_bwd(saved, g, a_all):
+    """Reverse recurrence over the saved activations (pallas_gru.py
+    `_bwd_kernel`): elementwise gate gradients and one [B, 3H] x [3H, H]
+    product per step on the dh chain.
+
+    saved [N, 5, B, H], g [B, N, H] (cotangent of the output sequence),
+    a_all [H, 3H] (= W_hh^T) -> dxp [N, B, 3H], the gradient of x_proj
+    (dr, dz, dn along the last axis). The gradient of the recurrent product
+    h @ a_all is (dr, dz, dn * r): the caller forms it from dxp and saved.
+    """
+    n, _, b, h_dim = saved.shape
+    dh = g.new_zeros((b, h_dim))
+    a_t = a_all.T
+    dxp = [None] * n
+    for t in range(n - 1, -1, -1):
+        r, z, hpn, c, hmc = saved[t]
+        dh_total = g[:, t] + dh
+        dz = dh_total * hmc * z * (1.0 - z)
+        dn = dh_total * (1.0 - z) * (1.0 - c * c)
+        dr = dn * hpn * r * (1.0 - r)
+        dxp[t] = torch.cat([dr, dz, dn], dim=-1)
+        dh = dh_total * z + torch.cat([dr, dz, dn * r], dim=-1) @ a_t
+    return torch.stack(dxp)
+
+
+def gru_weight_grads(saved, out, dxp):
+    """(d w_hh_t [H, 3H], d b_hh [3H]) from the saved states, as products
+    over all steps at once (pallas_gru.py `_vjp_bwd`, after the kernel)."""
+    n, _, b, h_dim = saved.shape
+    hs = out.transpose(0, 1)  # [N, B, H]
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]], dim=0)
+    dcat = torch.cat([dxp[..., : 2 * h_dim], dxp[..., 2 * h_dim :] * saved[:, 0]],
+                     dim=-1).reshape(n * b, 3 * h_dim)
+    return h_prev.reshape(n * b, h_dim).T @ dcat, dcat.sum(dim=0)
+
+
+def attention_kq_bwd(key, query, p, g, alpha: float):
+    """Backward of `attention_from_kq` from its saved output p
+    (pallas_attention.py `_bwd_kernel`): softmax backward, LeakyReLU
+    backward by the recomputed pre-activation sign, then dkey as row sums
+    and dquery as column sums. key, query [B, N]; p, g [B, N, N]."""
+    gp = g * p
+    dl = gp - p * gp.sum(dim=-1, keepdim=True)
+    pre = key[:, :, None] + query[:, None, :]
+    dpre = torch.where(pre >= 0, dl, alpha * dl)
+    return dpre.sum(dim=2), dpre.sum(dim=1)
+
+
+@functools.lru_cache(maxsize=16)
+def dft_matrices(w: int, k: int, wm: int):
+    """Block-diagonal forward/inverse DFT matrices (numpy float64, cached).
+
+    Forward (length w, k blocks):  R = x @ Cf,  I = x @ Sf
+        Cf[n, j] = cos(2 pi n j / w),  Sf[n, j] = -sin(2 pi n j / w)
+    Inverse (length wm, real part): y = R @ Ci + I @ Si
+        Ci[j, n] = cos(2 pi j n / wm) / wm,  Si[j, n] = -sin(...) / wm
+    (stemgnn_tpu/ops/pallas_spectral.py `_dft_matrices`, kept at float64
+    here and cast by the caller)
+    """
+    n_idx = np.arange(w)
+    ang_f = 2.0 * np.pi * np.outer(n_idx, n_idx) / w
+    m_idx = np.arange(wm)
+    ang_i = 2.0 * np.pi * np.outer(m_idx, m_idx) / wm
+    eye = np.eye(k)
+    return tuple(np.kron(eye, m) for m in (
+        np.cos(ang_f), -np.sin(ang_f), np.cos(ang_i) / wm, -np.sin(ang_i) / wm))
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_tensors(w: int, k: int, wm: int, device, dtype):
+    """`dft_matrices` as tensors of `dtype` on `device` (cached, so a call
+    that repeats moves nothing from the host)."""
+    return tuple(torch.from_numpy(m).to(device=device, dtype=dtype)
+                 for m in dft_matrices(w, k, wm))
+
+
+def spe_seq_cell_bwd(x, glu_params, g, multi: int):
+    """Backward of `spe_seq_cell` over the folded-DFT chain
+    (pallas_spectral.py `_bwd_kernel` and `_backward`).
+
+    Recomputes (u, a, s) of each GLU from x with the forward DFT folded into
+    the layer-0 weights, backpropagates the inverse DFT and the six GLUs, and
+    unfolds the layer-0 weight gradients (dW = Cf^T @ dAW). x [B,K,N,W],
+    g [B,K,N,W*multi] -> (dx like x, dglu: six dicts like glu_params).
+    """
+    b, k, n, w = x.shape
+    wm = w * multi
+    cf, sf, ci, si = _dft_tensors(w, k, wm, x.device, x.dtype)
+    rows = x.permute(0, 2, 1, 3).reshape(b * n, k * w)
+    gr = g.permute(0, 2, 1, 3).reshape(b * n, k * wm)
+    fold = (cf, sf)
+    cur = [rows, rows]
+    saved = []
+    for i, p in enumerate(glu_params):
+        wl, wr = p["left"]["w"], p["right"]["w"]
+        if i < 2:
+            wl, wr = fold[i] @ wl, fold[i] @ wr
+        u = cur[i % 2]
+        a = u @ wl + p["left"]["b"]
+        s = torch.sigmoid(u @ wr + p["right"]["b"])
+        saved.append((u, a, s, wl, wr))
+        cur[i % 2] = a * s
+    d = [gr @ ci.T, gr @ si.T]
+    dglu = [None] * 6
+    for i in range(5, -1, -1):
+        u, a, s, wl, wr = saved[i]
+        dy = d[i % 2]
+        da = dy * s
+        dspre = dy * a * (s * (1.0 - s))
+        dwl, dwr = u.T @ da, u.T @ dspre
+        if i < 2:
+            dwl, dwr = fold[i].T @ dwl, fold[i].T @ dwr
+        dglu[i] = {"left": {"w": dwl, "b": da.sum(dim=0)},
+                   "right": {"w": dwr, "b": dspre.sum(dim=0)}}
+        d[i % 2] = da @ wl.T + dspre @ wr.T
+    dx = (d[0] + d[1]).reshape(b, n, k, w).permute(0, 2, 1, 3)
+    return dx, dglu
+
+
+def cheb_graph_conv_bwd(mul_L, x, g):
+    """Backward of `cheb_graph_conv`: (d mul_L [K,N,N], dx [B,N,W])."""
+    return (torch.einsum("bknw,bmw->knm", g, x),
+            torch.einsum("knm,bknw->bmw", mul_L, g))

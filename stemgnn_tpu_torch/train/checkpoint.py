@@ -5,9 +5,15 @@ at `<dir>/<epoch>_stemgnn.ckpt` plus a best-by-validation-MAE checkpoint at
 `<dir>/_stemgnn.ckpt`; `load` returns None when the file is missing; norm
 stats travel separately as `norm_stat.json` (handler.py:122-124).
 
-Format: one `torch.save` of {"params": flat state dict, "meta": dict},
-with the parameter tree flattened to "/"-joined names and every tensor on
-the CPU. Writes are atomic (tmp file + os.replace).
+Beyond the reference, as in the JAX package: a checkpoint also carries the
+optimizer state and a meta dict (epoch, best validation MAE, its
+non-decrease count), which is what `--resume` restores.
+
+Format: one `torch.save` of {"params": flat state dict, "opt_state": the
+optimizer's `state_dict()` or None, "meta": dict}, with the parameter tree
+flattened to "/"-joined names and every tensor on the CPU. The optimizer's
+parameters are numbered in that flattened order. Writes are synchronous and
+atomic (tmp file + os.replace).
 The JAX package's flax-msgpack checkpoints are not read here; JAX weights
 come in through models/convert.py.
 """
@@ -34,6 +40,7 @@ def _path(model_dir: str, epoch=None) -> str:
 def save(
     model_dir: str,
     params: Any,
+    opt_state: Optional[Dict] = None,
     *,
     epoch: Optional[int] = None,
     meta: Optional[Dict] = None,
@@ -44,6 +51,7 @@ def save(
     os.makedirs(model_dir, exist_ok=True)
     state = {
         "params": {k: v.detach().cpu() for k, v in flatten_params(params).items()},
+        "opt_state": _to_cpu(opt_state),
         "meta": dict(meta or {}),
     }
     path = _path(model_dir, epoch)
@@ -53,13 +61,25 @@ def save(
     return path
 
 
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_cpu(v) for v in obj]
+    return obj
+
+
 def load(
     model_dir: str,
     *,
     epoch: Optional[int] = None,
     device="cuda",
-) -> Optional[Tuple[Any, Dict]]:
-    """Restore (params, meta) onto `device`; None if absent."""
+) -> Optional[Tuple[Any, Optional[Dict], Dict]]:
+    """Restore (params, opt_state, meta), params onto `device`; None if
+    absent (handler.py:34-35). opt_state is what `save` was given (an
+    optimizer `state_dict()` with CPU tensors, for `load_state_dict`)."""
     dev = resolve_device(device)
     if not model_dir:
         return None
@@ -68,7 +88,20 @@ def load(
         return None
     state = torch.load(path, map_location="cpu", weights_only=True)
     params = unflatten_params({k: v.to(dev) for k, v in state["params"].items()})
-    return params, state["meta"]
+    return params, state.get("opt_state"), state["meta"]
+
+
+def latest_epoch(model_dir: str) -> Optional[int]:
+    """Highest epoch number with a checkpoint on disk (for --resume)."""
+    if not os.path.isdir(model_dir):
+        return None
+    epochs = []
+    for name in os.listdir(model_dir):
+        if name.endswith(CKPT_SUFFIX) and name != CKPT_SUFFIX:
+            stem = name[: -len(CKPT_SUFFIX)]
+            if stem.isdigit():
+                epochs.append(int(stem))
+    return max(epochs) if epochs else None
 
 
 def save_norm_stat(result_dir: str, normalize_statistic: Optional[Dict]) -> None:

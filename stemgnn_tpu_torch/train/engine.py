@@ -1,27 +1,49 @@
-"""Eval engine: the reference handler's inference / validate / test
-(models/handler.py:41-100,194-207), as stemgnn_tpu/train/engine.py has
-them, with the same console lines and CSV artifacts.
+"""Training and eval engine: the reference handler's train / inference /
+validate / test (models/handler.py:41-207), as stemgnn_tpu/train/engine.py
+has them, with the same console lines, checkpoints, metrics.jsonl events
+and CSV artifacts.
 
 The normalized split moves to the device once as one [T, N] tensor and each
 batch is gathered there from its [B] window end indices. Every batch runs
 at its true size: the short last batch is not padded, because the latent
-adjacency depends on batch statistics. Training is not ported yet.
+adjacency depends on batch statistics.
+
+Training is an eager loop, one step per batch (the JAX package's chunked
+scan over batches has no counterpart here). The per-epoch shuffle comes
+from `np.random.default_rng([shuffle root, epoch])` as in the JAX engine,
+so both engines see the same batches; the dropout generator is re-seeded
+from (dropout root, epoch) at each epoch. Neither is a carried chain, so a
+`--resume` run reproduces the uninterrupted run bitwise. The loss is read
+back once per epoch, not per step.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from stemgnn_tpu_torch.config import StemGNNConfig, TrainConfig
-from stemgnn_tpu_torch.data.pipeline import WindowDataset, de_normalized
+from stemgnn_tpu_torch.data.pipeline import (
+    WindowDataset,
+    compute_norm_stats,
+    de_normalized,
+)
 from stemgnn_tpu_torch.device import resolve_device
 from stemgnn_tpu_torch.metrics import evaluate
 from stemgnn_tpu_torch.models import stemgnn
+from stemgnn_tpu_torch.models.convert import (
+    flatten_params,
+    param_count,
+    unflatten_params,
+)
+from stemgnn_tpu_torch.models.initializers import init_params
 from stemgnn_tpu_torch.train import checkpoint as ckpt
+from stemgnn_tpu_torch.train.optim import decayed_lr, make_optimizer, set_lr
+from stemgnn_tpu_torch.utils.logging import JsonlLogger
 
 
 def gather_windows(data, hi, window_size: int, horizon: int):
@@ -33,6 +55,42 @@ def gather_windows(data, hi, window_size: int, horizon: int):
     x_idx = hi[:, None] + torch.arange(-window_size, 0, device=hi.device)[None, :]
     y_idx = hi[:, None] + torch.arange(horizon, device=hi.device)[None, :]
     return data[x_idx], data[y_idx]
+
+
+def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves):
+    """train_step(params, data, hi, dropout_generator) -> loss (a 0-d tensor
+    on the device, not read back). One forward, backward and optimizer step
+    on the batch whose window end indices are `hi`.
+
+    `leaves` are the parameter tensors `opt` updates (in place). A parameter
+    the loss does not reach (stack 1's backcast_short_cut) gets a zero
+    gradient, as jax.grad gives it, so its optimizer state exists and the
+    checkpoints line up with the JAX package's.
+    """
+    w, h = mcfg.window_size, mcfg.horizon
+    leaves = list(leaves)
+
+    def train_step(params, data, hi, dropout_generator):
+        x, y = gather_windows(data, hi, w, h)
+        opt.zero_grad(set_to_none=True)
+        forecast, _ = stemgnn.forward(
+            params, mcfg, x, training=True, dropout_generator=dropout_generator)
+        loss = torch.mean((forecast - y) ** 2)  # nn.MSELoss (handler.py:140)
+        loss.backward()
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        opt.step()
+        return loss.detach()
+
+    return train_step
+
+
+def epoch_generator_seed(root: int, epoch: int) -> int:
+    """Seed of the dropout generator for `epoch`, a function of (root, epoch)
+    alone."""
+    return int(np.random.SeedSequence([root, epoch]).generate_state(1, np.uint64)[0]
+               & np.uint64(2**63 - 1))
 
 
 def make_eval_step(mcfg: StemGNNConfig, device="cuda"):
@@ -170,6 +228,181 @@ def validate(
     )
 
 
+def train(
+    train_data: np.ndarray,
+    valid_data: np.ndarray,
+    cfg: TrainConfig,
+    result_file: str,
+    init_params_override=None,
+) -> Tuple[Dict, Optional[Dict]]:
+    """handler.py:103-191 on cfg.device. Returns (the last validation's
+    metrics, the train split's norm stats).
+
+    init_params_override: a ready params tree used instead of
+    `init_params(cfg.seed)` (an experiment hook, as in the JAX engine)."""
+    device = resolve_device(cfg.device)
+    node_cnt = train_data.shape[1]
+    mcfg = cfg.model_config(node_cnt)
+    if len(train_data) == 0:
+        raise Exception("Cannot organize enough training data")
+    if len(valid_data) == 0:
+        raise Exception("Cannot organize enough validation data")
+
+    normalize_statistic = compute_norm_stats(train_data, cfg.norm_method)
+    if normalize_statistic is not None:
+        ckpt.save_norm_stat(result_file, normalize_statistic)
+
+    if init_params_override is not None:
+        params = init_params_override
+    else:
+        params = init_params(cfg.seed, mcfg, device=device)
+    flat = flatten_params(params)
+    flat = {k: v.detach().to(device).clone().requires_grad_(True)
+            for k, v in flat.items()}
+    opt = make_optimizer(cfg.optimizer, flat.values(), cfg.lr)
+
+    train_set = WindowDataset(
+        train_data, cfg.window_size, cfg.horizon, cfg.norm_method, normalize_statistic
+    )
+    valid_set = WindowDataset(
+        valid_data, cfg.window_size, cfg.horizon, cfg.norm_method, normalize_statistic
+    )
+    if len(train_set) == 0:
+        raise Exception("Cannot organize enough training data")
+
+    print(f"Total Trainable Params: {param_count(flat)}")
+
+    logger = JsonlLogger(
+        os.path.join(result_file, "metrics.jsonl") if cfg.log_jsonl else None
+    )
+
+    start_epoch = 0
+    best_validate_mae = np.inf
+    validate_score_non_decrease_count = 0
+    if cfg.resume:
+        last = ckpt.latest_epoch(result_file)
+        if last is not None:
+            restored = ckpt.load(result_file, epoch=last, device=device)
+            if restored is not None:
+                loaded, opt_state, meta = restored
+                with torch.no_grad():
+                    for k, v in flatten_params(loaded).items():
+                        flat[k].copy_(v)
+                if opt_state is not None:
+                    opt.load_state_dict(opt_state)
+                start_epoch = meta.get("epoch", last) + 1
+                best_validate_mae = meta.get("best_validate_mae", np.inf)
+                validate_score_non_decrease_count = meta.get("non_decrease_count", 0)
+                print(f"Resumed from epoch {last}")
+
+    performance_metrics = _train_epochs(
+        cfg, mcfg, flat, opt, device, train_set, valid_set, normalize_statistic,
+        node_cnt, result_file, logger, start_epoch, best_validate_mae,
+        validate_score_non_decrease_count,
+    )
+    return performance_metrics, normalize_statistic
+
+
+def _train_epochs(
+    cfg, mcfg, flat, opt, device, train_set, valid_set, normalize_statistic,
+    node_cnt, result_file, logger, start_epoch, best_validate_mae,
+    validate_score_non_decrease_count,
+) -> Dict:
+    params = unflatten_params(flat)
+    train_step = make_train_step(mcfg, opt, flat.values())
+    eval_step = make_eval_step(mcfg, device)
+    data_dev = torch.from_numpy(train_set.data).to(device)
+    n_windows = len(train_set)
+    dropout_root = cfg.dropout_seed if cfg.dropout_seed >= 0 else cfg.seed
+    shuffle_root = cfg.shuffle_seed if cfg.shuffle_seed >= 0 else cfg.seed
+    generator = torch.Generator(device=device)
+
+    def save_ckpt(epoch_arg, meta):
+        ckpt.save(result_file, params, opt.state_dict(), epoch=epoch_arg, meta=meta)
+
+    performance_metrics: Dict = {}
+    for epoch in range(start_epoch, cfg.epoch):
+        lr = decayed_lr(cfg.lr, epoch, cfg.exponential_decay_step, cfg.decay_rate)
+        set_lr(opt, lr)
+        epoch_start_time = time.time()
+        # shuffle and dropout streams are functions of (root, epoch), not
+        # carried chains: a --resume run at epoch k sees the uninterrupted
+        # run's batches and masks
+        batches = train_set.epoch_batches(
+            cfg.batch_size, shuffle=True,
+            rng=np.random.default_rng([shuffle_root, epoch]),
+        )
+        cnt = len(batches)
+        generator.manual_seed(epoch_generator_seed(dropout_root, epoch))
+        sizes = [len(b) for b in batches]
+        hi_all = torch.from_numpy(np.concatenate(batches).astype(np.int64)).to(device)
+        losses = [
+            train_step(params, data_dev, hi, generator)
+            for hi in torch.split(hi_all, sizes)
+        ]
+        loss_total = float(torch.stack(losses).sum())  # one sync per epoch
+        epoch_time = time.time() - epoch_start_time
+        print(
+            "| end of epoch {:3d} | time: {:5.2f}s | train_total_loss {:5.4f}".format(
+                epoch, epoch_time, loss_total / cnt
+            )
+        )
+        meta = {
+            "epoch": epoch,
+            "best_validate_mae": float(best_validate_mae),
+            "non_decrease_count": validate_score_non_decrease_count,
+            "rng_seed": cfg.seed,
+        }
+        # per-epoch checkpoint (handler.py:169), at the configured cadence
+        if (epoch + 1) % cfg.ckpt_every == 0 or epoch == cfg.epoch - 1:
+            save_ckpt(epoch, meta)
+        logger.log(
+            {
+                "event": "epoch",
+                "epoch": epoch,
+                "loss": loss_total / cnt,
+                "lr": lr,
+                "epoch_time_s": epoch_time,
+                "windows_per_s": n_windows / epoch_time,
+            }
+        )
+        if (epoch + 1) % cfg.validate_freq == 0:
+            is_best_for_now = False
+            print("------ validate on data: VALIDATE ------")
+            performance_metrics = validate(
+                eval_step,
+                params,
+                valid_set,
+                cfg.norm_method,
+                normalize_statistic,
+                node_cnt,
+                cfg.window_size,
+                cfg.horizon,
+                cfg.batch_size,
+                result_file=result_file,
+                device=device,
+            )
+            if best_validate_mae > performance_metrics["mae"]:
+                best_validate_mae = performance_metrics["mae"]
+                is_best_for_now = True
+                validate_score_non_decrease_count = 0
+            else:
+                validate_score_non_decrease_count += 1
+            if is_best_for_now:
+                save_ckpt(None, meta)
+            logger.log({"event": "validate", "epoch": epoch, **{
+                k: (v.tolist() if isinstance(v, np.ndarray) else float(v))
+                for k, v in performance_metrics.items()
+            }})
+        if cfg.early_stop and validate_score_non_decrease_count >= cfg.early_stop_step:
+            # backstop: with ckpt_every > 1 this epoch may not have been
+            # checkpointed yet; write it so --resume sees the final state
+            if (epoch + 1) % cfg.ckpt_every != 0 and epoch != cfg.epoch - 1:
+                save_ckpt(epoch, meta)
+            break
+    return performance_metrics
+
+
 def test(
     test_data: np.ndarray,
     cfg: TrainConfig,
@@ -185,7 +418,7 @@ def test(
     restored = ckpt.load(result_train_file, device=device)
     if restored is None:
         raise FileNotFoundError(f"no best checkpoint in {result_train_file}")
-    params, _ = restored
+    params, _, _ = restored
     test_set = WindowDataset(
         test_data, cfg.window_size, cfg.horizon, cfg.norm_method, normalize_statistic
     )

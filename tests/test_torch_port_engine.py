@@ -118,8 +118,6 @@ def test_cli_eval_on_cpu(tiny_data, tmp_path, capsys):
     pred = np.loadtxt(out_dir / "tiny" / "test" / "predict.csv", delimiter=",")
     assert pred.shape == (len(test) - W - H + 1, 6)
     assert np.all(np.isfinite(pred))
-    with pytest.raises(NotImplementedError):
-        port_main(["--train", "True", "--device", "cpu"])
 
 
 def test_entry_points_raise_without_cuda(tmp_path):

@@ -1,5 +1,6 @@
 """The port's model against the JAX package (CPU): init draw, weight
-converter, module and checkpoint, and the whole eval forward."""
+converter, module and checkpoint, the whole eval forward, and the whole
+training forward with every parameter gradient."""
 
 import jax
 import jax.numpy as jnp
@@ -106,10 +107,92 @@ def test_forward_f64_matches_jnp_forward(np_params):
     np.testing.assert_allclose(tf.numpy(), jf, atol=1e-10, rtol=0)
 
 
-def test_training_forward_is_not_ported(np_params):
+def _leaf_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _leaf_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaf_tree(v) for v in tree]
+    return torch.from_numpy(np.array(tree)).requires_grad_(True)
+
+
+def _training_loss_and_grads(np_tree, x, y, use_pallas):
+    """Both sides' loss, forecast and parameter gradients of the training
+    forward on one batch. The dropout mask is drawn here as the JAX forward
+    draws it, bernoulli(rng, keep, [B, N, N]), and handed to the port: the two
+    frameworks' generators give different bits from one seed."""
+    rng = jax.random.PRNGKey(5)
+    keep = 1.0 - JCFG.dropout_rate
+    mask = np.asarray(jax.random.bernoulli(rng, keep, (B, N, N)))
+    assert 0.3 < mask.mean() < 0.7
+
+    def loss_fn(p):
+        f, _ = jax_stemgnn.forward(p, JCFG, jnp.asarray(x), training=True,
+                                   dropout_rng=rng, use_pallas=use_pallas)
+        return jnp.mean((f - jnp.asarray(y)) ** 2), f
+
+    (jloss, jf), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, np_tree))
+    params = _leaf_tree(np_tree)
+    tf, _ = forward(params, CFG, torch.from_numpy(x), training=True,
+                    dropout_mask=torch.from_numpy(mask.copy()))
+    tloss = torch.mean((tf - torch.from_numpy(y)) ** 2)
+    tloss.backward()
+    tgrads = {k: v.grad for k, v in flatten_params(params).items()}
+    return (float(jloss), np.asarray(jf), flatten_params(jax.tree.map(np.asarray, jgrads)),
+            float(tloss.detach()), tf.detach().numpy(), tgrads)
+
+
+def test_training_forward_and_grads_f64_match_jax_grad(np_params):
+    rng = np.random.default_rng(23)
+    x, y = rng.standard_normal((B, W, N)), rng.standard_normal((B, 3, N))
+    with jax.enable_x64():
+        jloss, jf, jgrads, tloss, tf, tgrads = _training_loss_and_grads(
+            _cast(np_params, np.float64), x, y, use_pallas=False)
+    np.testing.assert_allclose(tf, jf, atol=1e-10, rtol=0)
+    assert abs(tloss - jloss) < 1e-10
+    assert list(tgrads) == list(jgrads)
+    for name, want in jgrads.items():
+        if name == "blocks/1/backcast_short_cut/w" or name == "blocks/1/backcast_short_cut/b":
+            # stack 1's shortcut is never used: zeros from jax.grad, no
+            # gradient from autograd (the train step fills in zeros)
+            assert not want.any() and tgrads[name] is None
+            continue
+        assert tgrads[name].dtype == torch.float64
+        np.testing.assert_allclose(tgrads[name].numpy(), want, atol=1e-10, rtol=0,
+                                   err_msg=name)
+
+
+def test_training_forward_and_grads_f32_match_pallas(np_params):
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal((B, W, N)).astype(np.float32)
+    y = rng.standard_normal((B, 3, N)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jloss, jf, jgrads, tloss, tf, tgrads = _training_loss_and_grads(
+            np_params, x, y, use_pallas=True)
+    np.testing.assert_allclose(tf, jf, atol=1e-4)
+    assert abs(tloss - jloss) < 1e-5
+    for name, want in jgrads.items():
+        if tgrads[name] is None:
+            assert not want.any(), name
+            continue
+        # f32 through the Pallas backward kernels (interpret mode) against the
+        # port's plain backward formulas: 1e-3 of the gradient's largest entry
+        atol = 1e-3 * float(np.abs(want).max()) + 1e-9
+        np.testing.assert_allclose(tgrads[name].numpy(), want, atol=atol, rtol=1e-3,
+                                   err_msg=name)
+
+
+def test_training_dropout_needs_a_mask_or_generator(np_params):
+    params = params_from_jax(np_params, "cpu")
     x = torch.zeros((B, W, N))
-    with pytest.raises(NotImplementedError):
-        forward(params_from_jax(np_params, "cpu"), CFG, x, training=True)
+    with pytest.raises(ValueError, match="dropout"):
+        forward(params, CFG, x, training=True)
+    gen = torch.Generator().manual_seed(3)
+    a, _ = forward(params, CFG, x + 1.0, training=True, dropout_generator=gen)
+    gen.manual_seed(3)
+    b, _ = forward(params, CFG, x + 1.0, training=True, dropout_generator=gen)
+    c, _ = forward(params, CFG, x + 1.0, training=True, dropout_generator=gen)
+    assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 def test_module_and_checkpoint_round_trip(tmp_path):
@@ -126,8 +209,9 @@ def test_module_and_checkpoint_round_trip(tmp_path):
     assert path.endswith("/_stemgnn.ckpt")
     ckpt.save(str(tmp_path), params, epoch=4)
     assert (tmp_path / "4_stemgnn.ckpt").exists()
-    loaded, meta = ckpt.load(str(tmp_path), device="cpu")
-    assert meta == {"epoch": 4}
+    assert ckpt.latest_epoch(str(tmp_path)) == 4
+    loaded, opt_state, meta = ckpt.load(str(tmp_path), device="cpu")
+    assert meta == {"epoch": 4} and opt_state is None
     for name, t in flatten_params(params).items():
         torch.testing.assert_close(flatten_params(loaded)[name], t.detach(),
                                    rtol=0, atol=0)
