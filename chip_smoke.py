@@ -371,6 +371,35 @@ def forward_cases(params, mcfg, x):
     ]
 
 
+def profile_steps(step, batches, step_ms: float) -> None:
+    """Print where the card's time goes in a train step: torch.profiler over
+    `batches`, device time per step by kernel name, their sum, and that sum
+    over `step_ms` (the unprofiled host-clock step) as the card's busy share.
+    Informative only: prints "not measured" if the profiler saw no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for hi_b in batches:
+            step(hi_b)
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total / 1e3
+    n = len(batches)
+    total = sum(kernels.values()) / n
+    if total <= 0:
+        print("[5 train path] device time by kernel: not measured (the profiler "
+              "recorded no kernel)")
+        return
+    print(f"[5 train path] device time by kernel, torch.profiler over {n} steps: "
+          f"{total:.3f} ms per step in {len(kernels)} kernels, {total / step_ms:.1%} "
+          f"of the {step_ms:.3f} ms step (the card's busy share; the rest is idle)")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[5 train path]   {ms / n:8.4f} ms/step  {name[:100]}")
+
+
 def check_cases(cases, results, phase: str, scaled: bool = False):
     """Hold each case's kernel against its plain version and time both; fills
     `results`. Returns an error message, or None. With `scaled` a case's atol
@@ -693,6 +722,8 @@ def run() -> int:
           f"({steps} steps, batch {BATCH}, after 3 warm steps); the seven kernels' "
           f"device time per step from phase 3: {kernel_ms:.3f} ms")
     print(f"[5 train path] train {n_win / epoch_s:.1f} windows/s")
+    profile_steps(lambda hi_b: train_step(tree, train_dev, hi_b, gen), his_dev[:10],
+                  epoch_s / steps * 1e3)
 
     # --- 6. summary ---
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

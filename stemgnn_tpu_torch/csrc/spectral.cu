@@ -47,8 +47,9 @@
 //      every GLU ([rows, D1] row-major each): the forward kernel itself,
 //      compiled with kSave; a forward that must save is the same kernel with
 //      kOut as well;
-//   3. per 32-row tile, the chain backwards in shared memory (both chains' d,
-//      da, ds: 145 KB), writing da and ds of every GLU and dx;
+//   3. per 32-row tile, the chain backwards in shared memory, the real chain
+//      and then the imaginary one (d, da, ds of one chain: 110 KB, two blocks
+//      on an SM), writing da and ds of every GLU and dx;
 //   4. the weight gradients as products over the rows: a block owns a
 //      [48, 48] tile of dWl and dWr of one GLU (u = x or a * s of the GLU
 //      before, rebuilt on load) for one of `nsplit` row segments and writes
@@ -241,8 +242,10 @@ __device__ void bwd_tile(const float* da, const float* ds, int dmid,
   }
 }
 
-// One 32-row tile: g -> (dR, dI) -> six GLUs backwards -> dx; da, ds of every
-// GLU to dacts (laid out like acts).
+// One 32-row tile, the real chain and then the imaginary chain: g -> dR (dI)
+// -> the chain's three GLUs backwards -> dx; da, ds of every GLU to dacts
+// (laid out like acts). One chain at a time keeps the block at three
+// [D1, 32] buffers, so that two blocks fit on an SM.
 __global__ void __launch_bounds__(kThreads)
 spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ acts,
                          float* __restrict__ dacts, long plane, TransposedWeights wt,
@@ -252,57 +255,49 @@ spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ 
   const int d0 = K * W, d1 = K * WM;
   const long rows = (long)B * N;
   const long row0 = (long)blockIdx.x * kTR;
-  float* dyr = smem;
-  float* dyi = dyr + d1 * kTRS;
-  float* da = dyi + d1 * kTRS;
+  float* dy = smem;
+  float* da = dy + d1 * kTRS;
   float* ds = da + d1 * kTRS;
   float* dxs = ds + d1 * kTRS;  // [d0][kTRS]
 
-  for (int e = threadIdx.x; e < kTR * d1; e += blockDim.x) {
-    const int r = e / d1, col = e % d1;
-    const long row = row0 + r;
-    float v = 0.f;
-    if (row < rows) {
-      const long b = row / N, n = row % N;
-      v = g[((b * K + col / WM) * N + n) * WM + col % WM];
-    }
-    da[col * kTRS + r] = v;  // the cotangent tile, until da is first written
-  }
-  __syncthreads();
-
-  // dR[j] = sum_m g[m] * Ci[j][m] = sum_m g[m] * Ci[m][j] (symmetric), per order
-  for (int c = threadIdx.x; c < d1; c += blockDim.x) {
-    const int kk = c / WM, j = c % WM;
-    float ar[kTR] = {}, ai[kTR] = {};
-    for (int m = 0; m < WM; ++m) {
-      const float wc = ci[m * WM + j];
-      const float ws = si[m * WM + j];
-      const float4* g4 = reinterpret_cast<const float4*>(da + (kk * WM + m) * kTRS);
-#pragma unroll
-      for (int q = 0; q < kTR / 4; ++q) {
-        const float4 u = g4[q];
-        ar[4 * q + 0] = fmaf(u.x, wc, ar[4 * q + 0]);
-        ar[4 * q + 1] = fmaf(u.y, wc, ar[4 * q + 1]);
-        ar[4 * q + 2] = fmaf(u.z, wc, ar[4 * q + 2]);
-        ar[4 * q + 3] = fmaf(u.w, wc, ar[4 * q + 3]);
-        ai[4 * q + 0] = fmaf(u.x, ws, ai[4 * q + 0]);
-        ai[4 * q + 1] = fmaf(u.y, ws, ai[4 * q + 1]);
-        ai[4 * q + 2] = fmaf(u.z, ws, ai[4 * q + 2]);
-        ai[4 * q + 3] = fmaf(u.w, ws, ai[4 * q + 3]);
+  for (int chain = 0; chain < 2; ++chain) {
+    for (int e = threadIdx.x; e < kTR * d1; e += blockDim.x) {
+      const int r = e / d1, col = e % d1;
+      const long row = row0 + r;
+      float v = 0.f;
+      if (row < rows) {
+        const long b = row / N, n = row % N;
+        v = g[((b * K + col / WM) * N + n) * WM + col % WM];
       }
+      da[col * kTRS + r] = v;  // the cotangent tile, until da is first written
     }
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      dyr[c * kTRS + i] = ar[i];
-      dyi[c * kTRS + i] = ai[i];
-    }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  for (int layer = 2; layer >= 0; --layer) {
-    for (int chain = 0; chain < 2; ++chain) {
+    // dR[j] = sum_m g[m] * Ci[j][m] = sum_m g[m] * Ci[m][j] (symmetric), per
+    // order; Si for the imaginary chain
+    const float* idft = chain == 0 ? ci : si;
+    for (int c = threadIdx.x; c < d1; c += blockDim.x) {
+      const int kk = c / WM, j = c % WM;
+      float acc[kTR] = {};
+      for (int m = 0; m < WM; ++m) {
+        const float w = idft[m * WM + j];
+        const float4* g4 = reinterpret_cast<const float4*>(da + (kk * WM + m) * kTRS);
+#pragma unroll
+        for (int q = 0; q < kTR / 4; ++q) {
+          const float4 u = g4[q];
+          acc[4 * q + 0] = fmaf(u.x, w, acc[4 * q + 0]);
+          acc[4 * q + 1] = fmaf(u.y, w, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(u.z, w, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(u.w, w, acc[4 * q + 3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) dy[c * kTRS + i] = acc[i];
+    }
+    __syncthreads();
+
+    for (int layer = 2; layer >= 0; --layer) {
       const int gi = 2 * layer + chain;
-      float* dy = chain == 0 ? dyr : dyi;
       const float* a_g = acts + (2 * gi) * plane + row0 * d1;
       const float* s_g = acts + (2 * gi + 1) * plane + row0 * d1;
       float* da_g = dacts + (2 * gi) * plane + row0 * d1;
@@ -550,7 +545,7 @@ extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w
     const float* p = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
     if (m % 2 == 0) wt.l[m / 2] = p; else wt.r[m / 2] = p;
   }
-  const long smem_b = (long)(4 * d1 + d0) * kTRS * (long)sizeof(float);
+  const long smem_b = chain_smem(K, W, WM);  // three [D1, 32] buffers and dx's
   err = cudaFuncSetAttribute(spectral_bwd_rows_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
   if (err != cudaSuccess) return (int)err;

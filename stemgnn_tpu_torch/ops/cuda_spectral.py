@@ -21,7 +21,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -32,19 +31,11 @@ spe_seq_cell_bwd_plain = torch_impl.spe_seq_cell_bwd
 
 
 @functools.lru_cache(maxsize=16)
-def dft_matrices(w: int, k: int, wm: int):
-    """Block-diagonal Cf, Sf, Ci, Si of `torch_impl.dft_matrices` as numpy
-    float32 (cached)."""
-    return tuple(m.astype(np.float32) for m in torch_impl.dft_matrices(w, k, wm))
-
-
-@functools.lru_cache(maxsize=16)
 def _dft_on(w: int, k: int, wm: int, device: torch.device):
     """Block-diagonal Cf, Sf for the fold, and one [wm, wm] block of Ci, Si
-    for the kernel (every order's block is the same)."""
-    cf, sf, ci, si = dft_matrices(w, k, wm)
-    return tuple(torch.from_numpy(np.ascontiguousarray(m)).to(device)
-                 for m in (cf, sf, ci[:wm, :wm], si[:wm, :wm]))
+    for the kernel (every order's block is the same), float32 on `device`."""
+    cf, sf, ci, si = torch_impl._dft_tensors(w, k, wm, device, torch.float32)
+    return cf, sf, ci[:wm, :wm].contiguous(), si[:wm, :wm].contiguous()
 
 
 def folded_weights(glu_params, cf, sf):

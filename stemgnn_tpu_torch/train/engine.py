@@ -233,13 +233,9 @@ def train(
     valid_data: np.ndarray,
     cfg: TrainConfig,
     result_file: str,
-    init_params_override=None,
 ) -> Tuple[Dict, Optional[Dict]]:
     """handler.py:103-191 on cfg.device. Returns (the last validation's
-    metrics, the train split's norm stats).
-
-    init_params_override: a ready params tree used instead of
-    `init_params(cfg.seed)` (an experiment hook, as in the JAX engine)."""
+    metrics, the train split's norm stats)."""
     device = resolve_device(cfg.device)
     node_cnt = train_data.shape[1]
     mcfg = cfg.model_config(node_cnt)
@@ -252,13 +248,8 @@ def train(
     if normalize_statistic is not None:
         ckpt.save_norm_stat(result_file, normalize_statistic)
 
-    if init_params_override is not None:
-        params = init_params_override
-    else:
-        params = init_params(cfg.seed, mcfg, device=device)
-    flat = flatten_params(params)
-    flat = {k: v.detach().to(device).clone().requires_grad_(True)
-            for k, v in flat.items()}
+    flat = {k: v.requires_grad_(True) for k, v in flatten_params(
+        init_params(cfg.seed, mcfg, device=device)).items()}
     opt = make_optimizer(cfg.optimizer, flat.values(), cfg.lr)
 
     train_set = WindowDataset(

@@ -133,6 +133,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
         lambda: ckpt.load(str(tmp_path)),
         lambda: port_engine.test(np.zeros((40, 6)), TrainConfig(), str(tmp_path),
                                  str(tmp_path / "test")),
+        lambda: port_engine.train(np.ones((40, 6)), np.ones((40, 6)), TrainConfig(),
+                                  str(tmp_path / "train")),
     ):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()

@@ -154,7 +154,8 @@ def test_spectral_dft_fold_matches_fft(np_params):
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.standard_normal((B, 4, N, W)).astype(np.float32))
     glu = params_from_jax(np_params["blocks"][1]["glu"], "cpu")
-    cf, sf, ci, si = (torch.from_numpy(m) for m in cs.dft_matrices(W, 4, W * M))
+    cf, sf, ci, si = (torch.from_numpy(m).float()
+                      for m in torch_impl.dft_matrices(W, 4, W * M))
     wts = cs.folded_weights(glu, cf, sf)
     rows = x.permute(0, 2, 1, 3).reshape(B * N, 4 * W)
     chains = [rows, rows]
