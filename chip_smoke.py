@@ -375,16 +375,32 @@ def profile_steps(step, batches, step_ms: float) -> None:
     """Print where the card's time goes in a train step: torch.profiler over
     `batches`, device time per step by kernel name, their sum, and that sum
     over `step_ms` (the unprofiled host-clock step) as the card's busy share.
-    Informative only: prints "not measured" if the profiler saw no kernel."""
+    Informative only: prints "not measured" if the profiler cannot run or saw
+    no kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for hi_b in batches:
-            step(hi_b)
-        torch.cuda.synchronize()
+    # only the profiler's own start and stop may fail softly: the steps
+    # between them are the port's and fail the run as anywhere else
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as exc:
+        print(f"[5 train path] device time by kernel: not measured (the profiler "
+              f"did not start: {exc})")
+        return
+    for hi_b in batches:
+        step(hi_b)
+    torch.cuda.synchronize()
+    try:
+        prof.stop()
+        events = prof.events()
+    except RuntimeError as exc:
+        print(f"[5 train path] device time by kernel: not measured (the profiler "
+              f"did not stop: {exc})")
+        return
     kernels = {}
-    for ev in prof.events():
+    for ev in events:
         if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total / 1e3
     n = len(batches)
