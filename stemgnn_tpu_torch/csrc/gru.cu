@@ -27,15 +27,16 @@
 // than the 232,448 bytes of shared memory a block can have, so keeping the
 // weights resident as the TPU kernel does in VMEM does not carry over.
 // Design: ONE persistent block loops over the N steps. h lives in shared
-// memory, double-buffered ([H][B] layout, two copies) so one
+// memory, double-buffered ([H][B + 4] layout, two copies) so one
 // __syncthreads() per step separates reads of h from writes of h'. A and
 // bh are read from global memory, where they stay L2-resident. Each thread
 // owns one hidden unit j (all three of its gate columns) for 8 batch rows,
-// so the gate math needs no exchange between threads. Works at any H whose
+// so the gate math needs no exchange between threads, and reads and writes
+// its 8 rows of h as two float4 (see kPad). Works at any H whose
 // double-buffered h fits in shared memory.
 //
 // The backward has the same bound and the same shape: one persistent block,
-// dh [H][B] and the step's (dr, dz, dn * r) [3H][B] in shared memory, the
+// dh [H][B + 4] and the step's (dr, dz, dn * r) [3H][B + 4] in shared memory, the
 // same thread owning hidden unit j for 8 batch rows in the elementwise half
 // and in the product, so dh needs no exchange and a step takes two
 // barriers (after the gate gradients are written, after the product has
@@ -53,6 +54,25 @@ constexpr int kMaxThreads = 1024;
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
+// Rows of the [H][.] shared arrays are kPad floats longer than the padded
+// batch: with the lanes of a warp along j, a thread's float4 at [j * Bs + b0]
+// then falls 4 banks after its neighbour's, so the 8 lanes served together
+// cover all 32 banks. At a stride of 32 every such access was a 32-way
+// conflict.
+constexpr int kPad = 4;
+
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 template <bool kSave>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
@@ -60,9 +80,10 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
                float* __restrict__ sv, int N, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   const int Bp = (B + kBSub - 1) / kBSub * kBSub;
+  const int Bs = Bp + kPad;
   float* h_cur = smem;
-  float* h_next = smem + (long)H * Bp;
-  for (int e = threadIdx.x; e < 2 * H * Bp; e += blockDim.x) smem[e] = 0.f;
+  float* h_next = smem + (long)H * Bs;
+  for (int e = threadIdx.x; e < 2 * H * Bs; e += blockDim.x) smem[e] = 0.f;
   __syncthreads();
 
   const int H3 = 3 * H;
@@ -77,9 +98,8 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
         const float wr = a[(long)k * H3];
         const float wz = a[(long)k * H3 + H];
         const float wn = a[(long)k * H3 + 2 * H];
-        const float4 lo = *reinterpret_cast<const float4*>(h_cur + k * Bp + b0);
-        const float4 hi = *reinterpret_cast<const float4*>(h_cur + k * Bp + b0 + 4);
-        const float hv[kBSub] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        float hv[kBSub];
+        load8(h_cur + k * Bs + b0, hv);
 #pragma unroll
         for (int i = 0; i < kBSub; ++i) {
           ar[i] = fmaf(hv[i], wr, ar[i]);
@@ -88,29 +108,32 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
         }
       }
       const float br = bh[j], bz = bh[H + j], bn = bh[2 * H + j];
+      float h_prev[kBSub], h_new[kBSub] = {};
+      load8(h_cur + j * Bs + b0, h_prev);
 #pragma unroll
       for (int i = 0; i < kBSub; ++i) {
         const int b = b0 + i;
-        if (b >= B) break;
-        const float* x = xp + ((long)t * B + b) * H3;
-        const float r = sigmoidf(x[j] + (ar[i] + br));
-        const float z = sigmoidf(x[H + j] + (az[i] + bz));
-        const float hpn = an[i] + bn;
-        const float c = tanhf(x[2 * H + j] + r * hpn);
-        const float h_prev = h_cur[j * Bp + b];
-        const float h = (1.f - z) * c + z * h_prev;
-        if (kSave) {
-          const long plane = (long)B * H;
-          float* s = sv + (long)t * 5 * plane + (long)b * H + j;
-          s[0] = r;
-          s[plane] = z;
-          s[2 * plane] = hpn;
-          s[3 * plane] = c;
-          s[4 * plane] = h_prev - c;
+        if (b < B) {
+          const float* x = xp + ((long)t * B + b) * H3;
+          const float r = sigmoidf(x[j] + (ar[i] + br));
+          const float z = sigmoidf(x[H + j] + (az[i] + bz));
+          const float hpn = an[i] + bn;
+          const float c = tanhf(x[2 * H + j] + r * hpn);
+          const float h = (1.f - z) * c + z * h_prev[i];
+          if (kSave) {
+            const long plane = (long)B * H;
+            float* s = sv + (long)t * 5 * plane + (long)b * H + j;
+            s[0] = r;
+            s[plane] = z;
+            s[2 * plane] = hpn;
+            s[3 * plane] = c;
+            s[4 * plane] = h_prev[i] - c;
+          }
+          h_new[i] = h;
+          out[((long)b * N + t) * H + j] = h;
         }
-        h_next[j * Bp + b] = h;
-        out[((long)b * N + t) * H + j] = h;
       }
+      store8(h_next + j * Bs + b0, h_new);
     }
     __syncthreads();
     float* tmp = h_cur;
@@ -125,10 +148,11 @@ gru_bwd_kernel(const float* __restrict__ sv, const float* __restrict__ g,
                int B, int H) {
   extern __shared__ __align__(16) float smem[];
   const int Bp = (B + kBSub - 1) / kBSub * kBSub;
+  const int Bs = Bp + kPad;
   const int H3 = 3 * H;
-  float* dh = smem;                   // [H][Bp]
-  float* dcat = smem + (long)H * Bp;  // [3H][Bp]: dr, dz, dn * r
-  for (int e = threadIdx.x; e < 4 * H * Bp; e += blockDim.x) smem[e] = 0.f;
+  float* dh = smem;                   // [H][Bs]
+  float* dcat = smem + (long)H * Bs;  // [3H][Bs]: dr, dz, dn * r
+  for (int e = threadIdx.x; e < 4 * H * Bs; e += blockDim.x) smem[e] = 0.f;
   __syncthreads();
 
   const long plane = (long)B * H;
@@ -138,26 +162,34 @@ gru_bwd_kernel(const float* __restrict__ sv, const float* __restrict__ g,
     for (int item = threadIdx.x; item < items; item += blockDim.x) {
       const int j = item % H;
       const int b0 = (item / H) * kBSub;
+      float dh_in[kBSub];
+      load8(dh + j * Bs + b0, dh_in);
+      float vr[kBSub] = {}, vz[kBSub] = {}, vn[kBSub] = {}, vh[kBSub] = {};
 #pragma unroll
       for (int i = 0; i < kBSub; ++i) {
         const int b = b0 + i;
-        if (b >= B) break;
-        const float* s = sv + (long)t * 5 * plane + (long)b * H + j;
-        const float r = s[0], z = s[plane], hpn = s[2 * plane];
-        const float c = s[3 * plane], hmc = s[4 * plane];
-        const float dh_total = g[((long)b * N + t) * H + j] + dh[j * Bp + b];
-        const float dz = dh_total * hmc * z * (1.f - z);
-        const float dn = dh_total * (1.f - z) * (1.f - c * c);
-        const float dr = dn * hpn * r * (1.f - r);
-        float* d = dxp + ((long)t * B + b) * H3 + j;
-        d[0] = dr;
-        d[H] = dz;
-        d[2 * H] = dn;
-        dcat[j * Bp + b] = dr;
-        dcat[(H + j) * Bp + b] = dz;
-        dcat[(2 * H + j) * Bp + b] = dn * r;
-        dh[j * Bp + b] = dh_total * z;
+        if (b < B) {
+          const float* s = sv + (long)t * 5 * plane + (long)b * H + j;
+          const float r = s[0], z = s[plane], hpn = s[2 * plane];
+          const float c = s[3 * plane], hmc = s[4 * plane];
+          const float dh_total = g[((long)b * N + t) * H + j] + dh_in[i];
+          const float dz = dh_total * hmc * z * (1.f - z);
+          const float dn = dh_total * (1.f - z) * (1.f - c * c);
+          const float dr = dn * hpn * r * (1.f - r);
+          float* d = dxp + ((long)t * B + b) * H3 + j;
+          d[0] = dr;
+          d[H] = dz;
+          d[2 * H] = dn;
+          vr[i] = dr;
+          vz[i] = dz;
+          vn[i] = dn * r;
+          vh[i] = dh_total * z;
+        }
       }
+      store8(dcat + j * Bs + b0, vr);
+      store8(dcat + (H + j) * Bs + b0, vz);
+      store8(dcat + (2 * H + j) * Bs + b0, vn);
+      store8(dh + j * Bs + b0, vh);
     }
     __syncthreads();
     // dh[b][j] += sum_c dcat[b][c] * At[c][j]
@@ -168,19 +200,16 @@ gru_bwd_kernel(const float* __restrict__ sv, const float* __restrict__ g,
       const float* a = At + j;
       for (int c = 0; c < H3; ++c) {
         const float w = a[(long)c * H];
-        const float4 lo = *reinterpret_cast<const float4*>(dcat + c * Bp + b0);
-        const float4 hi = *reinterpret_cast<const float4*>(dcat + c * Bp + b0 + 4);
-        acc[0] = fmaf(lo.x, w, acc[0]);
-        acc[1] = fmaf(lo.y, w, acc[1]);
-        acc[2] = fmaf(lo.z, w, acc[2]);
-        acc[3] = fmaf(lo.w, w, acc[3]);
-        acc[4] = fmaf(hi.x, w, acc[4]);
-        acc[5] = fmaf(hi.y, w, acc[5]);
-        acc[6] = fmaf(hi.z, w, acc[6]);
-        acc[7] = fmaf(hi.w, w, acc[7]);
-      }
+        float v[kBSub];
+        load8(dcat + c * Bs + b0, v);
 #pragma unroll
-      for (int i = 0; i < kBSub; ++i) dh[j * Bp + b0 + i] += acc[i];
+        for (int i = 0; i < kBSub; ++i) acc[i] = fmaf(v[i], w, acc[i]);
+      }
+      float dh_z[kBSub];
+      load8(dh + j * Bs + b0, dh_z);
+#pragma unroll
+      for (int i = 0; i < kBSub; ++i) acc[i] += dh_z[i];
+      store8(dh + j * Bs + b0, acc);
     }
     __syncthreads();
   }
@@ -197,7 +226,7 @@ template <bool kSave>
 int launch_fwd(const float* xp, const float* A, const float* bh, float* out,
                float* sv, int N, int B, int H, void* stream) {
   const int Bp = (B + kBSub - 1) / kBSub * kBSub;
-  const long smem = 2L * H * Bp * (long)sizeof(float);
+  const long smem = 2L * H * (Bp + kPad) * (long)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       gru_fwd_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -226,7 +255,7 @@ extern "C" int gru_fwd_save(const float* xp, const float* A, const float* bh,
 extern "C" int gru_bwd(const float* sv, const float* g, const float* At, float* dxp,
                        int N, int B, int H, void* stream) {
   const int Bp = (B + kBSub - 1) / kBSub * kBSub;
-  const long smem = 4L * H * Bp * (long)sizeof(float);
+  const long smem = 4L * H * (Bp + kPad) * (long)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
