@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive stemgnn_tpu_torch's serving and training paths on one NVIDIA GPU and
-check its kernels.
+"""Drive stemgnn_tpu_torch's serving, training and bench paths on one NVIDIA
+GPU and check its kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -10,7 +10,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
   1. device: CUDA present; the card's name and power limit from nvidia-smi;
      TF32 off for every f32 comparison.
   2. build: nvcc of every kernel source in stemgnn_tpu_torch/csrc.
-  3. kernels: each of the seven kernels at the ECG flagship shapes (N=140,
+  3. kernels: each of the nine kernels at the ECG flagship shapes (N=140,
      W=12, multi_layer=5, batch 32), held against its plain PyTorch version
      on the card. The forward kernels run on inputs that the model's own
      plain path computes from the first test batch; the backward kernels on
@@ -19,7 +19,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      events around replays of a captured CUDA graph of many calls; beside
      them the least time the card could take (bytes or f32 operations at
      published H100 SXM peaks) and a one-call PyTorch yardstick where one
-     exists.
+     exists. The spectral reread backward's gradients must equal the recompute
+     backward's bit for bit.
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -28,12 +29,25 @@ Phases, each fatal on failure (nonzero exit, no result line):
   5. train path: engine.train on the card, one epoch of ECG_data with its
      validate pass (batch 32, RMSProp, dropout 0.5), counters set to 0 just
      before and read just after and held against the expected launches per
-     step; the epoch's loss, checkpoints and metrics.jsonl; one step's loss
+     step (the spectral pair a train step launches follows
+     ops.cuda_spectral.SAVE_ACTS_BWD); the epoch's loss, checkpoints and metrics.jsonl; one step's loss
      and gradients against the CPU plain path with the same dropout mask;
      the same step twice, bitwise; three RMSProp steps against the CPU; and
      train windows/s.
-  6. a `kernels` JSON line (launches summed over both paths), then the
-     result line.
+  6. chunk path: one 16-step chunk through engine.make_epoch_fn (a captured
+     CUDA graph) against the same steps through the eager train step: losses,
+     parameters and optimizer state bitwise equal.
+  7. bench path: bench.measure and bench.measure_eval at full width, their
+     results as JSON lines; the train step with the spectral saving forward
+     and reread backward (SAVE_ACTS_BWD on) against the recompute backward,
+     in the order recompute, reread, reread, recompute; a one-step graph
+     replayed per step beside the 64-step graph; the eager eval loop beside
+     the eval program.
+  8. asynchronous checkpoint: one submit, wait, load, compare with the live
+     parameters and optimizer state.
+  9. a `kernels` JSON line (launches summed over the paths: calls of the
+     wrappers plus what replays of captured graphs launched), then the result
+     line.
 
 It imports nothing of JAX or of stemgnn_tpu.
 """
@@ -252,12 +266,20 @@ def backward_cases(rec, params, mcfg, dev):
         return torch.cat([dx.reshape(-1)] + [t.reshape(-1) for t in
                                              cuda_spectral._flat(dglu)])
 
+    with torch.no_grad():
+        _, acts = cuda_spectral.spe_seq_cell_save(gfted, glu, multi)
+    # the products back to the inputs and the weight-gradient products (each
+    # the six GLUs' size), the inverse DFT backwards per order block, the fold
+    # and the unfold
+    reread_flops = 2 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1
+    spe_bytes = 4 * (2 * rows * d0 + rows * d1 + 2 * glu_w)
+
     return [
         ("gru_bwd", "stemgnn_tpu_torch/csrc/gru.cu",
          "stemgnn_tpu/ops/pallas_gru.py:132",
          lambda: cuda_gru.gru_scan_bwd(saved, g_gru, a_all),
          lambda: cuda_gru.gru_scan_bwd_plain(saved, g_gru, a_all),
-         ("stream", cudnn_fwd_bwd),  # cuDNN forward plus backward
+         ("graph_or_stream", cudnn_fwd_bwd),  # cuDNN forward plus backward
          # 140 dependent steps of 420-term sums in another order than cuBLAS
          1e-5, 1e-4,
          4 * (saved.numel() + g_gru.numel() + a_all.numel() + 3 * n * b * h),
@@ -282,11 +304,18 @@ def backward_cases(rec, params, mcfg, dev):
          # 4480-term f32 sums (weight gradients) in another order than cuBLAS,
          # dx and all 24 gradients held as one vector
          1e-5, 1e-3,
-         4 * (2 * rows * d0 + rows * d1 + 2 * glu_w),
-         # recompute, the products back to the inputs and the weight-gradient
-         # products (each the six GLUs' size), the inverse DFT backwards per
-         # order block, the fold and the unfold
-         3 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1),
+         spe_bytes,
+         glu_flops + reread_flops),  # the recompute and the reread's work
+        ("spectral_bwd_reread", "stemgnn_tpu_torch/csrc/spectral.cu",
+         "stemgnn_tpu/ops/pallas_spectral.py:420",
+         lambda: flat_spe(cuda_spectral.spe_seq_cell_bwd_reread(gfted, glu, g_spe,
+                                                                acts, multi)),
+         lambda: flat_spe(cuda_spectral.spe_seq_cell_bwd_reread_plain(
+             gfted, glu, g_spe, acts, multi)),
+         None,
+         1e-5, 1e-3,  # as spectral_bwd
+         spe_bytes + 4 * 12 * rows * d1,  # and the 12 saved arrays read once
+         reread_flops),
     ]
 
 
@@ -329,6 +358,15 @@ def forward_cases(params, mcfg, x):
 
     glu_w = sum(p[s]["w"].numel() + p[s]["b"].numel() for p in glu
                 for s in ("left", "right"))
+    # six GLUs, the inverse DFT and the fold, the two DFTs counted per order
+    # block: their off-diagonal blocks are zeros
+    spe_flops = (2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm)
+                 + 8 * k * w * w * d1)
+
+    def flat_save(res):  # the output and the 12 saved arrays' real rows
+        out, acts = res
+        return torch.cat([out.reshape(-1), acts[:, :rows].reshape(-1)])
+
     return [
         ("gru_fwd", "stemgnn_tpu_torch/csrc/gru.cu",
          "stemgnn_tpu/ops/pallas_gru.py:103",
@@ -364,10 +402,19 @@ def forward_cases(params, mcfg, x):
          # of the Pallas kernel holds them (tests/test_pallas_kernels.py:47)
          5e-4, 1e-4,
          4 * (rows * d0 + glu_w + rows * d1),
-         # six GLUs, the inverse DFT and the fold, the two DFTs counted per
-         # order block: their off-diagonal blocks are zeros
-         2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm)
-         + 8 * k * w * w * d1),
+         spe_flops),
+        ("spectral_fwd_save", "stemgnn_tpu_torch/csrc/spectral.cu",
+         "stemgnn_tpu/ops/pallas_spectral.py:104",
+         lambda: flat_save(cuda_spectral.spe_seq_cell_save(gfted, glu,
+                                                           mcfg.multi_layer)),
+         lambda: flat_save(cuda_spectral.spe_seq_cell_save_plain(gfted, glu,
+                                                                 mcfg.multi_layer)),
+         None,
+         # both sides take the DFT as f32 products; 240-term sums in another
+         # order than cuBLAS through three layers
+         5e-4, 1e-4,
+         4 * (rows * d0 + glu_w + rows * d1 + 12 * rows * d1),
+         spe_flops),
     ]
 
 
@@ -416,6 +463,15 @@ def profile_steps(step, batches, step_ms: float) -> None:
         print(f"[5 train path]   {ms / n:8.4f} ms/step  {name[:100]}")
 
 
+def take_launches(ops, results):
+    """Read the counts of a path that has just run: (calls of the wrappers,
+    launches made by graph replays), both added to the kernels' `launches`."""
+    launches, replayed = ops.launches(), ops.replayed()
+    for name in launches:
+        results[name]["launches"] += launches[name] + replayed[name]
+    return launches, replayed
+
+
 def check_cases(cases, results, phase: str, scaled: bool = False):
     """Hold each case's kernel against its plain version and time both; fills
     `results`. Returns an error message, or None. With `scaled` a case's atol
@@ -436,8 +492,18 @@ def check_cases(cases, results, phase: str, scaled: bool = False):
             plain_ms = cuda_ms(plain)
             if lib is None:
                 lib_ms = None
-            elif isinstance(lib, tuple):  # ("stream", fn): not capturable
-                lib_ms = stream_ms(lib[1])
+            elif isinstance(lib, tuple):
+                # ("graph_or_stream", fn): a library call that may refuse to be
+                # captured (cuDNN's RNN backward under autograd); it is no part
+                # of the port, so its timing alone may fall back to eager calls
+                try:
+                    lib_ms = cuda_ms(lib[1])
+                except RuntimeError as exc:
+                    print(f"[{phase}] {name}: the library call was not captured "
+                          f"({str(exc).splitlines()[0][:120]}); timed as eager calls, "
+                          "host-bound")
+                    torch.cuda.synchronize()
+                    lib_ms = stream_ms(lib[1])
             else:
                 lib_ms = cuda_ms(lib)
             one_call_ms = call_ms(kern)
@@ -479,13 +545,13 @@ def run() -> int:
           f"CUDA {torch.version.cuda}; TF32 off")
 
     sys.path.insert(0, HERE)
-    from stemgnn_tpu_torch import ops
+    from stemgnn_tpu_torch import bench, ops
     from stemgnn_tpu_torch.config import TrainConfig
     from stemgnn_tpu_torch.data import (
         WindowDataset, compute_norm_stats, ensure_dataset, load_csv, split_by_ratio)
     from stemgnn_tpu_torch.models import init_params
     from stemgnn_tpu_torch.models.convert import flatten_params
-    from stemgnn_tpu_torch.ops import _build, cuda_gru, torch_impl
+    from stemgnn_tpu_torch.ops import _build, cuda_gru, cuda_spectral, torch_impl
     from stemgnn_tpu_torch.train import checkpoint as ckpt
     from stemgnn_tpu_torch.train import engine
     from stemgnn_tpu_torch.train.optim import make_optimizer
@@ -541,6 +607,26 @@ def run() -> int:
     if fail is not None:
         return _fail(fail)
     with torch.no_grad():
+        call = rec.calls["spe_seq_cell"][0]
+        gfted, g_spe = (t.detach().to(dev).contiguous()
+                        for t in (call["args"][0], call["g"]))
+        glu = params["blocks"][0]["glu"]
+        out_plain_fwd = cuda_spectral.spe_seq_cell(gfted, glu, MULTI)
+        out_save, acts = cuda_spectral.spe_seq_cell_save(gfted, glu, MULTI)
+        dx_a, dglu_a = cuda_spectral.spe_seq_cell_bwd(gfted, glu, g_spe, MULTI)
+        dx_b, dglu_b = cuda_spectral.spe_seq_cell_bwd_reread(gfted, glu, g_spe, acts,
+                                                             MULTI)
+        same = torch.equal(dx_a, dx_b) and all(
+            torch.equal(a, b) for a, b in zip(cuda_spectral._flat(dglu_a),
+                                              cuda_spectral._flat(dglu_b)))
+    if not same or not torch.equal(out_plain_fwd, out_save):
+        return _fail("the reread backward's gradients (or the saving forward's "
+                     "output) are not bitwise the recompute backward's (the forward's)")
+    print(f"[3 kernel] spectral: reread gradients (dx and 24) bitwise equal to the "
+          f"recompute gradients; saving forward's output bitwise the forward's; "
+          f"saved arrays {tuple(acts.shape)}, {acts.numel() * 4 / 1e6:.1f} MB a call")
+    del acts, out_save, dx_a, dx_b, dglu_a, dglu_b
+    with torch.no_grad():
         gru = params["gru"]
         x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
         a_all, b_hh = gru["w_hh"].T.contiguous(), gru["b_hh"]
@@ -561,16 +647,23 @@ def run() -> int:
     metrics = engine.test(test_data, cfg, train_dir, test_dir)
     torch.cuda.synchronize()
     test_s = time.perf_counter() - t0
-    launches = ops.launches()
+    launches, replayed = take_launches(ops, results)
     print(f"[4 serving path] engine.test: {len(test_set)} windows in {n_batches} "
-          f"batches, {test_s:.3f} s; launches {launches}")
+          f"batches, {test_s:.3f} s with the capture of its eval program; wrapper "
+          f"launches {launches}; launched by graph replays {replayed}")
+    # the full batches are one replay of a captured graph, after one warm
+    # batch; the short last batch is an eager call
+    n_full = n_batches - (1 if len(test_set) % BATCH else 0)
+    fwd_per_batch = {"gru_fwd": 1, "attention_kq_fwd": 1, "cheb_graph_conv_fwd": 2,
+                     "spectral_fwd": 2}
     want = dict.fromkeys(ops.KERNELS, 0)
-    want.update({"gru_fwd": n_batches, "attention_kq_fwd": n_batches,
-                 "cheb_graph_conv_fwd": 2 * n_batches, "spectral_fwd": 2 * n_batches})
-    if launches != want:
-        return _fail(f"launch counts {launches}, expected {want}")
-    for name, n in launches.items():
-        results[name]["launches"] += n
+    want_replayed = dict(want)
+    for name, n in fwd_per_batch.items():
+        want[name] = n * (1 + n_batches - n_full)
+        want_replayed[name] = n * n_full
+    if launches != want or replayed != want_replayed:
+        return _fail(f"launch counts {launches} and {replayed}, expected {want} "
+                     f"and {want_replayed}")
     for k in ("mae", "mape", "rmse"):
         if not math.isfinite(float(metrics[k])):
             return _fail(f"test {k} is {metrics[k]}")
@@ -617,18 +710,40 @@ def run() -> int:
     valid_metrics, _ = engine.train(train_data, valid_data, cfg_t, run_dir)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = ops.launches()
+    launches, replayed = take_launches(ops, results)
     print(f"[5 train path] engine.train: 1 epoch of {steps} steps ({len(sets['train'])} "
           f"windows) and a validate pass of {valid_batches} batches, {train_s:.3f} s "
-          f"with first-call set-up; launches {launches}")
-    fwd = steps + valid_batches
-    want = {"gru_fwd": fwd, "attention_kq_fwd": fwd, "cheb_graph_conv_fwd": 2 * fwd,
-            "spectral_fwd": 2 * fwd, "gru_bwd": steps, "attention_kq_bwd": steps,
-            "spectral_bwd": 2 * steps}
-    if launches != want:
-        return _fail(f"train path launch counts {launches}, expected {want}")
-    for name, n in launches.items():
-        results[name]["launches"] += n
+          f"with the captures of its chunk and eval programs; wrapper launches "
+          f"{launches}; launched by graph replays {replayed}")
+    # train: the full batches go through replays of captured chunks (greedy
+    # over CHUNK_SIZES), after WARM_STEPS eager steps before the first capture;
+    # what no chunk takes, and the short last batch, are eager steps. validate:
+    # as phase 4.
+    full_steps = steps - (1 if len(sets["train"]) % BATCH else 0)
+    chunked, left = 0, full_steps
+    for size in engine.CHUNK_SIZES:
+        chunked += left // size * size
+        left %= size
+    eager_steps = engine.WARM_STEPS + steps - chunked
+    valid_full = valid_batches - (1 if len(sets["valid"]) % BATCH else 0)
+    # a train step's spectral pair follows the package's switch; eval forwards
+    # record no gradient and launch the plain forward
+    train_spe = (("spectral_fwd_save", "spectral_bwd_reread")
+                 if cuda_spectral.SAVE_ACTS_BWD else ("spectral_fwd", "spectral_bwd"))
+    step_kernels = {"gru_fwd": 1, "gru_bwd": 1, "attention_kq_fwd": 1,
+                    "attention_kq_bwd": 1, "cheb_graph_conv_fwd": 2,
+                    train_spe[0]: 2, train_spe[1]: 2}
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want_replayed = dict(want)
+    for name, n in step_kernels.items():
+        want[name] = n * eager_steps
+        want_replayed[name] = n * chunked
+    for name, n in fwd_per_batch.items():
+        want[name] += n * (1 + valid_batches - valid_full)
+        want_replayed[name] += n * valid_full
+    if launches != want or replayed != want_replayed:
+        return _fail(f"train path launch counts {launches} and {replayed}, expected "
+                     f"{want} and {want_replayed}")
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         events = [json.loads(line) for line in f]
     epochs = [e for e in events if e["event"] == "epoch"]
@@ -730,18 +845,141 @@ def run() -> int:
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     n_win = sum(len(b) for b in train_batches)
-    per_step = {"gru_fwd": 1, "gru_bwd": 1, "attention_kq_fwd": 1,
-                "attention_kq_bwd": 1, "cheb_graph_conv_fwd": 2, "spectral_fwd": 2,
-                "spectral_bwd": 2}
-    kernel_ms = sum(results[k]["ms"] * n for k, n in per_step.items())
+    kernel_ms = sum(results[k]["ms"] * n for k, n in step_kernels.items())
     print(f"[5 train path] train step {epoch_s / steps * 1e3:.3f} ms of host clock "
-          f"({steps} steps, batch {BATCH}, after 3 warm steps); the seven kernels' "
+          f"({steps} steps, batch {BATCH}, after 3 warm steps); the step's kernels' "
           f"device time per step from phase 3: {kernel_ms:.3f} ms")
     print(f"[5 train path] train {n_win / epoch_s:.1f} windows/s")
     profile_steps(lambda hi_b: train_step(tree, train_dev, hi_b, gen), his_dev[:10],
                   epoch_s / steps * 1e3)
 
-    # --- 6. summary ---
+    # --- 6. chunk path: a captured chunk against the same steps taken eagerly ---
+    CHUNK = 16
+    finals = {}
+    for mode in ("eager", "chunk"):
+        tree_c = leaf_params(params, dev)
+        flat_c = flatten_params(tree_c)
+        opt_c = make_optimizer("RMSProp", flat_c.values(), cfg_t.lr)
+        gen_c = torch.Generator(device=dev)
+        gen_c.manual_seed(engine.epoch_generator_seed(cfg_t.seed, 2))
+        hi_matrix = torch.stack(his_dev[:CHUNK])
+        if mode == "eager":
+            step_c = engine.make_train_step(mcfg, opt_c, flat_c.values())
+            losses_c = torch.stack([step_c(tree_c, train_dev, hi_b, gen_c)
+                                    for hi_b in hi_matrix])
+        else:
+            epoch_fn = engine.make_epoch_fn(mcfg, opt_c, flat_c.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses_c = epoch_fn(tree_c, train_dev, hi_matrix, gen_c)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+        finals[mode] = (losses_c, flat_c,
+                        [opt_c.state[p]["square_avg"] for p in flat_c.values()])
+    (l_e, p_e, s_e), (l_c, p_c, s_c) = finals["eager"], finals["chunk"]
+    differ = [k for k in p_e if not torch.equal(p_e[k], p_c[k])]
+    if (not torch.equal(l_e, l_c) or differ
+            or not all(torch.equal(a, b) for a, b in zip(s_e, s_c))):
+        return _fail(f"a {CHUNK}-step chunk differs from the eager steps: losses "
+                     f"{l_e.tolist()} and {l_c.tolist()}, parameters {differ[:5]}")
+    print(f"[6 chunk path] a {CHUNK}-step chunk through make_epoch_fn (warm-up, capture "
+          f"and first replay {capture_s:.3f} s) against the same steps through the "
+          f"eager train step: {CHUNK} losses, {len(p_e)} parameters and their RMSProp "
+          f"moments bitwise equal; last loss {l_c[-1].item():.6f}")
+
+    # --- 7. bench path ---
+    def bench_line(label, res):
+        print(f"[7 bench path] {label}: " + json.dumps(res))
+
+    def run_train_bench(label, reread=False, **kw):
+        """bench.measure with the counters set to 0 just before and read just
+        after; returns (result, wrapper launches, launches by replays)."""
+        saved = cuda_spectral.SAVE_ACTS_BWD
+        cuda_spectral.SAVE_ACTS_BWD = reread
+        try:
+            ops.reset_launches()
+            res = bench.measure(**kw)
+            counts = take_launches(ops, results)
+        finally:
+            cuda_spectral.SAVE_ACTS_BWD = saved
+        bench_line(label, res)
+        if not math.isfinite(res["loss"]) or res["repeats"] < 3:
+            raise RuntimeError(f"bench {label}: loss {res['loss']}, repeats "
+                               f"{res['repeats']}")
+        return (res, *counts)
+
+    torch.cuda.reset_peak_memory_stats()
+    arms = []
+    for reread in (False, True, True, False):
+        label = "train, spectral reread" if reread else "train, spectral recompute"
+        res, launches, replayed = run_train_bench(label, reread=reread)
+        arms.append((reread, res))
+        total = {k: launches[k] + replayed[k] for k in launches}
+        steps_run = total["gru_bwd"]
+        on, off = ("spectral_fwd_save", "spectral_bwd_reread"), ("spectral_fwd",
+                                                                 "spectral_bwd")
+        if not reread:
+            on, off = off, on
+        if (steps_run <= 0 or any(total[k] != 2 * steps_run for k in on)
+                or any(total[k] for k in off)):
+            return _fail(f"bench {label}: with SAVE_ACTS_BWD {reread} the launches "
+                         f"are {launches} and {replayed}")
+        print(f"[7 bench path] {label}: {steps_run} steps, wrapper launches "
+              f"{launches}; launched by graph replays {replayed}")
+    print(f"[7 bench path] peak device memory over the four train runs: "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    rec_ms = [r["step_time_ms"] for reread, r in arms if not reread]
+    rer_ms = [r["step_time_ms"] for reread, r in arms if reread]
+    spread_ms = max(max(rec_ms) - min(rec_ms), max(rer_ms) - min(rer_ms))
+    gain_ms = statistics.mean(rec_ms) - statistics.mean(rer_ms)
+    print(f"[7 bench path] spectral A/B, median step ms: recompute {rec_ms}, reread "
+          f"{rer_ms}; reread is {gain_ms:+.4f} ms a step faster (mean of two runs each); "
+          f"the two runs of one arm differ by up to {spread_ms:.4f} ms: reread "
+          f"{'beats' if gain_ms > spread_ms else 'does not beat'} recompute by more "
+          f"than that")
+
+    default_reread = cuda_spectral.SAVE_ACTS_BWD
+    one_step, _, _ = run_train_bench(
+        "train, one-step graph replayed per step", reread=default_reread,
+        chunk_steps=1)
+    print(f"[7 bench path] with the package's spectral backward "
+          f"({'reread' if default_reread else 'recompute'}): a 64-step graph per "
+          f"dispatch {(rer_ms if default_reread else rec_ms)[0]:.4f} ms a step, a "
+          f"one-step graph replayed per step {one_step['step_time_ms']:.4f} ms, the "
+          f"eager step of phase 5 {epoch_s / steps * 1e3:.4f} ms")
+
+    ops.reset_launches()
+    res_eval = bench.measure_eval()
+    take_launches(ops, results)
+    bench_line("eval, chunked program", res_eval)
+    res_eager = bench.measure_eval(chunked=False)
+    bench_line("eval, eager per-batch loop", res_eager)
+    print(f"[7 bench path] eval {res_eval['windows_per_s']:.1f} windows/s chunked, "
+          f"{res_eager['windows_per_s']:.1f} eager, ratio "
+          f"{res_eval['windows_per_s'] / res_eager['windows_per_s']:.4f}")
+
+    # --- 8. asynchronous checkpoint ---
+    async_dir = os.path.join(out_root, "async_ckpt")
+    saver = ckpt.AsyncCheckpointer()
+    try:
+        saver.submit(async_dir, tree_c, opt_c.state_dict(), epoch=0,
+                     meta={"epoch": 0})
+        saver.wait()
+    finally:
+        saver.close()
+    loaded, loaded_opt, meta = ckpt.load(async_dir, epoch=0, device=dev)
+    loaded = flatten_params(loaded)
+    differ = [k for k in p_c if not torch.equal(loaded[k], p_c[k].detach())]
+    moments_ok = all(
+        torch.equal(loaded_opt["state"][i]["square_avg"], sq.cpu())
+        for i, sq in enumerate(s_c))
+    if differ or not moments_ok or meta.get("epoch") != 0:
+        return _fail(f"the asynchronous checkpoint differs from the live state: "
+                     f"{differ[:5]}, moments equal {moments_ok}, meta {meta}")
+    print(f"[8 async checkpoint] one submit, wait, load: {len(loaded)} parameters and "
+          f"their RMSProp moments equal to the live ones")
+
+    # --- 9. summary ---
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results.values():

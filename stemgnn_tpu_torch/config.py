@@ -4,8 +4,9 @@ The flag surface mirrors the reference CLI (main.py:9-30): the 21 reference
 flags keep their names and defaults, and booleans parse properly (the
 reference's `type=bool` flags treat the string "False" as truthy). The
 port adds `seed`, `dropout_seed`, `shuffle_seed`, `resume`, `ckpt_every`,
-`log_jsonl`, `data_dir` and `output_dir`, with the JAX package's names and
-defaults; `device` defaults to "cuda".
+`ckpt_async`, `log_jsonl`, `profile`, `debug_nans`, `data_dir` and
+`output_dir`, with the JAX package's names and defaults; `device` defaults to
+"cuda".
 """
 
 from __future__ import annotations
@@ -77,7 +78,12 @@ class TrainConfig:
     shuffle_seed: int = -1
     resume: bool = False  # restore params + optimizer state + epoch from the last checkpoint
     ckpt_every: int = 1  # per-epoch checkpoint cadence (reference: every epoch)
+    ckpt_async: bool = True  # copy and write checkpoints on a worker thread
     log_jsonl: bool = True  # structured per-epoch metrics JSONL
+    profile: bool = False  # write a torch.profiler trace of one epoch
+    # sanitizer mode: autograd anomaly detection, one eager step per batch,
+    # raise on a non-finite loss or gradient
+    debug_nans: bool = False
     data_dir: str = "dataset"
     output_dir: str = "output"
 

@@ -59,6 +59,20 @@
 // Rows past the end of a tile's data carry g = 0, hence da = ds = 0, and add
 // nothing to any gradient. Ci and Si are symmetric, which step 3 uses to
 // read them along rows.
+//
+// Saving forward and reread backward (`spectral_fwd_save`,
+// `spectral_bwd_reread`): replace `_kernel_save` (reached from
+// `_forward(save_acts=True)`) and `_bwd_kernel_reread` (reached from
+// `_backward_reread`). The forward is the chain kernel with kSave and kOut:
+// one launch writes the output and the 12 arrays (a, s) of the six GLUs into
+// a buffer the caller keeps; the backward is steps 1, 3, 4 and 5 above on
+// that buffer, without step 2. The saved values are the ones step 2 would
+// compute, by the same code, so both backwards give the same bits. What the
+// pair trades: 12 products and 6 sigmoid sweeps per call (4.5 GFLOP at the
+// flagship shapes) against 12 * rows * D1 floats (51.6 MB) written by the
+// forward and held until the backward, which is more than the 50 MB L2. Both
+// entries pad the rows to the same tile (kTR); rows of the saved arrays past
+// the end hold the chain's values for an all-zero input row.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -495,49 +509,74 @@ extern "C" int spectral_fwd(const float* x, const void* const* w, const float* c
   return (int)cudaGetLastError();
 }
 
+// Floats of the 12 saved arrays (a0, s0, ..., a5, s5), each [padded rows, D1].
+extern "C" long long spectral_act_floats(int B, int K, int N, int WM) {
+  return 12 * rows_padded(B, N) * (long)K * WM;
+}
+
+// spectral_fwd that also writes acts (spectral_act_floats floats) for
+// spectral_bwd_reread.
+extern "C" int spectral_fwd_save(const float* x, const void* const* w, const float* ci,
+                                 const float* si, float* out, float* acts, int B, int K,
+                                 int N, int W, int WM, void* stream) {
+  const long smem = chain_smem(K, W, WM);
+  cudaError_t err = cudaFuncSetAttribute(
+      spectral_chain_kernel<true, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long rows_pad = rows_padded(B, N);
+  spectral_chain_kernel<true, true>
+      <<<(int)(rows_pad / kTR), kThreads, smem, (cudaStream_t)stream>>>(
+          x, glu_weights(w), ci, si, out, acts, rows_pad * K * WM, B, K, N, W, WM);
+  return (int)cudaGetLastError();
+}
+
 // Floats of the flat gradient buffer: per GLU wl [Din, D1], bl [D1], wr, br.
 extern "C" long long spectral_bwd_grad_floats(int K, int W, int WM) {
   return grads_total(K * W, K * WM);
 }
 
-// Floats of the scratch `spectral_bwd` needs: a, s and da, ds of six GLUs for
-// the padded rows, the transposed weights, and nsplit partial gradients.
-extern "C" long long spectral_bwd_workspace_floats(int B, int K, int N, int W, int WM,
-                                                   int nsplit) {
+namespace {
+
+// Floats of the backward's scratch without the saved arrays: da, ds of six
+// GLUs for the padded rows, the transposed weights, nsplit partial gradients.
+long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit) {
   const long d0 = K * W, d1 = K * WM;
-  return 24 * rows_padded(B, N) * d1 + 4 * d0 * d1 + 8 * d1 * d1 +
+  return 12 * rows_padded(B, N) * d1 + 4 * d0 * d1 + 8 * d1 * d1 +
          (long)nsplit * grads_total(d0, d1);
 }
 
-// x [B,K,N,W], g [B,K,N,WM], w as for spectral_fwd -> dx like x and grads
-// (flat, layer 0 in folded space). ws: spectral_bwd_workspace_floats floats.
-extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w,
-                            const float* ci, const float* si, float* dx, float* grads,
-                            float* ws, int B, int K, int N, int W, int WM, int nsplit,
-                            void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// Steps 1 to 5 of the backward. saved: the forward's 12 arrays, or nullptr to
+// recompute them (step 2) into the head of ws.
+int bwd_launch(const float* x, const float* g, const void* const* w, const float* ci,
+               const float* si, float* dx, float* grads, const float* saved, float* ws,
+               int B, int K, int N, int W, int WM, int nsplit, cudaStream_t st) {
   const int d0 = K * W, d1 = K * WM;
   const long rows_pad = rows_padded(B, N);
   const long plane = rows_pad * d1;
   const long total = grads_total(d0, d1);
-  float* acts = ws;
-  float* dacts = acts + 12 * plane;
-  float* wT = dacts + 12 * plane;
-  float* part = wT + 4L * d0 * d1 + 8L * d1 * d1;
   const GluWeights gw = glu_weights(w);
   const int blocks = (int)(rows_pad / kTR);
   cudaError_t err;
 
+  const float* acts = saved;
+  if (saved == nullptr) {
+    const long smem_f = chain_smem(K, W, WM);
+    err = cudaFuncSetAttribute(spectral_chain_kernel<true, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_f);
+    if (err != cudaSuccess) return (int)err;
+    spectral_chain_kernel<true, false><<<blocks, kThreads, smem_f, st>>>(
+        x, gw, ci, si, nullptr, ws, plane, B, K, N, W, WM);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    acts = ws;
+    ws += 12 * plane;
+  }
+  float* dacts = ws;
+  float* wT = dacts + 12 * plane;
+  float* part = wT + 4L * d0 * d1 + 8L * d1 * d1;
+
   spectral_transpose_kernel<<<dim3((d1 * d1 + 255) / 256, 12), 256, 0, st>>>(gw, wT, d0,
                                                                             d1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const long smem_f = chain_smem(K, W, WM);
-  err = cudaFuncSetAttribute(spectral_chain_kernel<true, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_f);
-  if (err != cudaSuccess) return (int)err;
-  spectral_chain_kernel<true, false><<<blocks, kThreads, smem_f, st>>>(
-      x, gw, ci, si, nullptr, acts, plane, B, K, N, W, WM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   TransposedWeights wt;
@@ -563,4 +602,40 @@ extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w
   spectral_reduce_kernel<<<(int)((total + 255) / 256), 256, 0, st>>>(part, grads, total,
                                                                      nsplit);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of the scratch `spectral_bwd` needs: a, s of six GLUs for the padded
+// rows and the backward's scratch.
+extern "C" long long spectral_bwd_workspace_floats(int B, int K, int N, int W, int WM,
+                                                   int nsplit) {
+  return 12 * rows_padded(B, N) * (long)K * WM + bwd_scratch_floats(B, K, N, W, WM, nsplit);
+}
+
+// The same for `spectral_bwd_reread`, which brings a and s with it: 12 arrays
+// fewer.
+extern "C" long long spectral_bwd_reread_workspace_floats(int B, int K, int N, int W,
+                                                          int WM, int nsplit) {
+  return bwd_scratch_floats(B, K, N, W, WM, nsplit);
+}
+
+// x [B,K,N,W], g [B,K,N,WM], w as for spectral_fwd -> dx like x and grads
+// (flat, layer 0 in folded space). ws: spectral_bwd_workspace_floats floats.
+extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w,
+                            const float* ci, const float* si, float* dx, float* grads,
+                            float* ws, int B, int K, int N, int W, int WM, int nsplit,
+                            void* stream) {
+  return bwd_launch(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit,
+                    (cudaStream_t)stream);
+}
+
+// spectral_bwd on the arrays spectral_fwd_save wrote (acts), without the
+// recompute. ws: spectral_bwd_reread_workspace_floats floats.
+extern "C" int spectral_bwd_reread(const float* x, const float* g, const void* const* w,
+                                   const float* ci, const float* si, const float* acts,
+                                   float* dx, float* grads, float* ws, int B, int K, int N,
+                                   int W, int WM, int nsplit, void* stream) {
+  return bwd_launch(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit,
+                    (cudaStream_t)stream);
 }

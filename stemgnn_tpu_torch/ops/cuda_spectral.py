@@ -1,19 +1,30 @@
 """Spectral-sequential cell, [B,K,N,W] -> [B,K,N,W*multi].
 
 Kernels: csrc/spectral.cu, the port of stemgnn_tpu/ops/pallas_spectral.py
-`_kernel` and `_bwd_kernel`. The forward is a row map over the B*N rows in
-which the window is so short (W = 12) that the FFT is a product with a DFT
-matrix. The forward DFT is
+`_kernel`, `_bwd_kernel`, `_kernel_save` and `_bwd_kernel_reread`. The
+forward is a row map over the B*N rows in which the window is so short
+(W = 12) that the FFT is a product with a DFT matrix. The forward DFT is
 folded into the layer-0 GLU weights here, outside the kernel, in f32
 torch.matmul (four [K*W, K*W] x [K*W, K*Wm] products, as the JAX package's
 `_forward` does); the kernel runs the six GLUs and the inverse DFT, one
 [Wm, Wm] block of it per order. The backward recomputes the activations
 from x and the folded weights and returns dx and the 24 weight and bias
 gradients, those of layer 0 in folded space; the unfold dW = Cf^T @ dAW is
-again torch.matmul out here, as the JAX package's `_backward` has it. On
-CPU tensors the wrappers run the plain versions, `spe_seq_cell_plain` (a
-full FFT) and `spe_seq_cell_bwd_plain`; on CUDA tensors they launch the
-kernels or raise.
+again torch.matmul out here, as the JAX package's `_backward` has it.
+
+With the module switch `SAVE_ACTS_BWD` on (read at each call), a forward that
+autograd records launches the saving forward instead, which also writes (a, s)
+of the six GLUs (12 arrays [padded rows, K*Wm], held until the backward), and
+the backward launches the reread entry on them instead of recomputing the
+chain. Both backwards give the same bits. A captured CUDA graph keeps the
+pair its capture launched, whatever the switch says at a replay. The switch
+is on by default: on the H100 the pair is the faster one in the train step
+(PERF.md has the A/B); the JAX package, on its TPU, keeps it off.
+
+On CPU tensors the wrappers run the plain versions (`spe_seq_cell_plain`, a
+full FFT, `spe_seq_cell_bwd_plain`, `spe_seq_cell_save_plain`,
+`spe_seq_cell_bwd_reread_plain`); on CUDA tensors they launch the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -28,6 +39,13 @@ from stemgnn_tpu_torch.ops import _build, torch_impl
 
 spe_seq_cell_plain = torch_impl.spe_seq_cell
 spe_seq_cell_bwd_plain = torch_impl.spe_seq_cell_bwd
+spe_seq_cell_save_plain = torch_impl.spe_seq_cell_save
+spe_seq_cell_bwd_reread_plain = torch_impl.spe_seq_cell_bwd_reread
+
+# True: under autograd the forward saves each GLU's (a, s) and the backward
+# rereads them; False: the backward recomputes the chain. Read when the
+# forward runs.
+SAVE_ACTS_BWD = True
 
 
 @functools.lru_cache(maxsize=16)
@@ -57,9 +75,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "spectral_fwd": ([_P, _PP, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_fwd_save": ([_P, _PP, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_act_floats": ([_I] * 4, ctypes.c_longlong),
     "spectral_bwd": ([_P, _P, _PP] + [_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
+    "spectral_bwd_reread": ([_P, _P, _PP] + [_P] * 6 + [_I] * 6 + [_P], ctypes.c_int),
     "spectral_bwd_grad_floats": ([_I] * 3, ctypes.c_longlong),
     "spectral_bwd_workspace_floats": ([_I] * 6, ctypes.c_longlong),
+    "spectral_bwd_reread_workspace_floats": ([_I] * 6, ctypes.c_longlong),
 }
 # row segments whose partial weight gradients are summed in order
 N_SPLIT = 4
@@ -81,42 +103,65 @@ def _check_weights(name, weights, k, w, wm):
                              f"expected {want}")
 
 
-def _launch_fwd(x, weights, ci, si, multi: int):
-    """x [B,K,N,W] and the 24 folded GLU tensors -> [B,K,N,W*multi]."""
+def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
+    """x [B,K,N,W] and the 24 folded GLU tensors -> [B,K,N,W*multi]; with
+    `save`, (out, acts [12, padded rows, K*W*multi]) from the saving forward."""
     b, k, n, w = x.shape
     wm = w * multi
-    _build.require_cuda("spe_seq_cell", x, ci, si, *weights)
-    _check_weights("spe_seq_cell", weights, k, w, wm)
+    name = "spe_seq_cell_save" if save else "spe_seq_cell"
+    _build.require_cuda(name, x, ci, si, *weights)
+    _check_weights(name, weights, k, w, wm)
     out = torch.empty((b, k, n, wm), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
-    rc = _fn("spectral_fwd")(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
-                             out.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
-    _build.check(rc, "spe_seq_cell")
-    spe_seq_cell.launches += 1
-    return out
+    if not save:
+        rc = _fn("spectral_fwd")(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+                                 out.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
+        _build.check(rc, name)
+        spe_seq_cell.launches += 1
+        return out
+    acts = torch.empty(_fn("spectral_act_floats")(b, k, n, wm), dtype=torch.float32,
+                       device=x.device).view(12, -1, k * wm)
+    rc = _fn("spectral_fwd_save")(
+        x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
+        acts.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
+    _build.check(rc, name)
+    spe_seq_cell_save.launches += 1
+    return out, acts
 
 
-def _launch_bwd(x, g, weights, ci, si, multi: int):
+def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     """-> (dx like x, the 24 gradients in kernel order as views of one flat
-    buffer, those of GLU 0 and 1 in folded space)."""
+    buffer, those of GLU 0 and 1 in folded space). With `acts` (what the saving
+    forward wrote) the reread entry runs, else the recompute entry."""
     b, k, n, w = x.shape
     wm = w * multi
-    _build.require_cuda("spe_seq_cell_bwd", x, g, ci, si, *weights)
-    _check_weights("spe_seq_cell_bwd", weights, k, w, wm)
+    reread = acts is not None
+    name = "spe_seq_cell_bwd_reread" if reread else "spe_seq_cell_bwd"
+    _build.require_cuda(name, x, g, ci, si, *weights, *([acts] if reread else []))
+    _check_weights(name, weights, k, w, wm)
     if g.shape != (b, k, n, wm):
-        raise ValueError(f"spe_seq_cell_bwd: g {tuple(g.shape)}, x {tuple(x.shape)}")
+        raise ValueError(f"{name}: g {tuple(g.shape)}, x {tuple(x.shape)}")
+    if reread and acts.numel() != _fn("spectral_act_floats")(b, k, n, wm):
+        raise ValueError(f"{name}: acts {tuple(acts.shape)} are not the saving "
+                         f"forward's for x {tuple(x.shape)}")
     dx = torch.empty_like(x)
     grads = torch.empty(_fn("spectral_bwd_grad_floats")(k, w, wm),
                         dtype=torch.float32, device=x.device)
-    ws = torch.empty(_fn("spectral_bwd_workspace_floats")(b, k, n, w, wm, N_SPLIT),
-                     dtype=torch.float32, device=x.device)
+    ws_floats = _fn("spectral_bwd_reread_workspace_floats" if reread
+                    else "spectral_bwd_workspace_floats")(b, k, n, w, wm, N_SPLIT)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
-    rc = _fn("spectral_bwd")(
-        x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
-        dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, N_SPLIT,
-        _build.stream_ptr(x))
-    _build.check(rc, "spe_seq_cell_bwd")
-    spe_seq_cell_bwd.launches += 1
+    head = (x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr())
+    tail = (dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, N_SPLIT,
+            _build.stream_ptr(x))
+    if reread:
+        rc = _fn("spectral_bwd_reread")(*head, acts.data_ptr(), *tail)
+        _build.check(rc, name)
+        spe_seq_cell_bwd_reread.launches += 1
+    else:
+        rc = _fn("spectral_bwd")(*head, *tail)
+        _build.check(rc, name)
+        spe_seq_cell_bwd.launches += 1
     out, off = [], 0
     for t in weights:
         out.append(grads[off : off + t.numel()].view(t.shape))
@@ -135,12 +180,13 @@ def _unflat(tensors):
             for wl, bl, wr, br in zip(*[iter(tensors)] * 4)]
 
 
-def _bwd_cuda(x, g, weights, multi: int):
-    """The backward on the card from the folded weights: kernel, then the
-    layer-0 unfold dW = Cf^T @ dAW (Sf for the imaginary chain)."""
+def _bwd_cuda(x, g, weights, multi: int, acts=None):
+    """The backward on the card from the folded weights: kernel (reread with
+    `acts`, else recompute), then the layer-0 unfold dW = Cf^T @ dAW (Sf for
+    the imaginary chain)."""
     b, k, n, w = x.shape
     cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
-    dx, grads = _launch_bwd(x, g, weights, ci, si, multi)
+    dx, grads = _launch_bwd(x, g, weights, ci, si, multi, acts)
     for i, dft in ((0, cf), (2, cf), (4, sf), (6, sf)):
         grads[i] = torch.matmul(dft.T, grads[i])
     return dx, grads
@@ -159,20 +205,58 @@ def spe_seq_cell_bwd(x, glu_params, g, multi: int):
 spe_seq_cell_bwd.launches = 0
 
 
+def spe_seq_cell_save(x, glu_params, multi: int):
+    """`spe_seq_cell` that also returns what `spe_seq_cell_bwd_reread` reads:
+    (out [B,K,N,W*multi], acts [12, rows, K*W*multi]), rows = B*N on the CPU
+    and B*N padded to the kernel's row tile on the card."""
+    if x.device.type == "cpu":
+        return spe_seq_cell_save_plain(x, glu_params, multi)
+    b, k, n, w = x.shape
+    cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
+    return _launch_fwd(x, folded_weights(glu_params, cf, sf), ci, si, multi, save=True)
+
+
+spe_seq_cell_save.launches = 0
+
+
+def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int):
+    """`spe_seq_cell_bwd` from the acts of `spe_seq_cell_save` on the same x
+    and glu_params, without recomputing the chain."""
+    if x.device.type == "cpu":
+        return spe_seq_cell_bwd_reread_plain(x, glu_params, g, acts, multi)
+    b, k, n, w = x.shape
+    cf, sf, _, _ = _dft_on(w, k, w * multi, x.device)
+    dx, grads = _bwd_cuda(x, g, folded_weights(glu_params, cf, sf), multi, acts)
+    return dx, _unflat(grads)
+
+
+spe_seq_cell_bwd_reread.launches = 0
+
+
 class _SpeSeqCell(torch.autograd.Function):
     """(x, multi, 24 GLU tensors in kernel order) -> out. Saves x and the GLU
-    tensors (on the card: folded, as the kernels read them); the backward
-    recomputes the activations."""
+    tensors (on the card: folded, as the kernels read them) and, with
+    `SAVE_ACTS_BWD`, the forward's acts; the backward rereads the acts if they
+    were saved and recomputes them otherwise."""
 
     @staticmethod
     def forward(ctx, x, multi, *tensors):
         ctx.multi = multi
+        ctx.reread = SAVE_ACTS_BWD
         if x.device.type == "cpu":
+            if ctx.reread:
+                out, acts = spe_seq_cell_save_plain(x, _unflat(tensors), multi)
+                ctx.save_for_backward(x, *tensors, acts)
+                return out
             ctx.save_for_backward(x, *tensors)
             return spe_seq_cell_plain(x, _unflat(tensors), multi)
         b, k, n, w = x.shape
         cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
         weights = folded_weights(_unflat(tensors), cf, sf)
+        if ctx.reread:
+            out, acts = _launch_fwd(x, weights, ci, si, multi, save=True)
+            ctx.save_for_backward(x, *weights, acts)
+            return out
         ctx.save_for_backward(x, *weights)
         return _launch_fwd(x, weights, ci, si, multi)
 
@@ -180,11 +264,16 @@ class _SpeSeqCell(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, *tensors = ctx.saved_tensors
+        acts = tensors.pop() if ctx.reread else None
         g = g.contiguous()
         if x.device.type == "cpu":
-            dx, dglu = spe_seq_cell_bwd_plain(x, _unflat(tensors), g, ctx.multi)
+            if acts is None:
+                dx, dglu = spe_seq_cell_bwd_plain(x, _unflat(tensors), g, ctx.multi)
+            else:
+                dx, dglu = spe_seq_cell_bwd_reread_plain(x, _unflat(tensors), g, acts,
+                                                         ctx.multi)
             return (dx, None, *_flat(dglu))
-        dx, grads = _bwd_cuda(x, g, tensors, ctx.multi)
+        dx, grads = _bwd_cuda(x, g, tensors, ctx.multi, acts)
         return (dx, None, *grads)
 
 

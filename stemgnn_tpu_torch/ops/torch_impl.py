@@ -13,8 +13,9 @@ its jnp counterpart at float64. Reference semantics:
 - GRU over the node axis: base_model.py:137 (torch nn.GRU gate order
   r, z, n with the sequence running over nodes)
 
-The three backward functions (`gru_scan_bwd`, `attention_kq_bwd`,
-`spe_seq_cell_bwd`) are the plain versions of the CUDA backward kernels.
+The backward functions (`gru_scan_bwd`, `attention_kq_bwd`,
+`spe_seq_cell_bwd`, `spe_seq_cell_bwd_reread`) and `spe_seq_cell_save` are
+the plain versions of the CUDA backward kernels and the saving forward.
 They are written as explicit formulas over the tensors the forward saves,
 not as autograd of the forward, so they pin the saved-tensor contract that
 the kernels follow.
@@ -232,36 +233,75 @@ def _dft_tensors(w: int, k: int, wm: int, device, dtype):
                  for m in dft_matrices(w, k, wm))
 
 
-def spe_seq_cell_bwd(x, glu_params, g, multi: int):
-    """Backward of `spe_seq_cell` over the folded-DFT chain
-    (pallas_spectral.py `_bwd_kernel` and `_backward`).
-
-    Recomputes (u, a, s) of each GLU from x with the forward DFT folded into
-    the layer-0 weights, backpropagates the inverse DFT and the six GLUs, and
-    unfolds the layer-0 weight gradients (dW = Cf^T @ dAW). x [B,K,N,W],
-    g [B,K,N,W*multi] -> (dx like x, dglu: six dicts like glu_params).
-    """
-    b, k, n, w = x.shape
-    wm = w * multi
-    cf, sf, ci, si = _dft_tensors(w, k, wm, x.device, x.dtype)
-    rows = x.permute(0, 2, 1, 3).reshape(b * n, k * w)
-    gr = g.permute(0, 2, 1, 3).reshape(b * n, k * wm)
-    fold = (cf, sf)
-    cur = [rows, rows]
-    saved = []
+def _folded_glu_weights(glu_params, cf, sf):
+    """(wl, wr) of the six GLUs with the forward DFT folded into layer 0:
+    Cf @ W for GLU 0 (real chain), Sf @ W for GLU 1 (imaginary chain)."""
+    out = []
     for i, p in enumerate(glu_params):
         wl, wr = p["left"]["w"], p["right"]["w"]
         if i < 2:
-            wl, wr = fold[i] @ wl, fold[i] @ wr
+            dft = cf if i == 0 else sf
+            wl, wr = dft @ wl, dft @ wr
+        out.append((wl, wr))
+    return out
+
+
+def _rows(t):
+    """[B, K, N, C] -> [B*N, K*C]."""
+    b, k, n, c = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b * n, k * c)
+
+
+def spe_seq_cell_save(x, glu_params, multi: int):
+    """`spe_seq_cell` over the folded-DFT chain that also returns each GLU's
+    linear output a and gate s (pallas_spectral.py `_kernel_save`).
+
+    x [B,K,N,W] -> (out [B,K,N,W*multi], acts [12, B*N, K*W*multi]: a0, s0,
+    ..., a5, s5, GLU 2 * layer + chain)."""
+    b, k, n, w = x.shape
+    wm = w * multi
+    cf, sf, ci, si = _dft_tensors(w, k, wm, x.device, x.dtype)
+    rows = _rows(x)
+    cur = [rows, rows]
+    acts = []
+    for i, (p, (wl, wr)) in enumerate(zip(glu_params,
+                                          _folded_glu_weights(glu_params, cf, sf))):
         u = cur[i % 2]
         a = u @ wl + p["left"]["b"]
         s = torch.sigmoid(u @ wr + p["right"]["b"])
-        saved.append((u, a, s, wl, wr))
+        acts += [a, s]
+        cur[i % 2] = a * s
+    out = cur[0] @ ci + cur[1] @ si
+    return out.reshape(b, n, k, wm).permute(0, 2, 1, 3), torch.stack(acts)
+
+
+def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int):
+    """Backward of `spe_seq_cell` from the saved (a, s) of each GLU
+    (pallas_spectral.py `_bwd_kernel_reread` and `_backward_reread`).
+
+    The input u of a GLU is rebuilt as a * s of the GLU before it on its chain
+    (x for layer 0): no product and no sigmoid before the backward sweep. Then
+    the inverse DFT and the six GLUs are backpropagated and the layer-0 weight
+    gradients unfolded (dW = Cf^T @ dAW). x [B,K,N,W], g [B,K,N,W*multi], acts
+    [12, >= B*N, K*W*multi] (rows past B*N are padding) -> (dx like x, dglu: six
+    dicts like glu_params)."""
+    b, k, n, w = x.shape
+    wm = w * multi
+    cf, sf, ci, si = _dft_tensors(w, k, wm, x.device, x.dtype)
+    fold = (cf, sf)
+    weights = _folded_glu_weights(glu_params, cf, sf)
+    rows, gr = _rows(x), _rows(g)
+    cur = [rows, rows]
+    saved = []
+    for i in range(6):
+        a, s = acts[2 * i, : b * n], acts[2 * i + 1, : b * n]
+        saved.append((cur[i % 2], a, s))
         cur[i % 2] = a * s
     d = [gr @ ci.T, gr @ si.T]
     dglu = [None] * 6
     for i in range(5, -1, -1):
-        u, a, s, wl, wr = saved[i]
+        u, a, s = saved[i]
+        wl, wr = weights[i]
         dy = d[i % 2]
         da = dy * s
         dspre = dy * a * (s * (1.0 - s))
@@ -273,6 +313,15 @@ def spe_seq_cell_bwd(x, glu_params, g, multi: int):
         d[i % 2] = da @ wl.T + dspre @ wr.T
     dx = (d[0] + d[1]).reshape(b, n, k, w).permute(0, 2, 1, 3)
     return dx, dglu
+
+
+def spe_seq_cell_bwd(x, glu_params, g, multi: int):
+    """Backward of `spe_seq_cell` over the folded-DFT chain
+    (pallas_spectral.py `_bwd_kernel` and `_backward`): recomputes (a, s) of
+    each GLU from x, then the reread backward on them. x [B,K,N,W],
+    g [B,K,N,W*multi] -> (dx like x, dglu: six dicts like glu_params)."""
+    _, acts = spe_seq_cell_save(x, glu_params, multi)
+    return spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi)
 
 
 def cheb_graph_conv_bwd(mul_L, x, g):

@@ -12,8 +12,10 @@ non-decrease count), which is what `--resume` restores.
 Format: one `torch.save` of {"params": flat state dict, "opt_state": the
 optimizer's `state_dict()` or None, "meta": dict}, with the parameter tree
 flattened to "/"-joined names and every tensor on the CPU. The optimizer's
-parameters are numbered in that flattened order. Writes are synchronous and
-atomic (tmp file + os.replace).
+parameters are numbered in that flattened order. Writes are atomic (tmp file
++ os.replace): synchronous through `save`, or through `AsyncCheckpointer`,
+which clones the state on its device and copies and writes it on a worker
+thread while training goes on.
 The JAX package's flax-msgpack checkpoints are not read here; JAX weights
 come in through models/convert.py.
 """
@@ -22,6 +24,8 @@ from __future__ import annotations
 
 import json
 import os
+import queue
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -61,14 +65,19 @@ def save(
     return path
 
 
-def _to_cpu(obj):
+def _map_tensors(fn, obj):
+    """`obj` with `fn` applied to every tensor in its dicts, lists and tuples."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        return fn(obj)
     if isinstance(obj, dict):
-        return {k: _to_cpu(v) for k, v in obj.items()}
+        return {k: _map_tensors(fn, v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return [_to_cpu(v) for v in obj]
+        return [_map_tensors(fn, v) for v in obj]
     return obj
+
+
+def _to_cpu(obj):
+    return _map_tensors(lambda t: t.detach().cpu(), obj)
 
 
 def load(
@@ -119,3 +128,84 @@ def load_norm_stat(result_dir: str) -> Dict:
     """handler.py:195-196."""
     with open(os.path.join(result_dir, "norm_stat.json"), "r") as f:
         return json.load(f)
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes that overlap the next epoch
+    (stemgnn_tpu/train/checkpoint.py `AsyncCheckpointer`).
+
+    `submit` clones the parameters and the optimizer state on their device,
+    which is all the training loop waits for. The clone is needed because the
+    port updates parameters in place: the next step, or the next replay of a
+    captured graph, would otherwise change what the worker is still copying.
+    One worker thread then copies the clone to the host (on a stream of its
+    own, after the clone has finished) and writes the file through `save`.
+    One queue and one worker, so files are written in the order submitted; the
+    queue holds at most `max_pending` snapshots, and `submit` blocks beyond
+    that instead of piling up copies of the model. A worker's error is raised
+    by the next `submit`, `wait` or `close`.
+    """
+
+    def __init__(self, max_pending: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=max_pending)
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        stream = None
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            model_dir, params, opt_state, epoch, meta, ready, dev = item
+            try:
+                if ready is not None:
+                    stream = stream or torch.cuda.Stream(dev)
+                    stream.wait_event(ready)
+                    with torch.cuda.stream(stream):
+                        save(model_dir, params, opt_state, epoch=epoch, meta=meta)
+                else:
+                    save(model_dir, params, opt_state, epoch=epoch, meta=meta)
+            except Exception as e:  # raised again by the next submit, wait or close
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def submit(self, model_dir: str, params: Any, opt_state: Optional[Dict] = None, *,
+               epoch: Optional[int] = None, meta: Optional[Dict] = None):
+        """Snapshot `params` and `opt_state` (an optimizer's `state_dict()`)
+        on their device and queue the write."""
+        self._raise_pending()
+        if model_dir is None:
+            return
+
+        def clone(t):
+            return t.detach().clone()
+
+        params = {k: clone(v) for k, v in flatten_params(params).items()}
+        opt_state = _map_tensors(clone, opt_state)
+        ready = None
+        dev = next(iter(params.values())).device
+        if dev.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+        self._q.put((model_dir, params, opt_state, epoch, dict(meta or {}), ready, dev))
+
+    def wait(self):
+        """Block until every queued checkpoint is on disk."""
+        self._q.join()
+        self._raise_pending()
+
+    def close(self):
+        """Drain the queue and stop the worker, then raise a pending error."""
+        self._q.join()
+        self._q.put(None)
+        self._thread.join()
+        self._raise_pending()

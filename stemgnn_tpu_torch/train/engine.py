@@ -8,19 +8,29 @@ batch is gathered there from its [B] window end indices. Every batch runs
 at its true size: the short last batch is not padded, because the latent
 adjacency depends on batch statistics.
 
-Training is an eager loop, one step per batch (the JAX package's chunked
-scan over batches has no counterpart here). The per-epoch shuffle comes
-from `np.random.default_rng([shuffle root, epoch])` as in the JAX engine,
-so both engines see the same batches; the dropout generator is re-seeded
-from (dropout root, epoch) at each epoch. Neither is a carried chain, so a
-`--resume` run reproduces the uninterrupted run bitwise. The loss is read
-back once per epoch, not per step.
+Training runs in chunks, as the JAX package's `lax.scan` over batches does:
+an epoch's full batches are cut greedily into chunks of `CHUNK_SIZES` steps,
+and `make_epoch_fn` runs a chunk as one device program. On the card that is a
+CUDA graph of n train steps, captured once per chunk size and replayed; on
+the CPU it is the loop of eager steps. The full batches no chunk takes and
+the short last batch go through the eager `make_train_step` step. A chunk and
+the same steps taken eagerly give the same bits: the dropout masks of a chunk
+are drawn before it, in step order, from the generator the eager steps draw
+from. Evaluation has the same shape (`make_eval_epoch_fn`).
+
+The per-epoch shuffle comes from `np.random.default_rng([shuffle root,
+epoch])` as in the JAX engine, so both engines see the same batches; the
+dropout generator is re-seeded from (dropout root, epoch) at each epoch.
+Neither is a carried chain, so a `--resume` run reproduces the uninterrupted
+run bitwise. The loss is read back once per epoch, not per step.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -33,6 +43,7 @@ from stemgnn_tpu_torch.data.pipeline import (
     de_normalized,
 )
 from stemgnn_tpu_torch.device import resolve_device
+from stemgnn_tpu_torch import ops
 from stemgnn_tpu_torch.metrics import evaluate
 from stemgnn_tpu_torch.models import stemgnn
 from stemgnn_tpu_torch.models.convert import (
@@ -57,33 +68,168 @@ def gather_windows(data, hi, window_size: int, horizon: int):
     return data[x_idx], data[y_idx]
 
 
-def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves):
-    """train_step(params, data, hi, dropout_generator) -> loss (a 0-d tensor
-    on the device, not read back). One forward, backward and optimizer step
-    on the batch whose window end indices are `hi`.
+def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
+                    check_finite: bool = False):
+    """train_step(params, data, hi, dropout_generator=None, dropout_mask=None)
+    -> loss (a 0-d tensor on the device, not read back). One forward, backward
+    and optimizer step on the batch whose window end indices are `hi`; the
+    dropout mask is `dropout_mask` ([B,N,N] bool) or drawn from
+    `dropout_generator`.
 
     `leaves` are the parameter tensors `opt` updates (in place). A parameter
     the loss does not reach (stack 1's backcast_short_cut) gets a zero
     gradient, as jax.grad gives it, so its optimizer state exists and the
-    checkpoints line up with the JAX package's.
+    checkpoints line up with the JAX package's. With `check_finite` the step
+    reads the loss and the gradients back and raises FloatingPointError on a
+    value that is not finite, before the optimizer moves anything.
     """
     w, h = mcfg.window_size, mcfg.horizon
     leaves = list(leaves)
 
-    def train_step(params, data, hi, dropout_generator):
+    def train_step(params, data, hi, dropout_generator=None, dropout_mask=None):
         x, y = gather_windows(data, hi, w, h)
         opt.zero_grad(set_to_none=True)
         forecast, _ = stemgnn.forward(
-            params, mcfg, x, training=True, dropout_generator=dropout_generator)
+            params, mcfg, x, training=True, dropout_generator=dropout_generator,
+            dropout_mask=dropout_mask)
         loss = torch.mean((forecast - y) ** 2)  # nn.MSELoss (handler.py:140)
         loss.backward()
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if check_finite:
+            bad = [k for k, p in flatten_params(params).items()
+                   if not torch.isfinite(p.grad).all()]
+            if bad or not torch.isfinite(loss):
+                raise FloatingPointError(
+                    f"loss {loss.item()}; gradients that are not finite: {bad}")
         opt.step()
         return loss.detach()
 
     return train_step
+
+
+# Steps per chunk, tried largest first. On the card each size is one captured
+# CUDA graph, so an epoch of b batches costs a handful of replays.
+CHUNK_SIZES = (64, 16, 4)
+# eager steps on a side stream before the first capture: library handles,
+# workspaces, cached constants and the optimizer's state all come to exist
+WARM_STEPS = 3
+
+
+def _static_inputs(data, n: int, batch: int, first_hi: int):
+    """Buffers a captured graph reads, at fixed addresses: a copy of `data`
+    and [n, batch] window end indices (all valid, for the warm-up)."""
+    return SimpleNamespace(
+        data=data.clone(),
+        hi=torch.full((n, batch), first_hi, dtype=torch.int64, device=data.device))
+
+
+def _warm(fn) -> None:
+    """Run fn on a side stream, as a capture needs before it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+
+
+def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves):
+    """epoch_fn(params, data, hi_matrix [n, B], dropout_generator=None,
+    dropout_masks=None) -> losses [n]: n train steps as one device program
+    (stemgnn_tpu/train/engine.py `make_epoch_fn`). The steps' dropout masks are
+    `dropout_masks` ([n, B, N, N] bool) or drawn from `dropout_generator`.
+
+    `params` must be the tree of `leaves`, the tensors `opt` updates in place.
+    On CPU tensors the program is the loop of eager steps. On the card it is a
+    CUDA graph of the n steps, captured at the first call with that n (and
+    batch and data shape) and replayed from then on; `data`, `hi_matrix`, the
+    n dropout masks and the losses live in static buffers that a call copies
+    into and out of. The masks are drawn before the replay, one [B,N,N] draw
+    per step from `dropout_generator`, which is what the eager steps draw: a
+    chunk and the same steps taken eagerly give the same bits. The first
+    capture is preceded by `WARM_STEPS` eager steps whose effect on the
+    parameters and the optimizer state is undone.
+    """
+    leaves = list(leaves)
+    train_step = make_train_step(mcfg, opt, leaves)
+    w, keep = mcfg.window_size, 1.0 - mcfg.dropout_rate
+    dropout = mcfg.dropout_rate > 0.0
+    graphs = {}
+
+    def check_params(params):
+        mine = list(flatten_params(params).values())
+        if len(mine) != len(leaves) or any(a is not b for a, b in zip(mine, leaves)):
+            raise ValueError("epoch_fn: params are not the tensors the optimizer updates")
+
+    def eager(params, data, hi_matrix, dropout_generator, dropout_masks):
+        return torch.stack([
+            train_step(params, data, hi, dropout_generator,
+                       None if dropout_masks is None else dropout_masks[i])
+            for i, hi in enumerate(hi_matrix)])
+
+    def warm_up(params, st):
+        """WARM_STEPS eager steps, then parameters and optimizer state put back
+        (state that the steps created is zeroed, which is how it starts)."""
+        held = [p.detach().clone() for p in leaves]
+        held_state = {p: {k: v.clone() for k, v in opt.state[p].items()}
+                      for p in leaves if p in opt.state}
+        mask = st.masks[0] if dropout else None
+        _warm(lambda: [train_step(params, st.data, st.hi[0], dropout_mask=mask)
+                       for _ in range(WARM_STEPS)])
+        with torch.no_grad():
+            for p, old in zip(leaves, held):
+                p.copy_(old)
+                for k, v in opt.state[p].items():
+                    if p in held_state:
+                        v.copy_(held_state[p][k])
+                    else:
+                        v.zero_()
+
+    def capture(params, data, n, batch):
+        st = _static_inputs(data, n, batch, w)
+        st.masks = (torch.ones((n, batch, mcfg.units, mcfg.units), dtype=torch.bool,
+                               device=data.device) if dropout else None)
+        st.losses = torch.zeros(n, dtype=data.dtype, device=data.device)
+        if not graphs:
+            warm_up(params, st)
+        st.graph = torch.cuda.CUDAGraph()
+        # thread_local: a checkpoint worker may be copying on its own stream
+        with ops.counting_capture() as st.per_replay, torch.cuda.graph(
+                st.graph, capture_error_mode="thread_local"):
+            for i in range(n):
+                st.losses[i] = train_step(
+                    params, st.data, st.hi[i],
+                    dropout_mask=st.masks[i] if dropout else None)
+        return st
+
+    def graphed(params, data, hi_matrix, dropout_generator, dropout_masks):
+        n, batch = hi_matrix.shape
+        key = (n, batch, tuple(data.shape))
+        if key not in graphs:
+            graphs[key] = capture(params, data, n, batch)
+        st = graphs[key]
+        st.data.copy_(data)
+        st.hi.copy_(hi_matrix)
+        if dropout and dropout_masks is not None:
+            st.masks.copy_(dropout_masks)
+        elif dropout:
+            for i in range(n):
+                st.masks[i] = stemgnn.draw_dropout_mask(
+                    (batch, mcfg.units, mcfg.units), keep, dropout_generator)
+        st.graph.replay()
+        ops.add_replayed(st.per_replay)
+        return st.losses.clone()
+
+    def epoch_fn(params, data, hi_matrix, dropout_generator=None, dropout_masks=None):
+        check_params(params)
+        if dropout and dropout_generator is None and dropout_masks is None:
+            raise ValueError("training with dropout needs dropout_generator or "
+                             "dropout_masks")
+        fn = graphed if data.device.type == "cuda" else eager
+        return fn(params, data, hi_matrix, dropout_generator, dropout_masks)
+
+    return epoch_fn
 
 
 def epoch_generator_seed(root: int, epoch: int) -> int:
@@ -106,6 +252,51 @@ def make_eval_step(mcfg: StemGNNConfig, device="cuda"):
         return forecast
 
     return eval_step
+
+
+def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda"):
+    """eval_epoch(params, data, hi_matrix [n, B]) -> (forecasts [n, B, horizon,
+    N], targets like them): n eval batches as one device program
+    (stemgnn_tpu/train/engine.py `make_eval_epoch_fn`).
+
+    On the CPU the loop of eager forwards; on the card a CUDA graph of the n
+    forwards, captured at the first call with that n, batch, data shape and
+    parameter tensors and replayed from then on, with `data` and `hi_matrix`
+    copied into static buffers."""
+    dev = resolve_device(device)
+    eval_step = make_eval_step(mcfg, dev)
+    w, h = mcfg.window_size, mcfg.horizon
+    graphs = {}
+
+    def run(params, data, hi_matrix):
+        fs, ys = [], []
+        for hi in hi_matrix:
+            x, y = gather_windows(data, hi, w, h)
+            fs.append(eval_step(params, x))
+            ys.append(y)
+        return torch.stack(fs), torch.stack(ys)
+
+    def graphed(params, data, hi_matrix):
+        n, batch = hi_matrix.shape
+        # a graph reads the parameters where they lay at its capture
+        key = (n, batch, tuple(data.shape),
+               tuple(p.data_ptr() for p in flatten_params(params).values()))
+        if key not in graphs:
+            st = _static_inputs(data, n, batch, w)
+            _warm(lambda: run(params, st.data, st.hi[:1]))
+            st.graph = torch.cuda.CUDAGraph()
+            with ops.counting_capture() as st.per_replay, torch.cuda.graph(
+                    st.graph, capture_error_mode="thread_local"):
+                st.out = run(params, st.data, st.hi)
+            graphs[key] = st
+        st = graphs[key]
+        st.data.copy_(data)
+        st.hi.copy_(hi_matrix)
+        st.graph.replay()
+        ops.add_replayed(st.per_replay)
+        return st.out[0].clone(), st.out[1].clone()
+
+    return graphed if dev.type == "cuda" else run
 
 
 def inference(
@@ -149,14 +340,25 @@ def inference(
 
 def inference_batched(
     eval_step, params, dataset: WindowDataset, batch_size: int, device="cuda",
+    eval_epoch_fn=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Device-side eval: one pass over the batches with the split on the
     device, forecasts and targets copied back once. Valid whenever the
-    model emits the full horizon per call (stemgnn.forward always does)."""
+    model emits the full horizon per call (stemgnn.forward always does).
+    With `eval_epoch_fn` (`make_eval_epoch_fn`) the full batches run as one
+    device program; the short last batch is its own call either way."""
     dev = resolve_device(device)
     data = torch.from_numpy(dataset.data).to(dev)
+    batches = dataset.epoch_batches(batch_size, shuffle=False)
     fcs, tgs = [], []
-    for hi_batch in dataset.epoch_batches(batch_size, shuffle=False):
+    n_full = len(batches) - (1 if len(batches[-1]) < batch_size else 0)
+    if eval_epoch_fn is not None and n_full:
+        hi_matrix = torch.from_numpy(np.stack(batches[:n_full]).astype(np.int64)).to(dev)
+        fs, ys = eval_epoch_fn(params, data, hi_matrix)
+        fcs.append(fs.flatten(0, 1))
+        tgs.append(ys.flatten(0, 1))
+        batches = batches[n_full:]
+    for hi_batch in batches:
         hi = torch.from_numpy(hi_batch.astype(np.int64)).to(dev)
         x, y = gather_windows(data, hi, dataset.window_size, dataset.horizon)
         fcs.append(eval_step(params, x))
@@ -179,15 +381,16 @@ def validate(
     batch_size: int,
     result_file: Optional[str] = None,
     device=None,
+    eval_epoch_fn=None,
 ) -> Dict:
     """handler.py:67-100: metrics on de-normalized forecasts + CSV artifacts.
 
     With `device` the batches are gathered on that device
-    (`inference_batched`); without it the host splice loop runs
-    (`inference`)."""
+    (`inference_batched`, the full batches through `eval_epoch_fn` if given);
+    without it the host splice loop runs (`inference`)."""
     if device is not None:
         forecast_norm, target_norm = inference_batched(
-            eval_step, params, dataset, batch_size, device)
+            eval_step, params, dataset, batch_size, device, eval_epoch_fn)
     else:
         forecast_norm, target_norm = inference(
             eval_step, params, dataset, batch_size, node_cnt, window_size, horizon)
@@ -280,28 +483,52 @@ def train(
                     for k, v in flatten_params(loaded).items():
                         flat[k].copy_(v)
                 if opt_state is not None:
-                    opt.load_state_dict(opt_state)
+                    # the moments and step counts; the param groups stay this
+                    # optimizer's own (its learning rate may be a tensor on
+                    # the card, and the engine sets it every epoch)
+                    opt.load_state_dict({
+                        "state": opt_state["state"],
+                        "param_groups": opt.state_dict()["param_groups"]})
                 start_epoch = meta.get("epoch", last) + 1
                 best_validate_mae = meta.get("best_validate_mae", np.inf)
                 validate_score_non_decrease_count = meta.get("non_decrease_count", 0)
                 print(f"Resumed from epoch {last}")
 
-    performance_metrics = _train_epochs(
-        cfg, mcfg, flat, opt, device, train_set, valid_set, normalize_statistic,
-        node_cnt, result_file, logger, start_epoch, best_validate_mae,
-        validate_score_non_decrease_count,
-    )
+    saver = ckpt.AsyncCheckpointer() if cfg.ckpt_async else None
+    try:
+        with torch.autograd.set_detect_anomaly(cfg.debug_nans):
+            performance_metrics = _train_epochs(
+                cfg, mcfg, flat, opt, device, train_set, valid_set,
+                normalize_statistic, node_cnt, result_file, logger, start_epoch,
+                best_validate_mae, validate_score_non_decrease_count, saver,
+            )
+    finally:
+        if saver is not None:
+            # every queued checkpoint on disk before returning; a failed
+            # write must not hide an exception of the training itself
+            training_exc = sys.exc_info()[1]
+            try:
+                saver.close()
+            except Exception as ckpt_err:
+                if training_exc is None:
+                    raise
+                print(f"WARNING: an asynchronous checkpoint write also failed "
+                      f"during shutdown: {ckpt_err!r}")
     return performance_metrics, normalize_statistic
 
 
 def _train_epochs(
     cfg, mcfg, flat, opt, device, train_set, valid_set, normalize_statistic,
     node_cnt, result_file, logger, start_epoch, best_validate_mae,
-    validate_score_non_decrease_count,
+    validate_score_non_decrease_count, saver=None,
 ) -> Dict:
     params = unflatten_params(flat)
-    train_step = make_train_step(mcfg, opt, flat.values())
+    # debug_nans: every batch is an eager step that checks its loss and gradients
+    train_step = make_train_step(mcfg, opt, flat.values(), check_finite=cfg.debug_nans)
+    epoch_fn = make_epoch_fn(mcfg, opt, flat.values())
+    chunk_sizes = () if cfg.debug_nans else CHUNK_SIZES
     eval_step = make_eval_step(mcfg, device)
+    eval_epoch_fn = make_eval_epoch_fn(mcfg, device)
     data_dev = torch.from_numpy(train_set.data).to(device)
     n_windows = len(train_set)
     dropout_root = cfg.dropout_seed if cfg.dropout_seed >= 0 else cfg.seed
@@ -309,12 +536,24 @@ def _train_epochs(
     generator = torch.Generator(device=device)
 
     def save_ckpt(epoch_arg, meta):
-        ckpt.save(result_file, params, opt.state_dict(), epoch=epoch_arg, meta=meta)
+        # the asynchronous saver clones the state on the device before the
+        # next step changes it in place
+        save = saver.submit if saver is not None else ckpt.save
+        save(result_file, params, opt.state_dict(), epoch=epoch_arg, meta=meta)
 
     performance_metrics: Dict = {}
     for epoch in range(start_epoch, cfg.epoch):
         lr = decayed_lr(cfg.lr, epoch, cfg.exponential_decay_step, cfg.decay_rate)
         set_lr(opt, lr)
+        # trace the second epoch of this run (the first pays for the captures)
+        # into <result_file>/profile
+        prof = None
+        if cfg.profile and result_file and epoch == start_epoch + 1:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
         epoch_start_time = time.time()
         # shuffle and dropout streams are functions of (root, epoch), not
         # carried chains: a --resume run at epoch k sees the uninterrupted
@@ -324,15 +563,29 @@ def _train_epochs(
             rng=np.random.default_rng([shuffle_root, epoch]),
         )
         cnt = len(batches)
+        n_full = cnt - (1 if len(batches[-1]) < cfg.batch_size else 0)
         generator.manual_seed(epoch_generator_seed(dropout_root, epoch))
         sizes = [len(b) for b in batches]
         hi_all = torch.from_numpy(np.concatenate(batches).astype(np.int64)).to(device)
-        losses = [
-            train_step(params, data_dev, hi, generator)
-            for hi in torch.split(hi_all, sizes)
-        ]
-        loss_total = float(torch.stack(losses).sum())  # one sync per epoch
+        hi_full = hi_all[: n_full * cfg.batch_size].view(n_full, cfg.batch_size)
+        losses = []
+        lo = 0
+        for size in chunk_sizes:  # greedy, largest chunk first
+            while n_full - lo >= size:
+                losses.append(epoch_fn(params, data_dev, hi_full[lo : lo + size],
+                                       generator))
+                lo += size
+        # the full batches no chunk took, and the short last batch
+        for hi in torch.split(hi_all, sizes)[lo:]:
+            losses.append(train_step(params, data_dev, hi, generator)[None])
+        loss_total = float(torch.cat(losses).sum())  # one sync per epoch
         epoch_time = time.time() - epoch_start_time
+        if prof is not None:
+            prof.stop()
+            profile_dir = os.path.join(result_file, "profile")
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, f"epoch_{epoch}.json"))
+            print(f"profile trace written to {profile_dir}")
         print(
             "| end of epoch {:3d} | time: {:5.2f}s | train_total_loss {:5.4f}".format(
                 epoch, epoch_time, loss_total / cnt
@@ -372,6 +625,7 @@ def _train_epochs(
                 cfg.batch_size,
                 result_file=result_file,
                 device=device,
+                eval_epoch_fn=eval_epoch_fn,
             )
             if best_validate_mae > performance_metrics["mae"]:
                 best_validate_mae = performance_metrics["mae"]
@@ -425,6 +679,7 @@ def test(
         cfg.batch_size,
         result_file=result_test_file,
         device=device,
+        eval_epoch_fn=make_eval_epoch_fn(mcfg, device),
     )
     mae, mape, rmse = (
         performance_metrics["mae"],
