@@ -10,9 +10,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
   1. device: CUDA present; the card's name and power limit from nvidia-smi;
      TF32 off for every f32 comparison.
   2. build: nvcc of every kernel source in stemgnn_tpu_torch/csrc.
-  3. kernels: each of the nine kernels at the ECG flagship shapes (N=140,
-     W=12, multi_layer=5, batch 32), held against its plain PyTorch version
-     on the card. The forward kernels run on inputs that the model's own
+  3. kernels: each of the ten kernels at the shapes its path gives it (the
+     ECG flagship: N=140, W=12, multi_layer=5, batch 32; the one-block GRU
+     forward: the 512-node model of phase 4), held against its plain PyTorch
+     version on the card. The forward kernels run on inputs that the model's own
      plain path computes from the first test batch; the backward kernels on
      the activations and cotangents of one train step of the port's CPU
      plain path on the first training batch. Device times come from CUDA
@@ -20,12 +21,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
      them the least time the card could take (bytes or f32 operations at
      published H100 SXM peaks) and a one-call PyTorch yardstick where one
      exists. The spectral reread backward's gradients must equal the recompute
-     backward's bit for bit.
+     backward's bit for bit. The GRU forward across a cluster (both
+     variants), the one-block GRU forward and the graph convolution are also
+     held against their plain versions, untimed, at ragged batches, at hidden
+     sizes no cluster size divides, at a hidden size that takes the one-block
+     route, and at an N the graph convolution walks in panels.
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
      just after; then the test-split forecasts against the port's CPU plain
-     path, and eval windows/s.
+     path, and eval windows/s. Then a 512-node model (a hidden size whose
+     slices fit no cluster, so `gru_over_nodes` launches the one-block
+     kernel) through engine.inference_batched on a seeded series, counters
+     set to 0 just before and read just after, against the CPU plain path.
   5. train path: engine.train on the card, one epoch of ECG_data with its
      validate pass (batch 32, RMSProp, dropout 0.5), counters set to 0 just
      before and read just after and held against the expected launches per
@@ -71,6 +79,9 @@ F32_FLOP_PER_S = 67e12
 
 # ECG flagship: python main.py defaults on dataset/ECG_data.csv
 BATCH, WINDOW, MULTI, HORIZON = 32, 12, 5, 3
+# the widest model the package takes: its GRU's slices fit no cluster of 8
+# blocks, so its forward goes through the one-block kernel
+BIG_NODES = 512
 
 
 def _fail(msg: str) -> int:
@@ -208,6 +219,22 @@ def leaf_params(params, device):
         for k, v in flatten_params(params).items()})
 
 
+def cudnn_gru_like(gru, dev, train: bool = False):
+    """torch.nn.GRU (cuDNN on the card) with the weights of the port's `gru`
+    tree: the library yardstick of the GRU kernels, used nowhere in the port."""
+    import torch
+
+    h3, w = gru["w_ih"].shape
+    mod = torch.nn.GRU(w, h3 // 3).to(dev)
+    mod.train(train)
+    with torch.no_grad():
+        mod.weight_ih_l0.copy_(gru["w_ih"])
+        mod.weight_hh_l0.copy_(gru["w_hh"])
+        mod.bias_ih_l0.copy_(gru["b_ih"])
+        mod.bias_hh_l0.copy_(gru["b_hh"])
+    return mod
+
+
 def backward_cases(rec, params, mcfg, dev):
     """The three backward kernels, as `forward_cases`, on what one train step
     of the CPU plain path saved and sent back (`rec`, an OpRecorder)."""
@@ -230,12 +257,7 @@ def backward_cases(rec, params, mcfg, dev):
         a_all = gru["w_hh"].T.contiguous()
         _, saved = torch_impl.gru_scan(x_proj, a_all, gru["b_hh"], save=True)
 
-    cudnn_gru = torch.nn.GRU(w, h).to(dev).train()
-    with torch.no_grad():
-        cudnn_gru.weight_ih_l0.copy_(gru["w_ih"])
-        cudnn_gru.weight_hh_l0.copy_(gru["w_hh"])
-        cudnn_gru.bias_ih_l0.copy_(gru["b_ih"])
-        cudnn_gru.bias_hh_l0.copy_(gru["b_hh"])
+    cudnn_gru = cudnn_gru_like(gru, dev, train=True)
     xs = x.permute(2, 0, 1).contiguous().requires_grad_(True)  # [N, B, W]
     g_seq = g_gru.transpose(0, 1).contiguous()  # [N, B, H]
 
@@ -346,12 +368,7 @@ def forward_cases(params, mcfg, x):
         gfted = torch_impl.cheb_graph_conv(mul_L, feat).contiguous()
         glu = params["blocks"][0]["glu"]
 
-    cudnn_gru = torch.nn.GRU(w, h).to(x.device).eval()
-    with torch.no_grad():
-        cudnn_gru.weight_ih_l0.copy_(gru["w_ih"])
-        cudnn_gru.weight_hh_l0.copy_(gru["w_hh"])
-        cudnn_gru.bias_ih_l0.copy_(gru["b_ih"])
-        cudnn_gru.bias_hh_l0.copy_(gru["b_hh"])
+    cudnn_gru = cudnn_gru_like(gru, x.device)
     xs = x.permute(2, 0, 1).contiguous()  # [N, B, W], cuDNN's sequence-major input
     xt = feat.permute(1, 0, 2).reshape(n, b * w).contiguous()  # [N, B*W]
     lk = mul_L[1:].contiguous()
@@ -418,6 +435,92 @@ def forward_cases(params, mcfg, x):
     ]
 
 
+def one_block_cases(params, x):
+    """The one-block GRU forward as `forward_cases` gives the others, at the
+    shapes of the 512-node model's serving path: x [B, W, N]."""
+    from stemgnn_tpu_torch.ops import cuda_gru
+
+    b, w, n = x.shape
+    h = n
+    gru = params["gru"]
+    if cuda_gru.launch_plan(b, h).route != "one_block":
+        raise RuntimeError(f"hidden size {h} was expected to take the one-block route")
+    cudnn_gru = cudnn_gru_like(gru, x.device)
+    xs = x.permute(2, 0, 1).contiguous()
+    return [
+        ("gru_fwd_one_block", "stemgnn_tpu_torch/csrc/gru.cu",
+         "stemgnn_tpu/ops/pallas_gru.py:103",
+         lambda: cuda_gru.gru_over_nodes(gru, x),
+         lambda: cuda_gru.gru_over_nodes_plain(gru, x),
+         lambda: cudnn_gru(xs)[0],
+         1e-4, 0.0,  # as gru_fwd
+         4 * (x.numel() + sum(t.numel() for t in gru.values()) + b * n * h),
+         2 * n * b * w * 3 * h + 2 * n * b * h * 3 * h),
+    ]
+
+
+def shape_checks(dev):
+    """The GRU forward (cluster and one-block routes, both variants) and the
+    graph convolution against their plain versions at other shapes than the
+    flagship's, untimed, on seeded inputs. Returns an error message, or None."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_graph, cuda_gru, torch_impl
+
+    rng = np.random.default_rng(3)
+
+    def card(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    # ragged batches; H = 170 and 358 divide by no chosen cluster size (6, 8);
+    # H = 20 is a cluster of one block, H = 37 of two; H = 512 fits no cluster
+    # of 8 and takes the one-block route
+    for b, h, route in ((26, 140, "cluster"), (6, 140, "cluster"), (1, 140, "cluster"),
+                        (3, 20, "cluster"), (5, 37, "cluster"),
+                        (32, 228, "cluster"), (32, 170, "cluster"),
+                        (32, 358, "cluster"), (64, 140, "cluster"),
+                        (6, 512, "one_block")):
+        plan = cuda_gru.launch_plan(b, h)
+        if plan.route != route:
+            return f"gru launch_plan({b}, {h}) takes the {plan.route} route"
+        bound = 1.0 / np.sqrt(h)
+        x_proj = card(rng.standard_normal((h, b, 3 * h)))
+        a_all = card(rng.uniform(-bound, bound, (h, 3 * h)))
+        b_hh = card(rng.uniform(-bound, bound, 3 * h))
+        with torch.no_grad():
+            want = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
+            for save in (False, True):
+                got = cuda_gru._launch_fwd(x_proj, a_all, b_hh, save)
+                torch.cuda.synchronize()
+                errs = [(g - w_).abs().max().item()
+                        for g, w_ in zip(got, want) if g is not None]
+                print(f"[3 kernel] gru forward B={b} H={h} {route} "
+                      f"{'saving' if save else 'serving'} (cluster {plan.cluster}, slice "
+                      f"{plan.slice}, {plan.groups} groups, {plan.smem} B): max_abs_err "
+                      f"{max(errs):.3e} (atol 1e-4)")
+                if not max(errs) <= 1e-4:
+                    return f"gru forward at B={b} H={h} ({route}) differs by {max(errs)}"
+    # ragged batch; ragged N and a W that is no multiple of 4; an N in two
+    # panels; the zero order alone
+    for k, n, b, w in ((4, 140, 26, 12), (4, 228, 6, 12), (4, 37, 5, 7),
+                       (3, 800, 3, 12), (1, 140, 6, 12)):
+        mul_L = rng.standard_normal((k, n, n)) * 0.1
+        mul_L[0] = 0.0
+        mul_L, x = card(mul_L), card(rng.standard_normal((b, n, w)))
+        plan = cuda_graph.launch_plan(k, n, b, w)
+        with torch.no_grad():
+            got = cuda_graph.cheb_graph_conv(mul_L, x)
+            torch.cuda.synchronize()
+            want = cuda_graph.cheb_graph_conv_plain(mul_L, x)
+        err = (got - want).abs().max().item()
+        print(f"[3 kernel] graph conv K={k} N={n} B={b} W={w} (grid {plan.grid}, panel "
+              f"{plan.panel}, {plan.smem} B): max_abs_err {err:.3e} (atol 1e-4, rtol 1e-5)")
+        if not torch.allclose(got, want, atol=1e-4, rtol=1e-5):
+            return f"graph conv at K={k} N={n} B={b} W={w} differs by {err}"
+    return None
+
+
 def profile_steps(step, batches, step_ms: float) -> None:
     """Print where the card's time goes in a train step: torch.profiler over
     `batches`, device time per step by kernel name, their sum, and that sum
@@ -472,12 +575,18 @@ def take_launches(ops, results):
     return launches, replayed
 
 
-def check_cases(cases, results, phase: str, scaled: bool = False):
+def check_cases(cases, results, phase: str, scaled: bool = False, calls: int = 20,
+                replays: int = 10):
     """Hold each case's kernel against its plain version and time both; fills
     `results`. Returns an error message, or None. With `scaled` a case's atol
     is a fraction of the plain result's largest entry: the cotangents of a
-    real train step, and so the backward kernels' outputs, are far below 1."""
+    real train step, and so the backward kernels' outputs, are far below 1.
+    `calls` and `replays` size the timed graphs (fewer for a slow kernel)."""
+    import functools
+
     import torch
+
+    cuda_ms_ = functools.partial(cuda_ms, calls=calls, replays=replays)
 
     for (name, source, replaces, kern, plain, lib, atol, rtol, nbytes,
          flops) in cases:
@@ -488,8 +597,8 @@ def check_cases(cases, results, phase: str, scaled: bool = False):
             err = (got - want).abs().max().item()
             scale = want.abs().max().item() if scaled else 1.0
             ok = bool(torch.allclose(got, want, atol=atol * scale, rtol=rtol))
-            ms = cuda_ms(kern)
-            plain_ms = cuda_ms(plain)
+            ms = cuda_ms_(kern)
+            plain_ms = cuda_ms_(plain)
             if lib is None:
                 lib_ms = None
             elif isinstance(lib, tuple):
@@ -497,7 +606,7 @@ def check_cases(cases, results, phase: str, scaled: bool = False):
                 # captured (cuDNN's RNN backward under autograd); it is no part
                 # of the port, so its timing alone may fall back to eager calls
                 try:
-                    lib_ms = cuda_ms(lib[1])
+                    lib_ms = cuda_ms_(lib[1])
                 except RuntimeError as exc:
                     print(f"[{phase}] {name}: the library call was not captured "
                           f"({str(exc).splitlines()[0][:120]}); timed as eager calls, "
@@ -505,8 +614,8 @@ def check_cases(cases, results, phase: str, scaled: bool = False):
                     torch.cuda.synchronize()
                     lib_ms = stream_ms(lib[1])
             else:
-                lib_ms = cuda_ms(lib)
-            one_call_ms = call_ms(kern)
+                lib_ms = cuda_ms_(lib)
+            one_call_ms = call_ms(kern, reps=calls)
         bound_ms, bound_by = bound(nbytes, flops)
         tol = (f"atol {atol:g} of the largest entry {scale:.3e}" if scaled
                else f"atol {atol:g}")
@@ -599,11 +708,27 @@ def run() -> int:
     hi = torch.from_numpy(test_set.epoch_batches(BATCH, shuffle=False)[0]).long()
     x, _ = engine.gather_windows(torch.from_numpy(test_set.data).to(dev),
                                  hi.to(dev), cfg.window_size, cfg.horizon)
+    # the 512-node model of phase 4: a seeded series of two batches of windows
+    mcfg_big = cfg.model_config(BIG_NODES)
+    params_big = init_params(cfg.seed, mcfg_big, device=dev)
+    series_big = np.random.default_rng(5).standard_normal(
+        (WINDOW + HORIZON + 2 * BATCH - 1, BIG_NODES))
+    big_set = WindowDataset(series_big, cfg.window_size, cfg.horizon, cfg.norm_method,
+                            compute_norm_stats(series_big, cfg.norm_method))
+    hi_big = torch.from_numpy(big_set.epoch_batches(BATCH, shuffle=False)[0]).long()
+    x_big, _ = engine.gather_windows(torch.from_numpy(big_set.data).to(dev),
+                                     hi_big.to(dev), cfg.window_size, cfg.horizon)
     results = {}
     fail = check_cases(forward_cases(params, mcfg, x), results, "3 kernel")
     if fail is None:
+        # 512 steps in one block: a call takes a tenth of a second
+        fail = check_cases(one_block_cases(params_big, x_big), results, "3 kernel",
+                           calls=2, replays=3)
+    if fail is None:
         fail = check_cases(backward_cases(rec, params, mcfg, dev), results,
                            "3 kernel", scaled=True)
+    if fail is None:
+        fail = shape_checks(dev)
     if fail is not None:
         return _fail(fail)
     with torch.no_grad():
@@ -632,8 +757,20 @@ def run() -> int:
         a_all, b_hh = gru["w_hh"].T.contiguous(), gru["b_hh"]
         serve_ms = cuda_ms(lambda: cuda_gru._launch_fwd(x_proj, a_all, b_hh, False))
         save_ms = cuda_ms(lambda: cuda_gru._launch_fwd(x_proj, a_all, b_hh, True))
-    print(f"[3 kernel] gru_fwd recurrence alone (without the input projection): "
-          f"serving variant {serve_ms:.5f} ms, saving variant {save_ms:.5f} ms")
+        one_serve_ms = cuda_ms(lambda: cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh))
+        one_save_ms = cuda_ms(lambda: cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh,
+                                                                 save=True))
+        proj_ms = cuda_ms(lambda: (
+            torch_impl.gru_input_projection(gru, x).contiguous(),
+            gru["w_hh"].T.contiguous()))
+    plan = cuda_gru.launch_plan(x_proj.shape[1], a_all.shape[0])
+    print(f"[3 kernel] gru_fwd recurrence alone (without the input projection) at "
+          f"B={x_proj.shape[1]} H={a_all.shape[0]}: across clusters ({plan.groups} "
+          f"clusters of {plan.cluster} blocks, {plan.threads} threads, {plan.smem} B "
+          f"each) serving variant {serve_ms:.5f} ms, saving variant {save_ms:.5f} ms; "
+          f"the one-block kernel at the same shape serving {one_serve_ms:.5f} ms, "
+          f"saving {one_save_ms:.5f} ms; the wrapper's input projection and copy of "
+          f"W_hh^T {proj_ms:.5f} ms")
 
     # --- 4. serving path ---
     train_dir = os.path.join(cfg.output_dir, cfg.dataset, "train")
@@ -695,6 +832,33 @@ def run() -> int:
     wps = len(test_set) / statistics.median(walls[1:])
     print(f"[4 serving path] eval {wps:.1f} windows/s (median of 3 passes over the "
           f"test split, batch {BATCH}, after one warm pass)")
+
+    # the 512-node model: two eager batches, each one launch of the one-block
+    # GRU forward and of the other forward kernels
+    step_big = engine.make_eval_step(mcfg_big, dev)
+    ops.reset_launches()
+    fc_big, _ = engine.inference_batched(step_big, params_big, big_set, BATCH, dev)
+    launches, replayed = take_launches(ops, results)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    for name, n in fwd_per_batch.items():
+        want["gru_fwd_one_block" if name == "gru_fwd" else name] = 2 * n
+    if launches != want or any(replayed.values()):
+        return _fail(f"{BIG_NODES}-node serving path launch counts {launches} and "
+                     f"{replayed}, expected {want}")
+    cpu_big = leaf_params(params_big, "cpu")
+    fc_big_cpu, _ = engine.inference_batched(
+        engine.make_eval_step(mcfg_big, "cpu"), cpu_big, big_set, BATCH, "cpu")
+    shape = (len(big_set), cfg.horizon, BIG_NODES)
+    if fc_big.shape != shape or not np.isfinite(fc_big).all():
+        return _fail(f"{BIG_NODES}-node forecasts {fc_big.shape}, expected {shape} "
+                     "and finite")
+    big_err = float(abs(fc_big - fc_big_cpu).max())
+    print(f"[4 serving path] {BIG_NODES}-node model, {len(big_set)} windows in 2 "
+          f"batches through engine.inference_batched: wrapper launches {launches}; "
+          f"forecasts, card vs CPU plain path: max_abs_err {big_err:.3e} (atol 1e-3)")
+    if big_err > 1e-3:
+        return _fail(f"{BIG_NODES}-node card forecasts differ from the CPU plain path "
+                     f"by {big_err}")
 
     # --- 5. train path ---
     cfg_t = TrainConfig(dataset="ECG_data", train=True, epoch=1, batch_size=BATCH,

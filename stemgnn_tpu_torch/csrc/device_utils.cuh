@@ -1,0 +1,77 @@
+// Device functions shared by the kernels that keep an operand resident in
+// shared memory and split a sum over the lanes of a warp.
+//
+// Asynchronous copies from device memory into a block's shared memory are
+// cp.async: the data does not pass through registers, so a thread keeps as
+// many copies in flight as it starts.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+
+// Closes the group of the copies this thread has started since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// All but the newest `kPending` groups of this thread have landed; a barrier
+// then makes the other threads' copies visible too.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Starts the copy of a [rows][cols] panel of `src` (leading dimension src_ld)
+// into shared memory at `dst` (leading dimension dst_ld), all threads of the
+// block taking elements in turn. 16 bytes a copy where every row of both
+// sides is 16-byte aligned, 4 bytes otherwise.
+__device__ __forceinline__ void copy_panel_async(float* dst, int dst_ld,
+                                                 const float* __restrict__ src,
+                                                 long src_ld, int rows, int cols) {
+  const bool vec = ((cols | dst_ld | (int)(src_ld & 3)) & 3) == 0 &&
+                   (((uintptr_t)src | (uintptr_t)dst) & 15) == 0;
+  if (vec) {
+    const int c4 = cols / 4;
+    for (int e = threadIdx.x; e < rows * c4; e += blockDim.x) {
+      const int r = e / c4, c = (e - r * c4) * 4;
+      cp_async16(dst + r * dst_ld + c, src + r * src_ld + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = e / cols, c = e - r * cols;
+      cp_async4(dst + r * dst_ld + c, src + r * src_ld + c);
+    }
+  }
+}
+
+// v[g][i] holds this lane's partial sum for row i of value g; the R lanes
+// `stride` apart (p = 0..R-1) hold partials of the same R rows. Adds them so
+// that lane p ends with the full sums of row p in v[g][0]. Each round a lane
+// keeps one half of its rows and sends the other half to its partner, so a
+// sum is a fixed binary tree over the lanes: the same bits on every run.
+template <int R, int G>
+__device__ __forceinline__ void transpose_reduce(float (&v)[G][R], int p, int stride) {
+#pragma unroll
+  for (int half = R / 2; half >= 1; half /= 2) {
+    const bool upper = (p & half) != 0;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < half; ++i) {
+        const float send = upper ? v[g][i] : v[g][i + half];
+        const float keep = upper ? v[g][i + half] : v[g][i];
+        v[g][i] = keep + __shfl_xor_sync(0xffffffffu, send, half * stride);
+      }
+  }
+}

@@ -6,101 +6,168 @@
 // (the reference's T0 = 0), mul_L [K,N,N], x [B,N,W], out [B,K,N,W], f32.
 //
 // Bound on the H100: f32 operations (2*(K-1)*N*N*B*W of them against
-// about 4*(K-1)*N*N + 4*(K+1)*B*N*W bytes). The design is a shared-memory
-// tiled f32 GEMM of each order's [N,N] by x viewed as [N, B*W]: 64x64
-// output tiles, a K-slab of 16, 256 threads with a 4x4 register tile each,
-// blockIdx.z the order. The kernel reads x in its [B,N,W] layout and
-// writes straight into [B,K,N,W], so no transpose or pad ever reaches
-// device memory; ragged edges are masked. The z = 0 blocks skip the
-// all-zero product and only write its zero slab.
+// about 4*(K-1)*N*N + 4*(K+1)*B*N*W bytes), but at the model's sizes the
+// whole call is a few microseconds, so what counts is how many barriers and
+// dependent loads lie between the launch and the last store, and how many
+// bytes a thread must bring from shared memory into registers for each FMA
+// (an SM delivers 128 bytes a clock, broadcast or not, against 128 FMAs).
+// Design: the whole reduction dimension sits in shared memory at once. A
+// block takes 32 rows of one order's L (a [32][N] panel) and 4 whole batches
+// of x (each a contiguous [N][W] run, so a tile never splits a batch and no
+// index is divided by W), both brought in by cp.async in 16-byte pieces, ONE
+// barrier, then one loop over m. A warp owns 8 rows of L by four w of the 4
+// batches, and its lanes are (batch, k-part): the 8 lanes of a batch split
+// the sum over m between them (m = p, p + 8, ...), each summing all 8 rows by
+// four w in registers (32 FMAs for 8 floats of L and one float4 of x, 1.5
+// bytes an FMA), then a butterfly of shuffles adds the 8 partial sums in a
+// fixed order and leaves lane p with row p, which it stores as one float4 of
+// out[b,k,n,:]: whole rows of the [B,K,N,W] layout, no transpose or pad in
+// device memory, no atomics. The chunks of four w go to different warps (at
+// most 4 chunks at a time), so a block of the model's shapes has 12 warps in
+// flight. The grid is (B / 4, N / 32, K - 1): the all-zero product of order
+// 0 is skipped, and the blocks of order 1 write its zero slab with float4
+// stores while their panels are on the way. Ragged N, B
+// and W are masked (a W that is no multiple of 4 takes scalar reads of x and
+// scalar stores); an N whose panels exceed shared memory is walked in panels
+// of MP rows of x.
 
 #include <cuda_runtime.h>
 
+#include "device_utils.cuh"
+
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kThreads = 256;
+constexpr int kTM = 32;    // rows of L a block
+constexpr int kTB = 4;     // batches a block: a warp's lanes are (batch, k-part)
+constexpr int kParts = 8;  // lanes that split the sum over m; also the rows a warp owns
+constexpr int kChunkThreads = 32 * (kTM / kParts);  // threads that share a chunk of four w
+constexpr int kMaxChunks = 4;                       // chunks in flight a block: 512 threads
 
-__global__ void __launch_bounds__(kThreads)
+// Shared memory: As [kTM][RSA] (the panel of L, RSA >= MP a multiple of 8),
+// then Xs [kTB][XBS] (a batch's [MP][W] rows of x, XBS >= MP * W + 4 so a
+// ragged last read stays inside). blockDim.x = kChunkThreads * min(chunks,
+// kMaxChunks).
+template <bool kVec>
+__global__ void __launch_bounds__(kChunkThreads * kMaxChunks)
 cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
-                       float* __restrict__ out, int K, int N, int B, int W) {
-  const int k = blockIdx.z;
-  const int n0 = blockIdx.y * kBM;
-  const int c0 = blockIdx.x * kBN;
-  const int ncols = B * W;
+                       float* __restrict__ out, int K, int N, int B, int W, int MP,
+                       int RSA, int XBS) {
+  extern __shared__ __align__(16) float smem[];
+  const int k = blockIdx.z + 1;  // the order of this block's product
+  const int n0 = blockIdx.y * kTM;
+  const int b0 = blockIdx.x * kTB;
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int rows = min(kTM, N - n0);
 
-  if (k == 0) {  // T0 = 0: the slab is zeros, no product
-    for (int e = tid; e < kBM * kBN; e += kThreads) {
-      const int n = n0 + e / kBN, col = c0 + e % kBN;
-      if (n < N && col < ncols) {
-        const int b = col / W, w = col % W;
-        out[(((long)b * K) * N + n) * W + w] = 0.f;
+  // T0 = 0: the k = 0 slab is zeros, no product. The blocks of order 1 write
+  // their tile of it while their panels are on the way.
+  auto zero_slab = [&] {
+    for (int i = 0; i < kTB && b0 + i < B; ++i) {
+      float* o = out + (((long)(b0 + i) * K) * N + n0) * W;
+      const int len = rows * W;
+      if (kVec) {
+        for (int e = tid; e < len / 4; e += blockDim.x)
+          reinterpret_cast<float4*>(o)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        for (int e = tid; e < len; e += blockDim.x) o[e] = 0.f;
       }
     }
+  };
+  if (k >= K) {  // K = 1: there is no product at all
+    zero_slab();
     return;
   }
 
-  __shared__ float As[kBK][kBM];
-  __shared__ float Bs[kBK][kBN];
-  const float* Lk = L + (long)k * N * N;
-  float acc[4][4] = {};
+  float* As = smem;
+  float* Xs = smem + kTM * RSA;
+  const int slot = tid / kChunkThreads;            // which of the chunks in flight
+  const int r0 = tid % kChunkThreads / 32 * kParts;  // the warp's first row of the tile
+  const int lane = tid & 31;
+  const int bb = lane / kParts, p = lane % kParts;
+  const int n = n0 + r0 + p, b = b0 + bb;  // the row this lane stores
+  const int chunks = (W + 3) / 4;
+  const int slots = blockDim.x / kChunkThreads;
+  const int panels = (N + MP - 1) / MP;
+  const float* Lk = L + ((long)k * N + n0) * N;
 
-  for (int m0 = 0; m0 < N; m0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK, kk = e % kBK;
-      const int n = n0 + r, m = m0 + kk;
-      As[kk][r] = (n < N && m < N) ? Lk[(long)n * N + m] : 0.f;
-    }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int kk = e / kBN, c = e % kBN;
-      const int m = m0 + kk, col = c0 + c;
-      float v = 0.f;
-      if (m < N && col < ncols) {
-        const int b = col / W, w = col % W;
-        v = x[((long)b * N + m) * W + w];
+  for (int wc0 = 0; wc0 < chunks; wc0 += slots) {
+    const int wc = min(wc0 + slot, chunks - 1);  // a spare slot repeats the last chunk
+    float acc[4][kParts] = {};                   // [w][row]
+    for (int pi = 0; pi < panels; ++pi) {
+      const int m0 = pi * MP;
+      const int mr = min(MP, N - m0);                   // rows of x in this panel
+      const int mp = (mr + kParts - 1) / kParts * kParts;  // a whole round of the k-parts
+      if (wc0 == 0 || panels > 1) {    // one panel: loaded once for every w
+        if (wc0 > 0 || pi > 0) __syncthreads();  // the last panel's readers are done
+        copy_panel_async(As, RSA, Lk + m0, N, rows, mr);
+        for (int i = 0; i < kTB && b0 + i < B; ++i)
+          copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, 0, 1,
+                           mr * W);
+        cp_async_commit();
+        if (k == 1 && wc0 == 0 && pi == 0) zero_slab();
+        // zeros past the last real row of x, up to a whole round of the
+        // k-parts: columns of L (the tile's rows past N and the batches past B
+        // are never stored and stay as they are) and rows of x
+        for (int r = tid / kParts; r < rows; r += blockDim.x / kParts)
+          if (mr + tid % kParts < mp) As[r * RSA + mr + tid % kParts] = 0.f;
+        for (int i = 0; i < kTB && b0 + i < B; ++i)
+          for (int e = mr * W + tid; e < mp * W + 4; e += blockDim.x)
+            Xs[i * XBS + e] = 0.f;
+        cp_async_wait_group<0>();
+        __syncthreads();
       }
-      Bs[kk][c] = v;
+      const float* a = As + r0 * RSA;
+      const float* xb = Xs + bb * XBS + wc * 4;
+#pragma unroll 3
+      for (int m = p; m < mp; m += kParts) {
+        float xv[4];
+        if (kVec) {
+          const float4 q = *reinterpret_cast<const float4*>(xb + m * W);
+          xv[0] = q.x; xv[1] = q.y; xv[2] = q.z; xv[3] = q.w;
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xv[q] = xb[m * W + q];
+        }
+#pragma unroll
+        for (int i = 0; i < kParts; ++i) {
+          const float l = a[i * RSA + m];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[q][i] = fmaf(l, xv[q], acc[q][i]);
+        }
+      }
     }
-    __syncthreads();
+    transpose_reduce<kParts, 4>(acc, p, 1);
+    if (n < N && b < B && wc0 + slot < chunks) {
+      float* o = out + (((long)b * K + k) * N + n) * W + wc * 4;
+      if (kVec) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[0][0], acc[1][0], acc[2][0], acc[3][0]);
+      } else {
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (col >= ncols) continue;
-      const int b = col / W, w = col % W;
-      out[(((long)b * K + k) * N + n) * W + w] = acc[i][j];
+        for (int q = 0; q < 4; ++q)
+          if (wc * 4 + q < W) o[q] = acc[q][0];
+      }
     }
   }
 }
 
 }  // namespace
 
+// The plan comes from ops/cuda_graph.py `launch_plan`: `panel` rows of x at a
+// time (a multiple of 4), `row_stride` floats a row of the panel of L,
+// `batch_stride` floats a batch of the panel of x, `threads` a block, `smem`
+// bytes of dynamic shared memory; `vec` when W is a multiple of 4 and x and
+// out are 16-byte aligned.
 extern "C" int cheb_graph_conv_fwd(const float* L, const float* x, float* out,
-                                   int K, int N, int B, int W, void* stream) {
-  const dim3 grid((B * W + kBN - 1) / kBN, (N + kBM - 1) / kBM, K);
-  cheb_graph_conv_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      L, x, out, K, N, B, W);
+                                   int K, int N, int B, int W, int panel,
+                                   int row_stride, int batch_stride, int threads,
+                                   int smem, int vec, void* stream) {
+  auto kernel = vec ? cheb_graph_conv_kernel<true> : cheb_graph_conv_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kTB - 1) / kTB, (N + kTM - 1) / kTM, K > 1 ? K - 1 : 1);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(L, x, out, K, N, B, W, panel,
+                                                       row_stride, batch_stride);
   return (int)cudaGetLastError();
 }

@@ -20,37 +20,75 @@
 // writing dxp [N, B, 3H]. The weight and bias gradients are products over
 // all steps at once, outside the kernel, as the JAX package leaves them.
 //
-// Bound on the H100: f32 operations on the serial chain. Each step is a
+// Bound on the H100: f32 operations on a serial chain. Each step is a
 // [B,H] x [H,3H] product (2*B*H*3H operations) that depends on the step
-// before, so the work cannot spread over the card without a grid-wide
-// barrier per step. The fused f32 weight at H = 140 is 235,200 bytes, more
-// than the 232,448 bytes of shared memory a block can have, so keeping the
-// weights resident as the TPU kernel does in VMEM does not carry over.
-// Design: ONE persistent block loops over the N steps. h lives in shared
-// memory, double-buffered ([H][B + 4] layout, two copies) so one
-// __syncthreads() per step separates reads of h from writes of h'. A and
-// bh are read from global memory, where they stay L2-resident. Each thread
-// owns one hidden unit j (all three of its gate columns) for 8 batch rows,
-// so the gate math needs no exchange between threads, and reads and writes
-// its 8 rows of h as two float4 (see kPad). Works at any H whose
-// double-buffered h fits in shared memory.
+// before, so what a step costs is latency: the product's longest dependent
+// chain plus whatever the blocks must exchange before the next step starts.
 //
-// The backward has the same bound and the same shape: one persistent block,
+// Forward design (`gru_fwd_cluster`): the recurrence is cut two ways.
+// - Batch rows never exchange anything, so groups of R = 4 rows run as
+//   independent thread-block clusters (blockIdx.y), with no barrier between
+//   them.
+// - Inside a cluster of C blocks, block c owns the hidden units of slice c
+//   (S = ceil(H / C) of them, the last slice short) with all three gate
+//   columns of each, so the gate math needs no exchange. Its slice of A,
+//   [H][3 * S] f32, is loaded ONCE into shared memory (cp.async) and stays
+//   there for all N steps; the fused weight as a whole (235,200 bytes at
+//   H = 140) does not fit the 232,448 bytes a block can have, a slice does.
+//   Every block keeps the whole h of its R rows, [H][R], double-buffered.
+//   At the end of a step a thread writes its h' into the next buffer of
+//   EVERY block of the cluster through distributed shared memory, arrives at
+//   the cluster barrier, stores `out` and `sv` while the other blocks catch
+//   up, and waits. One cluster barrier a step takes the place of
+//   __syncthreads(); x_proj of the next step is loaded a step ahead.
+// - Inside a block a warp holds 32 / R units, and the R lanes that share a
+//   unit split the k-sum between them (k = p, p + R, ...): each lane sums
+//   its k's for all R rows and 3 gates (3 * R independent FMA chains, one
+//   broadcast float4 of h and three conflict-free weights per k), then a
+//   butterfly of shuffles both adds the R partial sums and hands lane p the
+//   three gate sums of row p, in a fixed order: no atomics, the same bits on
+//   every run. The lane then does the gate math of (unit, row p).
+// The plan (rows, groups, cluster size, slice, shared row stride, threads,
+// shared bytes) is made in Python from (B, H) and passed in. Where no slice
+// fits at the largest cluster size, the wrapper launches the one-block
+// kernel below instead (`gru_fwd_one_block`), by shape.
+//
+// One-block forward (`gru_fwd_one_block`, the large-H route): ONE persistent
+// block loops over the N steps. h lives in shared memory, double-buffered
+// ([H][B + 4] layout, two copies) so one __syncthreads() per step separates
+// reads of h from writes of h'. A and bh are read from global memory, where
+// they stay L2-resident. Each thread owns one hidden unit j (all three of
+// its gate columns) for 8 batch rows, and reads and writes its 8 rows of h
+// as two float4 (see kPad). Works at any H whose double-buffered h fits in
+// shared memory.
+//
+// The backward has the one-block shape: one persistent block,
 // dh [H][B + 4] and the step's (dr, dz, dn * r) [3H][B + 4] in shared memory, the
 // same thread owning hidden unit j for 8 batch rows in the elementwise half
 // and in the product, so dh needs no exchange and a step takes two
 // barriers (after the gate gradients are written, after the product has
 // read them). A^T is W_hh itself ([3H, H] row-major), read from L2 with
 // neighbouring threads on neighbouring addresses; sv is laid out [N, 5, B, H]
-// so both kernels touch it with the threads running along H.
+// so all kernels touch it with the threads running along H. The cluster
+// pieces (`copy_panel_async` for a resident slice and `transpose_reduce` in
+// device_utils.cuh, `cluster_store_all`, `cluster_arrive` / `cluster_wait`
+// below) take the operand
+// and its leading dimension, so a clustered backward can exchange dh and
+// keep slices of A^T with them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "device_utils.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBSub = 8;  // batch rows per thread
 constexpr int kMaxThreads = 1024;
+constexpr int kClusterThreads = 256;  // a block of the cluster kernel has at most these
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
@@ -73,9 +111,135 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
+// --- pieces of the cluster kernels ---
+
+// Writes v into element idx of the shared array `local` of every block of
+// the cluster, this block's own included. The caller then arrives at the
+// cluster barrier; a block that has waited on it sees all of these writes.
+__device__ __forceinline__ void cluster_store_all(cg::cluster_group& cluster,
+                                                  float* local, int idx, float v) {
+  const unsigned blocks = cluster.num_blocks();
+  for (unsigned rank = 0; rank < blocks; ++rank)
+    cluster.map_shared_rank(local, rank)[idx] = v;
+}
+
+// The cluster barrier in its two halves: what a thread wrote to any block's
+// shared memory before it arrived is visible to every thread that has waited.
+// Work put between the two overlaps the other blocks' way to the barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// Grid (C, groups), cluster (C, 1, 1). Shared memory: As [Hp][RS], the
+// block's slice of A with the gates side by side (r at column 0, z at S, n at
+// 2 * S; Hp is H rounded up to R, the added rows zeros), then h [2][Hp][R].
+// RS is 3 * S rounded up to an odd multiple of 32 / R, so the R x (32 / R)
+// weights a warp reads per gate fall in 32 different banks.
+template <int R, bool kSave>
+__global__ void __launch_bounds__(kClusterThreads)
+gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A,
+                       const float* __restrict__ bh, float* __restrict__ out,
+                       float* __restrict__ sv, int N, int B, int H, int S, int RS) {
+  constexpr int JW = 32 / R;  // hidden units per warp
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int Hp = (H + R - 1) / R * R;
+  const int j0 = (int)cluster.block_rank() * S;
+  const int Sc = min(S, H - j0);
+  float* As = smem;
+  float* hbuf = smem + (long)Hp * RS;
+
+  for (int g = 0; g < 3; ++g)
+    copy_panel_async(As + g * S, RS, A + g * H + j0, 3L * H, H, Sc);
+  for (int e = threadIdx.x; e < (Hp - H) * RS; e += blockDim.x) As[H * RS + e] = 0.f;
+  for (int e = threadIdx.x; e < 2 * Hp * R; e += blockDim.x) hbuf[e] = 0.f;
+  cp_async_commit();
+  cp_async_wait_group<0>();
+  // every block of the cluster runs and has its buffers ready before any
+  // block writes into them
+  cluster.sync();
+
+  const int lane = threadIdx.x & 31;
+  const int p = lane / JW;  // the batch row of the gate math, the k-part of the sum
+  const int jl = (threadIdx.x >> 5) * JW + lane % JW;
+  const bool unit_live = jl < Sc;
+  const int js = unit_live ? jl : Sc - 1;  // a warp's spare lanes repeat the last unit
+  const int j = j0 + js;
+  const int b = blockIdx.y * R + p;
+  const bool row_live = b < B;
+  const bool live = unit_live && row_live;
+  const int H3 = 3 * H;
+  const float br = bh[j], bz = bh[H + j], bn = bh[2 * H + j];
+  const float* a = As + js;
+
+  float x_cur[3] = {}, x_nxt[3] = {};
+  if (row_live) {
+    const float* x = xp + (long)b * H3 + j;
+    x_cur[0] = x[0]; x_cur[1] = x[H]; x_cur[2] = x[2 * H];
+  }
+  for (int t = 0; t < N; ++t) {
+    const float* h_cur = hbuf + (t & 1) * Hp * R;
+    float* h_next = hbuf + ((t + 1) & 1) * Hp * R;
+    if (row_live && t + 1 < N) {  // needs no h: in flight during the sum
+      const float* x = xp + ((long)(t + 1) * B + b) * H3 + j;
+      x_nxt[0] = x[0]; x_nxt[1] = x[H]; x_nxt[2] = x[2 * H];
+    }
+    float acc[3][R] = {};
+#pragma unroll 5
+    for (int k = p; k < Hp; k += R) {
+      const float wr = a[k * RS], wz = a[k * RS + S], wn = a[k * RS + 2 * S];
+      float hv[R];
+#pragma unroll
+      for (int i = 0; i < R; i += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(h_cur + k * R + i);
+        hv[i] = q.x; hv[i + 1] = q.y; hv[i + 2] = q.z; hv[i + 3] = q.w;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        acc[0][i] = fmaf(hv[i], wr, acc[0][i]);
+        acc[1][i] = fmaf(hv[i], wz, acc[1][i]);
+        acc[2][i] = fmaf(hv[i], wn, acc[2][i]);
+      }
+    }
+    transpose_reduce<R, 3>(acc, p, JW);
+
+    const float h_prev = h_cur[j * R + p];
+    const float r = sigmoidf(x_cur[0] + (acc[0][0] + br));
+    const float z = sigmoidf(x_cur[1] + (acc[1][0] + bz));
+    const float hpn = acc[2][0] + bn;
+    const float c = tanhf(x_cur[2] + r * hpn);
+    const float h = (1.f - z) * c + z * h_prev;
+    if (unit_live) cluster_store_all(cluster, h_next, j * R + p, row_live ? h : 0.f);
+    __syncwarp();
+    cluster_arrive();
+    if (live) {
+      out[((long)b * N + t) * H + j] = h;
+      if (kSave) {
+        const long plane = (long)B * H;
+        float* s = sv + (long)t * 5 * plane + (long)b * H + j;
+        s[0] = r;
+        s[plane] = z;
+        s[2 * plane] = hpn;
+        s[3 * plane] = c;
+        s[4 * plane] = h_prev - c;
+      }
+    }
+    __syncwarp();
+    cluster_wait();
+#pragma unroll
+    for (int g = 0; g < 3; ++g) x_cur[g] = x_nxt[g];
+  }
+}
+
+// --- the one-block kernels ---
+
 template <bool kSave>
 __global__ void __launch_bounds__(kMaxThreads)
-gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ A,
+gru_fwd_one_block_kernel(const float* __restrict__ xp, const float* __restrict__ A,
                const float* __restrict__ bh, float* __restrict__ out,
                float* __restrict__ sv, int N, int B, int H) {
   extern __shared__ __align__(16) float smem[];
@@ -223,32 +387,75 @@ int gru_threads(int B, int H) {
 }
 
 template <bool kSave>
-int launch_fwd(const float* xp, const float* A, const float* bh, float* out,
-               float* sv, int N, int B, int H, void* stream) {
+int launch_one_block(const float* xp, const float* A, const float* bh, float* out,
+                     float* sv, int N, int B, int H, void* stream) {
   const int Bp = (B + kBSub - 1) / kBSub * kBSub;
   const long smem = 2L * H * (Bp + kPad) * (long)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(gru_fwd_one_block_kernel<kSave>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gru_fwd_kernel<kSave><<<1, gru_threads(B, H), smem, (cudaStream_t)stream>>>(
+  gru_fwd_one_block_kernel<kSave><<<1, gru_threads(B, H), smem, (cudaStream_t)stream>>>(
       xp, A, bh, out, sv, N, B, H);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+constexpr int kRows = 4;           // batch rows of a cluster
+constexpr int kPortableCluster = 8;
 
-// A (B, H) whose buffers exceed the shared memory of a block fails at
-// cudaFuncSetAttribute.
-extern "C" int gru_fwd(const float* xp, const float* A, const float* bh, float* out,
-                       int N, int B, int H, void* stream) {
-  return launch_fwd<false>(xp, A, bh, out, nullptr, N, B, H, stream);
+template <bool kSave>
+int launch_cluster(const float* xp, const float* A, const float* bh, float* out,
+                   float* sv, int N, int B, int H, int groups, int cluster, int S,
+                   int RS, int threads, int smem, void* stream) {
+  auto kernel = gru_fwd_cluster_kernel<kRows, kSave>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (cluster > kPortableCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, groups);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, xp, A, bh, out, sv, N, B, H, S, RS);
 }
 
-// The training forward: also writes sv [N, 5, B, H].
-extern "C" int gru_fwd_save(const float* xp, const float* A, const float* bh,
-                            float* out, float* sv, int N, int B, int H,
-                            void* stream) {
-  return launch_fwd<true>(xp, A, bh, out, sv, N, B, H, stream);
+}  // namespace
+
+// The forward across a thread-block cluster per group of `rows` batch rows.
+// The plan comes from ops/cuda_gru.py `launch_plan`: grid (cluster, groups),
+// `slice` hidden units a block, `row_stride` floats a row of the resident
+// slice, `threads` a block, `smem` bytes of dynamic shared memory. sv
+// [N, 5, B, H] is written when it is not null (the training forward).
+extern "C" int gru_fwd_cluster(const float* xp, const float* A, const float* bh,
+                               float* out, float* sv, int N, int B, int H, int rows,
+                               int groups, int cluster, int slice, int row_stride,
+                               int threads, int smem, void* stream) {
+  if (rows != kRows) return (int)cudaErrorInvalidValue;
+  return sv ? launch_cluster<true>(xp, A, bh, out, sv, N, B, H, groups, cluster, slice,
+                                   row_stride, threads, smem, stream)
+            : launch_cluster<false>(xp, A, bh, out, nullptr, N, B, H, groups, cluster,
+                                    slice, row_stride, threads, smem, stream);
+}
+
+// The forward in one block, for an H whose slices fit no cluster. A (B, H)
+// whose h buffers exceed the shared memory of a block fails at
+// cudaFuncSetAttribute. sv as above.
+extern "C" int gru_fwd_one_block(const float* xp, const float* A, const float* bh,
+                                 float* out, float* sv, int N, int B, int H,
+                                 void* stream) {
+  return sv ? launch_one_block<true>(xp, A, bh, out, sv, N, B, H, stream)
+            : launch_one_block<false>(xp, A, bh, out, nullptr, N, B, H, stream);
 }
 
 // At = A^T = W_hh, [3H, H] row-major; g [B, N, H]; dxp [N, B, 3H].

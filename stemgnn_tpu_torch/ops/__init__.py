@@ -18,7 +18,11 @@ import contextlib
 
 from stemgnn_tpu_torch.ops.cuda_attention import attention_kq, attention_kq_bwd
 from stemgnn_tpu_torch.ops.cuda_graph import cheb_graph_conv
-from stemgnn_tpu_torch.ops.cuda_gru import gru_over_nodes, gru_scan_bwd
+from stemgnn_tpu_torch.ops.cuda_gru import (
+    gru_fwd_one_block,
+    gru_over_nodes,
+    gru_scan_bwd,
+)
 from stemgnn_tpu_torch.ops.cuda_spectral import (
     spe_seq_cell,
     spe_seq_cell_bwd,
@@ -32,7 +36,8 @@ from stemgnn_tpu_torch.ops.torch_impl import (  # noqa: F401
 )
 
 KERNELS = {
-    "gru_fwd": gru_over_nodes,
+    "gru_fwd": gru_over_nodes,  # the cluster kernel
+    "gru_fwd_one_block": gru_fwd_one_block,  # what gru_over_nodes launches at a large H
     "attention_kq_fwd": attention_kq,
     "cheb_graph_conv_fwd": cheb_graph_conv,
     "spectral_fwd": spe_seq_cell,

@@ -3,7 +3,7 @@
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `build/stemgnn_tpu_torch/<hash>/lib<name>.so`, the nvcc of every source
 started together at first use. The directory is keyed on a hash of all the
-sources and flags, so an edit rebuilds and an unchanged tree reuses the
+sources, their shared headers (`csrc/*.cuh`) and the flags, so an edit rebuilds and an unchanged tree reuses the
 libraries. Libraries are loaded with ctypes (each wrapper caches its own);
 every C entry returns the error of its shared-memory opt-in or
 `cudaGetLastError()` after its launch, and `check` raises on a nonzero code.
@@ -38,7 +38,8 @@ def _sources():
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    # the headers the sources include count too: an edit to one rebuilds
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

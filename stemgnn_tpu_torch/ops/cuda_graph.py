@@ -1,17 +1,26 @@
 """Chebyshev graph convolution, [K,N,N],[B,N,W] -> [B,K,N,W].
 
 Kernel: csrc/graph.cu, the port of stemgnn_tpu/ops/pallas_graph.py
-`_kernel` (orders k >= 1 as tiled f32 products, the all-zero k = 0 order
-skipped and its slab written as zeros). Its backward is plain PyTorch (two
-einsums), because the JAX package's is the VJP of the jnp twin and not a
-kernel either. On a CPU tensor the wrapper runs the plain version,
-`cheb_graph_conv_plain`; on a CUDA tensor it launches the kernel or raises.
+`_kernel`. A block holds 32 rows of one order's L and 4 whole batches of x
+in shared memory over the whole reduction dimension, loaded by cp.async
+behind one barrier; a warp owns 8 rows by four w of the 4 batches, the 8
+lanes of a batch split the sum over m and add their partial sums by shuffles
+in a fixed order, and each lane stores one float4 of a row into the
+[B,K,N,W] layout, the chunks of four w spread over the warps. The all-zero
+order k = 0 has no blocks: those of order 1 write its slab as zeros.
+`launch_plan` makes the tiling from the shape alone (an N too large for
+shared memory is walked in panels). Its
+backward is plain PyTorch (two einsums), because the JAX package's is the
+VJP of the jnp twin and not a kernel either. On a CPU tensor the wrapper
+runs the plain version, `cheb_graph_conv_plain`; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -20,11 +29,63 @@ from stemgnn_tpu_torch.ops import _build, torch_impl
 
 cheb_graph_conv_plain = torch_impl.cheb_graph_conv
 
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block can have on sm_90
+ROW_TILE, BATCH_TILE = 32, 4  # csrc/graph.cu kTM, kTB
+MAX_CHUNKS = 4                # chunks of four w in flight a block (kMaxChunks)
+
+
+class GraphPlan(NamedTuple):
+    """How one call's output [B, K, N, W] is laid over the blocks."""
+    grid: tuple       # (batch tiles, row tiles, orders with a product: 1..K-1)
+    panel: int        # rows of x in shared memory at a time, a multiple of 8
+    row_stride: int   # floats a row of the panel of L
+    batch_stride: int  # floats a batch of the panel of x: panel * w and a pad of 4
+    threads: int      # threads a block: 128 for each chunk of four w in flight
+    smem: int         # bytes of dynamic shared memory a block
+    vec: bool         # W a multiple of 4: float4 reads of x and stores of out
+    orders: int       # K
+
+    def tiles(self, n: int, b: int):
+        """(order, rows [n0, n1), batches [b0, b1)) of every tile a block
+        writes: its own order's, and for the blocks of order 1 (the first in
+        the grid) the zero slab of order 0 as well."""
+        for bx in range(self.grid[0]):
+            for ny in range(self.grid[1]):
+                tile = ((ny * ROW_TILE, min((ny + 1) * ROW_TILE, n)),
+                        (bx * BATCH_TILE, min((bx + 1) * BATCH_TILE, b)))
+                yield (0, *tile)
+                for k in range(1, self.orders):
+                    yield (k, *tile)
+
+
+def _smem(panel: int, w: int) -> int:
+    return 4 * (ROW_TILE * panel + BATCH_TILE * (panel * w + 4))
+
+
+def launch_plan(k: int, n: int, b: int, w: int) -> GraphPlan:
+    """The forward's tiling for mul_L [k,n,n], x [b,n,w]; needs no card."""
+    panel = -(-n // 8) * 8
+    if _smem(panel, w) > SMEM_PER_BLOCK:
+        # the most rows of x that fit beside their columns of L
+        panel = (SMEM_PER_BLOCK - 16 * BATCH_TILE) // (
+            4 * (ROW_TILE + BATCH_TILE * w)) // 8 * 8
+        if panel < 8:
+            raise ValueError(f"cheb_graph_conv: window {w} leaves no room in shared "
+                             "memory for eight rows of x")
+    return GraphPlan(
+        grid=(-(-b // BATCH_TILE), -(-n // ROW_TILE), max(k - 1, 1)), panel=panel,
+        row_stride=panel, batch_stride=panel * w + 4,
+        threads=ROW_TILE * BATCH_TILE * min(-(-w // 4), MAX_CHUNKS),
+        smem=_smem(panel, w), vec=w % 4 == 0, orders=k)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
 
 @functools.cache
 def _fn():
     fn = _build.library("graph").cheb_graph_conv_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -37,8 +98,11 @@ def _launch_fwd(mul_L, x):
         raise ValueError(
             f"cheb_graph_conv: mul_L {tuple(mul_L.shape)} vs x {tuple(x.shape)}")
     out = torch.empty((b, k, n, w), dtype=torch.float32, device=x.device)
+    plan = launch_plan(k, n, b, w)
+    vec = plan.vec and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     rc = _fn()(mul_L.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, b, w,
-               _build.stream_ptr(x))
+               plan.panel, plan.row_stride, plan.batch_stride, plan.threads, plan.smem,
+               int(vec), _build.stream_ptr(x))
     _build.check(rc, "cheb_graph_conv")
     cheb_graph_conv.launches += 1
     return out

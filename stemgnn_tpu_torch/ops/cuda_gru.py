@@ -1,21 +1,34 @@
 """GRU over the node axis, x [B, W, N] -> [B, N_seq, H].
 
 Kernels: csrc/gru.cu, the port of stemgnn_tpu/ops/pallas_gru.py
-`_fwd_kernel` (the N-step recurrence in one persistent block; `gru_fwd`
-for serving, `gru_fwd_save` when a gradient is needed, which also writes
-the five saved activations per step) and `_bwd_kernel` (`gru_bwd`, the
-reverse recurrence over them). The input projection x @ W_ih^T + b_ih
-stays one torch.matmul outside the kernel, differentiated by autograd, and
-the recurrent weight and bias gradients are products over all steps after
-the backward kernel, as the JAX package leaves all three to XLA. On CPU
-tensors the wrappers run the plain versions, `gru_over_nodes_plain` and
-`gru_scan_bwd_plain`; on CUDA tensors they launch the kernels or raise.
+`_fwd_kernel` and `_bwd_kernel`.
+
+The forward recurrence runs across SMs (`gru_fwd_cluster`): groups of 4
+batch rows are independent thread-block clusters, and inside a cluster each
+block owns a slice of the hidden units with its three gate columns of
+W_hh^T resident in shared memory for all N steps; the blocks exchange their
+slices of h through distributed shared memory and meet at one cluster
+barrier a step. `launch_plan` makes the decomposition from (B, H) alone and
+the C entry takes it as arguments. Where a slice does not fit a block's
+shared memory at the largest cluster size, the wrapper launches the
+one-block kernel instead (`gru_fwd_one_block`: one persistent block, W_hh^T
+read from L2), by shape. Both write the five saved activations per step
+when a gradient is needed. The backward (`gru_bwd`) is the reverse
+recurrence over them in one persistent block.
+
+The input projection x @ W_ih^T + b_ih stays one torch.matmul outside the
+kernel, differentiated by autograd, and the recurrent weight and bias
+gradients are products over all steps after the backward kernel, as the JAX
+package leaves all three to XLA. On CPU tensors the wrappers run the plain
+versions, `gru_over_nodes_plain` and `gru_scan_bwd_plain`; on CUDA tensors
+they launch the kernels or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -25,10 +38,87 @@ from stemgnn_tpu_torch.ops import _build, torch_impl
 gru_over_nodes_plain = torch_impl.gru_over_nodes
 gru_scan_bwd_plain = torch_impl.gru_scan_bwd
 
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block can have on sm_90
+MAX_CLUSTER = 8           # blocks a cluster, the portable limit
+ROWS = 4                  # batch rows a cluster (csrc/gru.cu kRows)
+_UNITS_PER_WARP = 32 // ROWS
+_ONE_BLOCK_ROWS, _ONE_BLOCK_PAD = 8, 4  # csrc/gru.cu kBSub, kPad
+
+
+class GruPlan(NamedTuple):
+    """How the forward recurrence of a (B, H) is laid over the card."""
+    route: str        # "cluster" or "one_block"
+    rows: int         # batch rows a group (a cluster; the one block takes them all)
+    groups: int       # batch groups: clusters
+    cluster: int      # blocks a cluster, each with one slice of the hidden units
+    slice: int        # hidden units a block (the last block's slice may be short)
+    row_stride: int   # floats a row of the resident slice of W_hh^T
+    threads: int      # threads a block
+    smem: int         # bytes of dynamic shared memory a block
+
+    def slices(self, h: int):
+        """[(first unit, one past the last)] of each block of a cluster."""
+        return [(c * self.slice, min((c + 1) * self.slice, h))
+                for c in range(self.cluster)]
+
+    def batch_groups(self, b: int):
+        """[(first row, one past the last)] of each group."""
+        return [(g * self.rows, min((g + 1) * self.rows, b))
+                for g in range(self.groups)]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _cluster_plan(b: int, h: int, cluster: int) -> GruPlan:
+    units = _ceil_div(h, cluster)
+    cluster = _ceil_div(h, units)  # no empty slice
+    # an odd multiple of the units a warp holds: the weights a warp reads in
+    # one instruction then fall in 32 different banks
+    stride = _ceil_div(3 * units, _UNITS_PER_WARP) | 1
+    hp = _ceil_div(h, ROWS) * ROWS
+    return GruPlan(
+        route="cluster", rows=ROWS, groups=_ceil_div(b, ROWS), cluster=cluster,
+        slice=units, row_stride=stride * _UNITS_PER_WARP,
+        threads=32 * _ceil_div(units, _UNITS_PER_WARP),
+        smem=4 * (hp * stride * _UNITS_PER_WARP + 2 * hp * ROWS))
+
+
+def launch_plan(b: int, h: int, max_cluster: int = MAX_CLUSTER) -> GruPlan:
+    """The forward's decomposition for batch b and hidden size h; needs no card.
+
+    Cluster route: the smallest cluster of at most `max_cluster` blocks that
+    gives a block at most 32 hidden units (one warp a scheduler) or, past
+    that, the first whose slice of W_hh^T and h buffers fit a block's shared
+    memory. One-block route: when none fits (at the portable limit of 8 blocks:
+    H above 360). Raises where the one block's h buffers do not fit either."""
+    if b < 1 or h < 1:
+        raise ValueError(f"gru launch_plan: batch {b}, hidden {h}")
+    for cluster in range(min(_ceil_div(h, 32), max_cluster), max_cluster + 1):
+        plan = _cluster_plan(b, h, cluster)
+        if plan.smem <= SMEM_PER_BLOCK:
+            return plan
+    return _one_block_plan(b, h)
+
+
+def _one_block_plan(b: int, h: int) -> GruPlan:
+    bp = _ceil_div(b, _ONE_BLOCK_ROWS) * _ONE_BLOCK_ROWS
+    smem = 4 * 2 * h * (bp + _ONE_BLOCK_PAD)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"gru_over_nodes: the one-block kernel needs {smem} bytes of shared "
+            f"memory for hidden size {h} at batch {b}, over {SMEM_PER_BLOCK}")
+    items = h * (bp // _ONE_BLOCK_ROWS)
+    return GruPlan(route="one_block", rows=b, groups=1, cluster=1,
+                   slice=h, row_stride=3 * h, threads=min(1024, _ceil_div(items, 32) * 32),
+                   smem=smem)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "gru_fwd": [_P] * 4 + [_I] * 3 + [_P],
-    "gru_fwd_save": [_P] * 5 + [_I] * 3 + [_P],
+    "gru_fwd_cluster": [_P] * 5 + [_I] * 10 + [_P],
+    "gru_fwd_one_block": [_P] * 5 + [_I] * 3 + [_P],
     "gru_bwd": [_P] * 4 + [_I] * 3 + [_P],
 }
 
@@ -41,9 +131,10 @@ def _fn(name: str):
     return fn
 
 
-def _launch_fwd(x_proj, w_hh_t, b_hh, save: bool):
+def _launch_fwd(x_proj, w_hh_t, b_hh, save: bool, plan: GruPlan | None = None):
     """x_proj [N, B, 3H], w_hh_t [H, 3H], b_hh [3H] -> (out [B, N, H],
-    saved [N, 5, B, H] or None)."""
+    saved [N, 5, B, H] or None), by the route of `plan` (`launch_plan` of the
+    shape unless given)."""
     _build.require_cuda("gru_over_nodes", x_proj, w_hh_t, b_hh)
     n, b, h3 = x_proj.shape
     h = w_hh_t.shape[0]
@@ -51,17 +142,33 @@ def _launch_fwd(x_proj, w_hh_t, b_hh, save: bool):
         raise ValueError(
             f"gru_over_nodes: x_proj {tuple(x_proj.shape)}, w_hh_t "
             f"{tuple(w_hh_t.shape)}, b_hh {tuple(b_hh.shape)}")
+    plan = plan or launch_plan(b, h)
     out = torch.empty((b, n, h), dtype=torch.float32, device=x_proj.device)
-    ptrs = [x_proj.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), out.data_ptr()]
-    saved = None
-    if save:
-        saved = torch.empty((n, 5, b, h), dtype=torch.float32, device=x_proj.device)
-        ptrs.append(saved.data_ptr())
-    rc = _fn("gru_fwd_save" if save else "gru_fwd")(
-        *ptrs, n, b, h, _build.stream_ptr(x_proj))
-    _build.check(rc, "gru_over_nodes")
-    gru_over_nodes.launches += 1
+    saved = (torch.empty((n, 5, b, h), dtype=torch.float32, device=x_proj.device)
+             if save else None)
+    ptrs = (x_proj.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
+            saved.data_ptr() if save else None)
+    if plan.route == "cluster":
+        rc = _fn("gru_fwd_cluster")(
+            *ptrs, n, b, h, plan.rows, plan.groups, plan.cluster, plan.slice,
+            plan.row_stride, plan.threads, plan.smem, _build.stream_ptr(x_proj))
+        counter = gru_over_nodes
+    else:
+        rc = _fn("gru_fwd_one_block")(*ptrs, n, b, h, _build.stream_ptr(x_proj))
+        counter = gru_fwd_one_block
+    _build.check(rc, f"gru_over_nodes ({plan.route})")
+    counter.launches += 1
     return out, saved
+
+
+def gru_fwd_one_block(x_proj, w_hh_t, b_hh, save: bool = False):
+    """The recurrence through the one-block kernel whatever the shape: what
+    `gru_over_nodes` launches for a hidden size that fits no cluster."""
+    b, h = x_proj.shape[1], w_hh_t.shape[0]
+    return _launch_fwd(x_proj, w_hh_t, b_hh, save, _one_block_plan(b, h))
+
+
+gru_fwd_one_block.launches = 0
 
 
 def gru_scan_bwd(saved, g, a_all):

@@ -245,7 +245,8 @@ def test_no_grad_calls_skip_the_functions():
 
 def test_backward_wrappers_are_counted_kernels_and_cpu_launches_none():
     assert list(ops.KERNELS) == [
-        "gru_fwd", "attention_kq_fwd", "cheb_graph_conv_fwd", "spectral_fwd",
+        "gru_fwd", "gru_fwd_one_block", "attention_kq_fwd", "cheb_graph_conv_fwd",
+        "spectral_fwd",
         "gru_bwd", "attention_kq_bwd", "spectral_bwd", "spectral_fwd_save",
         "spectral_bwd_reread"]
     ops.reset_launches()
