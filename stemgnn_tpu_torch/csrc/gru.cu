@@ -36,11 +36,18 @@
 //   there for all N steps; the fused weight as a whole (235,200 bytes at
 //   H = 140) does not fit the 232,448 bytes a block can have, a slice does.
 //   Every block keeps the whole h of its R rows, [H][R], double-buffered.
-//   At the end of a step a thread writes its h' into the next buffer of
-//   EVERY block of the cluster through distributed shared memory, arrives at
-//   the cluster barrier, stores `out` and `sv` while the other blocks catch
-//   up, and waits. One cluster barrier a step takes the place of
-//   __syncthreads(); x_proj of the next step is loaded a step ahead.
+//   At the end of a step a thread sends its h' into the next buffer of EVERY
+//   block of the cluster through distributed shared memory (st.async), each
+//   copy counted on an mbarrier of the receiving block; it then stores `out`
+//   and `sv` and waits on its OWN block's mbarrier until all H * R values of
+//   the step have landed. That wait takes the place of __syncthreads(), and
+//   no cluster-wide barrier is needed inside the loop: a thread sends step
+//   t's values only after its own reads of the buffer step t reads, and a
+//   block passes its wait of step t only when every thread of the cluster
+//   has sent them; so when anybody sends step t + 1's values into that
+//   buffer, nobody reads it any more. (The hardware cluster barrier alone
+//   cost a quarter of a step.)
+//   x_proj of the next step is loaded a step ahead.
 // - Inside a block a warp holds 32 / R units, and the R lanes that share a
 //   unit split the k-sum between them (k = p, p + R, ...): each lane sums
 //   its k's for all R rows and 3 gates (3 * R independent FMA chains, one
@@ -71,10 +78,9 @@
 // neighbouring threads on neighbouring addresses; sv is laid out [N, 5, B, H]
 // so all kernels touch it with the threads running along H. The cluster
 // pieces (`copy_panel_async` for a resident slice and `transpose_reduce` in
-// device_utils.cuh, `cluster_store_all`, `cluster_arrive` / `cluster_wait`
-// below) take the operand
-// and its leading dimension, so a clustered backward can exchange dh and
-// keep slices of A^T with them.
+// device_utils.cuh, `cluster_send_all` and the `mbarrier_*` functions below)
+// take the operand and its leading dimension or address, so a clustered
+// backward can exchange dh and keep slices of A^T with them.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -113,32 +119,76 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
 
 // --- pieces of the cluster kernels ---
 
-// Writes v into element idx of the shared array `local` of every block of
-// the cluster, this block's own included. The caller then arrives at the
-// cluster barrier; a block that has waited on it sees all of these writes.
-__device__ __forceinline__ void cluster_store_all(cg::cluster_group& cluster,
-                                                  float* local, int idx, float v) {
-  const unsigned blocks = cluster.num_blocks();
+// The exchange between the blocks of a cluster goes by messages, not by a
+// barrier: a sender writes a value into another block's shared memory with
+// st.async, which also counts its 4 bytes on an mbarrier of that block; the
+// receiver arms the mbarrier once a step with the bytes it expects and waits
+// on it. Observing the phase complete makes the values visible.
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The address that `addr` of this block's shared memory has in block `rank`.
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, unsigned rank) {
+  unsigned mapped;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(mapped) : "r"(addr), "r"(rank));
+  return mapped;
+}
+
+// One arrival completes a phase (the arming thread's), once the expected
+// bytes have come. Call from one thread, then sync the cluster before use.
+__device__ __forceinline__ void mbarrier_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arms the current phase: it completes when `bytes` more have been counted.
+// Bytes that came before the arming count too.
+__device__ __forceinline__ void mbarrier_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of the given parity is complete. A message that never
+// comes is a fault of the protocol: after about ten seconds the kernel traps,
+// so the launch fails instead of holding the card for good.
+__device__ __forceinline__ void mbarrier_wait(unsigned bar, unsigned parity) {
+  const long long start = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// Sends v to the shared-memory address `dst` (this block's) of every block of
+// the cluster, this block's own included, each copy counted on that block's
+// mbarrier at `bar`.
+__device__ __forceinline__ void cluster_send_all(unsigned dst, float v, unsigned bar,
+                                                 unsigned blocks) {
   for (unsigned rank = 0; rank < blocks; ++rank)
-    cluster.map_shared_rank(local, rank)[idx] = v;
-}
-
-// The cluster barrier in its two halves: what a thread wrote to any block's
-// shared memory before it arrived is visible to every thread that has waited.
-// Work put between the two overlaps the other blocks' way to the barrier.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];" ::"r"(
+            cluster_addr(dst, rank)),
+        "r"(__float_as_uint(v)), "r"(cluster_addr(bar, rank))
+        : "memory");
 }
 
 // Grid (C, groups), cluster (C, 1, 1). Shared memory: As [Hp][RS], the
 // block's slice of A with the gates side by side (r at column 0, z at S, n at
 // 2 * S; Hp is H rounded up to R, the added rows zeros), then h [2][Hp][R].
 // RS is 3 * S rounded up to an odd multiple of 32 / R, so the R x (32 / R)
-// weights a warp reads per gate fall in 32 different banks.
+// weights a warp reads per gate fall in 32 different banks. Two mbarriers,
+// one for each h buffer.
 template <int R, bool kSave>
 __global__ void __launch_bounds__(kClusterThreads)
 gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A,
@@ -157,11 +207,17 @@ gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A
     copy_panel_async(As + g * S, RS, A + g * H + j0, 3L * H, H, Sc);
   for (int e = threadIdx.x; e < (Hp - H) * RS; e += blockDim.x) As[H * RS + e] = 0.f;
   for (int e = threadIdx.x; e < 2 * Hp * R; e += blockDim.x) hbuf[e] = 0.f;
+  __shared__ __align__(8) unsigned long long arrived[2];
+  if (threadIdx.x == 0) {
+    mbarrier_init(shared_addr(&arrived[0]));
+    mbarrier_init(shared_addr(&arrived[1]));
+  }
   cp_async_commit();
   cp_async_wait_group<0>();
-  // every block of the cluster runs and has its buffers ready before any
-  // block writes into them
+  // every block of the cluster runs and has its buffers and mbarriers ready
+  // before any block sends to them
   cluster.sync();
+  const unsigned blocks = cluster.num_blocks();
 
   const int lane = threadIdx.x & 31;
   const int p = lane / JW;  // the batch row of the gate math, the k-part of the sum
@@ -184,6 +240,9 @@ gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A
   for (int t = 0; t < N; ++t) {
     const float* h_cur = hbuf + (t & 1) * Hp * R;
     float* h_next = hbuf + ((t + 1) & 1) * Hp * R;
+    // this step's h' of the whole cluster: H units by R rows (rows past B send zeros)
+    const unsigned bar = shared_addr(&arrived[(t + 1) & 1]);
+    if (threadIdx.x == 0) mbarrier_expect(bar, (unsigned)(H * R) * 4u);
     if (row_live && t + 1 < N) {  // needs no h: in flight during the sum
       const float* x = xp + ((long)(t + 1) * B + b) * H3 + j;
       x_nxt[0] = x[0]; x_nxt[1] = x[H]; x_nxt[2] = x[2 * H];
@@ -213,10 +272,9 @@ gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A
     const float hpn = acc[2][0] + bn;
     const float c = tanhf(x_cur[2] + r * hpn);
     const float h = (1.f - z) * c + z * h_prev;
-    if (unit_live) cluster_store_all(cluster, h_next, j * R + p, row_live ? h : 0.f);
-    __syncwarp();
-    cluster_arrive();
-    if (live) {
+    if (unit_live)
+      cluster_send_all(shared_addr(h_next + j * R + p), row_live ? h : 0.f, bar, blocks);
+    if (live) {  // off the other blocks' critical path: their values are on the way
       out[((long)b * N + t) * H + j] = h;
       if (kSave) {
         const long plane = (long)B * H;
@@ -228,11 +286,12 @@ gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A
         s[4 * plane] = h_prev - c;
       }
     }
-    __syncwarp();
-    cluster_wait();
+    // an mbarrier's phases alternate, and this one is used every other step
+    mbarrier_wait(bar, (unsigned)(t >> 1) & 1u);
 #pragma unroll
     for (int g = 0; g < 3; ++g) x_cur[g] = x_nxt[g];
   }
+  cluster.sync();  // no block leaves while another may still send to it
 }
 
 // --- the one-block kernels ---

@@ -6,9 +6,9 @@ Kernels: csrc/gru.cu, the port of stemgnn_tpu/ops/pallas_gru.py
 The forward recurrence runs across SMs (`gru_fwd_cluster`): groups of 4
 batch rows are independent thread-block clusters, and inside a cluster each
 block owns a slice of the hidden units with its three gate columns of
-W_hh^T resident in shared memory for all N steps; the blocks exchange their
-slices of h through distributed shared memory and meet at one cluster
-barrier a step. `launch_plan` makes the decomposition from (B, H) alone and
+W_hh^T resident in shared memory for all N steps; the blocks send each other their
+slices of h through distributed shared memory and wait on an mbarrier of
+their own for a step's values, with no cluster-wide barrier in the loop. `launch_plan` makes the decomposition from (B, H) alone and
 the C entry takes it as arguments. Where a slice does not fit a block's
 shared memory at the largest cluster size, the wrapper launches the
 one-block kernel instead (`gru_fwd_one_block`: one persistent block, W_hh^T

@@ -5,8 +5,8 @@ taken out or changed, and times each beside the source as it is.
 
 A variant is a list of (text, replacement) pairs applied to the source; a
 pair whose text is no longer in the source stops the run, so an edit to a
-kernel shows up here. The variants compute WRONG results by design (a barrier
-or a load left out): only their times mean anything, and the difference to
+kernel shows up here. Most variants compute WRONG results by design (an
+exchange or a load left out): only their times mean anything, and the difference to
 `base` is what the piece costs. Shapes are the ECG flagship's (B = 32,
 H = N = 140, W = 12, K = 4). Times are device milliseconds of one call,
 replays of a CUDA graph of 20 calls, with the card's name and power limit on
@@ -27,21 +27,27 @@ import torch
 from stemgnn_tpu_torch.device import card_info
 from stemgnn_tpu_torch.ops import _build, cuda_graph, cuda_gru
 
-_LOCAL_H = "if (unit_live) h_next[j * R + p] = row_live ? h : 0.f;"
-_GRU_STORE = ("if (unit_live) cluster_store_all(cluster, h_next, j * R + p, "
-              "row_live ? h : 0.f);")
-_BLOCK_BARRIER = [("    cluster_arrive();\n", "    __syncthreads();\n"),
-                  ("    cluster_wait();\n", "")]
+_GRU_SEND = ("    if (unit_live)\n      cluster_send_all(shared_addr(h_next + j * R + p), "
+             "row_live ? h : 0.f, bar, blocks);\n")
+_GRU_ARM = "    if (threadIdx.x == 0) mbarrier_expect(bar, (unsigned)(H * R) * 4u);\n"
+_GRU_WAIT = "    mbarrier_wait(bar, (unsigned)(t >> 1) & 1u);\n"
 GRU_VARIANTS = {
     "base": [],
-    # h' written to the block's own buffer only: the remote stores' cost
-    "local stores": [(_GRU_STORE, _LOCAL_H)],
-    # no exchange at all, a block barrier a step: what the cluster costs
-    "local stores, block barrier": [(_GRU_STORE, _LOCAL_H), *_BLOCK_BARRIER],
-    # arrive and wait back to back: what the stores between them hide
-    "unsplit barrier": [("    cluster_arrive();\n", ""),
-                        ("    cluster_wait();\n",
-                         "    cluster_arrive();\n    cluster_wait();\n")],
+    # no exchange at all, a block barrier a step: what the exchange costs
+    "local stores, block barrier": [
+        (_GRU_SEND, "    if (unit_live) h_next[j * R + p] = row_live ? h : 0.f;\n"),
+        (_GRU_ARM, ""), (_GRU_WAIT, "    __syncthreads();\n")],
+    # plain remote stores and the hardware cluster barrier, split around the
+    # stores of out and sv, in place of st.async and the mbarrier
+    "cluster barrier": [
+        (_GRU_SEND,
+         "    if (unit_live)\n      for (unsigned rank = 0; rank < blocks; ++rank)\n"
+         "        cluster.map_shared_rank(h_next, rank)[j * R + p] = row_live ? h : 0.f;\n"
+         "    __syncwarp();\n"
+         '    asm volatile("barrier.cluster.arrive.release;" ::: "memory");\n'),
+        (_GRU_ARM, ""),
+        (_GRU_WAIT, '    __syncwarp();\n'
+                    '    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");\n')],
     "no sigmoid or tanh": [
         ("const float c = tanhf(x_cur[2] + r * hpn);",
          "const float c = x_cur[2] + r * hpn;"),
