@@ -33,7 +33,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
      path, and eval windows/s. Then a 512-node model (a hidden size whose
      slices fit no cluster, so `gru_over_nodes` launches the one-block
      kernel) through engine.inference_batched on a seeded series, counters
-     set to 0 just before and read just after, against the CPU plain path.
+     set to 0 just before and read just after, against the CPU plain path;
+     and one train step of it (the one-block GRU backward), counters again,
+     its loss and gradients against the CPU plain path.
   5. train path: engine.train on the card, one epoch of ECG_data with its
      validate pass (batch 32, RMSProp, dropout 0.5), counters set to 0 just
      before and read just after and held against the expected launches per
@@ -208,6 +210,30 @@ def step_grads(params, mcfg, x, y, mask):
     loss.backward()
     return loss.detach(), {k: (torch.zeros_like(p) if p.grad is None else p.grad)
                            for k, p in flat.items()}
+
+
+# One train step's gradients on the card against the CPU plain path's: f32
+# sums in another order through 140 (512) GRU steps and 4480-row (16384-row)
+# weight gradients, so each gradient is held to 1e-4 of its own largest entry
+# (atol) plus rtol 1e-3.
+GRAD_ATOL_REL, GRAD_RTOL = 1e-4, 1e-3
+
+
+def compare_grads(grads, grads_cpu):
+    """(leaves out of tolerance as (name, err, largest entry), the worst
+    max_abs_err, its leaf)."""
+    import torch
+
+    worst, worst_name, bad = 0.0, "", []
+    for k, g_cpu in grads_cpu.items():
+        g = grads[k].detach().cpu()
+        err = (g - g_cpu).abs().max().item()
+        if err > worst:
+            worst, worst_name = err, k
+        atol = GRAD_ATOL_REL * g_cpu.abs().max().item() + 1e-12
+        if not torch.allclose(g, g_cpu, atol=atol, rtol=GRAD_RTOL):
+            bad.append((k, err, g_cpu.abs().max().item()))
+    return bad, worst, worst_name
 
 
 def leaf_params(params, device):
@@ -435,18 +461,37 @@ def forward_cases(params, mcfg, x):
     ]
 
 
-def one_block_cases(params, x):
-    """The one-block GRU forward as `forward_cases` gives the others, at the
-    shapes of the 512-node model's serving path: x [B, W, N]."""
-    from stemgnn_tpu_torch.ops import cuda_gru
+def one_block_cases(params, x, g_gru):
+    """The one-block GRU forward and backward as `forward_cases` and
+    `backward_cases` give the others, at the shapes of the 512-node model's
+    serving path and train step: x [B, W, N], g_gru [B, N, H] the cotangent
+    of its GRU output in one train step of the CPU plain path."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_gru, torch_impl
 
     b, w, n = x.shape
     h = n
     gru = params["gru"]
-    if cuda_gru.launch_plan(b, h).route != "one_block":
+    if (cuda_gru.launch_plan(b, h).route, cuda_gru.bwd_plan(b, h).route) != (
+            "one_block", "one_block"):
         raise RuntimeError(f"hidden size {h} was expected to take the one-block route")
+    with torch.no_grad():
+        x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
+        a_all = gru["w_hh"].T.contiguous()
+        _, saved = torch_impl.gru_scan(x_proj, a_all, gru["b_hh"], save=True)
+    g_gru = g_gru.to(x.device).contiguous()
     cudnn_gru = cudnn_gru_like(gru, x.device)
     xs = x.permute(2, 0, 1).contiguous()
+    cudnn_train = cudnn_gru_like(gru, x.device, train=True)
+    xs_grad = xs.clone().requires_grad_(True)
+    g_seq = g_gru.transpose(0, 1).contiguous()
+
+    def cudnn_fwd_bwd():
+        with torch.enable_grad():
+            out = cudnn_train(xs_grad)[0]
+            return torch.autograd.grad(out, [xs_grad, *cudnn_train.parameters()], g_seq)
+
     return [
         ("gru_fwd_one_block", "stemgnn_tpu_torch/csrc/gru.cu",
          "stemgnn_tpu/ops/pallas_gru.py:103",
@@ -456,12 +501,21 @@ def one_block_cases(params, x):
          1e-4, 0.0,  # as gru_fwd
          4 * (x.numel() + sum(t.numel() for t in gru.values()) + b * n * h),
          2 * n * b * w * 3 * h + 2 * n * b * h * 3 * h),
+        ("gru_bwd_one_block", "stemgnn_tpu_torch/csrc/gru.cu",
+         "stemgnn_tpu/ops/pallas_gru.py:132",
+         lambda: cuda_gru.gru_scan_bwd(saved, g_gru, a_all),
+         lambda: cuda_gru.gru_scan_bwd_plain(saved, g_gru, a_all),
+         ("graph_or_stream", cudnn_fwd_bwd),  # cuDNN forward plus backward
+         1e-5, 1e-4,  # as gru_bwd
+         4 * (saved.numel() + g_gru.numel() + a_all.numel() + 3 * n * b * h),
+         2 * n * b * 3 * h * h + 14 * n * b * h),
     ]
 
 
 def shape_checks(dev):
-    """The GRU forward (cluster and one-block routes, both variants) and the
-    graph convolution against their plain versions at other shapes than the
+    """The GRU forward (cluster and one-block routes, both variants), the GRU
+    backward (both routes, and each twice: bitwise the same) and the graph
+    convolution against their plain versions at other shapes than the
     flagship's, untimed, on seeded inputs. Returns an error message, or None."""
     import numpy as np
     import torch
@@ -480,7 +534,8 @@ def shape_checks(dev):
                         (3, 20, "cluster"), (5, 37, "cluster"),
                         (32, 228, "cluster"), (32, 170, "cluster"),
                         (32, 358, "cluster"), (64, 140, "cluster"),
-                        (6, 512, "one_block")):
+                        (6, 512, "one_block"), (32, 512, "one_block"),
+                        (64, 512, "one_block")):
         plan = cuda_gru.launch_plan(b, h)
         if plan.route != route:
             return f"gru launch_plan({b}, {h}) takes the {plan.route} route"
@@ -501,6 +556,37 @@ def shape_checks(dev):
                       f"{max(errs):.3e} (atol 1e-4)")
                 if not max(errs) <= 1e-4:
                     return f"gru forward at B={b} H={h} ({route}) differs by {max(errs)}"
+    # the backward, both routes: H = 512 takes the one-block route, the others
+    # clusters of 1 (H = 20), 2 (37), 5 (140) and 8 blocks (228, 358); the
+    # forward's saved activations of seeded inputs, a seeded cotangent
+    for h in (20, 37, 140, 228, 358, 512):
+        n = h
+        bound = 1.0 / np.sqrt(h)
+        a_all = card(rng.uniform(-bound, bound, (h, 3 * h)))
+        b_hh = card(rng.uniform(-bound, bound, 3 * h))
+        for b in (1, 5, 26, 32, 64):
+            plan = cuda_gru.bwd_plan(b, h)
+            if plan.route != ("one_block" if h > 360 else "cluster"):
+                return f"gru bwd_plan({b}, {h}) takes the {plan.route} route"
+            x_proj = card(rng.standard_normal((n, b, 3 * h)))
+            g = card(rng.standard_normal((b, n, h)))
+            with torch.no_grad():
+                _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
+                got = cuda_gru.gru_scan_bwd(saved, g, a_all)
+                again = cuda_gru.gru_scan_bwd(saved, g, a_all)
+                torch.cuda.synchronize()
+                want = torch_impl.gru_scan_bwd(saved, g, a_all)
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            ok = torch.allclose(got, want, atol=1e-5 * scale, rtol=1e-4)
+            same = torch.equal(got, again)
+            print(f"[3 kernel] gru backward B={b} H={h} {plan.route} (cluster "
+                  f"{plan.cluster}, slice {plan.slice}, {plan.groups} groups, {plan.smem} "
+                  f"B): max_abs_err {err:.3e} (atol 1e-5 of the largest entry "
+                  f"{scale:.3e}, rtol 1e-4); two runs {'bitwise equal' if same else 'DIFFER'}")
+            if not ok or not same:
+                return (f"gru backward at B={b} H={h} ({plan.route}) differs by {err} "
+                        f"(bitwise rerun: {same})")
     # ragged batch; ragged N and a W that is no multiple of 4; an N in two
     # panels; the zero order alone
     for k, n, b, w in ((4, 140, 26, 12), (4, 228, 6, 12), (4, 37, 5, 7),
@@ -716,14 +802,26 @@ def run() -> int:
     big_set = WindowDataset(series_big, cfg.window_size, cfg.horizon, cfg.norm_method,
                             compute_norm_stats(series_big, cfg.norm_method))
     hi_big = torch.from_numpy(big_set.epoch_batches(BATCH, shuffle=False)[0]).long()
-    x_big, _ = engine.gather_windows(torch.from_numpy(big_set.data).to(dev),
-                                     hi_big.to(dev), cfg.window_size, cfg.horizon)
+    x_big, y_big = engine.gather_windows(torch.from_numpy(big_set.data).to(dev),
+                                         hi_big.to(dev), cfg.window_size, cfg.horizon)
+    # one train step of the 512-node model on the CPU plain path: the
+    # reference of phase 4's train step and the one-block backward's cotangent
+    mask_big = torch.from_numpy(
+        np.random.default_rng(8).random((BATCH, BIG_NODES, BIG_NODES))
+        < 1.0 - mcfg_big.dropout_rate)
+    params_big_cpu = leaf_params(params_big, "cpu")
+    with OpRecorder(ops) as rec_big:
+        loss_big_cpu, grads_big_cpu = step_grads(params_big_cpu, mcfg_big, x_big.cpu(),
+                                                 y_big.cpu(), mask_big)
     results = {}
     fail = check_cases(forward_cases(params, mcfg, x), results, "3 kernel")
     if fail is None:
-        # 512 steps in one block: a call takes a tenth of a second
-        fail = check_cases(one_block_cases(params_big, x_big), results, "3 kernel",
-                           calls=2, replays=3)
+        # the one-block route: a call takes milliseconds
+        fwd_case, bwd_case = one_block_cases(params_big, x_big,
+                                             rec_big.calls["gru_over_nodes"][0]["g"])
+        fail = (check_cases([fwd_case], results, "3 kernel", calls=2, replays=3)
+                or check_cases([bwd_case], results, "3 kernel", scaled=True, calls=2,
+                               replays=3))
     if fail is None:
         fail = check_cases(backward_cases(rec, params, mcfg, dev), results,
                            "3 kernel", scaled=True)
@@ -859,6 +957,34 @@ def run() -> int:
     if big_err > 1e-3:
         return _fail(f"{BIG_NODES}-node card forecasts differ from the CPU plain path "
                      f"by {big_err}")
+    # and one train step of it, counters set to 0 just before and read just
+    # after, against the CPU plain path's step of phase 3 (same dropout mask)
+    params_big_gpu = leaf_params(params_big, dev)
+    ops.reset_launches()
+    loss_big, grads_big = step_grads(params_big_gpu, mcfg_big, x_big, y_big,
+                                     mask_big.to(dev))
+    torch.cuda.synchronize()
+    launches, replayed = take_launches(ops, results)
+    spe_pair = (("spectral_fwd_save", "spectral_bwd_reread")
+                if cuda_spectral.SAVE_ACTS_BWD else ("spectral_fwd", "spectral_bwd"))
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"gru_fwd_one_block": 1, "gru_bwd_one_block": 1, "attention_kq_fwd": 1,
+                 "attention_kq_bwd": 1, "cheb_graph_conv_fwd": 2, spe_pair[0]: 2,
+                 spe_pair[1]: 2})
+    if launches != want or any(replayed.values()):
+        return _fail(f"{BIG_NODES}-node train step launch counts {launches} and "
+                     f"{replayed}, expected {want}")
+    bad, worst, worst_name = compare_grads(grads_big, grads_big_cpu)
+    loss_err = abs(loss_big.item() - loss_big_cpu.item())
+    print(f"[4 serving path] {BIG_NODES}-node model, one train step on the card: wrapper "
+          f"launches {launches}; loss {loss_big.item():.6f} (abs err {loss_err:.3e}, atol "
+          f"1e-5); {len(grads_big)} gradients against the CPU plain path, worst "
+          f"max_abs_err {worst:.3e} at {worst_name} (atol {GRAD_ATOL_REL:g} of each "
+          f"gradient's largest entry, rtol {GRAD_RTOL:g})")
+    if loss_err > 1e-5 or bad:
+        return _fail(f"{BIG_NODES}-node step gradients differ from the CPU plain path: "
+                     f"loss err {loss_err}, leaves (name, err, max) {bad[:5]}")
+    del params_big_gpu, grads_big
 
     # --- 5. train path ---
     cfg_t = TrainConfig(dataset="ECG_data", train=True, epoch=1, batch_size=BATCH,
@@ -923,26 +1049,15 @@ def run() -> int:
     print(f"[5 train path] epoch loss {epochs[0]['loss']:.6f}, validate MAE "
           f"{float(valid_metrics['mae']):.6f}; checkpoints and metrics.jsonl written")
 
-    # (a) one step on the card against the CPU plain path, same dropout mask.
-    # Tolerance: f32 sums in another order through 140 GRU steps and 4480-row
-    # weight gradients, so each gradient is held to 1e-4 of its own largest
-    # entry (atol) plus rtol 1e-3.
-    GRAD_ATOL_REL, GRAD_RTOL = 1e-4, 1e-3
+    # (a) one step on the card against the CPU plain path, same dropout mask
+    # (tolerance: `compare_grads`)
     train_dev = train_cpu.to(dev)
     params_gpu = leaf_params(params, dev)
     x_gpu, y_gpu = engine.gather_windows(train_dev, his[0].to(dev), WINDOW, HORIZON)
     mask0 = masks[0].to(dev)
     loss_gpu, grads_gpu = step_grads(params_gpu, mcfg, x_gpu, y_gpu, mask0)
     grads_gpu = {k: g.clone() for k, g in grads_gpu.items()}
-    worst, worst_name, bad = 0.0, "", []
-    for k, g_cpu in grads_cpu.items():
-        g = grads_gpu[k].cpu()
-        err = (g - g_cpu).abs().max().item()
-        if err > worst:
-            worst, worst_name = err, k
-        atol = GRAD_ATOL_REL * g_cpu.abs().max().item() + 1e-12
-        if not torch.allclose(g, g_cpu, atol=atol, rtol=GRAD_RTOL):
-            bad.append((k, err, g_cpu.abs().max().item()))
+    bad, worst, worst_name = compare_grads(grads_gpu, grads_cpu)
     loss_err = abs(loss_gpu.item() - loss_cpu.item())
     gmax = max(g.abs().max().item() for g in grads_cpu.values())
     print(f"[5 train path] one step, card vs CPU plain path: loss {loss_gpu.item():.6f} "

@@ -11,7 +11,8 @@
 // sv[t] = (r, z, hpn, c, h - c), hpn = hp_n, which `gru_fwd_save` writes as
 // [N, 5, B, H].
 //
-// Backward (`gru_bwd`): replaces `_bwd_kernel` (reached from `_vjp_bwd`): the
+// Backward (`gru_bwd_cluster`, `gru_bwd_one_block`): replaces `_bwd_kernel`
+// (reached from `_vjp_bwd`): the
 // reverse recurrence over sv with the cotangent g [B, N, H] of the outputs,
 //   dh_total = g[t] + dh
 //   dz = dh_total * (h - c) * z * (1 - z); dn = dh_total * (1 - z) * (1 - c^2)
@@ -60,27 +61,47 @@
 // fits at the largest cluster size, the wrapper launches the one-block
 // kernel below instead (`gru_fwd_one_block`), by shape.
 //
-// One-block forward (`gru_fwd_one_block`, the large-H route): ONE persistent
-// block loops over the N steps. h lives in shared memory, double-buffered
-// ([H][B + 4] layout, two copies) so one __syncthreads() per step separates
-// reads of h from writes of h'. A and bh are read from global memory, where
-// they stay L2-resident. Each thread owns one hidden unit j (all three of
-// its gate columns) for 8 batch rows, and reads and writes its 8 rows of h
-// as two float4 (see kPad). Works at any H whose double-buffered h fits in
-// shared memory.
+// Backward design (`gru_bwd_cluster`), the same cut:
+// - Groups of R = 4 batch rows are independent clusters; block c of a
+//   cluster owns the hidden units of slice c. The lane that does the gate
+//   math of (unit j, row p) keeps dh[p][j] in a register from step to step.
+// - A step: dh_total = g[t] + dh, the gate gradients of the lane's (j, p),
+//   dxp[t] stored, and (dr, dz, dn * r) sent to EVERY block of the cluster by
+//   st.async onto an mbarrier, as the forward sends h'. A block so holds the
+//   whole dcat [3H][R] of the step and, after its wait, forms
+//   dh[p][j] = dh_total * z + sum_c dcat[c][p] * A[j][c] for its own units:
+//   no second exchange. The R lanes of a unit split the 3H-long sum
+//   (c = p, p + R, ...) and `transpose_reduce` adds the partials and hands
+//   lane p row p, the lane of that row's gate math: no block barrier in the
+//   loop either. The double buffer of dcat is safe by the forward's argument.
+// - The block's rows of A (= W_hh^T, [H, 3H]), [S][3H], are one contiguous
+//   panel of the tensor the forward reads; they are copied once (cp.async)
+//   and stay resident for all N steps. Their row stride is 4 (mod 32) floats,
+//   so the 8 units by 4 k-parts a warp reads fall in 32 different banks, and
+//   no row is padded by more than 31 floats (H = 360 fits a cluster of 8).
+//   The other split (partial dh exchanged, A's 3S gate columns resident)
+//   sends a third of the bytes but needs the block's own gate gradients
+//   visible to all its threads: a block barrier a step.
+// - sv[t - 1] and g[t - 1] are loaded a step ahead.
+// Bound: the forward's f32 operations; the exchange is three times the
+// forward's, and each k of the sum brings one float4 of dcat for one weight
+// (5 bytes of shared memory an FMA, the forward's 2.3).
 //
-// The backward has the one-block shape: one persistent block,
-// dh [H][B + 4] and the step's (dr, dz, dn * r) [3H][B + 4] in shared memory, the
-// same thread owning hidden unit j for 8 batch rows in the elementwise half
-// and in the product, so dh needs no exchange and a step takes two
-// barriers (after the gate gradients are written, after the product has
-// read them). A^T is W_hh itself ([3H, H] row-major), read from L2 with
-// neighbouring threads on neighbouring addresses; sv is laid out [N, 5, B, H]
-// so all kernels touch it with the threads running along H. The cluster
-// pieces (`copy_panel_async` for a resident slice and `transpose_reduce` in
-// device_utils.cuh, `cluster_send_all` and the `mbarrier_*` functions below)
-// take the operand and its leading dimension or address, so a clustered
-// backward can exchange dh and keep slices of A^T with them.
+// One-block kernels (`gru_fwd_one_block`, `gru_bwd_one_block`, the large-H
+// route): a block per group of `rows` batch rows (a multiple of 8, from the
+// plan), the grid over the groups, since batch rows never exchange anything.
+// Each block loops over the N steps. The forward keeps h in shared memory,
+// double-buffered ([H][rows + 4] layout, two copies) so one __syncthreads()
+// per step separates reads of h from writes of h'; A and bh are read from
+// global memory, where they stay L2-resident. Each thread owns one hidden
+// unit j (all three of its gate columns) for 8 batch rows, and reads and
+// writes its 8 rows of h as two float4 (see kPad). The backward keeps dh
+// [H][rows + 4] and the step's (dr, dz, dn * r) [3H][rows + 4] in shared
+// memory, the same thread owning unit j for 8 batch rows in the elementwise
+// half and in the product, so dh needs no exchange and a step takes two
+// barriers; it reads A^T = W_hh ([3H, H] row-major) from L2 with
+// neighbouring threads on neighbouring addresses. sv is laid out
+// [N, 5, B, H] so all kernels touch it with the threads running along H.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -294,23 +315,131 @@ gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A
   cluster.sync();  // no block leaves while another may still send to it
 }
 
-// --- the one-block kernels ---
+// Grid (C, groups), cluster (C, 1, 1). Dynamic shared memory: two mbarriers
+// (16 bytes, one for each dcat buffer), then Au [S][LD], row jl the row
+// j0 + jl of A (3H floats, zeros from 3H to LD), then dcat [2][C3][R] (C3 is
+// 3H rounded up to R; rows from 3H on stay zero).
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads)
+gru_bwd_cluster_kernel(const float* __restrict__ sv, const float* __restrict__ g,
+                       const float* __restrict__ A, float* __restrict__ dxp, int N,
+                       int B, int H, int S, int LD) {
+  constexpr int JW = 32 / R;  // hidden units per warp
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int H3 = 3 * H;
+  const int C3 = (H3 + R - 1) / R * R;
+  const int j0 = (int)cluster.block_rank() * S;
+  const int Sc = min(S, H - j0);
+  unsigned long long* arrived = reinterpret_cast<unsigned long long*>(smem);
+  float* Au = smem + 4;
+  float* dbuf = Au + (long)S * LD;
+
+  copy_panel_async(Au, LD, A + (long)j0 * H3, H3, Sc, H3);
+  const int pad = LD - H3;
+  for (int e = threadIdx.x; e < Sc * pad; e += blockDim.x)
+    Au[(e / pad) * LD + H3 + e % pad] = 0.f;
+  for (int e = threadIdx.x; e < 2 * C3 * R; e += blockDim.x) dbuf[e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbarrier_init(shared_addr(&arrived[0]));
+    mbarrier_init(shared_addr(&arrived[1]));
+  }
+  cp_async_commit();
+  cp_async_wait_group<0>();
+  cluster.sync();
+  const unsigned blocks = cluster.num_blocks();
+
+  const int lane = threadIdx.x & 31;
+  const int p = lane / JW;  // the batch row of the gate math, the k-part of the sum
+  const int jl = (threadIdx.x >> 5) * JW + lane % JW;
+  const bool unit_live = jl < Sc;
+  const int js = unit_live ? jl : Sc - 1;  // a warp's spare lanes repeat the last unit
+  const int j = j0 + js;
+  const int b = blockIdx.y * R + p;
+  const bool row_live = b < B;
+  const bool live = unit_live && row_live;
+  const long plane = (long)B * H;
+  const float* w = Au + (long)js * LD;
+
+  // sv[t] (r, z, hpn, c, h - c) and g[t] of (j, b), loaded a step ahead
+  float s_cur[6] = {}, s_nxt[6] = {};
+  if (row_live) {
+    const float* s = sv + (long)(N - 1) * 5 * plane + (long)b * H + j;
+#pragma unroll
+    for (int q = 0; q < 5; ++q) s_cur[q] = s[q * plane];
+    s_cur[5] = g[((long)b * N + N - 1) * H + j];
+  }
+  float dh = 0.f;
+  for (int u = 0; u < N; ++u) {
+    const int t = N - 1 - u;
+    float* d_cur = dbuf + (u & 1) * C3 * R;
+    // this step's dcat of the whole cluster: 3H columns by R rows
+    const unsigned bar = shared_addr(&arrived[u & 1]);
+    if (threadIdx.x == 0) mbarrier_expect(bar, (unsigned)(H3 * R) * 4u);
+    if (row_live && t > 0) {  // needs no dh: in flight during the sum
+      const float* s = sv + (long)(t - 1) * 5 * plane + (long)b * H + j;
+#pragma unroll
+      for (int q = 0; q < 5; ++q) s_nxt[q] = s[q * plane];
+      s_nxt[5] = g[((long)b * N + t - 1) * H + j];
+    }
+    const float r = s_cur[0], z = s_cur[1], hpn = s_cur[2], c = s_cur[3], hmc = s_cur[4];
+    const float dh_total = s_cur[5] + dh;
+    const float dz = dh_total * hmc * z * (1.f - z);
+    const float dn = dh_total * (1.f - z) * (1.f - c * c);
+    const float dr = dn * hpn * r * (1.f - r);
+    if (unit_live) {
+      const float v[3] = {dr, dz, dn * r};
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate)
+        cluster_send_all(shared_addr(d_cur + (gate * H + j) * R + p),
+                         row_live ? v[gate] : 0.f, bar, blocks);
+    }
+    if (live) {  // off the other blocks' critical path: their values are on the way
+      float* d = dxp + ((long)t * B + b) * H3 + j;
+      d[0] = dr;
+      d[H] = dz;
+      d[2 * H] = dn;
+    }
+    // an mbarrier's phases alternate, and this one is used every other step
+    mbarrier_wait(bar, (unsigned)(u >> 1) & 1u);
+    float acc[1][R] = {};
+#pragma unroll 7
+    for (int k = p; k < C3; k += R) {
+      const float wk = w[k];
+      float dv[R];
+#pragma unroll
+      for (int i = 0; i < R; i += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(d_cur + k * R + i);
+        dv[i] = q.x; dv[i + 1] = q.y; dv[i + 2] = q.z; dv[i + 3] = q.w;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[0][i] = fmaf(dv[i], wk, acc[0][i]);
+    }
+    transpose_reduce<R, 1>(acc, p, JW);
+    dh = dh_total * z + acc[0][0];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) s_cur[q] = s_nxt[q];
+  }
+  cluster.sync();  // no block leaves while another may still send to it
+}
+
+// --- the one-block kernels: a block per group of `rows` batch rows ---
 
 template <bool kSave>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_one_block_kernel(const float* __restrict__ xp, const float* __restrict__ A,
                const float* __restrict__ bh, float* __restrict__ out,
-               float* __restrict__ sv, int N, int B, int H) {
+               float* __restrict__ sv, int N, int B, int H, int rows) {
   extern __shared__ __align__(16) float smem[];
-  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
-  const int Bs = Bp + kPad;
+  const int Bs = rows + kPad;
+  const int g0 = blockIdx.x * rows;  // the group's first batch row
   float* h_cur = smem;
   float* h_next = smem + (long)H * Bs;
   for (int e = threadIdx.x; e < 2 * H * Bs; e += blockDim.x) smem[e] = 0.f;
   __syncthreads();
 
   const int H3 = 3 * H;
-  const int items = H * (Bp / kBSub);
+  const int items = H * (rows / kBSub);
   for (int t = 0; t < N; ++t) {
     for (int item = threadIdx.x; item < items; item += blockDim.x) {
       const int j = item % H;
@@ -335,7 +464,7 @@ gru_fwd_one_block_kernel(const float* __restrict__ xp, const float* __restrict__
       load8(h_cur + j * Bs + b0, h_prev);
 #pragma unroll
       for (int i = 0; i < kBSub; ++i) {
-        const int b = b0 + i;
+        const int b = g0 + b0 + i;
         if (b < B) {
           const float* x = xp + ((long)t * B + b) * H3;
           const float r = sigmoidf(x[j] + (ar[i] + br));
@@ -366,12 +495,12 @@ gru_fwd_one_block_kernel(const float* __restrict__ xp, const float* __restrict__
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
-gru_bwd_kernel(const float* __restrict__ sv, const float* __restrict__ g,
-               const float* __restrict__ At, float* __restrict__ dxp, int N,
-               int B, int H) {
+gru_bwd_one_block_kernel(const float* __restrict__ sv, const float* __restrict__ g,
+                         const float* __restrict__ At, float* __restrict__ dxp, int N,
+                         int B, int H, int rows) {
   extern __shared__ __align__(16) float smem[];
-  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
-  const int Bs = Bp + kPad;
+  const int Bs = rows + kPad;
+  const int g0 = blockIdx.x * rows;  // the group's first batch row
   const int H3 = 3 * H;
   float* dh = smem;                   // [H][Bs]
   float* dcat = smem + (long)H * Bs;  // [3H][Bs]: dr, dz, dn * r
@@ -379,7 +508,7 @@ gru_bwd_kernel(const float* __restrict__ sv, const float* __restrict__ g,
   __syncthreads();
 
   const long plane = (long)B * H;
-  const int items = H * (Bp / kBSub);
+  const int items = H * (rows / kBSub);
   for (int t = N - 1; t >= 0; --t) {
     // gate gradients of this thread's (j, 8 batch rows); dh keeps dh_total * z
     for (int item = threadIdx.x; item < items; item += blockDim.x) {
@@ -390,7 +519,7 @@ gru_bwd_kernel(const float* __restrict__ sv, const float* __restrict__ g,
       float vr[kBSub] = {}, vz[kBSub] = {}, vn[kBSub] = {}, vh[kBSub] = {};
 #pragma unroll
       for (int i = 0; i < kBSub; ++i) {
-        const int b = b0 + i;
+        const int b = g0 + b0 + i;
         if (b < B) {
           const float* s = sv + (long)t * 5 * plane + (long)b * H + j;
           const float r = s[0], z = s[plane], hpn = s[2 * plane];
@@ -438,35 +567,13 @@ gru_bwd_kernel(const float* __restrict__ sv, const float* __restrict__ g,
   }
 }
 
-int gru_threads(int B, int H) {
-  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
-  const int items = H * (Bp / kBSub);
-  const int threads = (items + 31) / 32 * 32;
-  return threads > kMaxThreads ? kMaxThreads : threads;
-}
-
-template <bool kSave>
-int launch_one_block(const float* xp, const float* A, const float* bh, float* out,
-                     float* sv, int N, int B, int H, void* stream) {
-  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
-  const long smem = 2L * H * (Bp + kPad) * (long)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gru_fwd_one_block_kernel<kSave>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gru_fwd_one_block_kernel<kSave><<<1, gru_threads(B, H), smem, (cudaStream_t)stream>>>(
-      xp, A, bh, out, sv, N, B, H);
-  return (int)cudaGetLastError();
-}
-
 constexpr int kRows = 4;           // batch rows of a cluster
 constexpr int kPortableCluster = 8;
 
-template <bool kSave>
-int launch_cluster(const float* xp, const float* A, const float* bh, float* out,
-                   float* sv, int N, int B, int H, int groups, int cluster, int S,
-                   int RS, int threads, int smem, void* stream) {
-  auto kernel = gru_fwd_cluster_kernel<kRows, kSave>;
+// Launches `kernel` on grid (cluster, groups) in clusters of `cluster` blocks.
+template <typename... Params, typename... Args>
+int launch_clustered(void (*kernel)(Params...), int cluster, int groups, int threads,
+                     int smem, void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -486,7 +593,18 @@ int launch_cluster(const float* xp, const float* A, const float* bh, float* out,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, xp, A, bh, out, sv, N, B, H, S, RS);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Launches a one-block kernel on `groups` blocks.
+template <typename... Params, typename... Args>
+int launch_groups(void (*kernel)(Params...), int groups, int threads, int smem,
+                  void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<groups, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -501,31 +619,47 @@ extern "C" int gru_fwd_cluster(const float* xp, const float* A, const float* bh,
                                int groups, int cluster, int slice, int row_stride,
                                int threads, int smem, void* stream) {
   if (rows != kRows) return (int)cudaErrorInvalidValue;
-  return sv ? launch_cluster<true>(xp, A, bh, out, sv, N, B, H, groups, cluster, slice,
-                                   row_stride, threads, smem, stream)
-            : launch_cluster<false>(xp, A, bh, out, nullptr, N, B, H, groups, cluster,
-                                    slice, row_stride, threads, smem, stream);
+  if (sv)
+    return launch_clustered(gru_fwd_cluster_kernel<kRows, true>, cluster, groups,
+                            threads, smem, stream, xp, A, bh, out, sv, N, B, H, slice,
+                            row_stride);
+  return launch_clustered(gru_fwd_cluster_kernel<kRows, false>, cluster, groups, threads,
+                          smem, stream, xp, A, bh, out, (float*)nullptr, N, B, H, slice,
+                          row_stride);
 }
 
-// The forward in one block, for an H whose slices fit no cluster. A (B, H)
-// whose h buffers exceed the shared memory of a block fails at
-// cudaFuncSetAttribute. sv as above.
+// The forward in a block per group of `rows` batch rows (a multiple of 8),
+// for an H whose slices fit no cluster. The plan comes from ops/cuda_gru.py
+// `one_block_plan`. sv as above.
 extern "C" int gru_fwd_one_block(const float* xp, const float* A, const float* bh,
-                                 float* out, float* sv, int N, int B, int H,
-                                 void* stream) {
-  return sv ? launch_one_block<true>(xp, A, bh, out, sv, N, B, H, stream)
-            : launch_one_block<false>(xp, A, bh, out, nullptr, N, B, H, stream);
+                                 float* out, float* sv, int N, int B, int H, int rows,
+                                 int groups, int threads, int smem, void* stream) {
+  if (rows % kBSub) return (int)cudaErrorInvalidValue;
+  if (sv)
+    return launch_groups(gru_fwd_one_block_kernel<true>, groups, threads, smem, stream,
+                         xp, A, bh, out, sv, N, B, H, rows);
+  return launch_groups(gru_fwd_one_block_kernel<false>, groups, threads, smem, stream, xp,
+                       A, bh, out, (float*)nullptr, N, B, H, rows);
 }
 
-// At = A^T = W_hh, [3H, H] row-major; g [B, N, H]; dxp [N, B, 3H].
-extern "C" int gru_bwd(const float* sv, const float* g, const float* At, float* dxp,
-                       int N, int B, int H, void* stream) {
-  const int Bp = (B + kBSub - 1) / kBSub * kBSub;
-  const long smem = 4L * H * (Bp + kPad) * (long)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gru_bwd_kernel<<<1, gru_threads(B, H), smem, (cudaStream_t)stream>>>(
-      sv, g, At, dxp, N, B, H);
-  return (int)cudaGetLastError();
+// The backward across a thread-block cluster per group of `rows` batch rows,
+// by ops/cuda_gru.py `bwd_plan`: A = W_hh^T [H, 3H] (the forward's operand),
+// `row_stride` floats a resident row of it. g [B, N, H]; dxp [N, B, 3H].
+extern "C" int gru_bwd_cluster(const float* sv, const float* g, const float* A,
+                               float* dxp, int N, int B, int H, int rows, int groups,
+                               int cluster, int slice, int row_stride, int threads,
+                               int smem, void* stream) {
+  if (rows != kRows) return (int)cudaErrorInvalidValue;
+  return launch_clustered(gru_bwd_cluster_kernel<kRows>, cluster, groups, threads, smem,
+                          stream, sv, g, A, dxp, N, B, H, slice, row_stride);
+}
+
+// The backward in a block per group of `rows` batch rows, for an H whose
+// slices fit no cluster. At = A^T = W_hh, [3H, H] row-major.
+extern "C" int gru_bwd_one_block(const float* sv, const float* g, const float* At,
+                                 float* dxp, int N, int B, int H, int rows, int groups,
+                                 int threads, int smem, void* stream) {
+  if (rows % kBSub) return (int)cudaErrorInvalidValue;
+  return launch_groups(gru_bwd_one_block_kernel, groups, threads, smem, stream, sv, g, At,
+                       dxp, N, B, H, rows);
 }

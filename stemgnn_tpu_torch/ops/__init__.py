@@ -19,6 +19,7 @@ import contextlib
 from stemgnn_tpu_torch.ops.cuda_attention import attention_kq, attention_kq_bwd
 from stemgnn_tpu_torch.ops.cuda_graph import cheb_graph_conv
 from stemgnn_tpu_torch.ops.cuda_gru import (
+    gru_bwd_one_block,
     gru_fwd_one_block,
     gru_over_nodes,
     gru_scan_bwd,
@@ -41,7 +42,8 @@ KERNELS = {
     "attention_kq_fwd": attention_kq,
     "cheb_graph_conv_fwd": cheb_graph_conv,
     "spectral_fwd": spe_seq_cell,
-    "gru_bwd": gru_scan_bwd,
+    "gru_bwd": gru_scan_bwd,  # the cluster kernel
+    "gru_bwd_one_block": gru_bwd_one_block,  # what gru_scan_bwd launches at a large H
     "attention_kq_bwd": attention_kq_bwd,
     "spectral_bwd": spe_seq_cell_bwd,
     "spectral_fwd_save": spe_seq_cell_save,

@@ -3,18 +3,21 @@
 Kernels: csrc/gru.cu, the port of stemgnn_tpu/ops/pallas_gru.py
 `_fwd_kernel` and `_bwd_kernel`.
 
-The forward recurrence runs across SMs (`gru_fwd_cluster`): groups of 4
-batch rows are independent thread-block clusters, and inside a cluster each
-block owns a slice of the hidden units with its three gate columns of
-W_hh^T resident in shared memory for all N steps; the blocks send each other their
-slices of h through distributed shared memory and wait on an mbarrier of
-their own for a step's values, with no cluster-wide barrier in the loop. `launch_plan` makes the decomposition from (B, H) alone and
-the C entry takes it as arguments. Where a slice does not fit a block's
-shared memory at the largest cluster size, the wrapper launches the
-one-block kernel instead (`gru_fwd_one_block`: one persistent block, W_hh^T
-read from L2), by shape. Both write the five saved activations per step
-when a gradient is needed. The backward (`gru_bwd`) is the reverse
-recurrence over them in one persistent block.
+Both recurrences run across SMs (`gru_fwd_cluster`, `gru_bwd_cluster`):
+groups of 4 batch rows are independent thread-block clusters, and inside a
+cluster each block owns a slice of the hidden units with its part of
+W_hh^T resident in shared memory for all N steps (the forward: the slice's
+three gate columns; the backward: the slice's rows). The blocks send each
+other what the next step needs (the forward h', the backward the gate
+gradients) through distributed shared memory and wait on an mbarrier of
+their own for a step's values, with no cluster-wide barrier in the loop.
+`launch_plan` and `bwd_plan` make the decompositions from (B, H) alone and
+the C entries take them as arguments. Where a slice does not fit a block's
+shared memory at the largest cluster size (H above 360), the wrappers launch
+the one-block kernels instead (`gru_fwd_one_block`, `gru_bwd_one_block`: a
+block per group of 8 batch rows, W_hh^T read from L2), by shape. The
+forwards write the five saved activations per step when a gradient is
+needed; the backwards are the reverse recurrence over them.
 
 The input projection x @ W_ih^T + b_ih stays one torch.matmul outside the
 kernel, differentiated by autograd, and the recurrent weight and bias
@@ -46,13 +49,13 @@ _ONE_BLOCK_ROWS, _ONE_BLOCK_PAD = 8, 4  # csrc/gru.cu kBSub, kPad
 
 
 class GruPlan(NamedTuple):
-    """How the forward recurrence of a (B, H) is laid over the card."""
+    """How a recurrence (forward or backward) of a (B, H) is laid over the card."""
     route: str        # "cluster" or "one_block"
-    rows: int         # batch rows a group (a cluster; the one block takes them all)
-    groups: int       # batch groups: clusters
+    rows: int         # batch rows a group (a cluster, or a block of the one-block route)
+    groups: int       # batch groups: clusters, or blocks of the one-block route
     cluster: int      # blocks a cluster, each with one slice of the hidden units
     slice: int        # hidden units a block (the last block's slice may be short)
-    row_stride: int   # floats a row of the resident slice of W_hh^T
+    row_stride: int   # floats a row of the resident part of W_hh^T
     threads: int      # threads a block
     smem: int         # bytes of dynamic shared memory a block
 
@@ -85,6 +88,31 @@ def _cluster_plan(b: int, h: int, cluster: int) -> GruPlan:
         smem=4 * (hp * stride * _UNITS_PER_WARP + 2 * hp * ROWS))
 
 
+def _bwd_cluster_plan(b: int, h: int, cluster: int) -> GruPlan:
+    units = _ceil_div(h, cluster)
+    cluster = _ceil_div(h, units)
+    c3 = _ceil_div(3 * h, ROWS) * ROWS  # the k-sum's length, padded to the k-parts
+    # a resident row of W_hh^T ([3H] of one unit) padded to 4 (mod 32) floats:
+    # the 8 units by 4 k-parts a warp reads then fall in 32 different banks
+    stride = c3 + (4 - c3) % 32
+    return GruPlan(
+        route="cluster", rows=ROWS, groups=_ceil_div(b, ROWS), cluster=cluster,
+        slice=units, row_stride=stride,
+        threads=32 * _ceil_div(units, _UNITS_PER_WARP),
+        # two mbarriers, the resident rows, dcat [2][c3][ROWS]
+        smem=16 + 4 * (units * stride + 2 * c3 * ROWS))
+
+
+def _first_fit(b: int, h: int, max_cluster: int, cluster_plan, one_block_plan):
+    if b < 1 or h < 1:
+        raise ValueError(f"gru plan: batch {b}, hidden {h}")
+    for cluster in range(min(_ceil_div(h, 32), max_cluster), max_cluster + 1):
+        plan = cluster_plan(b, h, cluster)
+        if plan.smem <= SMEM_PER_BLOCK:
+            return plan
+    return one_block_plan(b, h)
+
+
 def launch_plan(b: int, h: int, max_cluster: int = MAX_CLUSTER) -> GruPlan:
     """The forward's decomposition for batch b and hidden size h; needs no card.
 
@@ -92,34 +120,41 @@ def launch_plan(b: int, h: int, max_cluster: int = MAX_CLUSTER) -> GruPlan:
     gives a block at most 32 hidden units (one warp a scheduler) or, past
     that, the first whose slice of W_hh^T and h buffers fit a block's shared
     memory. One-block route: when none fits (at the portable limit of 8 blocks:
-    H above 360). Raises where the one block's h buffers do not fit either."""
-    if b < 1 or h < 1:
-        raise ValueError(f"gru launch_plan: batch {b}, hidden {h}")
-    for cluster in range(min(_ceil_div(h, 32), max_cluster), max_cluster + 1):
-        plan = _cluster_plan(b, h, cluster)
-        if plan.smem <= SMEM_PER_BLOCK:
-            return plan
-    return _one_block_plan(b, h)
+    H above 360), a block per group of 8 batch rows."""
+    return _first_fit(b, h, max_cluster, _cluster_plan, one_block_plan)
 
 
-def _one_block_plan(b: int, h: int) -> GruPlan:
-    bp = _ceil_div(b, _ONE_BLOCK_ROWS) * _ONE_BLOCK_ROWS
-    smem = 4 * 2 * h * (bp + _ONE_BLOCK_PAD)
+def bwd_plan(b: int, h: int, max_cluster: int = MAX_CLUSTER) -> GruPlan:
+    """The backward's decomposition, by the forward's rule: the smallest
+    cluster that gives a block at most 32 hidden units or, past that, the
+    first whose resident rows of W_hh^T and dcat buffers fit; the one-block
+    route where none does (H above 360, as the forward)."""
+    return _first_fit(b, h, max_cluster, _bwd_cluster_plan,
+                      functools.partial(one_block_plan, backward=True))
+
+
+def one_block_plan(b: int, h: int, backward: bool = False) -> GruPlan:
+    """A block per group of 8 batch rows (one thread's rows): the smallest
+    group, so the most SMs; its h (forward) or dh and dcat (backward) buffers,
+    [H][8 + 4] floats each, fit a block's shared memory up to H = 2421 (forward) and 1210 (backward).
+    Raises above that."""
+    rows = _ONE_BLOCK_ROWS
+    smem = 4 * (4 if backward else 2) * h * (rows + _ONE_BLOCK_PAD)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
-            f"gru_over_nodes: the one-block kernel needs {smem} bytes of shared "
-            f"memory for hidden size {h} at batch {b}, over {SMEM_PER_BLOCK}")
-    items = h * (bp // _ONE_BLOCK_ROWS)
-    return GruPlan(route="one_block", rows=b, groups=1, cluster=1,
-                   slice=h, row_stride=3 * h, threads=min(1024, _ceil_div(items, 32) * 32),
+            f"gru: the one-block kernel needs {smem} bytes of shared memory for "
+            f"hidden size {h}, over {SMEM_PER_BLOCK}")
+    return GruPlan(route="one_block", rows=rows, groups=_ceil_div(b, rows), cluster=1,
+                   slice=h, row_stride=3 * h, threads=min(1024, _ceil_div(h, 32) * 32),
                    smem=smem)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "gru_fwd_cluster": [_P] * 5 + [_I] * 10 + [_P],
-    "gru_fwd_one_block": [_P] * 5 + [_I] * 3 + [_P],
-    "gru_bwd": [_P] * 4 + [_I] * 3 + [_P],
+    "gru_fwd_one_block": [_P] * 5 + [_I] * 7 + [_P],
+    "gru_bwd_cluster": [_P] * 4 + [_I] * 10 + [_P],
+    "gru_bwd_one_block": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 
@@ -154,7 +189,8 @@ def _launch_fwd(x_proj, w_hh_t, b_hh, save: bool, plan: GruPlan | None = None):
             plan.row_stride, plan.threads, plan.smem, _build.stream_ptr(x_proj))
         counter = gru_over_nodes
     else:
-        rc = _fn("gru_fwd_one_block")(*ptrs, n, b, h, _build.stream_ptr(x_proj))
+        rc = _fn("gru_fwd_one_block")(*ptrs, n, b, h, plan.rows, plan.groups,
+                                      plan.threads, plan.smem, _build.stream_ptr(x_proj))
         counter = gru_fwd_one_block
     _build.check(rc, f"gru_over_nodes ({plan.route})")
     counter.launches += 1
@@ -165,32 +201,58 @@ def gru_fwd_one_block(x_proj, w_hh_t, b_hh, save: bool = False):
     """The recurrence through the one-block kernel whatever the shape: what
     `gru_over_nodes` launches for a hidden size that fits no cluster."""
     b, h = x_proj.shape[1], w_hh_t.shape[0]
-    return _launch_fwd(x_proj, w_hh_t, b_hh, save, _one_block_plan(b, h))
+    return _launch_fwd(x_proj, w_hh_t, b_hh, save, one_block_plan(b, h))
 
 
 gru_fwd_one_block.launches = 0
+
+
+def _launch_bwd(saved, g, a_all, plan: GruPlan | None = None):
+    """saved [N, 5, B, H], g [B, N, H], a_all [H, 3H] -> dxp [N, B, 3H], by
+    the route of `plan` (`bwd_plan` of the shape unless given)."""
+    _build.require_cuda("gru_scan_bwd", saved, g, a_all)
+    n, five, b, h = saved.shape
+    if five != 5 or g.shape != (b, n, h) or a_all.shape != (h, 3 * h):
+        raise ValueError(
+            f"gru_scan_bwd: saved {tuple(saved.shape)}, g {tuple(g.shape)}, "
+            f"a_all {tuple(a_all.shape)}")
+    plan = plan or bwd_plan(b, h)
+    dxp = torch.empty((n, b, 3 * h), dtype=torch.float32, device=saved.device)
+    if plan.route == "cluster":  # reads its rows of a_all as they are
+        rc = _fn("gru_bwd_cluster")(
+            saved.data_ptr(), g.data_ptr(), a_all.data_ptr(), dxp.data_ptr(), n, b, h,
+            plan.rows, plan.groups, plan.cluster, plan.slice, plan.row_stride,
+            plan.threads, plan.smem, _build.stream_ptr(saved))
+        counter = gru_scan_bwd
+    else:
+        a_t = a_all.t().contiguous()  # [3H, H], what the one-block kernel reads along rows
+        rc = _fn("gru_bwd_one_block")(
+            saved.data_ptr(), g.data_ptr(), a_t.data_ptr(), dxp.data_ptr(), n, b, h,
+            plan.rows, plan.groups, plan.threads, plan.smem, _build.stream_ptr(saved))
+        counter = gru_bwd_one_block
+    _build.check(rc, f"gru_scan_bwd ({plan.route})")
+    counter.launches += 1
+    return dxp
 
 
 def gru_scan_bwd(saved, g, a_all):
     """saved [N, 5, B, H], g [B, N, H], a_all [H, 3H] -> dxp [N, B, 3H]."""
     if saved.device.type == "cpu":
         return gru_scan_bwd_plain(saved, g, a_all)
-    a_t = a_all.t().contiguous()  # [3H, H], what the kernel reads along rows
-    _build.require_cuda("gru_scan_bwd", saved, g, a_t)
-    n, five, b, h = saved.shape
-    if five != 5 or g.shape != (b, n, h) or a_t.shape != (3 * h, h):
-        raise ValueError(
-            f"gru_scan_bwd: saved {tuple(saved.shape)}, g {tuple(g.shape)}, "
-            f"a_all {tuple(a_all.shape)}")
-    dxp = torch.empty((n, b, 3 * h), dtype=torch.float32, device=saved.device)
-    rc = _fn("gru_bwd")(saved.data_ptr(), g.data_ptr(), a_t.data_ptr(),
-                        dxp.data_ptr(), n, b, h, _build.stream_ptr(saved))
-    _build.check(rc, "gru_scan_bwd")
-    gru_scan_bwd.launches += 1
-    return dxp
+    return _launch_bwd(saved, g, a_all)
 
 
-gru_scan_bwd.launches = 0
+gru_scan_bwd.launches = 0  # the cluster kernel's
+
+
+def gru_bwd_one_block(saved, g, a_all):
+    """The backward through the one-block kernel whatever the shape: what
+    `gru_scan_bwd` launches for a hidden size that fits no cluster."""
+    b, h = saved.shape[2], saved.shape[3]
+    return _launch_bwd(saved, g, a_all, one_block_plan(b, h, backward=True))
+
+
+gru_bwd_one_block.launches = 0
 
 
 class _GruScan(torch.autograd.Function):

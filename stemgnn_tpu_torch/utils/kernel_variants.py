@@ -1,7 +1,7 @@
 """Where a kernel's time goes: builds copies of a CUDA source with one piece
 taken out or changed, and times each beside the source as it is.
 
-    python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [graph]
+    python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [spectral] [graph]
 
 A variant is a list of (text, replacement) pairs applied to the source; a
 pair whose text is no longer in the source stops the run, so an edit to a
@@ -54,6 +54,57 @@ GRU_VARIANTS = {
         ("sigmoidf(x_cur[0] + (acc[0][0] + br))", "(x_cur[0] + (acc[0][0] + br)) * 0.01f"),
         ("sigmoidf(x_cur[1] + (acc[1][0] + bz))", "(x_cur[1] + (acc[1][0] + bz)) * 0.01f")],
     "k loop not unrolled": [("#pragma unroll 5\n", "#pragma unroll 1\n")],
+}
+
+_BWD_SEND = ("        cluster_send_all(shared_addr(d_cur + (gate * H + j) * R + p),\n"
+             "                         row_live ? v[gate] : 0.f, bar, blocks);\n")
+_BWD_ARM = "    if (threadIdx.x == 0) mbarrier_expect(bar, (unsigned)(H3 * R) * 4u);\n"
+_BWD_WAIT = "    mbarrier_wait(bar, (unsigned)(u >> 1) & 1u);\n"
+GRU_BWD_VARIANTS = {
+    "base": [],
+    # no exchange at all, a block barrier a step: what the exchange costs
+    "local stores, block barrier": [
+        (_BWD_SEND, "        d_cur[(gate * H + j) * R + p] = row_live ? v[gate] : 0.f;\n"),
+        (_BWD_ARM, ""), (_BWD_WAIT, "    __syncthreads();\n")],
+    # plain remote stores and the hardware cluster barrier in place of
+    # st.async and the mbarrier
+    "cluster barrier": [
+        (_BWD_SEND,
+         "        for (unsigned rank = 0; rank < blocks; ++rank)\n"
+         "          cluster.map_shared_rank(d_cur, rank)[(gate * H + j) * R + p] =\n"
+         "              row_live ? v[gate] : 0.f;\n"),
+        (_BWD_ARM, ""),
+        (_BWD_WAIT, '    __syncwarp();\n'
+                    '    asm volatile("barrier.cluster.arrive.release;" ::: "memory");\n'
+                    '    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");\n')],
+    # the product's loop not unrolled
+    "k loop not unrolled": [("#pragma unroll 7\n", "#pragma unroll 1\n")],
+}
+
+SPECTRAL_VARIANTS = {
+    "base": [],
+    # the kernels of the reread backward, each left out in turn
+    "rows kernel returns at once": [("  float* dy = smem;\n",
+                                     "  if (row0 >= 0) return;\n  float* dy = smem;\n")],
+    "wgrad kernel returns at once": [
+        ("  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles\n",
+         "  if (k0 >= 0) return;\n")],
+    # the rows kernel's pieces
+    "rows: no weight loads": [
+        ("      const float l = wlT[(long)c * din + k];\n"
+         "      const float r = wrT[(long)c * din + k];\n",
+         "      const float l = 1e-3f * c, r = 2e-3f * c;\n")],
+    "rows: no activation reads": [
+        ("        const float4 u = a4[q], v = s4[q];\n",
+         "        const float4 u = make_float4(q, c, k, 1.f), v = make_float4(c, q, 1.f, k);\n")],
+    "rows: no elementwise pass": [
+        ("        const float a = a_g[e], s = s_g[e], v = dy[c * kTRS + r];\n"
+         "        const float va = v * s;\n"
+         "        const float vs = v * a * (s * (1.f - s));\n"
+         "        da[c * kTRS + r] = va;\n"
+         "        ds[c * kTRS + r] = vs;\n"
+         "        da_g[e] = va;\n"
+         "        ds_g[e] = vs;\n", "        (void)r; (void)c;\n")],
 }
 
 _G_LOOP = "      for (int m = p; m < mp; m += kParts) {"
@@ -174,6 +225,94 @@ def gru(dev, tmp: Path) -> None:
               f"max_abs_err against the one block {err:.3e}")
 
 
+def gru_bwd(dev, tmp: Path) -> None:
+    """The cluster backward at the flagship shape, by variant and by cluster
+    size; the one-block backward at the same shape and at H = 512."""
+    from stemgnn_tpu_torch.ops import torch_impl
+
+    b, h = 32, 140
+    rng = np.random.default_rng(1)
+    x_proj, a_all, b_hh = _gru_inputs(b, h, dev)
+    g = torch.from_numpy(rng.standard_normal((b, h, h)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
+    dxp = torch.empty((h, b, 3 * h), device=dev)
+    plans = {f"cluster of {c}": cuda_gru._bwd_cluster_plan(b, h, c) for c in (5, 7, 8)}
+    for name, lib in _build_variants("gru.cu", GRU_BWD_VARIANTS, tmp).items():
+        fn = lib.gru_bwd_cluster
+        fn.argtypes = cuda_gru._ARGTYPES["gru_bwd_cluster"]
+        fn.restype = ctypes.c_int
+        for label, plan in plans.items():
+            if name != "base" and plan != cuda_gru.bwd_plan(b, h):
+                continue  # the other cluster sizes: the source as it is only
+
+            def call(plan=plan):
+                _build.check(fn(
+                    saved.data_ptr(), g.data_ptr(), a_all.data_ptr(), dxp.data_ptr(), h,
+                    b, h, plan.rows, plan.groups, plan.cluster, plan.slice,
+                    plan.row_stride, plan.threads, plan.smem, _build.stream_ptr(dxp)),
+                    name)
+
+            ms = _cuda_ms(call)
+            print(f"gru_bwd_cluster B={b} H={h}, {label} ({plan.threads} threads, "
+                  f"{plan.smem} B), {name}: {ms:.5f} ms ({ms / h * 1e3:.3f} us a step)")
+    with torch.no_grad():
+        ms = _cuda_ms(lambda: cuda_gru.gru_bwd_one_block(saved, g, a_all))
+    print(f"gru_bwd_one_block B={b} H={h} (groups of 8 rows): {ms:.5f} ms")
+    for b in (32, 64):
+        h = 512
+        x_proj, a_all, b_hh = _gru_inputs(b, h, dev)
+        g = torch.from_numpy(rng.standard_normal((b, h, h)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
+            ms = _cuda_ms(lambda: cuda_gru.gru_bwd_one_block(saved, g, a_all),
+                          calls=2, replays=3)
+            fwd = _cuda_ms(lambda: cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh),
+                           calls=2, replays=3)
+        print(f"gru one-block B={b} H={h} (groups of 8 rows): forward {fwd:.5f} ms, "
+              f"backward {ms:.5f} ms")
+
+
+def spectral(dev, tmp: Path) -> None:
+    """The spectral reread backward (one C entry, all its kernels) by variant,
+    at the flagship shapes, on the first stack's GLU weights of init_params(0)
+    and the saved activations of the saving forward."""
+    from stemgnn_tpu_torch.config import TrainConfig
+    from stemgnn_tpu_torch.models import init_params
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w, multi = 32, 4, 140, 12, 5
+    wm = w * multi
+    mcfg = TrainConfig(dataset="ECG_data").model_config(n)
+    glu = init_params(0, mcfg, device=dev)["blocks"][0]["glu"]
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((b, k, n, w)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(
+        (1e-3 * rng.standard_normal((b, k, n, wm))).astype(np.float32)).to(dev)
+    cf, sf, ci, si = cuda_spectral._dft_on(w, k, wm, dev)
+    weights = cuda_spectral.folded_weights(glu, cf, sf)
+    with torch.no_grad():
+        _, acts = cuda_spectral._launch_fwd(x, weights, ci, si, multi, save=True)
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    dx = torch.empty_like(x)
+    grads = torch.empty(cuda_spectral._fn("spectral_bwd_grad_floats")(k, w, wm),
+                        device=dev)
+    ws = torch.empty(cuda_spectral._fn("spectral_bwd_reread_workspace_floats")(
+        b, k, n, w, wm, cuda_spectral.N_SPLIT), device=dev)
+    for name, lib in _build_variants("spectral.cu", SPECTRAL_VARIANTS, tmp).items():
+        fn = lib.spectral_bwd_reread
+        fn.argtypes, fn.restype = cuda_spectral._SIGNATURES["spectral_bwd_reread"]
+
+        def call():
+            _build.check(fn(x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+                            acts.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+                            ws.data_ptr(), b, k, n, w, wm, cuda_spectral.N_SPLIT,
+                            _build.stream_ptr(x)), name)
+
+        print(f"spectral_bwd_reread B={b} K={k} N={n} W={w} multi={multi}, {name}: "
+              f"{_cuda_ms(call):.5f} ms")
+
+
 def graph(dev, tmp: Path) -> None:
     k, n, b, w = 4, 140, 32, 12
     rng = np.random.default_rng(0)
@@ -201,7 +340,7 @@ def graph(dev, tmp: Path) -> None:
 
 
 def main(argv=None) -> int:
-    which = (argv if argv is not None else sys.argv[1:]) or ["gru", "graph"]
+    which = (argv if argv is not None else sys.argv[1:]) or ["gru", "gru_bwd", "spectral", "graph"]
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 1
@@ -211,7 +350,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         for name in which:
-            {"gru": gru, "graph": graph}[name](dev, Path(tmp))
+            {"gru": gru, "gru_bwd": gru_bwd, "spectral": spectral,
+             "graph": graph}[name](dev, Path(tmp))
     return 0
 
 

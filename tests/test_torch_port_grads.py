@@ -247,7 +247,7 @@ def test_backward_wrappers_are_counted_kernels_and_cpu_launches_none():
     assert list(ops.KERNELS) == [
         "gru_fwd", "gru_fwd_one_block", "attention_kq_fwd", "cheb_graph_conv_fwd",
         "spectral_fwd",
-        "gru_bwd", "attention_kq_bwd", "spectral_bwd", "spectral_fwd_save",
+        "gru_bwd", "gru_bwd_one_block", "attention_kq_bwd", "spectral_bwd", "spectral_fwd_save",
         "spectral_bwd_reread"]
     ops.reset_launches()
     for name in FUNCTIONS:

@@ -31,21 +31,10 @@ def _covers_once(ranges, total):
     return bool((seen == 1).all())
 
 
-def _plan_or_none(b, h):
-    try:
-        return cuda_gru.launch_plan(b, h)
-    except ValueError:
-        return None
-
-
 @pytest.mark.parametrize("h", HIDDEN)
 @pytest.mark.parametrize("b", BATCH)
 def test_gru_plan_covers_units_and_rows_once(b, h):
-    plan = _plan_or_none(b, h)
-    if plan is None:
-        # only where even the one block's h buffers exceed a block's shared memory
-        assert h > PORTABLE_FIT and 8 * h * (-(-b // 8) * 8 + 4) > cuda_gru.SMEM_PER_BLOCK
-        return
+    plan = cuda_gru.launch_plan(b, h)
     assert _covers_once(plan.slices(h), h)
     assert _covers_once(plan.batch_groups(b), b)
     assert plan.smem <= cuda_gru.SMEM_PER_BLOCK
@@ -67,9 +56,12 @@ def test_gru_plan_covers_units_and_rows_once(b, h):
         hp = -(-h // plan.rows) * plan.rows
         assert plan.smem == 4 * (hp * plan.row_stride + 2 * hp * plan.rows)
     else:
+        # a block per group of 8 batch rows, each thread one unit of the group
         assert h > PORTABLE_FIT
-        assert (plan.groups, plan.cluster, plan.slice) == (1, 1, h)
-        assert plan.threads <= 1024
+        assert plan.rows == 8 and plan.groups == -(-b // 8)
+        assert (plan.cluster, plan.slice) == (1, h)
+        assert min(h, 1024) <= plan.threads <= 1024
+        assert plan.smem == 4 * 2 * h * (plan.rows + 4)
 
 
 def test_gru_plan_fit_rule_and_routes():
@@ -78,11 +70,13 @@ def test_gru_plan_fit_rule_and_routes():
     assert set(routes[PORTABLE_FIT:]) == {"one_block"}
     assert cuda_gru.launch_plan(32, 140)[:7] == ("cluster", 4, 8, 5, 28, 88, 128)
     assert cuda_gru.launch_plan(32, 358).cluster == 8
-    # a larger cluster limit takes H = 512 in; nothing takes a batch whose h
-    # buffers exceed the one block
+    # a larger cluster limit takes H = 512 in; at the portable limit every
+    # batch the JAX package's Pallas GRU takes (B <= 64, H <= 512) has a plan,
+    # the one-block route in groups of 8 rows
     assert cuda_gru.launch_plan(32, 512, max_cluster=16).route == "cluster"
+    assert cuda_gru.launch_plan(64, 512)[:4] == ("one_block", 8, 8, 1)
     with pytest.raises(ValueError, match="shared"):
-        cuda_gru.launch_plan(64, 512)
+        cuda_gru.launch_plan(1, 2500)
     with pytest.raises(ValueError):
         cuda_gru.launch_plan(0, 140)
 
