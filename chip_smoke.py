@@ -25,7 +25,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
      variants), the one-block GRU forward and the graph convolution are also
      held against their plain versions, untimed, at ragged batches, at hidden
      sizes no cluster size divides, at a hidden size that takes the one-block
-     route, and at an N the graph convolution walks in panels.
+     route, and at an N the graph convolution walks in panels; the GRU
+     backward at B = 1 to 64 and H = 20 to 512 (both routes), and the spectral
+     backwards at row counts no multiple of their row tile, each twice,
+     bitwise.
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -607,6 +610,48 @@ def shape_checks(dev):
     return None
 
 
+def spectral_checks(dev, glu, multi: int):
+    """The spectral backwards against their plain version, untimed, on seeded
+    inputs: at the flagship rows (4480) and at row counts that are no
+    multiple of the backward's row tile (185, 111); the reread gradients
+    bitwise the recompute gradients, and a second reread bitwise the first.
+    Returns an error message, or None."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    rng = np.random.default_rng(4)
+    k, w = 4, WINDOW
+    for b, n in ((32, 140), (5, 37), (3, 37)):
+        x = torch.from_numpy(rng.standard_normal((b, k, n, w)).astype(np.float32)).to(dev)
+        g = torch.from_numpy((1e-3 * rng.standard_normal((b, k, n, w * multi))).astype(
+            np.float32)).to(dev)
+        with torch.no_grad():
+            _, acts = cuda_spectral.spe_seq_cell_save(x, glu, multi)
+            runs = [cuda_spectral.spe_seq_cell_bwd_reread(x, glu, g, acts, multi)
+                    for _ in range(2)]
+            runs.append(cuda_spectral.spe_seq_cell_bwd(x, glu, g, multi))
+            torch.cuda.synchronize()
+            want = cuda_spectral.spe_seq_cell_bwd_plain(x, glu, g, multi)
+        flat = [torch.cat([dx.reshape(-1)] + [t.reshape(-1) for t in
+                                             cuda_spectral._flat(dglu)])
+                for dx, dglu in (*runs, want)]
+        got, again, recompute, want = flat
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = torch.allclose(got, want, atol=1e-5 * scale, rtol=1e-3)
+        same = torch.equal(got, again) and torch.equal(got, recompute)
+        print(f"[3 kernel] spectral backward B={b} N={n} ({b * n} rows): reread "
+              f"max_abs_err {err:.3e} (atol 1e-5 of the largest entry {scale:.3e}, rtol "
+              f"1e-3); two rereads and the recompute backward "
+              f"{'bitwise equal' if same else 'DIFFER'}")
+        if not ok or not same:
+            return (f"spectral backward at B={b} N={n} differs by {err} (bitwise "
+                    f"reruns and recompute: {same})")
+    return None
+
+
 def profile_steps(step, batches, step_ms: float) -> None:
     """Print where the card's time goes in a train step: torch.profiler over
     `batches`, device time per step by kernel name, their sum, and that sum
@@ -827,6 +872,8 @@ def run() -> int:
                            "3 kernel", scaled=True)
     if fail is None:
         fail = shape_checks(dev)
+    if fail is None:
+        fail = spectral_checks(dev, params["blocks"][0]["glu"], MULTI)
     if fail is not None:
         return _fail(fail)
     with torch.no_grad():

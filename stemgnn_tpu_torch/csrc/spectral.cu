@@ -38,8 +38,8 @@
 // all six GLUs for a row tile in VMEM: 18 [32, 240] f32 arrays are 552,960
 // bytes, more than twice what a block here can have. (2) It adds the 24
 // weight and bias gradients up across row tiles in one output block, which
-// only a sequential grid allows. So the backward is five kernels behind one
-// C entry, with (a, s) and (da, ds) staged through a workspace in device
+// only a sequential grid allows. So the backward is a row of kernels behind
+// one C entry, with (a, s) and (da, ds) staged through a workspace in device
 // memory (103 MB at the flagship shapes, mostly L2 traffic next to 13 GFLOP):
 //   1. transpose the 12 weight matrices, so that step 3 reads them with
 //      neighbouring threads on neighbouring addresses;
@@ -47,19 +47,22 @@
 //      every GLU ([rows, D1] row-major each): the forward kernel itself,
 //      compiled with kSave; a forward that must save is the same kernel with
 //      kOut as well;
-//   3. per 32-row tile, the chain backwards in shared memory, the real chain
-//      and then the imaginary one (d, da, ds of one chain: 110 KB, two blocks
-//      on an SM), writing da and ds of every GLU and dx;
+//   3. per tile of kBR rows and per chain (the two chains are independent
+//      until dx), the chain backwards in shared memory with register tiles
+//      of 8 rows by 8 columns, writing da and ds of the chain's GLUs and the
+//      chain's part of dx; then dx = real part + imaginary part;
 //   4. the weight gradients as products over the rows: a block owns a
-//      [48, 48] tile of dWl and dWr of one GLU (u = x or a * s of the GLU
-//      before, rebuilt on load) for one of `nsplit` row segments and writes
-//      its partial sums, bias sums included;
+//      [48, D1] tile of dWl and dWr of one GLU (u = x, or a * s of the GLU
+//      before) for one of `nsplit` row segments and writes its partial
+//      sums; the bias gradients are the segments' column sums of da and ds;
 //   5. the segments' partials summed in order.
 // Every sum has one fixed order, so two runs give the same bits; no atomics.
 // Rows past the end of a tile's data carry g = 0, hence da = ds = 0, and add
 // nothing to any gradient. Ci and Si are symmetric, which step 3 uses to
-// read them along rows.
-//
+// read them along rows. Steps 3 and 4 take W % 4 == 0, D1 % 8 == 0,
+// 2 * D0 <= D1 and D1 <= 256 (`bwd_shape_ok`; the ECG flagship: W = 12,
+// D0 = 48, D1 = 240); the entries return cudaErrorInvalidValue otherwise.
+
 // Saving forward and reread backward (`spectral_fwd_save`,
 // `spectral_bwd_reread`): replace `_kernel_save` (reached from
 // `_forward(save_acts=True)`) and `_bwd_kernel_reread` (reached from
@@ -76,6 +79,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "device_utils.cuh"
 
 namespace {
 
@@ -228,128 +233,268 @@ __global__ void spectral_transpose_kernel(GluWeights g, float* __restrict__ wT, 
   o[(long)c * din + k] = w[e];
 }
 
-// out[k][r] (+)= sum_c da[c][r] * wlT[c][k] + ds[c][r] * wrT[c][k], k < din
-__device__ void bwd_tile(const float* da, const float* ds, int dmid,
-                         const float* __restrict__ wlT, const float* __restrict__ wrT,
-                         float* out, int din, bool accumulate) {
-  for (int k = threadIdx.x; k < din; k += blockDim.x) {
-    float acc[kTR] = {};
-    for (int c = 0; c < dmid; ++c) {
-      const float l = wlT[(long)c * din + k];
-      const float r = wrT[(long)c * din + k];
-      const float4* a4 = reinterpret_cast<const float4*>(da + c * kTRS);
-      const float4* s4 = reinterpret_cast<const float4*>(ds + c * kTRS);
+// ---- backward: the rows kernel ----
+//
+// One block per tile of kBR rows and one chain (blockIdx.y: 0 real, 1
+// imaginary), so the 2 * ceil(rows / kBR) blocks fill the SMs three deep
+// (374 at the flagship shapes, 53,760 bytes each). The tile's da and ds of
+// the chain's current GLU live in shared memory, column-major [k][row]; a
+// product's output stays in registers across the barrier that ends its reads,
+// and the elementwise step writes the next da and ds from there. A thread
+// owns a register tile of 8 rows by 8 columns (two runs of 4: the column
+// group g and g + G), so a step of a product's sum brings 4 float4 of
+// activations (broadcast) and 4 float4 of weights for 128 FMAs: 1 byte of
+// shared memory or L1 an FMA (the one-column-a-thread kernel before it took
+// 4). The weights come from L2 through L1, read by the tile's 3 row groups.
+// Every output element is the same chain of fmaf as before, in the same order.
+
+constexpr int kBR = 24;           // rows of a block of the rows kernel
+constexpr int kBRS = 28;          // floats between two columns of its [k][row] buffers
+constexpr int kBRG = kBR / 8;     // row groups of 8
+constexpr int kBMaxThreads = 96;  // 3 blocks an SM within the registers
+
+__device__ __forceinline__ void lds8(const float* p, float (&v)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+// two float4 runs, `gap` floats apart
+__device__ __forceinline__ void lds4x2(const float* p, int gap, float (&v)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + gap);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// acc[i][4 * j4 + q] = sum_c da[c][r0 + i] * wl[c][c4[j4] + q]
+//                          + ds[c][r0 + i] * wr[c][c4[j4] + q],  c < dmid
+// (wl, wr: Wl^T, Wr^T [dmid][dout] row-major).
+template <int TN>
+__device__ __forceinline__ void glu_bwd_product(const float* da, const float* ds, int dmid,
+                                                const float* __restrict__ wl,
+                                                const float* __restrict__ wr, int dout,
+                                                int r0, const int (&c4)[TN / 4],
+                                                float (&acc)[8][TN]) {
 #pragma unroll
-      for (int q = 0; q < kTR / 4; ++q) {
-        const float4 u = a4[q], v = s4[q];
-        acc[4 * q + 0] = fmaf(v.x, r, fmaf(u.x, l, acc[4 * q + 0]));
-        acc[4 * q + 1] = fmaf(v.y, r, fmaf(u.y, l, acc[4 * q + 1]));
-        acc[4 * q + 2] = fmaf(v.z, r, fmaf(u.z, l, acc[4 * q + 2]));
-        acc[4 * q + 3] = fmaf(v.w, r, fmaf(u.w, l, acc[4 * q + 3]));
-      }
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  // the weights come from L2: loaded two steps of c ahead, in a ring of three
+  constexpr int J4 = TN / 4;
+  float4 lw[3][J4], rw[3][J4];
+  auto load_w = [&](int c, float4 (&l)[J4], float4 (&r)[J4]) {
+    const int cc = min(c, dmid - 1);  // past the end: a load nobody uses
+#pragma unroll
+    for (int j4 = 0; j4 < J4; ++j4) {
+      l[j4] = ldg4(wl + (long)cc * dout + c4[j4]);
+      r[j4] = ldg4(wr + (long)cc * dout + c4[j4]);
     }
+  };
+  load_w(0, lw[0], rw[0]);
+  load_w(1, lw[1], rw[1]);
+  for (int c0 = 0; c0 < dmid; c0 += 3) {
 #pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      if (accumulate) acc[i] += out[k * kTRS + i];
-      out[k * kTRS + i] = acc[i];
+    for (int u = 0; u < 3; ++u) {
+      const int c = c0 + u;
+      if (c >= dmid) break;
+      load_w(c + 2, lw[(u + 2) % 3], rw[(u + 2) % 3]);
+      float a[8], s[8], l[TN], r[TN];
+      lds8(da + c * kBRS + r0, a);
+      lds8(ds + c * kBRS + r0, s);
+#pragma unroll
+      for (int j4 = 0; j4 < J4; ++j4) {
+        const float4 lv = lw[u][j4], rv = rw[u][j4];
+        l[4 * j4] = lv.x; l[4 * j4 + 1] = lv.y; l[4 * j4 + 2] = lv.z; l[4 * j4 + 3] = lv.w;
+        r[4 * j4] = rv.x; r[4 * j4 + 1] = rv.y; r[4 * j4 + 2] = rv.z; r[4 * j4 + 3] = rv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(s[i], r[j], fmaf(a[i], l[j], acc[i][j]));
     }
   }
 }
 
-// One 32-row tile, the real chain and then the imaginary chain: g -> dR (dI)
-// -> the chain's three GLUs backwards -> dx; da, ds of every GLU to dacts
-// (laid out like acts). One chain at a time keeps the block at three
-// [D1, 32] buffers, so that two blocks fit on an SM.
-__global__ void __launch_bounds__(kThreads)
-spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ acts,
-                         float* __restrict__ dacts, long plane, TransposedWeights wt,
-                         const float* __restrict__ ci, const float* __restrict__ si,
-                         float* __restrict__ dx, int B, int K, int N, int W, int WM) {
-  extern __shared__ __align__(16) float smem[];
-  const int d0 = K * W, d1 = K * WM;
-  const long rows = (long)B * N;
-  const long row0 = (long)blockIdx.x * kTR;
-  float* dy = smem;
-  float* da = dy + d1 * kTRS;
-  float* ds = da + d1 * kTRS;
-  float* dxs = ds + d1 * kTRS;  // [d0][kTRS]
-
-  for (int chain = 0; chain < 2; ++chain) {
-    for (int e = threadIdx.x; e < kTR * d1; e += blockDim.x) {
-      const int r = e / d1, col = e % d1;
-      const long row = row0 + r;
-      float v = 0.f;
-      if (row < rows) {
-        const long b = row / N, n = row % N;
-        v = g[((b * K + col / WM) * N + n) * WM + col % WM];
-      }
-      da[col * kTRS + r] = v;  // the cotangent tile, until da is first written
-    }
-    __syncthreads();
-
-    // dR[j] = sum_m g[m] * Ci[j][m] = sum_m g[m] * Ci[m][j] (symmetric), per
-    // order; Si for the imaginary chain
-    const float* idft = chain == 0 ? ci : si;
-    for (int c = threadIdx.x; c < d1; c += blockDim.x) {
-      const int kk = c / WM, j = c % WM;
-      float acc[kTR] = {};
-      for (int m = 0; m < WM; ++m) {
-        const float w = idft[m * WM + j];
-        const float4* g4 = reinterpret_cast<const float4*>(da + (kk * WM + m) * kTRS);
+// The inverse DFT backwards: acc[i][4 * j4 + q] = dR of column c4[j4] + q,
+//   dR[r][c] = sum_m g[r][kk * WM + m] * Ci[m][c % WM], kk = c / WM
+// (Ci symmetric; Si for the imaginary chain); a run of 4 columns never
+// leaves its order (WM % 4 == 0).
+__device__ __forceinline__ void idft_bwd_product(const float* gt, const float* __restrict__ idft,
+                                                 int WM, int r0, const int (&c4)[2],
+                                                 float (&acc)[8][8]) {
 #pragma unroll
-        for (int q = 0; q < kTR / 4; ++q) {
-          const float4 u = g4[q];
-          acc[4 * q + 0] = fmaf(u.x, w, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(u.y, w, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(u.z, w, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(u.w, w, acc[4 * q + 3]);
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const float* g0 = gt + (c4[0] / WM) * WM * kBRS + r0;
+  const float* g1 = gt + (c4[1] / WM) * WM * kBRS + r0;
+  const int j0 = c4[0] % WM, j1 = c4[1] % WM;
+#pragma unroll 2
+  for (int m = 0; m < WM; ++m) {
+    float x0[8], x1[8];
+    lds8(g0 + m * kBRS, x0);
+    lds8(g1 + m * kBRS, x1);
+    const float4 w0 = ldg4(idft + m * WM + j0), w1 = ldg4(idft + m * WM + j1);
+    const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[i][q] = fmaf(x0[i], w[q], acc[i][q]);
+        acc[i][4 + q] = fmaf(x1[i], w[4 + q], acc[i][4 + q]);
+      }
+    }
+  }
+}
+
+// From the product dy of GLU gi's output in registers (the thread's tile):
+//   da = dy * s, ds = dy * a * s * (1 - s)
+// to dacts (rows below rows_pad: the saved planes' rows) and to the shared
+// da, ds, 4 rows of a column as one float4.
+__device__ __forceinline__ void glu_bwd_elementwise(
+    const float (&acc)[8][8], int r0, const int (&c4)[2], long row0, long rows_pad, int d1,
+    const float* __restrict__ a_g, const float* __restrict__ s_g, float* __restrict__ da_g,
+    float* __restrict__ ds_g, float* da, float* ds) {
+#pragma unroll
+  for (int j4 = 0; j4 < 2; ++j4) {
+#pragma unroll
+    for (int h = 0; h < 8; h += 4) {  // 4 rows at a time
+      float va[4][4], vs[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long row = row0 + r0 + h + i;
+        const bool in = row < rows_pad;
+        const float4 a4 = in ? ldg4(a_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 s4 = in ? ldg4(s_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float a[4] = {a4.x, a4.y, a4.z, a4.w}, s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float v = acc[h + i][4 * j4 + q];
+          va[i][q] = v * s[q];
+          vs[i][q] = v * a[q] * (s[q] * (1.f - s[q]));
+        }
+        if (in) {
+          *reinterpret_cast<float4*>(da_g + row * d1 + c4[j4]) =
+              make_float4(va[i][0], va[i][1], va[i][2], va[i][3]);
+          *reinterpret_cast<float4*>(ds_g + row * d1 + c4[j4]) =
+              make_float4(vs[i][0], vs[i][1], vs[i][2], vs[i][3]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < kTR; ++i) dy[c * kTRS + i] = acc[i];
-    }
-    __syncthreads();
-
-    for (int layer = 2; layer >= 0; --layer) {
-      const int gi = 2 * layer + chain;
-      const float* a_g = acts + (2 * gi) * plane + row0 * d1;
-      const float* s_g = acts + (2 * gi + 1) * plane + row0 * d1;
-      float* da_g = dacts + (2 * gi) * plane + row0 * d1;
-      float* ds_g = dacts + (2 * gi + 1) * plane + row0 * d1;
-      for (int e = threadIdx.x; e < kTR * d1; e += blockDim.x) {
-        const int r = e / d1, c = e % d1;
-        const float a = a_g[e], s = s_g[e], v = dy[c * kTRS + r];
-        const float va = v * s;
-        const float vs = v * a * (s * (1.f - s));
-        da[c * kTRS + r] = va;
-        ds[c * kTRS + r] = vs;
-        da_g[e] = va;
-        ds_g[e] = vs;
+      for (int q = 0; q < 4; ++q) {
+        *reinterpret_cast<float4*>(da + (c4[j4] + q) * kBRS + r0 + h) =
+            make_float4(va[0][q], va[1][q], va[2][q], va[3][q]);
+        *reinterpret_cast<float4*>(ds + (c4[j4] + q) * kBRS + r0 + h) =
+            make_float4(vs[0][q], vs[1][q], vs[2][q], vs[3][q]);
       }
-      __syncthreads();
-      if (layer > 0) {
-        bwd_tile(da, ds, d1, wt.l[gi], wt.r[gi], dy, d1, false);
-      } else {
-        bwd_tile(da, ds, d1, wt.l[gi], wt.r[gi], dxs, d0, chain == 1);
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int e = threadIdx.x; e < kTR * d0; e += blockDim.x) {
-    const int r = e / d0, col = e % d0;
-    const long row = row0 + r;
-    if (row < rows) {
-      const long b = row / N, n = row % N;
-      dx[((b * K + col / W) * N + n) * W + col % W] = dxs[col * kTRS + r];
     }
   }
 }
 
-constexpr int kWT = 48;        // edge of a weight-gradient tile
-constexpr int kWEdge = kWT / 4;  // threads along an edge, 4 outputs each
-constexpr int kWThreads = kWEdge * kWEdge;
-constexpr int kWRows = kTR;    // rows staged per step
+// One kBR-row tile of one chain: g -> dR (dI) -> the chain's three GLUs
+// backwards -> the chain's part of dx, dxc [2][rows_pad][D0]; da, ds of the
+// chain's GLUs to dacts (laid out like acts). Needs D1 % 8 == 0, WM % 4 == 0,
+// D0 % 4 == 0 and 2 * D0 <= D1 (checked by the entry).
+__global__ void __launch_bounds__(kBMaxThreads, 3)
+spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ acts,
+                         float* __restrict__ dacts, long plane, long rows_pad,
+                         TransposedWeights wt, const float* __restrict__ ci,
+                         const float* __restrict__ si, float* __restrict__ dxc, int B,
+                         int K, int N, int W, int WM) {
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = K * W, d1 = K * WM;
+  const long rows = (long)B * N;
+  const int chain = blockIdx.y;
+  const long row0 = (long)blockIdx.x * kBR;
+  float* da = smem;              // [d1][kBRS]
+  float* ds = da + d1 * kBRS;    // [d1][kBRS]
+
+  for (int e = threadIdx.x; e < kBR * d1; e += blockDim.x) {
+    const int r = e / d1, col = e % d1;
+    const long row = row0 + r;
+    float v = 0.f;
+    if (row < rows) {
+      const long b = row / N, n = row % N;
+      v = g[((b * K + col / WM) * N + n) * WM + col % WM];
+    }
+    da[col * kBRS + r] = v;  // the cotangent tile, until da is first written
+  }
+  __syncthreads();
+
+  // the tile of a d1-wide product: rows r0..r0+7, columns 4g..4g+3 and
+  // 4(g+G)..4(g+G)+3
+  const int G = d1 / 8;
+  const bool live = (int)threadIdx.x < kBRG * G;
+  const int r0 = live ? (threadIdx.x / G) * 8 : 0;
+  const int gc = threadIdx.x % G;
+  const int c4[2] = {4 * gc, 4 * (gc + G)};
+  float acc[8][8];
+  if (live) idft_bwd_product(da, chain == 0 ? ci : si, WM, r0, c4, acc);
+  __syncthreads();  // every read of the cotangent tile is done
+
+  for (int layer = 2; layer >= 0; --layer) {
+    const int gi = 2 * layer + chain;
+    if (live)
+      glu_bwd_elementwise(acc, r0, c4, row0, rows_pad, d1, acts + (2 * gi) * plane,
+                          acts + (2 * gi + 1) * plane, dacts + (2 * gi) * plane,
+                          dacts + (2 * gi + 1) * plane, da, ds);
+    __syncthreads();
+    if (layer > 0) {
+      if (live) glu_bwd_product<8>(da, ds, d1, wt.l[gi], wt.r[gi], d1, r0, c4, acc);
+      __syncthreads();  // every read of da, ds is done before they are rewritten
+    } else {
+      // into the input space: D0 columns, runs of 4
+      const int G0 = d0 / 4;
+      if ((int)threadIdx.x < kBRG * G0) {
+        const int q0 = (threadIdx.x / G0) * 8;
+        const int cx[1] = {4 * (threadIdx.x % G0)};
+        float out[8][4];
+        glu_bwd_product<4>(da, ds, d1, wt.l[gi], wt.r[gi], d0, q0, cx, out);
+        float* dst = dxc + chain * rows_pad * d0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const long row = row0 + q0 + i;
+          if (row < rows_pad)
+            *reinterpret_cast<float4*>(dst + row * d0 + cx[0]) =
+                make_float4(out[i][0], out[i][1], out[i][2], out[i][3]);
+        }
+      }
+    }
+  }
+}
+
+// dx [B,K,N,W] = real chain's part + imaginary chain's part
+__global__ void spectral_dx_kernel(const float* __restrict__ dxc, float* __restrict__ dx,
+                                   long rows_pad, int B, int K, int N, int W) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long total = (long)B * K * N * W;
+  if (e >= total) return;
+  const int w = e % W;
+  const long n = (e / W) % N;
+  const int kk = (e / ((long)W * N)) % K;
+  const long b = e / ((long)W * N * K);
+  const long i = (b * N + n) * (K * W) + kk * W + w;
+  dx[e] = dxc[i] + dxc[rows_pad * K * W + i];
+}
+
+// ---- backward: the weight gradients ----
+//
+// A block owns a [48, D1] tile of dWl and dWr of one GLU (the k rows k0 to
+// k0 + 47 of its input) for one of `nsplit` row segments, and writes its
+// partial sums; a thread owns 8 k by 8 columns of both (128 sums; the
+// columns two runs of 4, 4g and 4(g + D1/8), so the float4 reads of a quarter
+// warp cover 128 consecutive bytes), and a row brings 6 float4 for 128 FMAs
+// (0.75 bytes an FMA). Rows come in stages of
+// kWRC by cp.async, two stages in flight while one is summed; u is x (layer
+// 0) or a * s of the GLU before, its product taken as a row is read. The bias
+// gradients are column sums of da and ds
+// (`spectral_bias_kernel`), into the same partial buffer.
 
 // floats of GLU gi's block in the flat gradient buffer: wl, bl, wr, br
 __host__ __device__ inline long glu_grad_offset(int gi, int d0, int d1) {
@@ -357,105 +502,158 @@ __host__ __device__ inline long glu_grad_offset(int gi, int d0, int d1) {
   return gi < 2 ? gi * s0 : 2 * s0 + (gi - 2) * s1;
 }
 
-// blockIdx: x = tile (k tile * tiles + c tile), y = GLU, z = row segment.
-// part: [gridDim.z][total] partial gradients in the flat layout.
-__global__ void __launch_bounds__(kWThreads)
+constexpr int kWK = 48;      // k rows of a weight-gradient tile
+constexpr int kWRC = 16;     // rows a stage
+constexpr int kWMaxThreads = 192;
+
+// blockIdx: x = k tile, y = GLU, z = row segment. part: [gridDim.z][total]
+// partial gradients in the flat layout. Needs W % 4 == 0 and D1 % 8 == 0.
+__global__ void __launch_bounds__(kWMaxThreads, 2)
 spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ acts,
                       const float* __restrict__ dacts, long plane,
                       float* __restrict__ part, long total, int chunks, int chunks_per_seg,
                       int B, int K, int N, int W, int WM) {
-  __shared__ __align__(16) float us[kWRows][kWT];
-  __shared__ __align__(16) float das[kWRows][kWT];
-  __shared__ __align__(16) float dss[kWRows][kWT];
+  extern __shared__ __align__(16) float smem[];
   const int d0 = K * W, d1 = K * WM;
-  const int tiles = (d1 + kWT - 1) / kWT;
   const int gi = blockIdx.y;
   const int din = gi < 2 ? d0 : d1;
-  const int k0 = (blockIdx.x / tiles) * kWT, c0 = (blockIdx.x % tiles) * kWT;
+  const int k0 = blockIdx.x * kWK;
   if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles
+  const int kw = min(kWK, din - k0);
   const long rows = (long)B * N;
-  const int tx = threadIdx.x % kWEdge, ty = threadIdx.x / kWEdge;
-  const bool bias = (k0 == 0 && ty == 0);
+  const int stage = kWRC * (2 * kWK + 2 * d1);
   const float* a_src = gi < 2 ? nullptr : acts + (2 * (gi - 2)) * plane;
   const float* s_src = gi < 2 ? nullptr : acts + (2 * (gi - 2) + 1) * plane;
   const float* da_src = dacts + (2 * gi) * plane;
   const float* ds_src = dacts + (2 * gi + 1) * plane;
 
-  float accl[4][4] = {}, accr[4][4] = {}, bl[4] = {}, br[4] = {};
+  // stage st: us [kWRC][kWK], ss [kWRC][kWK], das [kWRC][d1], dss [kWRC][d1]
+  const int k4 = kw / 4, c4 = d1 / 4;
+  // this thread's first (row, run of 4 columns) of da and ds, and its step
+  const int dr0 = threadIdx.x / c4, dc0 = threadIdx.x % c4;
+  const int drs = blockDim.x / c4, dcs = blockDim.x % c4;
+  auto issue = [&](int ch, int st) {
+    float* us = smem + st * stage;
+    float* ss = us + kWRC * kWK;
+    float* das = ss + kWRC * kWK;
+    float* dss = das + kWRC * d1;
+    const long r0 = (long)ch * kWRC;
+    for (int e = threadIdx.x; e < kWRC * k4; e += blockDim.x) {
+      const int r = e / k4, k = k0 + 4 * (e % k4);
+      const long row = r0 + r;
+      float* du = us + r * kWK + k - k0;
+      if (gi < 2) {
+        if (row < rows) {
+          const long b = row / N, n = row % N;
+          cp_async16(du, x + ((b * K + k / W) * N + n) * W + k % W);
+        } else {
+          *reinterpret_cast<float4*>(du) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        cp_async16(du, a_src + row * d1 + k);
+        cp_async16(ss + r * kWK + k - k0, s_src + row * d1 + k);
+      }
+    }
+    for (int r = dr0, c = dc0; r < kWRC;) {
+      const long src = (r0 + r) * d1 + 4 * c;
+      cp_async16(das + r * d1 + 4 * c, da_src + src);
+      cp_async16(dss + r * d1 + 4 * c, ds_src + src);
+      r += drs;
+      c += dcs;
+      if (c >= c4) {
+        c -= c4;
+        ++r;
+      }
+    }
+  };
+
+  const int CG = d1 / 8;
+  const bool live = (int)threadIdx.x < (kw / 8) * CG;
+  const int kg = live ? threadIdx.x / CG : 0, cg = threadIdx.x % CG;
+  float accl[8][8] = {}, accr[8][8] = {};
   const int ch0 = blockIdx.z * chunks_per_seg;
   const int ch1 = min(chunks, ch0 + chunks_per_seg);
+  // a ring of three stages, two in flight: the stage a chunk's loads refill
+  // was last read a chunk before, by threads that have all passed this
+  // chunk's barrier since, so one barrier a chunk does
+  if (ch0 < ch1) issue(ch0, 0);
+  cp_async_commit();
+  if (ch0 + 1 < ch1) issue(ch0 + 1, 1);
+  cp_async_commit();
   for (int ch = ch0; ch < ch1; ++ch) {
-    for (int e = threadIdx.x; e < kWRows * kWT; e += blockDim.x) {
-      const int r = e / kWT, col = e % kWT;
-      const long row = (long)ch * kWRows + r;
-      const int kc = k0 + col, cc = c0 + col;
-      float u = 0.f, va = 0.f, vs = 0.f;
-      if (kc < din) {
-        if (gi < 2) {
-          if (row < rows) {
-            const long b = row / N, n = row % N;
-            u = x[((b * K + kc / W) * N + n) * W + kc % W];
+    cp_async_wait_group<1>();
+    __syncthreads();
+    if (ch + 2 < ch1) issue(ch + 2, (ch - ch0 + 2) % 3);
+    cp_async_commit();
+    const float* us = smem + ((ch - ch0) % 3) * stage;
+    const float* ss = us + kWRC * kWK;
+    const float* das = ss + kWRC * kWK;
+    const float* dss = das + kWRC * d1;
+    if (live) {
+#pragma unroll 2
+      for (int r = 0; r < kWRC; ++r) {
+        float u[8], a[8], s[8];
+        lds8(us + r * kWK + 8 * kg, u);
+        if (gi >= 2) {  // u = a * s of the GLU before
+          float sv[8];
+          lds8(ss + r * kWK + 8 * kg, sv);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) u[i] = u[i] * sv[i];
+        }
+        lds4x2(das + r * d1 + 4 * cg, 4 * CG, a);
+        lds4x2(dss + r * d1 + 4 * cg, 4 * CG, s);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            accl[i][j] = fmaf(u[i], a[j], accl[i][j]);
+            accr[i][j] = fmaf(u[i], s[j], accr[i][j]);
           }
-        } else {
-          u = a_src[row * d1 + kc] * s_src[row * d1 + kc];
-        }
-      }
-      if (cc < d1) {
-        va = da_src[row * d1 + cc];
-        vs = ds_src[row * d1 + cc];
-      }
-      us[r][col] = u;
-      das[r][col] = va;
-      dss[r][col] = vs;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kWRows; ++r) {
-      const float4 u4 = *reinterpret_cast<const float4*>(&us[r][4 * ty]);
-      const float4 a4 = *reinterpret_cast<const float4*>(&das[r][4 * tx]);
-      const float4 s4 = *reinterpret_cast<const float4*>(&dss[r][4 * tx]);
-      const float u[4] = {u4.x, u4.y, u4.z, u4.w};
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          accl[i][j] = fmaf(u[i], a[j], accl[i][j]);
-          accr[i][j] = fmaf(u[i], s[j], accr[i][j]);
-        }
-      }
-      if (bias) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bl[j] += a[j];
-          br[j] += s[j];
         }
       }
     }
-    __syncthreads();
   }
-
+  if (!live) return;
   float* base = part + (long)blockIdx.z * total + glu_grad_offset(gi, d0, d1);
   float* pwl = base;
-  float* pbl = pwl + (long)din * d1;
-  float* pwr = pbl + d1;
-  float* pbr = pwr + (long)din * d1;
+  float* pwr = pwl + (long)din * d1 + d1;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c0 + 4 * tx + j;
-    if (c >= d1) continue;
+  for (int i = 0; i < 8; ++i) {
+    const long k = k0 + 8 * kg + i;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + 4 * ty + i;
-      if (k >= din) continue;
-      pwl[(long)k * d1 + c] = accl[i][j];
-      pwr[(long)k * d1 + c] = accr[i][j];
+    for (int j4 = 0; j4 < 2; ++j4) {
+      const int c = 4 * (cg + j4 * CG);
+      *reinterpret_cast<float4*>(pwl + k * d1 + c) = make_float4(
+          accl[i][4 * j4], accl[i][4 * j4 + 1], accl[i][4 * j4 + 2], accl[i][4 * j4 + 3]);
+      *reinterpret_cast<float4*>(pwr + k * d1 + c) = make_float4(
+          accr[i][4 * j4], accr[i][4 * j4 + 1], accr[i][4 * j4 + 2], accr[i][4 * j4 + 3]);
     }
-    if (bias) {
-      pbl[c] = bl[j];
-      pbr[c] = br[j];
-    }
+  }
+}
+
+// The bias gradients of one segment: blockIdx.x = 2 * GLU + side (da: bl,
+// ds: br), blockIdx.y = row segment; column sums of that array over the
+// segment's rows, in a fixed order, into the partial buffer.
+__global__ void spectral_bias_kernel(const float* __restrict__ dacts, long plane,
+                                     float* __restrict__ part, long total, int seg_rows,
+                                     long rows_pad, int d0, int d1) {
+  const int m = blockIdx.x, gi = m / 2, side = m % 2;
+  const int din = gi < 2 ? d0 : d1;
+  const long r0 = (long)blockIdx.y * seg_rows;
+  const long r1 = min(rows_pad, r0 + seg_rows);
+  const float* src = dacts + m * plane;
+  float* dst = part + (long)blockIdx.y * total + glu_grad_offset(gi, d0, d1) +
+               (side == 0 ? (long)din * d1 : 2L * din * d1 + d1);
+  for (int c = threadIdx.x; c < d1; c += blockDim.x) {
+    // rows r0 + q, r0 + q + 8, ... in acc[q], then a fixed tree over q: eight
+    // loads in flight instead of one dependent chain
+    float acc[8] = {};
+    long r = r0;
+    for (; r + 8 <= r1; r += 8)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[q] += src[(r + q) * d1 + c];
+    for (int q = 0; r < r1; ++r, ++q) acc[q] += src[r * d1 + c];
+    dst[c] = ((acc[0] + acc[4]) + (acc[2] + acc[6])) + ((acc[1] + acc[5]) + (acc[3] + acc[7]));
   }
 }
 
@@ -539,11 +737,21 @@ extern "C" long long spectral_bwd_grad_floats(int K, int W, int WM) {
 namespace {
 
 // Floats of the backward's scratch without the saved arrays: da, ds of six
-// GLUs for the padded rows, the transposed weights, nsplit partial gradients.
+// GLUs for the padded rows, the transposed weights, the two chains' parts of
+// dx, nsplit partial gradients.
 long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit) {
   const long d0 = K * W, d1 = K * WM;
   return 12 * rows_padded(B, N) * d1 + 4 * d0 * d1 + 8 * d1 * d1 +
-         (long)nsplit * grads_total(d0, d1);
+         2 * rows_padded(B, N) * d0 + (long)nsplit * grads_total(d0, d1);
+}
+
+// The shapes the backward's kernels take (register tiles of 8 by 8 and runs
+// of 4 columns, a block of the rows kernel at most kBMaxThreads threads).
+bool bwd_shape_ok(int K, int W, int WM) {
+  const int d0 = K * W, d1 = K * WM;
+  return W % 4 == 0 && WM % 4 == 0 && d0 % 8 == 0 && d1 % 8 == 0 && 2 * d0 <= d1 &&
+         (kBRG * (d1 / 8) + 31) / 32 * 32 <= kBMaxThreads &&
+         (kWK / 8) * (d1 / 8) <= kWMaxThreads;
 }
 
 // Steps 1 to 5 of the backward. saved: the forward's 12 arrays, or nullptr to
@@ -551,12 +759,12 @@ long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit) {
 int bwd_launch(const float* x, const float* g, const void* const* w, const float* ci,
                const float* si, float* dx, float* grads, const float* saved, float* ws,
                int B, int K, int N, int W, int WM, int nsplit, cudaStream_t st) {
+  if (!bwd_shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
   const int d0 = K * W, d1 = K * WM;
   const long rows_pad = rows_padded(B, N);
   const long plane = rows_pad * d1;
   const long total = grads_total(d0, d1);
   const GluWeights gw = glu_weights(w);
-  const int blocks = (int)(rows_pad / kTR);
   cudaError_t err;
 
   const float* acts = saved;
@@ -565,7 +773,7 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
     err = cudaFuncSetAttribute(spectral_chain_kernel<true, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_f);
     if (err != cudaSuccess) return (int)err;
-    spectral_chain_kernel<true, false><<<blocks, kThreads, smem_f, st>>>(
+    spectral_chain_kernel<true, false><<<(int)(rows_pad / kTR), kThreads, smem_f, st>>>(
         x, gw, ci, si, nullptr, ws, plane, B, K, N, W, WM);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     acts = ws;
@@ -573,7 +781,8 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
   }
   float* dacts = ws;
   float* wT = dacts + 12 * plane;
-  float* part = wT + 4L * d0 * d1 + 8L * d1 * d1;
+  float* dxc = wT + 4L * d0 * d1 + 8L * d1 * d1;
+  float* part = dxc + 2 * rows_pad * d0;
 
   spectral_transpose_kernel<<<dim3((d1 * d1 + 255) / 256, 12), 256, 0, st>>>(gw, wT, d0,
                                                                             d1);
@@ -584,19 +793,31 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
     const float* p = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
     if (m % 2 == 0) wt.l[m / 2] = p; else wt.r[m / 2] = p;
   }
-  const long smem_b = chain_smem(K, W, WM);  // three [D1, 32] buffers and dx's
+  const int smem_b = 2 * d1 * kBRS * (int)sizeof(float);
   err = cudaFuncSetAttribute(spectral_bwd_rows_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
   if (err != cudaSuccess) return (int)err;
-  spectral_bwd_rows_kernel<<<blocks, kThreads, smem_b, st>>>(
-      g, acts, dacts, plane, wt, ci, si, dx, B, K, N, W, WM);
+  const int threads_b = (kBRG * (d1 / 8) + 31) / 32 * 32;
+  spectral_bwd_rows_kernel<<<dim3((int)((rows_pad + kBR - 1) / kBR), 2), threads_b, smem_b,
+                             st>>>(g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, B, K,
+                                   N, W, WM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long nx = (long)B * K * N * W;
+  spectral_dx_kernel<<<(int)((nx + 255) / 256), 256, 0, st>>>(dxc, dx, rows_pad, B, K, N, W);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const int tiles = (d1 + kWT - 1) / kWT;
-  const int chunks = (int)(rows_pad / kWRows);
+  const int chunks = (int)(rows_pad / kWRC);
   const int chunks_per_seg = (chunks + nsplit - 1) / nsplit;
-  spectral_wgrad_kernel<<<dim3(tiles * tiles, 6, nsplit), kWThreads, 0, st>>>(
+  const int smem_w = 3 * kWRC * (2 * kWK + 2 * d1) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(spectral_wgrad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_w);
+  if (err != cudaSuccess) return (int)err;
+  const int threads_w = ((kWK / 8) * (d1 / 8) + 31) / 32 * 32;
+  spectral_wgrad_kernel<<<dim3((d1 + kWK - 1) / kWK, 6, nsplit), threads_w, smem_w, st>>>(
       x, acts, dacts, plane, part, total, chunks, chunks_per_seg, B, K, N, W, WM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  spectral_bias_kernel<<<dim3(12, nsplit), 256, 0, st>>>(
+      dacts, plane, part, total, chunks_per_seg * kWRC, rows_pad, d0, d1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   spectral_reduce_kernel<<<(int)((total + 255) / 256), 256, 0, st>>>(part, grads, total,

@@ -81,30 +81,54 @@ GRU_BWD_VARIANTS = {
     "k loop not unrolled": [("#pragma unroll 7\n", "#pragma unroll 1\n")],
 }
 
+_SPE_IN = "      const bool in = row < rows_pad;\n"
 SPECTRAL_VARIANTS = {
     "base": [],
     # the kernels of the reread backward, each left out in turn
-    "rows kernel returns at once": [("  float* dy = smem;\n",
-                                     "  if (row0 >= 0) return;\n  float* dy = smem;\n")],
+    "rows kernel returns at once": [
+        ("  float* da = smem;              // [d1][kBRS]\n",
+         "  if (row0 >= 0) return;\n  float* da = smem;\n")],
     "wgrad kernel returns at once": [
         ("  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles\n",
          "  if (k0 >= 0) return;\n")],
+    "dx, bias and reduce kernels return at once": [
+        ("  if (e >= total) return;\n  const int w = e % W;\n",
+         "  if (e >= 0) return;\n  const int w = e % W;\n"),
+        ("  const int m = blockIdx.x, gi = m / 2, side = m % 2;\n",
+         "  if (blockIdx.x >= 0) return;\n  const int m = blockIdx.x, gi = m / 2, side = m % 2;\n"),
+        ("  if (i >= total) return;\n  float acc = part[i];\n",
+         "  if (i >= 0) return;\n  float acc = part[i];\n")],
+    # the rows kernel's row tile: 32 or 40 rows (4 or 5 row groups)
+    "rows tile of 32": [
+        ("constexpr int kBR = 24; ", "constexpr int kBR = 32; "),
+        ("constexpr int kBRS = 28; ", "constexpr int kBRS = 36; "),
+        ("constexpr int kBMaxThreads = 96; ", "constexpr int kBMaxThreads = 128; ")],
+    "rows tile of 40, 2 blocks an SM": [
+        ("constexpr int kBR = 24; ", "constexpr int kBR = 40; "),
+        ("constexpr int kBRS = 28; ", "constexpr int kBRS = 44; "),
+        ("constexpr int kBMaxThreads = 96; ", "constexpr int kBMaxThreads = 160; "),
+        ("__launch_bounds__(kBMaxThreads, 3)", "__launch_bounds__(kBMaxThreads, 2)")],
     # the rows kernel's pieces
     "rows: no weight loads": [
-        ("      const float l = wlT[(long)c * din + k];\n"
-         "      const float r = wrT[(long)c * din + k];\n",
-         "      const float l = 1e-3f * c, r = 2e-3f * c;\n")],
+        ("      l[j4] = ldg4(wl + (long)cc * dout + c4[j4]);\n"
+         "      r[j4] = ldg4(wr + (long)cc * dout + c4[j4]);\n",
+         "      l[j4] = make_float4(cc, j4, 1.f, 2.f);\n"
+         "      r[j4] = make_float4(j4, cc, 2.f, 1.f);\n")],
     "rows: no activation reads": [
-        ("        const float4 u = a4[q], v = s4[q];\n",
-         "        const float4 u = make_float4(q, c, k, 1.f), v = make_float4(c, q, 1.f, k);\n")],
-    "rows: no elementwise pass": [
-        ("        const float a = a_g[e], s = s_g[e], v = dy[c * kTRS + r];\n"
-         "        const float va = v * s;\n"
-         "        const float vs = v * a * (s * (1.f - s));\n"
-         "        da[c * kTRS + r] = va;\n"
-         "        ds[c * kTRS + r] = vs;\n"
-         "        da_g[e] = va;\n"
-         "        ds_g[e] = vs;\n", "        (void)r; (void)c;\n")],
+        ("      lds8(da + c * kBRS + r0, a);\n      lds8(ds + c * kBRS + r0, s);\n",
+         "      for (int i = 0; i < 8; ++i) {\n        a[i] = 1e-3f * (c + i);\n"
+         "        s[i] = 2e-3f * (c - i);\n      }\n")],
+    # the elementwise pass keeps only its shared-memory stores
+    "rows: elementwise without its loads and stores": [
+        (_SPE_IN, "      const bool in = false;\n")],
+    # the weight-gradient kernel's pieces
+    "wgrad: no stage loads": [
+        ("  if (ch0 < ch1) issue(ch0, 0);\n", ""),
+        ("  if (ch0 + 1 < ch1) issue(ch0 + 1, 1);\n", ""),
+        ("    if (ch + 2 < ch1) issue(ch + 2, (ch - ch0 + 2) % 3);\n", "")],
+    "wgrad: no u = a * s product": [
+        ("        if (gi >= 2) {  // u = a * s of the GLU before\n",
+         "        if (gi < 0) {  // u = a * s of the GLU before\n")],
 }
 
 _G_LOOP = "      for (int m = p; m < mp; m += kParts) {"

@@ -187,3 +187,16 @@ def test_new_wrappers_are_counted_kernels_and_launch_nothing_on_the_cpu():
     assert ops.replayed()["spectral_fwd_save"] == 4
     ops.reset_launches()
     assert ops.replayed() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("k,w,multi,ok", [
+    (4, 12, 5, True),    # the ECG flagship: D0 = 48, D1 = 240
+    (4, 8, 6, True),     # D1 = 192
+    (4, 12, 1, False),   # 2 * D0 > D1: layer 0's tiles would outnumber the threads
+    (4, 7, 5, False),    # W % 4: runs of 4 columns would straddle a window
+    (4, 12, 6, False),   # D1 = 288: a block of the weight-gradient kernel past 192 threads
+])
+def test_spectral_backward_shape_rule(k, w, multi, ok):
+    """The shapes the CUDA backward takes, as csrc/spectral.cu `bwd_shape_ok`
+    states them; `_launch_bwd` raises on the others before any launch."""
+    assert cuda_spectral.bwd_shape_ok(k, w, w * multi) is ok
