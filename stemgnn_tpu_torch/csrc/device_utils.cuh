@@ -32,6 +32,19 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
+// 8 consecutive floats (16-byte aligned) as two float4.
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // Starts the copy of a [rows][cols] panel of `src` (leading dimension src_ld)
 // into shared memory at `dst` (leading dimension dst_ld), all threads of the
 // block taking elements in turn. 16 bytes a copy where every row of both

@@ -126,18 +126,6 @@ __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v
 // conflict.
 constexpr int kPad = 4;
 
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
-
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
 // --- pieces of the cluster kernels ---
 
 // The exchange between the blocks of a cluster goes by messages, not by a

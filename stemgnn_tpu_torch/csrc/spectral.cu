@@ -50,12 +50,14 @@
 //   3. per tile of kBR rows and per chain (the two chains are independent
 //      until dx), the chain backwards in shared memory with register tiles
 //      of 8 rows by 8 columns, writing da and ds of the chain's GLUs and the
-//      chain's part of dx; then dx = real part + imaginary part;
+//      chain's part of dx and the column sums of da and ds over each 8 rows;
+//      then dx = real part + imaginary part;
 //   4. the weight gradients as products over the rows: a block owns a
 //      [48, D1] tile of dWl and dWr of one GLU (u = x, or a * s of the GLU
 //      before) for one of `nsplit` row segments and writes its partial
-//      sums; the bias gradients are the segments' column sums of da and ds;
-//   5. the segments' partials summed in order.
+//      sums;
+//   5. the segments' partials summed in order, and the bias gradients as the
+//      sums of step 3's column sums.
 // Every sum has one fixed order, so two runs give the same bits; no atomics.
 // Rows past the end of a tile's data carry g = 0, hence da = ds = 0, and add
 // nothing to any gradient. Ci and Si are symmetric, which step 3 uses to
@@ -253,13 +255,6 @@ constexpr int kBRS = 28;          // floats between two columns of its [k][row] 
 constexpr int kBRG = kBR / 8;     // row groups of 8
 constexpr int kBMaxThreads = 96;  // 3 blocks an SM within the registers
 
-__device__ __forceinline__ void lds8(const float* p, float (&v)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
-
 // two float4 runs, `gap` floats apart
 __device__ __forceinline__ void lds4x2(const float* p, int gap, float (&v)[8]) {
   const float4 lo = *reinterpret_cast<const float4*>(p);
@@ -305,8 +300,8 @@ __device__ __forceinline__ void glu_bwd_product(const float* da, const float* ds
       if (c >= dmid) break;
       load_w(c + 2, lw[(u + 2) % 3], rw[(u + 2) % 3]);
       float a[8], s[8], l[TN], r[TN];
-      lds8(da + c * kBRS + r0, a);
-      lds8(ds + c * kBRS + r0, s);
+      load8(da + c * kBRS + r0, a);
+      load8(ds + c * kBRS + r0, s);
 #pragma unroll
       for (int j4 = 0; j4 < J4; ++j4) {
         const float4 lv = lw[u][j4], rv = rw[u][j4];
@@ -338,8 +333,8 @@ __device__ __forceinline__ void idft_bwd_product(const float* gt, const float* _
 #pragma unroll 2
   for (int m = 0; m < WM; ++m) {
     float x0[8], x1[8];
-    lds8(g0 + m * kBRS, x0);
-    lds8(g1 + m * kBRS, x1);
+    load8(g0 + m * kBRS, x0);
+    load8(g1 + m * kBRS, x1);
     const float4 w0 = ldg4(idft + m * WM + j0), w1 = ldg4(idft + m * WM + j1);
     const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
@@ -355,14 +350,17 @@ __device__ __forceinline__ void idft_bwd_product(const float* gt, const float* _
 
 // From the product dy of GLU gi's output in registers (the thread's tile):
 //   da = dy * s, ds = dy * a * s * (1 - s)
-// to dacts (rows below rows_pad: the saved planes' rows) and to the shared
-// da, ds, 4 rows of a column as one float4.
+// to dacts (rows below rows_pad: the saved planes' rows), to the shared da,
+// ds (4 rows of a column as one float4), and the tile's column sums over its
+// 8 rows, in row order, to ba and bs (the bias gradients' partials).
 __device__ __forceinline__ void glu_bwd_elementwise(
     const float (&acc)[8][8], int r0, const int (&c4)[2], long row0, long rows_pad, int d1,
     const float* __restrict__ a_g, const float* __restrict__ s_g, float* __restrict__ da_g,
-    float* __restrict__ ds_g, float* da, float* ds) {
+    float* __restrict__ ds_g, float* da, float* ds, float* __restrict__ ba,
+    float* __restrict__ bs) {
 #pragma unroll
   for (int j4 = 0; j4 < 2; ++j4) {
+    float sa[4] = {}, ss[4] = {};
 #pragma unroll
     for (int h = 0; h < 8; h += 4) {  // 4 rows at a time
       float va[4][4], vs[4][4];
@@ -385,6 +383,11 @@ __device__ __forceinline__ void glu_bwd_elementwise(
           *reinterpret_cast<float4*>(ds_g + row * d1 + c4[j4]) =
               make_float4(vs[i][0], vs[i][1], vs[i][2], vs[i][3]);
         }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sa[q] += va[i][q];
+          ss[q] += vs[i][q];
+        }
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -394,19 +397,22 @@ __device__ __forceinline__ void glu_bwd_elementwise(
             make_float4(vs[0][q], vs[1][q], vs[2][q], vs[3][q]);
       }
     }
+    *reinterpret_cast<float4*>(ba + c4[j4]) = make_float4(sa[0], sa[1], sa[2], sa[3]);
+    *reinterpret_cast<float4*>(bs + c4[j4]) = make_float4(ss[0], ss[1], ss[2], ss[3]);
   }
 }
 
 // One kBR-row tile of one chain: g -> dR (dI) -> the chain's three GLUs
 // backwards -> the chain's part of dx, dxc [2][rows_pad][D0]; da, ds of the
-// chain's GLUs to dacts (laid out like acts). Needs D1 % 8 == 0, WM % 4 == 0,
-// D0 % 4 == 0 and 2 * D0 <= D1 (checked by the entry).
+// chain's GLUs to dacts (laid out like acts), and their column sums over
+// each 8 rows to bpart [tiles * kBRG][12][D1] (array 2 * GLU + side). Takes
+// the shapes `bwd_shape_ok` passes.
 __global__ void __launch_bounds__(kBMaxThreads, 3)
 spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ acts,
                          float* __restrict__ dacts, long plane, long rows_pad,
                          TransposedWeights wt, const float* __restrict__ ci,
-                         const float* __restrict__ si, float* __restrict__ dxc, int B,
-                         int K, int N, int W, int WM) {
+                         const float* __restrict__ si, float* __restrict__ dxc,
+                         float* __restrict__ bpart, int B, int K, int N, int W, int WM) {
   extern __shared__ __align__(16) float smem[];
   const int d0 = K * W, d1 = K * WM;
   const long rows = (long)B * N;
@@ -440,10 +446,12 @@ spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ 
 
   for (int layer = 2; layer >= 0; --layer) {
     const int gi = 2 * layer + chain;
-    if (live)
+    if (live) {
+      float* b = bpart + ((long)(blockIdx.x * kBRG + r0 / 8) * 12 + 2 * gi) * d1;
       glu_bwd_elementwise(acc, r0, c4, row0, rows_pad, d1, acts + (2 * gi) * plane,
                           acts + (2 * gi + 1) * plane, dacts + (2 * gi) * plane,
-                          dacts + (2 * gi + 1) * plane, da, ds);
+                          dacts + (2 * gi + 1) * plane, da, ds, b, b + d1);
+    }
     __syncthreads();
     if (layer > 0) {
       if (live) glu_bwd_product<8>(da, ds, d1, wt.l[gi], wt.r[gi], d1, r0, c4, acc);
@@ -490,11 +498,10 @@ __global__ void spectral_dx_kernel(const float* __restrict__ dxc, float* __restr
 // partial sums; a thread owns 8 k by 8 columns of both (128 sums; the
 // columns two runs of 4, 4g and 4(g + D1/8), so the float4 reads of a quarter
 // warp cover 128 consecutive bytes), and a row brings 6 float4 for 128 FMAs
-// (0.75 bytes an FMA). Rows come in stages of
-// kWRC by cp.async, two stages in flight while one is summed; u is x (layer
-// 0) or a * s of the GLU before, its product taken as a row is read. The bias
-// gradients are column sums of da and ds
-// (`spectral_bias_kernel`), into the same partial buffer.
+// (0.75 bytes an FMA). Rows come in stages of kWRC by cp.async, two stages in
+// flight while one is summed; u is x (layer 0) or a * s of the GLU before, its
+// product taken as a row is read. The bias gradients, column sums of da and
+// ds, are the rows kernel's partials added by `spectral_bias_kernel`.
 
 // floats of GLU gi's block in the flat gradient buffer: wl, bl, wr, br
 __host__ __device__ inline long glu_grad_offset(int gi, int d0, int d1) {
@@ -593,10 +600,10 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
 #pragma unroll 2
       for (int r = 0; r < kWRC; ++r) {
         float u[8], a[8], s[8];
-        lds8(us + r * kWK + 8 * kg, u);
+        load8(us + r * kWK + 8 * kg, u);
         if (gi >= 2) {  // u = a * s of the GLU before
           float sv[8];
-          lds8(ss + r * kWK + 8 * kg, sv);
+          load8(ss + r * kWK + 8 * kg, sv);
 #pragma unroll
           for (int i = 0; i < 8; ++i) u[i] = u[i] * sv[i];
         }
@@ -631,38 +638,51 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
   }
 }
 
-// The bias gradients of one segment: blockIdx.x = 2 * GLU + side (da: bl,
-// ds: br), blockIdx.y = row segment; column sums of that array over the
-// segment's rows, in a fixed order, into the partial buffer.
-__global__ void spectral_bias_kernel(const float* __restrict__ dacts, long plane,
-                                     float* __restrict__ part, long total, int seg_rows,
-                                     long rows_pad, int d0, int d1) {
+// The bias gradients into their slots of grads: blockIdx.x = 2 * GLU + side
+// (da: bl, ds: br), blockIdx.y = a run of 32 columns; the column sums the rows
+// kernel left per 8 rows (bpart, `parts` of them), added in a fixed order:
+// lane q of a column takes parts q, q + kBiasLanes, ... in order, then a fixed
+// tree over the lanes.
+constexpr int kBiasLanes = 16;
+
+__global__ void __launch_bounds__(32 * kBiasLanes)
+spectral_bias_kernel(const float* __restrict__ bpart, float* __restrict__ grads, int parts,
+                     int d0, int d1) {
+  __shared__ float lane_sum[kBiasLanes][33];
   const int m = blockIdx.x, gi = m / 2, side = m % 2;
   const int din = gi < 2 ? d0 : d1;
-  const long r0 = (long)blockIdx.y * seg_rows;
-  const long r1 = min(rows_pad, r0 + seg_rows);
-  const float* src = dacts + m * plane;
-  float* dst = part + (long)blockIdx.y * total + glu_grad_offset(gi, d0, d1) +
-               (side == 0 ? (long)din * d1 : 2L * din * d1 + d1);
-  for (int c = threadIdx.x; c < d1; c += blockDim.x) {
-    // rows r0 + q, r0 + q + 8, ... in acc[q], then a fixed tree over q: eight
-    // loads in flight instead of one dependent chain
-    float acc[8] = {};
-    long r = r0;
-    for (; r + 8 <= r1; r += 8)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[q] += src[(r + q) * d1 + c];
-    for (int q = 0; r < r1; ++r, ++q) acc[q] += src[r * d1 + c];
-    dst[c] = ((acc[0] + acc[4]) + (acc[2] + acc[6])) + ((acc[1] + acc[5]) + (acc[3] + acc[7]));
+  const int c = blockIdx.y * 32 + threadIdx.x, q = threadIdx.y;
+  float acc = 0.f;
+  if (c < d1) {
+#pragma unroll 4
+    for (int p = q; p < parts; p += kBiasLanes) acc += bpart[((long)p * 12 + m) * d1 + c];
   }
+  lane_sum[q][threadIdx.x] = acc;
+  __syncthreads();
+  for (int half = kBiasLanes / 2; half >= 1; half /= 2) {
+    if (q < half) lane_sum[q][threadIdx.x] += lane_sum[q + half][threadIdx.x];
+    __syncthreads();
+  }
+  if (q == 0 && c < d1)
+    grads[glu_grad_offset(gi, d0, d1) + (side == 0 ? (long)din * d1 : 2L * din * d1 + d1) +
+          c] = lane_sum[0][threadIdx.x];
 }
 
-// grads[i] = part[0][i] + part[1][i] + ... in that order
+// True for the bias slots of the flat gradient buffer (wl, bl, wr, br per GLU).
+__device__ __forceinline__ bool is_bias_slot(long i, int d0, int d1) {
+  const long s0 = 2L * ((long)d0 * d1 + d1), s1 = 2L * ((long)d1 * d1 + d1);
+  const long off = i < 2 * s0 ? i % s0 : (i - 2 * s0) % s1;
+  const long w = (long)(i < 2 * s0 ? d0 : d1) * d1;
+  return (off >= w && off < w + d1) || off >= 2 * w + d1;
+}
+
+// grads[i] = part[0][i] + part[1][i] + ... in that order, for the weight
+// slots (the bias slots are `spectral_bias_kernel`'s)
 __global__ void spectral_reduce_kernel(const float* __restrict__ part,
-                                       float* __restrict__ grads, long total,
-                                       int nsplit) {
+                                       float* __restrict__ grads, long total, int nsplit,
+                                       int d0, int d1) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
+  if (i >= total || is_bias_slot(i, d0, d1)) return;
   float acc = part[i];
   for (int s = 1; s < nsplit; ++s) acc += part[(long)s * total + i];
   grads[i] = acc;
@@ -736,13 +756,18 @@ extern "C" long long spectral_bwd_grad_floats(int K, int W, int WM) {
 
 namespace {
 
+// Partial column sums the rows kernel leaves for the bias gradients: one per
+// 8 rows of its tiles, each [12][D1].
+long bias_parts(int B, int N) { return (rows_padded(B, N) + kBR - 1) / kBR * kBRG; }
+
 // Floats of the backward's scratch without the saved arrays: da, ds of six
 // GLUs for the padded rows, the transposed weights, the two chains' parts of
-// dx, nsplit partial gradients.
+// dx, the bias partials, nsplit partial gradients.
 long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit) {
   const long d0 = K * W, d1 = K * WM;
   return 12 * rows_padded(B, N) * d1 + 4 * d0 * d1 + 8 * d1 * d1 +
-         2 * rows_padded(B, N) * d0 + (long)nsplit * grads_total(d0, d1);
+         2 * rows_padded(B, N) * d0 + bias_parts(B, N) * 12 * d1 +
+         (long)nsplit * grads_total(d0, d1);
 }
 
 // The shapes the backward's kernels take (register tiles of 8 by 8 and runs
@@ -782,7 +807,8 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
   float* dacts = ws;
   float* wT = dacts + 12 * plane;
   float* dxc = wT + 4L * d0 * d1 + 8L * d1 * d1;
-  float* part = dxc + 2 * rows_pad * d0;
+  float* bpart = dxc + 2 * rows_pad * d0;
+  float* part = bpart + bias_parts(B, N) * 12 * d1;
 
   spectral_transpose_kernel<<<dim3((d1 * d1 + 255) / 256, 12), 256, 0, st>>>(gw, wT, d0,
                                                                             d1);
@@ -799,8 +825,8 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
   if (err != cudaSuccess) return (int)err;
   const int threads_b = (kBRG * (d1 / 8) + 31) / 32 * 32;
   spectral_bwd_rows_kernel<<<dim3((int)((rows_pad + kBR - 1) / kBR), 2), threads_b, smem_b,
-                             st>>>(g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, B, K,
-                                   N, W, WM);
+                             st>>>(g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart,
+                                   B, K, N, W, WM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long nx = (long)B * K * N * W;
   spectral_dx_kernel<<<(int)((nx + 255) / 256), 256, 0, st>>>(dxc, dx, rows_pad, B, K, N, W);
@@ -816,12 +842,12 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
   spectral_wgrad_kernel<<<dim3((d1 + kWK - 1) / kWK, 6, nsplit), threads_w, smem_w, st>>>(
       x, acts, dacts, plane, part, total, chunks, chunks_per_seg, B, K, N, W, WM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  spectral_bias_kernel<<<dim3(12, nsplit), 256, 0, st>>>(
-      dacts, plane, part, total, chunks_per_seg * kWRC, rows_pad, d0, d1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   spectral_reduce_kernel<<<(int)((total + 255) / 256), 256, 0, st>>>(part, grads, total,
-                                                                     nsplit);
+                                                                     nsplit, d0, d1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  spectral_bias_kernel<<<dim3(12, (d1 + 31) / 32), dim3(32, kBiasLanes), 0, st>>>(
+      bpart, grads, (int)bias_parts(B, N), d0, d1);
   return (int)cudaGetLastError();
 }
 

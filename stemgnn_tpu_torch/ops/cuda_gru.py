@@ -135,9 +135,9 @@ def bwd_plan(b: int, h: int, max_cluster: int = MAX_CLUSTER) -> GruPlan:
 
 def one_block_plan(b: int, h: int, backward: bool = False) -> GruPlan:
     """A block per group of 8 batch rows (one thread's rows): the smallest
-    group, so the most SMs; its h (forward) or dh and dcat (backward) buffers,
-    [H][8 + 4] floats each, fit a block's shared memory up to H = 2421 (forward) and 1210 (backward).
-    Raises above that."""
+    group, so the most SMs. Its h (forward) or dh and dcat (backward) buffers,
+    [H][8 + 4] floats each, fit a block's shared memory up to H = 2421
+    (forward) and 1210 (backward); raises above that."""
     rows = _ONE_BLOCK_ROWS
     smem = 4 * (4 if backward else 2) * h * (rows + _ONE_BLOCK_PAD)
     if smem > SMEM_PER_BLOCK:

@@ -94,10 +94,10 @@ SPECTRAL_VARIANTS = {
     "dx, bias and reduce kernels return at once": [
         ("  if (e >= total) return;\n  const int w = e % W;\n",
          "  if (e >= 0) return;\n  const int w = e % W;\n"),
-        ("  const int m = blockIdx.x, gi = m / 2, side = m % 2;\n",
-         "  if (blockIdx.x >= 0) return;\n  const int m = blockIdx.x, gi = m / 2, side = m % 2;\n"),
-        ("  if (i >= total) return;\n  float acc = part[i];\n",
-         "  if (i >= 0) return;\n  float acc = part[i];\n")],
+        ("  __shared__ float lane_sum[kBiasLanes][33];\n",
+         "  __shared__ float lane_sum[kBiasLanes][33];\n  if (blockIdx.x >= 0) return;\n"),
+        ("  if (i >= total || is_bias_slot(i, d0, d1)) return;\n",
+         "  if (i >= 0) return;\n")],
     # the rows kernel's row tile: 32 or 40 rows (4 or 5 row groups)
     "rows tile of 32": [
         ("constexpr int kBR = 24; ", "constexpr int kBR = 32; "),
@@ -115,7 +115,7 @@ SPECTRAL_VARIANTS = {
          "      l[j4] = make_float4(cc, j4, 1.f, 2.f);\n"
          "      r[j4] = make_float4(j4, cc, 2.f, 1.f);\n")],
     "rows: no activation reads": [
-        ("      lds8(da + c * kBRS + r0, a);\n      lds8(ds + c * kBRS + r0, s);\n",
+        ("      load8(da + c * kBRS + r0, a);\n      load8(ds + c * kBRS + r0, s);\n",
          "      for (int i = 0; i < 8; ++i) {\n        a[i] = 1e-3f * (c + i);\n"
          "        s[i] = 2e-3f * (c - i);\n      }\n")],
     # the elementwise pass keeps only its shared-memory stores
@@ -166,8 +166,10 @@ def _cuda_ms(fn, calls: int = 20, replays: int = 10) -> float:
 
 
 def _build_variants(source: str, variants: dict, tmp: Path) -> dict:
-    """{variant: loaded library}, every nvcc started together."""
+    """{variant: loaded library}, every nvcc started together, in a directory
+    of its own: a library path loaded once in the process is not loaded again."""
     text = (_build.CSRC / source).read_text()
+    tmp = Path(tempfile.mkdtemp(dir=tmp))
     procs = {}
     for n, (name, pairs) in enumerate(variants.items()):
         changed = text
