@@ -10,13 +10,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
   1. device: CUDA present; the card's name and power limit from nvidia-smi;
      TF32 off for every f32 comparison.
   2. build: nvcc of every kernel source in stemgnn_tpu_torch/csrc.
-  3. kernels: each of the ten kernels at the shapes its path gives it (the
+  3. kernels: each of the eleven kernels at the shapes its path gives it (the
      ECG flagship: N=140, W=12, multi_layer=5, batch 32; the one-block GRU
-     forward: the 512-node model of phase 4), held against its plain PyTorch
-     version on the card. The forward kernels run on inputs that the model's own
-     plain path computes from the first test batch; the backward kernels on
-     the activations and cotangents of one train step of the port's CPU
-     plain path on the first training batch. Device times come from CUDA
+     forward and backward: the 512-node model of phase 4), held against its
+     plain PyTorch version on the card. The forward kernels run on inputs
+     that the model's own plain path computes from the first test batch; the
+     backward kernels on the activations and cotangents of one train step of
+     the port's CPU plain path on the first training batch. Device times come from CUDA
      events around replays of a captured CUDA graph of many calls; beside
      them the least time the card could take (bytes or f32 operations at
      published H100 SXM peaks) and a one-call PyTorch yardstick where one
