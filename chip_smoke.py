@@ -27,8 +27,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      sizes no cluster size divides, at a hidden size that takes the one-block
      route, and at an N the graph convolution walks in panels; the GRU
      backward at B = 1 to 64 and H = 20 to 512 (both routes), and the spectral
-     backwards at row counts no multiple of their row tile, each twice,
-     bitwise.
+     backwards at row counts no multiple of their row tile and at other
+     windows and multipliers (W = 7, 10, 25; multi 6), each twice, bitwise.
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -613,42 +613,56 @@ def shape_checks(dev):
 def spectral_checks(dev, glu, multi: int):
     """The spectral backwards against their plain version, untimed, on seeded
     inputs: at the flagship rows (4480) and at row counts that are no
-    multiple of the backward's row tile (185, 111); the reread gradients
-    bitwise the recompute gradients, and a second reread bitwise the first.
-    Returns an error message, or None."""
+    multiple of the backward's row tile (185, 111); then at 185 rows of other
+    windows and multipliers the CLI takes (W = 7 and 10: runs of 4 columns
+    that straddle two windows; multi 6: D1 = 288, past one block's column
+    groups; W = 25: D1 = 500, the widest whose forward fits), with GLU weights
+    from init_params. dx and each of the 24 gradients within atol 1e-5 of
+    their own largest entry and rtol 1e-3; the reread gradients bitwise the
+    recompute gradients, and a second reread bitwise the first. Returns an
+    error message, or None."""
     import numpy as np
     import torch
 
+    from stemgnn_tpu_torch.config import StemGNNConfig
+    from stemgnn_tpu_torch.models import init_params
     from stemgnn_tpu_torch.ops import cuda_spectral
 
     rng = np.random.default_rng(4)
-    k, w = 4, WINDOW
-    for b, n in ((32, 140), (5, 37), (3, 37)):
+    k = 4
+    cases = [(32, 140, WINDOW, multi, glu), (5, 37, WINDOW, multi, glu),
+             (3, 37, WINDOW, multi, glu)]
+    for w, m in ((7, 5), (10, 5), (WINDOW, 6), (25, 5)):
+        cfg = StemGNNConfig(units=37, window_size=w, horizon=HORIZON, multi_layer=m)
+        cases.append((5, 37, w, m, init_params(0, cfg, device=dev)["blocks"][0]["glu"]))
+    for b, n, w, m, glu_w in cases:
         x = torch.from_numpy(rng.standard_normal((b, k, n, w)).astype(np.float32)).to(dev)
-        g = torch.from_numpy((1e-3 * rng.standard_normal((b, k, n, w * multi))).astype(
+        g = torch.from_numpy((1e-3 * rng.standard_normal((b, k, n, w * m))).astype(
             np.float32)).to(dev)
         with torch.no_grad():
-            _, acts = cuda_spectral.spe_seq_cell_save(x, glu, multi)
-            runs = [cuda_spectral.spe_seq_cell_bwd_reread(x, glu, g, acts, multi)
+            _, acts = cuda_spectral.spe_seq_cell_save(x, glu_w, m)
+            runs = [cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts, m)
                     for _ in range(2)]
-            runs.append(cuda_spectral.spe_seq_cell_bwd(x, glu, g, multi))
+            runs.append(cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m))
             torch.cuda.synchronize()
-            want = cuda_spectral.spe_seq_cell_bwd_plain(x, glu, g, multi)
-        flat = [torch.cat([dx.reshape(-1)] + [t.reshape(-1) for t in
-                                             cuda_spectral._flat(dglu)])
-                for dx, dglu in (*runs, want)]
-        got, again, recompute, want = flat
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        ok = torch.allclose(got, want, atol=1e-5 * scale, rtol=1e-3)
-        same = torch.equal(got, again) and torch.equal(got, recompute)
-        print(f"[3 kernel] spectral backward B={b} N={n} ({b * n} rows): reread "
-              f"max_abs_err {err:.3e} (atol 1e-5 of the largest entry {scale:.3e}, rtol "
-              f"1e-3); two rereads and the recompute backward "
-              f"{'bitwise equal' if same else 'DIFFER'}")
-        if not ok or not same:
-            return (f"spectral backward at B={b} N={n} differs by {err} (bitwise "
-                    f"reruns and recompute: {same})")
+            want = cuda_spectral.spe_seq_cell_bwd_plain(x, glu_w, g, m)
+        leaves = [[dx] + cuda_spectral._flat(dglu) for dx, dglu in (*runs, want)]
+        got, again, recompute, want = leaves
+        err, bad = 0.0, []
+        for i, (t, ref) in enumerate(zip(got, want)):
+            err = max(err, (t - ref).abs().max().item())
+            if not torch.allclose(t, ref, atol=1e-5 * ref.abs().max().item(), rtol=1e-3):
+                bad.append("dx" if i == 0 else f"gradient {i - 1}")
+        same = all(torch.equal(a, b_) and torch.equal(a, c)
+                   for a, b_, c in zip(got, again, recompute))
+        print(f"[3 kernel] spectral backward B={b} N={n} W={w} multi={m} ({b * n} rows): "
+              f"reread max_abs_err {err:.3e} (each of dx and the 24 gradients within "
+              f"atol 1e-5 of its largest entry, rtol 1e-3: "
+              f"{'yes' if not bad else 'NO, ' + ', '.join(bad)}); two rereads and the "
+              f"recompute backward {'bitwise equal' if same else 'DIFFER'}")
+        if bad or not same:
+            return (f"spectral backward at B={b} N={n} W={w} multi={m}: out of tolerance "
+                    f"{bad}, max_abs_err {err} (bitwise reruns and recompute: {same})")
     return None
 
 

@@ -61,9 +61,13 @@
 // Every sum has one fixed order, so two runs give the same bits; no atomics.
 // Rows past the end of a tile's data carry g = 0, hence da = ds = 0, and add
 // nothing to any gradient. Ci and Si are symmetric, which step 3 uses to
-// read them along rows. Steps 3 and 4 take W % 4 == 0, D1 % 8 == 0,
-// 2 * D0 <= D1 and D1 <= 256 (`bwd_shape_ok`; the ECG flagship: W = 12,
-// D0 = 48, D1 = 240); the entries return cudaErrorInvalidValue otherwise.
+// read them along rows. Steps 3 and 4 take D0 and D1 in runs of 4 columns
+// (`bwd_shape_ok`: K = 4 in the model, so any window and multiplier whose
+// forward fits); the entries return cudaErrorInvalidValue otherwise. They are
+// built for the ECG flagship (W = 12, D0 = 48, D1 = 240); other shapes take
+// masked runs, a column at a time where a run straddles two orders' windows,
+// and D1 past 256 takes wider blocks of the rows kernel and column tiles of
+// the weight-gradient kernel.
 
 // Saving forward and reread backward (`spectral_fwd_save`,
 // `spectral_bwd_reread`): replace `_kernel_save` (reached from
@@ -81,6 +85,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 
 #include "device_utils.cuh"
 
@@ -254,6 +260,13 @@ constexpr int kBR = 24;           // rows of a block of the rows kernel
 constexpr int kBRS = 28;          // floats between two columns of its [k][row] buffers
 constexpr int kBRG = kBR / 8;     // row groups of 8
 constexpr int kBMaxThreads = 96;  // 3 blocks an SM within the registers
+constexpr int kBWideThreads = 256;  // D1 past 256: one block an SM
+
+// threads of a block of the rows kernel: kBRG row groups by (D1 / 4 + 1) / 2
+// column groups, in whole warps
+__host__ __device__ inline int rows_threads(int d1) {
+  return (kBRG * ((d1 / 4 + 1) / 2) + 31) / 32 * 32;
+}
 
 // two float4 runs, `gap` floats apart
 __device__ __forceinline__ void lds4x2(const float* p, int gap, float (&v)[8]) {
@@ -318,8 +331,10 @@ __device__ __forceinline__ void glu_bwd_product(const float* da, const float* ds
 
 // The inverse DFT backwards: acc[i][4 * j4 + q] = dR of column c4[j4] + q,
 //   dR[r][c] = sum_m g[r][kk * WM + m] * Ci[m][c % WM], kk = c / WM
-// (Ci symmetric; Si for the imaginary chain); a run of 4 columns never
-// leaves its order (WM % 4 == 0).
+// (Ci symmetric; Si for the imaginary chain). Where WM % 4 == 0 a run of 4
+// columns never leaves its order and shares its loads; otherwise (only with
+// kRagged) each column is summed on its own, in the same order.
+template <bool kRagged>
 __device__ __forceinline__ void idft_bwd_product(const float* gt, const float* __restrict__ idft,
                                                  int WM, int r0, const int (&c4)[2],
                                                  float (&acc)[8][8]) {
@@ -327,6 +342,22 @@ __device__ __forceinline__ void idft_bwd_product(const float* gt, const float* _
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if (kRagged && WM % 4 != 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c4[j / 4] + j % 4;
+      const float* gj = gt + (c / WM) * WM * kBRS + r0;
+      const float* wj = idft + c % WM;
+      for (int m = 0; m < WM; ++m) {
+        float x[8];
+        load8(gj + m * kBRS, x);
+        const float w = __ldg(wj + m * WM);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i], w, acc[i][j]);
+      }
+    }
+    return;
+  }
   const float* g0 = gt + (c4[0] / WM) * WM * kBRS + r0;
   const float* g1 = gt + (c4[1] / WM) * WM * kBRS + r0;
   const int j0 = c4[0] % WM, j1 = c4[1] % WM;
@@ -352,14 +383,16 @@ __device__ __forceinline__ void idft_bwd_product(const float* gt, const float* _
 //   da = dy * s, ds = dy * a * s * (1 - s)
 // to dacts (rows below rows_pad: the saved planes' rows), to the shared da,
 // ds (4 rows of a column as one float4), and the tile's column sums over its
-// 8 rows, in row order, to ba and bs (the bias gradients' partials).
+// 8 rows, in row order, to ba and bs (the bias gradients' partials). Without
+// `two`, only the first run.
 __device__ __forceinline__ void glu_bwd_elementwise(
-    const float (&acc)[8][8], int r0, const int (&c4)[2], long row0, long rows_pad, int d1,
-    const float* __restrict__ a_g, const float* __restrict__ s_g, float* __restrict__ da_g,
-    float* __restrict__ ds_g, float* da, float* ds, float* __restrict__ ba,
-    float* __restrict__ bs) {
+    const float (&acc)[8][8], int r0, const int (&c4)[2], bool two, long row0, long rows_pad,
+    int d1, const float* __restrict__ a_g, const float* __restrict__ s_g,
+    float* __restrict__ da_g, float* __restrict__ ds_g, float* da, float* ds,
+    float* __restrict__ ba, float* __restrict__ bs) {
 #pragma unroll
   for (int j4 = 0; j4 < 2; ++j4) {
+    if (j4 == 1 && !two) break;
     float sa[4] = {}, ss[4] = {};
 #pragma unroll
     for (int h = 0; h < 8; h += 4) {  // 4 rows at a time
@@ -406,8 +439,12 @@ __device__ __forceinline__ void glu_bwd_elementwise(
 // backwards -> the chain's part of dx, dxc [2][rows_pad][D0]; da, ds of the
 // chain's GLUs to dacts (laid out like acts), and their column sums over
 // each 8 rows to bpart [tiles * kBRG][12][D1] (array 2 * GLU + side). Takes
-// the shapes `bwd_shape_ok` passes.
-__global__ void __launch_bounds__(kBMaxThreads, 3)
+// the shapes `bwd_shape_ok` passes; kMaxThreads: kBMaxThreads, or
+// kBWideThreads for the D1 that need more; kRagged: for D1 / 4 odd or WM % 4
+// != 0 (compiled into the flagship's instantiation, that code slowed it by
+// 4%).
+template <int kMaxThreads, bool kRagged>
+__global__ void __launch_bounds__(kMaxThreads, kMaxThreads == kBMaxThreads ? 3 : 1)
 spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ acts,
                          float* __restrict__ dacts, long plane, long rows_pad,
                          TransposedWeights wt, const float* __restrict__ ci,
@@ -433,22 +470,24 @@ spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ 
   }
   __syncthreads();
 
-  // the tile of a d1-wide product: rows r0..r0+7, columns 4g..4g+3 and
-  // 4(g+G)..4(g+G)+3
-  const int G = d1 / 8;
+  // the tile of a d1-wide product: rows r0..r0+7, the runs of 4 columns gc
+  // and gc + G; where D1 / 4 is odd the last group has no second run, and
+  // computes its first one twice and keeps one
+  const int runs = d1 / 4, G = (runs + 1) / 2;
   const bool live = (int)threadIdx.x < kBRG * G;
   const int r0 = live ? (threadIdx.x / G) * 8 : 0;
   const int gc = threadIdx.x % G;
-  const int c4[2] = {4 * gc, 4 * (gc + G)};
+  const bool two = !kRagged || gc + G < runs;
+  const int c4[2] = {4 * gc, 4 * (two ? gc + G : gc)};
   float acc[8][8];
-  if (live) idft_bwd_product(da, chain == 0 ? ci : si, WM, r0, c4, acc);
+  if (live) idft_bwd_product<kRagged>(da, chain == 0 ? ci : si, WM, r0, c4, acc);
   __syncthreads();  // every read of the cotangent tile is done
 
   for (int layer = 2; layer >= 0; --layer) {
     const int gi = 2 * layer + chain;
     if (live) {
       float* b = bpart + ((long)(blockIdx.x * kBRG + r0 / 8) * 12 + 2 * gi) * d1;
-      glu_bwd_elementwise(acc, r0, c4, row0, rows_pad, d1, acts + (2 * gi) * plane,
+      glu_bwd_elementwise(acc, r0, c4, two, row0, rows_pad, d1, acts + (2 * gi) * plane,
                           acts + (2 * gi + 1) * plane, dacts + (2 * gi) * plane,
                           dacts + (2 * gi + 1) * plane, da, ds, b, b + d1);
     }
@@ -459,9 +498,9 @@ spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ 
     } else {
       // into the input space: D0 columns, runs of 4
       const int G0 = d0 / 4;
-      if ((int)threadIdx.x < kBRG * G0) {
-        const int q0 = (threadIdx.x / G0) * 8;
-        const int cx[1] = {4 * (threadIdx.x % G0)};
+      for (int t = threadIdx.x; t < kBRG * G0; t += blockDim.x) {
+        const int q0 = (t / G0) * 8;
+        const int cx[1] = {4 * (t % G0)};
         float out[8][4];
         glu_bwd_product<4>(da, ds, d1, wt.l[gi], wt.r[gi], d0, q0, cx, out);
         float* dst = dxc + chain * rows_pad * d0;
@@ -494,14 +533,15 @@ __global__ void spectral_dx_kernel(const float* __restrict__ dxc, float* __restr
 // ---- backward: the weight gradients ----
 //
 // A block owns a [48, D1] tile of dWl and dWr of one GLU (the k rows k0 to
-// k0 + 47 of its input) for one of `nsplit` row segments, and writes its
-// partial sums; a thread owns 8 k by 8 columns of both (128 sums; the
-// columns two runs of 4, 4g and 4(g + D1/8), so the float4 reads of a quarter
-// warp cover 128 consecutive bytes), and a row brings 6 float4 for 128 FMAs
-// (0.75 bytes an FMA). Rows come in stages of kWRC by cp.async, two stages in
-// flight while one is summed; u is x (layer 0) or a * s of the GLU before, its
-// product taken as a row is read. The bias gradients, column sums of da and
-// ds, are the rows kernel's partials added by `spectral_bias_kernel`.
+// k0 + 47 of its input; D1 past kWC: a tile of kWC columns) for one of
+// `nsplit` row segments, and writes its partial sums; a thread owns 8 k by 8
+// columns of both (128 sums; the columns two runs of 4, g and g + CG of the
+// tile's runs, so the float4 reads of a quarter warp cover 128 consecutive
+// bytes), and a row brings 6 float4 for 128 FMAs (0.75 bytes an FMA). Rows
+// come in stages of kWRC by cp.async, two stages in flight while one is
+// summed; u is x (layer 0) or a * s of the GLU before, its product taken as a
+// row is read. The bias gradients, column sums of da and ds, are the rows
+// kernel's partials added by `spectral_bias_kernel`.
 
 // floats of GLU gi's block in the flat gradient buffer: wl, bl, wr, br
 __host__ __device__ inline long glu_grad_offset(int gi, int d0, int d1) {
@@ -510,11 +550,12 @@ __host__ __device__ inline long glu_grad_offset(int gi, int d0, int d1) {
 }
 
 constexpr int kWK = 48;      // k rows of a weight-gradient tile
+constexpr int kWC = 256;     // columns of a weight-gradient tile, at most
 constexpr int kWRC = 16;     // rows a stage
 constexpr int kWMaxThreads = 192;
 
-// blockIdx: x = k tile, y = GLU, z = row segment. part: [gridDim.z][total]
-// partial gradients in the flat layout. Needs W % 4 == 0 and D1 % 8 == 0.
+// blockIdx: x = k tile * column tiles + column tile, y = GLU, z = row
+// segment. part: [gridDim.z][total] partial gradients in the flat layout.
 __global__ void __launch_bounds__(kWMaxThreads, 2)
 spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ acts,
                       const float* __restrict__ dacts, long plane,
@@ -524,18 +565,19 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
   const int d0 = K * W, d1 = K * WM;
   const int gi = blockIdx.y;
   const int din = gi < 2 ? d0 : d1;
-  const int k0 = blockIdx.x * kWK;
+  const int ctiles = (d1 + kWC - 1) / kWC, cw = min(d1, kWC);
+  const int k0 = blockIdx.x / ctiles * kWK, c0 = blockIdx.x % ctiles * kWC;
   if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles
-  const int kw = min(kWK, din - k0);
+  const int kw = min(kWK, din - k0), cn = min(kWC, d1 - c0);
   const long rows = (long)B * N;
-  const int stage = kWRC * (2 * kWK + 2 * d1);
+  const int stage = kWRC * (2 * kWK + 2 * cw);
   const float* a_src = gi < 2 ? nullptr : acts + (2 * (gi - 2)) * plane;
   const float* s_src = gi < 2 ? nullptr : acts + (2 * (gi - 2) + 1) * plane;
   const float* da_src = dacts + (2 * gi) * plane;
   const float* ds_src = dacts + (2 * gi + 1) * plane;
 
-  // stage st: us [kWRC][kWK], ss [kWRC][kWK], das [kWRC][d1], dss [kWRC][d1]
-  const int k4 = kw / 4, c4 = d1 / 4;
+  // stage st: us [kWRC][kWK], ss [kWRC][kWK], das [kWRC][cw], dss [kWRC][cw]
+  const int k4 = kw / 4, c4 = cn / 4;
   // this thread's first (row, run of 4 columns) of da and ds, and its step
   const int dr0 = threadIdx.x / c4, dc0 = threadIdx.x % c4;
   const int drs = blockDim.x / c4, dcs = blockDim.x % c4;
@@ -543,18 +585,22 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
     float* us = smem + st * stage;
     float* ss = us + kWRC * kWK;
     float* das = ss + kWRC * kWK;
-    float* dss = das + kWRC * d1;
+    float* dss = das + kWRC * cw;
     const long r0 = (long)ch * kWRC;
     for (int e = threadIdx.x; e < kWRC * k4; e += blockDim.x) {
       const int r = e / k4, k = k0 + 4 * (e % k4);
       const long row = r0 + r;
       float* du = us + r * kWK + k - k0;
       if (gi < 2) {
-        if (row < rows) {
+        if (row >= rows) {
+          *reinterpret_cast<float4*>(du) = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if (W % 4 == 0) {  // the run stays in one order's window
           const long b = row / N, n = row % N;
           cp_async16(du, x + ((b * K + k / W) * N + n) * W + k % W);
         } else {
-          *reinterpret_cast<float4*>(du) = make_float4(0.f, 0.f, 0.f, 0.f);
+          const long b = row / N, n = row % N;
+          for (int q = 0; q < 4; ++q)
+            cp_async4(du + q, x + ((b * K + (k + q) / W) * N + n) * W + (k + q) % W);
         }
       } else {
         cp_async16(du, a_src + row * d1 + k);
@@ -562,9 +608,9 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
       }
     }
     for (int r = dr0, c = dc0; r < kWRC;) {
-      const long src = (r0 + r) * d1 + 4 * c;
-      cp_async16(das + r * d1 + 4 * c, da_src + src);
-      cp_async16(dss + r * d1 + 4 * c, ds_src + src);
+      const long src = (r0 + r) * d1 + c0 + 4 * c;
+      cp_async16(das + r * cw + 4 * c, da_src + src);
+      cp_async16(dss + r * cw + 4 * c, ds_src + src);
       r += drs;
       c += dcs;
       if (c >= c4) {
@@ -574,9 +620,14 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
     }
   };
 
-  const int CG = d1 / 8;
-  const bool live = (int)threadIdx.x < (kw / 8) * CG;
+  // a thread's runs of 4 columns: cg and cg + CG of the tile's, the second
+  // only where the tile has 2 CG runs (else the first is read twice and kept
+  // once); its k rows: 8 kg to 8 kg + 7 of the tile, those past kw unused
+  const int runs = cn / 4, CG = (runs + 1) / 2;
+  const bool live = (int)threadIdx.x < (kw + 7) / 8 * CG;
   const int kg = live ? threadIdx.x / CG : 0, cg = threadIdx.x % CG;
+  const bool two = cg + CG < runs;
+  const int gap = two ? 4 * CG : 0;
   float accl[8][8] = {}, accr[8][8] = {};
   const int ch0 = blockIdx.z * chunks_per_seg;
   const int ch1 = min(chunks, ch0 + chunks_per_seg);
@@ -595,7 +646,7 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
     const float* us = smem + ((ch - ch0) % 3) * stage;
     const float* ss = us + kWRC * kWK;
     const float* das = ss + kWRC * kWK;
-    const float* dss = das + kWRC * d1;
+    const float* dss = das + kWRC * cw;
     if (live) {
 #pragma unroll 2
       for (int r = 0; r < kWRC; ++r) {
@@ -607,8 +658,8 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
 #pragma unroll
           for (int i = 0; i < 8; ++i) u[i] = u[i] * sv[i];
         }
-        lds4x2(das + r * d1 + 4 * cg, 4 * CG, a);
-        lds4x2(dss + r * d1 + 4 * cg, 4 * CG, s);
+        lds4x2(das + r * cw + 4 * cg, gap, a);
+        lds4x2(dss + r * cw + 4 * cg, gap, s);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
 #pragma unroll
@@ -627,9 +678,11 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const long k = k0 + 8 * kg + i;
+    if (k >= din) break;
 #pragma unroll
     for (int j4 = 0; j4 < 2; ++j4) {
-      const int c = 4 * (cg + j4 * CG);
+      if (j4 == 1 && !two) break;
+      const int c = c0 + 4 * (cg + j4 * CG);
       *reinterpret_cast<float4*>(pwl + k * d1 + c) = make_float4(
           accl[i][4 * j4], accl[i][4 * j4 + 1], accl[i][4 * j4 + 2], accl[i][4 * j4 + 3]);
       *reinterpret_cast<float4*>(pwr + k * d1 + c) = make_float4(
@@ -770,13 +823,12 @@ long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit) {
          (long)nsplit * grads_total(d0, d1);
 }
 
-// The shapes the backward's kernels take (register tiles of 8 by 8 and runs
-// of 4 columns, a block of the rows kernel at most kBMaxThreads threads).
+// The shapes the backward's kernels take: D0 and D1 in runs of 4 columns, a
+// block of the rows kernel at most kBWideThreads threads (D1 <= 680, wider
+// than any forward fits).
 bool bwd_shape_ok(int K, int W, int WM) {
   const int d0 = K * W, d1 = K * WM;
-  return W % 4 == 0 && WM % 4 == 0 && d0 % 8 == 0 && d1 % 8 == 0 && 2 * d0 <= d1 &&
-         (kBRG * (d1 / 8) + 31) / 32 * 32 <= kBMaxThreads &&
-         (kWK / 8) * (d1 / 8) <= kWMaxThreads;
+  return d0 % 4 == 0 && d1 % 4 == 0 && rows_threads(d1) <= kBWideThreads;
 }
 
 // Steps 1 to 5 of the backward. saved: the forward's 12 arrays, or nullptr to
@@ -820,13 +872,19 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
     if (m % 2 == 0) wt.l[m / 2] = p; else wt.r[m / 2] = p;
   }
   const int smem_b = 2 * d1 * kBRS * (int)sizeof(float);
-  err = cudaFuncSetAttribute(spectral_bwd_rows_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
+  const int threads_b = rows_threads(d1);
+  const bool ragged = WM % 4 != 0 || d1 / 4 % 2 != 0;
+  const auto rows_kernel =
+      threads_b <= kBMaxThreads
+          ? (ragged ? spectral_bwd_rows_kernel<kBMaxThreads, true>
+                    : spectral_bwd_rows_kernel<kBMaxThreads, false>)
+          : (ragged ? spectral_bwd_rows_kernel<kBWideThreads, true>
+                    : spectral_bwd_rows_kernel<kBWideThreads, false>);
+  err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_b);
   if (err != cudaSuccess) return (int)err;
-  const int threads_b = (kBRG * (d1 / 8) + 31) / 32 * 32;
-  spectral_bwd_rows_kernel<<<dim3((int)((rows_pad + kBR - 1) / kBR), 2), threads_b, smem_b,
-                             st>>>(g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart,
-                                   B, K, N, W, WM);
+  rows_kernel<<<dim3((int)((rows_pad + kBR - 1) / kBR), 2), threads_b, smem_b, st>>>(
+      g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart, B, K, N, W, WM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long nx = (long)B * K * N * W;
   spectral_dx_kernel<<<(int)((nx + 255) / 256), 256, 0, st>>>(dxc, dx, rows_pad, B, K, N, W);
@@ -834,12 +892,14 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
 
   const int chunks = (int)(rows_pad / kWRC);
   const int chunks_per_seg = (chunks + nsplit - 1) / nsplit;
-  const int smem_w = 3 * kWRC * (2 * kWK + 2 * d1) * (int)sizeof(float);
+  const int cw = std::min(d1, kWC), ctiles = (d1 + kWC - 1) / kWC;
+  const int smem_w = 3 * kWRC * (2 * kWK + 2 * cw) * (int)sizeof(float);
   err = cudaFuncSetAttribute(spectral_wgrad_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_w);
   if (err != cudaSuccess) return (int)err;
-  const int threads_w = ((kWK / 8) * (d1 / 8) + 31) / 32 * 32;
-  spectral_wgrad_kernel<<<dim3((d1 + kWK - 1) / kWK, 6, nsplit), threads_w, smem_w, st>>>(
+  const int threads_w = ((kWK / 8) * ((cw / 4 + 1) / 2) + 31) / 32 * 32;
+  spectral_wgrad_kernel<<<dim3((d1 + kWK - 1) / kWK * ctiles, 6, nsplit), threads_w, smem_w,
+                          st>>>(
       x, acts, dacts, plane, part, total, chunks, chunks_per_seg, B, K, N, W, WM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 

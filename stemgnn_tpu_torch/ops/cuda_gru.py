@@ -124,12 +124,12 @@ def launch_plan(b: int, h: int, max_cluster: int = MAX_CLUSTER) -> GruPlan:
     return _first_fit(b, h, max_cluster, _cluster_plan, one_block_plan)
 
 
-def bwd_plan(b: int, h: int, max_cluster: int = MAX_CLUSTER) -> GruPlan:
+def bwd_plan(b: int, h: int) -> GruPlan:
     """The backward's decomposition, by the forward's rule: the smallest
     cluster that gives a block at most 32 hidden units or, past that, the
     first whose resident rows of W_hh^T and dcat buffers fit; the one-block
     route where none does (H above 360, as the forward)."""
-    return _first_fit(b, h, max_cluster, _bwd_cluster_plan,
+    return _first_fit(b, h, MAX_CLUSTER, _bwd_cluster_plan,
                       functools.partial(one_block_plan, backward=True))
 
 

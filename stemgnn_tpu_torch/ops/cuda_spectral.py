@@ -88,14 +88,6 @@ _SIGNATURES = {
 N_SPLIT = 12
 
 
-def bwd_shape_ok(k: int, w: int, wm: int) -> bool:
-    """The shapes the backward kernels take (csrc/spectral.cu `bwd_shape_ok`:
-    register tiles of 8 by 8, runs of 4 columns)."""
-    d0, d1 = k * w, k * wm
-    return (w % 4 == 0 and wm % 4 == 0 and d0 % 8 == 0 and d1 % 8 == 0
-            and 2 * d0 <= d1 <= 256)
-
-
 @functools.cache
 def _fn(name: str):
     fn = getattr(_build.library("spectral"), name)
@@ -150,10 +142,6 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     _check_weights(name, weights, k, w, wm)
     if g.shape != (b, k, n, wm):
         raise ValueError(f"{name}: g {tuple(g.shape)}, x {tuple(x.shape)}")
-    if not bwd_shape_ok(k, w, wm):
-        raise ValueError(f"{name}: the backward kernels take W % 4 == 0, K * W * multi "
-                         f"% 8 == 0 and 2 * K * W <= K * W * multi <= 256; got K={k}, "
-                         f"W={w}, multi={multi}")
     if reread and acts.numel() != _fn("spectral_act_floats")(b, k, n, wm):
         raise ValueError(f"{name}: acts {tuple(acts.shape)} are not the saving "
                          f"forward's for x {tuple(x.shape)}")

@@ -107,7 +107,7 @@ SPECTRAL_VARIANTS = {
         ("constexpr int kBR = 24; ", "constexpr int kBR = 40; "),
         ("constexpr int kBRS = 28; ", "constexpr int kBRS = 44; "),
         ("constexpr int kBMaxThreads = 96; ", "constexpr int kBMaxThreads = 160; "),
-        ("__launch_bounds__(kBMaxThreads, 3)", "__launch_bounds__(kBMaxThreads, 2)")],
+        ("kMaxThreads == kBMaxThreads ? 3 : 1", "kMaxThreads == kBMaxThreads ? 2 : 1")],
     # the rows kernel's pieces
     "rows: no weight loads": [
         ("      l[j4] = ldg4(wl + (long)cc * dout + c4[j4]);\n"
@@ -121,6 +121,11 @@ SPECTRAL_VARIANTS = {
     # the elementwise pass keeps only its shared-memory stores
     "rows: elementwise without its loads and stores": [
         (_SPE_IN, "      const bool in = false;\n")],
+    # the instantiation for ragged shapes (masked runs, a column at a time
+    # where a run straddles two windows) at the flagship's, which needs neither
+    "rows: the ragged instantiation": [
+        ("  const bool ragged = WM % 4 != 0 || d1 / 4 % 2 != 0;\n",
+         "  const bool ragged = true;\n")],
     # the weight-gradient kernel's pieces
     "wgrad: no stage loads": [
         ("  if (ch0 < ch1) issue(ch0, 0);\n", ""),

@@ -37,8 +37,8 @@ def interpret():
         yield
 
 
-def _glu(n):
-    cfg = JaxConfig(units=n, window_size=W, horizon=3, multi_layer=M, pallas_min_nodes=0)
+def _glu(n, w=W, m=M):
+    cfg = JaxConfig(units=n, window_size=w, horizon=3, multi_layer=m, pallas_min_nodes=0)
     return torch_stream_init(0, cfg)["blocks"][0]["glu"]
 
 
@@ -68,24 +68,24 @@ def test_plain_save_forward_matches_pallas_kernel_save(interpret, b, n):
         rtol=0, atol=1e-4)
 
 
-@SHAPES
-def test_plain_reread_backward_matches_jax_grad_with_save_acts(interpret, b, n):
-    rng = np.random.default_rng(61)
-    glu = _glu(n)
-    x = rng.standard_normal((b, 4, n, W)).astype(np.float32)
-    cot = rng.standard_normal((b, 4, n, W * M)).astype(np.float32)
+def _check_reread_backward(rng, b, n, w=W, m=M):
+    """The plain reread backward against `jax.grad` of the Pallas cell with the
+    JAX package's saving forward and reread backward."""
+    glu = _glu(n, w, m)
+    x = rng.standard_normal((b, 4, n, w)).astype(np.float32)
+    cot = rng.standard_normal((b, 4, n, w * m)).astype(np.float32)
     try:
         ps.SAVE_ACTS_BWD = True
         want_dx, want_dglu = jax.grad(
-            lambda xx, gg: jnp.sum(ps.spe_seq_cell_pallas(xx, gg, M) * cot),
+            lambda xx, gg: jnp.sum(ps.spe_seq_cell_pallas(xx, gg, m) * cot),
             argnums=(0, 1))(jnp.asarray(x), jax.tree.map(jnp.asarray, glu))
     finally:
         ps.SAVE_ACTS_BWD = False
     tglu = params_from_jax(glu, "cpu")
-    _, acts = ops.spe_seq_cell_save(_t(x), tglu, M)
+    _, acts = ops.spe_seq_cell_save(_t(x), tglu, m)
     # rows past the end are padding and never read
     acts = torch.cat([acts, torch.full((12, 7, acts.shape[2]), float("nan"))], dim=1)
-    dx, dglu = ops.spe_seq_cell_bwd_reread(_t(x), tglu, _t(cot), acts, M)
+    dx, dglu = ops.spe_seq_cell_bwd_reread(_t(x), tglu, _t(cot), acts, m)
 
     def close(got, want, name):  # f32: 1e-4 of the gradient's largest entry
         want = np.asarray(want)
@@ -98,6 +98,11 @@ def test_plain_reread_backward_matches_jax_grad_with_save_acts(interpret, b, n):
             for leaf in ("w", "b"):
                 close(dglu[i][side][leaf], want_dglu[i][side][leaf],
                       f"glu {i} {side} {leaf}")
+
+
+@SHAPES
+def test_plain_reread_backward_matches_jax_grad_with_save_acts(interpret, b, n):
+    _check_reread_backward(np.random.default_rng(61), b, n)
 
 
 def _cell_case():
@@ -189,14 +194,18 @@ def test_new_wrappers_are_counted_kernels_and_launch_nothing_on_the_cpu():
     assert ops.replayed() == dict.fromkeys(ops.KERNELS, 0)
 
 
-@pytest.mark.parametrize("k,w,multi,ok", [
-    (4, 12, 5, True),    # the ECG flagship: D0 = 48, D1 = 240
-    (4, 8, 6, True),     # D1 = 192
-    (4, 12, 1, False),   # 2 * D0 > D1: layer 0's tiles would outnumber the threads
-    (4, 7, 5, False),    # W % 4: runs of 4 columns would straddle a window
-    (4, 12, 6, False),   # D1 = 288: a block of the weight-gradient kernel past 192 threads
+@pytest.mark.parametrize("w,multi", [
+    (8, 6),    # D0 = 32, D1 = 192
+    (12, 1),   # D1 = D0: layer 0's runs of 4 outnumber a product's column groups
+    (7, 5),    # D1 / 4 odd, and runs of 4 columns straddle two windows
+    (10, 5),   # W * multi = 50: runs straddle two windows, D1 / 4 even
+    (12, 6),   # D1 = 288: the rows kernel's wide blocks, two weight-gradient column tiles
+    (25, 5),   # D1 = 500: the widest window whose forward fits at multi 5
 ])
-def test_spectral_backward_shape_rule(k, w, multi, ok):
-    """The shapes the CUDA backward takes, as csrc/spectral.cu `bwd_shape_ok`
-    states them; `_launch_bwd` raises on the others before any launch."""
-    assert cuda_spectral.bwd_shape_ok(k, w, w * multi) is ok
+def test_spectral_backward_shape_rule(interpret, w, multi):
+    """The CUDA backward takes every window and multiplier whose forward fits
+    a block (csrc/spectral.cu `bwd_shape_ok`; chip_smoke.py holds it against
+    the plain version at W = 7, 10 and 25, and at multi 6). At such shapes the
+    plain reread backward, which the kernels are held to, matches the JAX
+    package's."""
+    _check_reread_backward(np.random.default_rng(65), 2, 5, w, multi)
