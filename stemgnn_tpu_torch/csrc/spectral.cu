@@ -441,8 +441,8 @@ __device__ __forceinline__ void glu_bwd_elementwise(
 // each 8 rows to bpart [tiles * kBRG][12][D1] (array 2 * GLU + side). Takes
 // the shapes `bwd_shape_ok` passes; kMaxThreads: kBMaxThreads, or
 // kBWideThreads for the D1 that need more; kRagged: for D1 / 4 odd or WM % 4
-// != 0 (compiled into the flagship's instantiation, that code slowed it by
-// 4%).
+// != 0 (compiled into the flagship's instantiation, that code slowed the
+// entry by 5% on an H100: `utils/kernel_variants.py`).
 template <int kMaxThreads, bool kRagged>
 __global__ void __launch_bounds__(kMaxThreads, kMaxThreads == kBMaxThreads ? 3 : 1)
 spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ acts,
