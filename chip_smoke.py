@@ -26,9 +26,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
      held against their plain versions, untimed, at ragged batches, at hidden
      sizes no cluster size divides, at a hidden size that takes the one-block
      route, and at an N the graph convolution walks in panels; the GRU
-     backward at B = 1 to 64 and H = 20 to 512 (both routes), and the spectral
-     backwards at row counts no multiple of their row tile and at other
-     windows and multipliers (W = 7, 10, 25; multi 6), each twice, bitwise.
+     backward at B = 1 to 64 and H = 20 to 512 (both routes); the one-block
+     GRU past a block's shared memory (its buffers in a device workspace: the
+     forward at H = 2500, the backward at H = 1300 and 2500) and, at H = 512,
+     its workspace route bitwise its shared-memory route; the spectral
+     forwards (the output and the 12 saved arrays) and backwards at row
+     counts no multiple of their row tiles and at other windows and
+     multipliers (W = 7, 10, 25, 28; multi 6), the backwards twice, bitwise.
+     The spectral kernels are timed at the COVID-19 shape too (N = 25,
+     W = 28, multi 5, batch 32).
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -38,7 +44,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
      kernel) through engine.inference_batched on a seeded series, counters
      set to 0 just before and read just after, against the CPU plain path;
      and one train step of it (the one-block GRU backward), counters again,
-     its loss and gradients against the CPU plain path.
+     its loss and gradients against the CPU plain path. Then the same, a
+     batch and a train step, for the COVID-19 shape (the README's COVID-19
+     command: N = 25, W = 28, horizon 28, multi 5) on a seeded series.
   5. train path: engine.train on the card, one epoch of ECG_data with its
      validate pass (batch 32, RMSProp, dropout 0.5), counters set to 0 just
      before and read just after and held against the expected launches per
@@ -87,6 +95,9 @@ BATCH, WINDOW, MULTI, HORIZON = 32, 12, 5, 3
 # the widest model the package takes: its GRU's slices fit no cluster of 8
 # blocks, so its forward goes through the one-block kernel
 BIG_NODES = 512
+# the README's COVID-19 command (--window_size 28 --horizon 28, multi_layer 5):
+# 25 nodes, D1 = 560, the JAX package's COVID-19 suite cell (benchmarks/suite.py)
+COVID_NODES, COVID_WINDOW, COVID_HORIZON = 25, 28, 28
 
 
 def _fail(msg: str) -> int:
@@ -590,6 +601,54 @@ def shape_checks(dev):
             if not ok or not same:
                 return (f"gru backward at B={b} H={h} ({plan.route}) differs by {err} "
                         f"(bitwise rerun: {same})")
+    # past a block's shared memory the one-block route keeps its group buffers
+    # in a device workspace: the forward at H = 2500, the backward at H = 1300
+    # and 2500, on a short node axis (each step reads all of W_hh), against the
+    # plain recurrence; and at H = 512, where both fit, the workspace route
+    # bitwise the shared-memory route
+    for kind, b, h, n in (("forward", 9, 2500, 8), ("backward", 9, 1300, 8),
+                          ("backward", 9, 2500, 8), ("forward", 32, 512, 16),
+                          ("backward", 32, 512, 16)):
+        backward = kind == "backward"
+        plan = cuda_gru.one_block_plan(b, h, backward=backward)
+        if (plan.workspace > 0) != (h > 512):
+            return f"gru one_block_plan({b}, {h}, {kind}) keeps its buffers in {plan}"
+        bound = 1.0 / np.sqrt(h)
+        x_proj = card(rng.standard_normal((n, b, 3 * h)))
+        a_all = card(rng.uniform(-bound, bound, (h, 3 * h)))
+        b_hh = card(rng.uniform(-bound, bound, 3 * h))
+        with torch.no_grad():
+            want = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
+            if backward:
+                g = card(rng.standard_normal((b, n, h)))
+                got = [cuda_gru.gru_bwd_one_block(want[1], g, a_all, in_workspace=True)]
+                shared = ([cuda_gru.gru_bwd_one_block(want[1], g, a_all, in_workspace=False)]
+                          if h == 512 else None)
+                torch.cuda.synchronize()
+                want = [torch_impl.gru_scan_bwd(want[1], g, a_all)]
+                scale = want[0].abs().max().item()
+                atol, rtol = 1e-5 * scale, 1e-4
+            else:
+                got = cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh, save=True,
+                                                 in_workspace=True)
+                shared = (cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh, save=True,
+                                                     in_workspace=False)
+                          if h == 512 else None)
+                torch.cuda.synchronize()
+                atol, rtol = 1e-4, 0.0
+        err = max((t - w_).abs().max().item() for t, w_ in zip(got, want))
+        ok = all(torch.allclose(t, w_, atol=atol, rtol=rtol) for t, w_ in zip(got, want))
+        same = shared is None or all(torch.equal(t, u) for t, u in zip(got, shared))
+        where = (f"workspace of {plan.workspace} B" if plan.workspace
+                 else f"{plan.smem} B of shared memory; the workspace route forced")
+        print(f"[3 kernel] gru {kind} one-block B={b} H={h} N={n} ({where}): max_abs_err "
+              f"{err:.3e} (atol {atol:.3g}, rtol {rtol:g})"
+              + ("" if shared is None else
+                 f"; workspace route and shared-memory route "
+                 f"{'bitwise equal' if same else 'DIFFER'}"))
+        if not ok or not same:
+            return (f"gru {kind} one-block at B={b} H={h} differs by {err} (workspace "
+                    f"route bitwise the shared-memory route: {same})")
     # ragged batch; ragged N and a W that is no multiple of 4; an N in two
     # panels; the zero order alone
     for k, n, b, w in ((4, 140, 26, 12), (4, 228, 6, 12), (4, 37, 5, 7),
@@ -610,14 +669,24 @@ def shape_checks(dev):
     return None
 
 
+# The spectral forwards against their plain versions at other shapes: the
+# output and each of the 12 saved arrays within atol 1e-5 of its own largest
+# entry, rtol 1e-4 (sums of up to 680 f32 terms through three layers in
+# another order than cuBLAS; the serving output against cuFFT).
+SPE_FWD_ATOL_REL, SPE_FWD_RTOL = 1e-5, 1e-4
+
+
 def spectral_checks(dev, glu, multi: int):
-    """The spectral backwards against their plain version, untimed, on seeded
-    inputs: at the flagship rows (4480) and at row counts that are no
-    multiple of the backward's row tile (185, 111); then at 185 rows of other
-    windows and multipliers the CLI takes (W = 7 and 10: runs of 4 columns
-    that straddle two windows; multi 6: D1 = 288, past one block's column
-    groups; W = 25: D1 = 500, the widest whose forward fits), with GLU weights
-    from init_params. dx and each of the 24 gradients within atol 1e-5 of
+    """The spectral forwards and backwards against their plain versions,
+    untimed, on seeded inputs: at the flagship rows (4480) and at row counts
+    that are no multiple of the kernels' row tiles (185, 111); then at 185
+    rows of other windows and multipliers the CLI takes (W = 7 and 10: runs of
+    4 columns that straddle two windows; multi 6: D1 = 288, past one block's
+    column groups; W = 25: D1 = 500; W = 28: D1 = 560, the README's COVID-19
+    command), with GLU weights from init_params. The serving forward's output,
+    and the saving forward's output and 12 arrays, each within
+    SPE_FWD_ATOL_REL of its own largest entry; the saved rows past the end
+    finite. The backwards' dx and each of the 24 gradients within atol 1e-5 of
     their own largest entry and rtol 1e-3; the reread gradients bitwise the
     recompute gradients, and a second reread bitwise the first. Returns an
     error message, or None."""
@@ -632,15 +701,38 @@ def spectral_checks(dev, glu, multi: int):
     k = 4
     cases = [(32, 140, WINDOW, multi, glu), (5, 37, WINDOW, multi, glu),
              (3, 37, WINDOW, multi, glu)]
-    for w, m in ((7, 5), (10, 5), (WINDOW, 6), (25, 5)):
+    for w, m in ((7, 5), (10, 5), (WINDOW, 6), (25, 5), (28, 5)):
         cfg = StemGNNConfig(units=37, window_size=w, horizon=HORIZON, multi_layer=m)
         cases.append((5, 37, w, m, init_params(0, cfg, device=dev)["blocks"][0]["glu"]))
     for b, n, w, m, glu_w in cases:
         x = torch.from_numpy(rng.standard_normal((b, k, n, w)).astype(np.float32)).to(dev)
         g = torch.from_numpy((1e-3 * rng.standard_normal((b, k, n, w * m))).astype(
             np.float32)).to(dev)
+        rows = b * n
         with torch.no_grad():
-            _, acts = cuda_spectral.spe_seq_cell_save(x, glu_w, m)
+            out = cuda_spectral.spe_seq_cell(x, glu_w, m)
+            out_s, acts = cuda_spectral.spe_seq_cell_save(x, glu_w, m)
+            torch.cuda.synchronize()
+            want_out = cuda_spectral.spe_seq_cell_plain(x, glu_w, m)
+            want_s, want_acts = cuda_spectral.spe_seq_cell_save_plain(x, glu_w, m)
+        fwd_err, fwd_bad = 0.0, []
+        for name, t, ref in [("serving output", out, want_out), ("saving output", out_s, want_s),
+                             *[(f"saved array {i}", acts[i, :rows], want_acts[i])
+                               for i in range(12)]]:
+            fwd_err = max(fwd_err, (t - ref).abs().max().item())
+            if not torch.allclose(t, ref, atol=SPE_FWD_ATOL_REL * ref.abs().max().item(),
+                                  rtol=SPE_FWD_RTOL):
+                fwd_bad.append(name)
+        if not torch.isfinite(acts).all():
+            fwd_bad.append("saved rows past the end not finite")
+        print(f"[3 kernel] spectral forwards B={b} N={n} W={w} multi={m} ({rows} rows): "
+              f"max_abs_err {fwd_err:.3e} (the serving output, the saving output and each "
+              f"of the 12 saved arrays within atol {SPE_FWD_ATOL_REL:g} of its largest "
+              f"entry, rtol {SPE_FWD_RTOL:g}: {'yes' if not fwd_bad else 'NO, ' + ', '.join(fwd_bad)})")
+        if fwd_bad:
+            return (f"spectral forwards at B={b} N={n} W={w} multi={m}: out of tolerance "
+                    f"{fwd_bad}, max_abs_err {fwd_err}")
+        with torch.no_grad():
             runs = [cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts, m)
                     for _ in range(2)]
             runs.append(cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m))
@@ -655,7 +747,7 @@ def spectral_checks(dev, glu, multi: int):
                 bad.append("dx" if i == 0 else f"gradient {i - 1}")
         same = all(torch.equal(a, b_) and torch.equal(a, c)
                    for a, b_, c in zip(got, again, recompute))
-        print(f"[3 kernel] spectral backward B={b} N={n} W={w} multi={m} ({b * n} rows): "
+        print(f"[3 kernel] spectral backward B={b} N={n} W={w} multi={m} ({rows} rows): "
               f"reread max_abs_err {err:.3e} (each of dx and the 24 gradients within "
               f"atol 1e-5 of its largest entry, rtol 1e-3: "
               f"{'yes' if not bad else 'NO, ' + ', '.join(bad)}); two rereads and the "
@@ -663,6 +755,16 @@ def spectral_checks(dev, glu, multi: int):
         if bad or not same:
             return (f"spectral backward at B={b} N={n} W={w} multi={m}: out of tolerance "
                     f"{bad}, max_abs_err {err} (bitwise reruns and recompute: {same})")
+    # past the kernels' shape rule (D1 = 700 > 680) the forward refuses before
+    # any launch, and says so
+    cfg = StemGNNConfig(units=2, window_size=35, horizon=HORIZON, multi_layer=5)
+    glu_w = init_params(0, cfg, device=dev)["blocks"][0]["glu"]
+    try:
+        cuda_spectral.spe_seq_cell(torch.zeros((1, k, 2, 35), device=dev), glu_w, 5)
+    except RuntimeError as exc:
+        print(f"[3 kernel] spectral forward at W=35 multi=5 (D1 = 700) refused: {exc}")
+    else:
+        return "the spectral forward ran at D1 = 700, past its shape rule"
     return None
 
 
@@ -872,6 +974,28 @@ def run() -> int:
     with OpRecorder(ops) as rec_big:
         loss_big_cpu, grads_big_cpu = step_grads(params_big_cpu, mcfg_big, x_big.cpu(),
                                                  y_big.cpu(), mask_big)
+    # the COVID-19 shape: a seeded 25-node series of one batch of windows, and
+    # one train step of its model on the CPU plain path (the reference of
+    # phase 4 and the inputs of its spectral backward timings)
+    cfg_cov = TrainConfig(dataset="COVID-19", train=False, batch_size=BATCH,
+                          window_size=COVID_WINDOW, horizon=COVID_HORIZON,
+                          multi_layer=MULTI, device="cuda", data_dir=cfg.data_dir,
+                          output_dir=out_root)
+    mcfg_cov = cfg_cov.model_config(COVID_NODES)
+    params_cov = init_params(cfg.seed, mcfg_cov, device=dev)
+    series_cov = np.random.default_rng(6).standard_normal(
+        (COVID_WINDOW + COVID_HORIZON + BATCH - 1, COVID_NODES))
+    cov_set = WindowDataset(series_cov, COVID_WINDOW, COVID_HORIZON, cfg.norm_method,
+                            compute_norm_stats(series_cov, cfg.norm_method))
+    hi_cov = torch.from_numpy(cov_set.epoch_batches(BATCH, shuffle=False)[0]).long()
+    x_cov, y_cov = engine.gather_windows(torch.from_numpy(cov_set.data).to(dev),
+                                         hi_cov.to(dev), COVID_WINDOW, COVID_HORIZON)
+    mask_cov = torch.from_numpy(
+        np.random.default_rng(9).random((BATCH, COVID_NODES, COVID_NODES))
+        < 1.0 - mcfg_cov.dropout_rate)
+    with OpRecorder(ops) as rec_cov:
+        loss_cov_cpu, grads_cov_cpu = step_grads(leaf_params(params_cov, "cpu"), mcfg_cov,
+                                                 x_cov.cpu(), y_cov.cpu(), mask_cov)
     results = {}
     fail = check_cases(forward_cases(params, mcfg, x), results, "3 kernel")
     if fail is None:
@@ -888,6 +1012,14 @@ def run() -> int:
         fail = shape_checks(dev)
     if fail is None:
         fail = spectral_checks(dev, params["blocks"][0]["glu"], MULTI)
+    if fail is None:
+        # the spectral kernels at the COVID-19 shape, timed as above (printed
+        # only: the kernels line keeps the flagship's shapes)
+        tag = "3 kernel, COVID-19 shape"
+        fail = (check_cases([c for c in forward_cases(params_cov, mcfg_cov, x_cov)
+                             if c[0].startswith("spectral")], {}, tag)
+                or check_cases([c for c in backward_cases(rec_cov, params_cov, mcfg_cov, dev)
+                                if c[0].startswith("spectral")], {}, tag, scaled=True))
     if fail is not None:
         return _fail(fail)
     with torch.no_grad():
@@ -1046,6 +1178,54 @@ def run() -> int:
         return _fail(f"{BIG_NODES}-node step gradients differ from the CPU plain path: "
                      f"loss err {loss_err}, leaves (name, err, max) {bad[:5]}")
     del params_big_gpu, grads_big
+
+    # the COVID-19 shape: one batch through engine.inference_batched and one
+    # train step, counters set to 0 just before and read just after each,
+    # against the CPU plain path (tolerances of the 512-node model)
+    ops.reset_launches()
+    fc_cov, _ = engine.inference_batched(engine.make_eval_step(mcfg_cov, dev), params_cov,
+                                         cov_set, BATCH, dev)
+    launches, replayed = take_launches(ops, results)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(fwd_per_batch)
+    if launches != want or any(replayed.values()):
+        return _fail(f"COVID-19 serving path launch counts {launches} and {replayed}, "
+                     f"expected {want}")
+    fc_cov_cpu, _ = engine.inference_batched(
+        engine.make_eval_step(mcfg_cov, "cpu"), leaf_params(params_cov, "cpu"), cov_set,
+        BATCH, "cpu")
+    shape = (BATCH, COVID_HORIZON, COVID_NODES)
+    if fc_cov.shape != shape or not np.isfinite(fc_cov).all():
+        return _fail(f"COVID-19 forecasts {fc_cov.shape}, expected {shape} and finite")
+    cov_err = float(abs(fc_cov - fc_cov_cpu).max())
+    print(f"[4 serving path] COVID-19 shape (N={COVID_NODES}, W={COVID_WINDOW}, horizon "
+          f"{COVID_HORIZON}, multi {MULTI}), {len(cov_set)} windows in 1 batch through "
+          f"engine.inference_batched: wrapper launches {launches}; forecasts, card vs CPU "
+          f"plain path: max_abs_err {cov_err:.3e} (atol 1e-3)")
+    if cov_err > 1e-3:
+        return _fail(f"COVID-19 card forecasts differ from the CPU plain path by {cov_err}")
+    params_cov_gpu = leaf_params(params_cov, dev)
+    ops.reset_launches()
+    loss_cov, grads_cov = step_grads(params_cov_gpu, mcfg_cov, x_cov, y_cov, mask_cov.to(dev))
+    torch.cuda.synchronize()
+    launches, replayed = take_launches(ops, results)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"gru_fwd": 1, "gru_bwd": 1, "attention_kq_fwd": 1, "attention_kq_bwd": 1,
+                 "cheb_graph_conv_fwd": 2, spe_pair[0]: 2, spe_pair[1]: 2})
+    if launches != want or any(replayed.values()):
+        return _fail(f"COVID-19 train step launch counts {launches} and {replayed}, "
+                     f"expected {want}")
+    bad, worst, worst_name = compare_grads(grads_cov, grads_cov_cpu)
+    loss_err = abs(loss_cov.item() - loss_cov_cpu.item())
+    print(f"[4 serving path] COVID-19 shape, one train step on the card: wrapper launches "
+          f"{launches}; loss {loss_cov.item():.6f} (abs err {loss_err:.3e}, atol 1e-5); "
+          f"{len(grads_cov)} gradients against the CPU plain path, worst max_abs_err "
+          f"{worst:.3e} at {worst_name} (atol {GRAD_ATOL_REL:g} of each gradient's "
+          f"largest entry, rtol {GRAD_RTOL:g})")
+    if loss_err > 1e-5 or bad:
+        return _fail(f"COVID-19 step gradients differ from the CPU plain path: loss err "
+                     f"{loss_err}, leaves (name, err, max) {bad[:5]}")
+    del params_cov_gpu, grads_cov
 
     # --- 5. train path ---
     cfg_t = TrainConfig(dataset="ECG_data", train=True, epoch=1, batch_size=BATCH,

@@ -412,18 +412,27 @@ gru_bwd_cluster_kernel(const float* __restrict__ sv, const float* __restrict__ g
 }
 
 // --- the one-block kernels: a block per group of `rows` batch rows ---
+//
+// A group's buffers live in shared memory or, where they do not fit a block's
+// (ws not null: H above 2421 in the forward, 1210 in the backward), in the
+// group's slice of a workspace in device memory (kWs). The arithmetic is the
+// same: __syncthreads() orders a block's writes to device memory for its own
+// threads as it orders its shared-memory writes. The place is a template
+// argument: a pointer that may point to either compiles to generic loads,
+// which made the shared-memory route 1.5-2.4x slower on an H100.
 
-template <bool kSave>
+template <bool kSave, bool kWs>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_fwd_one_block_kernel(const float* __restrict__ xp, const float* __restrict__ A,
                const float* __restrict__ bh, float* __restrict__ out,
-               float* __restrict__ sv, int N, int B, int H, int rows) {
+               float* __restrict__ sv, float* ws, int N, int B, int H, int rows) {
   extern __shared__ __align__(16) float smem[];
   const int Bs = rows + kPad;
   const int g0 = blockIdx.x * rows;  // the group's first batch row
-  float* h_cur = smem;
-  float* h_next = smem + (long)H * Bs;
-  for (int e = threadIdx.x; e < 2 * H * Bs; e += blockDim.x) smem[e] = 0.f;
+  float* buf = kWs ? ws + (long)blockIdx.x * 2 * H * Bs : smem;
+  float* h_cur = buf;
+  float* h_next = buf + (long)H * Bs;
+  for (int e = threadIdx.x; e < 2 * H * Bs; e += blockDim.x) buf[e] = 0.f;
   __syncthreads();
 
   const int H3 = 3 * H;
@@ -482,17 +491,19 @@ gru_fwd_one_block_kernel(const float* __restrict__ xp, const float* __restrict__
   }
 }
 
+template <bool kWs>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_bwd_one_block_kernel(const float* __restrict__ sv, const float* __restrict__ g,
-                         const float* __restrict__ At, float* __restrict__ dxp, int N,
-                         int B, int H, int rows) {
+                         const float* __restrict__ At, float* __restrict__ dxp, float* ws,
+                         int N, int B, int H, int rows) {
   extern __shared__ __align__(16) float smem[];
   const int Bs = rows + kPad;
   const int g0 = blockIdx.x * rows;  // the group's first batch row
   const int H3 = 3 * H;
-  float* dh = smem;                   // [H][Bs]
-  float* dcat = smem + (long)H * Bs;  // [3H][Bs]: dr, dz, dn * r
-  for (int e = threadIdx.x; e < 4 * H * Bs; e += blockDim.x) smem[e] = 0.f;
+  float* buf = kWs ? ws + (long)blockIdx.x * 4 * H * Bs : smem;
+  float* dh = buf;                   // [H][Bs]
+  float* dcat = buf + (long)H * Bs;  // [3H][Bs]: dr, dz, dn * r
+  for (int e = threadIdx.x; e < 4 * H * Bs; e += blockDim.x) buf[e] = 0.f;
   __syncthreads();
 
   const long plane = (long)B * H;
@@ -618,16 +629,18 @@ extern "C" int gru_fwd_cluster(const float* xp, const float* A, const float* bh,
 
 // The forward in a block per group of `rows` batch rows (a multiple of 8),
 // for an H whose slices fit no cluster. The plan comes from ops/cuda_gru.py
-// `one_block_plan`. sv as above.
+// `one_block_plan`: `smem` bytes of shared memory a block, or 0 and ws, a
+// workspace of groups * 2 * H * (rows + 4) floats. sv as above.
 extern "C" int gru_fwd_one_block(const float* xp, const float* A, const float* bh,
-                                 float* out, float* sv, int N, int B, int H, int rows,
-                                 int groups, int threads, int smem, void* stream) {
-  if (rows % kBSub) return (int)cudaErrorInvalidValue;
-  if (sv)
-    return launch_groups(gru_fwd_one_block_kernel<true>, groups, threads, smem, stream,
-                         xp, A, bh, out, sv, N, B, H, rows);
-  return launch_groups(gru_fwd_one_block_kernel<false>, groups, threads, smem, stream, xp,
-                       A, bh, out, (float*)nullptr, N, B, H, rows);
+                                 float* out, float* sv, float* ws, int N, int B, int H,
+                                 int rows, int groups, int threads, int smem, void* stream) {
+  if (rows % kBSub || (smem == 0) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
+  const auto kernel = sv ? (ws ? gru_fwd_one_block_kernel<true, true>
+                               : gru_fwd_one_block_kernel<true, false>)
+                         : (ws ? gru_fwd_one_block_kernel<false, true>
+                               : gru_fwd_one_block_kernel<false, false>);
+  return launch_groups(kernel, groups, threads, smem, stream, xp, A, bh, out, sv, ws, N, B,
+                       H, rows);
 }
 
 // The backward across a thread-block cluster per group of `rows` batch rows,
@@ -643,11 +656,12 @@ extern "C" int gru_bwd_cluster(const float* sv, const float* g, const float* A,
 }
 
 // The backward in a block per group of `rows` batch rows, for an H whose
-// slices fit no cluster. At = A^T = W_hh, [3H, H] row-major.
+// slices fit no cluster. At = A^T = W_hh, [3H, H] row-major. smem and ws as
+// for the forward, the workspace groups * 4 * H * (rows + 4) floats.
 extern "C" int gru_bwd_one_block(const float* sv, const float* g, const float* At,
-                                 float* dxp, int N, int B, int H, int rows, int groups,
-                                 int threads, int smem, void* stream) {
-  if (rows % kBSub) return (int)cudaErrorInvalidValue;
-  return launch_groups(gru_bwd_one_block_kernel, groups, threads, smem, stream, sv, g, At,
-                       dxp, N, B, H, rows);
+                                 float* dxp, float* ws, int N, int B, int H, int rows,
+                                 int groups, int threads, int smem, void* stream) {
+  if (rows % kBSub || (smem == 0) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
+  return launch_groups(ws ? gru_bwd_one_block_kernel<true> : gru_bwd_one_block_kernel<false>,
+                       groups, threads, smem, stream, sv, g, At, dxp, ws, N, B, H, rows);
 }

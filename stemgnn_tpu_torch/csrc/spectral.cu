@@ -14,16 +14,29 @@
 //
 // Bound on the H100: f32 operations (about 2*rows*(4*D0*D1 + 8*D1*D1 +
 // 2*K*Wm*Wm), D0 = K*W, D1 = K*Wm: 4.8 GFLOP at the flagship shapes,
-// against a few MB of traffic). The design keeps every intermediate out of device memory, as
-// the TPU kernel kept it out of HBM: one block per tile of 32 rows holds
-// the input tile and both chains' [32, D1] activations in shared memory
-// (stored column-major, [k][row], so a thread reads 4 rows per 16-byte
-// load), about 110 KB at the flagship widths, which needs the opt-in
-// dynamic shared memory limit. Each thread owns one output column for all
-// 32 rows, for the left and right products at once, so every weight
-// element is read once per block from global memory (L2-resident, 2.5 MB)
-// and reused 32 times from a register. Only the [rows, D1] result is
-// written to device memory.
+// against a few MB of traffic). The design keeps every intermediate out of
+// device memory, as the TPU kernel kept it out of HBM, and is built for the
+// H100's SMs as the backward's rows kernel is (below):
+//   * the two chains on separate blocks, a cluster of 2 per row tile (rank 0
+//     the real chain, rank 1 the imaginary one): they are independent until
+//     the inverse DFT, where each block copies the other's last tile through
+//     distributed shared memory and computes half of the output columns;
+//   * register tiles: a thread owns 8 rows by 4 columns of a GLU's output,
+//     both the left and the right product (64 sums; 8 by 8 would be 128,
+//     which spill at three blocks an SM), so a step of the sum brings 2
+//     float4 of activations (shared memory, [k][row]) and 2 float4 of
+//     weights (L2 through L1, loaded two steps ahead) for 64 FMAs: 1 byte
+//     of shared memory or L1 an FMA;
+//   * one buffer a block: a GLU's outputs stay in registers across the
+//     barrier that ends the reads of its input, then overwrite the input;
+//   * a row tile chosen from the row count (`chain_tile`: 24 rows, or 16 or
+//     8 where that fills more SMs), so a few hundred rows still spread over
+//     the card. Blocks of up to 192 threads (D1 up to 256 at 24 rows) three
+//     an SM; wider ones, of up to 320 or 512 threads, one an SM.
+// Every output element is one chain of fmaf in a fixed order (per GLU, k
+// ascending, the left and right sums apart; the inverse DFT j ascending),
+// whatever the tile, so all three instantiations write the same bits.
+// Only the [rows, D1] result is written to device memory.
 //
 // Backward (`spectral_bwd`): replaces `_bwd_kernel` (reached from
 // `_backward`): recompute (a, s) of the six GLUs from x, backpropagate the
@@ -45,8 +58,8 @@
 //      neighbouring threads on neighbouring addresses;
 //   2. the forward chain again, without the inverse DFT, writing a and s of
 //      every GLU ([rows, D1] row-major each): the forward kernel itself,
-//      compiled with kSave; a forward that must save is the same kernel with
-//      kOut as well;
+//      compiled with kSave (and no cluster); a forward that must save is the
+//      same kernel with kOut as well;
 //   3. per tile of kBR rows and per chain (the two chains are independent
 //      until dx), the chain backwards in shared memory with register tiles
 //      of 8 rows by 8 columns, writing da and ds of the chain's GLUs and the
@@ -62,8 +75,8 @@
 // Rows past the end of a tile's data carry g = 0, hence da = ds = 0, and add
 // nothing to any gradient. Ci and Si are symmetric, which step 3 uses to
 // read them along rows. Steps 3 and 4 take D0 and D1 in runs of 4 columns
-// (`bwd_shape_ok`: K = 4 in the model, so any window and multiplier whose
-// forward fits); the entries return cudaErrorInvalidValue otherwise. They are
+// (`shape_ok`, the forward's rule too: K = 4 in the model, and D1 <= 680);
+// every entry returns cudaErrorInvalidValue otherwise. They are
 // built for the ECG flagship (W = 12, D0 = 48, D1 = 240); other shapes take
 // masked runs, a column at a time where a run straddles two orders' windows,
 // and D1 past 256 takes wider blocks of the rows kernel and column tiles of
@@ -80,21 +93,22 @@
 // pair trades: 12 products and 6 sigmoid sweeps per call (4.5 GFLOP at the
 // flagship shapes) against 12 * rows * D1 floats (51.6 MB) written by the
 // forward and held until the backward, which is more than the 50 MB L2. Both
-// entries pad the rows to the same tile (kTR); rows of the saved arrays past
-// the end hold the chain's values for an all-zero input row.
+// entries pad the rows to the same multiple (`rows_padded`); rows of the
+// saved arrays past the end hold the chain's values for an all-zero input
+// row.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
+#include <climits>
 
 #include "device_utils.cuh"
 
-namespace {
+namespace cg = cooperative_groups;
 
-constexpr int kTR = 32;   // rows per block
-constexpr int kTRS = 36;  // floats between two columns of a [k][row] buffer
-constexpr int kThreads = 256;
+namespace {
 
 struct GluWeights {
   const float* wl[6];
@@ -105,62 +119,169 @@ struct GluWeights {
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
-// out[c][r] = a * s, a = in[:, r] . Wl[:, c] + bl[c], s = sigmoid(in[:, r] .
-// Wr[:, c] + br[c]); with ga, also a and s to ga, gs [r][dout] row-major.
-__device__ void glu_tile(const float* in, int din, const float* __restrict__ wl,
-                         const float* __restrict__ bl, const float* __restrict__ wr,
-                         const float* __restrict__ br, float* out, int dout,
-                         float* __restrict__ ga, float* __restrict__ gs) {
-  for (int c = threadIdx.x; c < dout; c += blockDim.x) {
-    float al[kTR] = {}, ar[kTR] = {};
-    for (int k = 0; k < din; ++k) {
-      const float l = wl[(long)k * dout + c];
-      const float r = wr[(long)k * dout + c];
-      const float4* u4 = reinterpret_cast<const float4*>(in + k * kTRS);
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// ---- forward: the chain kernel ----
+
+constexpr int kFMaxThreads = 192;    // up to 192 threads: three blocks an SM
+constexpr int kFMidThreads = 320;    // up to 320: one block an SM, 168 registers a thread
+constexpr int kFWideThreads = 512;   // up to 512 (D1 up to 680 at 24 rows): 128 registers
+constexpr int kFTiles[3] = {24, 16, 8};  // row tiles, in the order they are preferred
+constexpr int kFAhead = 2;           // steps of k the weight loads run ahead
+
+// al[i][q] = sum_k in[k][r0 + i] * wl[k][c + q], ar the same with wr, k < din,
+// k ascending (in: [k][row], S floats between columns; wl, wr: [din][dout]
+// row-major). The weights come from L2: loaded kFAhead steps of k ahead, in
+// a ring.
+__device__ __forceinline__ void glu_fwd_product(const float* in, int S, int din,
+                                                const float* __restrict__ wl,
+                                                const float* __restrict__ wr, int dout,
+                                                int r0, int c, float (&al)[8][4],
+                                                float (&ar)[8][4]) {
 #pragma unroll
-      for (int q = 0; q < kTR / 4; ++q) {
-        const float4 u = u4[q];
-        al[4 * q + 0] = fmaf(u.x, l, al[4 * q + 0]);
-        al[4 * q + 1] = fmaf(u.y, l, al[4 * q + 1]);
-        al[4 * q + 2] = fmaf(u.z, l, al[4 * q + 2]);
-        al[4 * q + 3] = fmaf(u.w, l, al[4 * q + 3]);
-        ar[4 * q + 0] = fmaf(u.x, r, ar[4 * q + 0]);
-        ar[4 * q + 1] = fmaf(u.y, r, ar[4 * q + 1]);
-        ar[4 * q + 2] = fmaf(u.z, r, ar[4 * q + 2]);
-        ar[4 * q + 3] = fmaf(u.w, r, ar[4 * q + 3]);
-      }
-    }
-    const float bL = bl[c], bR = br[c];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      const float a = al[i] + bL, sg = sigmoidf(ar[i] + bR);
-      out[c * kTRS + i] = a * sg;
-      if (ga != nullptr) {
-        ga[(long)i * dout + c] = a;
-        gs[(long)i * dout + c] = sg;
-      }
+    for (int q = 0; q < 4; ++q) al[i][q] = ar[i][q] = 0.f;
+  const float* pl = wl + c;
+  const float* pr = wr + c;
+  constexpr int kRing = kFAhead + 1;
+  float4 lw[kRing], rw[kRing];
+  auto load_w = [&](int k, float4& l, float4& r) {
+    const long kk = min(k, din - 1);  // past the end: a load nobody uses
+    l = ldg4(pl + kk * dout);
+    r = ldg4(pr + kk * dout);
+  };
+#pragma unroll
+  for (int u = 0; u < kFAhead; ++u) load_w(u, lw[u], rw[u]);
+  for (int k0 = 0; k0 < din; k0 += kRing) {
+#pragma unroll
+    for (int u = 0; u < kRing; ++u) {
+      const int k = k0 + u;
+      if (k >= din) break;
+      load_w(k + kFAhead, lw[(u + kFAhead) % kRing], rw[(u + kFAhead) % kRing]);
+      float x[8];
+      load8(in + k * S + r0, x);
+      const float l[4] = {lw[u].x, lw[u].y, lw[u].z, lw[u].w};
+      const float r[4] = {rw[u].x, rw[u].y, rw[u].z, rw[u].w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          al[i][q] = fmaf(x[i], l[q], al[i][q]);
+          ar[i][q] = fmaf(x[i], r[q], ar[i][q]);
+        }
     }
   }
 }
 
-// acts: with kSave, 12 arrays [gridDim.x * kTR, D1] (a0, s0, ..., a5, s5; GLU
-// 2 * layer + chain), `plane` floats apart. out: with kOut.
-template <bool kSave, bool kOut>
-__global__ void __launch_bounds__(kThreads)
+// A GLU's outputs from the thread's sums: a = al + bl, s = sigmoid(ar + br),
+// a * s to the block's buffer (the 8 rows of a column as two float4); with
+// kSave, a and s to ga, gs ([rows_pad][d1] row-major, rows past rows_pad
+// dropped).
+template <bool kSave>
+__device__ __forceinline__ void glu_fwd_elementwise(
+    const float (&al)[8][4], const float (&ar)[8][4], const float* __restrict__ bl,
+    const float* __restrict__ br, int r0, int c, long row0, long rows_pad, int d1,
+    float* __restrict__ ga, float* __restrict__ gs, float* buf, int S) {
+  float bL[4], bR[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    bL[q] = __ldg(bl + c + q);
+    bR[q] = __ldg(br + c + q);
+  }
+  float v[4][8];  // [column][row]
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float a[4], sg[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      a[q] = al[i][q] + bL[q];
+      sg[q] = sigmoidf(ar[i][q] + bR[q]);
+      v[q][i] = a[q] * sg[q];
+    }
+    if (kSave) {
+      const long row = row0 + r0 + i;
+      if (row < rows_pad) {
+        *reinterpret_cast<float4*>(ga + row * d1 + c) = make_float4(a[0], a[1], a[2], a[3]);
+        *reinterpret_cast<float4*>(gs + row * d1 + c) = make_float4(sg[0], sg[1], sg[2], sg[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) store8(buf + (c + q) * S + r0, v[q]);
+}
+
+// The inverse DFT of one run of 4 output columns c..c+3 for 8 rows:
+//   acc[i][q] = sum_j I[kk * WM + j][r0 + i] * Si[j][m] + R[..] * Ci[j][m]
+// (kk, m: the order and position of column c + q), j ascending, each step
+// fmaf(imag, si, fmaf(real, ci, acc)). Where WM % 4 == 0 the run stays in
+// one order and shares its loads; otherwise (only with kRagged) each column
+// is summed on its own, in the same order.
+template <bool kRagged>
+__device__ __forceinline__ void idft_fwd_run(const float* re, const float* im, int S,
+                                             const float* __restrict__ ci,
+                                             const float* __restrict__ si, int WM, int r0,
+                                             int c, float (&acc)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+  if (kRagged) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int kk = (c + q) / WM, m = (c + q) % WM;
+      const float* rk = re + kk * WM * S + r0;
+      const float* ik = im + kk * WM * S + r0;
+      for (int j = 0; j < WM; ++j) {
+        const float wc = __ldg(ci + j * WM + m), ws = __ldg(si + j * WM + m);
+        float u[8], v[8];
+        load8(rk + j * S, u);
+        load8(ik + j * S, v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][q] = fmaf(v[i], ws, fmaf(u[i], wc, acc[i][q]));
+      }
+    }
+    return;
+  }
+  const int kk = c / WM, m0 = c % WM;
+  const float* rk = re + kk * WM * S + r0;
+  const float* ik = im + kk * WM * S + r0;
+#pragma unroll 2
+  for (int j = 0; j < WM; ++j) {
+    const float4 c4 = ldg4(ci + j * WM + m0), s4 = ldg4(si + j * WM + m0);
+    const float wc[4] = {c4.x, c4.y, c4.z, c4.w}, ws[4] = {s4.x, s4.y, s4.z, s4.w};
+    float u[8], v[8];
+    load8(rk + j * S, u);
+    load8(ik + j * S, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(v[i], ws[q], fmaf(u[i], wc[q], acc[i][q]));
+  }
+}
+
+// One row tile (blockIdx.y, `tile` rows) of one chain (blockIdx.x: 0 real,
+// 1 imaginary). acts: with kSave, 12 arrays [rows_pad, D1] (a0, s0, ..., a5,
+// s5; GLU 2 * layer + chain), `plane` floats apart. out: with kOut, which
+// needs the launch in clusters of 2 along x. kMaxThreads: kFMaxThreads,
+// kFMidThreads or kFWideThreads, the least that holds the block; kRagged: for
+// WM % 4 != 0.
+template <int kMaxThreads, bool kSave, bool kOut, bool kRagged>
+__global__ void __launch_bounds__(kMaxThreads, kMaxThreads == kFMaxThreads ? 3 : 1)
 spectral_chain_kernel(const float* __restrict__ x, GluWeights g,
                       const float* __restrict__ ci, const float* __restrict__ si,
                       float* __restrict__ out, float* __restrict__ acts, long plane,
-                      int B, int K, int N, int W, int WM) {
+                      long rows_pad, int tile, int B, int K, int N, int W, int WM) {
   extern __shared__ __align__(16) float smem[];
-  const int d0 = K * W, d1 = K * WM;
+  const int d0 = K * W, d1 = K * WM, S = tile + 4;
   const long rows = (long)B * N;
-  const long row0 = (long)blockIdx.x * kTR;
-  float* xs = smem;
-  float* real = xs + d0 * kTRS;
-  float* imag = real + d1 * kTRS;
-  float* spare = imag + d1 * kTRS;
+  const int chain = blockIdx.x;
+  const long row0 = (long)blockIdx.y * tile;
+  float* buf = smem;  // [d1][S]: x, then each GLU's output on this chain
 
-  for (int e = threadIdx.x; e < kTR * d0; e += blockDim.x) {
+  for (int e = threadIdx.x; e < tile * d0; e += blockDim.x) {
     const int r = e / d0, col = e % d0;
     const long row = row0 + r;
     float v = 0.f;
@@ -168,54 +289,57 @@ spectral_chain_kernel(const float* __restrict__ x, GluWeights g,
       const long b = row / N, n = row % N;
       v = x[((b * K + col / W) * N + n) * W + col % W];
     }
-    xs[col * kTRS + r] = v;
+    buf[col * S + r] = v;
   }
   __syncthreads();
 
-  // the tile's rows of saved array `idx` (a of GLU i: 2 * i, s: 2 * i + 1)
-  float* tile_acts = kSave ? acts + row0 * d1 : nullptr;
-#define ACT(idx) (kSave ? tile_acts + (idx) * plane : nullptr)
-  glu_tile(xs, d0, g.wl[0], g.bl[0], g.wr[0], g.br[0], real, d1, ACT(0), ACT(1));
-  glu_tile(xs, d0, g.wl[1], g.bl[1], g.wr[1], g.br[1], imag, d1, ACT(2), ACT(3));
-  __syncthreads();
-  for (int layer = 1; layer < 3; ++layer) {
-    const int e = 2 * layer, o = 2 * layer + 1;
-    glu_tile(real, d1, g.wl[e], g.bl[e], g.wr[e], g.br[e], spare, d1, ACT(2 * e),
-             ACT(2 * e + 1));
+  // the tile of a d1-wide product: rows r0..r0+7, columns c..c+3
+  const int runs = d1 / 4, groups = tile / 8;
+  const bool live = (int)threadIdx.x < groups * runs;
+  const int r0 = live ? (threadIdx.x / runs) * 8 : 0;
+  const int c = 4 * (threadIdx.x % runs);
+  float al[8][4], ar[8][4];
+  for (int layer = 0; layer < 3; ++layer) {
+    const int gi = 2 * layer + chain;
+    if (live) glu_fwd_product(buf, S, layer == 0 ? d0 : d1, g.wl[gi], g.wr[gi], d1, r0, c, al, ar);
+    __syncthreads();  // every read of this GLU's input is done
+    if (live)
+      glu_fwd_elementwise<kSave>(al, ar, g.bl[gi], g.br[gi], r0, c, row0, rows_pad, d1,
+                                 kSave ? acts + (2 * gi) * plane : nullptr,
+                                 kSave ? acts + (2 * gi + 1) * plane : nullptr, buf, S);
     __syncthreads();
-    float* t = real; real = spare; spare = t;
-    glu_tile(imag, d1, g.wl[o], g.bl[o], g.wr[o], g.br[o], spare, d1, ACT(2 * o),
-             ACT(2 * o + 1));
-    __syncthreads();
-    t = imag; imag = spare; spare = t;
   }
-#undef ACT
 
   if constexpr (kOut) {
-    for (int c = threadIdx.x; c < d1; c += blockDim.x) {
-      const int kk = c / WM, m = c % WM;
-      float acc[kTR] = {};
-      for (int j = 0; j < WM; ++j) {
-        const float wc = ci[j * WM + m];
-        const float ws = si[j * WM + m];
-        const int k = kk * WM + j;
-        const float4* r4 = reinterpret_cast<const float4*>(real + k * kTRS);
-        const float4* i4 = reinterpret_cast<const float4*>(imag + k * kTRS);
+    cg::cluster_group cluster = cg::this_cluster();
+    float* other = buf + d1 * S;  // the other chain's last tile
+    cluster.sync();               // both chains' last tiles are in place
+    const float4* src = reinterpret_cast<const float4*>(cluster.map_shared_rank(buf, chain ^ 1));
+    float4* dst = reinterpret_cast<float4*>(other);
+    for (int e = threadIdx.x; e < d1 * S / 4; e += blockDim.x) dst[e] = src[e];
+    cluster.sync();  // every copy is done: no block reads the other's buffer after this
+    const float* re = chain == 0 ? buf : other;
+    const float* im = chain == 0 ? other : buf;
+    // this block's half of the output runs
+    const int half = (runs + 1) / 2, first = chain * half;
+    const int count = min(runs, first + half) - first;
+    for (int t = threadIdx.x; t < groups * count; t += blockDim.x) {
+      const int q0 = (t / count) * 8, cc = 4 * (first + t % count);
+      float acc[8][4];
+      idft_fwd_run<kRagged>(re, im, S, ci, si, WM, q0, cc, acc);
 #pragma unroll
-        for (int q = 0; q < kTR / 4; ++q) {
-          const float4 u = r4[q], v = i4[q];
-          acc[4 * q + 0] = fmaf(v.x, ws, fmaf(u.x, wc, acc[4 * q + 0]));
-          acc[4 * q + 1] = fmaf(v.y, ws, fmaf(u.y, wc, acc[4 * q + 1]));
-          acc[4 * q + 2] = fmaf(v.z, ws, fmaf(u.z, wc, acc[4 * q + 2]));
-          acc[4 * q + 3] = fmaf(v.w, ws, fmaf(u.w, wc, acc[4 * q + 3]));
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) {
-        const long row = row0 + i;
+      for (int i = 0; i < 8; ++i) {
+        const long row = row0 + q0 + i;
         if (row >= rows) break;
         const long b = row / N, n = row % N;
-        out[((b * K + kk) * N + n) * WM + m] = acc[i];
+        if (!kRagged) {
+          *reinterpret_cast<float4*>(out + ((b * K + cc / WM) * N + n) * WM + cc % WM) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            out[((b * K + (cc + q) / WM) * N + n) * WM + (cc + q) % WM] = acc[i][q];
+        }
       }
     }
   }
@@ -274,10 +398,6 @@ __device__ __forceinline__ void lds4x2(const float* p, int gap, float (&v)[8]) {
   const float4 hi = *reinterpret_cast<const float4*>(p + gap);
   v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
   v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
 // acc[i][4 * j4 + q] = sum_c da[c][r0 + i] * wl[c][c4[j4] + q]
@@ -439,7 +559,7 @@ __device__ __forceinline__ void glu_bwd_elementwise(
 // backwards -> the chain's part of dx, dxc [2][rows_pad][D0]; da, ds of the
 // chain's GLUs to dacts (laid out like acts), and their column sums over
 // each 8 rows to bpart [tiles * kBRG][12][D1] (array 2 * GLU + side). Takes
-// the shapes `bwd_shape_ok` passes; kMaxThreads: kBMaxThreads, or
+// the shapes `shape_ok` passes; kMaxThreads: kBMaxThreads, or
 // kBWideThreads for the D1 that need more; kRagged: for D1 / 4 odd or WM % 4
 // != 0 (compiled into the flagship's instantiation, that code slowed the
 // entry by 5% on an H100: `utils/kernel_variants.py`).
@@ -752,32 +872,96 @@ GluWeights glu_weights(const void* const* w) {
   return g;
 }
 
-long chain_smem(int K, int W, int WM) {
-  return (long)(K * W + 3 * K * WM) * kTRS * (long)sizeof(float);
-}
-
-long rows_padded(int B, int N) { return ((long)B * N + kTR - 1) / kTR * kTR; }
+// Rows of the saved arrays and of the backward's buffers: B*N padded to the
+// weight-gradient kernel's stage of rows.
+long rows_padded(int B, int N) { return ((long)B * N + kWRC - 1) / kWRC * kWRC; }
 
 long grads_total(int d0, int d1) { return glu_grad_offset(6, d0, d1); }
+
+// The shapes every entry takes, the forward's and the backward's alike: D0
+// and D1 in runs of 4 columns (K = 4 in the model), a block of the rows
+// kernel at most kBWideThreads threads: D1 <= 680.
+bool shape_ok(int K, int W, int WM) {
+  const int d0 = K * W, d1 = K * WM;
+  return d0 % 4 == 0 && d1 % 4 == 0 && rows_threads(d1) <= kBWideThreads;
+}
+
+// threads of a chain block of `tile` rows: tile / 8 row groups by D1 / 4
+// column groups, in whole warps
+int chain_threads(int tile, int d1) { return (tile / 8 * (d1 / 4) + 31) / 32 * 32; }
+
+// The chain kernel's row tile: of kFTiles, the one whose blocks (two a tile)
+// give the busiest of `sms` SMs the fewest rows to work through, the earlier
+// on a tie (24 rows at the flagship's 4480, 16 at 800).
+int chain_tile(long rows_pad, int sms) {
+  int best = kFTiles[0];
+  long best_rows = LONG_MAX;
+  for (int t : kFTiles) {
+    const long blocks = 2 * ((rows_pad + t - 1) / t);
+    const long busiest = (blocks + sms - 1) / sms * t;
+    if (busiest < best_rows) {
+      best = t;
+      best_rows = busiest;
+    }
+  }
+  return best;
+}
+
+// The chain kernel on the padded rows: with kOut in clusters of 2 (the two
+// chains of a row tile) writing out; with kSave writing acts.
+template <bool kSave, bool kOut>
+int chain_launch(const float* x, const GluWeights& gw, const float* ci, const float* si,
+                 float* out, float* acts, int B, int K, int N, int W, int WM,
+                 cudaStream_t st) {
+  if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int d1 = K * WM;
+  const long rows_pad = rows_padded(B, N);
+  const int tile = chain_tile(rows_pad, sms);
+  const int threads = chain_threads(tile, d1);
+  const bool ragged = WM % 4 != 0;
+  const auto kernel =
+      threads <= kFMaxThreads
+          ? (ragged ? spectral_chain_kernel<kFMaxThreads, kSave, kOut, true>
+                    : spectral_chain_kernel<kFMaxThreads, kSave, kOut, false>)
+      : threads <= kFMidThreads
+          ? (ragged ? spectral_chain_kernel<kFMidThreads, kSave, kOut, true>
+                    : spectral_chain_kernel<kFMidThreads, kSave, kOut, false>)
+          : (ragged ? spectral_chain_kernel<kFWideThreads, kSave, kOut, true>
+                    : spectral_chain_kernel<kFWideThreads, kSave, kOut, false>);
+  const int smem = (kOut ? 2 : 1) * d1 * (tile + 4) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2, (unsigned)((rows_pad + tile - 1) / tile));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = kOut ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, x, gw, ci, si, out, acts,
+                                 kSave ? rows_pad * d1 : 0L, rows_pad, tile, B, K, N, W, WM);
+}
 
 }  // namespace
 
 // w: 24 device pointers, per GLU i = 0..5: wl[i], bl[i], wr[i], br[i]
-// (wl/wr [Din, D1] row-major, layer-0 weights already DFT-folded); ci, si:
-// one [WM, WM] block of the inverse DFT. A shape whose buffers exceed the
-// shared memory of a block fails at cudaFuncSetAttribute.
+// (wl/wr [Din, D1] row-major, 16-byte aligned, layer-0 weights already
+// DFT-folded); ci, si: one [WM, WM] block of the inverse DFT. A shape
+// `shape_ok` refuses returns cudaErrorInvalidValue before any launch.
 extern "C" int spectral_fwd(const float* x, const void* const* w, const float* ci,
                             const float* si, float* out, int B, int K, int N, int W,
                             int WM, void* stream) {
-  const long smem = chain_smem(K, W, WM);
-  cudaError_t err = cudaFuncSetAttribute(
-      spectral_chain_kernel<false, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)(rows_padded(B, N) / kTR);
-  spectral_chain_kernel<false, true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, glu_weights(w), ci, si, out, nullptr, 0, B, K, N, W, WM);
-  return (int)cudaGetLastError();
+  return chain_launch<false, true>(x, glu_weights(w), ci, si, out, nullptr, B, K, N, W, WM,
+                                   (cudaStream_t)stream);
 }
 
 // Floats of the 12 saved arrays (a0, s0, ..., a5, s5), each [padded rows, D1].
@@ -790,16 +974,8 @@ extern "C" long long spectral_act_floats(int B, int K, int N, int WM) {
 extern "C" int spectral_fwd_save(const float* x, const void* const* w, const float* ci,
                                  const float* si, float* out, float* acts, int B, int K,
                                  int N, int W, int WM, void* stream) {
-  const long smem = chain_smem(K, W, WM);
-  cudaError_t err = cudaFuncSetAttribute(
-      spectral_chain_kernel<true, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long rows_pad = rows_padded(B, N);
-  spectral_chain_kernel<true, true>
-      <<<(int)(rows_pad / kTR), kThreads, smem, (cudaStream_t)stream>>>(
-          x, glu_weights(w), ci, si, out, acts, rows_pad * K * WM, B, K, N, W, WM);
-  return (int)cudaGetLastError();
+  return chain_launch<true, true>(x, glu_weights(w), ci, si, out, acts, B, K, N, W, WM,
+                                  (cudaStream_t)stream);
 }
 
 // Floats of the flat gradient buffer: per GLU wl [Din, D1], bl [D1], wr, br.
@@ -823,20 +999,12 @@ long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit) {
          (long)nsplit * grads_total(d0, d1);
 }
 
-// The shapes the backward's kernels take: D0 and D1 in runs of 4 columns, a
-// block of the rows kernel at most kBWideThreads threads (D1 <= 680, wider
-// than any forward fits).
-bool bwd_shape_ok(int K, int W, int WM) {
-  const int d0 = K * W, d1 = K * WM;
-  return d0 % 4 == 0 && d1 % 4 == 0 && rows_threads(d1) <= kBWideThreads;
-}
-
 // Steps 1 to 5 of the backward. saved: the forward's 12 arrays, or nullptr to
 // recompute them (step 2) into the head of ws.
 int bwd_launch(const float* x, const float* g, const void* const* w, const float* ci,
                const float* si, float* dx, float* grads, const float* saved, float* ws,
                int B, int K, int N, int W, int WM, int nsplit, cudaStream_t st) {
-  if (!bwd_shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
   const int d0 = K * W, d1 = K * WM;
   const long rows_pad = rows_padded(B, N);
   const long plane = rows_pad * d1;
@@ -846,13 +1014,9 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
 
   const float* acts = saved;
   if (saved == nullptr) {
-    const long smem_f = chain_smem(K, W, WM);
-    err = cudaFuncSetAttribute(spectral_chain_kernel<true, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_f);
+    err = (cudaError_t)chain_launch<true, false>(x, gw, ci, si, nullptr, ws, B, K, N, W, WM,
+                                                 st);
     if (err != cudaSuccess) return (int)err;
-    spectral_chain_kernel<true, false><<<(int)(rows_pad / kTR), kThreads, smem_f, st>>>(
-        x, gw, ci, si, nullptr, ws, plane, B, K, N, W, WM);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     acts = ws;
     ws += 12 * plane;
   }

@@ -15,7 +15,9 @@ their own for a step's values, with no cluster-wide barrier in the loop.
 the C entries take them as arguments. Where a slice does not fit a block's
 shared memory at the largest cluster size (H above 360), the wrappers launch
 the one-block kernels instead (`gru_fwd_one_block`, `gru_bwd_one_block`: a
-block per group of 8 batch rows, W_hh^T read from L2), by shape. The
+block per group of 8 batch rows, W_hh^T read from L2), by shape; their
+group buffers go to a device workspace where they outgrow a block's shared
+memory (H above 2421 in the forward, 1210 in the backward). The
 forwards write the five saved activations per step when a gradient is
 needed; the backwards are the reverse recurrence over them.
 
@@ -58,6 +60,7 @@ class GruPlan(NamedTuple):
     row_stride: int   # floats a row of the resident part of W_hh^T
     threads: int      # threads a block
     smem: int         # bytes of dynamic shared memory a block
+    workspace: int = 0  # bytes of device workspace for the groups' buffers (one-block route)
 
     def slices(self, h: int):
         """[(first unit, one past the last)] of each block of a cluster."""
@@ -133,28 +136,34 @@ def bwd_plan(b: int, h: int) -> GruPlan:
                       functools.partial(one_block_plan, backward=True))
 
 
-def one_block_plan(b: int, h: int, backward: bool = False) -> GruPlan:
+def one_block_plan(b: int, h: int, backward: bool = False,
+                   in_workspace: bool | None = None) -> GruPlan:
     """A block per group of 8 batch rows (one thread's rows): the smallest
     group, so the most SMs. Its h (forward) or dh and dcat (backward) buffers,
-    [H][8 + 4] floats each, fit a block's shared memory up to H = 2421
-    (forward) and 1210 (backward); raises above that."""
+    [H][8 + 4] floats each, sit in shared memory where they fit (up to
+    H = 2421 forward, 1210 backward) and else in the group's slice of a
+    device workspace (`smem` 0, `workspace` bytes for all groups): the same
+    arithmetic. `in_workspace` forces either place (the workspace at any H);
+    None chooses by fit."""
+    if b < 1 or h < 1:
+        raise ValueError(f"gru plan: batch {b}, hidden {h}")
     rows = _ONE_BLOCK_ROWS
-    smem = 4 * (4 if backward else 2) * h * (rows + _ONE_BLOCK_PAD)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"gru: the one-block kernel needs {smem} bytes of shared memory for "
-            f"hidden size {h}, over {SMEM_PER_BLOCK}")
-    return GruPlan(route="one_block", rows=rows, groups=_ceil_div(b, rows), cluster=1,
+    groups = _ceil_div(b, rows)
+    buffers = 4 * (4 if backward else 2) * h * (rows + _ONE_BLOCK_PAD)
+    if in_workspace is None:
+        in_workspace = buffers > SMEM_PER_BLOCK
+    return GruPlan(route="one_block", rows=rows, groups=groups, cluster=1,
                    slice=h, row_stride=3 * h, threads=min(1024, _ceil_div(h, 32) * 32),
-                   smem=smem)
+                   smem=0 if in_workspace else buffers,
+                   workspace=groups * buffers if in_workspace else 0)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "gru_fwd_cluster": [_P] * 5 + [_I] * 10 + [_P],
-    "gru_fwd_one_block": [_P] * 5 + [_I] * 7 + [_P],
+    "gru_fwd_one_block": [_P] * 6 + [_I] * 7 + [_P],
     "gru_bwd_cluster": [_P] * 4 + [_I] * 10 + [_P],
-    "gru_bwd_one_block": [_P] * 4 + [_I] * 7 + [_P],
+    "gru_bwd_one_block": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 
@@ -164,6 +173,14 @@ def _fn(name: str):
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _workspace(plan: GruPlan, like):
+    """The one-block route's device workspace (None where its buffers sit in
+    shared memory)."""
+    if not plan.workspace:
+        return None
+    return torch.empty(plan.workspace // 4, dtype=torch.float32, device=like.device)
 
 
 def _launch_fwd(x_proj, w_hh_t, b_hh, save: bool, plan: GruPlan | None = None):
@@ -189,19 +206,24 @@ def _launch_fwd(x_proj, w_hh_t, b_hh, save: bool, plan: GruPlan | None = None):
             plan.row_stride, plan.threads, plan.smem, _build.stream_ptr(x_proj))
         counter = gru_over_nodes
     else:
-        rc = _fn("gru_fwd_one_block")(*ptrs, n, b, h, plan.rows, plan.groups,
-                                      plan.threads, plan.smem, _build.stream_ptr(x_proj))
+        ws = _workspace(plan, x_proj)
+        rc = _fn("gru_fwd_one_block")(*ptrs, ws.data_ptr() if ws is not None else None,
+                                      n, b, h, plan.rows, plan.groups, plan.threads,
+                                      plan.smem, _build.stream_ptr(x_proj))
         counter = gru_fwd_one_block
     _build.check(rc, f"gru_over_nodes ({plan.route})")
     counter.launches += 1
     return out, saved
 
 
-def gru_fwd_one_block(x_proj, w_hh_t, b_hh, save: bool = False):
+def gru_fwd_one_block(x_proj, w_hh_t, b_hh, save: bool = False,
+                      in_workspace: bool | None = None):
     """The recurrence through the one-block kernel whatever the shape: what
-    `gru_over_nodes` launches for a hidden size that fits no cluster."""
+    `gru_over_nodes` launches for a hidden size that fits no cluster
+    (`in_workspace`: as `one_block_plan`)."""
     b, h = x_proj.shape[1], w_hh_t.shape[0]
-    return _launch_fwd(x_proj, w_hh_t, b_hh, save, one_block_plan(b, h))
+    return _launch_fwd(x_proj, w_hh_t, b_hh, save,
+                       one_block_plan(b, h, in_workspace=in_workspace))
 
 
 gru_fwd_one_block.launches = 0
@@ -226,9 +248,11 @@ def _launch_bwd(saved, g, a_all, plan: GruPlan | None = None):
         counter = gru_scan_bwd
     else:
         a_t = a_all.t().contiguous()  # [3H, H], what the one-block kernel reads along rows
+        ws = _workspace(plan, saved)
         rc = _fn("gru_bwd_one_block")(
-            saved.data_ptr(), g.data_ptr(), a_t.data_ptr(), dxp.data_ptr(), n, b, h,
-            plan.rows, plan.groups, plan.threads, plan.smem, _build.stream_ptr(saved))
+            saved.data_ptr(), g.data_ptr(), a_t.data_ptr(), dxp.data_ptr(),
+            ws.data_ptr() if ws is not None else None, n, b, h, plan.rows, plan.groups,
+            plan.threads, plan.smem, _build.stream_ptr(saved))
         counter = gru_bwd_one_block
     _build.check(rc, f"gru_scan_bwd ({plan.route})")
     counter.launches += 1
@@ -245,11 +269,13 @@ def gru_scan_bwd(saved, g, a_all):
 gru_scan_bwd.launches = 0  # the cluster kernel's
 
 
-def gru_bwd_one_block(saved, g, a_all):
+def gru_bwd_one_block(saved, g, a_all, in_workspace: bool | None = None):
     """The backward through the one-block kernel whatever the shape: what
-    `gru_scan_bwd` launches for a hidden size that fits no cluster."""
+    `gru_scan_bwd` launches for a hidden size that fits no cluster
+    (`in_workspace`: as `one_block_plan`)."""
     b, h = saved.shape[2], saved.shape[3]
-    return _launch_bwd(saved, g, a_all, one_block_plan(b, h, backward=True))
+    return _launch_bwd(saved, g, a_all,
+                       one_block_plan(b, h, backward=True, in_workspace=in_workspace))
 
 
 gru_bwd_one_block.launches = 0

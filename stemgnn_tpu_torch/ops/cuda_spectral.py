@@ -56,6 +56,12 @@ def _dft_on(w: int, k: int, wm: int, device: torch.device):
     return cf, sf, ci[:wm, :wm].contiguous(), si[:wm, :wm].contiguous()
 
 
+def _aligned(t):
+    """t contiguous and 16-byte aligned (the kernels read weights as float4)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def folded_weights(glu_params, cf, sf):
     """The 24 GLU tensors in kernel order (wl, bl, wr, br per GLU), with
     the forward DFT folded into GLU 0 (real chain, Cf) and GLU 1 (imag
@@ -66,8 +72,7 @@ def folded_weights(glu_params, cf, sf):
         if i < 2:
             dft = cf if i == 0 else sf
             wl, wr = torch.matmul(dft, wl), torch.matmul(dft, wr)
-        out.extend([wl.contiguous(), p["left"]["b"].contiguous(),
-                    wr.contiguous(), p["right"]["b"].contiguous()])
+        out.extend(_aligned(t) for t in (wl, p["left"]["b"], wr, p["right"]["b"]))
     return out
 
 
@@ -95,6 +100,17 @@ def _fn(name: str):
     return fn
 
 
+def _check(rc: int, name: str, k: int, w: int, wm: int) -> None:
+    """Raise on a C entry's error; 1 (cudaErrorInvalidValue) is also what
+    every entry returns, before any launch, for a shape outside
+    csrc/spectral.cu `shape_ok`."""
+    if rc == 1:
+        raise RuntimeError(
+            f"{name}: the kernels refused K*W = {k * w}, K*W*multi = {k * wm} "
+            "(csrc/spectral.cu shape_ok: multiples of 4, K*W*multi at most 680)")
+    _build.check(rc, name)
+
+
 def _check_weights(name, weights, k, w, wm):
     for i, t in enumerate(weights):
         d_in = k * w if i < 8 else k * wm
@@ -117,7 +133,7 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
     if not save:
         rc = _fn("spectral_fwd")(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
                                  out.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
-        _build.check(rc, name)
+        _check(rc, name, k, w, wm)
         spe_seq_cell.launches += 1
         return out
     acts = torch.empty(_fn("spectral_act_floats")(b, k, n, wm), dtype=torch.float32,
@@ -125,7 +141,7 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
     rc = _fn("spectral_fwd_save")(
         x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
         acts.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
-    _build.check(rc, name)
+    _check(rc, name, k, w, wm)
     spe_seq_cell_save.launches += 1
     return out, acts
 
@@ -157,11 +173,11 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
             _build.stream_ptr(x))
     if reread:
         rc = _fn("spectral_bwd_reread")(*head, acts.data_ptr(), *tail)
-        _build.check(rc, name)
+        _check(rc, name, k, w, wm)
         spe_seq_cell_bwd_reread.launches += 1
     else:
         rc = _fn("spectral_bwd")(*head, *tail)
-        _build.check(rc, name)
+        _check(rc, name, k, w, wm)
         spe_seq_cell_bwd.launches += 1
     out, off = [], 0
     for t in weights:
@@ -209,7 +225,7 @@ spe_seq_cell_bwd.launches = 0
 def spe_seq_cell_save(x, glu_params, multi: int):
     """`spe_seq_cell` that also returns what `spe_seq_cell_bwd_reread` reads:
     (out [B,K,N,W*multi], acts [12, rows, K*W*multi]), rows = B*N on the CPU
-    and B*N padded to the kernel's row tile on the card."""
+    and B*N padded to a multiple of 16 on the card."""
     if x.device.type == "cpu":
         return spe_seq_cell_save_plain(x, glu_params, multi)
     b, k, n, w = x.shape

@@ -1,14 +1,18 @@
 """Where a kernel's time goes: builds copies of a CUDA source with one piece
 taken out or changed, and times each beside the source as it is.
 
-    python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [spectral] [graph]
+    python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [spectral]
+        [spectral_fwd] [graph] [against=CHECKOUT]
 
 A variant is a list of (text, replacement) pairs applied to the source; a
 pair whose text is no longer in the source stops the run, so an edit to a
 kernel shows up here. Most variants compute WRONG results by design (an
 exchange or a load left out): only their times mean anything, and the difference to
 `base` is what the piece costs. Shapes are the ECG flagship's (B = 32,
-H = N = 140, W = 12, K = 4). Times are device milliseconds of one call,
+H = N = 140, W = 12, K = 4); `spectral_fwd` also times the COVID-19 shape
+(B = 32, N = 25, W = 28, multi 5). `against=CHECKOUT` builds the spectral
+source of another checkout (a `git archive` of an earlier commit) and holds
+this tree's spectral forwards bitwise against it. Times are device milliseconds of one call,
 replays of a CUDA graph of 20 calls, with the card's name and power limit on
 the first line. Needs a card and nvcc; nothing in the package calls this.
 """
@@ -134,6 +138,46 @@ SPECTRAL_VARIANTS = {
     "wgrad: no u = a * s product": [
         ("        if (gi >= 2) {  // u = a * s of the GLU before\n",
          "        if (gi < 0) {  // u = a * s of the GLU before\n")],
+}
+
+_FWD_TILE = "  const int tile = chain_tile(rows_pad, sms);\n"
+SPECTRAL_FWD_VARIANTS = {
+    "base": [],
+    # the chain forward's pieces, each left out in turn
+    "fwd: no weight loads": [
+        ("    l = ldg4(pl + kk * dout);\n    r = ldg4(pr + kk * dout);\n",
+         "    l = make_float4(kk, c, 1.f, 2.f);\n    r = make_float4(c, kk, 2.f, 1.f);\n")],
+    "fwd: no activation reads": [
+        ("      load8(in + k * S + r0, x);\n",
+         "      for (int i = 0; i < 8; ++i) x[i] = 1e-3f * (k + i);\n")],
+    "fwd: no saved writes": [
+        ("      if (row < rows_pad) {\n        *reinterpret_cast<float4*>(ga + row * d1",
+         "      if (row < 0) {\n        *reinterpret_cast<float4*>(ga + row * d1")],
+    "fwd: no inverse DFT sums": [
+        ("      idft_fwd_run<kRagged>(re, im, S, ci, si, WM, q0, cc, acc);\n",
+         "      for (int i = 0; i < 8; ++i)\n        for (int q = 0; q < 4; ++q) "
+         "acc[i][q] = re[q] + im[i];\n")],
+    "fwd: no join (cluster barriers, copy, inverse DFT)": [
+        ("  if constexpr (kOut) {\n    cg::cluster_group",
+         "  if constexpr (kOut && !kOut) {\n    cg::cluster_group")],
+    # blocks of up to 192 threads bounded for two an SM in place of three
+    # (more registers a thread)
+    "fwd: two blocks an SM": [
+        ("__launch_bounds__(kMaxThreads, kMaxThreads == kFMaxThreads ? 3 : 1)\n"
+         "spectral_chain_kernel",
+         "__launch_bounds__(kMaxThreads, kMaxThreads == kFMaxThreads ? 2 : 1)\n"
+         "spectral_chain_kernel")],
+    # the weight loads one step of k ahead in place of two (fewer registers)
+    "fwd: weights one step ahead": [
+        ("constexpr int kFAhead = 2; ", "constexpr int kFAhead = 1; ")],
+    # blocks of 193 to 320 threads in the 512-thread instantiation (128
+    # registers a thread in place of 168)
+    "fwd: no 320-thread instantiation": [
+        ("      : threads <= kFMidThreads\n", "      : threads <= 0\n")],
+    # the row tile the rule chooses against the others
+    "fwd: row tile 24": [(_FWD_TILE, "  const int tile = 24;\n")],
+    "fwd: row tile 16": [(_FWD_TILE, "  const int tile = 16;\n")],
+    "fwd: row tile 8": [(_FWD_TILE, "  const int tile = 8;\n")],
 }
 
 _G_LOOP = "      for (int m = p; m < mp; m += kParts) {"
@@ -294,14 +338,20 @@ def gru_bwd(dev, tmp: Path) -> None:
         h = 512
         x_proj, a_all, b_hh = _gru_inputs(b, h, dev)
         g = torch.from_numpy(rng.standard_normal((b, h, h)).astype(np.float32)).to(dev)
+        times = {}
         with torch.no_grad():
             _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
-            ms = _cuda_ms(lambda: cuda_gru.gru_bwd_one_block(saved, g, a_all),
-                          calls=2, replays=3)
-            fwd = _cuda_ms(lambda: cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh),
-                           calls=2, replays=3)
-        print(f"gru one-block B={b} H={h} (groups of 8 rows): forward {fwd:.5f} ms, "
-              f"backward {ms:.5f} ms")
+            for ws in (False, True):  # the group buffers in shared memory, or in a workspace
+                times[ws] = (
+                    _cuda_ms(lambda: cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh,
+                                                                in_workspace=ws),
+                             calls=2, replays=3),
+                    _cuda_ms(lambda: cuda_gru.gru_bwd_one_block(saved, g, a_all,
+                                                                in_workspace=ws),
+                             calls=2, replays=3))
+        print(f"gru one-block B={b} H={h} (groups of 8 rows): forward {times[False][0]:.5f} "
+              f"ms, backward {times[False][1]:.5f} ms; buffers in a device workspace: "
+              f"forward {times[True][0]:.5f} ms, backward {times[True][1]:.5f} ms")
 
 
 def spectral(dev, tmp: Path) -> None:
@@ -344,6 +394,113 @@ def spectral(dev, tmp: Path) -> None:
               f"{_cuda_ms(call):.5f} ms")
 
 
+def _spectral_inputs(b, n, w, multi, dev, seed):
+    """x [B, 4, N, W], the 24 folded GLU tensors of init_params(0) at that
+    window and multiplier, and one block of the inverse DFT, on the card."""
+    from stemgnn_tpu_torch.config import StemGNNConfig
+    from stemgnn_tpu_torch.models import init_params
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    k, wm = 4, w * multi
+    cfg = StemGNNConfig(units=n, window_size=w, horizon=3, multi_layer=multi)
+    glu = init_params(0, cfg, device=dev)["blocks"][0]["glu"]
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, k, n, w)).astype(np.float32)).to(dev)
+    cf, sf, ci, si = cuda_spectral._dft_on(w, k, wm, dev)
+    return x, cuda_spectral.folded_weights(glu, cf, sf), ci, si
+
+
+def _spectral_fwd_calls(lib, x, weights, ci, si, multi):
+    """(serving call, saving call) of a library's two forward entries, each
+    into buffers made here; the calls return (out, acts or None)."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = x.shape
+    wm = w * multi
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    out = torch.empty((b, k, n, wm), device=x.device)
+    acts = torch.empty(lib.spectral_act_floats(b, k, n, wm), device=x.device)
+    fwd, save = lib.spectral_fwd, lib.spectral_fwd_save
+    fwd.argtypes, fwd.restype = cuda_spectral._SIGNATURES["spectral_fwd"]
+    save.argtypes, save.restype = cuda_spectral._SIGNATURES["spectral_fwd_save"]
+
+    def serve():
+        _build.check(fwd(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
+                         b, k, n, w, wm, _build.stream_ptr(x)), "spectral_fwd")
+        return out, None
+
+    def saving():
+        _build.check(save(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
+                          acts.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x)),
+                     "spectral_fwd_save")
+        return out, acts.view(12, -1, k * wm)
+
+    return serve, saving
+
+
+SPECTRAL_FWD_SHAPES = {"flagship": (32, 140, 12, 5), "COVID-19": (32, 25, 28, 5)}
+
+
+def spectral_fwd(dev, tmp: Path) -> None:
+    """The spectral serving and saving forwards by variant, at the flagship
+    and COVID-19 shapes."""
+    shapes = {name: _spectral_inputs(b, n, w, m, dev, 5) + (m,)
+              for name, (b, n, w, m) in SPECTRAL_FWD_SHAPES.items()}
+    for name, lib in _build_variants("spectral.cu", SPECTRAL_FWD_VARIANTS, tmp).items():
+        lib.spectral_act_floats.argtypes = [ctypes.c_int] * 4
+        lib.spectral_act_floats.restype = ctypes.c_longlong
+        for shape, (x, weights, ci, si, m) in shapes.items():
+            serve, saving = _spectral_fwd_calls(lib, x, weights, ci, si, m)
+            print(f"spectral forward {shape} {tuple(x.shape)} multi={m}, {name}: serving "
+                  f"{_cuda_ms(serve):.5f} ms, saving {_cuda_ms(saving):.5f} ms")
+
+
+def spectral_against(dev, tmp: Path, other: Path) -> None:
+    """This tree's spectral_fwd and spectral_fwd_save against another
+    checkout's (csrc/spectral.cu built on its own) at the flagship shape and
+    at W = 25: the output and the 12 saved arrays' real rows bitwise equal;
+    and both trees' times, in the order other, this, this, other."""
+    src = other / "stemgnn_tpu_torch" / "csrc" / "spectral.cu"
+    lib_dir = Path(tempfile.mkdtemp(dir=tmp))
+    so = lib_dir / "libspectral_other.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-o",
+                           str(so), str(src)], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"{src}: nvcc failed:\n{proc.stdout}{proc.stderr}")
+    libs = {"other": ctypes.CDLL(str(so)), "this": _build.library("spectral")}
+    for lib in libs.values():
+        lib.spectral_act_floats.argtypes = [ctypes.c_int] * 4
+        lib.spectral_act_floats.restype = ctypes.c_longlong
+    for shape, (b, n, w, m) in {"flagship": (32, 140, 12, 5), "W=25": (5, 37, 25, 5),
+                                "COVID-19 W=28 (this tree only)": (32, 25, 28, 5)}.items():
+        x, weights, ci, si = _spectral_inputs(b, n, w, m, dev, 6)
+        rows = b * n
+        calls = {tree: _spectral_fwd_calls(lib, x, weights, ci, si, m)
+                 for tree, lib in libs.items()}
+        if "only" in shape:
+            ms = [_cuda_ms(c) for c in calls["this"]]
+            print(f"spectral forward {shape}: this tree serving {ms[0]:.5f} ms, saving "
+                  f"{ms[1]:.5f} ms")
+            continue
+        got = {}
+        for tree, (serve, saving) in calls.items():
+            out, _ = serve()
+            out = out.clone()
+            out_s, acts = saving()
+            got[tree] = (out, out_s.clone(), acts[:, :rows].clone())
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b_) for a, b_ in zip(got["this"], got["other"])]
+        times = {tree: [] for tree in libs}
+        for tree in ("other", "this", "this", "other"):
+            times[tree].append([_cuda_ms(c) for c in calls[tree]])
+        print(f"spectral forward {shape} B={b} N={n} W={w} multi={m}: this tree against "
+              f"{other}: serving output {'bitwise equal' if same[0] else 'DIFFERS'}, saving "
+              f"output {'bitwise equal' if same[1] else 'DIFFERS'}, 12 saved arrays "
+              f"{'bitwise equal' if same[2] else 'DIFFER'}; ms (serving, saving) in the "
+              f"order other, this, this, other: {times['other'][0]}, {times['this'][0]}, "
+              f"{times['this'][1]}, {times['other'][1]}")
+
+
 def graph(dev, tmp: Path) -> None:
     k, n, b, w = 4, 140, 32, 12
     rng = np.random.default_rng(0)
@@ -371,7 +528,8 @@ def graph(dev, tmp: Path) -> None:
 
 
 def main(argv=None) -> int:
-    which = (argv if argv is not None else sys.argv[1:]) or ["gru", "gru_bwd", "spectral", "graph"]
+    which = ((argv if argv is not None else sys.argv[1:])
+             or ["gru", "gru_bwd", "spectral", "spectral_fwd", "graph"])
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 1
@@ -381,8 +539,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         for name in which:
+            if name.startswith("against="):
+                spectral_against(dev, Path(tmp), Path(name.split("=", 1)[1]).resolve())
+                continue
             {"gru": gru, "gru_bwd": gru_bwd, "spectral": spectral,
-             "graph": graph}[name](dev, Path(tmp))
+             "spectral_fwd": spectral_fwd, "graph": graph}[name](dev, Path(tmp))
     return 0
 
 

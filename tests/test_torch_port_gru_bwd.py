@@ -74,8 +74,11 @@ def test_bwd_plan_routes_the_forwards_range():
     for b in (32, 64):
         for plan in (cuda_gru.launch_plan(b, 512), cuda_gru.bwd_plan(b, 512)):
             assert plan[:4] == ("one_block", 8, b // 8, 1)
-    with pytest.raises(ValueError, match="shared"):
-        cuda_gru.bwd_plan(1, 1300)
+    # past a block's shared memory: the same route, its dh and dcat buffers in a
+    # device workspace
+    wide = cuda_gru.bwd_plan(1, 1300)
+    assert wide[:4] == ("one_block", 8, 1, 1)
+    assert (wide.smem, wide.workspace) == (0, 4 * 4 * 1300 * 12)
 
 
 def _transpose_reduce_sum(parts):

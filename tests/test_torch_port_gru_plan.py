@@ -61,7 +61,7 @@ def test_gru_plan_covers_units_and_rows_once(b, h):
         assert plan.rows == 8 and plan.groups == -(-b // 8)
         assert (plan.cluster, plan.slice) == (1, h)
         assert min(h, 1024) <= plan.threads <= 1024
-        assert plan.smem == 4 * 2 * h * (plan.rows + 4)
+        assert plan.smem == 4 * 2 * h * (plan.rows + 4) and plan.workspace == 0
 
 
 def test_gru_plan_fit_rule_and_routes():
@@ -75,10 +75,34 @@ def test_gru_plan_fit_rule_and_routes():
     # the one-block route in groups of 8 rows
     assert cuda_gru.launch_plan(32, 512, max_cluster=16).route == "cluster"
     assert cuda_gru.launch_plan(64, 512)[:4] == ("one_block", 8, 8, 1)
-    with pytest.raises(ValueError, match="shared"):
-        cuda_gru.launch_plan(1, 2500)
+    # past the shared memory of a block (H > 2421 forward, > 1210 backward) the
+    # group buffers go to a device workspace: [H][12] floats, 2 (forward) or 4
+    # (backward) of them a group of 8 rows
+    fwd, bwd = cuda_gru.launch_plan(1, 2500), cuda_gru.bwd_plan(1, 1300)
+    assert fwd.route == bwd.route == "one_block"
+    assert (fwd.smem, fwd.workspace) == (0, 4 * 2 * 2500 * 12)
+    assert (bwd.smem, bwd.workspace) == (0, 4 * 4 * 1300 * 12)
+    assert cuda_gru.launch_plan(17, 2500).workspace == 3 * 4 * 2 * 2500 * 12
+    assert cuda_gru.launch_plan(1, 2421).workspace == 0
+    assert cuda_gru.bwd_plan(1, 1210).workspace == 0
     with pytest.raises(ValueError):
         cuda_gru.launch_plan(0, 140)
+    with pytest.raises(ValueError):
+        cuda_gru.one_block_plan(1, 0)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_gru_one_block_plan_workspace_route_on_request(backward):
+    """The workspace route can be asked for at a hidden size whose buffers fit
+    shared memory (chip_smoke.py holds it bitwise against the shared-memory
+    route there): the same launch, its buffers moved to the workspace."""
+    shared = cuda_gru.one_block_plan(32, 512, backward=backward)
+    ws = cuda_gru.one_block_plan(32, 512, backward=backward, in_workspace=True)
+    assert shared.workspace == 0 and shared.smem == 4 * (4 if backward else 2) * 512 * 12
+    assert ws.smem == 0 and ws.workspace == shared.groups * shared.smem
+    assert ws._replace(smem=shared.smem, workspace=0) == shared
+    big = cuda_gru.one_block_plan(8, 2500, backward=backward, in_workspace=False)
+    assert big.workspace == 0 and big.smem > cuda_gru.SMEM_PER_BLOCK
 
 
 def _emulate(plan, x_proj, a_all, b_hh):

@@ -115,25 +115,26 @@ def _leaf_tree(tree):
     return torch.from_numpy(np.array(tree)).requires_grad_(True)
 
 
-def _training_loss_and_grads(np_tree, x, y, use_pallas):
+def _training_loss_and_grads(np_tree, x, y, use_pallas, cfg=CFG, jcfg=JCFG):
     """Both sides' loss, forecast and parameter gradients of the training
     forward on one batch. The dropout mask is drawn here as the JAX forward
     draws it, bernoulli(rng, keep, [B, N, N]), and handed to the port: the two
     frameworks' generators give different bits from one seed."""
     rng = jax.random.PRNGKey(5)
-    keep = 1.0 - JCFG.dropout_rate
-    mask = np.asarray(jax.random.bernoulli(rng, keep, (B, N, N)))
+    keep = 1.0 - jcfg.dropout_rate
+    b, n = x.shape[0], cfg.units
+    mask = np.asarray(jax.random.bernoulli(rng, keep, (b, n, n)))
     assert 0.3 < mask.mean() < 0.7
 
     def loss_fn(p):
-        f, _ = jax_stemgnn.forward(p, JCFG, jnp.asarray(x), training=True,
+        f, _ = jax_stemgnn.forward(p, jcfg, jnp.asarray(x), training=True,
                                    dropout_rng=rng, use_pallas=use_pallas)
         return jnp.mean((f - jnp.asarray(y)) ** 2), f
 
     (jloss, jf), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
         jax.tree.map(jnp.asarray, np_tree))
     params = _leaf_tree(np_tree)
-    tf, _ = forward(params, CFG, torch.from_numpy(x), training=True,
+    tf, _ = forward(params, cfg, torch.from_numpy(x), training=True,
                     dropout_mask=torch.from_numpy(mask.copy()))
     tloss = torch.mean((tf - torch.from_numpy(y)) ** 2)
     tloss.backward()
@@ -179,6 +180,48 @@ def test_training_forward_and_grads_f32_match_pallas(np_params):
         # port's plain backward formulas: 1e-3 of the gradient's largest entry
         atol = 1e-3 * float(np.abs(want).max()) + 1e-9
         np.testing.assert_allclose(tgrads[name].numpy(), want, atol=atol, rtol=1e-3,
+                                   err_msg=name)
+
+
+# The README's COVID-19 command (--window_size 28 --horizon 28) at the default
+# multi_layer 5: 25 nodes, D1 = 560, the JAX package's COVID-19 suite cell
+# (benchmarks/suite.py) at batch 2
+COVID = dict(units=25, window_size=28, horizon=28, multi_layer=5)
+
+
+@pytest.mark.parametrize("dtype", ["f64_jnp", "f32_pallas"])
+def test_covid_shape_training_forward_and_grads_match_jax(dtype):
+    """The whole model at the COVID-19 shape, forward and every gradient,
+    against the JAX package: at f64 against its jnp path (atol 1e-10), and at
+    f32 against its Pallas kernels in interpret mode (forecast atol 1e-4,
+    each gradient 1e-3 of its largest entry), as the flagship tests above."""
+    cfg = StemGNNConfig(**COVID)
+    jcfg = JaxConfig(**COVID, pallas_min_nodes=0)
+    rng = np.random.default_rng(25)
+    np_tree = torch_stream_init(0, jcfg)
+    x = rng.standard_normal((2, 28, 25))
+    y = rng.standard_normal((2, 28, 25))
+    if dtype == "f64_jnp":
+        with jax.enable_x64():
+            jloss, jf, jgrads, tloss, tf, tgrads = _training_loss_and_grads(
+                _cast(np_tree, np.float64), x, y, False, cfg, jcfg)
+        atol_f, atol_l, atol_rel, rtol = 1e-10, 1e-10, 0.0, 0.0
+    else:
+        x, y = x.astype(np.float32), y.astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            jloss, jf, jgrads, tloss, tf, tgrads = _training_loss_and_grads(
+                np_tree, x, y, True, cfg, jcfg)
+        atol_f, atol_l, atol_rel, rtol = 1e-4, 1e-5, 1e-3, 1e-3
+    assert tf.shape == (2, 28, 25)
+    np.testing.assert_allclose(tf, jf, atol=atol_f, rtol=0)
+    assert abs(tloss - jloss) < atol_l
+    assert set(tgrads) == set(jgrads)
+    for name, want in jgrads.items():
+        if tgrads[name] is None:  # stack 1's unused shortcut
+            assert not want.any(), name
+            continue
+        atol = atol_rel * float(np.abs(want).max()) + (1e-10 if dtype == "f64_jnp" else 1e-9)
+        np.testing.assert_allclose(tgrads[name].numpy(), want, atol=atol, rtol=rtol,
                                    err_msg=name)
 
 

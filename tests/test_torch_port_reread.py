@@ -200,12 +200,44 @@ def test_new_wrappers_are_counted_kernels_and_launch_nothing_on_the_cpu():
     (7, 5),    # D1 / 4 odd, and runs of 4 columns straddle two windows
     (10, 5),   # W * multi = 50: runs straddle two windows, D1 / 4 even
     (12, 6),   # D1 = 288: the rows kernel's wide blocks, two weight-gradient column tiles
-    (25, 5),   # D1 = 500: the widest window whose forward fits at multi 5
+    (25, 5),   # D1 = 500
+    (28, 5),   # D1 = 560: the README's COVID-19 command, the widest window here
 ])
 def test_spectral_backward_shape_rule(interpret, w, multi):
-    """The CUDA backward takes every window and multiplier whose forward fits
-    a block (csrc/spectral.cu `bwd_shape_ok`; chip_smoke.py holds it against
-    the plain version at W = 7, 10 and 25, and at multi 6). At such shapes the
-    plain reread backward, which the kernels are held to, matches the JAX
-    package's."""
+    """The CUDA kernels take every window and multiplier with D1 = 4 * W *
+    multi at most 680 (csrc/spectral.cu `shape_ok`, the forward's rule and
+    the backward's; chip_smoke.py holds them against the plain versions at
+    W = 7, 10, 25 and 28, and at multi 6). At such shapes the plain reread
+    backward, which the kernels are held to, matches the JAX package's."""
     _check_reread_backward(np.random.default_rng(65), 2, 5, w, multi)
+
+
+@pytest.mark.parametrize("w,multi", [
+    (7, 5),    # D1 / 4 odd, runs of 4 columns that straddle two windows
+    (25, 5),   # D1 = 500
+    (28, 5),   # D1 = 560: the COVID-19 window
+    (12, 6),   # D1 = 288
+])
+def test_plain_save_forward_matches_pallas_at_other_windows(interpret, w, multi):
+    """The plain saving forward, which the CUDA saving forward is held to on
+    the card, against the JAX package's `_forward(save_acts=True)` (Pallas
+    `_kernel_save` in interpret mode) at f32 with precision "float32": the
+    output and the 12 saved arrays, each within atol 1e-5 of its own largest
+    entry (sums of up to 560 f32 terms in another order)."""
+    rng = np.random.default_rng(66)
+    b, n = 2, 5
+    glu = _glu(n, w, multi)
+    x = rng.standard_normal((b, 4, n, w)).astype(np.float32)
+    with jax.default_matmul_precision("float32"):
+        want_out, want_acts = ps._forward(jnp.asarray(x), jax.tree.map(jnp.asarray, glu),
+                                          multi, save_acts=True)
+    out, acts = ops.spe_seq_cell_save(_t(x), params_from_jax(glu, "cpu"), multi)
+    rows = b * n
+    assert out.shape == (b, 4, n, w * multi) and acts.shape == (12, rows, 4 * w * multi)
+    assert len(want_acts) == 12
+    for i, (got, want) in enumerate([(out, want_out)] + [
+            (acts[i], np.asarray(a)[:rows]) for i, a in enumerate(want_acts)]):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg="out" if i == 0 else f"act {i - 1}")
