@@ -10,7 +10,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
   1. device: CUDA present; the card's name and power limit from nvidia-smi;
      TF32 off for every f32 comparison.
   2. build: nvcc of every kernel source in stemgnn_tpu_torch/csrc.
-  3. kernels: each of the eleven kernels at the shapes its path gives it (the
+  3. kernels: each of the sixteen kernels at the shapes its path gives it (the
      ECG flagship: N=140, W=12, multi_layer=5, batch 32; the one-block GRU
      forward and backward: the 512-node model of phase 4), held against its
      plain PyTorch version on the card. The forward kernels run on inputs
@@ -32,14 +32,22 @@ Phases, each fatal on failure (nonzero exit, no result line):
      its workspace route bitwise its shared-memory route; the spectral
      forwards (the output and the 12 saved arrays) and backwards at row
      counts no multiple of their row tiles and at other windows and
-     multipliers (W = 7, 10, 25, 28; multi 6), the backwards twice, bitwise.
-     The spectral kernels are timed at the COVID-19 shape too (N = 25,
-     W = 28, multi 5, batch 32).
+     multipliers (W = 7, 10, 25, 28, 35, 100; multi 6, 15: D1 up to 2000),
+     the backwards twice, bitwise, and a D1 past 2048 refused. The spectral
+     kernels are timed at the COVID-19 shape too (N = 25, W = 28, multi 5,
+     batch 32). The five bf16 arms (compute_dtype "bfloat16": the graph conv
+     and the four spectral entries) at the flagship's shapes against their
+     bf16 plain versions, each array within BF16_ATOL_REL of its largest entry
+     and closer to the bf16 plain result than to the f32 one; their bound at
+     the bf16 tensor-core rate; the bf16 spectral backward twice bitwise and
+     its reread bitwise its recompute, there and in the spectral checks above
+     (up to D1 = 720).
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
      just after; then the test-split forecasts against the port's CPU plain
-     path, and eval windows/s. Then a 512-node model (a hidden size whose
+     path, and eval windows/s; the same at compute_dtype bfloat16 (engine.test,
+     counters, forecasts against the CPU bf16 plain path). Then a 512-node model (a hidden size whose
      slices fit no cluster, so `gru_over_nodes` launches the one-block
      kernel) through engine.inference_batched on a seeded series, counters
      set to 0 just before and read just after, against the CPU plain path;
@@ -53,8 +61,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
      step (the spectral pair a train step launches follows
      ops.cuda_spectral.SAVE_ACTS_BWD); the epoch's loss, checkpoints and metrics.jsonl; one step's loss
      and gradients against the CPU plain path with the same dropout mask;
-     the same step twice, bitwise; three RMSProp steps against the CPU; and
-     train windows/s.
+     the same step twice, bitwise; the same two at compute_dtype bfloat16
+     against the CPU bf16 plain path; one epoch of engine.train at bfloat16
+     with its counters; three RMSProp steps against the CPU; and train
+     windows/s.
   6. chunk path: one 16-step chunk through engine.make_epoch_fn (a captured
      CUDA graph) against the same steps through the eager train step: losses,
      parameters and optimizer state bitwise equal.
@@ -62,8 +72,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
      results as JSON lines; the train step with the spectral saving forward
      and reread backward (SAVE_ACTS_BWD on) against the recompute backward,
      in the order recompute, reread, reread, recompute; a one-step graph
-     replayed per step beside the 64-step graph; the eager eval loop beside
-     the eval program.
+     replayed per step beside the 64-step graph; the train step at
+     compute_dtype bfloat16 with each spectral backward; the eager eval loop
+     beside the eval program, and the eval program at bfloat16.
   8. asynchronous checkpoint: one submit, wait, load, compare with the live
      parameters and optimizer state.
   9. a `kernels` JSON line (launches summed over the paths: calls of the
@@ -89,6 +100,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # tensor cores: the rate for bf16 operands
 
 # ECG flagship: python main.py defaults on dataset/ECG_data.csv
 BATCH, WINDOW, MULTI, HORIZON = 32, 12, 5, 3
@@ -168,9 +180,9 @@ def call_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -197,8 +209,8 @@ class OpRecorder:
         return False
 
     def _wrap(self, name, fn):
-        def wrapped(*args):
-            out = fn(*args)
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
             call = {"args": args, "out": out.detach(), "g": None}
             out.register_hook(lambda g: call.__setitem__("g", g.detach()))
             self.calls[name].append(call)
@@ -207,10 +219,11 @@ class OpRecorder:
         return wrapped
 
 
-def step_grads(params, mcfg, x, y, mask):
+def step_grads(params, mcfg, x, y, mask, compute_dtype="float32"):
     """Loss and the gradient of every parameter for one batch with the given
-    dropout mask, through the port's own forward; a parameter the loss does
-    not reach gets zeros, as in the engine's train step."""
+    dropout mask, through the port's own forward at `compute_dtype`; a
+    parameter the loss does not reach gets zeros, as in the engine's train
+    step."""
     import torch
 
     from stemgnn_tpu_torch.models import stemgnn
@@ -219,7 +232,8 @@ def step_grads(params, mcfg, x, y, mask):
     flat = flatten_params(params)
     for p in flat.values():
         p.grad = None
-    forecast, _ = stemgnn.forward(params, mcfg, x, training=True, dropout_mask=mask)
+    forecast, _ = stemgnn.forward(params, mcfg, x, training=True, dropout_mask=mask,
+                                  compute_dtype=compute_dtype)
     loss = torch.mean((forecast - y) ** 2)
     loss.backward()
     return loss.detach(), {k: (torch.zeros_like(p) if p.grad is None else p.grad)
@@ -233,7 +247,7 @@ def step_grads(params, mcfg, x, y, mask):
 GRAD_ATOL_REL, GRAD_RTOL = 1e-4, 1e-3
 
 
-def compare_grads(grads, grads_cpu):
+def compare_grads(grads, grads_cpu, atol_rel=GRAD_ATOL_REL, rtol=GRAD_RTOL):
     """(leaves out of tolerance as (name, err, largest entry), the worst
     max_abs_err, its leaf)."""
     import torch
@@ -244,10 +258,48 @@ def compare_grads(grads, grads_cpu):
         err = (g - g_cpu).abs().max().item()
         if err > worst:
             worst, worst_name = err, k
-        atol = GRAD_ATOL_REL * g_cpu.abs().max().item() + 1e-12
-        if not torch.allclose(g, g_cpu, atol=atol, rtol=GRAD_RTOL):
+        atol = atol_rel * g_cpu.abs().max().item() + 1e-12
+        if not torch.allclose(g, g_cpu, atol=atol, rtol=rtol):
             bad.append((k, err, g_cpu.abs().max().item()))
     return bad, worst, worst_name
+
+
+# The bf16 arms against their bf16 plain versions. Both round to bf16 at the
+# same points and sum in f32, in another order; where a sum lands on the other
+# side of a bf16 rounding boundary, the rounded value moves by one bf16 ulp,
+# 2^-8 of it, and the move spreads through the later layers (on the CPU the
+# plain bf16 spectral backward with f32 sums and with f64 sums differ by up to
+# 1.4e-3 of a gradient's largest entry). So each array of a bf16 spectral arm
+# (an output, a saved array, dx, a gradient) is held to 2^-8 of its own
+# largest entry, and, so that no f32 computation can pass for a bf16 one, the
+# arm's results must lie at least BF16_CLOSER times closer (in L2 over all of
+# them) to the bf16 plain version than to the f32 plain version. The graph
+# conv's bf16 arm has no rounding after its products: it keeps the f32 arm's
+# tolerance, scaled to its largest entry.
+BF16_ATOL_REL = 2.0 ** -8
+BF16_CLOSER = 4.0
+
+
+def bf16_agreement(got, want, want_f32, atol_rel, rtol=0.0):
+    """(arrays out of tolerance by index, the worst max_abs_err, the L2 distance
+    to the f32 plain result over that to the bf16 one, the worst max_abs_err of
+    an array over its largest entry). got, want, want_f32: lists of tensors;
+    each array of got within atol_rel of the largest entry of its want (and
+    rtol)."""
+    import torch
+
+    bad, worst, worst_rel, d_bf16, d_f32 = [], 0.0, 0.0, 0.0, 0.0
+    for i, (g, w, w32) in enumerate(zip(got, want, want_f32)):
+        g, w, w32 = g.detach().float().cpu(), w.detach().float().cpu(), w32.detach().float().cpu()
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / scale if scale > 0 else (math.inf if err else 0.0))
+        if not torch.allclose(g, w, atol=atol_rel * scale + 1e-30, rtol=rtol):
+            bad.append(i)
+        d_bf16 += ((g - w).double() ** 2).sum().item()
+        d_f32 += ((g - w32).double() ** 2).sum().item()
+    ratio = math.sqrt(d_f32 / d_bf16) if d_bf16 > 0 else math.inf
+    return bad, worst, ratio, worst_rel
 
 
 def leaf_params(params, device):
@@ -381,6 +433,24 @@ def backward_cases(rec, params, mcfg, dev):
     ]
 
 
+def forward_inputs(params, mcfg, x):
+    """(key, query, mul_L, feat, gfted): the forward kernels' inputs as the
+    plain path computes them from the batch x [B, W, N]."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import torch_impl
+
+    with torch.inference_mode():
+        enc = torch_impl.gru_over_nodes(params["gru"], x).transpose(1, 2)
+        key = (enc @ params["weight_key"])[..., 0].contiguous()
+        query = (enc @ params["weight_query"])[..., 0].contiguous()
+        att = torch_impl.attention_from_kq(key, query, mcfg.leaky_rate)
+        mul_L = torch_impl.laplacian_from_attention(att)[0].contiguous()
+        feat = x.permute(0, 2, 1).contiguous()
+        gfted = torch_impl.cheb_graph_conv(mul_L, feat).contiguous()
+    return key, query, mul_L, feat, gfted
+
+
 def forward_cases(params, mcfg, x):
     """(name, source, replaces, kernel call, plain call, library call or None,
     atol, rtol, bytes, flops) at the main path's shapes. The inputs are what
@@ -388,7 +458,7 @@ def forward_cases(params, mcfg, x):
     import torch
 
     from stemgnn_tpu_torch.ops import cuda_attention, cuda_graph, cuda_gru
-    from stemgnn_tpu_torch.ops import cuda_spectral, torch_impl
+    from stemgnn_tpu_torch.ops import cuda_spectral
 
     b, w, n = x.shape
     h, k = n, 4
@@ -396,17 +466,8 @@ def forward_cases(params, mcfg, x):
     d0, d1 = k * w, k * wm
     rows = b * n
     gru = params["gru"]
-
-    with torch.inference_mode():
-        enc = torch_impl.gru_over_nodes(gru, x).transpose(1, 2)
-        key = (enc @ params["weight_key"])[..., 0].contiguous()
-        query = (enc @ params["weight_query"])[..., 0].contiguous()
-        att = torch_impl.attention_from_kq(key, query, mcfg.leaky_rate)
-        mul_L, _ = torch_impl.laplacian_from_attention(att)
-        mul_L = mul_L.contiguous()
-        feat = x.permute(0, 2, 1).contiguous()
-        gfted = torch_impl.cheb_graph_conv(mul_L, feat).contiguous()
-        glu = params["blocks"][0]["glu"]
+    key, query, mul_L, feat, gfted = forward_inputs(params, mcfg, x)
+    glu = params["blocks"][0]["glu"]
 
     cudnn_gru = cudnn_gru_like(gru, x.device)
     xs = x.permute(2, 0, 1).contiguous()  # [N, B, W], cuDNN's sequence-major input
@@ -472,6 +533,105 @@ def forward_cases(params, mcfg, x):
          5e-4, 1e-4,
          4 * (rows * d0 + glu_w + rows * d1 + 12 * rows * d1),
          spe_flops),
+    ]
+
+
+def bf16_cases(rec, params, mcfg, x):
+    """The bf16 arms at the main path's shapes: (name, source, replaces,
+    kernel call, bf16 plain call, f32 plain call, library call or None,
+    atol as a fraction of each array's largest entry, rtol, bytes, flops).
+    Each call returns a list of arrays. The forward arms take what the plain
+    path computes from the batch x (as `forward_cases`), the backward arms
+    what one train step of the CPU plain path saved and sent back (`rec`, as
+    `backward_cases`). Bytes count the kernels' operands as bf16."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_graph, cuda_spectral
+
+    b, w, n = x.shape
+    k = 4
+    wm = w * mcfg.multi_layer
+    d0, d1 = k * w, k * wm
+    rows = b * n
+    multi = mcfg.multi_layer
+    bf = "bfloat16"
+    dev = x.device
+    _, _, mul_L, feat, gfted = forward_inputs(params, mcfg, x)
+    glu = params["blocks"][0]["glu"]
+    glu_2d = sum(p[s]["w"].numel() for p in glu for s in ("left", "right"))
+    glu_b = sum(p[s]["b"].numel() for p in glu for s in ("left", "right"))
+    spe_flops = (2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm)
+                 + 8 * k * w * w * d1)
+    glu_flops = 2 * rows * (4 * d0 * d1 + 8 * d1 * d1)
+    reread_flops = 2 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1
+
+    # the library yardstick of the graph conv: one product of bf16 operands
+    # with an f32 result, where this torch build has torch.mm's out_dtype
+    lk = mul_L[1:].reshape((k - 1) * n, n).to(torch.bfloat16).contiguous()
+    xt = feat.permute(1, 0, 2).reshape(n, b * w).to(torch.bfloat16).contiguous()
+    try:
+        torch.mm(lk, xt, out_dtype=torch.float32)
+        lib = lambda: [torch.mm(lk, xt, out_dtype=torch.float32)]  # noqa: E731
+    except (TypeError, RuntimeError) as exc:
+        print(f"[3 kernel] cheb_graph_conv_fwd_bf16: this torch build has no "
+              f"torch.mm(..., out_dtype=float32) on bf16 operands ({exc}): no library time")
+        lib = None
+
+    call = rec.calls["spe_seq_cell"][0]
+    g_spe = call["g"].detach().to(dev).contiguous()
+    gfted_bwd = call["args"][0].detach().to(dev).contiguous()
+    glu_bwd = [{s: {leaf: t.detach() for leaf, t in p[s].items()} for s in p}
+               for p in params["blocks"][0]["glu"]]
+    with torch.no_grad():
+        _, acts = cuda_spectral.spe_seq_cell_save(gfted_bwd, glu_bwd, multi, bf)
+
+    def grads(res):
+        dx, dglu = res
+        return [dx] + cuda_spectral._flat(dglu)
+
+    def saved(res):  # the output and the 12 saved arrays' real rows
+        out, a = res
+        return [out] + [a[i, :rows] for i in range(12)]
+
+    fwd_bytes = 2 * (rows * d0 + glu_2d) + 4 * (glu_b + rows * d1)
+    bwd_bytes = 2 * (rows * d0 + rows * d1 + glu_2d) + 4 * (rows * d0 + glu_2d + glu_b)
+    spe = "stemgnn_tpu_torch/csrc/spectral.cu"
+    return [
+        ("cheb_graph_conv_fwd_bf16", "stemgnn_tpu_torch/csrc/graph.cu",
+         "stemgnn_tpu/ops/pallas_graph.py:33",
+         lambda: [cuda_graph.cheb_graph_conv(mul_L, feat, bf)],
+         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat, bf)],
+         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat)],
+         lib,
+         1e-4, 1e-5,  # the f32 arm's, scaled: no rounding after the products
+         2 * (k * n * n + b * n * w) + 4 * b * k * n * w,
+         2 * (k - 1) * n * n * b * w),
+        ("spectral_fwd_bf16", spe, "stemgnn_tpu/ops/pallas_spectral.py:81",
+         lambda: [cuda_spectral.spe_seq_cell(gfted, glu, multi, bf)],
+         lambda: [cuda_spectral.spe_seq_cell_plain(gfted, glu, multi, bf)],
+         lambda: [cuda_spectral.spe_seq_cell_save_plain(gfted, glu, multi)[0]],
+         None, BF16_ATOL_REL, 0.0, fwd_bytes, spe_flops),
+        ("spectral_fwd_save_bf16", spe, "stemgnn_tpu/ops/pallas_spectral.py:104",
+         lambda: saved(cuda_spectral.spe_seq_cell_save(gfted, glu, multi, bf)),
+         lambda: saved(cuda_spectral.spe_seq_cell_save_plain(gfted, glu, multi, bf)),
+         lambda: saved(cuda_spectral.spe_seq_cell_save_plain(gfted, glu, multi)),
+         None, BF16_ATOL_REL, 0.0, fwd_bytes + 4 * 12 * rows * d1, spe_flops),
+        ("spectral_bwd_bf16", spe, "stemgnn_tpu/ops/pallas_spectral.py:250",
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd(gfted_bwd, glu_bwd, g_spe, multi, bf)),
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd_plain(gfted_bwd, glu_bwd, g_spe,
+                                                            multi, bf)),
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd_plain(gfted_bwd, glu_bwd, g_spe,
+                                                            multi)),
+         None, BF16_ATOL_REL, 0.0, bwd_bytes, glu_flops + reread_flops),
+        ("spectral_bwd_reread_bf16", spe, "stemgnn_tpu/ops/pallas_spectral.py:420",
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd_reread(gfted_bwd, glu_bwd, g_spe, acts,
+                                                             multi, bf)),
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd_reread_plain(
+             gfted_bwd, glu_bwd, g_spe, acts, multi, bf)),
+         # the f32 plain backward on the same saved arrays
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd_reread_plain(
+             gfted_bwd, glu_bwd, g_spe, acts, multi)),
+         None, BF16_ATOL_REL, 0.0, bwd_bytes + 4 * 12 * rows * d1, reread_flops),
     ]
 
 
@@ -677,19 +837,25 @@ SPE_FWD_ATOL_REL, SPE_FWD_RTOL = 1e-5, 1e-4
 
 
 def spectral_checks(dev, glu, multi: int):
-    """The spectral forwards and backwards against their plain versions,
-    untimed, on seeded inputs: at the flagship rows (4480) and at row counts
-    that are no multiple of the kernels' row tiles (185, 111); then at 185
-    rows of other windows and multipliers the CLI takes (W = 7 and 10: runs of
-    4 columns that straddle two windows; multi 6: D1 = 288, past one block's
+    """The spectral forwards and backwards of both arms against their plain
+    versions, untimed, on seeded inputs: at the flagship rows (4480) and at row
+    counts that are no multiple of the kernels' row tiles (185, 111); then at
+    185 rows of other windows and multipliers the CLI takes (W = 7 and 10: runs
+    of 4 columns that straddle two windows; multi 6: D1 = 288, past one block's
     column groups; W = 25: D1 = 500; W = 28: D1 = 560, the README's COVID-19
-    command), with GLU weights from init_params. The serving forward's output,
+    command; past D1 = 680, where the rows kernel takes 8-row tiles: W = 35,
+    D1 = 700, and multi 15, D1 = 720; and, f32 only, W = 100, D1 = 2000),
+    with GLU weights from init_params. f32: the serving forward's output,
     and the saving forward's output and 12 arrays, each within
     SPE_FWD_ATOL_REL of its own largest entry; the saved rows past the end
-    finite. The backwards' dx and each of the 24 gradients within atol 1e-5 of
-    their own largest entry and rtol 1e-3; the reread gradients bitwise the
-    recompute gradients, and a second reread bitwise the first. Returns an
-    error message, or None."""
+    finite; the backwards' dx and each of the 24 gradients within atol 1e-5
+    of their own largest entry and rtol 1e-3. bf16: each of those arrays
+    within BF16_ATOL_REL of its largest entry and the arm BF16_CLOSER times
+    closer to the bf16 plain versions than to the f32 ones. Both arms: the
+    reread gradients bitwise the recompute gradients, a second reread bitwise
+    the first, the saving forward's output bitwise the serving forward's.
+    Then a D1 past 2048 refused before any launch. Returns an error message,
+    or None."""
     import numpy as np
     import torch
 
@@ -701,7 +867,8 @@ def spectral_checks(dev, glu, multi: int):
     k = 4
     cases = [(32, 140, WINDOW, multi, glu), (5, 37, WINDOW, multi, glu),
              (3, 37, WINDOW, multi, glu)]
-    for w, m in ((7, 5), (10, 5), (WINDOW, 6), (25, 5), (28, 5)):
+    for w, m in ((7, 5), (10, 5), (WINDOW, 6), (25, 5), (28, 5), (35, 5), (WINDOW, 15),
+                 (100, 5)):
         cfg = StemGNNConfig(units=37, window_size=w, horizon=HORIZON, multi_layer=m)
         cases.append((5, 37, w, m, init_params(0, cfg, device=dev)["blocks"][0]["glu"]))
     for b, n, w, m, glu_w in cases:
@@ -709,71 +876,101 @@ def spectral_checks(dev, glu, multi: int):
         g = torch.from_numpy((1e-3 * rng.standard_normal((b, k, n, w * m))).astype(
             np.float32)).to(dev)
         rows = b * n
-        with torch.no_grad():
-            out = cuda_spectral.spe_seq_cell(x, glu_w, m)
-            out_s, acts = cuda_spectral.spe_seq_cell_save(x, glu_w, m)
-            torch.cuda.synchronize()
-            want_out = cuda_spectral.spe_seq_cell_plain(x, glu_w, m)
-            want_s, want_acts = cuda_spectral.spe_seq_cell_save_plain(x, glu_w, m)
-        fwd_err, fwd_bad = 0.0, []
-        for name, t, ref in [("serving output", out, want_out), ("saving output", out_s, want_s),
-                             *[(f"saved array {i}", acts[i, :rows], want_acts[i])
-                               for i in range(12)]]:
-            fwd_err = max(fwd_err, (t - ref).abs().max().item())
-            if not torch.allclose(t, ref, atol=SPE_FWD_ATOL_REL * ref.abs().max().item(),
-                                  rtol=SPE_FWD_RTOL):
-                fwd_bad.append(name)
-        if not torch.isfinite(acts).all():
-            fwd_bad.append("saved rows past the end not finite")
-        print(f"[3 kernel] spectral forwards B={b} N={n} W={w} multi={m} ({rows} rows): "
-              f"max_abs_err {fwd_err:.3e} (the serving output, the saving output and each "
-              f"of the 12 saved arrays within atol {SPE_FWD_ATOL_REL:g} of its largest "
-              f"entry, rtol {SPE_FWD_RTOL:g}: {'yes' if not fwd_bad else 'NO, ' + ', '.join(fwd_bad)})")
-        if fwd_bad:
-            return (f"spectral forwards at B={b} N={n} W={w} multi={m}: out of tolerance "
-                    f"{fwd_bad}, max_abs_err {fwd_err}")
-        with torch.no_grad():
-            runs = [cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts, m)
-                    for _ in range(2)]
-            runs.append(cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m))
-            torch.cuda.synchronize()
-            want = cuda_spectral.spe_seq_cell_bwd_plain(x, glu_w, g, m)
-        leaves = [[dx] + cuda_spectral._flat(dglu) for dx, dglu in (*runs, want)]
-        got, again, recompute, want = leaves
-        err, bad = 0.0, []
-        for i, (t, ref) in enumerate(zip(got, want)):
-            err = max(err, (t - ref).abs().max().item())
-            if not torch.allclose(t, ref, atol=1e-5 * ref.abs().max().item(), rtol=1e-3):
-                bad.append("dx" if i == 0 else f"gradient {i - 1}")
-        same = all(torch.equal(a, b_) and torch.equal(a, c)
-                   for a, b_, c in zip(got, again, recompute))
-        print(f"[3 kernel] spectral backward B={b} N={n} W={w} multi={m} ({rows} rows): "
-              f"reread max_abs_err {err:.3e} (each of dx and the 24 gradients within "
-              f"atol 1e-5 of its largest entry, rtol 1e-3: "
-              f"{'yes' if not bad else 'NO, ' + ', '.join(bad)}); two rereads and the "
-              f"recompute backward {'bitwise equal' if same else 'DIFFER'}")
-        if bad or not same:
-            return (f"spectral backward at B={b} N={n} W={w} multi={m}: out of tolerance "
-                    f"{bad}, max_abs_err {err} (bitwise reruns and recompute: {same})")
-    # past the kernels' shape rule (D1 = 700 > 680) the forward refuses before
+        f32_plain = None
+        # bf16 at D1 = 2000 and 185 rows: a weight gradient sums 185 rows, so
+        # one rounding flip weighs more than the tolerance allows for
+        for cd in ("float32",) + (("bfloat16",) if 4 * w * m <= 720 else ()):
+            bf16 = cd == "bfloat16"
+            with torch.no_grad():
+                out = cuda_spectral.spe_seq_cell(x, glu_w, m, cd)
+                out_s, acts = cuda_spectral.spe_seq_cell_save(x, glu_w, m, cd)
+                torch.cuda.synchronize()
+                want_out = cuda_spectral.spe_seq_cell_plain(x, glu_w, m, cd)
+                want_s, want_acts = cuda_spectral.spe_seq_cell_save_plain(x, glu_w, m, cd)
+            fwd = [out, out_s] + [acts[i, :rows] for i in range(12)]
+            fwd_want = [want_out, want_s] + list(want_acts)
+            if bf16:
+                fwd_bad, fwd_err, ratio, rel = bf16_agreement(fwd, fwd_want, f32_plain[0],
+                                                              BF16_ATOL_REL)
+                fwd_bad = [str(i) for i in fwd_bad] + (
+                    [] if ratio >= BF16_CLOSER else [f"{ratio:.1f} times closer"])
+                tol = (f"within {BF16_ATOL_REL:.4g} of its largest entry (worst {rel:.2e}), "
+                       f"and {ratio:.1f} times closer to the bf16 plain versions than to "
+                       f"the f32 ones")
+            else:
+                fwd_err, fwd_bad = 0.0, []
+                for name, t, ref in zip(["serving output", "saving output"] +
+                                        [f"saved array {i}" for i in range(12)], fwd, fwd_want):
+                    fwd_err = max(fwd_err, (t - ref).abs().max().item())
+                    if not torch.allclose(t, ref, rtol=SPE_FWD_RTOL,
+                                          atol=SPE_FWD_ATOL_REL * ref.abs().max().item()):
+                        fwd_bad.append(name)
+                tol = (f"within atol {SPE_FWD_ATOL_REL:g} of its largest entry, rtol "
+                       f"{SPE_FWD_RTOL:g}")
+            if not torch.isfinite(acts).all():
+                fwd_bad.append("saved rows past the end not finite")
+            if not torch.equal(out, out_s):
+                fwd_bad.append("saving output not bitwise the serving output")
+            print(f"[3 kernel] spectral forwards {cd} B={b} N={n} W={w} multi={m} ({rows} "
+                  f"rows, D1 = {4 * w * m}): max_abs_err {fwd_err:.3e} (the serving output, "
+                  f"the saving output and each of the 12 saved arrays {tol}: "
+                  f"{'yes' if not fwd_bad else 'NO, ' + ', '.join(fwd_bad)})")
+            if fwd_bad:
+                return (f"spectral forwards {cd} at B={b} N={n} W={w} multi={m}: out of "
+                        f"tolerance {fwd_bad}, max_abs_err {fwd_err}")
+            with torch.no_grad():
+                runs = [cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts, m, cd)
+                        for _ in range(2)]
+                runs.append(cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m, cd))
+                torch.cuda.synchronize()
+                want = cuda_spectral.spe_seq_cell_bwd_plain(x, glu_w, g, m, cd)
+            leaves = [[dx] + cuda_spectral._flat(dglu) for dx, dglu in (*runs, want)]
+            got, again, recompute, want = leaves
+            if bf16:
+                bad, err, ratio, rel = bf16_agreement(got, want, f32_plain[1], BF16_ATOL_REL)
+                bad = [("dx" if i == 0 else f"gradient {i - 1}") for i in bad] + (
+                    [] if ratio >= BF16_CLOSER else [f"{ratio:.1f} times closer"])
+                tol = (f"within {BF16_ATOL_REL:.4g} of its largest entry (worst {rel:.2e}), "
+                       f"and {ratio:.1f} times closer to the bf16 plain version than to "
+                       f"the f32 one")
+            else:
+                err, bad = 0.0, []
+                for i, (t, ref) in enumerate(zip(got, want)):
+                    err = max(err, (t - ref).abs().max().item())
+                    if not torch.allclose(t, ref, atol=1e-5 * ref.abs().max().item(),
+                                          rtol=1e-3):
+                        bad.append("dx" if i == 0 else f"gradient {i - 1}")
+                tol = "within atol 1e-5 of its largest entry, rtol 1e-3"
+                f32_plain = (fwd_want, want)
+            same = all(torch.equal(a, b_) and torch.equal(a, c)
+                       for a, b_, c in zip(got, again, recompute))
+            print(f"[3 kernel] spectral backward {cd} B={b} N={n} W={w} multi={m} ({rows} "
+                  f"rows): reread max_abs_err {err:.3e} (each of dx and the 24 gradients "
+                  f"{tol}: {'yes' if not bad else 'NO, ' + ', '.join(bad)}); two rereads "
+                  f"and the recompute backward {'bitwise equal' if same else 'DIFFER'}")
+            if bad or not same:
+                return (f"spectral backward {cd} at B={b} N={n} W={w} multi={m}: out of "
+                        f"tolerance {bad}, max_abs_err {err} (bitwise reruns and recompute: "
+                        f"{same})")
+    # past the kernels' shape rule (D1 = 2060 > 2048) every entry refuses before
     # any launch, and says so
-    cfg = StemGNNConfig(units=2, window_size=35, horizon=HORIZON, multi_layer=5)
+    cfg = StemGNNConfig(units=2, window_size=103, horizon=HORIZON, multi_layer=5)
     glu_w = init_params(0, cfg, device=dev)["blocks"][0]["glu"]
     try:
-        cuda_spectral.spe_seq_cell(torch.zeros((1, k, 2, 35), device=dev), glu_w, 5)
+        cuda_spectral.spe_seq_cell(torch.zeros((1, k, 2, 103), device=dev), glu_w, 5)
     except RuntimeError as exc:
-        print(f"[3 kernel] spectral forward at W=35 multi=5 (D1 = 700) refused: {exc}")
+        print(f"[3 kernel] spectral forward at W=103 multi=5 (D1 = 2060) refused: {exc}")
     else:
-        return "the spectral forward ran at D1 = 700, past its shape rule"
+        return "the spectral forward ran at D1 = 2060, past its shape rule"
     return None
 
 
-def profile_steps(step, batches, step_ms: float) -> None:
+def profile_steps(step, batches, step_ms: float, tag: str = "5 train path") -> None:
     """Print where the card's time goes in a train step: torch.profiler over
     `batches`, device time per step by kernel name, their sum, and that sum
     over `step_ms` (the unprofiled host-clock step) as the card's busy share.
     Informative only: prints "not measured" if the profiler cannot run or saw
-    no kernel."""
+    no kernel. `tag` heads the lines."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -783,7 +980,7 @@ def profile_steps(step, batches, step_ms: float) -> None:
     try:
         prof.start()
     except RuntimeError as exc:
-        print(f"[5 train path] device time by kernel: not measured (the profiler "
+        print(f"[{tag}] device time by kernel: not measured (the profiler "
               f"did not start: {exc})")
         return
     for hi_b in batches:
@@ -793,7 +990,7 @@ def profile_steps(step, batches, step_ms: float) -> None:
         prof.stop()
         events = prof.events()
     except RuntimeError as exc:
-        print(f"[5 train path] device time by kernel: not measured (the profiler "
+        print(f"[{tag}] device time by kernel: not measured (the profiler "
               f"did not stop: {exc})")
         return
     kernels = {}
@@ -803,14 +1000,14 @@ def profile_steps(step, batches, step_ms: float) -> None:
     n = len(batches)
     total = sum(kernels.values()) / n
     if total <= 0:
-        print("[5 train path] device time by kernel: not measured (the profiler "
+        print(f"[{tag}] device time by kernel: not measured (the profiler "
               "recorded no kernel)")
         return
-    print(f"[5 train path] device time by kernel, torch.profiler over {n} steps: "
+    print(f"[{tag}] device time by kernel, torch.profiler over {n} steps: "
           f"{total:.3f} ms per step in {len(kernels)} kernels, {total / step_ms:.1%} "
           f"of the {step_ms:.3f} ms step (the card's busy share; the rest is idle)")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[5 train path]   {ms / n:8.4f} ms/step  {name[:100]}")
+        print(f"[{tag}]   {ms / n:8.4f} ms/step  {name[:100]}")
 
 
 def take_launches(ops, results):
@@ -822,6 +1019,37 @@ def take_launches(ops, results):
     return launches, replayed
 
 
+def time_case(phase, name, kern, plain, lib, calls, replays):
+    """(kernel ms, plain ms, library ms or None, one eager call's ms) of a case,
+    each call timed as `cuda_ms` times it."""
+    import functools
+
+    import torch
+
+    cuda_ms_ = functools.partial(cuda_ms, calls=calls, replays=replays)
+    with torch.no_grad():
+        ms = cuda_ms_(kern)
+        plain_ms = cuda_ms_(plain)
+        if lib is None:
+            lib_ms = None
+        elif isinstance(lib, tuple):
+            # ("graph_or_stream", fn): a library call that may refuse to be
+            # captured (cuDNN's RNN backward under autograd); it is no part
+            # of the port, so its timing alone may fall back to eager calls
+            try:
+                lib_ms = cuda_ms_(lib[1])
+            except RuntimeError as exc:
+                print(f"[{phase}] {name}: the library call was not captured "
+                      f"({str(exc).splitlines()[0][:120]}); timed as eager calls, "
+                      "host-bound")
+                torch.cuda.synchronize()
+                lib_ms = stream_ms(lib[1])
+        else:
+            lib_ms = cuda_ms_(lib)
+        one_call_ms = call_ms(kern, reps=calls)
+    return ms, plain_ms, lib_ms, one_call_ms
+
+
 def check_cases(cases, results, phase: str, scaled: bool = False, calls: int = 20,
                 replays: int = 10):
     """Hold each case's kernel against its plain version and time both; fills
@@ -829,11 +1057,7 @@ def check_cases(cases, results, phase: str, scaled: bool = False, calls: int = 2
     is a fraction of the plain result's largest entry: the cotangents of a
     real train step, and so the backward kernels' outputs, are far below 1.
     `calls` and `replays` size the timed graphs (fewer for a slow kernel)."""
-    import functools
-
     import torch
-
-    cuda_ms_ = functools.partial(cuda_ms, calls=calls, replays=replays)
 
     for (name, source, replaces, kern, plain, lib, atol, rtol, nbytes,
          flops) in cases:
@@ -844,25 +1068,8 @@ def check_cases(cases, results, phase: str, scaled: bool = False, calls: int = 2
             err = (got - want).abs().max().item()
             scale = want.abs().max().item() if scaled else 1.0
             ok = bool(torch.allclose(got, want, atol=atol * scale, rtol=rtol))
-            ms = cuda_ms_(kern)
-            plain_ms = cuda_ms_(plain)
-            if lib is None:
-                lib_ms = None
-            elif isinstance(lib, tuple):
-                # ("graph_or_stream", fn): a library call that may refuse to be
-                # captured (cuDNN's RNN backward under autograd); it is no part
-                # of the port, so its timing alone may fall back to eager calls
-                try:
-                    lib_ms = cuda_ms_(lib[1])
-                except RuntimeError as exc:
-                    print(f"[{phase}] {name}: the library call was not captured "
-                          f"({str(exc).splitlines()[0][:120]}); timed as eager calls, "
-                          "host-bound")
-                    torch.cuda.synchronize()
-                    lib_ms = stream_ms(lib[1])
-            else:
-                lib_ms = cuda_ms_(lib)
-            one_call_ms = call_ms(kern, reps=calls)
+        ms, plain_ms, lib_ms, one_call_ms = time_case(phase, name, kern, plain, lib, calls,
+                                                      replays)
         bound_ms, bound_by = bound(nbytes, flops)
         tol = (f"atol {atol:g} of the largest entry {scale:.3e}" if scaled
                else f"atol {atol:g}")
@@ -882,11 +1089,53 @@ def check_cases(cases, results, phase: str, scaled: bool = False, calls: int = 2
     return None
 
 
+def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int = 10):
+    """`check_cases` for the bf16 arms (`bf16_cases`): each array of the
+    kernel's result within the case's atol of its largest entry (and rtol) of
+    the bf16 plain version's, and the kernel's results BF16_CLOSER times
+    closer to the bf16 plain version than to the f32 one (`bf16_agreement`);
+    the bound at the bf16 tensor-core rate, the f32 CUDA-core bound printed
+    beside it. Fills `results`; returns an error message, or None."""
+    import torch
+
+    for (name, source, replaces, kern, plain, plain_f32, lib, atol, rtol, nbytes,
+         flops) in cases:
+        with torch.no_grad():
+            got = kern()
+            torch.cuda.synchronize()
+            bad, err, ratio, rel = bf16_agreement(got, plain(), plain_f32(), atol, rtol)
+        ms, plain_ms, lib_ms, one_call_ms = time_case(phase, name, kern, plain, lib, calls,
+                                                      replays)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        f32_ms, f32_by = bound(nbytes, flops)
+        ok = not bad and ratio >= BF16_CLOSER and math.isfinite(err)
+        print(f"[{phase}] {name}: max_abs_err {err:.3e}, {rel:.3e} of its array's largest "
+              f"entry (each of {len(got)} arrays within "
+              f"{atol:.4g} of its largest entry, rtol {rtol:g}: "
+              f"{'yes' if not bad else f'NO, arrays {bad[:8]}'}; {ratio:.1f} times closer "
+              f"to the bf16 plain version than to the f32 one, at least {BF16_CLOSER:g}) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+              f"library {'n/a' if lib_ms is None else f'{lib_ms:.5f} ms'}, bound "
+              f"{bound_ms:.5f} ms ({bound_by}, bf16 tensor cores; f32 CUDA cores "
+              f"{f32_ms:.5f} ms, {f32_by}; {flops:.4e} op, {nbytes:.4e} B); one eager "
+              f"call with its host work {one_call_ms:.5f} ms")
+        if not ok:
+            return f"{name} disagrees with its bf16 plain version: {err}, arrays {bad[:8]}"
+        results[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms, launches=0)
+    return None
+
+
 def run() -> int:
+    import dataclasses
+
     import numpy as np
     import torch
 
     # --- 1. device ---
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         return _fail("torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -1020,6 +1269,9 @@ def run() -> int:
                              if c[0].startswith("spectral")], {}, tag)
                 or check_cases([c for c in backward_cases(rec_cov, params_cov, mcfg_cov, dev)
                                 if c[0].startswith("spectral")], {}, tag, scaled=True))
+    if fail is None:
+        # the bf16 arms at the flagship's shapes
+        fail = check_bf16_cases(bf16_cases(rec, params, mcfg, x), results, "3 kernel")
     if fail is not None:
         return _fail(fail)
     with torch.no_grad():
@@ -1042,6 +1294,26 @@ def run() -> int:
           f"recompute gradients; saving forward's output bitwise the forward's; "
           f"saved arrays {tuple(acts.shape)}, {acts.numel() * 4 / 1e6:.1f} MB a call")
     del acts, out_save, dx_a, dx_b, dglu_a, dglu_b
+    # the bf16 arm: two recompute backwards, two rereads, both forwards
+    bf = "bfloat16"
+    with torch.no_grad():
+        out_b = cuda_spectral.spe_seq_cell(gfted, glu, MULTI, bf)
+        out_bs, acts_b = cuda_spectral.spe_seq_cell_save(gfted, glu, MULTI, bf)
+        runs = [cuda_spectral.spe_seq_cell_bwd(gfted, glu, g_spe, MULTI, bf) for _ in range(2)]
+        runs += [cuda_spectral.spe_seq_cell_bwd_reread(gfted, glu, g_spe, acts_b, MULTI, bf)
+                 for _ in range(2)]
+        flat = [[dx] + cuda_spectral._flat(dglu) for dx, dglu in runs]
+    same = {label: all(torch.equal(a, c) for a, c in zip(flat[i], flat[j]))
+            for label, i, j in (("two recompute backwards", 0, 1), ("two rereads", 2, 3),
+                                ("reread and recompute", 0, 2))}
+    print(f"[3 kernel] spectral bf16: "
+          + "; ".join(f"{label} {'bitwise equal' if ok else 'DIFFER'}"
+                      for label, ok in same.items())
+          + f"; saving forward's output {'bitwise' if torch.equal(out_b, out_bs) else 'NOT'}"
+          f" the forward's")
+    if not all(same.values()) or not torch.equal(out_b, out_bs):
+        return _fail(f"the bf16 spectral arm is not bitwise repeatable: {same}")
+    del acts_b, out_b, out_bs, runs, flat
     with torch.no_grad():
         gru = params["gru"]
         x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
@@ -1123,6 +1395,44 @@ def run() -> int:
     wps = len(test_set) / statistics.median(walls[1:])
     print(f"[4 serving path] eval {wps:.1f} windows/s (median of 3 passes over the "
           f"test split, batch {BATCH}, after one warm pass)")
+
+    # the same at compute_dtype bfloat16: engine.test with the counters set to
+    # 0 just before and read just after, then the test-split forecasts against
+    # the CPU bf16 plain path (tolerance as at f32), the f32 card forecasts beside
+    cfg_bf = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    test_dir_bf = os.path.join(cfg.output_dir, cfg.dataset, "test_bf16")
+    ops.reset_launches()
+    metrics_bf = engine.test(test_data, cfg_bf, train_dir, test_dir_bf)
+    torch.cuda.synchronize()
+    launches, replayed = take_launches(ops, results)
+    fwd_per_batch_bf16 = {"gru_fwd": 1, "attention_kq_fwd": 1,
+                          "cheb_graph_conv_fwd_bf16": 2, "spectral_fwd_bf16": 2}
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want_replayed = dict(want)
+    for name, n in fwd_per_batch_bf16.items():
+        want[name] = n * (1 + n_batches - n_full)
+        want_replayed[name] = n * n_full
+    if launches != want or replayed != want_replayed:
+        return _fail(f"bf16 serving launch counts {launches} and {replayed}, expected "
+                     f"{want} and {want_replayed}")
+    if not all(math.isfinite(float(metrics_bf[k])) for k in ("mae", "mape", "rmse")):
+        return _fail(f"bf16 test metrics {metrics_bf}")
+    fc_bf, _ = engine.inference_batched(engine.make_eval_step(mcfg, dev, "bfloat16"), params,
+                                        test_set, BATCH, dev)
+    fc_bf_cpu, _ = engine.inference_batched(
+        engine.make_eval_step(mcfg, "cpu", "bfloat16"), ckpt.load(train_dir, device="cpu")[0],
+        test_set, BATCH, "cpu")
+    if fc_bf.shape != fc_gpu.shape or not np.isfinite(fc_bf).all():
+        return _fail(f"bf16 forecasts {fc_bf.shape}, expected {fc_gpu.shape} and finite")
+    bf_err = float(abs(fc_bf - fc_bf_cpu).max())
+    print(f"[4 serving path] bf16: engine.test at compute_dtype bfloat16, wrapper launches "
+          f"{launches}; launched by graph replays {replayed}; test MAE "
+          f"{float(metrics_bf['mae']):.6f} (f32: {float(metrics['mae']):.6f}); forecasts, "
+          f"card vs CPU bf16 plain path: max_abs_err {bf_err:.3e} (atol 1e-3, normalized "
+          f"values); bf16 vs f32 card forecasts differ by up to "
+          f"{float(abs(fc_bf - fc_gpu).max()):.3e}")
+    if bf_err > 1e-3:
+        return _fail(f"bf16 card forecasts differ from the CPU bf16 plain path by {bf_err}")
 
     # the 512-node model: two eager batches, each one launch of the one-block
     # GRU forward and of the other forward kernels
@@ -1290,6 +1600,42 @@ def run() -> int:
     print(f"[5 train path] epoch loss {epochs[0]['loss']:.6f}, validate MAE "
           f"{float(valid_metrics['mae']):.6f}; checkpoints and metrics.jsonl written")
 
+    # one epoch at compute_dtype bfloat16, counters set to 0 just before and
+    # read just after: the same launches with the bf16 arms in place of the
+    # graph conv's and spectral kernels' f32 ones
+    run_dir_bf = os.path.join(out_root, cfg.dataset, "train_run_bf16")
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    valid_bf, _ = engine.train(train_data, valid_data,
+                               dataclasses.replace(cfg_t, compute_dtype="bfloat16"), run_dir_bf)
+    torch.cuda.synchronize()
+    train_bf_s = time.perf_counter() - t0
+    launches, replayed = take_launches(ops, results)
+    bf_arm = {"cheb_graph_conv_fwd": "cheb_graph_conv_fwd_bf16",
+              "spectral_fwd": "spectral_fwd_bf16", "spectral_bwd": "spectral_bwd_bf16",
+              "spectral_fwd_save": "spectral_fwd_save_bf16",
+              "spectral_bwd_reread": "spectral_bwd_reread_bf16"}
+    want_bf = dict.fromkeys(ops.KERNELS, 0)
+    want_bf_replayed = dict(want_bf)
+    for name in ops.KERNELS:
+        if want[name] or want_replayed[name]:
+            want_bf[bf_arm.get(name, name)] = want[name]
+            want_bf_replayed[bf_arm.get(name, name)] = want_replayed[name]
+    if launches != want_bf or replayed != want_bf_replayed:
+        return _fail(f"bf16 train path launch counts {launches} and {replayed}, expected "
+                     f"{want_bf} and {want_bf_replayed}")
+    with open(os.path.join(run_dir_bf, "metrics.jsonl")) as f:
+        epochs_bf = [e for e in map(json.loads, f) if e["event"] == "epoch"]
+    if (len(epochs_bf) != 1 or not math.isfinite(epochs_bf[0]["loss"])
+            or not math.isfinite(float(valid_bf["mae"]))):
+        return _fail(f"bf16 epoch events {epochs_bf}, validate {valid_bf}")
+    print(f"[5 train path] engine.train at compute_dtype bfloat16: 1 epoch, {train_bf_s:.3f} "
+          f"s with its captures; wrapper launches {launches}; launched by graph replays "
+          f"{replayed}; epoch loss {epochs_bf[0]['loss']:.6f} (f32 {epochs[0]['loss']:.6f}), "
+          f"validate MAE {float(valid_bf['mae']):.6f} (f32 "
+          f"{float(valid_metrics['mae']):.6f})")
+
     # (a) one step on the card against the CPU plain path, same dropout mask
     # (tolerance: `compare_grads`)
     train_dev = train_cpu.to(dev)
@@ -1317,6 +1663,35 @@ def run() -> int:
         return _fail(f"two runs of one step differ in {differ[:5]}")
     print(f"[5 train path] the same step twice: loss and all {len(grads_gpu)} "
           "gradients bitwise equal")
+
+    # (b') the same step at compute_dtype bfloat16, twice, against the CPU bf16
+    # plain path (loss atol 1e-5; each gradient within BF16_ATOL_REL of its
+    # largest entry, and BF16_CLOSER times closer to the CPU bf16 gradients
+    # than to the CPU f32 ones)
+    loss_cpu_bf, grads_cpu_bf = step_grads(leaf_params(params, "cpu"), mcfg, x_cpu, y_cpu,
+                                           masks[0], "bfloat16")
+    loss_bf, grads_bf = step_grads(params_gpu, mcfg, x_gpu, y_gpu, mask0, "bfloat16")
+    grads_bf = {k: g.clone() for k, g in grads_bf.items()}
+    loss_bf2, grads_bf2 = step_grads(params_gpu, mcfg, x_gpu, y_gpu, mask0, "bfloat16")
+    differ = [k for k, g in grads_bf2.items() if not torch.equal(g, grads_bf[k])]
+    names = list(grads_cpu_bf)
+    bad, worst, ratio, rel = bf16_agreement([grads_bf[k] for k in names],
+                                       [grads_cpu_bf[k] for k in names],
+                                       [grads_cpu[k] for k in names], BF16_ATOL_REL)
+    loss_err = abs(loss_bf.item() - loss_cpu_bf.item())
+    print(f"[5 train path] one bf16 step, card vs CPU bf16 plain path: loss "
+          f"{loss_bf.item():.6f} (abs err {loss_err:.3e}, atol 1e-5; f32 step "
+          f"{loss_gpu.item():.6f}); {len(names)} gradients, worst max_abs_err {worst:.3e} "
+          f"({rel:.3e} of its gradient's largest entry) "
+          f"(each within {BF16_ATOL_REL:.4g} of its largest entry: "
+          f"{'yes' if not bad else 'NO, ' + ', '.join(names[i] for i in bad[:5])}; "
+          f"{ratio:.1f} times closer to the CPU bf16 gradients than to the CPU f32 ones, "
+          f"at least {BF16_CLOSER:g}); the same step twice "
+          f"{'bitwise equal' if not differ and torch.equal(loss_bf, loss_bf2) else 'DIFFERS'}")
+    if loss_err > 1e-5 or bad or ratio < BF16_CLOSER or differ or not torch.equal(
+            loss_bf, loss_bf2):
+        return _fail(f"bf16 step differs from the CPU bf16 plain path: loss err {loss_err}, "
+                     f"leaves {[names[i] for i in bad[:5]]}, ratio {ratio}, rerun {differ[:5]}")
 
     # (c) three RMSProp steps, card against CPU, masks from one numpy seed. An
     # RMSProp step moves an entry by up to lr / sqrt(1 - alpha) = 1e-3 whatever
@@ -1372,6 +1747,22 @@ def run() -> int:
     print(f"[5 train path] train {n_win / epoch_s:.1f} windows/s")
     profile_steps(lambda hi_b: train_step(tree, train_dev, hi_b, gen), his_dev[:10],
                   epoch_s / steps * 1e3)
+    # the same at compute_dtype bfloat16: the bf16 arms' kernels alone, without
+    # their wrappers' casts
+    tree_bf = leaf_params(params, dev)
+    flat_bf = flatten_params(tree_bf)
+    step_bf = engine.make_train_step(mcfg, make_optimizer("RMSProp", flat_bf.values(), cfg_t.lr),
+                                     flat_bf.values(), compute_dtype="bfloat16")
+    for hi_b in his_dev[:3]:
+        step_bf(tree_bf, train_dev, hi_b, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for hi_b in his_dev[3:13]:
+        step_bf(tree_bf, train_dev, hi_b, gen)
+    torch.cuda.synchronize()
+    profile_steps(lambda hi_b: step_bf(tree_bf, train_dev, hi_b, gen), his_dev[:10],
+                  (time.perf_counter() - t0) / 10 * 1e3, "5 train path, bf16")
+    del tree_bf, flat_bf, step_bf
 
     # --- 6. chunk path: a captured chunk against the same steps taken eagerly ---
     CHUNK = 16
@@ -1468,6 +1859,30 @@ def run() -> int:
           f"one-step graph replayed per step {one_step['step_time_ms']:.4f} ms, the "
           f"eager step of phase 5 {epoch_s / steps * 1e3:.4f} ms")
 
+    # the same train step at compute_dtype bfloat16, with each spectral
+    # backward: the bf16 arms launch, the f32 arms of the graph conv and the
+    # spectral kernels do not
+    bf_ms = {}
+    for reread in (False, True):
+        label = f"train bf16, spectral {'reread' if reread else 'recompute'}"
+        res, launches, replayed = run_train_bench(label, reread=reread,
+                                                  compute_dtype="bfloat16")
+        bf_ms[reread] = res["step_time_ms"]
+        total = {k: launches[k] + replayed[k] for k in launches}
+        steps_run = total["gru_bwd"]
+        pair = (("spectral_fwd_save_bf16", "spectral_bwd_reread_bf16") if reread
+                else ("spectral_fwd_bf16", "spectral_bwd_bf16"))
+        f32_arms = ("cheb_graph_conv_fwd", "spectral_fwd", "spectral_bwd",
+                    "spectral_fwd_save", "spectral_bwd_reread")
+        if (steps_run <= 0 or any(total[k] != 2 * steps_run for k in pair)
+                or total["cheb_graph_conv_fwd_bf16"] != 2 * steps_run
+                or any(total[k] for k in f32_arms)):
+            return _fail(f"bench {label}: the launches are {launches} and {replayed}")
+        print(f"[7 bench path] {label}: {steps_run} steps, wrapper launches {launches}; "
+              f"launched by graph replays {replayed}")
+    print(f"[7 bench path] train step, median ms: f32 reread {rer_ms}, recompute {rec_ms}; "
+          f"bf16 reread {bf_ms[True]:.4f}, recompute {bf_ms[False]:.4f}")
+
     ops.reset_launches()
     res_eval = bench.measure_eval()
     take_launches(ops, results)
@@ -1477,6 +1892,16 @@ def run() -> int:
     print(f"[7 bench path] eval {res_eval['windows_per_s']:.1f} windows/s chunked, "
           f"{res_eager['windows_per_s']:.1f} eager, ratio "
           f"{res_eval['windows_per_s'] / res_eager['windows_per_s']:.4f}")
+    ops.reset_launches()
+    res_eval_bf = bench.measure_eval(compute_dtype="bfloat16")
+    launches, replayed = take_launches(ops, results)
+    bench_line("eval bf16, chunked program", res_eval_bf)
+    if not replayed["spectral_fwd_bf16"] or replayed["spectral_fwd"]:
+        return _fail(f"bench eval bf16: the launches are {launches} and {replayed}")
+    print(f"[7 bench path] eval, chunked program: f32 {res_eval['step_time_ms']:.4f} ms a "
+          f"batch ({res_eval['windows_per_s']:.1f} windows/s), bf16 "
+          f"{res_eval_bf['step_time_ms']:.4f} ms ({res_eval_bf['windows_per_s']:.1f} "
+          f"windows/s)")
 
     # --- 8. asynchronous checkpoint ---
     async_dir = os.path.join(out_root, "async_ckpt")
@@ -1500,6 +1925,8 @@ def run() -> int:
           f"their RMSProp moments equal to the live ones")
 
     # --- 9. summary ---
+    print(f"[9 summary] chip_smoke ran {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results.values():

@@ -1,7 +1,7 @@
 """Benchmark harness: prints ONE JSON line with the headline metric.
 
     python -m stemgnn_tpu_torch.bench [--mode train|eval] [--steps N]
-        [--repeats R] [--batch B] [--spectral-bwd reread|recompute]
+        [--repeats R] [--batch B] [--spectral-bwd reread|recompute] [--bf16]
         [--set-baseline] [--device cpu]
 
 Headline: steady-state training throughput (windows/second) of the ECG
@@ -19,6 +19,11 @@ it; without that file it is null. `--mode eval` times the forward-only eval
 program (`make_eval_epoch_fn`) and reports its ratio to the per-batch eager
 eval loop measured in the same run. `--spectral-bwd` sets, for the run, which
 backward the spectral cell trains with (`ops.cuda_spectral.SAVE_ACTS_BWD`).
+`--bf16` runs the step (or the eval program) at compute_dtype "bfloat16", the
+JAX bench's `--bf16`: the graph conv's and spectral kernels' bf16 arms. The
+default stays float32, the precision of the baseline file, so a bf16 train
+run's `vs_baseline` is its ratio to that float32 baseline; the JSON line
+names the precision.
 """
 
 from __future__ import annotations
@@ -121,11 +126,11 @@ def _summary(times, batch, chunk, spread_warn):
 
 def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
             multi=5, seed=0, chunk_steps=None, repeats=3, max_extra_repeats=2,
-            spread_warn=0.15, device="cuda"):
+            spread_warn=0.15, device="cuda", compute_dtype="float32"):
     """Steady-state train-step time through the engine's chunked epoch program
     (`make_epoch_fn`: on the card one captured CUDA graph of `chunk_steps`
-    steps per dispatch, default CHUNK_SIZES[0]), f32, RMSProp lr 1e-4, dropout
-    0.5, weights from init_params(seed).
+    steps per dispatch, default CHUNK_SIZES[0]), at `compute_dtype`, RMSProp lr
+    1e-4, dropout 0.5, weights from init_params(seed).
 
     Warm-up runs whole chunks (the first pays for the capture); each timed
     window runs `steps` steps and is closed by a synchronize and a read of its
@@ -141,7 +146,7 @@ def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
             for k, v in flatten_params(init_params(seed, cfg, device=dev)).items()}
     params = unflatten_params(flat)
     opt = make_optimizer("RMSProp", flat.values(), 1e-4)
-    epoch_fn = make_epoch_fn(cfg, opt, flat.values())
+    epoch_fn = make_epoch_fn(cfg, opt, flat.values(), compute_dtype=compute_dtype)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
     chunk, n_chunks, steps, n_warm, repeats, max_reps = _plan(
@@ -182,19 +187,20 @@ def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
 
 def measure_eval(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
                  multi=5, seed=0, chunk_steps=None, repeats=3, max_extra_repeats=2,
-                 spread_warn=0.15, device="cuda", chunked=True):
+                 spread_warn=0.15, device="cuda", chunked=True, compute_dtype="float32"):
     """Forward-only throughput through the engine's batched eval program
-    (`make_eval_epoch_fn`, what validate and test run), by `measure`'s method.
-    With `chunked` False the same batches go one by one through the eager
-    `make_eval_step`, the yardstick `--mode eval` reports a ratio to."""
+    (`make_eval_epoch_fn`, what validate and test run), by `measure`'s method,
+    at `compute_dtype`. With `chunked` False the same batches go one by one
+    through the eager `make_eval_step`, the yardstick `--mode eval` reports a
+    ratio to."""
     dev = resolve_device(device)
     cfg = StemGNNConfig(units=n_nodes, window_size=window, horizon=horizon,
                         multi_layer=multi)
     params = init_params(seed, cfg, device=dev)
     if chunked:
-        eval_epoch = make_eval_epoch_fn(cfg, dev)
+        eval_epoch = make_eval_epoch_fn(cfg, dev, compute_dtype)
     else:
-        eval_step = make_eval_step(cfg, dev)
+        eval_step = make_eval_step(cfg, dev, compute_dtype)
 
         def eval_epoch(params, data, hi_matrix):
             for hi in hi_matrix:
@@ -240,12 +246,20 @@ def main(argv=None):
                     help="train with the spectral cell's saving forward and reread "
                          "backward, or with its recompute backward (default: as "
                          "ops.cuda_spectral.SAVE_ACTS_BWD is set)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="compute_dtype bfloat16: the graph conv's and spectral "
+                         "kernels' bf16 arms (vs_baseline stays against the float32 "
+                         "baseline)")
     ap.add_argument("--set-baseline", action="store_true",
-                    help="write the measured train value as the frozen baseline")
+                    help="write the measured train value as the frozen baseline "
+                         "(float32 only)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.bf16 and args.set_baseline:
+        ap.error("the baseline is float32: --set-baseline does not take --bf16")
+    precision = "bfloat16" if args.bf16 else "float32"
     common = dict(batch=args.batch, steps=args.steps, warmup=args.warmup,
-                  repeats=args.repeats, device=args.device)
+                  repeats=args.repeats, device=args.device, compute_dtype=precision)
 
     if args.mode == "eval":
         res = measure_eval(**common)
@@ -264,7 +278,7 @@ def main(argv=None):
                 "eager_spread": round(ref["spread"], 4),
                 "device": res["device"],
                 "power_limit": res["power_limit"],
-                "precision": "float32",
+                "precision": precision,
                 "method": "chunked64-median",
                 "baseline_method": "same-run eager per-batch eval",
             },
@@ -317,9 +331,10 @@ def main(argv=None):
             "loss": res["loss"],
             "device": res["device"],
             "power_limit": res["power_limit"],
-            "precision": "float32",
+            "precision": precision,
             "spectral_bwd": res["spectral_bwd"],
             "method": "chunked64-median",
+            "baseline_precision": "float32" if baseline else None,
             "baseline_device": baseline["device"] if baseline else None,
             "baseline_power_limit": baseline["power_limit"] if baseline else None,
             "model_flops_per_step": mfu["model_flops_per_step"],

@@ -3,10 +3,16 @@
 The flag surface mirrors the reference CLI (main.py:9-30): the 21 reference
 flags keep their names and defaults, and booleans parse properly (the
 reference's `type=bool` flags treat the string "False" as truthy). The
-port adds `seed`, `dropout_seed`, `shuffle_seed`, `resume`, `ckpt_every`,
-`ckpt_async`, `log_jsonl`, `profile`, `debug_nans`, `data_dir` and
-`output_dir`, with the JAX package's names and defaults; `device` defaults to
-"cuda".
+port adds `seed`, `dropout_seed`, `shuffle_seed`, `compute_dtype`, `resume`,
+`ckpt_every`, `ckpt_async`, `log_jsonl`, `profile`, `debug_nans`, `data_dir`
+and `output_dir`, with the JAX package's names and defaults; `device`
+defaults to "cuda".
+
+`compute_dtype` is the JAX package's precision policy: "bfloat16" gives the
+graph conv's and the spectral cell's kernels bf16 operands with f32 sums,
+rounded where the JAX package's kernels round them; the GRU, the attention,
+the Laplacian and every product outside those kernels stay f32 (with TF32
+off on the card), which is what the JAX package computes on the CPU.
 """
 
 from __future__ import annotations
@@ -76,6 +82,8 @@ class TrainConfig:
     dropout_seed: int = -1
     # -1 = the per-epoch batch shuffle derives from `seed`; >= 0 decouples it
     shuffle_seed: int = -1
+    # "float32" | "bfloat16": the graph conv's and spectral kernels' operands
+    compute_dtype: str = "float32"
     resume: bool = False  # restore params + optimizer state + epoch from the last checkpoint
     ckpt_every: int = 1  # per-epoch checkpoint cadence (reference: every epoch)
     ckpt_async: bool = True  # copy and write checkpoints on a worker thread
@@ -86,6 +94,11 @@ class TrainConfig:
     debug_nans: bool = False
     data_dir: str = "dataset"
     output_dir: str = "output"
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: 'float32' or "
+                             "'bfloat16'")
 
     def model_config(self, node_cnt: int) -> StemGNNConfig:
         return StemGNNConfig(

@@ -1,5 +1,6 @@
 // Device functions shared by the kernels that keep an operand resident in
-// shared memory and split a sum over the lanes of a warp.
+// shared memory and split a sum over the lanes of a warp, and the operand
+// types of the kernels' two arms.
 //
 // Asynchronous copies from device memory into a block's shared memory are
 // cp.async: the data does not pass through registers, so a thread keeps as
@@ -7,15 +8,70 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Operand types. The f32 arm reads float operands; the bf16 arm reads
+// __nv_bfloat16 operands (as the JAX package's wrappers cast them before
+// their kernels) and converts each to f32 for its product: a product of two
+// bf16 values is exact in f32, so an f32 fmaf sum of them is the bf16 x bf16
+// -> f32 product of a matrix unit up to the order of the sum.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const bf16* p) { return __bfloat162float(__ldg(p)); }
+
+// v rounded to the operand type T (to nearest, ties to even, as the JAX
+// package's astype), as an f32: the identity for float
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// Four consecutive operands as one load: a float4 (16-byte aligned), or four
+// bf16 as a uint2 (8-byte aligned); unpack4 converts them to f32.
+template <typename T>
+struct Vec4 {
+  using type = float4;
+};
+template <>
+struct Vec4<bf16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 ldg_vec4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ uint2 ldg_vec4(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ void unpack4(const float4& v, float (&f)[4]) {
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+// a bf16 is the high half of the f32 with the same value
+__device__ __forceinline__ void unpack4(const uint2& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x << 16);
+  f[1] = __uint_as_float(v.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.y << 16);
+  f[3] = __uint_as_float(v.y & 0xffff0000u);
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
 }
@@ -64,6 +120,35 @@ __device__ __forceinline__ void copy_panel_async(float* dst, int dst_ld,
     for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
       const int r = e / cols, c = e - r * cols;
       cp_async4(dst + r * dst_ld + c, src + r * src_ld + c);
+    }
+  }
+}
+
+// The same for a panel of bf16: 16 bytes (8 elements) a copy where every row
+// of both sides is 16-byte aligned, 8 bytes where 8-byte aligned, else element
+// by element through registers (ordinary stores, which the barrier after the
+// copies' wait makes visible as it does the copies).
+__device__ __forceinline__ void copy_panel_async(bf16* dst, int dst_ld,
+                                                 const bf16* __restrict__ src, long src_ld,
+                                                 int rows, int cols) {
+  const int lds = cols | dst_ld | (int)(src_ld & 7);
+  const uintptr_t at = (uintptr_t)src | (uintptr_t)dst;
+  if ((lds & 7) == 0 && (at & 15) == 0) {
+    const int c8 = cols / 8;
+    for (int e = threadIdx.x; e < rows * c8; e += blockDim.x) {
+      const int r = e / c8, c = (e - r * c8) * 8;
+      cp_async16(dst + r * dst_ld + c, src + r * src_ld + c);
+    }
+  } else if ((lds & 3) == 0 && (at & 7) == 0) {
+    const int c4 = cols / 4;
+    for (int e = threadIdx.x; e < rows * c4; e += blockDim.x) {
+      const int r = e / c4, c = (e - r * c4) * 4;
+      cp_async8(dst + r * dst_ld + c, src + r * src_ld + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = e / cols, c = e - r * cols;
+      dst[r * dst_ld + c] = src[r * src_ld + c];
     }
   }
 }

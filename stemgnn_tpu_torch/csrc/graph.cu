@@ -30,6 +30,13 @@
 // and W are masked (a W that is no multiple of 4 takes scalar reads of x and
 // scalar stores); an N whose panels exceed shared memory is walked in panels
 // of MP rows of x.
+//
+// The bf16 arm (`cheb_graph_conv_fwd_bf16`, the JAX kernel at
+// compute_dtype=bfloat16): L and x come in as bf16 (orders 1 to K-1; the
+// order-0 slab is still written as zeros), the panels stay bf16 in shared
+// memory (a 16-byte cp.async piece carries 8 of them; rows whose alignment
+// allows no more, 4), and each product converts its two operands to f32,
+// exact, for the same f32 fmaf sums: out stays f32.
 
 #include <cuda_runtime.h>
 
@@ -43,16 +50,26 @@ constexpr int kParts = 8;  // lanes that split the sum over m; also the rows a w
 constexpr int kChunkThreads = 32 * (kTM / kParts);  // threads that share a chunk of four w
 constexpr int kMaxChunks = 4;                       // chunks in flight a block: 512 threads
 
+// four operands of x at p (16-byte aligned for float, 8 for bf16) as f32
+__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
+  unpack4(*reinterpret_cast<const float4*>(p), v);
+}
+__device__ __forceinline__ void lds4(const bf16* p, float (&v)[4]) {
+  unpack4(*reinterpret_cast<const uint2*>(p), v);
+}
+
 // Shared memory: As [kTM][RSA] (the panel of L, RSA >= MP a multiple of 8),
 // then Xs [kTB][XBS] (a batch's [MP][W] rows of x, XBS >= MP * W + 4 so a
-// ragged last read stays inside). blockDim.x = kChunkThreads * min(chunks,
+// ragged last read stays inside, and a whole number of 16-byte pieces), both
+// of the operand type T. blockDim.x = kChunkThreads * min(chunks,
 // kMaxChunks).
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kChunkThreads * kMaxChunks)
-cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
+cheb_graph_conv_kernel(const T* __restrict__ L, const T* __restrict__ x,
                        float* __restrict__ out, int K, int N, int B, int W, int MP,
                        int RSA, int XBS) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) float smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int k = blockIdx.z + 1;  // the order of this block's product
   const int n0 = blockIdx.y * kTM;
   const int b0 = blockIdx.x * kTB;
@@ -78,8 +95,8 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
     return;
   }
 
-  float* As = smem;
-  float* Xs = smem + kTM * RSA;
+  T* As = smem;
+  T* Xs = smem + kTM * RSA;
   const int slot = tid / kChunkThreads;            // which of the chunks in flight
   const int r0 = tid % kChunkThreads / 32 * kParts;  // the warp's first row of the tile
   const int lane = tid & 31;
@@ -88,7 +105,8 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
   const int chunks = (W + 3) / 4;
   const int slots = blockDim.x / kChunkThreads;
   const int panels = (N + MP - 1) / MP;
-  const float* Lk = L + ((long)k * N + n0) * N;
+  const T* Lk = L + ((long)k * N + n0) * N;
+  const T zero = T(0.f);
 
   for (int wc0 = 0; wc0 < chunks; wc0 += slots) {
     const int wc = min(wc0 + slot, chunks - 1);  // a spare slot repeats the last chunk
@@ -109,28 +127,27 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
         // k-parts: columns of L (the tile's rows past N and the batches past B
         // are never stored and stay as they are) and rows of x
         for (int r = tid / kParts; r < rows; r += blockDim.x / kParts)
-          if (mr + tid % kParts < mp) As[r * RSA + mr + tid % kParts] = 0.f;
+          if (mr + tid % kParts < mp) As[r * RSA + mr + tid % kParts] = zero;
         for (int i = 0; i < kTB && b0 + i < B; ++i)
           for (int e = mr * W + tid; e < mp * W + 4; e += blockDim.x)
-            Xs[i * XBS + e] = 0.f;
+            Xs[i * XBS + e] = zero;
         cp_async_wait_group<0>();
         __syncthreads();
       }
-      const float* a = As + r0 * RSA;
-      const float* xb = Xs + bb * XBS + wc * 4;
+      const T* a = As + r0 * RSA;
+      const T* xb = Xs + bb * XBS + wc * 4;
 #pragma unroll 3
       for (int m = p; m < mp; m += kParts) {
         float xv[4];
         if (kVec) {
-          const float4 q = *reinterpret_cast<const float4*>(xb + m * W);
-          xv[0] = q.x; xv[1] = q.y; xv[2] = q.z; xv[3] = q.w;
+          lds4(xb + m * W, xv);
         } else {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) xv[q] = xb[m * W + q];
+          for (int q = 0; q < 4; ++q) xv[q] = to_f32(xb[m * W + q]);
         }
 #pragma unroll
         for (int i = 0; i < kParts; ++i) {
-          const float l = a[i * RSA + m];
+          const float l = to_f32(a[i * RSA + m]);
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[q][i] = fmaf(l, xv[q], acc[q][i]);
         }
@@ -151,23 +168,40 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
   }
 }
 
+template <typename T>
+int launch(const T* L, const T* x, float* out, int K, int N, int B, int W, int panel,
+           int row_stride, int batch_stride, int threads, int smem, int vec,
+           cudaStream_t stream) {
+  auto kernel = vec ? cheb_graph_conv_kernel<T, true> : cheb_graph_conv_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kTB - 1) / kTB, (N + kTM - 1) / kTM, K > 1 ? K - 1 : 1);
+  kernel<<<grid, threads, smem, stream>>>(L, x, out, K, N, B, W, panel, row_stride,
+                                          batch_stride);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The plan comes from ops/cuda_graph.py `launch_plan`: `panel` rows of x at a
-// time (a multiple of 4), `row_stride` floats a row of the panel of L,
-// `batch_stride` floats a batch of the panel of x, `threads` a block, `smem`
+// time (a multiple of 4), `row_stride` elements a row of the panel of L,
+// `batch_stride` elements a batch of the panel of x, `threads` a block, `smem`
 // bytes of dynamic shared memory; `vec` when W is a multiple of 4 and x and
 // out are 16-byte aligned.
 extern "C" int cheb_graph_conv_fwd(const float* L, const float* x, float* out,
                                    int K, int N, int B, int W, int panel,
                                    int row_stride, int batch_stride, int threads,
                                    int smem, int vec, void* stream) {
-  auto kernel = vec ? cheb_graph_conv_kernel<true> : cheb_graph_conv_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kTB - 1) / kTB, (N + kTM - 1) / kTM, K > 1 ? K - 1 : 1);
-  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(L, x, out, K, N, B, W, panel,
-                                                       row_stride, batch_stride);
-  return (int)cudaGetLastError();
+  return launch(L, x, out, K, N, B, W, panel, row_stride, batch_stride, threads, smem, vec,
+                (cudaStream_t)stream);
+}
+
+// The bf16 arm: L and x bf16 (the plan's strides in bf16 elements), out f32.
+extern "C" int cheb_graph_conv_fwd_bf16(const bf16* L, const bf16* x, float* out,
+                                        int K, int N, int B, int W, int panel,
+                                        int row_stride, int batch_stride, int threads,
+                                        int smem, int vec, void* stream) {
+  return launch(L, x, out, K, N, B, W, panel, row_stride, batch_stride, threads, smem, vec,
+                (cudaStream_t)stream);
 }

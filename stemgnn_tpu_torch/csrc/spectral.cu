@@ -75,12 +75,14 @@
 // Rows past the end of a tile's data carry g = 0, hence da = ds = 0, and add
 // nothing to any gradient. Ci and Si are symmetric, which step 3 uses to
 // read them along rows. Steps 3 and 4 take D0 and D1 in runs of 4 columns
-// (`shape_ok`, the forward's rule too: K = 4 in the model, and D1 <= 680);
+// (`shape_ok`, the forward's rule too: K = 4 in the model, and D1 <= 2048);
 // every entry returns cudaErrorInvalidValue otherwise. They are
 // built for the ECG flagship (W = 12, D0 = 48, D1 = 240); other shapes take
 // masked runs, a column at a time where a run straddles two orders' windows,
-// and D1 past 256 takes wider blocks of the rows kernel and column tiles of
-// the weight-gradient kernel.
+// D1 past 256 takes wider blocks of the rows kernel and column tiles of
+// the weight-gradient kernel, and D1 past 680 a rows kernel of 8-row tiles
+// (instantiated apart, so the flagship's code is as it was) and a chain
+// forward of the row tile whose block and buffers fit (`chain_tile`).
 
 // Saving forward and reread backward (`spectral_fwd_save`,
 // `spectral_bwd_reread`): replace `_kernel_save` (reached from
@@ -97,6 +99,20 @@
 // saved arrays past the end hold the chain's values for an all-zero input
 // row.
 
+// The bf16 arms (`spectral_fwd_bf16`, `spectral_fwd_save_bf16`,
+// `spectral_bwd_bf16`, `spectral_bwd_reread_bf16`): the same kernels
+// instantiated for bf16 operands, the JAX package's compute_dtype=bfloat16
+// arm of the same four TPU kernels. The caller folds the DFT in f32 and casts
+// x, the twelve 2-D GLU weights and the inverse DFT's block to bf16 (g too,
+// for a backward); biases, outputs, the 12 saved arrays and every sum stay
+// f32. What the TPU kernels round to bf16 is rounded here at the same points
+// (`round_to`): each GLU's input a * s (the next layer's operand, and the
+// inverse DFT's), and in the backward da and ds before their products (the
+// bias gradients sum them unrounded) and u = a * s of the weight gradients,
+// rebuilt from the saved f32 a and s as the forward built it: so the reread
+// backward stays bitwise the recompute backward. Every product converts its
+// two bf16 operands to f32 (exact) and sums in the f32 arm's fmaf order.
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,18 +126,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+// the six GLUs' tensors: 2-D weights of the operand type, biases f32
+template <typename T>
 struct GluWeights {
-  const float* wl[6];
+  const T* wl[6];
   const float* bl[6];
-  const float* wr[6];
+  const T* wr[6];
   const float* br[6];
 };
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
 
 // ---- forward: the chain kernel ----
 
@@ -133,25 +147,27 @@ constexpr int kFAhead = 2;           // steps of k the weight loads run ahead
 
 // al[i][q] = sum_k in[k][r0 + i] * wl[k][c + q], ar the same with wr, k < din,
 // k ascending (in: [k][row], S floats between columns; wl, wr: [din][dout]
-// row-major). The weights come from L2: loaded kFAhead steps of k ahead, in
-// a ring.
+// row-major, of the operand type T). The weights come from L2: loaded
+// kFAhead steps of k ahead, in a ring, and converted where they are used.
+template <typename T>
 __device__ __forceinline__ void glu_fwd_product(const float* in, int S, int din,
-                                                const float* __restrict__ wl,
-                                                const float* __restrict__ wr, int dout,
+                                                const T* __restrict__ wl,
+                                                const T* __restrict__ wr, int dout,
                                                 int r0, int c, float (&al)[8][4],
                                                 float (&ar)[8][4]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) al[i][q] = ar[i][q] = 0.f;
-  const float* pl = wl + c;
-  const float* pr = wr + c;
+  const T* pl = wl + c;
+  const T* pr = wr + c;
   constexpr int kRing = kFAhead + 1;
-  float4 lw[kRing], rw[kRing];
-  auto load_w = [&](int k, float4& l, float4& r) {
+  using V = typename Vec4<T>::type;
+  V lw[kRing], rw[kRing];
+  auto load_w = [&](int k, V& l, V& r) {
     const long kk = min(k, din - 1);  // past the end: a load nobody uses
-    l = ldg4(pl + kk * dout);
-    r = ldg4(pr + kk * dout);
+    l = ldg_vec4(pl + kk * dout);
+    r = ldg_vec4(pr + kk * dout);
   };
 #pragma unroll
   for (int u = 0; u < kFAhead; ++u) load_w(u, lw[u], rw[u]);
@@ -161,10 +177,10 @@ __device__ __forceinline__ void glu_fwd_product(const float* in, int S, int din,
       const int k = k0 + u;
       if (k >= din) break;
       load_w(k + kFAhead, lw[(u + kFAhead) % kRing], rw[(u + kFAhead) % kRing]);
-      float x[8];
+      float x[8], l[4], r[4];
       load8(in + k * S + r0, x);
-      const float l[4] = {lw[u].x, lw[u].y, lw[u].z, lw[u].w};
-      const float r[4] = {rw[u].x, rw[u].y, rw[u].z, rw[u].w};
+      unpack4(lw[u], l);
+      unpack4(rw[u], r);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -177,10 +193,10 @@ __device__ __forceinline__ void glu_fwd_product(const float* in, int S, int din,
 }
 
 // A GLU's outputs from the thread's sums: a = al + bl, s = sigmoid(ar + br),
-// a * s to the block's buffer (the 8 rows of a column as two float4); with
-// kSave, a and s to ga, gs ([rows_pad][d1] row-major, rows past rows_pad
-// dropped).
-template <bool kSave>
+// a * s rounded to the operand type T (the next product's operand) to the
+// block's buffer (the 8 rows of a column as two float4); with kSave, a and s
+// to ga, gs ([rows_pad][d1] row-major, rows past rows_pad dropped), f32.
+template <typename T, bool kSave>
 __device__ __forceinline__ void glu_fwd_elementwise(
     const float (&al)[8][4], const float (&ar)[8][4], const float* __restrict__ bl,
     const float* __restrict__ br, int r0, int c, long row0, long rows_pad, int d1,
@@ -199,7 +215,7 @@ __device__ __forceinline__ void glu_fwd_elementwise(
     for (int q = 0; q < 4; ++q) {
       a[q] = al[i][q] + bL[q];
       sg[q] = sigmoidf(ar[i][q] + bR[q]);
-      v[q][i] = a[q] * sg[q];
+      v[q][i] = round_to<T>(a[q] * sg[q]);
     }
     if (kSave) {
       const long row = row0 + r0 + i;
@@ -218,11 +234,11 @@ __device__ __forceinline__ void glu_fwd_elementwise(
 // (kk, m: the order and position of column c + q), j ascending, each step
 // fmaf(imag, si, fmaf(real, ci, acc)). Where WM % 4 == 0 the run stays in
 // one order and shares its loads; otherwise (only with kRagged) each column
-// is summed on its own, in the same order.
-template <bool kRagged>
+// is summed on its own, in the same order. ci, si of the operand type T.
+template <typename T, bool kRagged>
 __device__ __forceinline__ void idft_fwd_run(const float* re, const float* im, int S,
-                                             const float* __restrict__ ci,
-                                             const float* __restrict__ si, int WM, int r0,
+                                             const T* __restrict__ ci,
+                                             const T* __restrict__ si, int WM, int r0,
                                              int c, float (&acc)[8][4]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -235,7 +251,7 @@ __device__ __forceinline__ void idft_fwd_run(const float* re, const float* im, i
       const float* rk = re + kk * WM * S + r0;
       const float* ik = im + kk * WM * S + r0;
       for (int j = 0; j < WM; ++j) {
-        const float wc = __ldg(ci + j * WM + m), ws = __ldg(si + j * WM + m);
+        const float wc = ldg1(ci + j * WM + m), ws = ldg1(si + j * WM + m);
         float u[8], v[8];
         load8(rk + j * S, u);
         load8(ik + j * S, v);
@@ -250,9 +266,9 @@ __device__ __forceinline__ void idft_fwd_run(const float* re, const float* im, i
   const float* ik = im + kk * WM * S + r0;
 #pragma unroll 2
   for (int j = 0; j < WM; ++j) {
-    const float4 c4 = ldg4(ci + j * WM + m0), s4 = ldg4(si + j * WM + m0);
-    const float wc[4] = {c4.x, c4.y, c4.z, c4.w}, ws[4] = {s4.x, s4.y, s4.z, s4.w};
-    float u[8], v[8];
+    float wc[4], ws[4], u[8], v[8];
+    unpack4(ldg_vec4(ci + j * WM + m0), wc);
+    unpack4(ldg_vec4(si + j * WM + m0), ws);
     load8(rk + j * S, u);
     load8(ik + j * S, v);
 #pragma unroll
@@ -267,11 +283,11 @@ __device__ __forceinline__ void idft_fwd_run(const float* re, const float* im, i
 // s5; GLU 2 * layer + chain), `plane` floats apart. out: with kOut, which
 // needs the launch in clusters of 2 along x. kMaxThreads: kFMaxThreads,
 // kFMidThreads or kFWideThreads, the least that holds the block; kRagged: for
-// WM % 4 != 0.
-template <int kMaxThreads, bool kSave, bool kOut, bool kRagged>
+// WM % 4 != 0. T: the operand type of x, the 2-D weights, ci and si.
+template <typename T, int kMaxThreads, bool kSave, bool kOut, bool kRagged>
 __global__ void __launch_bounds__(kMaxThreads, kMaxThreads == kFMaxThreads ? 3 : 1)
-spectral_chain_kernel(const float* __restrict__ x, GluWeights g,
-                      const float* __restrict__ ci, const float* __restrict__ si,
+spectral_chain_kernel(const T* __restrict__ x, GluWeights<T> g,
+                      const T* __restrict__ ci, const T* __restrict__ si,
                       float* __restrict__ out, float* __restrict__ acts, long plane,
                       long rows_pad, int tile, int B, int K, int N, int W, int WM) {
   extern __shared__ __align__(16) float smem[];
@@ -287,7 +303,7 @@ spectral_chain_kernel(const float* __restrict__ x, GluWeights g,
     float v = 0.f;
     if (row < rows) {
       const long b = row / N, n = row % N;
-      v = x[((b * K + col / W) * N + n) * W + col % W];
+      v = to_f32(x[((b * K + col / W) * N + n) * W + col % W]);
     }
     buf[col * S + r] = v;
   }
@@ -304,7 +320,7 @@ spectral_chain_kernel(const float* __restrict__ x, GluWeights g,
     if (live) glu_fwd_product(buf, S, layer == 0 ? d0 : d1, g.wl[gi], g.wr[gi], d1, r0, c, al, ar);
     __syncthreads();  // every read of this GLU's input is done
     if (live)
-      glu_fwd_elementwise<kSave>(al, ar, g.bl[gi], g.br[gi], r0, c, row0, rows_pad, d1,
+      glu_fwd_elementwise<T, kSave>(al, ar, g.bl[gi], g.br[gi], r0, c, row0, rows_pad, d1,
                                  kSave ? acts + (2 * gi) * plane : nullptr,
                                  kSave ? acts + (2 * gi + 1) * plane : nullptr, buf, S);
     __syncthreads();
@@ -326,7 +342,7 @@ spectral_chain_kernel(const float* __restrict__ x, GluWeights g,
     for (int t = threadIdx.x; t < groups * count; t += blockDim.x) {
       const int q0 = (t / count) * 8, cc = 4 * (first + t % count);
       float acc[8][4];
-      idft_fwd_run<kRagged>(re, im, S, ci, si, WM, q0, cc, acc);
+      idft_fwd_run<T, kRagged>(re, im, S, ci, si, WM, q0, cc, acc);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const long row = row0 + q0 + i;
@@ -347,18 +363,20 @@ spectral_chain_kernel(const float* __restrict__ x, GluWeights g,
 
 // ---- backward ----
 
+template <typename T>
 struct TransposedWeights {
-  const float* l[6];  // Wl^T of GLU i, [D1, Din] row-major
-  const float* r[6];
+  const T* l[6];  // Wl^T of GLU i, [D1, Din] row-major
+  const T* r[6];
 };
 
 // wT[c][k] = w[k][c] for the 12 weight matrices; blockIdx.y = 2 * GLU + side
-__global__ void spectral_transpose_kernel(GluWeights g, float* __restrict__ wT, int d0,
+template <typename T>
+__global__ void spectral_transpose_kernel(GluWeights<T> g, T* __restrict__ wT, int d0,
                                           int d1) {
   const int m = blockIdx.y, gi = m / 2;
   const int din = gi < 2 ? d0 : d1;
-  const float* w = (m % 2 == 0) ? g.wl[gi] : g.wr[gi];
-  float* o = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
+  const T* w = (m % 2 == 0) ? g.wl[gi] : g.wr[gi];
+  T* o = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= din * d1) return;
   const int k = e / d1, c = e % d1;
@@ -379,18 +397,32 @@ __global__ void spectral_transpose_kernel(GluWeights g, float* __restrict__ wT, 
 // shared memory or L1 an FMA (the one-column-a-thread kernel before it took
 // 4). The weights come from L2 through L1, read by the tile's 3 row groups.
 // Every output element is the same chain of fmaf as before, in the same order.
+// Past D1 = 680 a 24-row tile's block would need more than kBWideThreads
+// threads and its buffers more than a block's shared memory (2 * D1 * 28
+// floats): there the kernel takes tiles of kBRN = 8 rows (one row group, D1 / 8
+// threads, 2 * D1 * 12 floats: D1 up to 2048), instantiated apart. The
+// column sums are per 8 rows whatever the tile, so the bias gradients'
+// partials are the same.
 
 constexpr int kBR = 24;           // rows of a block of the rows kernel
 constexpr int kBRS = 28;          // floats between two columns of its [k][row] buffers
-constexpr int kBRG = kBR / 8;     // row groups of 8
 constexpr int kBMaxThreads = 96;  // 3 blocks an SM within the registers
 constexpr int kBWideThreads = 256;  // D1 past 256: one block an SM
+constexpr int kBRN = 8;           // rows of a tile past D1 = 680
+constexpr int kBRNS = 12;         // floats between two columns of its buffers
+constexpr int kMaxD1 = 2048;      // the widest D1 every entry takes
 
-// threads of a block of the rows kernel: kBRG row groups by (D1 / 4 + 1) / 2
-// column groups, in whole warps
-__host__ __device__ inline int rows_threads(int d1) {
-  return (kBRG * ((d1 / 4 + 1) / 2) + 31) / 32 * 32;
+// floats between two columns of the rows kernel's buffers for a tile of `rows`
+__host__ __device__ constexpr int rows_stride(int rows) { return rows == kBR ? kBRS : kBRNS; }
+
+// threads of a block of the rows kernel: rows / 8 row groups by (D1 / 4 + 1)
+// / 2 column groups, in whole warps
+__host__ __device__ inline int rows_threads(int d1, int rows) {
+  return (rows / 8 * ((d1 / 4 + 1) / 2) + 31) / 32 * 32;
 }
+
+// the rows kernel's tile: 24 rows where its block fits kBWideThreads, else 8
+inline int rows_tile(int d1) { return rows_threads(d1, kBR) <= kBWideThreads ? kBR : kBRN; }
 
 // two float4 runs, `gap` floats apart
 __device__ __forceinline__ void lds4x2(const float* p, int gap, float (&v)[8]) {
@@ -402,11 +434,12 @@ __device__ __forceinline__ void lds4x2(const float* p, int gap, float (&v)[8]) {
 
 // acc[i][4 * j4 + q] = sum_c da[c][r0 + i] * wl[c][c4[j4] + q]
 //                          + ds[c][r0 + i] * wr[c][c4[j4] + q],  c < dmid
-// (wl, wr: Wl^T, Wr^T [dmid][dout] row-major).
-template <int TN>
+// (wl, wr: Wl^T, Wr^T [dmid][dout] row-major, of the operand type T; da, ds
+// with S floats between columns).
+template <typename T, int S, int TN>
 __device__ __forceinline__ void glu_bwd_product(const float* da, const float* ds, int dmid,
-                                                const float* __restrict__ wl,
-                                                const float* __restrict__ wr, int dout,
+                                                const T* __restrict__ wl,
+                                                const T* __restrict__ wr, int dout,
                                                 int r0, const int (&c4)[TN / 4],
                                                 float (&acc)[8][TN]) {
 #pragma unroll
@@ -415,13 +448,14 @@ __device__ __forceinline__ void glu_bwd_product(const float* da, const float* ds
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   // the weights come from L2: loaded two steps of c ahead, in a ring of three
   constexpr int J4 = TN / 4;
-  float4 lw[3][J4], rw[3][J4];
-  auto load_w = [&](int c, float4 (&l)[J4], float4 (&r)[J4]) {
+  using V = typename Vec4<T>::type;
+  V lw[3][J4], rw[3][J4];
+  auto load_w = [&](int c, V (&l)[J4], V (&r)[J4]) {
     const int cc = min(c, dmid - 1);  // past the end: a load nobody uses
 #pragma unroll
     for (int j4 = 0; j4 < J4; ++j4) {
-      l[j4] = ldg4(wl + (long)cc * dout + c4[j4]);
-      r[j4] = ldg4(wr + (long)cc * dout + c4[j4]);
+      l[j4] = ldg_vec4(wl + (long)cc * dout + c4[j4]);
+      r[j4] = ldg_vec4(wr + (long)cc * dout + c4[j4]);
     }
   };
   load_w(0, lw[0], rw[0]);
@@ -433,13 +467,15 @@ __device__ __forceinline__ void glu_bwd_product(const float* da, const float* ds
       if (c >= dmid) break;
       load_w(c + 2, lw[(u + 2) % 3], rw[(u + 2) % 3]);
       float a[8], s[8], l[TN], r[TN];
-      load8(da + c * kBRS + r0, a);
-      load8(ds + c * kBRS + r0, s);
+      load8(da + c * S + r0, a);
+      load8(ds + c * S + r0, s);
 #pragma unroll
       for (int j4 = 0; j4 < J4; ++j4) {
-        const float4 lv = lw[u][j4], rv = rw[u][j4];
-        l[4 * j4] = lv.x; l[4 * j4 + 1] = lv.y; l[4 * j4 + 2] = lv.z; l[4 * j4 + 3] = lv.w;
-        r[4 * j4] = rv.x; r[4 * j4 + 1] = rv.y; r[4 * j4 + 2] = rv.z; r[4 * j4 + 3] = rv.w;
+        float lv[4], rv[4];
+        unpack4(lw[u][j4], lv);
+        unpack4(rw[u][j4], rv);
+        l[4 * j4] = lv[0]; l[4 * j4 + 1] = lv[1]; l[4 * j4 + 2] = lv[2]; l[4 * j4 + 3] = lv[3];
+        r[4 * j4] = rv[0]; r[4 * j4 + 1] = rv[1]; r[4 * j4 + 2] = rv[2]; r[4 * j4 + 3] = rv[3];
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -451,11 +487,12 @@ __device__ __forceinline__ void glu_bwd_product(const float* da, const float* ds
 
 // The inverse DFT backwards: acc[i][4 * j4 + q] = dR of column c4[j4] + q,
 //   dR[r][c] = sum_m g[r][kk * WM + m] * Ci[m][c % WM], kk = c / WM
-// (Ci symmetric; Si for the imaginary chain). Where WM % 4 == 0 a run of 4
-// columns never leaves its order and shares its loads; otherwise (only with
-// kRagged) each column is summed on its own, in the same order.
-template <bool kRagged>
-__device__ __forceinline__ void idft_bwd_product(const float* gt, const float* __restrict__ idft,
+// (Ci symmetric; Si for the imaginary chain; of the operand type T). Where
+// WM % 4 == 0 a run of 4 columns never leaves its order and shares its loads;
+// otherwise (only with kRagged) each column is summed on its own, in the same
+// order. gt: S floats between columns.
+template <typename T, int S, bool kRagged>
+__device__ __forceinline__ void idft_bwd_product(const float* gt, const T* __restrict__ idft,
                                                  int WM, int r0, const int (&c4)[2],
                                                  float (&acc)[8][8]) {
 #pragma unroll
@@ -466,28 +503,29 @@ __device__ __forceinline__ void idft_bwd_product(const float* gt, const float* _
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c4[j / 4] + j % 4;
-      const float* gj = gt + (c / WM) * WM * kBRS + r0;
-      const float* wj = idft + c % WM;
+      const float* gj = gt + (c / WM) * WM * S + r0;
+      const T* wj = idft + c % WM;
       for (int m = 0; m < WM; ++m) {
         float x[8];
-        load8(gj + m * kBRS, x);
-        const float w = __ldg(wj + m * WM);
+        load8(gj + m * S, x);
+        const float w = ldg1(wj + m * WM);
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(x[i], w, acc[i][j]);
       }
     }
     return;
   }
-  const float* g0 = gt + (c4[0] / WM) * WM * kBRS + r0;
-  const float* g1 = gt + (c4[1] / WM) * WM * kBRS + r0;
+  const float* g0 = gt + (c4[0] / WM) * WM * S + r0;
+  const float* g1 = gt + (c4[1] / WM) * WM * S + r0;
   const int j0 = c4[0] % WM, j1 = c4[1] % WM;
 #pragma unroll 2
   for (int m = 0; m < WM; ++m) {
-    float x0[8], x1[8];
-    load8(g0 + m * kBRS, x0);
-    load8(g1 + m * kBRS, x1);
-    const float4 w0 = ldg4(idft + m * WM + j0), w1 = ldg4(idft + m * WM + j1);
-    const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    float x0[8], x1[8], w0[4], w1[4];
+    load8(g0 + m * S, x0);
+    load8(g1 + m * S, x1);
+    unpack4(ldg_vec4(idft + m * WM + j0), w0);
+    unpack4(ldg_vec4(idft + m * WM + j1), w1);
+    const float w[8] = {w0[0], w0[1], w0[2], w0[3], w1[0], w1[1], w1[2], w1[3]};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
@@ -501,10 +539,12 @@ __device__ __forceinline__ void idft_bwd_product(const float* gt, const float* _
 
 // From the product dy of GLU gi's output in registers (the thread's tile):
 //   da = dy * s, ds = dy * a * s * (1 - s)
-// to dacts (rows below rows_pad: the saved planes' rows), to the shared da,
-// ds (4 rows of a column as one float4), and the tile's column sums over its
-// 8 rows, in row order, to ba and bs (the bias gradients' partials). Without
-// `two`, only the first run.
+// rounded to the operand type T (the operands of their products) to dacts
+// (rows below rows_pad: the saved planes' rows) and to the shared da, ds (4
+// rows of a column as one float4, S floats between columns), and the tile's
+// column sums over its 8 rows of the unrounded values, in row order, to ba
+// and bs (the bias gradients' partials). Without `two`, only the first run.
+template <typename T, int S>
 __device__ __forceinline__ void glu_bwd_elementwise(
     const float (&acc)[8][8], int r0, const int (&c4)[2], bool two, long row0, long rows_pad,
     int d1, const float* __restrict__ a_g, const float* __restrict__ s_g,
@@ -521,8 +561,8 @@ __device__ __forceinline__ void glu_bwd_elementwise(
       for (int i = 0; i < 4; ++i) {
         const long row = row0 + r0 + h + i;
         const bool in = row < rows_pad;
-        const float4 a4 = in ? ldg4(a_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 s4 = in ? ldg4(s_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 a4 = in ? ldg_vec4(a_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 s4 = in ? ldg_vec4(s_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
         const float a[4] = {a4.x, a4.y, a4.z, a4.w}, s[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -530,23 +570,25 @@ __device__ __forceinline__ void glu_bwd_elementwise(
           va[i][q] = v * s[q];
           vs[i][q] = v * a[q] * (s[q] * (1.f - s[q]));
         }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sa[q] += va[i][q];
+          ss[q] += vs[i][q];
+          va[i][q] = round_to<T>(va[i][q]);
+          vs[i][q] = round_to<T>(vs[i][q]);
+        }
         if (in) {
           *reinterpret_cast<float4*>(da_g + row * d1 + c4[j4]) =
               make_float4(va[i][0], va[i][1], va[i][2], va[i][3]);
           *reinterpret_cast<float4*>(ds_g + row * d1 + c4[j4]) =
               make_float4(vs[i][0], vs[i][1], vs[i][2], vs[i][3]);
         }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          sa[q] += va[i][q];
-          ss[q] += vs[i][q];
-        }
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        *reinterpret_cast<float4*>(da + (c4[j4] + q) * kBRS + r0 + h) =
+        *reinterpret_cast<float4*>(da + (c4[j4] + q) * S + r0 + h) =
             make_float4(va[0][q], va[1][q], va[2][q], va[3][q]);
-        *reinterpret_cast<float4*>(ds + (c4[j4] + q) * kBRS + r0 + h) =
+        *reinterpret_cast<float4*>(ds + (c4[j4] + q) * S + r0 + h) =
             make_float4(vs[0][q], vs[1][q], vs[2][q], vs[3][q]);
       }
     }
@@ -555,38 +597,41 @@ __device__ __forceinline__ void glu_bwd_elementwise(
   }
 }
 
-// One kBR-row tile of one chain: g -> dR (dI) -> the chain's three GLUs
+// One kRows-row tile of one chain: g -> dR (dI) -> the chain's three GLUs
 // backwards -> the chain's part of dx, dxc [2][rows_pad][D0]; da, ds of the
 // chain's GLUs to dacts (laid out like acts), and their column sums over
-// each 8 rows to bpart [tiles * kBRG][12][D1] (array 2 * GLU + side). Takes
-// the shapes `shape_ok` passes; kMaxThreads: kBMaxThreads, or
-// kBWideThreads for the D1 that need more; kRagged: for D1 / 4 odd or WM % 4
-// != 0 (compiled into the flagship's instantiation, that code slowed the
-// entry by 5% on an H100: `utils/kernel_variants.py`).
-template <int kMaxThreads, bool kRagged>
+// each 8 rows to bpart [rows / 8][12][D1] (array 2 * GLU + side). Takes
+// the shapes `shape_ok` passes; kRows: kBR, or kBRN past D1 = 680;
+// kMaxThreads: kBMaxThreads, or kBWideThreads for the D1 that need more;
+// kRagged: for D1 / 4 odd or WM % 4 != 0 (compiled into the flagship's
+// instantiation, that code slowed the entry by 5% on an H100:
+// `utils/kernel_variants.py`). T: the operand type of g, ci, si and the
+// transposed weights.
+template <typename T, int kRows, int kMaxThreads, bool kRagged>
 __global__ void __launch_bounds__(kMaxThreads, kMaxThreads == kBMaxThreads ? 3 : 1)
-spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ acts,
+spectral_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ acts,
                          float* __restrict__ dacts, long plane, long rows_pad,
-                         TransposedWeights wt, const float* __restrict__ ci,
-                         const float* __restrict__ si, float* __restrict__ dxc,
+                         TransposedWeights<T> wt, const T* __restrict__ ci,
+                         const T* __restrict__ si, float* __restrict__ dxc,
                          float* __restrict__ bpart, int B, int K, int N, int W, int WM) {
+  constexpr int S = rows_stride(kRows), kG = kRows / 8;
   extern __shared__ __align__(16) float smem[];
   const int d0 = K * W, d1 = K * WM;
   const long rows = (long)B * N;
   const int chain = blockIdx.y;
-  const long row0 = (long)blockIdx.x * kBR;
-  float* da = smem;              // [d1][kBRS]
-  float* ds = da + d1 * kBRS;    // [d1][kBRS]
+  const long row0 = (long)blockIdx.x * kRows;
+  float* da = smem;              // [d1][S]
+  float* ds = da + d1 * S;       // [d1][S]
 
-  for (int e = threadIdx.x; e < kBR * d1; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kRows * d1; e += blockDim.x) {
     const int r = e / d1, col = e % d1;
     const long row = row0 + r;
     float v = 0.f;
     if (row < rows) {
       const long b = row / N, n = row % N;
-      v = g[((b * K + col / WM) * N + n) * WM + col % WM];
+      v = to_f32(g[((b * K + col / WM) * N + n) * WM + col % WM]);
     }
-    da[col * kBRS + r] = v;  // the cotangent tile, until da is first written
+    da[col * S + r] = v;  // the cotangent tile, until da is first written
   }
   __syncthreads();
 
@@ -594,35 +639,36 @@ spectral_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ 
   // and gc + G; where D1 / 4 is odd the last group has no second run, and
   // computes its first one twice and keeps one
   const int runs = d1 / 4, G = (runs + 1) / 2;
-  const bool live = (int)threadIdx.x < kBRG * G;
+  const bool live = (int)threadIdx.x < kG * G;
   const int r0 = live ? (threadIdx.x / G) * 8 : 0;
   const int gc = threadIdx.x % G;
   const bool two = !kRagged || gc + G < runs;
   const int c4[2] = {4 * gc, 4 * (two ? gc + G : gc)};
   float acc[8][8];
-  if (live) idft_bwd_product<kRagged>(da, chain == 0 ? ci : si, WM, r0, c4, acc);
+  if (live) idft_bwd_product<T, S, kRagged>(da, chain == 0 ? ci : si, WM, r0, c4, acc);
   __syncthreads();  // every read of the cotangent tile is done
 
   for (int layer = 2; layer >= 0; --layer) {
     const int gi = 2 * layer + chain;
     if (live) {
-      float* b = bpart + ((long)(blockIdx.x * kBRG + r0 / 8) * 12 + 2 * gi) * d1;
-      glu_bwd_elementwise(acc, r0, c4, two, row0, rows_pad, d1, acts + (2 * gi) * plane,
-                          acts + (2 * gi + 1) * plane, dacts + (2 * gi) * plane,
-                          dacts + (2 * gi + 1) * plane, da, ds, b, b + d1);
+      float* b = bpart + ((long)(blockIdx.x * kG + r0 / 8) * 12 + 2 * gi) * d1;
+      glu_bwd_elementwise<T, S>(acc, r0, c4, two, row0, rows_pad, d1,
+                                acts + (2 * gi) * plane, acts + (2 * gi + 1) * plane,
+                                dacts + (2 * gi) * plane, dacts + (2 * gi + 1) * plane, da,
+                                ds, b, b + d1);
     }
     __syncthreads();
     if (layer > 0) {
-      if (live) glu_bwd_product<8>(da, ds, d1, wt.l[gi], wt.r[gi], d1, r0, c4, acc);
+      if (live) glu_bwd_product<T, S, 8>(da, ds, d1, wt.l[gi], wt.r[gi], d1, r0, c4, acc);
       __syncthreads();  // every read of da, ds is done before they are rewritten
     } else {
       // into the input space: D0 columns, runs of 4
       const int G0 = d0 / 4;
-      for (int t = threadIdx.x; t < kBRG * G0; t += blockDim.x) {
+      for (int t = threadIdx.x; t < kG * G0; t += blockDim.x) {
         const int q0 = (t / G0) * 8;
         const int cx[1] = {4 * (t % G0)};
         float out[8][4];
-        glu_bwd_product<4>(da, ds, d1, wt.l[gi], wt.r[gi], d0, q0, cx, out);
+        glu_bwd_product<T, S, 4>(da, ds, d1, wt.l[gi], wt.r[gi], d0, q0, cx, out);
         float* dst = dxc + chain * rows_pad * d0;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -660,7 +706,8 @@ __global__ void spectral_dx_kernel(const float* __restrict__ dxc, float* __restr
 // bytes), and a row brings 6 float4 for 128 FMAs (0.75 bytes an FMA). Rows
 // come in stages of kWRC by cp.async, two stages in flight while one is
 // summed; u is x (layer 0) or a * s of the GLU before, its product taken as a
-// row is read. The bias gradients, column sums of da and ds, are the rows
+// row is read (and rounded to the operand type T, as the forward rounded it
+// for its product). The bias gradients, column sums of da and ds, are the rows
 // kernel's partials added by `spectral_bias_kernel`.
 
 // floats of GLU gi's block in the flat gradient buffer: wl, bl, wr, br
@@ -675,9 +722,12 @@ constexpr int kWRC = 16;     // rows a stage
 constexpr int kWMaxThreads = 192;
 
 // blockIdx: x = k tile * column tiles + column tile, y = GLU, z = row
-// segment. part: [gridDim.z][total] partial gradients in the flat layout.
+// segment. part: [gridDim.z][total] partial gradients in the flat layout. x
+// of the operand type T (bf16: read through registers, not cp.async, into the
+// f32 stage).
+template <typename T>
 __global__ void __launch_bounds__(kWMaxThreads, 2)
-spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ acts,
+spectral_wgrad_kernel(const T* __restrict__ x, const float* __restrict__ acts,
                       const float* __restrict__ dacts, long plane,
                       float* __restrict__ part, long total, int chunks, int chunks_per_seg,
                       int B, int K, int N, int W, int WM) {
@@ -714,6 +764,10 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
       if (gi < 2) {
         if (row >= rows) {
           *reinterpret_cast<float4*>(du) = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if constexpr (sizeof(T) == 2) {
+          const long b = row / N, n = row % N;
+          for (int q = 0; q < 4; ++q)
+            du[q] = to_f32(x[((b * K + (k + q) / W) * N + n) * W + (k + q) % W]);
         } else if (W % 4 == 0) {  // the run stays in one order's window
           const long b = row / N, n = row % N;
           cp_async16(du, x + ((b * K + k / W) * N + n) * W + k % W);
@@ -776,7 +830,7 @@ spectral_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ act
           float sv[8];
           load8(ss + r * kWK + 8 * kg, sv);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) u[i] = u[i] * sv[i];
+          for (int i = 0; i < 8; ++i) u[i] = round_to<T>(u[i] * sv[i]);
         }
         lds4x2(das + r * cw + 4 * cg, gap, a);
         lds4x2(dss + r * cw + 4 * cg, gap, s);
@@ -861,12 +915,13 @@ __global__ void spectral_reduce_kernel(const float* __restrict__ part,
   grads[i] = acc;
 }
 
-GluWeights glu_weights(const void* const* w) {
-  GluWeights g;
+template <typename T>
+GluWeights<T> glu_weights(const void* const* w) {
+  GluWeights<T> g;
   for (int i = 0; i < 6; ++i) {
-    g.wl[i] = static_cast<const float*>(w[4 * i + 0]);
+    g.wl[i] = static_cast<const T*>(w[4 * i + 0]);
     g.bl[i] = static_cast<const float*>(w[4 * i + 1]);
-    g.wr[i] = static_cast<const float*>(w[4 * i + 2]);
+    g.wr[i] = static_cast<const T*>(w[4 * i + 2]);
     g.br[i] = static_cast<const float*>(w[4 * i + 3]);
   }
   return g;
@@ -879,24 +934,33 @@ long rows_padded(int B, int N) { return ((long)B * N + kWRC - 1) / kWRC * kWRC; 
 long grads_total(int d0, int d1) { return glu_grad_offset(6, d0, d1); }
 
 // The shapes every entry takes, the forward's and the backward's alike: D0
-// and D1 in runs of 4 columns (K = 4 in the model), a block of the rows
-// kernel at most kBWideThreads threads: D1 <= 680.
+// and D1 in runs of 4 columns (K = 4 in the model) and D1 <= kMaxD1 = 2048,
+// where a block of the rows kernel's 8-row tiles holds its two [D1][12]
+// buffers (196,608 bytes) and the chain forward's 8-row tile its 512 threads.
 bool shape_ok(int K, int W, int WM) {
   const int d0 = K * W, d1 = K * WM;
-  return d0 % 4 == 0 && d1 % 4 == 0 && rows_threads(d1) <= kBWideThreads;
+  return d0 % 4 == 0 && d1 % 4 == 0 && d1 <= kMaxD1;
 }
 
 // threads of a chain block of `tile` rows: tile / 8 row groups by D1 / 4
 // column groups, in whole warps
 int chain_threads(int tile, int d1) { return (tile / 8 * (d1 / 4) + 31) / 32 * 32; }
 
-// The chain kernel's row tile: of kFTiles, the one whose blocks (two a tile)
-// give the busiest of `sms` SMs the fewest rows to work through, the earlier
-// on a tie (24 rows at the flagship's 4480, 16 at 800).
-int chain_tile(long rows_pad, int sms) {
-  int best = kFTiles[0];
+// bytes of shared memory of a chain block with kOut: its tile and the other
+// chain's copy
+int chain_smem(int tile, int d1) { return 2 * d1 * (tile + 4) * (int)sizeof(float); }
+
+constexpr int kSmemPerBlock = 232448;  // the most a block can opt in to on sm_90
+
+// The chain kernel's row tile: of the kFTiles whose block fits kFWideThreads
+// threads and a block's shared memory, the one whose blocks (two a tile) give
+// the busiest of `sms` SMs the fewest rows to work through, the earlier on a
+// tie (24 rows at the flagship's 4480, 16 at 800; D1 past 680 leaves 16 or 8).
+int chain_tile(long rows_pad, int sms, int d1) {
+  int best = kFTiles[2];
   long best_rows = LONG_MAX;
   for (int t : kFTiles) {
+    if (chain_threads(t, d1) > kFWideThreads || chain_smem(t, d1) > kSmemPerBlock) continue;
     const long blocks = 2 * ((rows_pad + t - 1) / t);
     const long busiest = (blocks + sms - 1) / sms * t;
     if (busiest < best_rows) {
@@ -909,10 +973,9 @@ int chain_tile(long rows_pad, int sms) {
 
 // The chain kernel on the padded rows: with kOut in clusters of 2 (the two
 // chains of a row tile) writing out; with kSave writing acts.
-template <bool kSave, bool kOut>
-int chain_launch(const float* x, const GluWeights& gw, const float* ci, const float* si,
-                 float* out, float* acts, int B, int K, int N, int W, int WM,
-                 cudaStream_t st) {
+template <typename T, bool kSave, bool kOut>
+int chain_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T* si, float* out,
+                 float* acts, int B, int K, int N, int W, int WM, cudaStream_t st) {
   if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -920,18 +983,18 @@ int chain_launch(const float* x, const GluWeights& gw, const float* ci, const fl
   if (err != cudaSuccess) return (int)err;
   const int d1 = K * WM;
   const long rows_pad = rows_padded(B, N);
-  const int tile = chain_tile(rows_pad, sms);
+  const int tile = chain_tile(rows_pad, sms, d1);
   const int threads = chain_threads(tile, d1);
   const bool ragged = WM % 4 != 0;
   const auto kernel =
       threads <= kFMaxThreads
-          ? (ragged ? spectral_chain_kernel<kFMaxThreads, kSave, kOut, true>
-                    : spectral_chain_kernel<kFMaxThreads, kSave, kOut, false>)
+          ? (ragged ? spectral_chain_kernel<T, kFMaxThreads, kSave, kOut, true>
+                    : spectral_chain_kernel<T, kFMaxThreads, kSave, kOut, false>)
       : threads <= kFMidThreads
-          ? (ragged ? spectral_chain_kernel<kFMidThreads, kSave, kOut, true>
-                    : spectral_chain_kernel<kFMidThreads, kSave, kOut, false>)
-          : (ragged ? spectral_chain_kernel<kFWideThreads, kSave, kOut, true>
-                    : spectral_chain_kernel<kFWideThreads, kSave, kOut, false>);
+          ? (ragged ? spectral_chain_kernel<T, kFMidThreads, kSave, kOut, true>
+                    : spectral_chain_kernel<T, kFMidThreads, kSave, kOut, false>)
+          : (ragged ? spectral_chain_kernel<T, kFWideThreads, kSave, kOut, true>
+                    : spectral_chain_kernel<T, kFWideThreads, kSave, kOut, false>);
   const int smem = (kOut ? 2 : 1) * d1 * (tile + 4) * (int)sizeof(float);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -960,8 +1023,17 @@ int chain_launch(const float* x, const GluWeights& gw, const float* ci, const fl
 extern "C" int spectral_fwd(const float* x, const void* const* w, const float* ci,
                             const float* si, float* out, int B, int K, int N, int W,
                             int WM, void* stream) {
-  return chain_launch<false, true>(x, glu_weights(w), ci, si, out, nullptr, B, K, N, W, WM,
-                                   (cudaStream_t)stream);
+  return chain_launch<float, false, true>(x, glu_weights<float>(w), ci, si, out, nullptr, B,
+                                          K, N, W, WM, (cudaStream_t)stream);
+}
+
+// The bf16 arm: x, ci, si and the 2-D weights (wl, wr) bf16; biases and out
+// f32.
+extern "C" int spectral_fwd_bf16(const bf16* x, const void* const* w, const bf16* ci,
+                                 const bf16* si, float* out, int B, int K, int N, int W,
+                                 int WM, void* stream) {
+  return chain_launch<bf16, false, true>(x, glu_weights<bf16>(w), ci, si, out, nullptr, B,
+                                         K, N, W, WM, (cudaStream_t)stream);
 }
 
 // Floats of the 12 saved arrays (a0, s0, ..., a5, s5), each [padded rows, D1].
@@ -974,8 +1046,16 @@ extern "C" long long spectral_act_floats(int B, int K, int N, int WM) {
 extern "C" int spectral_fwd_save(const float* x, const void* const* w, const float* ci,
                                  const float* si, float* out, float* acts, int B, int K,
                                  int N, int W, int WM, void* stream) {
-  return chain_launch<true, true>(x, glu_weights(w), ci, si, out, acts, B, K, N, W, WM,
-                                  (cudaStream_t)stream);
+  return chain_launch<float, true, true>(x, glu_weights<float>(w), ci, si, out, acts, B, K,
+                                         N, W, WM, (cudaStream_t)stream);
+}
+
+// The bf16 arm of spectral_fwd_save: operands as spectral_fwd_bf16's, acts f32.
+extern "C" int spectral_fwd_save_bf16(const bf16* x, const void* const* w, const bf16* ci,
+                                      const bf16* si, float* out, float* acts, int B, int K,
+                                      int N, int W, int WM, void* stream) {
+  return chain_launch<bf16, true, true>(x, glu_weights<bf16>(w), ci, si, out, acts, B, K,
+                                        N, W, WM, (cudaStream_t)stream);
 }
 
 // Floats of the flat gradient buffer: per GLU wl [Din, D1], bl [D1], wr, br.
@@ -987,67 +1067,82 @@ namespace {
 
 // Partial column sums the rows kernel leaves for the bias gradients: one per
 // 8 rows of its tiles, each [12][D1].
-long bias_parts(int B, int N) { return (rows_padded(B, N) + kBR - 1) / kBR * kBRG; }
+long bias_parts(int B, int N, int d1) {
+  const int tile = rows_tile(d1);
+  return (rows_padded(B, N) + tile - 1) / tile * (tile / 8);
+}
 
 // Floats of the backward's scratch without the saved arrays: da, ds of six
-// GLUs for the padded rows, the transposed weights, the two chains' parts of
-// dx, the bias partials, nsplit partial gradients.
+// GLUs for the padded rows, the transposed weights (f32-sized for either
+// arm), the two chains' parts of dx, the bias partials, nsplit partial
+// gradients.
 long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit) {
   const long d0 = K * W, d1 = K * WM;
   return 12 * rows_padded(B, N) * d1 + 4 * d0 * d1 + 8 * d1 * d1 +
-         2 * rows_padded(B, N) * d0 + bias_parts(B, N) * 12 * d1 +
+         2 * rows_padded(B, N) * d0 + bias_parts(B, N, (int)d1) * 12 * d1 +
          (long)nsplit * grads_total(d0, d1);
+}
+
+// The rows kernel for D1 and the arm: the tile (24 rows, or 8 past D1 =
+// 680), the block size and the ragged code only where the shape needs them.
+template <typename T>
+auto rows_kernel_for(int d1, int WM) {
+  const bool ragged = WM % 4 != 0 || d1 / 4 % 2 != 0;
+  if (rows_tile(d1) == kBRN)
+    return ragged ? spectral_bwd_rows_kernel<T, kBRN, kBWideThreads, true>
+                  : spectral_bwd_rows_kernel<T, kBRN, kBWideThreads, false>;
+  return rows_threads(d1, kBR) <= kBMaxThreads
+             ? (ragged ? spectral_bwd_rows_kernel<T, kBR, kBMaxThreads, true>
+                       : spectral_bwd_rows_kernel<T, kBR, kBMaxThreads, false>)
+             : (ragged ? spectral_bwd_rows_kernel<T, kBR, kBWideThreads, true>
+                       : spectral_bwd_rows_kernel<T, kBR, kBWideThreads, false>);
 }
 
 // Steps 1 to 5 of the backward. saved: the forward's 12 arrays, or nullptr to
 // recompute them (step 2) into the head of ws.
-int bwd_launch(const float* x, const float* g, const void* const* w, const float* ci,
-               const float* si, float* dx, float* grads, const float* saved, float* ws,
-               int B, int K, int N, int W, int WM, int nsplit, cudaStream_t st) {
+template <typename T>
+int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const T* si,
+               float* dx, float* grads, const float* saved, float* ws, int B, int K, int N,
+               int W, int WM, int nsplit, cudaStream_t st) {
   if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
   const int d0 = K * W, d1 = K * WM;
   const long rows_pad = rows_padded(B, N);
   const long plane = rows_pad * d1;
   const long total = grads_total(d0, d1);
-  const GluWeights gw = glu_weights(w);
+  const GluWeights<T> gw = glu_weights<T>(w);
   cudaError_t err;
 
   const float* acts = saved;
   if (saved == nullptr) {
-    err = (cudaError_t)chain_launch<true, false>(x, gw, ci, si, nullptr, ws, B, K, N, W, WM,
-                                                 st);
+    err = (cudaError_t)chain_launch<T, true, false>(x, gw, ci, si, nullptr, ws, B, K, N, W,
+                                                    WM, st);
     if (err != cudaSuccess) return (int)err;
     acts = ws;
     ws += 12 * plane;
   }
   float* dacts = ws;
-  float* wT = dacts + 12 * plane;
-  float* dxc = wT + 4L * d0 * d1 + 8L * d1 * d1;
+  T* wT = reinterpret_cast<T*>(dacts + 12 * plane);
+  float* dxc = dacts + 12 * plane + 4L * d0 * d1 + 8L * d1 * d1;
   float* bpart = dxc + 2 * rows_pad * d0;
-  float* part = bpart + bias_parts(B, N) * 12 * d1;
+  float* part = bpart + bias_parts(B, N, d1) * 12 * d1;
 
-  spectral_transpose_kernel<<<dim3((d1 * d1 + 255) / 256, 12), 256, 0, st>>>(gw, wT, d0,
-                                                                            d1);
+  spectral_transpose_kernel<T><<<dim3((d1 * d1 + 255) / 256, 12), 256, 0, st>>>(gw, wT, d0,
+                                                                               d1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  TransposedWeights wt;
+  TransposedWeights<T> wt;
   for (int m = 0; m < 12; ++m) {
-    const float* p = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
+    const T* p = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
     if (m % 2 == 0) wt.l[m / 2] = p; else wt.r[m / 2] = p;
   }
-  const int smem_b = 2 * d1 * kBRS * (int)sizeof(float);
-  const int threads_b = rows_threads(d1);
-  const bool ragged = WM % 4 != 0 || d1 / 4 % 2 != 0;
-  const auto rows_kernel =
-      threads_b <= kBMaxThreads
-          ? (ragged ? spectral_bwd_rows_kernel<kBMaxThreads, true>
-                    : spectral_bwd_rows_kernel<kBMaxThreads, false>)
-          : (ragged ? spectral_bwd_rows_kernel<kBWideThreads, true>
-                    : spectral_bwd_rows_kernel<kBWideThreads, false>);
+  const int tile_b = rows_tile(d1);
+  const int smem_b = 2 * d1 * rows_stride(tile_b) * (int)sizeof(float);
+  const int threads_b = rows_threads(d1, tile_b);
+  const auto rows_kernel = rows_kernel_for<T>(d1, WM);
   err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_b);
   if (err != cudaSuccess) return (int)err;
-  rows_kernel<<<dim3((int)((rows_pad + kBR - 1) / kBR), 2), threads_b, smem_b, st>>>(
+  rows_kernel<<<dim3((int)((rows_pad + tile_b - 1) / tile_b), 2), threads_b, smem_b, st>>>(
       g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart, B, K, N, W, WM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long nx = (long)B * K * N * W;
@@ -1058,12 +1153,12 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
   const int chunks_per_seg = (chunks + nsplit - 1) / nsplit;
   const int cw = std::min(d1, kWC), ctiles = (d1 + kWC - 1) / kWC;
   const int smem_w = 3 * kWRC * (2 * kWK + 2 * cw) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(spectral_wgrad_kernel,
+  err = cudaFuncSetAttribute(spectral_wgrad_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_w);
   if (err != cudaSuccess) return (int)err;
   const int threads_w = ((kWK / 8) * ((cw / 4 + 1) / 2) + 31) / 32 * 32;
-  spectral_wgrad_kernel<<<dim3((d1 + kWK - 1) / kWK * ctiles, 6, nsplit), threads_w, smem_w,
-                          st>>>(
+  spectral_wgrad_kernel<T><<<dim3((d1 + kWK - 1) / kWK * ctiles, 6, nsplit), threads_w,
+                             smem_w, st>>>(
       x, acts, dacts, plane, part, total, chunks, chunks_per_seg, B, K, N, W, WM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -1071,14 +1166,14 @@ int bwd_launch(const float* x, const float* g, const void* const* w, const float
                                                                      nsplit, d0, d1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   spectral_bias_kernel<<<dim3(12, (d1 + 31) / 32), dim3(32, kBiasLanes), 0, st>>>(
-      bpart, grads, (int)bias_parts(B, N), d0, d1);
+      bpart, grads, (int)bias_parts(B, N, d1), d0, d1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Floats of the scratch `spectral_bwd` needs: a, s of six GLUs for the padded
-// rows and the backward's scratch.
+// rows and the backward's scratch (either arm).
 extern "C" long long spectral_bwd_workspace_floats(int B, int K, int N, int W, int WM,
                                                    int nsplit) {
   return 12 * rows_padded(B, N) * (long)K * WM + bwd_scratch_floats(B, K, N, W, WM, nsplit);
@@ -1097,8 +1192,17 @@ extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w
                             const float* ci, const float* si, float* dx, float* grads,
                             float* ws, int B, int K, int N, int W, int WM, int nsplit,
                             void* stream) {
-  return bwd_launch(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit,
-                    (cudaStream_t)stream);
+  return bwd_launch<float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit,
+                           (cudaStream_t)stream);
+}
+
+// The bf16 arm: x, g, ci, si and the 2-D weights bf16; dx and grads f32.
+extern "C" int spectral_bwd_bf16(const bf16* x, const bf16* g, const void* const* w,
+                                 const bf16* ci, const bf16* si, float* dx, float* grads,
+                                 float* ws, int B, int K, int N, int W, int WM, int nsplit,
+                                 void* stream) {
+  return bwd_launch<bf16>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit,
+                          (cudaStream_t)stream);
 }
 
 // spectral_bwd on the arrays spectral_fwd_save wrote (acts), without the
@@ -1107,6 +1211,15 @@ extern "C" int spectral_bwd_reread(const float* x, const float* g, const void* c
                                    const float* ci, const float* si, const float* acts,
                                    float* dx, float* grads, float* ws, int B, int K, int N,
                                    int W, int WM, int nsplit, void* stream) {
-  return bwd_launch(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit,
-                    (cudaStream_t)stream);
+  return bwd_launch<float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit,
+                           (cudaStream_t)stream);
+}
+
+// The bf16 arm of spectral_bwd_reread on what spectral_fwd_save_bf16 wrote.
+extern "C" int spectral_bwd_reread_bf16(const bf16* x, const bf16* g, const void* const* w,
+                                        const bf16* ci, const bf16* si, const float* acts,
+                                        float* dx, float* grads, float* ws, int B, int K,
+                                        int N, int W, int WM, int nsplit, void* stream) {
+  return bwd_launch<bf16>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit,
+                          (cudaStream_t)stream);
 }

@@ -16,7 +16,10 @@ Architecture (reference base_model.py; stemgnn_tpu/models/stemgnn.py):
 
 The four hot ops go through `stemgnn_tpu_torch.ops`, whose wrappers launch
 the CUDA kernels on CUDA tensors and run the plain twins on CPU tensors;
-under autograd their backward kernels run the same way.
+under autograd their backward kernels run the same way. `compute_dtype`
+("float32" or "bfloat16", the JAX package's `precision`) goes to the graph
+conv and the spectral cell, the two ops whose kernels have a bf16 arm;
+everything else stays f32.
 Parameters are a nested dict of tensors in the JAX package's layout.
 Only the dense single-device path is here, eval and training: the sparse,
 segmented and ring branches are not.
@@ -65,13 +68,16 @@ def latent_correlation_layer(params, cfg: StemGNNConfig, x, *, training: bool = 
     return ops.laplacian_from_attention(att)
 
 
-def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int):
+def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int,
+                  compute_dtype: str = "float32"):
     """One StockBlockLayer (base_model.py:61-75).
 
     x: [B, N, W]. Returns (forecast [B,N,W], backcast [B,N,W] or None).
     """
-    gfted = ops.cheb_graph_conv(mul_L.contiguous(), x.contiguous())  # [B,4,N,W]
-    gconv = ops.spe_seq_cell(gfted, block["glu"], cfg.multi_layer)  # [B,4,N,Wm]
+    gfted = ops.cheb_graph_conv(mul_L.contiguous(), x.contiguous(),
+                                compute_dtype=compute_dtype)  # [B,4,N,W]
+    gconv = ops.spe_seq_cell(gfted, block["glu"], cfg.multi_layer,
+                             compute_dtype=compute_dtype)  # [B,4,N,Wm]
     igfted = ops.order_contract(gconv, block["weight"])  # [B, N, Wm]
     forecast_source = torch.sigmoid(ops.dense(igfted, block["forecast"]))
     forecast = ops.dense(forecast_source, block["forecast_result"])  # [B, N, W]
@@ -83,13 +89,14 @@ def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int):
 
 
 def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
-            dropout_generator=None, dropout_mask=None):
+            dropout_generator=None, dropout_mask=None, compute_dtype: str = "float32"):
     """Model.forward (base_model.py:167-179).
 
     x: [B, W, N] on the device of the params. Returns
     (forecast [B, horizon, N], attention [N, N]). With `training`, dropout on
     the attention: `dropout_mask` ([B,N,N] bool, True keeps) or a mask drawn
-    from `dropout_generator`, a torch.Generator on x's device.
+    from `dropout_generator`, a torch.Generator on x's device. `compute_dtype`:
+    the graph conv's and the spectral cell's operands.
     """
     mul_L, attention = latent_correlation_layer(
         params, cfg, x, training=training, dropout_generator=dropout_generator,
@@ -97,7 +104,8 @@ def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
     feat = x.permute(0, 2, 1)  # [B, N, W]
     forecasts = []
     for i in range(cfg.stack_cnt):
-        f, feat_next = block_forward(params["blocks"][i], cfg, feat, mul_L, i)
+        f, feat_next = block_forward(params["blocks"][i], cfg, feat, mul_L, i,
+                                     compute_dtype)
         forecasts.append(f)
         if feat_next is not None:
             feat = feat_next
@@ -127,6 +135,7 @@ class StemGNN(nn.Module):
         return unflatten_params(dict(self.flat.items()))
 
     def forward(self, x, training: bool = False, dropout_generator=None,
-                dropout_mask=None):
+                dropout_mask=None, compute_dtype: str = "float32"):
         return forward(self.params(), self.cfg, x, training=training,
-                       dropout_generator=dropout_generator, dropout_mask=dropout_mask)
+                       dropout_generator=dropout_generator, dropout_mask=dropout_mask,
+                       compute_dtype=compute_dtype)

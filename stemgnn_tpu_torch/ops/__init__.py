@@ -8,7 +8,9 @@ forward wrapper goes through its `torch.autograd.Function`, whose backward
 calls the backward wrapper (graph conv: plain PyTorch, as in the JAX package).
 
 Each wrapper counts its launches in `<wrapper>.launches`; `KERNELS` maps a
-kernel's name to its wrapper so a run can reset and read the counts. Launches
+kernel's name to its wrapper so a run can reset and read the counts. The bf16
+arms of the graph conv and the spectral kernels (compute_dtype "bfloat16")
+count on functions of their own, under names ending in `_bf16`. Launches
 made by replaying a captured CUDA graph are counted apart (`replayed`).
 """
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 import contextlib
 
 from stemgnn_tpu_torch.ops.cuda_attention import attention_kq, attention_kq_bwd
-from stemgnn_tpu_torch.ops.cuda_graph import cheb_graph_conv
+from stemgnn_tpu_torch.ops.cuda_graph import cheb_graph_conv, cheb_graph_conv_bf16
 from stemgnn_tpu_torch.ops.cuda_gru import (
     gru_bwd_one_block,
     gru_fwd_one_block,
@@ -26,9 +28,13 @@ from stemgnn_tpu_torch.ops.cuda_gru import (
 )
 from stemgnn_tpu_torch.ops.cuda_spectral import (
     spe_seq_cell,
+    spe_seq_cell_bf16,
     spe_seq_cell_bwd,
+    spe_seq_cell_bwd_bf16,
     spe_seq_cell_bwd_reread,
+    spe_seq_cell_bwd_reread_bf16,
     spe_seq_cell_save,
+    spe_seq_cell_save_bf16,
 )
 from stemgnn_tpu_torch.ops.torch_impl import (  # noqa: F401
     dense,
@@ -48,6 +54,12 @@ KERNELS = {
     "spectral_bwd": spe_seq_cell_bwd,
     "spectral_fwd_save": spe_seq_cell_save,
     "spectral_bwd_reread": spe_seq_cell_bwd_reread,
+    # the bf16 arms (compute_dtype "bfloat16")
+    "cheb_graph_conv_fwd_bf16": cheb_graph_conv_bf16,
+    "spectral_fwd_bf16": spe_seq_cell_bf16,
+    "spectral_fwd_save_bf16": spe_seq_cell_save_bf16,
+    "spectral_bwd_bf16": spe_seq_cell_bwd_bf16,
+    "spectral_bwd_reread_bf16": spe_seq_cell_bwd_reread_bf16,
 }
 
 # launches made by replays of captured CUDA graphs: a replay runs the kernels

@@ -106,6 +106,17 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def bf16_arm(fn, doc: str):
+    """A function that calls the wrapper `fn` at compute_dtype "bfloat16" and
+    holds the launch count of the bf16 arm of fn's kernel (`fn` counts its
+    f32 arm's)."""
+    def arm(*args):
+        return fn(*args, compute_dtype="bfloat16")
+
+    arm.__name__, arm.__doc__, arm.launches = fn.__name__ + "_bf16", doc, 0
+    return arm
+
+
 def require_cuda(name: str, *tensors) -> None:
     """Raise unless every tensor is a contiguous float32 tensor on one card."""
     for t in tensors:

@@ -14,6 +14,12 @@ backward is plain PyTorch (two einsums), because the JAX package's is the
 VJP of the jnp twin and not a kernel either. On a CPU tensor the wrapper
 runs the plain version, `cheb_graph_conv_plain`; on a CUDA tensor it
 launches the kernel or raises.
+
+With compute_dtype "bfloat16" the wrapper casts mul_L and x to bf16 and
+launches the kernel's bf16 arm (the JAX package's `_forward` casts them so
+before its kernel): bf16 operands, f32 sums and output, counted as
+`cheb_graph_conv_bf16`. The backward stays the f32 einsums of the f32 inputs,
+as the JAX package's VJP of its twin is.
 """
 
 from __future__ import annotations
@@ -58,78 +64,91 @@ class GraphPlan(NamedTuple):
                     yield (k, *tile)
 
 
-def _smem(panel: int, w: int) -> int:
-    return 4 * (ROW_TILE * panel + BATCH_TILE * (panel * w + 4))
+def _pad(esize: int) -> int:
+    """Elements past a batch's panel of x: room for a ragged last read, and a
+    whole number of 16-byte pieces."""
+    return 16 // esize
 
 
-def launch_plan(k: int, n: int, b: int, w: int) -> GraphPlan:
-    """The forward's tiling for mul_L [k,n,n], x [b,n,w]; needs no card."""
+def _smem(panel: int, w: int, esize: int = 4) -> int:
+    return esize * (ROW_TILE * panel + BATCH_TILE * (panel * w + _pad(esize)))
+
+
+def launch_plan(k: int, n: int, b: int, w: int, esize: int = 4) -> GraphPlan:
+    """The forward's tiling for mul_L [k,n,n], x [b,n,w] of `esize`-byte
+    operands (4: the f32 arm, 2: the bf16 arm); needs no card."""
     panel = -(-n // 8) * 8
-    if _smem(panel, w) > SMEM_PER_BLOCK:
+    if _smem(panel, w, esize) > SMEM_PER_BLOCK:
         # the most rows of x that fit beside their columns of L
         panel = (SMEM_PER_BLOCK - 16 * BATCH_TILE) // (
-            4 * (ROW_TILE + BATCH_TILE * w)) // 8 * 8
+            esize * (ROW_TILE + BATCH_TILE * w)) // 8 * 8
         if panel < 8:
             raise ValueError(f"cheb_graph_conv: window {w} leaves no room in shared "
                              "memory for eight rows of x")
     return GraphPlan(
         grid=(-(-b // BATCH_TILE), -(-n // ROW_TILE), max(k - 1, 1)), panel=panel,
-        row_stride=panel, batch_stride=panel * w + 4,
+        row_stride=panel, batch_stride=panel * w + _pad(esize),
         threads=ROW_TILE * BATCH_TILE * min(-(-w // 4), MAX_CHUNKS),
-        smem=_smem(panel, w), vec=w % 4 == 0, orders=k)
+        smem=_smem(panel, w, esize), vec=w % 4 == 0, orders=k)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @functools.cache
-def _fn():
-    fn = _build.library("graph").cheb_graph_conv_fwd
+def _fn(name: str = "cheb_graph_conv_fwd"):
+    fn = getattr(_build.library("graph"), name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_fwd(mul_L, x):
+def _launch_fwd(mul_L, x, compute_dtype: str = "float32"):
     _build.require_cuda("cheb_graph_conv", mul_L, x)
     k, n, _ = mul_L.shape
     b, nx, w = x.shape
     if mul_L.shape != (k, n, n) or nx != n:
         raise ValueError(
             f"cheb_graph_conv: mul_L {tuple(mul_L.shape)} vs x {tuple(x.shape)}")
+    dtype = torch_impl.operand_dtype(compute_dtype)
+    bf16 = dtype == torch.bfloat16
+    mul_L, x = mul_L.to(dtype), x.to(dtype)
     out = torch.empty((b, k, n, w), dtype=torch.float32, device=x.device)
-    plan = launch_plan(k, n, b, w)
+    plan = launch_plan(k, n, b, w, x.element_size())
     vec = plan.vec and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    rc = _fn()(mul_L.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, b, w,
-               plan.panel, plan.row_stride, plan.batch_stride, plan.threads, plan.smem,
-               int(vec), _build.stream_ptr(x))
+    rc = _fn("cheb_graph_conv_fwd_bf16" if bf16 else "cheb_graph_conv_fwd")(
+        mul_L.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, b, w, plan.panel,
+        plan.row_stride, plan.batch_stride, plan.threads, plan.smem, int(vec),
+        _build.stream_ptr(x))
     _build.check(rc, "cheb_graph_conv")
-    cheb_graph_conv.launches += 1
+    (cheb_graph_conv_bf16 if bf16 else cheb_graph_conv).launches += 1
     return out
 
 
 class _ChebGraphConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mul_L, x):
+    def forward(ctx, mul_L, x, compute_dtype):
         ctx.save_for_backward(mul_L, x)
         if x.device.type == "cpu":
-            return cheb_graph_conv_plain(mul_L, x)
-        return _launch_fwd(mul_L, x)
+            return cheb_graph_conv_plain(mul_L, x, compute_dtype)
+        return _launch_fwd(mul_L, x, compute_dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         mul_L, x = ctx.saved_tensors
-        return torch_impl.cheb_graph_conv_bwd(mul_L, x, g)
+        return (*torch_impl.cheb_graph_conv_bwd(mul_L, x, g), None)
 
 
-def cheb_graph_conv(mul_L, x):
-    """mul_L [K,N,N] (mul_L[0] == 0, the reference's T0), x [B,N,W]."""
+def cheb_graph_conv(mul_L, x, compute_dtype: str = "float32"):
+    """mul_L [K,N,N] (mul_L[0] == 0, the reference's T0), x [B,N,W], both f32;
+    compute_dtype "float32" or "bfloat16" (the forward's operands)."""
     if _build.needs_grad(mul_L, x):
-        return _ChebGraphConv.apply(mul_L, x)
+        return _ChebGraphConv.apply(mul_L, x, compute_dtype)
     if x.device.type == "cpu":
-        return cheb_graph_conv_plain(mul_L, x)
-    return _launch_fwd(mul_L, x)
+        return cheb_graph_conv_plain(mul_L, x, compute_dtype)
+    return _launch_fwd(mul_L, x, compute_dtype)
 
 
 cheb_graph_conv.launches = 0
+cheb_graph_conv_bf16 = _build.bf16_arm(cheb_graph_conv, "cheb_graph_conv at bfloat16")

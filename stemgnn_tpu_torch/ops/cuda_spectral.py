@@ -21,10 +21,18 @@ pair its capture launched, whatever the switch says at a replay. The switch
 is on by default: on the H100 the pair is the faster one in the train step
 (PERF.md has the A/B); the JAX package, on its TPU, keeps it off.
 
+Every entry takes `compute_dtype`, the JAX package's precision policy. At
+"bfloat16" the wrappers fold the DFT in f32 and then cast x, the 2-D GLU
+weights and the inverse DFT's block to bf16 (the cotangent too, for a
+backward), as `_forward` and `_backward` cast them before their kernels, and
+launch the kernels' bf16 arms; biases, outputs and the 12 saved arrays stay
+f32. Each bf16 arm counts its launches on a function of its own
+(`spe_seq_cell_bf16` and the like), so the counts tell the arms apart.
+
 On CPU tensors the wrappers run the plain versions (`spe_seq_cell_plain`, a
-full FFT, `spe_seq_cell_bwd_plain`, `spe_seq_cell_save_plain`,
-`spe_seq_cell_bwd_reread_plain`); on CUDA tensors they launch the kernels or
-raise.
+full FFT at f32, `spe_seq_cell_bwd_plain`, `spe_seq_cell_save_plain`,
+`spe_seq_cell_bwd_reread_plain`, each with the same compute_dtype); on CUDA
+tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -49,11 +57,13 @@ SAVE_ACTS_BWD = True
 
 
 @functools.lru_cache(maxsize=16)
-def _dft_on(w: int, k: int, wm: int, device: torch.device):
-    """Block-diagonal Cf, Sf for the fold, and one [wm, wm] block of Ci, Si
-    for the kernel (every order's block is the same), float32 on `device`."""
+def _dft_on(w: int, k: int, wm: int, device: torch.device, dtype=torch.float32):
+    """Block-diagonal Cf, Sf for the fold (float32), and one [wm, wm] block of
+    Ci, Si for the kernel (every order's block is the same) in `dtype`, the
+    kernel's operand type, on `device`."""
     cf, sf, ci, si = torch_impl._dft_tensors(w, k, wm, device, torch.float32)
-    return cf, sf, ci[:wm, :wm].contiguous(), si[:wm, :wm].contiguous()
+    return (cf, sf, ci[:wm, :wm].contiguous().to(dtype),
+            si[:wm, :wm].contiguous().to(dtype))
 
 
 def _aligned(t):
@@ -62,18 +72,30 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def folded_weights(glu_params, cf, sf):
+def folded_weights(glu_params, cf, sf, dtype=torch.float32):
     """The 24 GLU tensors in kernel order (wl, bl, wr, br per GLU), with
     the forward DFT folded into GLU 0 (real chain, Cf) and GLU 1 (imag
-    chain, Sf): (x @ C) @ W == x @ (C @ W), no bias on the DFT."""
+    chain, Sf): (x @ C) @ W == x @ (C @ W), no bias on the DFT. The fold is
+    f32; then the 2-D weights are cast to `dtype`, the kernel's operand type
+    (the biases stay f32)."""
     out = []
     for i, p in enumerate(glu_params):
         wl, wr = p["left"]["w"], p["right"]["w"]
         if i < 2:
             dft = cf if i == 0 else sf
             wl, wr = torch.matmul(dft, wl), torch.matmul(dft, wr)
-        out.extend(_aligned(t) for t in (wl, p["left"]["b"], wr, p["right"]["b"]))
+        out.extend(_aligned(t) for t in (wl.to(dtype), p["left"]["b"], wr.to(dtype),
+                                         p["right"]["b"]))
     return out
+
+
+def _card_operands(x, glu_params, multi: int, compute_dtype: str):
+    """(x, the 24 folded GLU tensors, ci, si) as the kernels of `compute_dtype`
+    read them, on x's card."""
+    b, k, n, w = x.shape
+    dtype = torch_impl.operand_dtype(compute_dtype)
+    cf, sf, ci, si = _dft_on(w, k, w * multi, x.device, dtype)
+    return x.to(dtype), folded_weights(glu_params, cf, sf, dtype), ci, si
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -84,6 +106,12 @@ _SIGNATURES = {
     "spectral_act_floats": ([_I] * 4, ctypes.c_longlong),
     "spectral_bwd": ([_P, _P, _PP] + [_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
     "spectral_bwd_reread": ([_P, _P, _PP] + [_P] * 6 + [_I] * 6 + [_P], ctypes.c_int),
+    # the bf16 arms take the same arguments
+    "spectral_fwd_bf16": ([_P, _PP, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_fwd_save_bf16": ([_P, _PP, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
+    "spectral_bwd_reread_bf16": ([_P, _P, _PP] + [_P] * 6 + [_I] * 6 + [_P],
+                                 ctypes.c_int),
     "spectral_bwd_grad_floats": ([_I] * 3, ctypes.c_longlong),
     "spectral_bwd_workspace_floats": ([_I] * 6, ctypes.c_longlong),
     "spectral_bwd_reread_workspace_floats": ([_I] * 6, ctypes.c_longlong),
@@ -107,61 +135,80 @@ def _check(rc: int, name: str, k: int, w: int, wm: int) -> None:
     if rc == 1:
         raise RuntimeError(
             f"{name}: the kernels refused K*W = {k * w}, K*W*multi = {k * wm} "
-            "(csrc/spectral.cu shape_ok: multiples of 4, K*W*multi at most 680)")
+            "(csrc/spectral.cu shape_ok: multiples of 4, K*W*multi at most 2048)")
     _build.check(rc, name)
 
 
-def _check_weights(name, weights, k, w, wm):
+def _check_operands(name, x, weights, ci, si, k, w, wm, *f32):
+    """x, the 2-D weights, ci and si of one operand type (f32 or bf16), the
+    biases and `f32` float32, all contiguous on one card; the weights' shapes."""
+    dtype = x.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: operands of {dtype}, expected float32 or bfloat16")
+    _build.require_cuda(name, *weights[1::2], *f32)
+    for i, t in enumerate([x, ci, si, *weights[0::2]]):
+        if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: operand {i} is a {t.dtype} tensor on {t.device} "
+                             f"(contiguous: {t.is_contiguous()}), expected a contiguous "
+                             f"{dtype} tensor on {x.device}")
     for i, t in enumerate(weights):
         d_in = k * w if i < 8 else k * wm
         want = (d_in, k * wm) if i % 2 == 0 else (k * wm,)
         if tuple(t.shape) != want:
             raise ValueError(f"{name}: GLU tensor {i} is {tuple(t.shape)}, "
                              f"expected {want}")
+    if weights[1].device != x.device:
+        raise ValueError(f"{name}: tensors on {x.device} and {weights[1].device}")
 
 
 def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
     """x [B,K,N,W] and the 24 folded GLU tensors -> [B,K,N,W*multi]; with
-    `save`, (out, acts [12, padded rows, K*W*multi]) from the saving forward."""
+    `save`, (out, acts [12, padded rows, K*W*multi]) from the saving forward.
+    Operands of bf16 (x, the 2-D weights, ci, si) launch the bf16 arm."""
     b, k, n, w = x.shape
     wm = w * multi
     name = "spe_seq_cell_save" if save else "spe_seq_cell"
-    _build.require_cuda(name, x, ci, si, *weights)
-    _check_weights(name, weights, k, w, wm)
+    _check_operands(name, x, weights, ci, si, k, w, wm)
+    bf16 = x.dtype == torch.bfloat16
+    arm = "_bf16" if bf16 else ""
     out = torch.empty((b, k, n, wm), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
     if not save:
-        rc = _fn("spectral_fwd")(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
-                                 out.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
+        rc = _fn("spectral_fwd" + arm)(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+                                       out.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
         _check(rc, name, k, w, wm)
-        spe_seq_cell.launches += 1
+        (spe_seq_cell_bf16 if bf16 else spe_seq_cell).launches += 1
         return out
     acts = torch.empty(_fn("spectral_act_floats")(b, k, n, wm), dtype=torch.float32,
                        device=x.device).view(12, -1, k * wm)
-    rc = _fn("spectral_fwd_save")(
+    rc = _fn("spectral_fwd_save" + arm)(
         x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
         acts.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
     _check(rc, name, k, w, wm)
-    spe_seq_cell_save.launches += 1
+    (spe_seq_cell_save_bf16 if bf16 else spe_seq_cell_save).launches += 1
     return out, acts
 
 
 def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
-    """-> (dx like x, the 24 gradients in kernel order as views of one flat
-    buffer, those of GLU 0 and 1 in folded space). With `acts` (what the saving
-    forward wrote) the reread entry runs, else the recompute entry."""
+    """-> (dx [B,K,N,W] f32, the 24 gradients in kernel order as views of one
+    flat buffer, those of GLU 0 and 1 in folded space). With `acts` (what the
+    saving forward wrote) the reread entry runs, else the recompute entry; g
+    of the operands' type, bf16 operands launch the bf16 arm."""
     b, k, n, w = x.shape
     wm = w * multi
     reread = acts is not None
     name = "spe_seq_cell_bwd_reread" if reread else "spe_seq_cell_bwd"
-    _build.require_cuda(name, x, g, ci, si, *weights, *([acts] if reread else []))
-    _check_weights(name, weights, k, w, wm)
-    if g.shape != (b, k, n, wm):
-        raise ValueError(f"{name}: g {tuple(g.shape)}, x {tuple(x.shape)}")
+    _check_operands(name, x, weights, ci, si, k, w, wm, *([acts] if reread else []))
+    if g.shape != (b, k, n, wm) or g.dtype != x.dtype or g.device != x.device \
+            or not g.is_contiguous():
+        raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype}, x {tuple(x.shape)} "
+                         f"{x.dtype}")
     if reread and acts.numel() != _fn("spectral_act_floats")(b, k, n, wm):
         raise ValueError(f"{name}: acts {tuple(acts.shape)} are not the saving "
                          f"forward's for x {tuple(x.shape)}")
-    dx = torch.empty_like(x)
+    bf16 = x.dtype == torch.bfloat16
+    arm = "_bf16" if bf16 else ""
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     grads = torch.empty(_fn("spectral_bwd_grad_floats")(k, w, wm),
                         dtype=torch.float32, device=x.device)
     ws_floats = _fn("spectral_bwd_reread_workspace_floats" if reread
@@ -172,13 +219,13 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     tail = (dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, N_SPLIT,
             _build.stream_ptr(x))
     if reread:
-        rc = _fn("spectral_bwd_reread")(*head, acts.data_ptr(), *tail)
+        rc = _fn("spectral_bwd_reread" + arm)(*head, acts.data_ptr(), *tail)
         _check(rc, name, k, w, wm)
-        spe_seq_cell_bwd_reread.launches += 1
+        (spe_seq_cell_bwd_reread_bf16 if bf16 else spe_seq_cell_bwd_reread).launches += 1
     else:
-        rc = _fn("spectral_bwd")(*head, *tail)
+        rc = _fn("spectral_bwd" + arm)(*head, *tail)
         _check(rc, name, k, w, wm)
-        spe_seq_cell_bwd.launches += 1
+        (spe_seq_cell_bwd_bf16 if bf16 else spe_seq_cell_bwd).launches += 1
     out, off = [], 0
     for t in weights:
         out.append(grads[off : off + t.numel()].view(t.shape))
@@ -198,52 +245,51 @@ def _unflat(tensors):
 
 
 def _bwd_cuda(x, g, weights, multi: int, acts=None):
-    """The backward on the card from the folded weights: kernel (reread with
-    `acts`, else recompute), then the layer-0 unfold dW = Cf^T @ dAW (Sf for
-    the imaginary chain)."""
+    """The backward on the card from the kernels' operands (x and the folded
+    weights, of one operand type): g cast to that type, the kernel (reread
+    with `acts`, else recompute), then the layer-0 unfold dW = Cf^T @ dAW (Sf
+    for the imaginary chain) in f32."""
     b, k, n, w = x.shape
-    cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
-    dx, grads = _launch_bwd(x, g, weights, ci, si, multi, acts)
+    cf, sf, ci, si = _dft_on(w, k, w * multi, x.device, x.dtype)
+    dx, grads = _launch_bwd(x, g.to(x.dtype), weights, ci, si, multi, acts)
     for i, dft in ((0, cf), (2, cf), (4, sf), (6, sf)):
         grads[i] = torch.matmul(dft.T, grads[i])
     return dx, grads
 
 
-def spe_seq_cell_bwd(x, glu_params, g, multi: int):
+def spe_seq_cell_bwd(x, glu_params, g, multi: int, compute_dtype: str = "float32"):
     """x [B,K,N,W], g [B,K,N,W*multi] -> (dx, six dicts like glu_params)."""
     if x.device.type == "cpu":
-        return spe_seq_cell_bwd_plain(x, glu_params, g, multi)
-    b, k, n, w = x.shape
-    cf, sf, _, _ = _dft_on(w, k, w * multi, x.device)
-    dx, grads = _bwd_cuda(x, g, folded_weights(glu_params, cf, sf), multi)
+        return spe_seq_cell_bwd_plain(x, glu_params, g, multi, compute_dtype)
+    xk, weights, _, _ = _card_operands(x, glu_params, multi, compute_dtype)
+    dx, grads = _bwd_cuda(xk, g, weights, multi)
     return dx, _unflat(grads)
 
 
 spe_seq_cell_bwd.launches = 0
 
 
-def spe_seq_cell_save(x, glu_params, multi: int):
+def spe_seq_cell_save(x, glu_params, multi: int, compute_dtype: str = "float32"):
     """`spe_seq_cell` that also returns what `spe_seq_cell_bwd_reread` reads:
     (out [B,K,N,W*multi], acts [12, rows, K*W*multi]), rows = B*N on the CPU
     and B*N padded to a multiple of 16 on the card."""
     if x.device.type == "cpu":
-        return spe_seq_cell_save_plain(x, glu_params, multi)
-    b, k, n, w = x.shape
-    cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
-    return _launch_fwd(x, folded_weights(glu_params, cf, sf), ci, si, multi, save=True)
+        return spe_seq_cell_save_plain(x, glu_params, multi, compute_dtype)
+    return _launch_fwd(*_card_operands(x, glu_params, multi, compute_dtype), multi,
+                       save=True)
 
 
 spe_seq_cell_save.launches = 0
 
 
-def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int):
-    """`spe_seq_cell_bwd` from the acts of `spe_seq_cell_save` on the same x
-    and glu_params, without recomputing the chain."""
+def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int,
+                            compute_dtype: str = "float32"):
+    """`spe_seq_cell_bwd` from the acts of `spe_seq_cell_save` on the same x,
+    glu_params and compute_dtype, without recomputing the chain."""
     if x.device.type == "cpu":
-        return spe_seq_cell_bwd_reread_plain(x, glu_params, g, acts, multi)
-    b, k, n, w = x.shape
-    cf, sf, _, _ = _dft_on(w, k, w * multi, x.device)
-    dx, grads = _bwd_cuda(x, g, folded_weights(glu_params, cf, sf), multi, acts)
+        return spe_seq_cell_bwd_reread_plain(x, glu_params, g, acts, multi, compute_dtype)
+    xk, weights, _, _ = _card_operands(x, glu_params, multi, compute_dtype)
+    dx, grads = _bwd_cuda(xk, g, weights, multi, acts)
     return dx, _unflat(grads)
 
 
@@ -251,31 +297,30 @@ spe_seq_cell_bwd_reread.launches = 0
 
 
 class _SpeSeqCell(torch.autograd.Function):
-    """(x, multi, 24 GLU tensors in kernel order) -> out. Saves x and the GLU
-    tensors (on the card: folded, as the kernels read them) and, with
-    `SAVE_ACTS_BWD`, the forward's acts; the backward rereads the acts if they
-    were saved and recomputes them otherwise."""
+    """(x, multi, compute_dtype, 24 GLU tensors in kernel order) -> out. Saves
+    x and the GLU tensors (on the card: the kernels' operands, folded and of
+    their type) and, with `SAVE_ACTS_BWD`, the forward's acts; the backward
+    rereads the acts if they were saved and recomputes them otherwise."""
 
     @staticmethod
-    def forward(ctx, x, multi, *tensors):
-        ctx.multi = multi
+    def forward(ctx, x, multi, compute_dtype, *tensors):
+        ctx.multi, ctx.compute_dtype = multi, compute_dtype
         ctx.reread = SAVE_ACTS_BWD
         if x.device.type == "cpu":
             if ctx.reread:
-                out, acts = spe_seq_cell_save_plain(x, _unflat(tensors), multi)
+                out, acts = spe_seq_cell_save_plain(x, _unflat(tensors), multi,
+                                                    compute_dtype)
                 ctx.save_for_backward(x, *tensors, acts)
                 return out
             ctx.save_for_backward(x, *tensors)
-            return spe_seq_cell_plain(x, _unflat(tensors), multi)
-        b, k, n, w = x.shape
-        cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
-        weights = folded_weights(_unflat(tensors), cf, sf)
+            return spe_seq_cell_plain(x, _unflat(tensors), multi, compute_dtype)
+        xk, weights, ci, si = _card_operands(x, _unflat(tensors), multi, compute_dtype)
         if ctx.reread:
-            out, acts = _launch_fwd(x, weights, ci, si, multi, save=True)
-            ctx.save_for_backward(x, *weights, acts)
+            out, acts = _launch_fwd(xk, weights, ci, si, multi, save=True)
+            ctx.save_for_backward(xk, *weights, acts)
             return out
-        ctx.save_for_backward(x, *weights)
-        return _launch_fwd(x, weights, ci, si, multi)
+        ctx.save_for_backward(xk, *weights)
+        return _launch_fwd(xk, weights, ci, si, multi)
 
     @staticmethod
     @once_differentiable
@@ -285,25 +330,30 @@ class _SpeSeqCell(torch.autograd.Function):
         g = g.contiguous()
         if x.device.type == "cpu":
             if acts is None:
-                dx, dglu = spe_seq_cell_bwd_plain(x, _unflat(tensors), g, ctx.multi)
+                dx, dglu = spe_seq_cell_bwd_plain(x, _unflat(tensors), g, ctx.multi,
+                                                  ctx.compute_dtype)
             else:
                 dx, dglu = spe_seq_cell_bwd_reread_plain(x, _unflat(tensors), g, acts,
-                                                         ctx.multi)
-            return (dx, None, *_flat(dglu))
+                                                         ctx.multi, ctx.compute_dtype)
+            return (dx, None, None, *_flat(dglu))
         dx, grads = _bwd_cuda(x, g, tensors, ctx.multi, acts)
-        return (dx, None, *grads)
+        return (dx, None, None, *grads)
 
 
-def spe_seq_cell(x, glu_params, multi: int):
-    """x [B,K,N,W]; glu_params: 6 GLU dicts (even: real chain, odd: imag)."""
+def spe_seq_cell(x, glu_params, multi: int, compute_dtype: str = "float32"):
+    """x [B,K,N,W] f32; glu_params: 6 GLU dicts (even: real chain, odd: imag);
+    compute_dtype "float32" or "bfloat16" (the kernels' operands)."""
     tensors = _flat(glu_params)
     if _build.needs_grad(x, *tensors):
-        return _SpeSeqCell.apply(x, multi, *tensors)
+        return _SpeSeqCell.apply(x, multi, compute_dtype, *tensors)
     if x.device.type == "cpu":
-        return spe_seq_cell_plain(x, glu_params, multi)
-    b, k, n, w = x.shape
-    cf, sf, ci, si = _dft_on(w, k, w * multi, x.device)
-    return _launch_fwd(x, folded_weights(glu_params, cf, sf), ci, si, multi)
+        return spe_seq_cell_plain(x, glu_params, multi, compute_dtype)
+    return _launch_fwd(*_card_operands(x, glu_params, multi, compute_dtype), multi)
 
 
 spe_seq_cell.launches = 0
+spe_seq_cell_bf16 = _build.bf16_arm(spe_seq_cell, "spe_seq_cell at bfloat16")
+spe_seq_cell_save_bf16 = _build.bf16_arm(spe_seq_cell_save, "spe_seq_cell_save at bfloat16")
+spe_seq_cell_bwd_bf16 = _build.bf16_arm(spe_seq_cell_bwd, "spe_seq_cell_bwd at bfloat16")
+spe_seq_cell_bwd_reread_bf16 = _build.bf16_arm(spe_seq_cell_bwd_reread,
+                                               "spe_seq_cell_bwd_reread at bfloat16")

@@ -19,6 +19,14 @@ the plain versions of the CUDA backward kernels and the saving forward.
 They are written as explicit formulas over the tensors the forward saves,
 not as autograd of the forward, so they pin the saved-tensor contract that
 the kernels follow.
+
+`cheb_graph_conv` and the spectral functions take `compute_dtype`, the JAX
+package's precision policy: at "bfloat16" they round what the JAX package's
+Pallas kernels take as bf16 operands (`.to(torch.bfloat16)` and back), at
+the same points, and multiply in the tensors' own dtype, so every product of
+two rounded values is exact and only the sums' order differs from a bf16 x
+bf16 -> f32 matrix unit. A bf16 `torch.matmul` would round its output to bf16,
+which the JAX kernels do not, so none is used.
 """
 
 from __future__ import annotations
@@ -50,9 +58,33 @@ def attention_from_kq(key, query, alpha: float):
     return torch.softmax(scores, dim=-1)
 
 
-def cheb_graph_conv(mul_L, x):
-    """Chebyshev-Laplacian graph convolution: [K,N,N],[B,N,W] -> [B,K,N,W]."""
-    return torch.einsum("knm,bmw->bknw", mul_L, x)
+# compute_dtype (the JAX package's precision policy) -> the dtype of the
+# operands of the graph conv's and the spectral cell's products
+OPERAND_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def operand_dtype(compute_dtype: str):
+    if compute_dtype not in OPERAND_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r} is not one of "
+                         f"{tuple(OPERAND_DTYPES)}")
+    return OPERAND_DTYPES[compute_dtype]
+
+
+def rounding(compute_dtype: str):
+    """t -> t rounded to the operand precision of `compute_dtype`, in t's own
+    dtype: the identity for "float32"; for "bfloat16" to the nearest bf16
+    (ties to even, as the JAX package's astype)."""
+    dtype = operand_dtype(compute_dtype)
+    if dtype == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(dtype).to(t.dtype)
+
+
+def cheb_graph_conv(mul_L, x, compute_dtype: str = "float32"):
+    """Chebyshev-Laplacian graph convolution: [K,N,N],[B,N,W] -> [B,K,N,W];
+    at "bfloat16" of mul_L and x rounded to bf16 (pallas_graph.py `_forward`)."""
+    rnd = rounding(compute_dtype)
+    return torch.einsum("knm,bmw->bknw", rnd(mul_L), rnd(x))
 
 
 def order_contract(gconv, weight):
@@ -63,14 +95,18 @@ def order_contract(gconv, weight):
     return torch.einsum("bknu,kuv->bnv", gconv, weight)
 
 
-def spe_seq_cell(x, glu_params, multi: int):
+def spe_seq_cell(x, glu_params, multi: int, compute_dtype: str = "float32"):
     """Spectral-sequential cell: [B, K, N, W] -> [B, K, N, W*multi].
 
     Full (not one-sided) FFT along W; real and imaginary parts flattened to
     [B, N, K*W] pass through 3 GLUs each (even-indexed GLUs on the real
     part, odd on the imaginary); the widened spectra are inverse-
     transformed as a length-(W*multi) spectrum and the real part is kept.
+    At "bfloat16" the output of `spe_seq_cell_save`, which rounds where the
+    JAX package's kernel rounds (its DFTs are products, not an FFT).
     """
+    if compute_dtype != "float32":
+        return spe_seq_cell_save(x, glu_params, multi, compute_dtype)[0]
     b, k, n, w = x.shape
     ff = torch.fft.fft(x, dim=-1)
     real = ff.real.permute(0, 2, 1, 3).reshape(b, n, k * w)
@@ -252,30 +288,35 @@ def _rows(t):
     return t.permute(0, 2, 1, 3).reshape(b * n, k * c)
 
 
-def spe_seq_cell_save(x, glu_params, multi: int):
+def spe_seq_cell_save(x, glu_params, multi: int, compute_dtype: str = "float32"):
     """`spe_seq_cell` over the folded-DFT chain that also returns each GLU's
     linear output a and gate s (pallas_spectral.py `_kernel_save`).
 
     x [B,K,N,W] -> (out [B,K,N,W*multi], acts [12, B*N, K*W*multi]: a0, s0,
-    ..., a5, s5, GLU 2 * layer + chain)."""
+    ..., a5, s5, GLU 2 * layer + chain). At "bfloat16" the operands of every
+    product are rounded as `_forward` and `_kernel_save` round them: x, the
+    folded 2-D weights (the fold in full precision first), Ci, Si and each
+    GLU's input; biases, a, s and out are not."""
     b, k, n, w = x.shape
     wm = w * multi
+    rnd = rounding(compute_dtype)
     cf, sf, ci, si = _dft_tensors(w, k, wm, x.device, x.dtype)
     rows = _rows(x)
     cur = [rows, rows]
     acts = []
     for i, (p, (wl, wr)) in enumerate(zip(glu_params,
                                           _folded_glu_weights(glu_params, cf, sf))):
-        u = cur[i % 2]
-        a = u @ wl + p["left"]["b"]
-        s = torch.sigmoid(u @ wr + p["right"]["b"])
+        u = rnd(cur[i % 2])
+        a = u @ rnd(wl) + p["left"]["b"]
+        s = torch.sigmoid(u @ rnd(wr) + p["right"]["b"])
         acts += [a, s]
         cur[i % 2] = a * s
-    out = cur[0] @ ci + cur[1] @ si
+    out = rnd(cur[0]) @ rnd(ci) + rnd(cur[1]) @ rnd(si)
     return out.reshape(b, n, k, wm).permute(0, 2, 1, 3), torch.stack(acts)
 
 
-def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int):
+def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int,
+                            compute_dtype: str = "float32"):
     """Backward of `spe_seq_cell` from the saved (a, s) of each GLU
     (pallas_spectral.py `_bwd_kernel_reread` and `_backward_reread`).
 
@@ -284,20 +325,24 @@ def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int):
     the inverse DFT and the six GLUs are backpropagated and the layer-0 weight
     gradients unfolded (dW = Cf^T @ dAW). x [B,K,N,W], g [B,K,N,W*multi], acts
     [12, >= B*N, K*W*multi] (rows past B*N are padding) -> (dx like x, dglu: six
-    dicts like glu_params)."""
+    dicts like glu_params). At "bfloat16" both operands of every product are
+    rounded, as the JAX kernel's `dot` rounds them: g, Ci, Si, the folded
+    weights, u, da and ds (the bias gradients sum da and ds unrounded; the
+    unfold is in full precision)."""
     b, k, n, w = x.shape
     wm = w * multi
+    rnd = rounding(compute_dtype)
     cf, sf, ci, si = _dft_tensors(w, k, wm, x.device, x.dtype)
     fold = (cf, sf)
     weights = _folded_glu_weights(glu_params, cf, sf)
-    rows, gr = _rows(x), _rows(g)
+    rows, gr = _rows(x), rnd(_rows(g))
     cur = [rows, rows]
     saved = []
     for i in range(6):
         a, s = acts[2 * i, : b * n], acts[2 * i + 1, : b * n]
-        saved.append((cur[i % 2], a, s))
+        saved.append((rnd(cur[i % 2]), a, s))
         cur[i % 2] = a * s
-    d = [gr @ ci.T, gr @ si.T]
+    d = [gr @ rnd(ci).T, gr @ rnd(si).T]
     dglu = [None] * 6
     for i in range(5, -1, -1):
         u, a, s = saved[i]
@@ -305,23 +350,24 @@ def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int):
         dy = d[i % 2]
         da = dy * s
         dspre = dy * a * (s * (1.0 - s))
-        dwl, dwr = u.T @ da, u.T @ dspre
+        rda, rds = rnd(da), rnd(dspre)
+        dwl, dwr = u.T @ rda, u.T @ rds
         if i < 2:
             dwl, dwr = fold[i].T @ dwl, fold[i].T @ dwr
         dglu[i] = {"left": {"w": dwl, "b": da.sum(dim=0)},
                    "right": {"w": dwr, "b": dspre.sum(dim=0)}}
-        d[i % 2] = da @ wl.T + dspre @ wr.T
+        d[i % 2] = rda @ rnd(wl).T + rds @ rnd(wr).T
     dx = (d[0] + d[1]).reshape(b, n, k, w).permute(0, 2, 1, 3)
     return dx, dglu
 
 
-def spe_seq_cell_bwd(x, glu_params, g, multi: int):
+def spe_seq_cell_bwd(x, glu_params, g, multi: int, compute_dtype: str = "float32"):
     """Backward of `spe_seq_cell` over the folded-DFT chain
     (pallas_spectral.py `_bwd_kernel` and `_backward`): recomputes (a, s) of
     each GLU from x, then the reread backward on them. x [B,K,N,W],
     g [B,K,N,W*multi] -> (dx like x, dglu: six dicts like glu_params)."""
-    _, acts = spe_seq_cell_save(x, glu_params, multi)
-    return spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi)
+    _, acts = spe_seq_cell_save(x, glu_params, multi, compute_dtype)
+    return spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi, compute_dtype)
 
 
 def cheb_graph_conv_bwd(mul_L, x, g):

@@ -18,6 +18,11 @@ the same steps taken eagerly give the same bits: the dropout masks of a chunk
 are drawn before it, in step order, from the generator the eager steps draw
 from. Evaluation has the same shape (`make_eval_epoch_fn`).
 
+`compute_dtype` (TrainConfig.compute_dtype, the JAX engine's `precision`)
+goes into every step and eval program the `make_*` functions build, and from
+them to the model's forward; `inference`, `inference_batched` and `validate`
+run the eval step they are given, so it carries the policy to them.
+
 The per-epoch shuffle comes from `np.random.default_rng([shuffle root,
 epoch])` as in the JAX engine, so both engines see the same batches; the
 dropout generator is re-seeded from (dropout root, epoch) at each epoch.
@@ -69,7 +74,7 @@ def gather_windows(data, hi, window_size: int, horizon: int):
 
 
 def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
-                    check_finite: bool = False):
+                    check_finite: bool = False, compute_dtype: str = "float32"):
     """train_step(params, data, hi, dropout_generator=None, dropout_mask=None)
     -> loss (a 0-d tensor on the device, not read back). One forward, backward
     and optimizer step on the batch whose window end indices are `hi`; the
@@ -82,6 +87,7 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
     checkpoints line up with the JAX package's. With `check_finite` the step
     reads the loss and the gradients back and raises FloatingPointError on a
     value that is not finite, before the optimizer moves anything.
+    `compute_dtype` is the forward's (`stemgnn.forward`).
     """
     w, h = mcfg.window_size, mcfg.horizon
     leaves = list(leaves)
@@ -91,7 +97,7 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
         opt.zero_grad(set_to_none=True)
         forecast, _ = stemgnn.forward(
             params, mcfg, x, training=True, dropout_generator=dropout_generator,
-            dropout_mask=dropout_mask)
+            dropout_mask=dropout_mask, compute_dtype=compute_dtype)
         loss = torch.mean((forecast - y) ** 2)  # nn.MSELoss (handler.py:140)
         loss.backward()
         for p in leaves:
@@ -134,7 +140,8 @@ def _warm(fn) -> None:
     torch.cuda.current_stream().wait_stream(side)
 
 
-def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves):
+def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
+                  compute_dtype: str = "float32"):
     """epoch_fn(params, data, hi_matrix [n, B], dropout_generator=None,
     dropout_masks=None) -> losses [n]: n train steps as one device program
     (stemgnn_tpu/train/engine.py `make_epoch_fn`). The steps' dropout masks are
@@ -149,10 +156,11 @@ def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves):
     per step from `dropout_generator`, which is what the eager steps draw: a
     chunk and the same steps taken eagerly give the same bits. The first
     capture is preceded by `WARM_STEPS` eager steps whose effect on the
-    parameters and the optimizer state is undone.
+    parameters and the optimizer state is undone. `compute_dtype` is the
+    steps' (`make_train_step`).
     """
     leaves = list(leaves)
-    train_step = make_train_step(mcfg, opt, leaves)
+    train_step = make_train_step(mcfg, opt, leaves, compute_dtype=compute_dtype)
     w, keep = mcfg.window_size, 1.0 - mcfg.dropout_rate
     dropout = mcfg.dropout_rate > 0.0
     graphs = {}
@@ -239,8 +247,9 @@ def epoch_generator_seed(root: int, epoch: int) -> int:
                & np.uint64(2**63 - 1))
 
 
-def make_eval_step(mcfg: StemGNNConfig, device="cuda"):
-    """eval_step(params, x) -> forecast [B, horizon, N] on `device`.
+def make_eval_step(mcfg: StemGNNConfig, device="cuda", compute_dtype: str = "float32"):
+    """eval_step(params, x) -> forecast [B, horizon, N] on `device`, the forward
+    at `compute_dtype`.
 
     x may be a numpy array or a tensor; it is moved to `device`."""
     dev = resolve_device(device)
@@ -248,13 +257,15 @@ def make_eval_step(mcfg: StemGNNConfig, device="cuda"):
     @torch.inference_mode()
     def eval_step(params, x):
         x = torch.as_tensor(x, device=dev)
-        forecast, _ = stemgnn.forward(params, mcfg, x, training=False)
+        forecast, _ = stemgnn.forward(params, mcfg, x, training=False,
+                                      compute_dtype=compute_dtype)
         return forecast
 
     return eval_step
 
 
-def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda"):
+def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda",
+                       compute_dtype: str = "float32"):
     """eval_epoch(params, data, hi_matrix [n, B]) -> (forecasts [n, B, horizon,
     N], targets like them): n eval batches as one device program
     (stemgnn_tpu/train/engine.py `make_eval_epoch_fn`).
@@ -262,9 +273,9 @@ def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda"):
     On the CPU the loop of eager forwards; on the card a CUDA graph of the n
     forwards, captured at the first call with that n, batch, data shape and
     parameter tensors and replayed from then on, with `data` and `hi_matrix`
-    copied into static buffers."""
+    copied into static buffers. The forwards run at `compute_dtype`."""
     dev = resolve_device(device)
-    eval_step = make_eval_step(mcfg, dev)
+    eval_step = make_eval_step(mcfg, dev, compute_dtype)
     w, h = mcfg.window_size, mcfg.horizon
     graphs = {}
 
@@ -524,11 +535,12 @@ def _train_epochs(
 ) -> Dict:
     params = unflatten_params(flat)
     # debug_nans: every batch is an eager step that checks its loss and gradients
-    train_step = make_train_step(mcfg, opt, flat.values(), check_finite=cfg.debug_nans)
-    epoch_fn = make_epoch_fn(mcfg, opt, flat.values())
+    train_step = make_train_step(mcfg, opt, flat.values(), check_finite=cfg.debug_nans,
+                                 compute_dtype=cfg.compute_dtype)
+    epoch_fn = make_epoch_fn(mcfg, opt, flat.values(), cfg.compute_dtype)
     chunk_sizes = () if cfg.debug_nans else CHUNK_SIZES
-    eval_step = make_eval_step(mcfg, device)
-    eval_epoch_fn = make_eval_epoch_fn(mcfg, device)
+    eval_step = make_eval_step(mcfg, device, cfg.compute_dtype)
+    eval_epoch_fn = make_eval_epoch_fn(mcfg, device, cfg.compute_dtype)
     data_dev = torch.from_numpy(train_set.data).to(device)
     n_windows = len(train_set)
     dropout_root = cfg.dropout_seed if cfg.dropout_seed >= 0 else cfg.seed
@@ -668,7 +680,7 @@ def test(
         test_data, cfg.window_size, cfg.horizon, cfg.norm_method, normalize_statistic
     )
     performance_metrics = validate(
-        make_eval_step(mcfg, device),
+        make_eval_step(mcfg, device, cfg.compute_dtype),
         params,
         test_set,
         cfg.norm_method,
@@ -679,7 +691,7 @@ def test(
         cfg.batch_size,
         result_file=result_test_file,
         device=device,
-        eval_epoch_fn=make_eval_epoch_fn(mcfg, device),
+        eval_epoch_fn=make_eval_epoch_fn(mcfg, device, cfg.compute_dtype),
     )
     mae, mape, rmse = (
         performance_metrics["mae"],

@@ -2,7 +2,7 @@
 taken out or changed, and times each beside the source as it is.
 
     python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [spectral]
-        [spectral_fwd] [graph] [against=CHECKOUT]
+        [spectral_fwd] [graph] [against=CHECKOUT] [ptxas] [ptxas=CHECKOUT]
 
 A variant is a list of (text, replacement) pairs applied to the source; a
 pair whose text is no longer in the source stops the run, so an edit to a
@@ -11,10 +11,14 @@ exchange or a load left out): only their times mean anything, and the difference
 `base` is what the piece costs. Shapes are the ECG flagship's (B = 32,
 H = N = 140, W = 12, K = 4); `spectral_fwd` also times the COVID-19 shape
 (B = 32, N = 25, W = 28, multi 5). `against=CHECKOUT` builds the spectral
-source of another checkout (a `git archive` of an earlier commit) and holds
-this tree's spectral forwards bitwise against it. Times are device milliseconds of one call,
-replays of a CUDA graph of 20 calls, with the card's name and power limit on
-the first line. Needs a card and nvcc; nothing in the package calls this.
+and graph sources of another checkout (a `git archive` of an earlier commit)
+and holds this tree's f32 spectral entries (forwards and backwards) and graph
+conv bitwise against it, at the flagship and COVID-19 shapes. Times are
+device milliseconds of one call, replays of a CUDA graph of 20 calls, with the
+card's name and power limit on the first line. `ptxas` (or `ptxas=CHECKOUT`
+for another checkout's sources) compiles each kernel source with
+`-Xptxas -v` and prints every kernel's registers, stack and spills. Needs a
+card and nvcc; nothing in the package calls this.
 """
 
 from __future__ import annotations
@@ -90,7 +94,7 @@ SPECTRAL_VARIANTS = {
     "base": [],
     # the kernels of the reread backward, each left out in turn
     "rows kernel returns at once": [
-        ("  float* da = smem;              // [d1][kBRS]\n",
+        ("  float* da = smem;              // [d1][S]\n",
          "  if (row0 >= 0) return;\n  float* da = smem;\n")],
     "wgrad kernel returns at once": [
         ("  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles\n",
@@ -114,12 +118,13 @@ SPECTRAL_VARIANTS = {
         ("kMaxThreads == kBMaxThreads ? 3 : 1", "kMaxThreads == kBMaxThreads ? 2 : 1")],
     # the rows kernel's pieces
     "rows: no weight loads": [
-        ("      l[j4] = ldg4(wl + (long)cc * dout + c4[j4]);\n"
-         "      r[j4] = ldg4(wr + (long)cc * dout + c4[j4]);\n",
-         "      l[j4] = make_float4(cc, j4, 1.f, 2.f);\n"
-         "      r[j4] = make_float4(j4, cc, 2.f, 1.f);\n")],
+        ("      l[j4] = ldg_vec4(wl + (long)cc * dout + c4[j4]);\n"
+         "      r[j4] = ldg_vec4(wr + (long)cc * dout + c4[j4]);\n",
+         "      const float4 fl = make_float4(cc, j4, 1.f, 2.f), fr = make_float4(j4, cc, 2.f, 1.f);\n"
+         "      l[j4] = *reinterpret_cast<const V*>(&fl);\n"
+         "      r[j4] = *reinterpret_cast<const V*>(&fr);\n")],
     "rows: no activation reads": [
-        ("      load8(da + c * kBRS + r0, a);\n      load8(ds + c * kBRS + r0, s);\n",
+        ("      load8(da + c * S + r0, a);\n      load8(ds + c * S + r0, s);\n",
          "      for (int i = 0; i < 8; ++i) {\n        a[i] = 1e-3f * (c + i);\n"
          "        s[i] = 2e-3f * (c - i);\n      }\n")],
     # the elementwise pass keeps only its shared-memory stores
@@ -140,13 +145,14 @@ SPECTRAL_VARIANTS = {
          "        if (gi < 0) {  // u = a * s of the GLU before\n")],
 }
 
-_FWD_TILE = "  const int tile = chain_tile(rows_pad, sms);\n"
+_FWD_TILE = "  const int tile = chain_tile(rows_pad, sms, d1);\n"
 SPECTRAL_FWD_VARIANTS = {
     "base": [],
     # the chain forward's pieces, each left out in turn
     "fwd: no weight loads": [
-        ("    l = ldg4(pl + kk * dout);\n    r = ldg4(pr + kk * dout);\n",
-         "    l = make_float4(kk, c, 1.f, 2.f);\n    r = make_float4(c, kk, 2.f, 1.f);\n")],
+        ("    l = ldg_vec4(pl + kk * dout);\n    r = ldg_vec4(pr + kk * dout);\n",
+         "    const float4 fl = make_float4(kk, c, 1.f, 2.f), fr = make_float4(c, kk, 2.f, 1.f);\n"
+         "    l = *reinterpret_cast<const V*>(&fl);\n    r = *reinterpret_cast<const V*>(&fr);\n")],
     "fwd: no activation reads": [
         ("      load8(in + k * S + r0, x);\n",
          "      for (int i = 0; i < 8; ++i) x[i] = 1e-3f * (k + i);\n")],
@@ -154,7 +160,7 @@ SPECTRAL_FWD_VARIANTS = {
         ("      if (row < rows_pad) {\n        *reinterpret_cast<float4*>(ga + row * d1",
          "      if (row < 0) {\n        *reinterpret_cast<float4*>(ga + row * d1")],
     "fwd: no inverse DFT sums": [
-        ("      idft_fwd_run<kRagged>(re, im, S, ci, si, WM, q0, cc, acc);\n",
+        ("      idft_fwd_run<T, kRagged>(re, im, S, ci, si, WM, q0, cc, acc);\n",
          "      for (int i = 0; i < 8; ++i)\n        for (int q = 0; q < 4; ++q) "
          "acc[i][q] = re[q] + im[i];\n")],
     "fwd: no join (cluster barriers, copy, inverse DFT)": [
@@ -191,8 +197,8 @@ GRAPH_VARIANTS = {
     "one round of the sum": [(_G_LOOP, _G_ONE_ROUND)],
     "no loads": _G_LOADS,
     "no loads, one round of the sum": [(_G_LOOP, _G_ONE_ROUND), *_G_LOADS],
-    "every block returns at once": [("  float* As = smem;\n",
-                                     "  if (n0 >= 0) return;\n  float* As = smem;\n")],
+    "every block returns at once": [("  T* As = smem;\n",
+                                     "  if (n0 >= 0) return;\n  T* As = smem;\n")],
 }
 
 
@@ -455,50 +461,114 @@ def spectral_fwd(dev, tmp: Path) -> None:
                   f"{_cuda_ms(serve):.5f} ms, saving {_cuda_ms(saving):.5f} ms")
 
 
-def spectral_against(dev, tmp: Path, other: Path) -> None:
-    """This tree's spectral_fwd and spectral_fwd_save against another
-    checkout's (csrc/spectral.cu built on its own) at the flagship shape and
-    at W = 25: the output and the 12 saved arrays' real rows bitwise equal;
-    and both trees' times, in the order other, this, this, other."""
-    src = other / "stemgnn_tpu_torch" / "csrc" / "spectral.cu"
-    lib_dir = Path(tempfile.mkdtemp(dir=tmp))
-    so = lib_dir / "libspectral_other.so"
+def _spectral_bwd_calls(lib, x, g, weights, ci, si, multi, acts):
+    """(reread call, recompute call) of a library's two f32 backward entries,
+    each into buffers made here; the calls return (dx, the flat gradients)."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = x.shape
+    wm = w * multi
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    dx = torch.empty_like(x)
+    grads = torch.empty(cuda_spectral._fn("spectral_bwd_grad_floats")(k, w, wm), device=x.device)
+    ws = torch.empty(cuda_spectral._fn("spectral_bwd_workspace_floats")(
+        b, k, n, w, wm, cuda_spectral.N_SPLIT), device=x.device)
+    head = (x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr())
+    tail = (dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm,
+            cuda_spectral.N_SPLIT)
+    calls = []
+    for name in ("spectral_bwd_reread", "spectral_bwd"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = cuda_spectral._SIGNATURES[name]
+        extra = (acts.data_ptr(),) if name == "spectral_bwd_reread" else ()
+
+        # the buffers are held by the call, the stream is the one current at it
+        def call(fn=fn, extra=extra, name=name, held=(ws, acts)):
+            _build.check(fn(*head, *extra, *tail, _build.stream_ptr(x)), name)
+            return dx, grads
+
+        calls.append(call)
+    return calls
+
+
+def _build_other(src: Path, tmp: Path) -> ctypes.CDLL:
+    so = Path(tempfile.mkdtemp(dir=tmp)) / f"lib{src.stem}_other.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-o",
                            str(so), str(src)], capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"{src}: nvcc failed:\n{proc.stdout}{proc.stderr}")
-    libs = {"other": ctypes.CDLL(str(so)), "this": _build.library("spectral")}
+    return ctypes.CDLL(str(so))
+
+
+def spectral_against(dev, tmp: Path, other: Path) -> None:
+    """This tree's f32 kernels against another checkout's (its csrc/spectral.cu
+    and csrc/graph.cu built on their own): the spectral serving and saving
+    forwards (the output and the 12 saved arrays' real rows) and the reread
+    and recompute backwards (dx and the flat gradients) at the flagship shape,
+    at W = 25 and at the COVID-19 shape, and the graph conv at the flagship's
+    and the COVID-19 shape, every output bitwise equal; and both trees' times,
+    in the order other, this, this, other."""
+    csrc = other / "stemgnn_tpu_torch" / "csrc"
+    libs = {"other": _build_other(csrc / "spectral.cu", tmp), "this": _build.library("spectral")}
     for lib in libs.values():
         lib.spectral_act_floats.argtypes = [ctypes.c_int] * 4
         lib.spectral_act_floats.restype = ctypes.c_longlong
     for shape, (b, n, w, m) in {"flagship": (32, 140, 12, 5), "W=25": (5, 37, 25, 5),
-                                "COVID-19 W=28 (this tree only)": (32, 25, 28, 5)}.items():
+                                "COVID-19": (32, 25, 28, 5)}.items():
         x, weights, ci, si = _spectral_inputs(b, n, w, m, dev, 6)
+        g = 1e-3 * torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (b, 4, n, w * m)).astype(np.float32)).to(dev)
         rows = b * n
         calls = {tree: _spectral_fwd_calls(lib, x, weights, ci, si, m)
                  for tree, lib in libs.items()}
-        if "only" in shape:
-            ms = [_cuda_ms(c) for c in calls["this"]]
-            print(f"spectral forward {shape}: this tree serving {ms[0]:.5f} ms, saving "
-                  f"{ms[1]:.5f} ms")
-            continue
         got = {}
         for tree, (serve, saving) in calls.items():
             out, _ = serve()
             out = out.clone()
             out_s, acts = saving()
-            got[tree] = (out, out_s.clone(), acts[:, :rows].clone())
+            acts = acts.clone()
+            reread, recompute = _spectral_bwd_calls(libs[tree], x, g, weights, ci, si, m, acts)
+            calls[tree] = (serve, saving, reread, recompute)
+            got[tree] = [out, out_s.clone(), acts[:, :rows]]
+            got[tree] += [t.clone() for t in reread()] + [t.clone() for t in recompute()]
         torch.cuda.synchronize()
         same = [torch.equal(a, b_) for a, b_ in zip(got["this"], got["other"])]
         times = {tree: [] for tree in libs}
         for tree in ("other", "this", "this", "other"):
-            times[tree].append([_cuda_ms(c) for c in calls[tree]])
-        print(f"spectral forward {shape} B={b} N={n} W={w} multi={m}: this tree against "
-              f"{other}: serving output {'bitwise equal' if same[0] else 'DIFFERS'}, saving "
-              f"output {'bitwise equal' if same[1] else 'DIFFERS'}, 12 saved arrays "
-              f"{'bitwise equal' if same[2] else 'DIFFER'}; ms (serving, saving) in the "
-              f"order other, this, this, other: {times['other'][0]}, {times['this'][0]}, "
-              f"{times['this'][1]}, {times['other'][1]}")
+            times[tree].append([round(_cuda_ms(c), 5) for c in calls[tree]])
+        word = ["bitwise equal" if ok else "DIFFER" for ok in same]
+        print(f"spectral {shape} B={b} N={n} W={w} multi={m}: this tree against {other}: "
+              f"serving output {word[0]}, saving output {word[1]}, 12 saved arrays "
+              f"{word[2]}, reread dx and gradients {word[3]}, {word[4]}, recompute dx and "
+              f"gradients {word[5]}, {word[6]}; ms (serving, saving, reread, recompute) in "
+              f"the order other, this, this, other: {times['other'][0]}, "
+              f"{times['this'][0]}, {times['this'][1]}, {times['other'][1]}")
+    graph_libs = {"other": _build_other(csrc / "graph.cu", tmp),
+                  "this": _build.library("graph")}
+    rng = np.random.default_rng(8)
+    for shape, (k, n, b, w) in {"flagship": (4, 140, 32, 12), "COVID-19": (4, 25, 32, 28)}.items():
+        mul_l = torch.from_numpy((rng.standard_normal((k, n, n)) * 0.1).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((b, n, w)).astype(np.float32)).to(dev)
+        plan = cuda_graph.launch_plan(k, n, b, w)
+        outs, calls = {}, {}
+        for tree, lib in graph_libs.items():
+            fn = lib.cheb_graph_conv_fwd
+            fn.argtypes, fn.restype = cuda_graph._ARGTYPES, ctypes.c_int
+            out = torch.empty((b, k, n, w), device=dev)
+
+            def call(fn=fn, out=out):
+                _build.check(fn(mul_l.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, b, w,
+                                plan.panel, plan.row_stride, plan.batch_stride, plan.threads,
+                                plan.smem, int(plan.vec), _build.stream_ptr(out)),
+                             "cheb_graph_conv_fwd")
+                return out
+
+            outs[tree], calls[tree] = call().clone(), call
+        torch.cuda.synchronize()
+        ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
+        print(f"cheb_graph_conv_fwd {shape} K={k} N={n} B={b} W={w}: this tree against "
+              f"{other}: output {'bitwise equal' if torch.equal(outs['this'], outs['other']) else 'DIFFERS'}; "
+              f"ms in the order other, this, this, other: {ms}")
 
 
 def graph(dev, tmp: Path) -> None:
@@ -527,6 +597,38 @@ def graph(dev, tmp: Path) -> None:
           f"{_cuda_ms(lambda: torch.matmul(orders, x_t)) * 1e3:.3f} us")
 
 
+def ptxas(csrc: Path, tmp: Path) -> None:
+    """Registers, stack frame and spill bytes of every kernel of every source
+    in `csrc`, as ptxas reports them (one nvcc a source, all started
+    together; names demangled by cu++filt where the toolkit has it)."""
+    procs = [(src, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc), "-o",
+         str(Path(tempfile.mkdtemp(dir=tmp)) / f"lib{src.stem}.so"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in sorted(csrc.glob("*.cu"))]
+    filt = Path(_build._nvcc()).with_name("cu++filt")
+    for src, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{src}: nvcc failed:\n{log}")
+        kernels, name = {}, None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                kernels[name] = {}
+            elif name and "bytes stack frame" in line:
+                kernels[name]["spills"] = line.strip()
+            elif name and "Used" in line and "registers" in line:
+                kernels[name]["registers"] = line.split("Used")[1].split(",")[0].strip()
+        names = list(kernels)
+        if filt.exists():
+            names = subprocess.run([str(filt)], input="\n".join(names), capture_output=True,
+                                   text=True).stdout.splitlines()
+        for shown, info in zip(names, kernels.values()):
+            print(f"ptxas {src.name}: {shown[:150]}: {info.get('registers', '?')}; "
+                  f"{info.get('spills', 'no stack frame')}")
+
+
 def main(argv=None) -> int:
     which = ((argv if argv is not None else sys.argv[1:])
              or ["gru", "gru_bwd", "spectral", "spectral_fwd", "graph"])
@@ -541,6 +643,11 @@ def main(argv=None) -> int:
         for name in which:
             if name.startswith("against="):
                 spectral_against(dev, Path(tmp), Path(name.split("=", 1)[1]).resolve())
+                continue
+            if name.startswith("ptxas"):
+                other = name.partition("=")[2]
+                ptxas(Path(other).resolve() / "stemgnn_tpu_torch" / "csrc" if other
+                      else _build.CSRC, Path(tmp))
                 continue
             {"gru": gru, "gru_bwd": gru_bwd, "spectral": spectral,
              "spectral_fwd": spectral_fwd, "graph": graph}[name](dev, Path(tmp))
