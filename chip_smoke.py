@@ -11,50 +11,57 @@ Phases, each fatal on failure (nonzero exit, no result line):
      TF32 off for every f32 comparison.
   2. build: nvcc of every kernel source in stemgnn_tpu_torch/csrc.
   3. kernels: each of the sixteen kernels at the shapes its path gives it (the
-     ECG flagship: N=140, W=12, multi_layer=5, batch 32; the one-block GRU
-     forward and backward: the 512-node model of phase 4), held against its
-     plain PyTorch version on the card. The forward kernels run on inputs
-     that the model's own plain path computes from the first test batch; the
-     backward kernels on the activations and cotangents of one train step of
-     the port's CPU plain path on the first training batch. Device times come from CUDA
-     events around replays of a captured CUDA graph of many calls; beside
-     them the least time the card could take (bytes or f32 operations at
-     published H100 SXM peaks) and a one-call PyTorch yardstick where one
-     exists. The spectral reread backward's gradients must equal the recompute
-     backward's bit for bit. The GRU forward across a cluster (both
-     variants), the one-block GRU forward and the graph convolution are also
-     held against their plain versions, untimed, at ragged batches, at hidden
-     sizes no cluster size divides, at a hidden size that takes the one-block
-     route, and at an N the graph convolution walks in panels; the GRU
-     backward at B = 1 to 64 and H = 20 to 512 (both routes); the one-block
-     GRU past a block's shared memory (its buffers in a device workspace: the
-     forward at H = 2500, the backward at H = 1300 and 2500) and, at H = 512,
-     its workspace route bitwise its shared-memory route; the spectral
-     forwards (the output and the 12 saved arrays) and backwards at row
-     counts no multiple of their row tiles and at other windows and
-     multipliers (W = 7, 10, 25, 28, 35, 100; multi 6, 15: D1 up to 2000),
-     the backwards twice, bitwise, and a D1 past 2048 refused. The spectral
-     kernels are timed at the COVID-19 shape too (N = 25, W = 28, multi 5,
-     batch 32). The five bf16 arms (compute_dtype "bfloat16": the graph conv
-     and the four spectral entries) at the flagship's shapes against their
-     bf16 plain versions, each array within BF16_ATOL_REL of its largest entry
-     and closer to the bf16 plain result than to the f32 one; their bound at
-     the bf16 tensor-core rate; the bf16 spectral backward twice bitwise and
-     its reread bitwise its recompute, there and in the spectral checks above
-     (up to D1 = 720).
+     ECG flagship: N=140, W=12, multi_layer=5, batch 32; the grid GRU forward
+     and backward: the 512-node model of phase 4), held against its plain
+     PyTorch version on the card. The forward kernels run on inputs that the
+     model's own plain path computes from the first test batch; the backward
+     kernels on the activations and cotangents of one train step of the
+     port's CPU plain path on the first training batch. Device times come
+     from CUDA events around replays of a captured CUDA graph of many calls;
+     beside them the least time the card could take (bytes or f32 operations
+     at published H100 SXM peaks) and a one-call PyTorch yardstick where one
+     exists (cuDNN's nn.GRU for the GRU kernels). The spectral reread
+     backward's gradients must equal the recompute backward's bit for bit.
+     The GRU forward across a cluster and across the grid (both variants)
+     and the graph convolution are also held against their plain versions,
+     untimed, at ragged batches, at hidden sizes no cluster size divides, at
+     hidden sizes that take the grid route, and at an N the graph
+     convolution walks in panels; the GRU backward at B = 1 to 64 and H = 20
+     to 512 (both routes), twice, bitwise; the grid kernels through their
+     own entry points at B = 32, H = 512; B = 8, H = 1024; B = 1, 8, 64 at
+     H = 361 and 512; B = 8 at H = 1300 and 2500 (the slice of W_hh^T read
+     from L2), N = H, within GRID_ATOL_REL of each array's largest entry,
+     the backward twice, bitwise; the grid kernels at synthetic-1k's shape
+     (B = 8, H = N = 1024) timed beside the plain versions, the bound and
+     cuDNN. The spectral forwards (the output and the 12 saved arrays) and
+     backwards of both arms at row counts no multiple of their row tiles and
+     at other windows and multipliers (W = 7, 10, 25, 28, 35, 100; multi 6,
+     15: D1 up to 2000), and past D1 = 2048 on inputs of seeds 0 and 1 (W =
+     103 on 240 and 600 rows, D1 = 2060; multi 64 on 240 rows, D1 = 3072;
+     timed beside their bounds), the backwards twice, bitwise; bf16 past
+     D1 = 720 against the bf16 plain version with f64 sums
+     (`bf16_noise_agreement`). The spectral kernels are timed at the
+     COVID-19 shape too (N = 25, W = 28, multi 5, batch 32). The five bf16
+     arms (compute_dtype "bfloat16": the graph conv and the four spectral
+     entries) at the flagship's shapes against their bf16 plain versions,
+     each array within BF16_ATOL_REL of its largest entry and closer to the
+     bf16 plain result than to the f32 one; their bound at the bf16
+     tensor-core rate; the bf16 spectral backward twice bitwise and its
+     reread bitwise its recompute.
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
      just after; then the test-split forecasts against the port's CPU plain
      path, and eval windows/s; the same at compute_dtype bfloat16 (engine.test,
-     counters, forecasts against the CPU bf16 plain path). Then a 512-node model (a hidden size whose
-     slices fit no cluster, so `gru_over_nodes` launches the one-block
-     kernel) through engine.inference_batched on a seeded series, counters
-     set to 0 just before and read just after, against the CPU plain path;
-     and one train step of it (the one-block GRU backward), counters again,
-     its loss and gradients against the CPU plain path. Then the same, a
-     batch and a train step, for the COVID-19 shape (the README's COVID-19
-     command: N = 25, W = 28, horizon 28, multi 5) on a seeded series.
+     counters, forecasts against the CPU bf16 plain path). Then a 512-node
+     model (a hidden size whose slices fit no cluster, so `gru_over_nodes`
+     launches the grid kernel) through engine.inference_batched on a seeded
+     series, counters set to 0 just before and read just after, against the
+     CPU plain path; and one train step of it (the grid GRU backward),
+     counters again, its loss and gradients against the CPU plain path; the
+     same train step at synthetic-1k's shape (N = 1024, batch 8). Then the
+     same, a batch and a train step, for the COVID-19 shape (the README's
+     COVID-19 command: N = 25, W = 28, horizon 28, multi 5) on a seeded series.
   5. train path: engine.train on the card, one epoch of ECG_data with its
      validate pass (batch 32, RMSProp, dropout 0.5), counters set to 0 just
      before and read just after and held against the expected launches per
@@ -78,8 +85,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
   8. asynchronous checkpoint: one submit, wait, load, compare with the live
      parameters and optimizer state.
   9. a `kernels` JSON line (launches summed over the paths: calls of the
-     wrappers plus what replays of captured graphs launched), then the result
-     line.
+     wrappers plus what replays of captured graphs launched; every kernel at
+     least once), then the result line.
 
 It imports nothing of JAX or of stemgnn_tpu.
 """
@@ -104,9 +111,12 @@ BF16_FLOP_PER_S = 989e12  # tensor cores: the rate for bf16 operands
 
 # ECG flagship: python main.py defaults on dataset/ECG_data.csv
 BATCH, WINDOW, MULTI, HORIZON = 32, 12, 5, 3
-# the widest model the package takes: its GRU's slices fit no cluster of 8
-# blocks, so its forward goes through the one-block kernel
+# the widest model the JAX package's Pallas GRU takes: its GRU's slices fit
+# no cluster of 8 blocks, so its recurrences go across the whole grid
 BIG_NODES = 512
+# the JAX package's synthetic-1k suite cell (benchmarks/suite.py
+# LARGE_CONFIGS): 1024 nodes, batch 8, the flagship's window and multi
+S1K_NODES, S1K_BATCH = 1024, 8
 # the README's COVID-19 command (--window_size 28 --horizon 28, multi_layer 5):
 # 25 nodes, D1 = 560, the JAX package's COVID-19 suite cell (benchmarks/suite.py)
 COVID_NODES, COVID_WINDOW, COVID_HORIZON = 25, 28, 28
@@ -302,6 +312,83 @@ def bf16_agreement(got, want, want_f32, atol_rel, rtol=0.0):
     return bad, worst, ratio, worst_rel
 
 
+# Past D1 = 720 the fixed 2^-8 above cannot judge a bf16 spectral arm: the
+# bf16 plain version's own f32 sum order moves it by more than that. Measured
+# on the CPU (torch 2.13; the bf16 plain saving forward and reread backward,
+# GLU weights of init_params(0), x and 1e-3 * g from numpy's generator at
+# seeds 0 and 1): the worst array's max |difference| over its largest entry
+# between f32 sums and f64 sums of the same bf16 roundings, and the f32 plain
+# version's distance to the f64-sum one:
+#   rows (B x N)   W, multi  D1    forward           backward          f32 plain
+#   185 (5 x 37)   12, 5     240   9.4e-4, 7.5e-4    1.27e-3, 1.33e-3  7.7e-3, 7.9e-3
+#   185 (5 x 37)   35, 5     700   1.28e-3, 1.23e-3  3.14e-3, 2.89e-3  7.7e-3, 7.2e-3
+#   240 (4 x 60)   35, 5     700   2.15e-3, 1.75e-3  2.57e-3, 3.89e-3  7.0e-3, 7.8e-3
+#   240 (4 x 60)   100, 5    2000  1.82e-3, 1.76e-3  4.58e-3, 5.04e-3  9.3e-3, 8.3e-3
+#   240 (4 x 60)   103, 5    2060  3.07e-3, 3.26e-3  4.16e-3, 5.73e-3  8.0e-3, 8.3e-3
+#   600 (10 x 60)  103, 5    2060  3.37e-3, 4.29e-3  3.62e-3, 3.38e-3  8.7e-3, 7.9e-3
+#   240 (4 x 60)   12, 64    3072  1.11e-3, 9.4e-4   2.65e-3, 2.33e-3  6.7e-3, 7.0e-3
+# So a kernel that is exactly right would fail a fixed 2^-8 there about half
+# the time, and max errors alone cannot tell bf16 from f32. Past D1 = 720 a
+# bf16 arm is held instead to the plain version with f64 sums (P64), with the
+# f32-sum plain version's own distance to it (P32 - P64) as the scale:
+#   1. each array: max|K - P64| <= max(2^-8 max|P64|, 2 max|P32 - P64|);
+#   2. over all arrays: |K - P64|_2 <= 2 |P32 - P64|_2 (no noisier than the
+#      plain version's own sum order, a factor 2 for another order);
+#   3. as below D1 = 720: |K - F|_2 >= BF16_CLOSER |K - P32|_2 (F: the f32
+#      plain version), which no f32 computation passes.
+BF16_NOISE_D1 = 720      # the widest D1 whose bf16 arms keep the fixed 2^-8 rule
+BF16_NOISE_FACTOR = 2.0
+
+
+def bf16_noise_agreement(got, p64, p32, f32):
+    """The bf16 rule past D1 = BF16_NOISE_D1 (above) for one set of arrays
+    (lists of tensors: the kernel's, the f64-sum and f32-sum bf16 plain
+    versions', the f32 plain version's): (failures as labels, the worst
+    max_abs_err of an array over its largest P64 entry, |K - P64|_2 /
+    |P32 - P64|_2, |K - F|_2 / |K - P32|_2)."""
+    import torch
+
+    bad, worst_rel, d_k64, d_3264, d_kf, d_k32 = [], 0.0, 0.0, 0.0, 0.0, 0.0
+    for i, arrays in enumerate(zip(got, p64, p32, f32)):
+        k, a64, a32, f = (t.detach().double().cpu() for t in arrays)
+        err, noise = torch.dist(k, a64, math.inf).item(), torch.dist(a32, a64, math.inf).item()
+        scale = a64.abs().max().item()
+        worst_rel = max(worst_rel, err / scale if scale > 0 else (math.inf if err else 0.0))
+        if not err <= max(BF16_ATOL_REL * scale, BF16_NOISE_FACTOR * noise):
+            bad.append(str(i))
+        d_k64 += torch.dist(k, a64).item() ** 2
+        d_3264 += torch.dist(a32, a64).item() ** 2
+        d_kf += torch.dist(k, f).item() ** 2
+        d_k32 += torch.dist(k, a32).item() ** 2
+    noise_ratio = math.sqrt(d_k64 / d_3264) if d_3264 > 0 else (math.inf if d_k64 else 0.0)
+    closer = math.sqrt(d_kf / d_k32) if d_k32 > 0 else math.inf
+    if not noise_ratio <= BF16_NOISE_FACTOR:
+        bad.append(f"L2 {noise_ratio:.2f} times the plain version's own noise")
+    if not closer >= BF16_CLOSER:
+        bad.append(f"{closer:.1f} times closer")
+    return bad, worst_rel, noise_ratio, closer
+
+
+def spectral_plain_arrays(x, glu, g, multi: int, compute_dtype: str, dtype=None):
+    """(forward arrays, backward arrays) of the spectral plain versions on x
+    [B, K, N, W], the six GLU dicts and g [B, K, N, W * multi], in `dtype`
+    (default x's; float64 copies of the same values give the f64-sum plain
+    version): the forward's output twice (serving and saving) and its 12
+    saved arrays; the recompute backward's dx and 24 gradients."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    dtype = dtype or x.dtype
+    x, g = x.to(dtype), g.to(dtype)
+    glu = [{s: {k: t.to(dtype) for k, t in p[s].items()} for s in p} for p in glu]
+    with torch.no_grad():
+        out, acts = cuda_spectral.spe_seq_cell_save_plain(x, glu, multi, compute_dtype)
+        dx, dglu = cuda_spectral.spe_seq_cell_bwd_reread_plain(x, glu, g, acts, multi,
+                                                               compute_dtype)
+    return [out, out] + list(acts), [dx] + cuda_spectral._flat(dglu)
+
+
 def leaf_params(params, device):
     """A copy of the tree on `device` whose leaves require a gradient."""
     from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
@@ -343,20 +430,12 @@ def backward_cases(rec, params, mcfg, dev):
     x = on_card(call["args"][1])
     g_gru = on_card(call["g"])  # [B, N, H]
     b, w, n = x.shape
-    h = n
     with torch.no_grad():
         x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
         a_all = gru["w_hh"].T.contiguous()
         _, saved = torch_impl.gru_scan(x_proj, a_all, gru["b_hh"], save=True)
 
-    cudnn_gru = cudnn_gru_like(gru, dev, train=True)
-    xs = x.permute(2, 0, 1).contiguous().requires_grad_(True)  # [N, B, W]
-    g_seq = g_gru.transpose(0, 1).contiguous()  # [N, B, H]
-
-    def cudnn_fwd_bwd():
-        with torch.enable_grad():
-            out = cudnn_gru(xs)[0]
-            return torch.autograd.grad(out, [xs, *cudnn_gru.parameters()], g_seq)
+    _, cudnn_fwd_bwd = cudnn_gru_calls(gru, x, g_gru)
 
     call = rec.calls["attention_kq"][0]
     key, query = on_card(call["args"][0]), on_card(call["args"][1])
@@ -395,9 +474,7 @@ def backward_cases(rec, params, mcfg, dev):
          lambda: cuda_gru.gru_scan_bwd_plain(saved, g_gru, a_all),
          ("graph_or_stream", cudnn_fwd_bwd),  # cuDNN forward plus backward
          # 140 dependent steps of 420-term sums in another order than cuBLAS
-         1e-5, 1e-4,
-         4 * (saved.numel() + g_gru.numel() + a_all.numel() + 3 * n * b * h),
-         2 * n * b * 3 * h * h + 14 * n * b * h),
+         1e-5, 1e-4, *gru_bwd_work(saved, g_gru, a_all)),
         ("attention_kq_bwd", "stemgnn_tpu_torch/csrc/attention.cu",
          "stemgnn_tpu/ops/pallas_attention.py:65",
          lambda: torch.cat(cuda_attention.attention_kq_bwd(
@@ -461,7 +538,7 @@ def forward_cases(params, mcfg, x):
     from stemgnn_tpu_torch.ops import cuda_spectral
 
     b, w, n = x.shape
-    h, k = n, 4
+    k = 4
     wm = w * mcfg.multi_layer
     d0, d1 = k * w, k * wm
     rows = b * n
@@ -492,9 +569,7 @@ def forward_cases(params, mcfg, x):
          lambda: cuda_gru.gru_over_nodes_plain(gru, x),
          lambda: cudnn_gru(xs)[0],
          # 140 dependent steps: sums reorder against cuBLAS in each step
-         1e-4, 0.0,
-         4 * (x.numel() + sum(t.numel() for t in gru.values()) + b * n * h),
-         2 * n * b * w * 3 * h + 2 * n * b * h * 3 * h),
+         1e-4, 0.0, *gru_fwd_work(gru, x)),
         ("attention_kq_fwd", "stemgnn_tpu_torch/csrc/attention.cu",
          "stemgnn_tpu/ops/pallas_attention.py:29",
          lambda: cuda_attention.attention_kq(key, query, mcfg.leaky_rate),
@@ -635,11 +710,20 @@ def bf16_cases(rec, params, mcfg, x):
     ]
 
 
-def one_block_cases(params, x, g_gru):
-    """The one-block GRU forward and backward as `forward_cases` and
+# The grid GRU kernels against their plain recurrences: the output, each of
+# the five saved planes and dxp within 1e-5 of their own largest entry (rtol
+# 1e-4, as the cluster backward), f32 sums in another order through up to
+# 2500 dependent steps, TF32 off.
+GRID_ATOL_REL, GRID_RTOL = 1e-5, 1e-4
+
+
+def grid_cases(params, x, g_gru):
+    """The grid GRU forward and backward as `forward_cases` and
     `backward_cases` give the others, at the shapes of the 512-node model's
-    serving path and train step: x [B, W, N], g_gru [B, N, H] the cotangent
-    of its GRU output in one train step of the CPU plain path."""
+    serving path and train step (a hidden size no cluster holds): x [B, W, N],
+    g_gru [B, N, H] the cotangent of its GRU output in one train step of the
+    CPU plain path. Both held with the atol scaled to the plain result's
+    largest entry."""
     import torch
 
     from stemgnn_tpu_torch.ops import cuda_gru, torch_impl
@@ -647,47 +731,117 @@ def one_block_cases(params, x, g_gru):
     b, w, n = x.shape
     h = n
     gru = params["gru"]
-    if (cuda_gru.launch_plan(b, h).route, cuda_gru.bwd_plan(b, h).route) != (
-            "one_block", "one_block"):
-        raise RuntimeError(f"hidden size {h} was expected to take the one-block route")
+    card = cuda_gru.card_limits(x.device)
+    routes = (cuda_gru.launch_plan(b, h, *card).route, cuda_gru.bwd_plan(b, h, *card).route)
+    if routes != ("grid", "grid"):
+        raise RuntimeError(f"hidden size {h} was expected to take the grid route: {routes}")
     with torch.no_grad():
         x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
         a_all = gru["w_hh"].T.contiguous()
         _, saved = torch_impl.gru_scan(x_proj, a_all, gru["b_hh"], save=True)
     g_gru = g_gru.to(x.device).contiguous()
-    cudnn_gru = cudnn_gru_like(gru, x.device)
-    xs = x.permute(2, 0, 1).contiguous()
-    cudnn_train = cudnn_gru_like(gru, x.device, train=True)
-    xs_grad = xs.clone().requires_grad_(True)
-    g_seq = g_gru.transpose(0, 1).contiguous()
-
-    def cudnn_fwd_bwd():
-        with torch.enable_grad():
-            out = cudnn_train(xs_grad)[0]
-            return torch.autograd.grad(out, [xs_grad, *cudnn_train.parameters()], g_seq)
-
+    cudnn_fwd, cudnn_fwd_bwd = cudnn_gru_calls(gru, x, g_gru)
     return [
-        ("gru_fwd_one_block", "stemgnn_tpu_torch/csrc/gru.cu",
+        ("gru_fwd_grid", "stemgnn_tpu_torch/csrc/gru.cu",
          "stemgnn_tpu/ops/pallas_gru.py:103",
          lambda: cuda_gru.gru_over_nodes(gru, x),
          lambda: cuda_gru.gru_over_nodes_plain(gru, x),
-         lambda: cudnn_gru(xs)[0],
-         1e-4, 0.0,  # as gru_fwd
-         4 * (x.numel() + sum(t.numel() for t in gru.values()) + b * n * h),
-         2 * n * b * w * 3 * h + 2 * n * b * h * 3 * h),
-        ("gru_bwd_one_block", "stemgnn_tpu_torch/csrc/gru.cu",
+         cudnn_fwd, GRID_ATOL_REL, GRID_RTOL, *gru_fwd_work(gru, x)),
+        ("gru_bwd_grid", "stemgnn_tpu_torch/csrc/gru.cu",
          "stemgnn_tpu/ops/pallas_gru.py:132",
          lambda: cuda_gru.gru_scan_bwd(saved, g_gru, a_all),
          lambda: cuda_gru.gru_scan_bwd_plain(saved, g_gru, a_all),
          ("graph_or_stream", cudnn_fwd_bwd),  # cuDNN forward plus backward
-         1e-5, 1e-4,  # as gru_bwd
-         4 * (saved.numel() + g_gru.numel() + a_all.numel() + 3 * n * b * h),
-         2 * n * b * 3 * h * h + 14 * n * b * h),
+         GRID_ATOL_REL, GRID_RTOL, *gru_bwd_work(saved, g_gru, a_all)),
     ]
 
 
+def gru_fwd_work(gru, x):
+    """(bytes, operations) of the GRU forward on x [B, W, N]: the input
+    projection and the recurrence, each input read once and the output
+    written once."""
+    b, w, n = x.shape
+    h = gru["w_hh"].shape[1]
+    return (4 * (x.numel() + sum(t.numel() for t in gru.values()) + b * n * h),
+            2 * n * b * w * 3 * h + 2 * n * b * h * 3 * h)
+
+
+def gru_bwd_work(saved, g, a_all):
+    """(bytes, operations) of the GRU backward: saved, g and W_hh^T read once,
+    dxp written once; the recurrence's products and its gate math."""
+    n, _, b, h = saved.shape
+    return (4 * (saved.numel() + g.numel() + a_all.numel() + 3 * n * b * h),
+            2 * n * b * 3 * h * h + 14 * n * b * h)
+
+
+def cudnn_gru_calls(gru, x, g):
+    """(forward, forward and backward under autograd) of torch.nn.GRU on
+    cuDNN with the weights of the port's `gru` tree, on x [B, W, N] and the
+    output cotangent g [B, N, H]: the GRU kernels' library yardstick."""
+    import torch
+
+    cudnn = cudnn_gru_like(gru, x.device)
+    cudnn_train = cudnn_gru_like(gru, x.device, train=True)
+    xs = x.permute(2, 0, 1).contiguous()  # [N, B, W], cuDNN's sequence-major input
+    xs_grad = xs.clone().requires_grad_(True)
+    g_seq = g.transpose(0, 1).contiguous()
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            out = cudnn_train(xs_grad)[0]
+            return torch.autograd.grad(out, [xs_grad, *cudnn_train.parameters()], g_seq)
+
+    return (lambda: cudnn(xs)[0]), fwd_bwd
+
+
+def grid_timings(dev):
+    """The grid GRU kernels at `synthetic-1k`'s shape (B = 8, H = N = 1024;
+    benchmarks/suite.py LARGE_CONFIGS) on seeded inputs, through the entry
+    points the model calls: held against the plain recurrences as
+    `grid_cases` holds them, and timed as graph replays beside the plain
+    versions, the bound and cuDNN (forward; forward and backward under
+    autograd). Printed only: the kernels line keeps the 512-node model's
+    shape. Returns an error message, or None."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_gru, torch_impl
+
+    b, h = 8, 1024
+    rng = np.random.default_rng(11)
+    bound_w = 1.0 / np.sqrt(h)
+
+    def card(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    gru = {"w_ih": card(rng.uniform(-bound_w, bound_w, (3 * h, WINDOW))),
+           "w_hh": card(rng.uniform(-bound_w, bound_w, (3 * h, h))),
+           "b_ih": card(rng.uniform(-bound_w, bound_w, 3 * h)),
+           "b_hh": card(rng.uniform(-bound_w, bound_w, 3 * h))}
+    x = card(rng.standard_normal((b, WINDOW, h)))
+    g = card(1e-2 * rng.standard_normal((b, h, h)))
+    with torch.no_grad():
+        x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
+        a_all = gru["w_hh"].T.contiguous()
+        _, saved = torch_impl.gru_scan(x_proj, a_all, gru["b_hh"], save=True)
+    cudnn_fwd, cudnn_fwd_bwd = cudnn_gru_calls(gru, x, g)
+    launches = (cuda_gru.gru_fwd_grid.launches, cuda_gru.gru_bwd_grid.launches)
+    fail = check_cases([
+        ("gru_fwd_grid", "", "", lambda: cuda_gru.gru_over_nodes(gru, x),
+         lambda: cuda_gru.gru_over_nodes_plain(gru, x), cudnn_fwd, GRID_ATOL_REL, GRID_RTOL,
+         *gru_fwd_work(gru, x)),
+        ("gru_bwd_grid", "", "", lambda: cuda_gru.gru_scan_bwd(saved, g, a_all),
+         lambda: cuda_gru.gru_scan_bwd_plain(saved, g, a_all),
+         ("graph_or_stream", cudnn_fwd_bwd), GRID_ATOL_REL, GRID_RTOL,
+         *gru_bwd_work(saved, g, a_all))],
+        {}, f"3 kernel, synthetic-1k shape B={b} H=N={h}", scaled=True, calls=2, replays=3)
+    if launches == (cuda_gru.gru_fwd_grid.launches, cuda_gru.gru_bwd_grid.launches):
+        return f"the grid GRU at B={b} H={h} launched no grid kernel"
+    return fail
+
+
 def shape_checks(dev):
-    """The GRU forward (cluster and one-block routes, both variants), the GRU
+    """The GRU forward (cluster and grid routes, both variants), the GRU
     backward (both routes, and each twice: bitwise the same) and the graph
     convolution against their plain versions at other shapes than the
     flagship's, untimed, on seeded inputs. Returns an error message, or None."""
@@ -697,20 +851,20 @@ def shape_checks(dev):
     from stemgnn_tpu_torch.ops import cuda_graph, cuda_gru, torch_impl
 
     rng = np.random.default_rng(3)
+    limits = cuda_gru.card_limits(dev)
 
     def card(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
 
     # ragged batches; H = 170 and 358 divide by no chosen cluster size (6, 8);
     # H = 20 is a cluster of one block, H = 37 of two; H = 512 fits no cluster
-    # of 8 and takes the one-block route
+    # of 8 and takes the grid route
     for b, h, route in ((26, 140, "cluster"), (6, 140, "cluster"), (1, 140, "cluster"),
                         (3, 20, "cluster"), (5, 37, "cluster"),
                         (32, 228, "cluster"), (32, 170, "cluster"),
                         (32, 358, "cluster"), (64, 140, "cluster"),
-                        (6, 512, "one_block"), (32, 512, "one_block"),
-                        (64, 512, "one_block")):
-        plan = cuda_gru.launch_plan(b, h)
+                        (6, 512, "grid"), (32, 512, "grid"), (64, 512, "grid")):
+        plan = cuda_gru.launch_plan(b, h, *limits)
         if plan.route != route:
             return f"gru launch_plan({b}, {h}) takes the {plan.route} route"
         bound = 1.0 / np.sqrt(h)
@@ -725,12 +879,12 @@ def shape_checks(dev):
                 errs = [(g - w_).abs().max().item()
                         for g, w_ in zip(got, want) if g is not None]
                 print(f"[3 kernel] gru forward B={b} H={h} {route} "
-                      f"{'saving' if save else 'serving'} (cluster {plan.cluster}, slice "
-                      f"{plan.slice}, {plan.groups} groups, {plan.smem} B): max_abs_err "
-                      f"{max(errs):.3e} (atol 1e-4)")
+                      f"{'saving' if save else 'serving'} ({plan.cluster} blocks a "
+                      f"recurrence, slice {plan.slice}, {plan.groups} groups, "
+                      f"{plan.smem} B): max_abs_err {max(errs):.3e} (atol 1e-4)")
                 if not max(errs) <= 1e-4:
                     return f"gru forward at B={b} H={h} ({route}) differs by {max(errs)}"
-    # the backward, both routes: H = 512 takes the one-block route, the others
+    # the backward, both routes: H = 512 takes the grid route, the others
     # clusters of 1 (H = 20), 2 (37), 5 (140) and 8 blocks (228, 358); the
     # forward's saved activations of seeded inputs, a seeded cotangent
     for h in (20, 37, 140, 228, 358, 512):
@@ -739,76 +893,73 @@ def shape_checks(dev):
         a_all = card(rng.uniform(-bound, bound, (h, 3 * h)))
         b_hh = card(rng.uniform(-bound, bound, 3 * h))
         for b in (1, 5, 26, 32, 64):
-            plan = cuda_gru.bwd_plan(b, h)
-            if plan.route != ("one_block" if h > 360 else "cluster"):
+            plan = cuda_gru.bwd_plan(b, h, *limits)
+            if plan.route != ("grid" if h > 360 else "cluster"):
                 return f"gru bwd_plan({b}, {h}) takes the {plan.route} route"
             x_proj = card(rng.standard_normal((n, b, 3 * h)))
             g = card(rng.standard_normal((b, n, h)))
             with torch.no_grad():
                 _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
+                want = torch_impl.gru_scan_bwd(saved, g, a_all)
                 got = cuda_gru.gru_scan_bwd(saved, g, a_all)
                 again = cuda_gru.gru_scan_bwd(saved, g, a_all)
                 torch.cuda.synchronize()
-                want = torch_impl.gru_scan_bwd(saved, g, a_all)
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
             ok = torch.allclose(got, want, atol=1e-5 * scale, rtol=1e-4)
             same = torch.equal(got, again)
-            print(f"[3 kernel] gru backward B={b} H={h} {plan.route} (cluster "
-                  f"{plan.cluster}, slice {plan.slice}, {plan.groups} groups, {plan.smem} "
-                  f"B): max_abs_err {err:.3e} (atol 1e-5 of the largest entry "
-                  f"{scale:.3e}, rtol 1e-4); two runs {'bitwise equal' if same else 'DIFFER'}")
+            print(f"[3 kernel] gru backward B={b} H={h} {plan.route} ({plan.cluster} blocks "
+                  f"a recurrence, slice {plan.slice}, {plan.groups} groups, {plan.smem} B): "
+                  f"max_abs_err {err:.3e} (atol 1e-5 of the largest entry {scale:.3e}, "
+                  f"rtol 1e-4); two runs {'bitwise equal' if same else 'DIFFER'}")
             if not ok or not same:
                 return (f"gru backward at B={b} H={h} ({plan.route}) differs by {err} "
                         f"(bitwise rerun: {same})")
-    # past a block's shared memory the one-block route keeps its group buffers
-    # in a device workspace: the forward at H = 2500, the backward at H = 1300
-    # and 2500, on a short node axis (each step reads all of W_hh), against the
-    # plain recurrence; and at H = 512, where both fit, the workspace route
-    # bitwise the shared-memory route
-    for kind, b, h, n in (("forward", 9, 2500, 8), ("backward", 9, 1300, 8),
-                          ("backward", 9, 2500, 8), ("forward", 32, 512, 16),
-                          ("backward", 32, 512, 16)):
-        backward = kind == "backward"
-        plan = cuda_gru.one_block_plan(b, h, backward=backward)
-        if (plan.workspace > 0) != (h > 512):
-            return f"gru one_block_plan({b}, {h}, {kind}) keeps its buffers in {plan}"
+    # the grid kernels through their own entry points at hidden sizes past the
+    # cluster's, the full node axis (N = H): H = 361 (3 units a block), 512
+    # (4), 1024 (8) and 1300 (10: the backward's dcat staged in chunks), 2500
+    # (19: the slice of W_hh^T read from L2 every step); both forward
+    # variants (the serving output bitwise the saving one), and the backward
+    # twice, bitwise
+    for b, h in ((32, 512), (8, 1024), (1, 361), (8, 361), (64, 361), (1, 512), (8, 512),
+                 (64, 512), (8, 1300), (8, 2500)):
+        n = h
+        plan, bplan = cuda_gru.launch_plan(b, h, *limits), cuda_gru.bwd_plan(b, h, *limits)
+        if (plan.route, bplan.route) != ("grid", "grid"):
+            return f"gru plans at B={b} H={h} take the {plan.route} route"
         bound = 1.0 / np.sqrt(h)
-        x_proj = card(rng.standard_normal((n, b, 3 * h)))
         a_all = card(rng.uniform(-bound, bound, (h, 3 * h)))
         b_hh = card(rng.uniform(-bound, bound, 3 * h))
+        x_proj = card(rng.standard_normal((n, b, 3 * h)))
+        g = card(rng.standard_normal((b, n, h)))
         with torch.no_grad():
-            want = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
-            if backward:
-                g = card(rng.standard_normal((b, n, h)))
-                got = [cuda_gru.gru_bwd_one_block(want[1], g, a_all, in_workspace=True)]
-                shared = ([cuda_gru.gru_bwd_one_block(want[1], g, a_all, in_workspace=False)]
-                          if h == 512 else None)
-                torch.cuda.synchronize()
-                want = [torch_impl.gru_scan_bwd(want[1], g, a_all)]
-                scale = want[0].abs().max().item()
-                atol, rtol = 1e-5 * scale, 1e-4
-            else:
-                got = cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh, save=True,
-                                                 in_workspace=True)
-                shared = (cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh, save=True,
-                                                     in_workspace=False)
-                          if h == 512 else None)
-                torch.cuda.synchronize()
-                atol, rtol = 1e-4, 0.0
-        err = max((t - w_).abs().max().item() for t, w_ in zip(got, want))
-        ok = all(torch.allclose(t, w_, atol=atol, rtol=rtol) for t, w_ in zip(got, want))
-        same = shared is None or all(torch.equal(t, u) for t, u in zip(got, shared))
-        where = (f"workspace of {plan.workspace} B" if plan.workspace
-                 else f"{plan.smem} B of shared memory; the workspace route forced")
-        print(f"[3 kernel] gru {kind} one-block B={b} H={h} N={n} ({where}): max_abs_err "
-              f"{err:.3e} (atol {atol:.3g}, rtol {rtol:g})"
-              + ("" if shared is None else
-                 f"; workspace route and shared-memory route "
-                 f"{'bitwise equal' if same else 'DIFFER'}"))
-        if not ok or not same:
-            return (f"gru {kind} one-block at B={b} H={h} differs by {err} (workspace "
-                    f"route bitwise the shared-memory route: {same})")
+            out_s, saved_s = cuda_gru.gru_fwd_grid(x_proj, a_all, b_hh, save=True)
+            out_f, _ = cuda_gru.gru_fwd_grid(x_proj, a_all, b_hh)
+            want, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
+            got = cuda_gru.gru_bwd_grid(saved, g, a_all)
+            again = cuda_gru.gru_bwd_grid(saved, g, a_all)
+            torch.cuda.synchronize()
+            dwant = torch_impl.gru_scan_bwd(saved, g, a_all)
+        pairs = [("output", out_s, want), ("dxp", got, dwant)] + [
+            (f"saved plane {q}", saved_s[:, q], saved[:, q]) for q in range(5)]
+        bad, worst = [], 0.0
+        for label, t, ref in pairs:
+            err, scale = (t - ref).abs().max().item(), ref.abs().max().item()
+            worst = max(worst, err / scale if scale > 0 else err)
+            if not torch.allclose(t, ref, atol=GRID_ATOL_REL * scale, rtol=GRID_RTOL):
+                bad.append(label)
+        if not torch.equal(out_f, out_s):
+            bad.append("serving output not bitwise the saving one")
+        same = torch.equal(got, again)
+        print(f"[3 kernel] gru grid B={b} H=N={h} ({plan.cluster} blocks of {plan.slice} "
+              f"units, {plan.threads} threads, slice {'resident' if plan.resident else 'from L2'}"
+              f", h in chunks of {plan.chunk}, dcat in chunks of {bplan.chunk}): output, the 5 "
+              f"saved planes and dxp within {GRID_ATOL_REL:g} of their largest entry, rtol "
+              f"{GRID_RTOL:g} (worst {worst:.3e} of it): {'yes' if not bad else bad}; serving "
+              f"output bitwise the saving one: {torch.equal(out_f, out_s)}; two backwards "
+              f"{'bitwise equal' if same else 'DIFFER'}")
+        if bad or not same:
+            return f"gru grid at B={b} H={h}: {bad} (bitwise rerun: {same})"
     # ragged batch; ragged N and a W that is no multiple of 4; an N in two
     # panels; the zero order alone
     for k, n, b, w in ((4, 140, 26, 12), (4, 228, 6, 12), (4, 37, 5, 7),
@@ -836,6 +987,33 @@ def shape_checks(dev):
 SPE_FWD_ATOL_REL, SPE_FWD_RTOL = 1e-5, 1e-4
 
 
+def spectral_bounds(b: int, n: int, w: int, m: int, glu, bf16: bool):
+    """The least device ms of the four spectral entries (serving forward,
+    saving forward, reread backward, recompute backward) on [B, 4, N, W] rows
+    at multi m: bytes (each input read once, each output written once; the
+    bf16 arm's operands as bf16) against the f32 CUDA-core or bf16
+    tensor-core rate, the operations as `forward_cases` and `backward_cases`
+    count them."""
+    k, wm = 4, w * m
+    d0, d1, rows = k * w, k * wm, b * n
+    glu_2d = sum(p[s]["w"].numel() for p in glu for s in ("left", "right"))
+    glu_b = sum(p[s]["b"].numel() for p in glu for s in ("left", "right"))
+    spe_flops = 2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm) + 8 * k * w * w * d1
+    glu_flops = 2 * rows * (4 * d0 * d1 + 8 * d1 * d1)
+    reread_flops = 2 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1
+    if bf16:
+        fwd_bytes = 2 * (rows * d0 + glu_2d) + 4 * (glu_b + rows * d1)
+        bwd_bytes = 2 * (rows * d0 + rows * d1 + glu_2d) + 4 * (rows * d0 + glu_2d + glu_b)
+    else:
+        fwd_bytes = 4 * (rows * d0 + glu_2d + glu_b + rows * d1)
+        bwd_bytes = 4 * (2 * rows * d0 + rows * d1 + 2 * (glu_2d + glu_b))
+    acts = 4 * 12 * rows * d1
+    rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
+    return [bound(nbytes, flops, rate)[0] for nbytes, flops in (
+        (fwd_bytes, spe_flops), (fwd_bytes + acts, spe_flops),
+        (bwd_bytes + acts, reread_flops), (bwd_bytes, glu_flops + reread_flops))]
+
+
 def spectral_checks(dev, glu, multi: int):
     """The spectral forwards and backwards of both arms against their plain
     versions, untimed, on seeded inputs: at the flagship rows (4480) and at row
@@ -844,18 +1022,23 @@ def spectral_checks(dev, glu, multi: int):
     of 4 columns that straddle two windows; multi 6: D1 = 288, past one block's
     column groups; W = 25: D1 = 500; W = 28: D1 = 560, the README's COVID-19
     command; past D1 = 680, where the rows kernel takes 8-row tiles: W = 35,
-    D1 = 700, and multi 15, D1 = 720; and, f32 only, W = 100, D1 = 2000),
-    with GLU weights from init_params. f32: the serving forward's output,
-    and the saving forward's output and 12 arrays, each within
-    SPE_FWD_ATOL_REL of its own largest entry; the saved rows past the end
-    finite; the backwards' dx and each of the 24 gradients within atol 1e-5
-    of their own largest entry and rtol 1e-3. bf16: each of those arrays
-    within BF16_ATOL_REL of its largest entry and the arm BF16_CLOSER times
-    closer to the bf16 plain versions than to the f32 ones. Both arms: the
+    D1 = 700, and multi 15, D1 = 720; W = 100, D1 = 2000), with GLU weights
+    from init_params; then past D1 = 2048, where the wide kernels take the
+    shapes, on inputs of their own seeds 0 and 1: W = 103 at multi 5 (D1 =
+    2060, the wide chain's buffers in shared memory) on 240 and 600 rows, and
+    multi 64 at W = 12 (D1 = 3072, in a device workspace) on 240 rows, each
+    timed (seed 0) beside its bound. f32: the serving forward's output, and
+    the saving forward's output and 12 arrays, each within SPE_FWD_ATOL_REL
+    of its own largest entry; the saved rows past the end finite; the
+    backwards' dx and each of the 24 gradients within atol 1e-5 of their own
+    largest entry and rtol 1e-3. bf16 up to D1 = BF16_NOISE_D1: each of those
+    arrays within BF16_ATOL_REL of its largest entry and the arm BF16_CLOSER
+    times closer to the bf16 plain versions than to the f32 ones
+    (`bf16_agreement`); past it, `bf16_noise_agreement` against the bf16
+    plain version with f64 sums, its two ratios printed. Both arms: the
     reread gradients bitwise the recompute gradients, a second reread bitwise
     the first, the saving forward's output bitwise the serving forward's.
-    Then a D1 past 2048 refused before any launch. Returns an error message,
-    or None."""
+    Returns an error message, or None."""
     import numpy as np
     import torch
 
@@ -865,21 +1048,30 @@ def spectral_checks(dev, glu, multi: int):
 
     rng = np.random.default_rng(4)
     k = 4
-    cases = [(32, 140, WINDOW, multi, glu), (5, 37, WINDOW, multi, glu),
-             (3, 37, WINDOW, multi, glu)]
+
+    def init_glu(n, w, m):
+        cfg = StemGNNConfig(units=n, window_size=w, horizon=HORIZON, multi_layer=m)
+        return init_params(0, cfg, device=dev)["blocks"][0]["glu"]
+
+    def card(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    # (B, N, W, multi, GLU weights, the generator of x and g, timed)
+    cases = [(32, 140, WINDOW, multi, glu, rng, False), (5, 37, WINDOW, multi, glu, rng, False),
+             (3, 37, WINDOW, multi, glu, rng, False)]
     for w, m in ((7, 5), (10, 5), (WINDOW, 6), (25, 5), (28, 5), (35, 5), (WINDOW, 15),
                  (100, 5)):
-        cfg = StemGNNConfig(units=37, window_size=w, horizon=HORIZON, multi_layer=m)
-        cases.append((5, 37, w, m, init_params(0, cfg, device=dev)["blocks"][0]["glu"]))
-    for b, n, w, m, glu_w in cases:
-        x = torch.from_numpy(rng.standard_normal((b, k, n, w)).astype(np.float32)).to(dev)
-        g = torch.from_numpy((1e-3 * rng.standard_normal((b, k, n, w * m))).astype(
-            np.float32)).to(dev)
-        rows = b * n
+        cases.append((5, 37, w, m, init_glu(37, w, m), rng, False))
+    for b, n, w, m in ((4, 60, 103, 5), (10, 60, 103, 5), (4, 60, WINDOW, 64)):
+        for seed in (0, 1):
+            cases.append((b, n, w, m, init_glu(n, w, m), np.random.default_rng(seed),
+                          seed == 0))
+    for b, n, w, m, glu_w, gen, timed in cases:
+        x = card(gen.standard_normal((b, k, n, w)))
+        g = card(1e-3 * gen.standard_normal((b, k, n, w * m)))
+        rows, d1 = b * n, 4 * w * m
         f32_plain = None
-        # bf16 at D1 = 2000 and 185 rows: a weight gradient sums 185 rows, so
-        # one rounding flip weighs more than the tolerance allows for
-        for cd in ("float32",) + (("bfloat16",) if 4 * w * m <= 720 else ()):
+        for cd in ("float32", "bfloat16"):
             bf16 = cd == "bfloat16"
             with torch.no_grad():
                 out = cuda_spectral.spe_seq_cell(x, glu_w, m, cd)
@@ -887,81 +1079,93 @@ def spectral_checks(dev, glu, multi: int):
                 torch.cuda.synchronize()
                 want_out = cuda_spectral.spe_seq_cell_plain(x, glu_w, m, cd)
                 want_s, want_acts = cuda_spectral.spe_seq_cell_save_plain(x, glu_w, m, cd)
-            fwd = [out, out_s] + [acts[i, :rows] for i in range(12)]
-            fwd_want = [want_out, want_s] + list(want_acts)
-            if bf16:
-                fwd_bad, fwd_err, ratio, rel = bf16_agreement(fwd, fwd_want, f32_plain[0],
-                                                              BF16_ATOL_REL)
-                fwd_bad = [str(i) for i in fwd_bad] + (
-                    [] if ratio >= BF16_CLOSER else [f"{ratio:.1f} times closer"])
-                tol = (f"within {BF16_ATOL_REL:.4g} of its largest entry (worst {rel:.2e}), "
-                       f"and {ratio:.1f} times closer to the bf16 plain versions than to "
-                       f"the f32 ones")
-            else:
-                fwd_err, fwd_bad = 0.0, []
-                for name, t, ref in zip(["serving output", "saving output"] +
-                                        [f"saved array {i}" for i in range(12)], fwd, fwd_want):
-                    fwd_err = max(fwd_err, (t - ref).abs().max().item())
-                    if not torch.allclose(t, ref, rtol=SPE_FWD_RTOL,
-                                          atol=SPE_FWD_ATOL_REL * ref.abs().max().item()):
-                        fwd_bad.append(name)
-                tol = (f"within atol {SPE_FWD_ATOL_REL:g} of its largest entry, rtol "
-                       f"{SPE_FWD_RTOL:g}")
-            if not torch.isfinite(acts).all():
-                fwd_bad.append("saved rows past the end not finite")
-            if not torch.equal(out, out_s):
-                fwd_bad.append("saving output not bitwise the serving output")
-            print(f"[3 kernel] spectral forwards {cd} B={b} N={n} W={w} multi={m} ({rows} "
-                  f"rows, D1 = {4 * w * m}): max_abs_err {fwd_err:.3e} (the serving output, "
-                  f"the saving output and each of the 12 saved arrays {tol}: "
-                  f"{'yes' if not fwd_bad else 'NO, ' + ', '.join(fwd_bad)})")
-            if fwd_bad:
-                return (f"spectral forwards {cd} at B={b} N={n} W={w} multi={m}: out of "
-                        f"tolerance {fwd_bad}, max_abs_err {fwd_err}")
-            with torch.no_grad():
                 runs = [cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts, m, cd)
                         for _ in range(2)]
                 runs.append(cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m, cd))
                 torch.cuda.synchronize()
                 want = cuda_spectral.spe_seq_cell_bwd_plain(x, glu_w, g, m, cd)
+            fwd = [out, out_s] + [acts[i, :rows] for i in range(12)]
+            fwd_want = [want_out, want_s] + list(want_acts)
             leaves = [[dx] + cuda_spectral._flat(dglu) for dx, dglu in (*runs, want)]
             got, again, recompute, want = leaves
-            if bf16:
-                bad, err, ratio, rel = bf16_agreement(got, want, f32_plain[1], BF16_ATOL_REL)
-                bad = [("dx" if i == 0 else f"gradient {i - 1}") for i in bad] + (
-                    [] if ratio >= BF16_CLOSER else [f"{ratio:.1f} times closer"])
-                tol = (f"within {BF16_ATOL_REL:.4g} of its largest entry (worst {rel:.2e}), "
-                       f"and {ratio:.1f} times closer to the bf16 plain version than to "
-                       f"the f32 one")
+            fwd_names = ["serving output", "saving output"] + [f"saved array {i}"
+                                                               for i in range(12)]
+            bwd_names = ["dx"] + [f"gradient {i}" for i in range(24)]
+            if bf16 and d1 <= BF16_NOISE_D1:
+                results = []
+                for part, kern, plain, f32 in (("fwd", fwd, fwd_want, f32_plain[0]),
+                                               ("bwd", got, want, f32_plain[1])):
+                    bad, err, ratio, rel = bf16_agreement(kern, plain, f32, BF16_ATOL_REL)
+                    names = fwd_names if part == "fwd" else bwd_names
+                    bad = [names[i] for i in bad] + (
+                        [] if ratio >= BF16_CLOSER else [f"{ratio:.1f} times closer"])
+                    results.append((bad, err, f"within {BF16_ATOL_REL:.4g} of its largest "
+                                    f"entry (worst {rel:.2e}), and {ratio:.1f} times closer "
+                                    f"to the bf16 plain version than to the f32 one"))
+            elif bf16:
+                # past D1 = 720: against the bf16 plain version with f64 sums
+                p64 = spectral_plain_arrays(x, glu_w, g, m, cd, torch.float64)
+                results = []
+                for part, kern, p64_, p32, f32 in (
+                        ("fwd", fwd, p64[0], fwd_want, f32_plain[0]),
+                        ("bwd", got, p64[1], want, f32_plain[1])):
+                    bad, rel, noise, closer = bf16_noise_agreement(kern, p64_, p32, f32)
+                    names = fwd_names if part == "fwd" else bwd_names
+                    bad = [names[int(i)] if i.isdigit() else i for i in bad]
+                    err = max((a - b_).abs().max().item() for a, b_ in zip(kern, p32))
+                    results.append((bad, err, (
+                        f"against the f64-sum bf16 plain version: each within "
+                        f"max({BF16_ATOL_REL:.4g} of its largest entry, {BF16_NOISE_FACTOR:g} "
+                        f"x the f32-sum one's distance) (worst {rel:.2e} of its largest "
+                        f"entry); L2 {noise:.3f} times the f32-sum one's distance, at most "
+                        f"{BF16_NOISE_FACTOR:g}; {closer:.1f} times closer to the bf16 "
+                        f"plain version than to the f32 one, at least {BF16_CLOSER:g}")))
             else:
-                err, bad = 0.0, []
-                for i, (t, ref) in enumerate(zip(got, want)):
-                    err = max(err, (t - ref).abs().max().item())
-                    if not torch.allclose(t, ref, atol=1e-5 * ref.abs().max().item(),
-                                          rtol=1e-3):
-                        bad.append("dx" if i == 0 else f"gradient {i - 1}")
-                tol = "within atol 1e-5 of its largest entry, rtol 1e-3"
+                results = []
+                for kern, plain, names, atol_rel, rtol in (
+                        (fwd, fwd_want, fwd_names, SPE_FWD_ATOL_REL, SPE_FWD_RTOL),
+                        (got, want, bwd_names, 1e-5, 1e-3)):
+                    err, bad = 0.0, []
+                    for name, t, ref in zip(names, kern, plain):
+                        err = max(err, (t - ref).abs().max().item())
+                        if not torch.allclose(t, ref, rtol=rtol,
+                                              atol=atol_rel * ref.abs().max().item()):
+                            bad.append(name)
+                    results.append((bad, err, f"within atol {atol_rel:g} of its largest "
+                                    f"entry, rtol {rtol:g}"))
                 f32_plain = (fwd_want, want)
+            (fwd_bad, fwd_err, fwd_tol), (bad, err, tol) = results
+            if not torch.isfinite(acts).all():
+                fwd_bad.append("saved rows past the end not finite")
+            if not torch.equal(out, out_s):
+                fwd_bad.append("saving output not bitwise the serving output")
+            print(f"[3 kernel] spectral forwards {cd} B={b} N={n} W={w} multi={m} ({rows} "
+                  f"rows, D1 = {d1}): max_abs_err {fwd_err:.3e} (the serving output, the "
+                  f"saving output and each of the 12 saved arrays {fwd_tol}: "
+                  f"{'yes' if not fwd_bad else 'NO, ' + ', '.join(fwd_bad)})")
             same = all(torch.equal(a, b_) and torch.equal(a, c)
                        for a, b_, c in zip(got, again, recompute))
             print(f"[3 kernel] spectral backward {cd} B={b} N={n} W={w} multi={m} ({rows} "
                   f"rows): reread max_abs_err {err:.3e} (each of dx and the 24 gradients "
                   f"{tol}: {'yes' if not bad else 'NO, ' + ', '.join(bad)}); two rereads "
                   f"and the recompute backward {'bitwise equal' if same else 'DIFFER'}")
-            if bad or not same:
-                return (f"spectral backward {cd} at B={b} N={n} W={w} multi={m}: out of "
-                        f"tolerance {bad}, max_abs_err {err} (bitwise reruns and recompute: "
-                        f"{same})")
-    # past the kernels' shape rule (D1 = 2060 > 2048) every entry refuses before
-    # any launch, and says so
-    cfg = StemGNNConfig(units=2, window_size=103, horizon=HORIZON, multi_layer=5)
-    glu_w = init_params(0, cfg, device=dev)["blocks"][0]["glu"]
-    try:
-        cuda_spectral.spe_seq_cell(torch.zeros((1, k, 2, 103), device=dev), glu_w, 5)
-    except RuntimeError as exc:
-        print(f"[3 kernel] spectral forward at W=103 multi=5 (D1 = 2060) refused: {exc}")
-    else:
-        return "the spectral forward ran at D1 = 2060, past its shape rule"
+            if fwd_bad or bad or not same:
+                return (f"spectral {cd} at B={b} N={n} W={w} multi={m}: forwards out of "
+                        f"tolerance {fwd_bad}, max_abs_err {fwd_err}; backward {bad}, "
+                        f"max_abs_err {err} (bitwise reruns and recompute: {same})")
+            if timed:  # the wide kernels' shapes: their times beside their bounds
+                with torch.no_grad():
+                    ms = [cuda_ms(fn, calls=2, replays=3) for fn in (
+                        lambda: cuda_spectral.spe_seq_cell(x, glu_w, m, cd),
+                        lambda: cuda_spectral.spe_seq_cell_save(x, glu_w, m, cd),
+                        lambda: cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts, m, cd),
+                        lambda: cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m, cd))]
+                bounds = spectral_bounds(b, n, w, m, glu_w, bf16)
+                print(f"[3 kernel] spectral {cd} B={b} N={n} W={w} multi={m} (D1 = {d1}), "
+                      f"device ms a wrapper call (bound): " + ", ".join(
+                          f"{label} {t:.5f} ({lo:.5f})" for label, t, lo in zip(
+                              ("forward", "saving forward", "reread backward",
+                               "recompute backward"), ms, bounds)))
     return None
 
 
@@ -1215,7 +1419,7 @@ def run() -> int:
     x_big, y_big = engine.gather_windows(torch.from_numpy(big_set.data).to(dev),
                                          hi_big.to(dev), cfg.window_size, cfg.horizon)
     # one train step of the 512-node model on the CPU plain path: the
-    # reference of phase 4's train step and the one-block backward's cotangent
+    # reference of phase 4's train step and the large-H backwards' cotangent
     mask_big = torch.from_numpy(
         np.random.default_rng(8).random((BATCH, BIG_NODES, BIG_NODES))
         < 1.0 - mcfg_big.dropout_rate)
@@ -1248,12 +1452,12 @@ def run() -> int:
     results = {}
     fail = check_cases(forward_cases(params, mcfg, x), results, "3 kernel")
     if fail is None:
-        # the one-block route: a call takes milliseconds
-        fwd_case, bwd_case = one_block_cases(params_big, x_big,
-                                             rec_big.calls["gru_over_nodes"][0]["g"])
-        fail = (check_cases([fwd_case], results, "3 kernel", calls=2, replays=3)
-                or check_cases([bwd_case], results, "3 kernel", scaled=True, calls=2,
-                               replays=3))
+        # the grid route (a hidden size no cluster holds): a call takes
+        # milliseconds; then the same at synthetic-1k's shape, printed only
+        fail = (check_cases(grid_cases(params_big, x_big,
+                                       rec_big.calls["gru_over_nodes"][0]["g"]),
+                            results, "3 kernel", scaled=True, calls=2, replays=3)
+                or grid_timings(dev))
     if fail is None:
         fail = check_cases(backward_cases(rec, params, mcfg, dev), results,
                            "3 kernel", scaled=True)
@@ -1314,26 +1518,23 @@ def run() -> int:
     if not all(same.values()) or not torch.equal(out_b, out_bs):
         return _fail(f"the bf16 spectral arm is not bitwise repeatable: {same}")
     del acts_b, out_b, out_bs, runs, flat
-    with torch.no_grad():
-        gru = params["gru"]
-        x_proj = torch_impl.gru_input_projection(gru, x).contiguous()
-        a_all, b_hh = gru["w_hh"].T.contiguous(), gru["b_hh"]
-        serve_ms = cuda_ms(lambda: cuda_gru._launch_fwd(x_proj, a_all, b_hh, False))
-        save_ms = cuda_ms(lambda: cuda_gru._launch_fwd(x_proj, a_all, b_hh, True))
-        one_serve_ms = cuda_ms(lambda: cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh))
-        one_save_ms = cuda_ms(lambda: cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh,
-                                                                 save=True))
-        proj_ms = cuda_ms(lambda: (
-            torch_impl.gru_input_projection(gru, x).contiguous(),
-            gru["w_hh"].T.contiguous()))
-    plan = cuda_gru.launch_plan(x_proj.shape[1], a_all.shape[0])
-    print(f"[3 kernel] gru_fwd recurrence alone (without the input projection) at "
-          f"B={x_proj.shape[1]} H={a_all.shape[0]}: across clusters ({plan.groups} "
-          f"clusters of {plan.cluster} blocks, {plan.threads} threads, {plan.smem} B "
-          f"each) serving variant {serve_ms:.5f} ms, saving variant {save_ms:.5f} ms; "
-          f"the one-block kernel at the same shape serving {one_serve_ms:.5f} ms, "
-          f"saving {one_save_ms:.5f} ms; the wrapper's input projection and copy of "
-          f"W_hh^T {proj_ms:.5f} ms")
+    limits = cuda_gru.card_limits(dev)
+    for label, gru, xb in (("gru_fwd", params["gru"], x), ("gru_fwd_grid", params_big["gru"],
+                                                           x_big)):
+        with torch.no_grad():
+            x_proj = torch_impl.gru_input_projection(gru, xb).contiguous()
+            a_all, b_hh = gru["w_hh"].T.contiguous(), gru["b_hh"]
+            calls, replays = (20, 10) if label == "gru_fwd" else (2, 3)
+            serve_ms, save_ms = (cuda_ms(lambda s=s: cuda_gru._launch_fwd(x_proj, a_all, b_hh, s),
+                                         calls=calls, replays=replays) for s in (False, True))
+            proj_ms = cuda_ms(lambda: (torch_impl.gru_input_projection(gru, xb).contiguous(),
+                                       gru["w_hh"].T.contiguous()))
+        plan = cuda_gru.launch_plan(x_proj.shape[1], a_all.shape[0], *limits)
+        print(f"[3 kernel] {label} recurrence alone (without the input projection) at "
+              f"B={x_proj.shape[1]} H={a_all.shape[0]}, {plan.route} route ({plan.groups} "
+              f"groups of {plan.cluster} blocks, {plan.threads} threads, {plan.smem} B "
+              f"each): serving variant {serve_ms:.5f} ms, saving variant {save_ms:.5f} ms; "
+              f"the wrapper's input projection and copy of W_hh^T {proj_ms:.5f} ms")
 
     # --- 4. serving path ---
     train_dir = os.path.join(cfg.output_dir, cfg.dataset, "train")
@@ -1434,15 +1635,15 @@ def run() -> int:
     if bf_err > 1e-3:
         return _fail(f"bf16 card forecasts differ from the CPU bf16 plain path by {bf_err}")
 
-    # the 512-node model: two eager batches, each one launch of the one-block
-    # GRU forward and of the other forward kernels
+    # the 512-node model: two eager batches, each one launch of the grid GRU
+    # forward and of the other forward kernels
     step_big = engine.make_eval_step(mcfg_big, dev)
     ops.reset_launches()
     fc_big, _ = engine.inference_batched(step_big, params_big, big_set, BATCH, dev)
     launches, replayed = take_launches(ops, results)
     want = dict.fromkeys(ops.KERNELS, 0)
     for name, n in fwd_per_batch.items():
-        want["gru_fwd_one_block" if name == "gru_fwd" else name] = 2 * n
+        want["gru_fwd_grid" if name == "gru_fwd" else name] = 2 * n
     if launches != want or any(replayed.values()):
         return _fail(f"{BIG_NODES}-node serving path launch counts {launches} and "
                      f"{replayed}, expected {want}")
@@ -1455,8 +1656,9 @@ def run() -> int:
                      "and finite")
     big_err = float(abs(fc_big - fc_big_cpu).max())
     print(f"[4 serving path] {BIG_NODES}-node model, {len(big_set)} windows in 2 "
-          f"batches through engine.inference_batched: wrapper launches {launches}; "
-          f"forecasts, card vs CPU plain path: max_abs_err {big_err:.3e} (atol 1e-3)")
+          f"batches through engine.inference_batched: "
+          f"wrapper launches {launches}; forecasts, card vs CPU plain path: "
+          f"max_abs_err {big_err:.3e} (atol 1e-3)")
     if big_err > 1e-3:
         return _fail(f"{BIG_NODES}-node card forecasts differ from the CPU plain path "
                      f"by {big_err}")
@@ -1471,7 +1673,7 @@ def run() -> int:
     spe_pair = (("spectral_fwd_save", "spectral_bwd_reread")
                 if cuda_spectral.SAVE_ACTS_BWD else ("spectral_fwd", "spectral_bwd"))
     want = dict.fromkeys(ops.KERNELS, 0)
-    want.update({"gru_fwd_one_block": 1, "gru_bwd_one_block": 1, "attention_kq_fwd": 1,
+    want.update({"gru_fwd_grid": 1, "gru_bwd_grid": 1, "attention_kq_fwd": 1,
                  "attention_kq_bwd": 1, "cheb_graph_conv_fwd": 2, spe_pair[0]: 2,
                  spe_pair[1]: 2})
     if launches != want or any(replayed.values()):
@@ -1479,15 +1681,57 @@ def run() -> int:
                      f"{replayed}, expected {want}")
     bad, worst, worst_name = compare_grads(grads_big, grads_big_cpu)
     loss_err = abs(loss_big.item() - loss_big_cpu.item())
-    print(f"[4 serving path] {BIG_NODES}-node model, one train step on the card: wrapper "
-          f"launches {launches}; loss {loss_big.item():.6f} (abs err {loss_err:.3e}, atol "
-          f"1e-5); {len(grads_big)} gradients against the CPU plain path, worst "
-          f"max_abs_err {worst:.3e} at {worst_name} (atol {GRAD_ATOL_REL:g} of each "
-          f"gradient's largest entry, rtol {GRAD_RTOL:g})")
+    print(f"[4 serving path] {BIG_NODES}-node model, one train step on the card: "
+          f"wrapper launches {launches}; loss {loss_big.item():.6f} "
+          f"(abs err {loss_err:.3e}, atol 1e-5); {len(grads_big)} gradients against "
+          f"the CPU plain path, worst max_abs_err {worst:.3e} at {worst_name} (atol "
+          f"{GRAD_ATOL_REL:g} of each gradient's largest entry, rtol {GRAD_RTOL:g})")
     if loss_err > 1e-5 or bad:
         return _fail(f"{BIG_NODES}-node step gradients differ from the CPU plain path: "
                      f"loss err {loss_err}, leaves (name, err, max) {bad[:5]}")
     del params_big_gpu, grads_big
+
+    # one train step of synthetic-1k's shape (benchmarks/suite.py
+    # LARGE_CONFIGS: N = 1024, W = 12, horizon 3, multi 5, batch 8, dense) on a
+    # seeded series: the grid kernels at H = 1024, counters set to 0 just
+    # before and read just after, the loss and gradients against the CPU
+    # plain path's step with the same dropout mask
+    mcfg_1k = cfg.model_config(S1K_NODES)
+    params_1k = init_params(cfg.seed, mcfg_1k, device=dev)
+    series_1k = np.random.default_rng(10).standard_normal(
+        (WINDOW + HORIZON + S1K_BATCH - 1, S1K_NODES))
+    set_1k = WindowDataset(series_1k, WINDOW, HORIZON, cfg.norm_method,
+                           compute_norm_stats(series_1k, cfg.norm_method))
+    hi_1k = torch.from_numpy(set_1k.epoch_batches(S1K_BATCH, shuffle=False)[0]).long()
+    x_1k, y_1k = engine.gather_windows(torch.from_numpy(set_1k.data).to(dev), hi_1k.to(dev),
+                                       WINDOW, HORIZON)
+    mask_1k = torch.from_numpy(
+        np.random.default_rng(12).random((S1K_BATCH, S1K_NODES, S1K_NODES))
+        < 1.0 - mcfg_1k.dropout_rate)
+    t0 = time.perf_counter()
+    loss_1k_cpu, grads_1k_cpu = step_grads(leaf_params(params_1k, "cpu"), mcfg_1k,
+                                           x_1k.cpu(), y_1k.cpu(), mask_1k)
+    cpu_1k_s = time.perf_counter() - t0
+    params_1k_gpu = leaf_params(params_1k, dev)
+    ops.reset_launches()
+    loss_1k, grads_1k = step_grads(params_1k_gpu, mcfg_1k, x_1k, y_1k, mask_1k.to(dev))
+    torch.cuda.synchronize()
+    launches, replayed = take_launches(ops, results)
+    if launches != want or any(replayed.values()):
+        return _fail(f"synthetic-1k train step launch counts {launches} and {replayed}, "
+                     f"expected {want}")
+    bad, worst, worst_name = compare_grads(grads_1k, grads_1k_cpu)
+    loss_err = abs(loss_1k.item() - loss_1k_cpu.item())
+    print(f"[4 serving path] synthetic-1k shape (N={S1K_NODES}, W={WINDOW}, horizon "
+          f"{HORIZON}, multi {MULTI}, batch {S1K_BATCH}), one train step on the card: wrapper "
+          f"launches {launches}; loss {loss_1k.item():.6f} (abs err {loss_err:.3e}, atol "
+          f"1e-5); {len(grads_1k)} gradients against the CPU plain path ({cpu_1k_s:.1f} s "
+          f"on the host), worst max_abs_err {worst:.3e} at {worst_name} (atol "
+          f"{GRAD_ATOL_REL:g} of each gradient's largest entry, rtol {GRAD_RTOL:g})")
+    if loss_err > 1e-5 or bad:
+        return _fail(f"synthetic-1k step gradients differ from the CPU plain path: loss "
+                     f"err {loss_err}, leaves (name, err, max) {bad[:5]}")
+    del params_1k_gpu, grads_1k, grads_1k_cpu
 
     # the COVID-19 shape: one batch through engine.inference_batched and one
     # train step, counters set to 0 just before and read just after each,

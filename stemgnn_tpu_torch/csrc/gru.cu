@@ -11,7 +11,7 @@
 // sv[t] = (r, z, hpn, c, h - c), hpn = hp_n, which `gru_fwd_save` writes as
 // [N, 5, B, H].
 //
-// Backward (`gru_bwd_cluster`, `gru_bwd_one_block`): replaces `_bwd_kernel`
+// Backward (`gru_bwd_cluster`, `gru_bwd_grid`): replaces `_bwd_kernel`
 // (reached from `_vjp_bwd`): the
 // reverse recurrence over sv with the cotangent g [B, N, H] of the outputs,
 //   dh_total = g[t] + dh
@@ -58,8 +58,8 @@
 //   every run. The lane then does the gate math of (unit, row p).
 // The plan (rows, groups, cluster size, slice, shared row stride, threads,
 // shared bytes) is made in Python from (B, H) and passed in. Where no slice
-// fits at the largest cluster size, the wrapper launches the one-block
-// kernel below instead (`gru_fwd_one_block`), by shape.
+// fits at the largest cluster size, the wrapper launches the grid kernel
+// below instead (`gru_fwd_grid`), by shape.
 //
 // Backward design (`gru_bwd_cluster`), the same cut:
 // - Groups of R = 4 batch rows are independent clusters; block c of a
@@ -87,21 +87,10 @@
 // forward's, and each k of the sum brings one float4 of dcat for one weight
 // (5 bytes of shared memory an FMA, the forward's 2.3).
 //
-// One-block kernels (`gru_fwd_one_block`, `gru_bwd_one_block`, the large-H
-// route): a block per group of `rows` batch rows (a multiple of 8, from the
-// plan), the grid over the groups, since batch rows never exchange anything.
-// Each block loops over the N steps. The forward keeps h in shared memory,
-// double-buffered ([H][rows + 4] layout, two copies) so one __syncthreads()
-// per step separates reads of h from writes of h'; A and bh are read from
-// global memory, where they stay L2-resident. Each thread owns one hidden
-// unit j (all three of its gate columns) for 8 batch rows, and reads and
-// writes its 8 rows of h as two float4 (see kPad). The backward keeps dh
-// [H][rows + 4] and the step's (dr, dz, dn * r) [3H][rows + 4] in shared
-// memory, the same thread owning unit j for 8 batch rows in the elementwise
-// half and in the product, so dh needs no exchange and a step takes two
-// barriers; it reads A^T = W_hh ([3H, H] row-major) from L2 with
-// neighbouring threads on neighbouring addresses. sv is laid out
-// [N, 5, B, H] so all kernels touch it with the threads running along H.
+// Grid kernels (`gru_fwd_grid`, `gru_bwd_grid`, every H no cluster holds):
+// the cut of the cluster kernels spread over the whole card, the exchange
+// through L2; see "the grid kernels" below. sv is laid out [N, 5, B, H] so
+// all kernels touch it with the threads running along H.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -113,18 +102,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBSub = 8;  // batch rows per thread
-constexpr int kMaxThreads = 1024;
 constexpr int kClusterThreads = 256;  // a block of the cluster kernel has at most these
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
-
-// Rows of the [H][.] shared arrays are kPad floats longer than the padded
-// batch: with the lanes of a warp along j, a thread's float4 at [j * Bs + b0]
-// then falls 4 banks after its neighbour's, so the 8 lanes served together
-// cover all 32 banks. At a stride of 32 every such access was a 32-way
-// conflict.
-constexpr int kPad = 4;
 
 // --- pieces of the cluster kernels ---
 
@@ -411,158 +391,325 @@ gru_bwd_cluster_kernel(const float* __restrict__ sv, const float* __restrict__ g
   cluster.sync();  // no block leaves while another may still send to it
 }
 
-// --- the one-block kernels: a block per group of `rows` batch rows ---
+// --- the grid kernels: one recurrence spread over every SM of the card ---
 //
-// A group's buffers live in shared memory or, where they do not fit a block's
-// (ws not null: H above 2421 in the forward, 1210 in the backward), in the
-// group's slice of a workspace in device memory (kWs). The arithmetic is the
-// same: __syncthreads() orders a block's writes to device memory for its own
-// threads as it orders its shared-memory writes. The place is a template
-// argument: a pointer that may point to either compiles to generic loads,
-// which made the shared-memory route 1.5-2.4x slower on an H100.
+// A cooperative launch of P blocks (at most the blocks the card holds at
+// once, so all of them run together); block c owns the hidden units of slice
+// c (S = ceil(H / P) of them, the last slice short) for all B rows. Its part
+// of W_hh^T, the forward's [H][3S] gate columns or the backward's [S][3H]
+// rows, is copied into shared memory once and stays there for all N steps
+// where it fits (kResA; else it is read from L2 every step). A step's values
+// go through L2: each block writes its slice of them (the forward h', the
+// backward (dr, dz, dn * r)) into a double-buffered exchange buffer in the
+// workspace, [2][H][Bp] or [2][3H][Bp] (Bp: B rounded up to 8, the rows past
+// B zero), then counts itself on a step counter with a release add; before
+// the next step's product one thread of every block spins with acquire loads
+// until the counter has all P arrivals of the step, and the block copies the
+// whole buffer into shared memory, KC rows at a time (all of it where it
+// fits), each copy followed by its part of the product. The double buffer is
+// safe by the cluster kernels' argument: a block writes a buffer at step t + 1
+// only after every block has
+// counted step t, which each did after its last read of that buffer at step
+// t - 1. The entry zeroes the counter and the buffers (h of step 0, the
+// padding rows) with a cudaMemsetAsync on the launch's stream just before
+// the launch, so a captured CUDA graph replays both.
+// Inside a block a warp's task is 4 units by 8 rows and one of KS k-splits:
+// lane (unit, p) sums k = p + 8 ks, p + 8 ks + 8 KS, ... for the 8 rows (and
+// 3 gates, forward), `transpose_reduce` adds the 8 lanes' partials in a fixed
+// tree and hands lane p the sums of row p, which are added to shared memory
+// chunk after chunk; after a barrier a thread per (unit, row) adds the KS
+// splits in order and does the gate math. No atomics in any sum: the same
+// bits on every run.
+// x_proj (forward) and sv, g (backward) of the next step are copied into
+// shared memory by cp.async a step ahead.
+// Bound: the f32 operations, 2 B H 3H a step (0.39 ms at B = 32, H = N =
+// 512). What sets the pace on an H100 is the exchange: every block reads the
+// whole of a step's values from L2 (at B = 32, H = 512: h 64 KB, dcat 192 KB
+// a block, 8.4 and 25 MB a step over the card) and waits out the counter's
+// round trip. `kernel_variants gru_grid` takes each piece out (PERF.md): at
+// B = 32, H = 512 the backward's staging of dcat is 5.1 of its 11.0 us a
+// step, the counter's wait 1.1; the forward's product 2.4 of 6.9, staging 2.0.
 
-template <bool kSave, bool kWs>
-__global__ void __launch_bounds__(kMaxThreads)
-gru_fwd_one_block_kernel(const float* __restrict__ xp, const float* __restrict__ A,
-               const float* __restrict__ bh, float* __restrict__ out,
-               float* __restrict__ sv, float* ws, int N, int B, int H, int rows) {
-  extern __shared__ __align__(16) float smem[];
-  const int Bs = rows + kPad;
-  const int g0 = blockIdx.x * rows;  // the group's first batch row
-  float* buf = kWs ? ws + (long)blockIdx.x * 2 * H * Bs : smem;
-  float* h_cur = buf;
-  float* h_next = buf + (long)H * Bs;
-  for (int e = threadIdx.x; e < 2 * H * Bs; e += blockDim.x) buf[e] = 0.f;
+constexpr int kGridRows = 8;                   // batch rows of a warp's task
+constexpr int kGridUnits = 32 / kGridRows;     // hidden units of a warp's task
+constexpr int kGridThreads = 512;
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Counts this block on the step counter once all its threads' writes of the
+// step are done: the barrier orders them before thread 0's add, and the add's
+// release makes them visible to whoever acquires the count (no fence: one
+// more before the add cost 0.3-0.4 us a step on an H100, `kernel_variants
+// gru_grid`).
+__device__ __forceinline__ void grid_arrive(unsigned* counter) {
   __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
+}
 
-  const int H3 = 3 * H;
-  const int items = H * (rows / kBSub);
-  for (int t = 0; t < N; ++t) {
-    for (int item = threadIdx.x; item < items; item += blockDim.x) {
-      const int j = item % H;
-      const int b0 = (item / H) * kBSub;
-      float ar[kBSub] = {}, az[kBSub] = {}, an[kBSub] = {};
-      const float* a = A + j;
-      for (int k = 0; k < H; ++k) {
-        const float wr = a[(long)k * H3];
-        const float wz = a[(long)k * H3 + H];
-        const float wn = a[(long)k * H3 + 2 * H];
-        float hv[kBSub];
-        load8(h_cur + k * Bs + b0, hv);
+// Holds the block until the counter reaches `target`. An arrival that never
+// comes is a fault: after about ten seconds the kernel traps, as
+// `mbarrier_wait` does.
+__device__ __forceinline__ void grid_wait(const unsigned* counter, unsigned target) {
+  if (threadIdx.x == 0) {
+    const long long start = clock64();
+    while (ld_acquire_gpu(counter) < target)
+      if (clock64() - start > 20000000000LL) __trap();
+  }
+  __syncthreads();
+}
+
+// Copies `rows` rows of a [.][Bp] exchange buffer into shared memory with
+// Bs = Bp + 4 floats a row (the 8 k-parts a warp reads then fall in
+// different banks), through L2 only (a line another SM wrote must not come
+// from this SM's L1). A thread has 8 loads in flight before it stores.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows, int Bp) {
+  const int q = Bp / 4, total = rows * q;
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  for (int e0 = threadIdx.x; e0 < total; e0 += 8 * blockDim.x) {
+    float4 v[8];
 #pragma unroll
-        for (int i = 0; i < kBSub; ++i) {
-          ar[i] = fmaf(hv[i], wr, ar[i]);
-          az[i] = fmaf(hv[i], wz, az[i]);
-          an[i] = fmaf(hv[i], wn, an[i]);
-        }
-      }
-      const float br = bh[j], bz = bh[H + j], bn = bh[2 * H + j];
-      float h_prev[kBSub], h_new[kBSub] = {};
-      load8(h_cur + j * Bs + b0, h_prev);
-#pragma unroll
-      for (int i = 0; i < kBSub; ++i) {
-        const int b = g0 + b0 + i;
-        if (b < B) {
-          const float* x = xp + ((long)t * B + b) * H3;
-          const float r = sigmoidf(x[j] + (ar[i] + br));
-          const float z = sigmoidf(x[H + j] + (az[i] + bz));
-          const float hpn = an[i] + bn;
-          const float c = tanhf(x[2 * H + j] + r * hpn);
-          const float h = (1.f - z) * c + z * h_prev[i];
-          if (kSave) {
-            const long plane = (long)B * H;
-            float* s = sv + (long)t * 5 * plane + (long)b * H + j;
-            s[0] = r;
-            s[plane] = z;
-            s[2 * plane] = hpn;
-            s[3 * plane] = c;
-            s[4 * plane] = h_prev[i] - c;
-          }
-          h_new[i] = h;
-          out[((long)b * N + t) * H + j] = h;
-        }
-      }
-      store8(h_next + j * Bs + b0, h_new);
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < total) v[u] = __ldcg(s4 + e);
     }
-    __syncthreads();
-    float* tmp = h_cur;
-    h_cur = h_next;
-    h_next = tmp;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < total) {
+        const int k = e / q;
+        *reinterpret_cast<float4*>(dst + k * (Bp + 4) + (e - k * q) * 4) = v[u];
+      }
+    }
   }
 }
 
-template <bool kWs>
-__global__ void __launch_bounds__(kMaxThreads)
-gru_bwd_one_block_kernel(const float* __restrict__ sv, const float* __restrict__ g,
-                         const float* __restrict__ At, float* __restrict__ dxp, float* ws,
-                         int N, int B, int H, int rows) {
+// Grid (P), cooperative. ws: the step counter (16 bytes), then hx [2][H][Bp].
+// Shared memory: As [H][RS] (kResA; r at column 0, z at S, n at 2S; RS an
+// odd multiple of 4, so the 8 k-parts by 4 units of a warp fall in 32 banks),
+// hs [KC][Bp + 4] (KC rows of h at a time), xs [2][3][S][Bp], red
+// [KS][3][S][Bp] (the sums, added up over the chunks of KC rows in order).
+template <bool kSave, bool kResA>
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_fwd_grid_kernel(const float* __restrict__ xp, const float* __restrict__ A,
+                    const float* __restrict__ bh, float* __restrict__ out,
+                    float* __restrict__ sv, float* ws, int N, int B, int H, int S, int KS,
+                    int RS, int KC) {
+  constexpr int R = kGridRows, JW = kGridUnits;
   extern __shared__ __align__(16) float smem[];
-  const int Bs = rows + kPad;
-  const int g0 = blockIdx.x * rows;  // the group's first batch row
-  const int H3 = 3 * H;
-  float* buf = kWs ? ws + (long)blockIdx.x * 4 * H * Bs : smem;
-  float* dh = buf;                   // [H][Bs]
-  float* dcat = buf + (long)H * Bs;  // [3H][Bs]: dr, dz, dn * r
-  for (int e = threadIdx.x; e < 4 * H * Bs; e += blockDim.x) buf[e] = 0.f;
-  __syncthreads();
+  const int Bp = (B + R - 1) / R * R, Bs = Bp + 4, H3 = 3 * H;
+  const int j0 = blockIdx.x * S, Sc = min(S, H - j0);
+  unsigned* counter = reinterpret_cast<unsigned*>(ws);
+  float* hx = ws + 4;
+  float* As = smem;
+  float* hs = As + (kResA ? H * RS : 0);
+  float* xs = hs + KC * Bs;
+  float* red = xs + 2 * 3 * S * Bp;
 
-  const long plane = (long)B * H;
-  const int items = H * (rows / kBSub);
-  for (int t = N - 1; t >= 0; --t) {
-    // gate gradients of this thread's (j, 8 batch rows); dh keeps dh_total * z
-    for (int item = threadIdx.x; item < items; item += blockDim.x) {
-      const int j = item % H;
-      const int b0 = (item / H) * kBSub;
-      float dh_in[kBSub];
-      load8(dh + j * Bs + b0, dh_in);
-      float vr[kBSub] = {}, vz[kBSub] = {}, vn[kBSub] = {}, vh[kBSub] = {};
+  // x_proj of step t (its [3][Sc][B] part) into xs[t & 1]
+  auto prefetch_x = [&](int t) {
+    float* dst = xs + (t & 1) * 3 * S * Bp;
+    for (int e = threadIdx.x; e < 3 * Sc * B; e += blockDim.x) {
+      const int u = e % Sc, g = (e / Sc) % 3, b = e / (3 * Sc);
+      cp_async4(dst + (g * S + u) * Bp + b, xp + ((long)t * B + b) * H3 + g * H + j0 + u);
+    }
+  };
+  if (kResA)
+    for (int g = 0; g < 3; ++g) copy_panel_async(As + g * S, RS, A + g * H + j0, H3, H, Sc);
+  prefetch_x(0);
+  cp_async_commit();
+
+  const int UG = (S + JW - 1) / JW, tasks = UG * (Bp / R) * KS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int p = lane / JW, ul = lane % JW;
+  const unsigned P = gridDim.x;
+  for (int t = 0; t < N; ++t) {
+    const float* hcur = hx + (t & 1) * H * Bp;
+    float* hnext = hx + ((t + 1) & 1) * H * Bp;
+    if (t + 1 < N) prefetch_x(t + 1);
+    cp_async_commit();
+    cp_async_wait_group<1>();  // As (t = 0) and this step's x_proj
+    if (t > 0) grid_wait(counter, P * t); else __syncthreads();
+
+    for (int c0 = 0; c0 < H; c0 += KC) {
+      const int c1 = min(H, c0 + KC);
+      stage_rows(hs, hcur + c0 * Bp, c1 - c0, Bp);
+      __syncthreads();
+      for (int task = warp; task < tasks; task += warps) {
+        const int ks = task % KS, rest = task / KS, uu = (rest % UG) * JW + ul;
+        const int r0 = rest / UG * R;
+        const int us = min(uu, Sc - 1);  // a task's spare lanes repeat the last unit
+        const float* a = kResA ? As + us : A + j0 + us;
+        const int lda = kResA ? RS : H3, go = kResA ? S : H;
+        float acc[3][R] = {};
+#pragma unroll 4
+        for (int k = c0 + p + R * ks; k < c1; k += R * KS) {
+          const float* ak = a + (long)k * lda;
+          const float wr = kResA ? ak[0] : __ldg(ak), wz = kResA ? ak[go] : __ldg(ak + go),
+                      wn = kResA ? ak[2 * go] : __ldg(ak + 2 * go);
+          float hv[R];
+          load8(hs + (k - c0) * Bs + r0, hv);
 #pragma unroll
-      for (int i = 0; i < kBSub; ++i) {
-        const int b = g0 + b0 + i;
-        if (b < B) {
-          const float* s = sv + (long)t * 5 * plane + (long)b * H + j;
-          const float r = s[0], z = s[plane], hpn = s[2 * plane];
-          const float c = s[3 * plane], hmc = s[4 * plane];
-          const float dh_total = g[((long)b * N + t) * H + j] + dh_in[i];
-          const float dz = dh_total * hmc * z * (1.f - z);
-          const float dn = dh_total * (1.f - z) * (1.f - c * c);
-          const float dr = dn * hpn * r * (1.f - r);
-          float* d = dxp + ((long)t * B + b) * H3 + j;
-          d[0] = dr;
-          d[H] = dz;
-          d[2 * H] = dn;
-          vr[i] = dr;
-          vz[i] = dz;
-          vn[i] = dn * r;
-          vh[i] = dh_total * z;
+          for (int i = 0; i < R; ++i) {
+            acc[0][i] = fmaf(hv[i], wr, acc[0][i]);
+            acc[1][i] = fmaf(hv[i], wz, acc[1][i]);
+            acc[2][i] = fmaf(hv[i], wn, acc[2][i]);
+          }
+        }
+        transpose_reduce<R, 3>(acc, p, JW);
+        if (uu < Sc)
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            float* d = red + ((ks * 3 + g) * S + uu) * Bp + r0 + p;
+            *d = c0 == 0 ? acc[g][0] : *d + acc[g][0];
+          }
+      }
+      __syncthreads();  // the chunk's reads are done before the next one lands
+    }
+
+    const float* xv = xs + (t & 1) * 3 * S * Bp;
+    for (int it = threadIdx.x; it < Sc * B; it += blockDim.x) {
+      const int u = it % Sc, b = it / Sc, j = j0 + u;
+      float hp[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        float s = red[(g * S + u) * Bp + b];
+        for (int ks = 1; ks < KS; ++ks) s += red[((ks * 3 + g) * S + u) * Bp + b];
+        hp[g] = s;
+      }
+      const float h_prev = __ldcg(hcur + j * Bp + b);
+      const float r = sigmoidf(xv[u * Bp + b] + (hp[0] + __ldg(bh + j)));
+      const float z = sigmoidf(xv[(S + u) * Bp + b] + (hp[1] + __ldg(bh + H + j)));
+      const float hpn = hp[2] + __ldg(bh + 2 * H + j);
+      const float c = tanhf(xv[(2 * S + u) * Bp + b] + r * hpn);
+      const float h = (1.f - z) * c + z * h_prev;
+      __stcg(hnext + j * Bp + b, h);
+      out[((long)b * N + t) * H + j] = h;
+      if (kSave) {
+        const long plane = (long)B * H;
+        float* s = sv + (long)t * 5 * plane + (long)b * H + j;
+        s[0] = r;
+        s[plane] = z;
+        s[2 * plane] = hpn;
+        s[3 * plane] = c;
+        s[4 * plane] = h_prev - c;
+      }
+    }
+    grid_arrive(counter);
+  }
+}
+
+// Grid (P), cooperative. ws: the step counter (16 bytes), then dx [2][3H][Bp]
+// (a step's dr, dz, dn * r). Shared memory: Au [S][LD] (kResA: the slice's
+// rows of A, LD = 8 (mod 32) floats, so a warp's 4 rows by 8 k-parts fall in
+// 32 banks), dsb [KC][Bp + 4] (KC rows of dcat at a time), ss [2][6][S][Bp]
+// (sv[t] and g[t]), red [KS][S][Bp], dh [S][Bp], dhz [S][Bp] (dh_total * z).
+template <bool kResA>
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_bwd_grid_kernel(const float* __restrict__ sv, const float* __restrict__ g,
+                    const float* __restrict__ A, float* __restrict__ dxp, float* ws, int N,
+                    int B, int H, int S, int KS, int LD, int KC) {
+  constexpr int R = kGridRows, JW = kGridUnits;
+  extern __shared__ __align__(16) float smem[];
+  const int Bp = (B + R - 1) / R * R, Bs = Bp + 4, H3 = 3 * H;
+  const int j0 = blockIdx.x * S, Sc = min(S, H - j0);
+  const long plane = (long)B * H;
+  unsigned* counter = reinterpret_cast<unsigned*>(ws);
+  float* dx = ws + 4;
+  float* Au = smem;
+  float* dsb = Au + (kResA ? S * LD : 0);
+  float* ss = dsb + KC * Bs;
+  float* red = ss + 2 * 6 * S * Bp;
+  float* dh = red + KS * S * Bp;
+  float* dhz = dh + S * Bp;
+
+  // sv[t] (r, z, hpn, c, h - c) and g[t] of the slice into ss[buf]
+  auto prefetch_s = [&](int t, int buf) {
+    float* dst = ss + buf * 6 * S * Bp;
+    for (int e = threadIdx.x; e < 6 * Sc * B; e += blockDim.x) {
+      const int u = e % Sc, q = (e / Sc) % 6, b = e / (6 * Sc);
+      const float* src = q < 5 ? sv + ((long)t * 5 + q) * plane + (long)b * H + j0 + u
+                               : g + ((long)b * N + t) * H + j0 + u;
+      cp_async4(dst + (q * S + u) * Bp + b, src);
+    }
+  };
+  if (kResA) copy_panel_async(Au, LD, A + (long)j0 * H3, H3, Sc, H3);
+  prefetch_s(N - 1, 0);
+  cp_async_commit();
+  for (int e = threadIdx.x; e < S * Bp; e += blockDim.x) dh[e] = 0.f;
+
+  const int UG = (S + JW - 1) / JW, tasks = UG * (Bp / R) * KS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int p = lane / JW, ul = lane % JW;
+  const unsigned P = gridDim.x;
+  for (int u = 0; u < N; ++u) {
+    const int t = N - 1 - u;
+    float* dcur = dx + (u & 1) * H3 * Bp;
+    if (t > 0) prefetch_s(t - 1, (u + 1) & 1);
+    cp_async_commit();
+    cp_async_wait_group<1>();  // Au (u = 0) and this step's sv, g
+    __syncthreads();           // ... and dh of the step before
+
+    const float* sc = ss + (u & 1) * 6 * S * Bp;
+    for (int it = threadIdx.x; it < Sc * B; it += blockDim.x) {
+      const int v = it % Sc, b = it / Sc, j = j0 + v;
+      const float r = sc[v * Bp + b], z = sc[(S + v) * Bp + b];
+      const float hpn = sc[(2 * S + v) * Bp + b], c = sc[(3 * S + v) * Bp + b];
+      const float hmc = sc[(4 * S + v) * Bp + b];
+      const float dh_total = sc[(5 * S + v) * Bp + b] + dh[v * Bp + b];
+      const float dz = dh_total * hmc * z * (1.f - z);
+      const float dn = dh_total * (1.f - z) * (1.f - c * c);
+      const float dr = dn * hpn * r * (1.f - r);
+      float* d = dxp + ((long)t * B + b) * H3 + j;
+      d[0] = dr;
+      d[H] = dz;
+      d[2 * H] = dn;
+      __stcg(dcur + j * Bp + b, dr);
+      __stcg(dcur + (H + j) * Bp + b, dz);
+      __stcg(dcur + (2 * H + j) * Bp + b, dn * r);
+      dhz[v * Bp + b] = dh_total * z;
+    }
+    if (t == 0) break;  // the first step's dh is nobody's
+    grid_arrive(counter);
+    grid_wait(counter, P * (u + 1));
+
+    for (int c0 = 0; c0 < H3; c0 += KC) {
+      const int c1 = min(H3, c0 + KC);
+      stage_rows(dsb, dcur + c0 * Bp, c1 - c0, Bp);
+      __syncthreads();
+      for (int task = warp; task < tasks; task += warps) {
+        const int ks = task % KS, rest = task / KS, uu = (rest % UG) * JW + ul;
+        const int r0 = rest / UG * R;
+        const int us = min(uu, Sc - 1);
+        const float* w = kResA ? Au + us * LD : A + (long)(j0 + us) * H3;
+        float acc[1][R] = {};
+#pragma unroll 4
+        for (int c = c0 + p + R * ks; c < c1; c += R * KS) {
+          const float wk = kResA ? w[c] : __ldg(w + c);
+          float dv[R];
+          load8(dsb + (c - c0) * Bs + r0, dv);
+#pragma unroll
+          for (int i = 0; i < R; ++i) acc[0][i] = fmaf(dv[i], wk, acc[0][i]);
+        }
+        transpose_reduce<R, 1>(acc, p, JW);
+        if (uu < Sc) {
+          float* d = red + (ks * S + uu) * Bp + r0 + p;
+          *d = c0 == 0 ? acc[0][0] : *d + acc[0][0];
         }
       }
-      store8(dcat + j * Bs + b0, vr);
-      store8(dcat + (H + j) * Bs + b0, vz);
-      store8(dcat + (2 * H + j) * Bs + b0, vn);
-      store8(dh + j * Bs + b0, vh);
+      __syncthreads();  // the chunk's reads are done before the next one lands
     }
-    __syncthreads();
-    // dh[b][j] += sum_c dcat[b][c] * At[c][j]
-    for (int item = threadIdx.x; item < items; item += blockDim.x) {
-      const int j = item % H;
-      const int b0 = (item / H) * kBSub;
-      float acc[kBSub] = {};
-      const float* a = At + j;
-      for (int c = 0; c < H3; ++c) {
-        const float w = a[(long)c * H];
-        float v[kBSub];
-        load8(dcat + c * Bs + b0, v);
-#pragma unroll
-        for (int i = 0; i < kBSub; ++i) acc[i] = fmaf(v[i], w, acc[i]);
-      }
-      float dh_z[kBSub];
-      load8(dh + j * Bs + b0, dh_z);
-#pragma unroll
-      for (int i = 0; i < kBSub; ++i) acc[i] += dh_z[i];
-      store8(dh + j * Bs + b0, acc);
+
+    for (int it = threadIdx.x; it < Sc * B; it += blockDim.x) {
+      const int v = it % Sc, b = it / Sc;
+      float s = red[v * Bp + b];
+      for (int ks = 1; ks < KS; ++ks) s += red[(ks * S + v) * Bp + b];
+      dh[v * Bp + b] = dhz[v * Bp + b] + s;
     }
-    __syncthreads();
   }
 }
 
@@ -595,18 +742,55 @@ int launch_clustered(void (*kernel)(Params...), int cluster, int groups, int thr
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// Launches a one-block kernel on `groups` blocks.
+// Zeroes the first `ws_bytes` of ws (the step counter and exchange buffers),
+// then launches a grid kernel on `blocks` blocks cooperatively: the launch is
+// refused (cudaErrorCooperativeLaunchTooLarge) unless every block can be
+// resident at once, which the kernel's spinning needs.
 template <typename... Params, typename... Args>
-int launch_groups(void (*kernel)(Params...), int groups, int threads, int smem,
-                  void* stream, Args... args) {
+int launch_grid(void (*kernel)(Params...), int blocks, int threads, int smem, float* ws,
+                long ws_bytes, void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<groups, threads, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if ((long)per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaMemsetAsync(ws, 0, ws_bytes, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// bytes of a grid kernel's workspace: the counter and two buffers of `rows` x Bp
+long grid_ws_bytes(int rows, int B) {
+  return 16 + 2L * rows * ((B + kGridRows - 1) / kGridRows * kGridRows) * 4;
 }
 
 }  // namespace
+
+// The current device's SMs and the bytes of shared memory a block can opt in
+// to: what ops/cuda_gru.py `grid_plan` lays a grid recurrence over.
+extern "C" int gru_device_limits(int* sms, int* smem_per_block) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
 
 // The forward across a thread-block cluster per group of `rows` batch rows.
 // The plan comes from ops/cuda_gru.py `launch_plan`: grid (cluster, groups),
@@ -627,20 +811,43 @@ extern "C" int gru_fwd_cluster(const float* xp, const float* A, const float* bh,
                           row_stride);
 }
 
-// The forward in a block per group of `rows` batch rows (a multiple of 8),
-// for an H whose slices fit no cluster. The plan comes from ops/cuda_gru.py
-// `one_block_plan`: `smem` bytes of shared memory a block, or 0 and ws, a
-// workspace of groups * 2 * H * (rows + 4) floats. sv as above.
-extern "C" int gru_fwd_one_block(const float* xp, const float* A, const float* bh,
-                                 float* out, float* sv, float* ws, int N, int B, int H,
-                                 int rows, int groups, int threads, int smem, void* stream) {
-  if (rows % kBSub || (smem == 0) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
-  const auto kernel = sv ? (ws ? gru_fwd_one_block_kernel<true, true>
-                               : gru_fwd_one_block_kernel<true, false>)
-                         : (ws ? gru_fwd_one_block_kernel<false, true>
-                               : gru_fwd_one_block_kernel<false, false>);
-  return launch_groups(kernel, groups, threads, smem, stream, xp, A, bh, out, sv, ws, N, B,
-                       H, rows);
+// The forward across the whole card, for an H no cluster holds. The plan
+// comes from ops/cuda_gru.py `grid_plan`: `blocks` blocks of `slice` units,
+// `ksplit` k-splits a task, `row_stride` floats a row of the resident slice,
+// `threads`, `smem` bytes; `resident` keeps the slice of W_hh^T in shared
+// memory, `chunk` rows of each step's h are copied there at a time. ws:
+// 16 + 8 H Bp bytes (Bp: B rounded up to 8), zeroed here before the launch.
+// sv as above.
+extern "C" int gru_fwd_grid(const float* xp, const float* A, const float* bh, float* out,
+                            float* sv, float* ws, int N, int B, int H, int blocks, int slice,
+                            int ksplit, int row_stride, int threads, int smem, int resident,
+                            int chunk, void* stream) {
+  if (threads > kGridThreads || ksplit < 1 || chunk < 1 || (long)blocks * slice < H ||
+      (long)(blocks - 1) * slice >= H)
+    return (int)cudaErrorInvalidValue;
+  using K = void (*)(const float*, const float*, const float*, float*, float*, float*, int,
+                     int, int, int, int, int, int);
+  static const K kernels[2][2] = {
+      {gru_fwd_grid_kernel<false, false>, gru_fwd_grid_kernel<false, true>},
+      {gru_fwd_grid_kernel<true, false>, gru_fwd_grid_kernel<true, true>}};
+  return launch_grid(kernels[sv != nullptr][resident != 0], blocks, threads, smem, ws,
+                     grid_ws_bytes(H, B), stream, xp, A, bh, out, sv, ws, N, B, H, slice,
+                     ksplit, row_stride, chunk);
+}
+
+// The backward across the whole card, by ops/cuda_gru.py `grid_plan(...,
+// backward=True)`: A = W_hh^T [H, 3H] as the cluster backward reads it,
+// `row_stride` floats a resident row. ws: 16 + 24 H Bp bytes, zeroed here.
+extern "C" int gru_bwd_grid(const float* sv, const float* g, const float* A, float* dxp,
+                            float* ws, int N, int B, int H, int blocks, int slice, int ksplit,
+                            int row_stride, int threads, int smem, int resident, int chunk,
+                            void* stream) {
+  if (threads > kGridThreads || ksplit < 1 || chunk < 1 || (long)blocks * slice < H ||
+      (long)(blocks - 1) * slice >= H)
+    return (int)cudaErrorInvalidValue;
+  return launch_grid(resident ? gru_bwd_grid_kernel<true> : gru_bwd_grid_kernel<false>, blocks,
+                     threads, smem, ws, grid_ws_bytes(3 * H, B), stream, sv, g, A, dxp, ws, N,
+                     B, H, slice, ksplit, row_stride, chunk);
 }
 
 // The backward across a thread-block cluster per group of `rows` batch rows,
@@ -653,15 +860,4 @@ extern "C" int gru_bwd_cluster(const float* sv, const float* g, const float* A,
   if (rows != kRows) return (int)cudaErrorInvalidValue;
   return launch_clustered(gru_bwd_cluster_kernel<kRows>, cluster, groups, threads, smem,
                           stream, sv, g, A, dxp, N, B, H, slice, row_stride);
-}
-
-// The backward in a block per group of `rows` batch rows, for an H whose
-// slices fit no cluster. At = A^T = W_hh, [3H, H] row-major. smem and ws as
-// for the forward, the workspace groups * 4 * H * (rows + 4) floats.
-extern "C" int gru_bwd_one_block(const float* sv, const float* g, const float* At,
-                                 float* dxp, float* ws, int N, int B, int H, int rows,
-                                 int groups, int threads, int smem, void* stream) {
-  if (rows % kBSub || (smem == 0) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
-  return launch_groups(ws ? gru_bwd_one_block_kernel<true> : gru_bwd_one_block_kernel<false>,
-                       groups, threads, smem, stream, sv, g, At, dxp, ws, N, B, H, rows);
 }

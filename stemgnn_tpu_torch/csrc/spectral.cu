@@ -75,14 +75,16 @@
 // Rows past the end of a tile's data carry g = 0, hence da = ds = 0, and add
 // nothing to any gradient. Ci and Si are symmetric, which step 3 uses to
 // read them along rows. Steps 3 and 4 take D0 and D1 in runs of 4 columns
-// (`shape_ok`, the forward's rule too: K = 4 in the model, and D1 <= 2048);
-// every entry returns cudaErrorInvalidValue otherwise. They are
+// (`shape_ok`, the forward's rule too: K = 4 in the model); every entry
+// returns cudaErrorInvalidValue otherwise. They are
 // built for the ECG flagship (W = 12, D0 = 48, D1 = 240); other shapes take
 // masked runs, a column at a time where a run straddles two orders' windows,
 // D1 past 256 takes wider blocks of the rows kernel and column tiles of
-// the weight-gradient kernel, and D1 past 680 a rows kernel of 8-row tiles
+// the weight-gradient kernel, D1 past 680 a rows kernel of 8-row tiles
 // (instantiated apart, so the flagship's code is as it was) and a chain
-// forward of the row tile whose block and buffers fit (`chain_tile`).
+// forward of the row tile whose block and buffers fit (`chain_tile`), and D1
+// past 2048 the wide chain and rows kernels (a column loop in the thread,
+// their buffers in a device workspace past a block's shared memory).
 
 // Saving forward and reread backward (`spectral_fwd_save`,
 // `spectral_bwd_reread`): replace `_kernel_save` (reached from
@@ -361,6 +363,107 @@ spectral_chain_kernel(const T* __restrict__ x, GluWeights<T> g,
   }
 }
 
+// ---- forward past D1 = 2048: the wide chain kernel ----
+//
+// Past D1 = 2048 an 8-row tile's chain block would need more than
+// kFWideThreads threads (one a run of 4 columns). Here a thread takes the runs
+// c, c + 4 * blockDim.x, ... of a GLU's output: a column loop. Its sums can
+// then not wait in registers across the barrier that ends the reads of the
+// GLU's input, so the block keeps two [D1][12] buffers and each GLU writes
+// its output into the one it does not read. Every output element is the
+// chain kernel's chain of fmaf in the same order, so both write the same
+// bits. The two buffers sit in shared memory where they fit (96 D1 bytes: D1
+// up to 2421) and else (kWs) in a device workspace, a part for each of
+// wide_slots tile slots: a cluster of 2 (a block per chain) walks the row
+// tiles blockIdx.y, blockIdx.y + gridDim.y, ... For the inverse DFT a block
+// copies the other chain's last output into its free buffer, from the other
+// block's shared memory or (kWs) from L2. The ragged inverse DFT (WM % 4 !=
+// 0) is a branch, not an instantiation: it is a small part of the work here.
+constexpr int kFWideTile = 8;
+
+template <typename T, bool kSave, bool kOut, bool kWs>
+__global__ void __launch_bounds__(kFWideThreads, 1)
+spectral_chain_wide_kernel(const T* __restrict__ x, GluWeights<T> g,
+                           const T* __restrict__ ci, const T* __restrict__ si,
+                           float* __restrict__ out, float* __restrict__ acts, long plane,
+                           long rows_pad, float* ws, int B, int K, int N, int W, int WM) {
+  constexpr int tile = kFWideTile, S = tile + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = K * W, d1 = K * WM, runs = d1 / 4;
+  const long rows = (long)B * N, tiles = (rows_pad + tile - 1) / tile;
+  const int chain = blockIdx.x;
+  float* const buf = kWs ? ws + ((long)blockIdx.y * 2 + chain) * 2 * d1 * S : smem;
+  float* const last = buf + d1 * S;  // the third GLU's output (layers alternate buffers)
+  for (long ti = blockIdx.y; ti < tiles; ti += gridDim.y) {
+    const long row0 = ti * tile;
+    for (int e = threadIdx.x; e < tile * d0; e += blockDim.x) {
+      const int r = e / d0, col = e % d0;
+      const long row = row0 + r;
+      float v = 0.f;
+      if (row < rows) {
+        const long b = row / N, n = row % N;
+        v = to_f32(x[((b * K + col / W) * N + n) * W + col % W]);
+      }
+      buf[col * S + r] = v;
+    }
+    __syncthreads();
+    for (int layer = 0; layer < 3; ++layer) {
+      const int gi = 2 * layer + chain;
+      const float* in = buf + (layer & 1) * d1 * S;
+      float* next = buf + ((layer + 1) & 1) * d1 * S;
+      for (int run = threadIdx.x; run < runs; run += blockDim.x) {
+        float al[8][4], ar[8][4];
+        glu_fwd_product(in, S, layer == 0 ? d0 : d1, g.wl[gi], g.wr[gi], d1, 0, 4 * run, al,
+                        ar);
+        glu_fwd_elementwise<T, kSave>(al, ar, g.bl[gi], g.br[gi], 0, 4 * run, row0, rows_pad,
+                                      d1, kSave ? acts + (2 * gi) * plane : nullptr,
+                                      kSave ? acts + (2 * gi + 1) * plane : nullptr, next, S);
+      }
+      __syncthreads();
+    }
+    if constexpr (kOut) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();  // both chains' last outputs are in place
+      float4* dst = reinterpret_cast<float4*>(buf);  // free since the third GLU's reads
+      if (kWs) {
+        const float4* src = reinterpret_cast<const float4*>(
+            ws + ((long)blockIdx.y * 2 + (chain ^ 1)) * 2 * d1 * S + d1 * S);
+        for (int e = threadIdx.x; e < d1 * S / 4; e += blockDim.x) dst[e] = __ldcg(src + e);
+      } else {
+        const float4* src = reinterpret_cast<const float4*>(cluster.map_shared_rank(last, chain ^ 1));
+        for (int e = threadIdx.x; e < d1 * S / 4; e += blockDim.x) dst[e] = src[e];
+      }
+      cluster.sync();  // every copy is done: nobody reads the other block's buffers after this
+      const float* re = chain == 0 ? last : buf;
+      const float* im = chain == 0 ? buf : last;
+      const bool ragged = WM % 4 != 0;
+      const int half = (runs + 1) / 2, first = chain * half;
+      const int count = min(runs, first + half) - first;
+      for (int t = threadIdx.x; t < count; t += blockDim.x) {
+        const int cc = 4 * (first + t);
+        float acc[8][4];
+        if (ragged) idft_fwd_run<T, true>(re, im, S, ci, si, WM, 0, cc, acc);
+        else idft_fwd_run<T, false>(re, im, S, ci, si, WM, 0, cc, acc);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const long row = row0 + i;
+          if (row >= rows) break;
+          const long b = row / N, n = row % N;
+          if (!ragged) {
+            *reinterpret_cast<float4*>(out + ((b * K + cc / WM) * N + n) * WM + cc % WM) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              out[((b * K + (cc + q) / WM) * N + n) * WM + (cc + q) % WM] = acc[i][q];
+          }
+        }
+      }
+      __syncthreads();  // the inverse DFT's reads are done before the next tile's x
+    }
+  }
+}
+
 // ---- backward ----
 
 template <typename T>
@@ -410,7 +513,6 @@ constexpr int kBMaxThreads = 96;  // 3 blocks an SM within the registers
 constexpr int kBWideThreads = 256;  // D1 past 256: one block an SM
 constexpr int kBRN = 8;           // rows of a tile past D1 = 680
 constexpr int kBRNS = 12;         // floats between two columns of its buffers
-constexpr int kMaxD1 = 2048;      // the widest D1 every entry takes
 
 // floats between two columns of the rows kernel's buffers for a tile of `rows`
 __host__ __device__ constexpr int rows_stride(int rows) { return rows == kBR ? kBRS : kBRNS; }
@@ -682,6 +784,108 @@ spectral_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ acts
   }
 }
 
+// ---- backward past D1 = 2048: the wide rows kernel ----
+//
+// Past D1 = 2048 an 8-row tile's block would need more than kBWideThreads
+// threads (one for two runs of 4 columns). Here a thread takes the column
+// groups gc, gc + blockDim.x, ...: a column loop. Its sums can then not wait
+// in registers across a barrier, so each product's output goes to a third
+// [D1][12] buffer, dy, which the elementwise step reads after the barrier
+// (the cotangent tile starts there). The three buffers (144 D1 bytes, more
+// than a block's shared memory past D1 = 1614) sit in a device workspace, a
+// part for each of wide_slots tile slots, walked as the wide chain kernel
+// walks them. Every output element is the rows kernel's chain of fmaf in the
+// same order, and the bias partials are per 8 rows as there.
+template <typename T, bool kRagged>
+__global__ void __launch_bounds__(kBWideThreads, 1)
+spectral_bwd_rows_wide_kernel(const T* __restrict__ g, const float* __restrict__ acts,
+                              float* __restrict__ dacts, long plane, long rows_pad,
+                              TransposedWeights<T> wt, const T* __restrict__ ci,
+                              const T* __restrict__ si, float* __restrict__ dxc,
+                              float* __restrict__ bpart, float* ws, int B, int K, int N, int W,
+                              int WM) {
+  constexpr int kRows = kBRN, S = kBRNS;
+  const int d0 = K * W, d1 = K * WM;
+  const long rows = (long)B * N, tiles = (rows_pad + kRows - 1) / kRows;
+  const int chain = blockIdx.y;
+  float* const da = ws + ((long)blockIdx.x * 2 + chain) * 3 * d1 * S;  // [d1][S]
+  float* const ds = da + d1 * S;                                        // [d1][S]
+  float* const dy = ds + d1 * S;  // [d1][S]: the cotangent tile, then each product's output
+  const int runs = d1 / 4, G = (runs + 1) / 2;
+  for (long ti = blockIdx.x; ti < tiles; ti += gridDim.x) {
+    const long row0 = ti * kRows;
+    for (int e = threadIdx.x; e < kRows * d1; e += blockDim.x) {
+      const int r = e / d1, col = e % d1;
+      const long row = row0 + r;
+      float v = 0.f;
+      if (row < rows) {
+        const long b = row / N, n = row % N;
+        v = to_f32(g[((b * K + col / WM) * N + n) * WM + col % WM]);
+      }
+      dy[col * S + r] = v;
+    }
+    __syncthreads();
+
+    for (int layer = 2; layer >= 0; --layer) {
+      const int gi = 2 * layer + chain;
+      float* b = bpart + (ti * 12 + 2 * gi) * d1;
+      for (int gc = threadIdx.x; gc < G; gc += blockDim.x) {
+        const bool two = !kRagged || gc + G < runs;
+        const int c4[2] = {4 * gc, 4 * (two ? gc + G : gc)};
+        float acc[8][8];
+        if (layer == 2) {
+          idft_bwd_product<T, S, kRagged>(dy, chain == 0 ? ci : si, WM, 0, c4, acc);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float v[8];
+            load8(dy + (c4[j / 4] + j % 4) * S, v);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i][j] = v[i];
+          }
+        }
+        glu_bwd_elementwise<T, S>(acc, 0, c4, two, row0, rows_pad, d1, acts + (2 * gi) * plane,
+                                  acts + (2 * gi + 1) * plane, dacts + (2 * gi) * plane,
+                                  dacts + (2 * gi + 1) * plane, da, ds, b, b + d1);
+      }
+      __syncthreads();  // da, ds of the GLU are complete; dy's reads are done
+      if (layer > 0) {
+        for (int gc = threadIdx.x; gc < G; gc += blockDim.x) {
+          const bool two = !kRagged || gc + G < runs;
+          const int c4[2] = {4 * gc, 4 * (two ? gc + G : gc)};
+          float acc[8][8];
+          glu_bwd_product<T, S, 8>(da, ds, d1, wt.l[gi], wt.r[gi], d1, 0, c4, acc);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j >= 4 && !two) break;
+            float v[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) v[i] = acc[i][j];
+            store8(dy + (c4[j / 4] + j % 4) * S, v);
+          }
+        }
+      } else {
+        // into the input space: D0 columns, runs of 4
+        const int G0 = d0 / 4;
+        for (int t = threadIdx.x; t < G0; t += blockDim.x) {
+          const int cx[1] = {4 * t};
+          float o[8][4];
+          glu_bwd_product<T, S, 4>(da, ds, d1, wt.l[gi], wt.r[gi], d0, 0, cx, o);
+          float* dst = dxc + chain * rows_pad * d0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const long row = row0 + i;
+            if (row < rows_pad)
+              *reinterpret_cast<float4*>(dst + row * d0 + cx[0]) =
+                  make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+          }
+        }
+      }
+      __syncthreads();  // the products' reads of da, ds are done before they are rewritten
+    }
+  }
+}
+
 // dx [B,K,N,W] = real chain's part + imaginary chain's part
 __global__ void spectral_dx_kernel(const float* __restrict__ dxc, float* __restrict__ dx,
                                    long rows_pad, int B, int K, int N, int W) {
@@ -934,12 +1138,11 @@ long rows_padded(int B, int N) { return ((long)B * N + kWRC - 1) / kWRC * kWRC; 
 long grads_total(int d0, int d1) { return glu_grad_offset(6, d0, d1); }
 
 // The shapes every entry takes, the forward's and the backward's alike: D0
-// and D1 in runs of 4 columns (K = 4 in the model) and D1 <= kMaxD1 = 2048,
-// where a block of the rows kernel's 8-row tiles holds its two [D1][12]
-// buffers (196,608 bytes) and the chain forward's 8-row tile its 512 threads.
+// and D1 in runs of 4 columns (K = 4 in the model). Past D1 = 2048 the wide
+// kernels take the shapes the others' blocks do not hold.
 bool shape_ok(int K, int W, int WM) {
   const int d0 = K * W, d1 = K * WM;
-  return d0 % 4 == 0 && d1 % 4 == 0 && d1 <= kMaxD1;
+  return d0 % 4 == 0 && d1 % 4 == 0;
 }
 
 // threads of a chain block of `tile` rows: tile / 8 row groups by D1 / 4
@@ -951,6 +1154,31 @@ int chain_threads(int tile, int d1) { return (tile / 8 * (d1 / 4) + 31) / 32 * 3
 int chain_smem(int tile, int d1) { return 2 * d1 * (tile + 4) * (int)sizeof(float); }
 
 constexpr int kSmemPerBlock = 232448;  // the most a block can opt in to on sm_90
+
+// The wide chain kernel where no 8-row chain block holds a thread for every run.
+bool chain_wide(int d1) { return chain_threads(kFTiles[2], d1) > kFWideThreads; }
+
+// The current device's SMs, as the runtime reports them.
+cudaError_t current_sms(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
+// Row-tile slots of a workspace route: one a tile, up to half the card's
+// `sms` SMs (a slot is two blocks, a block an SM).
+long wide_slots(long rows_pad, int tile, int sms) {
+  return std::min<long>((rows_pad + tile - 1) / tile, std::max(sms / 2, 1));
+}
+
+// Floats of the wide chain kernel's workspace (0 where its buffers fit a
+// block's shared memory): two [D1][12] buffers a block, two blocks a slot.
+long chain_ws_floats(long rows_pad, int d1, int sms) {
+  const long buffers = 2L * d1 * (kFWideTile + 4);
+  if (!chain_wide(d1) || buffers * (long)sizeof(float) <= kSmemPerBlock) return 0;
+  return 2 * wide_slots(rows_pad, kFWideTile, sms) * buffers;
+}
 
 // The chain kernel's row tile: of the kFTiles whose block fits kFWideThreads
 // threads and a block's shared memory, the one whose blocks (two a tile) give
@@ -973,15 +1201,60 @@ int chain_tile(long rows_pad, int sms, int d1) {
 
 // The chain kernel on the padded rows: with kOut in clusters of 2 (the two
 // chains of a row tile) writing out; with kSave writing acts.
+// Launches a chain kernel on grid (2, tiles) with `smem` bytes of dynamic
+// shared memory, in clusters of 2 (the two chains of a row tile) with kOut.
+template <bool kOut, typename... Params, typename... Args>
+int launch_chains(void (*kernel)(Params...), long tiles, int threads, int smem,
+                  cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2, (unsigned)tiles);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = kOut ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The wide chain kernel: its buffers in shared memory or, past a block's,
+// in ws (chain_ws_floats floats), which the caller hands in.
+template <typename T, bool kSave, bool kOut>
+int chain_wide_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T* si,
+                      float* out, float* acts, float* ws, int B, int K, int N, int W, int WM,
+                      int sms, cudaStream_t st) {
+  const int d1 = K * WM;
+  const long rows_pad = rows_padded(B, N);
+  const bool in_ws = chain_ws_floats(rows_pad, d1, sms) > 0;
+  const auto kernel = in_ws ? spectral_chain_wide_kernel<T, kSave, kOut, true>
+                            : spectral_chain_wide_kernel<T, kSave, kOut, false>;
+  if (in_ws && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const long tiles = in_ws ? wide_slots(rows_pad, kFWideTile, sms)
+                           : (rows_pad + kFWideTile - 1) / kFWideTile;
+  return launch_chains<kOut>(kernel, tiles, kFWideThreads,
+                             in_ws ? 0 : 2 * d1 * (kFWideTile + 4) * (int)sizeof(float), st,
+                             x, gw, ci, si, out, acts, kSave ? rows_pad * d1 : 0L, rows_pad,
+                             ws, B, K, N, W, WM);
+}
+
 template <typename T, bool kSave, bool kOut>
 int chain_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T* si, float* out,
-                 float* acts, int B, int K, int N, int W, int WM, cudaStream_t st) {
+                 float* acts, float* ws, int B, int K, int N, int W, int WM, cudaStream_t st) {
   if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t err = current_sms(&sms);
   if (err != cudaSuccess) return (int)err;
   const int d1 = K * WM;
+  if (chain_wide(d1))
+    return chain_wide_launch<T, kSave, kOut>(x, gw, ci, si, out, acts, ws, B, K, N, W, WM, sms,
+                                             st);
   const long rows_pad = rows_padded(B, N);
   const int tile = chain_tile(rows_pad, sms, d1);
   const int threads = chain_threads(tile, d1);
@@ -995,45 +1268,42 @@ int chain_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T* si, 
                     : spectral_chain_kernel<T, kFMidThreads, kSave, kOut, false>)
           : (ragged ? spectral_chain_kernel<T, kFWideThreads, kSave, kOut, true>
                     : spectral_chain_kernel<T, kFWideThreads, kSave, kOut, false>);
-  const int smem = (kOut ? 2 : 1) * d1 * (tile + 4) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 2;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2, (unsigned)((rows_pad + tile - 1) / tile));
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = kOut ? 1 : 0;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, x, gw, ci, si, out, acts,
-                                 kSave ? rows_pad * d1 : 0L, rows_pad, tile, B, K, N, W, WM);
+  return launch_chains<kOut>(kernel, (rows_pad + tile - 1) / tile, threads,
+                             (kOut ? 2 : 1) * d1 * (tile + 4) * (int)sizeof(float), st, x, gw,
+                             ci, si, out, acts, kSave ? rows_pad * d1 : 0L, rows_pad, tile, B,
+                             K, N, W, WM);
 }
 
 }  // namespace
 
+// Floats of the scratch the forwards need on the current device (0 but where
+// D1 is past 2421: the wide chain kernel's buffers); -1 where the runtime
+// cannot say how many SMs the device has.
+extern "C" long long spectral_fwd_workspace_floats(int B, int K, int N, int WM) {
+  int sms = 0;
+  if (current_sms(&sms) != cudaSuccess) return -1;
+  return chain_ws_floats(rows_padded(B, N), K * WM, sms);
+}
+
 // w: 24 device pointers, per GLU i = 0..5: wl[i], bl[i], wr[i], br[i]
 // (wl/wr [Din, D1] row-major, 16-byte aligned, layer-0 weights already
-// DFT-folded); ci, si: one [WM, WM] block of the inverse DFT. A shape
+// DFT-folded); ci, si: one [WM, WM] block of the inverse DFT; ws:
+// spectral_fwd_workspace_floats floats (null where that is 0). A shape
 // `shape_ok` refuses returns cudaErrorInvalidValue before any launch.
 extern "C" int spectral_fwd(const float* x, const void* const* w, const float* ci,
-                            const float* si, float* out, int B, int K, int N, int W,
+                            const float* si, float* out, float* ws, int B, int K, int N, int W,
                             int WM, void* stream) {
-  return chain_launch<float, false, true>(x, glu_weights<float>(w), ci, si, out, nullptr, B,
-                                          K, N, W, WM, (cudaStream_t)stream);
+  return chain_launch<float, false, true>(x, glu_weights<float>(w), ci, si, out, nullptr, ws,
+                                          B, K, N, W, WM, (cudaStream_t)stream);
 }
 
 // The bf16 arm: x, ci, si and the 2-D weights (wl, wr) bf16; biases and out
 // f32.
 extern "C" int spectral_fwd_bf16(const bf16* x, const void* const* w, const bf16* ci,
-                                 const bf16* si, float* out, int B, int K, int N, int W,
-                                 int WM, void* stream) {
-  return chain_launch<bf16, false, true>(x, glu_weights<bf16>(w), ci, si, out, nullptr, B,
-                                         K, N, W, WM, (cudaStream_t)stream);
+                                 const bf16* si, float* out, float* ws, int B, int K, int N,
+                                 int W, int WM, void* stream) {
+  return chain_launch<bf16, false, true>(x, glu_weights<bf16>(w), ci, si, out, nullptr, ws,
+                                         B, K, N, W, WM, (cudaStream_t)stream);
 }
 
 // Floats of the 12 saved arrays (a0, s0, ..., a5, s5), each [padded rows, D1].
@@ -1044,18 +1314,18 @@ extern "C" long long spectral_act_floats(int B, int K, int N, int WM) {
 // spectral_fwd that also writes acts (spectral_act_floats floats) for
 // spectral_bwd_reread.
 extern "C" int spectral_fwd_save(const float* x, const void* const* w, const float* ci,
-                                 const float* si, float* out, float* acts, int B, int K,
-                                 int N, int W, int WM, void* stream) {
-  return chain_launch<float, true, true>(x, glu_weights<float>(w), ci, si, out, acts, B, K,
-                                         N, W, WM, (cudaStream_t)stream);
+                                 const float* si, float* out, float* acts, float* ws, int B,
+                                 int K, int N, int W, int WM, void* stream) {
+  return chain_launch<float, true, true>(x, glu_weights<float>(w), ci, si, out, acts, ws, B,
+                                         K, N, W, WM, (cudaStream_t)stream);
 }
 
 // The bf16 arm of spectral_fwd_save: operands as spectral_fwd_bf16's, acts f32.
 extern "C" int spectral_fwd_save_bf16(const bf16* x, const void* const* w, const bf16* ci,
-                                      const bf16* si, float* out, float* acts, int B, int K,
-                                      int N, int W, int WM, void* stream) {
-  return chain_launch<bf16, true, true>(x, glu_weights<bf16>(w), ci, si, out, acts, B, K,
-                                        N, W, WM, (cudaStream_t)stream);
+                                      const bf16* si, float* out, float* acts, float* ws,
+                                      int B, int K, int N, int W, int WM, void* stream) {
+  return chain_launch<bf16, true, true>(x, glu_weights<bf16>(w), ci, si, out, acts, ws, B,
+                                        K, N, W, WM, (cudaStream_t)stream);
 }
 
 // Floats of the flat gradient buffer: per GLU wl [Din, D1], bl [D1], wr, br.
@@ -1072,15 +1342,24 @@ long bias_parts(int B, int N, int d1) {
   return (rows_padded(B, N) + tile - 1) / tile * (tile / 8);
 }
 
+// The wide rows kernel where no 8-row block holds a thread for every column group.
+bool rows_wide(int d1) { return rows_threads(d1, kBRN) > kBWideThreads; }
+
+// Floats of the wide rows kernel's buffers: three [D1][12] a block, two
+// blocks a slot (0 where the rows kernel takes D1).
+long rows_ws_floats(long rows_pad, int d1, int sms) {
+  return rows_wide(d1) ? 2 * wide_slots(rows_pad, kBRN, sms) * 3L * d1 * kBRNS : 0;
+}
+
 // Floats of the backward's scratch without the saved arrays: da, ds of six
 // GLUs for the padded rows, the transposed weights (f32-sized for either
 // arm), the two chains' parts of dx, the bias partials, nsplit partial
-// gradients.
-long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit) {
+// gradients, the wide rows kernel's buffers.
+long bwd_scratch_floats(int B, int K, int N, int W, int WM, int nsplit, int sms) {
   const long d0 = K * W, d1 = K * WM;
   return 12 * rows_padded(B, N) * d1 + 4 * d0 * d1 + 8 * d1 * d1 +
          2 * rows_padded(B, N) * d0 + bias_parts(B, N, (int)d1) * 12 * d1 +
-         (long)nsplit * grads_total(d0, d1);
+         (long)nsplit * grads_total(d0, d1) + rows_ws_floats(rows_padded(B, N), (int)d1, sms);
 }
 
 // The rows kernel for D1 and the arm: the tile (24 rows, or 8 past D1 =
@@ -1099,7 +1378,8 @@ auto rows_kernel_for(int d1, int WM) {
 }
 
 // Steps 1 to 5 of the backward. saved: the forward's 12 arrays, or nullptr to
-// recompute them (step 2) into the head of ws.
+// recompute them (step 2) into the head of ws, its wide chain's buffers at
+// the tail.
 template <typename T>
 int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const T* si,
                float* dx, float* grads, const float* saved, float* ws, int B, int K, int N,
@@ -1110,12 +1390,15 @@ int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const 
   const long plane = rows_pad * d1;
   const long total = grads_total(d0, d1);
   const GluWeights<T> gw = glu_weights<T>(w);
-  cudaError_t err;
+  int sms = 0;
+  cudaError_t err = current_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
 
   const float* acts = saved;
   if (saved == nullptr) {
-    err = (cudaError_t)chain_launch<T, true, false>(x, gw, ci, si, nullptr, ws, B, K, N, W,
-                                                    WM, st);
+    float* chain_ws = ws + 12 * plane + bwd_scratch_floats(B, K, N, W, WM, nsplit, sms);
+    err = (cudaError_t)chain_launch<T, true, false>(x, gw, ci, si, nullptr, ws, chain_ws, B,
+                                                    K, N, W, WM, st);
     if (err != cudaSuccess) return (int)err;
     acts = ws;
     ws += 12 * plane;
@@ -1125,6 +1408,7 @@ int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const 
   float* dxc = dacts + 12 * plane + 4L * d0 * d1 + 8L * d1 * d1;
   float* bpart = dxc + 2 * rows_pad * d0;
   float* part = bpart + bias_parts(B, N, d1) * 12 * d1;
+  float* rows_ws = part + (long)nsplit * total;
 
   spectral_transpose_kernel<T><<<dim3((d1 * d1 + 255) / 256, 12), 256, 0, st>>>(gw, wT, d0,
                                                                                d1);
@@ -1135,15 +1419,22 @@ int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const 
     const T* p = wT + (m < 4 ? (long)m * d0 * d1 : 4L * d0 * d1 + (long)(m - 4) * d1 * d1);
     if (m % 2 == 0) wt.l[m / 2] = p; else wt.r[m / 2] = p;
   }
-  const int tile_b = rows_tile(d1);
-  const int smem_b = 2 * d1 * rows_stride(tile_b) * (int)sizeof(float);
-  const int threads_b = rows_threads(d1, tile_b);
-  const auto rows_kernel = rows_kernel_for<T>(d1, WM);
-  err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_b);
-  if (err != cudaSuccess) return (int)err;
-  rows_kernel<<<dim3((int)((rows_pad + tile_b - 1) / tile_b), 2), threads_b, smem_b, st>>>(
-      g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart, B, K, N, W, WM);
+  if (rows_wide(d1)) {
+    const auto kernel = WM % 4 != 0 || d1 / 4 % 2 != 0 ? spectral_bwd_rows_wide_kernel<T, true>
+                                                       : spectral_bwd_rows_wide_kernel<T, false>;
+    kernel<<<dim3((int)wide_slots(rows_pad, kBRN, sms), 2), kBWideThreads, 0, st>>>(
+        g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart, rows_ws, B, K, N, W, WM);
+  } else {
+    const int tile_b = rows_tile(d1);
+    const int smem_b = 2 * d1 * rows_stride(tile_b) * (int)sizeof(float);
+    const int threads_b = rows_threads(d1, tile_b);
+    const auto rows_kernel = rows_kernel_for<T>(d1, WM);
+    err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_b);
+    if (err != cudaSuccess) return (int)err;
+    rows_kernel<<<dim3((int)((rows_pad + tile_b - 1) / tile_b), 2), threads_b, smem_b, st>>>(
+        g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart, B, K, N, W, WM);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long nx = (long)B * K * N * W;
   spectral_dx_kernel<<<(int)((nx + 255) / 256), 256, 0, st>>>(dxc, dx, rows_pad, B, K, N, W);
@@ -1172,18 +1463,26 @@ int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const 
 
 }  // namespace
 
-// Floats of the scratch `spectral_bwd` needs: a, s of six GLUs for the padded
-// rows and the backward's scratch (either arm).
+// Floats of the scratch `spectral_bwd` needs on the current device: a, s of
+// six GLUs for the padded rows, the backward's scratch (either arm) and the
+// recompute's wide chain buffers; -1 where the runtime cannot say how many SMs
+// the device has.
 extern "C" long long spectral_bwd_workspace_floats(int B, int K, int N, int W, int WM,
                                                    int nsplit) {
-  return 12 * rows_padded(B, N) * (long)K * WM + bwd_scratch_floats(B, K, N, W, WM, nsplit);
+  int sms = 0;
+  if (current_sms(&sms) != cudaSuccess) return -1;
+  return 12 * rows_padded(B, N) * (long)K * WM +
+         bwd_scratch_floats(B, K, N, W, WM, nsplit, sms) +
+         chain_ws_floats(rows_padded(B, N), K * WM, sms);
 }
 
 // The same for `spectral_bwd_reread`, which brings a and s with it: 12 arrays
 // fewer.
 extern "C" long long spectral_bwd_reread_workspace_floats(int B, int K, int N, int W,
                                                           int WM, int nsplit) {
-  return bwd_scratch_floats(B, K, N, W, WM, nsplit);
+  int sms = 0;
+  if (current_sms(&sms) != cudaSuccess) return -1;
+  return bwd_scratch_floats(B, K, N, W, WM, nsplit, sms);
 }
 
 // x [B,K,N,W], g [B,K,N,WM], w as for spectral_fwd -> dx like x and grads

@@ -21,8 +21,8 @@ import contextlib
 from stemgnn_tpu_torch.ops.cuda_attention import attention_kq, attention_kq_bwd
 from stemgnn_tpu_torch.ops.cuda_graph import cheb_graph_conv, cheb_graph_conv_bf16
 from stemgnn_tpu_torch.ops.cuda_gru import (
-    gru_bwd_one_block,
-    gru_fwd_one_block,
+    gru_bwd_grid,
+    gru_fwd_grid,
     gru_over_nodes,
     gru_scan_bwd,
 )
@@ -44,12 +44,12 @@ from stemgnn_tpu_torch.ops.torch_impl import (  # noqa: F401
 
 KERNELS = {
     "gru_fwd": gru_over_nodes,  # the cluster kernel
-    "gru_fwd_one_block": gru_fwd_one_block,  # what gru_over_nodes launches at a large H
+    "gru_fwd_grid": gru_fwd_grid,  # the grid kernel: an H no cluster holds
     "attention_kq_fwd": attention_kq,
     "cheb_graph_conv_fwd": cheb_graph_conv,
     "spectral_fwd": spe_seq_cell,
     "gru_bwd": gru_scan_bwd,  # the cluster kernel
-    "gru_bwd_one_block": gru_bwd_one_block,  # what gru_scan_bwd launches at a large H
+    "gru_bwd_grid": gru_bwd_grid,  # the grid kernel
     "attention_kq_bwd": attention_kq_bwd,
     "spectral_bwd": spe_seq_cell_bwd,
     "spectral_fwd_save": spe_seq_cell_save,

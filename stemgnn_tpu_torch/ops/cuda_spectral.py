@@ -101,14 +101,16 @@ def _card_operands(x, glu_params, multi: int, compute_dtype: str):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
-    "spectral_fwd": ([_P, _PP, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
-    "spectral_fwd_save": ([_P, _PP, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_fwd": ([_P, _PP, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_fwd_save": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
     "spectral_act_floats": ([_I] * 4, ctypes.c_longlong),
+    "spectral_fwd_workspace_floats": ([_I] * 4, ctypes.c_longlong),
     "spectral_bwd": ([_P, _P, _PP] + [_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
     "spectral_bwd_reread": ([_P, _P, _PP] + [_P] * 6 + [_I] * 6 + [_P], ctypes.c_int),
     # the bf16 arms take the same arguments
-    "spectral_fwd_bf16": ([_P, _PP, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
-    "spectral_fwd_save_bf16": ([_P, _PP, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_fwd_bf16": ([_P, _PP, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "spectral_fwd_save_bf16": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+                               ctypes.c_int),
     "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
     "spectral_bwd_reread_bf16": ([_P, _P, _PP] + [_P] * 6 + [_I] * 6 + [_P],
                                  ctypes.c_int),
@@ -135,8 +137,18 @@ def _check(rc: int, name: str, k: int, w: int, wm: int) -> None:
     if rc == 1:
         raise RuntimeError(
             f"{name}: the kernels refused K*W = {k * w}, K*W*multi = {k * wm} "
-            "(csrc/spectral.cu shape_ok: multiples of 4, K*W*multi at most 2048)")
+            "(csrc/spectral.cu shape_ok: multiples of 4)")
     _build.check(rc, name)
+
+
+def _scratch(floats: int, name: str, like):
+    """A float32 device buffer of `floats` floats on the card of `like` (None
+    for 0), as a C entry sized it; a negative size (the runtime could not say
+    how many SMs the card has) raises."""
+    if floats < 0:
+        raise RuntimeError(f"{name}: the CUDA runtime did not report the card's SMs, "
+                           "which size the kernels' scratch")
+    return torch.empty(floats, dtype=torch.float32, device=like.device) if floats else None
 
 
 def _check_operands(name, x, weights, ci, si, k, w, wm, *f32):
@@ -173,9 +185,13 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
     arm = "_bf16" if bf16 else ""
     out = torch.empty((b, k, n, wm), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    # the wide chain kernel's buffers past D1 = 2421, else nothing
+    ws = _scratch(_fn("spectral_fwd_workspace_floats")(b, k, n, wm), name, x)
+    ws_ptr = ws.data_ptr() if ws is not None else None
     if not save:
         rc = _fn("spectral_fwd" + arm)(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
-                                       out.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
+                                       out.data_ptr(), ws_ptr, b, k, n, w, wm,
+                                       _build.stream_ptr(x))
         _check(rc, name, k, w, wm)
         (spe_seq_cell_bf16 if bf16 else spe_seq_cell).launches += 1
         return out
@@ -183,7 +199,7 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
                        device=x.device).view(12, -1, k * wm)
     rc = _fn("spectral_fwd_save" + arm)(
         x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
-        acts.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x))
+        acts.data_ptr(), ws_ptr, b, k, n, w, wm, _build.stream_ptr(x))
     _check(rc, name, k, w, wm)
     (spe_seq_cell_save_bf16 if bf16 else spe_seq_cell_save).launches += 1
     return out, acts
@@ -211,9 +227,8 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     grads = torch.empty(_fn("spectral_bwd_grad_floats")(k, w, wm),
                         dtype=torch.float32, device=x.device)
-    ws_floats = _fn("spectral_bwd_reread_workspace_floats" if reread
-                    else "spectral_bwd_workspace_floats")(b, k, n, w, wm, N_SPLIT)
-    ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
+    ws = _scratch(_fn("spectral_bwd_reread_workspace_floats" if reread
+                      else "spectral_bwd_workspace_floats")(b, k, n, w, wm, N_SPLIT), name, x)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
     head = (x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr())
     tail = (dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, N_SPLIT,

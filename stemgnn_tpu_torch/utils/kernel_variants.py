@@ -1,15 +1,16 @@
 """Where a kernel's time goes: builds copies of a CUDA source with one piece
 taken out or changed, and times each beside the source as it is.
 
-    python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [spectral]
-        [spectral_fwd] [graph] [against=CHECKOUT] [ptxas] [ptxas=CHECKOUT]
+    python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [gru_grid]
+        [spectral] [spectral_fwd] [graph] [against=CHECKOUT] [ptxas] [ptxas=CHECKOUT]
 
 A variant is a list of (text, replacement) pairs applied to the source; a
 pair whose text is no longer in the source stops the run, so an edit to a
 kernel shows up here. Most variants compute WRONG results by design (an
 exchange or a load left out): only their times mean anything, and the difference to
 `base` is what the piece costs. Shapes are the ECG flagship's (B = 32,
-H = N = 140, W = 12, K = 4); `spectral_fwd` also times the COVID-19 shape
+H = N = 140, W = 12, K = 4); `gru_grid` times the grid GRU kernels at
+B = 32, H = N = 512 and B = 8, H = N = 1024; `spectral_fwd` also times the COVID-19 shape
 (B = 32, N = 25, W = 28, multi 5). `against=CHECKOUT` builds the spectral
 and graph sources of another checkout (a `git archive` of an earlier commit)
 and holds this tree's f32 spectral entries (forwards and backwards) and graph
@@ -263,12 +264,13 @@ def gru(dev, tmp: Path) -> None:
     out = torch.empty((b, h, h), device=dev)
     sv = torch.empty((h, 5, b, h), device=dev)
     plans = {f"cluster of {c}": cuda_gru._cluster_plan(b, h, c) for c in (5, 7, 4)}
+    card = cuda_gru.card_limits(dev)
     for name, lib in _build_variants("gru.cu", GRU_VARIANTS, tmp).items():
         fn = lib.gru_fwd_cluster
         fn.argtypes = cuda_gru._ARGTYPES["gru_fwd_cluster"]
         fn.restype = ctypes.c_int
         for label, plan in plans.items():
-            if name != "base" and plan != cuda_gru.launch_plan(b, h):
+            if name != "base" and plan != cuda_gru.launch_plan(b, h, *card):
                 continue  # the other cluster sizes: the source as it is only
 
             def call(save, plan=plan):
@@ -283,32 +285,32 @@ def gru(dev, tmp: Path) -> None:
                   f"{name}: serving {serve:.5f} ms ({serve / h * 1e3:.3f} us a step), "
                   f"saving {save:.5f} ms")
 
-    # the widest model (H = 512): the one-block route it takes against a cluster
+    # the widest model (H = 512): the grid route it takes against a cluster
     # of 16 blocks, above the portable limit of 8, which the kernel asks for
     # with cudaFuncAttributeNonPortableClusterSizeAllowed
     b, h = 32, 512
     args = _gru_inputs(b, h, dev)
     with torch.no_grad():
-        one_block, _ = cuda_gru.gru_fwd_one_block(*args)
-        ms = _cuda_ms(lambda: cuda_gru.gru_fwd_one_block(*args), calls=2, replays=3)
-        print(f"gru forward B={b} H={h}, one block: serving {ms:.5f} ms")
-        plan = cuda_gru.launch_plan(b, h, max_cluster=16)
+        grid, _ = cuda_gru._launch_fwd(*args, False)
+        ms = _cuda_ms(lambda: cuda_gru._launch_fwd(*args, False), calls=2, replays=3)
+        print(f"gru forward B={b} H={h}, grid: serving {ms:.5f} ms")
+        plan = cuda_gru.launch_plan(b, h, *card, max_cluster=16)
         try:
             wide, _ = cuda_gru._launch_fwd(*args, False, plan)
             torch.cuda.synchronize()
         except RuntimeError as exc:
             print(f"gru forward B={b} H={h}, cluster of {plan.cluster}: refused ({exc})")
             return
-        err = (wide - one_block).abs().max().item()
+        err = (wide - grid).abs().max().item()
         ms = _cuda_ms(lambda: cuda_gru._launch_fwd(*args, False, plan))
         print(f"gru forward B={b} H={h}, cluster of {plan.cluster} (slice {plan.slice}, "
               f"{plan.smem} B): serving {ms:.5f} ms ({ms / h * 1e3:.3f} us a step), "
-              f"max_abs_err against the one block {err:.3e}")
+              f"max_abs_err against the grid {err:.3e}")
 
 
 def gru_bwd(dev, tmp: Path) -> None:
     """The cluster backward at the flagship shape, by variant and by cluster
-    size; the one-block backward at the same shape and at H = 512."""
+    size."""
     from stemgnn_tpu_torch.ops import torch_impl
 
     b, h = 32, 140
@@ -319,12 +321,13 @@ def gru_bwd(dev, tmp: Path) -> None:
         _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
     dxp = torch.empty((h, b, 3 * h), device=dev)
     plans = {f"cluster of {c}": cuda_gru._bwd_cluster_plan(b, h, c) for c in (5, 7, 8)}
+    card = cuda_gru.card_limits(dev)
     for name, lib in _build_variants("gru.cu", GRU_BWD_VARIANTS, tmp).items():
         fn = lib.gru_bwd_cluster
         fn.argtypes = cuda_gru._ARGTYPES["gru_bwd_cluster"]
         fn.restype = ctypes.c_int
         for label, plan in plans.items():
-            if name != "base" and plan != cuda_gru.bwd_plan(b, h):
+            if name != "base" and plan != cuda_gru.bwd_plan(b, h, *card):
                 continue  # the other cluster sizes: the source as it is only
 
             def call(plan=plan):
@@ -337,27 +340,74 @@ def gru_bwd(dev, tmp: Path) -> None:
             ms = _cuda_ms(call)
             print(f"gru_bwd_cluster B={b} H={h}, {label} ({plan.threads} threads, "
                   f"{plan.smem} B), {name}: {ms:.5f} ms ({ms / h * 1e3:.3f} us a step)")
-    with torch.no_grad():
-        ms = _cuda_ms(lambda: cuda_gru.gru_bwd_one_block(saved, g, a_all))
-    print(f"gru_bwd_one_block B={b} H={h} (groups of 8 rows): {ms:.5f} ms")
-    for b in (32, 64):
-        h = 512
+
+
+# the grid GRU kernels (both directions), each with one piece left out
+GRU_GRID_VARIANTS = {
+    "base": [],
+    # the flag round trip: no block waits for the others' arrivals
+    "no wait for the step": [
+        ("    if (t > 0) grid_wait(counter, P * t); else __syncthreads();\n",
+         "    __syncthreads();\n"),
+        ("    grid_wait(counter, P * (u + 1));\n", "    __syncthreads();\n")],
+    # a fence before the release add (the add is a release already)
+    "a fence before the arrival": [("  if (threadIdx.x == 0)\n    asm volatile(\"red.release",
+                                    "  if (threadIdx.x == 0) __threadfence();\n"
+                                    "  if (threadIdx.x == 0)\n    asm volatile(\"red.release")],
+    # the copy of a step's exchanged values into shared memory
+    "no staging": [("      stage_rows(hs, hcur + c0 * Bp, c1 - c0, Bp);\n", ""),
+                   ("      stage_rows(dsb, dcur + c0 * Bp, c1 - c0, Bp);\n", "")],
+    # the product over the staged values
+    "no product": [("      for (int task = warp; task < tasks; task += warps) {\n",
+                    "      for (int task = warp; task < 0; task += warps) {\n")],
+}
+
+
+def gru_grid(dev, tmp: Path) -> None:
+    """The grid GRU forward (saving) and backward by variant at B = 32,
+    H = N = 512 and B = 8, H = N = 1024."""
+    from stemgnn_tpu_torch.ops import torch_impl
+
+    shapes = []
+    for b, h in ((32, 512), (8, 1024)):
         x_proj, a_all, b_hh = _gru_inputs(b, h, dev)
-        g = torch.from_numpy(rng.standard_normal((b, h, h)).astype(np.float32)).to(dev)
-        times = {}
+        g = torch.from_numpy(np.random.default_rng(2).standard_normal((b, h, h)).astype(
+            np.float32)).to(dev)
         with torch.no_grad():
             _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
-            for ws in (False, True):  # the group buffers in shared memory, or in a workspace
-                times[ws] = (
-                    _cuda_ms(lambda: cuda_gru.gru_fwd_one_block(x_proj, a_all, b_hh,
-                                                                in_workspace=ws),
-                             calls=2, replays=3),
-                    _cuda_ms(lambda: cuda_gru.gru_bwd_one_block(saved, g, a_all,
-                                                                in_workspace=ws),
-                             calls=2, replays=3))
-        print(f"gru one-block B={b} H={h} (groups of 8 rows): forward {times[False][0]:.5f} "
-              f"ms, backward {times[False][1]:.5f} ms; buffers in a device workspace: "
-              f"forward {times[True][0]:.5f} ms, backward {times[True][1]:.5f} ms")
+        card = cuda_gru.card_limits(dev)
+        shapes.append((b, h, x_proj, a_all, b_hh, saved, g, cuda_gru.grid_plan(b, h, *card),
+                       cuda_gru.grid_plan(b, h, *card, backward=True)))
+    for name, lib in _build_variants("gru.cu", GRU_GRID_VARIANTS, tmp).items():
+        fwd, bwd = lib.gru_fwd_grid, lib.gru_bwd_grid
+        fwd.argtypes, bwd.argtypes = (cuda_gru._ARGTYPES["gru_fwd_grid"],
+                                      cuda_gru._ARGTYPES["gru_bwd_grid"])
+        fwd.restype = bwd.restype = ctypes.c_int
+        for b, h, x_proj, a_all, b_hh, saved, g, pf, pb in shapes:
+            out = torch.empty((b, h, h), device=dev)
+            sv = torch.empty_like(saved)
+            dxp = torch.empty_like(x_proj)
+            wsf = torch.empty(pf.workspace // 4, device=dev)
+            wsb = torch.empty(pb.workspace // 4, device=dev)
+
+            def call_fwd():
+                _build.check(fwd(x_proj.data_ptr(), a_all.data_ptr(), b_hh.data_ptr(),
+                                 out.data_ptr(), sv.data_ptr(), wsf.data_ptr(), h, b, h,
+                                 pf.cluster, pf.slice, pf.ksplit, pf.row_stride, pf.threads,
+                                 pf.smem, pf.resident, pf.chunk, _build.stream_ptr(out)), name)
+
+            def call_bwd():
+                _build.check(bwd(saved.data_ptr(), g.data_ptr(), a_all.data_ptr(),
+                                 dxp.data_ptr(), wsb.data_ptr(), h, b, h, pb.cluster, pb.slice,
+                                 pb.ksplit, pb.row_stride, pb.threads, pb.smem, pb.resident,
+                                 pb.chunk, _build.stream_ptr(dxp)), name)
+
+            f = _cuda_ms(call_fwd, calls=2, replays=3)
+            bw = _cuda_ms(call_bwd, calls=2, replays=3)
+            print(f"gru grid B={b} H=N={h} ({pf.cluster} blocks of {pf.slice} units, "
+                  f"chunks {-(-h // pf.chunk)} / {-(-3 * h // pb.chunk)}), {name}: saving "
+                  f"forward {f:.5f} ms ({f / h * 1e3:.3f} us a step), backward {bw:.5f} ms "
+                  f"({bw / h * 1e3:.3f} us a step)")
 
 
 def spectral(dev, tmp: Path) -> None:
@@ -429,15 +479,21 @@ def _spectral_fwd_calls(lib, x, weights, ci, si, multi):
     fwd, save = lib.spectral_fwd, lib.spectral_fwd_save
     fwd.argtypes, fwd.restype = cuda_spectral._SIGNATURES["spectral_fwd"]
     save.argtypes, save.restype = cuda_spectral._SIGNATURES["spectral_fwd_save"]
+    # the forwards take a workspace pointer since the wide chain kernel (at
+    # these shapes null); a library from before it takes none
+    ws = (None,) if hasattr(lib, "spectral_fwd_workspace_floats") else ()
+    if not ws:
+        fwd.argtypes = fwd.argtypes[:5] + fwd.argtypes[6:]
+        save.argtypes = save.argtypes[:6] + save.argtypes[7:]
 
     def serve():
         _build.check(fwd(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
-                         b, k, n, w, wm, _build.stream_ptr(x)), "spectral_fwd")
+                         *ws, b, k, n, w, wm, _build.stream_ptr(x)), "spectral_fwd")
         return out, None
 
     def saving():
         _build.check(save(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
-                          acts.data_ptr(), b, k, n, w, wm, _build.stream_ptr(x)),
+                          acts.data_ptr(), *ws, b, k, n, w, wm, _build.stream_ptr(x)),
                      "spectral_fwd_save")
         return out, acts.view(12, -1, k * wm)
 
@@ -649,7 +705,7 @@ def main(argv=None) -> int:
                 ptxas(Path(other).resolve() / "stemgnn_tpu_torch" / "csrc" if other
                       else _build.CSRC, Path(tmp))
                 continue
-            {"gru": gru, "gru_bwd": gru_bwd, "spectral": spectral,
+            {"gru": gru, "gru_bwd": gru_bwd, "gru_grid": gru_grid, "spectral": spectral,
              "spectral_fwd": spectral_fwd, "graph": graph}[name](dev, Path(tmp))
     return 0
 

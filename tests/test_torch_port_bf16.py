@@ -13,6 +13,9 @@ result than to the JAX f32 one, so that a tolerance cannot pass an f32
 computation for a bf16 one."""
 
 import argparse
+import importlib
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +31,7 @@ from stemgnn_tpu.ops import pallas_spectral as ps
 from stemgnn_tpu.ops.pallas_graph import cheb_graph_conv_pallas
 from stemgnn_tpu_torch import ops
 from stemgnn_tpu_torch.config import StemGNNConfig, TrainConfig, add_cli_args, config_from_args
-from stemgnn_tpu_torch.models import forward
+from stemgnn_tpu_torch.models import forward, init_params
 from stemgnn_tpu_torch.models import stemgnn as port_stemgnn
 from stemgnn_tpu_torch.models.convert import flatten_params, params_from_jax
 from stemgnn_tpu_torch.ops import cuda_graph, cuda_spectral
@@ -309,3 +312,69 @@ def test_bf16_arms_have_counters_and_plans():
     with pytest.raises(ValueError):
         ops.cheb_graph_conv(torch.zeros((4, 6, 6)), torch.ones((2, 6, W)),
                             compute_dtype="float16")
+
+
+def _chip_smoke():
+    """chip_smoke.py, which keeps the bf16 arms' rule past D1 = 720 (it
+    imports only the standard library until a check runs)."""
+    repo = str(Path(__file__).resolve().parents[1])
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_noise_rule_past_d1_720(seed):
+    """chip_smoke.py's rule for the bf16 spectral arms past D1 = 720
+    (`bf16_noise_agreement`), with plain versions standing in for the
+    kernels, at W = 103, multi 5 on 240 rows (D1 = 2060), inputs drawn as
+    chip_smoke.py draws them: the bf16 plain version in another sum order
+    (its rows reversed, or its order blocks reversed, and its results put
+    back) passes, forward and backward;
+    the f32 plain version fails, no closer to the bf16 plain version than to
+    itself; and the bf16 plain version with f32 sums stands more than 2^-8
+    of an array's largest entry from the one with f64 sums in its backward,
+    which a fixed 2^-8 would refuse."""
+    smoke = _chip_smoke()
+    b, n, w, m = 4, 60, 103, 5
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, 4, n, w)).astype(np.float32))
+    g = torch.from_numpy((1e-3 * rng.standard_normal((b, 4, n, w * m))).astype(np.float32))
+    cfg = StemGNNConfig(units=n, window_size=w, horizon=3, multi_layer=m)
+    glu = init_params(0, cfg, device="cpu")["blocks"][0]["glu"]
+    p64 = smoke.spectral_plain_arrays(x, glu, g, m, BF16, torch.float64)
+    p32 = smoke.spectral_plain_arrays(x, glu, g, m, BF16)
+    f32 = smoke.spectral_plain_arrays(x, glu, g, m, "float32")
+
+    def rows_back(t):  # [B, K, N, .] with B and N reversed: the rows reversed
+        return t.flip(0).flip(2)
+
+    def blocks_back(t):  # the 4 order blocks of each GLU axis reversed
+        if t.dim() == 1:
+            return t.reshape(4, -1).flip(0).reshape(-1)
+        return t.reshape(4, t.shape[0] // 4, 4, t.shape[1] // 4).flip(0).flip(2).reshape(
+            t.shape)
+
+    fwd, bwd = smoke.spectral_plain_arrays(rows_back(x), glu, rows_back(g), m, BF16)
+    stand_ins = [([rows_back(t) for t in fwd[:2]] + [t.flip(0) for t in fwd[2:]],
+                  [rows_back(bwd[0])] + bwd[1:])]
+    # the order blocks reversed: the same sums, each product's terms in
+    # another order (the DFT matrices are block diagonal)
+    glu_back = [{s: {k: blocks_back(t) for k, t in p[s].items()} for s in p} for p in glu]
+    fwd, bwd = smoke.spectral_plain_arrays(x.flip(1), glu_back, g.flip(1), m, BF16)
+    stand_ins.append(([t.flip(1) for t in fwd[:2]] + [t.reshape(t.shape[0], 4, -1).flip(1).reshape(t.shape)
+                                                      for t in fwd[2:]],
+                      [bwd[0].flip(1)] + [blocks_back(t) for t in bwd[1:]]))
+    for other in stand_ins:
+        for part in (0, 1):
+            bad, rel, noise, closer = smoke.bf16_noise_agreement(other[part], p64[part],
+                                                                 p32[part], f32[part])
+            assert not bad, (part, bad, rel, noise, closer)
+            assert noise <= smoke.BF16_NOISE_FACTOR and closer >= smoke.BF16_CLOSER
+    for part in (0, 1):
+        bad, _, _, closer = smoke.bf16_noise_agreement(f32[part], p64[part], p32[part],
+                                                       f32[part])
+        assert closer == 0.0 and any("closer" in label for label in bad), bad
+    worst = max(((a - a64).abs().max() / a64.abs().max()).item()
+                for a, a64 in zip(p32[1], p64[1]))
+    assert worst > smoke.BF16_ATOL_REL, worst

@@ -245,9 +245,9 @@ def test_no_grad_calls_skip_the_functions():
 
 def test_backward_wrappers_are_counted_kernels_and_cpu_launches_none():
     assert list(ops.KERNELS) == [
-        "gru_fwd", "gru_fwd_one_block", "attention_kq_fwd", "cheb_graph_conv_fwd",
+        "gru_fwd", "gru_fwd_grid", "attention_kq_fwd", "cheb_graph_conv_fwd",
         "spectral_fwd",
-        "gru_bwd", "gru_bwd_one_block", "attention_kq_bwd", "spectral_bwd", "spectral_fwd_save",
+        "gru_bwd", "gru_bwd_grid", "attention_kq_bwd", "spectral_bwd", "spectral_fwd_save",
         "spectral_bwd_reread", "cheb_graph_conv_fwd_bf16", "spectral_fwd_bf16",
         "spectral_fwd_save_bf16", "spectral_bwd_bf16", "spectral_bwd_reread_bf16"]
     ops.reset_launches()

@@ -205,12 +205,12 @@ def test_new_wrappers_are_counted_kernels_and_launch_nothing_on_the_cpu():
     (35, 5),   # D1 = 700: past 680, the rows kernel's 8-row tiles (C.5)
 ])
 def test_spectral_backward_shape_rule(interpret, w, multi):
-    """The CUDA kernels take every window and multiplier with D1 = 4 * W *
-    multi at most 2048 (csrc/spectral.cu `shape_ok`, the forward's rule and
-    the backward's; chip_smoke.py holds them against the plain versions at
-    W = 7, 10, 25, 28 and 35, at multi 6 and 15 and at D1 = 2000). At such
-    shapes the plain reread backward, which the kernels are held to, matches
-    the JAX package's."""
+    """The CUDA kernels take every window and multiplier with D0 = 4 * W and
+    D1 = 4 * W * multi in runs of 4 columns (csrc/spectral.cu `shape_ok`, the
+    forward's rule and the backward's; chip_smoke.py holds them against the
+    plain versions at W = 7, 10, 25, 28, 35 and 103, at multi 6, 15 and 64 and
+    at D1 = 2000). At such shapes the plain reread backward, which the
+    kernels are held to, matches the JAX package's."""
     _check_reread_backward(np.random.default_rng(65), 2, 5, w, multi)
 
 
@@ -220,6 +220,7 @@ def test_spectral_backward_shape_rule(interpret, w, multi):
     (28, 5),   # D1 = 560: the COVID-19 window
     (12, 6),   # D1 = 288
     (35, 5),   # D1 = 700: past 680 (C.5)
+    (103, 5),  # D1 = 2060: past 2048 (C.5)
 ])
 def test_plain_save_forward_matches_pallas_at_other_windows(interpret, w, multi):
     """The plain saving forward, which the CUDA saving forward is held to on
