@@ -47,7 +47,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
      each array within BF16_ATOL_REL of its largest entry and closer to the
      bf16 plain result than to the f32 one; their bound at the bf16
      tensor-core rate; the bf16 spectral backward twice bitwise and its
-     reread bitwise its recompute.
+     reread bitwise its recompute (up to D1 = 2048 the bf16 backwards run
+     on tensor cores, mma.sync, so every bf16 backward shape above holds
+     those kernels). The redesigned bf16 wrappers' times beside their parent
+     design's (PARENT_DESIGN_MS) and the f32 arms'; the bf16 graph conv one
+     kernel a call (torch.profiler: no cast kernel before it).
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -1332,6 +1336,62 @@ def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int =
     return None
 
 
+# The earlier design's device ms a wrapper call of the kernels that went to
+# tensor cores or lost their cast launches (PERF.md section 6, this script's
+# phase 3 on an NVIDIA H100 80GB HBM3 at 700.00 W): the scalar bf16 spectral
+# backwards and the bf16 graph conv with its two casts. Printed beside this
+# run's times.
+PARENT_DESIGN_MS = {"spectral_bwd_reread_bf16": 0.68988, "spectral_bwd_bf16": 0.88127,
+                    "cheb_graph_conv_fwd_bf16": 0.00871}
+
+
+def kernels_of_call(fn):
+    """The names of the CUDA kernels one call of fn launches, by
+    torch.profiler, or None where the profiler cannot say."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not ev.is_user_annotation]
+    except RuntimeError as exc:
+        print(f"[3 kernel] kernels of a call: not measured (the profiler failed: {exc})")
+        return None
+    return names or None
+
+
+def bf16_redesigns(results, params, mcfg, x):
+    """The redesigned bf16 kernels beside the earlier design's times
+    (PARENT_DESIGN_MS) and the f32 arms' of this run; and the bf16 graph conv
+    as one launch a call (no cast kernel before it), by the profiler. Returns
+    an error message, or None."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_graph
+
+    for name, parent_ms in PARENT_DESIGN_MS.items():
+        f32 = results.get(name[: -len("_bf16")], {}).get("ms")
+        print(f"[3 kernel] {name}: {results[name]['ms']:.5f} ms a wrapper call, the parent "
+              f"design's {parent_ms:.5f} (PERF.md), the f32 arm's "
+              f"{'n/a' if f32 is None else f'{f32:.5f}'} in this run")
+    _, _, mul_L, feat, _ = forward_inputs(params, mcfg, x)
+    with torch.no_grad():
+        names = kernels_of_call(lambda: cuda_graph.cheb_graph_conv(mul_L, feat, "bfloat16"))
+    if names is None:
+        print("[3 kernel] cheb_graph_conv_fwd_bf16: kernels a call not measured")
+        return None
+    print(f"[3 kernel] cheb_graph_conv_fwd_bf16: {len(names)} kernel(s) a call: {names}")
+    if len(names) != 1 or "cheb_graph_conv" not in names[0]:
+        return f"cheb_graph_conv_fwd_bf16 launches {names}, expected its one kernel"
+    return None
+
+
 def run() -> int:
     import dataclasses
 
@@ -1476,6 +1536,8 @@ def run() -> int:
     if fail is None:
         # the bf16 arms at the flagship's shapes
         fail = check_bf16_cases(bf16_cases(rec, params, mcfg, x), results, "3 kernel")
+    if fail is None:
+        fail = bf16_redesigns(results, params, mcfg, x)
     if fail is not None:
         return _fail(fail)
     with torch.no_grad():

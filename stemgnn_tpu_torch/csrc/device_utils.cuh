@@ -124,35 +124,6 @@ __device__ __forceinline__ void copy_panel_async(float* dst, int dst_ld,
   }
 }
 
-// The same for a panel of bf16: 16 bytes (8 elements) a copy where every row
-// of both sides is 16-byte aligned, 8 bytes where 8-byte aligned, else element
-// by element through registers (ordinary stores, which the barrier after the
-// copies' wait makes visible as it does the copies).
-__device__ __forceinline__ void copy_panel_async(bf16* dst, int dst_ld,
-                                                 const bf16* __restrict__ src, long src_ld,
-                                                 int rows, int cols) {
-  const int lds = cols | dst_ld | (int)(src_ld & 7);
-  const uintptr_t at = (uintptr_t)src | (uintptr_t)dst;
-  if ((lds & 7) == 0 && (at & 15) == 0) {
-    const int c8 = cols / 8;
-    for (int e = threadIdx.x; e < rows * c8; e += blockDim.x) {
-      const int r = e / c8, c = (e - r * c8) * 8;
-      cp_async16(dst + r * dst_ld + c, src + r * src_ld + c);
-    }
-  } else if ((lds & 3) == 0 && (at & 7) == 0) {
-    const int c4 = cols / 4;
-    for (int e = threadIdx.x; e < rows * c4; e += blockDim.x) {
-      const int r = e / c4, c = (e - r * c4) * 4;
-      cp_async8(dst + r * dst_ld + c, src + r * src_ld + c);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
-      const int r = e / cols, c = e - r * cols;
-      dst[r * dst_ld + c] = src[r * src_ld + c];
-    }
-  }
-}
-
 // v[g][i] holds this lane's partial sum for row i of value g; the R lanes
 // `stride` apart (p = 0..R-1) hold partials of the same R rows. Adds them so
 // that lane p ends with the full sums of row p in v[g][0]. Each round a lane

@@ -32,11 +32,14 @@
 // of MP rows of x.
 //
 // The bf16 arm (`cheb_graph_conv_fwd_bf16`, the JAX kernel at
-// compute_dtype=bfloat16): L and x come in as bf16 (orders 1 to K-1; the
-// order-0 slab is still written as zeros), the panels stay bf16 in shared
-// memory (a 16-byte cp.async piece carries 8 of them; rows whose alignment
-// allows no more, 4), and each product converts its two operands to f32,
-// exact, for the same f32 fmaf sums: out stays f32.
+// compute_dtype=bfloat16): L and x come in as f32, as the model holds them,
+// and each value is rounded to bf16 (to nearest, ties to even, as the JAX
+// package's astype) on its way into shared memory (`round_panels`: float4
+// loads of both panels in flight together while the zero slab is stored,
+// through registers, since cp.async cannot convert), so the call is one
+// launch and no cast kernel runs before it. The panels are
+// bf16 in shared memory, and each product converts its two operands to f32,
+// exact, for the same f32 fmaf sums as the f32 arm: out stays f32.
 
 #include <cuda_runtime.h>
 
@@ -58,14 +61,98 @@ __device__ __forceinline__ void lds4(const bf16* p, float (&v)[4]) {
   unpack4(*reinterpret_cast<const uint2*>(p), v);
 }
 
+// A thread's float4 runs of a panel with w4 runs a row: tid, tid +
+// blockDim.x, ..., as (row, run), advanced without a division.
+struct PanelWalk {
+  int r, c, dr, dc, w;
+  __device__ explicit PanelWalk(int w4)
+      : r(threadIdx.x / w4), c(threadIdx.x % w4), dr(blockDim.x / w4), dc(blockDim.x % w4),
+        w(w4) {}
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+  }
+};
+
+// The bf16 arm's panels from f32 operands: L's [rows][cl] (leading
+// dimensions ldl in device memory, lda in shared memory) and x's [nb][cx]
+// (ldx, ldxs), each value rounded to bf16 on its way through registers. A
+// thread starts up to kRoundBatch float4 loads of each panel, runs `between`
+// (work that needs none of them: the zero slab's and the pads' stores) while
+// they are on the way, then rounds and stores them, 8 bytes at a time; where
+// a row of either side allows no float4, one value at a time. Ordinary
+// stores, which the barrier after the panel's wait makes visible.
+constexpr int kRoundBatch = 4;
+
+// four f32 values rounded to bf16, stored as 8 bytes
+__device__ __forceinline__ void store_bf16x4(bf16* dst, const float4& v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+}
+
+template <typename F>
+__device__ __forceinline__ void round_panels(bf16* As, int lda, const float* __restrict__ L,
+                                             long ldl, int rows, int cl, bf16* Xs, int ldxs,
+                                             const float* __restrict__ X, long ldx, int nb,
+                                             int cx, F between) {
+  const bool vec = ((cl | lda | (int)(ldl & 3) | cx | ldxs | (int)(ldx & 3)) & 3) == 0 &&
+                   (((uintptr_t)L | (uintptr_t)X) & 15) == 0 &&
+                   (((uintptr_t)As | (uintptr_t)Xs) & 7) == 0;
+  if (!vec) {
+    between();
+    for (int e = threadIdx.x; e < rows * cl; e += blockDim.x)
+      As[e / cl * lda + e % cl] = __float2bfloat16_rn(__ldg(L + e / cl * ldl + e % cl));
+    for (int e = threadIdx.x; e < nb * cx; e += blockDim.x)
+      Xs[e / cx * ldxs + e % cx] = __float2bfloat16_rn(__ldg(X + e / cx * ldx + e % cx));
+    return;
+  }
+  PanelWalk wl(cl / 4), wx(cx / 4);
+  bool waiting = true;  // `between` still to run
+  while (wl.r < rows || wx.r < nb) {
+    float4 vl[kRoundBatch], vx[kRoundBatch];
+    bf16* dl[kRoundBatch];
+    bf16* dx[kRoundBatch];
+#pragma unroll
+    for (int j = 0; j < kRoundBatch; ++j) {
+      dl[j] = dx[j] = nullptr;
+      if (wl.r < rows) {
+        vl[j] = __ldg(reinterpret_cast<const float4*>(L + wl.r * ldl + 4 * wl.c));
+        dl[j] = As + wl.r * lda + 4 * wl.c;
+        wl.next();
+      }
+      if (wx.r < nb) {
+        vx[j] = __ldg(reinterpret_cast<const float4*>(X + wx.r * ldx + 4 * wx.c));
+        dx[j] = Xs + wx.r * ldxs + 4 * wx.c;
+        wx.next();
+      }
+    }
+    if (waiting) {
+      between();
+      waiting = false;
+    }
+#pragma unroll
+    for (int j = 0; j < kRoundBatch; ++j) {
+      if (dl[j] != nullptr) store_bf16x4(dl[j], vl[j]);
+      if (dx[j] != nullptr) store_bf16x4(dx[j], vx[j]);
+    }
+  }
+  if (waiting) between();  // a thread with no element
+}
+
 // Shared memory: As [kTM][RSA] (the panel of L, RSA >= MP a multiple of 8),
 // then Xs [kTB][XBS] (a batch's [MP][W] rows of x, XBS >= MP * W + 4 so a
 // ragged last read stays inside, and a whole number of 16-byte pieces), both
-// of the operand type T. blockDim.x = kChunkThreads * min(chunks,
-// kMaxChunks).
+// of the operand type T (L and x f32 for both arms). blockDim.x =
+// kChunkThreads * min(chunks, kMaxChunks).
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kChunkThreads * kMaxChunks)
-cheb_graph_conv_kernel(const T* __restrict__ L, const T* __restrict__ x,
+cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
                        float* __restrict__ out, int K, int N, int B, int W, int MP,
                        int RSA, int XBS) {
   extern __shared__ __align__(16) float smem_raw[];
@@ -105,7 +192,7 @@ cheb_graph_conv_kernel(const T* __restrict__ L, const T* __restrict__ x,
   const int chunks = (W + 3) / 4;
   const int slots = blockDim.x / kChunkThreads;
   const int panels = (N + MP - 1) / MP;
-  const T* Lk = L + ((long)k * N + n0) * N;
+  const float* Lk = L + ((long)k * N + n0) * N;
   const T zero = T(0.f);
 
   for (int wc0 = 0; wc0 < chunks; wc0 += slots) {
@@ -117,20 +204,30 @@ cheb_graph_conv_kernel(const T* __restrict__ L, const T* __restrict__ x,
       const int mp = (mr + kParts - 1) / kParts * kParts;  // a whole round of the k-parts
       if (wc0 == 0 || panels > 1) {    // one panel: loaded once for every w
         if (wc0 > 0 || pi > 0) __syncthreads();  // the last panel's readers are done
-        copy_panel_async(As, RSA, Lk + m0, N, rows, mr);
-        for (int i = 0; i < kTB && b0 + i < B; ++i)
-          copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, 0, 1,
-                           mr * W);
-        cp_async_commit();
-        if (k == 1 && wc0 == 0 && pi == 0) zero_slab();
-        // zeros past the last real row of x, up to a whole round of the
-        // k-parts: columns of L (the tile's rows past N and the batches past B
-        // are never stored and stay as they are) and rows of x
-        for (int r = tid / kParts; r < rows; r += blockDim.x / kParts)
-          if (mr + tid % kParts < mp) As[r * RSA + mr + tid % kParts] = zero;
-        for (int i = 0; i < kTB && b0 + i < B; ++i)
-          for (int e = mr * W + tid; e < mp * W + 4; e += blockDim.x)
-            Xs[i * XBS + e] = zero;
+        // what needs none of the panels' values: the zero slab, and zeros past
+        // the last real row of x, up to a whole round of the k-parts: columns
+        // of L (the tile's rows past N and the batches past B are never
+        // stored and stay as they are) and rows of x
+        auto beside = [&] {
+          if (k == 1 && wc0 == 0 && pi == 0) zero_slab();
+          for (int r = tid / kParts; r < rows; r += blockDim.x / kParts)
+            if (mr + tid % kParts < mp) As[r * RSA + mr + tid % kParts] = zero;
+          for (int i = 0; i < kTB && b0 + i < B; ++i)
+            for (int e = mr * W + tid; e < mp * W + 4; e += blockDim.x)
+              Xs[i * XBS + e] = zero;
+        };
+        if constexpr (sizeof(T) == 2) {
+          // both panels in one pass of loads, `beside` while they are on the way
+          round_panels(As, RSA, Lk + m0, N, rows, mr, Xs, XBS, x + ((long)b0 * N + m0) * W,
+                       (long)N * W, min(kTB, B - b0), mr * W, beside);
+        } else {
+          copy_panel_async(As, RSA, Lk + m0, N, rows, mr);
+          for (int i = 0; i < kTB && b0 + i < B; ++i)
+            copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, 0, 1,
+                             mr * W);
+          cp_async_commit();
+          beside();
+        }
         cp_async_wait_group<0>();
         __syncthreads();
       }
@@ -169,7 +266,7 @@ cheb_graph_conv_kernel(const T* __restrict__ L, const T* __restrict__ x,
 }
 
 template <typename T>
-int launch(const T* L, const T* x, float* out, int K, int N, int B, int W, int panel,
+int launch(const float* L, const float* x, float* out, int K, int N, int B, int W, int panel,
            int row_stride, int batch_stride, int threads, int smem, int vec,
            cudaStream_t stream) {
   auto kernel = vec ? cheb_graph_conv_kernel<T, true> : cheb_graph_conv_kernel<T, false>;
@@ -193,15 +290,16 @@ extern "C" int cheb_graph_conv_fwd(const float* L, const float* x, float* out,
                                    int K, int N, int B, int W, int panel,
                                    int row_stride, int batch_stride, int threads,
                                    int smem, int vec, void* stream) {
-  return launch(L, x, out, K, N, B, W, panel, row_stride, batch_stride, threads, smem, vec,
-                (cudaStream_t)stream);
+  return launch<float>(L, x, out, K, N, B, W, panel, row_stride, batch_stride, threads, smem,
+                       vec, (cudaStream_t)stream);
 }
 
-// The bf16 arm: L and x bf16 (the plan's strides in bf16 elements), out f32.
-extern "C" int cheb_graph_conv_fwd_bf16(const bf16* L, const bf16* x, float* out,
+// The bf16 arm: L and x f32, rounded to bf16 as they are staged (the plan's
+// strides in bf16 elements), out f32.
+extern "C" int cheb_graph_conv_fwd_bf16(const float* L, const float* x, float* out,
                                         int K, int N, int B, int W, int panel,
                                         int row_stride, int batch_stride, int threads,
                                         int smem, int vec, void* stream) {
-  return launch(L, x, out, K, N, B, W, panel, row_stride, batch_stride, threads, smem, vec,
-                (cudaStream_t)stream);
+  return launch<bf16>(L, x, out, K, N, B, W, panel, row_stride, batch_stride, threads, smem,
+                      vec, (cudaStream_t)stream);
 }

@@ -112,8 +112,12 @@
 // inverse DFT's), and in the backward da and ds before their products (the
 // bias gradients sum them unrounded) and u = a * s of the weight gradients,
 // rebuilt from the saved f32 a and s as the forward built it: so the reread
-// backward stays bitwise the recompute backward. Every product converts its
-// two bf16 operands to f32 (exact) and sums in the f32 arm's fmaf order.
+// backward stays bitwise the recompute backward. The forwards' products
+// convert their two bf16 operands to f32 (exact) and sum in the f32 arm's
+// fmaf order. The backwards take g as f32 and round it as they stage it; up
+// to D1 = 2048 they run on tensor cores (`bwd_mma_launch`, below: mma.sync,
+// da and ds kept as bf16, no weight transposed), past it on the wide scalar
+// kernels of the f32 arm's design.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -121,6 +125,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <type_traits>
 
 #include "device_utils.cuh"
 
@@ -795,10 +800,11 @@ spectral_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ acts
 // than a block's shared memory past D1 = 1614) sit in a device workspace, a
 // part for each of wide_slots tile slots, walked as the wide chain kernel
 // walks them. Every output element is the rows kernel's chain of fmaf in the
-// same order, and the bias partials are per 8 rows as there.
-template <typename T, bool kRagged>
+// same order, and the bias partials are per 8 rows as there. g of the type Tg
+// (the bf16 arm: f32, rounded to bf16 as it is staged).
+template <typename T, typename Tg, bool kRagged>
 __global__ void __launch_bounds__(kBWideThreads, 1)
-spectral_bwd_rows_wide_kernel(const T* __restrict__ g, const float* __restrict__ acts,
+spectral_bwd_rows_wide_kernel(const Tg* __restrict__ g, const float* __restrict__ acts,
                               float* __restrict__ dacts, long plane, long rows_pad,
                               TransposedWeights<T> wt, const T* __restrict__ ci,
                               const T* __restrict__ si, float* __restrict__ dxc,
@@ -820,7 +826,7 @@ spectral_bwd_rows_wide_kernel(const T* __restrict__ g, const float* __restrict__
       float v = 0.f;
       if (row < rows) {
         const long b = row / N, n = row % N;
-        v = to_f32(g[((b * K + col / WM) * N + n) * WM + col % WM]);
+        v = round_to<T>(to_f32(g[((b * K + col / WM) * N + n) * WM + col % WM]));
       }
       dy[col * S + r] = v;
     }
@@ -1119,6 +1125,507 @@ __global__ void spectral_reduce_kernel(const float* __restrict__ part,
   grads[i] = acc;
 }
 
+// ---- the bf16 backward on tensor cores (D1 up to kMmaMaxD1) ----
+//
+// Every operand of every product of the bf16 backward is a bf16 value (g, the
+// weights and the inverse DFT's block as the caller hands them, da and ds
+// rounded where the TPU kernel casts them, u = round(a * s)), so Hopper's
+// mma.sync bf16 x bf16 -> f32 computes the scalar kernels' exact products;
+// only the order of the f32 sums differs. Two kernels replace the scalar rows
+// and weight-gradient kernels there:
+//   * `spectral_bwd_rows_mma_kernel`: a block per tile of 16 MT rows and
+//     chain. The tile's cotangent (f32 g rounded to bf16 as it is staged),
+//     then da and ds, sit in shared memory as bf16 [row][k]; warp w owns the
+//     NT n8 column tiles from 8 NT w of every product and keeps its sums in
+//     registers across the barrier that ends the product's reads, so the
+//     elementwise step is the products' epilogue. A weight's row-major
+//     [Din][D1] layout is already the `.col` B operand of da @ Wl^T, so no
+//     weight is transposed: a lane reads its B fragment as 8 bytes from L2
+//     (4 consecutive k of one column) and its A fragment as two 8-byte
+//     shared loads, the k of a step permuted alike in both (slots 2t, 2t+1
+//     hold k 4t, 4t+1 and slots 2t+8, 2t+9 hold 4t+2, 4t+3), which leaves
+//     each product's sum as it is. The inverse DFT is the same product with
+//     the block-diagonal B built on the fly from one [WM][WM] block, over the
+//     k of the warp's orders only. The epilogue writes da and ds (bf16) to a
+//     workspace, round(a * s) of GLUs 0-3 (u of GLUs 2-5) beside them, and
+//     the tile's column sums of the unrounded da, ds for the bias gradients
+//     (a fixed butterfly over the lanes).
+//   * `spectral_wgrad_mma_kernel`: a block per [48, 128] tile of dWl and dWr
+//     of one GLU and one of nsplit row segments; u and da, ds come in
+//     32-row stages of bf16 by cp.async (layer 0's x through registers), two
+//     in flight, and ldmatrix.trans turns the row-major stages into the
+//     fragments of u^T and da. Partials are summed in order by
+//     `spectral_reduce_kernel`, as for the scalar kernels: no atomics.
+// Bound: bytes (the 12 saved f32 arrays read, da and ds written and read
+// back as bf16), against 9.3 GFLOP at the flagship shapes.
+constexpr int kMmaMaxD1 = 2048;
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices of shared memory, transposed: lane i gives the
+// address of row i % 8 of matrix i / 8
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// bf16 elements between two rows of the rows kernel's shared buffers: D1
+// rounded up to 16, then to 32 bytes past a multiple of 128, so that the
+// 8-byte A loads of a half warp (4 rows by 4 lanes) fall on distinct banks
+__host__ __device__ constexpr int mma_stride(int d1) {
+  return ((d1 + 15) / 16 * 32 + 127) / 128 * 64 + 16;
+}
+
+// bf16 elements a row of the da, ds and u workspaces (16-byte rows)
+__host__ __device__ constexpr long mma_ld(int d1) { return (d1 + 7) / 8 * 8; }
+
+// acc[mt][nt] = sum over k of A[r0 + 16 mt + i][k] * Bnk[n0 + 8 nt + j][k]:
+// the halves (a0, b0) then (a1, b1) (b: [nn][kin] row-major, the weights'
+// own layout), k ascending in steps of 16 up to kin rounded to 16 (A zero
+// past kin). B comes from L2: kDepth - 1 steps of it in flight in a ring of
+// registers, as deep as the block's register budget leaves room for (MT = 5:
+// one block an SM, 255 registers a thread; else 128).
+template <int MT, int NT>
+__device__ __forceinline__ void rows_mma_product(const bf16* a0, const bf16* a1, int S, int r0,
+                                                 const bf16* __restrict__ b0,
+                                                 const bf16* __restrict__ b1, int nn, int kin,
+                                                 int n0, float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  if (n0 >= nn) return;  // a warp past the columns
+  constexpr int kDepth = MT >= 5 ? 4 : NT <= 8 ? 2 : 1;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int ksteps = (kin + 15) / 16, steps = 2 * ksteps;
+  auto load = [&](int s, uint2 (&b)[NT]) {
+    const bf16* w = s < ksteps ? b0 : b1;
+    const int k = (s < ksteps ? s : s - ksteps) * 16 + 4 * tq;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = n0 + 8 * nt + gq;
+      b[nt] = n < nn && k < kin ? __ldg(reinterpret_cast<const uint2*>(w + (long)n * kin + k))
+                                : make_uint2(0u, 0u);
+    }
+  };
+  uint2 ring[kDepth][NT];
+#pragma unroll
+  for (int u = 0; u + 1 < kDepth; ++u)
+    if (u < steps) load(u, ring[u]);
+  for (int s0 = 0; s0 < steps; s0 += kDepth) {
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+      const int s = s0 + u;
+      if (s >= steps) break;
+      if (s + kDepth - 1 < steps) load(s + kDepth - 1, ring[(u + kDepth - 1) % kDepth]);
+      const bf16* a = (s < ksteps ? a0 : a1) + (s < ksteps ? s : s - ksteps) * 16 + 4 * tq;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint2 lo = *reinterpret_cast<const uint2*>(a + (r0 + 16 * mt + gq) * S);
+        const uint2 hi = *reinterpret_cast<const uint2*>(a + (r0 + 16 * mt + gq + 8) * S);
+        const uint32_t frag[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_bf16(acc[mt][nt], frag, ring[u][nt].x, ring[u][nt].y);
+      }
+    }
+  }
+}
+
+// The inverse DFT backwards as the same product: acc[mt][nt] = dR of the
+// warp's columns, B[n][k] = idft[n % WM][k % WM] where n and k lie in one
+// order's window (Ci, Si symmetric), else 0; k only over the windows of the
+// warp's columns.
+template <int MT, int NT>
+__device__ __forceinline__ void rows_mma_idft(const bf16* gt, int S, const bf16* __restrict__ idft,
+                                              int WM, int d1, int n0, float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  if (n0 >= d1) return;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int last = min(d1, n0 + 8 * NT) - 1;
+  const int kb = n0 / WM * WM / 16 * 16;
+  const int ke = min((d1 + 15) / 16 * 16, ((last / WM + 1) * WM + 15) / 16 * 16);
+  int lo[NT];        // the first k of each column's window (past every k: none)
+  const bf16* src[NT];  // that window's row of the block
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = n0 + 8 * nt + gq;
+    lo[nt] = n < d1 ? n / WM * WM : INT_MAX / 2;
+    src[nt] = idft + (n < d1 ? (n % WM) * WM : 0);
+  }
+  for (int k = kb; k < ke; k += 16) {
+    uint2 b[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      unsigned short v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = k + 4 * tq + q - lo[nt];
+        v[q] = j >= 0 && j < WM ? __bfloat16_as_ushort(src[nt][j]) : (unsigned short)0;
+      }
+      b[nt] = make_uint2(v[0] | (unsigned)v[1] << 16, v[2] | (unsigned)v[3] << 16);
+    }
+    const bf16* a = gt + k + 4 * tq;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint2 lo2 = *reinterpret_cast<const uint2*>(a + (16 * mt + gq) * S);
+      const uint2 hi2 = *reinterpret_cast<const uint2*>(a + (16 * mt + gq + 8) * S);
+      const uint32_t frag[4] = {lo2.x, hi2.x, lo2.y, hi2.y};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], frag, b[nt].x, b[nt].y);
+    }
+  }
+}
+
+// The epilogue of GLU gi on the warp's product tile acc (the cotangent of its
+// output): da = d * s, ds = d * a * (s * (1 - s)) with a, s of GLU gi (f32,
+// [rows_pad][d1]); da, ds rounded to bf16 into the shared buffers (every row
+// of the tile: zeros past rows_pad) and into da_g, ds_g ([rows_pad][ld]); with
+// u_g, round(a * s) there too (u of GLU gi + 2); the column sums of the
+// unrounded da, ds over the tile's rows into bias (ds's d1 further on): a
+// lane's rows in order, then a fixed butterfly over the 8 lanes of a column.
+template <int MT, int NT>
+__device__ __forceinline__ void rows_mma_epilogue(
+    const float (&acc)[MT][NT][4], int n0, int d1, int S, long row0, long rows_pad, long ld,
+    const float* __restrict__ a_g, const float* __restrict__ s_g, bf16* __restrict__ da_g,
+    bf16* __restrict__ ds_g, bf16* __restrict__ u_g, bf16* da, bf16* ds,
+    float* __restrict__ bias) {
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  float sa[NT][2] = {}, ss[NT][2] = {};  // the column sums of the lane's rows
+  constexpr int kG = NT < 4 ? NT : 4;  // column tiles whose a, s loads fly together
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int ng = 0; ng < NT; ng += kG) {
+      // a, s of the 16 rows' kG column pairs, all loads in flight before any use
+      float2 av[kG][2], sv[kG][2];
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = n0 + 8 * (ng + i) + 2 * tq;
+          const long row = row0 + 16 * mt + gq + 8 * h;
+          const bool in = col < d1 && row < rows_pad;
+          av[i][h] = in ? __ldg(reinterpret_cast<const float2*>(a_g + row * d1 + col))
+                        : make_float2(0.f, 0.f);
+          sv[i][h] = in ? __ldg(reinterpret_cast<const float2*>(s_g + row * d1 + col))
+                        : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+      for (int i = 0; i < kG; ++i) {
+        const int nt = ng + i;
+        const int col = n0 + 8 * nt + 2 * tq;
+        const bool live = col < d1;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * mt + gq + 8 * h;
+          const long row = row0 + r;
+          const bool in = live && row < rows_pad;
+          const float2 a = av[i][h], s = sv[i][h];
+          const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+          const float va0 = v0 * s.x, va1 = v1 * s.y;
+          const float vs0 = v0 * a.x * (s.x * (1.f - s.x)), vs1 = v1 * a.y * (s.y * (1.f - s.y));
+          sa[nt][0] += va0;
+          sa[nt][1] += va1;
+          ss[nt][0] += vs0;
+          ss[nt][1] += vs1;
+          const uint32_t pa = pack_bf16x2(va0, va1), ps = pack_bf16x2(vs0, vs1);
+          if (live) {
+            *reinterpret_cast<uint32_t*>(da + r * S + col) = pa;
+            *reinterpret_cast<uint32_t*>(ds + r * S + col) = ps;
+          }
+          if (in) {
+            *reinterpret_cast<uint32_t*>(da_g + row * ld + col) = pa;
+            *reinterpret_cast<uint32_t*>(ds_g + row * ld + col) = ps;
+            if (u_g != nullptr)
+              *reinterpret_cast<uint32_t*>(u_g + row * ld + col) =
+                  pack_bf16x2(a.x * s.x, a.y * s.y);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = n0 + 8 * nt + 2 * tq;
+#pragma unroll
+    for (int off = 4; off < 32; off *= 2) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        sa[nt][q] += __shfl_xor_sync(0xffffffffu, sa[nt][q], off);
+        ss[nt][q] += __shfl_xor_sync(0xffffffffu, ss[nt][q], off);
+      }
+    }
+    if (col < d1 && gq == 0) {  // the same for the 8 lanes of a column pair
+      *reinterpret_cast<float2*>(bias + col) = make_float2(sa[nt][0], sa[nt][1]);
+      *reinterpret_cast<float2*>(bias + d1 + col) = make_float2(ss[nt][0], ss[nt][1]);
+    }
+  }
+}
+
+// Starts bringing `bytes` (a multiple of 16, 16-byte aligned) from p into L2
+// (the TMA's bulk prefetch: one thread, no registers, nothing to wait for).
+__device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(bytes) : "memory");
+}
+
+// One tile of 16 MT rows of one chain (blockIdx.y): g (f32 [B,K,N,WM]) ->
+// dR (dI) -> the chain's three GLUs backwards -> the chain's part of dx, dxc
+// [2][rows_pad][D0] f32; da, ds of the chain's GLUs to dacts (bf16, 12 planes
+// of dplane, [rows_pad][ld]), u of GLUs 2-5 to us (4 planes), the tile's
+// column sums to bpart [tiles][12][D1]. blockDim.x: 32 per NT n8 tiles
+// of D1 (`rows_mma_threads`).
+template <int MT, int NT>
+__global__ void __launch_bounds__(NT == 4 ? 256 : 512, NT == 4 && MT <= 4 ? 2 : 1)
+spectral_bwd_rows_mma_kernel(const float* __restrict__ g, const float* __restrict__ acts,
+                             long plane, bf16* __restrict__ dacts, bf16* __restrict__ us,
+                             long dplane, long ld, long rows_pad, GluWeights<bf16> w,
+                             const bf16* __restrict__ ci, const bf16* __restrict__ si,
+                             float* __restrict__ dxc, float* __restrict__ bpart, int B, int K,
+                             int N, int W, int WM) {
+  constexpr int TM = 16 * MT;
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = K * W, d1 = K * WM, S = mma_stride(d1), kp = (d1 + 15) / 16 * 16;
+  bf16* da = reinterpret_cast<bf16*>(smem);  // [TM][S]: the cotangent tile, then da
+  bf16* ds = da + TM * S;                    // [TM][S]
+  const long rows = (long)B * N;
+  const int chain = blockIdx.y;
+  const long row0 = (long)blockIdx.x * TM;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  // the cotangent tile, a row a warp at a time: each order's WM values of a
+  // row are contiguous in g
+  for (int r = threadIdx.x / 32; r < TM; r += blockDim.x / 32) {
+    const long row = row0 + r;
+    const bool live = row < rows;
+    const float* gr = g + (live ? (row / N * K * N + row % N) * WM : 0);
+    for (int kk = 0; kk < K; ++kk)
+      for (int m = threadIdx.x % 32; m < WM; m += 32)
+        da[r * S + kk * WM + m] = __float2bfloat16_rn(live ? gr[(long)kk * N * WM + m] : 0.f);
+    for (int col = d1 + threadIdx.x % 32; col < kp; col += 32) {
+      da[r * S + col] = zero;
+      ds[r * S + col] = zero;  // ds's pad columns: zero for good
+    }
+  }
+  // a and s of a GLU, read by its epilogue, into L2 a product ahead (the 12
+  // saved arrays are more than L2 holds: they come from device memory)
+  const unsigned tile_bytes = (unsigned)(min((long)TM, rows_pad - row0) * d1 * sizeof(float));
+  auto prefetch_acts = [&](int gi) {
+    if (threadIdx.x == 0) {
+      prefetch_l2(acts + (2 * gi) * plane + row0 * d1, tile_bytes);
+      prefetch_l2(acts + (2 * gi + 1) * plane + row0 * d1, tile_bytes);
+    }
+  };
+  prefetch_acts(4 + chain);
+  prefetch_acts(2 + chain);
+  __syncthreads();
+
+  const int n0 = threadIdx.x / 32 * NT * 8;
+  float acc[MT][NT][4];
+  rows_mma_idft<MT, NT>(da, S, chain == 0 ? ci : si, WM, d1, n0, acc);
+  __syncthreads();  // every read of the cotangent tile is done
+  for (int layer = 2; layer >= 0; --layer) {
+    const int gi = 2 * layer + chain;
+    if (layer == 2) prefetch_acts(chain);
+    rows_mma_epilogue<MT, NT>(acc, n0, d1, S, row0, rows_pad, ld, acts + (2 * gi) * plane,
+                              acts + (2 * gi + 1) * plane, dacts + (2 * gi) * dplane,
+                              dacts + (2 * gi + 1) * dplane,
+                              gi < 4 ? us + gi * dplane : nullptr, da, ds,
+                              bpart + ((long)blockIdx.x * 12 + 2 * gi) * d1);
+    __syncthreads();
+    if (layer > 0) {
+      rows_mma_product<MT, NT>(da, ds, S, 0, w.wl[gi], w.wr[gi], d1, d1, n0, acc);
+      __syncthreads();  // every read of da, ds is done before they are rewritten
+    } else {
+      // into the input space: D0 columns, an n8 column tile a warp at a time
+      const int lane = threadIdx.x % 32;
+      float* dst = dxc + chain * rows_pad * d0;
+      for (int c0 = threadIdx.x / 32 * 8; c0 < d0; c0 += blockDim.x / 4) {
+        float out[MT][1][4];
+        rows_mma_product<MT, 1>(da, ds, S, 0, w.wl[gi], w.wr[gi], d0, d1, c0, out);
+        const int col = c0 + 2 * (lane % 4);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long row = row0 + 16 * mt + lane / 4 + 8 * h;
+            if (row < rows_pad && col < d0)
+              *reinterpret_cast<float2*>(dst + row * d0 + col) =
+                  make_float2(out[mt][0][2 * h], out[mt][0][2 * h + 1]);
+          }
+      }
+    }
+  }
+}
+
+// threads of a block of the mma rows kernel: a warp per NT n8 tiles of D1
+__host__ __device__ inline int rows_mma_threads(int d1, int nt) {
+  return ((d1 + 7) / 8 + nt - 1) / nt * 32;
+}
+
+// bytes of shared memory of a block of the mma rows kernel: da, ds of 16 MT rows
+__host__ __device__ inline int rows_mma_smem(int d1, int mt) {
+  return 2 * 16 * mt * mma_stride(d1) * (int)sizeof(bf16);
+}
+
+constexpr int kMK = 48;    // k rows (of the GLU's input) of a weight-gradient tile
+constexpr int kMC = 128;   // columns of a weight-gradient tile
+constexpr int kMR = 32;    // rows a stage: two steps of 16
+constexpr int kMUS = 56;   // bf16 between two rows of a stage's u: 7 x 16 bytes
+constexpr int kMDS = 136;  // the same for da, ds: 17 x 16 bytes (ldmatrix rows on distinct banks)
+constexpr int kMStage = kMR * (kMUS + 2 * kMDS);  // bf16 of a stage
+constexpr int kMThreads = 256;                    // 8 warps: two n8 tiles of the 128 columns each
+
+// blockIdx: x = k tile * column tiles + column tile, y = GLU, z = row
+// segment. part: [gridDim.z][total] partial gradients in the flat layout. u:
+// x (bf16 [B,K,N,W]) for GLUs 0, 1, else us plane gi - 2; da, ds: dacts
+// planes 2 gi, 2 gi + 1 ([rows_pad][ld] bf16).
+__global__ void __launch_bounds__(kMThreads, 2)
+spectral_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ us,
+                          const bf16* __restrict__ dacts, long dplane, long ld, long rows_pad,
+                          float* __restrict__ part, long total, int chunks, int chunks_per_seg,
+                          int B, int K, int N, int W, int WM) {
+  extern __shared__ __align__(16) float smem[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem);
+  const int d0 = K * W, d1 = K * WM;
+  const int gi = blockIdx.y;
+  const int din = gi < 2 ? d0 : d1;
+  const int ctiles = (d1 + kMC - 1) / kMC;
+  const int k0 = blockIdx.x / ctiles * kMK, c0 = blockIdx.x % ctiles * kMC;
+  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles
+  const long rows = (long)B * N;
+  const bf16* u_src = gi < 2 ? nullptr : us + (gi - 2) * dplane;
+  const bf16* da_src = dacts + (2 * gi) * dplane;
+  const bf16* ds_src = dacts + (2 * gi + 1) * dplane;
+
+  // stage st: su [kMR][kMUS] (u, kMK columns), sa and ss [kMR][kMDS] (kMC columns)
+  auto issue = [&](int ch, int st) {
+    bf16* su = sm + st * kMStage;
+    bf16* sa = su + kMR * kMUS;
+    bf16* ss = sa + kMR * kMDS;
+    const long r0 = (long)ch * kMR;
+    for (int e = threadIdx.x; e < kMR * (kMK / 4); e += blockDim.x) {
+      const int r = e / (kMK / 4), q = 4 * (e % (kMK / 4));
+      const long row = r0 + r;
+      const int k = k0 + q;
+      bf16* dst = su + r * kMUS + q;
+      if (row >= rows_pad || k >= din || (gi < 2 && row >= rows)) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+      } else if (gi < 2) {
+        const long b = row / N, n = row % N;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst[j] = x[((b * K + (k + j) / W) * N + n) * W + (k + j) % W];
+      } else {
+        cp_async8(dst, u_src + row * ld + k);
+      }
+    }
+    for (int e = threadIdx.x; e < kMR * (kMC / 8); e += blockDim.x) {
+      const int r = e / (kMC / 8), q = 8 * (e % (kMC / 8));
+      const long row = r0 + r;
+      const int c = c0 + q;
+      bf16* da_dst = sa + r * kMDS + q;
+      bf16* ds_dst = ss + r * kMDS + q;
+      if (row >= rows_pad || c >= d1) {
+        *reinterpret_cast<uint4*>(da_dst) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(ds_dst) = make_uint4(0u, 0u, 0u, 0u);
+      } else if (c + 8 <= d1) {
+        cp_async16(da_dst, da_src + row * ld + c);
+        cp_async16(ds_dst, ds_src + row * ld + c);
+      } else {  // D1 % 8 == 4: the last run of 4 columns
+        cp_async8(da_dst, da_src + row * ld + c);
+        cp_async8(ds_dst, ds_src + row * ld + c);
+        *reinterpret_cast<uint2*>(da_dst + 4) = make_uint2(0u, 0u);
+        *reinterpret_cast<uint2*>(ds_dst + 4) = make_uint2(0u, 0u);
+      }
+    }
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int cn = min(kMC, d1 - c0);
+  const bool live = 16 * warp < cn;
+  // ldmatrix rows: matrix lane / 8, row lane % 8
+  const int mrow = lane % 8, mat = lane / 8;
+  float accl[3][2][4] = {}, accr[3][2][4] = {};
+  const int ch0 = blockIdx.z * chunks_per_seg;
+  const int ch1 = min(chunks, ch0 + chunks_per_seg);
+  // a ring of three stages, two in flight (as `spectral_wgrad_kernel`)
+  if (ch0 < ch1) issue(ch0, 0);
+  cp_async_commit();
+  if (ch0 + 1 < ch1) issue(ch0 + 1, 1);
+  cp_async_commit();
+  for (int ch = ch0; ch < ch1; ++ch) {
+    cp_async_wait_group<1>();
+    __syncthreads();
+    if (ch + 2 < ch1) issue(ch + 2, (ch - ch0 + 2) % 3);
+    cp_async_commit();
+    const bf16* su = sm + ((ch - ch0) % 3) * kMStage;
+    const bf16* sa = su + kMR * kMUS;
+    const bf16* ss = sa + kMR * kMDS;
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < kMR; kk += 16) {
+        uint32_t a[3][4], bl[4], br[4];
+        // u^T's fragments: matrices (rows kk..+7, k 0-7), (kk..+7, k 8-15),
+        // (kk+8.., k 0-7), (kk+8.., k 8-15) of each 16 k
+#pragma unroll
+        for (int mt = 0; mt < 3; ++mt)
+          ldsm_x4_trans(a[mt], su + (kk + mat / 2 * 8 + mrow) * kMUS + 16 * mt + mat % 2 * 8);
+        // da's: (rows kk..+7, n 0-7), (kk+8.., n 0-7), (kk.., n 8-15), (kk+8.., n 8-15)
+        const int boff = (kk + mat % 2 * 8 + mrow) * kMDS + 16 * warp + mat / 2 * 8;
+        ldsm_x4_trans(bl, sa + boff);
+        ldsm_x4_trans(br, ss + boff);
+#pragma unroll
+        for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            mma_bf16(accl[mt][nt], a[mt], bl[2 * nt], bl[2 * nt + 1]);
+            mma_bf16(accr[mt][nt], a[mt], br[2 * nt], br[2 * nt + 1]);
+          }
+      }
+    }
+  }
+  if (!live) return;
+  float* base = part + (long)blockIdx.z * total + glu_grad_offset(gi, d0, d1);
+  float* pwl = base;
+  float* pwr = pwl + (long)din * d1 + d1;
+#pragma unroll
+  for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long k = k0 + 16 * mt + gq + 8 * h;
+        const int c = c0 + 16 * warp + 8 * nt + 2 * tq;
+        if (k < din && c < d1) {
+          *reinterpret_cast<float2*>(pwl + k * d1 + c) =
+              make_float2(accl[mt][nt][2 * h], accl[mt][nt][2 * h + 1]);
+          *reinterpret_cast<float2*>(pwr + k * d1 + c) =
+              make_float2(accr[mt][nt][2 * h], accr[mt][nt][2 * h + 1]);
+        }
+      }
+}
+
 template <typename T>
 GluWeights<T> glu_weights(const void* const* w) {
   GluWeights<T> g;
@@ -1379,9 +1886,10 @@ auto rows_kernel_for(int d1, int WM) {
 
 // Steps 1 to 5 of the backward. saved: the forward's 12 arrays, or nullptr to
 // recompute them (step 2) into the head of ws, its wide chain's buffers at
-// the tail.
-template <typename T>
-int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const T* si,
+// the tail. g of the type Tg: T, or f32 for the bf16 arm, which comes here only
+// past kMmaMaxD1 (the wide rows kernel rounds g as it stages it).
+template <typename T, typename Tg>
+int bwd_launch(const T* x, const Tg* g, const void* const* w, const T* ci, const T* si,
                float* dx, float* grads, const float* saved, float* ws, int B, int K, int N,
                int W, int WM, int nsplit, cudaStream_t st) {
   if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
@@ -1420,10 +1928,13 @@ int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const 
     if (m % 2 == 0) wt.l[m / 2] = p; else wt.r[m / 2] = p;
   }
   if (rows_wide(d1)) {
-    const auto kernel = WM % 4 != 0 || d1 / 4 % 2 != 0 ? spectral_bwd_rows_wide_kernel<T, true>
-                                                       : spectral_bwd_rows_wide_kernel<T, false>;
+    const auto kernel = WM % 4 != 0 || d1 / 4 % 2 != 0
+                            ? spectral_bwd_rows_wide_kernel<T, Tg, true>
+                            : spectral_bwd_rows_wide_kernel<T, Tg, false>;
     kernel<<<dim3((int)wide_slots(rows_pad, kBRN, sms), 2), kBWideThreads, 0, st>>>(
         g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart, rows_ws, B, K, N, W, WM);
+  } else if constexpr (!std::is_same<T, Tg>::value) {
+    return (int)cudaErrorInvalidValue;  // the bf16 arm takes the mma kernels there
   } else {
     const int tile_b = rows_tile(d1);
     const int smem_b = 2 * d1 * rows_stride(tile_b) * (int)sizeof(float);
@@ -1461,6 +1972,98 @@ int bwd_launch(const T* x, const T* g, const void* const* w, const T* ci, const 
   return (int)cudaGetLastError();
 }
 
+using RowsMmaKernel = void (*)(const float*, const float*, long, bf16*, bf16*, long, long, long,
+                               GluWeights<bf16>, const bf16*, const bf16*, float*, float*, int,
+                               int, int, int, int);
+
+// The mma rows kernel of (MT, NT), or nullptr for a pair not instantiated.
+RowsMmaKernel rows_mma_kernel_for(int mt, int nt) {
+  if (nt == 4 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 4>;
+  if (nt == 4 && mt == 2) return spectral_bwd_rows_mma_kernel<2, 4>;
+  if (nt == 4 && mt == 5) return spectral_bwd_rows_mma_kernel<5, 4>;
+  if (nt == 8 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 8>;
+  if (nt == 8 && mt == 2) return spectral_bwd_rows_mma_kernel<2, 8>;
+  if (nt == 16 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 16>;
+  return nullptr;
+}
+
+// The column sums the mma rows kernel leaves: one a tile of tm rows.
+long mma_bias_parts(long rows_pad, int tm) { return (rows_pad + tm - 1) / tm; }
+
+// Floats of the mma route's scratch without the saved arrays: da, ds of six
+// GLUs and u of four, bf16 [rows_pad][mma_ld]; the chains' parts of dx; the
+// bias partials; nsplit partial gradients.
+long mma_scratch_floats(int B, int K, int N, int W, int WM, int nsplit, int tm) {
+  const long rows_pad = rows_padded(B, N), d0 = K * W, d1 = K * WM;
+  return 8 * rows_pad * mma_ld((int)d1) + 2 * rows_pad * d0 +
+         mma_bias_parts(rows_pad, tm) * 12 * d1 + (long)nsplit * grads_total(d0, d1);
+}
+
+// The bf16 backward on tensor cores, D1 up to kMmaMaxD1, on the plan of
+// ops/cuda_spectral.py `bwd_mma_plan`: tm rows a tile of the rows kernel
+// (16 MT), nt n8 tiles a warp, nsplit row segments of the weight gradients.
+// x, the weights, ci and si bf16, g f32. saved as for bwd_launch (the
+// recompute's chain needs no workspace of its own up to kMmaMaxD1). A plan
+// the kernels do not take returns cudaErrorInvalidValue before any launch.
+int bwd_mma_launch(const bf16* x, const float* g, const void* const* w, const bf16* ci,
+                   const bf16* si, float* dx, float* grads, const float* saved, float* ws, int B,
+                   int K, int N, int W, int WM, int nsplit, int tm, int nt, cudaStream_t st) {
+  const int d0 = K * W, d1 = K * WM;
+  const RowsMmaKernel rows_kernel = tm % 16 == 0 ? rows_mma_kernel_for(tm / 16, nt) : nullptr;
+  if (!shape_ok(K, W, WM) || d1 > kMmaMaxD1 || nsplit < 1 || rows_kernel == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int threads = rows_mma_threads(d1, nt), smem = rows_mma_smem(d1, tm / 16);
+  if (threads > (nt == 4 ? 256 : 512) || smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+  const long rows_pad = rows_padded(B, N);
+  const long plane = rows_pad * d1;
+  const long total = grads_total(d0, d1);
+  const GluWeights<bf16> gw = glu_weights<bf16>(w);
+  cudaError_t err;
+
+  const float* acts = saved;
+  if (saved == nullptr) {
+    err = (cudaError_t)chain_launch<bf16, true, false>(x, gw, ci, si, nullptr, ws, nullptr, B, K,
+                                                       N, W, WM, st);
+    if (err != cudaSuccess) return (int)err;
+    acts = ws;
+    ws += 12 * plane;
+  }
+  const long ld = mma_ld(d1), dplane = rows_pad * ld;
+  bf16* dacts = reinterpret_cast<bf16*>(ws);  // 12 planes: da, ds of each GLU
+  bf16* us = dacts + 12 * dplane;              // 4 planes: u of GLUs 2 to 5
+  float* dxc = ws + 8 * dplane;
+  float* bpart = dxc + 2 * rows_pad * d0;
+  float* part = bpart + mma_bias_parts(rows_pad, tm) * 12 * d1;
+
+  err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  rows_kernel<<<dim3((unsigned)((rows_pad + tm - 1) / tm), 2), threads, smem, st>>>(
+      g, acts, plane, dacts, us, dplane, ld, rows_pad, gw, ci, si, dxc, bpart, B, K, N, W, WM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long nx = (long)B * K * N * W;
+  spectral_dx_kernel<<<(int)((nx + 255) / 256), 256, 0, st>>>(dxc, dx, rows_pad, B, K, N, W);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int chunks = (int)((rows_pad + kMR - 1) / kMR);
+  const int chunks_per_seg = (chunks + nsplit - 1) / nsplit;
+  const int smem_w = 3 * kMStage * (int)sizeof(bf16);
+  err = cudaFuncSetAttribute(spectral_wgrad_mma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_w);
+  if (err != cudaSuccess) return (int)err;
+  spectral_wgrad_mma_kernel<<<dim3((d1 + kMK - 1) / kMK * ((d1 + kMC - 1) / kMC), 6, nsplit),
+                              kMThreads, smem_w, st>>>(x, us, dacts, dplane, ld, rows_pad, part,
+                                                       total, chunks, chunks_per_seg, B, K, N,
+                                                       W, WM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  spectral_reduce_kernel<<<(int)((total + 255) / 256), 256, 0, st>>>(part, grads, total,
+                                                                     nsplit, d0, d1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  spectral_bias_kernel<<<dim3(12, (d1 + 31) / 32), dim3(32, kBiasLanes), 0, st>>>(
+      bpart, grads, (int)mma_bias_parts(rows_pad, tm), d0, d1);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Floats of the scratch `spectral_bwd` needs on the current device: a, s of
@@ -1485,23 +2088,52 @@ extern "C" long long spectral_bwd_reread_workspace_floats(int B, int K, int N, i
   return bwd_scratch_floats(B, K, N, W, WM, nsplit, sms);
 }
 
+// The bf16 arm's scratch: up to D1 = kMmaMaxD1 the mma route's of plan tile
+// tm (with the 12 recomputed arrays where `recompute`), past it the scalar
+// route's as above.
+static long long bf16_bwd_workspace_floats(int B, int K, int N, int W, int WM, int nsplit,
+                                           int tm, bool recompute) {
+  if (K * WM > kMmaMaxD1)
+    return recompute ? spectral_bwd_workspace_floats(B, K, N, W, WM, nsplit)
+                     : spectral_bwd_reread_workspace_floats(B, K, N, W, WM, nsplit);
+  if (tm < 16 || tm % 16 != 0) return -1;
+  return (recompute ? 12 * rows_padded(B, N) * (long)K * WM : 0) +
+         mma_scratch_floats(B, K, N, W, WM, nsplit, tm);
+}
+
+extern "C" long long spectral_bwd_bf16_workspace_floats(int B, int K, int N, int W, int WM,
+                                                        int nsplit, int tm) {
+  return bf16_bwd_workspace_floats(B, K, N, W, WM, nsplit, tm, true);
+}
+
+extern "C" long long spectral_bwd_reread_bf16_workspace_floats(int B, int K, int N, int W,
+                                                               int WM, int nsplit, int tm) {
+  return bf16_bwd_workspace_floats(B, K, N, W, WM, nsplit, tm, false);
+}
+
 // x [B,K,N,W], g [B,K,N,WM], w as for spectral_fwd -> dx like x and grads
 // (flat, layer 0 in folded space). ws: spectral_bwd_workspace_floats floats.
 extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w,
                             const float* ci, const float* si, float* dx, float* grads,
                             float* ws, int B, int K, int N, int W, int WM, int nsplit,
                             void* stream) {
-  return bwd_launch<float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit,
-                           (cudaStream_t)stream);
+  return bwd_launch<float, float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM,
+                                  nsplit, (cudaStream_t)stream);
 }
 
-// The bf16 arm: x, g, ci, si and the 2-D weights bf16; dx and grads f32.
-extern "C" int spectral_bwd_bf16(const bf16* x, const bf16* g, const void* const* w,
+// The bf16 arm: x, ci, si and the 2-D weights bf16, g, dx and grads f32; up
+// to D1 = kMmaMaxD1 on tensor cores with the plan (tm, nt, nsplit) of
+// `bwd_mma_plan`, past it the wide scalar kernels (tm, nt unused). ws:
+// spectral_bwd_bf16_workspace_floats floats.
+extern "C" int spectral_bwd_bf16(const bf16* x, const float* g, const void* const* w,
                                  const bf16* ci, const bf16* si, float* dx, float* grads,
                                  float* ws, int B, int K, int N, int W, int WM, int nsplit,
-                                 void* stream) {
-  return bwd_launch<bf16>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit,
-                          (cudaStream_t)stream);
+                                 int tm, int nt, void* stream) {
+  if (K * WM > kMmaMaxD1)
+    return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM,
+                                   nsplit, (cudaStream_t)stream);
+  return bwd_mma_launch(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit, tm,
+                        nt, (cudaStream_t)stream);
 }
 
 // spectral_bwd on the arrays spectral_fwd_save wrote (acts), without the
@@ -1510,15 +2142,21 @@ extern "C" int spectral_bwd_reread(const float* x, const float* g, const void* c
                                    const float* ci, const float* si, const float* acts,
                                    float* dx, float* grads, float* ws, int B, int K, int N,
                                    int W, int WM, int nsplit, void* stream) {
-  return bwd_launch<float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit,
-                           (cudaStream_t)stream);
+  return bwd_launch<float, float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
+                                  nsplit, (cudaStream_t)stream);
 }
 
-// The bf16 arm of spectral_bwd_reread on what spectral_fwd_save_bf16 wrote.
-extern "C" int spectral_bwd_reread_bf16(const bf16* x, const bf16* g, const void* const* w,
+// The bf16 arm of spectral_bwd_reread on what spectral_fwd_save_bf16 wrote,
+// as spectral_bwd_bf16 takes its operands and plan. ws:
+// spectral_bwd_reread_bf16_workspace_floats floats.
+extern "C" int spectral_bwd_reread_bf16(const bf16* x, const float* g, const void* const* w,
                                         const bf16* ci, const bf16* si, const float* acts,
                                         float* dx, float* grads, float* ws, int B, int K,
-                                        int N, int W, int WM, int nsplit, void* stream) {
-  return bwd_launch<bf16>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit,
-                          (cudaStream_t)stream);
+                                        int N, int W, int WM, int nsplit, int tm, int nt,
+                                        void* stream) {
+  if (K * WM > kMmaMaxD1)
+    return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
+                                   nsplit, (cudaStream_t)stream);
+  return bwd_mma_launch(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit, tm, nt,
+                        (cudaStream_t)stream);
 }

@@ -15,9 +15,10 @@ VJP of the jnp twin and not a kernel either. On a CPU tensor the wrapper
 runs the plain version, `cheb_graph_conv_plain`; on a CUDA tensor it
 launches the kernel or raises.
 
-With compute_dtype "bfloat16" the wrapper casts mul_L and x to bf16 and
-launches the kernel's bf16 arm (the JAX package's `_forward` casts them so
-before its kernel): bf16 operands, f32 sums and output, counted as
+With compute_dtype "bfloat16" the wrapper launches the kernel's bf16 arm on
+the f32 mul_L and x, which it rounds to bf16 as it stages them (the JAX
+package's `_forward` casts them so before its kernel): one launch, no cast
+kernel; bf16 operands, f32 sums and output, counted as
 `cheb_graph_conv_bf16`. The backward stays the f32 einsums of the f32 inputs,
 as the JAX package's VJP of its twin is.
 """
@@ -110,11 +111,10 @@ def _launch_fwd(mul_L, x, compute_dtype: str = "float32"):
     if mul_L.shape != (k, n, n) or nx != n:
         raise ValueError(
             f"cheb_graph_conv: mul_L {tuple(mul_L.shape)} vs x {tuple(x.shape)}")
-    dtype = torch_impl.operand_dtype(compute_dtype)
-    bf16 = dtype == torch.bfloat16
-    mul_L, x = mul_L.to(dtype), x.to(dtype)
+    bf16 = torch_impl.operand_dtype(compute_dtype) == torch.bfloat16
     out = torch.empty((b, k, n, w), dtype=torch.float32, device=x.device)
-    plan = launch_plan(k, n, b, w, x.element_size())
+    # the f32 operands themselves: the bf16 arm rounds them in its loads
+    plan = launch_plan(k, n, b, w, 2 if bf16 else 4)
     vec = plan.vec and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     rc = _fn("cheb_graph_conv_fwd_bf16" if bf16 else "cheb_graph_conv_fwd")(
         mul_L.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, b, w, plan.panel,

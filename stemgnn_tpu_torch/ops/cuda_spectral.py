@@ -23,11 +23,14 @@ is on by default: on the H100 the pair is the faster one in the train step
 
 Every entry takes `compute_dtype`, the JAX package's precision policy. At
 "bfloat16" the wrappers fold the DFT in f32 and then cast x, the 2-D GLU
-weights and the inverse DFT's block to bf16 (the cotangent too, for a
-backward), as `_forward` and `_backward` cast them before their kernels, and
-launch the kernels' bf16 arms; biases, outputs and the 12 saved arrays stay
-f32. Each bf16 arm counts its launches on a function of its own
-(`spe_seq_cell_bf16` and the like), so the counts tell the arms apart.
+weights and the inverse DFT's block to bf16, as `_forward` and `_backward`
+cast them before their kernels, and launch the kernels' bf16 arms; biases,
+outputs and the 12 saved arrays stay f32. A backward's cotangent goes to the
+kernels as f32, which round it to bf16 as they stage it (the same bits as a
+cast). Up to D1 = 2048 the bf16 backwards run on tensor cores (mma.sync) by
+the tile plan `bwd_mma_plan`, past it on the wide scalar kernels. Each
+bf16 arm counts its launches on a function of its own (`spe_seq_cell_bf16`
+and the like), so the counts tell the arms apart.
 
 On CPU tensors the wrappers run the plain versions (`spe_seq_cell_plain`, a
 full FFT at f32, `spe_seq_cell_bwd_plain`, `spe_seq_cell_save_plain`,
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -77,15 +81,25 @@ def folded_weights(glu_params, cf, sf, dtype=torch.float32):
     the forward DFT folded into GLU 0 (real chain, Cf) and GLU 1 (imag
     chain, Sf): (x @ C) @ W == x @ (C @ W), no bias on the DFT. The fold is
     f32; then the 2-D weights are cast to `dtype`, the kernel's operand type
-    (the biases stay f32)."""
-    out = []
+    (the biases stay f32): for bf16 as one cast of the twelve laid end to end
+    (each a 32-byte-aligned view), not a cast kernel each."""
+    two_d = []
     for i, p in enumerate(glu_params):
         wl, wr = p["left"]["w"], p["right"]["w"]
         if i < 2:
             dft = cf if i == 0 else sf
             wl, wr = torch.matmul(dft, wl), torch.matmul(dft, wr)
-        out.extend(_aligned(t) for t in (wl.to(dtype), p["left"]["b"], wr.to(dtype),
-                                         p["right"]["b"]))
+        two_d += [wl, wr]
+    if dtype != torch.float32:
+        flat = torch.cat([t.reshape(-1) for t in two_d]).to(dtype)
+        views, off = [], 0
+        for t in two_d:  # sizes K*W*D1 or D1*D1: multiples of 16 elements
+            views.append(flat[off: off + t.numel()].view(t.shape))
+            off += t.numel()
+        two_d = views
+    out = []
+    for p, wl, wr in zip(glu_params, two_d[0::2], two_d[1::2]):
+        out.extend(_aligned(t) for t in (wl, p["left"]["b"], wr, p["right"]["b"]))
     return out
 
 
@@ -111,16 +125,91 @@ _SIGNATURES = {
     "spectral_fwd_bf16": ([_P, _PP, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
     "spectral_fwd_save_bf16": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
                                ctypes.c_int),
-    "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
-    "spectral_bwd_reread_bf16": ([_P, _P, _PP] + [_P] * 6 + [_I] * 6 + [_P],
+    # the bf16 backwards: g f32, and the plan's tile rows and n8 tiles a warp
+    "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 8 + [_P], ctypes.c_int),
+    "spectral_bwd_reread_bf16": ([_P, _P, _PP] + [_P] * 6 + [_I] * 8 + [_P],
                                  ctypes.c_int),
     "spectral_bwd_grad_floats": ([_I] * 3, ctypes.c_longlong),
     "spectral_bwd_workspace_floats": ([_I] * 6, ctypes.c_longlong),
     "spectral_bwd_reread_workspace_floats": ([_I] * 6, ctypes.c_longlong),
+    "spectral_bwd_bf16_workspace_floats": ([_I] * 7, ctypes.c_longlong),
+    "spectral_bwd_reread_bf16_workspace_floats": ([_I] * 7, ctypes.c_longlong),
 }
 # row segments whose partial weight gradients are summed in order: 12 puts
 # the 22 weight-gradient tiles of the flagship shapes on 264 blocks, two an SM
 N_SPLIT = 12
+
+# The bf16 backward on tensor cores (csrc/spectral.cu `bwd_mma_launch`): its
+# constants, which the plan below mirrors.
+MMA_MAX_D1 = 2048        # kMmaMaxD1: past it the wide scalar kernels
+MMA_TILES = {4: (5, 2, 1), 8: (2, 1), 16: (1,)}  # n8 tiles a warp -> 16-row tiles a block
+MMA_MAX_THREADS = {4: 256, 8: 512, 16: 512}  # the rows kernel's launch bounds
+WGRAD_K, WGRAD_C, WGRAD_ROWS = 48, 128, 32  # kMK, kMC, kMR
+WGRAD_STAGE = WGRAD_ROWS * (56 + 2 * 136)  # kMStage: bf16 a stage of u, da, ds
+
+
+class BwdMmaPlan(NamedTuple):
+    """How the bf16 backward of one shape is laid over the card."""
+    route: str          # "mma", or "wide" past D1 = MMA_MAX_D1 (the rest then unused)
+    rows_pad: int       # B*N padded to 16, the saved arrays' rows
+    tile_rows: int      # rows of a rows-kernel block: 16 m_tiles
+    n_tiles: int        # n8 column tiles a warp of it owns
+    threads: int        # a rows-kernel block: a warp per n_tiles of D1
+    stride: int         # bf16 elements between two rows of its shared buffers
+    smem: int           # bytes of its dynamic shared memory (da and ds)
+    tiles: int          # row tiles: its grid is (tiles, 2 chains)
+    bias_parts: int     # column sums it leaves for the bias gradients: one a tile
+    ld: int             # bf16 elements a row of the da, ds and u workspaces
+    nsplit: int         # row segments of the weight gradients, summed in order
+    chunks: int         # 32-row stages of the weight-gradient kernel over rows_pad
+    chunks_per_seg: int
+    wgrad_grid: tuple   # (k tiles x column tiles, 6 GLUs, nsplit)
+    wgrad_smem: int     # bytes: three stages
+    workspace_floats: int  # the reread entry's scratch (the recompute adds 12 planes)
+
+
+def _mma_stride(d1: int) -> int:
+    """csrc/spectral.cu `mma_stride`: D1 rounded to 16, in bytes rounded up to
+    128 and 32 past it (A loads of a half warp on distinct banks)."""
+    return (-(-d1 // 16) * 32 + 127) // 128 * 64 + 16
+
+
+def bwd_mma_plan(b: int, k: int, n: int, w: int, wm: int, sms: int) -> BwdMmaPlan:
+    """The bf16 backward's tiling for x [b, k, n, w] at wm = w * multi on a card
+    of `sms` SMs; pure arithmetic, no card. The rows kernel takes the fewest
+    n8 tiles a warp whose block holds D1 (4, 8 or 16), then the row tile
+    that puts the fewest rows on the busiest SM (two blocks a tile, the
+    larger tile on a tie); the weight gradients take enough row segments for
+    four blocks an SM (two resident, so the second pair fills the gaps)."""
+    d0, d1 = k * w, k * wm
+    rows_pad = -(-(b * n) // 16) * 16
+    if d1 > MMA_MAX_D1:
+        return BwdMmaPlan("wide", rows_pad, 0, 0, 0, 0, 0, 0, 0, 0, N_SPLIT, 0, 0, (), 0, 0)
+    col_tiles = -(-d1 // 8)
+    nt = next(t for t in MMA_TILES if -(-col_tiles // t) * 32 <= MMA_MAX_THREADS[t])
+    # the rows on the busiest SM (blocks on one SM share it), the larger tile
+    # on a tie: its weight loads serve more rows
+    mt = min(MMA_TILES[nt], key=lambda m: (-(-2 * -(-rows_pad // (16 * m)) // sms) * m, -m))
+    tm = 16 * mt
+    stride = _mma_stride(d1)
+    tiles = -(-rows_pad // tm)
+    ld = -(-d1 // 8) * 8
+    blocks = sum(-(-din // WGRAD_K) for din in (d0, d0, d1, d1, d1, d1)) * -(-d1 // WGRAD_C)
+    chunks = -(-rows_pad // WGRAD_ROWS)
+    nsplit = max(1, min(chunks, -(-4 * sms // blocks)))
+    per_seg = -(-chunks // nsplit)
+    total = 2 * (d0 * d1 + d1) * 2 + 2 * (d1 * d1 + d1) * 4
+    ws = 8 * rows_pad * ld + 2 * rows_pad * d0 + tiles * 12 * d1 + nsplit * total
+    return BwdMmaPlan(
+        "mma", rows_pad, tm, nt, -(-col_tiles // nt) * 32, stride, 2 * tm * stride * 2, tiles,
+        tiles, ld, nsplit, chunks, per_seg,
+        (-(-d1 // WGRAD_K) * -(-d1 // WGRAD_C), 6, nsplit), 3 * WGRAD_STAGE * 2, ws)
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(device: torch.device) -> int:
+    """The SMs of the card `device` names."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -209,16 +298,17 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     """-> (dx [B,K,N,W] f32, the 24 gradients in kernel order as views of one
     flat buffer, those of GLU 0 and 1 in folded space). With `acts` (what the
     saving forward wrote) the reread entry runs, else the recompute entry; g
-    of the operands' type, bf16 operands launch the bf16 arm."""
+    f32 (the bf16 kernels round it as they stage it); bf16 operands launch the
+    bf16 arm on the plan `bwd_mma_plan` of the shape and card."""
     b, k, n, w = x.shape
     wm = w * multi
     reread = acts is not None
     name = "spe_seq_cell_bwd_reread" if reread else "spe_seq_cell_bwd"
     _check_operands(name, x, weights, ci, si, k, w, wm, *([acts] if reread else []))
-    if g.shape != (b, k, n, wm) or g.dtype != x.dtype or g.device != x.device \
+    if g.shape != (b, k, n, wm) or g.dtype != torch.float32 or g.device != x.device \
             or not g.is_contiguous():
-        raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype}, x {tuple(x.shape)} "
-                         f"{x.dtype}")
+        raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype}, expected a contiguous "
+                         f"float32 {(b, k, n, wm)} on {x.device}")
     if reread and acts.numel() != _fn("spectral_act_floats")(b, k, n, wm):
         raise ValueError(f"{name}: acts {tuple(acts.shape)} are not the saving "
                          f"forward's for x {tuple(x.shape)}")
@@ -227,11 +317,23 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     grads = torch.empty(_fn("spectral_bwd_grad_floats")(k, w, wm),
                         dtype=torch.float32, device=x.device)
-    ws = _scratch(_fn("spectral_bwd_reread_workspace_floats" if reread
-                      else "spectral_bwd_workspace_floats")(b, k, n, w, wm, N_SPLIT), name, x)
+    entry = "spectral_bwd_reread" if reread else "spectral_bwd"
+    if bf16:
+        plan = bwd_mma_plan(b, k, n, w, wm, _sms(x.device))
+        nsplit, tiling = plan.nsplit, (plan.tile_rows, plan.n_tiles)
+        floats = _fn(entry + "_bf16_workspace_floats")(b, k, n, w, wm, nsplit,
+                                                       plan.tile_rows)
+        extra = 0 if reread else 12 * plan.rows_pad * k * wm
+        if plan.route == "mma" and floats != plan.workspace_floats + extra:
+            raise RuntimeError(f"{name}: the kernels size their scratch at {floats} floats, "
+                               f"bwd_mma_plan at {plan.workspace_floats + extra}")
+    else:
+        nsplit, tiling = N_SPLIT, ()
+        floats = _fn(entry + "_workspace_floats")(b, k, n, w, wm, nsplit)
+    ws = _scratch(floats, name, x)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
     head = (x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr())
-    tail = (dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, N_SPLIT,
+    tail = (dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, nsplit, *tiling,
             _build.stream_ptr(x))
     if reread:
         rc = _fn("spectral_bwd_reread" + arm)(*head, acts.data_ptr(), *tail)
@@ -261,12 +363,12 @@ def _unflat(tensors):
 
 def _bwd_cuda(x, g, weights, multi: int, acts=None):
     """The backward on the card from the kernels' operands (x and the folded
-    weights, of one operand type): g cast to that type, the kernel (reread
+    weights, of one operand type) and the f32 cotangent g: the kernel (reread
     with `acts`, else recompute), then the layer-0 unfold dW = Cf^T @ dAW (Sf
     for the imaginary chain) in f32."""
     b, k, n, w = x.shape
     cf, sf, ci, si = _dft_on(w, k, w * multi, x.device, x.dtype)
-    dx, grads = _launch_bwd(x, g.to(x.dtype), weights, ci, si, multi, acts)
+    dx, grads = _launch_bwd(x, g.to(torch.float32).contiguous(), weights, ci, si, multi, acts)
     for i, dft in ((0, cf), (2, cf), (4, sf), (6, sf)):
         grads[i] = torch.matmul(dft.T, grads[i])
     return dx, grads

@@ -2,7 +2,8 @@
 taken out or changed, and times each beside the source as it is.
 
     python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [gru_grid]
-        [spectral] [spectral_fwd] [graph] [against=CHECKOUT] [ptxas] [ptxas=CHECKOUT]
+        [spectral] [spectral_fwd] [spectral_mma] [graph] [against=CHECKOUT] [ptxas]
+        [ptxas=CHECKOUT]
 
 A variant is a list of (text, replacement) pairs applied to the source; a
 pair whose text is no longer in the source stops the run, so an edit to a
@@ -11,10 +12,13 @@ exchange or a load left out): only their times mean anything, and the difference
 `base` is what the piece costs. Shapes are the ECG flagship's (B = 32,
 H = N = 140, W = 12, K = 4); `gru_grid` times the grid GRU kernels at
 B = 32, H = N = 512 and B = 8, H = N = 1024; `spectral_fwd` also times the COVID-19 shape
-(B = 32, N = 25, W = 28, multi 5). `against=CHECKOUT` builds the spectral
-and graph sources of another checkout (a `git archive` of an earlier commit)
-and holds this tree's f32 spectral entries (forwards and backwards) and graph
-conv bitwise against it, at the flagship and COVID-19 shapes. Times are
+(B = 32, N = 25, W = 28, multi 5); `spectral_mma` the bf16 reread backward
+on tensor cores, its epilogue or one kernel left out. `against=CHECKOUT`
+builds the spectral and graph sources of another checkout (a `git archive` of
+an earlier commit) and holds this tree's f32 spectral entries (forwards and
+backwards) and both arms of the graph conv (this tree's bf16 arm fed the f32
+operands, the other's the casts its wrapper made) bitwise against it, at the
+flagship and COVID-19 shapes, and times both trees' bf16 reread backwards. Times are
 device milliseconds of one call, replays of a CUDA graph of 20 calls, with the
 card's name and power limit on the first line. `ptxas` (or `ptxas=CHECKOUT`
 for another checkout's sources) compiles each kernel source with
@@ -25,6 +29,7 @@ card and nvcc; nothing in the package calls this.
 from __future__ import annotations
 
 import ctypes
+import functools
 import subprocess
 import sys
 import tempfile
@@ -189,10 +194,10 @@ SPECTRAL_FWD_VARIANTS = {
 
 _G_LOOP = "      for (int m = p; m < mp; m += kParts) {"
 _G_ONE_ROUND = "      for (int m = p; m < min(mp, kParts); m += kParts) {"
-_G_LOADS = [
-    ("        copy_panel_async(As, RSA, Lk + m0, N, rows, mr);\n", ""),
-    ("          copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, "
-     "0, 1,\n                           mr * W);\n", "          ;\n")]
+_G_LOADS = [  # the f32 arm's
+    ("          copy_panel_async(As, RSA, Lk + m0, N, rows, mr);\n", ""),
+    ("            copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, 0, 1,\n"
+     "                             mr * W);\n", "            ;\n")]
 GRAPH_VARIANTS = {
     "base": [],
     "one round of the sum": [(_G_LOOP, _G_ONE_ROUND)],
@@ -200,6 +205,32 @@ GRAPH_VARIANTS = {
     "no loads, one round of the sum": [(_G_LOOP, _G_ONE_ROUND), *_G_LOADS],
     "every block returns at once": [("  T* As = smem;\n",
                                      "  if (n0 >= 0) return;\n  T* As = smem;\n")],
+}
+
+
+_MMA_EPILOGUE = "    rows_mma_epilogue<MT, NT>(acc, n0, d1, S, row0, rows_pad, ld, acts + (2 * gi) * plane,\n"
+SPECTRAL_MMA_VARIANTS = {
+    "base": [],
+    # the products alone: the epilogue (a, s read; da, ds, u and the bias
+    # partials written) left out, the products run on the shared buffers as
+    # they stand
+    "mma rows: no epilogue": [(_MMA_EPILOGUE, (
+        "    {  // the products' sums kept alive\n      float t = 0.f;\n#pragma unroll\n"
+        "      for (int i = 0; i < MT; ++i)\n#pragma unroll\n        for (int j = 0; j < NT; ++j)\n"
+        "          t += acc[i][j][0] + acc[i][j][1] + acc[i][j][2] + acc[i][j][3];\n"
+        "      if (t == 1.2345f) da[threadIdx.x] = zero;\n    }\n"
+        "    if (gi < 0) " + _MMA_EPILOGUE.lstrip()))],
+    # the products' B fragments made in registers in place of their L2 loads
+    "mma rows: no weight loads": [(
+        "      b[nt] = n < nn && k < kin ? __ldg(reinterpret_cast<const uint2*>(w + (long)n * kin + k))\n",
+        "      b[nt] = n < nn && k < kin ? make_uint2(n, k)\n")],
+    "mma rows kernel returns at once": [
+        ("  bf16* da = reinterpret_cast<bf16*>(smem);  // [TM][S]: the cotangent tile, then da\n",
+         "  if (blockIdx.x >= 0) return;\n  bf16* da = reinterpret_cast<bf16*>(smem);\n")],
+    "mma wgrad kernel returns at once": [
+        ("  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles\n"
+         "  const long rows = (long)B * N;\n  const bf16* u_src",
+         "  if (k0 >= 0) return;\n  const long rows = (long)B * N;\n  const bf16* u_src")],
 }
 
 
@@ -547,6 +578,81 @@ def _spectral_bwd_calls(lib, x, g, weights, ci, si, multi, acts):
     return calls
 
 
+def _bf16_operands(x, weights, ci, si):
+    """The bf16 arm's operands from the f32 ones: x, the 2-D weights, ci, si."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    bf = torch.bfloat16
+    return (x.to(bf), [cuda_spectral._aligned(t.to(bf)) if i % 2 == 0 else t
+                       for i, t in enumerate(weights)], ci.to(bf), si.to(bf))
+
+
+def _bf16_reread_call(lib, x, g, weights, ci, si, multi, acts, plan=None):
+    """The bf16 reread C entry of a library, into buffers made here: this
+    tree's (g f32, the tile plan `plan`, by default `bwd_mma_plan`'s), or an
+    earlier tree's (g bf16, no plan: found by its workspace function)."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = x.shape
+    wm = w * multi
+    fn = lib.spectral_bwd_reread_bf16
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    dx = torch.empty(x.shape, device=x.device)
+    grads = torch.empty(cuda_spectral._fn("spectral_bwd_grad_floats")(k, w, wm), device=x.device)
+    if hasattr(lib, "spectral_bwd_reread_bf16_workspace_floats"):
+        plan = plan or cuda_spectral.bwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device))
+        size = lib.spectral_bwd_reread_bf16_workspace_floats
+        size.argtypes, size.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+        ws = torch.empty(size(b, k, n, w, wm, plan.nsplit, plan.tile_rows), device=x.device)
+        fn.argtypes, fn.restype = cuda_spectral._SIGNATURES["spectral_bwd_reread_bf16"]
+        gk, tail = g, (plan.nsplit, plan.tile_rows, plan.n_tiles)
+    else:
+        size = lib.spectral_bwd_reread_workspace_floats
+        size.argtypes, size.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+        ws = torch.empty(size(b, k, n, w, wm, cuda_spectral.N_SPLIT), device=x.device)
+        fn.argtypes = cuda_spectral._SIGNATURES["spectral_bwd_reread_bf16"][0][:15] + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        gk, tail = g.to(torch.bfloat16), (cuda_spectral.N_SPLIT,)
+
+    def call(held=(ws, gk)):
+        _build.check(fn(x.data_ptr(), gk.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+                        acts.data_ptr(), dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k,
+                        n, w, wm, *tail, _build.stream_ptr(x)), "spectral_bwd_reread_bf16")
+        return dx, grads
+
+    return call
+
+
+def spectral_mma(dev, tmp: Path) -> None:
+    """The bf16 spectral reread backward (its C entry: the mma rows and
+    weight-gradient kernels, dx, reduce and bias) by variant at the flagship
+    shapes, on the saving forward's arrays: what the products cost without
+    their epilogue, and each mma kernel's share; then the source as it is at
+    other row tiles and row segments than the plan's."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, n, w, m = 32, 140, 12, 5
+    x, weights, ci, si = _bf16_operands(*_spectral_inputs(b, n, w, m, dev, 2))
+    g = 1e-3 * torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (b, 4, n, w * m)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        _, acts = cuda_spectral._launch_fwd(x, weights, ci, si, m, save=True)
+    libs = _build_variants("spectral.cu", SPECTRAL_MMA_VARIANTS, tmp)
+    for name, lib in libs.items():
+        call = _bf16_reread_call(lib, x, g, weights, ci, si, m, acts)
+        print(f"spectral_bwd_reread_bf16 B={b} N={n} W={w} multi={m}, {name}: "
+              f"{_cuda_ms(call):.5f} ms")
+    plan = cuda_spectral.bwd_mma_plan(b, 4, n, w, w * m, cuda_spectral._sms(dev))
+    for tile_rows, nsplit in ((plan.tile_rows, plan.nsplit), (80, 6), (80, 18), (32, 12),
+                              (16, 12), (plan.tile_rows, plan.nsplit)):
+        other = plan._replace(tile_rows=tile_rows, nsplit=nsplit)
+        call = _bf16_reread_call(libs["base"], x, g, weights, ci, si, m, acts, other)
+        print(f"spectral_bwd_reread_bf16 B={b} N={n} W={w} multi={m}, base, row tile "
+              f"{tile_rows}, {nsplit} row segments (the plan's: {plan.tile_rows}, "
+              f"{plan.nsplit}): {_cuda_ms(call):.5f} ms")
+
+
 def _build_other(src: Path, tmp: Path) -> ctypes.CDLL:
     so = Path(tempfile.mkdtemp(dir=tmp)) / f"lib{src.stem}_other.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-o",
@@ -561,9 +667,12 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
     and csrc/graph.cu built on their own): the spectral serving and saving
     forwards (the output and the 12 saved arrays' real rows) and the reread
     and recompute backwards (dx and the flat gradients) at the flagship shape,
-    at W = 25 and at the COVID-19 shape, and the graph conv at the flagship's
-    and the COVID-19 shape, every output bitwise equal; and both trees' times,
-    in the order other, this, this, other."""
+    at W = 25 and at the COVID-19 shape, and both arms of the graph conv at
+    the flagship's and the COVID-19 shape, every output bitwise equal; and
+    both trees' times, in the order other, this, this, other, the bf16
+    reread backward's too (its sums differ: times only)."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
     csrc = other / "stemgnn_tpu_torch" / "csrc"
     libs = {"other": _build_other(csrc / "spectral.cu", tmp), "this": _build.library("spectral")}
     for lib in libs.values():
@@ -599,32 +708,58 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
               f"gradients {word[5]}, {word[6]}; ms (serving, saving, reread, recompute) in "
               f"the order other, this, this, other: {times['other'][0]}, "
               f"{times['this'][0]}, {times['this'][1]}, {times['other'][1]}")
+    # the bf16 reread backward of both trees at the flagship: this tree's on
+    # tensor cores, the other's as it was; times only (their sums differ)
+    x, weights, ci, si = _bf16_operands(*_spectral_inputs(32, 140, 12, 5, dev, 6))
+    g = 1e-3 * torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (32, 4, 140, 60)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        _, acts = cuda_spectral._launch_fwd(x, weights, ci, si, 5, save=True)
+    calls = {tree: _bf16_reread_call(lib, x, g, weights, ci, si, 5, acts)
+             for tree, lib in libs.items()}
+    ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
+    print(f"spectral_bwd_reread_bf16 flagship: this tree against {other}: ms in the order "
+          f"other, this, this, other: {ms}")
     graph_libs = {"other": _build_other(csrc / "graph.cu", tmp),
                   "this": _build.library("graph")}
     rng = np.random.default_rng(8)
     for shape, (k, n, b, w) in {"flagship": (4, 140, 32, 12), "COVID-19": (4, 25, 32, 28)}.items():
         mul_l = torch.from_numpy((rng.standard_normal((k, n, n)) * 0.1).astype(np.float32)).to(dev)
         x = torch.from_numpy(rng.standard_normal((b, n, w)).astype(np.float32)).to(dev)
-        plan = cuda_graph.launch_plan(k, n, b, w)
-        outs, calls = {}, {}
-        for tree, lib in graph_libs.items():
-            fn = lib.cheb_graph_conv_fwd
-            fn.argtypes, fn.restype = cuda_graph._ARGTYPES, ctypes.c_int
-            out = torch.empty((b, k, n, w), device=dev)
+        # both arms; the bf16 one of this tree takes the f32 operands and
+        # rounds them in its loads, the other's (before that) bf16 casts
+        for arm, esize in (("", 4), ("_bf16", 2)):
+            plan = cuda_graph.launch_plan(k, n, b, w, esize)
+            outs, calls = {}, {}
+            for tree, lib in graph_libs.items():
+                fn = getattr(lib, "cheb_graph_conv_fwd" + arm)
+                fn.argtypes, fn.restype = cuda_graph._ARGTYPES, ctypes.c_int
+                out = torch.empty((b, k, n, w), device=dev)
+                cast = arm and tree == "other"
+                a_in, x_in = ((mul_l.to(torch.bfloat16), x.to(torch.bfloat16)) if cast
+                              else (mul_l, x))
 
-            def call(fn=fn, out=out):
-                _build.check(fn(mul_l.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, b, w,
-                                plan.panel, plan.row_stride, plan.batch_stride, plan.threads,
-                                plan.smem, int(plan.vec), _build.stream_ptr(out)),
-                             "cheb_graph_conv_fwd")
-                return out
+                def call(fn=fn, out=out, a_in=a_in, x_in=x_in, cast=cast):
+                    if cast:  # the other tree's wrapper cast before its launch
+                        a_in.copy_(mul_l)
+                        x_in.copy_(x)
+                    _build.check(fn(a_in.data_ptr(), x_in.data_ptr(), out.data_ptr(), k, n, b,
+                                    w, plan.panel, plan.row_stride, plan.batch_stride,
+                                    plan.threads, plan.smem, int(plan.vec),
+                                    _build.stream_ptr(out)), "cheb_graph_conv_fwd" + arm)
+                    return out
 
-            outs[tree], calls[tree] = call().clone(), call
-        torch.cuda.synchronize()
-        ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
-        print(f"cheb_graph_conv_fwd {shape} K={k} N={n} B={b} W={w}: this tree against "
-              f"{other}: output {'bitwise equal' if torch.equal(outs['this'], outs['other']) else 'DIFFERS'}; "
-              f"ms in the order other, this, this, other: {ms}")
+                outs[tree], calls[tree] = call().clone(), call
+            torch.cuda.synchronize()
+            ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
+            if arm:  # the other tree's kernel alone, its operands cast beforehand
+                alone = functools.partial(calls["other"], cast=False)
+                ms.append(round(_cuda_ms(alone), 5))
+            same = torch.equal(outs["this"], outs["other"])
+            print(f"cheb_graph_conv_fwd{arm} {shape} K={k} N={n} B={b} W={w}: this tree "
+                  f"against {other}: output {'bitwise equal' if same else 'DIFFERS'}; ms "
+                  f"(with the other's casts) in the order other, this, this, other"
+                  f"{', then the other kernel alone' if arm else ''}: {ms}")
 
 
 def graph(dev, tmp: Path) -> None:
@@ -706,7 +841,8 @@ def main(argv=None) -> int:
                       else _build.CSRC, Path(tmp))
                 continue
             {"gru": gru, "gru_bwd": gru_bwd, "gru_grid": gru_grid, "spectral": spectral,
-             "spectral_fwd": spectral_fwd, "graph": graph}[name](dev, Path(tmp))
+             "spectral_fwd": spectral_fwd, "spectral_mma": spectral_mma,
+             "graph": graph}[name](dev, Path(tmp))
     return 0
 
 
