@@ -47,11 +47,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
      each array within BF16_ATOL_REL of its largest entry and closer to the
      bf16 plain result than to the f32 one; their bound at the bf16
      tensor-core rate; the bf16 spectral backward twice bitwise and its
-     reread bitwise its recompute (up to D1 = 2048 the bf16 backwards run
-     on tensor cores, mma.sync, so every bf16 backward shape above holds
-     those kernels). The redesigned bf16 wrappers' times beside their parent
-     design's (PARENT_DESIGN_MS) and the f32 arms'; the bf16 graph conv one
-     kernel a call (torch.profiler: no cast kernel before it).
+     reread bitwise its recompute (up to D1 = 2048 the bf16 forwards and
+     backwards run on tensor cores, mma.sync, so every bf16 shape above
+     holds those kernels; the profiler shows each bf16 saving forward on the
+     chain kernel of its route). The redesigned bf16 wrappers' times beside
+     their parent design's (PARENT_DESIGN_MS), their bounds and the f32
+     arms'; both bf16 forwards and the bf16 recompute backward on the chain
+     kernel on tensor cores, and the bf16 graph conv one kernel a call
+     (torch.profiler: no cast kernel before it).
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -1041,8 +1044,10 @@ def spectral_checks(dev, glu, multi: int):
     (`bf16_agreement`); past it, `bf16_noise_agreement` against the bf16
     plain version with f64 sums, its two ratios printed. Both arms: the
     reread gradients bitwise the recompute gradients, a second reread bitwise
-    the first, the saving forward's output bitwise the serving forward's.
-    Returns an error message, or None."""
+    the first, the saving forward's output bitwise the serving forward's. The
+    bf16 saving forward on the chain kernel of its route (`bf16_chain_route`:
+    tensor cores up to D1 = 2048, the wide kernel past it). Returns an error
+    message, or None."""
     import numpy as np
     import torch
 
@@ -1088,6 +1093,12 @@ def spectral_checks(dev, glu, multi: int):
                 runs.append(cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m, cd))
                 torch.cuda.synchronize()
                 want = cuda_spectral.spe_seq_cell_bwd_plain(x, glu_w, g, m, cd)
+            if bf16:  # the chain kernel of its route: tensor cores up to D1 = 2048
+                with torch.no_grad():
+                    fail = bf16_chain_route(
+                        lambda: cuda_spectral.spe_seq_cell_save(x, glu_w, m, cd), d1)
+                if fail is not None:
+                    return fail
             fwd = [out, out_s] + [acts[i, :rows] for i in range(12)]
             fwd_want = [want_out, want_s] + list(want_acts)
             leaves = [[dx] + cuda_spectral._flat(dglu) for dx, dglu in (*runs, want)]
@@ -1339,49 +1350,89 @@ def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int =
 # The earlier design's device ms a wrapper call of the kernels that went to
 # tensor cores or lost their cast launches (PERF.md section 6, this script's
 # phase 3 on an NVIDIA H100 80GB HBM3 at 700.00 W): the scalar bf16 spectral
-# backwards and the bf16 graph conv with its two casts. Printed beside this
-# run's times.
+# backwards, the bf16 graph conv with its two casts and the scalar bf16
+# spectral forwards. Printed beside this run's times and bounds.
 PARENT_DESIGN_MS = {"spectral_bwd_reread_bf16": 0.68988, "spectral_bwd_bf16": 0.88127,
-                    "cheb_graph_conv_fwd_bf16": 0.00871}
+                    "cheb_graph_conv_fwd_bf16": 0.00871, "spectral_fwd_bf16": 0.21594,
+                    "spectral_fwd_save_bf16": 0.24158}
 
 
 def kernels_of_call(fn):
     """The names of the CUDA kernels one call of fn launches, by
-    torch.profiler, or None where the profiler cannot say."""
+    torch.profiler, or None where the profiler cannot say. A profile that
+    records no kernel at all (the tracer now and then hands back an empty
+    list) is taken again, three times at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA
-                 and not ev.is_user_annotation]
-    except RuntimeError as exc:
-        print(f"[3 kernel] kernels of a call: not measured (the profiler failed: {exc})")
-        return None
-    return names or None
+    for _ in range(3):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     and not ev.is_user_annotation]
+        except RuntimeError as exc:
+            print(f"[3 kernel] kernels of a call: not measured (the profiler failed: {exc})")
+            return None
+        if names:
+            return names
+    print("[3 kernel] kernels of a call: not measured (no kernel in 3 profiles)")
+    return None
+
+
+def bf16_chain_route(fn, d1: int):
+    """An error message unless one call of fn (a bf16 spectral entry that runs
+    the chain forward) launches the chain kernel of its route, by
+    torch.profiler: `spectral_chain_mma_kernel` up to D1 = 2048, the wide
+    scalar `spectral_chain_wide_kernel` past it, and never the scalar
+    `spectral_chain_kernel`; also an error where the profiler cannot name
+    the kernels. None, and a line printed, where it does."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    names = kernels_of_call(fn)
+    if names is None:
+        return f"the profiler could not name the kernels of a bf16 chain call at D1 = {d1}"
+    want = ("spectral_chain_mma_kernel" if d1 <= cuda_spectral.MMA_MAX_D1
+            else "spectral_chain_wide_kernel")
+    chain = [nm.split(">(")[0] + ">" for nm in names if "spectral_chain" in nm]
+    if not any(want in nm for nm in chain) or any("spectral_chain_kernel" in nm for nm in chain):
+        return f"a bf16 chain call at D1 = {d1} launches {chain}, expected {want} alone"
+    print(f"[3 kernel] bf16 chain at D1 = {d1}: launches {chain}")
+    return None
 
 
 def bf16_redesigns(results, params, mcfg, x):
     """The redesigned bf16 kernels beside the earlier design's times
-    (PARENT_DESIGN_MS) and the f32 arms' of this run; and the bf16 graph conv
-    as one launch a call (no cast kernel before it), by the profiler. Returns
-    an error message, or None."""
+    (PARENT_DESIGN_MS), their bounds and the f32 arms' times of this run; both
+    bf16 spectral forwards and the bf16 recompute backward on the chain
+    kernel on tensor cores (`bf16_chain_route`), and the bf16 graph conv as
+    one launch a call (no cast kernel before it), by the profiler. Returns an
+    error message, or None."""
     import torch
 
-    from stemgnn_tpu_torch.ops import cuda_graph
+    from stemgnn_tpu_torch.ops import cuda_graph, cuda_spectral
 
     for name, parent_ms in PARENT_DESIGN_MS.items():
         f32 = results.get(name[: -len("_bf16")], {}).get("ms")
-        print(f"[3 kernel] {name}: {results[name]['ms']:.5f} ms a wrapper call, the parent "
+        print(f"[3 kernel] {name}: {results[name]['ms']:.5f} ms a wrapper call (bound "
+              f"{results[name]['bound_ms']:.5f}, {results[name]['bound_by']}), the parent "
               f"design's {parent_ms:.5f} (PERF.md), the f32 arm's "
               f"{'n/a' if f32 is None else f'{f32:.5f}'} in this run")
-    _, _, mul_L, feat, _ = forward_inputs(params, mcfg, x)
+    _, _, mul_L, feat, gfted = forward_inputs(params, mcfg, x)
+    glu, multi, bf = params["blocks"][0]["glu"], mcfg.multi_layer, "bfloat16"
+    d1 = gfted.shape[1] * gfted.shape[3] * multi
+    g = torch.full((*gfted.shape[:3], gfted.shape[3] * multi), 1e-3, device=gfted.device)
     with torch.no_grad():
+        for fn in (lambda: cuda_spectral.spe_seq_cell(gfted, glu, multi, bf),
+                   lambda: cuda_spectral.spe_seq_cell_save(gfted, glu, multi, bf),
+                   lambda: cuda_spectral.spe_seq_cell_bwd(gfted, glu, g, multi, bf)):
+            fail = bf16_chain_route(fn, d1)
+            if fail is not None:
+                return fail
         names = kernels_of_call(lambda: cuda_graph.cheb_graph_conv(mul_L, feat, "bfloat16"))
     if names is None:
         print("[3 kernel] cheb_graph_conv_fwd_bf16: kernels a call not measured")

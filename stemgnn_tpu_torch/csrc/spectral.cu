@@ -112,12 +112,16 @@
 // inverse DFT's), and in the backward da and ds before their products (the
 // bias gradients sum them unrounded) and u = a * s of the weight gradients,
 // rebuilt from the saved f32 a and s as the forward built it: so the reread
-// backward stays bitwise the recompute backward. The forwards' products
-// convert their two bf16 operands to f32 (exact) and sum in the f32 arm's
-// fmaf order. The backwards take g as f32 and round it as they stage it; up
-// to D1 = 2048 they run on tensor cores (`bwd_mma_launch`, below: mma.sync,
-// da and ds kept as bf16, no weight transposed), past it on the wide scalar
-// kernels of the f32 arm's design.
+// backward stays bitwise the recompute backward. Up to D1 = 2048 every bf16
+// kernel runs on tensor cores (mma.sync bf16 x bf16 -> f32: the scalar
+// products exactly, the f32 sums in steps of 16 k): the chain forward
+// (`chain_mma_launch`, below: weight panels staged in shared memory for
+// ldmatrix.trans, two bf16 buffers that the GLUs take in turn), behind both
+// forwards and the recompute backward's step 2, and the backwards
+// (`bwd_mma_launch`: da and ds kept as bf16, no weight transposed), which take
+// g as f32 and round it as they stage it. Past D1 = 2048 both run the wide
+// scalar kernels of the f32 arm's design, their bf16 operands converted to
+// f32 (exact) and summed in the f32 arm's fmaf order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -1626,6 +1630,375 @@ spectral_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u
       }
 }
 
+// ---- the bf16 chain forward on tensor cores (D1 up to kMmaMaxD1) ----
+//
+// `spectral_chain_mma_kernel` runs every bf16 chain up to D1 = kMmaMaxD1:
+// `spectral_fwd_bf16` (kOut), `spectral_fwd_save_bf16` (kSave and kOut) and
+// step 2 of `spectral_bwd_bf16` (kSave). Its operands are bf16 values (x, the
+// folded weights and the inverse DFT's block as the caller hands them, each
+// GLU's input round(a * s)), so mma.sync bf16 x bf16 -> f32 computes the
+// scalar kernel's exact products; only the order of the f32 sums differs (k
+// ascending in steps of 16). A block per row tile of 16 MT rows and chain (a
+// cluster of 2 with kOut), on the plan of ops/cuda_spectral.py
+// `fwd_mma_plan`:
+//   * two bf16 [TM][k] buffers: a GLU's products read one and its epilogue
+//     writes round(a * s) into the other, so no sum waits across a barrier
+//     and a warp may take its columns in passes (D1 past the block's columns);
+//   * a weight's [Din][D1] rows are the `.row` B operand, which mma.sync does
+//     not take: panels of kp k rows (16 to 64, the deepest the block's shared
+//     memory holds: fewer barriers a GLU) of Wl and Wr over the pass's
+//     columns come into a ring of `stages` shared stages by cp.async, all but
+//     one in flight, and ldmatrix.trans turns them into B fragments. The
+//     panels of the three GLUs are one stream (the next GLU's first panels
+//     land while this one's last are summed); a step waits for its panel,
+//     passes the block's one barrier, sums, and only then starts the copy of
+//     a later panel, its addresses walked without a division;
+//   * warp w owns NT n8 column tiles of a pass, both sums of each (u @ Wl and
+//     u @ Wr: 8 MT NT accumulators); the epilogue takes a = acc_l + bl and
+//     s = sigmoid(acc_r + br) in f32 (the exponential and the division of
+//     the fast intrinsics), writes them with kSave (the f32 planes the
+//     backward reads, as streaming stores: 51.6 MB at the flagship, more than
+//     L2 holds) and round(a * s) into the other buffer;
+//   * with kOut the two blocks of a row tile join as the scalar kernel's do:
+//     each copies the other chain's last buffer through distributed shared
+//     memory and computes half of the output's n8 tiles as one product over
+//     the k of their orders' windows, R @ Ci, then I @ Si into the same sums,
+//     its block-diagonal B built from the [WM][WM] block (Ci, Si symmetric).
+// Rows past B*N are x = 0: the chain's values for an all-zero input row, as
+// the saved rows up to rows_pad must hold. The saving forward and the
+// recompute run the same code for a and s, and an element's sum does not
+// depend on the tile, so the reread backward stays bitwise the recompute
+// backward. Bound: bytes with kSave (the 12 f32 planes written), else bf16
+// tensor-core operations.
+constexpr int kFIdftNT = 2;    // n8 tiles a warp takes at a time in the inverse DFT
+
+// bf16 elements between two rows of the forward's buffers and panels: `cols`
+// rounded up to 16, then to 16 bytes past a multiple of 128, so that the 8
+// rows of 16 bytes an ldmatrix reads fall on distinct banks
+__host__ __device__ constexpr int ldsm_stride(int cols) {
+  return ((cols + 15) / 16 * 16 + 55) / 64 * 64 + 8;
+}
+
+// the most threads a block of the forward mma kernel of MT 16-row tiles has
+// (320 for MT = 5: 168 registers a thread, as three of its ten warps share a
+// quarter of the SM's registers; its 120 sums fit with a few spilled bytes)
+__host__ __device__ constexpr int chain_mma_bound(int mt) { return mt >= 5 ? 320 : 512; }
+
+// bytes of shared memory of a forward mma block: two buffers of tm rows and
+// `stages` panels of both weights' kp k rows over pw columns
+__host__ __device__ inline int chain_mma_smem(int tm, int d1, int pw, int kp, int stages) {
+  return (2 * tm * ldsm_stride(d1) + stages * 2 * kp * ldsm_stride(pw)) * (int)sizeof(bf16);
+}
+
+// four 8 x 8 bf16 matrices of shared memory: lane i gives the address of row
+// i % 8 of matrix i / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// two, transposed (lanes 0-15 give the addresses)
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a)
+               : "memory");
+}
+
+// The forward's inverse DFT on the warp's NT n8 tiles from column n0:
+// acc = R @ Ci over the k of their orders' windows, then + I @ Si, k
+// ascending in steps of 16; B[k][n] = Ci[n % WM][k % WM] where k and n lie in
+// one order's window (Ci symmetric), else 0. re, im: [TM][S] shared buffers.
+template <int MT, int NT>
+__device__ __forceinline__ void idft_fwd_mma(const bf16* re, const bf16* im, int S,
+                                             const bf16* __restrict__ ci,
+                                             const bf16* __restrict__ si, int WM, int d1,
+                                             int n0, float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4, mrow = lane % 8, mat = lane / 8;
+  const int last = min(d1, n0 + 8 * NT) - 1;
+  const int kb = n0 / WM * WM / 16 * 16;
+  const int ke = min((d1 + 15) / 16 * 16, ((last / WM + 1) * WM + 15) / 16 * 16);
+  int lo[NT], off[NT];  // each column's window start (past every k: none), its row of the block
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = n0 + 8 * nt + gq;
+    lo[nt] = n < d1 ? n / WM * WM : INT_MAX / 2;
+    off[nt] = n < d1 ? (n % WM) * WM : 0;
+  }
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const bf16* a_src = part == 0 ? re : im;
+    const bf16* blk = part == 0 ? ci : si;
+#pragma unroll 2
+    for (int k = kb; k < ke; k += 16) {
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned v[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int j = k + 8 * h + 2 * tq + q - lo[nt];
+            v[q] = j >= 0 && j < WM ? __bfloat16_as_ushort(blk[off[nt] + j]) : 0u;
+          }
+          b[nt][h] = v[0] | v[1] << 16;
+        }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldsm_x4(a, a_src + (16 * mt + (mat & 1) * 8 + mrow) * S + k + (mat >> 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      }
+    }
+  }
+}
+
+// One tile of 16 MT rows (blockIdx.y) of one chain (blockIdx.x: 0 real, 1
+// imaginary): x (bf16 [B,K,N,W]) -> the chain's three GLUs -> with kOut, in
+// clusters of 2 along x, the output (f32 [B,K,N,WM]); with kSave a and s of
+// the chain's GLUs to acts (12 f32 planes [rows_pad][D1], `plane` floats
+// apart). blockDim.x: 32 per NT n8 tiles of a column pass; kp: k rows of a
+// weight panel (a multiple of 16), `stages` of them in the ring.
+template <int MT, int NT, bool kSave, bool kOut>
+__global__ void __launch_bounds__(chain_mma_bound(MT), 1)
+spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
+                          const bf16* __restrict__ ci, const bf16* __restrict__ si,
+                          float* __restrict__ out, float* __restrict__ acts, long plane,
+                          long rows_pad, int kp, int stages, int B, int K, int N, int W,
+                          int WM) {
+  constexpr int TM = 16 * MT;
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = K * W, d1 = K * WM, S = ldsm_stride(d1);
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4, mrow = lane % 8, mat = lane / 8;
+  const int pw = warps * NT * 8, pws = ldsm_stride(pw), passes = (d1 + pw - 1) / pw;
+  bf16* const buf0 = reinterpret_cast<bf16*>(smem);  // [TM][S]: x, then GLU 1's output
+  bf16* const buf1 = buf0 + TM * S;                  // [TM][S]: GLU 0's, then GLU 2's
+  bf16* const panels = buf1 + TM * S;                // [stages][2][kp][pws]: Wl's, Wr's rows
+  const long rows = (long)B * N;
+  const int chain = blockIdx.x;
+  const long row0 = (long)blockIdx.y * TM;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // x, a row a warp at a time (each order's W values of a row are contiguous
+  // in x), and zeros in the columns past what each buffer's writers fill,
+  // which the last k step of a product reads
+  for (int r = warp; r < TM; r += warps) {
+    const long row = row0 + r;
+    const bool live = row < rows;
+    const bf16* xr = x + (live ? (row / N * K * N + row % N) * W : 0);
+    for (int kk = 0; kk < K; ++kk)
+      for (int m = lane; m < W; m += 32)
+        buf0[r * S + kk * W + m] = live ? xr[(long)kk * N * W + m] : zero;
+    for (int c = d0 + 2 * lane; c < S; c += 64)
+      *reinterpret_cast<uint32_t*>(buf0 + r * S + c) = 0u;
+    for (int c = d1 + 2 * lane; c < S; c += 64)
+      *reinterpret_cast<uint32_t*>(buf1 + r * S + c) = 0u;
+  }
+
+  // the panels of GLUs 0, 1, 2 of the chain, each pass's k steps in order,
+  // panel i into stage i % stages: rows past the GLU's input zeros, columns
+  // past D1 left as they are (they reach only the sums of dead columns)
+  const int units = pw / (d1 % 8 == 0 ? 8 : 4);  // 16-byte copies where the weight
+  const bool vec16 = d1 % 8 == 0;                  // rows are 16-byte aligned, else 8
+  const int unit = vec16 ? 8 : 4;
+  const int line0 = threadIdx.x / units, u0 = threadIdx.x % units;  // this thread's first copy
+  const int dl = blockDim.x / units, du = blockDim.x % units;        // and its step
+  int c_layer = 0, c_pass = 0, c_k = 0, c_slot = 0;                 // the next panel to copy
+  auto load_panel = [&]() {
+    if (c_layer < 3) {
+      const int din = c_layer == 0 ? d0 : d1, gi = 2 * c_layer + chain, c0 = c_pass * pw;
+      const bf16* wl = g.wl[gi] + c0;
+      const bf16* wr = g.wr[gi] + c0;
+      bf16* const dst = panels + c_slot * 2 * kp * pws;
+      for (int line = line0, u = u0; line < 2 * kp;) {  // line: side * kp + row
+        const int k = c_k + (line < kp ? line : line - kp), c = u * unit;
+        bf16* d = dst + line * pws + c;
+        if (k >= din) {
+          if (vec16) *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+          else *reinterpret_cast<uint2*>(d) = make_uint2(0u, 0u);
+        } else if (c0 + c < d1) {
+          const bf16* src = (line < kp ? wl : wr) + (long)k * d1 + c;
+          if (vec16) cp_async16(d, src);
+          else cp_async8(d, src);
+        }
+        line += dl;
+        u += du;
+        if (u >= units) {
+          u -= units;
+          ++line;
+        }
+      }
+      if ((c_k += kp) >= din) {
+        c_k = 0;
+        if (++c_pass == passes) {
+          c_pass = 0;
+          ++c_layer;
+        }
+      }
+    }
+    if (++c_slot == stages) c_slot = 0;
+  };
+  for (int i = 0; i + 1 < stages; ++i) {
+    load_panel();
+    cp_async_commit();
+  }
+
+  int slot = 0;  // the stage of the panel being summed
+  for (int layer = 0; layer < 3; ++layer) {
+    const int gi = 2 * layer + chain, din = layer == 0 ? d0 : d1;
+    const bf16* in = layer == 1 ? buf1 : buf0;
+    bf16* nxt = layer == 1 ? buf0 : buf1;
+    for (int p = 0; p < passes; ++p) {
+      const int n0 = p * pw + warp * NT * 8;  // the warp's first column
+      const bool busy = n0 < d1;
+      float accl[MT][NT][4], accr[MT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) accl[mt][nt][e] = accr[mt][nt][e] = 0.f;
+      for (int k0 = 0; k0 < din; k0 += kp) {
+        if (stages == 4) cp_async_wait_group<2>();
+        else if (stages == 3) cp_async_wait_group<1>();
+        else cp_async_wait_group<0>();
+        __syncthreads();  // the panel is in; every read of the stage the next copy fills is done
+        if (busy) {
+          const bf16* pl = panels + slot * 2 * kp * pws + warp * NT * 8;
+          const bf16* pr = pl + kp * pws;
+          for (int sub = 0; sub < kp && k0 + sub < din; sub += 16) {
+            // B fragments: (k 0-7, tile np), (k 8-15, np), (k 0-7, np + 1), (k 8-15, np + 1)
+            uint32_t bl[NT][2], br[NT][2];
+#pragma unroll
+            for (int np = 0; np < NT; np += 2) {
+              const int off = (sub + (mat & 1) * 8 + mrow) * pws + 8 * (np + (mat >> 1));
+              if (np + 1 < NT) {
+                uint32_t q[4];
+                ldsm_x4_trans(q, pl + off);
+                bl[np][0] = q[0]; bl[np][1] = q[1]; bl[np + 1][0] = q[2]; bl[np + 1][1] = q[3];
+                ldsm_x4_trans(q, pr + off);
+                br[np][0] = q[0]; br[np][1] = q[1]; br[np + 1][0] = q[2]; br[np + 1][1] = q[3];
+              } else {
+                uint32_t q[2];
+                ldsm_x2_trans(q, pl + off);
+                bl[np][0] = q[0]; bl[np][1] = q[1];
+                ldsm_x2_trans(q, pr + off);
+                br[np][0] = q[0]; br[np][1] = q[1];
+              }
+            }
+            // A fragments: (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              uint32_t a[4];
+              ldsm_x4(a, in + (16 * mt + (mat & 1) * 8 + mrow) * S + k0 + sub + (mat >> 1) * 8);
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                mma_bf16(accl[mt][nt], a, bl[nt][0], bl[nt][1]);
+                mma_bf16(accr[mt][nt], a, br[nt][0], br[nt][1]);
+              }
+            }
+          }
+        }
+        load_panel();  // into the stage summed a step ago
+        cp_async_commit();
+        if (++slot == stages) slot = 0;
+      }
+      if (!busy) continue;
+      // the epilogue: a, s in f32 (saved), round(a * s) into the other buffer
+      // (the last GLU's only where the inverse DFT reads it)
+      float* ga = kSave ? acts + (2 * gi) * plane : nullptr;
+      float* gs = kSave ? acts + (2 * gi + 1) * plane : nullptr;
+      const bool keep_u = kOut || layer < 2;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = n0 + 8 * nt + 2 * tq;
+        if (col >= d1) continue;
+        const float2 bL = __ldg(reinterpret_cast<const float2*>(g.bl[gi] + col));
+        const float2 bR = __ldg(reinterpret_cast<const float2*>(g.br[gi] + col));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * mt + gq + 8 * h;
+            const float a0 = accl[mt][nt][2 * h] + bL.x, a1 = accl[mt][nt][2 * h + 1] + bL.y;
+            const float s0 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h] + bR.x)));
+            const float s1 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h + 1] + bR.y)));
+            if (keep_u) *reinterpret_cast<uint32_t*>(nxt + r * S + col) = pack_bf16x2(a0 * s0, a1 * s1);
+            if (kSave) {
+              const long row = row0 + r;
+              if (row < rows_pad) {
+                __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), make_float2(a0, a1));
+                __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), make_float2(s0, s1));
+              }
+            }
+          }
+      }
+    }
+  }
+
+  if constexpr (kOut) {
+    // GLU 2's output is in buf1 of both blocks; buf0 is free
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // both chains' last outputs are in place, every product's reads done
+    const uint4* src = reinterpret_cast<const uint4*>(cluster.map_shared_rank(buf1, chain ^ 1));
+    uint4* dst = reinterpret_cast<uint4*>(buf0);
+    constexpr int kBatch = 8;  // remote loads in flight a thread
+    for (int e0 = threadIdx.x; e0 < TM * S / 8; e0 += kBatch * blockDim.x) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (e0 + j * (int)blockDim.x < TM * S / 8) v[j] = src[e0 + j * blockDim.x];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (e0 + j * (int)blockDim.x < TM * S / 8) dst[e0 + j * blockDim.x] = v[j];
+    }
+    cluster.sync();  // every copy is done: no block reads the other's buffer after this
+    const bf16* re = chain == 0 ? buf1 : buf0;
+    const bf16* im = chain == 0 ? buf0 : buf1;
+    // this block's half of the output's n8 tiles
+    const int tiles = (d1 + 7) / 8, half = (tiles + 1) / 2;
+    const int t0 = chain * half, t1 = min(tiles, t0 + half);
+    for (int tt = t0 + warp * kFIdftNT; tt < t1; tt += warps * kFIdftNT) {
+      float acc[MT][kFIdftNT][4];
+      idft_fwd_mma<MT, kFIdftNT>(re, im, S, ci, si, WM, d1, 8 * tt, acc);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long row = row0 + 16 * mt + gq + 8 * h;
+          if (row >= rows) continue;
+          const long b = row / N, n = row % N;
+#pragma unroll
+          for (int nt = 0; nt < kFIdftNT; ++nt) {
+            const int col = 8 * (tt + nt) + 2 * tq;
+            if (tt + nt >= t1 || col >= d1) continue;
+            const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+            float* o = out + ((b * K + col / WM) * N + n) * WM + col % WM;
+            if (WM % 2 == 0) {  // the pair in one window, 8-byte aligned
+              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+            } else {
+              o[0] = v0;
+              out[((b * K + (col + 1) / WM) * N + n) * WM + (col + 1) % WM] = v1;
+            }
+          }
+        }
+    }
+  }
+}
+
 template <typename T>
 GluWeights<T> glu_weights(const void* const* w) {
   GluWeights<T> g;
@@ -1781,6 +2154,69 @@ int chain_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T* si, 
                              K, N, W, WM);
 }
 
+// The plan of the bf16 chain on tensor cores (ops/cuda_spectral.py
+// `fwd_mma_plan`): rows a tile (16 MT), n8 tiles a warp, threads a block, k
+// rows a weight panel, panel stages.
+struct FwdMmaPlan {
+  int tm, nt, threads, kp, stages;
+};
+
+using ChainMmaKernel = void (*)(const bf16*, GluWeights<bf16>, const bf16*, const bf16*, float*,
+                                float*, long, long, int, int, int, int, int, int, int);
+
+// The forward mma kernel of (MT, NT), or nullptr for a pair not instantiated.
+template <bool kSave, bool kOut>
+ChainMmaKernel chain_mma_kernel_for(int mt, int nt) {
+  if (mt == 5 && nt == 3) return spectral_chain_mma_kernel<5, 3, kSave, kOut>;
+  if (mt == 2 && nt == 4) return spectral_chain_mma_kernel<2, 4, kSave, kOut>;
+  if (mt == 1 && nt == 4) return spectral_chain_mma_kernel<1, 4, kSave, kOut>;
+  return nullptr;
+}
+
+// Bytes of shared memory of a block of the bf16 chain on plan p at D1, or -1
+// for a plan the kernel does not take.
+int chain_mma_plan_smem(int d1, const FwdMmaPlan& p) {
+  if (d1 > kMmaMaxD1 || p.tm % 16 != 0 || chain_mma_kernel_for<false, true>(p.tm / 16, p.nt) ==
+      nullptr || p.threads < 32 || p.threads % 32 != 0 ||
+      p.threads > chain_mma_bound(p.tm / 16) || p.kp < 16 || p.kp > 64 || p.kp % 16 != 0 ||
+      p.stages < 2 || p.stages > 4)
+    return -1;
+  const int smem = chain_mma_smem(p.tm, d1, p.threads / 32 * p.nt * 8, p.kp, p.stages);
+  return smem <= kSmemPerBlock ? smem : -1;
+}
+
+// The bf16 chain up to kMmaMaxD1 on the padded rows, on plan p: with kOut in
+// clusters of 2 writing out, with kSave writing acts. A plan the kernel does
+// not take returns cudaErrorInvalidValue before any launch.
+template <bool kSave, bool kOut>
+int chain_mma_launch(const bf16* x, const GluWeights<bf16>& gw, const bf16* ci, const bf16* si,
+                     float* out, float* acts, int B, int K, int N, int W, int WM,
+                     const FwdMmaPlan& p, cudaStream_t st) {
+  const int d1 = K * WM, smem = chain_mma_plan_smem(d1, p);
+  if (!shape_ok(K, W, WM) || smem < 0) return (int)cudaErrorInvalidValue;
+  const ChainMmaKernel kernel = chain_mma_kernel_for<kSave, kOut>(p.tm / 16, p.nt);
+  const long rows_pad = rows_padded(B, N);
+  return launch_chains<kOut>(kernel, (rows_pad + p.tm - 1) / p.tm, p.threads, smem, st, x, gw,
+                             ci, si, out, acts, kSave ? rows_pad * d1 : 0L, rows_pad, p.kp,
+                             p.stages, B, K, N, W, WM);
+}
+
+// The bf16 chain on its route: tensor cores on plan p up to kMmaMaxD1, past
+// it the wide scalar kernel (p unused; ws as chain_wide_launch takes it).
+template <bool kSave, bool kOut>
+int chain_bf16_launch(const bf16* x, const GluWeights<bf16>& gw, const bf16* ci, const bf16* si,
+                      float* out, float* acts, float* ws, int B, int K, int N, int W, int WM,
+                      const FwdMmaPlan& p, cudaStream_t st) {
+  if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
+  if (K * WM <= kMmaMaxD1)
+    return chain_mma_launch<kSave, kOut>(x, gw, ci, si, out, acts, B, K, N, W, WM, p, st);
+  int sms = 0;
+  const cudaError_t err = current_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  return chain_wide_launch<bf16, kSave, kOut>(x, gw, ci, si, out, acts, ws, B, K, N, W, WM, sms,
+                                              st);
+}
+
 }  // namespace
 
 // Floats of the scratch the forwards need on the current device (0 but where
@@ -1804,13 +2240,24 @@ extern "C" int spectral_fwd(const float* x, const void* const* w, const float* c
                                           B, K, N, W, WM, (cudaStream_t)stream);
 }
 
+// Bytes of shared memory a block of the bf16 chain on tensor cores takes on
+// the plan (tm, nt, threads, kp, stages) of `fwd_mma_plan` at D1 = K * WM, or
+// -1 for a plan it does not take (the bf16 forwards then refuse it).
+extern "C" int spectral_fwd_bf16_smem(int K, int WM, int tm, int nt, int threads, int kp,
+                                      int stages) {
+  return chain_mma_plan_smem(K * WM, FwdMmaPlan{tm, nt, threads, kp, stages});
+}
+
 // The bf16 arm: x, ci, si and the 2-D weights (wl, wr) bf16; biases and out
-// f32.
+// f32. Up to D1 = kMmaMaxD1 on tensor cores with the plan (tm, nt, threads,
+// kp, stages) of `fwd_mma_plan`, past it the wide scalar kernel (plan unused).
 extern "C" int spectral_fwd_bf16(const bf16* x, const void* const* w, const bf16* ci,
                                  const bf16* si, float* out, float* ws, int B, int K, int N,
-                                 int W, int WM, void* stream) {
-  return chain_launch<bf16, false, true>(x, glu_weights<bf16>(w), ci, si, out, nullptr, ws,
-                                         B, K, N, W, WM, (cudaStream_t)stream);
+                                 int W, int WM, int tm, int nt, int threads, int kp, int stages,
+                                 void* stream) {
+  return chain_bf16_launch<false, true>(x, glu_weights<bf16>(w), ci, si, out, nullptr, ws, B, K,
+                                        N, W, WM, FwdMmaPlan{tm, nt, threads, kp, stages},
+                                        (cudaStream_t)stream);
 }
 
 // Floats of the 12 saved arrays (a0, s0, ..., a5, s5), each [padded rows, D1].
@@ -1827,12 +2274,15 @@ extern "C" int spectral_fwd_save(const float* x, const void* const* w, const flo
                                          K, N, W, WM, (cudaStream_t)stream);
 }
 
-// The bf16 arm of spectral_fwd_save: operands as spectral_fwd_bf16's, acts f32.
+// The bf16 arm of spectral_fwd_save: operands and plan as spectral_fwd_bf16's,
+// acts f32.
 extern "C" int spectral_fwd_save_bf16(const bf16* x, const void* const* w, const bf16* ci,
                                       const bf16* si, float* out, float* acts, float* ws,
-                                      int B, int K, int N, int W, int WM, void* stream) {
-  return chain_launch<bf16, true, true>(x, glu_weights<bf16>(w), ci, si, out, acts, ws, B,
-                                        K, N, W, WM, (cudaStream_t)stream);
+                                      int B, int K, int N, int W, int WM, int tm, int nt,
+                                      int threads, int kp, int stages, void* stream) {
+  return chain_bf16_launch<true, true>(x, glu_weights<bf16>(w), ci, si, out, acts, ws, B, K, N,
+                                       W, WM, FwdMmaPlan{tm, nt, threads, kp, stages},
+                                       (cudaStream_t)stream);
 }
 
 // Floats of the flat gradient buffer: per GLU wl [Din, D1], bl [D1], wr, br.
@@ -1905,8 +2355,12 @@ int bwd_launch(const T* x, const Tg* g, const void* const* w, const T* ci, const
   const float* acts = saved;
   if (saved == nullptr) {
     float* chain_ws = ws + 12 * plane + bwd_scratch_floats(B, K, N, W, WM, nsplit, sms);
-    err = (cudaError_t)chain_launch<T, true, false>(x, gw, ci, si, nullptr, ws, chain_ws, B,
-                                                    K, N, W, WM, st);
+    if constexpr (std::is_same<T, float>::value)
+      err = (cudaError_t)chain_launch<T, true, false>(x, gw, ci, si, nullptr, ws, chain_ws, B,
+                                                      K, N, W, WM, st);
+    else  // the bf16 arm comes here only past kMmaMaxD1: the wide chain
+      err = (cudaError_t)chain_wide_launch<T, true, false>(x, gw, ci, si, nullptr, ws, chain_ws,
+                                                           B, K, N, W, WM, sms, st);
     if (err != cudaSuccess) return (int)err;
     acts = ws;
     ws += 12 * plane;
@@ -2002,12 +2456,14 @@ long mma_scratch_floats(int B, int K, int N, int W, int WM, int nsplit, int tm) 
 // The bf16 backward on tensor cores, D1 up to kMmaMaxD1, on the plan of
 // ops/cuda_spectral.py `bwd_mma_plan`: tm rows a tile of the rows kernel
 // (16 MT), nt n8 tiles a warp, nsplit row segments of the weight gradients.
-// x, the weights, ci and si bf16, g f32. saved as for bwd_launch (the
-// recompute's chain needs no workspace of its own up to kMmaMaxD1). A plan
-// the kernels do not take returns cudaErrorInvalidValue before any launch.
+// x, the weights, ci and si bf16, g f32. saved as for bwd_launch, or nullptr
+// to recompute the 12 arrays into the head of ws by the chain on tensor cores
+// on plan fp (no workspace of its own up to kMmaMaxD1). A plan the kernels do
+// not take returns cudaErrorInvalidValue before any launch.
 int bwd_mma_launch(const bf16* x, const float* g, const void* const* w, const bf16* ci,
                    const bf16* si, float* dx, float* grads, const float* saved, float* ws, int B,
-                   int K, int N, int W, int WM, int nsplit, int tm, int nt, cudaStream_t st) {
+                   int K, int N, int W, int WM, int nsplit, int tm, int nt, const FwdMmaPlan& fp,
+                   cudaStream_t st) {
   const int d0 = K * W, d1 = K * WM;
   const RowsMmaKernel rows_kernel = tm % 16 == 0 ? rows_mma_kernel_for(tm / 16, nt) : nullptr;
   if (!shape_ok(K, W, WM) || d1 > kMmaMaxD1 || nsplit < 1 || rows_kernel == nullptr)
@@ -2022,8 +2478,8 @@ int bwd_mma_launch(const bf16* x, const float* g, const void* const* w, const bf
 
   const float* acts = saved;
   if (saved == nullptr) {
-    err = (cudaError_t)chain_launch<bf16, true, false>(x, gw, ci, si, nullptr, ws, nullptr, B, K,
-                                                       N, W, WM, st);
+    err = (cudaError_t)chain_mma_launch<true, false>(x, gw, ci, si, nullptr, ws, B, K, N, W, WM,
+                                                     fp, st);
     if (err != cudaSuccess) return (int)err;
     acts = ws;
     ws += 12 * plane;
@@ -2123,17 +2579,19 @@ extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w
 
 // The bf16 arm: x, ci, si and the 2-D weights bf16, g, dx and grads f32; up
 // to D1 = kMmaMaxD1 on tensor cores with the plan (tm, nt, nsplit) of
-// `bwd_mma_plan`, past it the wide scalar kernels (tm, nt unused). ws:
-// spectral_bwd_bf16_workspace_floats floats.
+// `bwd_mma_plan` and the recompute's chain on the plan (ftm, fnt, fthreads,
+// fkp, fstages) of `fwd_mma_plan`, past it the wide scalar kernels (the plans
+// unused). ws: spectral_bwd_bf16_workspace_floats floats.
 extern "C" int spectral_bwd_bf16(const bf16* x, const float* g, const void* const* w,
                                  const bf16* ci, const bf16* si, float* dx, float* grads,
                                  float* ws, int B, int K, int N, int W, int WM, int nsplit,
-                                 int tm, int nt, void* stream) {
+                                 int tm, int nt, int ftm, int fnt, int fthreads, int fkp,
+                                 int fstages, void* stream) {
   if (K * WM > kMmaMaxD1)
     return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM,
                                    nsplit, (cudaStream_t)stream);
   return bwd_mma_launch(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit, tm,
-                        nt, (cudaStream_t)stream);
+                        nt, FwdMmaPlan{ftm, fnt, fthreads, fkp, fstages}, (cudaStream_t)stream);
 }
 
 // spectral_bwd on the arrays spectral_fwd_save wrote (acts), without the
@@ -2158,5 +2616,5 @@ extern "C" int spectral_bwd_reread_bf16(const bf16* x, const float* g, const voi
     return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
                                    nsplit, (cudaStream_t)stream);
   return bwd_mma_launch(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit, tm, nt,
-                        (cudaStream_t)stream);
+                        FwdMmaPlan{}, (cudaStream_t)stream);
 }

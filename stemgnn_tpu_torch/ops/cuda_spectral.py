@@ -27,10 +27,11 @@ weights and the inverse DFT's block to bf16, as `_forward` and `_backward`
 cast them before their kernels, and launch the kernels' bf16 arms; biases,
 outputs and the 12 saved arrays stay f32. A backward's cotangent goes to the
 kernels as f32, which round it to bf16 as they stage it (the same bits as a
-cast). Up to D1 = 2048 the bf16 backwards run on tensor cores (mma.sync) by
-the tile plan `bwd_mma_plan`, past it on the wide scalar kernels. Each
-bf16 arm counts its launches on a function of its own (`spe_seq_cell_bf16`
-and the like), so the counts tell the arms apart.
+cast). Up to D1 = 2048 the bf16 forwards and backwards run on tensor cores
+(mma.sync) by the tile plans `fwd_mma_plan` and `bwd_mma_plan` (the
+recompute backward's chain by the former), past it on the wide scalar
+kernels. Each bf16 arm counts its launches on a function of its own
+(`spe_seq_cell_bf16` and the like), so the counts tell the arms apart.
 
 On CPU tensors the wrappers run the plain versions (`spe_seq_cell_plain`, a
 full FFT at f32, `spe_seq_cell_bwd_plain`, `spe_seq_cell_save_plain`,
@@ -121,12 +122,15 @@ _SIGNATURES = {
     "spectral_fwd_workspace_floats": ([_I] * 4, ctypes.c_longlong),
     "spectral_bwd": ([_P, _P, _PP] + [_P] * 5 + [_I] * 6 + [_P], ctypes.c_int),
     "spectral_bwd_reread": ([_P, _P, _PP] + [_P] * 6 + [_I] * 6 + [_P], ctypes.c_int),
-    # the bf16 arms take the same arguments
-    "spectral_fwd_bf16": ([_P, _PP, _P, _P, _P, _P] + [_I] * 5 + [_P], ctypes.c_int),
-    "spectral_fwd_save_bf16": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+    # the bf16 forwards: the same, and fwd_mma_plan's tile rows, n8 tiles a
+    # warp, threads, panel rows and stages
+    "spectral_fwd_bf16": ([_P, _PP, _P, _P, _P, _P] + [_I] * 10 + [_P], ctypes.c_int),
+    "spectral_fwd_save_bf16": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
                                ctypes.c_int),
-    # the bf16 backwards: g f32, and the plan's tile rows and n8 tiles a warp
-    "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 8 + [_P], ctypes.c_int),
+    "spectral_fwd_bf16_smem": ([_I] * 7, ctypes.c_int),
+    # the bf16 backwards: g f32, and bwd_mma_plan's tile rows and n8 tiles a
+    # warp (the recompute also fwd_mma_plan's five)
+    "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 13 + [_P], ctypes.c_int),
     "spectral_bwd_reread_bf16": ([_P, _P, _PP] + [_P] * 6 + [_I] * 8 + [_P],
                                  ctypes.c_int),
     "spectral_bwd_grad_floats": ([_I] * 3, ctypes.c_longlong),
@@ -166,6 +170,79 @@ class BwdMmaPlan(NamedTuple):
     wgrad_grid: tuple   # (k tiles x column tiles, 6 GLUs, nsplit)
     wgrad_smem: int     # bytes: three stages
     workspace_floats: int  # the reread entry's scratch (the recompute adds 12 planes)
+
+
+# The bf16 chain forward on tensor cores (csrc/spectral.cu `chain_mma_launch`):
+# its constants, which fwd_mma_plan mirrors. (16-row tiles, n8 tiles a warp)
+# instantiated, in the order preferred on a tie, and each one's launch bound.
+FWD_MMA_TILES = ((5, 3), (2, 4), (1, 4))
+FWD_MMA_MAX_THREADS = {5: 320, 2: 512, 1: 512}  # chain_mma_bound
+FWD_MMA_PANEL_K = (64, 48, 32, 16)  # k rows a weight panel, the deepest that fits first
+FWD_MMA_STAGES = (4, 3, 2)          # panel stages, then the most that fit
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block can have on sm_90 (kSmemPerBlock)
+
+
+class FwdMmaPlan(NamedTuple):
+    """How the bf16 chain forward of one shape is laid over the card."""
+    route: str          # "mma", or "wide" past D1 = MMA_MAX_D1 (the rest then 0)
+    rows_pad: int       # B*N padded to 16, the saved arrays' rows
+    tile_rows: int      # rows of a block: 16 m_tiles
+    n_tiles: int        # n8 column tiles a warp owns in a pass (both sums of each)
+    threads: int        # a block: a warp per n_tiles of a pass's columns
+    passes: int         # column passes over D1 of threads / 32 * n_tiles * 8 columns
+    stride: int         # bf16 elements between two rows of its activation buffers
+    panel_stride: int   # the same for its weight panels
+    panel_k: int        # k rows of a weight panel (the products between two barriers)
+    stages: int         # weight panels in its shared ring
+    smem: int           # bytes of its dynamic shared memory
+    tiles: int          # row tiles: its grid is (2 chains, tiles)
+
+    @property
+    def args(self) -> tuple:
+        """What the C entries take of it."""
+        return self.tile_rows, self.n_tiles, self.threads, self.panel_k, self.stages
+
+
+def _ldsm_stride(cols: int) -> int:
+    """csrc/spectral.cu `ldsm_stride`: cols rounded to 16, in bytes 16 past a
+    multiple of 128 (the 8 rows of an ldmatrix on distinct banks)."""
+    return (-(-cols // 16) * 16 + 55) // 64 * 64 + 8
+
+
+def fwd_mma_plan(b: int, k: int, n: int, w: int, wm: int, sms: int) -> FwdMmaPlan:
+    """The bf16 chain forward's tiling for x [b, k, n, w] at wm = w * multi on
+    a card of `sms` SMs; pure arithmetic, no card. Of the instantiated (row
+    tile, n8 tiles a warp) whose block fits a block's shared memory with two
+    stages of 16-row panels at least, the one whose blocks (two a tile) put
+    the fewest rows on the busiest SM, the larger tile on a tie (its weight
+    panels serve more rows); its columns in as few passes as its launch
+    bound allows, the warps spread evenly over them; then the deepest weight
+    panels (up to 64 k rows: fewer barriers a GLU) and as many stages (up to
+    4) as fit."""
+    d1 = k * wm
+    rows_pad = -(-(b * n) // 16) * 16
+    if d1 > MMA_MAX_D1:
+        return FwdMmaPlan("wide", rows_pad, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    col_tiles = -(-d1 // 8)
+    best = None
+    for mt, nt in FWD_MMA_TILES:
+        tm = 16 * mt
+        passes = -(-col_tiles // (FWD_MMA_MAX_THREADS[mt] // 32 * nt))
+        warps = -(-col_tiles // (passes * nt))
+        pw = warps * nt * 8
+        stride, panel_stride = _ldsm_stride(d1), _ldsm_stride(pw)
+        fits = [(panel_k, stages, (2 * tm * stride + stages * 2 * panel_k * panel_stride) * 2)
+                for panel_k in FWD_MMA_PANEL_K for stages in FWD_MMA_STAGES]
+        fits = [f for f in fits if f[2] <= SMEM_PER_BLOCK]
+        if not fits:
+            continue
+        panel_k, stages, smem = fits[0]
+        tiles = -(-rows_pad // tm)
+        key = (-(-2 * tiles // sms) * tm, -tm)
+        if best is None or key < best[0]:
+            best = (key, FwdMmaPlan("mma", rows_pad, tm, nt, 32 * warps, passes, stride,
+                                    panel_stride, panel_k, stages, smem, tiles))
+    return best[1]
 
 
 def _mma_stride(d1: int) -> int:
@@ -265,13 +342,23 @@ def _check_operands(name, x, weights, ci, si, k, w, wm, *f32):
 def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
     """x [B,K,N,W] and the 24 folded GLU tensors -> [B,K,N,W*multi]; with
     `save`, (out, acts [12, padded rows, K*W*multi]) from the saving forward.
-    Operands of bf16 (x, the 2-D weights, ci, si) launch the bf16 arm."""
+    Operands of bf16 (x, the 2-D weights, ci, si) launch the bf16 arm on the
+    plan `fwd_mma_plan` of the shape and card."""
     b, k, n, w = x.shape
     wm = w * multi
     name = "spe_seq_cell_save" if save else "spe_seq_cell"
     _check_operands(name, x, weights, ci, si, k, w, wm)
     bf16 = x.dtype == torch.bfloat16
     arm = "_bf16" if bf16 else ""
+    plan = ()
+    if bf16:
+        mma = fwd_mma_plan(b, k, n, w, wm, _sms(x.device))
+        plan = mma.args
+        smem = _fn("spectral_fwd_bf16_smem")(k, wm, *plan) if mma.route == "mma" else 0
+        if smem != mma.smem:
+            raise RuntimeError(f"{name}: the kernel takes the plan {mma} with {smem} bytes "
+                               f"of shared memory (-1: not at all), fwd_mma_plan with "
+                               f"{mma.smem}")
     out = torch.empty((b, k, n, wm), dtype=torch.float32, device=x.device)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
     # the wide chain kernel's buffers past D1 = 2421, else nothing
@@ -279,7 +366,7 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
     ws_ptr = ws.data_ptr() if ws is not None else None
     if not save:
         rc = _fn("spectral_fwd" + arm)(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
-                                       out.data_ptr(), ws_ptr, b, k, n, w, wm,
+                                       out.data_ptr(), ws_ptr, b, k, n, w, wm, *plan,
                                        _build.stream_ptr(x))
         _check(rc, name, k, w, wm)
         (spe_seq_cell_bf16 if bf16 else spe_seq_cell).launches += 1
@@ -288,7 +375,7 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
                        device=x.device).view(12, -1, k * wm)
     rc = _fn("spectral_fwd_save" + arm)(
         x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
-        acts.data_ptr(), ws_ptr, b, k, n, w, wm, _build.stream_ptr(x))
+        acts.data_ptr(), ws_ptr, b, k, n, w, wm, *plan, _build.stream_ptr(x))
     _check(rc, name, k, w, wm)
     (spe_seq_cell_save_bf16 if bf16 else spe_seq_cell_save).launches += 1
     return out, acts
@@ -299,7 +386,8 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     flat buffer, those of GLU 0 and 1 in folded space). With `acts` (what the
     saving forward wrote) the reread entry runs, else the recompute entry; g
     f32 (the bf16 kernels round it as they stage it); bf16 operands launch the
-    bf16 arm on the plan `bwd_mma_plan` of the shape and card."""
+    bf16 arm on the plan `bwd_mma_plan` of the shape and card (the recompute's
+    chain on `fwd_mma_plan`'s)."""
     b, k, n, w = x.shape
     wm = w * multi
     reread = acts is not None
@@ -321,6 +409,8 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     if bf16:
         plan = bwd_mma_plan(b, k, n, w, wm, _sms(x.device))
         nsplit, tiling = plan.nsplit, (plan.tile_rows, plan.n_tiles)
+        if not reread:
+            tiling += fwd_mma_plan(b, k, n, w, wm, _sms(x.device)).args
         floats = _fn(entry + "_bf16_workspace_floats")(b, k, n, w, wm, nsplit,
                                                        plan.tile_rows)
         extra = 0 if reread else 12 * plan.rows_pad * k * wm

@@ -2,8 +2,8 @@
 taken out or changed, and times each beside the source as it is.
 
     python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [gru_grid]
-        [spectral] [spectral_fwd] [spectral_mma] [graph] [against=CHECKOUT] [ptxas]
-        [ptxas=CHECKOUT]
+        [spectral] [spectral_fwd] [spectral_mma] [spectral_fwd_mma] [graph]
+        [against=CHECKOUT] [ptxas] [ptxas=CHECKOUT]
 
 A variant is a list of (text, replacement) pairs applied to the source; a
 pair whose text is no longer in the source stops the run, so an edit to a
@@ -13,12 +13,16 @@ exchange or a load left out): only their times mean anything, and the difference
 H = N = 140, W = 12, K = 4); `gru_grid` times the grid GRU kernels at
 B = 32, H = N = 512 and B = 8, H = N = 1024; `spectral_fwd` also times the COVID-19 shape
 (B = 32, N = 25, W = 28, multi 5); `spectral_mma` the bf16 reread backward
-on tensor cores, its epilogue or one kernel left out. `against=CHECKOUT`
+on tensor cores, its epilogue or one kernel left out; `spectral_fwd_mma` the
+bf16 forwards' chain on tensor cores at both shapes, its a, s stores, join,
+inverse DFT, weight staging or products left out, and other plans.
+`against=CHECKOUT`
 builds the spectral and graph sources of another checkout (a `git archive` of
 an earlier commit) and holds this tree's f32 spectral entries (forwards and
 backwards) and both arms of the graph conv (this tree's bf16 arm fed the f32
 operands, the other's the casts its wrapper made) bitwise against it, at the
-flagship and COVID-19 shapes, and times both trees' bf16 reread backwards. Times are
+flagship and COVID-19 shapes, and times both trees' bf16 reread backwards and
+bf16 forwards. Times are
 device milliseconds of one call, replays of a CUDA graph of 20 calls, with the
 card's name and power limit on the first line. `ptxas` (or `ptxas=CHECKOUT`
 for another checkout's sources) compiles each kernel source with
@@ -231,6 +235,44 @@ SPECTRAL_MMA_VARIANTS = {
         ("  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles\n"
          "  const long rows = (long)B * N;\n  const bf16* u_src",
          "  if (k0 >= 0) return;\n  const long rows = (long)B * N;\n  const bf16* u_src")],
+}
+
+
+_FMMA_SAVE = ("              if (row < rows_pad) {\n"
+              "                __stcs(reinterpret_cast<float2*>(ga + row * d1 + col)")
+SPECTRAL_FWD_MMA_VARIANTS = {
+    "base": [],
+    # the saving forward's a, s stores (51.6 MB at the flagship)
+    "mma fwd: no a, s stores": [(_FMMA_SAVE, _FMMA_SAVE.replace("row < rows_pad", "row < 0"))],
+    # the join: cluster barriers, the copy of the other chain's buffer and the
+    # inverse DFT (the serving output is then not written)
+    "mma fwd: no join": [
+        ("  if constexpr (kOut) {\n    // GLU 2's output is in buf1 of both blocks",
+         "  if constexpr (kOut && !kOut) {\n    // GLU 2's output is in buf1 of both blocks")],
+    # the inverse DFT's products (the join's copy and the output stores kept)
+    "mma fwd: no inverse DFT products": [
+        ("      idft_fwd_mma<MT, kFIdftNT>(re, im, S, ci, si, WM, d1, 8 * tt, acc);\n",
+         "      for (int i = 0; i < MT; ++i)\n        for (int j = 0; j < kFIdftNT; ++j)\n"
+         "          for (int e = 0; e < 4; ++e) acc[i][j][e] = __bfloat162float(re[16 * i + j + e]);\n")],
+    # the inverse DFT's B fragments made in registers, not loaded
+    "mma fwd: inverse DFT B without loads": [
+        ("            v[q] = j >= 0 && j < WM ? __bfloat16_as_ushort(blk[off[nt] + j]) : 0u;\n",
+         "            v[q] = j >= 0 && j < WM ? (unsigned)(off[nt] + j) & 0x3f00u : 0u;\n")],
+    # the a, s stores as plain stores (not streaming, evict-first ones)
+    "mma fwd: a, s stores st.global": [
+        ("                __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), make_float2(a0, a1));\n"
+         "                __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), make_float2(s0, s1));\n",
+         "                *reinterpret_cast<float2*>(ga + row * d1 + col) = make_float2(a0, a1);\n"
+         "                *reinterpret_cast<float2*>(gs + row * d1 + col) = make_float2(s0, s1);\n")],
+    # the weight panels' copies (the products read the stages as they stand)
+    "mma fwd: no weight staging": [
+        ("          if (vec16) cp_async16(d, src);\n          else cp_async8(d, src);\n",
+         "          (void)src;\n")],
+    # the GLUs' fragment loads and mma.sync (the panel stream, its barriers
+    # and the epilogues kept)
+    "mma fwd: no products": [
+        ("        if (busy) {\n          const bf16* pl = panels",
+         "        if (busy && !busy) {\n          const bf16* pl = panels")],
 }
 
 
@@ -653,6 +695,83 @@ def spectral_mma(dev, tmp: Path) -> None:
               f"{plan.nsplit}): {_cuda_ms(call):.5f} ms")
 
 
+def _bf16_fwd_calls(lib, x, weights, ci, si, multi, plan=None):
+    """(serving call, saving call) of a library's two bf16 forward entries,
+    each into buffers made here: this tree's (the tile plan `plan`, by
+    default `fwd_mma_plan`'s), or an earlier tree's (no plan: found by the
+    absence of `spectral_fwd_bf16_smem`). The calls return (out, acts or
+    None)."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = x.shape
+    wm = w * multi
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    out = torch.empty((b, k, n, wm), device=x.device)
+    acts = torch.empty(cuda_spectral._fn("spectral_act_floats")(b, k, n, wm), device=x.device)
+    fwd, save = lib.spectral_fwd_bf16, lib.spectral_fwd_save_bf16
+    fwd.argtypes, fwd.restype = cuda_spectral._SIGNATURES["spectral_fwd_bf16"]
+    save.argtypes, save.restype = cuda_spectral._SIGNATURES["spectral_fwd_save_bf16"]
+    if hasattr(lib, "spectral_fwd_bf16_smem"):
+        plan = plan or cuda_spectral.fwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device))
+        args = plan.args
+    else:
+        fwd.argtypes = fwd.argtypes[:11] + fwd.argtypes[16:]
+        save.argtypes = save.argtypes[:12] + save.argtypes[17:]
+        args = ()
+
+    def serve():
+        _build.check(fwd(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
+                         None, b, k, n, w, wm, *args, _build.stream_ptr(x)),
+                     "spectral_fwd_bf16")
+        return out, None
+
+    def saving():
+        _build.check(save(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
+                          acts.data_ptr(), None, b, k, n, w, wm, *args, _build.stream_ptr(x)),
+                     "spectral_fwd_save_bf16")
+        return out, acts.view(12, -1, k * wm)
+
+    return serve, saving
+
+
+def spectral_fwd_mma(dev, tmp: Path) -> None:
+    """The bf16 serving and saving forwards' C entries (the chain on tensor
+    cores) by variant at the flagship and COVID-19 shapes: what the a, s
+    stores, the join, the inverse DFT, the weight staging and the products
+    cost; then the source as it is on other plans than `fwd_mma_plan`'s
+    (row tiles, panel rows, stages, threads)."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    shapes = {name: _bf16_operands(*_spectral_inputs(b, n, w, m, dev, 5)) + (m,)
+              for name, (b, n, w, m) in SPECTRAL_FWD_SHAPES.items()}
+    libs = _build_variants("spectral.cu", SPECTRAL_FWD_MMA_VARIANTS, tmp)
+    for name, lib in libs.items():
+        for shape, (x, weights, ci, si, m) in shapes.items():
+            serve, saving = _bf16_fwd_calls(lib, x, weights, ci, si, m)
+            print(f"spectral bf16 forward {shape} {tuple(x.shape)} multi={m}, {name}: serving "
+                  f"{_cuda_ms(serve):.5f} ms, saving {_cuda_ms(saving):.5f} ms")
+    for shape, (x, weights, ci, si, m) in shapes.items():
+        b, k, n, w = x.shape
+        plan = cuda_spectral.fwd_mma_plan(b, k, n, w, w * m, cuda_spectral._sms(dev))
+        if shape == "flagship":
+            others = [plan._replace(panel_k=48), plan._replace(panel_k=32, stages=4),
+                      plan._replace(panel_k=32, stages=2), plan._replace(panel_k=16, stages=4),
+                      plan._replace(tile_rows=32, n_tiles=4, threads=256, panel_k=32),
+                      plan._replace(tile_rows=16, n_tiles=4, threads=256, panel_k=32)]
+        else:
+            others = [plan._replace(panel_k=16, stages=4),
+                      plan._replace(tile_rows=32, panel_k=32),
+                      plan._replace(tile_rows=32, threads=512, panel_k=32)]
+        for other in [plan, *others, plan]:
+            serve, saving = _bf16_fwd_calls(libs["base"], x, weights, ci, si, m, other)
+            print(f"spectral bf16 forward {shape}, base, row tile {other.tile_rows}, "
+                  f"{other.n_tiles} n8 tiles a warp, {other.threads} threads, "
+                  f"{other.stages} stages of {other.panel_k}-row panels (the plan's: "
+                  f"{plan.tile_rows}, {plan.n_tiles}, {plan.threads}, {plan.stages} of "
+                  f"{plan.panel_k}): serving {_cuda_ms(serve):.5f} ms, saving "
+                  f"{_cuda_ms(saving):.5f} ms")
+
+
 def _build_other(src: Path, tmp: Path) -> ctypes.CDLL:
     so = Path(tempfile.mkdtemp(dir=tmp)) / f"lib{src.stem}_other.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-o",
@@ -720,14 +839,23 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
     ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
     print(f"spectral_bwd_reread_bf16 flagship: this tree against {other}: ms in the order "
           f"other, this, this, other: {ms}")
+    # and both trees' bf16 forwards' C entries (this tree's chain on tensor
+    # cores): times only, as above
+    calls = {tree: _bf16_fwd_calls(lib, x, weights, ci, si, 5) for tree, lib in libs.items()}
+    for i, entry in enumerate(("spectral_fwd_bf16", "spectral_fwd_save_bf16")):
+        ms = [round(_cuda_ms(calls[tree][i]), 5) for tree in ("other", "this", "this", "other")]
+        print(f"{entry} flagship: this tree against {other}: ms in the order other, this, "
+              f"this, other: {ms}")
     graph_libs = {"other": _build_other(csrc / "graph.cu", tmp),
                   "this": _build.library("graph")}
+    # an other tree with this tree's graph.cu takes its operands as this one
+    same_graph = (csrc / "graph.cu").read_bytes() == (_build.CSRC / "graph.cu").read_bytes()
     rng = np.random.default_rng(8)
     for shape, (k, n, b, w) in {"flagship": (4, 140, 32, 12), "COVID-19": (4, 25, 32, 28)}.items():
         mul_l = torch.from_numpy((rng.standard_normal((k, n, n)) * 0.1).astype(np.float32)).to(dev)
         x = torch.from_numpy(rng.standard_normal((b, n, w)).astype(np.float32)).to(dev)
         # both arms; the bf16 one of this tree takes the f32 operands and
-        # rounds them in its loads, the other's (before that) bf16 casts
+        # rounds them in its loads, an other's from before that bf16 casts
         for arm, esize in (("", 4), ("_bf16", 2)):
             plan = cuda_graph.launch_plan(k, n, b, w, esize)
             outs, calls = {}, {}
@@ -735,7 +863,7 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
                 fn = getattr(lib, "cheb_graph_conv_fwd" + arm)
                 fn.argtypes, fn.restype = cuda_graph._ARGTYPES, ctypes.c_int
                 out = torch.empty((b, k, n, w), device=dev)
-                cast = arm and tree == "other"
+                cast = arm and tree == "other" and not same_graph
                 a_in, x_in = ((mul_l.to(torch.bfloat16), x.to(torch.bfloat16)) if cast
                               else (mul_l, x))
 
@@ -752,14 +880,14 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
                 outs[tree], calls[tree] = call().clone(), call
             torch.cuda.synchronize()
             ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
-            if arm:  # the other tree's kernel alone, its operands cast beforehand
+            if arm and not same_graph:  # the other kernel alone, its operands cast beforehand
                 alone = functools.partial(calls["other"], cast=False)
                 ms.append(round(_cuda_ms(alone), 5))
             same = torch.equal(outs["this"], outs["other"])
             print(f"cheb_graph_conv_fwd{arm} {shape} K={k} N={n} B={b} W={w}: this tree "
                   f"against {other}: output {'bitwise equal' if same else 'DIFFERS'}; ms "
                   f"(with the other's casts) in the order other, this, this, other"
-                  f"{', then the other kernel alone' if arm else ''}: {ms}")
+                  f"{', then the other kernel alone' if arm and not same_graph else ''}: {ms}")
 
 
 def graph(dev, tmp: Path) -> None:
@@ -842,7 +970,7 @@ def main(argv=None) -> int:
                 continue
             {"gru": gru, "gru_bwd": gru_bwd, "gru_grid": gru_grid, "spectral": spectral,
              "spectral_fwd": spectral_fwd, "spectral_mma": spectral_mma,
-             "graph": graph}[name](dev, Path(tmp))
+             "spectral_fwd_mma": spectral_fwd_mma, "graph": graph}[name](dev, Path(tmp))
     return 0
 
 

@@ -261,5 +261,6 @@ def test_spectral_backwards_hand_the_kernels_the_f32_cotangent(monkeypatch, rere
     name = "spectral_bwd_reread_bf16" if reread else "spectral_bwd_bf16"
     (args,) = fakes[name].calls
     assert args[0] == xk.data_ptr() and args[1] == g.data_ptr()  # g itself: no cast
-    assert args[-4:-1] == (plan.nsplit, plan.tile_rows, plan.n_tiles)
-    assert args[-9:-4] == (b, K, n, w, wm)
+    tail = 1 if reread else 6  # the recompute: its chain's plan too, before the stream
+    assert args[-tail - 3:-tail] == (plan.nsplit, plan.tile_rows, plan.n_tiles)
+    assert args[-tail - 8:-tail - 3] == (b, K, n, w, wm)
