@@ -3,16 +3,22 @@
 The flag surface mirrors the reference CLI (main.py:9-30): the 21 reference
 flags keep their names and defaults, and booleans parse properly (the
 reference's `type=bool` flags treat the string "False" as truthy). The
-port adds `seed`, `dropout_seed`, `shuffle_seed`, `compute_dtype`, `resume`,
-`ckpt_every`, `ckpt_async`, `log_jsonl`, `profile`, `debug_nans`, `data_dir`
-and `output_dir`, with the JAX package's names and defaults; `device`
-defaults to "cuda".
+port adds `seed`, `dropout_seed`, `shuffle_seed`, `param_dtype`,
+`compute_dtype`, `resume`, `ckpt_every`, `ckpt_async`, `log_jsonl`, `profile`,
+`debug_nans`, `data_dir` and `output_dir`, with the JAX package's names and
+defaults; `device` defaults to "cuda".
 
 `compute_dtype` is the JAX package's precision policy: "bfloat16" gives the
 graph conv's and the spectral cell's kernels bf16 operands with f32 sums,
 rounded where the JAX package's kernels round them; the GRU, the attention,
 the Laplacian and every product outside those kernels stay f32 (with TF32
 off on the card), which is what the JAX package computes on the CPU.
+
+`param_dtype` is the JAX package's parameter storage: "bfloat16" casts the
+parameters after init (to nearest, ties to even) and keeps them so; every
+product where one meets an f32 activation promotes it to f32 exactly, as JAX
+promotes bf16 x f32. The gradients and the optimizer's moments then follow
+the JAX package's Pallas path leaf by leaf (train/optim.py).
 """
 
 from __future__ import annotations
@@ -82,6 +88,8 @@ class TrainConfig:
     dropout_seed: int = -1
     # -1 = the per-epoch batch shuffle derives from `seed`; >= 0 decouples it
     shuffle_seed: int = -1
+    # "float32" | "bfloat16": parameter storage (cast after init)
+    param_dtype: str = "float32"
     # "float32" | "bfloat16": the graph conv's and spectral kernels' operands
     compute_dtype: str = "float32"
     resume: bool = False  # restore params + optimizer state + epoch from the last checkpoint
@@ -96,9 +104,9 @@ class TrainConfig:
     output_dir: str = "output"
 
     def __post_init__(self):
-        if self.compute_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"compute_dtype {self.compute_dtype!r}: 'float32' or "
-                             "'bfloat16'")
+        for name in ("param_dtype", "compute_dtype"):
+            if getattr(self, name) not in ("float32", "bfloat16"):
+                raise ValueError(f"{name} {getattr(self, name)!r}: 'float32' or 'bfloat16'")
 
     def model_config(self, node_cnt: int) -> StemGNNConfig:
         return StemGNNConfig(

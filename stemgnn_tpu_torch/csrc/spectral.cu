@@ -148,6 +148,24 @@ struct GluWeights {
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
+// two f32 values rounded to bf16 (to nearest, ties to even) as one 32-bit word,
+// lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four saved activations of the storage type TA (f32, or bf16 where the
+// saving forward stores them rounded) as f32, where `in`, else zeros.
+template <typename TA>
+__device__ __forceinline__ void ldg_act4(const TA* p, bool in, float (&f)[4]) {
+  if (in) {
+    unpack4(ldg_vec4(p), f);
+  } else {
+    f[0] = f[1] = f[2] = f[3] = 0.f;
+  }
+}
+
 // ---- forward: the chain kernel ----
 
 constexpr int kFMaxThreads = 192;    // up to 192 threads: three blocks an SM
@@ -206,12 +224,14 @@ __device__ __forceinline__ void glu_fwd_product(const float* in, int S, int din,
 // A GLU's outputs from the thread's sums: a = al + bl, s = sigmoid(ar + br),
 // a * s rounded to the operand type T (the next product's operand) to the
 // block's buffer (the 8 rows of a column as two float4); with kSave, a and s
-// to ga, gs ([rows_pad][d1] row-major, rows past rows_pad dropped), f32.
-template <typename T, bool kSave>
+// to ga, gs ([rows_pad][d1] row-major, rows past rows_pad dropped) in the
+// storage type TA: f32, or bf16 (rounded to nearest, as the JAX package's
+// `_kernel_save` stores them with SAVE_ACTS_F32 off).
+template <typename T, bool kSave, typename TA = float>
 __device__ __forceinline__ void glu_fwd_elementwise(
     const float (&al)[8][4], const float (&ar)[8][4], const float* __restrict__ bl,
     const float* __restrict__ br, int r0, int c, long row0, long rows_pad, int d1,
-    float* __restrict__ ga, float* __restrict__ gs, float* buf, int S) {
+    TA* __restrict__ ga, TA* __restrict__ gs, float* buf, int S) {
   float bL[4], bR[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -231,8 +251,15 @@ __device__ __forceinline__ void glu_fwd_elementwise(
     if (kSave) {
       const long row = row0 + r0 + i;
       if (row < rows_pad) {
-        *reinterpret_cast<float4*>(ga + row * d1 + c) = make_float4(a[0], a[1], a[2], a[3]);
-        *reinterpret_cast<float4*>(gs + row * d1 + c) = make_float4(sg[0], sg[1], sg[2], sg[3]);
+        if constexpr (std::is_same<TA, float>::value) {
+          *reinterpret_cast<float4*>(ga + row * d1 + c) = make_float4(a[0], a[1], a[2], a[3]);
+          *reinterpret_cast<float4*>(gs + row * d1 + c) = make_float4(sg[0], sg[1], sg[2], sg[3]);
+        } else {
+          *reinterpret_cast<uint2*>(ga + row * d1 + c) =
+              make_uint2(pack_bf16x2(a[0], a[1]), pack_bf16x2(a[2], a[3]));
+          *reinterpret_cast<uint2*>(gs + row * d1 + c) =
+              make_uint2(pack_bf16x2(sg[0], sg[1]), pack_bf16x2(sg[2], sg[3]));
+        }
       }
     }
   }
@@ -388,13 +415,14 @@ spectral_chain_kernel(const T* __restrict__ x, GluWeights<T> g,
 // copies the other chain's last output into its free buffer, from the other
 // block's shared memory or (kWs) from L2. The ragged inverse DFT (WM % 4 !=
 // 0) is a branch, not an instantiation: it is a small part of the work here.
+// TA: the storage type of acts (f32, or bf16 for the bf16-storage arm).
 constexpr int kFWideTile = 8;
 
-template <typename T, bool kSave, bool kOut, bool kWs>
+template <typename T, bool kSave, bool kOut, bool kWs, typename TA = float>
 __global__ void __launch_bounds__(kFWideThreads, 1)
 spectral_chain_wide_kernel(const T* __restrict__ x, GluWeights<T> g,
                            const T* __restrict__ ci, const T* __restrict__ si,
-                           float* __restrict__ out, float* __restrict__ acts, long plane,
+                           float* __restrict__ out, TA* __restrict__ acts, long plane,
                            long rows_pad, float* ws, int B, int K, int N, int W, int WM) {
   constexpr int tile = kFWideTile, S = tile + 4;
   extern __shared__ __align__(16) float smem[];
@@ -424,9 +452,9 @@ spectral_chain_wide_kernel(const T* __restrict__ x, GluWeights<T> g,
         float al[8][4], ar[8][4];
         glu_fwd_product(in, S, layer == 0 ? d0 : d1, g.wl[gi], g.wr[gi], d1, 0, 4 * run, al,
                         ar);
-        glu_fwd_elementwise<T, kSave>(al, ar, g.bl[gi], g.br[gi], 0, 4 * run, row0, rows_pad,
-                                      d1, kSave ? acts + (2 * gi) * plane : nullptr,
-                                      kSave ? acts + (2 * gi + 1) * plane : nullptr, next, S);
+        glu_fwd_elementwise<T, kSave, TA>(al, ar, g.bl[gi], g.br[gi], 0, 4 * run, row0,
+                                          rows_pad, d1, kSave ? acts + (2 * gi) * plane : nullptr,
+                                          kSave ? acts + (2 * gi + 1) * plane : nullptr, next, S);
       }
       __syncthreads();
     }
@@ -655,10 +683,11 @@ __device__ __forceinline__ void idft_bwd_product(const float* gt, const T* __res
 // rows of a column as one float4, S floats between columns), and the tile's
 // column sums over its 8 rows of the unrounded values, in row order, to ba
 // and bs (the bias gradients' partials). Without `two`, only the first run.
-template <typename T, int S>
+// a_g, s_g of the storage type TA (f32, or bf16: used as the rounded values).
+template <typename T, int S, typename TA = float>
 __device__ __forceinline__ void glu_bwd_elementwise(
     const float (&acc)[8][8], int r0, const int (&c4)[2], bool two, long row0, long rows_pad,
-    int d1, const float* __restrict__ a_g, const float* __restrict__ s_g,
+    int d1, const TA* __restrict__ a_g, const TA* __restrict__ s_g,
     float* __restrict__ da_g, float* __restrict__ ds_g, float* da, float* ds,
     float* __restrict__ ba, float* __restrict__ bs) {
 #pragma unroll
@@ -672,9 +701,16 @@ __device__ __forceinline__ void glu_bwd_elementwise(
       for (int i = 0; i < 4; ++i) {
         const long row = row0 + r0 + h + i;
         const bool in = row < rows_pad;
-        const float4 a4 = in ? ldg_vec4(a_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 s4 = in ? ldg_vec4(s_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w}, s[4] = {s4.x, s4.y, s4.z, s4.w};
+        float a[4], s[4];
+        if constexpr (std::is_same<TA, float>::value) {
+          const float4 a4 = in ? ldg_vec4(a_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 s4 = in ? ldg_vec4(s_g + row * d1 + c4[j4]) : make_float4(0.f, 0.f, 0.f, 0.f);
+          a[0] = a4.x; a[1] = a4.y; a[2] = a4.z; a[3] = a4.w;
+          s[0] = s4.x; s[1] = s4.y; s[2] = s4.z; s[3] = s4.w;
+        } else {
+          ldg_act4(a_g + row * d1 + c4[j4], in, a);
+          ldg_act4(s_g + row * d1 + c4[j4], in, s);
+        }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float v = acc[h + i][4 * j4 + q];
@@ -805,10 +841,11 @@ spectral_bwd_rows_kernel(const T* __restrict__ g, const float* __restrict__ acts
 // part for each of wide_slots tile slots, walked as the wide chain kernel
 // walks them. Every output element is the rows kernel's chain of fmaf in the
 // same order, and the bias partials are per 8 rows as there. g of the type Tg
-// (the bf16 arm: f32, rounded to bf16 as it is staged).
-template <typename T, typename Tg, bool kRagged>
+// (the bf16 arm: f32, rounded to bf16 as it is staged); acts of the storage
+// type TA (f32, or bf16 for the bf16-storage arm).
+template <typename T, typename Tg, bool kRagged, typename TA = float>
 __global__ void __launch_bounds__(kBWideThreads, 1)
-spectral_bwd_rows_wide_kernel(const Tg* __restrict__ g, const float* __restrict__ acts,
+spectral_bwd_rows_wide_kernel(const Tg* __restrict__ g, const TA* __restrict__ acts,
                               float* __restrict__ dacts, long plane, long rows_pad,
                               TransposedWeights<T> wt, const T* __restrict__ ci,
                               const T* __restrict__ si, float* __restrict__ dxc,
@@ -854,9 +891,10 @@ spectral_bwd_rows_wide_kernel(const Tg* __restrict__ g, const float* __restrict_
             for (int i = 0; i < 8; ++i) acc[i][j] = v[i];
           }
         }
-        glu_bwd_elementwise<T, S>(acc, 0, c4, two, row0, rows_pad, d1, acts + (2 * gi) * plane,
-                                  acts + (2 * gi + 1) * plane, dacts + (2 * gi) * plane,
-                                  dacts + (2 * gi + 1) * plane, da, ds, b, b + d1);
+        glu_bwd_elementwise<T, S, TA>(acc, 0, c4, two, row0, rows_pad, d1,
+                                      acts + (2 * gi) * plane, acts + (2 * gi + 1) * plane,
+                                      dacts + (2 * gi) * plane, dacts + (2 * gi + 1) * plane, da,
+                                      ds, b, b + d1);
       }
       __syncthreads();  // da, ds of the GLU are complete; dy's reads are done
       if (layer > 0) {
@@ -938,10 +976,10 @@ constexpr int kWMaxThreads = 192;
 // blockIdx: x = k tile * column tiles + column tile, y = GLU, z = row
 // segment. part: [gridDim.z][total] partial gradients in the flat layout. x
 // of the operand type T (bf16: read through registers, not cp.async, into the
-// f32 stage).
-template <typename T>
+// f32 stage); acts of the storage type TA (bf16: the same, converted).
+template <typename T, typename TA = float>
 __global__ void __launch_bounds__(kWMaxThreads, 2)
-spectral_wgrad_kernel(const T* __restrict__ x, const float* __restrict__ acts,
+spectral_wgrad_kernel(const T* __restrict__ x, const TA* __restrict__ acts,
                       const float* __restrict__ dacts, long plane,
                       float* __restrict__ part, long total, int chunks, int chunks_per_seg,
                       int B, int K, int N, int W, int WM) {
@@ -955,8 +993,8 @@ spectral_wgrad_kernel(const T* __restrict__ x, const float* __restrict__ acts,
   const int kw = min(kWK, din - k0), cn = min(kWC, d1 - c0);
   const long rows = (long)B * N;
   const int stage = kWRC * (2 * kWK + 2 * cw);
-  const float* a_src = gi < 2 ? nullptr : acts + (2 * (gi - 2)) * plane;
-  const float* s_src = gi < 2 ? nullptr : acts + (2 * (gi - 2) + 1) * plane;
+  const TA* a_src = gi < 2 ? nullptr : acts + (2 * (gi - 2)) * plane;
+  const TA* s_src = gi < 2 ? nullptr : acts + (2 * (gi - 2) + 1) * plane;
   const float* da_src = dacts + (2 * gi) * plane;
   const float* ds_src = dacts + (2 * gi + 1) * plane;
 
@@ -990,9 +1028,15 @@ spectral_wgrad_kernel(const T* __restrict__ x, const float* __restrict__ acts,
           for (int q = 0; q < 4; ++q)
             cp_async4(du + q, x + ((b * K + (k + q) / W) * N + n) * W + (k + q) % W);
         }
-      } else {
+      } else if constexpr (std::is_same<TA, float>::value) {
         cp_async16(du, a_src + row * d1 + k);
         cp_async16(ss + r * kWK + k - k0, s_src + row * d1 + k);
+      } else {
+        float v[4];
+        unpack4(ldg_vec4(a_src + row * d1 + k), v);
+        *reinterpret_cast<float4*>(du) = make_float4(v[0], v[1], v[2], v[3]);
+        unpack4(ldg_vec4(s_src + row * d1 + k), v);
+        *reinterpret_cast<float4*>(ss + r * kWK + k - k0) = make_float4(v[0], v[1], v[2], v[3]);
       }
     }
     for (int r = dr0, c = dc0; r < kWRC;) {
@@ -1183,11 +1227,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
                : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // bf16 elements between two rows of the rows kernel's shared buffers: D1
 // rounded up to 16, then to 32 bytes past a multiple of 128, so that the
 // 8-byte A loads of a half warp (4 rows by 4 lanes) fall on distinct banks
@@ -1310,10 +1349,13 @@ __device__ __forceinline__ void rows_mma_idft(const bf16* gt, int S, const bf16*
 // u_g, round(a * s) there too (u of GLU gi + 2); the column sums of the
 // unrounded da, ds over the tile's rows into bias (ds's d1 further on): a
 // lane's rows in order, then a fixed butterfly over the 8 lanes of a column.
-template <int MT, int NT>
+// a_g, s_g of the storage type TA: f32, or bf16 (the bf16-storage arm: every
+// use of a and s, u = round(a * s) too, takes the rounded values, as the JAX
+// package's `_bwd_kernel_reread` upcasts what it reads).
+template <int MT, int NT, typename TA = float>
 __device__ __forceinline__ void rows_mma_epilogue(
     const float (&acc)[MT][NT][4], int n0, int d1, int S, long row0, long rows_pad, long ld,
-    const float* __restrict__ a_g, const float* __restrict__ s_g, bf16* __restrict__ da_g,
+    const TA* __restrict__ a_g, const TA* __restrict__ s_g, bf16* __restrict__ da_g,
     bf16* __restrict__ ds_g, bf16* __restrict__ u_g, bf16* da, bf16* ds,
     float* __restrict__ bias) {
   const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
@@ -1332,10 +1374,19 @@ __device__ __forceinline__ void rows_mma_epilogue(
           const int col = n0 + 8 * (ng + i) + 2 * tq;
           const long row = row0 + 16 * mt + gq + 8 * h;
           const bool in = col < d1 && row < rows_pad;
-          av[i][h] = in ? __ldg(reinterpret_cast<const float2*>(a_g + row * d1 + col))
-                        : make_float2(0.f, 0.f);
-          sv[i][h] = in ? __ldg(reinterpret_cast<const float2*>(s_g + row * d1 + col))
-                        : make_float2(0.f, 0.f);
+          if constexpr (std::is_same<TA, float>::value) {
+            av[i][h] = in ? __ldg(reinterpret_cast<const float2*>(a_g + row * d1 + col))
+                          : make_float2(0.f, 0.f);
+            sv[i][h] = in ? __ldg(reinterpret_cast<const float2*>(s_g + row * d1 + col))
+                          : make_float2(0.f, 0.f);
+          } else {
+            av[i][h] = in ? __bfloat1622float2(__ldg(
+                                reinterpret_cast<const __nv_bfloat162*>(a_g + row * d1 + col)))
+                          : make_float2(0.f, 0.f);
+            sv[i][h] = in ? __bfloat1622float2(__ldg(
+                                reinterpret_cast<const __nv_bfloat162*>(s_g + row * d1 + col)))
+                          : make_float2(0.f, 0.f);
+          }
         }
 #pragma unroll
       for (int i = 0; i < kG; ++i) {
@@ -1400,10 +1451,11 @@ __device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
 // [2][rows_pad][D0] f32; da, ds of the chain's GLUs to dacts (bf16, 12 planes
 // of dplane, [rows_pad][ld]), u of GLUs 2-5 to us (4 planes), the tile's
 // column sums to bpart [tiles][12][D1]. blockDim.x: 32 per NT n8 tiles
-// of D1 (`rows_mma_threads`).
-template <int MT, int NT>
+// of D1 (`rows_mma_threads`). acts: the saved planes, of the storage type TA
+// (f32, or bf16 for the bf16-storage arm: half the bytes to read).
+template <int MT, int NT, typename TA = float>
 __global__ void __launch_bounds__(NT == 4 ? 256 : 512, NT == 4 && MT <= 4 ? 2 : 1)
-spectral_bwd_rows_mma_kernel(const float* __restrict__ g, const float* __restrict__ acts,
+spectral_bwd_rows_mma_kernel(const float* __restrict__ g, const TA* __restrict__ acts,
                              long plane, bf16* __restrict__ dacts, bf16* __restrict__ us,
                              long dplane, long ld, long rows_pad, GluWeights<bf16> w,
                              const bf16* __restrict__ ci, const bf16* __restrict__ si,
@@ -1434,7 +1486,7 @@ spectral_bwd_rows_mma_kernel(const float* __restrict__ g, const float* __restric
   }
   // a and s of a GLU, read by its epilogue, into L2 a product ahead (the 12
   // saved arrays are more than L2 holds: they come from device memory)
-  const unsigned tile_bytes = (unsigned)(min((long)TM, rows_pad - row0) * d1 * sizeof(float));
+  const unsigned tile_bytes = (unsigned)(min((long)TM, rows_pad - row0) * d1 * sizeof(TA));
   auto prefetch_acts = [&](int gi) {
     if (threadIdx.x == 0) {
       prefetch_l2(acts + (2 * gi) * plane + row0 * d1, tile_bytes);
@@ -1452,9 +1504,9 @@ spectral_bwd_rows_mma_kernel(const float* __restrict__ g, const float* __restric
   for (int layer = 2; layer >= 0; --layer) {
     const int gi = 2 * layer + chain;
     if (layer == 2) prefetch_acts(chain);
-    rows_mma_epilogue<MT, NT>(acc, n0, d1, S, row0, rows_pad, ld, acts + (2 * gi) * plane,
-                              acts + (2 * gi + 1) * plane, dacts + (2 * gi) * dplane,
-                              dacts + (2 * gi + 1) * dplane,
+    rows_mma_epilogue<MT, NT, TA>(acc, n0, d1, S, row0, rows_pad, ld, acts + (2 * gi) * plane,
+                                  acts + (2 * gi + 1) * plane, dacts + (2 * gi) * dplane,
+                                  dacts + (2 * gi + 1) * dplane,
                               gi < 4 ? us + gi * dplane : nullptr, da, ds,
                               bpart + ((long)blockIdx.x * 12 + 2 * gi) * d1);
     __syncthreads();
@@ -1768,14 +1820,15 @@ __device__ __forceinline__ void idft_fwd_mma(const bf16* re, const bf16* im, int
 // One tile of 16 MT rows (blockIdx.y) of one chain (blockIdx.x: 0 real, 1
 // imaginary): x (bf16 [B,K,N,W]) -> the chain's three GLUs -> with kOut, in
 // clusters of 2 along x, the output (f32 [B,K,N,WM]); with kSave a and s of
-// the chain's GLUs to acts (12 f32 planes [rows_pad][D1], `plane` floats
-// apart). blockDim.x: 32 per NT n8 tiles of a column pass; kp: k rows of a
-// weight panel (a multiple of 16), `stages` of them in the ring.
-template <int MT, int NT, bool kSave, bool kOut>
+// the chain's GLUs to acts (12 planes [rows_pad][D1], `plane` elements apart,
+// of the storage type TA: f32, or bf16 rounded from the same f32 values).
+// blockDim.x: 32 per NT n8 tiles of a column pass; kp: k rows of a weight
+// panel (a multiple of 16), `stages` of them in the ring.
+template <int MT, int NT, bool kSave, bool kOut, typename TA = float>
 __global__ void __launch_bounds__(chain_mma_bound(MT), 1)
 spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
                           const bf16* __restrict__ ci, const bf16* __restrict__ si,
-                          float* __restrict__ out, float* __restrict__ acts, long plane,
+                          float* __restrict__ out, TA* __restrict__ acts, long plane,
                           long rows_pad, int kp, int stages, int B, int K, int N, int W,
                           int WM) {
   constexpr int TM = 16 * MT;
@@ -1919,8 +1972,8 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
       if (!busy) continue;
       // the epilogue: a, s in f32 (saved), round(a * s) into the other buffer
       // (the last GLU's only where the inverse DFT reads it)
-      float* ga = kSave ? acts + (2 * gi) * plane : nullptr;
-      float* gs = kSave ? acts + (2 * gi + 1) * plane : nullptr;
+      TA* ga = kSave ? acts + (2 * gi) * plane : nullptr;
+      TA* gs = kSave ? acts + (2 * gi + 1) * plane : nullptr;
       const bool keep_u = kOut || layer < 2;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -1940,8 +1993,13 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
             if (kSave) {
               const long row = row0 + r;
               if (row < rows_pad) {
-                __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), make_float2(a0, a1));
-                __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), make_float2(s0, s1));
+                if constexpr (std::is_same<TA, float>::value) {
+                  __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), make_float2(a0, a1));
+                  __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), make_float2(s0, s1));
+                } else {
+                  __stcs(reinterpret_cast<unsigned int*>(ga + row * d1 + col), pack_bf16x2(a0, a1));
+                  __stcs(reinterpret_cast<unsigned int*>(gs + row * d1 + col), pack_bf16x2(s0, s1));
+                }
               }
             }
           }
@@ -2105,16 +2163,17 @@ int launch_chains(void (*kernel)(Params...), long tiles, int threads, int smem,
 }
 
 // The wide chain kernel: its buffers in shared memory or, past a block's,
-// in ws (chain_ws_floats floats), which the caller hands in.
-template <typename T, bool kSave, bool kOut>
+// in ws (chain_ws_floats floats), which the caller hands in; acts of the
+// storage type TA.
+template <typename T, bool kSave, bool kOut, typename TA = float>
 int chain_wide_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T* si,
-                      float* out, float* acts, float* ws, int B, int K, int N, int W, int WM,
+                      float* out, TA* acts, float* ws, int B, int K, int N, int W, int WM,
                       int sms, cudaStream_t st) {
   const int d1 = K * WM;
   const long rows_pad = rows_padded(B, N);
   const bool in_ws = chain_ws_floats(rows_pad, d1, sms) > 0;
-  const auto kernel = in_ws ? spectral_chain_wide_kernel<T, kSave, kOut, true>
-                            : spectral_chain_wide_kernel<T, kSave, kOut, false>;
+  const auto kernel = in_ws ? spectral_chain_wide_kernel<T, kSave, kOut, true, TA>
+                            : spectral_chain_wide_kernel<T, kSave, kOut, false, TA>;
   if (in_ws && ws == nullptr) return (int)cudaErrorInvalidValue;
   const long tiles = in_ws ? wide_slots(rows_pad, kFWideTile, sms)
                            : (rows_pad + kFWideTile - 1) / kFWideTile;
@@ -2161,15 +2220,17 @@ struct FwdMmaPlan {
   int tm, nt, threads, kp, stages;
 };
 
+template <typename TA>
 using ChainMmaKernel = void (*)(const bf16*, GluWeights<bf16>, const bf16*, const bf16*, float*,
-                                float*, long, long, int, int, int, int, int, int, int);
+                                TA*, long, long, int, int, int, int, int, int, int);
 
-// The forward mma kernel of (MT, NT), or nullptr for a pair not instantiated.
-template <bool kSave, bool kOut>
-ChainMmaKernel chain_mma_kernel_for(int mt, int nt) {
-  if (mt == 5 && nt == 3) return spectral_chain_mma_kernel<5, 3, kSave, kOut>;
-  if (mt == 2 && nt == 4) return spectral_chain_mma_kernel<2, 4, kSave, kOut>;
-  if (mt == 1 && nt == 4) return spectral_chain_mma_kernel<1, 4, kSave, kOut>;
+// The forward mma kernel of (MT, NT), or nullptr for a pair not instantiated;
+// TA: the storage type of the saved planes.
+template <bool kSave, bool kOut, typename TA = float>
+ChainMmaKernel<TA> chain_mma_kernel_for(int mt, int nt) {
+  if (mt == 5 && nt == 3) return spectral_chain_mma_kernel<5, 3, kSave, kOut, TA>;
+  if (mt == 2 && nt == 4) return spectral_chain_mma_kernel<2, 4, kSave, kOut, TA>;
+  if (mt == 1 && nt == 4) return spectral_chain_mma_kernel<1, 4, kSave, kOut, TA>;
   return nullptr;
 }
 
@@ -2186,15 +2247,16 @@ int chain_mma_plan_smem(int d1, const FwdMmaPlan& p) {
 }
 
 // The bf16 chain up to kMmaMaxD1 on the padded rows, on plan p: with kOut in
-// clusters of 2 writing out, with kSave writing acts. A plan the kernel does
-// not take returns cudaErrorInvalidValue before any launch.
-template <bool kSave, bool kOut>
+// clusters of 2 writing out, with kSave writing acts (of the storage type
+// TA). A plan the kernel does not take returns cudaErrorInvalidValue before
+// any launch.
+template <bool kSave, bool kOut, typename TA = float>
 int chain_mma_launch(const bf16* x, const GluWeights<bf16>& gw, const bf16* ci, const bf16* si,
-                     float* out, float* acts, int B, int K, int N, int W, int WM,
+                     float* out, TA* acts, int B, int K, int N, int W, int WM,
                      const FwdMmaPlan& p, cudaStream_t st) {
   const int d1 = K * WM, smem = chain_mma_plan_smem(d1, p);
   if (!shape_ok(K, W, WM) || smem < 0) return (int)cudaErrorInvalidValue;
-  const ChainMmaKernel kernel = chain_mma_kernel_for<kSave, kOut>(p.tm / 16, p.nt);
+  const ChainMmaKernel<TA> kernel = chain_mma_kernel_for<kSave, kOut, TA>(p.tm / 16, p.nt);
   const long rows_pad = rows_padded(B, N);
   return launch_chains<kOut>(kernel, (rows_pad + p.tm - 1) / p.tm, p.threads, smem, st, x, gw,
                              ci, si, out, acts, kSave ? rows_pad * d1 : 0L, rows_pad, p.kp,
@@ -2202,19 +2264,20 @@ int chain_mma_launch(const bf16* x, const GluWeights<bf16>& gw, const bf16* ci, 
 }
 
 // The bf16 chain on its route: tensor cores on plan p up to kMmaMaxD1, past
-// it the wide scalar kernel (p unused; ws as chain_wide_launch takes it).
-template <bool kSave, bool kOut>
+// it the wide scalar kernel (p unused; ws as chain_wide_launch takes it);
+// acts of the storage type TA.
+template <bool kSave, bool kOut, typename TA = float>
 int chain_bf16_launch(const bf16* x, const GluWeights<bf16>& gw, const bf16* ci, const bf16* si,
-                      float* out, float* acts, float* ws, int B, int K, int N, int W, int WM,
+                      float* out, TA* acts, float* ws, int B, int K, int N, int W, int WM,
                       const FwdMmaPlan& p, cudaStream_t st) {
   if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
   if (K * WM <= kMmaMaxD1)
-    return chain_mma_launch<kSave, kOut>(x, gw, ci, si, out, acts, B, K, N, W, WM, p, st);
+    return chain_mma_launch<kSave, kOut, TA>(x, gw, ci, si, out, acts, B, K, N, W, WM, p, st);
   int sms = 0;
   const cudaError_t err = current_sms(&sms);
   if (err != cudaSuccess) return (int)err;
-  return chain_wide_launch<bf16, kSave, kOut>(x, gw, ci, si, out, acts, ws, B, K, N, W, WM, sms,
-                                              st);
+  return chain_wide_launch<bf16, kSave, kOut, TA>(x, gw, ci, si, out, acts, ws, B, K, N, W, WM,
+                                                  sms, st);
 }
 
 }  // namespace
@@ -2255,8 +2318,9 @@ extern "C" int spectral_fwd_bf16(const bf16* x, const void* const* w, const bf16
                                  const bf16* si, float* out, float* ws, int B, int K, int N,
                                  int W, int WM, int tm, int nt, int threads, int kp, int stages,
                                  void* stream) {
-  return chain_bf16_launch<false, true>(x, glu_weights<bf16>(w), ci, si, out, nullptr, ws, B, K,
-                                        N, W, WM, FwdMmaPlan{tm, nt, threads, kp, stages},
+  return chain_bf16_launch<false, true>(x, glu_weights<bf16>(w), ci, si, out, (float*)nullptr,
+                                        ws, B, K, N, W, WM,
+                                        FwdMmaPlan{tm, nt, threads, kp, stages},
                                         (cudaStream_t)stream);
 }
 
@@ -2283,6 +2347,19 @@ extern "C" int spectral_fwd_save_bf16(const bf16* x, const void* const* w, const
   return chain_bf16_launch<true, true>(x, glu_weights<bf16>(w), ci, si, out, acts, ws, B, K, N,
                                        W, WM, FwdMmaPlan{tm, nt, threads, kp, stages},
                                        (cudaStream_t)stream);
+}
+
+// Its bf16-storage arm (the JAX package's `_kernel_save` with SAVE_ACTS_F32
+// off): the same kernels, the same f32 a and s, each stored rounded to bf16
+// (spectral_act_floats elements of bf16: half the bytes); the output as
+// spectral_fwd_save_bf16's, bit for bit.
+extern "C" int spectral_fwd_save_bf16acts(const bf16* x, const void* const* w, const bf16* ci,
+                                          const bf16* si, float* out, bf16* acts, float* ws,
+                                          int B, int K, int N, int W, int WM, int tm, int nt,
+                                          int threads, int kp, int stages, void* stream) {
+  return chain_bf16_launch<true, true, bf16>(x, glu_weights<bf16>(w), ci, si, out, acts, ws, B,
+                                             K, N, W, WM, FwdMmaPlan{tm, nt, threads, kp, stages},
+                                             (cudaStream_t)stream);
 }
 
 // Floats of the flat gradient buffer: per GLU wl [Din, D1], bl [D1], wr, br.
@@ -2337,10 +2414,11 @@ auto rows_kernel_for(int d1, int WM) {
 // Steps 1 to 5 of the backward. saved: the forward's 12 arrays, or nullptr to
 // recompute them (step 2) into the head of ws, its wide chain's buffers at
 // the tail. g of the type Tg: T, or f32 for the bf16 arm, which comes here only
-// past kMmaMaxD1 (the wide rows kernel rounds g as it stages it).
-template <typename T, typename Tg>
+// past kMmaMaxD1 (the wide rows kernel rounds g as it stages it). TA: the
+// storage type of saved (bf16 only for the bf16 arm's reread past kMmaMaxD1).
+template <typename T, typename Tg, typename TA = float>
 int bwd_launch(const T* x, const Tg* g, const void* const* w, const T* ci, const T* si,
-               float* dx, float* grads, const float* saved, float* ws, int B, int K, int N,
+               float* dx, float* grads, const TA* saved, float* ws, int B, int K, int N,
                int W, int WM, int nsplit, cudaStream_t st) {
   if (!shape_ok(K, W, WM)) return (int)cudaErrorInvalidValue;
   const int d0 = K * W, d1 = K * WM;
@@ -2352,18 +2430,22 @@ int bwd_launch(const T* x, const Tg* g, const void* const* w, const T* ci, const
   cudaError_t err = current_sms(&sms);
   if (err != cudaSuccess) return (int)err;
 
-  const float* acts = saved;
-  if (saved == nullptr) {
-    float* chain_ws = ws + 12 * plane + bwd_scratch_floats(B, K, N, W, WM, nsplit, sms);
-    if constexpr (std::is_same<T, float>::value)
-      err = (cudaError_t)chain_launch<T, true, false>(x, gw, ci, si, nullptr, ws, chain_ws, B,
-                                                      K, N, W, WM, st);
-    else  // the bf16 arm comes here only past kMmaMaxD1: the wide chain
-      err = (cudaError_t)chain_wide_launch<T, true, false>(x, gw, ci, si, nullptr, ws, chain_ws,
-                                                           B, K, N, W, WM, sms, st);
-    if (err != cudaSuccess) return (int)err;
-    acts = ws;
-    ws += 12 * plane;
+  const TA* acts = saved;
+  if constexpr (std::is_same<TA, float>::value) {
+    if (saved == nullptr) {
+      float* chain_ws = ws + 12 * plane + bwd_scratch_floats(B, K, N, W, WM, nsplit, sms);
+      if constexpr (std::is_same<T, float>::value)
+        err = (cudaError_t)chain_launch<T, true, false>(x, gw, ci, si, nullptr, ws, chain_ws, B,
+                                                        K, N, W, WM, st);
+      else  // the bf16 arm comes here only past kMmaMaxD1: the wide chain
+        err = (cudaError_t)chain_wide_launch<T, true, false>(x, gw, ci, si, nullptr, ws,
+                                                             chain_ws, B, K, N, W, WM, sms, st);
+      if (err != cudaSuccess) return (int)err;
+      acts = ws;
+      ws += 12 * plane;
+    }
+  } else if (saved == nullptr) {
+    return (int)cudaErrorInvalidValue;  // the recompute stores f32 planes
   }
   float* dacts = ws;
   T* wT = reinterpret_cast<T*>(dacts + 12 * plane);
@@ -2383,11 +2465,11 @@ int bwd_launch(const T* x, const Tg* g, const void* const* w, const T* ci, const
   }
   if (rows_wide(d1)) {
     const auto kernel = WM % 4 != 0 || d1 / 4 % 2 != 0
-                            ? spectral_bwd_rows_wide_kernel<T, Tg, true>
-                            : spectral_bwd_rows_wide_kernel<T, Tg, false>;
+                            ? spectral_bwd_rows_wide_kernel<T, Tg, true, TA>
+                            : spectral_bwd_rows_wide_kernel<T, Tg, false, TA>;
     kernel<<<dim3((int)wide_slots(rows_pad, kBRN, sms), 2), kBWideThreads, 0, st>>>(
         g, acts, dacts, plane, rows_pad, wt, ci, si, dxc, bpart, rows_ws, B, K, N, W, WM);
-  } else if constexpr (!std::is_same<T, Tg>::value) {
+  } else if constexpr (!std::is_same<T, Tg>::value || !std::is_same<TA, float>::value) {
     return (int)cudaErrorInvalidValue;  // the bf16 arm takes the mma kernels there
   } else {
     const int tile_b = rows_tile(d1);
@@ -2409,12 +2491,12 @@ int bwd_launch(const T* x, const Tg* g, const void* const* w, const T* ci, const
   const int chunks_per_seg = (chunks + nsplit - 1) / nsplit;
   const int cw = std::min(d1, kWC), ctiles = (d1 + kWC - 1) / kWC;
   const int smem_w = 3 * kWRC * (2 * kWK + 2 * cw) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(spectral_wgrad_kernel<T>,
+  err = cudaFuncSetAttribute(spectral_wgrad_kernel<T, TA>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_w);
   if (err != cudaSuccess) return (int)err;
   const int threads_w = ((kWK / 8) * ((cw / 4 + 1) / 2) + 31) / 32 * 32;
-  spectral_wgrad_kernel<T><<<dim3((d1 + kWK - 1) / kWK * ctiles, 6, nsplit), threads_w,
-                             smem_w, st>>>(
+  spectral_wgrad_kernel<T, TA><<<dim3((d1 + kWK - 1) / kWK * ctiles, 6, nsplit), threads_w,
+                                 smem_w, st>>>(
       x, acts, dacts, plane, part, total, chunks, chunks_per_seg, B, K, N, W, WM);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -2426,18 +2508,21 @@ int bwd_launch(const T* x, const Tg* g, const void* const* w, const T* ci, const
   return (int)cudaGetLastError();
 }
 
-using RowsMmaKernel = void (*)(const float*, const float*, long, bf16*, bf16*, long, long, long,
+template <typename TA>
+using RowsMmaKernel = void (*)(const float*, const TA*, long, bf16*, bf16*, long, long, long,
                                GluWeights<bf16>, const bf16*, const bf16*, float*, float*, int,
                                int, int, int, int);
 
-// The mma rows kernel of (MT, NT), or nullptr for a pair not instantiated.
-RowsMmaKernel rows_mma_kernel_for(int mt, int nt) {
-  if (nt == 4 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 4>;
-  if (nt == 4 && mt == 2) return spectral_bwd_rows_mma_kernel<2, 4>;
-  if (nt == 4 && mt == 5) return spectral_bwd_rows_mma_kernel<5, 4>;
-  if (nt == 8 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 8>;
-  if (nt == 8 && mt == 2) return spectral_bwd_rows_mma_kernel<2, 8>;
-  if (nt == 16 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 16>;
+// The mma rows kernel of (MT, NT) reading planes of the storage type TA, or
+// nullptr for a pair not instantiated.
+template <typename TA>
+RowsMmaKernel<TA> rows_mma_kernel_for(int mt, int nt) {
+  if (nt == 4 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 4, TA>;
+  if (nt == 4 && mt == 2) return spectral_bwd_rows_mma_kernel<2, 4, TA>;
+  if (nt == 4 && mt == 5) return spectral_bwd_rows_mma_kernel<5, 4, TA>;
+  if (nt == 8 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 8, TA>;
+  if (nt == 8 && mt == 2) return spectral_bwd_rows_mma_kernel<2, 8, TA>;
+  if (nt == 16 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 16, TA>;
   return nullptr;
 }
 
@@ -2458,14 +2543,17 @@ long mma_scratch_floats(int B, int K, int N, int W, int WM, int nsplit, int tm) 
 // (16 MT), nt n8 tiles a warp, nsplit row segments of the weight gradients.
 // x, the weights, ci and si bf16, g f32. saved as for bwd_launch, or nullptr
 // to recompute the 12 arrays into the head of ws by the chain on tensor cores
-// on plan fp (no workspace of its own up to kMmaMaxD1). A plan the kernels do
-// not take returns cudaErrorInvalidValue before any launch.
+// on plan fp (no workspace of its own up to kMmaMaxD1; f32 planes only). A
+// plan the kernels do not take returns cudaErrorInvalidValue before any
+// launch. TA: the storage type of saved.
+template <typename TA>
 int bwd_mma_launch(const bf16* x, const float* g, const void* const* w, const bf16* ci,
-                   const bf16* si, float* dx, float* grads, const float* saved, float* ws, int B,
+                   const bf16* si, float* dx, float* grads, const TA* saved, float* ws, int B,
                    int K, int N, int W, int WM, int nsplit, int tm, int nt, const FwdMmaPlan& fp,
                    cudaStream_t st) {
   const int d0 = K * W, d1 = K * WM;
-  const RowsMmaKernel rows_kernel = tm % 16 == 0 ? rows_mma_kernel_for(tm / 16, nt) : nullptr;
+  const RowsMmaKernel<TA> rows_kernel =
+      tm % 16 == 0 ? rows_mma_kernel_for<TA>(tm / 16, nt) : nullptr;
   if (!shape_ok(K, W, WM) || d1 > kMmaMaxD1 || nsplit < 1 || rows_kernel == nullptr)
     return (int)cudaErrorInvalidValue;
   const int threads = rows_mma_threads(d1, nt), smem = rows_mma_smem(d1, tm / 16);
@@ -2476,13 +2564,17 @@ int bwd_mma_launch(const bf16* x, const float* g, const void* const* w, const bf
   const GluWeights<bf16> gw = glu_weights<bf16>(w);
   cudaError_t err;
 
-  const float* acts = saved;
-  if (saved == nullptr) {
-    err = (cudaError_t)chain_mma_launch<true, false>(x, gw, ci, si, nullptr, ws, B, K, N, W, WM,
-                                                     fp, st);
-    if (err != cudaSuccess) return (int)err;
-    acts = ws;
-    ws += 12 * plane;
+  const TA* acts = saved;
+  if constexpr (std::is_same<TA, float>::value) {
+    if (saved == nullptr) {
+      err = (cudaError_t)chain_mma_launch<true, false>(x, gw, ci, si, nullptr, ws, B, K, N, W,
+                                                       WM, fp, st);
+      if (err != cudaSuccess) return (int)err;
+      acts = ws;
+      ws += 12 * plane;
+    }
+  } else if (saved == nullptr) {
+    return (int)cudaErrorInvalidValue;  // the recompute stores f32 planes
   }
   const long ld = mma_ld(d1), dplane = rows_pad * ld;
   bf16* dacts = reinterpret_cast<bf16*>(ws);  // 12 planes: da, ds of each GLU
@@ -2573,8 +2665,8 @@ extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w
                             const float* ci, const float* si, float* dx, float* grads,
                             float* ws, int B, int K, int N, int W, int WM, int nsplit,
                             void* stream) {
-  return bwd_launch<float, float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM,
-                                  nsplit, (cudaStream_t)stream);
+  return bwd_launch<float, float>(x, g, w, ci, si, dx, grads, (const float*)nullptr, ws, B, K,
+                                  N, W, WM, nsplit, (cudaStream_t)stream);
 }
 
 // The bf16 arm: x, ci, si and the 2-D weights bf16, g, dx and grads f32; up
@@ -2588,10 +2680,11 @@ extern "C" int spectral_bwd_bf16(const bf16* x, const float* g, const void* cons
                                  int tm, int nt, int ftm, int fnt, int fthreads, int fkp,
                                  int fstages, void* stream) {
   if (K * WM > kMmaMaxD1)
-    return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM,
-                                   nsplit, (cudaStream_t)stream);
-  return bwd_mma_launch(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit, tm,
-                        nt, FwdMmaPlan{ftm, fnt, fthreads, fkp, fstages}, (cudaStream_t)stream);
+    return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, (const float*)nullptr, ws, B, K,
+                                   N, W, WM, nsplit, (cudaStream_t)stream);
+  return bwd_mma_launch<float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit,
+                               tm, nt, FwdMmaPlan{ftm, fnt, fthreads, fkp, fstages},
+                               (cudaStream_t)stream);
 }
 
 // spectral_bwd on the arrays spectral_fwd_save wrote (acts), without the
@@ -2615,6 +2708,24 @@ extern "C" int spectral_bwd_reread_bf16(const bf16* x, const float* g, const voi
   if (K * WM > kMmaMaxD1)
     return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
                                    nsplit, (cudaStream_t)stream);
-  return bwd_mma_launch(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit, tm, nt,
-                        FwdMmaPlan{}, (cudaStream_t)stream);
+  return bwd_mma_launch<float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit, tm,
+                               nt, FwdMmaPlan{}, (cudaStream_t)stream);
+}
+
+// Its bf16-storage arm (the JAX package's `_bwd_kernel_reread` on the bf16
+// planes of SAVE_ACTS_F32 off), on what spectral_fwd_save_bf16acts wrote
+// (acts: spectral_act_floats bf16 elements): the same kernels reading bf16
+// a and s, every use of them (u = round(a * s) of the weight gradients too)
+// on the rounded values. ws: spectral_bwd_reread_bf16_workspace_floats floats.
+extern "C" int spectral_bwd_reread_bf16acts(const bf16* x, const float* g, const void* const* w,
+                                            const bf16* ci, const bf16* si, const bf16* acts,
+                                            float* dx, float* grads, float* ws, int B, int K,
+                                            int N, int W, int WM, int nsplit, int tm, int nt,
+                                            void* stream) {
+  if (acts == nullptr) return (int)cudaErrorInvalidValue;
+  if (K * WM > kMmaMaxD1)
+    return bwd_launch<bf16, float, bf16>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
+                                         nsplit, (cudaStream_t)stream);
+  return bwd_mma_launch<bf16>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit, tm,
+                              nt, FwdMmaPlan{}, (cudaStream_t)stream);
 }

@@ -10,7 +10,9 @@ calls the backward wrapper (graph conv: plain PyTorch, as in the JAX package).
 Each wrapper counts its launches in `<wrapper>.launches`; `KERNELS` maps a
 kernel's name to its wrapper so a run can reset and read the counts. The bf16
 arms of the graph conv and the spectral kernels (compute_dtype "bfloat16")
-count on functions of their own, under names ending in `_bf16`. Launches
+count on functions of their own, under names ending in `_bf16`, and the
+bf16-storage arm of the spectral saving pair under names ending in
+`_bf16acts`. Launches
 made by replaying a captured CUDA graph are counted apart (`replayed`).
 """
 
@@ -33,8 +35,10 @@ from stemgnn_tpu_torch.ops.cuda_spectral import (
     spe_seq_cell_bwd_bf16,
     spe_seq_cell_bwd_reread,
     spe_seq_cell_bwd_reread_bf16,
+    spe_seq_cell_bwd_reread_bf16acts,
     spe_seq_cell_save,
     spe_seq_cell_save_bf16,
+    spe_seq_cell_save_bf16acts,
 )
 from stemgnn_tpu_torch.ops.torch_impl import (  # noqa: F401
     dense,
@@ -54,6 +58,10 @@ KERNELS = {
     "spectral_bwd": spe_seq_cell_bwd,
     "spectral_fwd_save": spe_seq_cell_save,
     "spectral_bwd_reread": spe_seq_cell_bwd_reread,
+    # the bf16-storage arm of the saving pair (compute_dtype "bfloat16" with
+    # cuda_spectral.SAVE_ACTS_F32 off)
+    "spectral_fwd_save_bf16acts": spe_seq_cell_save_bf16acts,
+    "spectral_bwd_reread_bf16acts": spe_seq_cell_bwd_reread_bf16acts,
     # the bf16 arms (compute_dtype "bfloat16")
     "cheb_graph_conv_fwd_bf16": cheb_graph_conv_bf16,
     "spectral_fwd_bf16": spe_seq_cell_bf16,

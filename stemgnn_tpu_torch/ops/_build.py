@@ -106,14 +106,14 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def bf16_arm(fn, doc: str):
-    """A function that calls the wrapper `fn` at compute_dtype "bfloat16" and
-    holds the launch count of the bf16 arm of fn's kernel (`fn` counts its
-    f32 arm's)."""
+def bf16_arm(fn, doc: str, suffix: str = "_bf16", **fixed):
+    """A function that calls the wrapper `fn` at compute_dtype "bfloat16" (and
+    the keywords `fixed`) and holds the launch count of that arm of fn's
+    kernel (`fn` counts its f32 arm's)."""
     def arm(*args):
-        return fn(*args, compute_dtype="bfloat16")
+        return fn(*args, compute_dtype="bfloat16", **fixed)
 
-    arm.__name__, arm.__doc__, arm.launches = fn.__name__ + "_bf16", doc, 0
+    arm.__name__, arm.__doc__, arm.launches = fn.__name__ + suffix, doc, 0
     return arm
 
 

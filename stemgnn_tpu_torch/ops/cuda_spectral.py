@@ -21,6 +21,17 @@ pair its capture launched, whatever the switch says at a replay. The switch
 is on by default: on the H100 the pair is the faster one in the train step
 (PERF.md has the A/B); the JAX package, on its TPU, keeps it off.
 
+The second switch, `SAVE_ACTS_F32` (also read when the forward runs, as the
+JAX package's pallas_spectral.py reads its own), picks the storage of those
+12 arrays at compute_dtype "bfloat16": on (the default, as in the JAX
+package), f32, and the reread gradients are bitwise the recompute's; off,
+bf16 (the JAX package's `act_dtype = compute_dtype`), half the bytes, and the
+reread backward takes the rounded a and s, so its gradients move by bf16
+ulps. That is the bf16-storage arm: `spe_seq_cell_save(..., act_dtype=
+"bfloat16")` and the reread entry on bf16 acts, counted apart
+(`spe_seq_cell_save_bf16acts`, `spe_seq_cell_bwd_reread_bf16acts`). At f32
+the arrays are f32 either way.
+
 Every entry takes `compute_dtype`, the JAX package's precision policy. At
 "bfloat16" the wrappers fold the DFT in f32 and then cast x, the 2-D GLU
 weights and the inverse DFT's block to bf16, as `_forward` and `_backward`
@@ -59,6 +70,11 @@ spe_seq_cell_bwd_reread_plain = torch_impl.spe_seq_cell_bwd_reread
 # rereads them; False: the backward recomputes the chain. Read when the
 # forward runs.
 SAVE_ACTS_BWD = True
+# True: the saved (a, s) are f32 (reread gradients bitwise the recompute's);
+# False: at compute_dtype "bfloat16" they are stored as bf16 (half the
+# bytes, bf16-ulp gradient drift), as pallas_spectral.py's switch of the same
+# name. Read when the forward runs.
+SAVE_ACTS_F32 = True
 
 
 @functools.lru_cache(maxsize=16)
@@ -127,12 +143,17 @@ _SIGNATURES = {
     "spectral_fwd_bf16": ([_P, _PP, _P, _P, _P, _P] + [_I] * 10 + [_P], ctypes.c_int),
     "spectral_fwd_save_bf16": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
                                ctypes.c_int),
+    # the same writing bf16 acts (the bf16-storage arm)
+    "spectral_fwd_save_bf16acts": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+                                   ctypes.c_int),
     "spectral_fwd_bf16_smem": ([_I] * 7, ctypes.c_int),
     # the bf16 backwards: g f32, and bwd_mma_plan's tile rows and n8 tiles a
     # warp (the recompute also fwd_mma_plan's five)
     "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 13 + [_P], ctypes.c_int),
     "spectral_bwd_reread_bf16": ([_P, _P, _PP] + [_P] * 6 + [_I] * 8 + [_P],
                                  ctypes.c_int),
+    "spectral_bwd_reread_bf16acts": ([_P, _P, _PP] + [_P] * 6 + [_I] * 8 + [_P],
+                                     ctypes.c_int),
     "spectral_bwd_grad_floats": ([_I] * 3, ctypes.c_longlong),
     "spectral_bwd_workspace_floats": ([_I] * 6, ctypes.c_longlong),
     "spectral_bwd_reread_workspace_floats": ([_I] * 6, ctypes.c_longlong),
@@ -339,9 +360,11 @@ def _check_operands(name, x, weights, ci, si, k, w, wm, *f32):
         raise ValueError(f"{name}: tensors on {x.device} and {weights[1].device}")
 
 
-def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
+def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False,
+                act_dtype: str = "float32"):
     """x [B,K,N,W] and the 24 folded GLU tensors -> [B,K,N,W*multi]; with
-    `save`, (out, acts [12, padded rows, K*W*multi]) from the saving forward.
+    `save`, (out, acts [12, padded rows, K*W*multi]) from the saving forward,
+    acts of `act_dtype` (bf16 only with bf16 operands: the bf16-storage arm).
     Operands of bf16 (x, the 2-D weights, ci, si) launch the bf16 arm on the
     plan `fwd_mma_plan` of the shape and card."""
     b, k, n, w = x.shape
@@ -349,6 +372,10 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
     name = "spe_seq_cell_save" if save else "spe_seq_cell"
     _check_operands(name, x, weights, ci, si, k, w, wm)
     bf16 = x.dtype == torch.bfloat16
+    bf16_acts = torch_impl.operand_dtype(act_dtype) == torch.bfloat16
+    if bf16_acts and not bf16:
+        raise ValueError(f"{name}: bf16 acts need the bf16 arm (compute_dtype bfloat16); "
+                         "the f32 arm stores f32, as the JAX package's act_dtype")
     arm = "_bf16" if bf16 else ""
     plan = ()
     if bf16:
@@ -371,13 +398,15 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False):
         _check(rc, name, k, w, wm)
         (spe_seq_cell_bf16 if bf16 else spe_seq_cell).launches += 1
         return out
-    acts = torch.empty(_fn("spectral_act_floats")(b, k, n, wm), dtype=torch.float32,
+    acts = torch.empty(_fn("spectral_act_floats")(b, k, n, wm),
+                       dtype=torch.bfloat16 if bf16_acts else torch.float32,
                        device=x.device).view(12, -1, k * wm)
-    rc = _fn("spectral_fwd_save" + arm)(
+    rc = _fn("spectral_fwd_save" + arm + ("acts" if bf16_acts else ""))(
         x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
         acts.data_ptr(), ws_ptr, b, k, n, w, wm, *plan, _build.stream_ptr(x))
     _check(rc, name, k, w, wm)
-    (spe_seq_cell_save_bf16 if bf16 else spe_seq_cell_save).launches += 1
+    (spe_seq_cell_save_bf16acts if bf16_acts else spe_seq_cell_save_bf16 if bf16
+     else spe_seq_cell_save).launches += 1
     return out, acts
 
 
@@ -387,12 +416,19 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     saving forward wrote) the reread entry runs, else the recompute entry; g
     f32 (the bf16 kernels round it as they stage it); bf16 operands launch the
     bf16 arm on the plan `bwd_mma_plan` of the shape and card (the recompute's
-    chain on `fwd_mma_plan`'s)."""
+    chain on `fwd_mma_plan`'s), and bf16 acts its bf16-storage arm."""
     b, k, n, w = x.shape
     wm = w * multi
     reread = acts is not None
     name = "spe_seq_cell_bwd_reread" if reread else "spe_seq_cell_bwd"
-    _check_operands(name, x, weights, ci, si, k, w, wm, *([acts] if reread else []))
+    bf16_acts = reread and acts.dtype == torch.bfloat16
+    if bf16_acts and x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: bf16 acts need the bf16 arm (compute_dtype bfloat16)")
+    _check_operands(name, x, weights, ci, si, k, w, wm,
+                    *([acts] if reread and not bf16_acts else []))
+    if bf16_acts and (acts.device != x.device or not acts.is_contiguous()):
+        raise ValueError(f"{name}: acts on {acts.device} (contiguous: "
+                         f"{acts.is_contiguous()}), expected a contiguous tensor on {x.device}")
     if g.shape != (b, k, n, wm) or g.dtype != torch.float32 or g.device != x.device \
             or not g.is_contiguous():
         raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype}, expected a contiguous "
@@ -426,9 +462,11 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     tail = (dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, nsplit, *tiling,
             _build.stream_ptr(x))
     if reread:
-        rc = _fn("spectral_bwd_reread" + arm)(*head, acts.data_ptr(), *tail)
+        rc = _fn("spectral_bwd_reread" + arm + ("acts" if bf16_acts else ""))(
+            *head, acts.data_ptr(), *tail)
         _check(rc, name, k, w, wm)
-        (spe_seq_cell_bwd_reread_bf16 if bf16 else spe_seq_cell_bwd_reread).launches += 1
+        (spe_seq_cell_bwd_reread_bf16acts if bf16_acts else spe_seq_cell_bwd_reread_bf16
+         if bf16 else spe_seq_cell_bwd_reread).launches += 1
     else:
         rc = _fn("spectral_bwd" + arm)(*head, *tail)
         _check(rc, name, k, w, wm)
@@ -476,14 +514,17 @@ def spe_seq_cell_bwd(x, glu_params, g, multi: int, compute_dtype: str = "float32
 spe_seq_cell_bwd.launches = 0
 
 
-def spe_seq_cell_save(x, glu_params, multi: int, compute_dtype: str = "float32"):
+def spe_seq_cell_save(x, glu_params, multi: int, compute_dtype: str = "float32",
+                      act_dtype: str = "float32"):
     """`spe_seq_cell` that also returns what `spe_seq_cell_bwd_reread` reads:
     (out [B,K,N,W*multi], acts [12, rows, K*W*multi]), rows = B*N on the CPU
-    and B*N padded to a multiple of 16 on the card."""
+    and B*N padded to a multiple of 16 on the card; acts of `act_dtype`
+    ("bfloat16": the bf16-storage arm, which the card has at compute_dtype
+    "bfloat16" only)."""
     if x.device.type == "cpu":
-        return spe_seq_cell_save_plain(x, glu_params, multi, compute_dtype)
+        return spe_seq_cell_save_plain(x, glu_params, multi, compute_dtype, act_dtype)
     return _launch_fwd(*_card_operands(x, glu_params, multi, compute_dtype), multi,
-                       save=True)
+                       save=True, act_dtype=act_dtype)
 
 
 spe_seq_cell_save.launches = 0
@@ -492,7 +533,8 @@ spe_seq_cell_save.launches = 0
 def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int,
                             compute_dtype: str = "float32"):
     """`spe_seq_cell_bwd` from the acts of `spe_seq_cell_save` on the same x,
-    glu_params and compute_dtype, without recomputing the chain."""
+    glu_params and compute_dtype, without recomputing the chain; bf16 acts
+    (the bf16-storage arm) are read as the rounded values."""
     if x.device.type == "cpu":
         return spe_seq_cell_bwd_reread_plain(x, glu_params, g, acts, multi, compute_dtype)
     xk, weights, _, _ = _card_operands(x, glu_params, multi, compute_dtype)
@@ -506,24 +548,27 @@ spe_seq_cell_bwd_reread.launches = 0
 class _SpeSeqCell(torch.autograd.Function):
     """(x, multi, compute_dtype, 24 GLU tensors in kernel order) -> out. Saves
     x and the GLU tensors (on the card: the kernels' operands, folded and of
-    their type) and, with `SAVE_ACTS_BWD`, the forward's acts; the backward
+    their type) and, with `SAVE_ACTS_BWD`, the forward's acts (f32, or bf16
+    with `SAVE_ACTS_F32` off at compute_dtype "bfloat16"); the backward
     rereads the acts if they were saved and recomputes them otherwise."""
 
     @staticmethod
     def forward(ctx, x, multi, compute_dtype, *tensors):
         ctx.multi, ctx.compute_dtype = multi, compute_dtype
         ctx.reread = SAVE_ACTS_BWD
+        act_dtype = "float32" if SAVE_ACTS_F32 else compute_dtype
         if x.device.type == "cpu":
             if ctx.reread:
                 out, acts = spe_seq_cell_save_plain(x, _unflat(tensors), multi,
-                                                    compute_dtype)
+                                                    compute_dtype, act_dtype)
                 ctx.save_for_backward(x, *tensors, acts)
                 return out
             ctx.save_for_backward(x, *tensors)
             return spe_seq_cell_plain(x, _unflat(tensors), multi, compute_dtype)
         xk, weights, ci, si = _card_operands(x, _unflat(tensors), multi, compute_dtype)
         if ctx.reread:
-            out, acts = _launch_fwd(xk, weights, ci, si, multi, save=True)
+            out, acts = _launch_fwd(xk, weights, ci, si, multi, save=True,
+                                    act_dtype=act_dtype)
             ctx.save_for_backward(xk, *weights, acts)
             return out
         ctx.save_for_backward(xk, *weights)
@@ -564,3 +609,10 @@ spe_seq_cell_save_bf16 = _build.bf16_arm(spe_seq_cell_save, "spe_seq_cell_save a
 spe_seq_cell_bwd_bf16 = _build.bf16_arm(spe_seq_cell_bwd, "spe_seq_cell_bwd at bfloat16")
 spe_seq_cell_bwd_reread_bf16 = _build.bf16_arm(spe_seq_cell_bwd_reread,
                                                "spe_seq_cell_bwd_reread at bfloat16")
+# the bf16-storage arm (SAVE_ACTS_F32 off): the saving forward writing bf16
+# acts, the reread backward on them (the acts' dtype picks it)
+spe_seq_cell_save_bf16acts = _build.bf16_arm(
+    spe_seq_cell_save, "spe_seq_cell_save at bfloat16 with bf16 acts", "_bf16acts",
+    act_dtype="bfloat16")
+spe_seq_cell_bwd_reread_bf16acts = _build.bf16_arm(
+    spe_seq_cell_bwd_reread, "spe_seq_cell_bwd_reread at bfloat16 on bf16 acts", "_bf16acts")

@@ -288,7 +288,8 @@ def _rows(t):
     return t.permute(0, 2, 1, 3).reshape(b * n, k * c)
 
 
-def spe_seq_cell_save(x, glu_params, multi: int, compute_dtype: str = "float32"):
+def spe_seq_cell_save(x, glu_params, multi: int, compute_dtype: str = "float32",
+                      act_dtype: str = "float32"):
     """`spe_seq_cell` over the folded-DFT chain that also returns each GLU's
     linear output a and gate s (pallas_spectral.py `_kernel_save`).
 
@@ -296,7 +297,11 @@ def spe_seq_cell_save(x, glu_params, multi: int, compute_dtype: str = "float32")
     ..., a5, s5, GLU 2 * layer + chain). At "bfloat16" the operands of every
     product are rounded as `_forward` and `_kernel_save` round them: x, the
     folded 2-D weights (the fold in full precision first), Ci, Si and each
-    GLU's input; biases, a, s and out are not."""
+    GLU's input; biases, a, s and out are not. acts are stored in `act_dtype`:
+    x's dtype at "float32", or bf16 tensors at "bfloat16" (the JAX package's
+    act_dtype with SAVE_ACTS_F32 off, pallas_spectral.py:213: each a and s
+    rounded to nearest as it is stored; the chain and the output go on from
+    the unrounded values)."""
     b, k, n, w = x.shape
     wm = w * multi
     rnd = rounding(compute_dtype)
@@ -312,7 +317,10 @@ def spe_seq_cell_save(x, glu_params, multi: int, compute_dtype: str = "float32")
         acts += [a, s]
         cur[i % 2] = a * s
     out = rnd(cur[0]) @ rnd(ci) + rnd(cur[1]) @ rnd(si)
-    return out.reshape(b, n, k, wm).permute(0, 2, 1, 3), torch.stack(acts)
+    acts = torch.stack(acts)
+    if operand_dtype(act_dtype) != torch.float32:
+        acts = acts.to(operand_dtype(act_dtype))
+    return out.reshape(b, n, k, wm).permute(0, 2, 1, 3), acts
 
 
 def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int,
@@ -324,11 +332,14 @@ def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int,
     (x for layer 0): no product and no sigmoid before the backward sweep. Then
     the inverse DFT and the six GLUs are backpropagated and the layer-0 weight
     gradients unfolded (dW = Cf^T @ dAW). x [B,K,N,W], g [B,K,N,W*multi], acts
-    [12, >= B*N, K*W*multi] (rows past B*N are padding) -> (dx like x, dglu: six
-    dicts like glu_params). At "bfloat16" both operands of every product are
-    rounded, as the JAX kernel's `dot` rounds them: g, Ci, Si, the folded
-    weights, u, da and ds (the bias gradients sum da and ds unrounded; the
-    unfold is in full precision)."""
+    [12, >= B*N, K*W*multi] (rows past B*N are padding; f32, or the bf16 of
+    `spe_seq_cell_save(..., act_dtype="bfloat16")`, upcast as
+    `_bwd_kernel_reread` upcasts them, so u = a * s and every use of a and s
+    takes the rounded values) -> (dx like x, dglu: six dicts like
+    glu_params). At "bfloat16" both operands of every product are rounded, as
+    the JAX kernel's `dot` rounds them: g, Ci, Si, the folded weights, u, da
+    and ds (the bias gradients sum da and ds unrounded; the unfold is in full
+    precision)."""
     b, k, n, w = x.shape
     wm = w * multi
     rnd = rounding(compute_dtype)
@@ -339,7 +350,7 @@ def spe_seq_cell_bwd_reread(x, glu_params, g, acts, multi: int,
     cur = [rows, rows]
     saved = []
     for i in range(6):
-        a, s = acts[2 * i, : b * n], acts[2 * i + 1, : b * n]
+        a, s = (acts[j, : b * n].to(x.dtype) for j in (2 * i, 2 * i + 1))
         saved.append((rnd(cur[i % 2]), a, s))
         cur[i % 2] = a * s
     d = [gr @ rnd(ci).T, gr @ rnd(si).T]
