@@ -13,9 +13,16 @@ Optimizer state crosses the same way (`opt_state_from_jax` /
 `opt_state_to_jax`): the JAX package's RMSProp state is {"nu": tree}, optax
 Adam's is mu / nu / count; torch.optim keeps `square_avg`, or `exp_avg` /
 `exp_avg_sq`, and `step` per parameter, numbered in the flattened order.
+Every leaf keeps its own dtype, bf16 (param_dtype "bfloat16", and the moments
+beside such parameters, f32 or bf16 leaf by leaf) included. numpy has no bf16
+of its own: JAX's arrays come as numpy arrays of ml_dtypes' bfloat16, which
+cross as their 16-bit patterns (`_to_torch`); the way back needs that dtype,
+which a process that holds JAX arrays has loaded (`_to_numpy`).
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -23,8 +30,32 @@ import torch
 from stemgnn_tpu_torch.device import resolve_device
 
 
+def _to_torch(a, device):
+    """A numpy array (or anything np.asarray takes) as a tensor of its dtype on
+    `device`; a bfloat16 array (ml_dtypes) by its bits."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t):
+    """A tensor as a numpy array of its dtype on the host; bf16 as ml_dtypes'
+    bfloat16 (the dtype of JAX's bf16 arrays), taken from the process, which
+    has it wherever there are JAX arrays to hand this to."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    ml_dtypes = sys.modules.get("ml_dtypes")
+    if ml_dtypes is None:
+        raise RuntimeError("a bf16 leaf goes to numpy as ml_dtypes.bfloat16, which this "
+                           "process has not loaded (JAX loads it)")
+    return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+
+
 def params_from_jax(tree, device="cuda"):
-    """JAX pytree (numpy arrays, or anything np.asarray takes) -> port params."""
+    """JAX pytree (numpy arrays, or anything np.asarray takes) -> port params,
+    each leaf of its own dtype."""
     dev = resolve_device(device)
 
     def conv(t):
@@ -32,7 +63,7 @@ def params_from_jax(tree, device="cuda"):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return [conv(v) for v in t]
-        return torch.from_numpy(np.array(t, copy=True)).to(dev)
+        return _to_torch(t, dev)
 
     return conv(tree)
 
@@ -43,7 +74,7 @@ def params_to_jax(params):
         return {k: params_to_jax(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return [params_to_jax(v) for v in params]
-    return params.detach().cpu().numpy().copy()
+    return _to_numpy(params)
 
 
 def flatten_params(tree, prefix: str = "") -> dict:
@@ -90,9 +121,11 @@ _ADAM_KEYS = {"mu": "exp_avg", "nu": "exp_avg_sq"}
 
 def opt_state_from_jax(state: dict, opt) -> None:
     """Load JAX optimizer moments into `opt` (RMSprop or Adam over the
-    flattened parameters). state: {"nu": tree} for RMSProp, {"mu": tree,
-    "nu": tree, "count": int} for Adam, numpy leaves; "count" (steps taken)
-    is optional and 0 if absent."""
+    flattened parameters), each of its own dtype (f32 beside a bf16
+    parameter stays f32: train/optim.py's leafwise optimizers keep it so).
+    state: {"nu": tree} for RMSProp, {"mu": tree, "nu": tree, "count": int}
+    for Adam, numpy leaves; "count" (steps taken) is optional and 0 if
+    absent."""
     keys = _ADAM_KEYS if isinstance(opt, torch.optim.Adam) else _RMSPROP_KEYS
     leaves = [p for group in opt.param_groups for p in group["params"]]
     flat = {k: list(flatten_params(state[k]).values()) for k in keys}
@@ -101,8 +134,7 @@ def opt_state_from_jax(state: dict, opt) -> None:
     for i, p in enumerate(leaves):
         entry = {"step": torch.tensor(count, dtype=torch.float32)}
         for jax_key, torch_key in keys.items():
-            entry[torch_key] = torch.from_numpy(
-                np.array(flat[jax_key][i], copy=True)).to(device=p.device, dtype=p.dtype)
+            entry[torch_key] = _to_torch(flat[jax_key][i], p.device)
         per_param[i] = entry
     opt.load_state_dict({"state": per_param,
                          "param_groups": opt.state_dict()["param_groups"]})
@@ -118,7 +150,7 @@ def opt_state_to_jax(opt, params) -> dict:
     out = {}
     for jax_key, torch_key in keys.items():
         out[jax_key] = unflatten_params({
-            name: opt.state[p][torch_key].detach().cpu().numpy().copy()
+            name: _to_numpy(opt.state[p][torch_key])
             for name, p in zip(names, leaves)})
     out["count"] = int(opt.state[leaves[0]]["step"]) if opt.state else 0
     return out

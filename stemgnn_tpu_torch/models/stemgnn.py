@@ -20,12 +20,17 @@ under autograd their backward kernels run the same way. `compute_dtype`
 ("float32" or "bfloat16", the JAX package's `precision`) goes to the graph
 conv and the spectral cell, the two ops whose kernels have a bf16 arm;
 everything else stays f32.
-Parameters are a nested dict of tensors in the JAX package's layout.
+Parameters are a nested dict of tensors in the JAX package's layout, f32 or
+(param_dtype "bfloat16") bf16: the forward promotes a bf16 leaf to f32 where
+it starts (`promoted`), exactly, as JAX promotes a bf16 parameter where it
+meets an f32 activation; autograd hands such a leaf a bf16 gradient.
 Only the dense single-device path is here, eval and training: the sparse,
 segmented and ring branches are not.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +41,31 @@ from stemgnn_tpu_torch.config import StemGNNConfig
 from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
 from stemgnn_tpu_torch.models.initializers import init_params
 from stemgnn_tpu_torch.ops.torch_impl import gru_over_nodes  # noqa: F401 (plain GRU)
+
+
+# The leaves that go into a kernel's autograd.Function as they are: the
+# spectral cell's 24 GLU tensors of each block and the GRU recurrence's w_hh and
+# b_hh. The JAX package's custom_vjp of those kernels (pallas_spectral.py
+# `_backward` and `_backward_reread`, pallas_gru.py `_vjp_bwd`) return their
+# gradients as f32 whatever the parameter's dtype, where every other leaf's
+# gradient comes back through a promotion, in the leaf's dtype. A train step
+# over bf16 parameters differentiates f32 copies of these (train/engine.py).
+KERNEL_GRAD_LEAVES = re.compile(r"blocks/\d+/glu/\d+/(left|right)/[wb]|gru/[wb]_hh")
+
+
+def kernel_grad_leaf(name: str) -> bool:
+    """True for a "/"-joined leaf name in KERNEL_GRAD_LEAVES."""
+    return KERNEL_GRAD_LEAVES.fullmatch(name) is not None
+
+
+def promoted(params):
+    """The tree with every bf16 leaf promoted to f32 (a differentiable cast:
+    its gradient comes back in bf16); other leaves as they are."""
+    if isinstance(params, dict):
+        return {k: promoted(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [promoted(v) for v in params]
+    return params.to(torch.float32) if params.dtype == torch.bfloat16 else params
 
 
 def draw_dropout_mask(shape, keep: float, generator: torch.Generator):
@@ -96,8 +126,10 @@ def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
     (forecast [B, horizon, N], attention [N, N]). With `training`, dropout on
     the attention: `dropout_mask` ([B,N,N] bool, True keeps) or a mask drawn
     from `dropout_generator`, a torch.Generator on x's device. `compute_dtype`:
-    the graph conv's and the spectral cell's operands.
+    the graph conv's and the spectral cell's operands. bf16 parameters are
+    promoted to f32 first (`promoted`).
     """
+    params = promoted(params)
     mul_L, attention = latent_correlation_layer(
         params, cfg, x, training=training, dropout_generator=dropout_generator,
         dropout_mask=dropout_mask)

@@ -22,6 +22,10 @@ from. Evaluation has the same shape (`make_eval_epoch_fn`).
 goes into every step and eval program the `make_*` functions build, and from
 them to the model's forward; `inference`, `inference_batched` and `validate`
 run the eval step they are given, so it carries the policy to them.
+`param_dtype` "bfloat16" casts the parameters after init (the JAX engine's
+cast); a train step over bf16 parameters hands each leaf's gradient to the
+optimizer in the dtype the JAX package's Pallas path gives it
+(`make_train_step`).
 
 The per-epoch shuffle comes from `np.random.default_rng([shuffle root,
 epoch])` as in the JAX engine, so both engines see the same batches; the
@@ -57,6 +61,7 @@ from stemgnn_tpu_torch.models.convert import (
     unflatten_params,
 )
 from stemgnn_tpu_torch.models.initializers import init_params
+from stemgnn_tpu_torch.ops.torch_impl import operand_dtype
 from stemgnn_tpu_torch.train import checkpoint as ckpt
 from stemgnn_tpu_torch.train.optim import decayed_lr, make_optimizer, set_lr
 from stemgnn_tpu_torch.utils.logging import JsonlLogger
@@ -88,28 +93,50 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
     reads the loss and the gradients back and raises FloatingPointError on a
     value that is not finite, before the optimizer moves anything.
     `compute_dtype` is the forward's (`stemgnn.forward`).
+
+    Over bf16 parameters (param_dtype "bfloat16"; `opt` from `make_optimizer`,
+    a leafwise optimizer) the forward runs on f32 copies of the leaves that go
+    into a kernel's autograd.Function as they are
+    (`stemgnn.kernel_grad_leaf`), so their gradients stay f32 as the JAX
+    package's custom_vjp return them, and on the other leaves promoted (their
+    gradients bf16); `opt.step` takes that list of gradients.
     """
     w, h = mcfg.window_size, mcfg.horizon
     leaves = list(leaves)
+    mixed = any(p.dtype == torch.bfloat16 for p in leaves)
 
     def train_step(params, data, hi, dropout_generator=None, dropout_mask=None):
         x, y = gather_windows(data, hi, w, h)
         opt.zero_grad(set_to_none=True)
+        flat = flatten_params(params)
+        copies = {}
+        if mixed:
+            copies = {k: p.detach().to(torch.float32).requires_grad_(True)
+                      for k, p in flat.items() if stemgnn.kernel_grad_leaf(k)}
+            params = unflatten_params({k: copies.get(k, p) for k, p in flat.items()})
         forecast, _ = stemgnn.forward(
             params, mcfg, x, training=True, dropout_generator=dropout_generator,
             dropout_mask=dropout_mask, compute_dtype=compute_dtype)
         loss = torch.mean((forecast - y) ** 2)  # nn.MSELoss (handler.py:140)
         loss.backward()
-        for p in leaves:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        # each leaf's gradient: its f32 copy's where it has one, else its own;
+        # zeros where the loss does not reach it
+        grads = {}
+        for k, p in flat.items():
+            src = copies.get(k, p)
+            if src.grad is None:
+                src.grad = torch.zeros_like(src)
+            grads[k] = src.grad
         if check_finite:
-            bad = [k for k, p in flatten_params(params).items()
-                   if not torch.isfinite(p.grad).all()]
+            bad = [k for k, g in grads.items() if not torch.isfinite(g).all()]
             if bad or not torch.isfinite(loss):
                 raise FloatingPointError(
                     f"loss {loss.item()}; gradients that are not finite: {bad}")
-        opt.step()
+        if mixed:
+            by_leaf = {id(p): grads[k] for k, p in flat.items()}
+            opt.step([by_leaf[id(p)] for p in leaves])
+        else:
+            opt.step()
         return loss.detach()
 
     return train_step
@@ -462,7 +489,9 @@ def train(
     if normalize_statistic is not None:
         ckpt.save_norm_stat(result_file, normalize_statistic)
 
-    flat = {k: v.requires_grad_(True) for k, v in flatten_params(
+    # param_dtype: the JAX engine's cast after init (to nearest, ties to even)
+    dtype = operand_dtype(cfg.param_dtype)
+    flat = {k: v.to(dtype).requires_grad_(True) for k, v in flatten_params(
         init_params(cfg.seed, mcfg, device=device)).items()}
     opt = make_optimizer(cfg.optimizer, flat.values(), cfg.lr)
 
