@@ -469,6 +469,15 @@ def validate(
     )
 
 
+def initial_params(cfg: TrainConfig, mcfg: StemGNNConfig, device) -> Dict:
+    """The flattened parameters a run starts from, leaves that require a
+    gradient: `init_params(cfg.seed)` cast to cfg.param_dtype, as the JAX
+    engine casts after init (to nearest, ties to even)."""
+    dtype = operand_dtype(cfg.param_dtype)
+    return {k: v.to(dtype).requires_grad_(True) for k, v in flatten_params(
+        init_params(cfg.seed, mcfg, device=device)).items()}
+
+
 def train(
     train_data: np.ndarray,
     valid_data: np.ndarray,
@@ -489,10 +498,7 @@ def train(
     if normalize_statistic is not None:
         ckpt.save_norm_stat(result_file, normalize_statistic)
 
-    # param_dtype: the JAX engine's cast after init (to nearest, ties to even)
-    dtype = operand_dtype(cfg.param_dtype)
-    flat = {k: v.to(dtype).requires_grad_(True) for k, v in flatten_params(
-        init_params(cfg.seed, mcfg, device=device)).items()}
+    flat = initial_params(cfg, mcfg, device)
     opt = make_optimizer(cfg.optimizer, flat.values(), cfg.lr)
 
     train_set = WindowDataset(

@@ -25,11 +25,14 @@ JAX package's optax arithmetic leaf by leaf (`LeafwiseRMSprop`,
 kernel's backward returns it, bf16 elsewhere: train/engine.py), each moment
 takes its gradient's dtype (optax's state follows what it is fed), the
 hyperparameters are rounded to bf16 as optax's `inject_hyperparams` converts
-them to the dtype of the first gradient leaf (a bf16 one), the update is
-computed in f32 and the parameter rounded back to bf16, as
-`optax.apply_updates` casts it. torch's stock optimizers keep every moment in
-its parameter's dtype, so these are written out here; f32 parameters keep
-torch's own optimizers and their bits.
+them to the dtype of the first gradient leaf (a bf16 one), every op runs in
+the gradient's dtype, rounded after each op as XLA rounds bf16 arithmetic on
+the CPU (torch's bf16 ops round alike), and the parameter is rounded back to
+bf16, as `optax.apply_updates` casts it. So a bf16 leaf takes the JAX
+package's bits; an f32 leaf's moments can differ by an f32 ulp, where XLA on
+the CPU contracts a * b + c into one fused multiply-add. torch's stock
+optimizers keep every moment in its parameter's dtype, so these are written
+out here; f32 parameters keep torch's own optimizers and their bits.
 """
 
 from __future__ import annotations
@@ -99,10 +102,10 @@ class _Leafwise:
 
 class LeafwiseRMSprop(_Leafwise, torch.optim.RMSprop):
     """The JAX package's RMSProp (stemgnn_tpu/train/optim.py `_torch_rmsprop`
-    under `inject_hyperparams`) over bf16 parameters, leaf by leaf: lr, alpha
-    and eps rounded to bf16, nu = alpha nu + (1 - alpha) g^2 in f32 and kept
-    in the gradient's dtype, p <- bf16(p - lr g / (sqrt(nu) + eps)). Its
-    state is torch's (`square_avg`, `step`)."""
+    under `inject_hyperparams`) over bf16 parameters, leaf by leaf, each op in
+    the dtype of the leaf's gradient: lr, alpha and eps rounded to bf16,
+    nu <- alpha nu + (1 - alpha) g g, p <- bf16(p + -lr g / (sqrt(nu) + eps)).
+    Its state is torch's (`square_avg`, `step`)."""
 
     def __init__(self, params, lr, alpha: float = 0.99, eps: float = 1e-8):
         super().__init__(params, lr=lr, alpha=alpha, eps=eps, foreach=False)
@@ -112,21 +115,19 @@ class LeafwiseRMSprop(_Leafwise, torch.optim.RMSprop):
         for group, p, g in self._leaves(grads):
             lr, alpha, eps = (_bf16(group[k]) for k in ("lr", "alpha", "eps"))
             nu = self._moment(p, "square_avg", g.dtype)
-            g32 = g.to(torch.float32)
-            nu32 = alpha * nu.to(torch.float32) + (1.0 - alpha) * g32 * g32
-            nu.copy_(nu32)
-            p.copy_(p.to(torch.float32) + -lr * g32 / (nu32.sqrt() + eps))
+            nu.copy_(alpha * nu + (1.0 - alpha) * g * g)
+            p.copy_(p + -lr * g / (nu.sqrt() + eps))
             self.state[p]["step"] += 1
 
 
 class LeafwiseAdam(_Leafwise, torch.optim.Adam):
     """optax.adam (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) under the JAX
-    package's `inject_hyperparams` over bf16 parameters, leaf by leaf: lr
-    rounded to bf16, b1, b2 and eps rounded to each leaf's gradient dtype
-    (Python numbers meeting its arrays); mu, nu in f32 and kept in the
-    gradient's dtype; the bias corrections 1 - b^t in f32, rounded to that
-    dtype; p <- bf16(p - lr mu_hat / (sqrt(nu_hat) + eps)). Its state is
-    torch's (`exp_avg`, `exp_avg_sq`, `step`)."""
+    package's `inject_hyperparams` over bf16 parameters, leaf by leaf, each op
+    in the dtype of the leaf's gradient: lr rounded to bf16, b1, b2 and eps
+    rounded to that dtype (Python numbers meeting its arrays); mu <- (1 - b1)
+    g + b1 mu, nu <- (1 - b2) g g + b2 nu; the bias corrections 1 - b^t in f32,
+    rounded to that dtype; p <- bf16(p + -lr (mu / c1) / (sqrt(nu / c2) +
+    eps)). Its state is torch's (`exp_avg`, `exp_avg_sq`, `step`)."""
 
     def __init__(self, params, lr, betas=(0.9, 0.999), eps: float = 1e-8):
         super().__init__(params, lr=lr, betas=betas, eps=eps, foreach=False)
@@ -141,14 +142,10 @@ class LeafwiseAdam(_Leafwise, torch.optim.Adam):
             nu = self._moment(p, "exp_avg_sq", g.dtype)
             count = self.state[p]["step"]
             count += 1
-            g32 = g.to(torch.float32)
-            mu32 = c1 * g32 + d1 * mu.to(torch.float32)
-            nu32 = c2 * (g32 * g32) + d2 * nu.to(torch.float32)
-            mu.copy_(mu32)
-            nu.copy_(nu32)
-            bc1, bc2 = ((1.0 - b ** count).to(g.dtype).to(torch.float32) for b in (b1, b2))
-            p.copy_(p.to(torch.float32)
-                    + -lr * ((mu32 / bc1) / (torch.sqrt(nu32 / bc2) + eps)))
+            mu.copy_(c1 * g + d1 * mu)
+            nu.copy_(c2 * (g * g) + d2 * nu)
+            bc1, bc2 = ((1.0 - b ** count).to(g.dtype) for b in (b1, b2))
+            p.copy_(p + -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + eps)))
 
 
 def make_optimizer(name: str, params, lr: float) -> torch.optim.Optimizer:
