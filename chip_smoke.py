@@ -10,7 +10,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
   1. device: CUDA present; the card's name and power limit from nvidia-smi;
      TF32 off for every f32 comparison.
   2. build: nvcc of every kernel source in stemgnn_tpu_torch/csrc.
-  3. kernels: each of the sixteen kernels at the shapes its path gives it (the
+  3. kernels: each of the eighteen kernels at the shapes its path gives it (the
      ECG flagship: N=140, W=12, multi_layer=5, batch 32; the grid GRU forward
      and backward: the 512-node model of phase 4), held against its plain
      PyTorch version on the card. The forward kernels run on inputs that the
@@ -54,7 +54,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
      their parent design's (PARENT_DESIGN_MS), their bounds and the f32
      arms'; both bf16 forwards and the bf16 recompute backward on the chain
      kernel on tensor cores, and the bf16 graph conv one kernel a call
-     (torch.profiler: no cast kernel before it).
+     (torch.profiler: no cast kernel before it). The bf16-storage arm of the
+     saving pair (SAVE_ACTS_F32 off: `spectral_fwd_save_bf16acts`,
+     `spectral_bwd_reread_bf16acts`) at the flagship beside the f32-storage
+     arm's times, and at every spectral shape above: its 12 bf16 planes
+     bitwise the f32-storage planes rounded to bf16, its output bitwise, two
+     rereads bitwise, both held to the arm's plain versions by the bf16 rules;
+     both storage arms timed at the COVID-19 shape and past D1 = 2048.
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -77,20 +83,28 @@ Phases, each fatal on failure (nonzero exit, no result line):
      and gradients against the CPU plain path with the same dropout mask;
      the same step twice, bitwise; the same two at compute_dtype bfloat16
      against the CPU bf16 plain path; one epoch of engine.train at bfloat16
-     with its counters; three RMSProp steps against the CPU; and train
-     windows/s.
+     with its counters; the bf16 step with the bf16-storage arm
+     (SAVE_ACTS_F32 off) against the CPU bf16 plain path with the same switch,
+     twice, bitwise, with its counters; one step at param_dtype bfloat16 at
+     each compute_dtype against the CPU, every gradient's and moment's dtype
+     the JAX package's (f32 for the leaves whose gradient a kernel returns);
+     three RMSProp steps against the CPU; and train windows/s.
   6. chunk path: one 16-step chunk through engine.make_epoch_fn (a captured
      CUDA graph) against the same steps through the eager train step: losses,
-     parameters and optimizer state bitwise equal.
+     parameters and optimizer state bitwise equal; the same at param_dtype
+     bfloat16 (bf16 parameters, f32 and bf16 moments).
   7. bench path: bench.measure and bench.measure_eval at full width, their
      results as JSON lines; the train step with the spectral saving forward
      and reread backward (SAVE_ACTS_BWD on) against the recompute backward,
      in the order recompute, reread, reread, recompute; a one-step graph
      replayed per step beside the 64-step graph; the train step at
-     compute_dtype bfloat16 with each spectral backward; the eager eval loop
-     beside the eval program, and the eval program at bfloat16.
+     compute_dtype bfloat16 with each spectral backward; the bf16 reread step
+     with each storage of the saved arrays, in the order f32, bf16, bf16,
+     f32; the eager eval loop beside the eval program, and the eval program
+     at bfloat16.
   8. asynchronous checkpoint: one submit, wait, load, compare with the live
-     parameters and optimizer state.
+     parameters and optimizer state; the same for phase 6's bf16 parameters
+     and mixed-dtype moments, dtype for dtype.
   9. a `kernels` JSON line (launches summed over the paths: calls of the
      wrappers plus what replays of captured graphs launched; every kernel at
      least once), then the result line.
@@ -376,12 +390,14 @@ def bf16_noise_agreement(got, p64, p32, f32):
     return bad, worst_rel, noise_ratio, closer
 
 
-def spectral_plain_arrays(x, glu, g, multi: int, compute_dtype: str, dtype=None):
+def spectral_plain_arrays(x, glu, g, multi: int, compute_dtype: str, dtype=None,
+                          act_dtype: str = "float32"):
     """(forward arrays, backward arrays) of the spectral plain versions on x
     [B, K, N, W], the six GLU dicts and g [B, K, N, W * multi], in `dtype`
     (default x's; float64 copies of the same values give the f64-sum plain
     version): the forward's output twice (serving and saving) and its 12
-    saved arrays; the recompute backward's dx and 24 gradients."""
+    saved arrays (stored in `act_dtype`); the reread backward's dx and 24
+    gradients on them (with f32 storage, the recompute backward's)."""
     import torch
 
     from stemgnn_tpu_torch.ops import cuda_spectral
@@ -390,7 +406,8 @@ def spectral_plain_arrays(x, glu, g, multi: int, compute_dtype: str, dtype=None)
     x, g = x.to(dtype), g.to(dtype)
     glu = [{s: {k: t.to(dtype) for k, t in p[s].items()} for s in p} for p in glu]
     with torch.no_grad():
-        out, acts = cuda_spectral.spe_seq_cell_save_plain(x, glu, multi, compute_dtype)
+        out, acts = cuda_spectral.spe_seq_cell_save_plain(x, glu, multi, compute_dtype,
+                                                          act_dtype)
         dx, dglu = cuda_spectral.spe_seq_cell_bwd_reread_plain(x, glu, g, acts, multi,
                                                                compute_dtype)
     return [out, out] + list(acts), [dx] + cuda_spectral._flat(dglu)
@@ -666,6 +683,8 @@ def bf16_cases(rec, params, mcfg, x):
                for p in params["blocks"][0]["glu"]]
     with torch.no_grad():
         _, acts = cuda_spectral.spe_seq_cell_save(gfted_bwd, glu_bwd, multi, bf)
+        # the bf16-storage arm's planes (SAVE_ACTS_F32 off)
+        _, acts16 = cuda_spectral.spe_seq_cell_save(gfted_bwd, glu_bwd, multi, bf, act_dtype=bf)
 
     def grads(res):
         dx, dglu = res
@@ -714,6 +733,22 @@ def bf16_cases(rec, params, mcfg, x):
          lambda: grads(cuda_spectral.spe_seq_cell_bwd_reread_plain(
              gfted_bwd, glu_bwd, g_spe, acts, multi)),
          None, BF16_ATOL_REL, 0.0, bwd_bytes + 4 * 12 * rows * d1, reread_flops),
+        # the bf16-storage arm (pallas_spectral.py act_dtype = compute_dtype with
+        # SAVE_ACTS_F32 off, :213): the 12 arrays written and read as bf16
+        ("spectral_fwd_save_bf16acts", spe, "stemgnn_tpu/ops/pallas_spectral.py:104",
+         lambda: saved(cuda_spectral.spe_seq_cell_save(gfted, glu, multi, bf, act_dtype=bf)),
+         lambda: saved(cuda_spectral.spe_seq_cell_save_plain(gfted, glu, multi, bf, bf)),
+         lambda: saved(cuda_spectral.spe_seq_cell_save_plain(gfted, glu, multi)),
+         None, BF16_ATOL_REL, 0.0, fwd_bytes + 2 * 12 * rows * d1, spe_flops),
+        ("spectral_bwd_reread_bf16acts", spe, "stemgnn_tpu/ops/pallas_spectral.py:420",
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd_reread(gfted_bwd, glu_bwd, g_spe, acts16,
+                                                             multi, bf)),
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd_reread_plain(
+             gfted_bwd, glu_bwd, g_spe, acts16, multi, bf)),
+         # the f32 plain backward on the same bf16 arrays
+         lambda: grads(cuda_spectral.spe_seq_cell_bwd_reread_plain(
+             gfted_bwd, glu_bwd, g_spe, acts16, multi)),
+         None, BF16_ATOL_REL, 0.0, bwd_bytes + 2 * 12 * rows * d1, reread_flops),
     ]
 
 
@@ -994,13 +1029,13 @@ def shape_checks(dev):
 SPE_FWD_ATOL_REL, SPE_FWD_RTOL = 1e-5, 1e-4
 
 
-def spectral_bounds(b: int, n: int, w: int, m: int, glu, bf16: bool):
+def spectral_bounds(b: int, n: int, w: int, m: int, glu, bf16: bool, act_bytes: int = 4):
     """The least device ms of the four spectral entries (serving forward,
     saving forward, reread backward, recompute backward) on [B, 4, N, W] rows
     at multi m: bytes (each input read once, each output written once; the
-    bf16 arm's operands as bf16) against the f32 CUDA-core or bf16
-    tensor-core rate, the operations as `forward_cases` and `backward_cases`
-    count them."""
+    bf16 arm's operands as bf16; the 12 saved arrays of `act_bytes` an entry)
+    against the f32 CUDA-core or bf16 tensor-core rate, the operations as
+    `forward_cases` and `backward_cases` count them."""
     k, wm = 4, w * m
     d0, d1, rows = k * w, k * wm, b * n
     glu_2d = sum(p[s]["w"].numel() for p in glu for s in ("left", "right"))
@@ -1014,11 +1049,74 @@ def spectral_bounds(b: int, n: int, w: int, m: int, glu, bf16: bool):
     else:
         fwd_bytes = 4 * (rows * d0 + glu_2d + glu_b + rows * d1)
         bwd_bytes = 4 * (2 * rows * d0 + rows * d1 + 2 * (glu_2d + glu_b))
-    acts = 4 * 12 * rows * d1
+    acts = act_bytes * 12 * rows * d1
     rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
     return [bound(nbytes, flops, rate)[0] for nbytes, flops in (
         (fwd_bytes, spe_flops), (fwd_bytes + acts, spe_flops),
         (bwd_bytes + acts, reread_flops), (bwd_bytes, glu_flops + reread_flops))]
+
+
+def storage_arm_check(x, glu, g, m: int, out32, acts32, f32_plain):
+    """The bf16-storage arm (SAVE_ACTS_F32 off) of the bf16 saving forward and
+    reread backward at one shape, beside the f32-storage arm's output out32
+    and planes acts32 on the same inputs: its 12 bf16 planes bitwise acts32
+    rounded to bf16 (the same kernel computes the same f32 values) and its
+    output bitwise out32; two rereads on its planes bitwise; forward and
+    backward against the plain versions of the arm (the bf16 rule up to D1 =
+    BF16_NOISE_D1, past it `bf16_noise_agreement` with f64 sums), the f32
+    plain arrays `f32_plain` as the f32 yardstick; the saving forward on the
+    chain kernel of its route. Returns (an error message or None, its planes)."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    bf = "bfloat16"
+    b, _, n, w = x.shape
+    rows, d1 = b * n, 4 * w * m
+    with torch.no_grad():
+        out16, acts16 = cuda_spectral.spe_seq_cell_save(x, glu, m, bf, act_dtype=bf)
+        runs = [cuda_spectral.spe_seq_cell_bwd_reread(x, glu, g, acts16, m, bf) for _ in range(2)]
+        torch.cuda.synchronize()
+        fail = bf16_chain_route(
+            lambda: cuda_spectral.spe_seq_cell_save(x, glu, m, bf, act_dtype=bf), d1)
+    if fail is not None:
+        return fail, acts16
+    planes = torch.equal(acts16, acts32.to(torch.bfloat16))
+    same_out = torch.equal(out16, out32)
+    got, again = ([dx] + cuda_spectral._flat(dglu) for dx, dglu in runs)
+    rerun = all(torch.equal(a, c) for a, c in zip(got, again))
+    fwd = [out16, out16] + [acts16[i, :rows] for i in range(12)]
+    p32 = spectral_plain_arrays(x, glu, g, m, bf, act_dtype=bf)
+    bad = []
+    if d1 <= BF16_NOISE_D1:
+        notes = []
+        for part, kern in ((0, fwd), (1, got)):
+            bad_i, _, ratio, rel = bf16_agreement(kern, p32[part], f32_plain[part], BF16_ATOL_REL)
+            bad += [f"{'fwd' if part == 0 else 'bwd'} array {i}" for i in bad_i]
+            if ratio < BF16_CLOSER:
+                bad.append(f"{ratio:.1f} times closer")
+            notes.append(f"{'forward' if part == 0 else 'backward'} within {rel:.2e} of each "
+                         f"array's largest entry, {ratio:.1f} times closer")
+        rule = f"each within {BF16_ATOL_REL:.4g} of its largest entry: " + "; ".join(notes)
+    else:
+        p64 = spectral_plain_arrays(x, glu, g, m, bf, torch.float64, act_dtype=bf)
+        notes = []
+        for part, kern in ((0, fwd), (1, got)):
+            bad_i, rel, noise, closer = bf16_noise_agreement(kern, p64[part], p32[part],
+                                                             f32_plain[part])
+            bad += [f"{'fwd' if part == 0 else 'bwd'} {i}" for i in bad_i]
+            notes.append(f"{'forward' if part == 0 else 'backward'} worst {rel:.2e}, L2 "
+                         f"{noise:.3f} times the f32-sum noise, {closer:.1f} times closer")
+        rule = "bf16_noise_agreement: " + "; ".join(notes)
+    print(f"[3 kernel] spectral bf16-storage arm B={b} N={n} W={w} multi={m} ({rows} rows, "
+          f"D1 = {d1}): planes {'bitwise' if planes else 'NOT'} the f32-storage planes "
+          f"rounded, output {'bitwise' if same_out else 'NOT'} the f32-storage output, two "
+          f"rereads {'bitwise equal' if rerun else 'DIFFER'}; against the arm's plain "
+          f"versions, {rule}: {'yes' if not bad else 'NO, ' + ', '.join(bad[:6])}")
+    if not (planes and same_out and rerun) or bad:
+        return (f"spectral bf16-storage arm at B={b} N={n} W={w} multi={m}: planes {planes}, "
+                f"output {same_out}, reruns {rerun}, out of tolerance {bad[:6]}"), acts16
+    return None, acts16
 
 
 def spectral_checks(dev, glu, multi: int):
@@ -1168,19 +1266,28 @@ def spectral_checks(dev, glu, multi: int):
                 return (f"spectral {cd} at B={b} N={n} W={w} multi={m}: forwards out of "
                         f"tolerance {fwd_bad}, max_abs_err {fwd_err}; backward {bad}, "
                         f"max_abs_err {err} (bitwise reruns and recompute: {same})")
+            calls = [lambda: cuda_spectral.spe_seq_cell(x, glu_w, m, cd),
+                     lambda: cuda_spectral.spe_seq_cell_save(x, glu_w, m, cd),
+                     lambda: cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts, m, cd),
+                     lambda: cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m, cd)]
+            labels = ["forward", "saving forward", "reread backward", "recompute backward"]
+            bounds = spectral_bounds(b, n, w, m, glu_w, bf16)
+            if bf16:  # the bf16-storage arm of the same pair
+                fail, acts16 = storage_arm_check(x, glu_w, g, m, out_s, acts, f32_plain)
+                if fail is not None:
+                    return fail
+                calls += [
+                    lambda: cuda_spectral.spe_seq_cell_save(x, glu_w, m, cd, act_dtype=cd),
+                    lambda: cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts16, m, cd)]
+                labels += ["saving forward, bf16 planes", "reread backward, bf16 planes"]
+                bounds += spectral_bounds(b, n, w, m, glu_w, bf16, act_bytes=2)[1:3]
             if timed:  # the wide kernels' shapes: their times beside their bounds
                 with torch.no_grad():
-                    ms = [cuda_ms(fn, calls=2, replays=3) for fn in (
-                        lambda: cuda_spectral.spe_seq_cell(x, glu_w, m, cd),
-                        lambda: cuda_spectral.spe_seq_cell_save(x, glu_w, m, cd),
-                        lambda: cuda_spectral.spe_seq_cell_bwd_reread(x, glu_w, g, acts, m, cd),
-                        lambda: cuda_spectral.spe_seq_cell_bwd(x, glu_w, g, m, cd))]
-                bounds = spectral_bounds(b, n, w, m, glu_w, bf16)
+                    ms = [cuda_ms(fn, calls=2, replays=3) for fn in calls]
                 print(f"[3 kernel] spectral {cd} B={b} N={n} W={w} multi={m} (D1 = {d1}), "
                       f"device ms a wrapper call (bound): " + ", ".join(
                           f"{label} {t:.5f} ({lo:.5f})" for label, t, lo in zip(
-                              ("forward", "saving forward", "reread backward",
-                               "recompute backward"), ms, bounds)))
+                              labels, ms, bounds)))
     return None
 
 
@@ -1422,6 +1529,11 @@ def bf16_redesigns(results, params, mcfg, x):
               f"{results[name]['bound_ms']:.5f}, {results[name]['bound_by']}), the parent "
               f"design's {parent_ms:.5f} (PERF.md), the f32 arm's "
               f"{'n/a' if f32 is None else f'{f32:.5f}'} in this run")
+    for name in ("spectral_fwd_save_bf16acts", "spectral_bwd_reread_bf16acts"):
+        new, old = results[name], results[name[: -len("acts")]]
+        print(f"[3 kernel] {name}: {new['ms']:.5f} ms a wrapper call (bound "
+              f"{new['bound_ms']:.5f}, {new['bound_by']}), its f32-storage arm "
+              f"{old['name']} {old['ms']:.5f} (bound {old['bound_ms']:.5f}) in this run")
     _, _, mul_L, feat, gfted = forward_inputs(params, mcfg, x)
     glu, multi, bf = params["blocks"][0]["glu"], mcfg.multi_layer, "bfloat16"
     d1 = gfted.shape[1] * gfted.shape[3] * multi
@@ -1470,7 +1582,8 @@ def run() -> int:
     from stemgnn_tpu_torch.data import (
         WindowDataset, compute_norm_stats, ensure_dataset, load_csv, split_by_ratio)
     from stemgnn_tpu_torch.models import init_params
-    from stemgnn_tpu_torch.models.convert import flatten_params
+    from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
+    from stemgnn_tpu_torch.models.stemgnn import kernel_grad_leaf
     from stemgnn_tpu_torch.ops import _build, cuda_gru, cuda_spectral, torch_impl
     from stemgnn_tpu_torch.train import checkpoint as ckpt
     from stemgnn_tpu_torch.train import engine
@@ -1587,6 +1700,13 @@ def run() -> int:
     if fail is None:
         # the bf16 arms at the flagship's shapes
         fail = check_bf16_cases(bf16_cases(rec, params, mcfg, x), results, "3 kernel")
+    if fail is None:
+        # both storage arms of the bf16 saving pair at the COVID-19 shape, timed
+        # as above (printed only)
+        fail = check_bf16_cases(
+            [c for c in bf16_cases(rec_cov, params_cov, mcfg_cov, x_cov)
+             if c[0].startswith(("spectral_fwd_save", "spectral_bwd_reread"))],
+            {}, "3 kernel, COVID-19 shape")
     if fail is None:
         fail = bf16_redesigns(results, params, mcfg, x)
     if fail is not None:
@@ -2050,6 +2170,101 @@ def run() -> int:
         return _fail(f"bf16 step differs from the CPU bf16 plain path: loss err {loss_err}, "
                      f"leaves {[names[i] for i in bad[:5]]}, ratio {ratio}, rerun {differ[:5]}")
 
+    # (b2) the same bf16 step with the spectral pair's bf16-storage arm
+    # (SAVE_ACTS_F32 off), counters set to 0 just before and read just after,
+    # twice, against the CPU bf16 plain path with the same switch (as (b'))
+    cuda_spectral.SAVE_ACTS_F32 = False
+    try:
+        ops.reset_launches()
+        loss_bs, grads_bs = step_grads(params_gpu, mcfg, x_gpu, y_gpu, mask0, "bfloat16")
+        torch.cuda.synchronize()
+        launches, replayed = take_launches(ops, results)
+        grads_bs = {k: g.clone() for k, g in grads_bs.items()}
+        loss_bs2, grads_bs2 = step_grads(params_gpu, mcfg, x_gpu, y_gpu, mask0, "bfloat16")
+        loss_cpu_bs, grads_cpu_bs = step_grads(leaf_params(params, "cpu"), mcfg, x_cpu, y_cpu,
+                                               masks[0], "bfloat16")
+    finally:
+        cuda_spectral.SAVE_ACTS_F32 = True
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"gru_fwd": 1, "gru_bwd": 1, "attention_kq_fwd": 1, "attention_kq_bwd": 1,
+                 "cheb_graph_conv_fwd_bf16": 2})
+    want.update(dict.fromkeys(("spectral_fwd_save_bf16acts", "spectral_bwd_reread_bf16acts")
+                              if cuda_spectral.SAVE_ACTS_BWD
+                              else ("spectral_fwd_bf16", "spectral_bwd_bf16"), 2))
+    differ = [k for k, g in grads_bs2.items() if not torch.equal(g, grads_bs[k])]
+    bad, worst, ratio, rel = bf16_agreement([grads_bs[k] for k in names],
+                                            [grads_cpu_bs[k] for k in names],
+                                            [grads_cpu[k] for k in names], BF16_ATOL_REL)
+    loss_err = abs(loss_bs.item() - loss_cpu_bs.item())
+    moved = max(((grads_bs[k] - grads_bf[k]).abs().max() / grads_bf[k].abs().max().clamp_min(
+        1e-30)).item() for k in names)
+    print(f"[5 train path] one bf16 step with bf16 saved arrays (SAVE_ACTS_F32 off), card vs "
+          f"CPU bf16 plain path with the same switch: wrapper launches {launches}; loss "
+          f"{loss_bs.item():.6f} (abs err {loss_err:.3e}, atol 1e-5); gradients worst "
+          f"max_abs_err {worst:.3e} ({rel:.3e} of its largest entry; each within "
+          f"{BF16_ATOL_REL:.4g}: {'yes' if not bad else 'NO, ' + str(bad[:5])}; "
+          f"{ratio:.1f} times closer to the CPU bf16 gradients than to the CPU f32 ones); the "
+          f"same step twice {'bitwise equal' if not differ else 'DIFFERS'}; up to "
+          f"{moved:.3e} of a gradient's largest entry from the f32-storage step's")
+    if (launches != want or any(replayed.values()) or loss_err > 1e-5 or bad
+            or ratio < BF16_CLOSER or differ or not torch.equal(loss_bs, loss_bs2)):
+        return _fail(f"bf16-storage step: launches {launches} (expected {want}), loss err "
+                     f"{loss_err}, leaves {[names[i] for i in bad[:5]]}, ratio {ratio}, rerun "
+                     f"{differ[:5]}")
+
+    # (b3) one step at param_dtype bfloat16 at each compute_dtype, card against
+    # CPU (the same bf16 parameters, batch and mask): every gradient the
+    # optimizer is handed and every RMSProp moment of the dtype the JAX
+    # package's Pallas path gives it (f32 for the leaves whose gradient a
+    # kernel returns, bf16 for the rest) on both sides; the loss within 1e-5;
+    # each gradient within its arm's tolerance of its largest entry (as (a) and
+    # (b')) plus one bf16 ulp (2^-7) of the value; each parameter after the
+    # step within 2^-7 of |before| + |after| (an ulp of it and of the update),
+    # but where the CPU gradient is within that tolerance of 0 (then within
+    # twice the step bound lr / sqrt(1 - alpha) more)
+    step_bound = cfg_t.lr / math.sqrt(1 - 0.98828125)  # alpha rounded to bf16
+    for cd, g_tol in (("float32", GRAD_ATOL_REL), ("bfloat16", BF16_ATOL_REL)):
+        runs = {}
+        for where, src in (("cpu", train_cpu), ("cuda", train_dev)):
+            flat_p = {k: v.detach().to(where).to(torch.bfloat16).requires_grad_(True)
+                      for k, v in flatten_params(params).items()}
+            opt_p = make_optimizer("RMSProp", flat_p.values(), cfg_t.lr)
+            handed, real_step = [], opt_p.step
+            opt_p.step = lambda grads, h=handed, s=real_step: (h.append(list(grads)), s(grads))
+            before = {k: v.detach().clone() for k, v in flat_p.items()}
+            loss_p = engine.make_train_step(mcfg, opt_p, flat_p.values(), compute_dtype=cd)(
+                unflatten_params(flat_p), src, his[0].to(where), dropout_mask=masks[0].to(where))
+            runs[where] = (loss_p.item(), dict(zip(flat_p, handed[0])), flat_p, opt_p, before)
+        (l_cpu, g_cpu, p_cpu, o_cpu, before), (l_gpu, g_gpu, p_gpu, o_gpu, _) = (
+            runs["cpu"], runs["cuda"])
+        bad = []
+        for k in p_cpu:
+            want_dtype = torch.float32 if kernel_grad_leaf(k) else torch.bfloat16
+            dtypes = {g_cpu[k].dtype, g_gpu[k].dtype, o_cpu.state[p_cpu[k]]["square_avg"].dtype,
+                      o_gpu.state[p_gpu[k]]["square_avg"].dtype}
+            if dtypes != {want_dtype} or p_gpu[k].dtype != torch.bfloat16:
+                bad.append(f"{k} dtypes {dtypes}")
+                continue
+            gc, gg = g_cpu[k].float(), g_gpu[k].detach().float().cpu()
+            tol = g_tol * gc.abs().max() + 2.0 ** -7 * gc.abs()
+            if not bool(((gg - gc).abs() <= tol).all()):
+                bad.append(f"{k} gradient {(gg - gc).abs().max().item():.3e}")
+            pc, pg = p_cpu[k].detach().float(), p_gpu[k].detach().float().cpu()
+            ptol = 2.0 ** -7 * (before[k].float().abs() + pc.abs())
+            far = (pg - pc).abs() > ptol
+            if bool((far & ((gc.abs() > tol) | ((pg - pc).abs() > ptol + 2 * step_bound))).any()):
+                bad.append(f"{k} parameter {(pg - pc).abs().max().item():.3e}")
+        n_f32 = sum(kernel_grad_leaf(k) for k in p_cpu)
+        print(f"[5 train path] one step at param_dtype bfloat16, compute_dtype {cd}, card vs "
+              f"CPU: loss {l_gpu:.6f} (abs err {abs(l_gpu - l_cpu):.3e}, atol 1e-5); "
+              f"{n_f32} gradients and RMSProp moments f32, {len(p_cpu) - n_f32} bf16, on both "
+              f"sides: {'yes' if not any('dtypes' in b_ for b_ in bad) else 'NO'}; gradients "
+              f"within {g_tol:g} of their largest entry plus a bf16 ulp, parameters within an "
+              f"ulp of |before| + |after|: {'yes' if not bad else 'NO, ' + ', '.join(bad[:4])}")
+        if bad or abs(l_gpu - l_cpu) > 1e-5:
+            return _fail(f"param_dtype bfloat16 step at compute_dtype {cd}: {bad[:6]}, loss "
+                         f"{l_gpu} against {l_cpu}")
+
     # (c) three RMSProp steps, card against CPU, masks from one numpy seed. An
     # RMSProp step moves an entry by up to lr / sqrt(1 - alpha) = 1e-3 whatever
     # the gradient's size, so entries whose gradient is rounding noise may differ
@@ -2155,21 +2370,57 @@ def run() -> int:
           f"eager train step: {CHUNK} losses, {len(p_e)} parameters and their RMSProp "
           f"moments bitwise equal; last loss {l_c[-1].item():.6f}")
 
+    # the same at param_dtype bfloat16: a 16-step chunk over bf16 parameters
+    # (the leafwise RMSprop, f32 copies of the kernels' leaves inside the
+    # captured steps) against the same steps taken eagerly, bitwise, each
+    # moment of its dtype
+    finals_b = {}
+    for mode in ("eager", "chunk"):
+        flat_b = {k: v.detach().to(dev).to(torch.bfloat16).requires_grad_(True)
+                  for k, v in flatten_params(params).items()}
+        tree_b = unflatten_params(flat_b)
+        opt_b = make_optimizer("RMSProp", flat_b.values(), cfg_t.lr)
+        gen_b = torch.Generator(device=dev)
+        gen_b.manual_seed(engine.epoch_generator_seed(cfg_t.seed, 3))
+        if mode == "eager":
+            step_b = engine.make_train_step(mcfg, opt_b, flat_b.values())
+            losses_b = torch.stack([step_b(tree_b, train_dev, hi_b, gen_b)
+                                    for hi_b in hi_matrix])
+        else:
+            losses_b = engine.make_epoch_fn(mcfg, opt_b, flat_b.values())(
+                tree_b, train_dev, hi_matrix, gen_b)
+        finals_b[mode] = (losses_b, flat_b, [opt_b.state[p]["square_avg"]
+                                             for p in flat_b.values()])
+    (l_e, p_e, s_e), (l_c, p_c_b, s_c_b) = finals_b["eager"], finals_b["chunk"]
+    differ = [k for k in p_e if not (p_c_b[k].dtype == torch.bfloat16
+                                     and torch.equal(p_e[k], p_c_b[k]))]
+    moment_dtypes = sorted({str(t.dtype) for t in s_c_b})
+    if (not torch.equal(l_e, l_c) or differ
+            or not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(s_e, s_c_b))
+            or moment_dtypes != ["torch.bfloat16", "torch.float32"]):
+        return _fail(f"a {CHUNK}-step chunk at param_dtype bfloat16 differs from the eager "
+                     f"steps: losses {l_e.tolist()} and {l_c.tolist()}, parameters "
+                     f"{differ[:5]}, moments {moment_dtypes}")
+    print(f"[6 chunk path] the same at param_dtype bfloat16: {CHUNK} losses, {len(p_e)} bf16 "
+          f"parameters and their RMSProp moments ({', '.join(moment_dtypes)}) bitwise equal; "
+          f"last loss {l_c[-1].item():.6f}")
+
     # --- 7. bench path ---
     def bench_line(label, res):
         print(f"[7 bench path] {label}: " + json.dumps(res))
 
-    def run_train_bench(label, reread=False, **kw):
+    def run_train_bench(label, reread=False, acts_f32=True, **kw):
         """bench.measure with the counters set to 0 just before and read just
-        after; returns (result, wrapper launches, launches by replays)."""
-        saved = cuda_spectral.SAVE_ACTS_BWD
-        cuda_spectral.SAVE_ACTS_BWD = reread
+        after, the spectral switches set for the run; returns (result, wrapper
+        launches, launches by replays)."""
+        saved = cuda_spectral.SAVE_ACTS_BWD, cuda_spectral.SAVE_ACTS_F32
+        cuda_spectral.SAVE_ACTS_BWD, cuda_spectral.SAVE_ACTS_F32 = reread, acts_f32
         try:
             ops.reset_launches()
             res = bench.measure(**kw)
             counts = take_launches(ops, results)
         finally:
-            cuda_spectral.SAVE_ACTS_BWD = saved
+            cuda_spectral.SAVE_ACTS_BWD, cuda_spectral.SAVE_ACTS_F32 = saved
         bench_line(label, res)
         if not math.isfinite(res["loss"]) or res["repeats"] < 3:
             raise RuntimeError(f"bench {label}: loss {res['loss']}, repeats "
@@ -2239,6 +2490,28 @@ def run() -> int:
               f"launched by graph replays {replayed}")
     print(f"[7 bench path] train step, median ms: f32 reread {rer_ms}, recompute {rec_ms}; "
           f"bf16 reread {bf_ms[True]:.4f}, recompute {bf_ms[False]:.4f}")
+    # the bf16 reread step with each storage of the saved arrays, in the order
+    # f32, bf16, bf16, f32 (SAVE_ACTS_F32)
+    store_ms = {True: [], False: []}
+    arms16 = {True: ("spectral_fwd_save_bf16", "spectral_bwd_reread_bf16"),
+              False: ("spectral_fwd_save_bf16acts", "spectral_bwd_reread_bf16acts")}
+    for acts_f32 in (True, False, False, True):
+        label = f"train bf16, spectral reread, {'f32' if acts_f32 else 'bf16'} saved arrays"
+        res, launches, replayed = run_train_bench(label, reread=True, acts_f32=acts_f32,
+                                                  compute_dtype="bfloat16")
+        store_ms[acts_f32].append(res["step_time_ms"])
+        total = {k: launches[k] + replayed[k] for k in launches}
+        steps_run = total["gru_bwd"]
+        if (steps_run <= 0 or any(total[k] != 2 * steps_run for k in arms16[acts_f32])
+                or any(total[k] for k in arms16[not acts_f32])):
+            return _fail(f"bench {label}: the launches are {launches} and {replayed}")
+        print(f"[7 bench path] {label}: {steps_run} steps, wrapper launches {launches}; "
+              f"launched by graph replays {replayed}")
+    gain_ms = statistics.mean(store_ms[True]) - statistics.mean(store_ms[False])
+    spread_ms = max(max(v) - min(v) for v in store_ms.values())
+    print(f"[7 bench path] bf16 saved-array storage A/B, median step ms: f32 {store_ms[True]}, "
+          f"bf16 {store_ms[False]}; bf16 storage is {gain_ms:+.4f} ms a step faster (mean of "
+          f"two runs each); the two runs of one arm differ by up to {spread_ms:.4f} ms")
 
     ops.reset_launches()
     res_eval = bench.measure_eval()
@@ -2280,6 +2553,31 @@ def run() -> int:
                      f"{differ[:5]}, moments equal {moments_ok}, meta {meta}")
     print(f"[8 async checkpoint] one submit, wait, load: {len(loaded)} parameters and "
           f"their RMSProp moments equal to the live ones")
+
+    # the same for the bf16 parameters and mixed-dtype moments of phase 6's
+    # chunk: each leaf of its dtype and bitwise, the moments loaded back into
+    # a leafwise RMSprop with their dtypes kept
+    saver = ckpt.AsyncCheckpointer()
+    try:
+        saver.submit(async_dir, tree_b, opt_b.state_dict(), epoch=1, meta={"epoch": 1})
+        saver.wait()
+    finally:
+        saver.close()
+    loaded_b, loaded_opt_b, _ = ckpt.load(async_dir, epoch=1, device=dev)
+    loaded_b = flatten_params(loaded_b)
+    opt_l = make_optimizer("RMSProp", [v.requires_grad_(True) for v in loaded_b.values()],
+                           cfg_t.lr)
+    opt_l.load_state_dict({"state": loaded_opt_b["state"],
+                           "param_groups": opt_l.state_dict()["param_groups"]})
+    differ = [k for k in p_c_b if not (loaded_b[k].dtype == torch.bfloat16
+                                       and torch.equal(loaded_b[k], p_c_b[k].detach()))]
+    moments_ok = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        [opt_l.state[p]["square_avg"] for p in loaded_b.values()], s_c_b))
+    if differ or not moments_ok:
+        return _fail(f"the bf16 checkpoint differs from the live state: {differ[:5]}, "
+                     f"moments equal {moments_ok}")
+    print(f"[8 async checkpoint] bf16 parameters: {len(loaded_b)} bf16 parameters and their "
+          f"RMSProp moments (bf16 and f32) equal to the live ones, dtype for dtype")
 
     # --- 9. summary ---
     print(f"[9 summary] chip_smoke ran {time.perf_counter() - t_start:.1f} s, the kernels' "
