@@ -2,8 +2,8 @@
 taken out or changed, and times each beside the source as it is.
 
     python -m stemgnn_tpu_torch.utils.kernel_variants [gru] [gru_bwd] [gru_grid]
-        [spectral] [spectral_fwd] [spectral_mma] [spectral_fwd_mma] [graph]
-        [against=CHECKOUT] [ptxas] [ptxas=CHECKOUT]
+        [spectral] [spectral_fwd] [spectral_mma] [spectral_fwd_mma] [spectral_acts]
+        [graph] [against=CHECKOUT] [ptxas] [ptxas=CHECKOUT]
 
 A variant is a list of (text, replacement) pairs applied to the source; a
 pair whose text is no longer in the source stops the run, so an edit to a
@@ -15,7 +15,9 @@ B = 32, H = N = 512 and B = 8, H = N = 1024; `spectral_fwd` also times the COVID
 (B = 32, N = 25, W = 28, multi 5); `spectral_mma` the bf16 reread backward
 on tensor cores, its epilogue or one kernel left out; `spectral_fwd_mma` the
 bf16 forwards' chain on tensor cores at both shapes, its a, s stores, join,
-inverse DFT, weight staging or products left out, and other plans.
+inverse DFT, weight staging or products left out, and other plans;
+`spectral_acts` the bf16 saving forward and reread backward with each storage
+of the saved arrays (f32, bf16) at both shapes, and the bf16 stores by variant.
 `against=CHECKOUT`
 builds the spectral and graph sources of another checkout (a `git archive` of
 an earlier commit) and holds this tree's f32 spectral entries (forwards and
@@ -772,6 +774,97 @@ def spectral_fwd_mma(dev, tmp: Path) -> None:
                   f"{_cuda_ms(saving):.5f} ms")
 
 
+# The bf16-storage arm's a, s stores in the chain kernel on tensor cores: as
+# they are (streaming stores of a bf16 pair), plain stores, stores cached in
+# L2 only, and none (what they cost).
+_ACTS_STORE = ("__stcs(reinterpret_cast<unsigned int*>(ga + row * d1 + col), "
+               "pack_bf16x2(a0, a1));")
+_ACTS_STORE_S = ("__stcs(reinterpret_cast<unsigned int*>(gs + row * d1 + col), "
+                 "pack_bf16x2(s0, s1));")
+SPECTRAL_ACTS_VARIANTS = {
+    "base": [],
+    "plain stores": [
+        (_ACTS_STORE, "*reinterpret_cast<unsigned int*>(ga + row * d1 + col) = "
+                      "pack_bf16x2(a0, a1);"),
+        (_ACTS_STORE_S, "*reinterpret_cast<unsigned int*>(gs + row * d1 + col) = "
+                        "pack_bf16x2(s0, s1);")],
+    "L2 stores": [
+        (_ACTS_STORE, "__stcg(reinterpret_cast<unsigned int*>(ga + row * d1 + col), "
+                      "pack_bf16x2(a0, a1));"),
+        (_ACTS_STORE_S, "__stcg(reinterpret_cast<unsigned int*>(gs + row * d1 + col), "
+                        "pack_bf16x2(s0, s1));")],
+    "no stores": [(_ACTS_STORE, ""), (_ACTS_STORE_S, "")],
+}
+
+
+def _bf16_storage_calls(lib, x, g, weights, ci, si, multi):
+    """(saving call, reread call) of a library's bf16-storage entries
+    (`spectral_fwd_save_bf16acts`, `spectral_bwd_reread_bf16acts`) on the
+    plans of `fwd_mma_plan` and `bwd_mma_plan`, into buffers made here; the
+    reread reads what one saving call wrote."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = x.shape
+    wm = w * multi
+    fp = cuda_spectral.fwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device))
+    bp = cuda_spectral.bwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device))
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    out = torch.empty((b, k, n, wm), device=x.device)
+    acts = torch.empty(cuda_spectral._fn("spectral_act_floats")(b, k, n, wm),
+                       dtype=torch.bfloat16, device=x.device)
+    dx = torch.empty(x.shape, device=x.device)
+    grads = torch.empty(cuda_spectral._fn("spectral_bwd_grad_floats")(k, w, wm), device=x.device)
+    ws = torch.empty(cuda_spectral._fn("spectral_bwd_reread_bf16_workspace_floats")(
+        b, k, n, w, wm, bp.nsplit, bp.tile_rows), device=x.device)
+    save, reread = lib.spectral_fwd_save_bf16acts, lib.spectral_bwd_reread_bf16acts
+    save.argtypes, save.restype = cuda_spectral._SIGNATURES["spectral_fwd_save_bf16acts"]
+    reread.argtypes, reread.restype = cuda_spectral._SIGNATURES["spectral_bwd_reread_bf16acts"]
+
+    def saving():
+        _build.check(save(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
+                          acts.data_ptr(), None, b, k, n, w, wm, *fp.args,
+                          _build.stream_ptr(x)), "spectral_fwd_save_bf16acts")
+        return out, acts
+
+    def rereading():
+        _build.check(reread(x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+                            acts.data_ptr(), dx.data_ptr(), grads.data_ptr(), ws.data_ptr(),
+                            b, k, n, w, wm, bp.nsplit, bp.tile_rows, bp.n_tiles,
+                            _build.stream_ptr(x)), "spectral_bwd_reread_bf16acts")
+        return dx, grads
+
+    saving()
+    return saving, rereading
+
+
+def spectral_acts(dev, tmp: Path) -> None:
+    """The bf16 saving forward and reread backward (their C entries) with each
+    storage of the 12 saved arrays, f32 and bf16, in turns (f32, bf16, bf16,
+    f32) at the flagship and COVID-19 shapes; then the bf16 stores of the
+    saving forward by variant (SPECTRAL_ACTS_VARIANTS)."""
+    shapes = {}
+    for name, (b, n, w, m) in SPECTRAL_FWD_SHAPES.items():
+        x, weights, ci, si = _bf16_operands(*_spectral_inputs(b, n, w, m, dev, 5))
+        g = 1e-3 * torch.from_numpy(np.random.default_rng(6).standard_normal(
+            (b, 4, n, w * m)).astype(np.float32)).to(dev)
+        shapes[name] = (x, g, weights, ci, si, m)
+    libs = _build_variants("spectral.cu", SPECTRAL_ACTS_VARIANTS, tmp)
+    for shape, (x, g, weights, ci, si, m) in shapes.items():
+        _, save32 = _bf16_fwd_calls(libs["base"], x, weights, ci, si, m)
+        acts32 = save32()[1]
+        reread32 = _bf16_reread_call(libs["base"], x, g, weights, ci, si, m, acts32)
+        save16, reread16 = _bf16_storage_calls(libs["base"], x, g, weights, ci, si, m)
+        for label, saving, rereading in (("f32", save32, reread32), ("bf16", save16, reread16),
+                                         ("bf16", save16, reread16), ("f32", save32, reread32)):
+            print(f"spectral bf16 {shape} {tuple(x.shape)} multi={m}, {label} saved arrays: "
+                  f"saving forward {_cuda_ms(saving):.5f} ms, reread backward "
+                  f"{_cuda_ms(rereading):.5f} ms")
+        for name, lib in libs.items():
+            saving, _ = _bf16_storage_calls(lib, x, g, weights, ci, si, m)
+            print(f"spectral bf16 {shape}, bf16 saved arrays, {name}: saving forward "
+                  f"{_cuda_ms(saving):.5f} ms")
+
+
 def _build_other(src: Path, tmp: Path) -> ctypes.CDLL:
     so = Path(tempfile.mkdtemp(dir=tmp)) / f"lib{src.stem}_other.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-o",
@@ -970,7 +1063,8 @@ def main(argv=None) -> int:
                 continue
             {"gru": gru, "gru_bwd": gru_bwd, "gru_grid": gru_grid, "spectral": spectral,
              "spectral_fwd": spectral_fwd, "spectral_mma": spectral_mma,
-             "spectral_fwd_mma": spectral_fwd_mma, "graph": graph}[name](dev, Path(tmp))
+             "spectral_fwd_mma": spectral_fwd_mma, "spectral_acts": spectral_acts,
+             "graph": graph}[name](dev, Path(tmp))
     return 0
 
 

@@ -248,7 +248,8 @@ def test_backward_wrappers_are_counted_kernels_and_cpu_launches_none():
         "gru_fwd", "gru_fwd_grid", "attention_kq_fwd", "cheb_graph_conv_fwd",
         "spectral_fwd",
         "gru_bwd", "gru_bwd_grid", "attention_kq_bwd", "spectral_bwd", "spectral_fwd_save",
-        "spectral_bwd_reread", "cheb_graph_conv_fwd_bf16", "spectral_fwd_bf16",
+        "spectral_bwd_reread", "spectral_fwd_save_bf16acts", "spectral_bwd_reread_bf16acts",
+        "cheb_graph_conv_fwd_bf16", "spectral_fwd_bf16",
         "spectral_fwd_save_bf16", "spectral_bwd_bf16", "spectral_bwd_reread_bf16"]
     ops.reset_launches()
     for name in FUNCTIONS:
