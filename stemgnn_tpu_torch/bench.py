@@ -2,7 +2,7 @@
 
     python -m stemgnn_tpu_torch.bench [--mode train|eval] [--steps N]
         [--repeats R] [--batch B] [--spectral-bwd reread|recompute] [--bf16]
-        [--spectral-acts f32|bf16] [--set-baseline] [--device cpu]
+        [--set-baseline] [--device cpu]
 
 Headline: steady-state training throughput (windows/second) of the ECG
 flagship (140 nodes, window 12, horizon 3, multi_layer 5, batch 32, f32,
@@ -18,9 +18,7 @@ beside it.
 it; without that file it is null. `--mode eval` times the forward-only eval
 program (`make_eval_epoch_fn`) and reports its ratio to the per-batch eager
 eval loop measured in the same run. `--spectral-bwd` sets, for the run, which
-backward the spectral cell trains with (`ops.cuda_spectral.SAVE_ACTS_BWD`),
-`--spectral-acts` how the reread pair stores its saved arrays at bf16
-(`ops.cuda_spectral.SAVE_ACTS_F32`: f32, the default, or bf16).
+backward the spectral cell trains with (`ops.cuda_spectral.SAVE_ACTS_BWD`).
 `--bf16` runs the step (or the eval program) at compute_dtype "bfloat16", the
 JAX bench's `--bf16`: the graph conv's and spectral kernels' bf16 arms. The
 default stays float32, the precision of the baseline file, so a bf16 train
@@ -182,10 +180,6 @@ def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
     res["loss"] = last["loss"]
     res["warmup_s"] = warmup_s  # the warm chunks, the first with its capture
     res["spectral_bwd"] = "reread" if cuda_spectral.SAVE_ACTS_BWD else "recompute"
-    # the reread pair's saved arrays: bf16 only at bf16 with SAVE_ACTS_F32 off
-    bf16_acts = (cuda_spectral.SAVE_ACTS_BWD and not cuda_spectral.SAVE_ACTS_F32
-                 and compute_dtype == "bfloat16")
-    res["spectral_acts"] = "bf16" if bf16_acts else "f32"
     res["mfu"] = mfu_fn(cfg, batch, step_time, card_info(dev)["device"])
     res.update(card_info(dev))
     return res
@@ -252,10 +246,6 @@ def main(argv=None):
                     help="train with the spectral cell's saving forward and reread "
                          "backward, or with its recompute backward (default: as "
                          "ops.cuda_spectral.SAVE_ACTS_BWD is set)")
-    ap.add_argument("--spectral-acts", choices=["f32", "bf16"], default=None,
-                    help="with --bf16 and the reread backward: store the saved "
-                         "arrays as f32 or as bf16 (default: as "
-                         "ops.cuda_spectral.SAVE_ACTS_F32 is set)")
     ap.add_argument("--bf16", action="store_true",
                     help="compute_dtype bfloat16: the graph conv's and spectral "
                          "kernels' bf16 arms (vs_baseline stays against the float32 "
@@ -295,15 +285,13 @@ def main(argv=None):
         }))
         return
 
-    saved = cuda_spectral.SAVE_ACTS_BWD, cuda_spectral.SAVE_ACTS_F32
+    saved = cuda_spectral.SAVE_ACTS_BWD
     if args.spectral_bwd is not None:
         cuda_spectral.SAVE_ACTS_BWD = args.spectral_bwd == "reread"
-    if args.spectral_acts is not None:
-        cuda_spectral.SAVE_ACTS_F32 = args.spectral_acts == "f32"
     try:
         res = measure(**common)
     finally:
-        cuda_spectral.SAVE_ACTS_BWD, cuda_spectral.SAVE_ACTS_F32 = saved
+        cuda_spectral.SAVE_ACTS_BWD = saved
 
     if args.set_baseline:
         with open(BASELINE_PATH, "w") as f:
@@ -345,7 +333,6 @@ def main(argv=None):
             "power_limit": res["power_limit"],
             "precision": precision,
             "spectral_bwd": res["spectral_bwd"],
-            "spectral_acts": res["spectral_acts"],
             "method": "chunked64-median",
             "baseline_precision": "float32" if baseline else None,
             "baseline_device": baseline["device"] if baseline else None,

@@ -123,6 +123,20 @@
 // scalar kernels of the f32 arm's design, their bf16 operands converted to
 // f32 (exact) and summed in the f32 arm's fmaf order.
 
+// The bf16-storage arm of the bf16 saving pair (`spectral_fwd_save_bf16acts`,
+// `spectral_bwd_reread_bf16acts`): the JAX package's `_kernel_save` with
+// SAVE_ACTS_F32 off, whose 12 arrays take the compute dtype (act_dtype,
+// pallas_spectral.py:213), and `_bwd_kernel_reread` on them. The same kernels,
+// the storage type a template parameter TA (float by default, which leaves
+// the f32-storage code as it was): the chain kernels round the f32 a and s
+// they already hold to bf16 as they store them (so the planes are bitwise the
+// f32-storage planes rounded, and the output does not change), and the rows
+// kernels' epilogues and the scalar weight-gradient kernel read them back as
+// bf16 and use the rounded values everywhere, u = round(a * s) too, as the
+// TPU kernel upcasts what it reads. Bound: bytes, half the f32 arm's saved
+// arrays (25.8 MB at the flagship shapes). The recompute backward keeps f32
+// planes: the JAX recompute stores nothing.
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1975,34 +1989,71 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
       TA* ga = kSave ? acts + (2 * gi) * plane : nullptr;
       TA* gs = kSave ? acts + (2 * gi + 1) * plane : nullptr;
       const bool keep_u = kOut || layer < 2;
+      if constexpr (std::is_same<TA, float>::value) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = n0 + 8 * nt + 2 * tq;
-        if (col >= d1) continue;
-        const float2 bL = __ldg(reinterpret_cast<const float2*>(g.bl[gi] + col));
-        const float2 bR = __ldg(reinterpret_cast<const float2*>(g.br[gi] + col));
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = n0 + 8 * nt + 2 * tq;
+          if (col >= d1) continue;
+          const float2 bL = __ldg(reinterpret_cast<const float2*>(g.bl[gi] + col));
+          const float2 bR = __ldg(reinterpret_cast<const float2*>(g.br[gi] + col));
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+          for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = 16 * mt + gq + 8 * h;
-            const float a0 = accl[mt][nt][2 * h] + bL.x, a1 = accl[mt][nt][2 * h + 1] + bL.y;
-            const float s0 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h] + bR.x)));
-            const float s1 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h + 1] + bR.y)));
-            if (keep_u) *reinterpret_cast<uint32_t*>(nxt + r * S + col) = pack_bf16x2(a0 * s0, a1 * s1);
-            if (kSave) {
-              const long row = row0 + r;
-              if (row < rows_pad) {
-                if constexpr (std::is_same<TA, float>::value) {
+            for (int h = 0; h < 2; ++h) {
+              const int r = 16 * mt + gq + 8 * h;
+              const float a0 = accl[mt][nt][2 * h] + bL.x, a1 = accl[mt][nt][2 * h + 1] + bL.y;
+              const float s0 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h] + bR.x)));
+              const float s1 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h + 1] + bR.y)));
+              if (keep_u) *reinterpret_cast<uint32_t*>(nxt + r * S + col) = pack_bf16x2(a0 * s0, a1 * s1);
+              if (kSave) {
+                const long row = row0 + r;
+                if (row < rows_pad) {
                   __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), make_float2(a0, a1));
                   __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), make_float2(s0, s1));
-                } else {
-                  __stcs(reinterpret_cast<unsigned int*>(ga + row * d1 + col), pack_bf16x2(a0, a1));
-                  __stcs(reinterpret_cast<unsigned int*>(gs + row * d1 + col), pack_bf16x2(s0, s1));
                 }
               }
             }
+        }
+      } else {
+        // bf16 planes: the lanes of a pair (tq, tq ^ 1) trade the halves of
+        // their two rows, so that each stores 4 consecutive values of one row
+        // (8 bytes) an array, the even lane row r, the odd one row r + 8: half
+        // the store instructions of 4 bytes each. A pair's 4 columns are all
+        // live or all past D1 (D1 % 4 == 0); every lane takes part in the
+        // shuffles.
+        const bool odd = tq & 1;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = n0 + 8 * nt + 2 * tq;
+          const bool live = col < d1;
+          const float2 bL = live ? __ldg(reinterpret_cast<const float2*>(g.bl[gi] + col))
+                                 : make_float2(0.f, 0.f);
+          const float2 bR = live ? __ldg(reinterpret_cast<const float2*>(g.br[gi] + col))
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t pa[2], ps[2];  // a and s of rows 16 mt + gq (+ 8), columns col, col + 1
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 16 * mt + gq + 8 * h;
+              const float a0 = accl[mt][nt][2 * h] + bL.x, a1 = accl[mt][nt][2 * h + 1] + bL.y;
+              const float s0 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h] + bR.x)));
+              const float s1 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h + 1] + bR.y)));
+              if (keep_u && live)
+                *reinterpret_cast<uint32_t*>(nxt + r * S + col) = pack_bf16x2(a0 * s0, a1 * s1);
+              pa[h] = pack_bf16x2(a0, a1);
+              ps[h] = pack_bf16x2(s0, s1);
+            }
+            const uint32_t ta = __shfl_xor_sync(0xffffffffu, odd ? pa[0] : pa[1], 1);
+            const uint32_t ts = __shfl_xor_sync(0xffffffffu, odd ? ps[0] : ps[1], 1);
+            const long row = row0 + 16 * mt + gq + (odd ? 8 : 0);
+            if (live && row < rows_pad) {
+              const long at = row * d1 + col - (odd ? 2 : 0);
+              __stcg(reinterpret_cast<uint2*>(ga + at), odd ? make_uint2(ta, pa[1]) : make_uint2(pa[0], ta));
+              __stcg(reinterpret_cast<uint2*>(gs + at), odd ? make_uint2(ts, ps[1]) : make_uint2(ps[0], ts));
+            }
           }
+        }
       }
     }
   }

@@ -775,24 +775,16 @@ def spectral_fwd_mma(dev, tmp: Path) -> None:
 
 
 # The bf16-storage arm's a, s stores in the chain kernel on tensor cores: as
-# they are (streaming stores of a bf16 pair), plain stores, stores cached in
-# L2 only, and none (what they cost).
-_ACTS_STORE = ("__stcs(reinterpret_cast<unsigned int*>(ga + row * d1 + col), "
-               "pack_bf16x2(a0, a1));")
-_ACTS_STORE_S = ("__stcs(reinterpret_cast<unsigned int*>(gs + row * d1 + col), "
-                 "pack_bf16x2(s0, s1));")
+# they are (8 bytes a lane after a lane-pair exchange, cached in L2 only),
+# streaming (evict-first) stores, and none (what they cost).
+_ACTS_STORE = ("__stcg(reinterpret_cast<uint2*>(ga + at), odd ? make_uint2(ta, pa[1]) : "
+               "make_uint2(pa[0], ta));")
+_ACTS_STORE_S = ("__stcg(reinterpret_cast<uint2*>(gs + at), odd ? make_uint2(ts, ps[1]) : "
+                 "make_uint2(ps[0], ts));")
 SPECTRAL_ACTS_VARIANTS = {
     "base": [],
-    "plain stores": [
-        (_ACTS_STORE, "*reinterpret_cast<unsigned int*>(ga + row * d1 + col) = "
-                      "pack_bf16x2(a0, a1);"),
-        (_ACTS_STORE_S, "*reinterpret_cast<unsigned int*>(gs + row * d1 + col) = "
-                        "pack_bf16x2(s0, s1);")],
-    "L2 stores": [
-        (_ACTS_STORE, "__stcg(reinterpret_cast<unsigned int*>(ga + row * d1 + col), "
-                      "pack_bf16x2(a0, a1));"),
-        (_ACTS_STORE_S, "__stcg(reinterpret_cast<unsigned int*>(gs + row * d1 + col), "
-                        "pack_bf16x2(s0, s1));")],
+    "streaming stores": [(_ACTS_STORE, _ACTS_STORE.replace("__stcg", "__stcs")),
+                         (_ACTS_STORE_S, _ACTS_STORE_S.replace("__stcg", "__stcs"))],
     "no stores": [(_ACTS_STORE, ""), (_ACTS_STORE_S, "")],
 }
 
