@@ -1989,71 +1989,37 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
       TA* ga = kSave ? acts + (2 * gi) * plane : nullptr;
       TA* gs = kSave ? acts + (2 * gi + 1) * plane : nullptr;
       const bool keep_u = kOut || layer < 2;
-      if constexpr (std::is_same<TA, float>::value) {
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int col = n0 + 8 * nt + 2 * tq;
-          if (col >= d1) continue;
-          const float2 bL = __ldg(reinterpret_cast<const float2*>(g.bl[gi] + col));
-          const float2 bR = __ldg(reinterpret_cast<const float2*>(g.br[gi] + col));
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = n0 + 8 * nt + 2 * tq;
+        if (col >= d1) continue;
+        const float2 bL = __ldg(reinterpret_cast<const float2*>(g.bl[gi] + col));
+        const float2 bR = __ldg(reinterpret_cast<const float2*>(g.br[gi] + col));
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = 16 * mt + gq + 8 * h;
-              const float a0 = accl[mt][nt][2 * h] + bL.x, a1 = accl[mt][nt][2 * h + 1] + bL.y;
-              const float s0 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h] + bR.x)));
-              const float s1 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h + 1] + bR.y)));
-              if (keep_u) *reinterpret_cast<uint32_t*>(nxt + r * S + col) = pack_bf16x2(a0 * s0, a1 * s1);
-              if (kSave) {
-                const long row = row0 + r;
-                if (row < rows_pad) {
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * mt + gq + 8 * h;
+            const float a0 = accl[mt][nt][2 * h] + bL.x, a1 = accl[mt][nt][2 * h + 1] + bL.y;
+            const float s0 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h] + bR.x)));
+            const float s1 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h + 1] + bR.y)));
+            if (keep_u) *reinterpret_cast<uint32_t*>(nxt + r * S + col) = pack_bf16x2(a0 * s0, a1 * s1);
+            if (kSave) {
+              const long row = row0 + r;
+              if (row < rows_pad) {
+                if constexpr (std::is_same<TA, float>::value) {
                   __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), make_float2(a0, a1));
                   __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), make_float2(s0, s1));
+                } else {
+                  // bf16 planes: a pair as one word, cached in L2 only (faster
+                  // than streaming stores here, and than 8-byte stores after an
+                  // exchange between the lanes of a pair: PERF.md, PR 12)
+                  __stcg(reinterpret_cast<unsigned int*>(ga + row * d1 + col), pack_bf16x2(a0, a1));
+                  __stcg(reinterpret_cast<unsigned int*>(gs + row * d1 + col), pack_bf16x2(s0, s1));
                 }
               }
             }
-        }
-      } else {
-        // bf16 planes: the lanes of a pair (tq, tq ^ 1) trade the halves of
-        // their two rows, so that each stores 4 consecutive values of one row
-        // (8 bytes) an array, the even lane row r, the odd one row r + 8: half
-        // the store instructions of 4 bytes each. A pair's 4 columns are all
-        // live or all past D1 (D1 % 4 == 0); every lane takes part in the
-        // shuffles.
-        const bool odd = tq & 1;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int col = n0 + 8 * nt + 2 * tq;
-          const bool live = col < d1;
-          const float2 bL = live ? __ldg(reinterpret_cast<const float2*>(g.bl[gi] + col))
-                                 : make_float2(0.f, 0.f);
-          const float2 bR = live ? __ldg(reinterpret_cast<const float2*>(g.br[gi] + col))
-                                 : make_float2(0.f, 0.f);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            uint32_t pa[2], ps[2];  // a and s of rows 16 mt + gq (+ 8), columns col, col + 1
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = 16 * mt + gq + 8 * h;
-              const float a0 = accl[mt][nt][2 * h] + bL.x, a1 = accl[mt][nt][2 * h + 1] + bL.y;
-              const float s0 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h] + bR.x)));
-              const float s1 = __fdividef(1.f, 1.f + __expf(-(accr[mt][nt][2 * h + 1] + bR.y)));
-              if (keep_u && live)
-                *reinterpret_cast<uint32_t*>(nxt + r * S + col) = pack_bf16x2(a0 * s0, a1 * s1);
-              pa[h] = pack_bf16x2(a0, a1);
-              ps[h] = pack_bf16x2(s0, s1);
-            }
-            const uint32_t ta = __shfl_xor_sync(0xffffffffu, odd ? pa[0] : pa[1], 1);
-            const uint32_t ts = __shfl_xor_sync(0xffffffffu, odd ? ps[0] : ps[1], 1);
-            const long row = row0 + 16 * mt + gq + (odd ? 8 : 0);
-            if (live && row < rows_pad) {
-              const long at = row * d1 + col - (odd ? 2 : 0);
-              __stcg(reinterpret_cast<uint2*>(ga + at), odd ? make_uint2(ta, pa[1]) : make_uint2(pa[0], ta));
-              __stcg(reinterpret_cast<uint2*>(gs + at), odd ? make_uint2(ts, ps[1]) : make_uint2(ps[0], ts));
-            }
           }
-        }
       }
     }
   }

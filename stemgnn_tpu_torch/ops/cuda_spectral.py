@@ -36,7 +36,8 @@ Every entry takes `compute_dtype`, the JAX package's precision policy. At
 "bfloat16" the wrappers fold the DFT in f32 and then cast x, the 2-D GLU
 weights and the inverse DFT's block to bf16, as `_forward` and `_backward`
 cast them before their kernels, and launch the kernels' bf16 arms; biases,
-outputs and the 12 saved arrays stay f32. A backward's cotangent goes to the
+outputs and the 12 saved arrays stay f32 (the arrays bf16 with
+`SAVE_ACTS_F32` off, above). A backward's cotangent goes to the
 kernels as f32, which round it to bf16 as they stage it (the same bits as a
 cast). Up to D1 = 2048 the bf16 forwards and backwards run on tensor cores
 (mma.sync) by the tile plans `fwd_mma_plan` and `bwd_mma_plan` (the

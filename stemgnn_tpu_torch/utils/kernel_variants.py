@@ -775,12 +775,10 @@ def spectral_fwd_mma(dev, tmp: Path) -> None:
 
 
 # The bf16-storage arm's a, s stores in the chain kernel on tensor cores: as
-# they are (8 bytes a lane after a lane-pair exchange, cached in L2 only),
-# streaming (evict-first) stores, and none (what they cost).
-_ACTS_STORE = ("__stcg(reinterpret_cast<uint2*>(ga + at), odd ? make_uint2(ta, pa[1]) : "
-               "make_uint2(pa[0], ta));")
-_ACTS_STORE_S = ("__stcg(reinterpret_cast<uint2*>(gs + at), odd ? make_uint2(ts, ps[1]) : "
-                 "make_uint2(ps[0], ts));")
+# they are (a bf16 pair a word, cached in L2 only), streaming (evict-first),
+# and none (what they cost).
+_ACTS_STORE = "__stcg(reinterpret_cast<unsigned int*>(ga + row * d1 + col), pack_bf16x2(a0, a1));"
+_ACTS_STORE_S = "__stcg(reinterpret_cast<unsigned int*>(gs + row * d1 + col), pack_bf16x2(s0, s1));"
 SPECTRAL_ACTS_VARIANTS = {
     "base": [],
     "streaming stores": [(_ACTS_STORE, _ACTS_STORE.replace("__stcg", "__stcs")),
@@ -874,7 +872,8 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
     at W = 25 and at the COVID-19 shape, and both arms of the graph conv at
     the flagship's and the COVID-19 shape, every output bitwise equal; and
     both trees' times, in the order other, this, this, other, the bf16
-    reread backward's too (its sums differ: times only)."""
+    reread backward's and bf16 forwards' too, their outputs compared (equal
+    where both trees run the same bf16 design, else their sums differ)."""
     from stemgnn_tpu_torch.ops import cuda_spectral
 
     csrc = other / "stemgnn_tpu_torch" / "csrc"
@@ -921,16 +920,22 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
         _, acts = cuda_spectral._launch_fwd(x, weights, ci, si, 5, save=True)
     calls = {tree: _bf16_reread_call(lib, x, g, weights, ci, si, 5, acts)
              for tree, lib in libs.items()}
+    outs = {tree: [t.clone() for t in call()] for tree, call in calls.items()}
+    same = all(torch.equal(a, b_) for a, b_ in zip(outs["this"], outs["other"]))
     ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
-    print(f"spectral_bwd_reread_bf16 flagship: this tree against {other}: ms in the order "
-          f"other, this, this, other: {ms}")
+    print(f"spectral_bwd_reread_bf16 flagship: this tree against {other}: dx and gradients "
+          f"{'bitwise equal' if same else 'DIFFER'}; ms in the order other, this, this, "
+          f"other: {ms}")
     # and both trees' bf16 forwards' C entries (this tree's chain on tensor
     # cores): times only, as above
     calls = {tree: _bf16_fwd_calls(lib, x, weights, ci, si, 5) for tree, lib in libs.items()}
     for i, entry in enumerate(("spectral_fwd_bf16", "spectral_fwd_save_bf16")):
+        outs = {tree: [t.clone() for t in calls[tree][i]() if t is not None] for tree in libs}
+        same = all(torch.equal(a, b_) for a, b_ in zip(outs["this"], outs["other"]))
         ms = [round(_cuda_ms(calls[tree][i]), 5) for tree in ("other", "this", "this", "other")]
-        print(f"{entry} flagship: this tree against {other}: ms in the order other, this, "
-              f"this, other: {ms}")
+        print(f"{entry} flagship: this tree against {other}: output"
+              f"{' and saved arrays' if i else ''} {'bitwise equal' if same else 'DIFFER'}; ms "
+              f"in the order other, this, this, other: {ms}")
     graph_libs = {"other": _build_other(csrc / "graph.cu", tmp),
                   "this": _build.library("graph")}
     # an other tree with this tree's graph.cu takes its operands as this one
