@@ -66,7 +66,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
      arm's times, and at every spectral shape above: its 12 bf16 planes
      bitwise the f32-storage planes rounded to bf16, its output bitwise, two
      rereads bitwise, both held to the arm's plain versions by the bf16 rules;
-     both storage arms timed at the COVID-19 shape and past D1 = 2048.
+     both storage arms timed at the COVID-19 shape and past D1 = 2048. The
+     stretch path's kernels at its own shapes: the GRU cluster kernels at a
+     segment's step count, no longer the hidden size (synthetic-100k-seggru:
+     1024 steps of 100 rows at H = 64, on the GRU input and cotangent of one
+     train step of the CPU plain path; synthetic-4k-seggru: 512 steps of 32
+     rows at H = 128, seeded), within GRID_ATOL_REL of each array's largest
+     entry, the backward twice bitwise, timed beside the bound and cuDNN; the
+     spectral serving and saving forwards and the reread backward of both
+     arms at 102,400 rows, D1 = 96, on seeded inputs, by the rules above,
+     timed beside their bounds, and every spectral rule of `spectral_checks`
+     at that shape.
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -81,6 +91,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
      same train step at synthetic-1k's shape (N = 1024, batch 8). Then the
      same, a batch and a train step, for the COVID-19 shape (the README's
      COVID-19 command: N = 25, W = 28, horizon 28, multi 5) on a seeded series.
+     Then the stretch path (sparse latent graph, `ops/sparse.py`): two windows
+     of synthetic-100k-seggru (102,400 nodes, multi 2, batch 1, sparse_k 64,
+     a 64-unit GRU over segments of 1024 nodes) and two batches of the
+     dense-GRU sparse variant (sparse_k 64 at N = 1024, batch 8: the grid GRU)
+     through engine.inference_batched on seeded series, counters set to 0
+     just before and read just after, the forecasts and the first batch's
+     graph (the top-k index set; c, degree, inv_sqrt) against the CPU plain
+     path.
   5. train path: engine.train on the card, one epoch of ECG_data with its
      validate pass (batch 32, RMSProp, dropout 0.5), counters set to 0 just
      before and read just after and held against the expected launches per
@@ -94,11 +112,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
      twice, bitwise, with its counters; one step at param_dtype bfloat16 at
      each compute_dtype against the CPU, every gradient's and moment's dtype
      the JAX package's (f32 for the leaves whose gradient a kernel returns);
-     three RMSProp steps against the CPU; and train windows/s.
+     three RMSProp steps against the CPU; and train windows/s. The stretch
+     path: one train step of each of phase 4's two stretch models with its
+     [N, k] mask, counters around it, loss and every gradient against the
+     CPU plain path, twice bitwise, and the 100k step's peak allocated memory
+     (at most 10 GB); one epoch of engine.train on ECG_data with --sparse_k
+     16 --gru_hidden 32 --gru_segment 35, counters held to the expected
+     launches.
   6. chunk path: one 16-step chunk through engine.make_epoch_fn (a captured
      CUDA graph) against the same steps through the eager train step: losses,
      parameters and optimizer state bitwise equal; the same at param_dtype
-     bfloat16 (bf16 parameters, f32 and bf16 moments).
+     bfloat16 (bf16 parameters, f32 and bf16 moments), and for
+     synthetic-100k-seggru (its [N, k] masks).
   7. bench path: bench.measure and bench.measure_eval at full width, their
      results as JSON lines; the train step with the spectral saving forward
      and reread backward (SAVE_ACTS_BWD on) against the recompute backward,
@@ -107,7 +132,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
      compute_dtype bfloat16 with each spectral backward; the bf16 reread step
      with each storage of the saved arrays, in the order f32, bf16, bf16,
      f32; the eager eval loop beside the eval program, and the eval program
-     at bfloat16.
+     at bfloat16; bench.measure and bench.measure_eval at
+     synthetic-100k-seggru, f32 and bf16 (chunks of STRETCH_CHUNK steps,
+     STRETCH_STEPS a timed window), counters around each.
   8. asynchronous checkpoint: one submit, wait, load, compare with the live
      parameters and optimizer state; the same for phase 6's bf16 parameters
      and mixed-dtype moments, dtype for dtype.
@@ -147,6 +174,16 @@ S1K_NODES, S1K_BATCH = 1024, 8
 # the README's COVID-19 command (--window_size 28 --horizon 28, multi_layer 5):
 # 25 nodes, D1 = 560, the JAX package's COVID-19 suite cell (benchmarks/suite.py)
 COVID_NODES, COVID_WINDOW, COVID_HORIZON = 25, 28, 28
+# the stretch path: the JAX package's synthetic-100k-seggru suite cell
+# (benchmarks/suite.py:51; 102,400 nodes, multi 2, batch 1, a top-64 latent
+# graph, a GRU of 64 hidden units over segments of 1024 nodes), its
+# synthetic-4k-seggru GRU (hidden 128 over segments of 512 at batch 4), and
+# the dense-GRU sparse variant (sparse_k 64 alone) at synthetic-1k's N and batch
+S100K = "synthetic-100k-seggru"
+S4K_GRU = dict(nodes=4096, batch=4, hidden=128, segment=512)
+SPARSE_K = 64
+# phase 7's synthetic-100k-seggru bench: steps a captured chunk, steps a timed window
+STRETCH_CHUNK, STRETCH_STEPS = 16, 32
 
 
 def _fail(msg: str) -> int:
@@ -225,10 +262,11 @@ def bound(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
 
 class OpRecorder:
     """For one forward and backward of the model: keeps, for each call of the
-    four op wrappers of `stemgnn_tpu_torch.ops`, its arguments, its output and
+    five op wrappers of `stemgnn_tpu_torch.ops`, its arguments, its output and
     the cotangent that reaches the output."""
 
-    NAMES = ("gru_over_nodes", "attention_kq", "cheb_graph_conv", "spe_seq_cell")
+    NAMES = ("gru_over_nodes", "gru_over_nodes_segmented", "attention_kq", "cheb_graph_conv",
+             "spe_seq_cell")
 
     def __init__(self, ops):
         self.ops = ops
@@ -299,6 +337,45 @@ def compare_grads(grads, grads_cpu, atol_rel=GRAD_ATOL_REL, rtol=GRAD_RTOL):
         if not torch.allclose(g, g_cpu, atol=atol, rtol=rtol):
             bad.append((k, err, g_cpu.abs().max().item()))
     return bad, worst, worst_name
+
+
+# A stretch train step's gradients, card against the CPU. At 102,400 nodes the
+# top-k columns' A^T x sums over every node, so the spectral cell's input
+# reaches |x| ~ 1e4 on those rows and the step's gradients are sums of terms
+# far larger than their results: the CPU's own f32 step stands up to 4.6e-2
+# of a gradient's largest entry from its f64 step (this script's phase 5, on
+# the host of an NVIDIA H100 80GB HBM3). So each gradient of the card's step is held to
+# the CPU's f64 step (the same inputs and mask) within the larger of
+# GRAD_ATOL_REL of its largest entry and STEP_NOISE_FACTOR times the CPU f32
+# step's own distance to it, and over all gradients within STEP_NOISE_L2
+# times that distance in L2. Measured on the card: 7.8 times at worst (a bias
+# gradient: the card adds 6,400 row tiles' partial sums in order, the CPU sums
+# pairwise), 2.06 times in L2.
+STEP_NOISE_FACTOR, STEP_NOISE_L2 = 10.0, 4.0
+
+
+def noise_grads_agreement(grads, g32, g64):
+    """(leaves out of tolerance, the worst max|K - P64| over max|P32 - P64| of
+    a leaf and its name, the L2 ratio) of the card's gradients `grads` against
+    the CPU's f64 step `g64`, with the CPU's f32 step `g32` as the scale (the
+    rule above)."""
+    import torch
+
+    bad, worst, worst_name, d_k, d_32 = [], 0.0, "", 0.0, 0.0
+    for name, a64 in g64.items():
+        k, a32 = grads[name].detach().double().cpu(), g32[name].detach().double().cpu()
+        err, noise = torch.dist(k, a64, math.inf).item(), torch.dist(a32, a64, math.inf).item()
+        if err > max(GRAD_ATOL_REL * a64.abs().max().item(), STEP_NOISE_FACTOR * noise) + 1e-30:
+            bad.append((name, err, noise))
+        ratio = err / noise if noise > 0 else (math.inf if err else 0.0)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        d_k += torch.dist(k, a64).item() ** 2
+        d_32 += torch.dist(a32, a64).item() ** 2
+    l2 = math.sqrt(d_k / d_32) if d_32 > 0 else (math.inf if d_k else 0.0)
+    if not l2 <= STEP_NOISE_L2:
+        bad.append(("L2", l2, STEP_NOISE_L2))
+    return bad, worst, worst_name, l2
 
 
 # The bf16 arms against their bf16 plain versions. Both round to bf16 at the
@@ -454,8 +531,7 @@ def backward_cases(rec, params, mcfg, dev):
     of the CPU plain path saved and sent back (`rec`, an OpRecorder)."""
     import torch
 
-    from stemgnn_tpu_torch.ops import cuda_attention, cuda_gru, cuda_spectral
-    from stemgnn_tpu_torch.ops import torch_impl
+    from stemgnn_tpu_torch.ops import cuda_attention, cuda_gru, torch_impl
 
     def on_card(t):
         return t.detach().to(dev).contiguous()
@@ -478,30 +554,6 @@ def backward_cases(rec, params, mcfg, dev):
     p_att, g_att = on_card(call["out"]), on_card(call["g"])
 
     call = rec.calls["spe_seq_cell"][0]
-    gfted, g_spe = on_card(call["args"][0]), on_card(call["g"])
-    multi = call["args"][2]
-    glu = [{s: {leaf: t.detach() for leaf, t in p[s].items()} for s in p}
-           for p in params["blocks"][0]["glu"]]
-    k = gfted.shape[1]
-    wm = w * multi
-    d0, d1 = k * w, k * wm
-    rows = b * n
-    glu_w = sum(t.numel() for t in cuda_spectral._flat(glu))
-    glu_flops = 2 * rows * (4 * d0 * d1 + 8 * d1 * d1)
-
-    def flat_spe(res):
-        dx, dglu = res
-        return torch.cat([dx.reshape(-1)] + [t.reshape(-1) for t in
-                                             cuda_spectral._flat(dglu)])
-
-    with torch.no_grad():
-        _, acts = cuda_spectral.spe_seq_cell_save(gfted, glu, multi)
-    # the products back to the inputs and the weight-gradient products (each
-    # the six GLUs' size), the inverse DFT backwards per order block, the fold
-    # and the unfold
-    reread_flops = 2 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1
-    spe_bytes = 4 * (2 * rows * d0 + rows * d1 + 2 * glu_w)
-
     return [
         ("gru_bwd", "stemgnn_tpu_torch/csrc/gru.cu",
          "stemgnn_tpu/ops/pallas_gru.py:132",
@@ -521,6 +573,39 @@ def backward_cases(rec, params, mcfg, dev):
          1e-5, 1e-4,
          4 * (4 * b * n + 2 * b * n * n),
          8 * b * n * n),
+    ] + spectral_bwd_cases(on_card(call["args"][0]), params["blocks"][0]["glu"],
+                           on_card(call["g"]), call["args"][2])
+
+
+def spectral_bwd_cases(gfted, glu, g_spe, multi: int):
+    """The two f32 spectral backward kernels, as `backward_cases` gives the
+    others, on the cell's input gfted [B, 4, N, W], its six GLU dicts and the
+    cotangent g_spe of its output."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    glu = [{s: {leaf: t.detach() for leaf, t in p[s].items()} for s in p} for p in glu]
+    b, k, n, w = gfted.shape
+    wm = w * multi
+    d0, d1 = k * w, k * wm
+    rows = b * n
+    glu_w = sum(t.numel() for t in cuda_spectral._flat(glu))
+    glu_flops = 2 * rows * (4 * d0 * d1 + 8 * d1 * d1)
+
+    def flat_spe(res):
+        dx, dglu = res
+        return torch.cat([dx.reshape(-1)] + [t.reshape(-1) for t in
+                                             cuda_spectral._flat(dglu)])
+
+    with torch.no_grad():
+        _, acts = cuda_spectral.spe_seq_cell_save(gfted, glu, multi)
+    # the products back to the inputs and the weight-gradient products (each
+    # the six GLUs' size), the inverse DFT backwards per order block, the fold
+    # and the unfold
+    reread_flops = 2 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1
+    spe_bytes = 4 * (2 * rows * d0 + rows * d1 + 2 * glu_w)
+    return [
         ("spectral_bwd", "stemgnn_tpu_torch/csrc/spectral.cu",
          "stemgnn_tpu/ops/pallas_spectral.py:250",
          lambda: flat_spe(cuda_spectral.spe_seq_cell_bwd(gfted, glu, g_spe, multi)),
@@ -570,33 +655,16 @@ def forward_cases(params, mcfg, x):
     import torch
 
     from stemgnn_tpu_torch.ops import cuda_attention, cuda_graph, cuda_gru
-    from stemgnn_tpu_torch.ops import cuda_spectral
 
     b, w, n = x.shape
     k = 4
-    wm = w * mcfg.multi_layer
-    d0, d1 = k * w, k * wm
-    rows = b * n
     gru = params["gru"]
     key, query, mul_L, feat, gfted = forward_inputs(params, mcfg, x)
-    glu = params["blocks"][0]["glu"]
 
     cudnn_gru = cudnn_gru_like(gru, x.device)
     xs = x.permute(2, 0, 1).contiguous()  # [N, B, W], cuDNN's sequence-major input
     xt = feat.permute(1, 0, 2).reshape(n, b * w).contiguous()  # [N, B*W]
     lk = mul_L[1:].contiguous()
-
-    glu_w = sum(p[s]["w"].numel() + p[s]["b"].numel() for p in glu
-                for s in ("left", "right"))
-    # six GLUs, the inverse DFT and the fold, the two DFTs counted per order
-    # block: their off-diagonal blocks are zeros
-    spe_flops = (2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm)
-                 + 8 * k * w * w * d1)
-
-    def flat_save(res):  # the output and the 12 saved arrays' real rows
-        out, acts = res
-        return torch.cat([out.reshape(-1), acts[:, :rows].reshape(-1)])
-
     return [
         ("gru_fwd", "stemgnn_tpu_torch/csrc/gru.cu",
          "stemgnn_tpu/ops/pallas_gru.py:103",
@@ -621,10 +689,36 @@ def forward_cases(params, mcfg, x):
          1e-4, 1e-5,  # 140-term f32 sums in another order than cuBLAS
          4 * (k * n * n + b * n * w + b * k * n * w),
          2 * (k - 1) * n * n * b * w),
+    ] + spectral_fwd_cases(gfted, params["blocks"][0]["glu"], mcfg.multi_layer)
+
+
+def spectral_fwd_cases(gfted, glu, multi: int):
+    """The two f32 spectral forward kernels, as `forward_cases` gives the
+    others, on the cell's input gfted [B, 4, N, W] and its six GLU dicts."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = gfted.shape
+    wm = w * multi
+    d0, d1 = k * w, k * wm
+    rows = b * n
+    glu_w = sum(p[s]["w"].numel() + p[s]["b"].numel() for p in glu
+                for s in ("left", "right"))
+    # six GLUs, the inverse DFT and the fold, the two DFTs counted per order
+    # block: their off-diagonal blocks are zeros
+    spe_flops = (2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm)
+                 + 8 * k * w * w * d1)
+
+    def flat_save(res):  # the output and the 12 saved arrays' real rows
+        out, acts = res
+        return torch.cat([out.reshape(-1), acts[:, :rows].reshape(-1)])
+
+    return [
         ("spectral_fwd", "stemgnn_tpu_torch/csrc/spectral.cu",
          "stemgnn_tpu/ops/pallas_spectral.py:81",
-         lambda: cuda_spectral.spe_seq_cell(gfted, glu, mcfg.multi_layer),
-         lambda: cuda_spectral.spe_seq_cell_plain(gfted, glu, mcfg.multi_layer),
+         lambda: cuda_spectral.spe_seq_cell(gfted, glu, multi),
+         lambda: cuda_spectral.spe_seq_cell_plain(gfted, glu, multi),
          None,
          # DFT as f32 products (kernel) against cuFFT (plain), as the CPU test
          # of the Pallas kernel holds them (tests/test_pallas_kernels.py:47)
@@ -633,10 +727,8 @@ def forward_cases(params, mcfg, x):
          spe_flops),
         ("spectral_fwd_save", "stemgnn_tpu_torch/csrc/spectral.cu",
          "stemgnn_tpu/ops/pallas_spectral.py:104",
-         lambda: flat_save(cuda_spectral.spe_seq_cell_save(gfted, glu,
-                                                           mcfg.multi_layer)),
-         lambda: flat_save(cuda_spectral.spe_seq_cell_save_plain(gfted, glu,
-                                                                 mcfg.multi_layer)),
+         lambda: flat_save(cuda_spectral.spe_seq_cell_save(gfted, glu, multi)),
+         lambda: flat_save(cuda_spectral.spe_seq_cell_save_plain(gfted, glu, multi)),
          None,
          # both sides take the DFT as f32 products; 240-term sums in another
          # order than cuBLAS through three layers
@@ -656,24 +748,13 @@ def bf16_cases(rec, params, mcfg, x):
     `backward_cases`). Bytes count the kernels' operands as bf16."""
     import torch
 
-    from stemgnn_tpu_torch.ops import cuda_graph, cuda_spectral
+    from stemgnn_tpu_torch.ops import cuda_graph
 
     b, w, n = x.shape
     k = 4
-    wm = w * mcfg.multi_layer
-    d0, d1 = k * w, k * wm
-    rows = b * n
-    multi = mcfg.multi_layer
     bf = "bfloat16"
     dev = x.device
     _, _, mul_L, feat, gfted = forward_inputs(params, mcfg, x)
-    glu = params["blocks"][0]["glu"]
-    glu_2d = sum(p[s]["w"].numel() for p in glu for s in ("left", "right"))
-    glu_b = sum(p[s]["b"].numel() for p in glu for s in ("left", "right"))
-    spe_flops = (2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm)
-                 + 8 * k * w * w * d1)
-    glu_flops = 2 * rows * (4 * d0 * d1 + 8 * d1 * d1)
-    reread_flops = 2 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1
 
     # the library yardstick of the graph conv: one product of bf16 operands
     # with an f32 result, where this torch build has torch.mm's out_dtype
@@ -688,10 +769,42 @@ def bf16_cases(rec, params, mcfg, x):
         lib = None
 
     call = rec.calls["spe_seq_cell"][0]
-    g_spe = call["g"].detach().to(dev).contiguous()
-    gfted_bwd = call["args"][0].detach().to(dev).contiguous()
-    glu_bwd = [{s: {leaf: t.detach() for leaf, t in p[s].items()} for s in p}
-               for p in params["blocks"][0]["glu"]]
+    return [
+        ("cheb_graph_conv_fwd_bf16", "stemgnn_tpu_torch/csrc/graph.cu",
+         "stemgnn_tpu/ops/pallas_graph.py:33",
+         lambda: [cuda_graph.cheb_graph_conv(mul_L, feat, bf)],
+         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat, bf)],
+         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat)],
+         lib,
+         1e-4, 1e-5,  # the f32 arm's, scaled: no rounding after the products
+         2 * (k * n * n + b * n * w) + 4 * b * k * n * w,
+         2 * (k - 1) * n * n * b * w),
+    ] + spectral_bf16_cases(gfted, params["blocks"][0]["glu"], mcfg.multi_layer,
+                            call["args"][0].detach().to(dev).contiguous(),
+                            call["g"].detach().to(dev).contiguous())
+
+
+def spectral_bf16_cases(gfted, glu, multi: int, gfted_bwd, g_spe):
+    """The six bf16 spectral arms, as `bf16_cases` gives the graph conv's: the
+    forward arms on the cell's input gfted [B, 4, N, W], the backward arms on
+    the input gfted_bwd and the output's cotangent g_spe of one train step;
+    glu the six GLU dicts."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = gfted.shape
+    wm = w * multi
+    d0, d1 = k * w, k * wm
+    rows = b * n
+    bf = "bfloat16"
+    glu_2d = sum(p[s]["w"].numel() for p in glu for s in ("left", "right"))
+    glu_b = sum(p[s]["b"].numel() for p in glu for s in ("left", "right"))
+    spe_flops = (2 * rows * (4 * d0 * d1 + 8 * d1 * d1 + 2 * k * wm * wm)
+                 + 8 * k * w * w * d1)
+    glu_flops = 2 * rows * (4 * d0 * d1 + 8 * d1 * d1)
+    reread_flops = 2 * glu_flops + 2 * rows * 2 * k * wm * wm + 16 * k * w * w * d1
+    glu_bwd = [{s: {leaf: t.detach() for leaf, t in p[s].items()} for s in p} for p in glu]
     with torch.no_grad():
         _, acts = cuda_spectral.spe_seq_cell_save(gfted_bwd, glu_bwd, multi, bf)
         # the bf16-storage arm's planes (SAVE_ACTS_F32 off)
@@ -709,15 +822,6 @@ def bf16_cases(rec, params, mcfg, x):
     bwd_bytes = 2 * (rows * d0 + rows * d1 + glu_2d) + 4 * (rows * d0 + glu_2d + glu_b)
     spe = "stemgnn_tpu_torch/csrc/spectral.cu"
     return [
-        ("cheb_graph_conv_fwd_bf16", "stemgnn_tpu_torch/csrc/graph.cu",
-         "stemgnn_tpu/ops/pallas_graph.py:33",
-         lambda: [cuda_graph.cheb_graph_conv(mul_L, feat, bf)],
-         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat, bf)],
-         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat)],
-         lib,
-         1e-4, 1e-5,  # the f32 arm's, scaled: no rounding after the products
-         2 * (k * n * n + b * n * w) + 4 * b * k * n * w,
-         2 * (k - 1) * n * n * b * w),
         ("spectral_fwd_bf16", spe, "stemgnn_tpu/ops/pallas_spectral.py:81",
          lambda: [cuda_spectral.spe_seq_cell(gfted, glu, multi, bf)],
          lambda: [cuda_spectral.spe_seq_cell_plain(gfted, glu, multi, bf)],
@@ -894,6 +998,111 @@ def grid_timings(dev):
     if launches == (cuda_gru.gru_fwd_grid.launches, cuda_gru.gru_bwd_grid.launches):
         return f"the grid GRU at B={b} H={h} launched no grid kernel"
     return fail
+
+
+def segmented_gru_check(gru, x, g, seg: int, tag: str):
+    """The GRU cluster kernels at a segmented GRU's shape (n != h): x [B, W, N]
+    the model's input and g [B, N, H] the cotangent of the GRU's output,
+    folded as `gru_over_nodes_segmented` folds them into S * B rows of `seg`
+    steps. Both held against the plain recurrences with the atol scaled to
+    the plain result's largest entry (GRID_ATOL_REL, GRID_RTOL), timed as
+    graph replays beside the plain versions, the bound and cuDNN (printed
+    only); the saving forward's output bitwise the serving one's and the
+    backward twice, bitwise. Returns an error message, or None."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_gru, torch_impl
+
+    x_fold = cuda_gru.fold_segments(x, seg).contiguous()  # [S*B, W, seg]
+    g_fold = cuda_gru.fold_segments(g.transpose(1, 2), seg).transpose(1, 2).contiguous()
+    rows, h = x_fold.shape[0], gru["w_hh"].shape[1]
+    card = cuda_gru.card_limits(x.device)
+    plan, bplan = cuda_gru.launch_plan(rows, h, *card), cuda_gru.bwd_plan(rows, h, *card)
+    if (plan.route, bplan.route) != ("cluster", "cluster"):
+        return f"{tag}: the GRU at {rows} rows, H={h} takes the {plan.route} route"
+    with torch.no_grad():
+        x_proj = torch_impl.gru_input_projection(gru, x_fold).contiguous()
+        a_all = gru["w_hh"].T.contiguous()
+        _, saved = torch_impl.gru_scan(x_proj, a_all, gru["b_hh"], save=True)
+    cudnn_fwd, cudnn_fwd_bwd = cudnn_gru_calls(gru, x_fold, g_fold)
+    fail = check_cases([
+        ("gru_fwd", "", "", lambda: cuda_gru.gru_over_nodes(gru, x_fold),
+         lambda: cuda_gru.gru_over_nodes_plain(gru, x_fold), cudnn_fwd, GRID_ATOL_REL,
+         GRID_RTOL, *gru_fwd_work(gru, x_fold)),
+        ("gru_bwd", "", "", lambda: cuda_gru.gru_scan_bwd(saved, g_fold, a_all),
+         lambda: cuda_gru.gru_scan_bwd_plain(saved, g_fold, a_all),
+         ("graph_or_stream", cudnn_fwd_bwd), GRID_ATOL_REL, GRID_RTOL,
+         *gru_bwd_work(saved, g_fold, a_all))],
+        {}, f"3 kernel, {tag}", scaled=True, calls=2, replays=3)
+    if fail is not None:
+        return fail
+    with torch.no_grad():
+        out_s, saved_s = cuda_gru._launch_fwd(x_proj, a_all, gru["b_hh"], True)
+        out_f, _ = cuda_gru._launch_fwd(x_proj, a_all, gru["b_hh"], False)
+        got = cuda_gru.gru_scan_bwd(saved, g_fold, a_all)
+        again = cuda_gru.gru_scan_bwd(saved, g_fold, a_all)
+        torch.cuda.synchronize()
+    planes = max(((saved_s[:, q] - saved[:, q]).abs().max()
+                  / saved[:, q].abs().max().clamp_min(1e-30)).item() for q in range(5))
+    same_out, same_bwd = torch.equal(out_f, out_s), torch.equal(got, again)
+    print(f"[3 kernel, {tag}] GRU at n = {seg} steps, {rows} rows (S * B), H = {h}: cluster "
+          f"route, forward {plan.groups} clusters of {plan.cluster} blocks, backward "
+          f"{bplan.groups} of {bplan.cluster}; the 5 saved planes within {planes:.3e} of "
+          f"their largest entry (at most {GRID_ATOL_REL:g}); serving output bitwise the "
+          f"saving one: {same_out}; two backwards {'bitwise equal' if same_bwd else 'DIFFER'}")
+    if not (same_out and same_bwd) or not planes <= GRID_ATOL_REL:
+        return (f"{tag}: saved planes {planes}, serving output bitwise {same_out}, "
+                f"backward rerun bitwise {same_bwd}")
+    return None
+
+
+def stretch_spectral_check(glu, multi: int, n: int, dev, tag: str):
+    """The spectral serving and saving forwards and the reread backward, both
+    arms, at the stretch shape (batch 1, n rows) on seeded inputs (x from a
+    standard normal, the cotangent 1e-3 of one), held against their plain
+    versions by phase 3's rules and timed beside their bounds (printed only).
+    Seeded: the train step's own cell input has rows of |x| in the thousands
+    at n = 102,400 (the top-k columns' A^T x sums over every node), where
+    f32 sums in two orders part by more than an absolute atol (PERF.md,
+    section 7). Returns an error message, or None."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    rng = np.random.default_rng(19)
+    gfted = torch.from_numpy(rng.standard_normal((1, 4, n, WINDOW)).astype(np.float32)).to(dev)
+    g_spe = torch.from_numpy((1e-3 * rng.standard_normal((1, 4, n, WINDOW * multi)))
+                             .astype(np.float32)).to(dev)
+    b, k, _, w = gfted.shape
+    sms = cuda_spectral._sms(dev)
+    fplan = cuda_spectral.fwd_mma_plan(b, k, n, w, w * multi, sms)
+    bplan = cuda_spectral.bwd_mma_plan(b, k, n, w, w * multi, sms)
+    print(f"[{tag}] {b * n} rows, D1 = {k * w * multi}: the bf16 chain forward on "
+          f"{fplan.tiles} row tiles of {fplan.tile_rows} (grid (2, {fplan.tiles}): gridDim.y "
+          f"takes up to 65,535), the bf16 backward's rows kernel on {bplan.tiles} tiles of "
+          f"{bplan.tile_rows}, its weight gradients in {bplan.nsplit} row segments")
+    keep = ("spectral_fwd", "spectral_fwd_save", "spectral_bwd_reread",
+            "spectral_fwd_bf16", "spectral_fwd_save_bf16", "spectral_bwd_reread_bf16")
+    return (check_cases(spectral_fwd_cases(gfted, glu, multi), {}, tag, calls=2, replays=3)
+            or check_cases([c for c in spectral_bwd_cases(gfted, glu, g_spe, multi)
+                            if c[0] in keep], {}, tag, scaled=True, calls=2, replays=3)
+            or check_bf16_cases([c for c in spectral_bf16_cases(gfted, glu, multi, gfted, g_spe)
+                                 if c[0] in keep], {}, tag, calls=2, replays=3))
+
+
+def graph_agreement(g, g_cpu):
+    """(the top-k index sets equal, the largest abs error of c, degree and
+    inv_sqrt) of a sparse latent graph on the card against the CPU's."""
+    same_idx = set(g.idx.tolist()) == set(g_cpu.idx.tolist())
+    if not same_idx:
+        return False, float("inf")
+    # the same columns, in the order each side's top-k gave them
+    order = [g.idx.tolist().index(j) for j in g_cpu.idx.tolist()]
+    err = max((g.c[:, order].cpu() - g_cpu.c).abs().max().item(),
+              (g.degree.cpu() - g_cpu.degree).abs().max().item(),
+              (g.inv_sqrt.cpu() - g_cpu.inv_sqrt).abs().max().item())
+    return True, err
 
 
 def shape_checks(dev):
@@ -1228,7 +1437,7 @@ def storage_arm_check(x, glu, g, m: int, out32, acts32, f32_plain):
     return None, acts16
 
 
-def spectral_checks(dev, glu, multi: int):
+def spectral_checks(dev, glu, multi: int, extra=()):
     """The spectral forwards and backwards of both arms against their plain
     versions, untimed, on seeded inputs: at the flagship rows (4480) and at row
     counts that are no multiple of the kernels' row tiles (185, 111); then at
@@ -1241,7 +1450,9 @@ def spectral_checks(dev, glu, multi: int):
     shapes, on inputs of their own seeds 0 and 1: W = 103 at multi 5 (D1 =
     2060, the wide chain's buffers in shared memory) on 240 and 600 rows, and
     multi 64 at W = 12 (D1 = 3072, in a device workspace) on 240 rows, each
-    timed (seed 0) beside its bound. f32: the serving forward's output, and
+    timed (seed 0) beside its bound; then the shapes in `extra`, (B, N, W,
+    multi, GLU weights, the generator of x and g, timed) each. f32: the
+    serving forward's output, and
     the saving forward's output and 12 arrays, each within SPE_FWD_ATOL_REL
     of its own largest entry; the saved rows past the end finite; the
     backwards' dx and each of the 24 gradients within atol 1e-5 of their own
@@ -1282,6 +1493,7 @@ def spectral_checks(dev, glu, multi: int):
         for seed in (0, 1):
             cases.append((b, n, w, m, init_glu(n, w, m), np.random.default_rng(seed),
                           seed == 0))
+    cases += list(extra)
     for b, n, w, m, glu_w, gen, timed in cases:
         x = card(gen.standard_normal((b, k, n, w)))
         g = card(1e-3 * gen.standard_normal((b, k, n, w * m)))
@@ -1768,7 +1980,7 @@ def run() -> int:
     from stemgnn_tpu_torch.config import TrainConfig
     from stemgnn_tpu_torch.data import (
         WindowDataset, compute_norm_stats, ensure_dataset, load_csv, split_by_ratio)
-    from stemgnn_tpu_torch.models import init_params
+    from stemgnn_tpu_torch.models import init_params, stemgnn
     from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
     from stemgnn_tpu_torch.models.stemgnn import kernel_grad_leaf
     from stemgnn_tpu_torch.ops import _build, cuda_gru, cuda_spectral, torch_impl
@@ -1860,6 +2072,46 @@ def run() -> int:
     with OpRecorder(ops) as rec_cov:
         loss_cov_cpu, grads_cov_cpu = step_grads(leaf_params(params_cov, "cpu"), mcfg_cov,
                                                  x_cov.cpu(), y_cov.cpu(), mask_cov)
+    # the stretch path, synthetic-100k-seggru: a seeded series of 16 windows
+    # (phase 6's chunk; phase 4 serves the first 2), its [N, k] dropout mask,
+    # and one train step of its model on the CPU plain path (the reference of
+    # phase 5 and the inputs of phase 3's stretch checks)
+    stretch = bench.config_kwargs(S100K)
+    n_s = stretch["n_nodes"]
+    cfg_s = dataclasses.replace(cfg, batch_size=stretch["batch"], multi_layer=stretch["multi"],
+                                sparse_k=stretch["sparse_k"], gru_hidden=stretch["gru_hidden"],
+                                gru_segment=stretch["gru_segment"])
+    mcfg_s = cfg_s.model_config(n_s)
+    params_s = init_params(cfg.seed, mcfg_s, device=dev)
+    series_s = np.random.default_rng(13).standard_normal((WINDOW + HORIZON + 15, n_s))
+    set_s = WindowDataset(series_s, WINDOW, HORIZON, cfg.norm_method,
+                          compute_norm_stats(series_s, cfg.norm_method))
+    set_s2 = WindowDataset(series_s[:WINDOW + HORIZON + 1], WINDOW, HORIZON, cfg.norm_method,
+                           set_s.norm_statistic)
+    hi_s = torch.from_numpy(set_s.epoch_batches(1, shuffle=False)[0]).long()
+    x_s, y_s = engine.gather_windows(torch.from_numpy(set_s.data).to(dev), hi_s.to(dev),
+                                     WINDOW, HORIZON)
+    mask_s = torch.from_numpy(np.random.default_rng(14).random((n_s, mcfg_s.sparse_k))
+                              < 1.0 - mcfg_s.dropout_rate)
+    t0 = time.perf_counter()
+    with OpRecorder(ops) as rec_s:
+        loss_s_cpu, grads_s_cpu = step_grads(leaf_params(params_s, "cpu"), mcfg_s, x_s.cpu(),
+                                             y_s.cpu(), mask_s)
+    cpu_s_s = time.perf_counter() - t0
+    # the dense-GRU sparse variant (sparse_k alone) at synthetic-1k's N and
+    # batch: two batches of a seeded series, a seeded [N, k] mask
+    mcfg_v = dataclasses.replace(cfg, sparse_k=SPARSE_K).model_config(S1K_NODES)
+    params_v = init_params(cfg.seed, mcfg_v, device=dev)
+    series_v = np.random.default_rng(16).standard_normal(
+        (WINDOW + HORIZON + 2 * S1K_BATCH - 1, S1K_NODES))
+    set_v = WindowDataset(series_v, WINDOW, HORIZON, cfg.norm_method,
+                          compute_norm_stats(series_v, cfg.norm_method))
+    hi_v = torch.from_numpy(set_v.epoch_batches(S1K_BATCH, shuffle=False)[0]).long()
+    x_v, y_v = engine.gather_windows(torch.from_numpy(set_v.data).to(dev), hi_v.to(dev),
+                                     WINDOW, HORIZON)
+    mask_v = torch.from_numpy(np.random.default_rng(17).random((S1K_NODES, SPARSE_K))
+                              < 1.0 - mcfg_v.dropout_rate)
+    tag_v = f"sparse_k {SPARSE_K} at N={S1K_NODES}, batch {S1K_BATCH}"
     results = {}
     fail = check_cases(forward_cases(params, mcfg, x), results, "3 kernel")
     if fail is None:
@@ -1877,7 +2129,10 @@ def run() -> int:
     if fail is None:
         fail = attention_checks(dev)
     if fail is None:
-        fail = spectral_checks(dev, params["blocks"][0]["glu"], MULTI)
+        # and at the stretch shape (102,400 rows, D1 = 96), untimed here
+        fail = spectral_checks(dev, params["blocks"][0]["glu"], MULTI, extra=[
+            (1, n_s, WINDOW, mcfg_s.multi_layer, params_s["blocks"][0]["glu"],
+             np.random.default_rng(15), False)])
     if fail is None:
         # the spectral kernels at the COVID-19 shape, timed as above (printed
         # only: the kernels line keeps the flagship's shapes)
@@ -1898,8 +2153,37 @@ def run() -> int:
             {}, "3 kernel, COVID-19 shape")
     if fail is None:
         fail = bf16_redesigns(results, params, mcfg, x)
+    if fail is None:
+        # the stretch path's kernels at its own shapes (printed only: the
+        # kernels line keeps the flagship's): the GRU cluster kernels at
+        # n != h, synthetic-100k-seggru's on the CPU step's GRU input and
+        # cotangent, synthetic-4k-seggru's on seeded ones; the spectral
+        # kernels on seeded inputs
+        call = rec_s.calls["gru_over_nodes_segmented"][0]
+        rng_4k = np.random.default_rng(18)
+        h4, bound_4k = S4K_GRU["hidden"], 1.0 / math.sqrt(S4K_GRU["hidden"])
+        gru_4k = {k: torch.from_numpy(rng_4k.uniform(-bound_4k, bound_4k, shape)
+                                      .astype(np.float32)).to(dev)
+                  for k, shape in (("w_ih", (3 * h4, WINDOW)), ("w_hh", (3 * h4, h4)),
+                                   ("b_ih", (3 * h4,)), ("b_hh", (3 * h4,)))}
+        x_4k = torch.from_numpy(rng_4k.standard_normal(
+            (S4K_GRU["batch"], WINDOW, S4K_GRU["nodes"])).astype(np.float32)).to(dev)
+        g_4k = torch.from_numpy((1e-2 * rng_4k.standard_normal(
+            (S4K_GRU["batch"], S4K_GRU["nodes"], h4))).astype(np.float32)).to(dev)
+        fail = (segmented_gru_check({k: v.detach() for k, v in params_s["gru"].items()},
+                                    call["args"][1].to(dev), call["g"].to(dev),
+                                    mcfg_s.gru_segment, f"{S100K} shape")
+                or segmented_gru_check(gru_4k, x_4k, g_4k, S4K_GRU["segment"],
+                                       "synthetic-4k-seggru shape")
+                or stretch_spectral_check(params_s["blocks"][0]["glu"], mcfg_s.multi_layer,
+                                          n_s, dev, f"3 kernel, {S100K} shape"))
     if fail is not None:
         return _fail(fail)
+    call = rec_s.calls["spe_seq_cell"][0]
+    print(f"[3 kernel] {S100K}: one train step of the CPU plain path (the reference of "
+          f"phase 5 and the GRU inputs above) took {cpu_s_s:.1f} s on the host; its first "
+          f"spectral cell's input reaches |x| {call['args'][0].abs().max().item():.4g}, its "
+          f"output {call['out'].abs().max().item():.4g}")
     with torch.no_grad():
         call = rec.calls["spe_seq_cell"][0]
         gfted, g_spe = (t.detach().to(dev).contiguous()
@@ -2202,6 +2486,51 @@ def run() -> int:
         return _fail(f"COVID-19 step gradients differ from the CPU plain path: loss err "
                      f"{loss_err}, leaves (name, err, max) {bad[:5]}")
     del params_cov_gpu, grads_cov
+
+    # the stretch path: synthetic-100k-seggru's 2 windows (batch 1) and the
+    # dense-GRU sparse variant's 2 batches through engine.inference_batched,
+    # counters set to 0 just before and read just after (a batch: the GRU
+    # forward, cluster or grid, and 2 spectral forwards; no attention, no
+    # graph conv), the forecasts against the CPU plain path (atol 1e-3) and
+    # the first batch's latent graph too: the same top-k index set, and c,
+    # degree and inv_sqrt within 1e-5
+    for tag, mcfg_x, params_x, set_x, batch, gru_name in (
+            (S100K, mcfg_s, params_s, set_s2, 1, "gru_fwd"),
+            (tag_v, mcfg_v, params_v, set_v, S1K_BATCH, "gru_fwd_grid")):
+        n_b = len(set_x.epoch_batches(batch, shuffle=False))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        fc_x, _ = engine.inference_batched(engine.make_eval_step(mcfg_x, dev), params_x, set_x,
+                                           batch, dev)
+        serve_s = time.perf_counter() - t0
+        launches, replayed = take_launches(ops, results)
+        want = dict.fromkeys(ops.KERNELS, 0)
+        want.update({gru_name: n_b, "spectral_fwd": 2 * n_b})
+        if launches != want or any(replayed.values()):
+            return _fail(f"{tag} serving launch counts {launches} and {replayed}, expected {want}")
+        params_x_cpu = leaf_params(params_x, "cpu")
+        fc_x_cpu, _ = engine.inference_batched(engine.make_eval_step(mcfg_x, "cpu"),
+                                               params_x_cpu, set_x, batch, "cpu")
+        shape = (len(set_x), HORIZON, mcfg_x.units)
+        if fc_x.shape != shape or not np.isfinite(fc_x).all():
+            return _fail(f"{tag} forecasts {fc_x.shape}, expected {shape} and finite")
+        err = float(abs(fc_x - fc_x_cpu).max())
+        hi0 = torch.from_numpy(set_x.epoch_batches(batch, shuffle=False)[0]).long()
+        x0, _ = engine.gather_windows(torch.from_numpy(set_x.data), hi0, WINDOW, HORIZON)
+        with torch.inference_mode():
+            _, g_card = stemgnn.forward(params_x, mcfg_x, x0.to(dev))
+            _, g_cpu = stemgnn.forward(params_x_cpu, mcfg_x, x0)
+        same_idx, g_err = graph_agreement(g_card, g_cpu)
+        print(f"[4 serving path] {tag}: {len(set_x)} windows in {n_b} batches through "
+              f"engine.inference_batched, {serve_s:.3f} s; wrapper launches {launches}; "
+              f"forecasts, card vs CPU plain path: max_abs_err {err:.3e} (atol 1e-3); the "
+              f"first batch's graph: top-{mcfg_x.sparse_k} index sets "
+              f"{'equal' if same_idx else 'DIFFER'}, c, degree and inv_sqrt max_abs_err "
+              f"{g_err:.3e} (atol 1e-5)")
+        if err > 1e-3 or not same_idx or not g_err <= 1e-5:
+            return _fail(f"{tag} serving differs from the CPU plain path: forecasts {err}, "
+                         f"index sets equal {same_idx}, graph {g_err}")
+        del params_x_cpu
 
     # --- 5. train path ---
     cfg_t = TrainConfig(dataset="ECG_data", train=True, epoch=1, batch_size=BATCH,
@@ -2550,6 +2879,131 @@ def run() -> int:
                   (time.perf_counter() - t0) / 10 * 1e3, "5 train path, bf16")
     del tree_bf, flat_bf, step_bf
 
+    # the stretch path: one train step of synthetic-100k-seggru and of the
+    # dense-GRU sparse variant on the card, counters set to 0 just before and
+    # read just after (the GRU pair, cluster or grid, and 2 of each spectral
+    # kernel of the step's pair; no attention, no graph conv), the loss (atol
+    # 1e-5) against the CPU plain path's step on the same batch and [N, k]
+    # mask and every gradient against the CPU's f64 step by the noise rule
+    # (`noise_grads_agreement`); the same step again, bitwise;
+    # the 100k step's peak allocated memory (at most 10 GB: one [N, N] f32
+    # array would be 42 GB)
+    t0 = time.perf_counter()
+    loss_v_cpu, grads_v_cpu = step_grads(leaf_params(params_v, "cpu"), mcfg_v, x_v.cpu(),
+                                         y_v.cpu(), mask_v)
+    cpu_v_s = time.perf_counter() - t0
+
+    def f64_step(params_x, mcfg_x, xb, yb, mask_x):
+        tree64 = leaf_params({k: v.detach().double() for k, v in
+                              flatten_params(params_x).items()}, "cpu")
+        return step_grads(tree64, mcfg_x, xb.cpu().double(), yb.cpu().double(), mask_x)
+
+    for tag, mcfg_x, params_x, xb, yb, mask_x, loss_ref, grads_ref, grus, cpu_secs in (
+            (S100K, mcfg_s, params_s, x_s, y_s, mask_s, loss_s_cpu, grads_s_cpu,
+             ("gru_fwd", "gru_bwd"), cpu_s_s),
+            (tag_v, mcfg_v, params_v, x_v, y_v, mask_v, loss_v_cpu, grads_v_cpu,
+             ("gru_fwd_grid", "gru_bwd_grid"), cpu_v_s)):
+        loss_64, grads_64 = f64_step(params_x, mcfg_x, xb, yb, mask_x)
+        params_x_gpu = leaf_params(params_x, dev)
+        mask_dev = mask_x.to(dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        loss_x, grads_x = step_grads(params_x_gpu, mcfg_x, xb, yb, mask_dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches, replayed = take_launches(ops, results)
+        grads_x = {k: g.clone() for k, g in grads_x.items()}
+        loss_again, grads_again = step_grads(params_x_gpu, mcfg_x, xb, yb, mask_dev)
+        differ = [k for k, g in grads_again.items() if not torch.equal(g, grads_x[k])]
+        want = dict.fromkeys(ops.KERNELS, 0)
+        want.update({grus[0]: 1, grus[1]: 1, train_spe[0]: 2, train_spe[1]: 2})
+        bad, worst, worst_name, l2 = noise_grads_agreement(grads_x, grads_ref, grads_64)
+        cpu_noise = max((grads_ref[k].double() - g).abs().max().item()
+                        / max(g.abs().max().item(), 1e-30) for k, g in grads_64.items())
+        loss_err = abs(loss_x.item() - loss_ref.item())
+        print(f"[5 train path] {tag}, one train step on the card: wrapper launches "
+              f"{launches}; loss {loss_x.item():.6f} (abs err {loss_err:.3e} against the CPU "
+              f"plain path's, atol 1e-5); {len(grads_x)} gradients against the CPU's f64 step "
+              f"(the CPU's f32 step {cpu_secs:.1f} s on the host, up to {cpu_noise:.3e} of a "
+              f"gradient's largest entry from it): each within max({GRAD_ATOL_REL:g} of its "
+              f"largest entry, {STEP_NOISE_FACTOR:g} x the CPU f32 step's distance), worst "
+              f"{worst:.3f} x at {worst_name}; L2 {l2:.3f} x the CPU f32 step's (at most "
+              f"{STEP_NOISE_L2:g}): {'yes' if not bad else 'NO'}; the same step twice "
+              f"{'bitwise equal' if not differ and torch.equal(loss_x, loss_again) else 'DIFFERS'}"
+              f"; peak allocated {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+              f"the {base / 2**30:.3f} GiB held before the step)")
+        if (launches != want or any(replayed.values()) or loss_err > 1e-5 or bad or differ
+                or not torch.equal(loss_x, loss_again)):
+            return _fail(f"{tag} train step: launches {launches} (expected {want}), loss err "
+                         f"{loss_err}, leaves (name, err, noise) {bad[:5]}, rerun {differ[:5]}")
+        if tag == S100K and peak > 10e9:
+            return _fail(f"the {S100K} step peaked at {peak / 1e9:.2f} GB, past 10 GB")
+        del params_x_gpu, grads_x, grads_again
+    # where the time of a synthetic-100k-seggru train step goes, at each
+    # compute_dtype: the engine's eager train step on the 16 windows of phase
+    # 6's series, 3 warm steps, 5 on the host clock, 5 under torch.profiler
+    data_p = torch.from_numpy(set_s.data).to(dev)
+    his_p = [torch.from_numpy(b.astype(np.int64)).to(dev)
+             for b in set_s.epoch_batches(1, shuffle=False)[:13]]
+    for cd in ("float32", "bfloat16"):
+        flat_p = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in flatten_params(params_s).items()}
+        tree_p = unflatten_params(flat_p)
+        step_p = engine.make_train_step(mcfg_s, make_optimizer("RMSProp", flat_p.values(),
+                                                               cfg_t.lr),
+                                        flat_p.values(), compute_dtype=cd)
+        gen_p = torch.Generator(device=dev).manual_seed(5)
+        for hi_b in his_p[:3]:
+            step_p(tree_p, data_p, hi_b, gen_p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for hi_b in his_p[3:8]:
+            step_p(tree_p, data_p, hi_b, gen_p)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"[5 train path] {S100K}, compute_dtype {cd}: the eager train step "
+              f"{step_ms:.3f} ms of host clock (5 steps after 3 warm)")
+        profile_steps(lambda hi_b: step_p(tree_p, data_p, hi_b, gen_p), his_p[8:13], step_ms,
+                      f"5 train path, {S100K}, {cd}")
+    del data_p, flat_p, tree_p, step_p
+
+    # one epoch of engine.train on ECG_data on the stretch path (--sparse_k 16
+    # --gru_hidden 32 --gru_segment 35: 4 segments of 35 nodes, 128 rows of the
+    # GRU), counters set to 0 just before and read just after and held against
+    # the launches of the dense epoch above with the stretch step's kernels
+    run_dir_s = os.path.join(out_root, cfg.dataset, "train_run_stretch")
+    cfg_ts = dataclasses.replace(cfg_t, sparse_k=16, gru_hidden=32, gru_segment=35)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    valid_s, _ = engine.train(train_data, valid_data, cfg_ts, run_dir_s)
+    torch.cuda.synchronize()
+    train_s_s = time.perf_counter() - t0
+    launches, replayed = take_launches(ops, results)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want_replayed = dict(want)
+    for name, n in {"gru_fwd": 1, "gru_bwd": 1, train_spe[0]: 2, train_spe[1]: 2}.items():
+        want[name] += n * eager_steps
+        want_replayed[name] += n * chunked
+    for name, n in {"gru_fwd": 1, "spectral_fwd": 2}.items():
+        want[name] += n * (1 + valid_batches - valid_full)
+        want_replayed[name] += n * valid_full
+    with open(os.path.join(run_dir_s, "metrics.jsonl")) as f:
+        epochs_s = [e for e in map(json.loads, f) if e["event"] == "epoch"]
+    print(f"[5 train path] engine.train on the stretch path (sparse_k 16, gru_hidden 32, "
+          f"gru_segment 35): 1 epoch, {train_s_s:.3f} s with its captures; wrapper launches "
+          f"{launches}; launched by graph replays {replayed}; epoch loss "
+          f"{epochs_s[0]['loss'] if epochs_s else float('nan'):.6f}, validate MAE "
+          f"{float(valid_s['mae']):.6f}")
+    if launches != want or replayed != want_replayed:
+        return _fail(f"stretch train path launch counts {launches} and {replayed}, expected "
+                     f"{want} and {want_replayed}")
+    if (len(epochs_s) != 1 or not math.isfinite(epochs_s[0]["loss"])
+            or not math.isfinite(float(valid_s["mae"]))):
+        return _fail(f"stretch epoch events {epochs_s}, validate {valid_s}")
+
     # --- 6. chunk path: a captured chunk against the same steps taken eagerly ---
     CHUNK = 16
     finals = {}
@@ -2618,6 +3072,44 @@ def run() -> int:
     print(f"[6 chunk path] the same at param_dtype bfloat16: {CHUNK} losses, {len(p_e)} bf16 "
           f"parameters and their RMSProp moments ({', '.join(moment_dtypes)}) bitwise equal; "
           f"last loss {l_c[-1].item():.6f}")
+
+    # the same for synthetic-100k-seggru: a 16-step chunk (its [N, k] masks
+    # drawn from the generator before the replay) against the same 16 steps
+    # taken eagerly, bitwise
+    data_s = torch.from_numpy(set_s.data).to(dev)
+    hi_s_matrix = torch.from_numpy(
+        np.stack(set_s.epoch_batches(1, shuffle=False)[:CHUNK]).astype(np.int64)).to(dev)
+    finals_s = {}
+    for mode in ("eager", "chunk"):
+        flat_x = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in flatten_params(params_s).items()}
+        tree_x = unflatten_params(flat_x)
+        opt_x = make_optimizer("RMSProp", flat_x.values(), cfg_t.lr)
+        gen_x = torch.Generator(device=dev)
+        gen_x.manual_seed(engine.epoch_generator_seed(cfg_t.seed, 4))
+        if mode == "eager":
+            step_x = engine.make_train_step(mcfg_s, opt_x, flat_x.values())
+            losses_x = torch.stack([step_x(tree_x, data_s, hi_b, gen_x) for hi_b in hi_s_matrix])
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses_x = engine.make_epoch_fn(mcfg_s, opt_x, flat_x.values())(
+                tree_x, data_s, hi_s_matrix, gen_x)
+            torch.cuda.synchronize()
+            capture_x_s = time.perf_counter() - t0
+        finals_s[mode] = (losses_x, flat_x, [opt_x.state[p]["square_avg"]
+                                             for p in flat_x.values()])
+    (l_e, p_e, s_e), (l_c, p_c_s, s_c_s) = finals_s["eager"], finals_s["chunk"]
+    differ = [k for k in p_e if not torch.equal(p_e[k], p_c_s[k])]
+    if (not torch.equal(l_e, l_c) or differ
+            or not all(torch.equal(a, b) for a, b in zip(s_e, s_c_s))):
+        return _fail(f"a {CHUNK}-step {S100K} chunk differs from the eager steps: losses "
+                     f"{l_e.tolist()} and {l_c.tolist()}, parameters {differ[:5]}")
+    print(f"[6 chunk path] {S100K}: a {CHUNK}-step chunk (warm-up, capture and first replay "
+          f"{capture_x_s:.3f} s) against the same steps taken eagerly: {CHUNK} losses, "
+          f"{len(p_e)} parameters and their RMSProp moments bitwise equal; last loss "
+          f"{l_c[-1].item():.6f}")
+    del finals_s, p_e, s_e, p_c_s, s_c_s, data_s
 
     # --- 7. bench path ---
     def bench_line(label, res):
@@ -2746,6 +3238,44 @@ def run() -> int:
           f"batch ({res_eval['windows_per_s']:.1f} windows/s), bf16 "
           f"{res_eval_bf['step_time_ms']:.4f} ms ({res_eval_bf['windows_per_s']:.1f} "
           f"windows/s)")
+
+    # the stretch path: bench.measure and bench.measure_eval at
+    # synthetic-100k-seggru (its full width: 102,400 nodes, batch 1), f32 and
+    # bf16, counters set to 0 just before and read just after each; chunks of
+    # STRETCH_CHUNK steps, STRETCH_STEPS a timed window
+    stretch_bench = dict(stretch, steps=STRETCH_STEPS, warmup=STRETCH_CHUNK,
+                         chunk_steps=STRETCH_CHUNK)
+    pairs = {("float32", True): ("spectral_fwd_save", "spectral_bwd_reread"),
+             ("float32", False): ("spectral_fwd", "spectral_bwd"),
+             ("bfloat16", True): ("spectral_fwd_save_bf16", "spectral_bwd_reread_bf16"),
+             ("bfloat16", False): ("spectral_fwd_bf16", "spectral_bwd_bf16")}
+    dense_only = ("attention_kq_fwd", "attention_kq_bwd", "cheb_graph_conv_fwd",
+                  "cheb_graph_conv_fwd_bf16")
+    for cd in ("float32", "bfloat16"):
+        label = f"{S100K} train, {cd}"
+        res, launches, replayed = run_train_bench(label, reread=default_reread,
+                                                  compute_dtype=cd, **stretch_bench)
+        total = {k: launches[k] + replayed[k] for k in launches}
+        steps_run = total["gru_bwd"]
+        pair = pairs[(cd, default_reread)]
+        if (steps_run <= 0 or total["gru_fwd"] != steps_run
+                or any(total[k] != 2 * steps_run for k in pair)
+                or any(total[k] for k in dense_only)):
+            return _fail(f"bench {label}: the launches are {launches} and {replayed}")
+        print(f"[7 bench path] {label}: {steps_run} steps, wrapper launches {launches}; "
+              f"launched by graph replays {replayed}")
+        ops.reset_launches()
+        res_e = bench.measure_eval(compute_dtype=cd, **stretch_bench)
+        launches, replayed = take_launches(ops, results)
+        label = f"{S100K} eval, {cd}"
+        bench_line(label, res_e)
+        fwd = "spectral_fwd" if cd == "float32" else "spectral_fwd_bf16"
+        if (not replayed["gru_fwd"] or replayed[fwd] != 2 * replayed["gru_fwd"]
+                or any(launches[k] + replayed[k] for k in dense_only)):
+            return _fail(f"bench {label}: the launches are {launches} and {replayed}")
+        print(f"[7 bench path] {label}: wrapper launches {launches}; launched by graph "
+              f"replays {replayed}; {res['step_time_ms']:.4f} ms a train step, "
+              f"{res_e['step_time_ms']:.4f} ms an eval batch")
 
     # --- 8. asynchronous checkpoint ---
     async_dir = os.path.join(out_root, "async_ckpt")

@@ -3,6 +3,10 @@
 Usage:
     python -m stemgnn_tpu_torch --dataset ECG_data --epoch 1
     python -m stemgnn_tpu_torch --dataset ECG_data --train False
+    python -m stemgnn_tpu_torch --dataset ECG_data --sparse_k 16 --gru_hidden 32 --gru_segment 35
+
+The last trains the stretch path (a top-k sparse latent graph and a GRU of
+32 hidden units over segments of 35 nodes; stemgnn_tpu_torch/ops/sparse.py).
 
 Runs on the card, or on the CPU with --device cpu. With --train True (the
 default) `engine.train` trains and validates, writing norm_stat.json, the

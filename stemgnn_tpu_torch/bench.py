@@ -2,7 +2,7 @@
 
     python -m stemgnn_tpu_torch.bench [--mode train|eval] [--steps N]
         [--repeats R] [--batch B] [--spectral-bwd reread|recompute] [--bf16]
-        [--set-baseline] [--device cpu]
+        [--config NAME] [--set-baseline] [--device cpu]
 
 Headline: steady-state training throughput (windows/second) of the ECG
 flagship (140 nodes, window 12, horizon 3, multi_layer 5, batch 32, f32,
@@ -24,6 +24,16 @@ JAX bench's `--bf16`: the graph conv's and spectral kernels' bf16 arms. The
 default stays float32, the precision of the baseline file, so a bf16 train
 run's `vs_baseline` is its ratio to that float32 baseline; the JSON line
 names the precision.
+
+`--config NAME` measures one of `CONFIGS`, the rows of the JAX suite's
+`LARGE_CONFIGS` (benchmarks/suite.py:45) that the port runs: `synthetic-1k`
+(dense) and the stretch rows with a segmented GRU, `synthetic-4k-seggru`,
+`synthetic-32k-seggru` and `synthetic-100k-seggru` (102,400 nodes, multi 2,
+batch 1, sparse_k 64, gru_hidden 64, gru_segment 1024), with the row's batch
+unless `--batch` is given. Its train line's `vs_baseline` is null: the
+baseline file is the ECG flagship's. `edges_per_s` counts as the JAX bench
+counts it, B x 3 x N^2 x 2 a step, the dense graph's entries, also on the
+sparse path, which touches B x 4 x N x k of them.
 """
 
 from __future__ import annotations
@@ -54,6 +64,23 @@ from stemgnn_tpu_torch.utils.flops import mfu as mfu_fn
 
 BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "bench_baseline.json")
+# name: (n_nodes, window, horizon, multi, batch, sparse_k, gru_hidden, gru_segment),
+# the JAX suite's rows (benchmarks/suite.py LARGE_CONFIGS). Not here: the
+# dense-GRU sparse rows (synthetic-4k-sparse64, 8k-sparse64: a hidden = N GRU
+# at 4096-8192 units) and the node-sharded row (synthetic-32k-sharded).
+CONFIGS = {
+    "synthetic-1k": (1024, 12, 3, 5, 8, None, None, 0),
+    "synthetic-4k-seggru": (4096, 12, 3, 5, 4, 64, 128, 512),
+    "synthetic-32k-seggru": (32768, 12, 3, 5, 2, 64, 64, 1024),
+    "synthetic-100k-seggru": (102400, 12, 3, 2, 1, 64, 64, 1024),
+}
+
+
+def config_kwargs(name: str) -> dict:
+    """`measure` / `measure_eval` keywords of a row of CONFIGS."""
+    n, window, horizon, multi, batch, sparse_k, gru_hidden, gru_segment = CONFIGS[name]
+    return dict(n_nodes=n, window=window, horizon=horizon, multi=multi, batch=batch,
+                sparse_k=sparse_k, gru_hidden=gru_hidden, gru_segment=gru_segment)
 T_LEN = 4096  # rows of the synthetic series the windows are cut from
 
 
@@ -126,7 +153,8 @@ def _summary(times, batch, chunk, spread_warn):
 
 def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
             multi=5, seed=0, chunk_steps=None, repeats=3, max_extra_repeats=2,
-            spread_warn=0.15, device="cuda", compute_dtype="float32"):
+            spread_warn=0.15, device="cuda", compute_dtype="float32", sparse_k=None,
+            gru_hidden=None, gru_segment=0):
     """Steady-state train-step time through the engine's chunked epoch program
     (`make_epoch_fn`: on the card one captured CUDA graph of `chunk_steps`
     steps per dispatch, default CHUNK_SIZES[0]), at `compute_dtype`, RMSProp lr
@@ -138,10 +166,12 @@ def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
     `spread_warn`; the median per-step time is reported, with min, max and
     spread, the loss, the seconds the warm-up took, the edges pushed through
     the graph conv per second, the analytic FLOPs of a step and their share of
-    the card's peaks (`mfu`)."""
+    the card's peaks (`mfu`). `sparse_k`, `gru_hidden` and `gru_segment`
+    select the stretch path (StemGNNConfig)."""
     dev = resolve_device(device)
     cfg = StemGNNConfig(units=n_nodes, window_size=window, horizon=horizon,
-                        multi_layer=multi)
+                        multi_layer=multi, sparse_k=sparse_k, gru_hidden=gru_hidden,
+                        gru_segment=gru_segment)
     flat = {k: v.requires_grad_(True)
             for k, v in flatten_params(init_params(seed, cfg, device=dev)).items()}
     params = unflatten_params(flat)
@@ -173,11 +203,13 @@ def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
     res = _summary(times, batch, chunk, spread_warn)
     step_time = res["step_time_ms"] / 1e3
     # entries of the dense learned graph pushed through the graph conv per
-    # step: the kernel runs orders 1..3 (T0 is identically zero), two stacks
+    # step: the kernel runs orders 1..3 (T0 is identically zero), two stacks;
+    # counted so on the sparse path too, as the JAX bench counts it
     res["executed_cheb_orders"] = 3
     res["edges_per_s"] = batch * 3 * n_nodes * n_nodes * 2 / step_time
     res["edges_per_s_raw4"] = batch * 4 * n_nodes * n_nodes * 2 / step_time
     res["loss"] = last["loss"]
+    res["sparse_k"] = sparse_k
     res["warmup_s"] = warmup_s  # the warm chunks, the first with its capture
     res["spectral_bwd"] = "reread" if cuda_spectral.SAVE_ACTS_BWD else "recompute"
     res["mfu"] = mfu_fn(cfg, batch, step_time, card_info(dev)["device"])
@@ -187,7 +219,8 @@ def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
 
 def measure_eval(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
                  multi=5, seed=0, chunk_steps=None, repeats=3, max_extra_repeats=2,
-                 spread_warn=0.15, device="cuda", chunked=True, compute_dtype="float32"):
+                 spread_warn=0.15, device="cuda", chunked=True, compute_dtype="float32",
+                 sparse_k=None, gru_hidden=None, gru_segment=0):
     """Forward-only throughput through the engine's batched eval program
     (`make_eval_epoch_fn`, what validate and test run), by `measure`'s method,
     at `compute_dtype`. With `chunked` False the same batches go one by one
@@ -195,7 +228,8 @@ def measure_eval(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horiz
     ratio to."""
     dev = resolve_device(device)
     cfg = StemGNNConfig(units=n_nodes, window_size=window, horizon=horizon,
-                        multi_layer=multi)
+                        multi_layer=multi, sparse_k=sparse_k, gru_hidden=gru_hidden,
+                        gru_segment=gru_segment)
     params = init_params(seed, cfg, device=dev)
     if chunked:
         eval_epoch = make_eval_epoch_fn(cfg, dev, compute_dtype)
@@ -237,7 +271,11 @@ def main(argv=None):
                     help="warm-up steps (rounded UP to whole chunks)")
     ap.add_argument("--repeats", type=int, default=3,
                     help="timed repeats; the median is the number of record")
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="windows a step (default 32, or the --config row's)")
+    ap.add_argument("--config", choices=sorted(CONFIGS), default=None,
+                    help="a row of the JAX suite's LARGE_CONFIGS in place of the ECG "
+                         "flagship")
     ap.add_argument("--mode", choices=["train", "eval"], default="train",
                     help="eval: the forward-only eval program, with its ratio to "
                          "the eager per-batch eval loop of the same run as "
@@ -257,9 +295,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.bf16 and args.set_baseline:
         ap.error("the baseline is float32: --set-baseline does not take --bf16")
+    if args.config and args.set_baseline:
+        ap.error("the baseline is the ECG flagship's: --set-baseline does not take --config")
     precision = "bfloat16" if args.bf16 else "float32"
-    common = dict(batch=args.batch, steps=args.steps, warmup=args.warmup,
-                  repeats=args.repeats, device=args.device, compute_dtype=precision)
+    common = config_kwargs(args.config) if args.config else {"batch": 32}
+    if args.batch is not None:
+        common["batch"] = args.batch
+    common.update(steps=args.steps, warmup=args.warmup, repeats=args.repeats,
+                  device=args.device, compute_dtype=precision)
 
     if args.mode == "eval":
         res = measure_eval(**common)
@@ -279,6 +322,7 @@ def main(argv=None):
                 "device": res["device"],
                 "power_limit": res["power_limit"],
                 "precision": precision,
+                "config": args.config or "ECG",
                 "method": "chunked64-median",
                 "baseline_method": "same-run eager per-batch eval",
             },
@@ -300,7 +344,7 @@ def main(argv=None):
                 "step_time_ms": res["step_time_ms"],
                 "spread": res["spread"],
                 "repeats": res["repeats"],
-                "batch": args.batch,
+                "batch": common["batch"],
                 "device": res["device"],
                 "power_limit": res["power_limit"],
                 "spectral_bwd": res["spectral_bwd"],
@@ -310,7 +354,7 @@ def main(argv=None):
             }, f, indent=2)
             f.write("\n")
     baseline = None
-    if os.path.exists(BASELINE_PATH):
+    if os.path.exists(BASELINE_PATH) and not args.config:
         with open(BASELINE_PATH) as f:
             baseline = json.load(f)
 
@@ -332,6 +376,8 @@ def main(argv=None):
             "device": res["device"],
             "power_limit": res["power_limit"],
             "precision": precision,
+            "config": args.config or "ECG",
+            "sparse_k": res.get("sparse_k"),
             "spectral_bwd": res["spectral_bwd"],
             "method": "chunked64-median",
             "baseline_precision": "float32" if baseline else None,

@@ -8,6 +8,13 @@ port adds `seed`, `dropout_seed`, `shuffle_seed`, `param_dtype`,
 `debug_nans`, `data_dir` and `output_dir`, with the JAX package's names and
 defaults; `device` defaults to "cuda".
 
+`sparse_k`, `gru_hidden` and `gru_segment` select the large-N stretch path
+(stemgnn_tpu/config.py, PARITY.md deviation 6): a top-k sparse latent graph
+with feature-space Chebyshev terms (`ops/sparse.py`) in place of the dense
+[N, N] attention and Laplacian, and a GRU whose hidden size is decoupled
+from N and whose node sequence runs as independent segments. On the
+TrainConfig 0 means unset, as on the JAX package's.
+
 `compute_dtype` is the JAX package's precision policy: "bfloat16" gives the
 graph conv's and the spectral cell's kernels bf16 operands with f32 sums,
 rounded where the JAX package's kernels round them; the GRU, the attention,
@@ -24,6 +31,7 @@ the JAX package's Pallas path leaf by leaf (train/optim.py).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +45,23 @@ class StemGNNConfig:
     stack_cnt: int = 2  # two residual stacks (handler.py:105)
     dropout_rate: float = 0.5  # on attention rows (base_model.py:103,161)
     leaky_rate: float = 0.2  # attention LeakyReLU slope (base_model.py:102)
+    # stretch path: the top-k sparse latent graph (ops/sparse.py); None = the
+    # dense reference semantics
+    sparse_k: Optional[int] = None
+    # stretch GRU (needs sparse_k): hidden size H in place of N, the node
+    # sequence in independent segments of gru_segment nodes (0 = one segment)
+    gru_hidden: Optional[int] = None
+    gru_segment: int = 0
+
+    def __post_init__(self):
+        if self.gru_hidden is not None and self.sparse_k is None:
+            raise ValueError(
+                "gru_hidden (the decoupled stretch GRU) requires sparse_k: "
+                "the dense attention path depends on the reference's "
+                "hidden==N shape pun (base_model.py:152)"
+            )
+        if self.gru_segment and self.gru_hidden is None:
+            raise ValueError("gru_segment requires gru_hidden")
 
     @property
     def wm(self) -> int:
@@ -102,6 +127,9 @@ class TrainConfig:
     debug_nans: bool = False
     data_dir: str = "dataset"
     output_dir: str = "output"
+    sparse_k: int = 0  # >0: top-k sparse latent graph (large-N stretch path)
+    gru_hidden: int = 0  # >0: decoupled GRU hidden size (stretch; needs sparse_k)
+    gru_segment: int = 0  # >0: segmented node recurrence (stretch; needs gru_hidden)
 
     def __post_init__(self):
         for name in ("param_dtype", "compute_dtype"):
@@ -117,6 +145,9 @@ class TrainConfig:
             stack_cnt=2,
             dropout_rate=self.dropout_rate,
             leaky_rate=self.leakyrelu_rate,
+            sparse_k=self.sparse_k if self.sparse_k > 0 else None,
+            gru_hidden=self.gru_hidden if self.gru_hidden > 0 else None,
+            gru_segment=self.gru_segment,
         )
 
 

@@ -2,8 +2,8 @@
 
 The port keeps the JAX package's parameter layout (models/stemgnn.py
 init_params): linear `w` is [in, out], the block `weight` is [4, Wm, Wm],
-the GRU keeps torch's layout (`w_ih` [3N, W], `w_hh` [3N, N]) and stack 1
-has no `backcast`. So a conversion is a change of array type, tree for
+the GRU keeps torch's layout (`w_ih` [3H, W], `w_hh` [3H, H]; H = N, or
+gru_hidden on the stretch path) and stack 1 has no `backcast`. So a conversion is a change of array type, tree for
 tree, with each array's dtype kept.
 
 `flatten_params` / `unflatten_params` give the "/"-joined names the

@@ -17,6 +17,11 @@ With seed 0 this is the draw of the reference's `torch.manual_seed(0)`
 one xavier_normal tensor (torch's vectorised Box-Muller against numpy's
 libm; measured at seeds 0 and 3, N = 20 and 140). Linear weights are stored transposed, [in, out];
 the block weight as [4, Wm, Wm].
+
+The GRU's hidden size H is N, or `cfg.gru_hidden` on the stretch path: then
+weight_key and weight_query are [H, 1] and the GRU's tensors [3H, W],
+[3H, H], [3H], [3H], drawn in the same order (the JAX package's
+`init_params` and `torch_stream_init`).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from stemgnn_tpu_torch.device import resolve_device
 def init_params(seed: int, cfg, device="cuda") -> dict:
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
-    n, w, wm = cfg.units, cfg.window_size, cfg.wm
+    w, wm = cfg.window_size, cfg.wm
+    h = cfg.gru_hidden or cfg.units
 
     def lin(out_f, in_f):
         wt = torch.empty(out_f, in_f)
@@ -45,17 +51,17 @@ def init_params(seed: int, cfg, device="cuda") -> dict:
         return torch.nn.init.xavier_uniform_(t, gain=gain, generator=g)
 
     def gru_uniform(shape):
-        bound = 1.0 / math.sqrt(n)
+        bound = 1.0 / math.sqrt(h)
         return torch.empty(shape).uniform_(-bound, bound, generator=g)
 
     params = {
-        "weight_key": xavier_uniform((n, 1), 1.414),
-        "weight_query": xavier_uniform((n, 1), 1.414),
+        "weight_key": xavier_uniform((h, 1), 1.414),
+        "weight_query": xavier_uniform((h, 1), 1.414),
         "gru": {
-            "w_ih": gru_uniform((3 * n, w)),
-            "w_hh": gru_uniform((3 * n, n)),
-            "b_ih": gru_uniform((3 * n,)),
-            "b_hh": gru_uniform((3 * n,)),
+            "w_ih": gru_uniform((3 * h, w)),
+            "w_hh": gru_uniform((3 * h, h)),
+            "b_ih": gru_uniform((3 * h,)),
+            "b_hh": gru_uniform((3 * h,)),
         },
         "blocks": [],
     }

@@ -1,4 +1,5 @@
-"""The StemGNN model, dense path, in PyTorch.
+"""The StemGNN model in PyTorch: the dense path and the single-device stretch
+path.
 
 Architecture (reference base_model.py; stemgnn_tpu/models/stemgnn.py):
 
@@ -24,8 +25,18 @@ Parameters are a nested dict of tensors in the JAX package's layout, f32 or
 (param_dtype "bfloat16") bf16: the forward promotes a bf16 leaf to f32 where
 it starts (`promoted`), exactly, as JAX promotes a bf16 parameter where it
 meets an f32 activation; autograd hands such a leaf a bf16 gradient.
-Only the dense single-device path is here, eval and training: the sparse,
-segmented and ring branches are not.
+The stretch path (cfg.sparse_k, and with it cfg.gru_hidden and
+cfg.gru_segment; stemgnn_tpu/models/stemgnn.py:207-342) replaces the [B,N,N]
+attention and the [4,N,N] Laplacian stack with a top-k sparse latent graph
+(`ops/sparse.py`): key and query are meaned over the batch, the graph is an
+[N, k] block C on k shared columns, its dropout an [N, k] mask on C, and each
+block's graph conv the feature-space Chebyshev recursion. With gru_hidden the
+GRU's hidden size is H, not N, and its node sequence runs as independent
+segments (`ops.gru_over_nodes_segmented`), and node i's scores come from its
+own encoding row (no hidden == N transpose). `forward` then returns the
+graph (a `SparseLatentGraph`) where the dense path returns the attention.
+The spectral cell, the contraction and the heads are the dense path's.
+The JAX package's node-sharded and ring branches are not here.
 """
 
 from __future__ import annotations
@@ -40,6 +51,11 @@ from stemgnn_tpu_torch import ops
 from stemgnn_tpu_torch.config import StemGNNConfig
 from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
 from stemgnn_tpu_torch.models.initializers import init_params
+from stemgnn_tpu_torch.ops.sparse import (
+    SparseLatentGraph,
+    sparse_cheb_conv,
+    topk_latent_graph,
+)
 from stemgnn_tpu_torch.ops.torch_impl import gru_over_nodes  # noqa: F401 (plain GRU)
 
 
@@ -53,8 +69,13 @@ from stemgnn_tpu_torch.ops.torch_impl import gru_over_nodes  # noqa: F401 (plain
 KERNEL_GRAD_LEAVES = re.compile(r"blocks/\d+/glu/\d+/(left|right)/[wb]|gru/[wb]_hh")
 
 
-def kernel_grad_leaf(name: str) -> bool:
-    """True for a "/"-joined leaf name in KERNEL_GRAD_LEAVES."""
+def kernel_grad_leaf(name: str, cfg: StemGNNConfig | None = None) -> bool:
+    """True for a "/"-joined leaf name in KERNEL_GRAD_LEAVES. With a `cfg`
+    whose GRU is the stretch path's segmented one, not for the GRU's leaves:
+    the JAX package runs that recurrence as a `lax.scan`, not its kernel, so
+    their gradients come back in the leaf's dtype."""
+    if cfg is not None and cfg.gru_hidden is not None and name.startswith("gru/"):
+        return False
     return KERNEL_GRAD_LEAVES.fullmatch(name) is not None
 
 
@@ -73,39 +94,87 @@ def draw_dropout_mask(shape, keep: float, generator: torch.Generator):
     return torch.rand(shape, generator=generator, device=generator.device) < keep
 
 
+def dropout_shape(cfg: StemGNNConfig, batch: int) -> tuple:
+    """The shape of a training step's dropout mask: [B, N, N] on the dense
+    attention, [N, k] on the stretch path's C (stemgnn_tpu/ops/sparse.py:75-78)."""
+    if cfg.sparse_k is not None:
+        return (cfg.units, cfg.sparse_k)
+    return (batch, cfg.units, cfg.units)
+
+
+def _step_mask(cfg: StemGNNConfig, shape, training: bool, dropout_generator,
+               dropout_mask):
+    """The step's dropout mask: `dropout_mask` if given, else drawn from
+    `dropout_generator`; None outside training or without dropout."""
+    if not training or cfg.dropout_rate <= 0.0:
+        return None
+    if dropout_mask is None:
+        if dropout_generator is None:
+            raise ValueError("training with dropout needs dropout_generator "
+                             "or dropout_mask")
+        dropout_mask = draw_dropout_mask(shape, 1.0 - cfg.dropout_rate, dropout_generator)
+    return dropout_mask
+
+
 def latent_correlation_layer(params, cfg: StemGNNConfig, x, *, training: bool = False,
                              dropout_generator=None, dropout_mask=None):
-    """base_model.py:136-149. Returns (mul_L [4,N,N], attention [N,N]).
+    """base_model.py:136-149. Returns (mul_L [4,N,N], attention [N,N]), or on
+    the stretch path (graph, graph) with graph a `SparseLatentGraph`.
 
-    In training the attention [B,N,N] is dropped out before the Laplacian
-    (base_model.py:161): `dropout_mask` [B,N,N] bool if given, else a
-    mask drawn from `dropout_generator`."""
-    enc = ops.gru_over_nodes(params["gru"], x)  # [B, N_seq, N_hid]
-    # the reference's input.permute(0,2,1), legal only because hidden == N
-    enc = enc.transpose(1, 2)  # [B, N_hid, N_seq]
-    key = (enc @ params["weight_key"])[..., 0].contiguous()  # [B, N]
-    query = (enc @ params["weight_query"])[..., 0].contiguous()
+    In training the attention [B,N,N] (the stretch path: C [N,k]) is dropped
+    out (base_model.py:161): `dropout_mask` (bool, True keeps, of
+    `dropout_shape`) if given, else a mask drawn from `dropout_generator`."""
+    if cfg.gru_hidden is not None:
+        # the stretch GRU: enc [B, N, H]; node i's rank-1 scores come from its
+        # own encoding row, meaned over the batch
+        enc = ops.gru_over_nodes_segmented(params["gru"], x, cfg.gru_segment)
+        key = (enc @ params["weight_key"]).mean(dim=0)[:, 0]  # [N]
+        query = (enc @ params["weight_query"]).mean(dim=0)[:, 0]
+    else:
+        enc = ops.gru_over_nodes(params["gru"], x)  # [B, N_seq, N_hid]
+        # the reference's input.permute(0,2,1), legal only because hidden == N
+        enc = enc.transpose(1, 2)  # [B, N_hid, N_seq]
+        key = (enc @ params["weight_key"])[..., 0].contiguous()  # [B, N]
+        query = (enc @ params["weight_query"])[..., 0].contiguous()
+    if cfg.sparse_k is not None:
+        g = _sparse_graph(key, query, cfg, training, dropout_generator, dropout_mask)
+        return g, g
     att = ops.attention_kq(key, query, cfg.leaky_rate)  # [B, N, N]
-    if training and cfg.dropout_rate > 0.0:
+    mask = _step_mask(cfg, att.shape, training, dropout_generator, dropout_mask)
+    if mask is not None:
         keep = 1.0 - cfg.dropout_rate
-        mask = dropout_mask
-        if mask is None:
-            if dropout_generator is None:
-                raise ValueError("training with dropout needs dropout_generator "
-                                 "or dropout_mask")
-            mask = draw_dropout_mask(att.shape, keep, dropout_generator)
         att = torch.where(mask, att / keep, torch.zeros_like(att))
     return ops.laplacian_from_attention(att)
+
+
+def _sparse_graph(key, query, cfg: StemGNNConfig, training: bool, dropout_generator,
+                  dropout_mask) -> SparseLatentGraph:
+    """The top-k latent graph on one device (the single-device branch of
+    stemgnn_tpu/models/stemgnn.py `_sparse_graph_dispatch`). key, query:
+    [N] on the segmented path, [B, N] otherwise (meaned here: the stretch
+    path's batch-meaned scores, exact at B = 1)."""
+    if key.dim() == 2:
+        key, query = key.mean(dim=0), query.mean(dim=0)
+    mask = _step_mask(cfg, dropout_shape(cfg, batch=1), training, dropout_generator,
+                      dropout_mask)
+    return topk_latent_graph(key, query, cfg.leaky_rate, cfg.sparse_k, dropout_mask=mask,
+                             dropout_rate=cfg.dropout_rate)
 
 
 def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int,
                   compute_dtype: str = "float32"):
     """One StockBlockLayer (base_model.py:61-75).
 
-    x: [B, N, W]. Returns (forecast [B,N,W], backcast [B,N,W] or None).
+    x: [B, N, W]; mul_L [4, N, N], or on the stretch path the
+    `SparseLatentGraph`, whose graph conv is the feature-space Chebyshev
+    recursion (plain PyTorch, f32 at either compute_dtype). Returns
+    (forecast [B,N,W], backcast [B,N,W] or None).
     """
-    gfted = ops.cheb_graph_conv(mul_L.contiguous(), x.contiguous(),
-                                compute_dtype=compute_dtype)  # [B,4,N,W]
+    if isinstance(mul_L, SparseLatentGraph):
+        gfted = sparse_cheb_conv(mul_L, x)  # [B,4,N,W], O(N*k)
+    else:
+        gfted = ops.cheb_graph_conv(mul_L.contiguous(), x.contiguous(),
+                                    compute_dtype=compute_dtype)  # [B,4,N,W]
     gconv = ops.spe_seq_cell(gfted, block["glu"], cfg.multi_layer,
                              compute_dtype=compute_dtype)  # [B,4,N,Wm]
     igfted = ops.order_contract(gconv, block["weight"])  # [B, N, Wm]
@@ -123,9 +192,11 @@ def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
     """Model.forward (base_model.py:167-179).
 
     x: [B, W, N] on the device of the params. Returns
-    (forecast [B, horizon, N], attention [N, N]). With `training`, dropout on
-    the attention: `dropout_mask` ([B,N,N] bool, True keeps) or a mask drawn
-    from `dropout_generator`, a torch.Generator on x's device. `compute_dtype`:
+    (forecast [B, horizon, N], attention [N, N]), or on the stretch path
+    (forecast, the `SparseLatentGraph`). With `training`, dropout on the
+    attention (the stretch path: on C): `dropout_mask` (bool, True keeps, of
+    `dropout_shape`: [B,N,N] or [N,k]) or a mask drawn from
+    `dropout_generator`, a torch.Generator on x's device. `compute_dtype`:
     the graph conv's and the spectral cell's operands. bf16 parameters are
     promoted to f32 first (`promoted`).
     """

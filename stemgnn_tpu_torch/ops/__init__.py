@@ -14,6 +14,11 @@ count on functions of their own, under names ending in `_bf16`, and the
 bf16-storage arm of the spectral saving pair under names ending in
 `_bf16acts`. Launches
 made by replaying a captured CUDA graph are counted apart (`replayed`).
+
+The stretch path's sparse latent graph and feature-space Chebyshev conv
+(`ops/sparse.py`) are plain PyTorch on either device, as the JAX package
+leaves them to XLA; its segmented GRU launches the GRU kernels
+(`gru_over_nodes_segmented`, counted as "gru_fwd").
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from stemgnn_tpu_torch.ops.cuda_gru import (
     gru_bwd_grid,
     gru_fwd_grid,
     gru_over_nodes,
+    gru_over_nodes_segmented,
     gru_scan_bwd,
 )
 from stemgnn_tpu_torch.ops.cuda_spectral import (

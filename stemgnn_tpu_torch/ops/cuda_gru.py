@@ -33,6 +33,11 @@ gradients are products over all steps after the backward kernel, as the JAX
 package leaves all three to XLA. On CPU tensors the wrappers run the plain
 versions, `gru_over_nodes_plain` and `gru_scan_bwd_plain`; on CUDA tensors
 they launch the kernels or raise.
+
+The stretch path's segmented GRU (`gru_over_nodes_segmented`, hidden size H
+decoupled from N) folds its segments into batch rows and runs the same
+recurrence: the cluster kernel with N steps of a segment's length, which is
+no longer the hidden size.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from stemgnn_tpu_torch.ops import _build, torch_impl
@@ -376,3 +382,36 @@ def gru_over_nodes(gru, x):
 
 
 gru_over_nodes.launches = 0  # the cluster kernel's
+
+
+def fold_segments(x, seg: int):
+    """x [B, W, N] -> [S * B, W, seg]: the node axis cut into S = ceil(N / seg)
+    segments of seg nodes, the last padded with zeros, each segment a batch
+    row of its own, row s * B + b (stemgnn_tpu/models/stemgnn.py:222-230)."""
+    b, w, n = x.shape
+    s = -(-n // seg)
+    if s * seg != n:
+        x = F.pad(x, (0, s * seg - n))
+    return x.reshape(b, w, s, seg).permute(2, 0, 1, 3).reshape(s * b, w, seg)
+
+
+def unfold_segments(out, b: int, n: int):
+    """[S * B, seg, H] -> [B, N, H]: a recurrence's output over folded
+    segments put back on the node axis, the padding dropped
+    (stemgnn.py:245-246)."""
+    sb, seg, h = out.shape
+    s = sb // b
+    return out.reshape(s, b, seg, h).permute(1, 0, 2, 3).reshape(b, s * seg, h)[:, :n]
+
+
+def gru_over_nodes_segmented(gru, x, seg_len: int = 0):
+    """The stretch path's GRU (stemgnn_tpu/models/stemgnn.py
+    `gru_over_nodes_segmented`): x [B, W, N] -> enc [B, N, H], H the GRU's own
+    hidden size, the node sequence run as independent segments of `seg_len`
+    nodes (0: one segment of N), each from h0 = 0. The segments are folded
+    into batch rows (`fold_segments`) and go through `gru_over_nodes`: one
+    launch of the recurrence of seg_len steps over S * B rows on CUDA
+    tensors, the plain recurrence on CPU tensors."""
+    b, _, n = x.shape
+    seg = seg_len if seg_len > 0 else n
+    return unfold_segments(gru_over_nodes(gru, fold_segments(x, seg)), b, n)

@@ -83,8 +83,8 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
     """train_step(params, data, hi, dropout_generator=None, dropout_mask=None)
     -> loss (a 0-d tensor on the device, not read back). One forward, backward
     and optimizer step on the batch whose window end indices are `hi`; the
-    dropout mask is `dropout_mask` ([B,N,N] bool) or drawn from
-    `dropout_generator`.
+    dropout mask is `dropout_mask` (bool, of `stemgnn.dropout_shape`: [B,N,N],
+    or [N,k] on the stretch path) or drawn from `dropout_generator`.
 
     `leaves` are the parameter tensors `opt` updates (in place). A parameter
     the loss does not reach (stack 1's backcast_short_cut) gets a zero
@@ -112,7 +112,7 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
         copies = {}
         if mixed:
             copies = {k: p.detach().to(torch.float32).requires_grad_(True)
-                      for k, p in flat.items() if stemgnn.kernel_grad_leaf(k)}
+                      for k, p in flat.items() if stemgnn.kernel_grad_leaf(k, mcfg)}
             params = unflatten_params({k: copies.get(k, p) for k, p in flat.items()})
         forecast, _ = stemgnn.forward(
             params, mcfg, x, training=True, dropout_generator=dropout_generator,
@@ -172,19 +172,20 @@ def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
     """epoch_fn(params, data, hi_matrix [n, B], dropout_generator=None,
     dropout_masks=None) -> losses [n]: n train steps as one device program
     (stemgnn_tpu/train/engine.py `make_epoch_fn`). The steps' dropout masks are
-    `dropout_masks` ([n, B, N, N] bool) or drawn from `dropout_generator`.
+    `dropout_masks` ([n, B, N, N] bool; [n, N, k] on the stretch path) or
+    drawn from `dropout_generator`.
 
     `params` must be the tree of `leaves`, the tensors `opt` updates in place.
     On CPU tensors the program is the loop of eager steps. On the card it is a
     CUDA graph of the n steps, captured at the first call with that n (and
     batch and data shape) and replayed from then on; `data`, `hi_matrix`, the
     n dropout masks and the losses live in static buffers that a call copies
-    into and out of. The masks are drawn before the replay, one [B,N,N] draw
-    per step from `dropout_generator`, which is what the eager steps draw: a
-    chunk and the same steps taken eagerly give the same bits. The first
-    capture is preceded by `WARM_STEPS` eager steps whose effect on the
-    parameters and the optimizer state is undone. `compute_dtype` is the
-    steps' (`make_train_step`).
+    into and out of. The masks are drawn before the replay, one draw of
+    `stemgnn.dropout_shape` per step from `dropout_generator`, which is what
+    the eager steps draw: a chunk and the same steps taken eagerly give the
+    same bits. The first capture is preceded by `WARM_STEPS` eager steps
+    whose effect on the parameters and the optimizer state is undone.
+    `compute_dtype` is the steps' (`make_train_step`).
     """
     leaves = list(leaves)
     train_step = make_train_step(mcfg, opt, leaves, compute_dtype=compute_dtype)
@@ -223,7 +224,7 @@ def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
 
     def capture(params, data, n, batch):
         st = _static_inputs(data, n, batch, w)
-        st.masks = (torch.ones((n, batch, mcfg.units, mcfg.units), dtype=torch.bool,
+        st.masks = (torch.ones((n, *stemgnn.dropout_shape(mcfg, batch)), dtype=torch.bool,
                                device=data.device) if dropout else None)
         st.losses = torch.zeros(n, dtype=data.dtype, device=data.device)
         if not graphs:
@@ -251,7 +252,7 @@ def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
         elif dropout:
             for i in range(n):
                 st.masks[i] = stemgnn.draw_dropout_mask(
-                    (batch, mcfg.units, mcfg.units), keep, dropout_generator)
+                    stemgnn.dropout_shape(mcfg, batch), keep, dropout_generator)
         st.graph.replay()
         ops.add_replayed(st.per_replay)
         return st.losses.clone()

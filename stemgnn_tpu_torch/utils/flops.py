@@ -1,5 +1,6 @@
 """Analytic FLOP model and the H100's peak rates, for the bench's
-speed-of-light accounting (stemgnn_tpu/utils/flops.py, dense path).
+speed-of-light accounting (stemgnn_tpu/utils/flops.py, the dense and the
+stretch paths).
 
 Conventions, as in the JAX package:
 - a multiply-add counts as 2 operations (a product [p,q]@[q,r] is 2*p*q*r);
@@ -26,15 +27,30 @@ def forward_flops(cfg: StemGNNConfig, batch: int) -> Dict[str, float]:
     stacks = cfg.stack_cnt
     f: Dict[str, float] = {}
 
-    # node-axis GRU, hidden == N: the input projection and N sequential
-    # [B,N]@[N,3N] products
-    f["gru"] = 2.0 * n * b * w * 3 * n + 6.0 * b * n * n * n
-    # rank-1 key and query projections [B,N,N]@[N,1], twice
-    f["attention"] = 4.0 * b * n * n
-    # Chebyshev basis: T2 = 2L^2, T3 = 2L*T2 - T1, two N^3 products
-    f["cheb"] = 2 * 2.0 * n * n * n
-    # graph conv: mul_L [4,N,N] @ x [B,N,W], per stack
-    f["graph_conv"] = stacks * 2.0 * 4 * b * n * n * w
+    if cfg.gru_hidden is not None:
+        # the stretch path's segmented GRU, hidden H: O(N * H^2)
+        h = cfg.gru_hidden
+        f["gru"] = 2.0 * n * b * w * 3 * h + 6.0 * b * n * h * h
+    else:
+        # node-axis GRU, hidden == N: the input projection and N sequential
+        # [B,N]@[N,3N] products
+        f["gru"] = 2.0 * n * b * w * 3 * n + 6.0 * b * n * n * n
+    if cfg.sparse_k is not None:
+        # the stretch path (ops/sparse.py): the rank-1 projections of the
+        # encoding (the scores are adds, the top-k a selection: not counted),
+        # and the feature-space Chebyshev conv, 4 orders of k neighbours, per
+        # stack
+        k = cfg.sparse_k
+        hdim = cfg.gru_hidden if cfg.gru_hidden is not None else n
+        f["attention"] = 4.0 * b * n * hdim
+        f["graph_conv"] = stacks * 2.0 * 4 * b * n * k * w
+    else:
+        # rank-1 key and query projections [B,N,N]@[N,1], twice
+        f["attention"] = 4.0 * b * n * n
+        # Chebyshev basis: T2 = 2L^2, T3 = 2L*T2 - T1, two N^3 products
+        f["cheb"] = 2 * 2.0 * n * n * n
+        # graph conv: mul_L [4,N,N] @ x [B,N,W], per stack
+        f["graph_conv"] = stacks * 2.0 * 4 * b * n * n * w
 
     # spectral cell, per stack: DFT products and 3 GLU layers on 2 chains
     dft = 2 * 2.0 * b * 4 * n * w * w

@@ -325,9 +325,9 @@ def test_measure_on_the_cpu_returns_the_documented_keys():
     assert set(res) == {
         "windows_per_s", "step_time_ms", "step_time_ms_min", "step_time_ms_max",
         "repeats", "spread", "chunk_steps", "executed_cheb_orders", "edges_per_s",
-        "edges_per_s_raw4", "loss", "warmup_s", "spectral_bwd", "mfu", "device",
-        "power_limit"}
-    assert res["repeats"] == 3 and res["chunk_steps"] == 2
+        "edges_per_s_raw4", "loss", "sparse_k", "warmup_s", "spectral_bwd", "mfu",
+        "device", "power_limit"}
+    assert res["repeats"] == 3 and res["chunk_steps"] == 2 and res["sparse_k"] is None
     assert np.isfinite(res["loss"])
     assert res["step_time_ms_min"] <= res["step_time_ms"] <= res["step_time_ms_max"]
     np.testing.assert_allclose(res["windows_per_s"], 2 / (res["step_time_ms"] / 1e3))
