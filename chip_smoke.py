@@ -138,7 +138,30 @@ Phases, each fatal on failure (nonzero exit, no result line):
   8. asynchronous checkpoint: one submit, wait, load, compare with the live
      parameters and optimizer state; the same for phase 6's bf16 parameters
      and mixed-dtype moments, dtype for dtype.
-  9. a `kernels` JSON line (launches summed over the paths: calls of the
+  9. distributed: a process group of this process alone over NCCL (a
+     FileStore in a temporary directory) and a (1, 1) mesh. (a) The ECG
+     flagship's step through parallel.train.make_sharded_train_step, f32 and
+     bf16: its loss and every parameter after one RMSProp step bitwise the
+     engine's unsharded step's (a sum over one rank changes no bit), with its
+     counters. (b) synthetic-32k-sharded at full width (32,768 nodes, window
+     12, horizon 3, multi 5, batch 2, sparse_k 64, a 64-unit GRU over segments
+     of 1024, force_sparse_shard: the node-sharded dispatch of
+     parallel/sparse_shard.py) against the same model unsharded on the card:
+     two windows through engine.inference_batched (a captured eval program,
+     its collectives in the graph), forecasts within 1e-3 and the graph's
+     top-k index set exact, c, degree and inv_sqrt within 1e-5; one train
+     step with its [N, k] mask, loss within 1e-5 and every gradient by phase
+     5's f32 rule, the step twice bitwise, its counters (the GRU pair and the
+     spectral pair, no attention, no graph conv) and its peak allocated
+     memory. (c) bench.measure and bench.measure_eval at synthetic-32k-sharded
+     and synthetic-32k-seggru (the unsharded dispatch), f32 and bf16, in the
+     order unsharded, sharded, sharded, unsharded, counters around each.
+     (d) Where torch.cuda.device_count() >= 2: two NCCL processes, one card
+     each, run the flagship's data-parallel step on a (2, 1) mesh (held to
+     one card's step by phase 5's rule) and synthetic-32k-sharded's step on a
+     (1, 2) mesh (held to the CPU's f64 step by `noise_grads_agreement`);
+     with one card the line {"distributed_2card": "not run", "cards": 1}.
+ 10. a `kernels` JSON line (launches summed over the paths: calls of the
      wrappers plus what replays of captured graphs launched; every kernel at
      least once), then the result line.
 
@@ -358,20 +381,26 @@ def noise_grads_agreement(grads, g32, g64):
     """(leaves out of tolerance, the worst max|K - P64| over max|P32 - P64| of
     a leaf and its name, the L2 ratio) of the card's gradients `grads` against
     the CPU's f64 step `g64`, with the CPU's f32 step `g32` as the scale (the
-    rule above)."""
+    rule above). `g32` may be a list of f32 steps held as right: the scale is
+    then, leaf by leaf and in L2, the largest of their distances."""
     import torch
 
-    bad, worst, worst_name, d_k, d_32 = [], 0.0, "", 0.0, 0.0
+    refs = g32 if isinstance(g32, (list, tuple)) else [g32]
+    bad, worst, worst_name, d_k, d_32 = [], 0.0, "", 0.0, [0.0] * len(refs)
     for name, a64 in g64.items():
-        k, a32 = grads[name].detach().double().cpu(), g32[name].detach().double().cpu()
-        err, noise = torch.dist(k, a64, math.inf).item(), torch.dist(a32, a64, math.inf).item()
+        k = grads[name].detach().double().cpu()
+        dists = [torch.dist(r[name].detach().double().cpu(), a64, math.inf).item()
+                 for r in refs]
+        err, noise = torch.dist(k, a64, math.inf).item(), max(dists)
         if err > max(GRAD_ATOL_REL * a64.abs().max().item(), STEP_NOISE_FACTOR * noise) + 1e-30:
             bad.append((name, err, noise))
         ratio = err / noise if noise > 0 else (math.inf if err else 0.0)
         if ratio > worst:
             worst, worst_name = ratio, name
         d_k += torch.dist(k, a64).item() ** 2
-        d_32 += torch.dist(a32, a64).item() ** 2
+        for i, r in enumerate(refs):
+            d_32[i] += torch.dist(r[name].detach().double().cpu(), a64).item() ** 2
+    d_32 = max(d_32)
     l2 = math.sqrt(d_k / d_32) if d_32 > 0 else (math.inf if d_k else 0.0)
     if not l2 <= STEP_NOISE_L2:
         bad.append(("L2", l2, STEP_NOISE_L2))
@@ -1612,10 +1641,13 @@ def spectral_checks(dev, glu, multi: int, extra=()):
     return None
 
 
-def profile_steps(step, batches, step_ms: float, tag: str = "5 train path") -> None:
+def profile_steps(step, batches, step_ms: float, tag: str = "5 train path",
+                  groups=()) -> None:
     """Print where the card's time goes in a train step: torch.profiler over
     `batches`, device time per step by kernel name, their sum, and that sum
-    over `step_ms` (the unprofiled host-clock step) as the card's busy share.
+    over `step_ms` (the unprofiled host-clock step) as the card's busy share;
+    for each of `groups`, also the kernels whose name holds it, their count and
+    time.
     Informative only: prints "not measured" if the profiler cannot run or saw
     no kernel. `tag` heads the lines."""
     import torch
@@ -1655,6 +1687,10 @@ def profile_steps(step, batches, step_ms: float, tag: str = "5 train path") -> N
           f"of the {step_ms:.3f} ms step (the card's busy share; the rest is idle)")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[{tag}]   {ms / n:8.4f} ms/step  {name[:100]}")
+    for group in groups:
+        held = {k: v for k, v in kernels.items() if group in k.lower()}
+        print(f"[{tag}] the {len(held)} kernels whose name holds {group!r}: "
+              f"{sum(held.values()) / n:.4f} ms per step")
 
 
 def take_launches(ops, results):
@@ -1952,6 +1988,378 @@ def bf16_redesigns(results, params, mcfg, x):
     if len(names) != 1 or "cheb_graph_conv" not in names[0]:
         return f"cheb_graph_conv_fwd_bf16 launches {names}, expected its one kernel"
     return None
+
+
+# the distributed phase: the JAX suite's node-sharded cell (benchmarks/suite.py:57,
+# its 9th field force_sparse_shard True) and the same model unsharded
+S32K_SHARDED, S32K = "synthetic-32k-sharded", "synthetic-32k-seggru"
+DENSE_ONLY = ("attention_kq_fwd", "attention_kq_bwd", "cheb_graph_conv_fwd",
+              "cheb_graph_conv_fwd_bf16")
+
+
+def sharded_32k(dev):
+    """(the synthetic-32k-sharded model config with force_sparse_shard, its
+    unsharded twin, init_params(0), a seeded series of two windows as a
+    WindowDataset, the first batch's [N, k] dropout mask)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch import bench
+    from stemgnn_tpu_torch.config import StemGNNConfig
+    from stemgnn_tpu_torch.data import WindowDataset, compute_norm_stats
+    from stemgnn_tpu_torch.models import init_params
+
+    kw = bench.config_kwargs(S32K_SHARDED)
+    mcfg = StemGNNConfig(units=kw["n_nodes"], window_size=kw["window"], horizon=kw["horizon"],
+                         multi_layer=kw["multi"], sparse_k=kw["sparse_k"],
+                         gru_hidden=kw["gru_hidden"], gru_segment=kw["gru_segment"],
+                         force_sparse_shard=kw["force_sparse_shard"])
+    series = np.random.default_rng(15).standard_normal(
+        (kw["window"] + kw["horizon"] + kw["batch"] - 1, kw["n_nodes"]))
+    data_set = WindowDataset(series, kw["window"], kw["horizon"], "z_score",
+                             compute_norm_stats(series, "z_score"))
+    mask = torch.from_numpy(np.random.default_rng(16).random((mcfg.units, mcfg.sparse_k))
+                            < 1.0 - mcfg.dropout_rate)
+    return (mcfg, dataclasses.replace(mcfg, force_sparse_shard=False),
+            init_params(0, mcfg, device=dev), data_set, mask)
+
+
+def step_on(mcfg, params, data, hi, mask, mesh=None, compute_dtype="float32",
+            shard_batch=True):
+    """One train step of fresh copies of `params` through the engine's step (on
+    `mesh` through parallel.train.make_sharded_train_step): (loss, {name:
+    gradient}, {name: parameter after the step})."""
+    from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
+    from stemgnn_tpu_torch.parallel.train import make_sharded_train_step
+    from stemgnn_tpu_torch.train import engine
+    from stemgnn_tpu_torch.train.optim import make_optimizer
+
+    flat = {k: v.detach().clone().requires_grad_(True)
+            for k, v in flatten_params(params).items()}
+    opt = make_optimizer("RMSProp", flat.values(), 1e-4)
+    if mesh is None:
+        step = engine.make_train_step(mcfg, opt, flat.values(), compute_dtype=compute_dtype)
+    else:
+        step = make_sharded_train_step(mcfg, opt, flat.values(), mesh,
+                                       compute_dtype=compute_dtype, shard_batch=shard_batch)
+    loss = step(unflatten_params(flat), data, hi, dropout_mask=mask)
+    return (loss, {k: v.grad.detach().clone() for k, v in flat.items()},
+            {k: v.detach().clone() for k, v in flat.items()})
+
+
+def two_card_rank(flagship, stretch):
+    """A rank of phase 9's two-card group (NCCL, card = rank): the flagship's
+    data-parallel step on a (2, 1) mesh and synthetic-32k-sharded's step on a
+    (1, 2) mesh, each (loss, {name: gradient as a numpy array}). `flagship`:
+    (its TrainConfig fields, train split, window ends, [B, N, N] mask);
+    `stretch`: the first batch's window ends and [N, k] mask."""
+    import torch
+
+    from stemgnn_tpu_torch.config import TrainConfig
+    from stemgnn_tpu_torch.models import init_params
+    from stemgnn_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    cfg_kw, data, hi, mask = flagship
+    mcfg = TrainConfig(**cfg_kw).model_config(data.shape[1])
+    mesh = make_mesh(2, 1)
+    loss, grads, _ = step_on(mcfg, init_params(0, mcfg, device=dev), torch.from_numpy(data).to(dev),
+                             torch.from_numpy(hi).to(dev), torch.from_numpy(mask).to(dev), mesh)
+    out.append((loss.item(), {k: g.cpu().numpy() for k, g in grads.items()}))
+    mcfg_s, _, params_s, set_s, _ = sharded_32k(dev)
+    hi_s, mask_s = stretch
+    loss, grads, _ = step_on(mcfg_s, params_s, torch.from_numpy(set_s.data).to(dev),
+                             torch.from_numpy(hi_s).to(dev), torch.from_numpy(mask_s).to(dev),
+                             make_mesh(1, 2))
+    out.append((loss.item(), {k: g.cpu().numpy() for k, g in grads.items()}))
+    return out
+
+
+def distributed_phase(dev, results, cfg, train_data, his, masks, bench_line, run_train_bench):
+    """Phase 9 (module docstring): 0, or the code of `_fail`."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch import bench, ops
+    from stemgnn_tpu_torch.models import init_params, stemgnn
+    from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
+    from stemgnn_tpu_torch.ops import cuda_spectral
+    from stemgnn_tpu_torch.parallel.mesh import make_mesh, world_of_one
+    from stemgnn_tpu_torch.parallel.train import make_sharded_train_step
+    from stemgnn_tpu_torch.train.optim import make_optimizer
+    from stemgnn_tpu_torch.train import engine
+
+    reread = cuda_spectral.SAVE_ACTS_BWD
+    # the spectral pair a train step launches, by compute_dtype
+    pairs = {"float32": ("spectral_fwd_save", "spectral_bwd_reread") if reread
+             else ("spectral_fwd", "spectral_bwd"),
+             "bfloat16": ("spectral_fwd_save_bf16", "spectral_bwd_reread_bf16") if reread
+             else ("spectral_fwd_bf16", "spectral_bwd_bf16")}
+    with world_of_one(dev):
+        mesh = make_mesh(1, 1)
+        print(f"[9 distributed] a process group of one rank over NCCL "
+              f"({torch.distributed.get_backend()}), world {torch.distributed.get_world_size()}"
+              f", a (1, 1) mesh")
+        # (a) the flagship's data-parallel step on the (1, 1) mesh against the
+        # engine's unsharded step, f32 and bf16: the loss and every parameter
+        # after one RMSProp step bitwise (the sums over one rank change no bit)
+        mcfg = cfg.model_config(train_data.shape[1])
+        params = init_params(cfg.seed, mcfg, device=dev)
+        data = torch.from_numpy(train_data).to(dev)
+        hi, mask = his[0].to(dev), masks[0].to(dev)
+        for cd in ("float32", "bfloat16"):
+            loss_u, _, after_u = step_on(mcfg, params, data, hi, mask, compute_dtype=cd)
+            ops.reset_launches()
+            loss_m, _, after_m = step_on(mcfg, params, data, hi, mask, mesh, compute_dtype=cd)
+            torch.cuda.synchronize()
+            launches, replayed = take_launches(ops, results)
+            differ = [k for k in after_u if not torch.equal(after_u[k], after_m[k])]
+            print(f"[9 distributed] (a) ECG flagship, compute_dtype {cd}: "
+                  f"parallel.train.make_sharded_train_step on the (1, 1) mesh against the "
+                  f"engine's step: loss {loss_m.item():.9f} against {loss_u.item():.9f}, "
+                  f"{'bitwise' if torch.equal(loss_m, loss_u) else 'DIFFERS'}; "
+                  f"{len(after_u) - len(differ)} of {len(after_u)} parameters after the step "
+                  f"bitwise; wrapper launches {launches}")
+            want = dict.fromkeys(ops.KERNELS, 0)
+            conv = "cheb_graph_conv_fwd" + ("_bf16" if cd == "bfloat16" else "")
+            want.update({"gru_fwd": 1, "gru_bwd": 1, "attention_kq_fwd": 1,
+                         "attention_kq_bwd": 1, conv: 2, pairs[cd][0]: 2, pairs[cd][1]: 2})
+            if differ or not torch.equal(loss_m, loss_u) or launches != want:
+                return _fail(f"(a) {cd}: the sharded step differs from the unsharded one: "
+                             f"loss {loss_m.item()} against {loss_u.item()}, {differ[:5]}")
+        del params, data
+
+        # (b) synthetic-32k-sharded at full width against the same model
+        # unsharded on the card: two windows through engine.inference_batched
+        # and one train step with its [N, k] mask, twice bitwise
+        mcfg_s, mcfg_u, params_s, set_s, mask_s = sharded_32k(dev)
+        data_s = torch.from_numpy(set_s.data).to(dev)
+        hi_s = torch.from_numpy(set_s.epoch_batches(len(set_s), shuffle=False)[0]).long()
+        mask_s = mask_s.to(dev)
+        fc = {}
+        for tag, m_cfg, m in (("unsharded", mcfg_u, None), ("sharded", mcfg_s, mesh)):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            fc[tag], _ = engine.inference_batched(
+                engine.make_eval_step(m_cfg, dev, mesh=m), params_s, set_s, len(set_s), dev,
+                engine.make_eval_epoch_fn(m_cfg, dev, mesh=m))
+            serve_s = time.perf_counter() - t0
+            launches, replayed = take_launches(ops, results)
+            total = {k: launches[k] + replayed[k] for k in launches}
+            print(f"[9 distributed] (b) {S32K_SHARDED if m else S32K}, {len(set_s)} windows "
+                  f"through engine.inference_batched ({tag}), {serve_s:.3f} s with its "
+                  f"capture; wrapper launches (the warm-up before the capture) {launches}; "
+                  f"launched by graph replays {replayed}")
+            # one batch: the replay's GRU forward and 2 spectral forwards
+            if (replayed["gru_fwd"] != 1 or replayed["spectral_fwd"] != 2
+                    or any(total[k] for k in DENSE_ONLY)):
+                return _fail(f"(b) {tag} serving launches {launches} and {replayed}")
+        shape = (len(set_s), mcfg_s.horizon, mcfg_s.units)
+        err = float(np.abs(fc["sharded"] - fc["unsharded"]).max())
+        x0, _ = engine.gather_windows(data_s, hi_s.to(dev), mcfg_s.window_size,
+                                      mcfg_s.horizon)
+        with torch.inference_mode():
+            _, g_sh = stemgnn.forward(params_s, mcfg_s, x0, mesh=mesh)
+            _, g_un = stemgnn.forward(params_s, mcfg_u, x0)
+        same_idx, g_err = graph_agreement(g_sh, type(g_un)(*(t.cpu() for t in g_un)))
+        print(f"[9 distributed] (b) forecasts {fc['sharded'].shape}, sharded against "
+              f"unsharded: max_abs_err {err:.3e} (atol 1e-3), "
+              f"{'bitwise' if np.array_equal(fc['sharded'], fc['unsharded']) else 'not bitwise'}"
+              f"; the graph: top-{mcfg_s.sparse_k} index sets "
+              f"{'equal' if same_idx else 'DIFFER'}, c, degree and inv_sqrt max_abs_err "
+              f"{g_err:.3e} (atol 1e-5)")
+        if (fc["sharded"].shape != shape or not np.isfinite(fc["sharded"]).all() or err > 1e-3
+                or not same_idx or not g_err <= 1e-5):
+            return _fail(f"(b) sharded serving: shape {fc['sharded'].shape}, err {err}, "
+                         f"index sets equal {same_idx}, graph {g_err}")
+        loss_u, grads_u, _ = step_on(mcfg_u, params_s, data_s, hi_s.to(dev), mask_s)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        loss_m, grads_m, _ = step_on(mcfg_s, params_s, data_s, hi_s.to(dev), mask_s, mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches, replayed = take_launches(ops, results)
+        loss_m2, grads_m2, _ = step_on(mcfg_s, params_s, data_s, hi_s.to(dev), mask_s, mesh)
+        rerun = [k for k in grads_m if not torch.equal(grads_m[k], grads_m2[k])]
+        bad, worst, worst_name = compare_grads(grads_m, {k: g.cpu() for k, g in grads_u.items()})
+        bitwise = (torch.equal(loss_m, loss_u)
+                   and all(torch.equal(grads_m[k], grads_u[k]) for k in grads_u))
+        loss_err = abs(loss_m.item() - loss_u.item())
+        want = dict.fromkeys(ops.KERNELS, 0)
+        want.update({"gru_fwd": 1, "gru_bwd": 1, pairs["float32"][0]: 2,
+                     pairs["float32"][1]: 2})
+        print(f"[9 distributed] (b) {S32K_SHARDED}, one train step on the (1, 1) mesh: "
+              f"wrapper launches {launches}; loss {loss_m.item():.6f} (abs err {loss_err:.3e} "
+              f"against the unsharded step's, atol 1e-5); {len(grads_m)} gradients, worst "
+              f"max_abs_err {worst:.3e} at {worst_name} (atol {GRAD_ATOL_REL:g} of each "
+              f"gradient's largest entry, rtol {GRAD_RTOL:g}); against the unsharded step "
+              f"{'bitwise' if bitwise else 'not bitwise'}; the same step twice "
+              f"{'bitwise equal' if not rerun and torch.equal(loss_m, loss_m2) else 'DIFFERS'}"
+              f"; peak allocated {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+              f"the {base / 2**30:.3f} GiB held before the step)")
+        if (launches != want or any(replayed.values()) or loss_err > 1e-5 or bad or rerun
+                or not torch.equal(loss_m, loss_m2)):
+            return _fail(f"(b) sharded train step: launches {launches} (expected {want}), "
+                         f"loss err {loss_err}, leaves {bad[:5]}, rerun {rerun[:5]}")
+        del grads_u, grads_m, grads_m2
+        # where the time of the step goes, unsharded and sharded: the engine's
+        # eager step (on the (1, 1) mesh for the sharded one), 3 warm steps, 5
+        # on the host clock, 5 under torch.profiler (NCCL's kernels and copies
+        # among the rest)
+        for tag, m_cfg, m in ((S32K, mcfg_u, None), (S32K_SHARDED, mcfg_s, mesh)):
+            flat_p = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in flatten_params(params_s).items()}
+            opt_p = make_optimizer("RMSProp", flat_p.values(), 1e-4)
+            step_p = (engine.make_train_step(m_cfg, opt_p, flat_p.values()) if m is None
+                      else make_sharded_train_step(m_cfg, opt_p, flat_p.values(), m))
+            tree_p, hi_d = unflatten_params(flat_p), hi_s.to(dev)
+            for _ in range(3):
+                step_p(tree_p, data_s, hi_d, dropout_mask=mask_s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step_p(tree_p, data_s, hi_d, dropout_mask=mask_s)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / 5 * 1e3
+            print(f"[9 distributed] (b) {tag}: the eager train step {step_ms:.3f} ms of host "
+                  f"clock (5 steps after 3 warm)")
+            profile_steps(lambda hi_b: step_p(tree_p, data_s, hi_b, dropout_mask=mask_s),
+                          [hi_d] * 5, step_ms, f"9 distributed, {tag}",
+                          groups=("nccl", "memcpy"))
+        del flat_p, tree_p, step_p, data_s
+
+        # (c) the bench at synthetic-32k-sharded and at synthetic-32k-seggru
+        # (the same model, unsharded dispatch), f32 and bf16, train and eval,
+        # in the order unsharded, sharded, sharded, unsharded, counters around
+        # each: the gap is the sharded dispatch's own cost on one card
+        stretch_bench = dict(steps=STRETCH_STEPS, warmup=STRETCH_CHUNK,
+                             chunk_steps=STRETCH_CHUNK)
+        times = {}
+        for cd in ("float32", "bfloat16"):
+            for name in (S32K, S32K_SHARDED, S32K_SHARDED, S32K):
+                kw = dict(bench.config_kwargs(name), compute_dtype=cd, **stretch_bench)
+                label = f"{name} train, {cd}"
+                res, launches, replayed = run_train_bench(label, reread=reread, **kw)
+                total = {k: launches[k] + replayed[k] for k in launches}
+                steps_run = total["gru_bwd"]
+                if (steps_run <= 0 or total["gru_fwd"] != steps_run
+                        or any(total[k] != 2 * steps_run for k in pairs[cd])
+                        or any(total[k] for k in DENSE_ONLY)):
+                    return _fail(f"bench {label}: the launches are {launches} and {replayed}")
+                ops.reset_launches()
+                res_e = bench.measure_eval(**kw)
+                launches, replayed = take_launches(ops, results)
+                bench_line(f"{name} eval, {cd}", res_e)
+                fwd = "spectral_fwd" + ("_bf16" if cd == "bfloat16" else "")
+                if (not replayed["gru_fwd"] or replayed[fwd] != 2 * replayed["gru_fwd"]
+                        or any(launches[k] + replayed[k] for k in DENSE_ONLY)):
+                    return _fail(f"bench {name} eval {cd}: the launches are {launches} and "
+                                 f"{replayed}")
+                times.setdefault((name, cd), []).append(
+                    (res["step_time_ms"], res_e["step_time_ms"]))
+        for cd in ("float32", "bfloat16"):
+            (tu1, eu1), (tu2, eu2) = times[S32K, cd]
+            (ts1, es1), (ts2, es2) = times[S32K_SHARDED, cd]
+            print(f"[9 distributed] (c) {cd}, median ms in the order unsharded, sharded, "
+                  f"sharded, unsharded: train {tu1:.4f}, {ts1:.4f}, {ts2:.4f}, {tu2:.4f}; "
+                  f"eval {eu1:.4f}, {es1:.4f}, {es2:.4f}, {eu2:.4f}; the sharded dispatch "
+                  f"costs {(ts1 + ts2 - tu1 - tu2) / 2:+.4f} ms a train step and "
+                  f"{(es1 + es2 - eu1 - eu2) / 2:+.4f} ms an eval batch (the unsharded runs "
+                  f"differ by {abs(tu1 - tu2):.4f} and {abs(eu1 - eu2):.4f})")
+
+    return two_card_checks(dev, cfg, train_data, his, masks)
+
+
+def two_card_checks(dev, cfg, train_data, his, masks):
+    """Phase 9 (d): where the host has two cards or more, the flagship's
+    data-parallel step on a (2, 1) mesh and synthetic-32k-sharded's step on a
+    (1, 2) mesh in two NCCL processes. The flagship is held to one card's step
+    by the f32 rule of phase 5. The 32k step's gradients upstream of the top-k
+    (the GRU, weight_query) are f32 noise as large as the gradients, and the
+    CPU's f32 step, phase 5's scale, stands farther from the f64 step than one
+    card's step on one host and far closer on another (its BLAS sums in
+    another order). So the two-card step is held to the CPU's f64 step by
+    `noise_grads_agreement` with two f32 steps as the scale, the CPU's and one
+    card's. 0, or the code of `_fail`."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch.models import init_params
+    from stemgnn_tpu_torch.models.convert import flatten_params
+    from stemgnn_tpu_torch.parallel.dryrun import run_ranks
+    from stemgnn_tpu_torch.train import engine
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(json.dumps({"distributed_2card": "not run", "cards": cards}))
+        return 0
+    _, mcfg_u, params_s, set_s, mask_s = sharded_32k(dev)
+    hi_s = torch.from_numpy(set_s.epoch_batches(len(set_s), shuffle=False)[0]).long()
+    flag = (dict(batch_size=cfg.batch_size, window_size=cfg.window_size,
+                 horizon=cfg.horizon, multi_layer=cfg.multi_layer),
+            train_data, his[0].numpy(), masks[0].numpy())
+    mcfg = cfg.model_config(train_data.shape[1])
+    loss_f, grads_f, _ = step_on(mcfg, init_params(cfg.seed, mcfg, device=dev),
+                                 torch.from_numpy(train_data).to(dev), his[0].to(dev),
+                                 masks[0].to(dev))
+    _, grads_1, _ = step_on(mcfg_u, params_s, torch.from_numpy(set_s.data).to(dev),
+                            hi_s.to(dev), mask_s.to(dev))
+    x_c, y_c = engine.gather_windows(torch.from_numpy(set_s.data), hi_s, mcfg_u.window_size,
+                                     mcfg_u.horizon)
+    steps_cpu = {}
+    for dt in (torch.float32, torch.float64):
+        tree = leaf_params({k: v.detach().to(dt) for k, v in flatten_params(params_s).items()},
+                           "cpu")
+        steps_cpu[dt] = step_grads(tree, mcfg_u, x_c.to(dt), y_c.to(dt), mask_s)
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, two_card_rank, (flag, (hi_s.numpy(), mask_s.numpy())),
+                      timeout=600.0, device="cuda")
+    secs = time.perf_counter() - t0
+    verdict = {}
+    for i, tag in enumerate(("flagship_2x1", "32k_sharded_1x2")):
+        loss_r, grads_r = ranks[0][i]
+        same = ranks[1][i][0] == loss_r and all(
+            np.array_equal(g, ranks[1][i][1][k]) for k, g in grads_r.items())
+        grads_r = {k: torch.from_numpy(g) for k, g in grads_r.items()}
+        if i == 0:
+            loss_ref = loss_f.item()
+            bad, worst, worst_name = compare_grads(grads_r, {k: g.cpu() for k, g in
+                                                             grads_f.items()})
+            rule = (f"worst gradient max_abs_err {worst:.3e} at {worst_name} (atol "
+                    f"{GRAD_ATOL_REL:g} of each largest entry, rtol {GRAD_RTOL:g})")
+        else:
+            loss_ref = steps_cpu[torch.float64][0].item()
+            bad, worst, worst_name, l2 = noise_grads_agreement(
+                grads_r, [steps_cpu[torch.float32][1], grads_1], steps_cpu[torch.float64][1])
+            rule = (f"gradients against the CPU's f64 step: worst {worst:.3f} x the larger "
+                    f"distance of the CPU's f32 step and one card's at {worst_name}, L2 "
+                    f"{l2:.3f} x")
+        loss_err = abs(loss_r - loss_ref)
+        if i == 1:  # the leaves upstream of the top-k, whose f32 gradients are noise
+            g64 = steps_cpu[torch.float64][1]
+            for name in ("weight_query", "gru/w_ih", "gru/w_hh"):
+                d = [torch.dist(g[name].double().cpu(), g64[name], math.inf).item()
+                     for g in (grads_r, grads_1, steps_cpu[torch.float32][1])]
+                print(f"[9 distributed] (d) {name}: largest entry of the CPU's f64 gradient "
+                      f"{g64[name].abs().max().item():.4e}; max distance to it of the two "
+                      f"cards' {d[0]:.4e}, one card's {d[1]:.4e}, the CPU f32 step's "
+                      f"{d[2]:.4e}")
+        verdict[tag] = not bad and loss_err <= 1e-5 and same
+        print(f"[9 distributed] (d) {tag} on two cards: loss {loss_r:.6f} (abs err "
+              f"{loss_err:.3e}, atol 1e-5); both ranks equal: {same}; {rule}; out of "
+              f"tolerance {bad[:3]}")
+    print(json.dumps({"distributed_2card": "run", "cards": cards, "seconds": round(secs, 1),
+                      "agree": verdict}))
+    if not all(verdict.values()):
+        return _fail(f"(d) the two-card steps differ from their references: {verdict}")
+    return 0
 
 
 def run() -> int:
@@ -3323,8 +3731,16 @@ def run() -> int:
     print(f"[8 async checkpoint] bf16 parameters: {len(loaded_b)} bf16 parameters and their "
           f"RMSProp moments (bf16 and f32) equal to the live ones, dtype for dtype")
 
-    # --- 9. summary ---
-    print(f"[9 summary] chip_smoke ran {time.perf_counter() - t_start:.1f} s, the kernels' "
+    # --- 9. distributed ---
+    t0 = time.perf_counter()
+    rc = distributed_phase(dev, results, cfg, sets["train"].data, his, masks, bench_line,
+                           run_train_bench)
+    if rc:
+        return rc
+    print(f"[9 distributed] {time.perf_counter() - t0:.1f} s")
+
+    # --- 10. summary ---
+    print(f"[10 summary] chip_smoke ran {time.perf_counter() - t_start:.1f} s, the kernels' "
           f"build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3338,5 +3754,39 @@ def run() -> int:
     return 0
 
 
+def run_two_card() -> int:
+    """`python3 chip_smoke.py --two-card`: phase 2 and phase 9 (d) alone, on a
+    host of two cards or more."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        return _fail("--two-card needs two cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
+    from stemgnn_tpu_torch.config import TrainConfig
+    from stemgnn_tpu_torch.data import (
+        WindowDataset, compute_norm_stats, ensure_dataset, load_csv, split_by_ratio)
+    from stemgnn_tpu_torch.ops import _build
+
+    print(f"[2 build] {_build.build_all()[1]:.1f} s; {torch.cuda.device_count()} x "
+          f"{torch.cuda.get_device_name(0)}")
+    cfg = TrainConfig(dataset="ECG_data", train=False, batch_size=BATCH, window_size=WINDOW,
+                      horizon=HORIZON, multi_layer=MULTI, device="cuda",
+                      data_dir=os.path.join(HERE, "dataset"))
+    data = load_csv(ensure_dataset(cfg.dataset, cfg.data_dir))
+    train_data = split_by_ratio(data, cfg.train_length, cfg.valid_length, cfg.test_length)[0]
+    train_set = WindowDataset(train_data, WINDOW, HORIZON, cfg.norm_method,
+                              compute_norm_stats(train_data, cfg.norm_method))
+    batches = train_set.epoch_batches(BATCH, shuffle=True,
+                                      rng=np.random.default_rng([cfg.seed, 0]))
+    his = [torch.from_numpy(b.astype(np.int64)) for b in batches[:1]]
+    masks = torch.from_numpy(
+        np.random.default_rng(7).random((3, BATCH, data.shape[1], data.shape[1]))
+        < 1.0 - cfg.dropout_rate)
+    return two_card_checks(torch.device("cuda"), cfg, train_set.data, his, masks)
+
+
 if __name__ == "__main__":
-    sys.exit(run())
+    sys.exit(run_two_card() if sys.argv[1:] == ["--two-card"] else run())

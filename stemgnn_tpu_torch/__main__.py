@@ -8,6 +8,16 @@ Usage:
 The last trains the stretch path (a top-k sparse latent graph and a GRU of
 32 hidden units over segments of 35 nodes; stemgnn_tpu_torch/ops/sparse.py).
 
+On several processes, one card each, torchrun starts them and the mesh
+flags lay them out (stemgnn_tpu_torch/parallel/mesh.py):
+
+    torchrun --nproc_per_node 2 -m stemgnn_tpu_torch --dataset ECG_data --data_axis 2
+    torchrun --nproc_per_node 4 -m stemgnn_tpu_torch --dataset ECG_data \
+        --sparse_k 16 --gru_hidden 32 --gru_segment 35 --data_axis 2 --graph_axis 2
+
+Each rank initialises the process group (NCCL on the card, gloo with
+--device cpu) from torchrun's environment; rank 0 writes the files.
+
 Runs on the card, or on the CPU with --device cpu. With --train True (the
 default) `engine.train` trains and validates, writing norm_stat.json, the
 per-epoch and best checkpoints and metrics.jsonl into
@@ -20,8 +30,11 @@ import argparse
 import os
 from datetime import datetime
 
+import torch.distributed as dist
+
 from stemgnn_tpu_torch.config import add_cli_args, config_from_args
 from stemgnn_tpu_torch.data import ensure_dataset, load_csv, split_by_ratio
+from stemgnn_tpu_torch.parallel.mesh import init_distributed, is_lead
 from stemgnn_tpu_torch.train.engine import test, train
 
 
@@ -30,7 +43,21 @@ def main(argv=None):
     add_cli_args(parser)
     cfg = config_from_args(parser.parse_args(argv))
     print(f"Training configs: {cfg}")
-    data_file = ensure_dataset(cfg.dataset, cfg.data_dir)
+    if cfg.data_axis * cfg.graph_axis > 1 or "WORLD_SIZE" in os.environ:
+        init_distributed(cfg.device)
+    try:
+        _run(cfg)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(cfg):
+    # the lead rank synthesizes a missing dataset; the others wait for it
+    data_file = ensure_dataset(cfg.dataset, cfg.data_dir) if is_lead() else None
+    if dist.is_initialized():
+        dist.barrier()
+    data_file = data_file or ensure_dataset(cfg.dataset, cfg.data_dir)
     result_train_file = os.path.join(cfg.output_dir, cfg.dataset, "train")
     result_test_file = os.path.join(cfg.output_dir, cfg.dataset, "test")
     os.makedirs(result_train_file, exist_ok=True)

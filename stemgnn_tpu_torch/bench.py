@@ -34,11 +34,19 @@ unless `--batch` is given. Its train line's `vs_baseline` is null: the
 baseline file is the ECG flagship's. `edges_per_s` counts as the JAX bench
 counts it, B x 3 x N^2 x 2 a step, the dense graph's entries, also on the
 sparse path, which touches B x 4 x N x k of them.
+
+`synthetic-32k-sharded` is `synthetic-32k-seggru` through the node-sharded
+dispatch (`force_sparse_shard`, `parallel/sparse_shard.py`) on a (1, 1) mesh:
+`measure` and `measure_eval` start a process group of this process alone
+(NCCL on the card, gloo on the CPU; `parallel.mesh.world_of_one`), so the
+collectives sum over one rank but the kernels and the dispatch are the
+multi-card ones, captured into the chunk's CUDA graph with them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -52,6 +60,7 @@ from stemgnn_tpu_torch.device import card_info, resolve_device
 from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
 from stemgnn_tpu_torch.models.initializers import init_params
 from stemgnn_tpu_torch.ops import cuda_spectral
+from stemgnn_tpu_torch.parallel.mesh import make_mesh, world_of_one
 from stemgnn_tpu_torch.train.engine import (
     CHUNK_SIZES,
     gather_windows,
@@ -67,20 +76,25 @@ BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # name: (n_nodes, window, horizon, multi, batch, sparse_k, gru_hidden, gru_segment),
 # the JAX suite's rows (benchmarks/suite.py LARGE_CONFIGS). Not here: the
 # dense-GRU sparse rows (synthetic-4k-sparse64, 8k-sparse64: a hidden = N GRU
-# at 4096-8192 units) and the node-sharded row (synthetic-32k-sharded).
+# at 4096-8192 units).
 CONFIGS = {
     "synthetic-1k": (1024, 12, 3, 5, 8, None, None, 0),
     "synthetic-4k-seggru": (4096, 12, 3, 5, 4, 64, 128, 512),
     "synthetic-32k-seggru": (32768, 12, 3, 5, 2, 64, 64, 1024),
     "synthetic-100k-seggru": (102400, 12, 3, 2, 1, 64, 64, 1024),
+    "synthetic-32k-sharded": (32768, 12, 3, 5, 2, 64, 64, 1024),
 }
+# the rows whose 9th field in the JAX suite, force_sparse_shard, is True: the
+# node-sharded stretch path on a (1, 1) mesh of a process group of one rank
+SHARDED = frozenset({"synthetic-32k-sharded"})
 
 
 def config_kwargs(name: str) -> dict:
     """`measure` / `measure_eval` keywords of a row of CONFIGS."""
     n, window, horizon, multi, batch, sparse_k, gru_hidden, gru_segment = CONFIGS[name]
     return dict(n_nodes=n, window=window, horizon=horizon, multi=multi, batch=batch,
-                sparse_k=sparse_k, gru_hidden=gru_hidden, gru_segment=gru_segment)
+                sparse_k=sparse_k, gru_hidden=gru_hidden, gru_segment=gru_segment,
+                force_sparse_shard=name in SHARDED)
 T_LEN = 4096  # rows of the synthetic series the windows are cut from
 
 
@@ -154,7 +168,7 @@ def _summary(times, batch, chunk, spread_warn):
 def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
             multi=5, seed=0, chunk_steps=None, repeats=3, max_extra_repeats=2,
             spread_warn=0.15, device="cuda", compute_dtype="float32", sparse_k=None,
-            gru_hidden=None, gru_segment=0):
+            gru_hidden=None, gru_segment=0, force_sparse_shard=False):
     """Steady-state train-step time through the engine's chunked epoch program
     (`make_epoch_fn`: on the card one captured CUDA graph of `chunk_steps`
     steps per dispatch, default CHUNK_SIZES[0]), at `compute_dtype`, RMSProp lr
@@ -167,97 +181,112 @@ def measure(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
     spread, the loss, the seconds the warm-up took, the edges pushed through
     the graph conv per second, the analytic FLOPs of a step and their share of
     the card's peaks (`mfu`). `sparse_k`, `gru_hidden` and `gru_segment`
-    select the stretch path (StemGNNConfig)."""
+    select the stretch path (StemGNNConfig); `force_sparse_shard` runs it
+    node-sharded on a (1, 1) mesh (`_mesh_of`)."""
     dev = resolve_device(device)
-    cfg = StemGNNConfig(units=n_nodes, window_size=window, horizon=horizon,
-                        multi_layer=multi, sparse_k=sparse_k, gru_hidden=gru_hidden,
-                        gru_segment=gru_segment)
-    flat = {k: v.requires_grad_(True)
-            for k, v in flatten_params(init_params(seed, cfg, device=dev)).items()}
-    params = unflatten_params(flat)
-    opt = make_optimizer("RMSProp", flat.values(), 1e-4)
-    epoch_fn = make_epoch_fn(cfg, opt, flat.values(), compute_dtype=compute_dtype)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    with _mesh_of(force_sparse_shard, dev) as mesh:
+        cfg = StemGNNConfig(units=n_nodes, window_size=window, horizon=horizon,
+                            multi_layer=multi, sparse_k=sparse_k, gru_hidden=gru_hidden,
+                            gru_segment=gru_segment, force_sparse_shard=mesh is not None)
+        flat = {k: v.requires_grad_(True)
+                for k, v in flatten_params(init_params(seed, cfg, device=dev)).items()}
+        params = unflatten_params(flat)
+        opt = make_optimizer("RMSProp", flat.values(), 1e-4)
+        epoch_fn = make_epoch_fn(cfg, opt, flat.values(), compute_dtype=compute_dtype,
+                                 mesh=mesh)
+        generator = torch.Generator(device=dev).manual_seed(seed)
 
-    chunk, n_chunks, steps, n_warm, repeats, max_reps = _plan(
-        steps, warmup, chunk_steps, repeats, max_extra_repeats)
-    data, his = _inputs(seed, n_nodes, window, horizon, chunk, batch,
-                        n_warm + max_reps * n_chunks, dev)
+        chunk, n_chunks, steps, n_warm, repeats, max_reps = _plan(
+            steps, warmup, chunk_steps, repeats, max_extra_repeats)
+        data, his = _inputs(seed, n_nodes, window, horizon, chunk, batch,
+                            n_warm + max_reps * n_chunks, dev)
 
-    losses = None
-    t0 = time.perf_counter()
-    for i in range(n_warm):
-        losses = epoch_fn(params, data, his[i], generator)
-    _sync(dev)
-    warmup_s = time.perf_counter() - t0
-    last = {"loss": float(losses[-1])}
-
-    def window_fn(rep):
-        first = n_warm + rep * n_chunks
-        for i in range(first, first + n_chunks):
+        losses = None
+        t0 = time.perf_counter()
+        for i in range(n_warm):
             losses = epoch_fn(params, data, his[i], generator)
         _sync(dev)
-        last["loss"] = float(losses[-1])
+        warmup_s = time.perf_counter() - t0
+        last = {"loss": float(losses[-1])}
 
-    times = _timed_repeats(window_fn, steps, repeats, max_reps, spread_warn)
-    res = _summary(times, batch, chunk, spread_warn)
-    step_time = res["step_time_ms"] / 1e3
-    # entries of the dense learned graph pushed through the graph conv per
-    # step: the kernel runs orders 1..3 (T0 is identically zero), two stacks;
-    # counted so on the sparse path too, as the JAX bench counts it
-    res["executed_cheb_orders"] = 3
-    res["edges_per_s"] = batch * 3 * n_nodes * n_nodes * 2 / step_time
-    res["edges_per_s_raw4"] = batch * 4 * n_nodes * n_nodes * 2 / step_time
-    res["loss"] = last["loss"]
-    res["sparse_k"] = sparse_k
-    res["warmup_s"] = warmup_s  # the warm chunks, the first with its capture
-    res["spectral_bwd"] = "reread" if cuda_spectral.SAVE_ACTS_BWD else "recompute"
-    res["mfu"] = mfu_fn(cfg, batch, step_time, card_info(dev)["device"])
-    res.update(card_info(dev))
-    return res
+        def window_fn(rep):
+            first = n_warm + rep * n_chunks
+            for i in range(first, first + n_chunks):
+                losses = epoch_fn(params, data, his[i], generator)
+            _sync(dev)
+            last["loss"] = float(losses[-1])
+
+        times = _timed_repeats(window_fn, steps, repeats, max_reps, spread_warn)
+        res = _summary(times, batch, chunk, spread_warn)
+        step_time = res["step_time_ms"] / 1e3
+        # entries of the dense learned graph pushed through the graph conv per
+        # step: the kernel runs orders 1..3 (T0 is identically zero), two stacks;
+        # counted so on the sparse path too, as the JAX bench counts it
+        res["executed_cheb_orders"] = 3
+        res["edges_per_s"] = batch * 3 * n_nodes * n_nodes * 2 / step_time
+        res["edges_per_s_raw4"] = batch * 4 * n_nodes * n_nodes * 2 / step_time
+        res["loss"] = last["loss"]
+        res["sparse_k"] = sparse_k
+        res["warmup_s"] = warmup_s  # the warm chunks, the first with its capture
+        res["spectral_bwd"] = "reread" if cuda_spectral.SAVE_ACTS_BWD else "recompute"
+        res["mfu"] = mfu_fn(cfg, batch, step_time, card_info(dev)["device"])
+        res.update(card_info(dev))
+        return res
 
 
 def measure_eval(batch=32, steps=128, warmup=None, n_nodes=140, window=12, horizon=3,
                  multi=5, seed=0, chunk_steps=None, repeats=3, max_extra_repeats=2,
                  spread_warn=0.15, device="cuda", chunked=True, compute_dtype="float32",
-                 sparse_k=None, gru_hidden=None, gru_segment=0):
+                 sparse_k=None, gru_hidden=None, gru_segment=0, force_sparse_shard=False):
     """Forward-only throughput through the engine's batched eval program
     (`make_eval_epoch_fn`, what validate and test run), by `measure`'s method,
     at `compute_dtype`. With `chunked` False the same batches go one by one
     through the eager `make_eval_step`, the yardstick `--mode eval` reports a
     ratio to."""
     dev = resolve_device(device)
-    cfg = StemGNNConfig(units=n_nodes, window_size=window, horizon=horizon,
-                        multi_layer=multi, sparse_k=sparse_k, gru_hidden=gru_hidden,
-                        gru_segment=gru_segment)
-    params = init_params(seed, cfg, device=dev)
-    if chunked:
-        eval_epoch = make_eval_epoch_fn(cfg, dev, compute_dtype)
-    else:
-        eval_step = make_eval_step(cfg, dev, compute_dtype)
+    with _mesh_of(force_sparse_shard, dev) as mesh:
+        cfg = StemGNNConfig(units=n_nodes, window_size=window, horizon=horizon,
+                            multi_layer=multi, sparse_k=sparse_k, gru_hidden=gru_hidden,
+                            gru_segment=gru_segment, force_sparse_shard=mesh is not None)
+        params = init_params(seed, cfg, device=dev)
+        if chunked:
+            eval_epoch = make_eval_epoch_fn(cfg, dev, compute_dtype, mesh=mesh)
+        else:
+            eval_step = make_eval_step(cfg, dev, compute_dtype, mesh=mesh)
 
-        def eval_epoch(params, data, hi_matrix):
-            for hi in hi_matrix:
-                f = eval_step(params, gather_windows(data, hi, window, horizon)[0])
-            return f[None], None
+            def eval_epoch(params, data, hi_matrix):
+                for hi in hi_matrix:
+                    f = eval_step(params, gather_windows(data, hi, window, horizon)[0])
+                return f[None], None
 
-    chunk, n_chunks, steps, n_warm, repeats, max_reps = _plan(
-        steps, warmup, chunk_steps, repeats, max_extra_repeats)
-    data, his = _inputs(seed, n_nodes, window, horizon, chunk, batch,
-                        n_warm + max_reps * n_chunks, dev)
+        chunk, n_chunks, steps, n_warm, repeats, max_reps = _plan(
+            steps, warmup, chunk_steps, repeats, max_extra_repeats)
+        data, his = _inputs(seed, n_nodes, window, horizon, chunk, batch,
+                            n_warm + max_reps * n_chunks, dev)
 
-    def run(first, count):
-        for i in range(first, first + count):
-            fs, _ = eval_epoch(params, data, his[i])
-        _sync(dev)
-        return float(fs[-1, -1, 0, 0])  # a value read closes the window
+        def run(first, count):
+            for i in range(first, first + count):
+                fs, _ = eval_epoch(params, data, his[i])
+            _sync(dev)
+            return float(fs[-1, -1, 0, 0])  # a value read closes the window
 
-    run(0, n_warm)
-    times = _timed_repeats(lambda rep: run(n_warm + rep * n_chunks, n_chunks), steps,
-                           repeats, max_reps, spread_warn)
-    res = _summary(times, batch, chunk, spread_warn)
-    res.update(card_info(dev))
-    return res
+        run(0, n_warm)
+        times = _timed_repeats(lambda rep: run(n_warm + rep * n_chunks, n_chunks), steps,
+                               repeats, max_reps, spread_warn)
+        res = _summary(times, batch, chunk, spread_warn)
+        res.update(card_info(dev))
+        return res
+
+
+@contextlib.contextmanager
+def _mesh_of(force_sparse_shard: bool, dev):
+    """A (1, 1) mesh of a process group of this process alone where
+    `force_sparse_shard` (the group is ended after the block), else None."""
+    if not force_sparse_shard:
+        yield None
+        return
+    with world_of_one(dev):
+        yield make_mesh(1, 1)
 
 
 def _round(res, keys, digits=3):

@@ -5,8 +5,9 @@ flags keep their names and defaults, and booleans parse properly (the
 reference's `type=bool` flags treat the string "False" as truthy). The
 port adds `seed`, `dropout_seed`, `shuffle_seed`, `param_dtype`,
 `compute_dtype`, `resume`, `ckpt_every`, `ckpt_async`, `log_jsonl`, `profile`,
-`debug_nans`, `data_dir` and `output_dir`, with the JAX package's names and
-defaults; `device` defaults to "cuda".
+`debug_nans`, `data_dir`, `output_dir`, `data_axis`, `graph_axis` and
+`force_sparse_shard`, with the JAX package's names and defaults; `device`
+defaults to "cuda".
 
 `sparse_k`, `gru_hidden` and `gru_segment` select the large-N stretch path
 (stemgnn_tpu/config.py, PARITY.md deviation 6): a top-k sparse latent graph
@@ -14,6 +15,12 @@ with feature-space Chebyshev terms (`ops/sparse.py`) in place of the dense
 [N, N] attention and Laplacian, and a GRU whose hidden size is decoupled
 from N and whose node sequence runs as independent segments. On the
 TrainConfig 0 means unset, as on the JAX package's.
+
+`data_axis`, `graph_axis` and `force_sparse_shard` (the JAX package's names
+and defaults) lay the run out on a ('data', 'graph') mesh of processes
+(`parallel/mesh.py`, launched by torchrun): the batch sharded over 'data', the
+stretch path's nodes over 'graph'. The JAX package's `use_ring` and a dense
+model with graph_axis > 1 are not ported (ROADMAP A.4) and raise.
 
 `compute_dtype` is the JAX package's precision policy: "bfloat16" gives the
 graph conv's and the spectral cell's kernels bf16 operands with f32 sums,
@@ -52,6 +59,9 @@ class StemGNNConfig:
     # sequence in independent segments of gru_segment nodes (0 = one segment)
     gru_hidden: Optional[int] = None
     gru_segment: int = 0
+    # on a mesh, run the stretch path node-sharded (parallel/sparse_shard.py)
+    # also where the 'graph' axis is 1: its collectives then sum over one rank
+    force_sparse_shard: bool = False
 
     def __post_init__(self):
         if self.gru_hidden is not None and self.sparse_k is None:
@@ -130,11 +140,21 @@ class TrainConfig:
     sparse_k: int = 0  # >0: top-k sparse latent graph (large-N stretch path)
     gru_hidden: int = 0  # >0: decoupled GRU hidden size (stretch; needs sparse_k)
     gru_segment: int = 0  # >0: segmented node recurrence (stretch; needs gru_hidden)
+    data_axis: int = 1  # mesh size along 'data' (DP)
+    graph_axis: int = 1  # mesh size along 'graph' (node-block partition; stretch path)
+    # the stretch path node-sharded on a mesh whose 'graph' axis is 1
+    force_sparse_shard: bool = False
 
     def __post_init__(self):
         for name in ("param_dtype", "compute_dtype"):
             if getattr(self, name) not in ("float32", "bfloat16"):
                 raise ValueError(f"{name} {getattr(self, name)!r}: 'float32' or 'bfloat16'")
+        if self.data_axis < 1 or self.graph_axis < 1:
+            raise ValueError(f"mesh {self.data_axis}x{self.graph_axis}: each axis >= 1")
+        if self.graph_axis > 1 and self.sparse_k <= 0:
+            raise ValueError(f"graph_axis {self.graph_axis} on the dense path (sparse_k 0) "
+                             "is not ported: the dense path's node partition over 'graph' "
+                             "is ROADMAP A.4")
 
     def model_config(self, node_cnt: int) -> StemGNNConfig:
         return StemGNNConfig(
@@ -148,6 +168,7 @@ class TrainConfig:
             sparse_k=self.sparse_k if self.sparse_k > 0 else None,
             gru_hidden=self.gru_hidden if self.gru_hidden > 0 else None,
             gru_segment=self.gru_segment,
+            force_sparse_shard=self.force_sparse_shard,
         )
 
 
@@ -162,7 +183,8 @@ def _str2bool(v: str) -> bool:
 
 
 def add_cli_args(parser) -> None:
-    """Register the reference's 21 flags (fixed bool parsing) + port flags."""
+    """Register the reference's 21 flags (fixed bool parsing) + port flags,
+    and the JAX package's --use_ring, which `config_from_args` refuses."""
     defaults = TrainConfig()
     for field in dataclasses.fields(TrainConfig):
         name = f"--{field.name}"
@@ -171,8 +193,12 @@ def add_cli_args(parser) -> None:
             parser.add_argument(name, type=_str2bool, default=default)
         else:
             parser.add_argument(name, type=type(default), default=default)
+    parser.add_argument("--use_ring", type=_str2bool, default=False)
 
 
 def config_from_args(args) -> TrainConfig:
+    if getattr(args, "use_ring", False):
+        raise ValueError("--use_ring (the ring attention over 'graph', "
+                         "stemgnn_tpu/parallel/ring.py) is not ported: ROADMAP A.4")
     kwargs = {f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)}
     return TrainConfig(**kwargs)

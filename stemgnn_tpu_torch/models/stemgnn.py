@@ -36,7 +36,18 @@ segments (`ops.gru_over_nodes_segmented`), and node i's scores come from its
 own encoding row (no hidden == N transpose). `forward` then returns the
 graph (a `SparseLatentGraph`) where the dense path returns the attention.
 The spectral cell, the contraction and the heads are the dense path's.
-The JAX package's node-sharded and ring branches are not here.
+
+With a `mesh` (`parallel/mesh.py`) the forward runs one rank's share of a
+sharded step (stemgnn_tpu/models/stemgnn.py `_sparse_graph_dispatch`, :250):
+x holds this rank's batch rows over every node; with `batch_sharded` the
+batch means (the dense attention's, the stretch path's key and query) are
+summed over 'data'. On the stretch path with 'graph' > 1 or
+`force_sparse_shard` (`node_sharded`) the rank builds its row block of the
+graph (`parallel/sparse_shard.py`) and runs the graph conv, the spectral cell
+and the heads on its node block: the forecast is [B, horizon, N / graph]. The
+dense path's node partition and the ring attention (`use_ring`) are not
+ported (ROADMAP A.4): a dense model on 'graph' > 1 raises. Without a mesh no
+collective and no extra op runs.
 """
 
 from __future__ import annotations
@@ -57,6 +68,11 @@ from stemgnn_tpu_torch.ops.sparse import (
     topk_latent_graph,
 )
 from stemgnn_tpu_torch.ops.torch_impl import gru_over_nodes  # noqa: F401 (plain GRU)
+from stemgnn_tpu_torch.parallel.mesh import all_reduce_sum
+from stemgnn_tpu_torch.parallel.sparse_shard import (
+    build_sharded_graph,
+    sharded_sparse_cheb_conv,
+)
 
 
 # The leaves that go into a kernel's autograd.Function as they are: the
@@ -116,62 +132,130 @@ def _step_mask(cfg: StemGNNConfig, shape, training: bool, dropout_generator,
     return dropout_mask
 
 
+ROADMAP_A4 = ("not ported: the dense path's node partition over 'graph' and the "
+              "ring attention (parallel/ring.py) are ROADMAP A.4")
+
+
+def node_sharded(cfg: StemGNNConfig, mesh) -> bool:
+    """True where the forward runs on this rank's node block: the stretch path
+    on a mesh whose 'graph' axis is > 1, or any mesh with cfg.force_sparse_shard
+    (stemgnn_tpu/models/stemgnn.py `_sparse_graph_dispatch`). A dense model on
+    'graph' > 1 and an N that 'graph' does not divide raise."""
+    if mesh is None:
+        return False
+    if cfg.sparse_k is None:
+        if mesh.graph > 1:
+            raise ValueError(f"a dense model on graph axis {mesh.graph}: {ROADMAP_A4}")
+        return False
+    if mesh.graph == 1 and not cfg.force_sparse_shard:
+        return False
+    if cfg.units % mesh.graph:
+        raise ValueError(f"N={cfg.units} not divisible by graph axis {mesh.graph}")
+    return True
+
+
+def _batch_mean(t, mesh, batch_sharded: bool):
+    """t.mean(dim=0) over the step's whole batch: with `batch_sharded` (over a
+    'data' axis > 1) each rank holds B / data rows, whose sums are added over
+    'data'."""
+    if not batch_sharded:
+        return t.mean(dim=0)
+    return all_reduce_sum(t.sum(dim=0), mesh.data_group) / (t.shape[0] * mesh.data)
+
+
+def _sparse_graph_dispatch(key, query, cfg: StemGNNConfig, training: bool,
+                           dropout_generator, dropout_mask, mesh,
+                           batch_sharded: bool) -> SparseLatentGraph:
+    """The top-k latent graph (stemgnn_tpu/models/stemgnn.py:250-283):
+    node-sharded where `node_sharded` (parallel/sparse_shard.py: exact, any
+    global top-k element is in its own block's local top-k; each rank takes
+    its rows of the step's [N, k] mask), else on one device (ops/sparse.py).
+    key, query: [N] (the rank's [Nl] block where sharded) on the segmented
+    path, [B, N] otherwise (meaned here: the stretch path's batch-meaned
+    scores, exact at B = 1)."""
+    if key.dim() == 2:
+        key = _batch_mean(key, mesh, batch_sharded)
+        query = _batch_mean(query, mesh, batch_sharded)
+    mask = _step_mask(cfg, dropout_shape(cfg, batch=1), training, dropout_generator,
+                      dropout_mask)
+    if node_sharded(cfg, mesh):
+        return build_sharded_graph(mesh, key, query, cfg.leaky_rate, cfg.sparse_k,
+                                   dropout_mask=mask, dropout_rate=cfg.dropout_rate)
+    return topk_latent_graph(key, query, cfg.leaky_rate, cfg.sparse_k, dropout_mask=mask,
+                             dropout_rate=cfg.dropout_rate)
+
+
 def latent_correlation_layer(params, cfg: StemGNNConfig, x, *, training: bool = False,
-                             dropout_generator=None, dropout_mask=None):
+                             dropout_generator=None, dropout_mask=None, mesh=None,
+                             batch_sharded: bool = False):
     """base_model.py:136-149. Returns (mul_L [4,N,N], attention [N,N]), or on
     the stretch path (graph, graph) with graph a `SparseLatentGraph`.
 
     In training the attention [B,N,N] (the stretch path: C [N,k]) is dropped
     out (base_model.py:161): `dropout_mask` (bool, True keeps, of
-    `dropout_shape`) if given, else a mask drawn from `dropout_generator`."""
+    `dropout_shape`) if given, else a mask drawn from `dropout_generator`.
+    Under a `mesh` (`forward`) the mask is the whole step's: [B,N,N] over the
+    global batch, of which the rank takes its rows, or [N,k], of which a
+    node-sharded rank takes its block."""
+    batch_sharded = batch_sharded and mesh is not None and mesh.data > 1
+    sharded = node_sharded(cfg, mesh)
+    blk = mesh.node_block(cfg.units) if sharded else None
     if cfg.gru_hidden is not None:
         # the stretch GRU: enc [B, N, H]; node i's rank-1 scores come from its
         # own encoding row, meaned over the batch
-        enc = ops.gru_over_nodes_segmented(params["gru"], x, cfg.gru_segment)
-        key = (enc @ params["weight_key"]).mean(dim=0)[:, 0]  # [N]
-        query = (enc @ params["weight_query"]).mean(dim=0)[:, 0]
+        if not sharded:
+            enc = ops.gru_over_nodes_segmented(params["gru"], x, cfg.gru_segment)
+        elif (blk.stop - blk.start) % (cfg.gru_segment or cfg.units) == 0:
+            # the node block is whole segments: the recurrence is block-local
+            enc = ops.gru_over_nodes_segmented(params["gru"], x[:, :, blk], cfg.gru_segment)
+        else:
+            # x holds every node (the series is replicated): the rank runs
+            # every segment and keeps its block
+            enc = ops.gru_over_nodes_segmented(params["gru"], x, cfg.gru_segment)[:, blk]
+        key = _batch_mean(enc @ params["weight_key"], mesh, batch_sharded)[:, 0]  # [N]
+        query = _batch_mean(enc @ params["weight_query"], mesh, batch_sharded)[:, 0]
     else:
         enc = ops.gru_over_nodes(params["gru"], x)  # [B, N_seq, N_hid]
         # the reference's input.permute(0,2,1), legal only because hidden == N
         enc = enc.transpose(1, 2)  # [B, N_hid, N_seq]
+        if sharded:  # the rank's hidden units, which are its nodes' scores
+            enc = enc[:, blk]
         key = (enc @ params["weight_key"])[..., 0].contiguous()  # [B, N]
         query = (enc @ params["weight_query"])[..., 0].contiguous()
     if cfg.sparse_k is not None:
-        g = _sparse_graph(key, query, cfg, training, dropout_generator, dropout_mask)
+        g = _sparse_graph_dispatch(key, query, cfg, training, dropout_generator,
+                                   dropout_mask, mesh, batch_sharded)
         return g, g
     att = ops.attention_kq(key, query, cfg.leaky_rate)  # [B, N, N]
-    mask = _step_mask(cfg, att.shape, training, dropout_generator, dropout_mask)
+    batch = att.shape[0] * (mesh.data if batch_sharded else 1)
+    mask = _step_mask(cfg, (batch,) + att.shape[1:], training, dropout_generator,
+                      dropout_mask)
     if mask is not None:
+        if batch_sharded:
+            mask = mask[mesh.batch_rows(batch)]
         keep = 1.0 - cfg.dropout_rate
         att = torch.where(mask, att / keep, torch.zeros_like(att))
+    if batch_sharded:
+        att = _batch_mean(att, mesh, batch_sharded)[None]  # [1, N, N]
     return ops.laplacian_from_attention(att)
 
 
-def _sparse_graph(key, query, cfg: StemGNNConfig, training: bool, dropout_generator,
-                  dropout_mask) -> SparseLatentGraph:
-    """The top-k latent graph on one device (the single-device branch of
-    stemgnn_tpu/models/stemgnn.py `_sparse_graph_dispatch`). key, query:
-    [N] on the segmented path, [B, N] otherwise (meaned here: the stretch
-    path's batch-meaned scores, exact at B = 1)."""
-    if key.dim() == 2:
-        key, query = key.mean(dim=0), query.mean(dim=0)
-    mask = _step_mask(cfg, dropout_shape(cfg, batch=1), training, dropout_generator,
-                      dropout_mask)
-    return topk_latent_graph(key, query, cfg.leaky_rate, cfg.sparse_k, dropout_mask=mask,
-                             dropout_rate=cfg.dropout_rate)
-
-
 def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int,
-                  compute_dtype: str = "float32"):
+                  compute_dtype: str = "float32", mesh=None):
     """One StockBlockLayer (base_model.py:61-75).
 
     x: [B, N, W]; mul_L [4, N, N], or on the stretch path the
     `SparseLatentGraph`, whose graph conv is the feature-space Chebyshev
-    recursion (plain PyTorch, f32 at either compute_dtype). Returns
-    (forecast [B,N,W], backcast [B,N,W] or None).
+    recursion (plain PyTorch, f32 at either compute_dtype); with a `mesh`,
+    the rank's row block of the graph, x [B, Nl, W] its node block and the
+    graph conv the sharded one. Returns (forecast [B,N,W], backcast [B,N,W]
+    or None).
     """
     if isinstance(mul_L, SparseLatentGraph):
-        gfted = sparse_cheb_conv(mul_L, x)  # [B,4,N,W], O(N*k)
+        if mesh is not None:
+            gfted = sharded_sparse_cheb_conv(mesh, mul_L, x)  # [B,4,Nl,W]
+        else:
+            gfted = sparse_cheb_conv(mul_L, x)  # [B,4,N,W], O(N*k)
     else:
         gfted = ops.cheb_graph_conv(mul_L.contiguous(), x.contiguous(),
                                     compute_dtype=compute_dtype)  # [B,4,N,W]
@@ -188,7 +272,8 @@ def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int,
 
 
 def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
-            dropout_generator=None, dropout_mask=None, compute_dtype: str = "float32"):
+            dropout_generator=None, dropout_mask=None, compute_dtype: str = "float32",
+            mesh=None, batch_sharded: bool = False):
     """Model.forward (base_model.py:167-179).
 
     x: [B, W, N] on the device of the params. Returns
@@ -199,16 +284,26 @@ def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
     `dropout_generator`, a torch.Generator on x's device. `compute_dtype`:
     the graph conv's and the spectral cell's operands. bf16 parameters are
     promoted to f32 first (`promoted`).
+
+    With a `mesh`: one rank's share of a sharded step (module docstring). x
+    is this rank's batch rows ([B / data, W, N] with `batch_sharded`, else
+    the whole batch) over every node; the dropout mask is the whole step's;
+    where `node_sharded`, the forecast is the rank's node block
+    [B, horizon, N / graph] and the graph its row block.
     """
     params = promoted(params)
     mul_L, attention = latent_correlation_layer(
         params, cfg, x, training=training, dropout_generator=dropout_generator,
-        dropout_mask=dropout_mask)
+        dropout_mask=dropout_mask, mesh=mesh, batch_sharded=batch_sharded)
+    if node_sharded(cfg, mesh):
+        x = x[:, :, mesh.node_block(cfg.units)]
+    else:
+        mesh = None
     feat = x.permute(0, 2, 1)  # [B, N, W]
     forecasts = []
     for i in range(cfg.stack_cnt):
         f, feat_next = block_forward(params["blocks"][i], cfg, feat, mul_L, i,
-                                     compute_dtype)
+                                     compute_dtype, mesh)
         forecasts.append(f)
         if feat_next is not None:
             feat = feat_next

@@ -32,6 +32,16 @@ epoch])` as in the JAX engine, so both engines see the same batches; the
 dropout generator is re-seeded from (dropout root, epoch) at each epoch.
 Neither is a carried chain, so a `--resume` run reproduces the uninterrupted
 run bitwise. The loss is read back once per epoch, not per step.
+
+On a ('data', 'graph') mesh (`build_mesh`: --data_axis x --graph_axis ranks,
+`parallel/mesh.py`) every rank runs this same code on the same host data:
+each batch is sharded over 'data' (a batch size 'data' does not divide stays
+replicated, as the JAX engine keeps it), the stretch path's nodes over 'graph'
+(`stemgnn.forward`), the gradients are summed over the mesh before a
+replicated optimizer step, and the eval programs gather the forecasts, so
+every rank computes and prints the same metrics. Only the lead rank
+(`parallel.mesh.is_lead`) writes files: norm_stat.json, checkpoints, CSVs and
+metrics.jsonl.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stemgnn_tpu_torch.config import StemGNNConfig, TrainConfig
 from stemgnn_tpu_torch.data.pipeline import (
@@ -62,6 +73,12 @@ from stemgnn_tpu_torch.models.convert import (
 )
 from stemgnn_tpu_torch.models.initializers import init_params
 from stemgnn_tpu_torch.ops.torch_impl import operand_dtype
+from stemgnn_tpu_torch.parallel.mesh import (
+    all_gather_cat,
+    all_reduce_flat,
+    is_lead,
+    make_mesh,
+)
 from stemgnn_tpu_torch.train import checkpoint as ckpt
 from stemgnn_tpu_torch.train.optim import decayed_lr, make_optimizer, set_lr
 from stemgnn_tpu_torch.utils.logging import JsonlLogger
@@ -78,8 +95,33 @@ def gather_windows(data, hi, window_size: int, horizon: int):
     return data[x_idx], data[y_idx]
 
 
+def build_mesh(cfg: TrainConfig):
+    """The ('data', 'graph') mesh of --data_axis x --graph_axis ranks over the
+    initialised process group, or None for the 1x1 default (the single-device
+    path, with no collective; stemgnn_tpu/train/engine.py:46-55)."""
+    if cfg.data_axis * cfg.graph_axis <= 1:
+        return None
+    return make_mesh(cfg.data_axis, cfg.graph_axis)
+
+
+def _mesh_loss(forecast, y, mcfg: StemGNNConfig, mesh, batch_sharded: bool):
+    """This rank's share of the step's MSE: the mean over its rows (and, where
+    the forecast is its node block, its nodes) times the share of the batch's
+    entries it holds, so that the shares of the ranks whose gradients are
+    summed add up to the batch's MSE."""
+    share = 1
+    if batch_sharded:
+        share *= mesh.data
+    if stemgnn.node_sharded(mcfg, mesh):
+        y = y[:, :, mesh.node_block(mcfg.units)]
+        share *= mesh.graph
+    loss = torch.mean((forecast - y) ** 2)
+    return loss if share == 1 else loss * (1.0 / share)
+
+
 def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
-                    check_finite: bool = False, compute_dtype: str = "float32"):
+                    check_finite: bool = False, compute_dtype: str = "float32",
+                    mesh=None, shard_batch: bool = True):
     """train_step(params, data, hi, dropout_generator=None, dropout_mask=None)
     -> loss (a 0-d tensor on the device, not read back). One forward, backward
     and optimizer step on the batch whose window end indices are `hi`; the
@@ -100,12 +142,28 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
     (`stemgnn.kernel_grad_leaf`), so their gradients stay f32 as the JAX
     package's custom_vjp return them, and on the other leaves promoted (their
     gradients bf16); `opt.step` takes that list of gradients.
+
+    With a `mesh` the step is one rank's share of a sharded step
+    (stemgnn_tpu/parallel/train.py): `hi` and the dropout mask are the whole
+    batch's, the same on every rank; with `shard_batch` (and 'data' > 1) the
+    rank takes its B / data rows of it, which B must allow. The loss is this
+    rank's share (`_mesh_loss`); the gradients are summed over the mesh (over
+    'graph' alone where the batch is replicated over 'data', whose ranks then
+    compute the same), one flat buffer per dtype in leaf order
+    (`parallel.mesh.all_reduce_flat`), before the replicated optimizer step;
+    the returned loss is summed likewise, the batch's MSE on every rank.
     """
     w, h = mcfg.window_size, mcfg.horizon
     leaves = list(leaves)
     mixed = any(p.dtype == torch.bfloat16 for p in leaves)
+    batch_sharded = mesh is not None and shard_batch and mesh.data > 1
+    grad_group = None
+    if mesh is not None:
+        grad_group = mesh.world_group if batch_sharded else mesh.graph_group
 
     def train_step(params, data, hi, dropout_generator=None, dropout_mask=None):
+        if batch_sharded:
+            hi = hi[mesh.batch_rows(hi.shape[0])]
         x, y = gather_windows(data, hi, w, h)
         opt.zero_grad(set_to_none=True)
         flat = flatten_params(params)
@@ -116,8 +174,12 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
             params = unflatten_params({k: copies.get(k, p) for k, p in flat.items()})
         forecast, _ = stemgnn.forward(
             params, mcfg, x, training=True, dropout_generator=dropout_generator,
-            dropout_mask=dropout_mask, compute_dtype=compute_dtype)
-        loss = torch.mean((forecast - y) ** 2)  # nn.MSELoss (handler.py:140)
+            dropout_mask=dropout_mask, compute_dtype=compute_dtype, mesh=mesh,
+            batch_sharded=batch_sharded)
+        if mesh is None:
+            loss = torch.mean((forecast - y) ** 2)  # nn.MSELoss (handler.py:140)
+        else:
+            loss = _mesh_loss(forecast, y, mcfg, mesh, batch_sharded)
         loss.backward()
         # each leaf's gradient: its f32 copy's where it has one, else its own;
         # zeros where the loss does not reach it
@@ -127,6 +189,10 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
             if src.grad is None:
                 src.grad = torch.zeros_like(src)
             grads[k] = src.grad
+        loss = loss.detach()
+        if mesh is not None:
+            loss = loss.clone()
+            all_reduce_flat(list(grads.values()) + [loss], grad_group)
         if check_finite:
             bad = [k for k, g in grads.items() if not torch.isfinite(g).all()]
             if bad or not torch.isfinite(loss):
@@ -137,7 +203,7 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
             opt.step([by_leaf[id(p)] for p in leaves])
         else:
             opt.step()
-        return loss.detach()
+        return loss
 
     return train_step
 
@@ -168,7 +234,7 @@ def _warm(fn) -> None:
 
 
 def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
-                  compute_dtype: str = "float32"):
+                  compute_dtype: str = "float32", mesh=None, shard_batch: bool = True):
     """epoch_fn(params, data, hi_matrix [n, B], dropout_generator=None,
     dropout_masks=None) -> losses [n]: n train steps as one device program
     (stemgnn_tpu/train/engine.py `make_epoch_fn`). The steps' dropout masks are
@@ -185,10 +251,14 @@ def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
     the eager steps draw: a chunk and the same steps taken eagerly give the
     same bits. The first capture is preceded by `WARM_STEPS` eager steps
     whose effect on the parameters and the optimizer state is undone.
-    `compute_dtype` is the steps' (`make_train_step`).
+    `compute_dtype`, `mesh` and `shard_batch` are the steps' (`make_train_step`).
+    On a mesh of cards the capture records each step's collectives (NCCL
+    supports capture) with its kernels, by design: a chunk stays one replay a
+    dispatch, and the warm-up steps have made the communicators before it.
     """
     leaves = list(leaves)
-    train_step = make_train_step(mcfg, opt, leaves, compute_dtype=compute_dtype)
+    train_step = make_train_step(mcfg, opt, leaves, compute_dtype=compute_dtype,
+                                 mesh=mesh, shard_batch=shard_batch)
     w, keep = mcfg.window_size, 1.0 - mcfg.dropout_rate
     dropout = mcfg.dropout_rate > 0.0
     graphs = {}
@@ -275,9 +345,26 @@ def epoch_generator_seed(root: int, epoch: int) -> int:
                & np.uint64(2**63 - 1))
 
 
-def make_eval_step(mcfg: StemGNNConfig, device="cuda", compute_dtype: str = "float32"):
+def _forecast(params, mcfg: StemGNNConfig, x, compute_dtype: str, mesh,
+              batch_sharded: bool):
+    """The eval forward; on a mesh the rank's forecast block gathered over
+    'graph' (where node-sharded) and 'data' (with `batch_sharded`, x this
+    rank's rows), so that every rank holds the whole [B, horizon, N]."""
+    forecast, _ = stemgnn.forward(params, mcfg, x, training=False,
+                                  compute_dtype=compute_dtype, mesh=mesh,
+                                  batch_sharded=batch_sharded)
+    if stemgnn.node_sharded(mcfg, mesh):
+        forecast = all_gather_cat(forecast, mesh.graph_group, dim=2)
+    if batch_sharded:
+        forecast = all_gather_cat(forecast, mesh.data_group, dim=0)
+    return forecast
+
+
+def make_eval_step(mcfg: StemGNNConfig, device="cuda", compute_dtype: str = "float32",
+                   mesh=None):
     """eval_step(params, x) -> forecast [B, horizon, N] on `device`, the forward
-    at `compute_dtype`.
+    at `compute_dtype`. On a `mesh` the batch stays whole on every rank (the
+    step serves batches of any size) and a node-sharded forecast is gathered.
 
     x may be a numpy array or a tensor; it is moved to `device`."""
     dev = resolve_device(device)
@@ -285,15 +372,13 @@ def make_eval_step(mcfg: StemGNNConfig, device="cuda", compute_dtype: str = "flo
     @torch.inference_mode()
     def eval_step(params, x):
         x = torch.as_tensor(x, device=dev)
-        forecast, _ = stemgnn.forward(params, mcfg, x, training=False,
-                                      compute_dtype=compute_dtype)
-        return forecast
+        return _forecast(params, mcfg, x, compute_dtype, mesh, False)
 
     return eval_step
 
 
 def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda",
-                       compute_dtype: str = "float32"):
+                       compute_dtype: str = "float32", mesh=None, shard_batch: bool = True):
     """eval_epoch(params, data, hi_matrix [n, B]) -> (forecasts [n, B, horizon,
     N], targets like them): n eval batches as one device program
     (stemgnn_tpu/train/engine.py `make_eval_epoch_fn`).
@@ -301,17 +386,23 @@ def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda",
     On the CPU the loop of eager forwards; on the card a CUDA graph of the n
     forwards, captured at the first call with that n, batch, data shape and
     parameter tensors and replayed from then on, with `data` and `hi_matrix`
-    copied into static buffers. The forwards run at `compute_dtype`."""
+    copied into static buffers. The forwards run at `compute_dtype`. On a
+    `mesh` each batch is sharded over 'data' with `shard_batch` (and 'data' >
+    1) and every forecast gathered (`_forecast`); a capture records the
+    collectives, as `make_epoch_fn`'s does."""
     dev = resolve_device(device)
-    eval_step = make_eval_step(mcfg, dev, compute_dtype)
     w, h = mcfg.window_size, mcfg.horizon
+    batch_sharded = mesh is not None and shard_batch and mesh.data > 1
     graphs = {}
 
     def run(params, data, hi_matrix):
         fs, ys = [], []
         for hi in hi_matrix:
             x, y = gather_windows(data, hi, w, h)
-            fs.append(eval_step(params, x))
+            if batch_sharded:
+                x = x[mesh.batch_rows(hi.shape[0])]
+            with torch.inference_mode():
+                fs.append(_forecast(params, mcfg, x, compute_dtype, mesh, batch_sharded))
             ys.append(y)
         return torch.stack(fs), torch.stack(ys)
 
@@ -486,7 +577,9 @@ def train(
     result_file: str,
 ) -> Tuple[Dict, Optional[Dict]]:
     """handler.py:103-191 on cfg.device. Returns (the last validation's
-    metrics, the train split's norm stats)."""
+    metrics, the train split's norm stats). With --data_axis x --graph_axis
+    > 1, every rank of the initialised process group calls it (module
+    docstring)."""
     device = resolve_device(cfg.device)
     node_cnt = train_data.shape[1]
     mcfg = cfg.model_config(node_cnt)
@@ -495,8 +588,10 @@ def train(
     if len(valid_data) == 0:
         raise Exception("Cannot organize enough validation data")
 
+    # only the lead rank writes files; console lines stay on every rank
+    lead = is_lead()
     normalize_statistic = compute_norm_stats(train_data, cfg.norm_method)
-    if normalize_statistic is not None:
+    if normalize_statistic is not None and lead:
         ckpt.save_norm_stat(result_file, normalize_statistic)
 
     flat = initial_params(cfg, mcfg, device)
@@ -513,8 +608,19 @@ def train(
 
     print(f"Total Trainable Params: {param_count(flat)}")
 
+    mesh = build_mesh(cfg)
+    # batches can only be sharded over 'data' if their size divides evenly
+    shard_batch = mesh is not None and cfg.batch_size % cfg.data_axis == 0
+    if mesh is not None:
+        print(f"mesh: data={cfg.data_axis} graph={cfg.graph_axis} "
+              f"devices={mesh.size} batch_sharded={shard_batch} ring=False")
+        if not shard_batch:
+            print(f"WARNING: batch_size {cfg.batch_size} not divisible by "
+                  f"data_axis {cfg.data_axis}; batches stay replicated "
+                  f"(node-block graph partition still active)")
+
     logger = JsonlLogger(
-        os.path.join(result_file, "metrics.jsonl") if cfg.log_jsonl else None
+        os.path.join(result_file, "metrics.jsonl") if cfg.log_jsonl and lead else None
     )
 
     start_epoch = 0
@@ -541,13 +647,14 @@ def train(
                 validate_score_non_decrease_count = meta.get("non_decrease_count", 0)
                 print(f"Resumed from epoch {last}")
 
-    saver = ckpt.AsyncCheckpointer() if cfg.ckpt_async else None
+    saver = ckpt.AsyncCheckpointer() if cfg.ckpt_async and lead else None
     try:
         with torch.autograd.set_detect_anomaly(cfg.debug_nans):
             performance_metrics = _train_epochs(
                 cfg, mcfg, flat, opt, device, train_set, valid_set,
                 normalize_statistic, node_cnt, result_file, logger, start_epoch,
                 best_validate_mae, validate_score_non_decrease_count, saver,
+                mesh, shard_batch, lead,
             )
     finally:
         if saver is not None:
@@ -561,22 +668,35 @@ def train(
                     raise
                 print(f"WARNING: an asynchronous checkpoint write also failed "
                       f"during shutdown: {ckpt_err!r}")
+    if mesh is not None:
+        # the lead's checkpoints are on disk before any rank goes on to read them
+        dist.barrier()
     return performance_metrics, normalize_statistic
 
 
 def _train_epochs(
     cfg, mcfg, flat, opt, device, train_set, valid_set, normalize_statistic,
     node_cnt, result_file, logger, start_epoch, best_validate_mae,
-    validate_score_non_decrease_count, saver=None,
+    validate_score_non_decrease_count, saver=None, mesh=None, shard_batch=False,
+    lead=True,
 ) -> Dict:
     params = unflatten_params(flat)
     # debug_nans: every batch is an eager step that checks its loss and gradients
     train_step = make_train_step(mcfg, opt, flat.values(), check_finite=cfg.debug_nans,
-                                 compute_dtype=cfg.compute_dtype)
-    epoch_fn = make_epoch_fn(mcfg, opt, flat.values(), cfg.compute_dtype)
+                                 compute_dtype=cfg.compute_dtype, mesh=mesh,
+                                 shard_batch=shard_batch)
+    # the short last batch, of any size, stays replicated over 'data'
+    train_step_tail = train_step
+    if shard_batch:
+        train_step_tail = make_train_step(mcfg, opt, flat.values(),
+                                          check_finite=cfg.debug_nans,
+                                          compute_dtype=cfg.compute_dtype, mesh=mesh,
+                                          shard_batch=False)
+    epoch_fn = make_epoch_fn(mcfg, opt, flat.values(), cfg.compute_dtype, mesh, shard_batch)
     chunk_sizes = () if cfg.debug_nans else CHUNK_SIZES
-    eval_step = make_eval_step(mcfg, device, cfg.compute_dtype)
-    eval_epoch_fn = make_eval_epoch_fn(mcfg, device, cfg.compute_dtype)
+    eval_step = make_eval_step(mcfg, device, cfg.compute_dtype, mesh=mesh)
+    eval_epoch_fn = make_eval_epoch_fn(mcfg, device, cfg.compute_dtype, mesh=mesh,
+                                       shard_batch=shard_batch)
     data_dev = torch.from_numpy(train_set.data).to(device)
     n_windows = len(train_set)
     dropout_root = cfg.dropout_seed if cfg.dropout_seed >= 0 else cfg.seed
@@ -584,6 +704,8 @@ def _train_epochs(
     generator = torch.Generator(device=device)
 
     def save_ckpt(epoch_arg, meta):
+        if not lead:
+            return
         # the asynchronous saver clones the state on the device before the
         # next step changes it in place
         save = saver.submit if saver is not None else ckpt.save
@@ -596,7 +718,7 @@ def _train_epochs(
         # trace the second epoch of this run (the first pays for the captures)
         # into <result_file>/profile
         prof = None
-        if cfg.profile and result_file and epoch == start_epoch + 1:
+        if cfg.profile and result_file and lead and epoch == start_epoch + 1:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -625,7 +747,8 @@ def _train_epochs(
                 lo += size
         # the full batches no chunk took, and the short last batch
         for hi in torch.split(hi_all, sizes)[lo:]:
-            losses.append(train_step(params, data_dev, hi, generator)[None])
+            step = train_step if len(hi) == cfg.batch_size else train_step_tail
+            losses.append(step(params, data_dev, hi, generator)[None])
         loss_total = float(torch.cat(losses).sum())  # one sync per epoch
         epoch_time = time.time() - epoch_start_time
         if prof is not None:
@@ -671,7 +794,7 @@ def _train_epochs(
                 cfg.window_size,
                 cfg.horizon,
                 cfg.batch_size,
-                result_file=result_file,
+                result_file=result_file if lead else None,
                 device=device,
                 eval_epoch_fn=eval_epoch_fn,
             )
@@ -703,7 +826,8 @@ def test(
     result_test_file: str,
 ) -> Dict:
     """handler.py:194-207: restore the best checkpoint onto cfg.device and
-    evaluate the test split with the TRAIN-split norm stats."""
+    evaluate the test split with the TRAIN-split norm stats (on a mesh, as
+    `train` evaluates; the lead rank writes the CSVs)."""
     device = resolve_device(cfg.device)
     normalize_statistic = ckpt.load_norm_stat(result_train_file)
     node_cnt = test_data.shape[1]
@@ -715,8 +839,10 @@ def test(
     test_set = WindowDataset(
         test_data, cfg.window_size, cfg.horizon, cfg.norm_method, normalize_statistic
     )
+    mesh = build_mesh(cfg)
+    shard_batch = mesh is not None and cfg.batch_size % cfg.data_axis == 0
     performance_metrics = validate(
-        make_eval_step(mcfg, device, cfg.compute_dtype),
+        make_eval_step(mcfg, device, cfg.compute_dtype, mesh=mesh),
         params,
         test_set,
         cfg.norm_method,
@@ -725,9 +851,10 @@ def test(
         cfg.window_size,
         cfg.horizon,
         cfg.batch_size,
-        result_file=result_test_file,
+        result_file=result_test_file if is_lead() else None,
         device=device,
-        eval_epoch_fn=make_eval_epoch_fn(mcfg, device, cfg.compute_dtype),
+        eval_epoch_fn=make_eval_epoch_fn(mcfg, device, cfg.compute_dtype, mesh=mesh,
+                                         shard_batch=shard_batch),
     )
     mae, mape, rmse = (
         performance_metrics["mae"],

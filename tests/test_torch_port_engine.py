@@ -149,6 +149,9 @@ def test_port_imports_nothing_of_jax():
         "importlib.import_module('chip_smoke')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'stemgnn_tpu')]\n"
+        "parallel = [f'stemgnn_tpu_torch.parallel.{m}' for m in\n"
+        "            ('mesh', 'sparse_shard', 'train', 'dryrun')]\n"
+        "assert all(m in sys.modules for m in parallel), parallel\n"
         "print(len([m for m in sys.modules if m.startswith('stemgnn_tpu_torch')]))\n"
         "assert not bad, bad\n"
     )
