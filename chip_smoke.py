@@ -10,7 +10,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
   1. device: CUDA present; the card's name and power limit from nvidia-smi;
      TF32 off for every f32 comparison.
   2. build: nvcc of every kernel source in stemgnn_tpu_torch/csrc.
-  3. kernels: each of the eighteen kernels at the shapes its path gives it (the
+  3. kernels: each of the twenty-two kernels at the shapes its path gives it (the
      ECG flagship: N=140, W=12, multi_layer=5, batch 32; the grid GRU forward
      and backward: the 512-node model of phase 4), held against its plain
      PyTorch version on the card. The forward kernels run on inputs that the
@@ -76,7 +76,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
      spectral serving and saving forwards and the reread backward of both
      arms at 102,400 rows, D1 = 96, on seeded inputs, by the rules above,
      timed beside their bounds, and every spectral rule of `spectral_checks`
-     at that shape.
+     at that shape. The row-block arms of the attention pair and the graph
+     conv (both arms; the node-sharded dense path's) at the blocks a 'graph'
+     axis gives them (`ROWS_SHAPES`: the flagship's B = 32, N = 140 on M = 70
+     and 35 rows, the plain path's key, query and mul_L rows; synthetic-1k's
+     B = 8, N = 1024 on M = 512 and 256, seeded), each within its atol of its
+     largest entry of its plain version and timed beside its bound and the
+     library call (torch.matmul, torch.mm with out_dtype f32); at M = N each
+     arm on the square call's plan and bitwise the square wrappers' outputs
+     (a check of routing only: both reach the same kernels with the same
+     arguments, so it cannot show the parent's bits, which the ECG losses of
+     phase 7 and `utils/kernel_variants.py against=` do).
+     C.7: each arm's saving forward and reread backward on a row count that
+     puts its chain past 65,535 row tiles (1,573,888 rows at D1 = 96 on 132
+     SMs), against their plain versions, untimed.
   4. serving path: ECG_data through the port's entry points on the card
      (split, train-split norm stats, init_params(0), checkpoint.save,
      engine.test), with the launch counters set to 0 just before and read
@@ -159,11 +172,16 @@ Phases, each fatal on failure (nonzero exit, no result line):
      (d) Where torch.cuda.device_count() >= 2: two NCCL processes, one card
      each, run the flagship's data-parallel step on a (2, 1) mesh (held to
      one card's step by phase 5's rule) and synthetic-32k-sharded's step on a
-     (1, 2) mesh (held to the CPU's f64 step by `noise_grads_agreement`);
-     with one card the line {"distributed_2card": "not run", "cards": 1}.
+     (1, 2) mesh (held to the CPU's f64 step by `noise_grads_agreement`),
+     and synthetic-1k's dense step on a (1, 2) mesh without and with the
+     ring (held to one card's step by phase 5's rule, the row-block arms'
+     launches counted, each rank's ms a step beside one card's); with one
+     card the line {"distributed_2card": "not run", "cards": 1}.
  10. a `kernels` JSON line (launches summed over the paths: calls of the
      wrappers plus what replays of captured graphs launched; every kernel at
-     least once), then the result line.
+     least once, but for the row-block arms on a host of one card: they run
+     only on the node-sharded dense path, which needs two ranks and so two
+     cards), then the result line.
 
 It imports nothing of JAX or of stemgnn_tpu.
 """
@@ -1367,6 +1385,191 @@ def attention_checks(dev):
     return None
 
 
+# The row-block arms of the attention pair and the graph conv (the node-sharded
+# dense path, parallel/dense_shard.py) at the blocks a 'graph' axis gives them:
+# (B, N, M) of the flagship on 2 and 4 ranks and of synthetic-1k on 2 and 4.
+# The kernels line keeps synthetic-1k's on 2 ranks (the (1, 2) mesh of phase
+# 9 (d)); the others are printed.
+ROWS_SHAPES = ((BATCH, 140, 70), (BATCH, 140, 35), (S1K_BATCH, S1K_NODES, 512),
+               (S1K_BATCH, S1K_NODES, 256))
+ROWS_KEPT = (S1K_BATCH, S1K_NODES, 512)
+ROW_ARMS = ("attention_kq_fwd_rows", "attention_kq_bwd_rows", "cheb_graph_conv_fwd_rows",
+            "cheb_graph_conv_fwd_rows_bf16")
+
+
+def rows_cases(key, query, p, g, mul_L, feat, alpha: float):
+    """(f32 cases, bf16 cases) of the row-block arms on key [B, M], query
+    [B, N], the forward's p and a cotangent g [B, M, N], mul_L [4, M, N] and
+    x [B, N, W], as `forward_cases` and `bf16_cases` lay them out."""
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_attention, cuda_graph
+
+    b, m = key.shape
+    n, w, k = query.shape[1], feat.shape[2], mul_L.shape[0]
+    lk = mul_L[1:].contiguous()
+    xt = feat.permute(1, 0, 2).reshape(n, b * w).contiguous()
+    lk16 = lk.reshape((k - 1) * m, n).to(torch.bfloat16)
+    xt16 = xt.to(torch.bfloat16)
+    try:
+        torch.mm(lk16, xt16, out_dtype=torch.float32)
+        lib16 = lambda: [torch.mm(lk16, xt16, out_dtype=torch.float32)]  # noqa: E731
+    except (TypeError, RuntimeError):
+        lib16 = None
+    src_a, src_g = "stemgnn_tpu_torch/csrc/attention.cu", "stemgnn_tpu_torch/csrc/graph.cu"
+    f32 = [
+        ("attention_kq_fwd_rows", src_a, "stemgnn_tpu/ops/pallas_attention.py:29",
+         lambda: cuda_attention.attention_rows(key, query, alpha),
+         lambda: cuda_attention.attention_rows_plain(key, query, alpha), None,
+         ATT_ATOL_REL, 0.0, 4 * (b * m + b * n + b * m * n), 6 * b * m * n),
+        ("attention_kq_bwd_rows", src_a, "stemgnn_tpu/ops/pallas_attention.py:65",
+         lambda: torch.cat(cuda_attention.attention_rows_bwd(key, query, p, g, alpha), 1),
+         lambda: torch.cat(cuda_attention.attention_rows_bwd_plain(key, query, p, g, alpha),
+                           1),
+         None, ATT_ATOL_REL, 1e-4, 4 * (2 * b * m + 2 * b * n + 2 * b * m * n),
+         8 * b * m * n),
+        ("cheb_graph_conv_fwd_rows", src_g, "stemgnn_tpu/ops/pallas_graph.py:33",
+         lambda: cuda_graph.cheb_graph_conv_rows(mul_L, feat),
+         lambda: cuda_graph.cheb_graph_conv_plain(mul_L, feat),
+         lambda: torch.matmul(lk, xt),
+         1e-5, 1e-5, 4 * (k * m * n + b * n * w + b * k * m * w),
+         2 * (k - 1) * m * n * b * w),
+    ]
+    bf16 = [
+        ("cheb_graph_conv_fwd_rows_bf16", src_g, "stemgnn_tpu/ops/pallas_graph.py:33",
+         lambda: [cuda_graph.cheb_graph_conv_rows(mul_L, feat, "bfloat16")],
+         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat, "bfloat16")],
+         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat)],
+         lib16, 1e-4, 1e-5, 2 * (k * m * n + b * n * w) + 4 * b * k * m * w,
+         2 * (k - 1) * m * n * b * w),
+    ]
+    return f32, bf16
+
+
+def rows_checks(dev, results, params, mcfg, x):
+    """The row-block arms at ROWS_SHAPES, each against its plain version and
+    timed beside its bound (`check_cases`, scaled: each output within its
+    atol of its largest entry), the flagship's on the plain path's key,
+    query and mul_L of the batch x (the last node block's rows), synthetic-1k's
+    on seeded ones; ROWS_KEPT's into `results`. Then the square calls' routes:
+    at M = N each arm's plan is the square call's (`fwd_plan`, `bwd_plan`,
+    `launch_plan`) and its outputs the square wrappers' bits, at the flagship.
+    This checks routing only: both wrappers reach the same kernels with the
+    same arguments once the plans match, so it says nothing of the parent
+    tree's bits. Returns an error message, or None."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_attention, cuda_graph, cuda_gru
+
+    alpha = mcfg.leaky_rate
+    sms, smem = cuda_gru.card_limits(dev)
+    key_f, query_f, mul_L_f, feat_f, _ = forward_inputs(params, mcfg, x)
+    for b, n, m in ROWS_SHAPES:
+        rng = np.random.default_rng(20 + n + m)
+        if n == key_f.shape[1]:
+            blk = slice(n - m, n)
+            key, query = key_f[:, blk].contiguous(), query_f
+            mul_L, feat = mul_L_f[:, blk].contiguous(), feat_f
+        else:
+            key, query = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                          for s in ((b, m), (b, n)))
+            mul_L = torch.from_numpy((rng.standard_normal((4, m, n)) / math.sqrt(n))
+                                     .astype(np.float32)).to(dev)
+            mul_L[0] = 0.0
+            feat = torch.from_numpy(rng.standard_normal((b, n, WINDOW)).astype(np.float32)).to(
+                dev)
+        g = torch.from_numpy((1e-3 * rng.standard_normal((b, m, n))).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            p = cuda_attention.attention_rows_plain(key, query, alpha)
+        f32, bf16 = rows_cases(key, query, p, g, mul_L, feat, alpha)
+        keep = results if (b, n, m) == ROWS_KEPT else {}
+        tag = f"3 kernel, row block B={b} N={n} M={m}"
+        fail = (check_cases(f32, keep, tag, scaled=True)
+                or check_bf16_cases(bf16, keep, tag))
+        if fail is not None:
+            return fail
+        print(f"[{tag}] plans: {cuda_attention.fwd_plan(b, n, sms, m=m)}, "
+              f"{cuda_attention.bwd_plan(b, n, sms, smem, m=m)}, "
+              f"{cuda_graph.launch_plan(4, n, b, WINDOW, m=m)}")
+    # M = N: the square calls' plans and bits (routing, not the parent's bits)
+    b, n = key_f.shape
+    same_plans = (cuda_attention.fwd_plan(b, n, sms, m=n) == cuda_attention.fwd_plan(b, n, sms)
+                  and cuda_attention.bwd_plan(b, n, sms, smem, m=n)
+                  == cuda_attention.bwd_plan(b, n, sms, smem)
+                  and all(cuda_graph.launch_plan(4, n, b, WINDOW, e, m=n)
+                          == cuda_graph.launch_plan(4, n, b, WINDOW, e) for e in (4, 2)))
+    g = torch.from_numpy((1e-3 * np.random.default_rng(24).standard_normal((b, n, n)))
+                         .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        p = cuda_attention.attention_kq(key_f, query_f, alpha)
+        pairs = [(cuda_attention.attention_rows(key_f, query_f, alpha), p)]
+        pairs += list(zip(cuda_attention.attention_rows_bwd(key_f, query_f, p, g, alpha),
+                          cuda_attention.attention_kq_bwd(key_f, query_f, p, g, alpha)))
+        pairs += [(cuda_graph.cheb_graph_conv_rows(mul_L_f, feat_f, cd),
+                   cuda_graph.cheb_graph_conv(mul_L_f, feat_f, cd))
+                  for cd in ("float32", "bfloat16")]
+        torch.cuda.synchronize()
+    same_bits = [torch.equal(a, c) for a, c in pairs]
+    print(f"[3 kernel] row-block arms at M = N (B={b}, N={n}): the square calls' plans "
+          f"{'yes' if same_plans else 'NO'}; outputs bitwise the square kernels' (attention, "
+          f"dkey, dquery, graph conv f32, bf16): {same_bits}")
+    if not same_plans or not all(same_bits):
+        return f"the row-block arms at M = N leave the square route: plans {same_plans}, " \
+               f"bits {same_bits}"
+    return None
+
+
+# C.7: the spectral chain kernels past 65,535 row tiles, where a grid's y stops
+# and where they were refused while they took a tile a blockIdx.y (now block x
+# takes chain x % 2 of tile x / 2: csrc/spectral.cu launch_chains): the stretch
+# cell's D1 = 96 (W = 12, multi 2) on a batch of rows that puts each arm's
+# chain past that count on this card.
+# Rows past 65,535 row tiles of each chain kernel, from: the f32 chain's
+# largest tile is 24 rows (csrc/spectral.cu kFTiles), so 65,536 of them are
+# past the ceiling whichever tile its plan takes. The bf16 chain's tile is its
+# plan's (`fwd_mma_plan`, which its launch takes), 16 to 80 rows by the row
+# count: `grid_ceiling_check` goes up from here to a count past it too.
+CEILING_ROWS_FROM = 65_536 * 24
+MAX_GRID_Y = 65_535  # blocks a grid may have along y, on every card
+
+
+def grid_ceiling_check(glu, dev):
+    """Each arm's saving forward and reread backward at the least row count
+    from CEILING_ROWS_FROM up, in steps of 1,024, at which the bf16 chain's
+    plan has more than 65,535 row tiles on this card (the f32 chain's has at
+    any of them), against their plain versions by phase 3's rules (untimed).
+    Returns an error message, or None."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    multi, k, w = 2, 4, WINDOW
+    sms = cuda_spectral._sms(dev)
+    rows = CEILING_ROWS_FROM
+    while cuda_spectral.fwd_mma_plan(1, k, rows, w, w * multi, sms).tiles <= MAX_GRID_Y:
+        rows += 1024
+    f32_tiles = -(-rows // 24)  # at the least: 24 rows is the largest f32 tile
+    bf16_tiles = cuda_spectral.fwd_mma_plan(1, k, rows, w, w * multi, sms).tiles
+    rng = np.random.default_rng(25)
+    gfted = torch.from_numpy(rng.standard_normal((1, k, rows, w)).astype(np.float32)).to(dev)
+    g_spe = torch.from_numpy((1e-3 * rng.standard_normal((1, k, rows, w * multi)))
+                             .astype(np.float32)).to(dev)
+    tag = "3 kernel, C.7 grid ceiling"
+    print(f"[{tag}] {rows} rows, D1 = {k * w * multi}: the f32 chain on {f32_tiles} row "
+          f"tiles or more, the bf16 chain on {bf16_tiles}, past the {MAX_GRID_Y} blocks of "
+          f"a grid's y (each a grid of 2 * tiles blocks along x)")
+    keep = ("spectral_fwd_save", "spectral_bwd_reread", "spectral_fwd_save_bf16",
+            "spectral_bwd_reread_bf16")
+    return (check_cases([c for c in spectral_fwd_cases(gfted, glu, multi) if c[0] in keep],
+                        {}, tag, timed=False)
+            or check_cases([c for c in spectral_bwd_cases(gfted, glu, g_spe, multi)
+                            if c[0] in keep], {}, tag, scaled=True, timed=False)
+            or check_bf16_cases([c for c in spectral_bf16_cases(gfted, glu, multi, gfted, g_spe)
+                                 if c[0] in keep], {}, tag, timed=False))
+
+
 # The spectral forwards against their plain versions at other shapes: the
 # output and each of the 12 saved arrays within atol 1e-5 of its own largest
 # entry, rtol 1e-4 (sums of up to 680 f32 terms through three layers in
@@ -1734,12 +1937,13 @@ def time_case(phase, name, kern, plain, lib, calls, replays):
 
 
 def check_cases(cases, results, phase: str, scaled: bool = False, calls: int = 20,
-                replays: int = 10):
+                replays: int = 10, timed: bool = True):
     """Hold each case's kernel against its plain version and time both; fills
     `results`. Returns an error message, or None. With `scaled` a case's atol
     is a fraction of the plain result's largest entry: the cotangents of a
     real train step, and so the backward kernels' outputs, are far below 1.
-    `calls` and `replays` size the timed graphs (fewer for a slow kernel)."""
+    `calls` and `replays` size the timed graphs (fewer for a slow kernel);
+    without `timed`, the check alone, printed."""
     import torch
 
     for (name, source, replaces, kern, plain, lib, atol, rtol, nbytes,
@@ -1751,6 +1955,14 @@ def check_cases(cases, results, phase: str, scaled: bool = False, calls: int = 2
             err = (got - want).abs().max().item()
             scale = want.abs().max().item() if scaled else 1.0
             ok = bool(torch.allclose(got, want, atol=atol * scale, rtol=rtol))
+            del got, want
+        if not timed:
+            print(f"[{phase}] {name}: max_abs_err {err:.3e} (atol {atol:g}"
+                  f"{f' of the largest entry {scale:.3e}' if scaled else ''}, rtol {rtol:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok or not math.isfinite(err):
+                return f"{name} disagrees with its plain version: {err}"
+            continue
         ms, plain_ms, lib_ms, one_call_ms = time_case(phase, name, kern, plain, lib, calls,
                                                       replays)
         bound_ms, bound_by = bound(nbytes, flops)
@@ -1772,7 +1984,8 @@ def check_cases(cases, results, phase: str, scaled: bool = False, calls: int = 2
     return None
 
 
-def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int = 10):
+def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int = 10,
+                     timed: bool = True):
     """`check_cases` for the bf16 arms (`bf16_cases`): each array of the
     kernel's result within the case's atol of its largest entry (and rtol) of
     the bf16 plain version's, and the kernel's results BF16_CLOSER times
@@ -1787,6 +2000,17 @@ def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int =
             got = kern()
             torch.cuda.synchronize()
             bad, err, ratio, rel = bf16_agreement(got, plain(), plain_f32(), atol, rtol)
+        if not timed:
+            del got
+            ok = not bad and ratio >= BF16_CLOSER and math.isfinite(err)
+            print(f"[{phase}] {name}: max_abs_err {err:.3e}, {rel:.3e} of its array's "
+                  f"largest entry (each of its arrays within {atol:.4g} of its largest "
+                  f"entry: {'yes' if not bad else f'NO, arrays {bad[:8]}'}; {ratio:.1f} times "
+                  f"closer to the bf16 plain version than to the f32 one, at least "
+                  f"{BF16_CLOSER:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                return f"{name} disagrees with its bf16 plain version: {err}, arrays {bad[:8]}"
+            continue
         ms, plain_ms, lib_ms, one_call_ms = time_case(phase, name, kern, plain, lib, calls,
                                                       replays)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
@@ -1941,6 +2165,15 @@ def bf16_chain_route(fn, d1: int):
     want = ("spectral_chain_mma_kernel" if d1 <= cuda_spectral.MMA_MAX_D1
             else "spectral_chain_wide_kernel")
     chain = [nm.split(">(")[0] + ">" for nm in names if "spectral_chain" in nm]
+    if not chain:
+        # every such call launches a chain kernel: a profile that names none
+        # has lost events (as it now and then records none at all), so the
+        # kernel nodes of a CUDA graph of the call name them instead
+        graph_names = kernels_of_graph(fn)
+        print(f"[3 kernel] bf16 chain at D1 = {d1}: the profiler named {len(names)} kernels "
+              f"and no chain kernel; a CUDA graph of the call names "
+              f"{'nothing' if graph_names is None else graph_names}")
+        chain = [nm for nm in graph_names or [] if "spectral_chain" in nm]
     if not any(want in nm for nm in chain) or any("spectral_chain_kernel" in nm for nm in chain):
         return f"a bf16 chain call at D1 = {d1} launches {chain}, expected {want} alone"
     print(f"[3 kernel] bf16 chain at D1 = {d1}: launches {chain}")
@@ -1994,7 +2227,7 @@ def bf16_redesigns(results, params, mcfg, x):
 # its 9th field force_sparse_shard True) and the same model unsharded
 S32K_SHARDED, S32K = "synthetic-32k-sharded", "synthetic-32k-seggru"
 DENSE_ONLY = ("attention_kq_fwd", "attention_kq_bwd", "cheb_graph_conv_fwd",
-              "cheb_graph_conv_fwd_bf16")
+              "cheb_graph_conv_fwd_bf16") + ROW_ARMS
 
 
 def sharded_32k(dev):
@@ -2027,7 +2260,7 @@ def sharded_32k(dev):
 
 
 def step_on(mcfg, params, data, hi, mask, mesh=None, compute_dtype="float32",
-            shard_batch=True):
+            shard_batch=True, use_ring=False):
     """One train step of fresh copies of `params` through the engine's step (on
     `mesh` through parallel.train.make_sharded_train_step): (loss, {name:
     gradient}, {name: parameter after the step})."""
@@ -2043,18 +2276,70 @@ def step_on(mcfg, params, data, hi, mask, mesh=None, compute_dtype="float32",
         step = engine.make_train_step(mcfg, opt, flat.values(), compute_dtype=compute_dtype)
     else:
         step = make_sharded_train_step(mcfg, opt, flat.values(), mesh,
-                                       compute_dtype=compute_dtype, shard_batch=shard_batch)
+                                       compute_dtype=compute_dtype, shard_batch=shard_batch,
+                                       use_ring=use_ring)
     loss = step(unflatten_params(flat), data, hi, dropout_mask=mask)
     return (loss, {k: v.grad.detach().clone() for k, v in flat.items()},
             {k: v.detach().clone() for k, v in flat.items()})
 
 
+def s1k_dense(dev):
+    """(synthetic-1k's dense model config, init_params(0), a seeded series
+    [64, N] on the card, window ends [8], a [8, N, N] dropout mask): the
+    dense partition's cell of phase 9 (d)."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch.config import StemGNNConfig
+    from stemgnn_tpu_torch.models import init_params
+
+    mcfg = StemGNNConfig(units=S1K_NODES, window_size=WINDOW, horizon=HORIZON,
+                         multi_layer=MULTI)
+    rng = np.random.default_rng(26)
+    data = torch.from_numpy(rng.standard_normal((64, S1K_NODES)).astype(np.float32)).to(dev)
+    hi = torch.from_numpy(rng.integers(WINDOW, 64 - HORIZON, size=S1K_BATCH)).to(dev)
+    mask = torch.from_numpy(rng.random((S1K_BATCH, S1K_NODES, S1K_NODES))
+                            < 1.0 - mcfg.dropout_rate).to(dev)
+    return mcfg, init_params(0, mcfg, device=dev), data, hi, mask
+
+
+def step_ms(mcfg, params, data, hi, mask, mesh=None, use_ring=False, steps: int = 5) -> float:
+    """Device-clock ms of one eager train step of `params` (copies) through the
+    engine's step (on `mesh` the sharded one), after two warm steps: CUDA
+    events around `steps` steps, synchronized."""
+    import torch
+
+    from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
+    from stemgnn_tpu_torch.parallel.train import make_sharded_train_step
+    from stemgnn_tpu_torch.train import engine
+    from stemgnn_tpu_torch.train.optim import make_optimizer
+
+    flat = {k: v.detach().clone().requires_grad_(True)
+            for k, v in flatten_params(params).items()}
+    opt = make_optimizer("RMSProp", flat.values(), 1e-4)
+    step = (engine.make_train_step(mcfg, opt, flat.values()) if mesh is None else
+            make_sharded_train_step(mcfg, opt, flat.values(), mesh, use_ring=use_ring))
+    tree = unflatten_params(flat)
+    for _ in range(2):
+        step(tree, data, hi, dropout_mask=mask)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        step(tree, data, hi, dropout_mask=mask)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
 def two_card_rank(flagship, stretch):
     """A rank of phase 9's two-card group (NCCL, card = rank): the flagship's
-    data-parallel step on a (2, 1) mesh and synthetic-32k-sharded's step on a
-    (1, 2) mesh, each (loss, {name: gradient as a numpy array}). `flagship`:
-    (its TrainConfig fields, train split, window ends, [B, N, N] mask);
-    `stretch`: the first batch's window ends and [N, k] mask."""
+    data-parallel step on a (2, 1) mesh, synthetic-32k-sharded's step on a
+    (1, 2) mesh, each (loss, {name: gradient as a numpy array}); then
+    synthetic-1k's dense step on a (1, 2) mesh without and with the ring,
+    each (loss, gradients, ms a step, the row-block arms' launches in one
+    step). `flagship`: (its TrainConfig fields, train split, window ends,
+    [B, N, N] mask); `stretch`: the first batch's window ends and [N, k]
+    mask."""
     import torch
 
     from stemgnn_tpu_torch.config import TrainConfig
@@ -2077,6 +2362,19 @@ def two_card_rank(flagship, stretch):
                              torch.from_numpy(hi_s).to(dev), torch.from_numpy(mask_s).to(dev),
                              make_mesh(1, 2))
     out.append((loss.item(), {k: g.cpu().numpy() for k, g in grads.items()}))
+    del params_s, grads
+    from stemgnn_tpu_torch import ops
+
+    mcfg_1k, params_1k, data_1k, hi_1k, mask_1k = s1k_dense(dev)
+    mesh = make_mesh(1, 2)
+    for ring in (False, True):
+        ops.reset_launches()
+        loss, grads, _ = step_on(mcfg_1k, params_1k, data_1k, hi_1k, mask_1k, mesh,
+                                 use_ring=ring)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launches().items() if k in ROW_ARMS}
+        ms = step_ms(mcfg_1k, params_1k, data_1k, hi_1k, mask_1k, mesh, use_ring=ring)
+        out.append((loss.item(), {k: g.cpu().numpy() for k, g in grads.items()}, ms, counts))
     return out
 
 
@@ -2274,14 +2572,17 @@ def distributed_phase(dev, results, cfg, train_data, his, masks, bench_line, run
                   f"{(es1 + es2 - eu1 - eu2) / 2:+.4f} ms an eval batch (the unsharded runs "
                   f"differ by {abs(tu1 - tu2):.4f} and {abs(eu1 - eu2):.4f})")
 
-    return two_card_checks(dev, cfg, train_data, his, masks)
+    return two_card_checks(dev, cfg, train_data, his, masks, results)
 
 
-def two_card_checks(dev, cfg, train_data, his, masks):
+def two_card_checks(dev, cfg, train_data, his, masks, results=None):
     """Phase 9 (d): where the host has two cards or more, the flagship's
-    data-parallel step on a (2, 1) mesh and synthetic-32k-sharded's step on a
-    (1, 2) mesh in two NCCL processes. The flagship is held to one card's step
-    by the f32 rule of phase 5. The 32k step's gradients upstream of the top-k
+    data-parallel step on a (2, 1) mesh, synthetic-32k-sharded's step on a
+    (1, 2) mesh and synthetic-1k's dense step on a (1, 2) mesh, without and
+    with the ring, in two NCCL processes. The flagship and synthetic-1k are
+    held to one card's step by the f32 rule of phase 5, and synthetic-1k's
+    ms a step on each rank printed beside one card's; the row-block arms'
+    launches in its steps go to `results`. The 32k step's gradients upstream of the top-k
     (the GRU, weight_query) are f32 noise as large as the gradients, and the
     CPU's f32 step, phase 5's scale, stands farther from the f64 step than one
     card's step on one host and far closer on another (its BLAS sums in
@@ -2355,6 +2656,33 @@ def two_card_checks(dev, cfg, train_data, his, masks):
         print(f"[9 distributed] (d) {tag} on two cards: loss {loss_r:.6f} (abs err "
               f"{loss_err:.3e}, atol 1e-5); both ranks equal: {same}; {rule}; out of "
               f"tolerance {bad[:3]}")
+    # synthetic-1k's dense partition on (1, 2), without and with the ring,
+    # against one card's step
+    mcfg_1k, params_1k, data_1k, hi_1k, mask_1k = s1k_dense(dev)
+    loss_1, grads_1k, _ = step_on(mcfg_1k, params_1k, data_1k, hi_1k, mask_1k)
+    ms_1 = step_ms(mcfg_1k, params_1k, data_1k, hi_1k, mask_1k)
+    for i, tag in ((2, "s1k_dense_1x2"), (3, "s1k_ring_1x2")):
+        loss_r, grads_r, ms_r, counts = ranks[0][i]
+        same = ranks[1][i][0] == loss_r and all(
+            np.array_equal(g, ranks[1][i][1][k]) for k, g in grads_r.items())
+        bad, worst, worst_name = compare_grads({k: torch.from_numpy(g) for k, g in
+                                                grads_r.items()},
+                                               {k: g.cpu() for k, g in grads_1k.items()})
+        loss_err = abs(loss_r - loss_1.item())
+        want = {"attention_kq_fwd_rows": 0 if i == 3 else 1, "attention_kq_bwd_rows": 1,
+                "cheb_graph_conv_fwd_rows": 2, "cheb_graph_conv_fwd_rows_bf16": 0}
+        launched = all(r[i][3] == want for r in ranks)
+        verdict[tag] = not bad and loss_err <= 1e-5 and same and launched
+        if results is not None:
+            for name, n in counts.items():
+                results[name]["launches"] += n
+        print(f"[9 distributed] (d) {tag} on two cards: loss {loss_r:.6f} (abs err "
+              f"{loss_err:.3e} against one card's, atol 1e-5); both ranks equal: {same}; "
+              f"worst gradient max_abs_err {worst:.3e} at {worst_name} (atol "
+              f"{GRAD_ATOL_REL:g} of each largest entry, rtol {GRAD_RTOL:g}), out of "
+              f"tolerance {bad[:3]}; row-block launches a step {counts} (expected {want}); "
+              f"ms a step: rank 0 {ms_r:.3f}, rank 1 {ranks[1][i][2]:.3f}, one card "
+              f"{ms_1:.3f}")
     print(json.dumps({"distributed_2card": "run", "cards": cards, "seconds": round(secs, 1),
                       "agree": verdict}))
     if not all(verdict.values()):
@@ -2537,6 +2865,8 @@ def run() -> int:
     if fail is None:
         fail = attention_checks(dev)
     if fail is None:
+        fail = rows_checks(dev, results, params, mcfg, x)
+    if fail is None:
         # and at the stretch shape (102,400 rows, D1 = 96), untimed here
         fail = spectral_checks(dev, params["blocks"][0]["glu"], MULTI, extra=[
             (1, n_s, WINDOW, mcfg_s.multi_layer, params_s["blocks"][0]["glu"],
@@ -2584,7 +2914,8 @@ def run() -> int:
                 or segmented_gru_check(gru_4k, x_4k, g_4k, S4K_GRU["segment"],
                                        "synthetic-4k-seggru shape")
                 or stretch_spectral_check(params_s["blocks"][0]["glu"], mcfg_s.multi_layer,
-                                          n_s, dev, f"3 kernel, {S100K} shape"))
+                                          n_s, dev, f"3 kernel, {S100K} shape")
+                or grid_ceiling_check(params_s["blocks"][0]["glu"], dev))
     if fail is not None:
         return _fail(fail)
     call = rec_s.calls["spe_seq_cell"][0]
@@ -3744,9 +4075,19 @@ def run() -> int:
           f"build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    cards = torch.cuda.device_count()
     for r in results.values():
-        if r["launches"] <= 0:
-            return _fail(f"{r['name']} was launched no time on the main paths")
+        if r["launches"] > 0:
+            continue
+        if r["name"] in ROW_ARMS and cards < 2:
+            # the node-sharded dense path needs 'graph' > 1: two ranks, two
+            # cards (NCCL takes no two ranks on one card); phase 3 held the
+            # arms to their plain versions at its blocks
+            print(f"[10 summary] {r['name']}: launched on the node-sharded dense path "
+                  f"alone, which needs two cards (phase 9 (d)); {cards} card here: 0 "
+                  "launches")
+            continue
+        return _fail(f"{r['name']} was launched no time on the main paths")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,16 @@ flags lay them out (stemgnn_tpu_torch/parallel/mesh.py):
     torchrun --nproc_per_node 2 -m stemgnn_tpu_torch --dataset ECG_data --data_axis 2
     torchrun --nproc_per_node 4 -m stemgnn_tpu_torch --dataset ECG_data \
         --sparse_k 16 --gru_hidden 32 --gru_segment 35 --data_axis 2 --graph_axis 2
+    torchrun --nproc_per_node 4 -m stemgnn_tpu_torch --dataset ECG_data \
+        --data_axis 2 --graph_axis 2
+    torchrun --nproc_per_node 4 -m stemgnn_tpu_torch --dataset ECG_data \
+        --graph_axis 4 --use_ring True
 
-Each rank initialises the process group (NCCL on the card, gloo with
---device cpu) from torchrun's environment; rank 0 writes the files.
+The last two partition the dense model's nodes over 'graph' (each rank its
+rows of the attention and of the Chebyshev stack), the last with the
+attention on the ring. Each rank initialises the process group (NCCL on the
+card, gloo with --device cpu) from torchrun's environment; rank 0 writes the
+files.
 
 Runs on the card, or on the CPU with --device cpu. With --train True (the
 default) `engine.train` trains and validates, writing norm_stat.json, the

@@ -5,9 +5,9 @@ flags keep their names and defaults, and booleans parse properly (the
 reference's `type=bool` flags treat the string "False" as truthy). The
 port adds `seed`, `dropout_seed`, `shuffle_seed`, `param_dtype`,
 `compute_dtype`, `resume`, `ckpt_every`, `ckpt_async`, `log_jsonl`, `profile`,
-`debug_nans`, `data_dir`, `output_dir`, `data_axis`, `graph_axis` and
-`force_sparse_shard`, with the JAX package's names and defaults; `device`
-defaults to "cuda".
+`debug_nans`, `data_dir`, `output_dir`, `data_axis`, `graph_axis`,
+`force_sparse_shard` and `use_ring`, with the JAX package's names and
+defaults; `device` defaults to "cuda".
 
 `sparse_k`, `gru_hidden` and `gru_segment` select the large-N stretch path
 (stemgnn_tpu/config.py, PARITY.md deviation 6): a top-k sparse latent graph
@@ -19,8 +19,12 @@ TrainConfig 0 means unset, as on the JAX package's.
 `data_axis`, `graph_axis` and `force_sparse_shard` (the JAX package's names
 and defaults) lay the run out on a ('data', 'graph') mesh of processes
 (`parallel/mesh.py`, launched by torchrun): the batch sharded over 'data', the
-stretch path's nodes over 'graph'. The JAX package's `use_ring` and a dense
-model with graph_axis > 1 are not ported (ROADMAP A.4) and raise.
+nodes over 'graph' (the stretch path's sparse graph, or the dense path's
+attention and Chebyshev rows). `use_ring` is the JAX package's ring
+attention over 'graph', whose rows the port's partition already gives
+(`parallel/ring.py`); it takes effect only where graph_axis > 1
+(stemgnn_tpu/train/engine.py:476), where it refuses an N that 'graph' does
+not divide.
 
 `compute_dtype` is the JAX package's precision policy: "bfloat16" gives the
 graph conv's and the spectral cell's kernels bf16 operands with f32 sums,
@@ -141,9 +145,10 @@ class TrainConfig:
     gru_hidden: int = 0  # >0: decoupled GRU hidden size (stretch; needs sparse_k)
     gru_segment: int = 0  # >0: segmented node recurrence (stretch; needs gru_hidden)
     data_axis: int = 1  # mesh size along 'data' (DP)
-    graph_axis: int = 1  # mesh size along 'graph' (node-block partition; stretch path)
+    graph_axis: int = 1  # mesh size along 'graph' (node-block partition)
     # the stretch path node-sharded on a mesh whose 'graph' axis is 1
     force_sparse_shard: bool = False
+    use_ring: bool = False  # the dense attention on the ring over 'graph' (graph_axis > 1)
 
     def __post_init__(self):
         for name in ("param_dtype", "compute_dtype"):
@@ -151,10 +156,6 @@ class TrainConfig:
                 raise ValueError(f"{name} {getattr(self, name)!r}: 'float32' or 'bfloat16'")
         if self.data_axis < 1 or self.graph_axis < 1:
             raise ValueError(f"mesh {self.data_axis}x{self.graph_axis}: each axis >= 1")
-        if self.graph_axis > 1 and self.sparse_k <= 0:
-            raise ValueError(f"graph_axis {self.graph_axis} on the dense path (sparse_k 0) "
-                             "is not ported: the dense path's node partition over 'graph' "
-                             "is ROADMAP A.4")
 
     def model_config(self, node_cnt: int) -> StemGNNConfig:
         return StemGNNConfig(
@@ -183,8 +184,7 @@ def _str2bool(v: str) -> bool:
 
 
 def add_cli_args(parser) -> None:
-    """Register the reference's 21 flags (fixed bool parsing) + port flags,
-    and the JAX package's --use_ring, which `config_from_args` refuses."""
+    """Register the reference's 21 flags (fixed bool parsing) + port flags."""
     defaults = TrainConfig()
     for field in dataclasses.fields(TrainConfig):
         name = f"--{field.name}"
@@ -193,12 +193,8 @@ def add_cli_args(parser) -> None:
             parser.add_argument(name, type=_str2bool, default=default)
         else:
             parser.add_argument(name, type=type(default), default=default)
-    parser.add_argument("--use_ring", type=_str2bool, default=False)
 
 
 def config_from_args(args) -> TrainConfig:
-    if getattr(args, "use_ring", False):
-        raise ValueError("--use_ring (the ring attention over 'graph', "
-                         "stemgnn_tpu/parallel/ring.py) is not ported: ROADMAP A.4")
     kwargs = {f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)}
     return TrainConfig(**kwargs)

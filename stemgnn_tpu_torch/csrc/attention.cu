@@ -4,6 +4,12 @@
 // `_forward_kq` / `attention_kq_pallas`): scores[b,i,j] = key[b,i] +
 // query[b,j], LeakyReLU(alpha), stable row softmax, out [B, N, N] f32.
 //
+// Both kernels also take a row block: key [B, M] of M < N rows against the
+// whole query [B, N], out [B, M, N] (the node-sharded dense path: one rank's
+// rows of the attention, the rows of `attention_from_kq` for its node
+// block). Rows are laid over warps and blocks by M, columns by N; at M = N
+// every index, plan and sum order is the square call's.
+//
 // Bound on the H100: bytes. The kernel reads 2*B*N floats and writes
 // B*N*N; its arithmetic is a few operations per output element. At the
 // flagship (B = 32, N = 140) the 2.5 MB it writes take 0.75 us at the memory's
@@ -126,7 +132,7 @@ constexpr int kFwdThreads = 256;
 template <int V, int T, bool kWide>
 __global__ void __launch_bounds__(kFwdThreads)
 attention_fwd_kernel(const float* __restrict__ key, const float* __restrict__ query,
-                     float* __restrict__ out, int B, int N, float alpha,
+                     float* __restrict__ out, int B, int M, int N, float alpha,
                      int rows_per_warp, int bands) {
   constexpr int kSpan = 32 * V * T;
   const int lane = threadIdx.x & 31;
@@ -134,10 +140,10 @@ attention_fwd_kernel(const float* __restrict__ key, const float* __restrict__ qu
   if (task >= (long)B * bands) return;  // the whole warp leaves together
   const int b = (int)(task / bands);
   const int i0 = (int)(task % bands) * rows_per_warp;
-  const int i1 = min(N, i0 + rows_per_warp);
+  const int i1 = min(M, i0 + rows_per_warp);
   const float* q = query + (long)b * N;
-  const float* kb = key + (long)b * N;
-  float* ob = out + (long)b * N * N;
+  const float* kb = key + (long)b * M;
+  float* ob = out + (long)b * M * N;
 
   if constexpr (!kWide) {
     float qv[T][V];
@@ -263,7 +269,7 @@ template <int V, int T, bool kChunked>
 __global__ void __launch_bounds__(bwd_max_threads(V * T, kChunked))
 attention_bwd_kernel(const float* __restrict__ key, const float* __restrict__ query,
                      const float* __restrict__ p, const float* __restrict__ g,
-                     float* __restrict__ dkey, float* __restrict__ dquery, int N,
+                     float* __restrict__ dkey, float* __restrict__ dquery, int M, int N,
                      float alpha, int rows_per_block, int slice) {
   constexpr int kSpan = 32 * V * T;  // columns a warp holds at once
   extern __shared__ __align__(16) float smem[];
@@ -274,11 +280,11 @@ attention_bwd_kernel(const float* __restrict__ key, const float* __restrict__ qu
   float* recv = smem + warps * kSpan;          // [C][slice], twice when chunked
   float* part_w = part + warp * kSpan;
   const int b = blockIdx.y;
-  const int r0 = c * rows_per_block, r1 = min(N, r0 + rows_per_block);
+  const int r0 = c * rows_per_block, r1 = min(M, r0 + rows_per_block);
   const float* qb = query + (long)b * N;
-  const float* kb = key + (long)b * N;
-  const float* pb = p + (long)b * N * N;
-  const float* gb = g + (long)b * N * N;
+  const float* kb = key + (long)b * M;
+  const float* pb = p + (long)b * M * N;
+  const float* gb = g + (long)b * M * N;
   // every block of the cluster has started before anyone stores into it
   cluster_arrive_relaxed();
 
@@ -317,7 +323,7 @@ attention_bwd_kernel(const float* __restrict__ key, const float* __restrict__ qu
           dk += d;
         }
       dk = warp_sum(dk);
-      if (lane == 0) dkey[(long)b * N + i] = dk;
+      if (lane == 0) dkey[(long)b * M + i] = dk;
     }
 #pragma unroll
     for (int t = 0; t < T; ++t) store_run<V>(part_w + run_col<V>(t, lane), acc[t]);
@@ -431,14 +437,14 @@ attention_bwd_kernel(const float* __restrict__ key, const float* __restrict__ qu
         }
       }
       const int i = r0 + warp + (grp * 32 + lane) * warps;
-      if (i < r1) dkey[(long)b * N + i] = my_dk;
+      if (i < r1) dkey[(long)b * M + i] = my_dk;
     }
   }
 }
 
-typedef void (*FwdKernel)(const float*, const float*, float*, int, int, float, int, int);
+typedef void (*FwdKernel)(const float*, const float*, float*, int, int, int, float, int, int);
 typedef void (*BwdKernel)(const float*, const float*, const float*, const float*, float*,
-                          float*, int, float, int, int);
+                          float*, int, int, float, int, int);
 
 // The instantiation of a plan's (vec, runs, wide or chunked), or null.
 FwdKernel fwd_kernel(int vec, int runs, bool wide) {
@@ -494,32 +500,35 @@ constexpr int kPortableCluster = 8;
 // The plan comes from ops/cuda_attention.py `fwd_plan`: runs of `vec` columns,
 // `runs` of them a lane, the wide instantiation past a span, `rows_per_warp`
 // rows of one batch element a warp, `bands` warps a batch element, `blocks`
-// blocks of 256 threads.
+// blocks of 256 threads. key [B, M], query [B, N], out [B, M, N]: M = N is the
+// whole attention, M < N a row block of it (the rows of a node block).
 extern "C" int attention_kq_fwd(const float* key, const float* query, float* out, int B,
-                                int N, float alpha, int vec, int runs, int wide,
+                                int M, int N, float alpha, int vec, int runs, int wide,
                                 int rows_per_warp, int bands, int blocks, void* stream) {
   const FwdKernel kernel = fwd_kernel(vec, runs, wide != 0);
-  if (kernel == nullptr || (long)bands * rows_per_warp < N ||
+  if (kernel == nullptr || (long)bands * rows_per_warp < M ||
       (long)blocks * (kFwdThreads / 32) < (long)B * bands)
     return (int)cudaErrorInvalidValue;
-  kernel<<<blocks, kFwdThreads, 0, (cudaStream_t)stream>>>(key, query, out, B, N, alpha,
+  kernel<<<blocks, kFwdThreads, 0, (cudaStream_t)stream>>>(key, query, out, B, M, N, alpha,
                                                            rows_per_warp, bands);
   return (int)cudaGetLastError();
 }
 
 // The plan comes from ops/cuda_attention.py `bwd_plan`: grid (cluster, B) in
 // clusters of `cluster` blocks of `threads` threads, `rows_per_block` rows a
-// block, `slice` columns a block owns (of N, or of a chunk when chunked),
-// `smem` bytes of dynamic shared memory.
+// block (of M), `slice` columns a block owns (of N, or of a chunk when
+// chunked), `smem` bytes of dynamic shared memory. key [B, M], query [B, N],
+// p and g [B, M, N] -> dkey [B, M] and dquery [B, N], the sums over the M
+// rows (where M < N, this row block's share of dquery).
 extern "C" int attention_kq_bwd(const float* key, const float* query, const float* p,
-                                const float* g, float* dkey, float* dquery, int B, int N,
-                                float alpha, int vec, int runs, int chunked, int cluster,
-                                int threads, int rows_per_block, int slice, int smem,
-                                void* stream) {
+                                const float* g, float* dkey, float* dquery, int B, int M,
+                                int N, float alpha, int vec, int runs, int chunked,
+                                int cluster, int threads, int rows_per_block, int slice,
+                                int smem, void* stream) {
   const BwdKernel kernel = bwd_kernel(vec, runs, chunked != 0);
   const int width = chunked ? 32 * vec * runs : N;
   if (kernel == nullptr || cluster < 1 || cluster > kPortableCluster || threads % 32 ||
-      threads > bwd_max_threads(vec * runs, chunked) || (long)cluster * rows_per_block < N ||
+      threads > bwd_max_threads(vec * runs, chunked) || (long)cluster * rows_per_block < M ||
       (long)cluster * slice < width)
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
@@ -537,6 +546,6 @@ extern "C" int attention_kq_bwd(const float* key, const float* query, const floa
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, key, query, p, g, dkey, dquery, N, alpha,
+  return (int)cudaLaunchKernelEx(&cfg, kernel, key, query, p, g, dkey, dquery, M, N, alpha,
                                  rows_per_block, slice);
 }

@@ -4,6 +4,10 @@
 // `_forward` / `cheb_graph_conv_pallas`): out[b,k,n,w] = sum_m
 // mul_L[k,n,m] * x[b,m,w] for k = 1..K-1, with the k = 0 slab all zeros
 // (the reference's T0 = 0), mul_L [K,N,N], x [B,N,W], out [B,K,N,W], f32.
+// The same kernel takes a row block of mul_L: [K,M,N] against the whole x,
+// out [B,K,M,W] (the node-sharded dense path: one rank's rows of the conv).
+// Its tiles then walk M rows (grid y) over the N-long sum; at M = N every
+// index and sum order is the square call's.
 //
 // Bound on the H100: f32 operations (2*(K-1)*N*N*B*W of them against
 // about 4*(K-1)*N*N + 4*(K+1)*B*N*W bytes), but at the model's sizes the
@@ -24,7 +28,7 @@
 // out[b,k,n,:]: whole rows of the [B,K,N,W] layout, no transpose or pad in
 // device memory, no atomics. The chunks of four w go to different warps (at
 // most 4 chunks at a time), so a block of the model's shapes has 12 warps in
-// flight. The grid is (B / 4, N / 32, K - 1): the all-zero product of order
+// flight. The grid is (B / 4, M / 32, K - 1): the all-zero product of order
 // 0 is skipped, and the blocks of order 1 write its zero slab with float4
 // stores while their panels are on the way. Ragged N, B
 // and W are masked (a W that is no multiple of 4 takes scalar reads of x and
@@ -153,7 +157,7 @@ __device__ __forceinline__ void round_panels(bf16* As, int lda, const float* __r
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kChunkThreads * kMaxChunks)
 cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
-                       float* __restrict__ out, int K, int N, int B, int W, int MP,
+                       float* __restrict__ out, int K, int M, int N, int B, int W, int MP,
                        int RSA, int XBS) {
   extern __shared__ __align__(16) float smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -161,13 +165,13 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
   const int n0 = blockIdx.y * kTM;
   const int b0 = blockIdx.x * kTB;
   const int tid = threadIdx.x;
-  const int rows = min(kTM, N - n0);
+  const int rows = min(kTM, M - n0);
 
   // T0 = 0: the k = 0 slab is zeros, no product. The blocks of order 1 write
   // their tile of it while their panels are on the way.
   auto zero_slab = [&] {
     for (int i = 0; i < kTB && b0 + i < B; ++i) {
-      float* o = out + (((long)(b0 + i) * K) * N + n0) * W;
+      float* o = out + (((long)(b0 + i) * K) * M + n0) * W;
       const int len = rows * W;
       if (kVec) {
         for (int e = tid; e < len / 4; e += blockDim.x)
@@ -192,7 +196,7 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
   const int chunks = (W + 3) / 4;
   const int slots = blockDim.x / kChunkThreads;
   const int panels = (N + MP - 1) / MP;
-  const float* Lk = L + ((long)k * N + n0) * N;
+  const float* Lk = L + ((long)k * M + n0) * N;
   const T zero = T(0.f);
 
   for (int wc0 = 0; wc0 < chunks; wc0 += slots) {
@@ -251,8 +255,8 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
       }
     }
     transpose_reduce<kParts, 4>(acc, p, 1);
-    if (n < N && b < B && wc0 + slot < chunks) {
-      float* o = out + (((long)b * K + k) * N + n) * W + wc * 4;
+    if (n < M && b < B && wc0 + slot < chunks) {
+      float* o = out + (((long)b * K + k) * M + n) * W + wc * 4;
       if (kVec) {
         *reinterpret_cast<float4*>(o) =
             make_float4(acc[0][0], acc[1][0], acc[2][0], acc[3][0]);
@@ -266,15 +270,15 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
 }
 
 template <typename T>
-int launch(const float* L, const float* x, float* out, int K, int N, int B, int W, int panel,
-           int row_stride, int batch_stride, int threads, int smem, int vec,
+int launch(const float* L, const float* x, float* out, int K, int M, int N, int B, int W,
+           int panel, int row_stride, int batch_stride, int threads, int smem, int vec,
            cudaStream_t stream) {
   auto kernel = vec ? cheb_graph_conv_kernel<T, true> : cheb_graph_conv_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kTB - 1) / kTB, (N + kTM - 1) / kTM, K > 1 ? K - 1 : 1);
-  kernel<<<grid, threads, smem, stream>>>(L, x, out, K, N, B, W, panel, row_stride,
+  const dim3 grid((B + kTB - 1) / kTB, (M + kTM - 1) / kTM, K > 1 ? K - 1 : 1);
+  kernel<<<grid, threads, smem, stream>>>(L, x, out, K, M, N, B, W, panel, row_stride,
                                           batch_stride);
   return (int)cudaGetLastError();
 }
@@ -285,21 +289,23 @@ int launch(const float* L, const float* x, float* out, int K, int N, int B, int 
 // time (a multiple of 4), `row_stride` elements a row of the panel of L,
 // `batch_stride` elements a batch of the panel of x, `threads` a block, `smem`
 // bytes of dynamic shared memory; `vec` when W is a multiple of 4 and x and
-// out are 16-byte aligned.
+// out are 16-byte aligned. L [K, M, N], x [B, N, W], out [B, K, M, W]: M = N is
+// the whole conv, M < N a row block of it (a node block's rows of mul_L
+// against every node of x).
 extern "C" int cheb_graph_conv_fwd(const float* L, const float* x, float* out,
-                                   int K, int N, int B, int W, int panel,
+                                   int K, int M, int N, int B, int W, int panel,
                                    int row_stride, int batch_stride, int threads,
                                    int smem, int vec, void* stream) {
-  return launch<float>(L, x, out, K, N, B, W, panel, row_stride, batch_stride, threads, smem,
-                       vec, (cudaStream_t)stream);
+  return launch<float>(L, x, out, K, M, N, B, W, panel, row_stride, batch_stride, threads,
+                       smem, vec, (cudaStream_t)stream);
 }
 
 // The bf16 arm: L and x f32, rounded to bf16 as they are staged (the plan's
 // strides in bf16 elements), out f32.
 extern "C" int cheb_graph_conv_fwd_bf16(const float* L, const float* x, float* out,
-                                        int K, int N, int B, int W, int panel,
+                                        int K, int M, int N, int B, int W, int panel,
                                         int row_stride, int batch_stride, int threads,
                                         int smem, int vec, void* stream) {
-  return launch<bf16>(L, x, out, K, N, B, W, panel, row_stride, batch_stride, threads, smem,
-                      vec, (cudaStream_t)stream);
+  return launch<bf16>(L, x, out, K, M, N, B, W, panel, row_stride, batch_stride, threads,
+                      smem, vec, (cudaStream_t)stream);
 }

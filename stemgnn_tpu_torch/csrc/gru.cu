@@ -28,8 +28,8 @@
 //
 // Forward design (`gru_fwd_cluster`): the recurrence is cut two ways.
 // - Batch rows never exchange anything, so groups of R = 4 rows run as
-//   independent thread-block clusters (blockIdx.y), with no barrier between
-//   them.
+//   independent thread-block clusters (group x / C of the blocks x along a
+//   flat grid), with no barrier between them.
 // - Inside a cluster of C blocks, block c owns the hidden units of slice c
 //   (S = ceil(H / C) of them, the last slice short) with all three gate
 //   columns of each, so the gate math needs no exchange. Its slice of A,
@@ -172,7 +172,7 @@ __device__ __forceinline__ void cluster_send_all(unsigned dst, float v, unsigned
         : "memory");
 }
 
-// Grid (C, groups), cluster (C, 1, 1). Shared memory: As [Hp][RS], the
+// Grid (C * groups), cluster (C, 1, 1). Shared memory: As [Hp][RS], the
 // block's slice of A with the gates side by side (r at column 0, z at S, n at
 // 2 * S; Hp is H rounded up to R, the added rows zeros), then h [2][Hp][R].
 // RS is 3 * S rounded up to an odd multiple of 32 / R, so the R x (32 / R)
@@ -214,7 +214,7 @@ gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A
   const bool unit_live = jl < Sc;
   const int js = unit_live ? jl : Sc - 1;  // a warp's spare lanes repeat the last unit
   const int j = j0 + js;
-  const int b = blockIdx.y * R + p;
+  const int b = (int)(blockIdx.x / blocks) * R + p;  // the cluster's batch group
   const bool row_live = b < B;
   const bool live = unit_live && row_live;
   const int H3 = 3 * H;
@@ -283,7 +283,7 @@ gru_fwd_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ A
   cluster.sync();  // no block leaves while another may still send to it
 }
 
-// Grid (C, groups), cluster (C, 1, 1). Dynamic shared memory: two mbarriers
+// Grid (C * groups), cluster (C, 1, 1). Dynamic shared memory: two mbarriers
 // (16 bytes, one for each dcat buffer), then Au [S][LD], row jl the row
 // j0 + jl of A (3H floats, zeros from 3H to LD), then dcat [2][C3][R] (C3 is
 // 3H rounded up to R; rows from 3H on stay zero).
@@ -323,7 +323,7 @@ gru_bwd_cluster_kernel(const float* __restrict__ sv, const float* __restrict__ g
   const bool unit_live = jl < Sc;
   const int js = unit_live ? jl : Sc - 1;  // a warp's spare lanes repeat the last unit
   const int j = j0 + js;
-  const int b = blockIdx.y * R + p;
+  const int b = (int)(blockIdx.x / blocks) * R + p;  // the cluster's batch group
   const bool row_live = b < B;
   const bool live = unit_live && row_live;
   const long plane = (long)B * H;
@@ -716,7 +716,9 @@ gru_bwd_grid_kernel(const float* __restrict__ sv, const float* __restrict__ g,
 constexpr int kRows = 4;           // batch rows of a cluster
 constexpr int kPortableCluster = 8;
 
-// Launches `kernel` on grid (cluster, groups) in clusters of `cluster` blocks.
+// Launches `kernel` on grid (cluster * groups) in clusters of `cluster` blocks
+// along x: block x is rank x % cluster of group x / cluster (a grid's x takes
+// 2^31 - 1 blocks, where its y stops at 65,535 groups of kRows batch rows).
 template <typename... Params, typename... Args>
 int launch_clustered(void (*kernel)(Params...), int cluster, int groups, int threads,
                      int smem, void* stream, Args... args) {
@@ -733,7 +735,7 @@ int launch_clustered(void (*kernel)(Params...), int cluster, int groups, int thr
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, groups);
+  cfg.gridDim = dim3((unsigned)cluster * (unsigned)groups);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;

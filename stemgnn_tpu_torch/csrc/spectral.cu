@@ -330,9 +330,10 @@ __device__ __forceinline__ void idft_fwd_run(const float* re, const float* im, i
   }
 }
 
-// One row tile (blockIdx.y, `tile` rows) of one chain (blockIdx.x: 0 real,
-// 1 imaginary). acts: with kSave, 12 arrays [rows_pad, D1] (a0, s0, ..., a5,
-// s5; GLU 2 * layer + chain), `plane` floats apart. out: with kOut, which
+// One row tile (`tile` rows) of one chain (0 real, 1 imaginary): block x
+// takes chain x % 2 of tile x / 2 (a grid's x takes 2^31 - 1 blocks, its y
+// 65,535: `launch_chains`). acts: with kSave, 12 arrays [rows_pad, D1] (a0,
+// s0, ..., a5, s5; GLU 2 * layer + chain), `plane` floats apart. out: with kOut, which
 // needs the launch in clusters of 2 along x. kMaxThreads: kFMaxThreads,
 // kFMidThreads or kFWideThreads, the least that holds the block; kRagged: for
 // WM % 4 != 0. T: the operand type of x, the 2-D weights, ci and si.
@@ -345,8 +346,8 @@ spectral_chain_kernel(const T* __restrict__ x, GluWeights<T> g,
   extern __shared__ __align__(16) float smem[];
   const int d0 = K * W, d1 = K * WM, S = tile + 4;
   const long rows = (long)B * N;
-  const int chain = blockIdx.x;
-  const long row0 = (long)blockIdx.y * tile;
+  const int chain = blockIdx.x & 1;
+  const long row0 = (long)(blockIdx.x >> 1) * tile;
   float* buf = smem;  // [d1][S]: x, then each GLU's output on this chain
 
   for (int e = threadIdx.x; e < tile * d0; e += blockDim.x) {
@@ -1831,11 +1832,12 @@ __device__ __forceinline__ void idft_fwd_mma(const bf16* re, const bf16* im, int
   }
 }
 
-// One tile of 16 MT rows (blockIdx.y) of one chain (blockIdx.x: 0 real, 1
-// imaginary): x (bf16 [B,K,N,W]) -> the chain's three GLUs -> with kOut, in
-// clusters of 2 along x, the output (f32 [B,K,N,WM]); with kSave a and s of
-// the chain's GLUs to acts (12 planes [rows_pad][D1], `plane` elements apart,
-// of the storage type TA: f32, or bf16 rounded from the same f32 values).
+// One tile of 16 MT rows of one chain (0 real, 1 imaginary; block x takes
+// chain x % 2 of tile x / 2, as the f32 chain kernel): x (bf16 [B,K,N,W]) ->
+// the chain's three GLUs -> with kOut, in clusters of 2 along x, the output
+// (f32 [B,K,N,WM]); with kSave a and s of the chain's GLUs to acts (12 planes
+// [rows_pad][D1], `plane` elements apart, of the storage type TA: f32, or
+// bf16 rounded from the same f32 values).
 // blockDim.x: 32 per NT n8 tiles of a column pass; kp: k rows of a weight
 // panel (a multiple of 16), `stages` of them in the ring.
 template <int MT, int NT, bool kSave, bool kOut, typename TA = float>
@@ -1855,8 +1857,8 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
   bf16* const buf1 = buf0 + TM * S;                  // [TM][S]: GLU 0's, then GLU 2's
   bf16* const panels = buf1 + TM * S;                // [stages][2][kp][pws]: Wl's, Wr's rows
   const long rows = (long)B * N;
-  const int chain = blockIdx.x;
-  const long row0 = (long)blockIdx.y * TM;
+  const int chain = blockIdx.x & 1;
+  const long row0 = (long)(blockIdx.x >> 1) * TM;
   const bf16 zero = __float2bfloat16_rn(0.f);
 
   // x, a row a warp at a time (each order's W values of a row are contiguous
@@ -2154,11 +2156,16 @@ int chain_tile(long rows_pad, int sms, int d1) {
   return best;
 }
 
-// The chain kernel on the padded rows: with kOut in clusters of 2 (the two
-// chains of a row tile) writing out; with kSave writing acts.
-// Launches a chain kernel on grid (2, tiles) with `smem` bytes of dynamic
+// The most blocks a grid may have along y, on every card.
+constexpr long kMaxGridY = 65535;
+
+// Launches a chain kernel over `tiles` row tiles with `smem` bytes of dynamic
 // shared memory, in clusters of 2 (the two chains of a row tile) with kOut.
-template <bool kOut, typename... Params, typename... Args>
+// kFlat (the chain kernels): grid (2 * tiles), block x the chain x % 2 of
+// tile x / 2, which takes any row count (a grid's x stops at 2^31 - 1).
+// Otherwise (the wide kernel, which walks its tiles in steps of gridDim.y):
+// grid (2, min(tiles, kMaxGridY)).
+template <bool kOut, bool kFlat, typename... Params, typename... Args>
 int launch_chains(void (*kernel)(Params...), long tiles, int threads, int smem,
                   cudaStream_t st, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2170,7 +2177,8 @@ int launch_chains(void (*kernel)(Params...), long tiles, int threads, int smem,
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2, (unsigned)tiles);
+  cfg.gridDim = kFlat ? dim3((unsigned)(2 * tiles))
+                      : dim3(2, (unsigned)std::min(tiles, kMaxGridY));
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -2194,10 +2202,10 @@ int chain_wide_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T*
   if (in_ws && ws == nullptr) return (int)cudaErrorInvalidValue;
   const long tiles = in_ws ? wide_slots(rows_pad, kFWideTile, sms)
                            : (rows_pad + kFWideTile - 1) / kFWideTile;
-  return launch_chains<kOut>(kernel, tiles, kFWideThreads,
-                             in_ws ? 0 : 2 * d1 * (kFWideTile + 4) * (int)sizeof(float), st,
-                             x, gw, ci, si, out, acts, kSave ? rows_pad * d1 : 0L, rows_pad,
-                             ws, B, K, N, W, WM);
+  return launch_chains<kOut, false>(kernel, tiles, kFWideThreads,
+                                    in_ws ? 0 : 2 * d1 * (kFWideTile + 4) * (int)sizeof(float),
+                                    st, x, gw, ci, si, out, acts, kSave ? rows_pad * d1 : 0L,
+                                    rows_pad, ws, B, K, N, W, WM);
 }
 
 template <typename T, bool kSave, bool kOut>
@@ -2224,10 +2232,10 @@ int chain_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T* si, 
                     : spectral_chain_kernel<T, kFMidThreads, kSave, kOut, false>)
           : (ragged ? spectral_chain_kernel<T, kFWideThreads, kSave, kOut, true>
                     : spectral_chain_kernel<T, kFWideThreads, kSave, kOut, false>);
-  return launch_chains<kOut>(kernel, (rows_pad + tile - 1) / tile, threads,
-                             (kOut ? 2 : 1) * d1 * (tile + 4) * (int)sizeof(float), st, x, gw,
-                             ci, si, out, acts, kSave ? rows_pad * d1 : 0L, rows_pad, tile, B,
-                             K, N, W, WM);
+  return launch_chains<kOut, true>(kernel, (rows_pad + tile - 1) / tile, threads,
+                                   (kOut ? 2 : 1) * d1 * (tile + 4) * (int)sizeof(float), st, x,
+                                   gw, ci, si, out, acts, kSave ? rows_pad * d1 : 0L, rows_pad,
+                                   tile, B, K, N, W, WM);
 }
 
 // The plan of the bf16 chain on tensor cores (ops/cuda_spectral.py
@@ -2275,9 +2283,9 @@ int chain_mma_launch(const bf16* x, const GluWeights<bf16>& gw, const bf16* ci, 
   if (!shape_ok(K, W, WM) || smem < 0) return (int)cudaErrorInvalidValue;
   const ChainMmaKernel<TA> kernel = chain_mma_kernel_for<kSave, kOut, TA>(p.tm / 16, p.nt);
   const long rows_pad = rows_padded(B, N);
-  return launch_chains<kOut>(kernel, (rows_pad + p.tm - 1) / p.tm, p.threads, smem, st, x, gw,
-                             ci, si, out, acts, kSave ? rows_pad * d1 : 0L, rows_pad, p.kp,
-                             p.stages, B, K, N, W, WM);
+  return launch_chains<kOut, true>(kernel, (rows_pad + p.tm - 1) / p.tm, p.threads, smem, st,
+                                   x, gw, ci, si, out, acts, kSave ? rows_pad * d1 : 0L,
+                                   rows_pad, p.kp, p.stages, B, K, N, W, WM);
 }
 
 // The bf16 chain on its route: tensor cores on plan p up to kMmaMaxD1, past

@@ -41,13 +41,18 @@ With a `mesh` (`parallel/mesh.py`) the forward runs one rank's share of a
 sharded step (stemgnn_tpu/models/stemgnn.py `_sparse_graph_dispatch`, :250):
 x holds this rank's batch rows over every node; with `batch_sharded` the
 batch means (the dense attention's, the stretch path's key and query) are
-summed over 'data'. On the stretch path with 'graph' > 1 or
-`force_sparse_shard` (`node_sharded`) the rank builds its row block of the
-graph (`parallel/sparse_shard.py`) and runs the graph conv, the spectral cell
-and the heads on its node block: the forecast is [B, horizon, N / graph]. The
-dense path's node partition and the ring attention (`use_ring`) are not
-ported (ROADMAP A.4): a dense model on 'graph' > 1 raises. Without a mesh no
-collective and no extra op runs.
+summed over 'data'. Where 'graph' divides N and is > 1 (on the stretch path
+also with `force_sparse_shard`: `node_sharded`) the rank builds its row
+block of the graph and runs the graph conv, the spectral cell and the heads
+on its node block: the forecast is [B, horizon, N / graph]. The stretch path
+builds its rows of the sparse graph (`parallel/sparse_shard.py`); the dense
+path its rows of the attention, on the row-block arm of the attention
+kernel (with `use_ring` too: `parallel/ring.py`), and of the Laplacian and
+the Chebyshev stack (`parallel/dense_shard.py`). Where 'graph' does not
+divide N, every rank runs the whole model on its batch rows, the numbers of
+one device, as the JAX package's single-array build gives them
+(stemgnn_tpu/models/stemgnn.py:266-271); `use_ring` then raises, as the JAX
+package's ring does. Without a mesh no collective and no extra op runs.
 """
 
 from __future__ import annotations
@@ -68,7 +73,9 @@ from stemgnn_tpu_torch.ops.sparse import (
     topk_latent_graph,
 )
 from stemgnn_tpu_torch.ops.torch_impl import gru_over_nodes  # noqa: F401 (plain GRU)
-from stemgnn_tpu_torch.parallel.mesh import all_reduce_sum
+from stemgnn_tpu_torch.parallel import dense_shard
+from stemgnn_tpu_torch.parallel.mesh import batch_mean as _batch_mean
+from stemgnn_tpu_torch.parallel.ring import check_divisible
 from stemgnn_tpu_torch.parallel.sparse_shard import (
     build_sharded_graph,
     sharded_sparse_cheb_conv,
@@ -118,6 +125,21 @@ def dropout_shape(cfg: StemGNNConfig, batch: int) -> tuple:
     return (batch, cfg.units, cfg.units)
 
 
+def mask_rows(cfg: StemGNNConfig, mask, mesh, batch_sharded: bool):
+    """The rank's part of the whole dense dropout masks `mask` [..., B, N, N]
+    (one step's, or a chunk's [n, B, N, N]): its batch rows with
+    `batch_sharded`, and where the forward is `node_sharded` its node
+    block's rows. Without a mesh, and on the stretch path (whose [N, k] mask
+    `parallel/sparse_shard.py` cuts itself), the mask as it is."""
+    if mesh is None or cfg.sparse_k is not None:
+        return mask
+    if batch_sharded:
+        mask = mask[..., mesh.batch_rows(mask.shape[-3]), :, :]
+    if node_sharded(cfg, mesh):
+        mask = mask[..., mesh.node_block(cfg.units), :]
+    return mask
+
+
 def _step_mask(cfg: StemGNNConfig, shape, training: bool, dropout_generator,
                dropout_mask):
     """The step's dropout mask: `dropout_mask` if given, else drawn from
@@ -132,35 +154,17 @@ def _step_mask(cfg: StemGNNConfig, shape, training: bool, dropout_generator,
     return dropout_mask
 
 
-ROADMAP_A4 = ("not ported: the dense path's node partition over 'graph' and the "
-              "ring attention (parallel/ring.py) are ROADMAP A.4")
-
-
 def node_sharded(cfg: StemGNNConfig, mesh) -> bool:
-    """True where the forward runs on this rank's node block: the stretch path
-    on a mesh whose 'graph' axis is > 1, or any mesh with cfg.force_sparse_shard
-    (stemgnn_tpu/models/stemgnn.py `_sparse_graph_dispatch`). A dense model on
-    'graph' > 1 and an N that 'graph' does not divide raise."""
-    if mesh is None:
+    """True where the forward runs on this rank's node block: a mesh whose
+    'graph' axis is > 1 and divides N, or on the stretch path any mesh with
+    cfg.force_sparse_shard whose 'graph' axis divides N
+    (stemgnn_tpu/models/stemgnn.py `_sparse_graph_dispatch`). Where 'graph'
+    does not divide N, False: every rank runs the whole model."""
+    if mesh is None or cfg.units % mesh.graph:
         return False
     if cfg.sparse_k is None:
-        if mesh.graph > 1:
-            raise ValueError(f"a dense model on graph axis {mesh.graph}: {ROADMAP_A4}")
-        return False
-    if mesh.graph == 1 and not cfg.force_sparse_shard:
-        return False
-    if cfg.units % mesh.graph:
-        raise ValueError(f"N={cfg.units} not divisible by graph axis {mesh.graph}")
-    return True
-
-
-def _batch_mean(t, mesh, batch_sharded: bool):
-    """t.mean(dim=0) over the step's whole batch: with `batch_sharded` (over a
-    'data' axis > 1) each rank holds B / data rows, whose sums are added over
-    'data'."""
-    if not batch_sharded:
-        return t.mean(dim=0)
-    return all_reduce_sum(t.sum(dim=0), mesh.data_group) / (t.shape[0] * mesh.data)
+        return mesh.graph > 1
+    return mesh.graph > 1 or cfg.force_sparse_shard
 
 
 def _sparse_graph_dispatch(key, query, cfg: StemGNNConfig, training: bool,
@@ -187,16 +191,21 @@ def _sparse_graph_dispatch(key, query, cfg: StemGNNConfig, training: bool,
 
 def latent_correlation_layer(params, cfg: StemGNNConfig, x, *, training: bool = False,
                              dropout_generator=None, dropout_mask=None, mesh=None,
-                             batch_sharded: bool = False):
+                             batch_sharded: bool = False, use_ring: bool = False):
     """base_model.py:136-149. Returns (mul_L [4,N,N], attention [N,N]), or on
-    the stretch path (graph, graph) with graph a `SparseLatentGraph`.
+    the stretch path (graph, graph) with graph a `SparseLatentGraph`; on the
+    dense path node-sharded, the rank's rows of both (mul_L [4,Nl,N],
+    attention [Nl,N]). `use_ring` (a dense model on 'graph' > 1) takes the
+    same rows and raises where 'graph' does not divide N (`parallel/ring.py`).
 
     In training the attention [B,N,N] (the stretch path: C [N,k]) is dropped
     out (base_model.py:161): `dropout_mask` (bool, True keeps, of
     `dropout_shape`) if given, else a mask drawn from `dropout_generator`.
     Under a `mesh` (`forward`) the mask is the whole step's: [B,N,N] over the
-    global batch, of which the rank takes its rows, or [N,k], of which a
-    node-sharded rank takes its block."""
+    global batch, of which the rank takes its rows (`mask_rows`), or [N,k], of
+    which a node-sharded rank takes its block. A dense mask that already has
+    the shape of the rank's attention is taken as the rank's rows (the
+    engine's chunk keeps only those)."""
     batch_sharded = batch_sharded and mesh is not None and mesh.data > 1
     sharded = node_sharded(cfg, mesh)
     blk = mesh.node_block(cfg.units) if sharded else None
@@ -219,22 +228,34 @@ def latent_correlation_layer(params, cfg: StemGNNConfig, x, *, training: bool = 
         # the reference's input.permute(0,2,1), legal only because hidden == N
         enc = enc.transpose(1, 2)  # [B, N_hid, N_seq]
         if sharded:  # the rank's hidden units, which are its nodes' scores
-            enc = enc[:, blk]
-        key = (enc @ params["weight_key"])[..., 0].contiguous()  # [B, N]
-        query = (enc @ params["weight_query"])[..., 0].contiguous()
+            key = (enc[:, blk] @ params["weight_key"])[..., 0].contiguous()  # [B, Nl]
+            # the stretch path's scores are its nodes' own; the dense
+            # attention's rows need every node's query
+            query = (enc[:, blk] if cfg.sparse_k is not None else enc) @ params["weight_query"]
+            query = query[..., 0].contiguous()
+        else:
+            key = (enc @ params["weight_key"])[..., 0].contiguous()  # [B, N]
+            query = (enc @ params["weight_query"])[..., 0].contiguous()
     if cfg.sparse_k is not None:
         g = _sparse_graph_dispatch(key, query, cfg, training, dropout_generator,
                                    dropout_mask, mesh, batch_sharded)
         return g, g
-    att = ops.attention_kq(key, query, cfg.leaky_rate)  # [B, N, N]
+    if use_ring and mesh is not None and mesh.graph > 1:
+        check_divisible(cfg.units, mesh)  # the ring takes whole node blocks
+    if sharded:
+        att = ops.attention_rows(key, query, cfg.leaky_rate)  # [B, Nl, N]
+    else:
+        att = ops.attention_kq(key, query, cfg.leaky_rate)  # [B, N, N]
     batch = att.shape[0] * (mesh.data if batch_sharded else 1)
-    mask = _step_mask(cfg, (batch,) + att.shape[1:], training, dropout_generator,
+    mask = _step_mask(cfg, (batch, cfg.units, cfg.units), training, dropout_generator,
                       dropout_mask)
     if mask is not None:
-        if batch_sharded:
-            mask = mask[mesh.batch_rows(batch)]
+        if mask.shape != att.shape:  # the whole step's mask: the rank's rows of it
+            mask = mask_rows(cfg, mask, mesh, batch_sharded)
         keep = 1.0 - cfg.dropout_rate
         att = torch.where(mask, att / keep, torch.zeros_like(att))
+    if sharded:
+        return dense_shard.laplacian_rows(mesh, att, batch_sharded)
     if batch_sharded:
         att = _batch_mean(att, mesh, batch_sharded)[None]  # [1, N, N]
     return ops.laplacian_from_attention(att)
@@ -247,15 +268,17 @@ def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int,
     x: [B, N, W]; mul_L [4, N, N], or on the stretch path the
     `SparseLatentGraph`, whose graph conv is the feature-space Chebyshev
     recursion (plain PyTorch, f32 at either compute_dtype); with a `mesh`,
-    the rank's row block of the graph, x [B, Nl, W] its node block and the
-    graph conv the sharded one. Returns (forecast [B,N,W], backcast [B,N,W]
-    or None).
+    the rank's row block of the graph (the dense path's mul_L [4, Nl, N]), x
+    [B, Nl, W] its node block and the graph conv the sharded one. Returns
+    (forecast [B,N,W], backcast [B,N,W] or None).
     """
     if isinstance(mul_L, SparseLatentGraph):
         if mesh is not None:
             gfted = sharded_sparse_cheb_conv(mesh, mul_L, x)  # [B,4,Nl,W]
         else:
             gfted = sparse_cheb_conv(mul_L, x)  # [B,4,N,W], O(N*k)
+    elif mesh is not None:
+        gfted = dense_shard.cheb_conv_rows(mesh, mul_L, x, compute_dtype)  # [B,4,Nl,W]
     else:
         gfted = ops.cheb_graph_conv(mul_L.contiguous(), x.contiguous(),
                                     compute_dtype=compute_dtype)  # [B,4,N,W]
@@ -273,7 +296,7 @@ def block_forward(block, cfg: StemGNNConfig, x, mul_L, stack_i: int,
 
 def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
             dropout_generator=None, dropout_mask=None, compute_dtype: str = "float32",
-            mesh=None, batch_sharded: bool = False):
+            mesh=None, batch_sharded: bool = False, use_ring: bool = False):
     """Model.forward (base_model.py:167-179).
 
     x: [B, W, N] on the device of the params. Returns
@@ -289,12 +312,16 @@ def forward(params, cfg: StemGNNConfig, x, *, training: bool = False,
     is this rank's batch rows ([B / data, W, N] with `batch_sharded`, else
     the whole batch) over every node; the dropout mask is the whole step's;
     where `node_sharded`, the forecast is the rank's node block
-    [B, horizon, N / graph] and the graph its row block.
+    [B, horizon, N / graph] and the graph its row block. `use_ring`: the JAX
+    package's flag; on a dense model over 'graph' > 1 it raises where 'graph'
+    does not divide N and otherwise gives the partition's rows
+    (`parallel/ring.py`).
     """
     params = promoted(params)
     mul_L, attention = latent_correlation_layer(
         params, cfg, x, training=training, dropout_generator=dropout_generator,
-        dropout_mask=dropout_mask, mesh=mesh, batch_sharded=batch_sharded)
+        dropout_mask=dropout_mask, mesh=mesh, batch_sharded=batch_sharded,
+        use_ring=use_ring)
     if node_sharded(cfg, mesh):
         x = x[:, :, mesh.node_block(cfg.units)]
     else:

@@ -12,7 +12,9 @@ kernel's name to its wrapper so a run can reset and read the counts. The bf16
 arms of the graph conv and the spectral kernels (compute_dtype "bfloat16")
 count on functions of their own, under names ending in `_bf16`, and the
 bf16-storage arm of the spectral saving pair under names ending in
-`_bf16acts`. Launches
+`_bf16acts`. The row-block arms of the attention pair and the graph conv
+(the node-sharded dense path's, `parallel/dense_shard.py`) count under names
+ending in `_rows`. Launches
 made by replaying a captured CUDA graph are counted apart (`replayed`).
 
 The stretch path's sparse latent graph and feature-space Chebyshev conv
@@ -25,8 +27,18 @@ from __future__ import annotations
 
 import contextlib
 
-from stemgnn_tpu_torch.ops.cuda_attention import attention_kq, attention_kq_bwd
-from stemgnn_tpu_torch.ops.cuda_graph import cheb_graph_conv, cheb_graph_conv_bf16
+from stemgnn_tpu_torch.ops.cuda_attention import (
+    attention_kq,
+    attention_kq_bwd,
+    attention_rows,
+    attention_rows_bwd,
+)
+from stemgnn_tpu_torch.ops.cuda_graph import (
+    cheb_graph_conv,
+    cheb_graph_conv_bf16,
+    cheb_graph_conv_rows,
+    cheb_graph_conv_rows_bf16,
+)
 from stemgnn_tpu_torch.ops.cuda_gru import (
     gru_bwd_grid,
     gru_fwd_grid,
@@ -68,6 +80,11 @@ KERNELS = {
     # cuda_spectral.SAVE_ACTS_F32 off)
     "spectral_fwd_save_bf16acts": spe_seq_cell_save_bf16acts,
     "spectral_bwd_reread_bf16acts": spe_seq_cell_bwd_reread_bf16acts,
+    # the row-block arms of the node-sharded dense path (parallel/dense_shard.py)
+    "attention_kq_fwd_rows": attention_rows,
+    "attention_kq_bwd_rows": attention_rows_bwd,
+    "cheb_graph_conv_fwd_rows": cheb_graph_conv_rows,
+    "cheb_graph_conv_fwd_rows_bf16": cheb_graph_conv_rows_bf16,
     # the bf16 arms (compute_dtype "bfloat16")
     "cheb_graph_conv_fwd_bf16": cheb_graph_conv_bf16,
     "spectral_fwd_bf16": spe_seq_cell_bf16,

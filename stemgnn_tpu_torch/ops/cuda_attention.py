@@ -17,6 +17,13 @@ than the widest span (1024 columns) takes the forward's wide instantiation
 chunks of 256 columns): no N is refused. The backward is one launch of B
 clusters of up to 8 blocks, its column sums added across the cluster through
 distributed shared memory.
+
+The row-block arms (`attention_rows`, `attention_rows_bwd`) launch the same
+kernels on key [B, M] of M < N rows against the whole query [B, N]: the
+node-sharded dense path's rows of the attention (`parallel/dense_shard.py`,
+with `use_ring` too). The backward's dquery is then that block's share, the
+sum over its M rows. They count their launches apart, and at M = N they take
+the square call's plan and give its bits.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from stemgnn_tpu_torch.ops import _build, cuda_gru, torch_impl
 
 attention_kq_plain = torch_impl.attention_from_kq
 attention_kq_bwd_plain = torch_impl.attention_kq_bwd
+attention_rows_plain = torch_impl.attention_rows
+attention_rows_bwd_plain = torch_impl.attention_rows_bwd
 
 MAX_CLUSTER = 8          # blocks a cluster, the portable limit
 MAX_VALUES = 32          # values of a row a lane holds in registers: vec * runs
@@ -80,17 +89,19 @@ class FwdPlan(NamedTuple):
 
 
 def fwd_plan(b: int, n: int, sms: int, vec_ok: bool = True,
-             rows_per_warp: int | None = None) -> FwdPlan:
+             rows_per_warp: int | None = None, m: int | None = None) -> FwdPlan:
     """The forward's layout for key, query [b, n] on a card of `sms` SMs:
     enough rows a warp that the warps fit one wave of FWD_WARPS_PER_SM an
     SM (`rows_per_warp` sets them instead). `vec_ok` False (an operand not
-    16-byte aligned) takes 4-byte runs."""
+    16-byte aligned) takes 4-byte runs. `m`: the rows of a row block, key
+    [b, m] against query [b, n] (m = n where not given)."""
+    m = n if m is None else m
     vec = 4 if vec_ok and n % 4 == 0 else 1
     runs, wide = _runs(n, vec)
     if rows_per_warp is None:
-        rows_per_warp = _ceil_div(b * n, sms * FWD_WARPS_PER_SM)
-    rows_per_warp = min(n, max(1, rows_per_warp))
-    bands = _ceil_div(n, rows_per_warp)
+        rows_per_warp = _ceil_div(b * m, sms * FWD_WARPS_PER_SM)
+    rows_per_warp = min(m, max(1, rows_per_warp))
+    bands = _ceil_div(m, rows_per_warp)
     return FwdPlan(vec=vec, runs=runs, wide=wide, rows_per_warp=rows_per_warp,
                    bands=bands, blocks=_ceil_div(b * bands, FWD_THREADS // 32))
 
@@ -116,10 +127,10 @@ class BwdPlan(NamedTuple):
     def span(self) -> int:
         return 32 * self.vec * self.runs
 
-    def warp_rows(self, n: int, c: int, w: int) -> list:
-        """The rows warp w of block c takes, in its order."""
+    def warp_rows(self, m: int, c: int, w: int) -> list:
+        """The rows (of m) warp w of block c takes, in its order."""
         r0 = c * self.rows_per_block
-        return list(range(r0 + w, min(n, r0 + self.rows_per_block), self.warps))
+        return list(range(r0 + w, min(m, r0 + self.rows_per_block), self.warps))
 
 
 def bwd_max_threads(values: int, chunked: bool) -> int:
@@ -131,19 +142,23 @@ def bwd_max_threads(values: int, chunked: bool) -> int:
 
 
 def bwd_plan(b: int, n: int, sms: int, smem_per_block: int, vec_ok: bool = True,
-             cluster: int | None = None, warps: int | None = None) -> BwdPlan:
+             cluster: int | None = None, warps: int | None = None,
+             m: int | None = None) -> BwdPlan:
     """The backward's layout for p, g [b, n, n] on a card of `sms` SMs
     whose blocks may have `smem_per_block` bytes of shared memory; `vec_ok`
     as in `fwd_plan`. A cluster of up to MAX_CLUSTER blocks and
     BWD_ROWS_PER_WARP rows a warp (`cluster` and `warps` set them instead).
-    The shared memory does not grow with n past the widest span."""
+    The shared memory does not grow with n past the widest span. `m`: the
+    rows of a row block, p, g [b, m, n], whose rows the cluster's blocks
+    split (m = n where not given); the columns' slices stay of n."""
+    m = n if m is None else m
     vec = 4 if vec_ok and n % 4 == 0 else 1
     runs, chunked = _runs(n, vec)
     if chunked:
         runs = BWD_CHUNK_VALUES // vec
     span = 32 * vec * runs
-    rows_per_block = _ceil_div(n, min(cluster or MAX_CLUSTER, MAX_CLUSTER, n))
-    cluster = _ceil_div(n, rows_per_block)
+    rows_per_block = _ceil_div(m, min(cluster or MAX_CLUSTER, MAX_CLUSTER, m))
+    cluster = _ceil_div(m, rows_per_block)
     if warps is None:
         warps = _ceil_div(rows_per_block, BWD_ROWS_PER_WARP)
         if b * cluster > sms:
@@ -164,8 +179,8 @@ def _aligned(*tensors) -> bool:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "attention_kq_fwd": [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_I] * 6 + [_P],
-    "attention_kq_bwd": [_P] * 6 + [_I] * 2 + [ctypes.c_float] + [_I] * 8 + [_P],
+    "attention_kq_fwd": [_P] * 3 + [_I] * 3 + [ctypes.c_float] + [_I] * 6 + [_P],
+    "attention_kq_bwd": [_P] * 6 + [_I] * 3 + [ctypes.c_float] + [_I] * 8 + [_P],
 }
 
 
@@ -177,79 +192,120 @@ def _fn(name: str):
     return fn
 
 
-def _launch_fwd(key, query, alpha: float):
-    _build.require_cuda("attention_kq", key, query)
-    b, n = key.shape
-    if query.shape != (b, n):
-        raise ValueError(f"attention_kq: query {tuple(query.shape)} != key {(b, n)}")
-    out = torch.empty((b, n, n), dtype=torch.float32, device=key.device)
-    plan = fwd_plan(b, n, cuda_gru.card_limits(key.device)[0], _aligned(query, out))
+def _launch_fwd(key, query, alpha: float, counter=None):
+    """out [B, M, N] of key [B, M] and query [B, N], counted on `counter`
+    (the square wrapper's count where not given)."""
+    counter = counter or attention_kq
+    _build.require_cuda(counter.__name__, key, query)
+    b, m = key.shape
+    n = query.shape[1]
+    if query.shape[0] != b:
+        raise ValueError(f"{counter.__name__}: query {tuple(query.shape)} vs key {(b, m)}")
+    out = torch.empty((b, m, n), dtype=torch.float32, device=key.device)
+    plan = fwd_plan(b, n, cuda_gru.card_limits(key.device)[0], _aligned(query, out), m=m)
     rc = _fn("attention_kq_fwd")(key.data_ptr(), query.data_ptr(), out.data_ptr(),
-                                 b, n, float(alpha), plan.vec, plan.runs, int(plan.wide),
+                                 b, m, n, float(alpha), plan.vec, plan.runs, int(plan.wide),
                                  plan.rows_per_warp, plan.bands, plan.blocks,
                                  _build.stream_ptr(key))
-    _build.check(rc, "attention_kq")
-    attention_kq.launches += 1
+    _build.check(rc, counter.__name__)
+    counter.launches += 1
     return out
 
 
-def _launch_bwd(key, query, p, g, alpha: float):
-    _build.require_cuda("attention_kq_bwd", key, query, p, g)
-    b, n = key.shape
-    if query.shape != (b, n) or p.shape != (b, n, n) or g.shape != (b, n, n):
+def _launch_bwd(key, query, p, g, alpha: float, counter=None):
+    """(dkey [B, M], dquery [B, N]) of p, g [B, M, N], counted on `counter`
+    (the square wrapper's count where not given)."""
+    counter = counter or attention_kq_bwd
+    _build.require_cuda(counter.__name__, key, query, p, g)
+    b, m = key.shape
+    n = query.shape[1]
+    if query.shape[0] != b or p.shape != (b, m, n) or g.shape != (b, m, n):
         raise ValueError(
-            f"attention_kq_bwd: key {tuple(key.shape)}, query {tuple(query.shape)}, "
+            f"{counter.__name__}: key {tuple(key.shape)}, query {tuple(query.shape)}, "
             f"p {tuple(p.shape)}, g {tuple(g.shape)}")
-    plan = bwd_plan(b, n, *cuda_gru.card_limits(key.device), _aligned(query, p, g))
-    dkey = torch.empty((b, n), dtype=torch.float32, device=key.device)
+    plan = bwd_plan(b, n, *cuda_gru.card_limits(key.device), _aligned(query, p, g), m=m)
+    dkey = torch.empty((b, m), dtype=torch.float32, device=key.device)
     dquery = torch.empty((b, n), dtype=torch.float32, device=key.device)
     rc = _fn("attention_kq_bwd")(
         key.data_ptr(), query.data_ptr(), p.data_ptr(), g.data_ptr(), dkey.data_ptr(),
-        dquery.data_ptr(), b, n, float(alpha), plan.vec, plan.runs, int(plan.chunked),
+        dquery.data_ptr(), b, m, n, float(alpha), plan.vec, plan.runs, int(plan.chunked),
         plan.cluster, plan.threads, plan.rows_per_block, plan.slice, plan.smem,
         _build.stream_ptr(key))
-    _build.check(rc, "attention_kq_bwd")
-    attention_kq_bwd.launches += 1
+    _build.check(rc, counter.__name__)
+    counter.launches += 1
     return dkey, dquery
+
+
+def _square(key, query, name: str) -> None:
+    if query.shape != key.shape:
+        raise ValueError(f"{name}: query {tuple(query.shape)} != key "
+                         f"{tuple(key.shape)} (a row block: attention_rows)")
 
 
 def attention_kq_bwd(key, query, p, g, alpha: float):
     """key, query [B, N]; p (the forward's output), g [B, N, N] ->
     (dkey, dquery) [B, N]."""
+    _square(key, query, "attention_kq_bwd")
     if key.device.type == "cpu":
         return attention_kq_bwd_plain(key, query, p, g, alpha)
-    return _launch_bwd(key, query, p, g, alpha)
+    return _launch_bwd(key, query, p, g, alpha, attention_kq_bwd)
 
 
 attention_kq_bwd.launches = 0
 
 
+def attention_rows_bwd(key, query, p, g, alpha: float):
+    """key [B, M] (a row block), query [B, N]; p (the forward's output), g
+    [B, M, N] -> (dkey [B, M], dquery [B, N]): dquery the block's share, the
+    sum over its M rows."""
+    if key.device.type == "cpu":
+        return attention_rows_bwd_plain(key, query, p, g, alpha)
+    return _launch_bwd(key, query, p, g, alpha, attention_rows_bwd)
+
+
+attention_rows_bwd.launches = 0
+
+
 class _AttentionKQ(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, key, query, alpha):
+    def forward(ctx, key, query, alpha, fwd, bwd):
         if key.device.type == "cpu":
             p = attention_kq_plain(key, query, alpha)
         else:
-            p = _launch_fwd(key, query, alpha)
+            p = _launch_fwd(key, query, alpha, fwd)
         ctx.save_for_backward(key, query, p)
-        ctx.alpha = alpha
+        ctx.alpha, ctx.bwd = alpha, bwd
         return p
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         key, query, p = ctx.saved_tensors
-        dkey, dquery = attention_kq_bwd(key, query, p, g.contiguous(), ctx.alpha)
-        return dkey, dquery, None
+        dkey, dquery = ctx.bwd(key, query, p, g.contiguous(), ctx.alpha)
+        return dkey, dquery, None, None, None
+
+
+def _attention(key, query, alpha: float, fwd, bwd):
+    if _build.needs_grad(key, query):
+        return _AttentionKQ.apply(key, query, alpha, fwd, bwd)
+    if key.device.type == "cpu":
+        return attention_kq_plain(key, query, alpha)
+    return _launch_fwd(key, query, alpha, fwd)
 
 
 def attention_kq(key, query, alpha: float):
     """[B, N], [B, N] -> [B, N, N] row-softmaxed LeakyReLU(key_i + query_j)."""
-    if _build.needs_grad(key, query):
-        return _AttentionKQ.apply(key, query, alpha)
-    if key.device.type == "cpu":
-        return attention_kq_plain(key, query, alpha)
-    return _launch_fwd(key, query, alpha)
+    _square(key, query, "attention_kq")
+    return _attention(key, query, alpha, attention_kq, attention_kq_bwd)
 
 
 attention_kq.launches = 0
+
+
+def attention_rows(key, query, alpha: float):
+    """key [B, M] (a row block of the nodes), query [B, N] -> [B, M, N]: the
+    block's rows of `attention_kq`."""
+    return _attention(key, query, alpha, attention_rows, attention_rows_bwd)
+
+
+attention_rows.launches = 0

@@ -217,7 +217,7 @@ class FwdMmaPlan(NamedTuple):
     panel_k: int        # k rows of a weight panel (the products between two barriers)
     stages: int         # weight panels in its shared ring
     smem: int           # bytes of its dynamic shared memory
-    tiles: int          # row tiles: its grid is (2 chains, tiles)
+    tiles: int          # row tiles: its grid is 2 * tiles blocks along x
 
     @property
     def args(self) -> tuple:

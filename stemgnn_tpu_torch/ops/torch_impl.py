@@ -58,6 +58,26 @@ def attention_from_kq(key, query, alpha: float):
     return torch.softmax(scores, dim=-1)
 
 
+def attention_rows(key, query, alpha: float):
+    """Rows of `attention_from_kq` for a block of M nodes: key [B, M] (the
+    block's), query [B, N] (every node's) -> [B, M, N], the rows of the whole
+    [B, N, N] attention at those nodes (each row's softmax runs over all N
+    columns, so a row block needs the whole query)."""
+    return attention_from_kq(key, query, alpha)
+
+
+def attention_adjacency(x_enc, weight_key, weight_query, alpha: float):
+    """Rank-1 additive self-attention over nodes from the GRU encoding
+    (base_model.py:151-162; stemgnn_tpu/ops/jnp_impl.py `attention_adjacency`).
+
+    x_enc: [B, N, N], already permuted as the reference's
+    `input.permute(0, 2, 1)`; weight_key / weight_query: [N, 1]. Returns the
+    [B, N, N] row-softmaxed attention (dropout is the caller's)."""
+    key = (x_enc @ weight_key)[..., 0]  # [B, N]
+    query = (x_enc @ weight_query)[..., 0]
+    return attention_from_kq(key, query, alpha)
+
+
 # compute_dtype (the JAX package's precision policy) -> the dtype of the
 # operands of the graph conv's and the spectral cell's products
 OPERAND_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -82,9 +102,17 @@ def rounding(compute_dtype: str):
 
 def cheb_graph_conv(mul_L, x, compute_dtype: str = "float32"):
     """Chebyshev-Laplacian graph convolution: [K,N,N],[B,N,W] -> [B,K,N,W];
-    at "bfloat16" of mul_L and x rounded to bf16 (pallas_graph.py `_forward`)."""
+    at "bfloat16" of mul_L and x rounded to bf16 (pallas_graph.py `_forward`).
+    A row block of mul_L, [K,M,N], gives that block's rows, [B,K,M,W]."""
     rnd = rounding(compute_dtype)
     return torch.einsum("knm,bmw->bknw", rnd(mul_L), rnd(x))
+
+
+def cheb_graph_conv_rows(mul_L, x, compute_dtype: str = "float32"):
+    """The rows of `cheb_graph_conv` for a block of M nodes: mul_L [K,M,N] (the
+    block's rows of the Chebyshev stack), x [B,N,W] (every node's) ->
+    [B,K,M,W]."""
+    return cheb_graph_conv(mul_L, x, compute_dtype)
 
 
 def order_contract(gconv, weight):
@@ -241,6 +269,14 @@ def attention_kq_bwd(key, query, p, g, alpha: float):
     return dpre.sum(dim=2), dpre.sum(dim=1)
 
 
+def attention_rows_bwd(key, query, p, g, alpha: float):
+    """Backward of `attention_rows` from its saved output p: key [B, M],
+    query [B, N], p, g [B, M, N] -> (dkey [B, M], dquery [B, N]), where dquery
+    is the block's share: the column sums over its M rows alone. The whole
+    attention's dquery is the sum of the blocks' shares."""
+    return attention_kq_bwd(key, query, p, g, alpha)
+
+
 @functools.lru_cache(maxsize=16)
 def dft_matrices(w: int, k: int, wm: int):
     """Block-diagonal forward/inverse DFT matrices (numpy float64, cached).
@@ -382,6 +418,7 @@ def spe_seq_cell_bwd(x, glu_params, g, multi: int, compute_dtype: str = "float32
 
 
 def cheb_graph_conv_bwd(mul_L, x, g):
-    """Backward of `cheb_graph_conv`: (d mul_L [K,N,N], dx [B,N,W])."""
+    """Backward of `cheb_graph_conv`: (d mul_L [K,N,N], dx [B,N,W]); of a row
+    block, (d mul_L [K,M,N], the block's share of dx [B,N,W])."""
     return (torch.einsum("bknw,bmw->knm", g, x),
             torch.einsum("knm,bknw->bmw", mul_L, g))

@@ -3,9 +3,10 @@ differentiable collectives the sharded paths run on it
 (stemgnn_tpu/parallel/mesh.py).
 
 - 'data' is batch data parallelism: each rank takes B / data rows of a batch.
-- 'graph' partitions the node axis N of the stretch path's sparse latent
-  graph: each rank holds one block of N / graph nodes
-  (`parallel/sparse_shard.py`).
+- 'graph' partitions the node axis N: each rank holds one block of N / graph
+  nodes, of the stretch path's sparse latent graph (`parallel/sparse_shard.py`)
+  or of the dense path's attention rows and Chebyshev stack
+  (`parallel/dense_shard.py`).
 
 One process is one device. Rank r sits at (r // graph, r % graph), the JAX
 package's row-major device grid. Its 'graph' group is the ranks of its data
@@ -20,7 +21,10 @@ the backward of every collective here sums those shares over the group: the
 backward of a sum over ranks is a sum over ranks, and the backward of an
 all-gather is the sum of the ranks' cotangents, cut to the rank's own block.
 No rank ever holds the whole cotangent of a replicated value, so nothing is
-counted twice.
+counted twice. The all-to-all of blocks moves each of a rank's blocks to
+one other rank and makes no replica: the cotangent a rank holds at its
+output is the whole of it, and the backward sends it back where the value
+came from.
 """
 
 from __future__ import annotations
@@ -194,6 +198,27 @@ class _AllGather(torch.autograd.Function):
         return g.narrow(ctx.dim, start, ctx.size), None, None
 
 
+class _AllToAllBlocks(torch.autograd.Function):
+    """x [P, ...]: block s goes to the group's rank s, and y [P, ...] holds in
+    block s what rank s sent this rank. Backward: the same exchange of the
+    cotangents, each back to the rank it came from."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x, group):
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(y, x.contiguous(), group=group)
+    return y
+
+
 def all_reduce_sum(x, group):
     """The sum over `group` of each rank's x, differentiable (`_AllReduceSum`)."""
     return _AllReduceSum.apply(x, group)
@@ -204,6 +229,12 @@ def all_gather(x, group, dim: int = 0):
     return _AllGather.apply(x, group, dim)
 
 
+def all_to_all_blocks(x, group):
+    """x [P, ...] over a group of P ranks: block s to rank s; returns in block
+    s what rank s sent. Differentiable (`_AllToAllBlocks`)."""
+    return _AllToAllBlocks.apply(x, group)
+
+
 def all_gather_cat(x, group, dim: int = 0):
     """The ranks' x joined in rank order along `dim`, not differentiable (for
     indices and for forecasts that leave the model)."""
@@ -211,6 +242,15 @@ def all_gather_cat(x, group, dim: int = 0):
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+def batch_mean(t, mesh, batch_sharded: bool):
+    """t.mean(dim=0) over the step's whole batch: with `batch_sharded` (over a
+    'data' axis > 1) each rank holds B / data rows, whose sums are added over
+    'data'."""
+    if not batch_sharded:
+        return t.mean(dim=0)
+    return all_reduce_sum(t.sum(dim=0), mesh.data_group) / (t.shape[0] * mesh.data)
 
 
 def all_reduce_flat(tensors, group) -> None:

@@ -36,8 +36,9 @@ run bitwise. The loss is read back once per epoch, not per step.
 On a ('data', 'graph') mesh (`build_mesh`: --data_axis x --graph_axis ranks,
 `parallel/mesh.py`) every rank runs this same code on the same host data:
 each batch is sharded over 'data' (a batch size 'data' does not divide stays
-replicated, as the JAX engine keeps it), the stretch path's nodes over 'graph'
-(`stemgnn.forward`), the gradients are summed over the mesh before a
+replicated, as the JAX engine keeps it), the nodes over 'graph' where it
+divides N (`stemgnn.forward`; --use_ring takes a dense model's
+partition, `parallel/ring.py`), the gradients are summed over the mesh before a
 replicated optimizer step, and the eval programs gather the forecasts, so
 every rank computes and prints the same metrics. Only the lead rank
 (`parallel.mesh.is_lead`) writes files: norm_stat.json, checkpoints, CSVs and
@@ -104,24 +105,31 @@ def build_mesh(cfg: TrainConfig):
     return make_mesh(cfg.data_axis, cfg.graph_axis)
 
 
+def _use_ring(cfg: TrainConfig, mesh) -> bool:
+    """--use_ring takes effect only on a mesh whose 'graph' axis is > 1
+    (stemgnn_tpu/train/engine.py:476)."""
+    return cfg.use_ring and mesh is not None and cfg.graph_axis > 1
+
+
 def _mesh_loss(forecast, y, mcfg: StemGNNConfig, mesh, batch_sharded: bool):
     """This rank's share of the step's MSE: the mean over its rows (and, where
     the forecast is its node block, its nodes) times the share of the batch's
     entries it holds, so that the shares of the ranks whose gradients are
-    summed add up to the batch's MSE."""
-    share = 1
+    summed add up to the batch's MSE. Where 'graph' > 1 does not divide N,
+    the ranks of a 'graph' group each compute the whole loss of their rows
+    (`stemgnn.node_sharded` False), and each holds 1 / graph of it too."""
+    share = mesh.graph
     if batch_sharded:
         share *= mesh.data
     if stemgnn.node_sharded(mcfg, mesh):
         y = y[:, :, mesh.node_block(mcfg.units)]
-        share *= mesh.graph
     loss = torch.mean((forecast - y) ** 2)
     return loss if share == 1 else loss * (1.0 / share)
 
 
 def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
                     check_finite: bool = False, compute_dtype: str = "float32",
-                    mesh=None, shard_batch: bool = True):
+                    mesh=None, shard_batch: bool = True, use_ring: bool = False):
     """train_step(params, data, hi, dropout_generator=None, dropout_mask=None)
     -> loss (a 0-d tensor on the device, not read back). One forward, backward
     and optimizer step on the batch whose window end indices are `hi`; the
@@ -152,6 +160,7 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
     compute the same), one flat buffer per dtype in leaf order
     (`parallel.mesh.all_reduce_flat`), before the replicated optimizer step;
     the returned loss is summed likewise, the batch's MSE on every rank.
+    `use_ring`: the forward's (`stemgnn.forward`).
     """
     w, h = mcfg.window_size, mcfg.horizon
     leaves = list(leaves)
@@ -175,7 +184,7 @@ def make_train_step(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
         forecast, _ = stemgnn.forward(
             params, mcfg, x, training=True, dropout_generator=dropout_generator,
             dropout_mask=dropout_mask, compute_dtype=compute_dtype, mesh=mesh,
-            batch_sharded=batch_sharded)
+            batch_sharded=batch_sharded, use_ring=use_ring)
         if mesh is None:
             loss = torch.mean((forecast - y) ** 2)  # nn.MSELoss (handler.py:140)
         else:
@@ -233,8 +242,27 @@ def _warm(fn) -> None:
     torch.cuda.current_stream().wait_stream(side)
 
 
+def fill_masks(masks, mcfg: StemGNNConfig, batch: int, mesh, batch_sharded: bool,
+               dropout_generator=None, dropout_masks=None) -> None:
+    """Write the rank's part (`stemgnn.mask_rows`) of each of n steps' dropout
+    masks into masks [n, ...]: of `dropout_masks` (the n steps' whole masks),
+    or of one draw of `stemgnn.dropout_shape` a step from
+    `dropout_generator`, which is what the eager steps draw. Where the
+    forward is node-sharded the rank so holds [n, B, N / graph, N] (over
+    'data' also B / data rows), not every step's whole [B, N, N]."""
+    if dropout_masks is not None:
+        masks.copy_(stemgnn.mask_rows(mcfg, dropout_masks, mesh, batch_sharded))
+        return
+    keep = 1.0 - mcfg.dropout_rate
+    for i in range(masks.shape[0]):
+        whole = stemgnn.draw_dropout_mask(stemgnn.dropout_shape(mcfg, batch), keep,
+                                          dropout_generator)
+        masks[i] = stemgnn.mask_rows(mcfg, whole, mesh, batch_sharded)
+
+
 def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
-                  compute_dtype: str = "float32", mesh=None, shard_batch: bool = True):
+                  compute_dtype: str = "float32", mesh=None, shard_batch: bool = True,
+                  use_ring: bool = False):
     """epoch_fn(params, data, hi_matrix [n, B], dropout_generator=None,
     dropout_masks=None) -> losses [n]: n train steps as one device program
     (stemgnn_tpu/train/engine.py `make_epoch_fn`). The steps' dropout masks are
@@ -249,18 +277,21 @@ def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
     into and out of. The masks are drawn before the replay, one draw of
     `stemgnn.dropout_shape` per step from `dropout_generator`, which is what
     the eager steps draw: a chunk and the same steps taken eagerly give the
-    same bits. The first capture is preceded by `WARM_STEPS` eager steps
+    same bits; the static buffer holds only the rank's part of them
+    (`fill_masks`). The first capture is preceded by `WARM_STEPS` eager steps
     whose effect on the parameters and the optimizer state is undone.
-    `compute_dtype`, `mesh` and `shard_batch` are the steps' (`make_train_step`).
+    `compute_dtype`, `mesh`, `shard_batch` and `use_ring` are the steps'
+    (`make_train_step`).
     On a mesh of cards the capture records each step's collectives (NCCL
     supports capture) with its kernels, by design: a chunk stays one replay a
     dispatch, and the warm-up steps have made the communicators before it.
     """
     leaves = list(leaves)
     train_step = make_train_step(mcfg, opt, leaves, compute_dtype=compute_dtype,
-                                 mesh=mesh, shard_batch=shard_batch)
-    w, keep = mcfg.window_size, 1.0 - mcfg.dropout_rate
+                                 mesh=mesh, shard_batch=shard_batch, use_ring=use_ring)
+    w = mcfg.window_size
     dropout = mcfg.dropout_rate > 0.0
+    batch_sharded = mesh is not None and shard_batch and mesh.data > 1
     graphs = {}
 
     def check_params(params):
@@ -294,8 +325,11 @@ def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
 
     def capture(params, data, n, batch):
         st = _static_inputs(data, n, batch, w)
-        st.masks = (torch.ones((n, *stemgnn.dropout_shape(mcfg, batch)), dtype=torch.bool,
-                               device=data.device) if dropout else None)
+        st.masks = None
+        if dropout:  # the rank's rows of the n steps' masks (`stemgnn.mask_rows`)
+            whole = torch.empty((n, *stemgnn.dropout_shape(mcfg, batch)), device="meta")
+            st.masks = torch.ones(stemgnn.mask_rows(mcfg, whole, mesh, batch_sharded).shape,
+                                  dtype=torch.bool, device=data.device)
         st.losses = torch.zeros(n, dtype=data.dtype, device=data.device)
         if not graphs:
             warm_up(params, st)
@@ -317,12 +351,9 @@ def make_epoch_fn(mcfg: StemGNNConfig, opt: torch.optim.Optimizer, leaves,
         st = graphs[key]
         st.data.copy_(data)
         st.hi.copy_(hi_matrix)
-        if dropout and dropout_masks is not None:
-            st.masks.copy_(dropout_masks)
-        elif dropout:
-            for i in range(n):
-                st.masks[i] = stemgnn.draw_dropout_mask(
-                    stemgnn.dropout_shape(mcfg, batch), keep, dropout_generator)
+        if dropout:
+            fill_masks(st.masks, mcfg, batch, mesh, batch_sharded, dropout_generator,
+                       dropout_masks)
         st.graph.replay()
         ops.add_replayed(st.per_replay)
         return st.losses.clone()
@@ -346,13 +377,13 @@ def epoch_generator_seed(root: int, epoch: int) -> int:
 
 
 def _forecast(params, mcfg: StemGNNConfig, x, compute_dtype: str, mesh,
-              batch_sharded: bool):
+              batch_sharded: bool, use_ring: bool = False):
     """The eval forward; on a mesh the rank's forecast block gathered over
     'graph' (where node-sharded) and 'data' (with `batch_sharded`, x this
     rank's rows), so that every rank holds the whole [B, horizon, N]."""
     forecast, _ = stemgnn.forward(params, mcfg, x, training=False,
                                   compute_dtype=compute_dtype, mesh=mesh,
-                                  batch_sharded=batch_sharded)
+                                  batch_sharded=batch_sharded, use_ring=use_ring)
     if stemgnn.node_sharded(mcfg, mesh):
         forecast = all_gather_cat(forecast, mesh.graph_group, dim=2)
     if batch_sharded:
@@ -361,10 +392,12 @@ def _forecast(params, mcfg: StemGNNConfig, x, compute_dtype: str, mesh,
 
 
 def make_eval_step(mcfg: StemGNNConfig, device="cuda", compute_dtype: str = "float32",
-                   mesh=None):
+                   mesh=None, use_ring: bool = False):
     """eval_step(params, x) -> forecast [B, horizon, N] on `device`, the forward
     at `compute_dtype`. On a `mesh` the batch stays whole on every rank (the
-    step serves batches of any size) and a node-sharded forecast is gathered.
+    step serves batches of any size) and a node-sharded forecast is gathered;
+    `use_ring` validates through the attention path a --use_ring run trains
+    with (stemgnn_tpu/train/engine.py `make_eval_step`).
 
     x may be a numpy array or a tensor; it is moved to `device`."""
     dev = resolve_device(device)
@@ -372,13 +405,14 @@ def make_eval_step(mcfg: StemGNNConfig, device="cuda", compute_dtype: str = "flo
     @torch.inference_mode()
     def eval_step(params, x):
         x = torch.as_tensor(x, device=dev)
-        return _forecast(params, mcfg, x, compute_dtype, mesh, False)
+        return _forecast(params, mcfg, x, compute_dtype, mesh, False, use_ring)
 
     return eval_step
 
 
 def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda",
-                       compute_dtype: str = "float32", mesh=None, shard_batch: bool = True):
+                       compute_dtype: str = "float32", mesh=None, shard_batch: bool = True,
+                       use_ring: bool = False):
     """eval_epoch(params, data, hi_matrix [n, B]) -> (forecasts [n, B, horizon,
     N], targets like them): n eval batches as one device program
     (stemgnn_tpu/train/engine.py `make_eval_epoch_fn`).
@@ -388,8 +422,8 @@ def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda",
     parameter tensors and replayed from then on, with `data` and `hi_matrix`
     copied into static buffers. The forwards run at `compute_dtype`. On a
     `mesh` each batch is sharded over 'data' with `shard_batch` (and 'data' >
-    1) and every forecast gathered (`_forecast`); a capture records the
-    collectives, as `make_epoch_fn`'s does."""
+    1) and every forecast gathered (`_forecast`, with `use_ring`); a capture
+    records the collectives, as `make_epoch_fn`'s does."""
     dev = resolve_device(device)
     w, h = mcfg.window_size, mcfg.horizon
     batch_sharded = mesh is not None and shard_batch and mesh.data > 1
@@ -402,7 +436,8 @@ def make_eval_epoch_fn(mcfg: StemGNNConfig, device="cuda",
             if batch_sharded:
                 x = x[mesh.batch_rows(hi.shape[0])]
             with torch.inference_mode():
-                fs.append(_forecast(params, mcfg, x, compute_dtype, mesh, batch_sharded))
+                fs.append(_forecast(params, mcfg, x, compute_dtype, mesh, batch_sharded,
+                                    use_ring))
             ys.append(y)
         return torch.stack(fs), torch.stack(ys)
 
@@ -609,11 +644,12 @@ def train(
     print(f"Total Trainable Params: {param_count(flat)}")
 
     mesh = build_mesh(cfg)
+    use_ring = _use_ring(cfg, mesh)
     # batches can only be sharded over 'data' if their size divides evenly
     shard_batch = mesh is not None and cfg.batch_size % cfg.data_axis == 0
     if mesh is not None:
         print(f"mesh: data={cfg.data_axis} graph={cfg.graph_axis} "
-              f"devices={mesh.size} batch_sharded={shard_batch} ring=False")
+              f"devices={mesh.size} batch_sharded={shard_batch} ring={use_ring}")
         if not shard_batch:
             print(f"WARNING: batch_size {cfg.batch_size} not divisible by "
                   f"data_axis {cfg.data_axis}; batches stay replicated "
@@ -654,7 +690,7 @@ def train(
                 cfg, mcfg, flat, opt, device, train_set, valid_set,
                 normalize_statistic, node_cnt, result_file, logger, start_epoch,
                 best_validate_mae, validate_score_non_decrease_count, saver,
-                mesh, shard_batch, lead,
+                mesh, shard_batch, lead, use_ring,
             )
     finally:
         if saver is not None:
@@ -678,25 +714,26 @@ def _train_epochs(
     cfg, mcfg, flat, opt, device, train_set, valid_set, normalize_statistic,
     node_cnt, result_file, logger, start_epoch, best_validate_mae,
     validate_score_non_decrease_count, saver=None, mesh=None, shard_batch=False,
-    lead=True,
+    lead=True, use_ring=False,
 ) -> Dict:
     params = unflatten_params(flat)
     # debug_nans: every batch is an eager step that checks its loss and gradients
     train_step = make_train_step(mcfg, opt, flat.values(), check_finite=cfg.debug_nans,
                                  compute_dtype=cfg.compute_dtype, mesh=mesh,
-                                 shard_batch=shard_batch)
+                                 shard_batch=shard_batch, use_ring=use_ring)
     # the short last batch, of any size, stays replicated over 'data'
     train_step_tail = train_step
     if shard_batch:
         train_step_tail = make_train_step(mcfg, opt, flat.values(),
                                           check_finite=cfg.debug_nans,
                                           compute_dtype=cfg.compute_dtype, mesh=mesh,
-                                          shard_batch=False)
-    epoch_fn = make_epoch_fn(mcfg, opt, flat.values(), cfg.compute_dtype, mesh, shard_batch)
+                                          shard_batch=False, use_ring=use_ring)
+    epoch_fn = make_epoch_fn(mcfg, opt, flat.values(), cfg.compute_dtype, mesh, shard_batch,
+                             use_ring)
     chunk_sizes = () if cfg.debug_nans else CHUNK_SIZES
-    eval_step = make_eval_step(mcfg, device, cfg.compute_dtype, mesh=mesh)
+    eval_step = make_eval_step(mcfg, device, cfg.compute_dtype, mesh=mesh, use_ring=use_ring)
     eval_epoch_fn = make_eval_epoch_fn(mcfg, device, cfg.compute_dtype, mesh=mesh,
-                                       shard_batch=shard_batch)
+                                       shard_batch=shard_batch, use_ring=use_ring)
     data_dev = torch.from_numpy(train_set.data).to(device)
     n_windows = len(train_set)
     dropout_root = cfg.dropout_seed if cfg.dropout_seed >= 0 else cfg.seed
@@ -840,9 +877,10 @@ def test(
         test_data, cfg.window_size, cfg.horizon, cfg.norm_method, normalize_statistic
     )
     mesh = build_mesh(cfg)
+    use_ring = _use_ring(cfg, mesh)
     shard_batch = mesh is not None and cfg.batch_size % cfg.data_axis == 0
     performance_metrics = validate(
-        make_eval_step(mcfg, device, cfg.compute_dtype, mesh=mesh),
+        make_eval_step(mcfg, device, cfg.compute_dtype, mesh=mesh, use_ring=use_ring),
         params,
         test_set,
         cfg.norm_method,
@@ -854,7 +892,7 @@ def test(
         result_file=result_test_file if is_lead() else None,
         device=device,
         eval_epoch_fn=make_eval_epoch_fn(mcfg, device, cfg.compute_dtype, mesh=mesh,
-                                         shard_batch=shard_batch),
+                                         shard_batch=shard_batch, use_ring=use_ring),
     )
     mae, mape, rmse = (
         performance_metrics["mae"],

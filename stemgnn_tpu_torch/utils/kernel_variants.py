@@ -944,8 +944,10 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
               f"in the order other, this, this, other: {ms}")
     graph_libs = {"other": _build_other(csrc / "graph.cu", tmp),
                   "this": _build.library("graph")}
-    # an other tree with this tree's graph.cu takes its operands as this one
-    same_graph = (csrc / "graph.cu").read_bytes() == (_build.CSRC / "graph.cu").read_bytes()
+    graph_m = {"other": _takes_m(csrc / "graph.cu", "graph"), "this": True}
+    # whether each tree's bf16 entry takes the f32 operands (this tree's does)
+    # or, as before that, bf16 ones that its wrapper cast
+    f32_in = {"other": _bf16_graph_takes_f32(csrc / "graph.cu"), "this": True}
     rng = np.random.default_rng(8)
     for shape, (k, n, b, w) in {"flagship": (4, 140, 32, 12), "COVID-19": (4, 25, 32, 28)}.items():
         mul_l = torch.from_numpy((rng.standard_normal((k, n, n)) * 0.1).astype(np.float32)).to(dev)
@@ -959,16 +961,20 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
                 fn = getattr(lib, "cheb_graph_conv_fwd" + arm)
                 fn.argtypes, fn.restype = cuda_graph._ARGTYPES, ctypes.c_int
                 out = torch.empty((b, k, n, w), device=dev)
-                cast = arm and tree == "other" and not same_graph
+                cast = bool(arm) and not f32_in[tree]
                 a_in, x_in = ((mul_l.to(torch.bfloat16), x.to(torch.bfloat16)) if cast
                               else (mul_l, x))
 
-                def call(fn=fn, out=out, a_in=a_in, x_in=x_in, cast=cast):
+                dims = (k, n, n, b, w) if graph_m[tree] else (k, n, b, w)
+                if not graph_m[tree]:
+                    fn.argtypes = fn.argtypes[:4] + fn.argtypes[5:]
+
+                def call(fn=fn, out=out, a_in=a_in, x_in=x_in, cast=cast, dims=dims):
                     if cast:  # the other tree's wrapper cast before its launch
                         a_in.copy_(mul_l)
                         x_in.copy_(x)
-                    _build.check(fn(a_in.data_ptr(), x_in.data_ptr(), out.data_ptr(), k, n, b,
-                                    w, plan.panel, plan.row_stride, plan.batch_stride,
+                    _build.check(fn(a_in.data_ptr(), x_in.data_ptr(), out.data_ptr(), *dims,
+                                    plan.panel, plan.row_stride, plan.batch_stride,
                                     plan.threads, plan.smem, int(plan.vec),
                                     _build.stream_ptr(out)), "cheb_graph_conv_fwd" + arm)
                     return out
@@ -976,14 +982,15 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
                 outs[tree], calls[tree] = call().clone(), call
             torch.cuda.synchronize()
             ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
-            if arm and not same_graph:  # the other kernel alone, its operands cast beforehand
+            if arm and not f32_in["other"]:  # the other kernel alone, its operands cast beforehand
                 alone = functools.partial(calls["other"], cast=False)
                 ms.append(round(_cuda_ms(alone), 5))
             same = torch.equal(outs["this"], outs["other"])
             print(f"cheb_graph_conv_fwd{arm} {shape} K={k} N={n} B={b} W={w}: this tree "
                   f"against {other}: output {'bitwise equal' if same else 'DIFFERS'}; ms "
                   f"(with the other's casts) in the order other, this, this, other"
-                  f"{', then the other kernel alone' if arm and not same_graph else ''}: {ms}")
+                  f"{', then the other kernel alone' if arm and not f32_in['other'] else ''}"
+                  f": {ms}")
 
 
 def graph(dev, tmp: Path) -> None:
@@ -1000,7 +1007,7 @@ def graph(dev, tmp: Path) -> None:
         fn.restype = ctypes.c_int
 
         def call():
-            _build.check(fn(mul_l.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, b, w,
+            _build.check(fn(mul_l.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, n, b, w,
                             plan.panel, plan.row_stride, plan.batch_stride, plan.threads,
                             plan.smem, 1, _build.stream_ptr(out)), name)
 
@@ -1079,6 +1086,21 @@ ATTENTION_SHAPES = {"flagship": (32, 140), "N=512": (32, 512)}
 CHUNKED_SHAPES = {"B=1 N=7300": (1, 7300), "B=8 N=2048": (8, 2048)}
 
 
+def _takes_m(src: Path, which: str) -> bool:
+    """Whether the C entries of a checkout's attention.cu or graph.cu take
+    the row-block arms' M (this tree's do; a tree before them does not)."""
+    text = src.read_text()
+    return ("const float* kb = key + (long)b * M;" in text if which == "attention"
+            else "int K, int M, int N" in text)
+
+
+def _bf16_graph_takes_f32(src: Path) -> bool:
+    """Whether a checkout's graph.cu bf16 entry takes f32 operands and rounds
+    them in its loads (this tree's does; an earlier one took bf16 operands
+    that its wrapper cast)."""
+    return 'cheb_graph_conv_fwd_bf16(const float* L, const float* x' in src.read_text()
+
+
 def _attention_inputs(b: int, n: int, dev):
     rng = np.random.default_rng(n)
     key, query = (torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32)).to(dev)
@@ -1087,10 +1109,13 @@ def _attention_inputs(b: int, n: int, dev):
     return key, query, cuda_attention.attention_kq_plain(key, query, 0.2), g
 
 
-def _attention_calls(lib, key, query, p, g, fplan=None, bplan=None, alpha=0.2):
+def _attention_calls(lib, key, query, p, g, fplan=None, bplan=None, alpha=0.2,
+                     takes_m=True):
     """(forward, backward) calls of a built attention.cu's C entries: this
-    tree's on the plans (default: the wrappers'), or, where the library has
-    `attention_kq_bwd_tiles`, the earlier two-launch design with its scratch."""
+    tree's on the plans (default: the wrappers'; without `takes_m`, the
+    entries of a tree before the row-block arms, which take no M), or, where
+    the library has `attention_kq_bwd_tiles`, the earlier two-launch design
+    with its scratch."""
     b, n = key.shape
     out = torch.empty((b, n, n), device=key.device)
     dk, dq = (torch.empty((b, n), device=key.device) for _ in range(2))
@@ -1111,11 +1136,16 @@ def _attention_calls(lib, key, query, p, g, fplan=None, bplan=None, alpha=0.2):
         sms, smem = cuda_gru.card_limits(key.device)
         fp = fplan or cuda_attention.fwd_plan(b, n, sms)
         bp = bplan or cuda_attention.bwd_plan(b, n, sms, smem)
-        fwd.argtypes = cuda_attention._ARGTYPES["attention_kq_fwd"]
-        bwd.argtypes = cuda_attention._ARGTYPES["attention_kq_bwd"]
-        fargs = (*ptrs, out.data_ptr(), b, n, alpha, fp.vec, fp.runs, int(fp.wide),
+        fargtypes = list(cuda_attention._ARGTYPES["attention_kq_fwd"])
+        bargtypes = list(cuda_attention._ARGTYPES["attention_kq_bwd"])
+        dims = (b, n, n)
+        if not takes_m:
+            del fargtypes[4], bargtypes[7]
+            dims = (b, n)
+        fwd.argtypes, bwd.argtypes = fargtypes, bargtypes
+        fargs = (*ptrs, out.data_ptr(), *dims, alpha, fp.vec, fp.runs, int(fp.wide),
                  fp.rows_per_warp, fp.bands, fp.blocks)
-        bargs = (*ptrs, p.data_ptr(), g.data_ptr(), dk.data_ptr(), dq.data_ptr(), b, n,
+        bargs = (*ptrs, p.data_ptr(), g.data_ptr(), dk.data_ptr(), dq.data_ptr(), *dims,
                  alpha, bp.vec, bp.runs, int(bp.chunked), bp.cluster, bp.threads,
                  bp.rows_per_block, bp.slice, bp.smem)
 
@@ -1169,11 +1199,13 @@ def attention_against(dev, tmp: Path, other: Path) -> None:
     other checkout's, each as its own C entries take them) at the flagship
     and at N = 512: outputs compared, times in the order other, this, this,
     other."""
-    libs = {"other": _build_other(other / "stemgnn_tpu_torch" / "csrc" / "attention.cu", tmp),
-            "this": _build.library("attention")}
+    src = other / "stemgnn_tpu_torch" / "csrc" / "attention.cu"
+    libs = {"other": _build_other(src, tmp), "this": _build.library("attention")}
+    takes_m = {"other": _takes_m(src, "attention"), "this": True}
     for shape, (b, n) in ATTENTION_SHAPES.items():
         key, query, p, g = _attention_inputs(b, n, dev)
-        calls = {tree: _attention_calls(lib, key, query, p, g) for tree, lib in libs.items()}
+        calls = {tree: _attention_calls(lib, key, query, p, g, takes_m=takes_m[tree])
+                 for tree, lib in libs.items()}
         outs = {tree: (fwd().clone(), [t.clone() for t in bwd()])
                 for tree, (fwd, bwd) in calls.items()}
         torch.cuda.synchronize()

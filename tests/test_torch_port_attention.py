@@ -20,6 +20,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from stemgnn_tpu.ops import pallas_attention
+from stemgnn_tpu_torch import ops
 from stemgnn_tpu_torch.ops import _build, cuda_attention, cuda_gru, torch_impl
 
 torch.set_num_threads(1)
@@ -138,8 +139,9 @@ def _butterfly(x, op):
 def emulate_fwd(key, query, alpha, plan):
     """The forward's sums: a lane's runs, then the butterfly; the max over
     the row, exp once an element, the row scaled by the reciprocal of its
-    sum. A wide plan sweeps spans of its width (the same order)."""
-    b, n = key.shape
+    sum. A wide plan sweeps spans of its width (the same order). key [B, M]
+    may be a row block of query [B, N]'s nodes."""
+    n = query.shape[1]
     span = 32 * plan.vec * plan.runs
     width = -(-n // span) * span
     q = _pad(query, width)
@@ -159,8 +161,10 @@ def emulate_bwd(key, query, p, g, alpha, plan):
     column's sum over the blocks of the cluster in rank order. Chunked route:
     a warp's rows in groups of 32, a dot pass over each group's rows, then
     chunk by chunk the same sums, a row's dkey added chunk after chunk and a
-    column's cluster sums added to dquery group after group."""
-    b, n = key.shape
+    column's cluster sums added to dquery group after group. key [B, M] may
+    be a row block of query [B, N]'s nodes: its blocks split the M rows."""
+    b, m = key.shape
+    n = query.shape[1]
     span = plan.span
     chunks = -(-n // span) if plan.chunked else 1
     width = chunks * span
@@ -170,9 +174,9 @@ def emulate_bwd(key, query, p, g, alpha, plan):
     dl = gp - pp * dot[..., None]
     pre = key[:, :, None] + q[:, None, :]
     dpre = torch.where(pre >= 0, dl, alpha * dl)
-    dkey = torch.zeros(b, n)
+    dkey = torch.zeros(b, m)
     dquery = torch.zeros(b, width)
-    warp_rows = [[plan.warp_rows(n, c, w) for w in range(plan.warps)]
+    warp_rows = [[plan.warp_rows(m, c, w) for w in range(plan.warps)]
                  for c in range(plan.cluster)]
     per_warp = max(len(r) for blk in warp_rows for r in blk)
     groups = -(-per_warp // 32) if plan.chunked else 1
@@ -274,6 +278,17 @@ def test_chunked_emulation_walks_several_chunks_and_groups():
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def _launch_counts_restored():
+    """The wrappers count the launches the fake C entries below stand for:
+    each test leaves the counts as it found them, for the tests after it in
+    this process."""
+    before = ops.launches()
+    yield
+    for name, n in before.items():
+        ops.KERNELS[name].launches = n
+
+
 class _Fake:
     """A C function that records its arguments and returns 0."""
 
@@ -306,13 +321,14 @@ def test_wrappers_hand_the_kernels_their_plans(monkeypatch, n):
     (bargs,) = fakes["attention_kq_bwd"].calls
     assert len(fargs) == len(cuda_attention._ARGTYPES["attention_kq_fwd"])
     assert len(bargs) == len(cuda_attention._ARGTYPES["attention_kq_bwd"])
-    assert fargs[:5] == (key.data_ptr(), query.data_ptr(), out.data_ptr(), b, n)
-    assert fargs[6:12] == (fp.vec, fp.runs, int(fp.wide), fp.rows_per_warp, fp.bands,
+    # (B, M, N): the square call's rows are its columns
+    assert fargs[:6] == (key.data_ptr(), query.data_ptr(), out.data_ptr(), b, n, n)
+    assert fargs[7:13] == (fp.vec, fp.runs, int(fp.wide), fp.rows_per_warp, fp.bands,
                            fp.blocks)
     assert bargs[:4] == (key.data_ptr(), query.data_ptr(), out.data_ptr(), g.data_ptr())
-    assert bargs[6:8] == (b, n)
-    assert bargs[9:17] == (bp.vec, bp.runs, int(bp.chunked), bp.cluster, bp.threads,
-                           bp.rows_per_block, bp.slice, bp.smem)
+    assert bargs[6:9] == (b, n, n)
+    assert bargs[10:18] == (bp.vec, bp.runs, int(bp.chunked), bp.cluster, bp.threads,
+                            bp.rows_per_block, bp.slice, bp.smem)
 
 
 @pytest.fixture

@@ -150,7 +150,7 @@ def test_port_imports_nothing_of_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'stemgnn_tpu')]\n"
         "parallel = [f'stemgnn_tpu_torch.parallel.{m}' for m in\n"
-        "            ('mesh', 'sparse_shard', 'train', 'dryrun')]\n"
+        "            ('mesh', 'sparse_shard', 'dense_shard', 'ring', 'train', 'dryrun')]\n"
         "assert all(m in sys.modules for m in parallel), parallel\n"
         "print(len([m for m in sys.modules if m.startswith('stemgnn_tpu_torch')]))\n"
         "assert not bad, bad\n"

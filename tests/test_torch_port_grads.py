@@ -249,7 +249,8 @@ def test_backward_wrappers_are_counted_kernels_and_cpu_launches_none():
         "spectral_fwd",
         "gru_bwd", "gru_bwd_grid", "attention_kq_bwd", "spectral_bwd", "spectral_fwd_save",
         "spectral_bwd_reread", "spectral_fwd_save_bf16acts", "spectral_bwd_reread_bf16acts",
-        "cheb_graph_conv_fwd_bf16", "spectral_fwd_bf16",
+        "attention_kq_fwd_rows", "attention_kq_bwd_rows", "cheb_graph_conv_fwd_rows",
+        "cheb_graph_conv_fwd_rows_bf16", "cheb_graph_conv_fwd_bf16", "spectral_fwd_bf16",
         "spectral_fwd_save_bf16", "spectral_bwd_bf16", "spectral_bwd_reread_bf16"]
     ops.reset_launches()
     for name in FUNCTIONS:

@@ -425,17 +425,32 @@ def test_force_sparse_shard_on_a_world_of_one_routes_through_the_sharded_path(gr
     np.testing.assert_array_equal(res["got"], res["ref"])
 
 
-def test_use_ring_and_a_dense_graph_axis_raise_naming_roadmap_a4():
+def test_use_ring_and_a_dense_graph_axis_are_accepted_and_an_indivisible_ring_raises():
+    """--use_ring and a dense model on graph_axis > 1 parse, build and shard
+    the dense model's nodes (the refusals that named ROADMAP A.4 are gone);
+    --use_ring takes effect only on a mesh whose 'graph' axis is > 1, as the
+    JAX engine's (stemgnn_tpu/train/engine.py:476); where 'graph' does not
+    divide N every rank runs the whole model, and the ring raises, as the
+    JAX package's (stemgnn_tpu/parallel/ring.py:95-97)."""
+    from stemgnn_tpu_torch.parallel.ring import ring_attention
+    from stemgnn_tpu_torch.train import engine as port_engine
+
     parser = argparse.ArgumentParser()
     add_cli_args(parser)
-    with pytest.raises(ValueError, match="ROADMAP A.4"):
-        config_from_args(parser.parse_args(["--use_ring", "True"]))
-    with pytest.raises(ValueError, match="ROADMAP A.4"):
-        TrainConfig(graph_axis=2)
+    cfg = config_from_args(parser.parse_args(["--use_ring", "True", "--graph_axis", "4"]))
+    assert cfg.use_ring and cfg.graph_axis == 4 and cfg.sparse_k == 0
+    assert TrainConfig(graph_axis=2).model_config(12).sparse_k is None
     mesh = port_mesh.Mesh(data=1, graph=2, rank=0, data_group=None, graph_group=None,
                           world_group=None)
-    with pytest.raises(ValueError, match="ROADMAP A.4"):
-        port_stemgnn.node_sharded(StemGNNConfig(units=12), mesh)
+    assert port_engine._use_ring(cfg, mesh)
+    assert not port_engine._use_ring(cfg, None)
+    assert not port_engine._use_ring(TrainConfig(use_ring=True, data_axis=2), mesh)
+    assert port_stemgnn.node_sharded(StemGNNConfig(units=12), mesh)
+    assert not port_stemgnn.node_sharded(StemGNNConfig(units=13), mesh)
+    assert not port_stemgnn.node_sharded(StemGNNConfig(units=13, sparse_k=4), mesh)
+    with pytest.raises(ValueError, match="N=13 not divisible by graph axis 2"):
+        ring_attention(mesh, torch.zeros((1, 13, 13)), torch.zeros((13, 1)),
+                       torch.zeros((13, 1)), ALPHA)
     cfg = config_from_args(parser.parse_args(
         ["--data_axis", "2", "--graph_axis", "4", "--sparse_k", "8", "--force_sparse_shard",
          "True"]))
@@ -443,8 +458,8 @@ def test_use_ring_and_a_dense_graph_axis_raise_naming_roadmap_a4():
     assert cfg.model_config(16).force_sparse_shard
     from stemgnn_tpu.config import TrainConfig as JaxTrainConfig
 
-    for name in ("data_axis", "graph_axis"):
-        assert getattr(TrainConfig(), name) == getattr(JaxTrainConfig(), name) == 1
+    for name in ("data_axis", "graph_axis", "use_ring"):
+        assert getattr(TrainConfig(), name) == getattr(JaxTrainConfig(), name)
     assert StemGNNConfig(units=4).force_sparse_shard is JaxConfig(units=4).force_sparse_shard
 
 

@@ -675,6 +675,7 @@ def test_train_two_epochs_matches_jax_engine_on_the_stretch_path(tmp_path):
     """engine.train on the stretch path (sparse_k 3, gru_hidden 4, segments
     of 4 of 6 nodes), same init draw and batch order, no dropout: the epoch
     losses and validation metrics agree with the JAX engine's (jnp path)."""
+    ops.reset_launches()  # the counts of other tests in this process
     data = jax_data.synthesize("tiny", T=220, N=6, seed=0)
     train, valid, test = jax_data.split_by_ratio(data, 7, 2, 1)
     common = dict(dataset="tiny", window_size=8, horizon=3, epoch=2, batch_size=16,

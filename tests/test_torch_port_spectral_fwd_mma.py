@@ -27,6 +27,7 @@ import torch
 
 from stemgnn_tpu_torch.config import StemGNNConfig
 from stemgnn_tpu_torch.models import init_params
+from stemgnn_tpu_torch import ops
 from stemgnn_tpu_torch.ops import _build, cuda_spectral, torch_impl
 
 torch.set_num_threads(1)
@@ -178,6 +179,17 @@ def test_fwd_mma_blocking_meets_the_bf16_rule(b, n, w, multi):
             assert not bad, (bad, rel, noise, closer)
     # and the emulation is no copy of the plain version: another sum order
     assert any(not torch.equal(a, c) for a, c in zip(got, want))
+
+
+@pytest.fixture(autouse=True)
+def _launch_counts_restored():
+    """The wrappers count the launches the fake C entries below stand for:
+    each test leaves the counts as it found them, for the tests after it in
+    this process."""
+    before = ops.launches()
+    yield
+    for name, n in before.items():
+        ops.KERNELS[name].launches = n
 
 
 class _Fake:

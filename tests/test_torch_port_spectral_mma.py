@@ -26,6 +26,7 @@ import torch
 
 from stemgnn_tpu_torch.config import StemGNNConfig
 from stemgnn_tpu_torch.models import init_params
+from stemgnn_tpu_torch import ops
 from stemgnn_tpu_torch.ops import _build, cuda_graph, cuda_spectral, torch_impl
 
 torch.set_num_threads(1)
@@ -206,6 +207,17 @@ def test_mma_blocking_meets_the_bf16_rule(b, n, w, multi):
     assert any(not torch.equal(a, c) for a, c in zip(flat[0], flat[1]))
 
 
+@pytest.fixture(autouse=True)
+def _launch_counts_restored():
+    """The wrappers count the launches the fake C entries below stand for:
+    each test leaves the counts as it found them, for the tests after it in
+    this process."""
+    before = ops.launches()
+    yield
+    for name, n in before.items():
+        ops.KERNELS[name].launches = n
+
+
 class _Fake:
     """A C function that records its arguments and returns 0."""
 
@@ -230,8 +242,9 @@ def test_bf16_graph_conv_hands_the_kernel_the_f32_operands(monkeypatch):
         (args,) = fakes[name].calls
         plan = cuda_graph.launch_plan(4, 140, 32, 12, esize)
         assert args[:2] == (mul_l.data_ptr(), x.data_ptr())
-        assert args[3:12] == (4, 140, 32, 12, plan.panel, plan.row_stride, plan.batch_stride,
-                              plan.threads, plan.smem)
+        # (K, M, N, B, W): the square call's rows are its columns
+        assert args[3:13] == (4, 140, 140, 32, 12, plan.panel, plan.row_stride,
+                              plan.batch_stride, plan.threads, plan.smem)
 
 
 @pytest.mark.parametrize("reread", [True, False], ids=["reread", "recompute"])

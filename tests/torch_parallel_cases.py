@@ -77,11 +77,15 @@ def sharded_cheb(mesh_shape, key, query, x, gout, alpha, k):
 
 
 def train_step(mesh_shape, cfg_kw, flat_params, data, hi, mask, shard_batch=True,
-               lr=1e-3):
+               lr=1e-3, use_ring=False, rank_mask=False):
     """One RMSProp step of `engine.make_train_step` on the mesh (None: one
-    process, no process group): the loss, every gradient (after the sum over
-    the mesh) and every parameter after the step, flat by name."""
+    process, no process group; `use_ring`: the JAX package's ring flag;
+    `rank_mask`: the step handed only the rank's part of the whole mask,
+    `stemgnn.mask_rows`, as the engine's chunk hands it): the loss, every
+    gradient (after the sum over the mesh) and every parameter after the
+    step, flat by name."""
     from stemgnn_tpu_torch.config import StemGNNConfig
+    from stemgnn_tpu_torch.models import stemgnn
     from stemgnn_tpu_torch.models.convert import unflatten_params
     from stemgnn_tpu_torch.parallel.train import make_sharded_train_step
     from stemgnn_tpu_torch.train import engine
@@ -93,16 +97,21 @@ def train_step(mesh_shape, cfg_kw, flat_params, data, hi, mask, shard_batch=True
     if mesh_shape is None:
         step = engine.make_train_step(cfg, opt, flat.values())
     else:
-        step = make_sharded_train_step(cfg, opt, flat.values(), _mesh(mesh_shape),
-                                       shard_batch=shard_batch)
-    loss = step(unflatten_params(flat), _t(data), _t(hi), dropout_mask=_t(mask))
+        mesh = _mesh(mesh_shape)
+        step = make_sharded_train_step(cfg, opt, flat.values(), mesh,
+                                       shard_batch=shard_batch, use_ring=use_ring)
+    mask = _t(mask)
+    if rank_mask:
+        mask = stemgnn.mask_rows(cfg, mask, mesh, shard_batch and mesh.data > 1).clone()
+    loss = step(unflatten_params(flat), _t(data), _t(hi), dropout_mask=mask)
     return {"loss": float(loss), "grads": {k: _np(v.grad) for k, v in flat.items()},
             "params": {k: _np(v) for k, v in flat.items()}}
 
 
-def eval_forecasts(mesh_shape, cfg_kw, flat_params, data, hi_matrix):
+def eval_forecasts(mesh_shape, cfg_kw, flat_params, data, hi_matrix, use_ring=False):
     """The engine's eval step on the first batch of `hi_matrix` and its eval
-    program on all of them (each batch sharded over 'data')."""
+    program on all of them (each batch sharded over 'data'); `use_ring`: the
+    JAX package's ring flag."""
     from stemgnn_tpu_torch.config import StemGNNConfig
     from stemgnn_tpu_torch.models.convert import unflatten_params
     from stemgnn_tpu_torch.train import engine
@@ -112,8 +121,9 @@ def eval_forecasts(mesh_shape, cfg_kw, flat_params, data, hi_matrix):
     params = unflatten_params({k: _t(v) for k, v in flat_params.items()})
     data, hi_matrix = _t(data), _t(hi_matrix)
     x, _ = engine.gather_windows(data, hi_matrix[0], cfg.window_size, cfg.horizon)
-    step = engine.make_eval_step(cfg, "cpu", mesh=mesh)(params, x)
-    fs, _ = engine.make_eval_epoch_fn(cfg, "cpu", mesh=mesh)(params, data, hi_matrix)
+    step = engine.make_eval_step(cfg, "cpu", mesh=mesh, use_ring=use_ring)(params, x)
+    fs, _ = engine.make_eval_epoch_fn(cfg, "cpu", mesh=mesh, use_ring=use_ring)(
+        params, data, hi_matrix)
     return {"step": _np(step), "epoch": _np(fs)}
 
 
@@ -167,3 +177,61 @@ def engine_train(tcfg_kw, train, valid, out_dir):
                    for d, _, fs in os.walk(result) for f in fs)
     return {"mae": metrics["mae"], "rmse": metrics["rmse"], "mape": metrics["mape"],
             "files": files}
+
+
+def ring_rows(mesh_shape, enc, wk, wq, gout, alpha):
+    """This rank's rows of `parallel.ring.ring_attention` on the [B, N, N]
+    encoding, and the gradients of sum(rows * gout's rows) with respect to
+    the encoding and both weights (each rank's share, summed over the group
+    as the engine sums gradients)."""
+    import torch.distributed as dist
+
+    from stemgnn_tpu_torch.parallel.ring import ring_attention
+
+    mesh = _mesh(mesh_shape)
+    leaves = [_t(a).requires_grad_(True) for a in (enc, wk, wq)]
+    rows = ring_attention(mesh, *leaves, alpha)
+    blk = mesh.node_block(len(wk))
+    torch.sum(rows * _t(gout)[:, blk]).backward()
+    grads = [leaf.grad.contiguous() for leaf in leaves]
+    for g in grads:
+        dist.all_reduce(g, group=mesh.graph_group)
+    return {"rows": _np(rows), "enc": _np(grads[0]), "wk": _np(grads[1]),
+            "wq": _np(grads[2])}
+
+
+def ring_refusal(mesh_shape, cfg_kw, flat_params, data, hi, mask):
+    """The message of a train step with use_ring where 'graph' does not
+    divide N (the ring needs whole node blocks), or None."""
+    try:
+        train_step(mesh_shape, cfg_kw, flat_params, data, hi, mask, use_ring=True)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def sparse_topk(mesh_shape, cfg_kw, flat_params, data, hi, mask):
+    """One training forward of the stretch model (f32, the step's [N, k] mask)
+    on the mesh (None: one process): the top-k index set of its graph and
+    its loss, and the gradients of weight_query, gru/w_ih and gru/w_hh after
+    the engine's sum over the mesh."""
+    from stemgnn_tpu_torch.config import StemGNNConfig
+    from stemgnn_tpu_torch.models import stemgnn
+    from stemgnn_tpu_torch.models.convert import unflatten_params
+    from stemgnn_tpu_torch.parallel.mesh import all_reduce_flat
+    from stemgnn_tpu_torch.train import engine
+
+    cfg = StemGNNConfig(**cfg_kw)
+    mesh = None if mesh_shape is None else _mesh(mesh_shape)
+    flat = {k: _t(v).requires_grad_(True) for k, v in flat_params.items()}
+    x, y = engine.gather_windows(_t(data), _t(hi), cfg.window_size, cfg.horizon)
+    forecast, g = stemgnn.forward(unflatten_params(flat), cfg, x, training=True,
+                                  dropout_mask=_t(mask), mesh=mesh)
+    loss = (torch.mean((forecast - y) ** 2) if mesh is None
+            else engine._mesh_loss(forecast, y, cfg, mesh, False))
+    loss.backward()
+    names = ("weight_query", "gru/w_ih", "gru/w_hh")
+    grads = [flat[k].grad for k in names]
+    if mesh is not None:
+        all_reduce_flat(grads, mesh.graph_group)
+    return {"idx": sorted(g.idx.tolist()), "grads": {k: _np(v) for k, v in zip(names, grads)}}
