@@ -111,7 +111,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
      through engine.inference_batched on seeded series, counters set to 0
      just before and read just after, the forecasts and the first batch's
      graph (the top-k index set; c, degree, inv_sqrt) against the CPU plain
-     path.
+     path. Then the JAX package's checkpoints (tests/torch_port_fixtures,
+     written by its make_fixtures.py on a host with JAX: the JAX engine's
+     output after one epoch on a seeded series of 16 nodes, window 12,
+     multi 2, RMSProp at f32 and Adam at param_dtype bfloat16): engine.test on
+     a copy of each, counters set to 0 just before and read just after, its
+     test forecasts against the CPU plain path on the same parameters and
+     against the JAX package's own forecasts stored beside it, each within
+     1e-3 (normalized values); and the host time of checkpoint.load on a file
+     of the JAX package's at the flagship's width (flax's bytes, written here
+     by tests/torch_port_fixtures/flax_bytes.py), every leaf read back as
+     written.
   5. train path: engine.train on the card, one epoch of ECG_data with its
      validate pass (batch 32, RMSProp, dropout 0.5), counters set to 0 just
      before and read just after and held against the expected launches per
@@ -131,7 +141,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
      CPU plain path, twice bitwise, and the 100k step's peak allocated memory
      (at most 10 GB); one epoch of engine.train on ECG_data with --sparse_k
      16 --gru_hidden 32 --gru_segment 35, counters held to the expected
-     launches.
+     launches. --resume from the JAX package's RMSProp checkpoint of phase 4:
+     the parameters and moments the engine starts from bitwise the
+     checkpoint's, then one more epoch on the card with its counters. One
+     ECG epoch at --init_stream threefry, counters held to the expected
+     launches, its initial parameters held leaf by leaf to the sha256 of the
+     JAX package's draw (tests/torch_port_fixtures/threefry_ecg_seed0.json),
+     and the draw's host time.
   6. chunk path: one 16-step chunk through engine.make_epoch_fn (a captured
      CUDA graph) against the same steps through the eager train step: losses,
      parameters and optimizer state bitwise equal; the same at param_dtype
@@ -176,7 +192,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
      and synthetic-1k's dense step on a (1, 2) mesh without and with the
      ring (held to one card's step by phase 5's rule, the row-block arms'
      launches counted, each rank's ms a step beside one card's); with one
-     card the line {"distributed_2card": "not run", "cards": 1}.
+     card the line {"distributed_2card": "not run", "cards": 1}. (e) Where
+     torch.cuda.device_count() >= 2: the launch across hosts, two torchrun
+     groups on this host (--nnodes 2 --nproc_per_node 1, a card each by
+     CUDA_VISIBLE_DEVICES, a working directory each with the dataset
+     missing, Python's hash salted otherwise on each): the flagship's
+     data-parallel step on (2, 1), held to (d)'s by phase 5's rule, both
+     hosts' synthesized datasets equal, and one epoch of the CLI whose files
+     only rank 0's directory holds; with one card the line
+     {"multihost_2card": "not run", "cards": 1}.
  10. a `kernels` JSON line (launches summed over the paths: calls of the
      wrappers plus what replays of captured graphs launched; every kernel at
      least once, but for the row-block arms on a host of one card: they run
@@ -2378,6 +2402,324 @@ def two_card_rank(flagship, stretch):
     return out
 
 
+# the JAX package's bytes (tests/torch_port_fixtures/make_fixtures.py wrote
+# them on a host with JAX): two output directories it trained on a seeded
+# series, and the sha256 of its threefry init's leaves at the ECG flagship
+FIXTURES = os.path.join(HERE, "tests", "torch_port_fixtures")
+
+
+def fixture_series():
+    """(fixtures.json, the train, valid and test splits of its seeded series)."""
+    from stemgnn_tpu_torch.data import split_by_ratio, synthesize
+
+    with open(os.path.join(FIXTURES, "fixtures.json")) as f:
+        fx = json.load(f)
+    s = fx["series"]
+    return fx, split_by_ratio(synthesize(s["name"], T=s["T"], N=s["N"], seed=s["seed"]),
+                              7, 2, 1)
+
+
+def fixture_config(fx, case: str, **kw):
+    from stemgnn_tpu_torch.config import TrainConfig
+
+    return TrainConfig(dataset=fx["series"]["name"], device="cuda",
+                       **dict(fx["config"], **fx["cases"][case], **kw))
+
+
+def epoch_launches(kernels, n_train: int, n_valid: int, batch: int, step_kernels: dict,
+                   fwd_per_batch: dict):
+    """(wrapper calls, launches by graph replays) expected of one epoch of
+    engine.train on n_train windows with a validate pass on n_valid, as phase
+    5 counts them: full batches in captured chunks (greedy over CHUNK_SIZES,
+    after WARM_STEPS eager steps before the first capture), the rest eager;
+    the validate pass as engine.test's."""
+    from stemgnn_tpu_torch.train import engine
+
+    steps, full = -(-n_train // batch), n_train // batch
+    chunked, left = 0, full
+    for size in engine.CHUNK_SIZES:
+        chunked += left // size * size
+        left %= size
+    eager = (engine.WARM_STEPS if chunked else 0) + steps - chunked
+    want, want_replayed = eval_launches(kernels, n_valid, batch, fwd_per_batch)
+    for name, n in step_kernels.items():
+        want[name] += n * eager
+        want_replayed[name] += n * chunked
+    return want, want_replayed
+
+
+def eval_launches(kernels, n: int, batch: int, fwd_per_batch: dict):
+    """(wrapper calls, launches by graph replays) expected of engine.test or a
+    validate pass over n windows, as phase 4 counts them: the full batches one
+    replay of a captured graph after one warm batch, the short last batch an
+    eager call."""
+    batches, full = -(-n // batch), n // batch
+    want = dict.fromkeys(kernels, 0)
+    want_replayed = dict(want)
+    for name, k in fwd_per_batch.items():
+        want[name] = k * (1 + batches - full)
+        want_replayed[name] = k * full
+    return want, want_replayed
+
+
+class EpochSpy:
+    """Within the block, engine._train_epochs records the parameters and the
+    optimizer state engine.train hands it (what a run starts its first epoch
+    from) and its start epoch, then runs."""
+
+    def __init__(self, engine):
+        self.engine, self.original = engine, engine._train_epochs
+
+    def __enter__(self):
+        def spy(cfg, mcfg, flat, opt, *rest):
+            self.flat = {k: v.detach().cpu().clone() for k, v in flat.items()}
+            self.state = {i: {k: v.detach().cpu().clone() for k, v in opt.state[p].items()}
+                          for i, p in enumerate(flat.values()) if p in opt.state}
+            self.start = rest[7]
+            return self.original(cfg, mcfg, flat, opt, *rest)
+
+        self.engine._train_epochs = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._train_epochs = self.original
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape with the same bytes."""
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().cpu().reshape(-1).view(torch.uint8),
+        b.detach().cpu().reshape(-1).view(torch.uint8))
+
+
+def jax_serving_phase(dev, results, out_root, fwd_per_batch):
+    """Phase 4's serving from the JAX package's checkpoints: engine.test on a
+    copy of each fixture directory, counters around it; the test forecasts
+    against the CPU plain path on the same parameters and against the JAX
+    package's own, both within 1e-3 (phase 4's rule, normalized values). Then
+    the host time to read a checkpoint of the JAX package's at the ECG
+    flagship's width. 0, or the code of `_fail`."""
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch import ops
+    from stemgnn_tpu_torch.config import TrainConfig
+    from stemgnn_tpu_torch.data import WindowDataset
+    from stemgnn_tpu_torch.models import init_params
+    from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
+    from stemgnn_tpu_torch.train import checkpoint as ckpt
+    from stemgnn_tpu_torch.train import engine
+    from tests.torch_port_fixtures import flax_bytes
+
+    fx, (_, _, test_data) = fixture_series()
+    for case in fx["cases"]:
+        cfg = fixture_config(fx, case, train=False, output_dir=out_root)
+        train_dir = os.path.join(out_root, "jax_fixture", case, "train")
+        test_dir = os.path.join(out_root, "jax_fixture", case, "test")
+        shutil.copytree(os.path.join(FIXTURES, case, "train"), train_dir)
+        test_set = WindowDataset(test_data, cfg.window_size, cfg.horizon, cfg.norm_method,
+                                 ckpt.load_norm_stat(train_dir))
+        n_batches = len(test_set.epoch_batches(cfg.batch_size, shuffle=False))
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = engine.test(test_data, cfg, train_dir, test_dir)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, replayed = take_launches(ops, results)
+        want, want_replayed = eval_launches(ops.KERNELS, len(test_set), cfg.batch_size,
+                                            fwd_per_batch)
+        params, _, meta = ckpt.load(train_dir, device=dev)
+        params_cpu = ckpt.load(train_dir, device="cpu")[0]
+        dtypes = sorted({str(v.dtype) for v in flatten_params(params).values()})
+        mcfg = cfg.model_config(test_data.shape[1])
+        fc, _ = engine.inference_batched(engine.make_eval_step(mcfg, dev), params, test_set,
+                                         cfg.batch_size, dev)
+        fc_cpu, _ = engine.inference_batched(engine.make_eval_step(mcfg, "cpu"), params_cpu,
+                                             test_set, cfg.batch_size, "cpu")
+        fc_jax = np.load(os.path.join(FIXTURES, case, "forecasts.npy"))
+        ok_shape = fc.shape == fc_cpu.shape == fc_jax.shape and np.isfinite(fc).all()
+        err_cpu = float(abs(fc - fc_cpu).max()) if ok_shape else math.inf
+        err_jax = float(abs(fc - fc_jax).max()) if ok_shape else math.inf
+        print(f"[4 serving path] the JAX package's {case} checkpoint (parameters {dtypes}, "
+              f"meta {meta}): engine.test over {len(test_set)} windows in {n_batches} batches, "
+              f"{secs:.3f} s; wrapper launches {launches}; launched by graph replays "
+              f"{replayed}; test MAE {float(metrics['mae']):.6f}; forecasts {fc.shape}, card "
+              f"vs CPU plain path max_abs_err {err_cpu:.3e}, card vs the JAX package's "
+              f"forecasts {err_jax:.3e} (atol 1e-3, normalized values)")
+        if launches != want or replayed != want_replayed:
+            return _fail(f"{case}: launch counts {launches} and {replayed}, expected {want} "
+                         f"and {want_replayed}")
+        if not ok_shape or err_cpu > 1e-3 or err_jax > 1e-3:
+            return _fail(f"{case}: forecasts {fc.shape} differ from the CPU plain path by "
+                         f"{err_cpu} and from the JAX package's by {err_jax}")
+        want_dtype = "torch.bfloat16" if cfg.param_dtype == "bfloat16" else "torch.float32"
+        if dtypes != [want_dtype] or not all(math.isfinite(float(metrics[k]))
+                                             for k in ("mae", "mape", "rmse")):
+            return _fail(f"{case}: parameters {dtypes}, metrics {metrics}")
+
+    # a checkpoint of the JAX package's at the flagship's width (its bytes as
+    # flax writes them: tests/test_torch_port_fixtures.py), read on this host
+    mcfg = TrainConfig(window_size=WINDOW, horizon=HORIZON, multi_layer=MULTI).model_config(140)
+    params = {k: v.numpy() for k, v in flatten_params(init_params(0, mcfg, "cpu")).items()}
+    tree = unflatten_params(params)
+    rng = np.random.default_rng(5)
+    nu = unflatten_params({k: np.abs(rng.standard_normal(v.shape)).astype(np.float32)
+                                  for k, v in params.items()})
+    meta = {"epoch": 0, "best_validate_mae": 1.0, "non_decrease_count": 0, "rng_seed": 0}
+    blob = flax_bytes.checkpoint_bytes(flax_bytes.jax_layout(tree),
+                                       flax_bytes.rmsprop_state(nu, 109, 1e-4), meta)
+    flag_dir = os.path.join(out_root, "jax_flagship")
+    os.makedirs(flag_dir)
+    with open(os.path.join(flag_dir, "0_stemgnn.ckpt"), "wb") as f:
+        f.write(blob)
+    walls = {}
+    for where in ("cpu", dev):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, opt_state, got_meta = ckpt.load(flag_dir, epoch=0, device=where)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        walls[str(where)] = statistics.median(times)
+    flat = flatten_params(got)
+    flat_nu = flatten_params(nu)
+    ok = got_meta == meta and list(flat) == list(params) and all(
+        np.array_equal(flat[k].cpu().numpy(), params[k])
+        and np.array_equal(opt_state["state"][i]["square_avg"].numpy(), flat_nu[k])
+        for i, k in enumerate(params))
+    ckpt.save(os.path.join(flag_dir, "port"), got, opt_state, epoch=0, meta=meta)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ckpt.load(os.path.join(flag_dir, "port"), epoch=0, device="cpu")
+        times.append(time.perf_counter() - t0)
+    n_params = sum(v.size for v in params.values())
+    print(f"[4 serving path] a JAX package's checkpoint at the flagship's width ({n_params} "
+          f"parameters and their RMSProp moments, {len(blob)} bytes): checkpoint.load "
+          f"median of 5 {walls['cpu'] * 1e3:.2f} ms to host tensors, "
+          f"{walls[str(dev)] * 1e3:.2f} ms onto the card; the port's own format of the "
+          f"same state {statistics.median(times) * 1e3:.2f} ms to host tensors; every "
+          f"leaf as written: {ok}")
+    if not ok:
+        return _fail("the flagship-width JAX checkpoint did not read back as written")
+    return 0
+
+
+def jax_train_phase(dev, results, out_root, step_kernels, fwd_per_batch, sets, train_data,
+                    valid_data, cfg_t):
+    """Phase 5's --resume from the JAX package's RMSProp checkpoint and its
+    threefry init (module docstring). 0, or the code of `_fail`."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from stemgnn_tpu_torch import ops
+    from stemgnn_tpu_torch.data import WindowDataset, compute_norm_stats
+    from stemgnn_tpu_torch.models.convert import flatten_params
+    from stemgnn_tpu_torch.models.initializers import init_params_threefry
+    from stemgnn_tpu_torch.train import checkpoint as ckpt
+    from stemgnn_tpu_torch.train import engine
+
+    # --resume from the JAX engine's directory after its epoch 0; its epoch
+    # checkpoint is byte for byte its best one (make_fixtures.py checks it),
+    # which alone is committed
+    fx, (f_train, f_valid, _) = fixture_series()
+    run_dir = os.path.join(out_root, "jax_fixture", "resume")
+    shutil.copytree(os.path.join(FIXTURES, "rmsprop_f32", "train"), run_dir)
+    shutil.copyfile(os.path.join(run_dir, "_stemgnn.ckpt"), os.path.join(run_dir, "0_stemgnn.ckpt"))
+    want_p, want_o, _ = ckpt.load(run_dir, epoch=0, device="cpu")
+    cfg = fixture_config(fx, "rmsprop_f32", epoch=2, resume=True, output_dir=out_root)
+    stats = compute_norm_stats(f_train, cfg.norm_method)
+    n_train, n_valid = (len(WindowDataset(d, cfg.window_size, cfg.horizon, cfg.norm_method,
+                                          stats)) for d in (f_train, f_valid))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with EpochSpy(engine) as spy:
+        engine.train(f_train, f_valid, cfg, run_dir)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, replayed = take_launches(ops, results)
+    want, want_replayed = epoch_launches(ops.KERNELS, n_train, n_valid, cfg.batch_size,
+                                         step_kernels, fwd_per_batch)
+    flat_want = flatten_params(want_p)
+    count = want_o["state"][0]["step"].item()
+    params_ok = list(spy.flat) == list(flat_want) and all(
+        same_bits(spy.flat[k], v) for k, v in flat_want.items())
+    moments_ok = len(spy.state) == len(flat_want) and all(
+        same_bits(spy.state[i]["square_avg"], want_o["state"][i]["square_avg"])
+        and spy.state[i]["step"].item() == count for i in range(len(flat_want)))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        epochs = [e for e in map(json.loads, f) if e["event"] == "epoch"]
+    print(f"[5 train path] --resume from the JAX package's RMSProp checkpoint (epoch 0, "
+          f"step {count:g}): start epoch {spy.start}; restored parameters bitwise the "
+          f"checkpoint's: {params_ok}; moments and steps: {moments_ok}; one more epoch on the "
+          f"card, {secs:.3f} s with its captures, loss "
+          f"{epochs[-1]['loss'] if epochs else float('nan'):.6f}; wrapper launches {launches}; "
+          f"launched by graph replays {replayed}")
+    if spy.start != 1 or not params_ok or not moments_ok:
+        return _fail(f"--resume from the JAX checkpoint: start {spy.start}, parameters "
+                     f"{params_ok}, moments {moments_ok}")
+    if launches != want or replayed != want_replayed:
+        return _fail(f"resumed epoch launch counts {launches} and {replayed}, expected {want} "
+                     f"and {want_replayed}")
+    if len(epochs) != 1 or not math.isfinite(epochs[0]["loss"]) or not os.path.exists(
+            os.path.join(run_dir, "1_stemgnn.ckpt")):
+        return _fail(f"resumed epoch: events {epochs}, 1_stemgnn.ckpt written "
+                     f"{os.path.exists(os.path.join(run_dir, '1_stemgnn.ckpt'))}")
+
+    # --init_stream threefry: one ECG epoch at full width; the draw computed on
+    # this host held to the JAX package's by each leaf's sha256
+    with open(os.path.join(FIXTURES, "threefry_ecg_seed0.json")) as f:
+        tf = json.load(f)
+    mcfg = cfg_t.model_config(train_data.shape[1])
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        init_params_threefry(0, mcfg, device="cpu")
+        times.append(time.perf_counter() - t0)
+    run_dir = os.path.join(out_root, cfg_t.dataset, "train_run_threefry")
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with EpochSpy(engine) as spy:
+        valid_metrics, _ = engine.train(train_data, valid_data,
+                                        dataclasses.replace(cfg_t, init_stream="threefry"),
+                                        run_dir)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, replayed = take_launches(ops, results)
+    want, want_replayed = epoch_launches(ops.KERNELS, len(sets["train"]), len(sets["valid"]),
+                                         cfg_t.batch_size, step_kernels, fwd_per_batch)
+    bad = [k for k, v in spy.flat.items()
+           if k not in tf["leaves"] or list(v.shape) != tf["leaves"][k]["shape"]
+           or hashlib.sha256(v.numpy().tobytes()).hexdigest() != tf["leaves"][k]["sha256"]]
+    bad += sorted(set(tf["leaves"]) - set(spy.flat))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        epochs = [e for e in map(json.loads, f) if e["event"] == "epoch"]
+    print(f"[5 train path] --init_stream threefry: the draw on this host (numpy) "
+          f"{statistics.median(times) * 1e3:.1f} ms (median of 3); {len(spy.flat) - len(bad)} "
+          f"of {len(tf['leaves'])} leaves bitwise the JAX package's (sha256); one ECG epoch, "
+          f"{secs:.3f} s with its captures, loss "
+          f"{epochs[0]['loss'] if epochs else float('nan'):.6f}, validate MAE "
+          f"{float(valid_metrics['mae']):.6f}; wrapper launches {launches}; launched by "
+          f"graph replays {replayed}")
+    if bad:
+        return _fail(f"threefry leaves not the JAX package's draw: {bad[:5]}")
+    if launches != want or replayed != want_replayed:
+        return _fail(f"threefry epoch launch counts {launches} and {replayed}, expected "
+                     f"{want} and {want_replayed}")
+    if len(epochs) != 1 or not math.isfinite(epochs[0]["loss"]):
+        return _fail(f"threefry epoch events {epochs}")
+    return 0
+
+
 def distributed_phase(dev, results, cfg, train_data, his, masks, bench_line, run_train_bench):
     """Phase 9 (module docstring): 0, or the code of `_fail`."""
     import numpy as np
@@ -2600,6 +2942,7 @@ def two_card_checks(dev, cfg, train_data, his, masks, results=None):
     cards = torch.cuda.device_count()
     if cards < 2:
         print(json.dumps({"distributed_2card": "not run", "cards": cards}))
+        print(json.dumps({"multihost_2card": "not run", "cards": cards}))
         return 0
     _, mcfg_u, params_s, set_s, mask_s = sharded_32k(dev)
     hi_s = torch.from_numpy(set_s.epoch_batches(len(set_s), shuffle=False)[0]).long()
@@ -2669,7 +3012,10 @@ def two_card_checks(dev, cfg, train_data, his, masks, results=None):
                                                 grads_r.items()},
                                                {k: g.cpu() for k, g in grads_1k.items()})
         loss_err = abs(loss_r - loss_1.item())
-        want = {"attention_kq_fwd_rows": 0 if i == 3 else 1, "attention_kq_bwd_rows": 1,
+        # --use_ring takes the partition's rows (parallel/ring.py
+        # `ring_attention` calls the row-block attention arm): the same
+        # launches with the ring as without it
+        want = {"attention_kq_fwd_rows": 1, "attention_kq_bwd_rows": 1,
                 "cheb_graph_conv_fwd_rows": 2, "cheb_graph_conv_fwd_rows_bf16": 0}
         launched = all(r[i][3] == want for r in ranks)
         verdict[tag] = not bad and loss_err <= 1e-5 and same and launched
@@ -2687,6 +3033,151 @@ def two_card_checks(dev, cfg, train_data, his, masks, results=None):
                       "agree": verdict}))
     if not all(verdict.values()):
         return _fail(f"(d) the two-card steps differ from their references: {verdict}")
+    return multihost_check(flag, ranks[0][0])
+
+
+def multihost_check(flag, step_2x1) -> int:
+    """Phase 9 (e): the launch across hosts. Two torchrun groups on this host,
+    `--nnodes 2 --node_rank 0|1 --nproc_per_node 1`, each on a card of its own
+    (CUDA_VISIBLE_DEVICES: both ranks have LOCAL_RANK 0), in a working
+    directory of its own where the dataset is missing, each salting Python's
+    hash otherwise (`host_rank`). Rank 0's flagship data-parallel step on
+    (2, 1) is held to (d)'s, `step_2x1`, by the f32 rule of phase 5; both
+    hosts synthesize the same dataset; only rank 0's directory holds the
+    epoch's files. 0, or the code of `_fail`."""
+    import numpy as np
+    import torch
+
+    root = os.path.join(HERE, "output", "chip_smoke", "multihost")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    inputs = os.path.join(root, "inputs.pt")
+    cfg_kw, data, hi, mask = flag
+    torch.save({"cfg": cfg_kw, "data": torch.from_numpy(data), "hi": torch.from_numpy(hi),
+                "mask": torch.from_numpy(mask)}, inputs)
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for r in (0, 1):
+        cwd = os.path.join(root, f"host{r}")
+        os.makedirs(cwd)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=str(r), PYTHONHASHSEED=str(r + 1),
+                   PYTHONPATH=os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")]))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2", "--node_rank",
+               str(r), "--nproc_per_node", "1", "--master_addr", "127.0.0.1", "--master_port",
+               str(port), os.path.join(HERE, "chip_smoke.py"), "--host-rank", inputs]
+        procs.append(subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:])
+            return _fail(f"(e) host {r} exited with {p.returncode}")
+    lines = [json.loads(line[len("HOST_RANK "):]) for out in outs
+             for line in out.splitlines() if line.startswith("HOST_RANK ")]
+    if sorted(x["rank"] for x in lines) != [0, 1]:
+        return _fail(f"(e) rank lines {lines}")
+    lines.sort(key=lambda x: x["rank"])
+    files = {r: sorted(os.path.relpath(os.path.join(d, f), os.path.join(root, f"host{r}"))
+                       for d, _, fs in os.walk(os.path.join(root, f"host{r}")) for f in fs)
+             for r in (0, 1)}
+    got = torch.load(os.path.join(root, "host0", "output", "step.pt"), weights_only=True)
+    loss_ref, grads_ref = step_2x1
+    bad, worst, worst_name = compare_grads(
+        got["grads"], {k: torch.from_numpy(g) for k, g in grads_ref.items()})
+    loss_err = abs(got["loss"] - loss_ref)
+    bitwise = got["loss"] == loss_ref and all(
+        np.array_equal(g.numpy(), grads_ref[k]) for k, g in got["grads"].items())
+    same_data = lines[0]["data_sha256"] == lines[1]["data_sha256"]
+    same_step = (lines[0]["loss"] == lines[1]["loss"]
+                 and lines[0]["grads_sha256"] == lines[1]["grads_sha256"])
+    lead_files = {"output/ECG_data/train/0_stemgnn.ckpt", "output/ECG_data/train/_stemgnn.ckpt",
+                  "output/ECG_data/train/norm_stat.json", "output/ECG_data/train/metrics.jsonl"}
+    files_ok = (files[1] == ["dataset/ECG_data.csv"] and lead_files <= set(files[0])
+                and "dataset/ECG_data.csv" in files[0])
+    verdict = {"step": not bad and loss_err <= 1e-5, "same_data": same_data,
+               "same_step_on_both": same_step, "files_on_rank0_only": files_ok,
+               "rank_is_not_local_rank": lines[1]["rank"] == 1 and lines[1]["local_rank"] == 0}
+    print(f"[9 distributed] (e) two torchrun hosts of one card each: the flagship's step on "
+          f"(2, 1), loss {got['loss']:.6f} (abs err {loss_err:.3e} against (d)'s, atol 1e-5), "
+          f"bitwise (d)'s: {bitwise}; worst gradient max_abs_err {worst:.3e} at {worst_name}; "
+          f"both hosts synthesized the dataset (sha256 {lines[0]['data_sha256'][:16]}..., "
+          f"equal: {same_data}); one epoch of engine.train, epoch loss "
+          f"{lines[0]['epoch_loss']:.6f}; files of host 1 {files[1]}; {secs:.1f} s")
+    print(json.dumps({"multihost_2card": "run", "cards": torch.cuda.device_count(),
+                      "seconds": round(secs, 1), "agree": verdict}))
+    if not all(verdict.values()):
+        return _fail(f"(e) the launch across hosts: {verdict}")
+    return 0
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_host_rank(inputs: str) -> int:
+    """`torchrun --nnodes 2 ... chip_smoke.py --host-rank INPUTS`: a rank of
+    phase 9 (e). It initialises the process group from torchrun's environment
+    (NCCL, its card LOCAL_RANK), synthesizes the missing dataset in its
+    working directory as the CLI does (`__main__.dataset_file`), takes the
+    flagship's data-parallel step on (2, 1) from INPUTS (the step of (d)),
+    then trains one epoch of the synthesized ECG_data through the CLI's
+    `main`. Rank 0 saves the step in output/step.pt; every rank prints a
+    `HOST_RANK` JSON line."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from stemgnn_tpu_torch.__main__ import dataset_file, main
+    from stemgnn_tpu_torch.config import TrainConfig
+    from stemgnn_tpu_torch.models import init_params
+    from stemgnn_tpu_torch.parallel.mesh import init_distributed, is_lead, make_mesh
+
+    dev = init_distributed("cuda")
+    flags = ["--dataset", "ECG_data", "--batch_size", str(BATCH), "--window_size", str(WINDOW),
+             "--horizon", str(HORIZON), "--multi_layer", str(MULTI), "--epoch", "1",
+             "--data_axis", "2", "--evaluate", "False"]
+    path = dataset_file(TrainConfig(dataset="ECG_data"))
+    with open(path, "rb") as f:
+        data_sha = hashlib.sha256(f.read()).hexdigest()
+    x = torch.load(inputs, weights_only=True)
+    mcfg = TrainConfig(**x["cfg"]).model_config(x["data"].shape[1])
+    loss, grads, _ = step_on(mcfg, init_params(0, mcfg, device=dev), x["data"].to(dev),
+                             x["hi"].to(dev), x["mask"].to(dev), make_mesh(2, 1))
+    grads = {k: g.detach().cpu() for k, g in grads.items()}
+    digest = hashlib.sha256(b"".join(g.numpy().tobytes() for g in grads.values())).hexdigest()
+    if is_lead():
+        os.makedirs("output", exist_ok=True)
+        torch.save({"loss": loss.item(), "grads": grads}, os.path.join("output", "step.pt"))
+    rank, local = dist.get_rank(), int(os.environ["LOCAL_RANK"])
+    main(flags)  # destroys the process group at its end
+    epoch_loss = float("nan")
+    log = os.path.join("output", "ECG_data", "train", "metrics.jsonl")
+    if os.path.exists(log):
+        with open(log) as f:
+            epoch_loss = [e for e in map(json.loads, f) if e["event"] == "epoch"][0]["loss"]
+    print("HOST_RANK " + json.dumps({"rank": rank, "local_rank": local, "loss": loss.item(),
+                                     "grads_sha256": digest, "data_sha256": data_sha,
+                                     "epoch_loss": epoch_loss}))
     return 0
 
 
@@ -3270,6 +3761,9 @@ def run() -> int:
             return _fail(f"{tag} serving differs from the CPU plain path: forecasts {err}, "
                          f"index sets equal {same_idx}, graph {g_err}")
         del params_x_cpu
+    rc = jax_serving_phase(dev, results, out_root, fwd_per_batch)
+    if rc:
+        return rc
 
     # --- 5. train path ---
     cfg_t = TrainConfig(dataset="ECG_data", train=True, epoch=1, batch_size=BATCH,
@@ -3743,6 +4237,11 @@ def run() -> int:
             or not math.isfinite(float(valid_s["mae"]))):
         return _fail(f"stretch epoch events {epochs_s}, validate {valid_s}")
 
+    rc = jax_train_phase(dev, results, out_root, step_kernels, fwd_per_batch, sets,
+                         train_data, valid_data, cfg_t)
+    if rc:
+        return rc
+
     # --- 6. chunk path: a captured chunk against the same steps taken eagerly ---
     CHUNK = 16
     finals = {}
@@ -4096,8 +4595,8 @@ def run() -> int:
 
 
 def run_two_card() -> int:
-    """`python3 chip_smoke.py --two-card`: phase 2 and phase 9 (d) alone, on a
-    host of two cards or more."""
+    """`python3 chip_smoke.py --two-card`: phase 2 and phase 9 (d) and (e)
+    alone, on a host of two cards or more."""
     import numpy as np
     import torch
 
@@ -4130,4 +4629,6 @@ def run_two_card() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--host-rank"]:
+        sys.exit(run_host_rank(sys.argv[2]))
     sys.exit(run_two_card() if sys.argv[1:] == ["--two-card"] else run())

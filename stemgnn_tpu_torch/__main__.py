@@ -25,6 +25,32 @@ attention on the ring. Each rank initialises the process group (NCCL on the
 card, gloo with --device cpu) from torchrun's environment; rank 0 writes the
 files.
 
+Across hosts, one torchrun a host, each given the first host's address and
+a free port on it (RANK and LOCAL_RANK then differ on the second host; a
+rank takes card LOCAL_RANK):
+
+    torchrun --nnodes 2 --node_rank 0 --nproc_per_node 8 \
+        --master_addr HOST0 --master_port 29500 -m stemgnn_tpu_torch --dataset ECG_data --data_axis 16
+    torchrun --nnodes 2 --node_rank 1 --nproc_per_node 8 \
+        --master_addr HOST0 --master_port 29500 -m stemgnn_tpu_torch --dataset ECG_data --data_axis 16
+
+Every rank builds its inputs itself, the same on every host: the dataset
+(each host's local rank 0 synthesizes a missing one from the global lead's
+seed, `dataset_file`), the split, the norm stats, the parameters and the
+batches from the seed. So no rank gathers an input from another, and the
+port needs nothing like the JAX package's `make_globalizer`
+(stemgnn_tpu/parallel/mesh.py). Only global rank 0 writes files.
+
+A directory the JAX package trained (its flax checkpoints) serves and
+resumes as the port's own does (train/checkpoint.py):
+
+    python -m stemgnn_tpu_torch --dataset ECG_data --train False --output_dir JAX_OUTPUT
+    python -m stemgnn_tpu_torch --dataset ECG_data --resume True --epoch 50 --output_dir JAX_OUTPUT
+
+`--init_stream threefry` draws the parameters as the JAX package's
+`--init_stream threefry` does (models/initializers.py
+`init_params_threefry`); the default, "torch", is the reference's draw.
+
 Runs on the card, or on the CPU with --device cpu. With --train True (the
 default) `engine.train` trains and validates, writing norm_stat.json, the
 per-epoch and best checkpoints and metrics.jsonl into
@@ -41,6 +67,7 @@ import torch.distributed as dist
 
 from stemgnn_tpu_torch.config import add_cli_args, config_from_args
 from stemgnn_tpu_torch.data import ensure_dataset, load_csv, split_by_ratio
+from stemgnn_tpu_torch.data.synthetic import default_seed
 from stemgnn_tpu_torch.parallel.mesh import init_distributed, is_lead
 from stemgnn_tpu_torch.train.engine import test, train
 
@@ -59,12 +86,28 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
-def _run(cfg):
-    # the lead rank synthesizes a missing dataset; the others wait for it
-    data_file = ensure_dataset(cfg.dataset, cfg.data_dir) if is_lead() else None
+def dataset_file(cfg) -> str:
+    """The dataset's CSV, synthesized if missing: each host's local lead
+    (LOCAL_RANK 0 where torchrun sets it, else the global lead) writes it
+    (hosts need not share a filesystem, and `ensure_dataset` moves a whole
+    file into place), every rank waits at a barrier, then every rank reads
+    it. A synthesized series is drawn from the global lead's seed on every
+    host (Python salts the default seed's hash in each process)."""
+    seed = None
+    if dist.is_initialized():
+        box = [default_seed(cfg.dataset)]
+        dist.broadcast_object_list(box, src=0)
+        seed = box[0]
+    local = os.environ.get("LOCAL_RANK")
+    local_lead = int(local) == 0 if local is not None else is_lead()
+    data_file = ensure_dataset(cfg.dataset, cfg.data_dir, seed) if local_lead else None
     if dist.is_initialized():
         dist.barrier()
-    data_file = data_file or ensure_dataset(cfg.dataset, cfg.data_dir)
+    return data_file or ensure_dataset(cfg.dataset, cfg.data_dir, seed)
+
+
+def _run(cfg):
+    data_file = dataset_file(cfg)
     result_train_file = os.path.join(cfg.output_dir, cfg.dataset, "train")
     result_test_file = os.path.join(cfg.output_dir, cfg.dataset, "test")
     os.makedirs(result_train_file, exist_ok=True)

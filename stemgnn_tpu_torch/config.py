@@ -3,7 +3,7 @@
 The flag surface mirrors the reference CLI (main.py:9-30): the 21 reference
 flags keep their names and defaults, and booleans parse properly (the
 reference's `type=bool` flags treat the string "False" as truthy). The
-port adds `seed`, `dropout_seed`, `shuffle_seed`, `param_dtype`,
+port adds `seed`, `init_stream`, `dropout_seed`, `shuffle_seed`, `param_dtype`,
 `compute_dtype`, `resume`, `ckpt_every`, `ckpt_async`, `log_jsonl`, `profile`,
 `debug_nans`, `data_dir`, `output_dir`, `data_axis`, `graph_axis`,
 `force_sparse_shard` and `use_ring`, with the JAX package's names and
@@ -122,6 +122,11 @@ class TrainConfig:
     leakyrelu_rate: float = 0.2
     # --- port additions (no reference counterpart) ---
     seed: int = 0  # torch.manual_seed(0) at main.py:52
+    # the stream that draws the parameters: "torch" (the reference's torch
+    # draw, models/initializers.py init_params) or "threefry" (the JAX
+    # package's jax.random draw, init_params_threefry); the JAX package's
+    # default and values (stemgnn_tpu/config.py init_stream)
+    init_stream: str = "torch"
     # -1 = the dropout stream derives from `seed`; >= 0 decouples the
     # per-epoch dropout root from init and shuffle
     dropout_seed: int = -1

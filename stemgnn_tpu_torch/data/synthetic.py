@@ -19,6 +19,7 @@ two write to be byte-identical.
 from __future__ import annotations
 
 import os
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -47,9 +48,18 @@ DATASET_SHAPES = {
 }
 
 
+def default_seed(name: str) -> int:
+    """The seed `synthesize` takes for `name` when given none, as the JAX
+    package takes it: from hash(name), which Python salts in each process
+    (PYTHONHASHSEED), so two processes draw two series unless one hands its
+    seed to the other."""
+    return abs(hash(name)) % (2**31)
+
+
 def synthesize(name: str, T: Optional[int] = None, N: Optional[int] = None,
                seed: Optional[int] = None) -> np.ndarray:
-    """Deterministic synthetic [T, N] series with cross-node correlation."""
+    """Synthetic [T, N] series with cross-node correlation, determined by
+    `seed` (default `default_seed(name)`)."""
     if name in DATASET_SHAPES:
         t0, n0 = DATASET_SHAPES[name]
         T = T or t0
@@ -57,7 +67,7 @@ def synthesize(name: str, T: Optional[int] = None, N: Optional[int] = None,
     if T is None or N is None:
         raise ValueError(f"unknown dataset {name!r}; pass T and N explicitly")
     if seed is None:
-        seed = abs(hash(name)) % (2**31)
+        seed = default_seed(name)
     rng = np.random.default_rng(seed)
 
     # latent factors: a few shared periodic sources + AR(1) noise
@@ -87,16 +97,30 @@ def synthesize(name: str, T: Optional[int] = None, N: Optional[int] = None,
     return data.astype(np.float64)
 
 
-def ensure_dataset(name: str, data_dir: str = "dataset") -> str:
-    """Return path to `<data_dir>/<name>.csv`, synthesizing it if absent.
+def ensure_dataset(name: str, data_dir: str = "dataset", seed: Optional[int] = None) -> str:
+    """Return path to `<data_dir>/<name>.csv`, synthesizing it if absent
+    (`synthesize(name, seed=seed)`).
 
     The written CSV includes a header row to mirror the reference ingest
-    contract (pd.read_csv consumes row 0 as header — main.py:42)."""
+    contract (pd.read_csv consumes row 0 as header — main.py:42). It is
+    written to a temporary file beside it and moved into place with
+    os.replace, so a process that reads the path sees the whole file or
+    none, and two processes that synthesize it at once leave one of their
+    (equal) files."""
     os.makedirs(data_dir, exist_ok=True)
     path = os.path.join(data_dir, f"{name}.csv")
     if os.path.exists(path):
         return path
-    data = synthesize(name)
+    data = synthesize(name, seed=seed)
     header = ",".join(str(i) for i in range(data.shape[1]))
-    np.savetxt(path, data, delimiter=",", header=header, comments="")
+    fd, tmp = tempfile.mkstemp(dir=data_dir, prefix=f".{name}.", suffix=".csv.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savetxt(f, data, delimiter=",", header=header, comments="")
+        os.chmod(tmp, 0o644)  # mkstemp's 0600 would hide it from other users
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
     return path

@@ -32,7 +32,10 @@ from stemgnn_tpu_torch.device import resolve_device
 
 def _to_torch(a, device):
     """A numpy array (or anything np.asarray takes) as a tensor of its dtype on
-    `device`; a bfloat16 array (ml_dtypes) by its bits."""
+    `device`; a bfloat16 array (ml_dtypes) by its bits; a tensor (the bf16
+    leaves of train/flax_msgpack.py) as it is, moved to `device`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
@@ -111,12 +114,45 @@ def unflatten_params(flat: dict):
     return listify(tree)
 
 
+# the port's parameter tree in the order models/initializers.py draws it;
+# the JAX package's trees come with each dict's keys sorted (jax.tree
+# rebuilds dicts in key order)
+_KEY_ORDER = ("weight_key", "weight_query", "gru", "w_ih", "w_hh", "b_ih", "b_hh", "blocks",
+              "weight", "forecast", "forecast_result", "backcast", "backcast_short_cut", "glu",
+              "left", "right", "w", "b", "fc1", "fc2")
+
+
+def in_port_order(tree):
+    """`tree`, a parameter tree or one shaped like it, with each dict's keys
+    in the port's init order, so that its flattened leaves line up with an
+    optimizer's over `initial_params`; a key no StemGNN parameter has raises."""
+    if isinstance(tree, dict):
+        unknown = sorted(set(tree) - set(_KEY_ORDER))
+        if unknown:
+            raise ValueError(f"not StemGNN parameters: {unknown}")
+        return {k: in_port_order(tree[k]) for k in sorted(tree, key=_KEY_ORDER.index)}
+    if isinstance(tree, (list, tuple)):
+        return [in_port_order(v) for v in tree]
+    return tree
+
+
 def param_count(params) -> int:
     return sum(t.numel() for t in flatten_params(params).values())
 
 
 _RMSPROP_KEYS = {"nu": "square_avg"}
 _ADAM_KEYS = {"mu": "exp_avg", "nu": "exp_avg_sq"}
+
+
+def _torch_moments(state: dict, keys: dict, names, devices) -> dict:
+    """torch's per-parameter state, {i: {"step", moments}}, for the
+    parameters `names` (flattened order) on `devices`, from the JAX moments
+    trees `state[k]`, looked up by name, each leaf of its own dtype."""
+    flat = {k: flatten_params(state[k]) for k in keys}
+    count = float(state.get("count", 0))
+    return {i: {"step": torch.tensor(count, dtype=torch.float32),
+                **{tk: _to_torch(flat[jk][name], dev) for jk, tk in keys.items()}}
+            for i, (name, dev) in enumerate(zip(names, devices))}
 
 
 def opt_state_from_jax(state: dict, opt) -> None:
@@ -128,16 +164,21 @@ def opt_state_from_jax(state: dict, opt) -> None:
     absent."""
     keys = _ADAM_KEYS if isinstance(opt, torch.optim.Adam) else _RMSPROP_KEYS
     leaves = [p for group in opt.param_groups for p in group["params"]]
-    flat = {k: list(flatten_params(state[k]).values()) for k in keys}
-    count = float(state.get("count", 0))
-    per_param = {}
-    for i, p in enumerate(leaves):
-        entry = {"step": torch.tensor(count, dtype=torch.float32)}
-        for jax_key, torch_key in keys.items():
-            entry[torch_key] = _to_torch(flat[jax_key][i], p.device)
-        per_param[i] = entry
+    names = list(flatten_params(state["nu"]))
+    per_param = _torch_moments(state, keys, names, [p.device for p in leaves])
     opt.load_state_dict({"state": per_param,
                          "param_groups": opt.state_dict()["param_groups"]})
+
+
+def opt_state_dict_from_jax(state: dict, names) -> dict:
+    """{"state": torch's per-parameter state} on the CPU for the parameters
+    `names` (flattened, in the optimizer's order), from JAX moments as
+    `opt_state_from_jax` takes them: Adam's where there is a "mu", else
+    RMSProp's. What an optimizer's `load_state_dict` takes with its own
+    param groups (as train/engine.py's --resume loads it)."""
+    keys = _ADAM_KEYS if "mu" in state else _RMSPROP_KEYS
+    return {"state": _torch_moments(state, keys, list(names),
+                                    [torch.device("cpu")] * len(names))}
 
 
 def opt_state_to_jax(opt, params) -> dict:

@@ -22,15 +22,25 @@ The GRU's hidden size H is N, or `cfg.gru_hidden` on the stretch path: then
 weight_key and weight_query are [H, 1] and the GRU's tensors [3H, W],
 [3H, H], [3H], [3H], drawn in the same order (the JAX package's
 `init_params` and `torch_stream_init`).
+
+`init_params_threefry(seed, cfg)` is the JAX package's other init stream,
+`--init_stream threefry` (stemgnn_tpu/models/stemgnn.py `init_params`,
+stemgnn_tpu/models/initializers.py): the same distributions drawn with
+`jax.random` from `split(PRNGKey(seed))[1]` (stemgnn_tpu/train/engine.py),
+a key split per tensor, computed in numpy by utils/threefry.py. Every leaf
+is bitwise the JAX package's draw on the CPU, the two xavier_normal block
+weights included (tests/test_torch_port_threefry.py).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from stemgnn_tpu_torch.device import resolve_device
+from stemgnn_tpu_torch.utils import threefry
 
 
 def init_params(seed: int, cfg, device="cuda") -> dict:
@@ -90,4 +100,69 @@ def _to(tree, dev):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree).to(dev)
     return tree.to(dev)
+
+
+def _torch_fans(shape) -> tuple:
+    """torch's (fan_in, fan_out) of a tensor of `shape`."""
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
+
+
+def init_params_threefry(seed: int, cfg, device="cuda") -> dict:
+    """The JAX package's threefry init (module docstring), in the port's
+    tree and key order, f32 on `device`."""
+    dev = resolve_device(device)
+    w, wm = cfg.window_size, cfg.wm
+    h = cfg.gru_hidden or cfg.units
+
+    def uniform(key, shape, bound):
+        return threefry.uniform(key, shape, -bound, bound)
+
+    def lin(key, in_f, out_f):
+        kw, kb = threefry.split(key)
+        bound = 1.0 / math.sqrt(in_f)
+        return {"w": uniform(kw, (in_f, out_f), bound), "b": uniform(kb, (out_f,), bound)}
+
+    def xavier_uniform(key, shape, gain):
+        fan_in, fan_out = _torch_fans(shape)
+        return uniform(key, shape, gain * math.sqrt(6.0 / (fan_in + fan_out)))
+
+    def block(key, stack_i):
+        keys = threefry.split(key, 12)
+        shape = (1, 4, 1, wm, wm)
+        fan_in, fan_out = _torch_fans(shape)
+        std = math.sqrt(2.0 / (fan_in + fan_out))
+        blk = {"weight": (np.float32(std) * threefry.normal(keys[0], shape)).reshape(4, wm, wm),
+               "forecast": lin(keys[1], wm, wm),
+               "forecast_result": lin(keys[2], wm, w)}
+        if stack_i == 0:
+            blk["backcast"] = lin(keys[4], wm, w)
+        blk["backcast_short_cut"] = lin(keys[3], w, w)
+        dims = [(cfg.glu_in, cfg.glu_out)] * 2 + [(cfg.glu_out, cfg.glu_out)] * 4
+        blk["glu"] = []
+        for i, (d_in, d_out) in enumerate(dims):
+            kl, kr = threefry.split(keys[5 + i])
+            blk["glu"].append({"left": lin(kl, d_in, d_out), "right": lin(kr, d_in, d_out)})
+        return blk
+
+    key = threefry.split(threefry.prng_key(seed))[1]
+    keys = threefry.split(key, 8 + cfg.stack_cnt)
+    gru_keys = threefry.split(keys[2], 4)
+    bound = 1.0 / math.sqrt(h)
+    params = {
+        "weight_key": xavier_uniform(keys[0], (h, 1), 1.414),
+        "weight_query": xavier_uniform(keys[1], (h, 1), 1.414),
+        "gru": {
+            "w_ih": uniform(gru_keys[0], (3 * h, w), bound),
+            "w_hh": uniform(gru_keys[1], (3 * h, h), bound),
+            "b_ih": uniform(gru_keys[2], (3 * h,), bound),
+            "b_hh": uniform(gru_keys[3], (3 * h,), bound),
+        },
+        "blocks": [block(keys[3 + i], i) for i in range(cfg.stack_cnt)],
+        "fc1": lin(keys[3 + cfg.stack_cnt], w, w),
+        "fc2": lin(keys[4 + cfg.stack_cnt], w, cfg.horizon),
+    }
+    return _to(params, dev)

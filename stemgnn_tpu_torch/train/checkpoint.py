@@ -16,8 +16,21 @@ parameters are numbered in that flattened order. Writes are atomic (tmp file
 + os.replace): synchronous through `save`, or through `AsyncCheckpointer`,
 which clones the state on its device and copies and writes it on a worker
 thread while training goes on.
-The JAX package's flax-msgpack checkpoints are not read here; JAX weights
-come in through models/convert.py.
+
+`load` also reads the files the JAX package writes under the same names
+(stemgnn_tpu/train/checkpoint.py: an 8-byte little-endian header length,
+the JSON meta, then flax msgpack bytes of {"params", "opt_state"}), told
+apart from torch.save's zip by their first bytes, so that `latest_epoch`,
+`engine.test` and --resume take a directory the JAX package trained. Its
+parameters come through models/convert.py `params_from_jax`, each leaf of
+its own dtype (f32, or bf16 under --param_dtype bfloat16); its optax state
+under `inject_hyperparams` (RMSProp: {"count", "hyperparams",
+"hyperparams_states", "inner_state": {"nu": tree}}; Adam: "inner_state":
+[{"count", "mu", "nu"}, {}]) becomes torch's per-parameter state, each
+moment of the JAX package's dtype for its leaf and `step` the JAX count.
+The hyperparameters, the learning rate among them, are not carried: the
+engine sets the learning rate every epoch (optim.decayed_lr). The meta keys
+are the same in both packages. The port itself writes only its own format.
 """
 
 from __future__ import annotations
@@ -25,15 +38,24 @@ from __future__ import annotations
 import json
 import os
 import queue
+import struct
 import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from stemgnn_tpu_torch.device import resolve_device
-from stemgnn_tpu_torch.models.convert import flatten_params, unflatten_params
+from stemgnn_tpu_torch.models.convert import (
+    flatten_params,
+    in_port_order,
+    opt_state_dict_from_jax,
+    params_from_jax,
+    unflatten_params,
+)
+from stemgnn_tpu_torch.train import flax_msgpack
 
 CKPT_SUFFIX = "_stemgnn.ckpt"
+_ZIP_MAGIC = b"PK\x03\x04"  # torch.save's format is a zip archive
 
 
 def _path(model_dir: str, epoch=None) -> str:
@@ -88,16 +110,46 @@ def load(
 ) -> Optional[Tuple[Any, Optional[Dict], Dict]]:
     """Restore (params, opt_state, meta), params onto `device`; None if
     absent (handler.py:34-35). opt_state is what `save` was given (an
-    optimizer `state_dict()` with CPU tensors, for `load_state_dict`)."""
+    optimizer `state_dict()` with CPU tensors, for `load_state_dict`), or
+    for a file of the JAX package's its per-parameter state alone,
+    {"state": ...} (module docstring)."""
     dev = resolve_device(device)
     if not model_dir:
         return None
     path = _path(model_dir, epoch)
     if not os.path.exists(path):
         return None
+    with open(path, "rb") as f:
+        magic = f.read(len(_ZIP_MAGIC))
+    if magic != _ZIP_MAGIC:
+        return _load_jax(path, dev)
     state = torch.load(path, map_location="cpu", weights_only=True)
     params = unflatten_params({k: v.to(dev) for k, v in state["params"].items()})
     return params, state.get("opt_state"), state["meta"]
+
+
+def _load_jax(path: str, device) -> Tuple[Any, Optional[Dict], Dict]:
+    """(params, opt_state, meta) of a checkpoint file the JAX package wrote
+    (module docstring), params onto `device`."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if len(raw) < 8:
+        raise ValueError(f"{path}: {len(raw)} bytes, neither torch.save's zip nor the "
+                         "JAX package's header")
+    (hlen,) = struct.unpack("<Q", raw[:8])
+    if 8 + hlen > len(raw):
+        raise ValueError(f"{path}: a header of {hlen} bytes in a file of {len(raw)}")
+    meta = json.loads(raw[8:8 + hlen].decode("utf-8"))
+    tree = flax_msgpack.as_lists(flax_msgpack.msgpack_restore(raw[8 + hlen:]))
+    params = params_from_jax(in_port_order(tree["params"]), device)
+    opt_state = tree.get("opt_state")
+    if opt_state is not None:
+        inner = opt_state["inner_state"]
+        # optax.adam is a chain: (ScaleByAdamState, the learning rate's EmptyState)
+        moments = dict(inner[0]) if isinstance(inner, list) else dict(
+            inner, count=opt_state["count"])
+        opt_state = opt_state_dict_from_jax(moments, flatten_params(params))
+    return params, opt_state, meta
 
 
 def latest_epoch(model_dir: str) -> Optional[int]:

@@ -72,7 +72,7 @@ from stemgnn_tpu_torch.models.convert import (
     param_count,
     unflatten_params,
 )
-from stemgnn_tpu_torch.models.initializers import init_params
+from stemgnn_tpu_torch.models.initializers import init_params, init_params_threefry
 from stemgnn_tpu_torch.ops.torch_impl import operand_dtype
 from stemgnn_tpu_torch.parallel.mesh import (
     all_gather_cat,
@@ -598,11 +598,19 @@ def validate(
 
 def initial_params(cfg: TrainConfig, mcfg: StemGNNConfig, device) -> Dict:
     """The flattened parameters a run starts from, leaves that require a
-    gradient: `init_params(cfg.seed)` cast to cfg.param_dtype, as the JAX
-    engine casts after init (to nearest, ties to even)."""
+    gradient: the draw of cfg.init_stream, `init_params(cfg.seed)` ("torch")
+    or `init_params_threefry(cfg.seed)` ("threefry",
+    stemgnn_tpu/train/engine.py:444-455), cast to cfg.param_dtype, as the
+    JAX engine casts after init (to nearest, ties to even)."""
+    if cfg.init_stream == "torch":
+        tree = init_params(cfg.seed, mcfg, device=device)
+    elif cfg.init_stream == "threefry":
+        tree = init_params_threefry(cfg.seed, mcfg, device=device)
+    else:
+        raise ValueError(
+            f"init_stream must be 'torch' or 'threefry', got {cfg.init_stream!r}")
     dtype = operand_dtype(cfg.param_dtype)
-    return {k: v.to(dtype).requires_grad_(True) for k, v in flatten_params(
-        init_params(cfg.seed, mcfg, device=device)).items()}
+    return {k: v.to(dtype).requires_grad_(True) for k, v in flatten_params(tree).items()}
 
 
 def train(
