@@ -53,10 +53,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
      each array within BF16_ATOL_REL of its largest entry and closer to the
      bf16 plain result than to the f32 one; their bound at the bf16
      tensor-core rate; the bf16 spectral backward twice bitwise and its
-     reread bitwise its recompute (up to D1 = 2048 the bf16 forwards and
-     backwards run on tensor cores, mma.sync, so every bf16 shape above
-     holds those kernels; the profiler shows each bf16 saving forward on the
-     chain kernel of its route). The redesigned bf16 wrappers' times beside
+     reread bitwise its recompute (up to D1 = 2048 the bf16 forwards run on
+     tensor cores, mma.sync, and the bf16 backwards on Hopper's route, TMA
+     bulk copies feeding mma.sync and wgmma, so every bf16 shape above holds
+     those kernels; the profiler shows each bf16 saving forward on the chain
+     kernel of its route, and both reread arms and the recompute on the
+     backward's kernels of its route, `bf16_bwd_route`). The redesigned bf16
+     wrappers' times beside
      their parent design's (PARENT_DESIGN_MS), their bounds and the f32
      arms'; both bf16 forwards and the bf16 recompute backward on the chain
      kernel on tensor cores, and the bf16 graph conv one kernel a call
@@ -1148,11 +1151,12 @@ def stretch_spectral_check(glu, multi: int, n: int, dev, tag: str):
     b, k, _, w = gfted.shape
     sms = cuda_spectral._sms(dev)
     fplan = cuda_spectral.fwd_mma_plan(b, k, n, w, w * multi, sms)
-    bplan = cuda_spectral.bwd_mma_plan(b, k, n, w, w * multi, sms)
+    bplan = cuda_spectral.bwd_tc_plan(b, k, n, w, w * multi, sms)
     print(f"[{tag}] {b * n} rows, D1 = {k * w * multi}: the bf16 chain forward on "
           f"{fplan.tiles} row tiles of {fplan.tile_rows} (grid (2, {fplan.tiles}): gridDim.y "
-          f"takes up to 65,535), the bf16 backward's rows kernel on {bplan.tiles} tiles of "
-          f"{bplan.tile_rows}, its weight gradients in {bplan.nsplit} row segments")
+          f"takes up to 65,535), the bf16 backward's rows kernel on {bplan.clusters} clusters "
+          f"of 2 blocks of up to {16 * bplan.m_tiles} rows, its weight gradients on "
+          f"{bplan.wgrad_units} blocks in {bplan.nseg} row segments")
     keep = ("spectral_fwd", "spectral_fwd_save", "spectral_bwd_reread",
             "spectral_fwd_bf16", "spectral_fwd_save_bf16", "spectral_bwd_reread_bf16")
     return (check_cases(spectral_fwd_cases(gfted, glu, multi), {}, tag, calls=2, replays=3)
@@ -1651,6 +1655,9 @@ def storage_arm_check(x, glu, g, m: int, out32, acts32, f32_plain):
         torch.cuda.synchronize()
         fail = bf16_chain_route(
             lambda: cuda_spectral.spe_seq_cell_save(x, glu, m, bf, act_dtype=bf), d1)
+        fail = fail or bf16_bwd_route(
+            lambda: cuda_spectral.spe_seq_cell_bwd_reread(x, glu, g, acts16, m, bf), d1,
+            "bf16-storage reread")
     if fail is not None:
         return fail, acts16
     planes = torch.equal(acts16, acts32.to(torch.bfloat16))
@@ -1772,6 +1779,13 @@ def spectral_checks(dev, glu, multi: int, extra=()):
                 with torch.no_grad():
                     fail = bf16_chain_route(
                         lambda: cuda_spectral.spe_seq_cell_save(x, glu_w, m, cd), d1)
+                    # and the backwards' kernels: Hopper's route up to D1 = 2048
+                    for label, fn in (
+                            ("reread", lambda: cuda_spectral.spe_seq_cell_bwd_reread(
+                                x, glu_w, g, acts, m, cd)),
+                            ("recompute", lambda: cuda_spectral.spe_seq_cell_bwd(
+                                x, glu_w, g, m, cd))):
+                        fail = fail or bf16_bwd_route(fn, d1, label)
                 if fail is not None:
                     return fail
             fwd = [out, out_s] + [acts[i, :rows] for i in range(12)]
@@ -2059,12 +2073,15 @@ def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int =
     return None
 
 
-# The earlier design's device ms a wrapper call of the kernels that went to
-# tensor cores or lost their cast launches (PERF.md section 6, this script's
-# phase 3 on an NVIDIA H100 80GB HBM3 at 700.00 W): the scalar bf16 spectral
-# backwards, the bf16 graph conv with its two casts and the scalar bf16
-# spectral forwards. Printed beside this run's times and bounds.
-PARENT_DESIGN_MS = {"spectral_bwd_reread_bf16": 0.68988, "spectral_bwd_bf16": 0.88127,
+# The earlier design's device ms a wrapper call of the redesigned bf16 kernels
+# (PERF.md section 6, this script's phase 3 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W): the bf16 backwards of both storage arms and the bf16-storage
+# saving forward as the earlier mma.sync design ran them, the bf16 graph
+# conv with its two casts and the scalar bf16 spectral forwards. Printed
+# beside this run's times and bounds.
+PARENT_DESIGN_MS = {"spectral_bwd_reread_bf16": 0.23620, "spectral_bwd_bf16": 0.31018,
+                    "spectral_bwd_reread_bf16acts": 0.23375,
+                    "spectral_fwd_save_bf16acts": 0.11184,
                     "cheb_graph_conv_fwd_bf16": 0.00871, "spectral_fwd_bf16": 0.21594,
                     "spectral_fwd_save_bf16": 0.24158}
 
@@ -2204,6 +2221,47 @@ def bf16_chain_route(fn, d1: int):
     return None
 
 
+# The bf16 backward's kernels on Hopper's route, up to D1 = 2048
+# (csrc/spectral.cu `bwd_tc_launch`), and the scalar ones it replaced there.
+BF16_BWD_KERNELS = ("spectral_pack_kernel", "spectral_bwd_rows_tc_kernel",
+                    "spectral_wgrad_wg_kernel")
+SCALAR_BWD_KERNELS = ("spectral_bwd_rows_kernel", "spectral_wgrad_kernel",
+                      "spectral_reduce_kernel", "spectral_bias_kernel", "spectral_dx_kernel")
+
+
+def bf16_bwd_route(fn, d1: int, label: str):
+    """An error message unless one call of fn (a bf16 spectral backward: a
+    reread of either storage arm, or the recompute) launches the kernels of
+    its route, by torch.profiler (by the kernel nodes of a CUDA graph of the
+    call where a profile names no spectral kernel): up to D1 = 2048 the three
+    of `BF16_BWD_KERNELS` and none of the scalar backward's, past it the wide
+    scalar rows kernel and none of the three; also an error where neither
+    can name the kernels. None, and a line printed, where it does."""
+    import re
+
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    def ids(names):
+        return [m.group(1) for nm in names or [] for m in [re.search(r"(spectral_\w+?)[<(]", nm)]
+                if m]
+
+    names = ids(kernels_of_call(fn))
+    if not names:
+        names = ids(kernels_of_graph(fn))
+    if not names:
+        return f"the kernels of the bf16 {label} backward at D1 = {d1} could not be named"
+    if d1 <= cuda_spectral.MMA_MAX_D1:
+        ok = (all(k in names for k in BF16_BWD_KERNELS)
+              and not any(k in names for k in SCALAR_BWD_KERNELS))
+    else:
+        ok = ("spectral_bwd_rows_wide_kernel" in names
+              and not any(k in names for k in BF16_BWD_KERNELS))
+    if not ok:
+        return f"the bf16 {label} backward at D1 = {d1} launches {names}"
+    print(f"[3 kernel] bf16 {label} backward at D1 = {d1}: launches {names}")
+    return None
+
+
 def bf16_redesigns(results, params, mcfg, x):
     """The redesigned bf16 kernels beside the earlier design's times
     (PARENT_DESIGN_MS), their bounds and the f32 arms' times of this run; both
@@ -2216,7 +2274,7 @@ def bf16_redesigns(results, params, mcfg, x):
     from stemgnn_tpu_torch.ops import cuda_graph, cuda_spectral
 
     for name, parent_ms in PARENT_DESIGN_MS.items():
-        f32 = results.get(name[: -len("_bf16")], {}).get("ms")
+        f32 = results.get(name.replace("_bf16acts", "").replace("_bf16", ""), {}).get("ms")
         print(f"[3 kernel] {name}: {results[name]['ms']:.5f} ms a wrapper call (bound "
               f"{results[name]['bound_ms']:.5f}, {results[name]['bound_by']}), the parent "
               f"design's {parent_ms:.5f} (PERF.md), the f32 arm's "

@@ -113,15 +113,16 @@
 // bias gradients sum them unrounded) and u = a * s of the weight gradients,
 // rebuilt from the saved f32 a and s as the forward built it: so the reread
 // backward stays bitwise the recompute backward. Up to D1 = 2048 every bf16
-// kernel runs on tensor cores (mma.sync bf16 x bf16 -> f32: the scalar
-// products exactly, the f32 sums in steps of 16 k): the chain forward
-// (`chain_mma_launch`, below: weight panels staged in shared memory for
-// ldmatrix.trans, two bf16 buffers that the GLUs take in turn), behind both
+// kernel runs on tensor cores (bf16 x bf16 -> f32: the scalar products
+// exactly, the f32 sums in steps of 16 k): the chain forward
+// (`chain_mma_launch`, below: mma.sync, weight panels staged in shared memory
+// for ldmatrix.trans, two bf16 buffers that the GLUs take in turn), behind both
 // forwards and the recompute backward's step 2, and the backwards
-// (`bwd_mma_launch`: da and ds kept as bf16, no weight transposed), which take
-// g as f32 and round it as they stage it. Past D1 = 2048 both run the wide
-// scalar kernels of the f32 arm's design, their bf16 operands converted to
-// f32 (exact) and summed in the f32 arm's fmaf order.
+// (`bwd_tc_launch`: the rows kernel on mma.sync fed by TMA bulk copies, the
+// weight gradients on wgmma, three launches), which take g as f32 and round
+// it as they stage it. Past D1 = 2048 both run the wide scalar kernels of the
+// f32 arm's design, their bf16 operands converted to f32 (exact) and summed
+// in the f32 arm's fmaf order.
 
 // The bf16-storage arm of the bf16 saving pair (`spectral_fwd_save_bf16acts`,
 // `spectral_bwd_reread_bf16acts`): the JAX package's `_kernel_save` with
@@ -130,12 +131,14 @@
 // the storage type a template parameter TA (float by default, which leaves
 // the f32-storage code as it was): the chain kernels round the f32 a and s
 // they already hold to bf16 as they store them (so the planes are bitwise the
-// f32-storage planes rounded, and the output does not change), and the rows
-// kernels' epilogues and the scalar weight-gradient kernel read them back as
-// bf16 and use the rounded values everywhere, u = round(a * s) too, as the
-// TPU kernel upcasts what it reads. Bound: bytes, half the f32 arm's saved
-// arrays (25.8 MB at the flagship shapes). The recompute backward keeps f32
-// planes: the JAX recompute stores nothing.
+// f32-storage planes rounded, and the output does not change; up to D1 =
+// 2048 through a shared staging and TMA bulk stores where it fits), and the
+// rows kernels' epilogues (bulk copies of half the bytes on Hopper's route)
+// and the scalar weight-gradient kernel read them back as bf16 and use the
+// rounded values everywhere, u = round(a * s) too, as the TPU kernel upcasts
+// what it reads. Bound: bytes, half the f32 arm's saved arrays (25.8 MB at
+// the flagship shapes). The recompute backward keeps f32 planes: the JAX
+// recompute stores nothing.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -1188,39 +1191,13 @@ __global__ void spectral_reduce_kernel(const float* __restrict__ part,
   grads[i] = acc;
 }
 
-// ---- the bf16 backward on tensor cores (D1 up to kMmaMaxD1) ----
+// ---- tensor-core helpers of the bf16 kernels (D1 up to kMmaMaxD1) ----
 //
-// Every operand of every product of the bf16 backward is a bf16 value (g, the
-// weights and the inverse DFT's block as the caller hands them, da and ds
-// rounded where the TPU kernel casts them, u = round(a * s)), so Hopper's
-// mma.sync bf16 x bf16 -> f32 computes the scalar kernels' exact products;
-// only the order of the f32 sums differs. Two kernels replace the scalar rows
-// and weight-gradient kernels there:
-//   * `spectral_bwd_rows_mma_kernel`: a block per tile of 16 MT rows and
-//     chain. The tile's cotangent (f32 g rounded to bf16 as it is staged),
-//     then da and ds, sit in shared memory as bf16 [row][k]; warp w owns the
-//     NT n8 column tiles from 8 NT w of every product and keeps its sums in
-//     registers across the barrier that ends the product's reads, so the
-//     elementwise step is the products' epilogue. A weight's row-major
-//     [Din][D1] layout is already the `.col` B operand of da @ Wl^T, so no
-//     weight is transposed: a lane reads its B fragment as 8 bytes from L2
-//     (4 consecutive k of one column) and its A fragment as two 8-byte
-//     shared loads, the k of a step permuted alike in both (slots 2t, 2t+1
-//     hold k 4t, 4t+1 and slots 2t+8, 2t+9 hold 4t+2, 4t+3), which leaves
-//     each product's sum as it is. The inverse DFT is the same product with
-//     the block-diagonal B built on the fly from one [WM][WM] block, over the
-//     k of the warp's orders only. The epilogue writes da and ds (bf16) to a
-//     workspace, round(a * s) of GLUs 0-3 (u of GLUs 2-5) beside them, and
-//     the tile's column sums of the unrounded da, ds for the bias gradients
-//     (a fixed butterfly over the lanes).
-//   * `spectral_wgrad_mma_kernel`: a block per [48, 128] tile of dWl and dWr
-//     of one GLU and one of nsplit row segments; u and da, ds come in
-//     32-row stages of bf16 by cp.async (layer 0's x through registers), two
-//     in flight, and ldmatrix.trans turns the row-major stages into the
-//     fragments of u^T and da. Partials are summed in order by
-//     `spectral_reduce_kernel`, as for the scalar kernels: no atomics.
-// Bound: bytes (the 12 saved f32 arrays read, da and ds written and read
-// back as bf16), against 9.3 GFLOP at the flagship shapes.
+// Every operand of every product of the bf16 arm is a bf16 value, so
+// Hopper's bf16 x bf16 -> f32 tensor-core products compute the scalar
+// kernels' exact products; only the order of the f32 sums differs. The chain
+// forward runs on mma.sync (below), the backward on mma.sync and wgmma fed by
+// TMA (`bwd_tc_launch`, after the forward).
 constexpr int kMmaMaxD1 = 2048;
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 sums
@@ -1242,459 +1219,106 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
                : "memory");
 }
 
-// bf16 elements between two rows of the rows kernel's shared buffers: D1
-// rounded up to 16, then to 32 bytes past a multiple of 128, so that the
-// 8-byte A loads of a half warp (4 rows by 4 lanes) fall on distinct banks
-__host__ __device__ constexpr int mma_stride(int d1) {
-  return ((d1 + 15) / 16 * 32 + 127) / 128 * 64 + 16;
-}
-
-// bf16 elements a row of the da, ds and u workspaces (16-byte rows)
-__host__ __device__ constexpr long mma_ld(int d1) { return (d1 + 7) / 8 * 8; }
-
-// acc[mt][nt] = sum over k of A[r0 + 16 mt + i][k] * Bnk[n0 + 8 nt + j][k]:
-// the halves (a0, b0) then (a1, b1) (b: [nn][kin] row-major, the weights'
-// own layout), k ascending in steps of 16 up to kin rounded to 16 (A zero
-// past kin). B comes from L2: kDepth - 1 steps of it in flight in a ring of
-// registers, as deep as the block's register budget leaves room for (MT = 5:
-// one block an SM, 255 registers a thread; else 128).
-template <int MT, int NT>
-__device__ __forceinline__ void rows_mma_product(const bf16* a0, const bf16* a1, int S, int r0,
-                                                 const bf16* __restrict__ b0,
-                                                 const bf16* __restrict__ b1, int nn, int kin,
-                                                 int n0, float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  if (n0 >= nn) return;  // a warp past the columns
-  constexpr int kDepth = MT >= 5 ? 4 : NT <= 8 ? 2 : 1;
-  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
-  const int ksteps = (kin + 15) / 16, steps = 2 * ksteps;
-  auto load = [&](int s, uint2 (&b)[NT]) {
-    const bf16* w = s < ksteps ? b0 : b1;
-    const int k = (s < ksteps ? s : s - ksteps) * 16 + 4 * tq;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = n0 + 8 * nt + gq;
-      b[nt] = n < nn && k < kin ? __ldg(reinterpret_cast<const uint2*>(w + (long)n * kin + k))
-                                : make_uint2(0u, 0u);
-    }
-  };
-  uint2 ring[kDepth][NT];
-#pragma unroll
-  for (int u = 0; u + 1 < kDepth; ++u)
-    if (u < steps) load(u, ring[u]);
-  for (int s0 = 0; s0 < steps; s0 += kDepth) {
-#pragma unroll
-    for (int u = 0; u < kDepth; ++u) {
-      const int s = s0 + u;
-      if (s >= steps) break;
-      if (s + kDepth - 1 < steps) load(s + kDepth - 1, ring[(u + kDepth - 1) % kDepth]);
-      const bf16* a = (s < ksteps ? a0 : a1) + (s < ksteps ? s : s - ksteps) * 16 + 4 * tq;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const uint2 lo = *reinterpret_cast<const uint2*>(a + (r0 + 16 * mt + gq) * S);
-        const uint2 hi = *reinterpret_cast<const uint2*>(a + (r0 + 16 * mt + gq + 8) * S);
-        const uint32_t frag[4] = {lo.x, hi.x, lo.y, hi.y};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_bf16(acc[mt][nt], frag, ring[u][nt].x, ring[u][nt].y);
-      }
-    }
-  }
-}
-
-// The inverse DFT backwards as the same product: acc[mt][nt] = dR of the
-// warp's columns, B[n][k] = idft[n % WM][k % WM] where n and k lie in one
-// order's window (Ci, Si symmetric), else 0; k only over the windows of the
-// warp's columns.
-template <int MT, int NT>
-__device__ __forceinline__ void rows_mma_idft(const bf16* gt, int S, const bf16* __restrict__ idft,
-                                              int WM, int d1, int n0, float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  if (n0 >= d1) return;
-  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
-  const int last = min(d1, n0 + 8 * NT) - 1;
-  const int kb = n0 / WM * WM / 16 * 16;
-  const int ke = min((d1 + 15) / 16 * 16, ((last / WM + 1) * WM + 15) / 16 * 16);
-  int lo[NT];        // the first k of each column's window (past every k: none)
-  const bf16* src[NT];  // that window's row of the block
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int n = n0 + 8 * nt + gq;
-    lo[nt] = n < d1 ? n / WM * WM : INT_MAX / 2;
-    src[nt] = idft + (n < d1 ? (n % WM) * WM : 0);
-  }
-  for (int k = kb; k < ke; k += 16) {
-    uint2 b[NT];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      unsigned short v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = k + 4 * tq + q - lo[nt];
-        v[q] = j >= 0 && j < WM ? __bfloat16_as_ushort(src[nt][j]) : (unsigned short)0;
-      }
-      b[nt] = make_uint2(v[0] | (unsigned)v[1] << 16, v[2] | (unsigned)v[3] << 16);
-    }
-    const bf16* a = gt + k + 4 * tq;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const uint2 lo2 = *reinterpret_cast<const uint2*>(a + (16 * mt + gq) * S);
-      const uint2 hi2 = *reinterpret_cast<const uint2*>(a + (16 * mt + gq + 8) * S);
-      const uint32_t frag[4] = {lo2.x, hi2.x, lo2.y, hi2.y};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], frag, b[nt].x, b[nt].y);
-    }
-  }
-}
-
-// The epilogue of GLU gi on the warp's product tile acc (the cotangent of its
-// output): da = d * s, ds = d * a * (s * (1 - s)) with a, s of GLU gi (f32,
-// [rows_pad][d1]); da, ds rounded to bf16 into the shared buffers (every row
-// of the tile: zeros past rows_pad) and into da_g, ds_g ([rows_pad][ld]); with
-// u_g, round(a * s) there too (u of GLU gi + 2); the column sums of the
-// unrounded da, ds over the tile's rows into bias (ds's d1 further on): a
-// lane's rows in order, then a fixed butterfly over the 8 lanes of a column.
-// a_g, s_g of the storage type TA: f32, or bf16 (the bf16-storage arm: every
-// use of a and s, u = round(a * s) too, takes the rounded values, as the JAX
-// package's `_bwd_kernel_reread` upcasts what it reads).
-template <int MT, int NT, typename TA = float>
-__device__ __forceinline__ void rows_mma_epilogue(
-    const float (&acc)[MT][NT][4], int n0, int d1, int S, long row0, long rows_pad, long ld,
-    const TA* __restrict__ a_g, const TA* __restrict__ s_g, bf16* __restrict__ da_g,
-    bf16* __restrict__ ds_g, bf16* __restrict__ u_g, bf16* da, bf16* ds,
-    float* __restrict__ bias) {
-  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
-  float sa[NT][2] = {}, ss[NT][2] = {};  // the column sums of the lane's rows
-  constexpr int kG = NT < 4 ? NT : 4;  // column tiles whose a, s loads fly together
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int ng = 0; ng < NT; ng += kG) {
-      // a, s of the 16 rows' kG column pairs, all loads in flight before any use
-      float2 av[kG][2], sv[kG][2];
-#pragma unroll
-      for (int i = 0; i < kG; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int col = n0 + 8 * (ng + i) + 2 * tq;
-          const long row = row0 + 16 * mt + gq + 8 * h;
-          const bool in = col < d1 && row < rows_pad;
-          if constexpr (std::is_same<TA, float>::value) {
-            av[i][h] = in ? __ldg(reinterpret_cast<const float2*>(a_g + row * d1 + col))
-                          : make_float2(0.f, 0.f);
-            sv[i][h] = in ? __ldg(reinterpret_cast<const float2*>(s_g + row * d1 + col))
-                          : make_float2(0.f, 0.f);
-          } else {
-            av[i][h] = in ? __bfloat1622float2(__ldg(
-                                reinterpret_cast<const __nv_bfloat162*>(a_g + row * d1 + col)))
-                          : make_float2(0.f, 0.f);
-            sv[i][h] = in ? __bfloat1622float2(__ldg(
-                                reinterpret_cast<const __nv_bfloat162*>(s_g + row * d1 + col)))
-                          : make_float2(0.f, 0.f);
-          }
-        }
-#pragma unroll
-      for (int i = 0; i < kG; ++i) {
-        const int nt = ng + i;
-        const int col = n0 + 8 * nt + 2 * tq;
-        const bool live = col < d1;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * mt + gq + 8 * h;
-          const long row = row0 + r;
-          const bool in = live && row < rows_pad;
-          const float2 a = av[i][h], s = sv[i][h];
-          const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-          const float va0 = v0 * s.x, va1 = v1 * s.y;
-          const float vs0 = v0 * a.x * (s.x * (1.f - s.x)), vs1 = v1 * a.y * (s.y * (1.f - s.y));
-          sa[nt][0] += va0;
-          sa[nt][1] += va1;
-          ss[nt][0] += vs0;
-          ss[nt][1] += vs1;
-          const uint32_t pa = pack_bf16x2(va0, va1), ps = pack_bf16x2(vs0, vs1);
-          if (live) {
-            *reinterpret_cast<uint32_t*>(da + r * S + col) = pa;
-            *reinterpret_cast<uint32_t*>(ds + r * S + col) = ps;
-          }
-          if (in) {
-            *reinterpret_cast<uint32_t*>(da_g + row * ld + col) = pa;
-            *reinterpret_cast<uint32_t*>(ds_g + row * ld + col) = ps;
-            if (u_g != nullptr)
-              *reinterpret_cast<uint32_t*>(u_g + row * ld + col) =
-                  pack_bf16x2(a.x * s.x, a.y * s.y);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = n0 + 8 * nt + 2 * tq;
-#pragma unroll
-    for (int off = 4; off < 32; off *= 2) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        sa[nt][q] += __shfl_xor_sync(0xffffffffu, sa[nt][q], off);
-        ss[nt][q] += __shfl_xor_sync(0xffffffffu, ss[nt][q], off);
-      }
-    }
-    if (col < d1 && gq == 0) {  // the same for the 8 lanes of a column pair
-      *reinterpret_cast<float2*>(bias + col) = make_float2(sa[nt][0], sa[nt][1]);
-      *reinterpret_cast<float2*>(bias + d1 + col) = make_float2(ss[nt][0], ss[nt][1]);
-    }
-  }
-}
-
 // Starts bringing `bytes` (a multiple of 16, 16-byte aligned) from p into L2
 // (the TMA's bulk prefetch: one thread, no registers, nothing to wait for).
 __device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(bytes) : "memory");
 }
 
-// One tile of 16 MT rows of one chain (blockIdx.y): g (f32 [B,K,N,WM]) ->
-// dR (dI) -> the chain's three GLUs backwards -> the chain's part of dx, dxc
-// [2][rows_pad][D0] f32; da, ds of the chain's GLUs to dacts (bf16, 12 planes
-// of dplane, [rows_pad][ld]), u of GLUs 2-5 to us (4 planes), the tile's
-// column sums to bpart [tiles][12][D1]. blockDim.x: 32 per NT n8 tiles
-// of D1 (`rows_mma_threads`). acts: the saved planes, of the storage type TA
-// (f32, or bf16 for the bf16-storage arm: half the bytes to read).
-template <int MT, int NT, typename TA = float>
-__global__ void __launch_bounds__(NT == 4 ? 256 : 512, NT == 4 && MT <= 4 ? 2 : 1)
-spectral_bwd_rows_mma_kernel(const float* __restrict__ g, const TA* __restrict__ acts,
-                             long plane, bf16* __restrict__ dacts, bf16* __restrict__ us,
-                             long dplane, long ld, long rows_pad, GluWeights<bf16> w,
-                             const bf16* __restrict__ ci, const bf16* __restrict__ si,
-                             float* __restrict__ dxc, float* __restrict__ bpart, int B, int K,
-                             int N, int W, int WM) {
-  constexpr int TM = 16 * MT;
-  extern __shared__ __align__(16) float smem[];
-  const int d0 = K * W, d1 = K * WM, S = mma_stride(d1), kp = (d1 + 15) / 16 * 16;
-  bf16* da = reinterpret_cast<bf16*>(smem);  // [TM][S]: the cotangent tile, then da
-  bf16* ds = da + TM * S;                    // [TM][S]
-  const long rows = (long)B * N;
-  const int chain = blockIdx.y;
-  const long row0 = (long)blockIdx.x * TM;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  // the cotangent tile, a row a warp at a time: each order's WM values of a
-  // row are contiguous in g
-  for (int r = threadIdx.x / 32; r < TM; r += blockDim.x / 32) {
-    const long row = row0 + r;
-    const bool live = row < rows;
-    const float* gr = g + (live ? (row / N * K * N + row % N) * WM : 0);
-    for (int kk = 0; kk < K; ++kk)
-      for (int m = threadIdx.x % 32; m < WM; m += 32)
-        da[r * S + kk * WM + m] = __float2bfloat16_rn(live ? gr[(long)kk * N * WM + m] : 0.f);
-    for (int col = d1 + threadIdx.x % 32; col < kp; col += 32) {
-      da[r * S + col] = zero;
-      ds[r * S + col] = zero;  // ds's pad columns: zero for good
-    }
-  }
-  // a and s of a GLU, read by its epilogue, into L2 a product ahead (the 12
-  // saved arrays are more than L2 holds: they come from device memory)
-  const unsigned tile_bytes = (unsigned)(min((long)TM, rows_pad - row0) * d1 * sizeof(TA));
-  auto prefetch_acts = [&](int gi) {
-    if (threadIdx.x == 0) {
-      prefetch_l2(acts + (2 * gi) * plane + row0 * d1, tile_bytes);
-      prefetch_l2(acts + (2 * gi + 1) * plane + row0 * d1, tile_bytes);
-    }
-  };
-  prefetch_acts(4 + chain);
-  prefetch_acts(2 + chain);
-  __syncthreads();
+// --- the TMA's bulk copies and the mbarriers that count them ---
 
-  const int n0 = threadIdx.x / 32 * NT * 8;
-  float acc[MT][NT][4];
-  rows_mma_idft<MT, NT>(da, S, chain == 0 ? ci : si, WM, d1, n0, acc);
-  __syncthreads();  // every read of the cotangent tile is done
-  for (int layer = 2; layer >= 0; --layer) {
-    const int gi = 2 * layer + chain;
-    if (layer == 2) prefetch_acts(chain);
-    rows_mma_epilogue<MT, NT, TA>(acc, n0, d1, S, row0, rows_pad, ld, acts + (2 * gi) * plane,
-                                  acts + (2 * gi + 1) * plane, dacts + (2 * gi) * dplane,
-                                  dacts + (2 * gi + 1) * dplane,
-                              gi < 4 ? us + gi * dplane : nullptr, da, ds,
-                              bpart + ((long)blockIdx.x * 12 + 2 * gi) * d1);
-    __syncthreads();
-    if (layer > 0) {
-      rows_mma_product<MT, NT>(da, ds, S, 0, w.wl[gi], w.wr[gi], d1, d1, n0, acc);
-      __syncthreads();  // every read of da, ds is done before they are rewritten
-    } else {
-      // into the input space: D0 columns, an n8 column tile a warp at a time
-      const int lane = threadIdx.x % 32;
-      float* dst = dxc + chain * rows_pad * d0;
-      for (int c0 = threadIdx.x / 32 * 8; c0 < d0; c0 += blockDim.x / 4) {
-        float out[MT][1][4];
-        rows_mma_product<MT, 1>(da, ds, S, 0, w.wl[gi], w.wr[gi], d0, d1, c0, out);
-        const int col = c0 + 2 * (lane % 4);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const long row = row0 + 16 * mt + lane / 4 + 8 * h;
-            if (row < rows_pad && col < d0)
-              *reinterpret_cast<float2*>(dst + row * d0 + col) =
-                  make_float2(out[mt][0][2 * h], out[mt][0][2 * h + 1]);
-          }
-      }
-    }
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// an mbarrier of shared memory expecting `count` arrivals a phase
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// the barriers initialised are visible to the copy engine (call after the inits)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also expects `bytes` of bulk copies in this phase
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// true where the phase of parity `parity` of bar has completed (no waiting)
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Polls of a barrier before a wait gives up: each try_wait blocks for up to
+// a hardware time slice, so this is seconds. A wait that runs out traps (the
+// launch fails with an error) rather than leaving the card hung.
+constexpr unsigned kMbarPolls = 1u << 24;
+
+// waits until the phase of parity `parity` of bar has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (unsigned n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == kMbarPolls) __trap();
   }
 }
 
-// threads of a block of the mma rows kernel: a warp per NT n8 tiles of D1
-__host__ __device__ inline int rows_mma_threads(int d1, int nt) {
-  return ((d1 + 7) / 8 + nt - 1) / nt * 32;
+
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
+// into this block's shared memory, counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// bytes of shared memory of a block of the mma rows kernel: da, ds of 16 MT rows
-__host__ __device__ inline int rows_mma_smem(int d1, int mt) {
-  return 2 * 16 * mt * mma_stride(d1) * (int)sizeof(bf16);
+// the same from shared memory into device memory, in the thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
-constexpr int kMK = 48;    // k rows (of the GLU's input) of a weight-gradient tile
-constexpr int kMC = 128;   // columns of a weight-gradient tile
-constexpr int kMR = 32;    // rows a stage: two steps of 16
-constexpr int kMUS = 56;   // bf16 between two rows of a stage's u: 7 x 16 bytes
-constexpr int kMDS = 136;  // the same for da, ds: 17 x 16 bytes (ldmatrix rows on distinct banks)
-constexpr int kMStage = kMR * (kMUS + 2 * kMDS);  // bf16 of a stage
-constexpr int kMThreads = 256;                    // 8 warps: two n8 tiles of the 128 columns each
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
 
-// blockIdx: x = k tile * column tiles + column tile, y = GLU, z = row
-// segment. part: [gridDim.z][total] partial gradients in the flat layout. u:
-// x (bf16 [B,K,N,W]) for GLUs 0, 1, else us plane gi - 2; da, ds: dacts
-// planes 2 gi, 2 gi + 1 ([rows_pad][ld] bf16).
-__global__ void __launch_bounds__(kMThreads, 2)
-spectral_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ us,
-                          const bf16* __restrict__ dacts, long dplane, long ld, long rows_pad,
-                          float* __restrict__ part, long total, int chunks, int chunks_per_seg,
-                          int B, int K, int N, int W, int WM) {
-  extern __shared__ __align__(16) float smem[];
-  bf16* const sm = reinterpret_cast<bf16*>(smem);
-  const int d0 = K * W, d1 = K * WM;
-  const int gi = blockIdx.y;
-  const int din = gi < 2 ? d0 : d1;
-  const int ctiles = (d1 + kMC - 1) / kMC;
-  const int k0 = blockIdx.x / ctiles * kMK, c0 = blockIdx.x % ctiles * kMC;
-  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles
-  const long rows = (long)B * N;
-  const bf16* u_src = gi < 2 ? nullptr : us + (gi - 2) * dplane;
-  const bf16* da_src = dacts + (2 * gi) * dplane;
-  const bf16* ds_src = dacts + (2 * gi + 1) * dplane;
+// every bulk store this thread committed has read its shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
 
-  // stage st: su [kMR][kMUS] (u, kMK columns), sa and ss [kMR][kMDS] (kMC columns)
-  auto issue = [&](int ch, int st) {
-    bf16* su = sm + st * kMStage;
-    bf16* sa = su + kMR * kMUS;
-    bf16* ss = sa + kMR * kMDS;
-    const long r0 = (long)ch * kMR;
-    for (int e = threadIdx.x; e < kMR * (kMK / 4); e += blockDim.x) {
-      const int r = e / (kMK / 4), q = 4 * (e % (kMK / 4));
-      const long row = r0 + r;
-      const int k = k0 + q;
-      bf16* dst = su + r * kMUS + q;
-      if (row >= rows_pad || k >= din || (gi < 2 && row >= rows)) {
-        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
-      } else if (gi < 2) {
-        const long b = row / N, n = row % N;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dst[j] = x[((b * K + (k + j) / W) * N + n) * W + (k + j) % W];
-      } else {
-        cp_async8(dst, u_src + row * ld + k);
-      }
-    }
-    for (int e = threadIdx.x; e < kMR * (kMC / 8); e += blockDim.x) {
-      const int r = e / (kMC / 8), q = 8 * (e % (kMC / 8));
-      const long row = r0 + r;
-      const int c = c0 + q;
-      bf16* da_dst = sa + r * kMDS + q;
-      bf16* ds_dst = ss + r * kMDS + q;
-      if (row >= rows_pad || c >= d1) {
-        *reinterpret_cast<uint4*>(da_dst) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(ds_dst) = make_uint4(0u, 0u, 0u, 0u);
-      } else if (c + 8 <= d1) {
-        cp_async16(da_dst, da_src + row * ld + c);
-        cp_async16(ds_dst, ds_src + row * ld + c);
-      } else {  // D1 % 8 == 4: the last run of 4 columns
-        cp_async8(da_dst, da_src + row * ld + c);
-        cp_async8(ds_dst, ds_src + row * ld + c);
-        *reinterpret_cast<uint2*>(da_dst + 4) = make_uint2(0u, 0u);
-        *reinterpret_cast<uint2*>(ds_dst + 4) = make_uint2(0u, 0u);
-      }
-    }
-  };
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
-  const int cn = min(kMC, d1 - c0);
-  const bool live = 16 * warp < cn;
-  // ldmatrix rows: matrix lane / 8, row lane % 8
-  const int mrow = lane % 8, mat = lane / 8;
-  float accl[3][2][4] = {}, accr[3][2][4] = {};
-  const int ch0 = blockIdx.z * chunks_per_seg;
-  const int ch1 = min(chunks, ch0 + chunks_per_seg);
-  // a ring of three stages, two in flight (as `spectral_wgrad_kernel`)
-  if (ch0 < ch1) issue(ch0, 0);
-  cp_async_commit();
-  if (ch0 + 1 < ch1) issue(ch0 + 1, 1);
-  cp_async_commit();
-  for (int ch = ch0; ch < ch1; ++ch) {
-    cp_async_wait_group<1>();
-    __syncthreads();
-    if (ch + 2 < ch1) issue(ch + 2, (ch - ch0 + 2) % 3);
-    cp_async_commit();
-    const bf16* su = sm + ((ch - ch0) % 3) * kMStage;
-    const bf16* sa = su + kMR * kMUS;
-    const bf16* ss = sa + kMR * kMDS;
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < kMR; kk += 16) {
-        uint32_t a[3][4], bl[4], br[4];
-        // u^T's fragments: matrices (rows kk..+7, k 0-7), (kk..+7, k 8-15),
-        // (kk+8.., k 0-7), (kk+8.., k 8-15) of each 16 k
-#pragma unroll
-        for (int mt = 0; mt < 3; ++mt)
-          ldsm_x4_trans(a[mt], su + (kk + mat / 2 * 8 + mrow) * kMUS + 16 * mt + mat % 2 * 8);
-        // da's: (rows kk..+7, n 0-7), (kk+8.., n 0-7), (kk.., n 8-15), (kk+8.., n 8-15)
-        const int boff = (kk + mat % 2 * 8 + mrow) * kMDS + 16 * warp + mat / 2 * 8;
-        ldsm_x4_trans(bl, sa + boff);
-        ldsm_x4_trans(br, ss + boff);
-#pragma unroll
-        for (int mt = 0; mt < 3; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            mma_bf16(accl[mt][nt], a[mt], bl[2 * nt], bl[2 * nt + 1]);
-            mma_bf16(accr[mt][nt], a[mt], br[2 * nt], br[2 * nt + 1]);
-          }
-      }
-    }
-  }
-  if (!live) return;
-  float* base = part + (long)blockIdx.z * total + glu_grad_offset(gi, d0, d1);
-  float* pwl = base;
-  float* pwr = pwl + (long)din * d1 + d1;
-#pragma unroll
-  for (int mt = 0; mt < 3; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long k = k0 + 16 * mt + gq + 8 * h;
-        const int c = c0 + 16 * warp + 8 * nt + 2 * tq;
-        if (k < din && c < d1) {
-          *reinterpret_cast<float2*>(pwl + k * d1 + c) =
-              make_float2(accl[mt][nt][2 * h], accl[mt][nt][2 * h + 1]);
-          *reinterpret_cast<float2*>(pwr + k * d1 + c) =
-              make_float2(accr[mt][nt][2 * h], accr[mt][nt][2 * h + 1]);
-        }
-      }
+// this thread's writes to shared memory are visible to the copy engine and
+// the tensor cores (the async proxy): before a bulk store or wgmma reads them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // ---- the bf16 chain forward on tensor cores (D1 up to kMmaMaxD1) ----
@@ -1726,6 +1350,14 @@ spectral_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u
 //     the fast intrinsics), writes them with kSave (the f32 planes the
 //     backward reads, as streaming stores: 51.6 MB at the flagship, more than
 //     L2 holds) and round(a * s) into the other buffer;
+//   * the bf16-storage arm (TA = bf16) stages each GLU's a and s of the tile,
+//     rounded, in shared memory as the planes lay them out ([rows][D1]: the
+//     tile's rows are one contiguous run of a plane) and writes each with one
+//     TMA bulk store (cp.async.bulk) after the GLU's last pass, while the next
+//     GLU's products run; the next epilogue waits for the store's reads of the
+//     staging before it writes there. Where the staging does not fit beside
+//     the plan's buffers (`stage_acts` 0: D1 past about a thousand) each lane
+//     stores its pairs itself, cached in L2 only;
 //   * with kOut the two blocks of a row tile join as the scalar kernel's do:
 //     each copies the other chain's last buffer through distributed shared
 //     memory and computes half of the output's n8 tiles as one product over
@@ -1839,14 +1471,15 @@ __device__ __forceinline__ void idft_fwd_mma(const bf16* re, const bf16* im, int
 // [rows_pad][D1], `plane` elements apart, of the storage type TA: f32, or
 // bf16 rounded from the same f32 values).
 // blockDim.x: 32 per NT n8 tiles of a column pass; kp: k rows of a weight
-// panel (a multiple of 16), `stages` of them in the ring.
+// panel (a multiple of 16), `stages` of them in the ring; stage_acts (bf16
+// planes only): the planes go through the shared staging by bulk stores.
 template <int MT, int NT, bool kSave, bool kOut, typename TA = float>
 __global__ void __launch_bounds__(chain_mma_bound(MT), 1)
 spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
                           const bf16* __restrict__ ci, const bf16* __restrict__ si,
                           float* __restrict__ out, TA* __restrict__ acts, long plane,
-                          long rows_pad, int kp, int stages, int B, int K, int N, int W,
-                          int WM) {
+                          long rows_pad, int kp, int stages, int stage_acts, int B, int K,
+                          int N, int W, int WM) {
   constexpr int TM = 16 * MT;
   extern __shared__ __align__(16) float smem[];
   const int d0 = K * W, d1 = K * WM, S = ldsm_stride(d1);
@@ -1856,6 +1489,9 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
   bf16* const buf0 = reinterpret_cast<bf16*>(smem);  // [TM][S]: x, then GLU 1's output
   bf16* const buf1 = buf0 + TM * S;                  // [TM][S]: GLU 0's, then GLU 2's
   bf16* const panels = buf1 + TM * S;                // [stages][2][kp][pws]: Wl's, Wr's rows
+  // the bf16 planes' staging, [2][TM][d1]: a, then s (bf16 storage with stage_acts)
+  constexpr bool kBulk = kSave && !std::is_same<TA, float>::value;
+  bf16* const stg = panels + stages * 2 * kp * pws;
   const long rows = (long)B * N;
   const int chain = blockIdx.x & 1;
   const long row0 = (long)(blockIdx.x >> 1) * TM;
@@ -1985,6 +1621,13 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
         cp_async_commit();
         if (++slot == stages) slot = 0;
       }
+      if constexpr (kBulk) {
+        // the last GLU's bulk stores have read the staging before it is rewritten
+        if (stage_acts && layer > 0 && p == 0) {
+          if (threadIdx.x == 0) bulk_wait_read();
+          __syncthreads();
+        }
+      }
       if (!busy) continue;
       // the epilogue: a, s in f32 (saved), round(a * s) into the other buffer
       // (the last GLU's only where the inverse DFT reads it)
@@ -2012,10 +1655,11 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
                 if constexpr (std::is_same<TA, float>::value) {
                   __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), make_float2(a0, a1));
                   __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), make_float2(s0, s1));
+                } else if (stage_acts) {  // bf16 planes through the staging
+                  *reinterpret_cast<uint32_t*>(stg + r * d1 + col) = pack_bf16x2(a0, a1);
+                  *reinterpret_cast<uint32_t*>(stg + (TM + r) * d1 + col) = pack_bf16x2(s0, s1);
                 } else {
-                  // bf16 planes: a pair as one word, cached in L2 only (faster
-                  // than streaming stores here, and than 8-byte stores after an
-                  // exchange between the lanes of a pair: PERF.md, PR 12)
+                  // bf16 planes, no staging: a pair as one word, cached in L2 only
                   __stcg(reinterpret_cast<unsigned int*>(ga + row * d1 + col), pack_bf16x2(a0, a1));
                   __stcg(reinterpret_cast<unsigned int*>(gs + row * d1 + col), pack_bf16x2(s0, s1));
                 }
@@ -2024,6 +1668,26 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
           }
       }
     }
+    if constexpr (kBulk) {
+      if (stage_acts) {
+        // every warp's a, s of the GLU are staged: one bulk store each, read
+        // by the copy engine while the next GLU's products run
+        fence_proxy_async();
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          const long n = min((long)TM, rows_pad - row0);
+          if (n > 0) {
+            const unsigned bytes = (unsigned)(n * d1 * sizeof(bf16));
+            bulk_store(acts + (2 * gi) * plane + row0 * d1, stg, bytes);
+            bulk_store(acts + (2 * gi + 1) * plane + row0 * d1, stg + TM * d1, bytes);
+          }
+          bulk_commit();
+        }
+      }
+    }
+  }
+  if constexpr (kBulk) {
+    if (stage_acts && threadIdx.x == 0) bulk_wait_read();  // before the block's shared memory goes
   }
 
   if constexpr (kOut) {
@@ -2073,6 +1737,815 @@ spectral_chain_mma_kernel(const bf16* __restrict__ x, GluWeights<bf16> g,
           }
         }
     }
+  }
+}
+
+// ---- the bf16 backward on Hopper (D1 up to kMmaMaxD1) ----
+//
+// Three launches a call (`bwd_tc_launch`), every sum in one fixed order, no
+// atomics:
+//   * `spectral_pack_kernel` lays the twelve weights out as the rows kernel's
+//     B operand: per chain one stream of items, an item the mma.sync B
+//     fragments of P k16 steps by NT n8 tiles of one warp, in the order that
+//     warp sums them (`tc_stream`). A warp then reads a fragment as one
+//     8-byte shared load, and an item is one bulk copy.
+//   * `spectral_bwd_rows_tc_kernel`: clusters of 2 blocks, the real and the
+//     imaginary chain of one range of 16-row m tiles; as many clusters as
+//     half the card's SMs where the rows allow, the ranges balanced to a tile
+//     (every SM busy at the flagship: 132 blocks, 4 or 5 m tiles each). Warp
+//     w of W owns NT n8 column tiles of every product (mma.sync m16n8k16, A
+//     by ldmatrix from the tile's da, ds in shared memory, B from the item);
+//     warp W is the producer: TMA bulk copies (cp.async.bulk) keep the
+//     weight items in flight in a ring of R shared slots, R / W a warp (a
+//     warp's items take its slots in turn, so no warp waits on a slot whose
+//     last use it has not consumed itself: an mbarrier's parity tells only
+//     two uses apart), a full and an empty mbarrier a slot, and ahead of
+//     each GLU's epilogue bring the
+//     saved a and s of each m tile (16 rows by D1, contiguous in the planes:
+//     half the bytes where they are bf16) into a ring of two slots, where
+//     two fit the block's shared memory (`stage_acts`; else the epilogue
+//     reads them from L2, prefetched a product ahead). The epilogue writes
+//     da and ds (bf16) for the next product, and through a warp's scratch
+//     into the weight gradients' transposed planes (below) with u = round(a
+//     * s) of GLUs 0-3 beside them, and the column sums of the unrounded da,
+//     ds over the block's rows for the bias gradients. dx = real part +
+//     imaginary part: the imaginary block's part is read by the real one
+//     from its shared memory in the cluster (no dx kernel).
+//   * `spectral_wgrad_wg_kernel`: wgmma m64n128k16, both operands from
+//     shared memory, of u^T by da (warpgroup 0, dWl) and by ds (warpgroup 1,
+//     dWr): a block per GLU, 128 input features (two m64 halves) and 128
+//     columns, for one of C row segments; the C segments are a cluster. A
+//     producer warp feeds a ring of 64-row stages by bulk copies. The
+//     segments' sums, and the bias gradients from the rows kernel's column
+//     sums, are added in rank order through distributed shared memory and
+//     written to the gradients: no reduce or bias kernel.
+// The transposed planes (da, ds of the six GLUs, u of GLUs 2-5, x^T for
+// layer 0) are wgmma's K-major layout without swizzle: chunks of 64 rows; a
+// chunk ceil(F / 8) groups of 8 features, 1 KB each; a group 8 k-groups of 8
+// rows, 128 bytes each; a k-group 8 features by 16 bytes (8 consecutive
+// rows). So a stage is one bulk copy an operand, its core matrices 128 bytes
+// apart along K and 1 KB apart along M or N. Rows past rows_pad, to a
+// multiple of 64, are zeros. Bound: bytes at the flagship (the 12 saved
+// arrays read), against 9.4 GFLOP.
+constexpr int kTR = 64;            // rows of a chunk of the transposed planes
+constexpr int kTcBarBytes = 1024;  // the mbarriers at the head of a block's shared memory
+constexpr int kTcMaxRing = (kTcBarBytes / 8 - 4) / 2;  // weight items in a rows block's ring
+constexpr int kWgM = 128, kWgN = 128;  // input features and columns of a weight-gradient block
+constexpr int kWgStages = 4;           // its ring of 64-row stages
+constexpr int kWgStage = (kWgM + 2 * kWgN) * kTR * 2;  // bytes of a stage: u^T, da, ds
+constexpr int kWgThreads = 288;        // two consumer warpgroups and a producer warp
+constexpr int kWgMaxCluster = 8;       // row segments a cluster (the portable size)
+
+__host__ __device__ inline long rows_pad64(long rows) { return (rows + kTR - 1) / kTR * kTR; }
+
+// bytes of a 64-row chunk of a transposed plane of f features
+__host__ __device__ inline long tchunk_bytes(int f) { return (long)((f + 7) / 8) * 1024; }
+
+// the byte offset of (row, feature c) in a transposed plane of f features
+__device__ __forceinline__ long toff(long row, int c, int f) {
+  return row / kTR * tchunk_bytes(f) + (c / 8) * 1024 + (row % kTR) / 8 * 128 + (c % 8) * 16 +
+         (row % 8) * 2;
+}
+
+// A rows block of NT n8 tiles a warp (4, 5, 8, 16 or 32): its most 16-row m
+// tiles (its accumulators: MT NT 4 floats), its most consumer warps and its
+// launch bound (with the producer warp; the registers a thread may have are
+// 64K over the bound rounded up to 4 warps: 255 at 256 threads, 168 at 384,
+// 128 at 512).
+__host__ __device__ constexpr int tc_max_mt(int nt) { return nt <= 5 ? 5 : nt == 8 ? 2 : 1; }
+__host__ __device__ constexpr int tc_max_warps(int nt) {
+  return nt <= 5 ? 7 : nt == 32 ? 11 : 15;
+}
+__host__ __device__ constexpr int tc_bound(int nt) { return 32 * (tc_max_warps(nt) + 1); }
+
+// One chain's weight stream, four products in the order the rows kernel
+// sums them: the inverse DFT (K = D1, the cotangent's columns: `isteps` k16
+// steps in `ichunks` groups of p), then layers 2 and 1 (K = 2 kp, da's
+// columns then ds's: `steps` k16 steps in `chunks` groups) with D1 outputs
+// on w warps of nt n8 tiles, then layer 0 with D0 outputs on w0 warps of
+// nt0 tiles; within a group the warps in order.
+struct TcStream {
+  int isteps, ichunks, steps, chunks, w, w0, nt0, items;
+};
+
+__host__ __device__ inline TcStream tc_stream(int d0, int d1, int nt, int p) {
+  TcStream s;
+  s.isteps = (d1 + 15) / 16;
+  s.ichunks = (s.isteps + p - 1) / p;
+  s.steps = 2 * s.isteps;
+  s.chunks = (s.steps + p - 1) / p;
+  const int ct = (d1 + 7) / 8, ct0 = (d0 + 7) / 8;
+  s.w = (ct + nt - 1) / nt;
+  s.nt0 = (ct0 + s.w - 1) / s.w;
+  s.w0 = (ct0 + s.nt0 - 1) / s.nt0;
+  s.items = s.ichunks * s.w + s.chunks * (2 * s.w + s.w0);
+  return s;
+}
+
+// The first item of product q (0: the inverse DFT, 1-3: layers 2, 1, 0) in a
+// chain's stream, and the warps and n8 tiles a warp of its items.
+__host__ __device__ inline int tc_first(const TcStream& s, int q) {
+  return q == 0 ? 0 : s.ichunks * s.w + (q - 1) * s.chunks * s.w;
+}
+
+// packed: [2 chains][items][p][nt][32 lanes] of uint2, item i of a chain as
+// `tc_stream` orders them; lane (g, t) of n8 tile j at k16 step s holds
+// (B[k][n], B[k + 1][n]) and (B[k + 8][n], B[k + 9][n]) for n = 8 j + g, k =
+// 16 s' + 2 t (s' the step within da's or ds's half): for the GLUs B[k][n] =
+// Wl[n][k] (ds's half: Wr), for the inverse DFT of chain c B[k][n] =
+// idft[n % WM][k % WM] where k and n lie in one order's window (idft: Ci for
+// the real chain, Si for the imaginary one, both symmetric), zero past the
+// matrices. Then x^T, the transposed plane of layer 0's weight gradients
+// (x [B,K,N,W] bf16 to `xt`, rows64 rows of D0 features).
+__global__ void spectral_pack_kernel(GluWeights<bf16> g, const bf16* __restrict__ ci,
+                                     const bf16* __restrict__ si, const bf16* __restrict__ x,
+                                     uint2* __restrict__ packed, unsigned char* __restrict__ xt,
+                                     long rows64, int nt, int p, int B, int K, int N, int W,
+                                     int WM) {
+  const int d0 = K * W, d1 = K * WM;
+  const TcStream s = tc_stream(d0, d1, nt, p);
+  const long per_item = (long)p * nt * 32;
+  const long total = 2L * s.items * per_item;
+  const long stride = (long)gridDim.x * blockDim.x;
+  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
+    const int lane = (int)(e % 32), t = (int)(e / 32 % nt), st = (int)(e / (32L * nt) % p);
+    const long all = e / per_item;
+    const int chain = (int)(all / s.items);
+    int item = (int)(all % s.items), q = 0, wl = s.w, ntl = nt;
+    if (item >= tc_first(s, 1)) {
+      q = item >= tc_first(s, 3) ? 3 : item >= tc_first(s, 2) ? 2 : 1;
+      item -= tc_first(s, q);
+      if (q == 3) {
+        wl = s.w0;
+        ntl = s.nt0;
+      }
+    }
+    const int step = item / wl * p + st, tile = item % wl * ntl + t;
+    const int nn = q == 3 ? d0 : d1;
+    const int n = tile * 8 + lane / 4;
+    uint2 v = make_uint2(0u, 0u);
+    if (q == 0 && step < s.isteps && t < ntl && n < d1) {
+      const bf16* blk = (chain == 0 ? ci : si) + (n % WM) * WM;
+      const int k = step * 16 + 2 * (lane % 4);
+      auto at = [&](int kk) -> unsigned {
+        return kk < d1 && kk / WM == n / WM ? (unsigned)__bfloat16_as_ushort(blk[kk % WM])
+                                            : 0u;
+      };
+      v = make_uint2(at(k) | at(k + 1) << 16, at(k + 8) | at(k + 9) << 16);
+    } else if (q > 0 && step < s.steps && t < ntl && tile * 8 < nn) {
+      const int gi = 2 * (3 - q) + chain, side = step / s.isteps;
+      const int k = step % s.isteps * 16 + 2 * (lane % 4);
+      const bf16* w = (side == 0 ? g.wl[gi] : g.wr[gi]) + (long)n * d1;
+      auto at = [&](int kk) -> unsigned {
+        return n < nn && kk < d1 ? (unsigned)__bfloat16_as_ushort(w[kk]) : 0u;
+      };
+      v = make_uint2(at(k) | at(k + 1) << 16, at(k + 8) | at(k + 9) << 16);
+    }
+    packed[e] = v;
+  }
+  // x^T: a 16-byte run of 8 rows of one feature a thread, zeros past the rows
+  const int f8 = (d0 + 7) / 8 * 8;
+  const long rows = (long)B * N, units = rows64 / 8 * f8;
+  for (long u = (long)blockIdx.x * blockDim.x + threadIdx.x; u < units; u += stride) {
+    const int c = (int)(u % f8);
+    const long r8 = u / f8 * 8;
+    uint32_t wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      unsigned short h[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long row = r8 + 2 * i + e;
+        h[e] = row < rows && c < d0
+                   ? __bfloat16_as_ushort(x[((row / N * K + c / W) * N + row % N) * W + c % W])
+                   : (unsigned short)0;
+      }
+      wv[i] = h[0] | (uint32_t)h[1] << 16;
+    }
+    *reinterpret_cast<uint4*>(xt + toff(r8, c, d0)) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+  }
+}
+
+// a barrier of the rows block's W consumer warps alone (not the producer)
+__device__ __forceinline__ void consumers_sync(int warps) {
+  asm volatile("bar.sync 1, %0;" ::"r"(warps * 32) : "memory");
+}
+
+// two saved activations of the storage type TA as f32 (shared or device memory)
+__device__ __forceinline__ float2 load_act2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_act2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// bytes of shared memory of a rows block: the mbarriers, da and ds of 16 bm
+// rows, `ring` weight items, two staged m tiles of a and s (stage_acts), the
+// warps' scratch
+__host__ __device__ inline long rows_tc_smem(int d0, int d1, int bm, int nt, int p, int ring,
+                                             int stage_acts, int act_bytes) {
+  const TcStream s = tc_stream(d0, d1, nt, p);
+  return kTcBarBytes + 2L * 16 * bm * ldsm_stride(d1) * (long)sizeof(bf16) +
+         (long)ring * p * nt * 256 + (stage_acts ? 4L * 16 * d1 * act_bytes : 0) + s.w * 768L;
+}
+
+// One range of 16-row m tiles (cluster blockIdx.x / 2 of `clusters`, its
+// ranges balanced over rows64 / 16 tiles) of one chain (blockIdx.x % 2): g
+// (f32 [B,K,N,WM]) -> dR (dI) -> the chain's three GLUs backwards -> the
+// chain's part of dx, the two parts added in the cluster into dx [B,K,N,W];
+// da, ds of the chain's GLUs and u of GLUs 2-5 into the transposed planes at
+// tws; the block's column sums into bpart [clusters][12][D1]. acts: the
+// saved planes [12][rows_pad][D1] of the storage type TA (f32, or bf16 for
+// the bf16-storage arm). blockDim.x: 32 per consumer warp (`tc_stream`'s w)
+// and the producer warp.
+template <int MT, int NT, typename TA>
+__global__ void __launch_bounds__(tc_bound(NT), 1)
+spectral_bwd_rows_tc_kernel(const float* __restrict__ g, const TA* __restrict__ acts, long plane,
+                            const uint2* __restrict__ packed, unsigned char* __restrict__ tws,
+                            long rows_pad, long rows64, int bm, int p, int ring, int stage_acts,
+                            int clusters, float* __restrict__ dx, float* __restrict__ bpart,
+                            int B, int K, int N, int W, int WM) {
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = K * W, d1 = K * WM, S = ldsm_stride(d1), kp = (d1 + 15) / 16 * 16;
+  const TcStream st = tc_stream(d0, d1, NT, p);
+  const int warps = st.w, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4, mrow = lane % 8, mat = lane / 8;
+  const int chain = blockIdx.x & 1;
+  const long cl = blockIdx.x >> 1, mtiles = rows64 / 16;
+  const long q = mtiles / clusters, rem = mtiles % clusters;
+  const long row0 = 16 * (cl * q + min(cl, rem));
+  const int nmt = (int)(q + (cl < rem ? 1 : 0)), TM = 16 * bm;
+  const long rows = (long)B * N;
+  unsigned char* const base = reinterpret_cast<unsigned char*>(smem);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* const empty = full + ring;
+  uint64_t* const afull = empty + ring;
+  uint64_t* const aempty = afull + 2;
+  bf16* const da = reinterpret_cast<bf16*>(base + kTcBarBytes);  // [TM][S]: the cotangent, then da
+  bf16* const ds = da + TM * S;                                   // [TM][S]
+  unsigned char* const items = reinterpret_cast<unsigned char*>(ds + TM * S);
+  const int item_bytes = p * NT * 256;
+  const int rw = ring / warps;        // each warp's part of the ring: its items in turn
+  const long tile_elems = 16L * d1;  // a 16-row m tile of a plane
+  TA* const aring = reinterpret_cast<TA*>(items + (long)ring * item_bytes);  // [2][a, s][16][d1]
+  uint32_t* const scratch = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<unsigned char*>(aring) + (stage_acts ? 4 * tile_elems * sizeof(TA) : 0)) +
+      warp * 192;  // [3 planes][16 rows][4 words]: a warp's n8 tile of da, ds, u
+  const long pd1 = rows64 / kTR * tchunk_bytes(d1);  // bytes of a transposed plane of D1 features
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ring; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 1);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(afull + i, 1);
+      mbar_init(aempty + i, warps);
+    }
+    mbar_init_fence();
+  }
+  // the cotangent tile: the block's threads walk (order kk, row r, m) so
+  // that neighbouring threads read neighbouring floats (within an order a
+  // batch element's rows are contiguous in g), 4 at a time where WM % 4 ==
+  // 0, many loads in flight a thread; then the pad columns of both buffers
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  {
+    const int per = 16 * nmt * WM, total = K * per;
+    const int vec = WM % 4 == 0 ? 4 : 1;
+    constexpr int kBatch = 8;
+    for (int e0 = threadIdx.x * vec; e0 < total; e0 += kBatch * blockDim.x * vec) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int e = e0 + j * blockDim.x * vec;
+        const int kk = e / per, r = e % per / WM, m = e % WM;
+        const int row = (int)row0 + r, b = row / N;  // rows stay below 2^31
+        const float* src = g + ((long)(b * K + kk) * N + (row - b * N)) * WM + m;
+        v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (e < total && row < rows) {
+          if (vec == 4) v[j] = *reinterpret_cast<const float4*>(src);
+          else v[j].x = *src;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int e = e0 + j * blockDim.x * vec;
+        if (e >= total) continue;
+        bf16* dst = da + e % per / WM * S + e / per * WM + e % WM;
+        if (vec == 4) {
+          *reinterpret_cast<uint2*>(dst) =
+              make_uint2(pack_bf16x2(v[j].x, v[j].y), pack_bf16x2(v[j].z, v[j].w));
+        } else {
+          *dst = __float2bfloat16_rn(v[j].x);
+        }
+      }
+    }
+  }
+  for (int r = warp; r < TM; r += warps + 1) {
+    if (r >= 16 * nmt)  // rows past the block's m tiles: zeros (they are never summed)
+      for (int col = lane; col < d1; col += 32) da[r * S + col] = zero;
+    for (int col = d1 + lane; col < kp; col += 32) {
+      da[r * S + col] = zero;
+      ds[r * S + col] = zero;  // ds's pad columns: zero for good
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // both blocks' barriers are initialised, the tiles staged
+
+  if (warp == warps) {
+    // the producer, one thread: two queues in the order the consumers need
+    // them, the stream's items of product q (B; the inverse DFT first) and
+    // the saved a, s of each m tile for the epilogue after product q (A, or
+    // read from L2 where they are not staged); their L2 prefetch goes with
+    // product q's first item. Each copy is started as soon as its slot is
+    // free, the earlier-needed queue first, and neither queue waits for the
+    // other's slots.
+    if (lane == 0) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(packed) +
+                                 (long)chain * st.items * item_bytes;
+      const long live_rows = min((long)(16 * nmt), rows_pad - row0);
+      const int na = stage_acts ? 3 * nmt : 0, nb = st.items;
+      int ja = 0, ib = 0, slot_b = 0, use_b = 0;
+      unsigned idle = 0;
+      while (ja < na || ib < nb) {
+        const int qb = ib >= tc_first(st, 3) ? 3 : ib >= tc_first(st, 2) ? 2
+                       : ib >= tc_first(st, 1) ? 1 : 0;  // the product of item ib
+        const bool a_first = ja < na && (ib >= nb || 2 * (ja / nmt) + 1 <= 2 * qb);
+        bool a_ok = false, b_ok = false;
+        if (ja < na) a_ok = ja < 2 || mbar_test(aempty + (ja & 1), ((ja >> 1) - 1) & 1);
+        if (ib < nb && !(a_first && a_ok)) {
+          // item ib is item k of its warp: slot k % rw of the warp's part of the ring
+          const int rel = ib - tc_first(st, qb), wl = qb < 3 ? st.w : st.w0;
+          const int k = (qb == 0 ? 0 : st.ichunks + (qb - 1) * st.chunks) + rel / wl;
+          slot_b = rel % wl * rw + k % rw;
+          use_b = k / rw;
+          b_ok = use_b == 0 || mbar_test(empty + slot_b, (use_b - 1) & 1);
+        }
+        if (a_ok && (a_first || !b_ok)) {
+          const int slot = ja & 1, gi = 2 * (2 - ja / nmt) + chain;
+          const long r = row0 + 16 * (ja % nmt);
+          if (r < rows_pad) {
+            const unsigned bytes = (unsigned)(tile_elems * sizeof(TA));
+            TA* dst = aring + slot * 2 * tile_elems;
+            mbar_expect(afull + slot, 2 * bytes);
+            bulk_load(dst, acts + (2 * gi) * plane + r * d1, bytes, afull + slot);
+            bulk_load(dst + tile_elems, acts + (2 * gi + 1) * plane + r * d1, bytes,
+                      afull + slot);
+          } else {
+            mbar_arrive(afull + slot);  // a tile past the planes: zeros, nothing to copy
+          }
+          ++ja;
+        } else if (!b_ok) {
+          __nanosleep(64);  // nothing free: leave the issue slots to the consumer warps
+          if (++idle == kMbarPolls) __trap();  // as a wait that runs out
+        } else {
+          const int slot = slot_b;
+          // the planes of the epilogue after product qb into L2 as it starts:
+          // the staged tiles' copies then come from L2, the unstaged reads too
+          if (qb < 3 && ib == tc_first(st, qb) && live_rows > 0) {
+            const int gi = 2 * (2 - qb) + chain;
+            const unsigned bytes = (unsigned)(live_rows * d1 * sizeof(TA));
+            prefetch_l2(acts + (2 * gi) * plane + row0 * d1, bytes);
+            prefetch_l2(acts + (2 * gi + 1) * plane + row0 * d1, bytes);
+          }
+          mbar_expect(full + slot, item_bytes);
+          bulk_load(items + (long)slot * item_bytes, src + (long)ib * item_bytes, item_bytes,
+                    full + slot);
+          ++ib;
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    const int n0 = warp * NT * 8;
+    float acc[MT][NT][4];
+    int j = 0;  // m tiles of a, s consumed so far
+    // four phases: the inverse DFT's product (acc = dR, dI of the warp's
+    // columns), then for layers 2, 1, 0 the epilogue of the GLU on acc and
+    // the product of its da, ds with the GLU's weights
+    for (int qp = 0; qp < 4; ++qp) {
+      if (qp > 0) {
+        const int layer = 3 - qp, gi = 2 * layer + chain;
+        // the epilogue of GLU gi on acc (the cotangent of its output): da = d *
+        // s, ds = d * a * (s * (1 - s)); da, ds rounded to bf16 into the tile's
+        // buffers and the transposed planes, u = round(a * s) (GLUs 0-3) there
+        // too; the column sums of the unrounded da, ds over the block's rows:
+        // a lane's rows in order, then a fixed butterfly over the 8 lanes of a
+        // column
+        {
+          unsigned char* const tda = tws + (2 * gi) * pd1;
+          unsigned char* const tds = tda + pd1;
+          unsigned char* const tu = tws + (12 + gi) * pd1;  // used for gi < 4 only
+          const int planes = gi < 4 ? 3 : 2;
+          float sa[NT][2] = {}, ss[NT][2] = {};
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            if (mt >= nmt) break;
+            const long rc = row0 + 16 * mt;
+            const bool valid = rc < rows_pad;
+            const TA* pa;
+            if (stage_acts) {
+              mbar_wait(afull + (j & 1), (j >> 1) & 1);
+              pa = aring + (j & 1) * 2 * tile_elems;
+            } else {
+              pa = acts + (2 * gi) * plane + rc * d1;
+            }
+            const TA* ps = stage_acts ? pa + tile_elems : acts + (2 * gi + 1) * plane + rc * d1;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const int col = n0 + 8 * nt + 2 * tq;
+              const bool live = col < d1;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = gq + 8 * h;
+                float2 a = make_float2(0.f, 0.f), s = a;
+                if (live && valid) {
+                  a = load_act2(pa + r * d1 + col);
+                  s = load_act2(ps + r * d1 + col);
+                }
+                const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+                const float va0 = v0 * s.x, va1 = v1 * s.y;
+                const float vs0 = v0 * a.x * (s.x * (1.f - s.x));
+                const float vs1 = v1 * a.y * (s.y * (1.f - s.y));
+                sa[nt][0] += va0;
+                sa[nt][1] += va1;
+                ss[nt][0] += vs0;
+                ss[nt][1] += vs1;
+                const uint32_t pa2 = pack_bf16x2(va0, va1), ps2 = pack_bf16x2(vs0, vs1);
+                if (live) {
+                  *reinterpret_cast<uint32_t*>(da + (16 * mt + r) * S + col) = pa2;
+                  *reinterpret_cast<uint32_t*>(ds + (16 * mt + r) * S + col) = ps2;
+                }
+                scratch[r * 4 + tq] = pa2;
+                scratch[64 + r * 4 + tq] = ps2;
+                scratch[128 + r * 4 + tq] = pack_bf16x2(a.x * s.x, a.y * s.y);
+              }
+              __syncwarp();
+              if (n0 + 8 * nt < d1) {
+                // the n8 tile's 16 rows as 16-byte runs of 8 rows of one
+                // feature: lanes 0-7 (8-15) the 8 features of the first (last)
+                // 8 rows of da (then ds, then u), 128 contiguous bytes
+                for (int e = lane; e < 16 * planes; e += 32) {
+                  const int pl = e / 16, f = e % 8, kg = e / 8 % 2;
+                  const unsigned short* sc =
+                      reinterpret_cast<const unsigned short*>(scratch + 64 * pl) + kg * 64 + f;
+                  uint32_t wv[4];
+#pragma unroll
+                  for (int i = 0; i < 4; ++i) wv[i] = sc[16 * i] | (uint32_t)sc[16 * i + 8] << 16;
+                  *reinterpret_cast<uint4*>((pl == 0 ? tda : pl == 1 ? tds : tu) +
+                                            toff(rc + 8 * kg, n0 + 8 * nt + f, d1)) =
+                      make_uint4(wv[0], wv[1], wv[2], wv[3]);
+                }
+              }
+              __syncwarp();
+            }
+            if (stage_acts && lane == 0) mbar_arrive(aempty + (j & 1));
+            ++j;
+          }
+          float* const bias = bpart + (cl * 12 + 2 * gi) * d1;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = n0 + 8 * nt + 2 * tq;
+#pragma unroll
+            for (int off = 4; off < 32; off *= 2) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                sa[nt][e] += __shfl_xor_sync(0xffffffffu, sa[nt][e], off);
+                ss[nt][e] += __shfl_xor_sync(0xffffffffu, ss[nt][e], off);
+              }
+            }
+            if (col < d1 && gq == 0) {  // the same for the 8 lanes of a column pair
+              *reinterpret_cast<float2*>(bias + col) = make_float2(sa[nt][0], sa[nt][1]);
+              *reinterpret_cast<float2*>(bias + d1 + col) = make_float2(ss[nt][0], ss[nt][1]);
+            }
+          }
+        }
+        consumers_sync(warps);  // the tile's da, ds are in place
+      }
+      // product qp of the stream into acc: the warp's items, k16 steps
+      // ascending (K: the cotangent's columns for the inverse DFT; da's, then
+      // ds's for the GLUs)
+      const int wl = qp < 3 ? st.w : st.w0, ntl = qp < 3 ? NT : st.nt0;
+      const int chunks = qp == 0 ? st.ichunks : st.chunks;
+      const int steps = qp == 0 ? st.isteps : st.steps;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      for (int c = 0; c < (warp < wl ? chunks : 0); ++c) {
+        // the warp's item k in slot k % rw of its part of the ring: a warp
+        // waits only on slots it consumed the last use of
+        const int k = (qp == 0 ? 0 : st.ichunks + (qp - 1) * st.chunks) + c;
+        const int slot = warp * rw + k % rw;
+        mbar_wait(full + slot, (k / rw) & 1);
+        const uint2* bp = reinterpret_cast<const uint2*>(items + (long)slot * item_bytes) + lane;
+        for (int s = 0; s < p; ++s) {
+          const int step = c * p + s;
+          if (step >= steps) break;
+          const int side = qp > 0 && step >= st.isteps;
+          const bf16* ab = (side ? ds : da) + (step - side * st.isteps) * 16 +
+                           (mat & 1) * 8 * S + mrow * S + (mat >> 1) * 8;
+          uint32_t a[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            if (mt < nmt) ldsm_x4(a[mt], ab + 16 * mt * S);
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            if (t >= ntl) break;
+            const uint2 b = bp[(s * NT + t) * 32];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              if (mt < nmt) mma_bf16(acc[mt][t], a[mt], b.x, b.y);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + slot);
+      }
+      consumers_sync(warps);  // every read of the tile's buffers is done before they are rewritten
+    }
+    // the chain's part of dx ([16 bm][D0] f32 over the tile's buffers)
+    float* const dxs = reinterpret_cast<float*>(da);
+    if (warp < st.w0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (mt >= nmt) break;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const int col = (warp * st.nt0 + t) * 8 + 2 * tq;
+          if (t >= st.nt0 || col >= d0) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(dxs + (16 * mt + gq + 8 * h) * d0 + col) =
+                make_float2(acc[mt][t][2 * h], acc[mt][t][2 * h + 1]);
+        }
+      }
+    }
+  }
+  // dx = the real chain's part + the imaginary chain's, by the real block:
+  // 4 floats a load (D0 % 4 == 0: one row each), many remote loads in flight
+  cluster.sync();
+  if (chain == 0) {
+    const float* own = reinterpret_cast<const float*>(da);
+    const float* other = cluster.map_shared_rank(own, 1);
+    constexpr int kBatch = 8;
+    const int total = 16 * nmt * d0;
+    for (int e0 = 4 * threadIdx.x; e0 < total; e0 += 4 * kBatch * blockDim.x) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int e = e0 + 4 * j * blockDim.x;
+        if (e < total) v[j] = *reinterpret_cast<const float4*>(other + e);
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int e = e0 + 4 * j * blockDim.x;
+        const int row = (int)row0 + e / d0;
+        if (e >= total || row >= rows) continue;
+        const float4 o = *reinterpret_cast<const float4*>(own + e);
+        const float sum[4] = {o.x + v[j].x, o.y + v[j].y, o.z + v[j].z, o.w + v[j].w};
+        const int b = row / N, nn = row - b * N;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = e % d0 + i;
+          dx[((long)(b * K + c / W) * N + nn) * W + c % W] = sum[i];
+        }
+      }
+    }
+  }
+  cluster.sync();  // the imaginary block's part is read before it goes
+}
+
+// --- the weight gradients on wgmma ---
+
+// a wgmma matrix descriptor of a K-major operand without swizzle at p: core
+// matrices of 8 rows by 16 bytes, 128 bytes apart along K (the leading
+// offset) and 1 KB apart along M or N (the stride offset)
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)(128 >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32;
+}
+
+// d[64] (this thread's part of a 64 x 128 f32 tile) += A (64 x 16) B (16 x 128)
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));  // scale-d 1: d += A B
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// the registers of d hold their values here for the compiler too (after a
+// wait: no read of d moves above it)
+__device__ __forceinline__ void wgmma_hold(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Weight-gradient blocks (units) of each GLU: ceil(Din / 128) by ceil(D1 / 128).
+__host__ __device__ inline int wg_units(int d0, int d1) {
+  const int nt = (d1 + kWgN - 1) / kWgN;
+  return 2 * ((d0 + kWgM - 1) / kWgM) * nt + 4 * ((d1 + kWgM - 1) / kWgM) * nt;
+}
+
+// blockIdx.x = unit * C + segment z (clusters of C along x); a unit (GLU,
+// 128 input features, 128 columns) in the order of `wg_units`. The block sums
+// u^T @ da (warpgroup 0) and u^T @ ds (warpgroup 1) over the 64-row chunks of
+// segment z (the chunks of rows64 balanced over the C segments), then the
+// cluster adds its segments in rank order (rank z: rows z * 64 / C onwards of
+// each m64 half) into grads; the units of the first 128 features also add
+// the rows kernel's column sums (`parts` of them, balanced over the ranks)
+// into the bias gradients. tws: the transposed planes as the rows kernel
+// writes them.
+__global__ void __launch_bounds__(kWgThreads, 1)
+spectral_wgrad_wg_kernel(const unsigned char* __restrict__ tws, const float* __restrict__ bpart,
+                         float* __restrict__ grads, long rows64, int parts, int C, int d0,
+                         int d1) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* const base = reinterpret_cast<unsigned char*>(smem);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* const empty = full + kWgStages;
+  unsigned char* const stages = base + kTcBarBytes;  // [kWgStages][u^T 16 KB | da 16 KB | ds 16 KB]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int unit = blockIdx.x / C, z = blockIdx.x % C;
+  const int ntn = (d1 + kWgN - 1) / kWgN, m0 = (d0 + kWgM - 1) / kWgM, m1 = (d1 + kWgM - 1) / kWgM;
+  int gi, rest;
+  if (unit < 2 * m0 * ntn) {
+    gi = unit / (m0 * ntn);
+    rest = unit % (m0 * ntn);
+  } else {
+    gi = 2 + (unit - 2 * m0 * ntn) / (m1 * ntn);
+    rest = (unit - 2 * m0 * ntn) % (m1 * ntn);
+  }
+  const int mtile = rest / ntn, ntile = rest % ntn, din = gi < 2 ? d0 : d1;
+  const long pd1 = rows64 / kTR * tchunk_bytes(d1);
+  const unsigned char* const tu = gi < 2 ? tws + 16 * pd1 : tws + (12 + gi - 2) * pd1;
+  const unsigned char* const tl = tws + (2 * gi) * pd1;
+  const long cha = tchunk_bytes(din), chb = tchunk_bytes(d1);
+  const unsigned bytes_a = (unsigned)(min(kWgM / 8, (din + 7) / 8 - mtile * (kWgM / 8)) * 1024);
+  const unsigned bytes_b = (unsigned)(min(kWgN / 8, (d1 + 7) / 8 - ntile * (kWgN / 8)) * 1024);
+  const long chunks = rows64 / kTR, cq = chunks / C, crem = chunks % C;
+  const long c0 = z * cq + min((long)z, crem);
+  const int nch = (int)(cq + (z < crem ? 1 : 0));
+
+  // zeros in the stages (the feature groups past an operand's stay zero),
+  // visible to the tensor cores; the barriers
+  for (int e = threadIdx.x; e < kWgStages * kWgStage / 16; e += blockDim.x)
+    reinterpret_cast<uint4*>(stages)[e] = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);
+    }
+    mbar_init_fence();
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  float d[2][64];
+  if (warp == 8) {
+    if (lane == 0) {
+      for (int i = 0; i < nch; ++i) {
+        const int slot = i % kWgStages;
+        if (i >= kWgStages) mbar_wait(empty + slot, (i / kWgStages - 1) & 1);
+        const long ch = c0 + i;
+        unsigned char* const dst = stages + slot * kWgStage;
+        mbar_expect(full + slot, bytes_a + 2 * bytes_b);
+        bulk_load(dst, tu + ch * cha + mtile * (kWgM / 8) * 1024L, bytes_a, full + slot);
+        bulk_load(dst + kWgM * kTR * 2, tl + ch * chb + ntile * (kWgN / 8) * 1024L, bytes_b,
+                  full + slot);
+        bulk_load(dst + (kWgM + kWgN) * kTR * 2, tl + pd1 + ch * chb + ntile * (kWgN / 8) * 1024L,
+                  bytes_b, full + slot);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int side = warp / 4;  // 0: u^T @ da (dWl), 1: u^T @ ds (dWr)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[h][i] = 0.f;
+    for (int i = 0; i < nch; ++i) {
+      const int slot = i % kWgStages;
+      mbar_wait(full + slot, (i / kWgStages) & 1);
+      const unsigned char* const stg = stages + slot * kWgStage;
+      const unsigned char* const bsrc = stg + (kWgM + side * kWgN) * kTR * 2;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kTR / 16; ++k) {  // k16 steps: k-groups 2k and 2k + 1
+        const uint64_t db = wg_desc(bsrc + 256 * k);
+        wgmma_m64n128(d[0], wg_desc(stg + 256 * k), db);
+        wgmma_m64n128(d[1], wg_desc(stg + 64 * kTR * 2 + 256 * k), db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      wgmma_hold(d[0]);
+      wgmma_hold(d[1]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);
+    }
+  }
+
+  // the cluster's sum, an m64 half at a time: each block's partials [2
+  // sides][64][128] f32 over its stages, then rank z adds its rows of every
+  // block's in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  float* const part = reinterpret_cast<float*>(stages);
+  float* const bsum = part + 2 * 64 * kWgN;  // [2 sides][128]: the bias sums of the block's parts
+  const bool bias_unit = mtile == 0;
+  __syncthreads();  // every stage is read
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (warp < 8) {
+      const int side = warp / 4, wr = warp % 4, gq = lane / 4, tq = lane % 4;
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int m = 16 * wr + gq + 8 * (i / 2 % 2), col = 8 * (i / 4) + 2 * tq;
+        *reinterpret_cast<float2*>(part + (side * 64 + m) * kWgN + col) =
+            make_float2(d[h][i], d[h][i + 1]);
+      }
+      if (h == 0 && bias_unit) {
+        const int bside = threadIdx.x / kWgN, c = ntile * kWgN + threadIdx.x % kWgN;
+        const int p0 = (int)((long)z * parts / C), p1 = (int)((long)(z + 1) * parts / C);
+        float acc = 0.f;
+        if (c < d1) {
+          const float* src = bpart + (2 * gi + bside) * (long)d1 + c;
+#pragma unroll 8
+          for (int pp = p0; pp < p1; ++pp) acc += src[pp * 12L * d1];
+        }
+        bsum[threadIdx.x] = acc;
+      }
+    }
+    cluster.sync();
+    const int mlo = z * 64 / C, mhi = (z + 1) * 64 / C;
+    for (int e = threadIdx.x; e < 2 * (mhi - mlo) * (kWgN / 4); e += blockDim.x) {
+      const int side = e / ((mhi - mlo) * (kWgN / 4));
+      const int m = mlo + e / (kWgN / 4) % (mhi - mlo), c4 = e % (kWgN / 4) * 4;
+      const long k = (long)mtile * kWgM + h * 64 + m;
+      const int c = ntile * kWgN + c4;
+      if (k >= din || c >= d1) continue;
+      const int off = (side * 64 + m) * kWgN + c4;
+      float4 u[kWgMaxCluster];  // every rank's partial in flight, then summed in rank order
+#pragma unroll
+      for (int r = 0; r < kWgMaxCluster; ++r)
+        if (r < C) u[r] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r) + off);
+      float4 v = u[0];
+#pragma unroll
+      for (int r = 1; r < kWgMaxCluster; ++r) {
+        if (r >= C) break;
+        v.x += u[r].x;
+        v.y += u[r].y;
+        v.z += u[r].z;
+        v.w += u[r].w;
+      }
+      *reinterpret_cast<float4*>(grads + glu_grad_offset(gi, d0, d1) +
+                                 (side ? (long)din * d1 + d1 : 0) + k * d1 + c) = v;
+    }
+    if (h == 0 && bias_unit && z == 0) {
+      for (int e = threadIdx.x; e < 2 * kWgN; e += blockDim.x) {
+        const int bside = e / kWgN, c = ntile * kWgN + e % kWgN;
+        if (c >= d1) continue;
+        float u[kWgMaxCluster];
+#pragma unroll
+        for (int r = 0; r < kWgMaxCluster; ++r)
+          if (r < C) u[r] = cluster.map_shared_rank(bsum, r)[e];
+        float v = u[0];
+#pragma unroll
+        for (int r = 1; r < kWgMaxCluster; ++r) {
+          if (r >= C) break;
+          v += u[r];
+        }
+        grads[glu_grad_offset(gi, d0, d1) + (bside == 0 ? (long)din * d1 : 2L * din * d1 + d1) +
+              c] = v;
+      }
+    }
+    cluster.sync();  // every block's partials are read before they are rewritten
   }
 }
 
@@ -2240,14 +2713,15 @@ int chain_launch(const T* x, const GluWeights<T>& gw, const T* ci, const T* si, 
 
 // The plan of the bf16 chain on tensor cores (ops/cuda_spectral.py
 // `fwd_mma_plan`): rows a tile (16 MT), n8 tiles a warp, threads a block, k
-// rows a weight panel, panel stages.
+// rows a weight panel, panel stages; and, for the bf16-storage arm, whether
+// its planes go through the shared staging (1) or straight from the lanes.
 struct FwdMmaPlan {
-  int tm, nt, threads, kp, stages;
+  int tm, nt, threads, kp, stages, stage_acts;
 };
 
 template <typename TA>
 using ChainMmaKernel = void (*)(const bf16*, GluWeights<bf16>, const bf16*, const bf16*, float*,
-                                TA*, long, long, int, int, int, int, int, int, int);
+                                TA*, long, long, int, int, int, int, int, int, int, int);
 
 // The forward mma kernel of (MT, NT), or nullptr for a pair not instantiated;
 // TA: the storage type of the saved planes.
@@ -2260,14 +2734,16 @@ ChainMmaKernel<TA> chain_mma_kernel_for(int mt, int nt) {
 }
 
 // Bytes of shared memory of a block of the bf16 chain on plan p at D1, or -1
-// for a plan the kernel does not take.
+// for a plan the kernel does not take; stage_acts (the bf16-storage saving
+// forward only) adds the staging of the tile's bf16 a and s.
 int chain_mma_plan_smem(int d1, const FwdMmaPlan& p) {
   if (d1 > kMmaMaxD1 || p.tm % 16 != 0 || chain_mma_kernel_for<false, true>(p.tm / 16, p.nt) ==
       nullptr || p.threads < 32 || p.threads % 32 != 0 ||
       p.threads > chain_mma_bound(p.tm / 16) || p.kp < 16 || p.kp > 64 || p.kp % 16 != 0 ||
-      p.stages < 2 || p.stages > 4)
+      p.stages < 2 || p.stages > 4 || p.stage_acts < 0 || p.stage_acts > 1)
     return -1;
-  const int smem = chain_mma_smem(p.tm, d1, p.threads / 32 * p.nt * 8, p.kp, p.stages);
+  const int smem = chain_mma_smem(p.tm, d1, p.threads / 32 * p.nt * 8, p.kp, p.stages) +
+                   (p.stage_acts ? 4 * p.tm * d1 : 0);
   return smem <= kSmemPerBlock ? smem : -1;
 }
 
@@ -2280,12 +2756,15 @@ int chain_mma_launch(const bf16* x, const GluWeights<bf16>& gw, const bf16* ci, 
                      float* out, TA* acts, int B, int K, int N, int W, int WM,
                      const FwdMmaPlan& p, cudaStream_t st) {
   const int d1 = K * WM, smem = chain_mma_plan_smem(d1, p);
-  if (!shape_ok(K, W, WM) || smem < 0) return (int)cudaErrorInvalidValue;
+  // the staging is the bf16-storage saving forward's alone
+  const bool staged_arm = kSave && !std::is_same<TA, float>::value;
+  if (!shape_ok(K, W, WM) || smem < 0 || (p.stage_acts && !staged_arm))
+    return (int)cudaErrorInvalidValue;
   const ChainMmaKernel<TA> kernel = chain_mma_kernel_for<kSave, kOut, TA>(p.tm / 16, p.nt);
   const long rows_pad = rows_padded(B, N);
   return launch_chains<kOut, true>(kernel, (rows_pad + p.tm - 1) / p.tm, p.threads, smem, st,
                                    x, gw, ci, si, out, acts, kSave ? rows_pad * d1 : 0L,
-                                   rows_pad, p.kp, p.stages, B, K, N, W, WM);
+                                   rows_pad, p.kp, p.stages, p.stage_acts, B, K, N, W, WM);
 }
 
 // The bf16 chain on its route: tensor cores on plan p up to kMmaMaxD1, past
@@ -2333,7 +2812,15 @@ extern "C" int spectral_fwd(const float* x, const void* const* w, const float* c
 // -1 for a plan it does not take (the bf16 forwards then refuse it).
 extern "C" int spectral_fwd_bf16_smem(int K, int WM, int tm, int nt, int threads, int kp,
                                       int stages) {
-  return chain_mma_plan_smem(K * WM, FwdMmaPlan{tm, nt, threads, kp, stages});
+  return chain_mma_plan_smem(K * WM, FwdMmaPlan{tm, nt, threads, kp, stages, 0});
+}
+
+// The same for the bf16-storage saving forward, whose plan (`fwd_mma_plan`
+// with acts_bf16) also says whether its bf16 planes are staged in shared
+// memory for bulk stores (stage_acts 1) or stored by the lanes (0).
+extern "C" int spectral_fwd_save_bf16acts_smem(int K, int WM, int tm, int nt, int threads,
+                                               int kp, int stages, int stage_acts) {
+  return chain_mma_plan_smem(K * WM, FwdMmaPlan{tm, nt, threads, kp, stages, stage_acts});
 }
 
 // The bf16 arm: x, ci, si and the 2-D weights (wl, wr) bf16; biases and out
@@ -2345,7 +2832,7 @@ extern "C" int spectral_fwd_bf16(const bf16* x, const void* const* w, const bf16
                                  void* stream) {
   return chain_bf16_launch<false, true>(x, glu_weights<bf16>(w), ci, si, out, (float*)nullptr,
                                         ws, B, K, N, W, WM,
-                                        FwdMmaPlan{tm, nt, threads, kp, stages},
+                                        FwdMmaPlan{tm, nt, threads, kp, stages, 0},
                                         (cudaStream_t)stream);
 }
 
@@ -2370,21 +2857,23 @@ extern "C" int spectral_fwd_save_bf16(const bf16* x, const void* const* w, const
                                       int B, int K, int N, int W, int WM, int tm, int nt,
                                       int threads, int kp, int stages, void* stream) {
   return chain_bf16_launch<true, true>(x, glu_weights<bf16>(w), ci, si, out, acts, ws, B, K, N,
-                                       W, WM, FwdMmaPlan{tm, nt, threads, kp, stages},
+                                       W, WM, FwdMmaPlan{tm, nt, threads, kp, stages, 0},
                                        (cudaStream_t)stream);
 }
 
 // Its bf16-storage arm (the JAX package's `_kernel_save` with SAVE_ACTS_F32
 // off): the same kernels, the same f32 a and s, each stored rounded to bf16
-// (spectral_act_floats elements of bf16: half the bytes); the output as
+// (spectral_act_floats elements of bf16: half the bytes), through the shared
+// staging by bulk stores where the plan says stage_acts; the output as
 // spectral_fwd_save_bf16's, bit for bit.
 extern "C" int spectral_fwd_save_bf16acts(const bf16* x, const void* const* w, const bf16* ci,
                                           const bf16* si, float* out, bf16* acts, float* ws,
                                           int B, int K, int N, int W, int WM, int tm, int nt,
-                                          int threads, int kp, int stages, void* stream) {
-  return chain_bf16_launch<true, true, bf16>(x, glu_weights<bf16>(w), ci, si, out, acts, ws, B,
-                                             K, N, W, WM, FwdMmaPlan{tm, nt, threads, kp, stages},
-                                             (cudaStream_t)stream);
+                                          int threads, int kp, int stages, int stage_acts,
+                                          void* stream) {
+  return chain_bf16_launch<true, true, bf16>(
+      x, glu_weights<bf16>(w), ci, si, out, acts, ws, B, K, N, W, WM,
+      FwdMmaPlan{tm, nt, threads, kp, stages, stage_acts}, (cudaStream_t)stream);
 }
 
 // Floats of the flat gradient buffer: per GLU wl [Din, D1], bl [D1], wr, br.
@@ -2533,59 +3022,103 @@ int bwd_launch(const T* x, const Tg* g, const void* const* w, const T* ci, const
   return (int)cudaGetLastError();
 }
 
-template <typename TA>
-using RowsMmaKernel = void (*)(const float*, const TA*, long, bf16*, bf16*, long, long, long,
-                               GluWeights<bf16>, const bf16*, const bf16*, float*, float*, int,
-                               int, int, int, int);
+// The plan of the bf16 backward on Hopper (ops/cuda_spectral.py
+// `bwd_tc_plan`): the rows kernel's most m tiles a block (bm), n8 tiles a
+// warp, k16 steps a weight item (p), items in its ring, whether a and s are
+// staged (1) or read from L2 (0), its clusters; the weight gradients' row
+// segments a cluster.
+struct BwdTcPlan {
+  int bm, nt, p, ring, stage, clusters, nseg;
+};
 
-// The mma rows kernel of (MT, NT) reading planes of the storage type TA, or
-// nullptr for a pair not instantiated.
 template <typename TA>
-RowsMmaKernel<TA> rows_mma_kernel_for(int mt, int nt) {
-  if (nt == 4 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 4, TA>;
-  if (nt == 4 && mt == 2) return spectral_bwd_rows_mma_kernel<2, 4, TA>;
-  if (nt == 4 && mt == 5) return spectral_bwd_rows_mma_kernel<5, 4, TA>;
-  if (nt == 8 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 8, TA>;
-  if (nt == 8 && mt == 2) return spectral_bwd_rows_mma_kernel<2, 8, TA>;
-  if (nt == 16 && mt == 1) return spectral_bwd_rows_mma_kernel<1, 16, TA>;
+using RowsTcKernel = void (*)(const float*, const TA*, long, const uint2*, unsigned char*, long,
+                              long, int, int, int, int, int, float*, float*, int, int, int, int,
+                              int);
+
+// The rows kernel of NT n8 tiles a warp reading planes of the storage type
+// TA, or nullptr for an NT not instantiated.
+template <typename TA>
+RowsTcKernel<TA> rows_tc_kernel_for(int nt) {
+  if (nt == 4) return spectral_bwd_rows_tc_kernel<tc_max_mt(4), 4, TA>;
+  if (nt == 5) return spectral_bwd_rows_tc_kernel<tc_max_mt(5), 5, TA>;
+  if (nt == 8) return spectral_bwd_rows_tc_kernel<tc_max_mt(8), 8, TA>;
+  if (nt == 16) return spectral_bwd_rows_tc_kernel<tc_max_mt(16), 16, TA>;
+  if (nt == 32) return spectral_bwd_rows_tc_kernel<tc_max_mt(32), 32, TA>;
   return nullptr;
 }
 
-// The column sums the mma rows kernel leaves: one a tile of tm rows.
-long mma_bias_parts(long rows_pad, int tm) { return (rows_pad + tm - 1) / tm; }
-
-// Floats of the mma route's scratch without the saved arrays: da, ds of six
-// GLUs and u of four, bf16 [rows_pad][mma_ld]; the chains' parts of dx; the
-// bias partials; nsplit partial gradients.
-long mma_scratch_floats(int B, int K, int N, int W, int WM, int nsplit, int tm) {
-  const long rows_pad = rows_padded(B, N), d0 = K * W, d1 = K * WM;
-  return 8 * rows_pad * mma_ld((int)d1) + 2 * rows_pad * d0 +
-         mma_bias_parts(rows_pad, tm) * 12 * d1 + (long)nsplit * grads_total(d0, d1);
+// Bytes of shared memory of a rows block on plan p with saved planes of
+// act_bytes an element, or -1 for a plan the kernels do not take (the rows
+// of `rows` padded to 64 in its clusters' ranges).
+long tc_plan_smem(int d0, int d1, long rows, const BwdTcPlan& p, int act_bytes) {
+  if (d1 > kMmaMaxD1 || (p.nt != 4 && p.nt != 5 && p.nt != 8 && p.nt != 16 && p.nt != 32) ||
+      p.bm < 1 ||
+      p.bm > tc_max_mt(p.nt) || p.p < 1 || p.ring < 1 || p.ring > kTcMaxRing ||
+      p.stage < 0 || p.stage > 1 || p.clusters < 1 || p.nseg < 1 || p.nseg > kWgMaxCluster)
+    return -1;
+  const TcStream s = tc_stream(d0, d1, p.nt, p.p);
+  const long mtiles = rows_pad64(rows) / 16;
+  if (s.w > tc_max_warps(p.nt) || p.clusters > mtiles ||
+      (mtiles + p.clusters - 1) / p.clusters > p.bm || p.ring % s.w != 0)
+    return -1;
+  const long smem = rows_tc_smem(d0, d1, p.bm, p.nt, p.p, p.ring, p.stage, act_bytes);
+  return smem <= kSmemPerBlock ? smem : -1;
 }
 
-// The bf16 backward on tensor cores, D1 up to kMmaMaxD1, on the plan of
-// ops/cuda_spectral.py `bwd_mma_plan`: tm rows a tile of the rows kernel
-// (16 MT), nt n8 tiles a warp, nsplit row segments of the weight gradients.
-// x, the weights, ci and si bf16, g f32. saved as for bwd_launch, or nullptr
-// to recompute the 12 arrays into the head of ws by the chain on tensor cores
-// on plan fp (no workspace of its own up to kMmaMaxD1; f32 planes only). A
-// plan the kernels do not take returns cudaErrorInvalidValue before any
-// launch. TA: the storage type of saved.
-template <typename TA>
-int bwd_mma_launch(const bf16* x, const float* g, const void* const* w, const bf16* ci,
-                   const bf16* si, float* dx, float* grads, const TA* saved, float* ws, int B,
-                   int K, int N, int W, int WM, int nsplit, int tm, int nt, const FwdMmaPlan& fp,
-                   cudaStream_t st) {
+// Floats of the Hopper route's scratch, the saved arrays not counted: the
+// packed weights, the 17 transposed planes, the rows kernel's column sums.
+long tc_scratch_floats(int B, int K, int N, int W, int WM, const BwdTcPlan& p) {
   const int d0 = K * W, d1 = K * WM;
-  const RowsMmaKernel<TA> rows_kernel =
-      tm % 16 == 0 ? rows_mma_kernel_for<TA>(tm / 16, nt) : nullptr;
-  if (!shape_ok(K, W, WM) || d1 > kMmaMaxD1 || nsplit < 1 || rows_kernel == nullptr)
+  const TcStream s = tc_stream(d0, d1, p.nt, p.p);
+  const long chunks = rows_pad64((long)B * N) / kTR;
+  return (2L * s.items * p.p * p.nt * 256 + chunks * (16 * tchunk_bytes(d1) + tchunk_bytes(d0)) +
+          4L * p.clusters * 12 * d1) / 4;
+}
+
+constexpr int kWgSmem = kTcBarBytes + kWgStages * kWgStage;
+
+// A kernel of clusters of `cluster` blocks along x.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), long blocks, int cluster, int threads,
+                            int smem, cudaStream_t st, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The bf16 backward on Hopper, D1 up to kMmaMaxD1, on plan p (ops/
+// cuda_spectral.py `bwd_tc_plan`). x, the weights, ci and si bf16, g f32.
+// saved: the 12 planes of the saving forward, of the storage type TA, or
+// nullptr to recompute them (f32) into the head of ws by the chain on
+// tensor cores on plan fp. A plan the kernels do not take returns
+// cudaErrorInvalidValue before any launch.
+template <typename TA>
+int bwd_tc_launch(const bf16* x, const float* g, const void* const* w, const bf16* ci,
+                  const bf16* si, float* dx, float* grads, const TA* saved, float* ws, int B,
+                  int K, int N, int W, int WM, const BwdTcPlan& p, const FwdMmaPlan& fp,
+                  cudaStream_t st) {
+  const int d0 = K * W, d1 = K * WM;
+  const long rows = (long)B * N;
+  const long smem = tc_plan_smem(d0, d1, rows, p, (int)sizeof(TA));
+  const RowsTcKernel<TA> rows_kernel = rows_tc_kernel_for<TA>(p.nt);
+  if (!shape_ok(K, W, WM) || smem < 0 || rows_kernel == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int threads = rows_mma_threads(d1, nt), smem = rows_mma_smem(d1, tm / 16);
-  if (threads > (nt == 4 ? 256 : 512) || smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
-  const long rows_pad = rows_padded(B, N);
+  const long rows_pad = rows_padded(B, N), r64 = rows_pad64(rows);
   const long plane = rows_pad * d1;
-  const long total = grads_total(d0, d1);
   const GluWeights<bf16> gw = glu_weights<bf16>(w);
   cudaError_t err;
 
@@ -2601,40 +3134,25 @@ int bwd_mma_launch(const bf16* x, const float* g, const void* const* w, const bf
   } else if (saved == nullptr) {
     return (int)cudaErrorInvalidValue;  // the recompute stores f32 planes
   }
-  const long ld = mma_ld(d1), dplane = rows_pad * ld;
-  bf16* dacts = reinterpret_cast<bf16*>(ws);  // 12 planes: da, ds of each GLU
-  bf16* us = dacts + 12 * dplane;              // 4 planes: u of GLUs 2 to 5
-  float* dxc = ws + 8 * dplane;
-  float* bpart = dxc + 2 * rows_pad * d0;
-  float* part = bpart + mma_bias_parts(rows_pad, tm) * 12 * d1;
+  const TcStream s = tc_stream(d0, d1, p.nt, p.p);
+  uint2* const packed = reinterpret_cast<uint2*>(ws);
+  const long packed_bytes = 2L * s.items * p.p * p.nt * 256;
+  unsigned char* const tws = reinterpret_cast<unsigned char*>(ws) + packed_bytes;
+  float* const bpart = reinterpret_cast<float*>(
+      tws + r64 / kTR * (16 * tchunk_bytes(d1) + tchunk_bytes(d0)));
 
-  err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const long units = packed_bytes / 8;
+  spectral_pack_kernel<<<(int)std::min<long>((units + 255) / 256, 2048), 256, 0, st>>>(
+      gw, ci, si, x, packed, tws + 16 * (r64 / kTR) * tchunk_bytes(d1), r64, p.nt, p.p, B, K, N,
+      W, WM);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = launch_clusters(rows_kernel, 2L * p.clusters, 2, 32 * (s.w + 1), (int)smem, st, g, acts,
+                        plane, (const uint2*)packed, tws, rows_pad, r64, p.bm, p.p, p.ring,
+                        p.stage, p.clusters, dx, bpart, B, K, N, W, WM);
   if (err != cudaSuccess) return (int)err;
-  rows_kernel<<<dim3((unsigned)((rows_pad + tm - 1) / tm), 2), threads, smem, st>>>(
-      g, acts, plane, dacts, us, dplane, ld, rows_pad, gw, ci, si, dxc, bpart, B, K, N, W, WM);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long nx = (long)B * K * N * W;
-  spectral_dx_kernel<<<(int)((nx + 255) / 256), 256, 0, st>>>(dxc, dx, rows_pad, B, K, N, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int chunks = (int)((rows_pad + kMR - 1) / kMR);
-  const int chunks_per_seg = (chunks + nsplit - 1) / nsplit;
-  const int smem_w = 3 * kMStage * (int)sizeof(bf16);
-  err = cudaFuncSetAttribute(spectral_wgrad_mma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_w);
-  if (err != cudaSuccess) return (int)err;
-  spectral_wgrad_mma_kernel<<<dim3((d1 + kMK - 1) / kMK * ((d1 + kMC - 1) / kMC), 6, nsplit),
-                              kMThreads, smem_w, st>>>(x, us, dacts, dplane, ld, rows_pad, part,
-                                                       total, chunks, chunks_per_seg, B, K, N,
-                                                       W, WM);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  spectral_reduce_kernel<<<(int)((total + 255) / 256), 256, 0, st>>>(part, grads, total,
-                                                                     nsplit, d0, d1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  spectral_bias_kernel<<<dim3(12, (d1 + 31) / 32), dim3(32, kBiasLanes), 0, st>>>(
-      bpart, grads, (int)mma_bias_parts(rows_pad, tm), d0, d1);
-  return (int)cudaGetLastError();
+  return (int)launch_clusters(spectral_wgrad_wg_kernel, (long)wg_units(d0, d1) * p.nseg, p.nseg,
+                              kWgThreads, kWgSmem, st, (const unsigned char*)tws,
+                              (const float*)bpart, grads, r64, p.clusters, p.nseg, d0, d1);
 }
 
 }  // namespace
@@ -2661,27 +3179,49 @@ extern "C" long long spectral_bwd_reread_workspace_floats(int B, int K, int N, i
   return bwd_scratch_floats(B, K, N, W, WM, nsplit, sms);
 }
 
-// The bf16 arm's scratch: up to D1 = kMmaMaxD1 the mma route's of plan tile
-// tm (with the 12 recomputed arrays where `recompute`), past it the scalar
-// route's as above.
+// The bf16 arm's scratch: up to D1 = kMmaMaxD1 the Hopper route's on the
+// plan of `bwd_tc_plan` (with the 12 recomputed arrays where `recompute`;
+// -1 for a plan the route does not take), past it the scalar route's as
+// above (the plan unused).
 static long long bf16_bwd_workspace_floats(int B, int K, int N, int W, int WM, int nsplit,
-                                           int tm, bool recompute) {
+                                           const BwdTcPlan& p, bool recompute) {
   if (K * WM > kMmaMaxD1)
     return recompute ? spectral_bwd_workspace_floats(B, K, N, W, WM, nsplit)
                      : spectral_bwd_reread_workspace_floats(B, K, N, W, WM, nsplit);
-  if (tm < 16 || tm % 16 != 0) return -1;
+  if (tc_plan_smem(K * W, K * WM, (long)B * N, p, 2) < 0 &&
+      tc_plan_smem(K * W, K * WM, (long)B * N, p, 4) < 0)
+    return -1;
   return (recompute ? 12 * rows_padded(B, N) * (long)K * WM : 0) +
-         mma_scratch_floats(B, K, N, W, WM, nsplit, tm);
+         tc_scratch_floats(B, K, N, W, WM, p);
 }
 
 extern "C" long long spectral_bwd_bf16_workspace_floats(int B, int K, int N, int W, int WM,
-                                                        int nsplit, int tm) {
-  return bf16_bwd_workspace_floats(B, K, N, W, WM, nsplit, tm, true);
+                                                        int nsplit, int bm, int nt, int p,
+                                                        int ring, int stage, int clusters,
+                                                        int nseg) {
+  const BwdTcPlan plan{bm, nt, p, ring, stage, clusters, nseg};
+  return bf16_bwd_workspace_floats(B, K, N, W, WM, nsplit, plan, true);
 }
 
 extern "C" long long spectral_bwd_reread_bf16_workspace_floats(int B, int K, int N, int W,
-                                                               int WM, int nsplit, int tm) {
-  return bf16_bwd_workspace_floats(B, K, N, W, WM, nsplit, tm, false);
+                                                               int WM, int nsplit, int bm, int nt,
+                                                               int p, int ring, int stage,
+                                                               int clusters,
+                                                               int nseg) {
+  const BwdTcPlan plan{bm, nt, p, ring, stage, clusters, nseg};
+  return bf16_bwd_workspace_floats(B, K, N, W, WM, nsplit, plan, false);
+}
+
+// Bytes of shared memory of a block of the bf16 backward's rows kernel on
+// the plan (bm, nt, p, ring, stage, clusters, nseg) of `bwd_tc_plan`
+// at B * N rows,
+// with saved planes of act_bytes (4: f32, 2: bf16) an element; -1 for a plan
+// the kernels do not take (the bf16 backwards then refuse it).
+extern "C" long long spectral_bwd_bf16_smem(int B, int K, int N, int W, int WM, int bm, int nt,
+                                            int p, int ring, int stage, int clusters,
+                                            int nseg, int act_bytes) {
+  return tc_plan_smem(K * W, K * WM, (long)B * N,
+                      BwdTcPlan{bm, nt, p, ring, stage, clusters, nseg}, act_bytes);
 }
 
 // x [B,K,N,W], g [B,K,N,WM], w as for spectral_fwd -> dx like x and grads
@@ -2695,21 +3235,24 @@ extern "C" int spectral_bwd(const float* x, const float* g, const void* const* w
 }
 
 // The bf16 arm: x, ci, si and the 2-D weights bf16, g, dx and grads f32; up
-// to D1 = kMmaMaxD1 on tensor cores with the plan (tm, nt, nsplit) of
-// `bwd_mma_plan` and the recompute's chain on the plan (ftm, fnt, fthreads,
-// fkp, fstages) of `fwd_mma_plan`, past it the wide scalar kernels (the plans
-// unused). ws: spectral_bwd_bf16_workspace_floats floats.
+// to D1 = kMmaMaxD1 on Hopper's route with the plan (bm, nt, p, ring, stage,
+// clusters, nseg) of `bwd_tc_plan` and the recompute's chain on the plan
+// (ftm, fnt, fthreads, fkp, fstages) of `fwd_mma_plan`, past it the wide
+// scalar kernels (the plans unused; nsplit their row segments). ws:
+// spectral_bwd_bf16_workspace_floats floats.
 extern "C" int spectral_bwd_bf16(const bf16* x, const float* g, const void* const* w,
                                  const bf16* ci, const bf16* si, float* dx, float* grads,
-                                 float* ws, int B, int K, int N, int W, int WM, int nsplit,
-                                 int tm, int nt, int ftm, int fnt, int fthreads, int fkp,
-                                 int fstages, void* stream) {
+                                 float* ws, int B, int K, int N, int W, int WM, int nsplit, int bm,
+                                 int nt, int p, int ring, int stage, int clusters,
+                                 int nseg, int ftm, int fnt, int fthreads, int fkp, int fstages,
+                                 void* stream) {
   if (K * WM > kMmaMaxD1)
     return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, (const float*)nullptr, ws, B, K,
                                    N, W, WM, nsplit, (cudaStream_t)stream);
-  return bwd_mma_launch<float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM, nsplit,
-                               tm, nt, FwdMmaPlan{ftm, fnt, fthreads, fkp, fstages},
-                               (cudaStream_t)stream);
+  return bwd_tc_launch<float>(x, g, w, ci, si, dx, grads, nullptr, ws, B, K, N, W, WM,
+                              BwdTcPlan{bm, nt, p, ring, stage, clusters, nseg},
+                              FwdMmaPlan{ftm, fnt, fthreads, fkp, fstages, 0},
+                              (cudaStream_t)stream);
 }
 
 // spectral_bwd on the arrays spectral_fwd_save wrote (acts), without the
@@ -2728,29 +3271,34 @@ extern "C" int spectral_bwd_reread(const float* x, const float* g, const void* c
 extern "C" int spectral_bwd_reread_bf16(const bf16* x, const float* g, const void* const* w,
                                         const bf16* ci, const bf16* si, const float* acts,
                                         float* dx, float* grads, float* ws, int B, int K,
-                                        int N, int W, int WM, int nsplit, int tm, int nt,
+                                        int N, int W, int WM, int nsplit, int bm, int nt, int p,
+                                        int ring, int stage, int clusters, int nseg,
                                         void* stream) {
   if (K * WM > kMmaMaxD1)
     return bwd_launch<bf16, float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
                                    nsplit, (cudaStream_t)stream);
-  return bwd_mma_launch<float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit, tm,
-                               nt, FwdMmaPlan{}, (cudaStream_t)stream);
+  return bwd_tc_launch<float>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
+                              BwdTcPlan{bm, nt, p, ring, stage, clusters, nseg},
+                              FwdMmaPlan{}, (cudaStream_t)stream);
 }
 
 // Its bf16-storage arm (the JAX package's `_bwd_kernel_reread` on the bf16
 // planes of SAVE_ACTS_F32 off), on what spectral_fwd_save_bf16acts wrote
 // (acts: spectral_act_floats bf16 elements): the same kernels reading bf16
-// a and s, every use of them (u = round(a * s) of the weight gradients too)
-// on the rounded values. ws: spectral_bwd_reread_bf16_workspace_floats floats.
+// a and s (bulk copies of half the bytes), every use of them (u = round(a *
+// s) of the weight gradients too) on the rounded values. ws:
+// spectral_bwd_reread_bf16_workspace_floats floats.
 extern "C" int spectral_bwd_reread_bf16acts(const bf16* x, const float* g, const void* const* w,
                                             const bf16* ci, const bf16* si, const bf16* acts,
                                             float* dx, float* grads, float* ws, int B, int K,
-                                            int N, int W, int WM, int nsplit, int tm, int nt,
-                                            void* stream) {
+                                            int N, int W, int WM, int nsplit, int bm, int nt,
+                                            int p, int ring, int stage, int clusters,
+                                            int nseg, void* stream) {
   if (acts == nullptr) return (int)cudaErrorInvalidValue;
   if (K * WM > kMmaMaxD1)
     return bwd_launch<bf16, float, bf16>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
                                          nsplit, (cudaStream_t)stream);
-  return bwd_mma_launch<bf16>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM, nsplit, tm,
-                              nt, FwdMmaPlan{}, (cudaStream_t)stream);
+  return bwd_tc_launch<bf16>(x, g, w, ci, si, dx, grads, acts, ws, B, K, N, W, WM,
+                             BwdTcPlan{bm, nt, p, ring, stage, clusters, nseg},
+                             FwdMmaPlan{}, (cudaStream_t)stream);
 }

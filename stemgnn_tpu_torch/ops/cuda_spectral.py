@@ -39,9 +39,10 @@ cast them before their kernels, and launch the kernels' bf16 arms; biases,
 outputs and the 12 saved arrays stay f32 (the arrays bf16 with
 `SAVE_ACTS_F32` off, above). A backward's cotangent goes to the
 kernels as f32, which round it to bf16 as they stage it (the same bits as a
-cast). Up to D1 = 2048 the bf16 forwards and backwards run on tensor cores
-(mma.sync) by the tile plans `fwd_mma_plan` and `bwd_mma_plan` (the
-recompute backward's chain by the former), past it on the wide scalar
+cast). Up to D1 = 2048 the bf16 forwards run on tensor cores (mma.sync) by
+the tile plan `fwd_mma_plan`, and the bf16 backwards on Hopper's route
+(TMA bulk copies feeding mma.sync and wgmma) by `bwd_tc_plan` (the
+recompute backward's chain by the former); past it on the wide scalar
 kernels. Each bf16 arm counts its launches on a function of its own
 (`spe_seq_cell_bf16` and the like), so the counts tell the arms apart.
 
@@ -144,54 +145,72 @@ _SIGNATURES = {
     "spectral_fwd_bf16": ([_P, _PP, _P, _P, _P, _P] + [_I] * 10 + [_P], ctypes.c_int),
     "spectral_fwd_save_bf16": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
                                ctypes.c_int),
-    # the same writing bf16 acts (the bf16-storage arm)
-    "spectral_fwd_save_bf16acts": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    # the same writing bf16 acts (the bf16-storage arm), and whether its
+    # plan stages them for bulk stores
+    "spectral_fwd_save_bf16acts": ([_P, _PP, _P, _P, _P, _P, _P] + [_I] * 11 + [_P],
                                    ctypes.c_int),
     "spectral_fwd_bf16_smem": ([_I] * 7, ctypes.c_int),
-    # the bf16 backwards: g f32, and bwd_mma_plan's tile rows and n8 tiles a
-    # warp (the recompute also fwd_mma_plan's five)
-    "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 13 + [_P], ctypes.c_int),
-    "spectral_bwd_reread_bf16": ([_P, _P, _PP] + [_P] * 6 + [_I] * 8 + [_P],
+    "spectral_fwd_save_bf16acts_smem": ([_I] * 8, ctypes.c_int),
+    # the bf16 backwards: g f32, the wide route's row segments and
+    # bwd_tc_plan's seven (the recompute also fwd_mma_plan's five)
+    "spectral_bwd_bf16": ([_P, _P, _PP] + [_P] * 5 + [_I] * 18 + [_P], ctypes.c_int),
+    "spectral_bwd_reread_bf16": ([_P, _P, _PP] + [_P] * 6 + [_I] * 13 + [_P],
                                  ctypes.c_int),
-    "spectral_bwd_reread_bf16acts": ([_P, _P, _PP] + [_P] * 6 + [_I] * 8 + [_P],
+    "spectral_bwd_reread_bf16acts": ([_P, _P, _PP] + [_P] * 6 + [_I] * 13 + [_P],
                                      ctypes.c_int),
     "spectral_bwd_grad_floats": ([_I] * 3, ctypes.c_longlong),
     "spectral_bwd_workspace_floats": ([_I] * 6, ctypes.c_longlong),
     "spectral_bwd_reread_workspace_floats": ([_I] * 6, ctypes.c_longlong),
-    "spectral_bwd_bf16_workspace_floats": ([_I] * 7, ctypes.c_longlong),
-    "spectral_bwd_reread_bf16_workspace_floats": ([_I] * 7, ctypes.c_longlong),
+    "spectral_bwd_bf16_workspace_floats": ([_I] * 13, ctypes.c_longlong),
+    "spectral_bwd_reread_bf16_workspace_floats": ([_I] * 13, ctypes.c_longlong),
+    "spectral_bwd_bf16_smem": ([_I] * 13, ctypes.c_longlong),
 }
 # row segments whose partial weight gradients are summed in order: 12 puts
 # the 22 weight-gradient tiles of the flagship shapes on 264 blocks, two an SM
 N_SPLIT = 12
 
-# The bf16 backward on tensor cores (csrc/spectral.cu `bwd_mma_launch`): its
+# The bf16 backward on Hopper (csrc/spectral.cu `bwd_tc_launch`): its
 # constants, which the plan below mirrors.
 MMA_MAX_D1 = 2048        # kMmaMaxD1: past it the wide scalar kernels
-MMA_TILES = {4: (5, 2, 1), 8: (2, 1), 16: (1,)}  # n8 tiles a warp -> 16-row tiles a block
-MMA_MAX_THREADS = {4: 256, 8: 512, 16: 512}  # the rows kernel's launch bounds
-WGRAD_K, WGRAD_C, WGRAD_ROWS = 48, 128, 32  # kMK, kMC, kMR
-WGRAD_STAGE = WGRAD_ROWS * (56 + 2 * 136)  # kMStage: bf16 a stage of u, da, ds
+# n8 tiles a warp, the order tried -> the most 16-row m tiles a rows block, its
+# most consumer warps (a producer warp beside them: 256 threads at most for 4
+# and 5 tiles, so 255 registers a thread)
+TC_MAX_MT = {4: 5, 5: 5, 8: 2, 16: 1, 32: 1}
+TC_MAX_WARPS = {4: 7, 5: 7, 8: 15, 16: 15, 32: 11}
+TC_BAR_BYTES = 1024                   # kTcBarBytes: the mbarriers of a block
+TC_MAX_RING = (TC_BAR_BYTES // 8 - 4) // 2  # kTcMaxRing: weight items in a rows block's ring
+TC_STAGE_ITEM = ((1, 4), (1, 2), (0, 4), (0, 2), (1, 1), (0, 1))  # (stage a, s; k16 steps an item)
+TR = 64                               # kTR: rows of a chunk of the transposed planes
+WG_M, WG_N = 128, 128                 # kWgM, kWgN: features and columns of a gradient block
+WG_MAX_CLUSTER = 8                    # kWgMaxCluster: its row segments, a cluster
 
 
-class BwdMmaPlan(NamedTuple):
+class BwdTcPlan(NamedTuple):
     """How the bf16 backward of one shape is laid over the card."""
-    route: str          # "mma", or "wide" past D1 = MMA_MAX_D1 (the rest then unused)
+    route: str          # "tc", or "wide" past D1 = MMA_MAX_D1 (the rest then 0)
     rows_pad: int       # B*N padded to 16, the saved arrays' rows
-    tile_rows: int      # rows of a rows-kernel block: 16 m_tiles
+    rows64: int         # B*N padded to 64: the transposed planes' rows, the rows kernel's
+    m_tiles: int        # the most 16-row m tiles a rows block has (its range's)
     n_tiles: int        # n8 column tiles a warp of it owns
-    threads: int        # a rows-kernel block: a warp per n_tiles of D1
-    stride: int         # bf16 elements between two rows of its shared buffers
-    smem: int           # bytes of its dynamic shared memory (da and ds)
-    tiles: int          # row tiles: its grid is (tiles, 2 chains)
-    bias_parts: int     # column sums it leaves for the bias gradients: one a tile
-    ld: int             # bf16 elements a row of the da, ds and u workspaces
-    nsplit: int         # row segments of the weight gradients, summed in order
-    chunks: int         # 32-row stages of the weight-gradient kernel over rows_pad
-    chunks_per_seg: int
-    wgrad_grid: tuple   # (k tiles x column tiles, 6 GLUs, nsplit)
-    wgrad_smem: int     # bytes: three stages
+    warps: int          # its consumer warps (a warp per n_tiles of D1)
+    threads: int        # its block: the consumer warps and the producer warp
+    stride: int         # bf16 elements between two rows of its da, ds buffers
+    item_steps: int     # k16 steps of a weight item (n_tiles n8 tiles of one warp)
+    items: int          # weight items of a chain's stream
+    ring: int           # weight items in its shared ring: ring / warps slots a warp
+    stage_acts: int     # 1: a, s of each m tile come into shared memory by bulk copies
+    smem: int           # bytes of its dynamic shared memory
+    clusters: int       # row ranges, a cluster of 2 blocks (the chains) each: 2 * clusters blocks
+    nseg: int           # row segments of the weight gradients, the blocks of a cluster
+    wgrad_units: int    # weight-gradient blocks a segment: (GLU, 128 features, 128 columns)
+    chunks: int         # 64-row chunks of the transposed planes
     workspace_floats: int  # the reread entry's scratch (the recompute adds 12 planes)
+
+    @property
+    def args(self) -> tuple:
+        """What the C entries take of it."""
+        return (self.m_tiles, self.n_tiles, self.item_steps, self.ring, self.stage_acts,
+                self.clusters, self.nseg)
 
 
 # The bf16 chain forward on tensor cores (csrc/spectral.cu `chain_mma_launch`):
@@ -218,10 +237,12 @@ class FwdMmaPlan(NamedTuple):
     stages: int         # weight panels in its shared ring
     smem: int           # bytes of its dynamic shared memory
     tiles: int          # row tiles: its grid is 2 * tiles blocks along x
+    stage_acts: int = 0  # the bf16-storage saving forward: its planes staged for bulk stores
 
     @property
     def args(self) -> tuple:
-        """What the C entries take of it."""
+        """What the C entries take of it (the bf16-storage saving forward also
+        stage_acts)."""
         return self.tile_rows, self.n_tiles, self.threads, self.panel_k, self.stages
 
 
@@ -231,7 +252,8 @@ def _ldsm_stride(cols: int) -> int:
     return (-(-cols // 16) * 16 + 55) // 64 * 64 + 8
 
 
-def fwd_mma_plan(b: int, k: int, n: int, w: int, wm: int, sms: int) -> FwdMmaPlan:
+def fwd_mma_plan(b: int, k: int, n: int, w: int, wm: int, sms: int,
+                 acts_bf16: bool = False) -> FwdMmaPlan:
     """The bf16 chain forward's tiling for x [b, k, n, w] at wm = w * multi on
     a card of `sms` SMs; pure arithmetic, no card. Of the instantiated (row
     tile, n8 tiles a warp) whose block fits a block's shared memory with two
@@ -240,7 +262,9 @@ def fwd_mma_plan(b: int, k: int, n: int, w: int, wm: int, sms: int) -> FwdMmaPla
     panels serve more rows); its columns in as few passes as its launch
     bound allows, the warps spread evenly over them; then the deepest weight
     panels (up to 64 k rows: fewer barriers a GLU) and as many stages (up to
-    4) as fit."""
+    4) as fit. With `acts_bf16` (the bf16-storage saving forward) a tile's
+    bf16 a and s (4 tm D1 bytes) are staged for bulk stores where they fit
+    beside the rest (stage_acts 1), else stored by the lanes."""
     d1 = k * wm
     rows_pad = -(-(b * n) // 16) * 16
     if d1 > MMA_MAX_D1:
@@ -253,56 +277,93 @@ def fwd_mma_plan(b: int, k: int, n: int, w: int, wm: int, sms: int) -> FwdMmaPla
         warps = -(-col_tiles // (passes * nt))
         pw = warps * nt * 8
         stride, panel_stride = _ldsm_stride(d1), _ldsm_stride(pw)
-        fits = [(panel_k, stages, (2 * tm * stride + stages * 2 * panel_k * panel_stride) * 2)
+        fits = []
+        for staging in ((4 * tm * d1, 0) if acts_bf16 else (0,)):
+            fits = [(panel_k, stages, staging, staging + (
+                2 * tm * stride + stages * 2 * panel_k * panel_stride) * 2)
                 for panel_k in FWD_MMA_PANEL_K for stages in FWD_MMA_STAGES]
-        fits = [f for f in fits if f[2] <= SMEM_PER_BLOCK]
+            fits = [f for f in fits if f[3] <= SMEM_PER_BLOCK]
+            if fits:
+                break
         if not fits:
             continue
-        panel_k, stages, smem = fits[0]
+        panel_k, stages, staging, smem = fits[0]
         tiles = -(-rows_pad // tm)
         key = (-(-2 * tiles // sms) * tm, -tm)
         if best is None or key < best[0]:
             best = (key, FwdMmaPlan("mma", rows_pad, tm, nt, 32 * warps, passes, stride,
-                                    panel_stride, panel_k, stages, smem, tiles))
+                                    panel_stride, panel_k, stages, smem, tiles,
+                                    int(staging > 0)))
     return best[1]
 
 
-def _mma_stride(d1: int) -> int:
-    """csrc/spectral.cu `mma_stride`: D1 rounded to 16, in bytes rounded up to
-    128 and 32 past it (A loads of a half warp on distinct banks)."""
-    return (-(-d1 // 16) * 32 + 127) // 128 * 64 + 16
+def _tc_stream(d0: int, d1: int, nt: int, p: int) -> tuple:
+    """csrc/spectral.cu `tc_stream`: (the inverse DFT's k16 steps and item
+    groups, a GLU product's k16 steps and item groups, warps, layer-0 warps,
+    layer-0 n8 tiles a warp, items) of a chain's stream, items of p k16
+    steps by nt n8 tiles: the inverse DFT, then layers 2, 1, 0."""
+    isteps = -(-d1 // 16)
+    steps = 2 * isteps
+    ichunks, chunks = -(-isteps // p), -(-steps // p)
+    ct, ct0 = -(-d1 // 8), -(-d0 // 8)
+    warps = -(-ct // nt)
+    nt0 = -(-ct0 // warps)
+    w0 = -(-ct0 // nt0)
+    items = ichunks * warps + chunks * (2 * warps + w0)
+    return isteps, ichunks, steps, chunks, warps, w0, nt0, items
 
 
-def bwd_mma_plan(b: int, k: int, n: int, w: int, wm: int, sms: int) -> BwdMmaPlan:
+def bwd_tc_plan(b: int, k: int, n: int, w: int, wm: int, sms: int,
+                act_bytes: int = 4) -> BwdTcPlan:
     """The bf16 backward's tiling for x [b, k, n, w] at wm = w * multi on a card
-    of `sms` SMs; pure arithmetic, no card. The rows kernel takes the fewest
-    n8 tiles a warp whose block holds D1 (4, 8 or 16), then the row tile
-    that puts the fewest rows on the busiest SM (two blocks a tile, the
-    larger tile on a tie); the weight gradients take enough row segments for
-    four blocks an SM (two resident, so the second pair fills the gaps)."""
+    of `sms` SMs, with saved planes of `act_bytes` an element (4: f32, and the
+    recompute's; 2: the bf16-storage arm); pure arithmetic, no card. The rows
+    kernel takes the fewest n8 tiles a warp (4, 5, 8, 16 or 32) whose warps
+    hold D1; its row ranges (a cluster of the two chains' blocks each) are
+    half the SMs where the 16-row m tiles allow (every SM busy), more where a
+    block would need more m tiles than its accumulators hold; then the first
+    of TC_STAGE_ITEM (a, s staged in
+    shared memory, k16 steps a weight item) that leaves a ring of two items
+    a warp or more (up to four) beside the rest, or else one. The weight gradients
+    take the most row segments, a power of 2 up to 8 (a cluster: a GPC's 16
+    or 18 SMs hold whole ones), that keep one block an SM."""
     d0, d1 = k * w, k * wm
     rows_pad = -(-(b * n) // 16) * 16
+    rows64 = -(-(b * n) // TR) * TR
     if d1 > MMA_MAX_D1:
-        return BwdMmaPlan("wide", rows_pad, 0, 0, 0, 0, 0, 0, 0, 0, N_SPLIT, 0, 0, (), 0, 0)
-    col_tiles = -(-d1 // 8)
-    nt = next(t for t in MMA_TILES if -(-col_tiles // t) * 32 <= MMA_MAX_THREADS[t])
-    # the rows on the busiest SM (blocks on one SM share it), the larger tile
-    # on a tie: its weight loads serve more rows
-    mt = min(MMA_TILES[nt], key=lambda m: (-(-2 * -(-rows_pad // (16 * m)) // sms) * m, -m))
-    tm = 16 * mt
-    stride = _mma_stride(d1)
-    tiles = -(-rows_pad // tm)
-    ld = -(-d1 // 8) * 8
-    blocks = sum(-(-din // WGRAD_K) for din in (d0, d0, d1, d1, d1, d1)) * -(-d1 // WGRAD_C)
-    chunks = -(-rows_pad // WGRAD_ROWS)
-    nsplit = max(1, min(chunks, -(-4 * sms // blocks)))
-    per_seg = -(-chunks // nsplit)
-    total = 2 * (d0 * d1 + d1) * 2 + 2 * (d1 * d1 + d1) * 4
-    ws = 8 * rows_pad * ld + 2 * rows_pad * d0 + tiles * 12 * d1 + nsplit * total
-    return BwdMmaPlan(
-        "mma", rows_pad, tm, nt, -(-col_tiles // nt) * 32, stride, 2 * tm * stride * 2, tiles,
-        tiles, ld, nsplit, chunks, per_seg,
-        (-(-d1 // WGRAD_K) * -(-d1 // WGRAD_C), 6, nsplit), 3 * WGRAD_STAGE * 2, ws)
+        return BwdTcPlan("wide", rows_pad, rows64, *[0] * 15)
+    ct = -(-d1 // 8)
+    nt = next(t for t in TC_MAX_MT if -(-ct // t) <= TC_MAX_WARPS[t])
+    mtiles = rows64 // 16
+    half = max(1, sms // 2)
+    bm = min(TC_MAX_MT[nt], -(-mtiles // half))
+    clusters = max(-(-mtiles // bm), min(mtiles, half))
+    bm = -(-mtiles // clusters)
+    stride = _ldsm_stride(d1)
+    # slots a warp (its items take them in turn): up to 4, at least 2 where
+    # any candidate leaves room for 2, else 1
+    for least, (stage, p) in [(m, c) for m in (2, 1) for c in TC_STAGE_ITEM]:
+        warps, items = _tc_stream(d0, d1, nt, p)[4::3]
+        smem = (TC_BAR_BYTES + 2 * 16 * bm * stride * 2 + warps * 768
+                + (4 * 16 * d1 * act_bytes if stage else 0))
+        per_warp = min(4, TC_MAX_RING // warps,
+                       (SMEM_PER_BLOCK - smem) // (p * nt * 256 * warps))
+        ring = per_warp * warps
+        if per_warp >= least:
+            break
+    else:
+        raise ValueError(f"bwd_tc_plan: no ring fits a rows block at D1 = {d1}")
+    smem += ring * p * nt * 256
+    ntn = -(-d1 // WG_N)
+    units = 2 * -(-d0 // WG_M) * ntn + 4 * -(-d1 // WG_M) * ntn
+    chunks = rows64 // TR
+    nseg = 1
+    while 2 * nseg <= min(WG_MAX_CLUSTER, chunks) and 2 * nseg * units <= sms:
+        nseg *= 2
+    ws = (2 * items * p * nt * 256 + chunks * (16 * -(-d1 // 8) + -(-d0 // 8)) * 1024
+          + 4 * clusters * 12 * d1) // 4
+    return BwdTcPlan("tc", rows_pad, rows64, bm, nt, warps, 32 * (warps + 1), stride, p, items,
+                     ring, stage, smem, clusters, nseg, units, chunks, ws)
 
 
 @functools.lru_cache(maxsize=8)
@@ -380,9 +441,10 @@ def _launch_fwd(x, weights, ci, si, multi: int, save: bool = False,
     arm = "_bf16" if bf16 else ""
     plan = ()
     if bf16:
-        mma = fwd_mma_plan(b, k, n, w, wm, _sms(x.device))
-        plan = mma.args
-        smem = _fn("spectral_fwd_bf16_smem")(k, wm, *plan) if mma.route == "mma" else 0
+        mma = fwd_mma_plan(b, k, n, w, wm, _sms(x.device), acts_bf16=bf16_acts and save)
+        plan = mma.args + ((mma.stage_acts,) if bf16_acts and save else ())
+        smem = (_fn("spectral_fwd_save_bf16acts_smem" if bf16_acts and save
+                    else "spectral_fwd_bf16_smem")(k, wm, *plan) if mma.route == "mma" else 0)
         if smem != mma.smem:
             raise RuntimeError(f"{name}: the kernel takes the plan {mma} with {smem} bytes "
                                f"of shared memory (-1: not at all), fwd_mma_plan with "
@@ -416,8 +478,8 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
     flat buffer, those of GLU 0 and 1 in folded space). With `acts` (what the
     saving forward wrote) the reread entry runs, else the recompute entry; g
     f32 (the bf16 kernels round it as they stage it); bf16 operands launch the
-    bf16 arm on the plan `bwd_mma_plan` of the shape and card (the recompute's
-    chain on `fwd_mma_plan`'s), and bf16 acts its bf16-storage arm."""
+    bf16 arm on the plan `bwd_tc_plan` of the shape, card and storage (the
+    recompute's chain on `fwd_mma_plan`'s), and bf16 acts its bf16-storage arm."""
     b, k, n, w = x.shape
     wm = w * multi
     reread = acts is not None
@@ -444,16 +506,20 @@ def _launch_bwd(x, g, weights, ci, si, multi: int, acts=None):
                         dtype=torch.float32, device=x.device)
     entry = "spectral_bwd_reread" if reread else "spectral_bwd"
     if bf16:
-        plan = bwd_mma_plan(b, k, n, w, wm, _sms(x.device))
-        nsplit, tiling = plan.nsplit, (plan.tile_rows, plan.n_tiles)
+        act_bytes = 2 if bf16_acts else 4
+        plan = bwd_tc_plan(b, k, n, w, wm, _sms(x.device), act_bytes)
+        nsplit, tiling = N_SPLIT, plan.args
         if not reread:
             tiling += fwd_mma_plan(b, k, n, w, wm, _sms(x.device)).args
-        floats = _fn(entry + "_bf16_workspace_floats")(b, k, n, w, wm, nsplit,
-                                                       plan.tile_rows)
+        floats = _fn(entry + "_bf16_workspace_floats")(b, k, n, w, wm, nsplit, *plan.args)
         extra = 0 if reread else 12 * plan.rows_pad * k * wm
-        if plan.route == "mma" and floats != plan.workspace_floats + extra:
-            raise RuntimeError(f"{name}: the kernels size their scratch at {floats} floats, "
-                               f"bwd_mma_plan at {plan.workspace_floats + extra}")
+        if plan.route == "tc":
+            smem = _fn("spectral_bwd_bf16_smem")(b, k, n, w, wm, *plan.args, act_bytes)
+            if floats != plan.workspace_floats + extra or smem != plan.smem:
+                raise RuntimeError(
+                    f"{name}: the kernels size their scratch at {floats} floats and a rows "
+                    f"block at {smem} bytes (-1: the plan refused), bwd_tc_plan at "
+                    f"{plan.workspace_floats + extra} and {plan.smem}")
     else:
         nsplit, tiling = N_SPLIT, ()
         floats = _fn(entry + "_workspace_floats")(b, k, n, w, wm, nsplit)

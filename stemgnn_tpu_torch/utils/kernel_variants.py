@@ -13,7 +13,10 @@ exchange or a load left out): only their times mean anything, and the difference
 H = N = 140, W = 12, K = 4); `gru_grid` times the grid GRU kernels at
 B = 32, H = N = 512 and B = 8, H = N = 1024; `spectral_fwd` also times the COVID-19 shape
 (B = 32, N = 25, W = 28, multi 5); `spectral_mma` the bf16 reread backward
-on tensor cores, its epilogue or one kernel left out; `spectral_fwd_mma` the
+on Hopper's route with one piece left out (products, weight items, saved
+a, s loads, cotangent loads, transposed stores, dx sum, wgmma, cluster sums,
+a kernel), its phases' timeline, each kernel's time and other plans;
+`spectral_fwd_mma` the
 bf16 forwards' chain on tensor cores at both shapes, its a, s stores, join,
 inverse DFT, weight staging or products left out, and other plans;
 `spectral_acts` the bf16 saving forward and reread backward with each storage
@@ -27,8 +30,9 @@ builds the spectral and graph sources of another checkout (a `git archive` of
 an earlier commit) and holds this tree's f32 spectral entries (forwards and
 backwards) and both arms of the graph conv (this tree's bf16 arm fed the f32
 operands, the other's the casts its wrapper made) bitwise against it, at the
-flagship and COVID-19 shapes, and times both trees' bf16 reread backwards and
-bf16 forwards; it also builds the other checkout's csrc/attention.cu and
+flagship and COVID-19 shapes, and times both trees' bf16 reread backwards
+(both storage arms), bf16 recompute and bf16 forwards (the bf16-storage
+saving forward too); it also builds the other checkout's csrc/attention.cu and
 times both trees' attention forward and backward in turns at the flagship
 and at B = 32, N = 512, their outputs compared. Times are
 device milliseconds of one call, replays of a CUDA graph of 20 calls, with the
@@ -175,8 +179,10 @@ SPECTRAL_FWD_VARIANTS = {
         ("      load8(in + k * S + r0, x);\n",
          "      for (int i = 0; i < 8; ++i) x[i] = 1e-3f * (k + i);\n")],
     "fwd: no saved writes": [
-        ("      if (row < rows_pad) {\n        *reinterpret_cast<float4*>(ga + row * d1",
-         "      if (row < 0) {\n        *reinterpret_cast<float4*>(ga + row * d1")],
+        ("      if (row < rows_pad) {\n        if constexpr (std::is_same<TA, float>::value) {\n"
+         "          *reinterpret_cast<float4*>(ga + row * d1",
+         "      if (row < 0) {\n        if constexpr (std::is_same<TA, float>::value) {\n"
+         "          *reinterpret_cast<float4*>(ga + row * d1")],
     "fwd: no inverse DFT sums": [
         ("      idft_fwd_run<T, kRagged>(re, im, S, ci, si, WM, q0, cc, acc);\n",
          "      for (int i = 0; i < 8; ++i)\n        for (int q = 0; q < 4; ++q) "
@@ -220,34 +226,119 @@ GRAPH_VARIANTS = {
 }
 
 
-_MMA_EPILOGUE = "    rows_mma_epilogue<MT, NT>(acc, n0, d1, S, row0, rows_pad, ld, acts + (2 * gi) * plane,\n"
+# The bf16 backward on Hopper (csrc/spectral.cu `bwd_tc_launch`: the pack,
+# rows and weight-gradient kernels) with one piece left out at a time.
+_TC_MMA = "              if (mt < nmt) mma_bf16(acc[mt][t], a[mt], b.x, b.y);\n"
+_TC_ITEM = [("          mbar_expect(full + slot, item_bytes);\n",
+             "          mbar_expect(full + slot, 16u);\n"),
+            ("item_bytes,\n                    full + slot);", "16u,\n                    "
+             "full + slot);")]
+_TC_ACTS = "          if (r < rows_pad) {\n            const unsigned bytes = (unsigned)(tile_elems"
+_TC_TSTORE = "                  *reinterpret_cast<uint4*>((pl == 0 ? tda : pl == 1 ? tds : tu) +"
+_WG_MMA = ("        wgmma_m64n128(d[0], wg_desc(stg + 256 * k), db);\n"
+           "        wgmma_m64n128(d[1], wg_desc(stg + 64 * kTR * 2 + 256 * k), db);\n")
+_TC_TRANS = (
+    "                const bf16* sc = reinterpret_cast<const bf16*>(scratch);\n"
+    "                const int mrow8 = (lane / 8 % 2 * 8 + lane % 8) * 8;\n"
+    "                uint32_t tv[4];\n"
+    "                ldsm_x4_trans(tv, sc + lane / 16 * 128 + mrow8);\n"
+    "#pragma unroll\n"
+    "                for (int m = 0; m < 4; ++m)\n"
+    "                  *reinterpret_cast<uint32_t*>((m < 2 ? tda : tds) +\n"
+    "                                               toff(rc + 8 * (m % 2), n0 + 8 * nt + gq, d1) +\n"
+    "                                               4 * tq) = tv[m];\n"
+    "                if (planes == 3) {\n"
+    "                  uint32_t tw[2];\n"
+    "                  ldsm_x2_trans(tw, sc + 2 * 128 + mrow8);\n"
+    "#pragma unroll\n"
+    "                  for (int m = 0; m < 2; ++m)\n"
+    "                    *reinterpret_cast<uint32_t*>(tu + toff(rc + 8 * m, n0 + 8 * nt + gq, d1) +\n"
+    "                                                 4 * tq) = tw[m];\n"
+    "                }\n"
+)
+_TC_GATHER = (
+    "                for (int e = lane; e < 16 * planes; e += 32) {\n"
+    "                  const int pl = e / 16, f = e % 8, kg = e / 8 % 2;\n"
+    "                  const unsigned short* sc =\n"
+    "                      reinterpret_cast<const unsigned short*>(scratch + 64 * pl) + kg * 64 + f;\n"
+    "                  uint32_t wv[4];\n"
+    "#pragma unroll\n"
+    "                  for (int i = 0; i < 4; ++i) wv[i] = sc[16 * i] | (uint32_t)sc[16 * i + 8] << 16;\n"
+    "                  *reinterpret_cast<uint4*>((pl == 0 ? tda : pl == 1 ? tds : tu) +\n"
+    "                                            toff(rc + 8 * kg, n0 + 8 * nt + f, d1)) =\n"
+    "                      make_uint4(wv[0], wv[1], wv[2], wv[3]);\n"
+    "                }\n"
+)
 SPECTRAL_MMA_VARIANTS = {
     "base": [],
-    # the products alone: the epilogue (a, s read; da, ds, u and the bias
-    # partials written) left out, the products run on the shared buffers as
-    # they stand
-    "mma rows: no epilogue": [(_MMA_EPILOGUE, (
-        "    {  // the products' sums kept alive\n      float t = 0.f;\n#pragma unroll\n"
-        "      for (int i = 0; i < MT; ++i)\n#pragma unroll\n        for (int j = 0; j < NT; ++j)\n"
-        "          t += acc[i][j][0] + acc[i][j][1] + acc[i][j][2] + acc[i][j][3];\n"
-        "      if (t == 1.2345f) da[threadIdx.x] = zero;\n    }\n"
-        "    if (gi < 0) " + _MMA_EPILOGUE.lstrip()))],
-    # the products' B fragments made in registers in place of their L2 loads
-    "mma rows: no weight loads": [(
-        "      b[nt] = n < nn && k < kin ? __ldg(reinterpret_cast<const uint2*>(w + (long)n * kin + k))\n",
-        "      b[nt] = n < nn && k < kin ? make_uint2(n, k)\n")],
-    "mma rows kernel returns at once": [
-        ("  bf16* da = reinterpret_cast<bf16*>(smem);  // [TM][S]: the cotangent tile, then da\n",
-         "  if (blockIdx.x >= 0) return;\n  bf16* da = reinterpret_cast<bf16*>(smem);\n")],
-    "mma wgrad kernel returns at once": [
-        ("  if (k0 >= din) return;  // the whole block: layer 0 has fewer k tiles\n"
-         "  const long rows = (long)B * N;\n  const bf16* u_src",
-         "  if (k0 >= 0) return;\n  const long rows = (long)B * N;\n  const bf16* u_src")],
+    # the rows kernel's products: their A and B loads kept, no tensor-core op
+    "rows: no products": [(_TC_MMA, (
+        "              if (mt < nmt) acc[mt][t][0] += __uint_as_float(\n"
+        "                  (a[mt][0] ^ a[mt][3] ^ b.x ^ b.y) & 0x007fffffu);\n"))],
+    # the weight items' bulk copies cut to 16 bytes each (the products run on
+    # whatever the ring holds; the barriers keep their order)
+    "rows: no weight items": _TC_ITEM,
+    # the saved a, s tiles' bulk copies (the epilogue reads the stale slots)
+    "rows: no a, s loads": [(_TC_ACTS, _TC_ACTS.replace("r < rows_pad", "r < 0"))],
+    # the transposed planes' stores of da, ds and u (their gathers kept)
+    "rows: no da, ds, u stores": [
+        (_TC_TSTORE, _TC_TSTORE.replace("  *reinterpret_cast", "  if (wv[0] == 0x7f7f7f7fu) "
+                                                              "*reinterpret_cast"))],
+    # the transposed stores by ldmatrix.trans from the scratch, 4 bytes a lane
+    # (a feature's 16-byte run from 4 lanes), in place of each lane's gather
+    # of its 16-byte runs
+    "rows: transposed stores by ldmatrix": [(_TC_GATHER, _TC_TRANS)],
+    # the cotangent tile's loads (zeros staged in their place)
+    "rows: no cotangent loads": [(
+        "          if (vec == 4) v[j] = *reinterpret_cast<const float4*>(src);\n"
+        "          else v[j].x = *src;\n",
+        "          v[j].x = 0.f * (float)(row + kk + m) + (src == g ? 1.f : 0.f);\n")],
+    # the sum of the chains' parts of dx in the cluster (dx not written)
+    "rows: no dx sum": [("  if (chain == 0) {\n    const float* own = ",
+                         "  if (chain < 0) {\n    const float* own = ")],
+    # the weight gradients' tensor-core products (their stages still stream)
+    "wgrad: no wgmma": [(_WG_MMA, "")],
+    # the weight gradients' cluster sums (the gradients are not written)
+    "wgrad: no cluster reduce": [(
+        "  for (int h = 0; h < 2; ++h) {\n    if (warp < 8) {\n      const int side = warp / 4",
+        "  for (int h = 0; h < 0; ++h) {\n    if (warp < 8) {\n      const int side = warp / 4")],
+    # the rows kernel's phases by %globaltimer (ns), thread 0 of each block into
+    # dx[16 block + k] (read by `spectral_mma`; the dx sum left out)
+    "rows: timeline": [
+        ("  if (threadIdx.x == 0) {\n    for (int i = 0; i < ring; ++i) {",
+         "#define TL(k) do { if (threadIdx.x == 0) { unsigned long long t_; asm volatile("
+         "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); dx[blockIdx.x * 16 + (k)] = "
+         "(float)(t_ % 100000000ull); } } while (0)\n  TL(0);\n"
+         "  if (threadIdx.x == 0) {\n    for (int i = 0; i < ring; ++i) {"),
+        ("  cluster.sync();  // both blocks' barriers are initialised, the tiles staged\n",
+         "  cluster.sync();\n  TL(1);\n"),
+        ("        consumers_sync(warps);  // the tile's da, ds are in place\n",
+         "        consumers_sync(warps);  // the tile's da, ds are in place\n"
+         "        TL(1 + 2 * qp);\n"),
+        ("      consumers_sync(warps);  // every read of the tile's buffers is done before they "
+         "are rewritten\n",
+         "      consumers_sync(warps);\n      TL(2 + 2 * qp);\n"),
+        ("  cluster.sync();\n  if (chain == 0) {\n    const float* own = ",
+         "  cluster.sync();\n  TL(9);\n  if (chain < 0) {\n    const float* own = "),
+        ("  cluster.sync();  // the imaginary block's part is read before it goes\n}",
+         "  cluster.sync();\n  TL(10);\n}")],
+    "rows kernel returns at once": [(
+        "  const TcStream st = tc_stream(d0, d1, NT, p);\n  const int warps = st.w, warp",
+        "  if (blockIdx.x >= 0) return;\n  const TcStream st = tc_stream(d0, d1, NT, p);\n"
+        "  const int warps = st.w, warp")],
+    "wgrad kernel returns at once": [(
+        "  const int unit = blockIdx.x / C, z = blockIdx.x % C;\n",
+        "  if (blockIdx.x >= 0) return;\n  const int unit = blockIdx.x / C, z = blockIdx.x % C;\n")],
+    "pack kernel returns at once": [(
+        "  const TcStream s = tc_stream(d0, d1, nt, p);\n  const long per_item",
+        "  if (blockIdx.x >= 0) return;\n  const TcStream s = tc_stream(d0, d1, nt, p);\n"
+        "  const long per_item")],
 }
 
 
 _FMMA_SAVE = ("              if (row < rows_pad) {\n"
-              "                __stcs(reinterpret_cast<float2*>(ga + row * d1 + col)")
+              "                if constexpr (std::is_same<TA, float>::value) {\n"
+              "                  __stcs(reinterpret_cast<float2*>(ga + row * d1 + col)")
 SPECTRAL_FWD_MMA_VARIANTS = {
     "base": [],
     # the saving forward's a, s stores (51.6 MB at the flagship)
@@ -268,10 +359,12 @@ SPECTRAL_FWD_MMA_VARIANTS = {
          "            v[q] = j >= 0 && j < WM ? (unsigned)(off[nt] + j) & 0x3f00u : 0u;\n")],
     # the a, s stores as plain stores (not streaming, evict-first ones)
     "mma fwd: a, s stores st.global": [
-        ("                __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), make_float2(a0, a1));\n"
-         "                __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), make_float2(s0, s1));\n",
-         "                *reinterpret_cast<float2*>(ga + row * d1 + col) = make_float2(a0, a1);\n"
-         "                *reinterpret_cast<float2*>(gs + row * d1 + col) = make_float2(s0, s1);\n")],
+        ("                  __stcs(reinterpret_cast<float2*>(ga + row * d1 + col), "
+         "make_float2(a0, a1));\n"
+         "                  __stcs(reinterpret_cast<float2*>(gs + row * d1 + col), "
+         "make_float2(s0, s1));\n",
+         "                  *reinterpret_cast<float2*>(ga + row * d1 + col) = make_float2(a0, a1);\n"
+         "                  *reinterpret_cast<float2*>(gs + row * d1 + col) = make_float2(s0, s1);\n")],
     # the weight panels' copies (the products read the stages as they stand)
     "mma fwd: no weight staging": [
         ("          if (vec16) cp_async16(d, src);\n          else cp_async8(d, src);\n",
@@ -637,49 +730,161 @@ def _bf16_operands(x, weights, ci, si):
                        for i, t in enumerate(weights)], ci.to(bf), si.to(bf))
 
 
+def _parent_mma_plan(b: int, k: int, n: int, w: int, wm: int, sms: int) -> tuple:
+    """(row segments, tile rows, n8 tiles a warp) of the mma.sync bf16
+    backward that came before Hopper's route (its `bwd_mma_plan`), for a checkout that
+    still has it: the fewest n8 tiles a warp (4, 8, 16) whose block holds
+    D1, the row tile that puts the fewest rows on the busiest SM, enough row
+    segments of the weight gradients for four blocks an SM."""
+    d0, d1 = k * w, k * wm
+    rows_pad = -(-(b * n) // 16) * 16
+    tiles = {4: (5, 2, 1), 8: (2, 1), 16: (1,)}
+    threads = {4: 256, 8: 512, 16: 512}
+    col_tiles = -(-d1 // 8)
+    nt = next(t for t in tiles if -(-col_tiles // t) * 32 <= threads[t])
+    mt = min(tiles[nt], key=lambda m: (-(-2 * -(-rows_pad // (16 * m)) // sms) * m, -m))
+    blocks = sum(-(-din // 48) for din in (d0, d0, d1, d1, d1, d1)) * -(-d1 // 128)
+    chunks = -(-rows_pad // 32)
+    return max(1, min(chunks, -(-4 * sms // blocks))), 16 * mt, nt
+
+
 def _bf16_reread_call(lib, x, g, weights, ci, si, multi, acts, plan=None):
-    """The bf16 reread C entry of a library, into buffers made here: this
-    tree's (g f32, the tile plan `plan`, by default `bwd_mma_plan`'s), or an
-    earlier tree's (g bf16, no plan: found by its workspace function)."""
+    """The bf16 reread C entry of a library (its bf16-storage entry on bf16
+    acts), into buffers made here: this tree's (Hopper's route on the plan
+    `plan`, by default `bwd_tc_plan`'s for the acts' storage), or an earlier
+    tree's mma.sync route (g f32, the plan of `_parent_mma_plan`; found by
+    its workspace function of 7 arguments)."""
     from stemgnn_tpu_torch.ops import cuda_spectral
 
     b, k, n, w = x.shape
     wm = w * multi
-    fn = lib.spectral_bwd_reread_bf16
+    bf16_acts = acts.dtype == torch.bfloat16
+    name = "spectral_bwd_reread_bf16" + ("acts" if bf16_acts else "")
+    fn = getattr(lib, name)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
     dx = torch.empty(x.shape, device=x.device)
     grads = torch.empty(cuda_spectral._fn("spectral_bwd_grad_floats")(k, w, wm), device=x.device)
-    if hasattr(lib, "spectral_bwd_reread_bf16_workspace_floats"):
-        plan = plan or cuda_spectral.bwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device))
-        size = lib.spectral_bwd_reread_bf16_workspace_floats
-        size.argtypes, size.restype = [ctypes.c_int] * 7, ctypes.c_longlong
-        ws = torch.empty(size(b, k, n, w, wm, plan.nsplit, plan.tile_rows), device=x.device)
-        fn.argtypes, fn.restype = cuda_spectral._SIGNATURES["spectral_bwd_reread_bf16"]
-        gk, tail = g, (plan.nsplit, plan.tile_rows, plan.n_tiles)
+    size = lib.spectral_bwd_reread_bf16_workspace_floats
+    if hasattr(lib, "spectral_bwd_bf16_smem"):
+        plan = plan or cuda_spectral.bwd_tc_plan(b, k, n, w, wm, cuda_spectral._sms(x.device),
+                                                 2 if bf16_acts else 4)
+        tail = (cuda_spectral.N_SPLIT,) + plan.args
+        fn.argtypes, fn.restype = cuda_spectral._SIGNATURES[name]
     else:
-        size = lib.spectral_bwd_reread_workspace_floats
-        size.argtypes, size.restype = [ctypes.c_int] * 6, ctypes.c_longlong
-        ws = torch.empty(size(b, k, n, w, wm, cuda_spectral.N_SPLIT), device=x.device)
-        fn.argtypes = cuda_spectral._SIGNATURES["spectral_bwd_reread_bf16"][0][:15] + [
+        tail = _parent_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device))
+        fn.argtypes = cuda_spectral._SIGNATURES[name][0][:14] + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        gk, tail = g.to(torch.bfloat16), (cuda_spectral.N_SPLIT,)
+    size.argtypes, size.restype = [ctypes.c_int] * (5 + len(tail)), ctypes.c_longlong
+    ws = torch.empty(size(b, k, n, w, wm, *tail), device=x.device)
 
-    def call(held=(ws, gk)):
-        _build.check(fn(x.data_ptr(), gk.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+    def call(held=(ws,)):
+        _build.check(fn(x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
                         acts.data_ptr(), dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k,
-                        n, w, wm, *tail, _build.stream_ptr(x)), "spectral_bwd_reread_bf16")
+                        n, w, wm, *tail, _build.stream_ptr(x)), name)
         return dx, grads
 
     return call
 
 
+def _bf16_acts_save_call(lib, x, weights, ci, si, multi):
+    """The bf16-storage saving forward's C entry of a library into buffers
+    made here: this tree's (`fwd_mma_plan` with acts_bf16, stage_acts
+    handed in), or an earlier tree's (the plain plan, no stage_acts: found
+    by the absence of `spectral_fwd_save_bf16acts_smem`). The call returns
+    (out, acts)."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = x.shape
+    wm = w * multi
+    this = hasattr(lib, "spectral_fwd_save_bf16acts_smem")
+    plan = cuda_spectral.fwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device),
+                                      acts_bf16=this)
+    args = plan.args + ((plan.stage_acts,) if this else ())
+    fn = lib.spectral_fwd_save_bf16acts
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * (5 + len(args)) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    out = torch.empty((b, k, n, wm), device=x.device)
+    acts = torch.empty(cuda_spectral._fn("spectral_act_floats")(b, k, n, wm),
+                       dtype=torch.bfloat16, device=x.device)
+
+    def call():
+        _build.check(fn(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
+                        acts.data_ptr(), None, b, k, n, w, wm, *args, _build.stream_ptr(x)),
+                     "spectral_fwd_save_bf16acts")
+        return out, acts
+
+    return call
+
+
+def _bf16_recompute_call(lib, x, g, weights, ci, si, multi):
+    """The bf16 recompute backward's C entry of a library into buffers made
+    here, this tree's or an earlier one's as `_bf16_reread_call` tells them
+    apart; the chain on `fwd_mma_plan`'s plan."""
+    from stemgnn_tpu_torch.ops import cuda_spectral
+
+    b, k, n, w = x.shape
+    wm = w * multi
+    sms = cuda_spectral._sms(x.device)
+    fn = lib.spectral_bwd_bf16
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
+    dx = torch.empty(x.shape, device=x.device)
+    grads = torch.empty(cuda_spectral._fn("spectral_bwd_grad_floats")(k, w, wm), device=x.device)
+    size = lib.spectral_bwd_bf16_workspace_floats
+    if hasattr(lib, "spectral_bwd_bf16_smem"):
+        tail = (cuda_spectral.N_SPLIT,) + cuda_spectral.bwd_tc_plan(b, k, n, w, wm, sms).args
+        fn.argtypes, fn.restype = cuda_spectral._SIGNATURES["spectral_bwd_bf16"]
+    else:
+        tail = _parent_mma_plan(b, k, n, w, wm, sms)
+        fn.argtypes = cuda_spectral._SIGNATURES["spectral_bwd_bf16"][0][:13] + [
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    size.argtypes, size.restype = [ctypes.c_int] * (5 + len(tail)), ctypes.c_longlong
+    ws = torch.empty(size(b, k, n, w, wm, *tail), device=x.device)
+    fplan = cuda_spectral.fwd_mma_plan(b, k, n, w, wm, sms).args
+
+    def call(held=(ws,)):
+        _build.check(fn(x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
+                        dx.data_ptr(), grads.data_ptr(), ws.data_ptr(), b, k, n, w, wm, *tail,
+                        *fplan, _build.stream_ptr(x)), "spectral_bwd_bf16")
+        return dx, grads
+
+    return call
+
+
+def _kernel_ms(call, reps: int = 20) -> dict:
+    """{kernel name: device ms a call} of `call` by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    import re
+
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"(\w+?)[<(]", ev.key.replace("void ", "").split("::")[-1])
+            name = found.group(1) if found else ev.key
+            out[name] = out.get(name, 0.0) + ev.device_time_total / 1e3 / reps
+    return out
+
+
 def spectral_mma(dev, tmp: Path) -> None:
-    """The bf16 spectral reread backward (its C entry: the mma rows and
-    weight-gradient kernels, dx, reduce and bias) by variant at the flagship
-    shapes, on the saving forward's arrays: what the products cost without
-    their epilogue, and each mma kernel's share; then the source as it is at
-    other row tiles and row segments than the plan's."""
+    """The bf16 reread backward on Hopper (its C entry: the pack, rows and
+    weight-gradient kernels) by variant at the flagship shapes, on the f32
+    and the bf16 planes of the saving forwards: what the products, the
+    weight items, the a, s loads, the transposed stores and the weight
+    gradients' products and cluster sums cost, and each kernel's share (and
+    the rows kernel's phases by %globaltimer); each kernel's time by the
+    profiler; then the source as it is on other plans than `bwd_tc_plan`'s
+    (a, s read from L2, items of other depths, other row segments of the
+    weight gradients)."""
     from stemgnn_tpu_torch.ops import cuda_spectral
 
     b, n, w, m = 32, 140, 12, 5
@@ -688,19 +893,52 @@ def spectral_mma(dev, tmp: Path) -> None:
         (b, 4, n, w * m)).astype(np.float32)).to(dev)
     with torch.no_grad():
         _, acts = cuda_spectral._launch_fwd(x, weights, ci, si, m, save=True)
+        _, acts16 = cuda_spectral._launch_fwd(x, weights, ci, si, m, save=True,
+                                              act_dtype="bfloat16")
+    planes = {"f32 planes": acts, "bf16 planes": acts16}
     libs = _build_variants("spectral.cu", SPECTRAL_MMA_VARIANTS, tmp)
     for name, lib in libs.items():
-        call = _bf16_reread_call(lib, x, g, weights, ci, si, m, acts)
-        print(f"spectral_bwd_reread_bf16 B={b} N={n} W={w} multi={m}, {name}: "
-              f"{_cuda_ms(call):.5f} ms")
-    plan = cuda_spectral.bwd_mma_plan(b, 4, n, w, w * m, cuda_spectral._sms(dev))
-    for tile_rows, nsplit in ((plan.tile_rows, plan.nsplit), (80, 6), (80, 18), (32, 12),
-                              (16, 12), (plan.tile_rows, plan.nsplit)):
-        other = plan._replace(tile_rows=tile_rows, nsplit=nsplit)
-        call = _bf16_reread_call(libs["base"], x, g, weights, ci, si, m, acts, other)
-        print(f"spectral_bwd_reread_bf16 B={b} N={n} W={w} multi={m}, base, row tile "
-              f"{tile_rows}, {nsplit} row segments (the plan's: {plan.tile_rows}, "
-              f"{plan.nsplit}): {_cuda_ms(call):.5f} ms")
+        for label, a in planes.items():
+            call = _bf16_reread_call(lib, x, g, weights, ci, si, m, a)
+            print(f"spectral bf16 reread B={b} N={n} W={w} multi={m}, {label}, {name}: "
+                  f"{_cuda_ms(call):.5f} ms")
+            if name == "rows: timeline":  # each phase's end after the block's start, us
+                call()
+                dx, _ = call()
+                torch.cuda.synchronize()
+                plan = cuda_spectral.bwd_tc_plan(b, 4, n, w, w * m, cuda_spectral._sms(dev),
+                                                 2 if a is acts16 else 4)
+                t = dx.flatten()[: 2 * plan.clusters * 16].view(-1, 16)[:, :11].double().cpu()
+                rel = (t - t[:, :1]) / 1e3
+                start = (t[:, 0] - t[:, 0].min()) / 1e3
+                print(f"  timeline, {label}: block starts after the first, us (median, max): "
+                      f"{start.median().item():.2f}, {start.max().item():.2f}; phase ends "
+                      f"(staged, idft, epi 2, prod 2, epi 1, prod 1, epi 0, prod 0, cluster "
+                      f"sync, end), us after the block's start (median / max): " + ", ".join(
+                          f"{rel[:, k].median().item():.2f}/{rel[:, k].max().item():.2f}"
+                          for k in range(1, 11)))
+    for label, a in planes.items():
+        ms = _kernel_ms(_bf16_reread_call(libs["base"], x, g, weights, ci, si, m, a))
+        print(f"spectral bf16 reread B={b} N={n} W={w} multi={m}, {label}, base, by kernel "
+              f"(profiler, ms a call): " + ", ".join(f"{k} {v:.5f}" for k, v in ms.items()))
+    sms = cuda_spectral._sms(dev)
+    for label, a in planes.items():
+        plan = cuda_spectral.bwd_tc_plan(b, 4, n, w, w * m, sms, 2 if a is acts16 else 4)
+        others = [plan, plan._replace(stage_acts=0),
+                  plan._replace(item_steps=2),
+                  plan._replace(item_steps=2, ring=min(2 * plan.ring, 4 * plan.warps)),
+                  plan._replace(ring=plan.warps)]  # one slot a warp
+        others += [plan._replace(nseg=c) for c in (1, 2, 3, 4, 5, 8) if c != plan.nseg]
+        others.append(plan)
+        for other in others:
+            diff = {f: v for f, v in other._asdict().items() if v != getattr(plan, f)}
+            try:
+                call = _bf16_reread_call(libs["base"], x, g, weights, ci, si, m, a, other)
+                t = f"{_cuda_ms(call):.5f} ms"
+            except RuntimeError as exc:  # a plan the kernels refuse
+                t = f"refused ({exc})"
+            print(f"spectral bf16 reread B={b} N={n} W={w} multi={m}, {label}, base, plan "
+                  f"{diff or 'bwd_tc_plan'}: {t}")
 
 
 def _bf16_fwd_calls(lib, x, weights, ci, si, multi, plan=None):
@@ -781,29 +1019,36 @@ def spectral_fwd_mma(dev, tmp: Path) -> None:
 
 
 # The bf16-storage arm's a, s stores in the chain kernel on tensor cores: as
-# they are (a bf16 pair a word, cached in L2 only), streaming (evict-first),
-# and none (what they cost).
-_ACTS_STORE = "__stcg(reinterpret_cast<unsigned int*>(ga + row * d1 + col), pack_bf16x2(a0, a1));"
-_ACTS_STORE_S = "__stcg(reinterpret_cast<unsigned int*>(gs + row * d1 + col), pack_bf16x2(s0, s1));"
+# they are (staged in shared memory, a bulk store a plane and GLU), without
+# the bulk stores (the staging written, nothing sent), and none at all.
+_ACTS_BULK = ("            bulk_store(acts + (2 * gi) * plane + row0 * d1, stg, bytes);\n"
+              "            bulk_store(acts + (2 * gi + 1) * plane + row0 * d1, stg + TM * d1, "
+              "bytes);\n")
+_ACTS_STAGE = ("                  *reinterpret_cast<uint32_t*>(stg + r * d1 + col) = "
+               "pack_bf16x2(a0, a1);\n"
+               "                  *reinterpret_cast<uint32_t*>(stg + (TM + r) * d1 + col) = "
+               "pack_bf16x2(s0, s1);\n")
 SPECTRAL_ACTS_VARIANTS = {
     "base": [],
-    "streaming stores": [(_ACTS_STORE, _ACTS_STORE.replace("__stcg", "__stcs")),
-                         (_ACTS_STORE_S, _ACTS_STORE_S.replace("__stcg", "__stcs"))],
-    "no stores": [(_ACTS_STORE, ""), (_ACTS_STORE_S, "")],
+    "no bulk stores": [(_ACTS_BULK, "")],
+    "no stores": [(_ACTS_BULK, ""), (_ACTS_STAGE, "")],
 }
 
 
-def _bf16_storage_calls(lib, x, g, weights, ci, si, multi):
+def _bf16_storage_calls(lib, x, g, weights, ci, si, multi, staged: bool = True):
     """(saving call, reread call) of a library's bf16-storage entries
     (`spectral_fwd_save_bf16acts`, `spectral_bwd_reread_bf16acts`) on the
-    plans of `fwd_mma_plan` and `bwd_mma_plan`, into buffers made here; the
-    reread reads what one saving call wrote."""
+    plans of `fwd_mma_plan` (acts_bf16; with `staged` False, the plain plan:
+    the lanes store the planes) and `bwd_tc_plan` for 2-byte planes, into
+    buffers made here; the reread reads what one saving call wrote."""
     from stemgnn_tpu_torch.ops import cuda_spectral
 
     b, k, n, w = x.shape
     wm = w * multi
-    fp = cuda_spectral.fwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device))
-    bp = cuda_spectral.bwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device))
+    fp = cuda_spectral.fwd_mma_plan(b, k, n, w, wm, cuda_spectral._sms(x.device),
+                                    acts_bf16=staged)
+    stage = fp.stage_acts
+    bp = cuda_spectral.bwd_tc_plan(b, k, n, w, wm, cuda_spectral._sms(x.device), act_bytes=2)
     ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in weights])
     out = torch.empty((b, k, n, wm), device=x.device)
     acts = torch.empty(cuda_spectral._fn("spectral_act_floats")(b, k, n, wm),
@@ -811,21 +1056,21 @@ def _bf16_storage_calls(lib, x, g, weights, ci, si, multi):
     dx = torch.empty(x.shape, device=x.device)
     grads = torch.empty(cuda_spectral._fn("spectral_bwd_grad_floats")(k, w, wm), device=x.device)
     ws = torch.empty(cuda_spectral._fn("spectral_bwd_reread_bf16_workspace_floats")(
-        b, k, n, w, wm, bp.nsplit, bp.tile_rows), device=x.device)
+        b, k, n, w, wm, cuda_spectral.N_SPLIT, *bp.args), device=x.device)
     save, reread = lib.spectral_fwd_save_bf16acts, lib.spectral_bwd_reread_bf16acts
     save.argtypes, save.restype = cuda_spectral._SIGNATURES["spectral_fwd_save_bf16acts"]
     reread.argtypes, reread.restype = cuda_spectral._SIGNATURES["spectral_bwd_reread_bf16acts"]
 
     def saving():
         _build.check(save(x.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(), out.data_ptr(),
-                          acts.data_ptr(), None, b, k, n, w, wm, *fp.args,
+                          acts.data_ptr(), None, b, k, n, w, wm, *fp.args, stage,
                           _build.stream_ptr(x)), "spectral_fwd_save_bf16acts")
         return out, acts
 
     def rereading():
         _build.check(reread(x.data_ptr(), g.data_ptr(), ptrs, ci.data_ptr(), si.data_ptr(),
                             acts.data_ptr(), dx.data_ptr(), grads.data_ptr(), ws.data_ptr(),
-                            b, k, n, w, wm, bp.nsplit, bp.tile_rows, bp.n_tiles,
+                            b, k, n, w, wm, cuda_spectral.N_SPLIT, *bp.args,
                             _build.stream_ptr(x)), "spectral_bwd_reread_bf16acts")
         return dx, grads
 
@@ -859,6 +1104,12 @@ def spectral_acts(dev, tmp: Path) -> None:
             saving, _ = _bf16_storage_calls(lib, x, g, weights, ci, si, m)
             print(f"spectral bf16 {shape}, bf16 saved arrays, {name}: saving forward "
                   f"{_cuda_ms(saving):.5f} ms")
+        # the lanes' own stores (the plan without the staging), in turns
+        for label, staged in (("staged, bulk stores", True), ("lane stores", False),
+                              ("lane stores", False), ("staged, bulk stores", True)):
+            saving, _ = _bf16_storage_calls(libs["base"], x, g, weights, ci, si, m, staged)
+            print(f"spectral bf16 {shape}, bf16 saved arrays, base, {label}: saving forward "
+                  f"{_cuda_ms(saving):.5f} ms")
 
 
 def _build_other(src: Path, tmp: Path) -> ctypes.CDLL:
@@ -878,8 +1129,9 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
     at W = 25 and at the COVID-19 shape, and both arms of the graph conv at
     the flagship's and the COVID-19 shape, every output bitwise equal; and
     both trees' times, in the order other, this, this, other, the bf16
-    reread backward's and bf16 forwards' too, their outputs compared (equal
-    where both trees run the same bf16 design, else their sums differ)."""
+    reread backwards' (both storage arms), the bf16 recompute's and the bf16
+    forwards' too, their outputs compared (equal where both trees run the
+    same bf16 design, else their sums differ)."""
     from stemgnn_tpu_torch.ops import cuda_spectral
 
     csrc = other / "stemgnn_tpu_torch" / "csrc"
@@ -924,14 +1176,27 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
         (32, 4, 140, 60)).astype(np.float32)).to(dev)
     with torch.no_grad():
         _, acts = cuda_spectral._launch_fwd(x, weights, ci, si, 5, save=True)
-    calls = {tree: _bf16_reread_call(lib, x, g, weights, ci, si, 5, acts)
-             for tree, lib in libs.items()}
-    outs = {tree: [t.clone() for t in call()] for tree, call in calls.items()}
-    same = all(torch.equal(a, b_) for a, b_ in zip(outs["this"], outs["other"]))
-    ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
-    print(f"spectral_bwd_reread_bf16 flagship: this tree against {other}: dx and gradients "
-          f"{'bitwise equal' if same else 'DIFFER'}; ms in the order other, this, this, "
-          f"other: {ms}")
+    # the bf16-storage planes, as this tree's saving forward writes them (bitwise
+    # the f32 planes rounded in either tree)
+    with torch.no_grad():
+        _, acts16 = cuda_spectral._launch_fwd(x, weights, ci, si, 5, save=True,
+                                              act_dtype="bfloat16")
+    for entry, make in (
+            ("spectral_bwd_reread_bf16", lambda lib: _bf16_reread_call(
+                lib, x, g, weights, ci, si, 5, acts)),
+            ("spectral_bwd_reread_bf16acts", lambda lib: _bf16_reread_call(
+                lib, x, g, weights, ci, si, 5, acts16)),
+            ("spectral_bwd_bf16", lambda lib: _bf16_recompute_call(
+                lib, x, g, weights, ci, si, 5)),
+            ("spectral_fwd_save_bf16acts", lambda lib: _bf16_acts_save_call(
+                lib, x, weights, ci, si, 5))):
+        calls = {tree: make(lib) for tree, lib in libs.items()}
+        outs = {tree: [t.clone() for t in call()] for tree, call in calls.items()}
+        same = all(torch.equal(a, b_) for a, b_ in zip(outs["this"], outs["other"]))
+        ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
+        print(f"{entry} flagship: this tree against {other}: outputs "
+              f"{'bitwise equal' if same else 'DIFFER'}; ms in the order other, this, this, "
+              f"other: {ms}")
     # and both trees' bf16 forwards' C entries (this tree's chain on tensor
     # cores): times only, as above
     calls = {tree: _bf16_fwd_calls(lib, x, weights, ci, si, 5) for tree, lib in libs.items()}

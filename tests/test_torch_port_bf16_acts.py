@@ -9,7 +9,11 @@ package's switches are patched inside each test, never in its file.
 
 The CUDA arms run only on the card: chip_smoke.py holds them against these
 plain versions and their bf16 planes bit for bit against the f32-storage
-arm's planes rounded to bf16."""
+arm's planes rounded to bf16. Here, on the CPU: the torch emulation of the
+bf16 backward's blocking on Hopper (tests/test_torch_port_spectral_mma.py)
+run on the bf16 planes, against the plain reread on them; the saving
+forward's plan, which stages the bf16 planes for bulk stores where they fit,
+and the plans the arm's wrappers hand the C entries."""
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +30,8 @@ from stemgnn_tpu_torch import ops
 from stemgnn_tpu_torch.config import StemGNNConfig
 from stemgnn_tpu_torch.models import forward
 from stemgnn_tpu_torch.models.convert import flatten_params, params_from_jax
-from stemgnn_tpu_torch.ops import cuda_spectral
+from stemgnn_tpu_torch.ops import _build, cuda_spectral, torch_impl
+from tests.test_torch_port_spectral_mma import SMS, _Fake, _chip_smoke, emulate_bwd_tc
 
 torch.set_num_threads(1)
 
@@ -219,6 +224,91 @@ def test_bf16_storage_arm_has_counters_and_raises_at_f32():
     assert ops.launches() == dict.fromkeys(ops.KERNELS, 0)
     with pytest.raises(ValueError):
         ops.spe_seq_cell_save(x, glu, 5, BF16, act_dtype="float16")
+
+
+@pytest.mark.parametrize("b,n,w,m", [(32, 140, 12, 5), (5, 37, 7, 5)], ids=["flagship", "W7"])
+def test_tc_blocking_on_bf16_planes_meets_the_bf16_rule(b, n, w, m):
+    """The emulation of the Hopper backward's blocking on the bf16-storage
+    arm's planes (its plan for 2-byte planes) against the plain reread on the
+    same planes, by chip_smoke.py's bf16 rule (each array within 2^-8 of its
+    largest entry, at least 4 times closer than the f32 plain version on
+    the f32 planes)."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(12)
+    glu = params_from_jax(_glu(n, w, m), "cpu")
+    x = torch.from_numpy(rng.standard_normal((b, 4, n, w)).astype(np.float32))
+    g = torch.from_numpy((1e-3 * rng.standard_normal((b, 4, n, w * m))).astype(np.float32))
+    with torch.no_grad():
+        _, acts16 = torch_impl.spe_seq_cell_save(x, glu, m, BF16, BF16)
+        _, acts32 = torch_impl.spe_seq_cell_save(x, glu, m)
+        plan = cuda_spectral.bwd_tc_plan(b, 4, n, w, w * m, SMS, act_bytes=2)
+        got = emulate_bwd_tc(x, glu, g, acts16, m, plan)
+        want = torch_impl.spe_seq_cell_bwd_reread(x, glu, g, acts16, m, BF16)
+        want32 = torch_impl.spe_seq_cell_bwd_reread(x, glu, g, acts32, m)
+    assert acts16.dtype == torch.bfloat16
+    flat = [[dx] + cuda_spectral._flat(dg) for dx, dg in (got, want, want32)]
+    bad, err, ratio, rel = smoke.bf16_agreement(*flat, smoke.BF16_ATOL_REL)
+    assert not bad and ratio >= smoke.BF16_CLOSER, (bad, err, ratio, rel)
+    assert any(not torch.equal(a, c) for a, c in zip(flat[0], flat[1]))
+
+
+@pytest.mark.parametrize("b,n,w,m", [(32, 140, 12, 5), (32, 25, 28, 5), (5, 37, 12, 15),
+                                     (5, 37, 100, 5)],
+                         ids=["flagship", "covid", "d1_720", "d1_2000"])
+def test_bf16_storage_forward_plan_stages_its_planes_where_they_fit(b, n, w, m):
+    """`fwd_mma_plan(acts_bf16=True)`: the tile, n8 tiles and threads of the
+    plain plan's candidates, with the tile's bf16 a and s (4 tm D1 bytes)
+    staged for bulk stores where they fit beside two stages of panels at
+    least (the flagship, the COVID-19 shape and D1 = 720), stored by the
+    lanes past that (D1 = 2000); a block's shared memory within the card's."""
+    wm = w * m
+    plan = cuda_spectral.fwd_mma_plan(b, 4, n, w, wm, SMS, acts_bf16=True)
+    plain = cuda_spectral.fwd_mma_plan(b, 4, n, w, wm, SMS)
+    assert plan.stage_acts == (4 * w * m <= 720) and plain.stage_acts == 0
+    assert plan.smem <= cuda_spectral.SMEM_PER_BLOCK
+    assert plan.smem == plan.stage_acts * 4 * plan.tile_rows * 4 * wm + 2 * (
+        2 * plan.tile_rows * plan.stride + plan.stages * 2 * plan.panel_k * plan.panel_stride)
+    if not plan.stage_acts:
+        assert plan == plain
+    if (b, n, w, m) == (32, 140, 12, 5):
+        assert (plan.tile_rows, plan.n_tiles, plan.panel_k, plan.stages) == (80, 3, 32, 2)
+
+
+def test_bf16_storage_arm_hands_the_kernels_its_plans(monkeypatch):
+    """With the C functions replaced: the bf16-storage saving forward asks
+    `spectral_fwd_save_bf16acts_smem` for its plan (stage_acts included) and
+    hands the entry the plan and stage_acts; the reread on its planes asks
+    the plan for 2-byte planes of `spectral_bwd_bf16_smem` and hands it."""
+    b, n, w, m = 32, 140, 12, 5
+    wm = w * m
+    fwd = cuda_spectral.fwd_mma_plan(b, 4, n, w, wm, SMS, acts_bf16=True)
+    bwd = cuda_spectral.bwd_tc_plan(b, 4, n, w, wm, SMS, act_bytes=2)
+    sizes = {"spectral_act_floats": 12 * fwd.rows_pad * 4 * wm,
+             "spectral_bwd_grad_floats": 2 * 2 * (4 * w * 4 * wm + 4 * wm)
+             + 4 * 2 * (4 * wm * 4 * wm + 4 * wm),
+             "spectral_fwd_save_bf16acts_smem": fwd.smem, "spectral_bwd_bf16_smem": bwd.smem,
+             "spectral_bwd_reread_bf16_workspace_floats": bwd.workspace_floats}
+    fakes = {}
+    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
+    monkeypatch.setattr(cuda_spectral, "_sms", lambda device: SMS)
+    monkeypatch.setattr(cuda_spectral, "_fn",
+                        lambda name: fakes.setdefault(name, _Fake(sizes.get(name, 0))))
+    glu = params_from_jax(_glu(n, w, m), "cpu")
+    x = torch.zeros((b, 4, n, w))
+    xk, weights, ci, si = cuda_spectral._card_operands(x, glu, m, BF16)
+    before = ops.launches()
+    _, acts = cuda_spectral._launch_fwd(xk, weights, ci, si, m, save=True, act_dtype=BF16)
+    cuda_spectral._bwd_cuda(xk, torch.ones((b, 4, n, wm)), weights, m, acts)
+    for name, count in before.items():
+        ops.KERNELS[name].launches = count
+    (save,) = fakes["spectral_fwd_save_bf16acts"].calls
+    assert save[7:18] == (b, 4, n, w, wm) + fwd.args + (fwd.stage_acts,)
+    assert fakes["spectral_fwd_save_bf16acts_smem"].calls == [(4, wm) + fwd.args
+                                                               + (fwd.stage_acts,)]
+    (reread,) = fakes["spectral_bwd_reread_bf16acts"].calls
+    assert reread[9:-1] == (b, 4, n, w, wm, cuda_spectral.N_SPLIT) + bwd.args
+    assert fakes["spectral_bwd_bf16_smem"].calls == [(b, 4, n, w, wm) + bwd.args + (2,)]
 
 
 def _leaf_tree(tree):

@@ -208,12 +208,13 @@ class _Fake:
 def test_bf16_forwards_and_recompute_hand_the_kernels_the_plan(monkeypatch, b, n, w, multi):
     wm = w * multi
     fwd = cuda_spectral.fwd_mma_plan(b, K, n, w, wm, SMS)
-    bwd = cuda_spectral.bwd_mma_plan(b, K, n, w, wm, SMS)
+    bwd = cuda_spectral.bwd_tc_plan(b, K, n, w, wm, SMS)
     sizes = {"spectral_act_floats": 12 * fwd.rows_pad * K * wm,
              "spectral_bwd_grad_floats": 2 * 2 * (K * w * K * wm + K * wm)
              + 4 * 2 * (K * wm * K * wm + K * wm),
              "spectral_bwd_bf16_workspace_floats": bwd.workspace_floats
-             + 12 * bwd.rows_pad * K * wm, "spectral_fwd_bf16_smem": fwd.smem}
+             + 12 * bwd.rows_pad * K * wm, "spectral_fwd_bf16_smem": fwd.smem,
+             "spectral_bwd_bf16_smem": bwd.smem}
     fakes = {}
     monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
     monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
@@ -233,7 +234,7 @@ def test_bf16_forwards_and_recompute_hand_the_kernels_the_plan(monkeypatch, b, n
     assert serve[0] == save[0] == recompute[0] == xk.data_ptr()
     assert serve[6:16] == (b, K, n, w, wm) + fwd.args
     assert save[7:17] == (b, K, n, w, wm) + fwd.args
-    assert recompute[8:] == ((b, K, n, w, wm, bwd.nsplit, bwd.tile_rows, bwd.n_tiles)
+    assert recompute[8:] == ((b, K, n, w, wm, cuda_spectral.N_SPLIT) + bwd.args
                              + fwd.args + (None,))
     # each forward first asks the kernel's shared memory for the plan
     assert fakes["spectral_fwd_bf16_smem"].calls == [(K, wm) + fwd.args] * 2
