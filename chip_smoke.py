@@ -58,12 +58,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
      bulk copies feeding mma.sync and wgmma, so every bf16 shape above holds
      those kernels; the profiler shows each bf16 saving forward on the chain
      kernel of its route, and both reread arms and the recompute on the
-     backward's kernels of its route, `bf16_bwd_route`). The redesigned bf16
+     backward's kernels of its route, `bf16_bwd_route`; where a profile
+     lost some of a call's events and so fails a route check, the kernel
+     nodes of a CUDA graph of the call decide, `route_kernels`). The redesigned bf16
      wrappers' times beside
      their parent design's (PARENT_DESIGN_MS), their bounds and the f32
      arms'; both bf16 forwards and the bf16 recompute backward on the chain
      kernel on tensor cores, and the bf16 graph conv one kernel a call
-     (torch.profiler: no cast kernel before it). The bf16-storage arm of the
+     (torch.profiler: no cast kernel before it) with tensor-core
+     instructions and no FFMA in its SASS (cuobjdump). The bf16 graph conv
+     also at synthetic-1k whole, COVID-19 and a ragged shape, and at every
+     shape beside torch.mm on bf16 operands cast before the call and with
+     its two casts in it, its bound the f32 bytes it reads and writes (the
+     bf16-operand bound printed beside it). The bf16-storage arm of the
      saving pair (SAVE_ACTS_F32 off: `spectral_fwd_save_bf16acts`,
      `spectral_bwd_reread_bf16acts`) at the flagship beside the f32-storage
      arm's times, and at every spectral shape above: its 12 bf16 planes
@@ -761,7 +768,7 @@ def forward_cases(params, mcfg, x):
          lambda: cuda_graph.cheb_graph_conv_plain(mul_L, feat),
          lambda: torch.matmul(lk, xt),
          1e-4, 1e-5,  # 140-term f32 sums in another order than cuBLAS
-         4 * (k * n * n + b * n * w + b * k * n * w),
+         4 * ((k - 1) * n * n + b * n * w + b * k * n * w),  # order 0 of L unread
          2 * (k - 1) * n * n * b * w),
     ] + spectral_fwd_cases(gfted, params["blocks"][0]["glu"], mcfg.multi_layer)
 
@@ -819,43 +826,59 @@ def bf16_cases(rec, params, mcfg, x):
     Each call returns a list of arrays. The forward arms take what the plain
     path computes from the batch x (as `forward_cases`), the backward arms
     what one train step of the CPU plain path saved and sent back (`rec`, as
-    `backward_cases`). Bytes count the kernels' operands as bf16."""
-    import torch
-
-    from stemgnn_tpu_torch.ops import cuda_graph
-
-    b, w, n = x.shape
-    k = 4
-    bf = "bfloat16"
+    `backward_cases`). The spectral arms' bytes count their operands as
+    bf16; the graph conv's, the f32 operands it is handed (`graph_bf16_case`)."""
     dev = x.device
     _, _, mul_L, feat, gfted = forward_inputs(params, mcfg, x)
 
-    # the library yardstick of the graph conv: one product of bf16 operands
-    # with an f32 result, where this torch build has torch.mm's out_dtype
-    lk = mul_L[1:].reshape((k - 1) * n, n).to(torch.bfloat16).contiguous()
-    xt = feat.permute(1, 0, 2).reshape(n, b * w).to(torch.bfloat16).contiguous()
+    call = rec.calls["spe_seq_cell"][0]
+    return [graph_bf16_case("cheb_graph_conv_fwd_bf16", mul_L, feat)] + spectral_bf16_cases(
+        gfted, params["blocks"][0]["glu"], mcfg.multi_layer,
+        call["args"][0].detach().to(dev).contiguous(), call["g"].detach().to(dev).contiguous())
+
+
+def mm_bf16_yardsticks(mul_L, feat):
+    """The bf16 graph conv's library yardsticks on mul_L [K, M, N] and x [B,
+    N, W]: ("with casts", torch.mm of the orders 1..K-1 and x as bf16
+    operands with an f32 result, cast before the timed call; the same call
+    with its two casts inside it (`kernel_variants.library_bf16`); the bytes
+    of the bf16 operands it reads and its f32 result). None where this torch
+    build has no torch.mm(..., out_dtype=float32) on bf16 operands."""
+    from stemgnn_tpu_torch.utils import kernel_variants
+
+    k, m, n = mul_L.shape
+    b, _, w = feat.shape
+    pre, cast = kernel_variants.library_bf16(mul_L, feat)
     try:
-        torch.mm(lk, xt, out_dtype=torch.float32)
-        lib = lambda: [torch.mm(lk, xt, out_dtype=torch.float32)]  # noqa: E731
+        pre()
     except (TypeError, RuntimeError) as exc:
         print(f"[3 kernel] cheb_graph_conv_fwd_bf16: this torch build has no "
               f"torch.mm(..., out_dtype=float32) on bf16 operands ({exc}): no library time")
-        lib = None
+        return None
+    # order 0 of mul_L is never read: its slab of the output is zeros
+    return ("with casts", lambda: [pre()], lambda: [cast()],
+            2 * ((k - 1) * m * n + b * n * w) + 4 * b * k * m * w)
 
-    call = rec.calls["spe_seq_cell"][0]
-    return [
-        ("cheb_graph_conv_fwd_bf16", "stemgnn_tpu_torch/csrc/graph.cu",
-         "stemgnn_tpu/ops/pallas_graph.py:33",
-         lambda: [cuda_graph.cheb_graph_conv(mul_L, feat, bf)],
-         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat, bf)],
-         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat)],
-         lib,
-         1e-4, 1e-5,  # the f32 arm's, scaled: no rounding after the products
-         2 * (k * n * n + b * n * w) + 4 * b * k * n * w,
-         2 * (k - 1) * n * n * b * w),
-    ] + spectral_bf16_cases(gfted, params["blocks"][0]["glu"], mcfg.multi_layer,
-                            call["args"][0].detach().to(dev).contiguous(),
-                            call["g"].detach().to(dev).contiguous())
+
+def graph_bf16_case(name, mul_L, feat, rows: bool = False):
+    """The bf16 graph conv (the square call, or the row-block call on mul_L
+    [K, M, N]) as `bf16_cases` lays a case out: its bytes the f32 operands
+    the call reads (orders 1..K-1 of mul_L, and x) and its f32 output, as
+    the function moves them (the bf16-operand bytes are printed beside
+    them, `check_bf16_cases`)."""
+    from stemgnn_tpu_torch.ops import cuda_graph
+
+    k, m, n = mul_L.shape
+    b, _, w = feat.shape
+    fn = cuda_graph.cheb_graph_conv_rows if rows else cuda_graph.cheb_graph_conv
+    return (name, "stemgnn_tpu_torch/csrc/graph.cu", "stemgnn_tpu/ops/pallas_graph.py:33",
+            lambda: [fn(mul_L, feat, "bfloat16")],
+            lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat, "bfloat16")],
+            lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat)],
+            mm_bf16_yardsticks(mul_L, feat),
+            1e-4, 1e-5,  # the f32 arm's, scaled: no rounding after the products
+            4 * ((k - 1) * m * n + b * n * w + b * k * m * w),
+            2 * (k - 1) * m * n * b * w)
 
 
 def spectral_bf16_cases(gfted, glu, multi: int, gfted_bwd, g_spe):
@@ -960,12 +983,12 @@ def grid_cases(params, x, g_gru):
     largest entry."""
     import torch
 
-    from stemgnn_tpu_torch.ops import cuda_gru, torch_impl
+    from stemgnn_tpu_torch.ops import _build, cuda_gru, torch_impl
 
     b, w, n = x.shape
     h = n
     gru = params["gru"]
-    card = cuda_gru.card_limits(x.device)
+    card = _build.card_limits(x.device)
     routes = (cuda_gru.launch_plan(b, h, *card).route, cuda_gru.bwd_plan(b, h, *card).route)
     if routes != ("grid", "grid"):
         raise RuntimeError(f"hidden size {h} was expected to take the grid route: {routes}")
@@ -1085,12 +1108,12 @@ def segmented_gru_check(gru, x, g, seg: int, tag: str):
     backward twice, bitwise. Returns an error message, or None."""
     import torch
 
-    from stemgnn_tpu_torch.ops import cuda_gru, torch_impl
+    from stemgnn_tpu_torch.ops import _build, cuda_gru, torch_impl
 
     x_fold = cuda_gru.fold_segments(x, seg).contiguous()  # [S*B, W, seg]
     g_fold = cuda_gru.fold_segments(g.transpose(1, 2), seg).transpose(1, 2).contiguous()
     rows, h = x_fold.shape[0], gru["w_hh"].shape[1]
-    card = cuda_gru.card_limits(x.device)
+    card = _build.card_limits(x.device)
     plan, bplan = cuda_gru.launch_plan(rows, h, *card), cuda_gru.bwd_plan(rows, h, *card)
     if (plan.route, bplan.route) != ("cluster", "cluster"):
         return f"{tag}: the GRU at {rows} rows, H={h} takes the {plan.route} route"
@@ -1188,10 +1211,10 @@ def shape_checks(dev):
     import numpy as np
     import torch
 
-    from stemgnn_tpu_torch.ops import cuda_graph, cuda_gru, torch_impl
+    from stemgnn_tpu_torch.ops import _build, cuda_graph, cuda_gru, torch_impl
 
     rng = np.random.default_rng(3)
-    limits = cuda_gru.card_limits(dev)
+    limits = _build.card_limits(dev)
 
     def card(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -1346,10 +1369,10 @@ def attention_checks(dev):
     import numpy as np
     import torch
 
-    from stemgnn_tpu_torch.ops import cuda_attention, cuda_gru
+    from stemgnn_tpu_torch.ops import _build, cuda_attention
 
     alpha = 0.2
-    sms, smem = cuda_gru.card_limits(dev)
+    sms, smem = _build.card_limits(dev)
     for b, n in ATT_SHAPES:
         rng = np.random.default_rng(11 + n)
         key, query = (torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32)).to(dev)
@@ -1437,13 +1460,6 @@ def rows_cases(key, query, p, g, mul_L, feat, alpha: float):
     n, w, k = query.shape[1], feat.shape[2], mul_L.shape[0]
     lk = mul_L[1:].contiguous()
     xt = feat.permute(1, 0, 2).reshape(n, b * w).contiguous()
-    lk16 = lk.reshape((k - 1) * m, n).to(torch.bfloat16)
-    xt16 = xt.to(torch.bfloat16)
-    try:
-        torch.mm(lk16, xt16, out_dtype=torch.float32)
-        lib16 = lambda: [torch.mm(lk16, xt16, out_dtype=torch.float32)]  # noqa: E731
-    except (TypeError, RuntimeError):
-        lib16 = None
     src_a, src_g = "stemgnn_tpu_torch/csrc/attention.cu", "stemgnn_tpu_torch/csrc/graph.cu"
     f32 = [
         ("attention_kq_fwd_rows", src_a, "stemgnn_tpu/ops/pallas_attention.py:29",
@@ -1460,18 +1476,10 @@ def rows_cases(key, query, p, g, mul_L, feat, alpha: float):
          lambda: cuda_graph.cheb_graph_conv_rows(mul_L, feat),
          lambda: cuda_graph.cheb_graph_conv_plain(mul_L, feat),
          lambda: torch.matmul(lk, xt),
-         1e-5, 1e-5, 4 * (k * m * n + b * n * w + b * k * m * w),
+         1e-5, 1e-5, 4 * ((k - 1) * m * n + b * n * w + b * k * m * w),
          2 * (k - 1) * m * n * b * w),
     ]
-    bf16 = [
-        ("cheb_graph_conv_fwd_rows_bf16", src_g, "stemgnn_tpu/ops/pallas_graph.py:33",
-         lambda: [cuda_graph.cheb_graph_conv_rows(mul_L, feat, "bfloat16")],
-         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat, "bfloat16")],
-         lambda: [cuda_graph.cheb_graph_conv_plain(mul_L, feat)],
-         lib16, 1e-4, 1e-5, 2 * (k * m * n + b * n * w) + 4 * b * k * m * w,
-         2 * (k - 1) * m * n * b * w),
-    ]
-    return f32, bf16
+    return f32, [graph_bf16_case("cheb_graph_conv_fwd_rows_bf16", mul_L, feat, rows=True)]
 
 
 def rows_checks(dev, results, params, mcfg, x):
@@ -1488,10 +1496,10 @@ def rows_checks(dev, results, params, mcfg, x):
     import numpy as np
     import torch
 
-    from stemgnn_tpu_torch.ops import cuda_attention, cuda_graph, cuda_gru
+    from stemgnn_tpu_torch.ops import _build, cuda_attention, cuda_graph
 
     alpha = mcfg.leaky_rate
-    sms, smem = cuda_gru.card_limits(dev)
+    sms, smem = _build.card_limits(dev)
     key_f, query_f, mul_L_f, feat_f, _ = forward_inputs(params, mcfg, x)
     for b, n, m in ROWS_SHAPES:
         rng = np.random.default_rng(20 + n + m)
@@ -1519,14 +1527,17 @@ def rows_checks(dev, results, params, mcfg, x):
             return fail
         print(f"[{tag}] plans: {cuda_attention.fwd_plan(b, n, sms, m=m)}, "
               f"{cuda_attention.bwd_plan(b, n, sms, smem, m=m)}, "
-              f"{cuda_graph.launch_plan(4, n, b, WINDOW, m=m)}")
+              f"{cuda_graph.launch_plan(4, n, b, WINDOW, m=m)}, "
+              f"{cuda_graph.mma_plan(4, n, b, WINDOW, sms, m=m)}")
     # M = N: the square calls' plans and bits (routing, not the parent's bits)
     b, n = key_f.shape
     same_plans = (cuda_attention.fwd_plan(b, n, sms, m=n) == cuda_attention.fwd_plan(b, n, sms)
                   and cuda_attention.bwd_plan(b, n, sms, smem, m=n)
                   == cuda_attention.bwd_plan(b, n, sms, smem)
-                  and all(cuda_graph.launch_plan(4, n, b, WINDOW, e, m=n)
-                          == cuda_graph.launch_plan(4, n, b, WINDOW, e) for e in (4, 2)))
+                  and cuda_graph.launch_plan(4, n, b, WINDOW, m=n)
+                  == cuda_graph.launch_plan(4, n, b, WINDOW)
+                  and cuda_graph.mma_plan(4, n, b, WINDOW, sms, m=n)
+                  == cuda_graph.mma_plan(4, n, b, WINDOW, sms))
     g = torch.from_numpy((1e-3 * np.random.default_rng(24).standard_normal((b, n, n)))
                          .astype(np.float32)).to(dev)
     with torch.no_grad():
@@ -1545,6 +1556,33 @@ def rows_checks(dev, results, params, mcfg, x):
     if not same_plans or not all(same_bits):
         return f"the row-block arms at M = N leave the square route: plans {same_plans}, " \
                f"bits {same_bits}"
+    return None
+
+
+# The bf16 graph conv at the shapes the flagship's model inputs and the row
+# blocks leave out: synthetic-1k whole (the square call one card makes at
+# --compute_dtype bfloat16) and a ragged shape (N, B and W no multiples of 4),
+# on seeded inputs, held and timed as `check_bf16_cases` holds the flagship's
+# (printed only: the kernels line keeps the flagship's and ROWS_KEPT's).
+GRAPH_BF16_SHAPES = {"synthetic-1k": (S1K_BATCH, S1K_NODES, WINDOW), "ragged": (7, 141, 13)}
+
+
+def graph_bf16_checks(dev):
+    """The bf16 graph conv at GRAPH_BF16_SHAPES. Returns an error message, or
+    None."""
+    import numpy as np
+    import torch
+
+    for tag, (b, n, w) in GRAPH_BF16_SHAPES.items():
+        rng = np.random.default_rng(40 + n)
+        mul_L = torch.from_numpy((rng.standard_normal((4, n, n)) / math.sqrt(n))
+                                 .astype(np.float32)).to(dev)
+        mul_L[0] = 0.0
+        feat = torch.from_numpy(rng.standard_normal((b, n, w)).astype(np.float32)).to(dev)
+        fail = check_bf16_cases([graph_bf16_case("cheb_graph_conv_fwd_bf16", mul_L, feat)], {},
+                                f"3 kernel, bf16 graph conv {tag} B={b} N={n} W={w}")
+        if fail is not None:
+            return fail
     return None
 
 
@@ -2034,6 +2072,10 @@ def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int =
 
     for (name, source, replaces, kern, plain, plain_f32, lib, atol, rtol, nbytes,
          flops) in cases:
+        # ("with casts", pre-cast, with casts, bf16-operand bytes): the graph
+        # conv's yardsticks
+        cast = lib[2:] if isinstance(lib, tuple) and lib[0] == "with casts" else None
+        lib = lib[1] if cast is not None else lib
         with torch.no_grad():
             got = kern()
             torch.cuda.synchronize()
@@ -2053,6 +2095,14 @@ def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int =
                                                       replays)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
         f32_ms, f32_by = bound(nbytes, flops)
+        if cast is not None:  # the graph conv: f32 operands in, f32 out
+            with torch.no_grad():
+                cast_ms = cuda_ms(cast[0], calls=calls, replays=replays)
+            print(f"[{phase}] {name}: library with its two casts inside the call "
+                  f"{cast_ms:.5f} ms (pre-cast {lib_ms:.5f}); kernel {ms:.5f} ms against "
+                  f"the f32-byte bound {bound_ms:.5f} ({nbytes:.4e} B) and the bound at "
+                  f"bf16-operand bytes {bound(cast[1], flops, BF16_FLOP_PER_S)[0]:.5f} "
+                  f"({cast[1]:.4e} B)")
         ok = not bad and ratio >= BF16_CLOSER and math.isfinite(err)
         print(f"[{phase}] {name}: max_abs_err {err:.3e}, {rel:.3e} of its array's largest "
               f"entry (each of {len(got)} arrays within "
@@ -2077,12 +2127,14 @@ def check_bf16_cases(cases, results, phase: str, calls: int = 20, replays: int =
 # (PERF.md section 6, this script's phase 3 on an NVIDIA H100 80GB HBM3 at
 # 700.00 W): the bf16 backwards of both storage arms and the bf16-storage
 # saving forward as the earlier mma.sync design ran them, the bf16 graph
-# conv with its two casts and the scalar bf16 spectral forwards. Printed
-# beside this run's times and bounds.
+# conv (square and the (1, 2) row block) as the scalar-FMA kernel ran it and
+# the scalar bf16 spectral forwards. Printed beside this run's times and
+# bounds.
 PARENT_DESIGN_MS = {"spectral_bwd_reread_bf16": 0.23620, "spectral_bwd_bf16": 0.31018,
                     "spectral_bwd_reread_bf16acts": 0.23375,
                     "spectral_fwd_save_bf16acts": 0.11184,
-                    "cheb_graph_conv_fwd_bf16": 0.00871, "spectral_fwd_bf16": 0.21594,
+                    "cheb_graph_conv_fwd_bf16": 0.00607,
+                    "cheb_graph_conv_fwd_rows_bf16": 0.02224, "spectral_fwd_bf16": 0.21594,
                     "spectral_fwd_save_bf16": 0.24158}
 
 
@@ -2113,6 +2165,35 @@ def kernels_of_call(fn):
     print(f"[3 kernel] kernels of a call: the profiler could not say ({why}); "
           f"{'not measured' if names is None else 'named by a CUDA graph of the call'}")
     return names
+
+
+def route_kernels(fn, holds):
+    """The kernels of one call of fn by `kernels_of_call`; where they fail
+    `holds` (a check of a list of names), the kernel nodes of a CUDA graph of
+    the call instead, provided the profile named no kernel the graph lacks.
+    The profiler now and then loses events: one run named four of the six
+    kernels of a bf16 backward past D1 = 2048, dropping the first two; a
+    graph's nodes are every launch of the call. None where neither can say."""
+    from collections import Counter
+
+    names = kernels_of_call(fn)
+    if names is not None and holds(names):
+        return names
+    graph_names = kernels_of_graph(fn)
+    if graph_names is None:
+        return names
+
+    def ids(found):  # the name and template arguments, without the parameter list
+        return Counter(nm.replace("(anonymous namespace)::", "").split("(")[0].replace(" ", "")
+                       for nm in found)
+
+    if names is not None and not ids(names) <= ids(graph_names):
+        print(f"[3 kernel] the profiler named {names}, which a CUDA graph of the call "
+              f"({graph_names}) does not hold; the profile decides")
+        return names
+    print(f"[3 kernel] the profiler named {names}; a CUDA graph of the call names "
+          f"{graph_names}, which decide")
+    return graph_names
 
 
 def same_kernels(names, graph_names, label: str):
@@ -2196,26 +2277,27 @@ def bf16_chain_route(fn, d1: int):
     the chain forward) launches the chain kernel of its route, by
     torch.profiler: `spectral_chain_mma_kernel` up to D1 = 2048, the wide
     scalar `spectral_chain_wide_kernel` past it, and never the scalar
-    `spectral_chain_kernel`; also an error where the profiler cannot name
-    the kernels. None, and a line printed, where it does."""
+    `spectral_chain_kernel`, by `route_kernels`; also an error where neither
+    the profiler nor a CUDA graph can name the kernels. None, and a line
+    printed, where it does."""
     from stemgnn_tpu_torch.ops import cuda_spectral
 
-    names = kernels_of_call(fn)
-    if names is None:
-        return f"the profiler could not name the kernels of a bf16 chain call at D1 = {d1}"
     want = ("spectral_chain_mma_kernel" if d1 <= cuda_spectral.MMA_MAX_D1
             else "spectral_chain_wide_kernel")
-    chain = [nm.split(">(")[0] + ">" for nm in names if "spectral_chain" in nm]
-    if not chain:
-        # every such call launches a chain kernel: a profile that names none
-        # has lost events (as it now and then records none at all), so the
-        # kernel nodes of a CUDA graph of the call name them instead
-        graph_names = kernels_of_graph(fn)
-        print(f"[3 kernel] bf16 chain at D1 = {d1}: the profiler named {len(names)} kernels "
-              f"and no chain kernel; a CUDA graph of the call names "
-              f"{'nothing' if graph_names is None else graph_names}")
-        chain = [nm for nm in graph_names or [] if "spectral_chain" in nm]
-    if not any(want in nm for nm in chain) or any("spectral_chain_kernel" in nm for nm in chain):
+
+    def chain_of(names):
+        return [nm.split(">(")[0] + ">" for nm in names if "spectral_chain" in nm]
+
+    def holds(names):
+        chain = chain_of(names)
+        return (any(want in nm for nm in chain)
+                and not any("spectral_chain_kernel" in nm for nm in chain))
+
+    names = route_kernels(fn, holds)
+    if names is None:
+        return f"the kernels of a bf16 chain call at D1 = {d1} could not be named"
+    chain = chain_of(names)
+    if not holds(names):
         return f"a bf16 chain call at D1 = {d1} launches {chain}, expected {want} alone"
     print(f"[3 kernel] bf16 chain at D1 = {d1}: launches {chain}")
     return None
@@ -2232,11 +2314,11 @@ SCALAR_BWD_KERNELS = ("spectral_bwd_rows_kernel", "spectral_wgrad_kernel",
 def bf16_bwd_route(fn, d1: int, label: str):
     """An error message unless one call of fn (a bf16 spectral backward: a
     reread of either storage arm, or the recompute) launches the kernels of
-    its route, by torch.profiler (by the kernel nodes of a CUDA graph of the
-    call where a profile names no spectral kernel): up to D1 = 2048 the three
-    of `BF16_BWD_KERNELS` and none of the scalar backward's, past it the wide
+    its route, by `route_kernels`: up to D1 = 2048 the three of
+    `BF16_BWD_KERNELS` and none of the scalar backward's, past it the wide
     scalar rows kernel and none of the three; also an error where neither
-    can name the kernels. None, and a line printed, where it does."""
+    the profiler nor a CUDA graph can name the kernels. None, and a line
+    printed, where it does."""
     import re
 
     from stemgnn_tpu_torch.ops import cuda_spectral
@@ -2245,18 +2327,19 @@ def bf16_bwd_route(fn, d1: int, label: str):
         return [m.group(1) for nm in names or [] for m in [re.search(r"(spectral_\w+?)[<(]", nm)]
                 if m]
 
-    names = ids(kernels_of_call(fn))
-    if not names:
-        names = ids(kernels_of_graph(fn))
+    def holds(found):
+        names = ids(found)
+        if d1 <= cuda_spectral.MMA_MAX_D1:
+            return (all(k in names for k in BF16_BWD_KERNELS)
+                    and not any(k in names for k in SCALAR_BWD_KERNELS))
+        return ("spectral_bwd_rows_wide_kernel" in names
+                and not any(k in names for k in BF16_BWD_KERNELS))
+
+    found = route_kernels(fn, holds)
+    names = ids(found)
     if not names:
         return f"the kernels of the bf16 {label} backward at D1 = {d1} could not be named"
-    if d1 <= cuda_spectral.MMA_MAX_D1:
-        ok = (all(k in names for k in BF16_BWD_KERNELS)
-              and not any(k in names for k in SCALAR_BWD_KERNELS))
-    else:
-        ok = ("spectral_bwd_rows_wide_kernel" in names
-              and not any(k in names for k in BF16_BWD_KERNELS))
-    if not ok:
+    if not holds(found):
         return f"the bf16 {label} backward at D1 = {d1} launches {names}"
     print(f"[3 kernel] bf16 {label} backward at D1 = {d1}: launches {names}")
     return None
@@ -2295,13 +2378,45 @@ def bf16_redesigns(results, params, mcfg, x):
             fail = bf16_chain_route(fn, d1)
             if fail is not None:
                 return fail
-        names = kernels_of_call(lambda: cuda_graph.cheb_graph_conv(mul_L, feat, "bfloat16"))
+        names = route_kernels(
+            lambda: cuda_graph.cheb_graph_conv(mul_L, feat, "bfloat16"),
+            lambda found: len(found) == 1 and "cheb_graph_conv_mma_kernel" in found[0])
     if names is None:
-        print("[3 kernel] cheb_graph_conv_fwd_bf16: kernels a call not measured")
-        return None
+        return "the kernels of a cheb_graph_conv_fwd_bf16 call could not be named"
     print(f"[3 kernel] cheb_graph_conv_fwd_bf16: {len(names)} kernel(s) a call: {names}")
-    if len(names) != 1 or "cheb_graph_conv" not in names[0]:
+    if len(names) != 1 or "cheb_graph_conv_mma_kernel" not in names[0]:
         return f"cheb_graph_conv_fwd_bf16 launches {names}, expected its one kernel"
+    return graph_tensor_cores()
+
+
+def graph_tensor_cores():
+    """The SASS of the built graph library (cuobjdump, beside the nvcc that
+    built it): the bf16 graph conv's kernel holds tensor-core instructions
+    (HMMA or HGMMA) and no FFMA, so no scalar loop makes its output. Returns
+    an error message (also where cuobjdump is missing or fails), or None."""
+    from stemgnn_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(os.path.realpath(_build._nvcc())), "cuobjdump")
+    if not os.path.exists(tool):
+        return f"no cuobjdump beside nvcc ({tool}): the graph conv's SASS cannot be read"
+    lib = _build.build_all()[0] / "libgraph.so"
+    run = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
+    if run.returncode != 0:
+        return f"cuobjdump -sass {lib} exited {run.returncode}: {run.stderr[-2000:]}"
+    sass = run.stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
+        elif name is not None:
+            for op in counts[name]:
+                if f" {op}." in line or f" {op} " in line:
+                    counts[name][op] += 1
+    mma = {k: v for k, v in counts.items() if "cheb_graph_conv_mma_kernel" in k}
+    print(f"[3 kernel] cheb_graph_conv_mma_kernel SASS (cuobjdump): {list(mma.values())}")
+    if not mma or not all(v["HMMA"] + v["HGMMA"] > 0 and v["FFMA"] == 0 for v in mma.values()):
+        return f"the bf16 graph conv's kernels are not on the tensor cores: {mma}"
     return None
 
 
@@ -3429,14 +3544,17 @@ def run() -> int:
                 or check_cases([c for c in backward_cases(rec_cov, params_cov, mcfg_cov, dev)
                                 if c[0].startswith("spectral")], {}, tag, scaled=True))
     if fail is None:
-        # the bf16 arms at the flagship's shapes
-        fail = check_bf16_cases(bf16_cases(rec, params, mcfg, x), results, "3 kernel")
+        # the bf16 arms at the flagship's shapes, then the bf16 graph conv at
+        # synthetic-1k's and a ragged one
+        fail = (check_bf16_cases(bf16_cases(rec, params, mcfg, x), results, "3 kernel")
+                or graph_bf16_checks(dev))
     if fail is None:
-        # both storage arms of the bf16 saving pair at the COVID-19 shape, timed
-        # as above (printed only)
+        # the bf16 graph conv and both storage arms of the bf16 saving pair at
+        # the COVID-19 shape, timed as above (printed only)
         fail = check_bf16_cases(
             [c for c in bf16_cases(rec_cov, params_cov, mcfg_cov, x_cov)
-             if c[0].startswith(("spectral_fwd_save", "spectral_bwd_reread"))],
+             if c[0].startswith(("cheb_graph_conv", "spectral_fwd_save",
+                                 "spectral_bwd_reread"))],
             {}, "3 kernel, COVID-19 shape")
     if fail is None:
         fail = bf16_redesigns(results, params, mcfg, x)
@@ -3512,7 +3630,7 @@ def run() -> int:
     if not all(same.values()) or not torch.equal(out_b, out_bs):
         return _fail(f"the bf16 spectral arm is not bitwise repeatable: {same}")
     del acts_b, out_b, out_bs, runs, flat
-    limits = cuda_gru.card_limits(dev)
+    limits = _build.card_limits(dev)
     for label, gru, xb in (("gru_fwd", params["gru"], x), ("gru_fwd_grid", params_big["gru"],
                                                            x_big)):
         with torch.no_grad():

@@ -36,18 +36,58 @@
 // of MP rows of x.
 //
 // The bf16 arm (`cheb_graph_conv_fwd_bf16`, the JAX kernel at
-// compute_dtype=bfloat16): L and x come in as f32, as the model holds them,
-// and each value is rounded to bf16 (to nearest, ties to even, as the JAX
-// package's astype) on its way into shared memory (`round_panels`: float4
-// loads of both panels in flight together while the zero slab is stored,
-// through registers, since cp.async cannot convert), so the call is one
-// launch and no cast kernel runs before it. The panels are
-// bf16 in shared memory, and each product converts its two operands to f32,
-// exact, for the same f32 fmaf sums as the f32 arm: out stays f32.
+// compute_dtype=bfloat16, which feeds the TPU's matrix unit bf16 operands
+// with f32 sums) is its own kernel on the tensor cores,
+// `cheb_graph_conv_mma_kernel` (below): out_k [M, B*W] = L_k [M, N] . X [N,
+// B*W] for each order k, X[m][b*W + w] = x[b,m,w] as `_forward` lays it out,
+// on mma.sync m16n8k16 (bf16 x bf16 -> f32: the products are exact, only the
+// order of the f32 sums is the card's). L and x come in as f32, as the model
+// holds them, and each value is rounded to bf16 (to nearest, ties to even,
+// as the JAX package's astype) in registers on its way into shared memory:
+// one launch, no cast kernel, no second pass.
+// Bound on the H100: bytes. The call must read L and x as f32 and write out
+// (7.5 MB at synthetic-1k's (1, 2) row block: 2.2 us at 3.35 TB/s); its
+// products are 0.3 GFLOP there, 0.3 us at the bf16 tensor-core rate. What
+// the design meets first is the traffic from L2 into the SMs: every row tile
+// of every order reads the whole of x (9.4 of the 15.7 MB the blocks read at
+// that block) and each chunk waits for one load round trip.
+//   * A block takes a tile of TM rows (16, 32 or 64) of one order by TB
+//     whole batches of x (TB * W <= 128 columns, padded to TN, a multiple of
+//     16), or at W > 128 one batch's W in column tiles of TW: each element
+//     of L is staged by one block a column tile, and at the model's widths
+//     (B * W <= 128) there is one column tile.
+//   * The N-long sum walks chunks of 32 nodes through two bf16 stages: the
+//     f32 loads of chunk c + 1 are in flight in registers while chunk c is
+//     multiplied, then rounded and stored into the other stage, one barrier
+//     a chunk. L's rows are the `.row` A operand (ldmatrix), x's [node]
+//     [column] rows the `.row` B operand (ldmatrix.trans); a warp loads both
+//     k16 steps' fragments of a column pair before its four products. A thread's share of
+//     a chunk is the same in every chunk, its offsets worked out once: L by
+//     rows of 128 bytes, x by the chunk's runs in the order of device memory
+//     (whole 128-byte lines where TW = W).
+//   * Where row tiles x column tiles x orders fall short of the card's SMs,
+//     the node sum is split into C segments (1, 2, 4 or 8 of the chunks, in
+//     order), the blocks of one cluster of C. Each writes its f32 partial
+//     tile to its shared memory, and one thread sends slice q (rows q * TM /
+//     C..) to rank q with a TMA bulk copy, counted on rank q's mbarrier (whose
+//     wait traps after a bounded poll); rank z adds the C slices of its rows
+//     in rank order: the bits depend on the plan, never on timing. The
+//     mbarrier is set up while the first chunk's loads are on the way (its
+//     cluster-wide fence would hold them up at the start), and a last cluster
+//     barrier keeps each block until every copy that reads its shared memory
+//     has landed.
+//   * The epilogue stores column j of the tile at (b, w) = (b0 + j / TW, w0 +
+//     j % TW) of [B, K, M, W], as float4 where W is a multiple of 4; the
+//     blocks of order 1 store the zero slab of order 0 beside it.
+// Ragged M, N, B and W are masked: nodes past N are zeros in both operands.
+// ops/cuda_graph.py `mma_plan` makes the tiles from the shape and the SMs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "device_utils.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -57,42 +97,12 @@ constexpr int kParts = 8;  // lanes that split the sum over m; also the rows a w
 constexpr int kChunkThreads = 32 * (kTM / kParts);  // threads that share a chunk of four w
 constexpr int kMaxChunks = 4;                       // chunks in flight a block: 512 threads
 
-// four operands of x at p (16-byte aligned for float, 8 for bf16) as f32
+// four operands of x at p (16-byte aligned) as f32
 __device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
   unpack4(*reinterpret_cast<const float4*>(p), v);
 }
-__device__ __forceinline__ void lds4(const bf16* p, float (&v)[4]) {
-  unpack4(*reinterpret_cast<const uint2*>(p), v);
-}
 
-// A thread's float4 runs of a panel with w4 runs a row: tid, tid +
-// blockDim.x, ..., as (row, run), advanced without a division.
-struct PanelWalk {
-  int r, c, dr, dc, w;
-  __device__ explicit PanelWalk(int w4)
-      : r(threadIdx.x / w4), c(threadIdx.x % w4), dr(blockDim.x / w4), dc(blockDim.x % w4),
-        w(w4) {}
-  __device__ void next() {
-    r += dr;
-    c += dc;
-    if (c >= w) {
-      c -= w;
-      ++r;
-    }
-  }
-};
-
-// The bf16 arm's panels from f32 operands: L's [rows][cl] (leading
-// dimensions ldl in device memory, lda in shared memory) and x's [nb][cx]
-// (ldx, ldxs), each value rounded to bf16 on its way through registers. A
-// thread starts up to kRoundBatch float4 loads of each panel, runs `between`
-// (work that needs none of them: the zero slab's and the pads' stores) while
-// they are on the way, then rounds and stores them, 8 bytes at a time; where
-// a row of either side allows no float4, one value at a time. Ordinary
-// stores, which the barrier after the panel's wait makes visible.
-constexpr int kRoundBatch = 4;
-
-// four f32 values rounded to bf16, stored as 8 bytes
+// four f32 values rounded to bf16 (the bf16 arm's staging), stored as 8 bytes
 __device__ __forceinline__ void store_bf16x4(bf16* dst, const float4& v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
@@ -100,59 +110,10 @@ __device__ __forceinline__ void store_bf16x4(bf16* dst, const float4& v) {
       make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
 }
 
-template <typename F>
-__device__ __forceinline__ void round_panels(bf16* As, int lda, const float* __restrict__ L,
-                                             long ldl, int rows, int cl, bf16* Xs, int ldxs,
-                                             const float* __restrict__ X, long ldx, int nb,
-                                             int cx, F between) {
-  const bool vec = ((cl | lda | (int)(ldl & 3) | cx | ldxs | (int)(ldx & 3)) & 3) == 0 &&
-                   (((uintptr_t)L | (uintptr_t)X) & 15) == 0 &&
-                   (((uintptr_t)As | (uintptr_t)Xs) & 7) == 0;
-  if (!vec) {
-    between();
-    for (int e = threadIdx.x; e < rows * cl; e += blockDim.x)
-      As[e / cl * lda + e % cl] = __float2bfloat16_rn(__ldg(L + e / cl * ldl + e % cl));
-    for (int e = threadIdx.x; e < nb * cx; e += blockDim.x)
-      Xs[e / cx * ldxs + e % cx] = __float2bfloat16_rn(__ldg(X + e / cx * ldx + e % cx));
-    return;
-  }
-  PanelWalk wl(cl / 4), wx(cx / 4);
-  bool waiting = true;  // `between` still to run
-  while (wl.r < rows || wx.r < nb) {
-    float4 vl[kRoundBatch], vx[kRoundBatch];
-    bf16* dl[kRoundBatch];
-    bf16* dx[kRoundBatch];
-#pragma unroll
-    for (int j = 0; j < kRoundBatch; ++j) {
-      dl[j] = dx[j] = nullptr;
-      if (wl.r < rows) {
-        vl[j] = __ldg(reinterpret_cast<const float4*>(L + wl.r * ldl + 4 * wl.c));
-        dl[j] = As + wl.r * lda + 4 * wl.c;
-        wl.next();
-      }
-      if (wx.r < nb) {
-        vx[j] = __ldg(reinterpret_cast<const float4*>(X + wx.r * ldx + 4 * wx.c));
-        dx[j] = Xs + wx.r * ldxs + 4 * wx.c;
-        wx.next();
-      }
-    }
-    if (waiting) {
-      between();
-      waiting = false;
-    }
-#pragma unroll
-    for (int j = 0; j < kRoundBatch; ++j) {
-      if (dl[j] != nullptr) store_bf16x4(dl[j], vl[j]);
-      if (dx[j] != nullptr) store_bf16x4(dx[j], vx[j]);
-    }
-  }
-  if (waiting) between();  // a thread with no element
-}
-
 // Shared memory: As [kTM][RSA] (the panel of L, RSA >= MP a multiple of 8),
 // then Xs [kTB][XBS] (a batch's [MP][W] rows of x, XBS >= MP * W + 4 so a
 // ragged last read stays inside, and a whole number of 16-byte pieces), both
-// of the operand type T (L and x f32 for both arms). blockDim.x =
+// of the operand type T (float: the f32 arm). blockDim.x =
 // kChunkThreads * min(chunks, kMaxChunks).
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kChunkThreads * kMaxChunks)
@@ -220,18 +181,12 @@ cheb_graph_conv_kernel(const float* __restrict__ L, const float* __restrict__ x,
             for (int e = mr * W + tid; e < mp * W + 4; e += blockDim.x)
               Xs[i * XBS + e] = zero;
         };
-        if constexpr (sizeof(T) == 2) {
-          // both panels in one pass of loads, `beside` while they are on the way
-          round_panels(As, RSA, Lk + m0, N, rows, mr, Xs, XBS, x + ((long)b0 * N + m0) * W,
-                       (long)N * W, min(kTB, B - b0), mr * W, beside);
-        } else {
-          copy_panel_async(As, RSA, Lk + m0, N, rows, mr);
-          for (int i = 0; i < kTB && b0 + i < B; ++i)
-            copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, 0, 1,
-                             mr * W);
-          cp_async_commit();
-          beside();
-        }
+        copy_panel_async(As, RSA, Lk + m0, N, rows, mr);
+        for (int i = 0; i < kTB && b0 + i < B; ++i)
+          copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, 0, 1,
+                           mr * W);
+        cp_async_commit();
+        beside();
         cp_async_wait_group<0>();
         __syncthreads();
       }
@@ -283,6 +238,280 @@ int launch(const float* L, const float* x, float* out, int K, int M, int N, int 
   return (int)cudaGetLastError();
 }
 
+// ---- the bf16 arm on the tensor cores ----
+
+constexpr int kMmaThreads = 256;  // 8 warps: TM / 16 along the rows, the rest along the columns
+constexpr int kKC = 32;           // nodes of the sum a stage holds: two k16 steps
+constexpr int kLda = kKC + 8;     // bf16 a row of a stage's L: 80 bytes, an odd count of 16
+constexpr int kMaxTN = 128;       // columns a tile
+constexpr int kMaxPairs = 4;      // n16 column pairs a warp: 32 sums a thread
+constexpr int kMaxCluster = 8;    // segments of the node sum: the portable cluster size
+
+// bf16 a row of a stage's x: TN + 8 (TN a multiple of 16), an odd count of
+// 16 bytes, so the 8 rows an ldmatrix reads fall on distinct banks
+__host__ __device__ constexpr int mma_xs(int tn) { return tn + 8; }
+// f32 a row of the partial tiles: 8 past a multiple of 32, so a warp's float2
+// stores of its sums take no bank twice
+__host__ __device__ constexpr int mma_ps(int tn) { return (tn + 31) / 32 * 32 + 8; }
+// bf16 of one stage: L [TM][kLda], then x [kKC][mma_xs]
+__host__ __device__ constexpr int mma_stage(int tm, int tn) {
+  return tm * kLda + kKC * mma_xs(tn);
+}
+// bytes of shared memory: the two bf16 stages, and over them once they are
+// read the block's partial tile [TM][mma_ps] f32; then the partials it
+// receives, [C ranks][TM / C rows][mma_ps] f32 (TM rows in all); then the
+// mbarrier that counts their bytes
+__host__ __device__ constexpr int mma_front(int tm, int tn) {
+  return 2 * mma_stage(tm, tn) * 2 > tm * mma_ps(tn) * 4 ? 2 * mma_stage(tm, tn) * 2
+                                                         : tm * mma_ps(tn) * 4;
+}
+__host__ __device__ constexpr int mma_smem(int tm, int tn) {
+  return mma_front(tm, tn) + tm * mma_ps(tn) * 4 + 16;
+}
+
+// grid (C * column tiles, row tiles, orders with a product: 1..K-1, or 1 at
+// K = 1), clusters of C along x: rank z of a cluster sums segment z of the
+// chunks. vec_l: N a multiple of 4 and L 16-byte aligned (float4 loads of
+// L); kVecX, vec_o: W and TW multiples of 4 and x, out aligned (float4
+// loads of x, float4 stores of out).
+template <bool kVecX>
+__global__ void __launch_bounds__(kMmaThreads, kVecX ? 2 : 1)
+cheb_graph_conv_mma_kernel(const float* __restrict__ L, const float* __restrict__ x,
+                           float* __restrict__ out, int K, int M, int N, int B, int W, int TM,
+                           int TB, int TW, int TN, int wtiles, bool vec_l, bool vec_o) {
+  extern __shared__ __align__(16) float smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int z = (int)cluster.block_rank();  // this block's segment of the sum
+  const int ct = blockIdx.x / C;            // column tile
+  const int b0 = ct / wtiles * TB, w0 = ct % wtiles * TW;
+  const int tb = min(TB, B - b0), tw = min(TW, W - w0);
+  const int n0 = blockIdx.y * TM, rows = min(TM, M - n0);
+  const int k = blockIdx.z + 1;
+  const bool product = k < K;  // K = 1: the zero slab alone
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int xs = mma_xs(TN), ps = mma_ps(TN), se = mma_stage(TM, TN);
+  const int share = TM / C;  // rows of the tile whose sums this rank adds and stores
+  bf16* const stages = reinterpret_cast<bf16*>(smem_raw);
+  float* const part = smem_raw;  // over the stages once they are read
+  float* const recv = smem_raw + mma_front(TM, TN) / 4;
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(recv + TM * ps);
+
+  if (product) {
+    const int chunks = (N + kKC - 1) / kKC;
+    const int c_lo = z * chunks / C, c_hi = (z + 1) * chunks / C;
+    const float* const Lk = L + ((long)k * M + n0) * N;
+    // A thread's part of a chunk, the same in every chunk (no division in the
+    // loop). L: column lc of rows lr + 32 s (float4, vec_l) or lr + 8 s. x:
+    // the chunk's runs of the tile's batches, [tb][kKC nodes][tw] in the
+    // order of device memory (whole 128-byte lines where tw = W), element
+    // 4 (tid + 256 s) (float4, kVecX) or tid + 256 s of them: node xm[s] of
+    // the chunk (-1: past the tile), xg[s] past the chunk's first element in
+    // device memory, xo[s] into the stage.
+    const int lc = vec_l ? 4 * (tid & 7) : tid & 31, lr = vec_l ? tid >> 3 : tid >> 5;
+    const float* const xt = x + ((long)b0 * N) * W + w0;
+    constexpr int kXSlots = kVecX ? 4 : 16, kWidth = kVecX ? 4 : 1;
+    int xg[kXSlots], xm[kXSlots], xo[kXSlots];
+    const int run = kKC * tw;
+#pragma unroll
+    for (int s = 0; s < kXSlots; ++s) {
+      const int e = kWidth * (tid + kMmaThreads * s), bb = e / run, r = e - bb * run;
+      const int m = r / tw, w = r - m * tw;
+      xm[s] = bb < tb ? m : -1;
+      xg[s] = (bb * N + m) * W + w;
+      xo[s] = m * xs + bb * TW + w;
+    }
+    float lreg[8], xreg[16];
+    auto load = [&](int c) {
+      const int m0 = c * kKC;
+      if (vec_l) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int r = lr + 32 * s;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < rows && m0 + lc < N)
+            v = __ldg(reinterpret_cast<const float4*>(Lk + (long)r * N + m0 + lc));
+          lreg[4 * s] = v.x, lreg[4 * s + 1] = v.y, lreg[4 * s + 2] = v.z, lreg[4 * s + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          const int r = lr + 8 * s;
+          lreg[s] = r < rows && m0 + lc < N ? __ldg(Lk + (long)r * N + m0 + lc) : 0.f;
+        }
+      }
+      const float* const xc0 = xt + (long)m0 * W;
+      if constexpr (kVecX) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (xm[s] >= 0 && m0 + xm[s] < N)
+            v = __ldg(reinterpret_cast<const float4*>(xc0 + xg[s]));
+          xreg[4 * s] = v.x, xreg[4 * s + 1] = v.y, xreg[4 * s + 2] = v.z, xreg[4 * s + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < 16; ++s)
+          xreg[s] = xm[s] >= 0 && m0 + xm[s] < N ? __ldg(xc0 + xg[s]) : 0.f;
+      }
+    };
+    // the chunk in registers, rounded to bf16, into stage st (nodes past N
+    // and rows past M are zeros; a column past the tile's batches is never
+    // written, and its sums, which nothing stores, may be anything)
+    auto store = [&](int st) {
+      bf16* const as = stages + st * se;
+      bf16* const xsm = as + TM * kLda;
+      if (vec_l) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          if (lr + 32 * s < TM)
+            store_bf16x4(as + (lr + 32 * s) * kLda + lc,
+                         make_float4(lreg[4 * s], lreg[4 * s + 1], lreg[4 * s + 2],
+                                     lreg[4 * s + 3]));
+      } else {
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+          if (lr + 8 * s < TM) as[(lr + 8 * s) * kLda + lc] = __float2bfloat16_rn(lreg[s]);
+      }
+      if constexpr (kVecX) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          if (xm[s] >= 0)
+            store_bf16x4(xsm + xo[s], make_float4(xreg[4 * s], xreg[4 * s + 1],
+                                                  xreg[4 * s + 2], xreg[4 * s + 3]));
+      } else {
+#pragma unroll
+        for (int s = 0; s < 16; ++s)
+          if (xm[s] >= 0) xsm[xo[s]] = __float2bfloat16_rn(xreg[s]);
+      }
+    };
+
+    // warp (wr, wc): rows 16 wr.. of the tile by the n16 column pairs
+    // p0..p0 + np - 1 (the pairs split as evenly as the warps allow)
+    const int wm = TM / 16, wr = warp % wm, wc = warp / wm, wn = kMmaThreads / 32 / wm;
+    const int pairs = TN / 16, p0 = wc * pairs / wn, np = (wc + 1) * pairs / wn - p0;
+    float acc[kMaxPairs][2][4] = {};
+    // the chunk's two k16 steps: every fragment loaded before the products
+    // (each sum takes k16 step 0, then step 1)
+    auto products = [&](int st) {
+      const bf16* const as = stages + st * se;
+      const bf16* const xsm = as + TM * kLda;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ldsm_x4(a[h], as + (16 * wr + (lane & 15)) * kLda + 16 * h + (lane >> 4) * 8);
+#pragma unroll
+      for (int p = 0; p < kMaxPairs; ++p) {
+        if (p < np) {
+          // B fragments (k 0-7, tile 2p), (k 8-15, 2p), (k 0-7, 2p + 1), (k 8-15, 2p + 1)
+          uint32_t b[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            ldsm_x4_trans(b[h], xsm + (16 * h + (lane & 15)) * xs + 16 * (p0 + p) +
+                                    (lane >> 4) * 8);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mma_bf16(acc[p][0], a[h], b[h][0], b[h][1]);
+            mma_bf16(acc[p][1], a[h], b[h][2], b[h][3]);
+          }
+        }
+      }
+    };
+
+    load(c_lo);
+    if (C > 1) {
+      // the barrier that counts the C slices of rows this block adds, each
+      // share rows of a rank's partial: initialised, and visible to the
+      // cluster (the barrier's wait comes before the sends), while the first
+      // chunk's loads are on the way
+      if (tid == 0) {
+        mbar_init(bar, 1);
+        mbar_init_fence();
+        mbar_expect(bar, 4u * C * share * ps);
+      }
+      cluster_arrive();
+    }
+    store(0);
+    __syncthreads();
+    for (int c = c_lo; c < c_hi; ++c) {
+      const int st = (c - c_lo) & 1;
+      if (c + 1 < c_hi) load(c + 1);  // in flight while this chunk is multiplied
+      products(st);
+      if (c + 1 < c_hi) store(st ^ 1);
+      __syncthreads();  // the next stage is in; every read of this one is done
+    }
+
+    // the block's partial tile, f32, over the stages (all read)
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* const dst = part + (16 * wr + g + 8 * h) * ps;
+#pragma unroll
+      for (int p = 0; p < kMaxPairs; ++p)
+        if (p < np) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            *reinterpret_cast<float2*>(dst + 16 * (p0 + p) + 8 * u + 2 * t) =
+                make_float2(acc[p][u][2 * h], acc[p][u][2 * h + 1]);
+        }
+    }
+    if (C > 1) fence_proxy_async();  // the copy engine reads them next
+  }
+  const float* got = part;  // [C][share][ps]: rank q's partial of this rank's rows
+  if (C > 1) {
+    // each rank's slice of its partial to the rank that adds those rows: one
+    // bulk copy a slice, counted on the receiver's barrier (rank q holds rows
+    // q * share.. of every rank's partial at recv [z][share][ps])
+    __syncthreads();
+    cluster_wait();  // every block's barrier is initialised
+    if (tid == 0)
+      for (int q = 0; q < C; ++q)
+        bulk_to_cluster(cluster_addr(recv + z * share * ps, q), part + q * share * ps,
+                        4u * share * ps, cluster_addr(bar, q));
+    mbar_wait(bar, 0);  // every rank's slice has landed (traps if one never does)
+    cluster_arrive_relaxed();  // the second half waits at the end
+    got = recv;
+  } else {
+    __syncthreads();
+  }
+
+  // rank z: rows z * share.. of the tile, the ranks' partials added in rank
+  // order; the blocks of order 1 store the zero slab's rows beside them
+  const int rlo = z * share, rhi = min(rlo + share, rows);
+  const int oj = vec_o ? 4 * (tid & 31) : tid & 127;  // the thread's tile column
+  const int ob = oj / TW, ow = oj % TW;
+  if (ob < tb && ow < tw) {
+    float* const o = out + ((long)(b0 + ob) * K * M + n0) * W + w0 + ow;  // order 0, row n0
+    if (vec_o) {
+      for (int r = rlo + (tid >> 5); r < rhi; r += kMmaThreads / 32) {
+        if (product) {
+          const float* const src = got + (r - rlo) * ps + oj;
+          float4 v = *reinterpret_cast<const float4*>(src);
+          for (int q = 1; q < C; ++q) {
+            const float4 u = *reinterpret_cast<const float4*>(src + q * share * ps);
+            v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+          }
+          *reinterpret_cast<float4*>(o + ((long)k * M + r) * W) = v;
+        }
+        if (k == 1) *reinterpret_cast<float4*>(o + (long)r * W) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int r = rlo + (tid >> 7); r < rhi; r += kMmaThreads / 128) {
+        if (product) {
+          const float* const src = got + (r - rlo) * ps + oj;
+          float v = src[0];
+          for (int q = 1; q < C; ++q) v += src[q * share * ps];
+          o[((long)k * M + r) * W] = v;
+        }
+        if (k == 1) o[(long)r * W] = 0.f;
+      }
+    }
+  }
+  // every block has received its slices, so no copy still reads this
+  // block's partial when it leaves
+  if (C > 1) cluster_wait();
+}
+
 }  // namespace
 
 // The plan comes from ops/cuda_graph.py `launch_plan`: `panel` rows of x at a
@@ -300,12 +529,44 @@ extern "C" int cheb_graph_conv_fwd(const float* L, const float* x, float* out,
                        smem, vec, (cudaStream_t)stream);
 }
 
-// The bf16 arm: L and x f32, rounded to bf16 as they are staged (the plan's
-// strides in bf16 elements), out f32.
-extern "C" int cheb_graph_conv_fwd_bf16(const float* L, const float* x, float* out,
-                                        int K, int M, int N, int B, int W, int panel,
-                                        int row_stride, int batch_stride, int threads,
-                                        int smem, int vec, void* stream) {
-  return launch<bf16>(L, x, out, K, M, N, B, W, panel, row_stride, batch_stride, threads,
-                      smem, vec, (cudaStream_t)stream);
+
+// The plan comes from ops/cuda_graph.py `mma_plan`: row tiles of `tm` rows
+// (16, 32 or 64), column tiles of `tb` batches by `tw` of the W columns (tb
+// = 1 where tw < W), padded to `tn` columns (a multiple of 16, at most 128),
+// the node sum split over `cluster` blocks (1 to 8), `smem` bytes of
+// dynamic shared memory (at least `mma_smem`). L [K, M, N], x [B, N, W] f32, rounded
+// to bf16 in the kernel; out [B, K, M, W] f32.
+extern "C" int cheb_graph_conv_fwd_bf16(const float* L, const float* x, float* out, int K,
+                                        int M, int N, int B, int W, int tm, int tb, int tw,
+                                        int tn, int cluster, int smem, void* stream) {
+  if (tw < 1) return (int)cudaErrorInvalidValue;
+  const int wtiles = (W + tw - 1) / tw;
+  if ((tm != 16 && tm != 32 && tm != 64) || tn % 16 != 0 || tn > kMaxTN || tb < 1 ||
+      tb * tw > tn || (tb > 1 && wtiles > 1) || cluster < 1 || cluster > kMaxCluster ||
+      (cluster & (cluster - 1)) != 0 || (K <= 1 && cluster != 1) ||
+      cluster > (N + kKC - 1) / kKC || smem < mma_smem(tm, tn))
+    return (int)cudaErrorInvalidValue;
+  const bool vec_l = N % 4 == 0 && ((uintptr_t)L & 15) == 0;
+  const bool vec_x = W % 4 == 0 && tw % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  auto kernel = vec_x ? cheb_graph_conv_mma_kernel<true> : cheb_graph_conv_mma_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec_o = W % 4 == 0 && tw % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * ((B + tb - 1) / tb) * wtiles, (M + tm - 1) / tm, K > 1 ? K - 1 : 1);
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, L, x, out, K, M, N, B, W, tm, tb, tw, tn, wtiles, vec_l,
+                           vec_o);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

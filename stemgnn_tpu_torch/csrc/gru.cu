@@ -783,17 +783,6 @@ long grid_ws_bytes(int rows, int B) {
 
 }  // namespace
 
-// The current device's SMs and the bytes of shared memory a block can opt in
-// to: what ops/cuda_gru.py `grid_plan` lays a grid recurrence over.
-extern "C" int gru_device_limits(int* sms, int* smem_per_block) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (int)err;
-}
-
 // The forward across a thread-block cluster per group of `rows` batch rows.
 // The plan comes from ops/cuda_gru.py `launch_plan`: grid (cluster, groups),
 // `slice` hidden units a block, `row_stride` floats a row of the resident

@@ -1196,130 +1196,10 @@ __global__ void spectral_reduce_kernel(const float* __restrict__ part,
 // Every operand of every product of the bf16 arm is a bf16 value, so
 // Hopper's bf16 x bf16 -> f32 tensor-core products compute the scalar
 // kernels' exact products; only the order of the f32 sums differs. The chain
-// forward runs on mma.sync (below), the backward on mma.sync and wgmma fed by
-// TMA (`bwd_tc_launch`, after the forward).
+// forward runs on mma.sync (below; mma_bf16 and the ldmatrix loads are in
+// device_utils.cuh), the backward on mma.sync and wgmma fed by TMA
+// (`bwd_tc_launch`, after the forward).
 constexpr int kMmaMaxD1 = 2048;
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 bf16 matrices of shared memory, transposed: lane i gives the
-// address of row i % 8 of matrix i / 8
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// Starts bringing `bytes` (a multiple of 16, 16-byte aligned) from p into L2
-// (the TMA's bulk prefetch: one thread, no registers, nothing to wait for).
-__device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(bytes) : "memory");
-}
-
-// --- the TMA's bulk copies and the mbarriers that count them ---
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// an mbarrier of shared memory expecting `count` arrivals a phase
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// the barriers initialised are visible to the copy engine (call after the inits)
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// one arrival that also expects `bytes` of bulk copies in this phase
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// true where the phase of parity `parity` of bar has completed (no waiting)
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n}"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Polls of a barrier before a wait gives up: each try_wait blocks for up to
-// a hardware time slice, so this is seconds. A wait that runs out traps (the
-// launch fails with an error) rather than leaving the card hung.
-constexpr unsigned kMbarPolls = 1u << 24;
-
-// waits until the phase of parity `parity` of bar has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  for (unsigned n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == kMbarPolls) __trap();
-  }
-}
-
-
-
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
-// into this block's shared memory, counted on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// the same from shared memory into device memory, in the thread's bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// every bulk store this thread committed has read its shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// this thread's writes to shared memory are visible to the copy engine and
-// the tensor cores (the async proxy): before a bulk store or wgmma reads them
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
 
 // ---- the bf16 chain forward on tensor cores (D1 up to kMmaMaxD1) ----
 //
@@ -1389,17 +1269,8 @@ __host__ __device__ inline int chain_mma_smem(int tm, int d1, int pw, int kp, in
   return (2 * tm * ldsm_stride(d1) + stages * 2 * kp * ldsm_stride(pw)) * (int)sizeof(bf16);
 }
 
-// four 8 x 8 bf16 matrices of shared memory: lane i gives the address of row
-// i % 8 of matrix i / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// two, transposed (lanes 0-15 give the addresses)
+// two 8 x 8 bf16 matrices of shared memory, transposed (lanes 0-15 give the
+// addresses; four: device_utils.cuh ldsm_x4_trans)
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"

@@ -12,6 +12,7 @@ every C entry returns the error of its shared-memory opt-in or
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -86,6 +87,19 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         out_dir, _ = build_all()
     return ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+
+
+@functools.cache
+def card_limits(device: torch.device) -> tuple[int, int]:
+    """(SMs, bytes of shared memory a block can opt in to) of the card
+    `device` names, as the CUDA runtime reports them (`csrc/device.cu`): what
+    the launch plans are laid over."""
+    fn = library("device").device_limits
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)] * 2, ctypes.c_int
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        check(fn(ctypes.byref(sms), ctypes.byref(smem)), "device_limits")
+    return sms.value, smem.value
 
 
 def check(rc: int, what: str) -> None:

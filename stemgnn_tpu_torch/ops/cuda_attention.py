@@ -35,7 +35,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from stemgnn_tpu_torch.ops import _build, cuda_gru, torch_impl
+from stemgnn_tpu_torch.ops import _build, torch_impl
 
 attention_kq_plain = torch_impl.attention_from_kq
 attention_kq_bwd_plain = torch_impl.attention_kq_bwd
@@ -202,7 +202,7 @@ def _launch_fwd(key, query, alpha: float, counter=None):
     if query.shape[0] != b:
         raise ValueError(f"{counter.__name__}: query {tuple(query.shape)} vs key {(b, m)}")
     out = torch.empty((b, m, n), dtype=torch.float32, device=key.device)
-    plan = fwd_plan(b, n, cuda_gru.card_limits(key.device)[0], _aligned(query, out), m=m)
+    plan = fwd_plan(b, n, _build.card_limits(key.device)[0], _aligned(query, out), m=m)
     rc = _fn("attention_kq_fwd")(key.data_ptr(), query.data_ptr(), out.data_ptr(),
                                  b, m, n, float(alpha), plan.vec, plan.runs, int(plan.wide),
                                  plan.rows_per_warp, plan.bands, plan.blocks,
@@ -223,7 +223,7 @@ def _launch_bwd(key, query, p, g, alpha: float, counter=None):
         raise ValueError(
             f"{counter.__name__}: key {tuple(key.shape)}, query {tuple(query.shape)}, "
             f"p {tuple(p.shape)}, g {tuple(g.shape)}")
-    plan = bwd_plan(b, n, *cuda_gru.card_limits(key.device), _aligned(query, p, g), m=m)
+    plan = bwd_plan(b, n, *_build.card_limits(key.device), _aligned(query, p, g), m=m)
     dkey = torch.empty((b, m), dtype=torch.float32, device=key.device)
     dquery = torch.empty((b, n), dtype=torch.float32, device=key.device)
     rc = _fn("attention_kq_bwd")(

@@ -1,7 +1,8 @@
 """Chebyshev graph convolution, [K,N,N],[B,N,W] -> [B,K,N,W].
 
-Kernel: csrc/graph.cu, the port of stemgnn_tpu/ops/pallas_graph.py
-`_kernel`. A block holds 32 rows of one order's L and 4 whole batches of x
+Kernels: csrc/graph.cu, the port of stemgnn_tpu/ops/pallas_graph.py
+`_kernel`, one for each arm. The f32 arm (`cheb_graph_conv_kernel`): a
+block holds 32 rows of one order's L and 4 whole batches of x
 in shared memory over the whole reduction dimension, loaded by cp.async
 behind one barrier; a warp owns 8 rows by four w of the 4 batches, the 8
 lanes of a batch split the sum over m and add their partial sums by shuffles
@@ -15,19 +16,23 @@ VJP of the jnp twin and not a kernel either. On a CPU tensor the wrapper
 runs the plain version, `cheb_graph_conv_plain`; on a CUDA tensor it
 launches the kernel or raises.
 
-With compute_dtype "bfloat16" the wrapper launches the kernel's bf16 arm on
-the f32 mul_L and x, which it rounds to bf16 as it stages them (the JAX
-package's `_forward` casts them so before its kernel): one launch, no cast
-kernel; bf16 operands, f32 sums and output, counted as
-`cheb_graph_conv_bf16`. The backward stays the f32 einsums of the f32 inputs,
-as the JAX package's VJP of its twin is.
+With compute_dtype "bfloat16" the wrapper launches the bf16 arm, a kernel of
+its own on the tensor cores (`cheb_graph_conv_mma_kernel`, mma.sync bf16 x
+bf16 -> f32), on the f32 mul_L and x, which it rounds to bf16 as it stages
+them (the JAX package's `_forward` casts them so before its kernel): one
+launch, no cast kernel; bf16 operands, f32 sums and output, counted as
+`cheb_graph_conv_bf16`. Its tiles come from `mma_plan`: row tiles by whole
+batches of x, the node sum split over the blocks of a cluster (added in rank
+order) where the tiles alone fall short of the card's SMs. The backward
+stays the f32 einsums of the f32 inputs, as the JAX package's VJP of its
+twin is.
 
 The row-block arm (`cheb_graph_conv_rows`, and `cheb_graph_conv_rows_bf16`)
-launches the same kernel on a row block of mul_L, [K,M,N] against the whole
+launches the same kernels on a row block of mul_L, [K,M,N] against the whole
 x [B,N,W], giving [B,K,M,W]: the node-sharded dense path's rows of the conv
 (`parallel/dense_shard.py`). Its tiles walk the M rows, the sum stays over N;
-at M = N it takes the square call's plan and gives its bits. It counts its
-launches apart.
+at M = N each arm takes the square call's plan and gives its bits. It counts
+its launches apart.
 """
 
 from __future__ import annotations
@@ -72,38 +77,147 @@ class GraphPlan(NamedTuple):
                     yield (k, *tile)
 
 
-def _pad(esize: int) -> int:
-    """Elements past a batch's panel of x: room for a ragged last read, and a
-    whole number of 16-byte pieces."""
-    return 16 // esize
+# floats past a batch's panel of x: room for a ragged last read, and a whole
+# number of 16-byte pieces
+_PAD = 4
 
 
-def _smem(panel: int, w: int, esize: int = 4) -> int:
-    return esize * (ROW_TILE * panel + BATCH_TILE * (panel * w + _pad(esize)))
+def _smem(panel: int, w: int) -> int:
+    return 4 * (ROW_TILE * panel + BATCH_TILE * (panel * w + _PAD))
 
 
-def launch_plan(k: int, n: int, b: int, w: int, esize: int = 4,
-                m: int | None = None) -> GraphPlan:
-    """The forward's tiling for mul_L [k,n,n], x [b,n,w] of `esize`-byte
-    operands (4: the f32 arm, 2: the bf16 arm); needs no card. `m`: the rows
-    of a row block, mul_L [k,m,n] (m = n where not given): row tiles of m,
-    panels of n."""
+def launch_plan(k: int, n: int, b: int, w: int, m: int | None = None) -> GraphPlan:
+    """The f32 arm's tiling for mul_L [k,n,n], x [b,n,w] (the bf16 arm plans
+    with `mma_plan`); needs no card. `m`: the rows of a row block, mul_L
+    [k,m,n] (m = n where not given): row tiles of m, panels of n."""
     m = n if m is None else m
     panel = -(-n // 8) * 8
-    if _smem(panel, w, esize) > SMEM_PER_BLOCK:
+    if _smem(panel, w) > SMEM_PER_BLOCK:
         # the most rows of x that fit beside their columns of L
         panel = (SMEM_PER_BLOCK - 16 * BATCH_TILE) // (
-            esize * (ROW_TILE + BATCH_TILE * w)) // 8 * 8
+            4 * (ROW_TILE + BATCH_TILE * w)) // 8 * 8
         if panel < 8:
             raise ValueError(f"cheb_graph_conv: window {w} leaves no room in shared "
                              "memory for eight rows of x")
     return GraphPlan(
         grid=(-(-b // BATCH_TILE), -(-m // ROW_TILE), max(k - 1, 1)), panel=panel,
-        row_stride=panel, batch_stride=panel * w + _pad(esize),
+        row_stride=panel, batch_stride=panel * w + _PAD,
         threads=ROW_TILE * BATCH_TILE * min(-(-w // 4), MAX_CHUNKS),
-        smem=_smem(panel, w, esize), vec=w % 4 == 0, orders=k)
+        smem=_smem(panel, w), vec=w % 4 == 0, orders=k)
 
 
+# The bf16 arm's kernel on the tensor cores (csrc/graph.cu
+# `cheb_graph_conv_mma_kernel`): its constants, and the shared memory of a
+# plan as `mma_smem` there counts it.
+MMA_KC = 32            # kKC: nodes of the sum a stage holds
+MMA_LDA = MMA_KC + 8   # kLda
+MMA_MAX_TN = 128       # kMaxTN: columns a tile
+MMA_MAX_CLUSTER = 8    # kMaxCluster: the portable cluster size
+MMA_ROW_TILES = (64, 32, 16)  # TM, the largest first
+MMA_SHORT_SUM = 8      # chunks of a node sum that runs unsplit where half the SMs are busy
+MAX_GRID_Y = 65_535
+
+
+def _mma_smem(tm: int, tn: int) -> int:
+    """The two bf16 stages (or the block's partial tile over them), the
+    partials it receives and their mbarrier, as csrc/graph.cu `mma_smem`."""
+    stages = 2 * (tm * MMA_LDA + MMA_KC * (tn + 8)) * 2
+    tile = tm * (-(-tn // 32) * 32 + 8) * 4
+    return max(stages, tile) + tile + 16
+
+
+class MmaPlan(NamedTuple):
+    """How the bf16 arm's output [B, K, M, W] is laid over clusters of blocks."""
+    tm: int           # rows of a tile: 16, 32 or 64
+    tb: int           # whole batches of x a column tile
+    tw: int           # of W's columns a column tile (W, or W in pieces where W > 128)
+    tn: int           # the tile's columns tb * tw padded to a multiple of 16
+    cluster: int      # C: blocks a cluster, each one segment of the node sum
+    grid: tuple       # (C * column tiles, row tiles, orders with a product: 1..K-1)
+    smem: int         # bytes of dynamic shared memory a block
+    orders: int       # K
+    chunks: int       # MMA_KC-node chunks of the sum
+
+    def c_args(self) -> tuple:
+        """The plan as the C entry takes it, after the shape."""
+        return (self.tm, self.tb, self.tw, self.tn, self.cluster, self.smem)
+
+    def segments(self):
+        """[chunk lo, chunk hi) of each rank's segment of the node sum, in rank
+        order (the kernel's z * chunks / C)."""
+        c = self.cluster
+        return [(z * self.chunks // c, (z + 1) * self.chunks // c) for z in range(c)]
+
+    def tiles(self, m: int, b: int, w: int):
+        """(order, rows [n0, n1), batches [b0, b1), columns [w0, w1), rank) of
+        every tile a block stores: rank z of a cluster its rows z * TM / C..
+        of the cluster's tile, of its own order and, for the blocks of order 1
+        (the first in the grid), of the zero slab of order 0."""
+        wtiles = -(-w // self.tw)
+        for bx in range(self.grid[0]):
+            ct, z = divmod(bx, self.cluster)
+            b0, w0 = ct // wtiles * self.tb, ct % wtiles * self.tw
+            for ny in range(self.grid[1]):
+                n0 = ny * self.tm
+                rows = min(self.tm, m - n0)
+                r0 = z * self.tm // self.cluster
+                r1 = min((z + 1) * self.tm // self.cluster, rows)
+                if r0 >= r1:
+                    continue
+                tile = ((n0 + r0, n0 + r1), (b0, min(b0 + self.tb, b)),
+                        (w0, min(w0 + self.tw, w)), z)
+                for oz in range(self.grid[2]):
+                    k = oz + 1
+                    if oz == 0:
+                        yield (0, *tile)
+                    if k < self.orders:
+                        yield (k, *tile)
+
+
+def mma_plan(k: int, n: int, b: int, w: int, sms: int, m: int | None = None) -> MmaPlan:
+    """The bf16 arm's tiling for mul_L [k,m,n] (m = n where not given) and x
+    [b,n,w] on a card of `sms` SMs; needs no card. Column tiles take as many
+    whole batches as fit in MMA_MAX_TN columns (balanced over the tiles), or
+    at w > MMA_MAX_TN one batch's w in pieces of a multiple of 4. A node sum
+    of at most MMA_SHORT_SUM chunks is not split where its tiles give at
+    least half the SMs: the largest row tile (64, 32, 16) that does. Else the
+    largest row tile whose tiles, the node sum split over 1, 2, 4 or 8 blocks
+    of a cluster, give at least `sms` blocks, with the fewest segments; where
+    none does, 16 rows and as many segments as the chunks allow. Plans from
+    the shape and `sms` alone: at m = n the square call's."""
+    m = n if m is None else m
+    if min(k, n, m, b, w) < 1:
+        raise ValueError(f"cheb_graph_conv_bf16: no plan for K={k} M={m} N={n} B={b} W={w}")
+    if w <= MMA_MAX_TN:
+        tw = w
+        ctiles = -(-b // min(b, MMA_MAX_TN // w))
+        tb = -(-b // ctiles)
+    else:
+        tw = -(-w // -(-w // MMA_MAX_TN))  # w over the fewest pieces
+        tw = -(-tw // 4) * 4
+        tb, ctiles = 1, b * -(-w // tw)
+    tn = -(-tb * tw // 16) * 16
+    orders = max(k - 1, 1)
+    chunks = -(-n // MMA_KC)
+    splits = [c for c in (1, 2, 4, 8) if c <= min(chunks, MMA_MAX_CLUSTER)] if k > 1 else [1]
+    blocks = lambda tm, c: -(-m // tm) * ctiles * orders * c  # noqa: E731
+    if chunks <= MMA_SHORT_SUM and blocks(MMA_ROW_TILES[-1], 1) * 2 >= sms:
+        # a short sum: no split (its exchange costs more than the chunks it
+        # saves), the largest row tile that gives half the SMs
+        choice = next((tm, 1) for tm in MMA_ROW_TILES if blocks(tm, 1) * 2 >= sms)
+    else:
+        choice = next(((tm, c) for tm in MMA_ROW_TILES for c in splits
+                       if blocks(tm, c) >= sms), (MMA_ROW_TILES[-1], splits[-1]))
+    tm, c = choice
+    if -(-m // tm) > MAX_GRID_Y:
+        raise ValueError(f"cheb_graph_conv_bf16: {m} rows need more than {MAX_GRID_Y} row "
+                         "tiles")
+    return MmaPlan(tm=tm, tb=tb, tw=tw, tn=tn, cluster=c,
+                   grid=(c * ctiles, -(-m // tm), orders), smem=_mma_smem(tm, tn),
+                   orders=k, chunks=chunks)
+
+
+# both entries: L, x, out, the shape and the plan (11 ints), the stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
@@ -127,15 +241,20 @@ def _launch_fwd(mul_L, x, compute_dtype: str = "float32", rows: bool = False):
     if nx != n or (m != n and not rows):
         raise ValueError(
             f"{counter.__name__}: mul_L {tuple(mul_L.shape)} vs x {tuple(x.shape)}")
-    bf16 = counter in (cheb_graph_conv_bf16, cheb_graph_conv_rows_bf16)
     out = torch.empty((b, k, m, w), dtype=torch.float32, device=x.device)
-    # the f32 operands themselves: the bf16 arm rounds them in its loads
-    plan = launch_plan(k, n, b, w, 2 if bf16 else 4, m=m)
-    vec = plan.vec and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    rc = _fn("cheb_graph_conv_fwd_bf16" if bf16 else "cheb_graph_conv_fwd")(
-        mul_L.data_ptr(), x.data_ptr(), out.data_ptr(), k, m, n, b, w, plan.panel,
-        plan.row_stride, plan.batch_stride, plan.threads, plan.smem, int(vec),
-        _build.stream_ptr(x))
+    if counter in (cheb_graph_conv_bf16, cheb_graph_conv_rows_bf16):
+        # the f32 operands themselves: the kernel rounds them in its loads
+        mp = mma_plan(k, n, b, w, _build.card_limits(x.device)[0], m=m)
+        rc = _fn("cheb_graph_conv_fwd_bf16")(
+            mul_L.data_ptr(), x.data_ptr(), out.data_ptr(), k, m, n, b, w, *mp.c_args(),
+            _build.stream_ptr(x))
+    else:
+        plan = launch_plan(k, n, b, w, m=m)
+        vec = plan.vec and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        rc = _fn("cheb_graph_conv_fwd")(
+            mul_L.data_ptr(), x.data_ptr(), out.data_ptr(), k, m, n, b, w, plan.panel,
+            plan.row_stride, plan.batch_stride, plan.threads, plan.smem, int(vec),
+            _build.stream_ptr(x))
     _build.check(rc, counter.__name__)
     counter.launches += 1
     return out

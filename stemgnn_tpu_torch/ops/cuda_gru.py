@@ -219,7 +219,6 @@ _ARGTYPES = {
     "gru_bwd_cluster": [_P] * 4 + [_I] * 10 + [_P],
     "gru_fwd_grid": [_P] * 6 + [_I] * 11 + [_P],
     "gru_bwd_grid": [_P] * 5 + [_I] * 11 + [_P],
-    "gru_device_limits": [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
 
@@ -238,17 +237,6 @@ def _workspace(plan: GruPlan, like):
     return torch.empty(plan.workspace // 4, dtype=torch.float32, device=like.device)
 
 
-@functools.cache
-def card_limits(device: torch.device):
-    """(SMs, bytes of shared memory a block can opt in to) of the card
-    `device` names, as the CUDA runtime reports them."""
-    sms, smem = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device):
-        _build.check(_fn("gru_device_limits")(ctypes.byref(sms), ctypes.byref(smem)),
-                     "gru_device_limits")
-    return sms.value, smem.value
-
-
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
@@ -264,7 +252,7 @@ def _launch_fwd(x_proj, w_hh_t, b_hh, save: bool, plan: GruPlan | None = None):
         raise ValueError(
             f"gru_over_nodes: x_proj {tuple(x_proj.shape)}, w_hh_t "
             f"{tuple(w_hh_t.shape)}, b_hh {tuple(b_hh.shape)}")
-    plan = plan or launch_plan(b, h, *card_limits(x_proj.device))
+    plan = plan or launch_plan(b, h, *_build.card_limits(x_proj.device))
     out = torch.empty((b, n, h), dtype=torch.float32, device=x_proj.device)
     saved = (torch.empty((n, 5, b, h), dtype=torch.float32, device=x_proj.device)
              if save else None)
@@ -290,7 +278,7 @@ def _launch_fwd(x_proj, w_hh_t, b_hh, save: bool, plan: GruPlan | None = None):
 def gru_fwd_grid(x_proj, w_hh_t, b_hh, save: bool = False):
     """The recurrence through the grid kernel whatever the shape: what
     `gru_over_nodes` launches for a hidden size that fits no cluster."""
-    plan = grid_plan(x_proj.shape[1], w_hh_t.shape[0], *card_limits(x_proj.device))
+    plan = grid_plan(x_proj.shape[1], w_hh_t.shape[0], *_build.card_limits(x_proj.device))
     return _launch_fwd(x_proj, w_hh_t, b_hh, save, plan)
 
 
@@ -307,7 +295,7 @@ def _launch_bwd(saved, g, a_all, plan: GruPlan | None = None):
         raise ValueError(
             f"gru_scan_bwd: saved {tuple(saved.shape)}, g {tuple(g.shape)}, "
             f"a_all {tuple(a_all.shape)}")
-    plan = plan or bwd_plan(b, h, *card_limits(saved.device))
+    plan = plan or bwd_plan(b, h, *_build.card_limits(saved.device))
     dxp = torch.empty((n, b, 3 * h), dtype=torch.float32, device=saved.device)
     ptrs = (saved.data_ptr(), g.data_ptr(), a_all.data_ptr(), dxp.data_ptr())
     stream = _build.stream_ptr(saved)
@@ -340,7 +328,7 @@ gru_scan_bwd.launches = 0  # the cluster kernel's
 def gru_bwd_grid(saved, g, a_all):
     """The backward through the grid kernel whatever the shape: what
     `gru_scan_bwd` launches for a hidden size that fits no cluster."""
-    plan = grid_plan(saved.shape[2], saved.shape[3], *card_limits(saved.device),
+    plan = grid_plan(saved.shape[2], saved.shape[3], *_build.card_limits(saved.device),
                      backward=True)
     return _launch_bwd(saved, g, a_all, plan)
 

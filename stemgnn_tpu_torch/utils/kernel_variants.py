@@ -24,15 +24,24 @@ of the saved arrays (f32, bf16) at both shapes, and the bf16 stores by variant.
 `attention` times the attention forward and backward at the flagship and at
 B = 32, N = 512 with one piece left out (the query held in registers, the
 16-byte accesses, the key loads, the cluster's sums and its start barrier)
-and on other plans (rows a warp, warps a block, blocks a cluster).
+and on other plans (rows a warp, warps a block, blocks a cluster). `graph`
+times the f32 graph conv at the flagship with a piece left out, and the bf16
+arm on the tensor cores (`cheb_graph_conv_mma_kernel`) at the flagship,
+COVID-19 and synthetic-1k shapes (whole, and its row blocks on 'graph' 2
+and 4) with a piece left out (loads of x, of L, all staging, products, the
+split sum's exchange, the epilogue) and on other plans than `mma_plan`'s
+(row tiles, segments), beside torch.mm on bf16 operands cast beforehand and
+with its two casts in the call.
 `against=CHECKOUT`
 builds the spectral and graph sources of another checkout (a `git archive` of
 an earlier commit) and holds this tree's f32 spectral entries (forwards and
-backwards) and both arms of the graph conv (this tree's bf16 arm fed the f32
-operands, the other's the casts its wrapper made) bitwise against it, at the
-flagship and COVID-19 shapes, and times both trees' bf16 reread backwards
-(both storage arms), bf16 recompute and bf16 forwards (the bf16-storage
-saving forward too); it also builds the other checkout's csrc/attention.cu and
+backwards) and the f32 graph conv bitwise against it, at the flagship and
+COVID-19 shapes (the graph conv at synthetic-1k's shapes too), and times
+both trees' bf16 reread backwards (both storage arms), bf16 recompute, bf16
+forwards (the bf16-storage saving forward too) and bf16 graph conv (each
+tree's C entry on its own tree's plan, its ops/cuda_graph.py; an earlier
+bf16 arm fed the casts its wrapper made where it took bf16 operands), their
+outputs compared; it also builds the other checkout's csrc/attention.cu and
 times both trees' attention forward and backward in turns at the flagship
 and at B = 32, N = 512, their outputs compared. Times are
 device milliseconds of one call, replays of a CUDA graph of 20 calls, with the
@@ -45,7 +54,7 @@ card and nvcc; nothing in the package calls this.
 from __future__ import annotations
 
 import ctypes
-import functools
+import importlib.util
 import subprocess
 import sys
 import tempfile
@@ -213,9 +222,9 @@ SPECTRAL_FWD_VARIANTS = {
 _G_LOOP = "      for (int m = p; m < mp; m += kParts) {"
 _G_ONE_ROUND = "      for (int m = p; m < min(mp, kParts); m += kParts) {"
 _G_LOADS = [  # the f32 arm's
-    ("          copy_panel_async(As, RSA, Lk + m0, N, rows, mr);\n", ""),
-    ("            copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, 0, 1,\n"
-     "                             mr * W);\n", "            ;\n")]
+    ("        copy_panel_async(As, RSA, Lk + m0, N, rows, mr);\n", ""),
+    ("          copy_panel_async(Xs + i * XBS, 0, x + ((long)(b0 + i) * N + m0) * W, 0, 1,\n"
+     "                           mr * W);\n", "          ;\n")]
 GRAPH_VARIANTS = {
     "base": [],
     "one round of the sum": [(_G_LOOP, _G_ONE_ROUND)],
@@ -224,6 +233,41 @@ GRAPH_VARIANTS = {
     "every block returns at once": [("  T* As = smem;\n",
                                      "  if (n0 >= 0) return;\n  T* As = smem;\n")],
 }
+
+# The bf16 arm on the tensor cores (csrc/graph.cu `cheb_graph_conv_mma_kernel`)
+# with one piece left out at a time: its staging (the loads of L, of x, and
+# their rounding into the bf16 stages), the products, the split sum's
+# exchange (the bulk copies of the partials' slices between the cluster's
+# blocks and the wait for them; the cluster barriers stay) and the
+# epilogue's sums and stores.
+_GM_LOADS = [("    load(c_lo);\n", "    for (int i = 0; i < 8; ++i) lreg[i] = 0.f;\n"
+                                     "    for (int i = 0; i < 16; ++i) xreg[i] = 0.f;\n"),
+             ("      if (c + 1 < c_hi) load(c + 1);  // in flight while this chunk is multiplied\n",
+              "")]
+GRAPH_MMA_VARIANTS = {
+    "base": [],
+    "no loads of x": [("            v = __ldg(reinterpret_cast<const float4*>(xc0 + xg[s]));\n",
+                       "            v.x = (float)xg[s];\n")],
+    "no loads of L": [("            v = __ldg(reinterpret_cast<const float4*>(Lk + (long)r * N + m0 + lc));\n",
+                       "            v.x = (float)r;\n")],
+    "no loads": _GM_LOADS,
+    "no staging (loads, rounding)": [
+        *_GM_LOADS, ("    store(0);\n", ""), ("      if (c + 1 < c_hi) store(st ^ 1);\n", "")],
+    "no products": [("      products(st);\n", "")],
+    "no exchange (bulk copies, their wait)": [
+        ("      for (int q = 0; q < C; ++q)\n        bulk_to_cluster(", "      for (int q = 0; q < 0; ++q)\n        bulk_to_cluster("),
+        ("    mbar_wait(bar, 0);  // every rank's slice has landed (traps if one never does)\n", "")],
+    "no epilogue sums or stores": [("  if (ob < tb && ow < tw) {\n", "  if (ob < 0) {\n")],
+    "every block returns at once": [
+        ("  cg::cluster_group cluster = cg::this_cluster();\n",
+         "  if (K > 0) return;\n  cg::cluster_group cluster = cg::this_cluster();\n")],
+}
+# (K, N, B, W, M) of the bf16 arm's shapes: the ECG flagship, COVID-19,
+# synthetic-1k's row blocks on 'graph' 2 and 4, and synthetic-1k whole
+GRAPH_SHAPES = {"flagship": (4, 140, 32, 12, 140), "COVID-19": (4, 25, 32, 28, 25),
+                "synthetic-1k (1, 2) block": (4, 1024, 8, 12, 512),
+                "synthetic-1k (1, 4) block": (4, 1024, 8, 12, 256),
+                "synthetic-1k": (4, 1024, 8, 12, 1024)}
 
 
 # The bf16 backward on Hopper (csrc/spectral.cu `bwd_tc_launch`: the pack,
@@ -438,7 +482,7 @@ def gru(dev, tmp: Path) -> None:
     out = torch.empty((b, h, h), device=dev)
     sv = torch.empty((h, 5, b, h), device=dev)
     plans = {f"cluster of {c}": cuda_gru._cluster_plan(b, h, c) for c in (5, 7, 4)}
-    card = cuda_gru.card_limits(dev)
+    card = _build.card_limits(dev)
     for name, lib in _build_variants("gru.cu", GRU_VARIANTS, tmp).items():
         fn = lib.gru_fwd_cluster
         fn.argtypes = cuda_gru._ARGTYPES["gru_fwd_cluster"]
@@ -495,7 +539,7 @@ def gru_bwd(dev, tmp: Path) -> None:
         _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
     dxp = torch.empty((h, b, 3 * h), device=dev)
     plans = {f"cluster of {c}": cuda_gru._bwd_cluster_plan(b, h, c) for c in (5, 7, 8)}
-    card = cuda_gru.card_limits(dev)
+    card = _build.card_limits(dev)
     for name, lib in _build_variants("gru.cu", GRU_BWD_VARIANTS, tmp).items():
         fn = lib.gru_bwd_cluster
         fn.argtypes = cuda_gru._ARGTYPES["gru_bwd_cluster"]
@@ -549,7 +593,7 @@ def gru_grid(dev, tmp: Path) -> None:
             np.float32)).to(dev)
         with torch.no_grad():
             _, saved = torch_impl.gru_scan(x_proj, a_all, b_hh, save=True)
-        card = cuda_gru.card_limits(dev)
+        card = _build.card_limits(dev)
         shapes.append((b, h, x_proj, a_all, b_hh, saved, g, cuda_gru.grid_plan(b, h, *card),
                        cuda_gru.grid_plan(b, h, *card, backward=True)))
     for name, lib in _build_variants("gru.cu", GRU_GRID_VARIANTS, tmp).items():
@@ -1207,81 +1251,167 @@ def spectral_against(dev, tmp: Path, other: Path) -> None:
         print(f"{entry} flagship: this tree against {other}: output"
               f"{' and saved arrays' if i else ''} {'bitwise equal' if same else 'DIFFER'}; ms "
               f"in the order other, this, this, other: {ms}")
-    graph_libs = {"other": _build_other(csrc / "graph.cu", tmp),
-                  "this": _build.library("graph")}
-    graph_m = {"other": _takes_m(csrc / "graph.cu", "graph"), "this": True}
-    # whether each tree's bf16 entry takes the f32 operands (this tree's does)
-    # or, as before that, bf16 ones that its wrapper cast
-    f32_in = {"other": _bf16_graph_takes_f32(csrc / "graph.cu"), "this": True}
-    rng = np.random.default_rng(8)
-    for shape, (k, n, b, w) in {"flagship": (4, 140, 32, 12), "COVID-19": (4, 25, 32, 28)}.items():
-        mul_l = torch.from_numpy((rng.standard_normal((k, n, n)) * 0.1).astype(np.float32)).to(dev)
-        x = torch.from_numpy(rng.standard_normal((b, n, w)).astype(np.float32)).to(dev)
-        # both arms; the bf16 one of this tree takes the f32 operands and
-        # rounds them in its loads, an other's from before that bf16 casts
-        for arm, esize in (("", 4), ("_bf16", 2)):
-            plan = cuda_graph.launch_plan(k, n, b, w, esize)
-            outs, calls = {}, {}
-            for tree, lib in graph_libs.items():
-                fn = getattr(lib, "cheb_graph_conv_fwd" + arm)
-                fn.argtypes, fn.restype = cuda_graph._ARGTYPES, ctypes.c_int
-                out = torch.empty((b, k, n, w), device=dev)
-                cast = bool(arm) and not f32_in[tree]
-                a_in, x_in = ((mul_l.to(torch.bfloat16), x.to(torch.bfloat16)) if cast
-                              else (mul_l, x))
 
-                dims = (k, n, n, b, w) if graph_m[tree] else (k, n, b, w)
-                if not graph_m[tree]:
-                    fn.argtypes = fn.argtypes[:4] + fn.argtypes[5:]
 
-                def call(fn=fn, out=out, a_in=a_in, x_in=x_in, cast=cast, dims=dims):
-                    if cast:  # the other tree's wrapper cast before its launch
-                        a_in.copy_(mul_l)
-                        x_in.copy_(x)
-                    _build.check(fn(a_in.data_ptr(), x_in.data_ptr(), out.data_ptr(), *dims,
-                                    plan.panel, plan.row_stride, plan.batch_stride,
-                                    plan.threads, plan.smem, int(plan.vec),
-                                    _build.stream_ptr(out)), "cheb_graph_conv_fwd" + arm)
-                    return out
+def _graph_inputs(k: int, n: int, b: int, w: int, m: int, dev, seed: int = 0):
+    """mul_L [k, m, n] (order 0 zeros) and x [b, n, w], seeded."""
+    rng = np.random.default_rng(seed)
+    mul_l = (rng.standard_normal((k, m, n)) / np.sqrt(n)).astype(np.float32)
+    mul_l[0] = 0.0
+    return (torch.from_numpy(mul_l).to(dev),
+            torch.from_numpy(rng.standard_normal((b, n, w)).astype(np.float32)).to(dev))
 
-                outs[tree], calls[tree] = call().clone(), call
-            torch.cuda.synchronize()
-            ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
-            if arm and not f32_in["other"]:  # the other kernel alone, its operands cast beforehand
-                alone = functools.partial(calls["other"], cast=False)
-                ms.append(round(_cuda_ms(alone), 5))
-            same = torch.equal(outs["this"], outs["other"])
-            print(f"cheb_graph_conv_fwd{arm} {shape} K={k} N={n} B={b} W={w}: this tree "
-                  f"against {other}: output {'bitwise equal' if same else 'DIFFERS'}; ms "
-                  f"(with the other's casts) in the order other, this, this, other"
-                  f"{', then the other kernel alone' if arm and not f32_in['other'] else ''}"
-                  f": {ms}")
+
+def _graph_entry(fn, mul_l, x, out, dims: tuple, plan_args: tuple, name: str):
+    """A call of a graph-conv C entry on dims (K, [M,] N, B, W) and its plan's
+    arguments."""
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (len(dims) + len(plan_args))
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call():
+        _build.check(fn(mul_l.data_ptr(), x.data_ptr(), out.data_ptr(), *dims, *plan_args,
+                        _build.stream_ptr(out)), name)
+        return out
+
+    return call
+
+
+def _f32_args(plan, x, out) -> tuple:
+    vec = plan.vec and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return (plan.panel, plan.row_stride, plan.batch_stride, plan.threads, plan.smem, int(vec))
+
+
+def _mma_plan_as(plan, tm: int, cluster: int):
+    """`plan` with other row tiles or segments (the C entry derives its grid
+    from these), or None where the kernel would refuse it."""
+    if cluster > plan.chunks or (plan.orders <= 1 and cluster > 1):
+        return None
+    return plan._replace(tm=tm, cluster=cluster, smem=cuda_graph._mma_smem(tm, plan.tn))
+
+
+def library_bf16(mul_l, x):
+    """(pre-cast, with casts) calls of torch.mm on bf16 operands with an f32
+    result, the orders 1..K-1 of mul_l [K, M, N] against x [B, N, W] as
+    [N, B * W]: the bf16 graph conv's library yardsticks (here and in
+    `chip_smoke.py` phase 3). The first takes operands cast beforehand, the
+    second holds its two casts."""
+    k, m, n = mul_l.shape
+    b, _, w = x.shape
+    lk = mul_l[1:].reshape((k - 1) * m, n)
+    xt = x.permute(1, 0, 2).reshape(n, b * w)
+    lk16, xt16 = lk.to(torch.bfloat16), xt.to(torch.bfloat16).contiguous()
+    return (lambda: torch.mm(lk16, xt16, out_dtype=torch.float32),
+            lambda: torch.mm(lk.to(torch.bfloat16), xt.to(torch.bfloat16),
+                             out_dtype=torch.float32))
 
 
 def graph(dev, tmp: Path) -> None:
+    """The f32 arm with a piece left out (GRAPH_VARIANTS) at the flagship; the
+    bf16 arm on the tensor cores with a piece left out (GRAPH_MMA_VARIANTS)
+    and on other plans than `mma_plan`'s at GRAPH_SHAPES, beside torch.mm on
+    bf16 operands, pre-cast and with its casts."""
     k, n, b, w = 4, 140, 32, 12
-    rng = np.random.default_rng(0)
-    mul_l = torch.from_numpy((rng.standard_normal((k, n, n)) * 0.1).astype(np.float32))
-    mul_l, x = mul_l.to(dev), torch.from_numpy(
-        rng.standard_normal((b, n, w)).astype(np.float32)).to(dev)
+    mul_l, x = _graph_inputs(k, n, b, w, n, dev)
     out = torch.empty((b, k, n, w), device=dev)
     plan = cuda_graph.launch_plan(k, n, b, w)
     for name, lib in _build_variants("graph.cu", GRAPH_VARIANTS, tmp).items():
-        fn = lib.cheb_graph_conv_fwd
-        fn.argtypes = cuda_graph._ARGTYPES
-        fn.restype = ctypes.c_int
-
-        def call():
-            _build.check(fn(mul_l.data_ptr(), x.data_ptr(), out.data_ptr(), k, n, n, b, w,
-                            plan.panel, plan.row_stride, plan.batch_stride, plan.threads,
-                            plan.smem, 1, _build.stream_ptr(out)), name)
-
+        call = _graph_entry(lib.cheb_graph_conv_fwd, mul_l, x, out, (k, n, n, b, w),
+                            _f32_args(plan, x, out), name)
         print(f"cheb_graph_conv_fwd K={k} N={n} B={b} W={w}, {name}: "
               f"{_cuda_ms(call) * 1e3:.3f} us")
     x_t = x.permute(1, 0, 2).reshape(n, b * w).contiguous()
     orders = mul_l[1:].contiguous()
     print(f"torch.matmul of the three orders: "
           f"{_cuda_ms(lambda: torch.matmul(orders, x_t)) * 1e3:.3f} us")
+    sms = _build.card_limits(dev)[0]
+    libs = _build_variants("graph.cu", GRAPH_MMA_VARIANTS, tmp)
+    for shape, (k, n, b, w, m) in GRAPH_SHAPES.items():
+        mul_l, x = _graph_inputs(k, n, b, w, m, dev)
+        out = torch.empty((b, k, m, w), device=dev)
+        plan = cuda_graph.mma_plan(k, n, b, w, sms, m=m)
+        tag = f"cheb_graph_conv_fwd_bf16 {shape} K={k} M={m} N={n} B={b} W={w}"
+        print(f"{tag}: plan {plan}")
+        for name, lib in libs.items():
+            call = _graph_entry(lib.cheb_graph_conv_fwd_bf16, mul_l, x, out, (k, m, n, b, w),
+                                plan.c_args(), name)
+            print(f"{tag}, {name}: {_cuda_ms(call) * 1e3:.3f} us")
+        base = libs["base"].cheb_graph_conv_fwd_bf16
+        for tm in cuda_graph.MMA_ROW_TILES:
+            for c in (1, 2, 4, 8):
+                other = _mma_plan_as(plan, tm, c)
+                if other is None or other == plan:
+                    continue
+                call = _graph_entry(base, mul_l, x, out, (k, m, n, b, w), other.c_args(),
+                                    "plan")
+                blocks = c * plan.grid[0] // plan.cluster * -(-m // tm) * plan.grid[2]
+                print(f"{tag}, plan TM={tm} C={c} ({blocks} blocks): "
+                      f"{_cuda_ms(call) * 1e3:.3f} us")
+        pre, cast = library_bf16(mul_l, x)
+        print(f"{tag}: torch.mm on bf16 operands {_cuda_ms(pre) * 1e3:.3f} us, with its "
+              f"casts {_cuda_ms(cast) * 1e3:.3f} us")
+
+
+def _other_module(other: Path, rel: str):
+    """Another checkout's module of the port (a plan, pure Python), loaded from
+    its file; what it imports of the package comes from this tree."""
+    path = other / "stemgnn_tpu_torch" / rel
+    spec = importlib.util.spec_from_file_location(f"other_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def graph_against(dev, tmp: Path, other: Path) -> None:
+    """Both trees' graph conv (this tree's csrc/graph.cu and the other
+    checkout's), each arm as its own tree's C entry takes it and on its own
+    tree's plan (its ops/cuda_graph.py: an earlier bf16 arm's `launch_plan`
+    with 2-byte operands, fed bf16 casts where it took them): the f32 arm
+    bitwise, the bf16 arm compared (bitwise where both trees run one design),
+    times in the order other, this, this, other, at GRAPH_SHAPES."""
+    src = other / "stemgnn_tpu_torch" / "csrc" / "graph.cu"
+    libs = {"other": _build_other(src, tmp), "this": _build.library("graph")}
+    plans = {"other": _other_module(other, "ops/cuda_graph.py"), "this": cuda_graph}
+    takes_m = {"other": _takes_m(src, "graph"), "this": True}
+    f32_in = {"other": _bf16_graph_takes_f32(src), "this": True}
+    sms = _build.card_limits(dev)[0]
+    for shape, (k, n, b, w, m) in GRAPH_SHAPES.items():
+        if m != n and not takes_m["other"]:
+            continue
+        mul_l, x = _graph_inputs(k, n, b, w, m, dev, seed=8)
+        for arm in ("", "_bf16"):
+            calls, outs = {}, {}
+            for tree, lib in libs.items():
+                cg_ = plans[tree]
+                out = torch.empty((b, k, m, w), device=dev)
+                dims = (k, m, n, b, w) if takes_m[tree] else (k, n, b, w)
+                a_in, x_in = mul_l, x
+                if not arm:
+                    args = _f32_args(cg_.launch_plan(k, n, b, w, m=m), x, out)
+                elif hasattr(cg_, "mma_plan"):
+                    args = cg_.mma_plan(k, n, b, w, sms, m=m).c_args()
+                else:  # an earlier bf16 arm: the f32 kernel's tiling of 2-byte operands
+                    args = _f32_args(cg_.launch_plan(k, n, b, w, 2, m=m), x, out)
+                    if not f32_in[tree]:
+                        a_in, x_in = mul_l.to(torch.bfloat16), x.to(torch.bfloat16)
+                entry = _graph_entry(getattr(lib, "cheb_graph_conv_fwd" + arm), a_in, x_in,
+                                     out, dims, args, tree + arm)
+                if a_in is not mul_l:  # that tree's wrapper cast before its launch
+
+                    def entry(entry=entry, a_in=a_in, x_in=x_in):
+                        a_in.copy_(mul_l)
+                        x_in.copy_(x)
+                        return entry()
+
+                calls[tree], outs[tree] = entry, entry().clone()
+            torch.cuda.synchronize()
+            diff = (outs["this"] - outs["other"]).abs().max() / outs["other"].abs().max()
+            same = ("bitwise equal" if torch.equal(outs["this"], outs["other"])
+                    else f"max diff {diff.item():.3e} of the largest entry")
+            ms = [round(_cuda_ms(calls[tree]), 5) for tree in ("other", "this", "this", "other")]
+            print(f"cheb_graph_conv_fwd{arm} {shape} K={k} M={m} N={n} B={b} W={w}: this tree "
+                  f"against {other}: output {same}; ms in the order other, this, this, "
+                  f"other: {ms}")
 
 
 _ATT_FWD_K = "      const float k = __shfl_sync(kFull, kl, (i - i0) % 32);\n"
@@ -1398,7 +1528,7 @@ def _attention_calls(lib, key, query, p, g, fplan=None, bplan=None, alpha=0.2,
         bargs = (*ptrs, p.data_ptr(), g.data_ptr(), dk.data_ptr(), dq.data_ptr(),
                  part.data_ptr(), b, n, alpha)
     else:
-        sms, smem = cuda_gru.card_limits(key.device)
+        sms, smem = _build.card_limits(key.device)
         fp = fplan or cuda_attention.fwd_plan(b, n, sms)
         bp = bplan or cuda_attention.bwd_plan(b, n, sms, smem)
         fargtypes = list(cuda_attention._ARGTYPES["attention_kq_fwd"])
@@ -1429,7 +1559,7 @@ def attention(dev, tmp: Path) -> None:
     """The attention kernels with one piece left out (ATTENTION_VARIANTS) and
     the source as it is on other plans, at the flagship and at N = 512."""
     libs = _build_variants("attention.cu", ATTENTION_VARIANTS, tmp)
-    sms, smem = cuda_gru.card_limits(dev)
+    sms, smem = _build.card_limits(dev)
     for shape, (b, n) in ATTENTION_SHAPES.items():
         key, query, p, g = _attention_inputs(b, n, dev)
         fp, bp = cuda_attention.fwd_plan(b, n, sms), cuda_attention.bwd_plan(b, n, sms, smem)
@@ -1534,6 +1664,7 @@ def main(argv=None) -> int:
             if name.startswith("against="):
                 other = Path(name.split("=", 1)[1]).resolve()
                 spectral_against(dev, Path(tmp), other)
+                graph_against(dev, Path(tmp), other)
                 attention_against(dev, Path(tmp), other)
                 continue
             if name.startswith("ptxas"):

@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 
 ALPHA = 0.2
 # an H100 SXM: its SMs and the shared memory a block can opt in to (the
-# wrappers read the card's own through cuda_gru.card_limits)
+# wrappers read the card's own through _build.card_limits)
 H100 = (132, 232_448)
 PLAN_N = [1, 7, 10, 25, 140, 141, 358, 512, 1024, 7300, 8192, 16384]
 EMULATED_N = [10, 25, 140, 150]
@@ -308,7 +308,7 @@ def test_wrappers_hand_the_kernels_their_plans(monkeypatch, n):
     fakes = {}
     monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
     monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
-    monkeypatch.setattr(cuda_gru, "card_limits", lambda device: H100)
+    monkeypatch.setattr(_build, "card_limits", lambda device: H100)
     monkeypatch.setattr(cuda_attention, "_fn", lambda name: fakes.setdefault(name, _Fake()))
     key, query, g = (torch.from_numpy(a) for a in _inputs(b, n, 80))
     out = cuda_attention._launch_fwd(key, query, ALPHA)

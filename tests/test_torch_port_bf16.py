@@ -286,8 +286,9 @@ def test_compute_dtype_flag_reaches_the_ops(monkeypatch):
 
 def test_bf16_arms_have_counters_and_plans():
     """Each bf16 arm counts under a name of its own, and calls on CPU tensors
-    count nothing; the graph conv's bf16 plan keeps a batch's panel of x a
-    whole number of 16-byte pieces of bf16 in shared memory."""
+    count nothing; the graph conv's bf16 plan (`mma_plan`, the kernel on the
+    tensor cores) keeps its stages' rows whole numbers of 16-byte pieces and
+    its tiles within an H100's limits."""
     assert list(ops.KERNELS)[-5:] == [
         "cheb_graph_conv_fwd_bf16", "spectral_fwd_bf16", "spectral_fwd_save_bf16",
         "spectral_bwd_bf16", "spectral_bwd_reread_bf16"]
@@ -304,11 +305,12 @@ def test_bf16_arms_have_counters_and_plans():
     cuda_graph.cheb_graph_conv_bf16(torch.zeros((4, 6, 6)), torch.ones((2, 6, W)))
     assert ops.launches() == dict.fromkeys(ops.KERNELS, 0)
     for n, b in ((140, 32), (800, 3)):
-        f32, bf16 = cuda_graph.launch_plan(4, n, b, W), cuda_graph.launch_plan(4, n, b, W, 2)
-        assert bf16.batch_stride % 8 == 0 and bf16.batch_stride >= bf16.panel * W + 4
-        assert bf16.smem == 2 * (32 * bf16.panel + 4 * bf16.batch_stride)
-        assert bf16.smem <= cuda_graph.SMEM_PER_BLOCK and bf16.panel >= f32.panel
-    assert cuda_graph.launch_plan(4, 140, 32, W, 2).panel == 144
+        plan = cuda_graph.mma_plan(4, n, b, W, 132)
+        assert (cuda_graph.MMA_LDA * 2) % 16 == 0 and ((plan.tn + 8) * 2) % 16 == 0
+        assert plan.tb * plan.tw <= plan.tn <= cuda_graph.MMA_MAX_TN and plan.tn % 16 == 0
+        assert plan.smem == cuda_graph._mma_smem(plan.tm, plan.tn) <= cuda_graph.SMEM_PER_BLOCK
+        assert plan.chunks * cuda_graph.MMA_KC >= n and plan.cluster <= plan.chunks
+    assert cuda_graph.mma_plan(4, 140, 32, W, 132)[:5] == (16, 8, W, 96, 1)
     with pytest.raises(ValueError):
         ops.cheb_graph_conv(torch.zeros((4, 6, 6)), torch.ones((2, 6, W)),
                             compute_dtype="float16")

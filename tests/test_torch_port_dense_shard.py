@@ -296,16 +296,22 @@ def test_row_block_plans_keep_the_cards_limits(n, parts):
         assert cuda_attention.fwd_plan(b, n, sms, m=n) == cuda_attention.fwd_plan(b, n, sms)
         assert (cuda_attention.bwd_plan(b, n, sms, smem, m=n)
                 == cuda_attention.bwd_plan(b, n, sms, smem))
-        for esize in (4, 2):
-            if n > 4096:  # the dense Chebyshev stack stops at the card's memory first
-                continue
-            gp = cuda_graph.launch_plan(4, n, b, 12, esize, m=m)
-            assert gp.grid[1] * cuda_graph.ROW_TILE >= m > (gp.grid[1] - 1) * cuda_graph.ROW_TILE
-            assert gp.grid[1] <= MAX_GRID_Y and gp.smem <= smem
-            rows = sorted({i for _, (r0, r1), _ in gp.tiles(m, b) for i in range(r0, r1)})
-            assert rows == list(range(m))
-            assert (gp._replace(grid=gp.grid[:1] + (-(-n // cuda_graph.ROW_TILE),) + gp.grid[2:])
-                    == cuda_graph.launch_plan(4, n, b, 12, esize))
+        if n > 4096:  # the dense Chebyshev stack stops at the card's memory first
+            continue
+        # the f32 arm's plan, and the bf16 arm's on the tensor cores
+        gp = cuda_graph.launch_plan(4, n, b, 12, m=m)
+        assert gp.grid[1] * cuda_graph.ROW_TILE >= m > (gp.grid[1] - 1) * cuda_graph.ROW_TILE
+        assert gp.grid[1] <= MAX_GRID_Y and gp.smem <= smem
+        rows = sorted({i for _, (r0, r1), _ in gp.tiles(m, b) for i in range(r0, r1)})
+        assert rows == list(range(m))
+        assert (gp._replace(grid=gp.grid[:1] + (-(-n // cuda_graph.ROW_TILE),) + gp.grid[2:])
+                == cuda_graph.launch_plan(4, n, b, 12))
+        mp = cuda_graph.mma_plan(4, n, b, 12, sms, m=m)
+        assert mp.grid[1] * mp.tm >= m > (mp.grid[1] - 1) * mp.tm
+        assert mp.grid[1] <= MAX_GRID_Y and mp.smem <= smem
+        rows = sorted({i for _, (r0, r1), _, _, _ in mp.tiles(m, b, 12) for i in range(r0, r1)})
+        assert rows == list(range(m))
+        assert cuda_graph.mma_plan(4, n, b, 12, sms, m=n) == cuda_graph.mma_plan(4, n, b, 12, sms)
 
 
 def _definition(src: str, name: str) -> str:

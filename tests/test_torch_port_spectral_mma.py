@@ -304,16 +304,23 @@ def test_bf16_graph_conv_hands_the_kernel_the_f32_operands(monkeypatch):
     monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
     monkeypatch.setattr(cuda_graph, "_fn", lambda name="cheb_graph_conv_fwd":
                         fakes.setdefault(name, _Fake()))
+    monkeypatch.setattr(_build, "card_limits", lambda device: (SMS, 232_448))
     mul_l, x = torch.zeros((4, 140, 140)), torch.ones((32, 140, 12))
-    for cd, esize in (("bfloat16", 2), ("float32", 4)):
+    for cd in ("bfloat16", "float32"):
         cuda_graph._launch_fwd(mul_l, x, cd)
         name = "cheb_graph_conv_fwd_bf16" if cd == "bfloat16" else "cheb_graph_conv_fwd"
         (args,) = fakes[name].calls
-        plan = cuda_graph.launch_plan(4, 140, 32, 12, esize)
         assert args[:2] == (mul_l.data_ptr(), x.data_ptr())
-        # (K, M, N, B, W): the square call's rows are its columns
-        assert args[3:13] == (4, 140, 140, 32, 12, plan.panel, plan.row_stride,
-                              plan.batch_stride, plan.threads, plan.smem)
+        # (K, M, N, B, W): the square call's rows are its columns; then the
+        # plan: the tensor-core kernel's (tm, tb, tw, tn, cluster, smem) on
+        # the card's SMs for the bf16 arm, the f32 kernel's for the f32 arm
+        if cd == "bfloat16":
+            plan = cuda_graph.mma_plan(4, 140, 32, 12, SMS)
+            assert args[3:14] == (4, 140, 140, 32, 12, *plan.c_args())
+        else:
+            plan = cuda_graph.launch_plan(4, 140, 32, 12)
+            assert args[3:13] == (4, 140, 140, 32, 12, plan.panel, plan.row_stride,
+                                  plan.batch_stride, plan.threads, plan.smem)
 
 
 @pytest.mark.parametrize("reread", [True, False], ids=["reread", "recompute"])
