@@ -1,0 +1,5 @@
+"""Share of the traced stretch in which no operation runs on the device, %."""
+
+
+def read(ctx):
+    return 100.0 * (1.0 - ctx.trace.busy_s() / ctx.trace.window_s)
